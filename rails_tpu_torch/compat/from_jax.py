@@ -1,0 +1,48 @@
+"""Carry a `rails_tpu` model's weights into the port.
+
+`state_dict_from_jax_params` takes the JAX package's `{"params": tree}` with
+numpy leaves (the caller converts, e.g.
+`jax.tree_util.tree_map(np.asarray, params)`) and returns the state dict that
+`SequentialRecommender.load_state_dict(strict=True)` accepts. The port's
+parameter names are the flax tree's paths joined by dots; a flax `Dense`
+`kernel` (in, out) becomes a torch `Linear` `weight` (out, in). This module
+imports no jax.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from rails_tpu.core.config import ExperimentConfig
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for key, value in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(value, Mapping):
+            out.update(_flatten(value, name + "."))
+        else:
+            out[name] = np.asarray(value)
+    return out
+
+
+def state_dict_from_jax_params(
+    params: Mapping, cfg: ExperimentConfig
+) -> Dict[str, torch.Tensor]:
+    """Port state dict of a JAX `SequentialRecommender` built from `cfg`."""
+    if cfg.model_type != "HSTU" or cfg.similarity_type != "MoL":
+        raise NotImplementedError(
+            f"{cfg.model_type}/{cfg.similarity_type} weights have no port model yet "
+            "(ROADMAP.md, Queue 1: SASRec; preprocessors, embeddings and similarities)"
+        )
+    state: Dict[str, torch.Tensor] = {}
+    for name, value in _flatten(params["params"]).items():
+        if name.endswith(".kernel"):          # flax Dense -> torch Linear
+            name = name[: -len("kernel")] + "weight"
+            value = value.T
+        state[name] = torch.tensor(value, dtype=torch.float32)
+    return state

@@ -1,0 +1,28 @@
+"""Device rules shared by every module of the port."""
+
+from __future__ import annotations
+
+import torch
+
+
+def require_cuda() -> None:
+    """Raise unless a CUDA device is available. Nothing in the port moves
+    work to the CPU when CUDA is missing."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("a CUDA device is required (torch.cuda.is_available() is False)")
+
+
+def use_kernel(*tensors: torch.Tensor) -> bool:
+    """The dispatch rule of every kernel wrapper: False when all inputs lie on
+    the CPU (the wrapper runs the kernel's plain PyTorch version), True when
+    all lie on a CUDA device (the wrapper launches the kernel or raises).
+    Any other mix raises."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return True
+    raise ValueError(
+        f"kernel inputs must all lie on the CPU or all on one CUDA device; got "
+        f"{sorted(str(t.device) for t in tensors)}"
+    )

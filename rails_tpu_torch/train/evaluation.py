@@ -1,0 +1,106 @@
+"""Serving/eval step: encode -> exact MoL top-k' -> seen-id filter -> ranks.
+
+Counterpart of `rails_tpu/train/evaluation.py`: `EvalState` and
+`get_eval_state` (:64-138, without IVF and MIPS), `ranks_from_top_k`
+(:141-152), `metrics_from_ranks` (:155-172) and `make_eval_step_fn`
+(:192-237). The step is a plain Python function under `torch.inference_mode`:
+no jit and no CUDA graph yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from rails_tpu_torch.data.features import SequentialFeatures
+from rails_tpu_torch.index.candidate_index import k_prime_for, select_top_k_with_invalid_filter
+from rails_tpu_torch.index.factory import get_top_k_raw
+from rails_tpu_torch.index.top_k import MoLTopKState, build_mol_topk_state
+
+NDCG_KS = (1, 5, 10, 50, 100, 200)
+HR_KS = (1, 5, 10, 50, 100, 200, 500, 1000)
+
+
+@dataclass
+class EvalState:
+    """The corpus's top-k state (ids and item tables)."""
+
+    topk_state: MoLTopKState
+    num_objects: int
+    top_k_method: str = "MoLBruteForceTopK"
+
+
+@torch.inference_mode()
+def get_eval_state(
+    model,
+    all_item_ids: np.ndarray,
+    top_k_method: str,
+    table_dtype: torch.dtype = torch.bfloat16,
+    device: Union[str, torch.device] = "cpu",
+) -> EvalState:
+    """Embed the whole corpus and build the exact top-k state on `device`.
+    (The JAX package's `item_l2_norm` serves the dot-product configs, which
+    are not ported.)"""
+    get_top_k_raw(top_k_method)   # refuse unported methods before any work
+    ids = torch.as_tensor(np.asarray(all_item_ids, dtype=np.int32), device=device)
+    state = build_mol_topk_state(
+        model, ids, model.get_item_embeddings(ids), table_dtype=table_dtype,
+        build_fused="Fused" in top_k_method,
+    )
+    return EvalState(topk_state=state, num_objects=int(ids.shape[0]), top_k_method=top_k_method)
+
+
+def ranks_from_top_k(top_k_ids: torch.Tensor, target_ids: torch.Tensor) -> torch.Tensor:
+    """1-based rank of the target in the top-k list; max(k, 1000) + 1 if absent."""
+    k = top_k_ids.shape[1]
+    hit = top_k_ids == target_ids[:, None]
+    found = hit.any(dim=1)
+    pos = torch.argmax(hit.to(torch.int8), dim=1)
+    sentinel = max(k, max(HR_KS)) + 1
+    return torch.where(found, pos + 1, torch.full_like(pos, sentinel))
+
+
+def metrics_from_ranks(ranks: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Per-example NDCG/HR/MRR; MRR credits misses 1/sentinel like the reference."""
+    out: Dict[str, torch.Tensor] = {}
+    ranks_f = ranks.float()
+    dcg = 1.0 / torch.log2(ranks_f + 1.0)
+    for kk in NDCG_KS:
+        out[f"ndcg@{kk}"] = torch.where(ranks <= kk, dcg, torch.zeros_like(dcg))
+    for kk in HR_KS:
+        out[f"hr@{kk}"] = (ranks <= kk).float()
+    out["mrr"] = 1.0 / ranks_f
+    return out
+
+
+def make_eval_step_fn(
+    model,
+    top_k_method: str,
+    k: int,
+    num_objects: int,
+    filter_invalid_ids: bool = True,
+    truncate_k_prime_to: Optional[int] = None,
+) -> Callable:
+    """The (encode -> top-k' -> filter -> rank) step, with the corpus state as
+    an argument: fn(topk_state, features, target_ids) -> (ranks (B,),
+    top-k ids (B, k), scores (B, k)). The JAX step's `params` and
+    `item_embeddings` arguments go: the weights live in `model`, and only the
+    MIPS method, not ported, reads the embeddings."""
+    raw = get_top_k_raw(top_k_method)
+
+    @torch.inference_mode()
+    def step(topk_state: MoLTopKState, features: SequentialFeatures,
+             target_ids: torch.Tensor):
+        queries = model.encode(features)
+        n0 = features.ids.shape[1] if filter_invalid_ids else 0
+        k_prime = k_prime_for(k, num_objects, n0, truncate_k_prime_to)
+        res = raw(model, topk_state, queries, k_prime, features.user_ids)
+        res = select_top_k_with_invalid_filter(
+            res, features.ids if filter_invalid_ids else None, min(k, res.ids.shape[1])
+        )
+        return ranks_from_top_k(res.ids, target_ids), res.ids, res.scores
+
+    return step
