@@ -1,16 +1,26 @@
 """Quickest proof that the PyTorch/CUDA port (`rails_tpu_torch`) runs on an
 NVIDIA H100: builds the hand-written kernels, checks each against its plain
-PyTorch version, and drives the exact-MoL serving path end to end.
+PyTorch version, and drives the exact-MoL serving path and the ml-20m-hstu-mol
+training step end to end.
 
 Run from the root of a checkout with one CUDA card: `python3 chip_smoke.py`.
 Phases (one line each, any failure raises and exits non-zero):
   1. device: card name, `nvidia-smi` name and power limit; TF32 off.
-  2. build:  nvcc builds K1 and K2 for sm_90a into build/rails_tpu_torch/.
+  2. build:  nvcc builds every kernel for sm_90a into build/rails_tpu_torch/.
   3. K1 (`fused_hstu_block`) vs its plain version at ML-20M block shapes.
   4. K2 (`fused_mol_scores_t`) vs its plain version over 26,744 items.
-  5. end to end: ml-20m-hstu-mol serving through get_eval_state and
+  5. e2e: ml-20m-hstu-mol serving through get_eval_state and
      make_eval_step_fn, in bf16 (as served) and in f32, each with launch
      counts and against the same step through the plain versions.
+  6. K3 (`hash_keep_mask`), the o_input mask at (128, 211, 256), bit-equal.
+  7. K4 (`fused_train_block_forward`, `attn_backward`): one f32 layer at
+     B=128, n=211, forward and every gradient vs the plain autograd version.
+  8. K7 (`adamw_leaf_update`) on the two fused leaves of ml-20m, vs its plain
+     version, with `torch._fused_adamw_` timed as a yardstick.
+  9. train: create_train_state + train_step on ml-20m-hstu-mol (B=128,
+     N=211, R=128, f32): step 1 through the kernels vs the same step through
+     the plain versions, then 20 steps on one batch (the loss must fall),
+     ms/step, peak memory and launch counts.
 The line before the last is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script fails before printing
 any result.
@@ -31,6 +41,18 @@ D, H, DQK, DV, MAX_SEQ_LEN = 256, 8, 32, 32, 211      # ml-20m-hstu-mol HSTU blo
 P_Q, P_X, D_P, TEMPERATURE = 8, 4, 128, 0.05          # ml-20m-hstu-mol MoL
 NUM_ITEMS = 26_744                                    # ML-20M unique items
 BATCH = 512
+TRAIN_BATCH = 128                                     # ml-20m-hstu-mol local_batch_size
+TRAIN_STEPS = 20
+# Published peaks of one H100 SXM (dense): f32 outside the tensor cores and
+# bf16 on them; HBM3 bandwidth.
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+HBM_BYTES_PER_S = 3.35e12
+K4_TOL = (1e-3, 1e-4)          # (rtol, atol) of the f32 forward, as K1
+# Gradients: max |kernel - plain| over max |plain|, per tensor or group. Both
+# paths sum in other f32 orders (and index_add_ bins d tsw with atomics).
+GRAD_REL_TOL = 1e-3
+TRAIN_LOSS_RTOL = 1e-4
+K7_ATOL = 1e-6
 K1_TOL = {"float32": (1e-3, 1e-4), "bfloat16": (2e-2, 2e-2)}   # (rtol, atol)
 K2_TOL_F32 = (1e-4, 1e-3)      # logits carry 1/T = 20
 # (dtype name, min rank agreement, min top-120 overlap) of the serving step's
@@ -51,7 +73,9 @@ def ptxas_summary(log: str) -> str:
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             mangled = entry.group(1)
-            name = re.search(r"(ln_gemm_kernel|hstu_attn_kernel|mol_scores_kernel)", mangled)
+            name = re.search(r"(ln_gemm_kernel|hstu_attn_bwd_kernel|hstu_attn_kernel|"
+                             r"attn_row_bwd_kernel|mol_scores_kernel|hash_keep_mask_kernel|"
+                             r"adamw_kernel)", mangled)
             args = ["bf16" if "bfloat16" in mangled else "f32"] + re.findall(r"Li(\d+)E", mangled)
             label = f"{name.group(1) if name else mangled}<{','.join(args)}>"
             spilled = "?"
@@ -79,6 +103,31 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(flops: float, nbytes: float, dtype_name: str) -> dict:
+    """The least time the card could take: the larger of the operations over
+    the peak rate for their type and the bytes over the HBM rate."""
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def block_flops(b: int, n: int) -> int:
+    """FLOPs of one HSTU block forward at ml-20m widths: the two projections
+    and q k^T, a v over the causal pairs j <= i the block needs."""
+    f = 2 * H * DV + 2 * H * DQK
+    pairs = n * (n + 1) // 2
+    return 2 * b * n * D * f + b * H * pairs * 2 * (DQK + DV) + 2 * b * n * H * DV * D
+
+
+def block_bytes(b: int, n: int, itemsize: int) -> int:
+    """Bytes one block forward must move: x and out, the weights, the bias
+    tables, the column mask and the timestamps."""
+    f = 2 * H * DV + 2 * H * DQK
+    return (itemsize * (2 * b * n * D + D * f + H * DV * D)
+            + 4 * (D + n * n + 128 + b * n + b * (n + 1)))
 
 
 def k1_inputs(b: int, n: int, dtype, device, seed: int = 0):
@@ -121,9 +170,12 @@ def check_k1(b: int, n: int, dtype, device) -> dict:
     err = (got.float() - ref.float()).abs().max().item()
     ms = cuda_ms(lambda: fused_hstu_block(*args, **kw))
     plain_ms = cuda_ms(lambda: fused_hstu_block_reference(*args, **kw))
-    print(f"[K1] {str(dtype)[6:]} B={b} n={n} D={D} h={H}: max|err| {err:.3e} "
-          f"(rtol {rtol}, atol {atol}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    dt = str(dtype)[6:]
+    bd = bound(block_flops(b, n), block_bytes(b, n, args[0].element_size()), dt)
+    print(f"[K1] {dt} B={b} n={n} D={D} h={H}: max|err| {err:.3e} "
+          f"(rtol {rtol}, atol {atol}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": None}
 
 
 def k2_inputs(b: int, x: int, dtype, device, seed: int = 1):
@@ -179,9 +231,17 @@ def check_k2(b: int, x: int, dtype, device) -> dict:
             raise AssertionError(f"K2 bf16 outside its contract: {verdict}")
     ms = cuda_ms(lambda: fused_mol_scores_t(*args))
     plain_ms = cuda_ms(lambda: fused_mol_scores_t_reference(*args), iters=3, warmup=1)
-    print(f"[K2] {str(dtype)[6:]} tables B={b} X={x} MoL {P_Q}x{P_X}x{D_P}: max|err| "
-          f"{err:.3e} ({verdict}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    l, hd = P_Q * P_X, 128
+    es = args[0].element_size()
+    flops = b * x * (2 * l * D_P + 4 * l * hd)          # logits + the qi MLP per pair
+    nbytes = (es * (b * P_Q * D_P + x * (P_X * D_P + l)) + 4 * (b * l + 2 * l * hd + hd + l)
+              + 4 * b * args[2].shape[-1])
+    dt = str(dtype)[6:]
+    bd = bound(flops, nbytes, dt)
+    print(f"[K2] {dt} tables B={b} X={x} MoL {P_Q}x{P_X}x{D_P}: max|err| "
+          f"{err:.3e} ({verdict}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": None}
 
 
 def serving_setup(compute_dtype, device, n_batches: int):
@@ -190,7 +250,7 @@ def serving_setup(compute_dtype, device, n_batches: int):
     truncated to its 64-bucket."""
     import torch
 
-    from rails_tpu.core.config import get_experiment_config
+    from rails_tpu_torch.core.config import get_experiment_config
     from rails_tpu_torch.data.datasets import SequenceDataset, generate_synthetic_sequences
     from rails_tpu_torch.data.features import serving_pad_length, truncate_features
     from rails_tpu_torch.models.encoder import SequentialRecommender
@@ -239,22 +299,53 @@ def run_batches(fn, batches) -> tuple:
     return outs, 1e3 * (time.perf_counter() - t0) / len(batches)
 
 
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port by its summary name."""
+    from rails_tpu_torch.ops import hash_dropout, hstu_block, hstu_block_train, mol_scoring
+    from rails_tpu_torch.train import fused_adamw
+
+    return {
+        "K1": hstu_block.fused_hstu_block, "K2": mol_scoring.fused_mol_scores_t,
+        "K3": hash_dropout.hash_keep_mask,
+        "K4 fwd": hstu_block_train.fused_train_block_forward,
+        "K4 bwd": hstu_block_train.attn_backward, "K7": fused_adamw.adamw_leaf_update,
+    }
+
+
+def reset_launches() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
 @contextlib.contextmanager
 def plain_kernels():
-    """The serving step with its two kernel calls bound to their plain
-    versions, for comparison only; the launch counters must not move."""
+    """The serving and training steps with every kernel call bound to its
+    plain version, for comparison only; the launch counters must not move."""
     from unittest import mock
 
     from rails_tpu_torch.index import top_k
     from rails_tpu_torch.models import hstu
-    from rails_tpu_torch.ops.hstu_block import fused_hstu_block, fused_hstu_block_reference
-    from rails_tpu_torch.ops.mol_scoring import fused_mol_scores_t, fused_mol_scores_t_reference
+    from rails_tpu_torch.ops import hash_dropout, hstu_block, hstu_block_train, mol_scoring
+    from rails_tpu_torch.train import fused_adamw
 
-    before = (fused_hstu_block.launches, fused_mol_scores_t.launches)
-    with mock.patch.object(hstu, "fused_hstu_block", fused_hstu_block_reference), \
-            mock.patch.object(top_k, "fused_mol_scores_t", fused_mol_scores_t_reference):
+    before = launch_counts()
+    with mock.patch.object(hstu, "fused_hstu_block", hstu_block.fused_hstu_block_reference), \
+            mock.patch.object(top_k, "fused_mol_scores_t",
+                              mol_scoring.fused_mol_scores_t_reference), \
+            mock.patch.object(hstu_block_train, "fused_train_block_forward",
+                              hstu_block_train.fused_train_block_forward_reference), \
+            mock.patch.object(hstu_block_train, "attn_backward",
+                              hstu_block_train.attn_backward_reference), \
+            mock.patch.object(hstu_block_train, "hash_keep_mask",
+                              hash_dropout.hash_keep_mask_reference), \
+            mock.patch.object(fused_adamw, "adamw_leaf_update",
+                              fused_adamw.adamw_leaf_update_reference):
         yield
-    if (fused_hstu_block.launches, fused_mol_scores_t.launches) != before:
+    if launch_counts() != before:
         raise AssertionError("the plain path launched a kernel")
 
 
@@ -277,9 +368,6 @@ def end_to_end(device, name: str, smi: str, n_batches: int = 3) -> dict:
     Returns the bf16 run's launch counts."""
     import torch
 
-    from rails_tpu_torch.ops.hstu_block import fused_hstu_block
-    from rails_tpu_torch.ops.mol_scoring import fused_mol_scores_t
-
     launches, ids = {}, {}
     for dtype_name, min_rank_agree, min_overlap in E2E_TOL:
         dtype = getattr(torch, dtype_name)
@@ -293,10 +381,9 @@ def end_to_end(device, name: str, smi: str, n_batches: int = 3) -> dict:
                 return step(es.topk_state, f, t)
 
         run_batches(serve, batches)                                       # warm-up
-        fused_hstu_block.launches = 0
-        fused_mol_scores_t.launches = 0
+        reset_launches()
         outs_k, ms = run_batches(serve, batches)
-        counts = {"K1": fused_hstu_block.launches, "K2": fused_mol_scores_t.launches}
+        counts = {k: v for k, v in launch_counts().items() if k in ("K1", "K2")}
         if counts["K1"] != model.cfg.hstu.num_blocks * len(batches) or counts["K2"] < len(batches):
             raise AssertionError(f"main path launches {counts} for {len(batches)} batches")
         launches[dtype_name] = counts
@@ -329,6 +416,247 @@ def end_to_end(device, name: str, smi: str, n_batches: int = 3) -> dict:
     return launches["bfloat16"]
 
 
+def check_k3(device) -> dict:
+    """The o_input keep mask of one ml-20m layer, bit-equal to its plain version."""
+    import torch
+
+    from rails_tpu_torch.ops.hash_dropout import hash_keep_mask, hash_keep_mask_reference
+
+    shape, rate, seed0 = (TRAIN_BATCH, MAX_SEQ_LEN, H * DV), 0.2, -1_234_567_891
+    got = hash_keep_mask(*shape, seed0, rate, device)
+    ref = hash_keep_mask_reference(*shape, seed0, rate, device)
+    if not torch.equal(got, ref):
+        raise AssertionError(f"K3 differs from its plain version in {(got != ref).sum().item()} bits")
+    err = (got - ref).abs().max().item()
+    kept = (got > 0).float().mean().item()
+    ms = cuda_ms(lambda: hash_keep_mask(*shape, seed0, rate, device))
+    plain_ms = cuda_ms(lambda: hash_keep_mask_reference(*shape, seed0, rate, device))
+    bd = bound(0, 4 * got.numel(), "float32")
+    print(f"[K3] o_input mask {tuple(shape)} rate {rate}: bit-equal to the plain version, "
+          f"kept {kept:.4f}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": None}
+
+
+def rel_err(got, ref) -> float:
+    """max |got - ref| / max |ref|."""
+    return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
+
+
+def check_k4(device) -> tuple:
+    """One f32 train block at B=128, n=211 with dropout 0.2: the kernels'
+    forward and every gradient against autograd of the plain forward; then
+    forward and attention-backward times of both."""
+    import torch
+
+    from rails_tpu_torch.ops import hstu_block_train as hbt
+    from rails_tpu_torch.ops.hash_dropout import hash_keep_mask
+    from rails_tpu_torch.ops.hstu_block import ln
+
+    b, n = TRAIN_BATCH, MAX_SEQ_LEN
+    (x, colmask, uvqk, o_kernel, o_bias, rel_pos, ext, tsw), kw = k1_inputs(
+        b, n, torch.float32, device, seed=3)
+    x = x * colmask[..., None]
+    meta = hbt.BlockMeta(H, DQK, DV, kw["inv_n"], kw["eps"], 128, 0.2)
+    seed = 987_654_321
+    w = torch.cos(torch.arange(x.numel(), device=device, dtype=torch.float32) * 0.01).reshape(x.shape)
+    names = ("x", "rel_pos", "tsw", "uvqk", "o_kernel", "o_bias")
+    results = {}
+    for label, fn in (("kernel", hbt.fused_train_block),
+                      ("plain", hbt.fused_train_block_autograd_reference)):
+        leaves = [t.clone().requires_grad_(True) for t in (x, rel_pos, tsw, uvqk, o_kernel, o_bias)]
+        out = fn(*leaves, colmask, ext, seed, meta)
+        (out * w).sum().backward()
+        results[label] = (out.detach(), {k: t.grad for k, t in zip(names, leaves)})
+    (out_k, g_k), (out_p, g_p) = results["kernel"], results["plain"]
+    rtol, atol = K4_TOL
+    torch.testing.assert_close(out_k, out_p, rtol=rtol, atol=atol)
+    err = (out_k - out_p).abs().max().item()
+    grad_errs = {k: rel_err(g_k[k], g_p[k]) for k in names}
+    worst = max(grad_errs.values())
+    if worst > GRAD_REL_TOL:
+        raise AssertionError(f"K4 gradients outside {GRAD_REL_TOL}: {grad_errs}")
+
+    args = (x, colmask, uvqk, o_kernel, o_bias, rel_pos, ext, tsw, seed, meta)
+    fwd_ms = cuda_ms(lambda: hbt.fused_train_block_forward(*args))
+    fwd_plain_ms = cuda_ms(lambda: hbt.fused_train_block_forward_reference(*args), iters=3)
+    _, attn = hbt.fused_train_block_forward(*args)
+    z = ln(x, meta.eps) @ uvqk
+    y = z * torch.sigmoid(z)
+    d_o = (w @ o_kernel.T) * hash_keep_mask(b, n, H * DV, seed, meta.rate, device)
+    bargs = (y, d_o, attn, colmask, rel_pos, ext, tsw, meta)
+    d_y_k, dbias_k = hbt.attn_backward(*bargs)
+    d_y_p, dbias_p = hbt.attn_backward_reference(*bargs)
+    bwd_err = max(rel_err(d_y_k, d_y_p), rel_err(dbias_k, dbias_p))
+    if bwd_err > GRAD_REL_TOL:
+        raise AssertionError(f"K4 attention backward outside {GRAD_REL_TOL}: {bwd_err}")
+    bwd_ms = cuda_ms(lambda: hbt.attn_backward(*bargs))
+    bwd_plain_ms = cuda_ms(lambda: hbt.attn_backward_reference(*bargs), iters=3)
+    pairs = b * H * n * (n + 1) // 2
+    fwd_bd = bound(block_flops(b, n), block_bytes(b, n, 4) + 4 * b * n * H * DV, "float32")
+    f = 2 * H * DV + 2 * H * DQK
+    bwd_bd = bound(5 * 2 * 32 * pairs,   # s, d_a, d_q, d_k, d_v over the causal pairs
+                   4 * (2 * b * n * f + 2 * b * n * H * DV + b * n * n + n * n + b * n
+                        + b * (n + 1) + 128), "float32")
+    print(f"[K4] f32 B={b} n={n} D={D} h={H} dropout {meta.rate}: forward max|err| {err:.3e} "
+          f"(rtol {rtol}, atol {atol}); gradient max|err|/max|plain| "
+          + ", ".join(f"{k} {v:.2e}" for k, v in grad_errs.items())
+          + f" (<= {GRAD_REL_TOL}); attention backward alone {bwd_err:.2e}")
+    print(f"[K4] forward kernel {fwd_ms:.3f} ms, plain {fwd_plain_ms:.3f} ms, bound "
+          f"{fwd_bd['bound_ms']:.4f} ms ({fwd_bd['bound_by']}); attention backward kernel "
+          f"{bwd_ms:.3f} ms, plain {bwd_plain_ms:.3f} ms, bound {bwd_bd['bound_ms']:.4f} ms "
+          f"({bwd_bd['bound_by']})")
+    fwd = {"max_abs_err": err, "ms": fwd_ms, "plain_ms": fwd_plain_ms, **fwd_bd,
+           "library_ms": None}
+    bwd = {"max_abs_err": (d_y_k - d_y_p).abs().max().item(), "ms": bwd_ms,
+           "plain_ms": bwd_plain_ms, **bwd_bd, "library_ms": None}
+    return fwd, bwd
+
+
+def check_k7(device) -> dict:
+    """AdamW on ml-20m's two fused leaves (the item table and the uid table):
+    the kernel against its plain version, and torch._fused_adamw_ timed on the
+    same tensors as a yardstick (the port never calls it)."""
+    import torch
+
+    from rails_tpu_torch.train.fused_adamw import adamw_leaf_update, adamw_leaf_update_reference
+
+    g = torch.Generator(device=device).manual_seed(7)
+    shapes = ((NUM_ITEMS + 1, D), (16_385, D_P))
+    leaves = [tuple(torch.randn(s, generator=g, device=device) * sc
+                    for sc in (1e-3, 1.0, 1e-4, 1e-8)) for s in shapes]   # g, p, mu, nu
+    leaves = [(gr, p, mu, nu.abs()) for gr, p, mu, nu in leaves]
+    kw = dict(lr=1e-3, c1=10.0, c2=50.5, b1=0.9, b2=0.98, eps=1e-8, wd=1e-3)
+    err = 0.0
+    for gr, p, mu, nu in leaves:
+        got = [t.clone() for t in (p, mu, nu)]
+        ref = [t.clone() for t in (p, mu, nu)]
+        adamw_leaf_update(gr, *got, **kw)
+        adamw_leaf_update_reference(gr, *ref, **kw)
+        err = max(err, max((a - b).abs().max().item() for a, b in zip(got, ref)))
+    if err > K7_ATOL:
+        raise AssertionError(f"K7 differs from its plain version by {err}")
+    work = [[t.clone() for t in leaf] for leaf in leaves]
+
+    def run(fn):
+        for gr, p, mu, nu in work:
+            fn(gr, p, mu, nu, **kw)
+
+    ms = cuda_ms(lambda: run(adamw_leaf_update))
+    plain_ms = cuda_ms(lambda: run(adamw_leaf_update_reference))
+    lib = [[t.clone() for t in leaf] for leaf in leaves]
+    steps = [torch.tensor(3.0, device=device) for _ in lib]
+    library_ms = cuda_ms(lambda: torch._fused_adamw_(
+        [lf[1] for lf in lib], [lf[0] for lf in lib], [lf[2] for lf in lib],
+        [lf[3] for lf in lib], [], steps, lr=1e-3, beta1=0.9, beta2=0.98, weight_decay=1e-3,
+        eps=1e-8, amsgrad=False, maximize=False))
+    numel = sum(leaf[0].numel() for leaf in leaves)
+    bd = bound(12 * numel, 28 * numel, "float32")
+    print(f"[K7] AdamW leaves {[tuple(s) for s in shapes]} ({numel} elements): max|err| {err:.3e} "
+          f"(<= {K7_ATOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch._fused_adamw_ "
+          f"{library_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": library_ms}
+
+
+def train_setup(device, batch: int = TRAIN_BATCH):
+    """ml-20m-hstu-mol training (seeded random weights, 26,744 items, f32)
+    and one batch of ML-20M-shaped synthetic users at N = 211."""
+    from rails_tpu_torch.core.config import get_experiment_config
+    from rails_tpu_torch.data.datasets import SequenceDataset, generate_synthetic_sequences
+    from rails_tpu_torch.train.loop import create_train_state
+
+    cfg = get_experiment_config("ml-20m-hstu-mol")
+    model, state, step, _ = create_train_state(
+        cfg, NUM_ITEMS, np.arange(1, NUM_ITEMS + 1, dtype=np.int32), seed=0, device=device)
+    seqs = generate_synthetic_sequences(num_users=4 * batch, num_items=NUM_ITEMS,
+                                        max_len=cfg.data.max_sequence_length + 2, seed=1,
+                                        length_distribution="ml20m")
+    ds = SequenceDataset(seqs, cfg.data.max_sequence_length, ignore_last_n=1)
+    data = next(ds.batches(batch, cfg.train.gr_output_length + 1, shuffle=True, seed=0,
+                           drop_last=True, device=device))
+    return cfg, model, state, step, data
+
+
+def train_phase(device, name: str, smi: str) -> dict:
+    """Step 1 through the kernels vs through the plain versions from the same
+    state and generator; then TRAIN_STEPS steps on the batch. Returns the
+    launch counts of the training kernels over those steps."""
+    import torch
+
+    cfg, model, state, step, batch = train_setup(device)
+    n = batch.features.ids.shape[1]
+    params = dict(model.named_parameters())
+    opt = state.optimizer
+    gen = torch.Generator(device=device).manual_seed(0)
+    p0 = {k: p.detach().clone() for k, p in params.items()}
+    mu0 = {k: t.clone() for k, t in opt.state.mu.items()}
+    nu0 = {k: t.clone() for k, t in opt.state.nu.items()}
+    g0 = gen.get_state()
+
+    reset_launches()
+    state, m_k = step(state, batch, gen)
+    per_step = launch_counts()
+    grads_k = {k: p.grad.detach().clone() for k, p in params.items()}
+    want = {"K3": cfg.hstu.num_blocks, "K4 fwd": cfg.hstu.num_blocks,
+            "K4 bwd": cfg.hstu.num_blocks, "K7": 2}
+    got = {k: per_step[k] for k in want}
+    if got != want or per_step["K1"] or per_step["K2"]:
+        raise AssertionError(f"train step launches {per_step}, want {want}")
+    for k, p in params.items():
+        p.data.copy_(p0[k])
+        opt.state.mu[k].copy_(mu0[k])
+        opt.state.nu[k].copy_(nu0[k])
+    opt.state.count = 0
+    gen.set_state(g0)
+    with plain_kernels():
+        state, m_p = step(state, batch, gen)
+    loss_err = abs(m_k["loss"].item() - m_p["loss"].item()) / abs(m_p["loss"].item())
+    groups: dict = {}
+    for k, p in params.items():
+        group = k.split(".")[0]
+        groups[group] = max(groups.get(group, 0.0), rel_err(grads_k[k], p.grad))
+    print(f"[train] step 1 kernels vs plain, ml-20m-hstu-mol B={TRAIN_BATCH} N={n} "
+          f"R={cfg.train.num_negatives} f32: loss {m_k['loss'].item():.6f} vs "
+          f"{m_p['loss'].item():.6f} (rel {loss_err:.2e} <= {TRAIN_LOSS_RTOL}); gradient "
+          f"max|err|/max|plain| per group "
+          + ", ".join(f"{k} {v:.2e}" for k, v in groups.items())
+          + f" (<= {GRAD_REL_TOL}); launches per step {got}")
+    if loss_err > TRAIN_LOSS_RTOL or max(groups.values()) > GRAD_REL_TOL:
+        raise AssertionError("the kernel step disagrees with the plain step")
+    del grads_k, p0, mu0, nu0
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(m["loss"].item())
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    falls = np.mean(losses[-5:]) < np.mean(losses[:5]) and losses[-1] < losses[0]
+    ms = statistics.median(times[2:])
+    print(f"[train] {TRAIN_STEPS} steps on one batch: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"(first 5 mean {np.mean(losses[:5]):.4f}, last 5 mean {np.mean(losses[-5:]):.4f}); "
+          f"median of steps 3-{TRAIN_STEPS} {ms:.3f} ms/step = "
+          f"{TRAIN_BATCH / ms * 1e3:.1f} sequences/s; peak memory {peak / 2**30:.2f} GiB; "
+          f"launches {counts} on {name} ({smi})")
+    if not falls:
+        raise AssertionError(f"the training loss did not fall: {losses}")
+    want_all = {k: v * TRAIN_STEPS for k, v in want.items()}
+    got_all = {k: counts[k] for k in want}
+    if got_all != want_all or counts["K1"] or counts["K2"]:
+        raise AssertionError(f"train launches {counts}, want {want_all}")
+    return got_all
+
+
+
 def main() -> None:
     import torch
 
@@ -350,7 +678,7 @@ def main() -> None:
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.load_library()
-    print(f"[build] K1 + K2 for sm_90a in {time.perf_counter() - t0:.1f} s -> {lib_path}")
+    print(f"[build] every kernel for sm_90a in {time.perf_counter() - t0:.1f} s -> {lib_path}")
     print(f"[build] registers per thread (spilled bytes): "
           f"{ptxas_summary((lib_path.parent / 'build.log').read_text())}")
 
@@ -361,14 +689,30 @@ def main() -> None:
     k2 = {dtype: check_k2(BATCH, NUM_ITEMS, dtype, device)
           for dtype in (torch.float32, torch.bfloat16)}
     launches = end_to_end(device, name, smi)
+    torch.cuda.empty_cache()
+    k3 = check_k3(device)
+    k4_fwd, k4_bwd = check_k4(device)
+    k7 = check_k7(device)
+    torch.cuda.empty_cache()
+    launches.update(train_phase(device, name, smi))
+
+    def entry(name_, source, replaces, key, measured):
+        return {"name": name_, "route": "cuda", "source": f"rails_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches[key], **measured}
 
     summary = [
-        {"name": "fused_hstu_block", "route": "cuda", "source": "rails_tpu_torch/csrc/hstu_block.cu",
-         "replaces": "rails_tpu/ops/pallas/hstu_block.py:432", "launches": launches["K1"],
-         **k1[(torch.bfloat16, MAX_SEQ_LEN)]},
-        {"name": "fused_mol_scores_t", "route": "cuda", "source": "rails_tpu_torch/csrc/mol_scoring.cu",
-         "replaces": "rails_tpu/ops/pallas/mol_scoring.py:724", "launches": launches["K2"],
-         **k2[torch.bfloat16]},
+        entry("fused_hstu_block", "hstu_block.cu", "rails_tpu/ops/pallas/hstu_block.py:432",
+              "K1", k1[(torch.bfloat16, MAX_SEQ_LEN)]),
+        entry("fused_mol_scores_t", "mol_scoring.cu", "rails_tpu/ops/pallas/mol_scoring.py:724",
+              "K2", k2[torch.bfloat16]),
+        entry("hash_keep_mask", "hash_dropout.cu", "rails_tpu/ops/pallas/hash_dropout.py:26",
+              "K3", k3),
+        entry("fused_train_block_forward", "hstu_block_train.cu",
+              "rails_tpu/ops/pallas/hstu_block_train.py:574", "K4 fwd", k4_fwd),
+        entry("attn_backward", "hstu_block_train.cu",
+              "rails_tpu/ops/pallas/hstu_block_train.py:629", "K4 bwd", k4_bwd),
+        entry("adamw_leaf_update", "fused_adamw.cu", "rails_tpu/train/fused_adamw.py:87",
+              "K7", k7),
     ]
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

@@ -1,22 +1,24 @@
-"""Carry a `rails_tpu` model's weights into the port.
+"""Carry a `rails_tpu` model's weights and optimizer state into the port.
 
 `state_dict_from_jax_params` takes the JAX package's `{"params": tree}` with
 numpy leaves (the caller converts, e.g.
 `jax.tree_util.tree_map(np.asarray, params)`) and returns the state dict that
 `SequentialRecommender.load_state_dict(strict=True)` accepts. The port's
 parameter names are the flax tree's paths joined by dots; a flax `Dense`
-`kernel` (in, out) becomes a torch `Linear` `weight` (out, in). This module
-imports no jax.
+`kernel` (in, out) becomes a torch `Linear` `weight` (out, in).
+`adamw_state_from_jax` carries the JAX `FusedAdamWState(count, mu, nu)` the
+same way into the port's `FusedAdamWState`. This module imports no jax.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
-from rails_tpu.core.config import ExperimentConfig
+from rails_tpu_torch.core.config import ExperimentConfig
+from rails_tpu_torch.train.fused_adamw import FusedAdamWState
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -39,10 +41,26 @@ def state_dict_from_jax_params(
             f"{cfg.model_type}/{cfg.similarity_type} weights have no port model yet "
             "(ROADMAP.md, Queue 1: SASRec; preprocessors, embeddings and similarities)"
         )
+    return _port_names(params)
+
+
+def _port_names(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """{"params": tree} -> {port parameter name: f32 tensor}."""
     state: Dict[str, torch.Tensor] = {}
-    for name, value in _flatten(params["params"]).items():
+    for name, value in _flatten(tree["params"]).items():
         if name.endswith(".kernel"):          # flax Dense -> torch Linear
             name = name[: -len("kernel")] + "weight"
             value = value.T
-        state[name] = torch.tensor(value, dtype=torch.float32)
+        state[name] = torch.tensor(np.ascontiguousarray(value), dtype=torch.float32)
     return state
+
+
+def adamw_state_from_jax(opt_state: Any) -> FusedAdamWState:
+    """The port's optimizer state from a JAX `FusedAdamWState(count, mu, nu)`
+    (`rails_tpu/train/fused_adamw.py:35-38`) with numpy leaves; assign it to
+    `FusedAdamW.state` after moving the moments to the parameters' device."""
+    return FusedAdamWState(
+        count=int(np.asarray(opt_state.count)),
+        mu=_port_names(opt_state.mu),
+        nu=_port_names(opt_state.nu),
+    )

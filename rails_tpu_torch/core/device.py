@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+from typing import Optional, Union
+
 import torch
 
 
@@ -10,6 +12,19 @@ def require_cuda() -> None:
     work to the CPU when CUDA is missing."""
     if not torch.cuda.is_available():
         raise RuntimeError("a CUDA device is required (torch.cuda.is_available() is False)")
+
+
+def default_device() -> torch.device:
+    """The device of every entry point called without `device=`: the CUDA
+    card. Raises when there is none; the CPU is used only when a caller asks
+    for it (`device="cpu"`)."""
+    require_cuda()
+    return torch.device("cuda")
+
+
+def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
+    """`device`, or `default_device()` when it is None."""
+    return default_device() if device is None else torch.device(device)
 
 
 def use_kernel(*tensors: torch.Tensor) -> bool:

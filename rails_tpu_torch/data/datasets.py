@@ -101,9 +101,10 @@ class SequenceDataset:
         seed: int = 0,
         drop_last: bool = False,
         sort_by_length: bool = False,
-        device: Device = "cpu",
+        device: Device = None,
     ) -> Iterator[Batch]:
-        """One epoch of batches on `device`.
+        """One epoch of batches on `device` (the card unless the caller
+        passes "cpu").
 
         `sort_by_length` orders examples by history length (stable), so that
         serving batches can be truncated to their own max length

@@ -2,17 +2,19 @@
 
 Counterpart of `rails_tpu/data/features.py:18-96`: the same fields, the same
 generative-output padding and the same timestamp rebase, with torch tensors
-on an explicit device in place of jnp arrays.
+on the card (or the CPU where a caller asks) in place of jnp arrays.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Union
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
-Device = Union[str, torch.device]
+from rails_tpu_torch.core.device import resolve_device
+
+Device = Optional[Union[str, torch.device]]
 
 
 class SequentialFeatures(NamedTuple):
@@ -60,10 +62,12 @@ def batch_from_rows(
     target_timestamps: np.ndarray,
     user_ids: np.ndarray,
     max_output_length: int,
-    device: Device = "cpu",
+    device: Device = None,
 ) -> Batch:
     """Pads `max_output_length` slots and scatters the target timestamp at
-    position `length` (`features.py:56-96`)."""
+    position `length` (`features.py:56-96`). The tensors lie on `device`:
+    the card unless the caller passes "cpu"."""
+    device = resolve_device(device)
     b, _ = historical_ids.shape
     pad = np.zeros((b, max_output_length), dtype=historical_ids.dtype)
     ids = np.concatenate([historical_ids, pad], axis=1)

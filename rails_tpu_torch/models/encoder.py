@@ -3,9 +3,10 @@ HSTU stack -> output norm, owning the MoL similarity.
 
 Counterpart of `rails_tpu/models/encoder.py` (`SequentialRecommender`) for
 model_type="HSTU", similarity_type="MoL", the positional preprocessor and the
-local embedding table: `encode_sequence`/`encode` (:167-202),
-`get_item_embeddings`, `build_item_tables`, `query_components`,
-`query_gating_partial` and `score_precomputed`. Parameter names follow the
+local embedding table: `encode_sequence`/`encode` (:167-202, eval and
+training), `get_item_embeddings`, `similarity_fn` (:255-267),
+`build_item_tables`, `query_components`, `query_gating_partial` and
+`score_precomputed`. Parameter names follow the
 flax tree (`item_emb.embedding`, `input_preproc.pos_emb`,
 `hstu.block_3.uvqk`, `mol.gating_qi.hidden.weight`, ...), so
 `compat.from_jax.state_dict_from_jax_params` loads a JAX model strictly.
@@ -13,12 +14,13 @@ flax tree (`item_emb.embedding`, `input_preproc.pos_emb`,
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
-from rails_tpu.core.config import ExperimentConfig
+from rails_tpu_torch.core.config import ExperimentConfig
+from rails_tpu_torch.core.device import resolve_device
 from rails_tpu_torch.data.features import SequentialFeatures
 from rails_tpu_torch.models.embedding import LocalEmbeddingModule
 from rails_tpu_torch.models.hstu import HSTUStack
@@ -35,13 +37,13 @@ def _require(ok: bool, what: str, item: str) -> None:
 
 
 class SequentialRecommender(nn.Module):
-    """HSTU encoder + MoL similarity, eval.
+    """HSTU encoder + MoL similarity.
 
     `compute_dtype` plays the role of the flax model's `dtype` (bf16 when the
     config sets `main_module_bf16`); parameters stay float32. Weights are
     drawn from `generator` on the CPU (seeded from `cfg.train.random_seed`
-    when none is given) and then moved to `device`, so one seed gives the
-    same model on every device.
+    when none is given) and then moved to `device` (the card unless the
+    caller passes "cpu"), so one seed gives the same model on every device.
     """
 
     def __init__(
@@ -49,7 +51,7 @@ class SequentialRecommender(nn.Module):
         cfg: ExperimentConfig,
         num_items: int,
         compute_dtype: torch.dtype = torch.float32,
-        device: Union[str, torch.device] = "cpu",
+        device: Optional[Union[str, torch.device]] = None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
@@ -71,31 +73,50 @@ class SequentialRecommender(nn.Module):
         n = cfg.max_seq_len_padded
         self.item_emb = LocalEmbeddingModule(num_items, d, generator)
         self.input_preproc = LearnablePositionalEmbeddingInputPreprocessor(
-            n, d, compute_dtype, generator
+            n, d, compute_dtype, generator, cfg.train.dropout_rate
         )
         hstu_cfg = cfg.hstu if cfg.hstu.embedding_dim == d else cfg.hstu.replace(embedding_dim=d)
         self.hstu = HSTUStack(hstu_cfg, n, compute_dtype, generator)
         self.mol = MoLSimilarity(cfg.mol, compute_dtype, generator)
-        self.to(device)
+        self.to(resolve_device(device))
 
     def get_item_embeddings(self, item_ids: torch.Tensor) -> torch.Tensor:
         return self.item_emb(item_ids)
 
-    def preprocess(self, features: SequentialFeatures) -> Tuple[torch.Tensor, torch.Tensor]:
+    def preprocess(
+        self, features: SequentialFeatures, train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Embedding lookup + positional preprocessor: (x (B, N, D) in the
         compute dtype with invalid rows zeroed, valid (B, N) bool)."""
         emb = self.item_emb(features.ids).to(self.compute_dtype)
-        x, valid = self.input_preproc(features.lengths, emb)
+        x, valid = self.input_preproc(features.lengths, emb, train, generator)
         return x * valid[..., None].to(x.dtype), valid
 
     def postprocess(self, y: torch.Tensor) -> torch.Tensor:
         t = self.cfg.train
         return postprocess_output(y.float(), t.user_embedding_norm, t.item_embedding_dim)
 
-    def encode_sequence(self, features: SequentialFeatures) -> torch.Tensor:
-        """[B, N] -> [B, N, D]."""
-        x, valid = self.preprocess(features)
-        return self.postprocess(self.hstu(x, valid, features.timestamps))
+    def encode_sequence(
+        self, features: SequentialFeatures, train: bool = False,
+        generator: Optional[torch.Generator] = None, seed0: Optional[int] = None,
+    ) -> torch.Tensor:
+        """[B, N] -> [B, N, D]. Training draws the input dropout from
+        `generator` and seeds the HSTU blocks' hash dropout with `seed0`."""
+        x, valid = self.preprocess(features, train, generator)
+        return self.postprocess(self.hstu(x, valid, features.timestamps, train, seed0))
+
+    def similarity_fn(
+        self,
+        query_embeddings: torch.Tensor,                  # (B', D)
+        item_embeddings: torch.Tensor,                   # (1, X, D) or (B', X, D)
+        user_ids: Optional[torch.Tensor] = None,
+        train: bool = False,
+        weights: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(B', X) scores + aux losses."""
+        return self.mol(query_embeddings, item_embeddings, user_ids, train, weights, generator)
 
     def encode(self, features: SequentialFeatures) -> torch.Tensor:
         """[B, N] -> [B, D]: the state at the last valid position."""

@@ -1,25 +1,29 @@
-"""HSTU encoder, eval path, every block through the K1 kernel.
+"""HSTU encoder: eval through the K1 kernel, training through K4 (+ K3).
 
 Counterpart of `rails_tpu/models/hstu.py`: `StackedRelativeBias` parameters
 with `pos_tables(n)` (:130-138) and `ts_tables128` (:140-150), `HSTUBlock`
-parameters (:183-208), and the fused eval path of `HSTUStack.__call__`
-(:466-523) in internal-bias mode, ending with `x * valid`.
+parameters (:183-208), the fused eval path of `HSTUStack.__call__`
+(:466-523) in internal-bias mode and its `fused_train` path (:414-465), each
+ending with `x * valid`.
 
 `HSTUConfig.fused_inference` selects nothing here: the port's eval encoder
-always runs `ops.hstu_block.fused_hstu_block`, whose plain version serves
-CPU tensors. The training path (fused train block, dropout) and the K1
-variants the serving config does not use are not ported yet.
+always runs `ops.hstu_block.fused_hstu_block`, and its training encoder
+`ops.hstu_block_train.fused_train_block`; their plain versions serve CPU
+tensors. The XLA training path (`fused_train=False`) and the block variants
+the ported configs do not use raise NotImplementedError.
 """
 
 from __future__ import annotations
 
-from typing import Iterator
+from typing import Iterator, Optional
 
 import torch
 from torch import nn
 
-from rails_tpu.core.config import HSTUConfig
+from rails_tpu_torch.core.config import HSTUConfig
+from rails_tpu_torch.ops.hash_dropout import LAYER_SALT, wrap_i32
 from rails_tpu_torch.ops.hstu_block import fused_hstu_block
+from rails_tpu_torch.ops.hstu_block_train import BlockMeta, fused_train_block
 from rails_tpu_torch.similarity.layers import normal, xavier_uniform
 
 
@@ -125,8 +129,36 @@ class HSTUStack(nn.Module):
             )
 
     def forward(
-        self, x: torch.Tensor, valid: torch.Tensor, timestamps: torch.Tensor
+        self, x: torch.Tensor, valid: torch.Tensor, timestamps: torch.Tensor,
+        train: bool = False, seed0: Optional[int] = None,
     ) -> torch.Tensor:
+        """Eval through K1; with `train`, the `fused_train` path: block i
+        drops its o_input with the hash stream of seed seed0 + i * 1013904223
+        (int32), which the caller draws (0 when no dropout is on)."""
+        if train:
+            return self._train_forward(x, valid, timestamps, 0 if seed0 is None else seed0)
         for kw in self.block_operands(valid, timestamps):
             x = fused_hstu_block(x, **kw)
+        return x * valid[..., None].to(x.dtype)
+
+    def _train_forward(self, x, valid, timestamps, seed0: int) -> torch.Tensor:
+        c = self.cfg
+        if not c.fused_train:
+            raise NotImplementedError(
+                "HSTU training without fused_train (the XLA block path) is not ported "
+                "(ROADMAP.md, Queue 1: K4 variants)"
+            )
+        if c.attn_dropout_rate > 0.0 or self.compute_dtype != torch.float32:
+            raise NotImplementedError(
+                f"HSTU training with attn_dropout_rate={c.attn_dropout_rate}, compute dtype "
+                f"{self.compute_dtype}: only the f32 train block without attention dropout "
+                "is ported (ROADMAP.md, Queue 1: K4 variants)"
+            )
+        meta = BlockMeta(c.num_heads, c.dqk, c.dv, 1.0 / self.max_seq_len, c.epsilon,
+                         c.num_time_buckets, c.linear_dropout_rate)
+        for i, kw in enumerate(self.block_operands(valid, timestamps)):
+            x = fused_train_block(
+                x, kw["rel_pos"], kw["tsw"], kw["uvqk"], kw["o_kernel"], kw["o_bias"],
+                kw["colmask"], kw["ext"], wrap_i32(seed0 + i * LAYER_SALT), meta,
+            )
         return x * valid[..., None].to(x.dtype)

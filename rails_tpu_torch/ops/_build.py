@@ -1,6 +1,7 @@
 """Build the port's CUDA sources with nvcc and load them through ctypes.
 
-All `csrc/*.cu` files compile into one shared library with a plain C
+Each `csrc/*.cu` file compiles to an object in its own nvcc process, all
+started together; the objects link into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds). The library lands in
 `build/rails_tpu_torch/<hash of the sources and flags>/` at the root of the
 checkout and is built at first use; a later process with the same sources
@@ -25,7 +26,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "rails_tpu_torch"
 LIB_NAME = "librails_tpu_torch_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -68,25 +69,37 @@ def build() -> Path:
             "kernels cannot be built, and CUDA tensors have no other path"
         )
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    # Compile to a private name and rename: concurrent builders never load a
+    cu = sorted(CSRC.glob("*.cu"))
+    # Compile to private names and rename: concurrent processes never load a
     # half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
+    tmp_dir = Path(tempfile.mkdtemp(dir=out_dir))
     try:
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, *cu],
+        procs = [
+            (src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(tmp_dir / (src.stem + ".o"))],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+            for src in cu
+        ]
+        logs, failed = [], []
+        for src, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(f"== {src.name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(f"{src.name} (exit {proc.returncode}):\n{out[-4000:]}")
+        (out_dir / "build.log").write_text("\n".join(logs))
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp_lib = tmp_dir / LIB_NAME
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp_lib), *(str(tmp_dir / (src.stem + ".o")) for src in cu)],
             capture_output=True, text=True, check=False,
         )
-        (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{proc.stderr[-4000:]}"
-            )
-        os.replace(tmp, lib)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed (link, exit {link.returncode}):\n{link.stderr[-4000:]}")
+        os.replace(tmp_lib, lib)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(tmp_dir, ignore_errors=True)
     return lib
 
 
@@ -95,7 +108,7 @@ def load_library() -> ctypes.CDLL:
     """The built kernel library, declared for ctypes. Every pointer and the
     stream pass as `c_void_p`; every entry point returns a cudaError_t."""
     lib = ctypes.CDLL(str(build()))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    p, i, f, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
     lib.rails_hstu_block_fwd.argtypes = (
         [i] + [p] * 11 + [i] * 6 + [f, f, i, p]
     )
@@ -106,6 +119,16 @@ def load_library() -> ctypes.CDLL:
     lib.rails_mol_scores.restype = i
     lib.rails_mol_scores_smem_bytes.argtypes = [i] * 5
     lib.rails_mol_scores_smem_bytes.restype = ctypes.c_size_t
+    lib.rails_hstu_train_fwd.argtypes = [p] * 11 + [i] * 6 + [f, f, i, i, i, u32, f, p]
+    lib.rails_hstu_train_fwd.restype = i
+    lib.rails_hstu_train_bwd.argtypes = [p] * 10 + [i] * 5 + [f, f, i, p]
+    lib.rails_hstu_train_bwd.restype = i
+    lib.rails_hstu_train_bwd_smem_bytes.argtypes = [i, i, i]
+    lib.rails_hstu_train_bwd_smem_bytes.restype = ctypes.c_size_t
+    lib.rails_hash_keep_mask.argtypes = [p, i, i, i, i, u32, f, p]
+    lib.rails_hash_keep_mask.restype = i
+    lib.rails_adamw_update.argtypes = [p] * 4 + [ctypes.c_longlong] + [f] * 9 + [p]
+    lib.rails_adamw_update.restype = i
     lib.rails_cuda_error_string.argtypes = [i]
     lib.rails_cuda_error_string.restype = ctypes.c_char_p
     return lib

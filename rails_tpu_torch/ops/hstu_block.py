@@ -23,6 +23,8 @@ or raise. `fused_hstu_block.launches` counts kernel launches.
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
 from rails_tpu_torch.core.device import use_kernel
@@ -52,7 +54,8 @@ def _check_variant(num_heads: int, dv: int, o_kernel: torch.Tensor) -> None:
         )
 
 
-def _ln(y: torch.Tensor, eps: float) -> torch.Tensor:
+def ln(y: torch.Tensor, eps: float) -> torch.Tensor:
+    """Parameter-free LayerNorm over the last axis, population variance."""
     mu = y.mean(dim=-1, keepdim=True)
     var = y.var(dim=-1, keepdim=True, unbiased=False)
     return (y - mu) * torch.rsqrt(var + eps)
@@ -77,6 +80,18 @@ def fused_hstu_block_reference(
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the Pallas body's math and
     rounding points, batched over users and heads."""
+    return block_forward_reference(
+        x, colmask, uvqk, o_kernel, o_bias, rel_pos, ext, tsw, num_heads=num_heads,
+        dqk=dqk, dv=dv, inv_n=inv_n, eps=eps, num_buckets=num_buckets,
+    )[0]
+
+
+def block_forward_reference(
+    x, colmask, uvqk, o_kernel, o_bias, rel_pos, ext, tsw, *, num_heads: int, dqk: int,
+    dv: int, inv_n: float, eps: float, num_buckets: int, keep: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, attn (B, n, h*dv) f32) of one block; `keep` (B, n, h*dv), the
+    train block's o_input dropout mask, multiplies u * LN(attn)."""
     _check_variant(num_heads, dv, o_kernel)
     b, n, _ = x.shape
     h = num_heads
@@ -85,7 +100,7 @@ def fused_hstu_block_reference(
     def rnd(t: torch.Tensor) -> torch.Tensor:   # the kernel's casts to the matmul dtype
         return t.to(mm).float()
 
-    y = rnd(_ln(x.float(), eps)) @ uvqk.float()
+    y = rnd(ln(x.float(), eps)) @ uvqk.float()
     y = y * torch.sigmoid(y)
     u = y[..., : h * dv]
     v = rnd(y[..., h * dv : 2 * h * dv] * inv_n).reshape(b, n, h, dv)
@@ -98,8 +113,11 @@ def fused_hstu_block_reference(
     qk = torch.einsum("bnhd,bmhd->bhnm", q, k) + bias[:, None]
     a = rnd(qk * torch.sigmoid(qk) * mask[:, None])
     attn = torch.einsum("bhnm,bmhd->bnhd", a, v).reshape(b, n, h * dv)
-    out = rnd(u * _ln(attn, eps)) @ o_kernel.float() + o_bias.float() + x.float()
-    return out.to(x.dtype)
+    o_in = u * ln(attn, eps)
+    if keep is not None:
+        o_in = o_in * keep
+    out = rnd(o_in) @ o_kernel.float() + o_bias.float() + x.float()
+    return out.to(x.dtype), attn
 
 
 def fused_hstu_block(

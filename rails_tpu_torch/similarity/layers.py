@@ -3,7 +3,8 @@
 Counterpart of `rails_tpu/similarity/layers.py`. flax `Dense` layers become
 torch `Linear`s (weight (out, in) = the flax kernel transposed). Each module
 computes in its `compute_dtype` with float32 parameters, as the flax modules
-compute in `dtype`. Dropout is train-only and waits for the training port.
+compute in `dtype`. Dropout (`dropout`) acts only in training and draws its
+keep mask from an explicit `torch.Generator` on the tensor's device.
 
 Parameters are initialised from an explicit `torch.Generator` with the flax
 initialisers' distributions, so a seed gives the same weights on any device.
@@ -67,6 +68,19 @@ def dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     return F.linear(x.to(dtype), lin.weight.to(dtype), b)
 
 
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax `nn.Dropout` in training: keep with probability 1 - rate, kept
+    values divided by 1 - rate. The identity at rate 0."""
+    if rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs a torch.Generator")
+    keep_prob = 1.0 - rate
+    keep = torch.empty(x.shape, dtype=torch.bool, device=x.device).bernoulli_(
+        keep_prob, generator=generator)
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def l2_normalize(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """x / max(||x||_2, eps) along the last axis, as sqrt(max(sq, eps^2))
     (`layers.py:23-34`)."""
@@ -101,15 +115,16 @@ class GLU(nn.Module):
 
 
 class ProjMLP(nn.Module):
-    """[GLU(hidden)] -> Linear(out) (`layers.py:69-95`); with hidden_dim <= 0
-    a single Linear."""
+    """Dropout -> [GLU(hidden)] -> Linear(out) (`layers.py:69-95`); with
+    hidden_dim <= 0 Dropout -> Linear."""
 
     def __init__(
         self, in_features: int, out_features: int, hidden_dim: int, nonlinearity: str,
-        compute_dtype: torch.dtype, generator: torch.Generator,
+        compute_dtype: torch.dtype, generator: torch.Generator, dropout_rate: float = 0.0,
     ):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.dropout_rate = dropout_rate
         self.glu: Optional[GLU] = None
         width = in_features
         if hidden_dim > 0:
@@ -120,22 +135,26 @@ class ProjMLP(nn.Module):
             width, out_features, xavier_normal((out_features, width), generator)
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if train:
+            x = dropout(x, self.dropout_rate, generator)
         if self.glu is not None:
             x = self.glu(x)
         return dense(x, self.out, self.compute_dtype)
 
 
 class GatingPartialMLP(nn.Module):
-    """Linear(hidden) -> SiLU -> Linear(out) (`layers.py:98-132`); with
-    hidden_dim <= 0 a single Linear."""
+    """Dropout -> Linear(hidden) -> SiLU -> Linear(out) (`layers.py:98-132`);
+    with hidden_dim <= 0 Dropout -> Linear."""
 
     def __init__(
         self, in_features: int, out_features: int, hidden_dim: int, use_output_bias: bool,
-        compute_dtype: torch.dtype, generator: torch.Generator,
+        compute_dtype: torch.dtype, generator: torch.Generator, dropout_rate: float = 0.0,
     ):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.dropout_rate = dropout_rate
         self.hidden: Optional[nn.Linear] = None
         width = in_features
         if hidden_dim > 0:
@@ -148,7 +167,10 @@ class GatingPartialMLP(nn.Module):
             bias=use_output_bias,
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if train:
+            x = dropout(x, self.dropout_rate, generator)
         if self.hidden is not None:
             x = F.silu(dense(x, self.hidden, self.compute_dtype))
         return dense(x, self.out, self.compute_dtype)

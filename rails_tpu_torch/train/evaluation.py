@@ -15,6 +15,7 @@ from typing import Callable, Dict, Optional, Union
 import numpy as np
 import torch
 
+from rails_tpu_torch.core.device import resolve_device
 from rails_tpu_torch.data.features import SequentialFeatures
 from rails_tpu_torch.index.candidate_index import k_prime_for, select_top_k_with_invalid_filter
 from rails_tpu_torch.index.factory import get_top_k_raw
@@ -39,13 +40,15 @@ def get_eval_state(
     all_item_ids: np.ndarray,
     top_k_method: str,
     table_dtype: torch.dtype = torch.bfloat16,
-    device: Union[str, torch.device] = "cpu",
+    device: Optional[Union[str, torch.device]] = None,
 ) -> EvalState:
-    """Embed the whole corpus and build the exact top-k state on `device`.
+    """Embed the whole corpus and build the exact top-k state on `device`
+    (the card unless the caller passes "cpu").
     (The JAX package's `item_l2_norm` serves the dot-product configs, which
     are not ported.)"""
     get_top_k_raw(top_k_method)   # refuse unported methods before any work
-    ids = torch.as_tensor(np.asarray(all_item_ids, dtype=np.int32), device=device)
+    ids = torch.as_tensor(np.asarray(all_item_ids, dtype=np.int32),
+                          device=resolve_device(device))
     state = build_mol_topk_state(
         model, ids, model.get_item_embeddings(ids), table_dtype=table_dtype,
         build_fused="Fused" in top_k_method,

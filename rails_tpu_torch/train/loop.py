@@ -1,0 +1,136 @@
+"""Training step: sampled-softmax loss -> gradients -> fused AdamW.
+
+Counterpart of `rails_tpu/train/loop.py`: `model_dtype` (:71-77),
+`make_optimizer` (:38-61), `scatter_target` (:64-68), `make_train_step`
+(:132-193) and `create_train_state` (:196-225). The training state is
+(model, optimizer, step): the model's parameters and the optimizer's moments
+are updated in place. One explicit `torch.Generator` on the model's device
+draws, per step, the HSTU blocks' dropout seed, the negatives and every
+other dropout. The step is a plain Python function: no jit, no CUDA graph.
+
+Only the `SampledSoftmaxLoss` with the local sampler is ported; the BCE
+losses and the in-batch sampler raise NotImplementedError naming
+ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from rails_tpu_torch.core.config import ExperimentConfig
+from rails_tpu_torch.core.device import resolve_device
+from rails_tpu_torch.data.features import Batch, SequentialFeatures
+from rails_tpu_torch.losses.sampled_softmax import get_weighted_loss, sampled_softmax_loss
+from rails_tpu_torch.losses.samplers import LocalNegativesSampler
+from rails_tpu_torch.models.encoder import SequentialRecommender
+from rails_tpu_torch.train.fused_adamw import FusedAdamW, linear_schedule
+
+_INT32_MAX = 2 ** 31 - 1
+
+
+class TrainState(NamedTuple):
+    model: SequentialRecommender
+    optimizer: FusedAdamW
+    step: int
+
+
+def model_dtype(cfg: ExperimentConfig) -> torch.dtype:
+    """bf16 compute when the config enables it (`main_module_bf16` / MoL
+    `bf16_training`), f32 otherwise; parameters stay f32."""
+    if cfg.train.main_module_bf16 or cfg.mol.bf16_training:
+        return torch.bfloat16
+    return torch.float32
+
+
+def make_optimizer(cfg: ExperimentConfig, model: SequentialRecommender) -> FusedAdamW:
+    """AdamW(b1, b2, eps=1e-8, weight_decay) with the optional linear warmup;
+    with `fused_optimizer` the large leaves go through K7."""
+    t = cfg.train
+    if t.num_warmup_steps > 0:
+        schedule = linear_schedule(t.learning_rate / t.num_warmup_steps, t.learning_rate,
+                                   t.num_warmup_steps)
+    else:
+        schedule = t.learning_rate
+    return FusedAdamW(
+        dict(model.named_parameters()), schedule, b1=t.beta1, b2=t.beta2, eps=1e-8,
+        weight_decay=t.weight_decay,
+        min_fused_elements=(1 << 21) if t.fused_optimizer else None,
+    )
+
+
+def scatter_target(features: SequentialFeatures, target_ids: torch.Tensor) -> SequentialFeatures:
+    """Place the target id at position `length` (`train.py:394-398`)."""
+    ids = features.ids.clone()
+    rows = torch.arange(ids.shape[0], device=ids.device)
+    ids[rows, features.lengths.long()] = target_ids
+    return features._replace(ids=ids)
+
+
+def _make_sampler(cfg: ExperimentConfig, all_item_ids: np.ndarray, device) -> LocalNegativesSampler:
+    t = cfg.train
+    if t.sampling_strategy != "local":
+        raise NotImplementedError(
+            f"sampling_strategy={t.sampling_strategy!r} is not ported (ROADMAP.md, Queue 1: losses)"
+        )
+    ids = torch.as_tensor(np.asarray(all_item_ids, dtype=np.int32), device=device)
+    return LocalNegativesSampler(ids, t.item_l2_norm, t.l2_norm_eps)
+
+
+def make_train_step(
+    cfg: ExperimentConfig, model: SequentialRecommender, optimizer: FusedAdamW,
+    sampler: LocalNegativesSampler,
+) -> Callable:
+    """fn(state, batch, generator) -> (state, metrics) with metrics
+    {"loss", "loss_incl_aux", "aux/<name>"} as detached scalars. The
+    gradients stay in the parameters' `.grad` after the step."""
+    t = cfg.train
+    if t.loss_module != "SampledSoftmaxLoss":
+        raise NotImplementedError(
+            f"loss_module={t.loss_module!r} is not ported (ROADMAP.md, Queue 1: losses)"
+        )
+    loss_weights = dict(t.loss_weights)
+    params = dict(model.named_parameters())
+
+    def train_step(state: TrainState, batch: Batch, generator: torch.Generator
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        features = scatter_target(batch.features, batch.target_ids)
+        seed0 = int(torch.randint(0, _INT32_MAX, (1,), generator=generator,
+                                  device=generator.device).item())
+        model.zero_grad(set_to_none=True)
+        main_loss, aux = sampled_softmax_loss(
+            model, features, sampler, t.num_negatives, t.temperature, True, generator, seed0,
+            t.loss_activation_checkpoint, t.shared_negatives,
+        )
+        total = get_weighted_loss(main_loss, aux, loss_weights)
+        total.backward()
+        optimizer.step({k: p.grad for k, p in params.items()})
+        metrics = {"loss": main_loss.detach(), "loss_incl_aux": total.detach()}
+        metrics.update({f"aux/{k}": v.detach() for k, v in aux.items()})
+        return TrainState(state.model, state.optimizer, state.step + 1), metrics
+
+    return train_step
+
+
+def create_train_state(
+    cfg: ExperimentConfig,
+    num_items: int,
+    all_item_ids: np.ndarray,
+    seed: Optional[int] = None,
+    device: Optional[Union[str, torch.device]] = None,
+):
+    """Returns (model, state, train_step, sampler) on `device`, the card
+    unless the caller passes "cpu". Weights are drawn from `seed`
+    (`cfg.train.random_seed` by default)."""
+    device = resolve_device(device)
+    seed = cfg.train.random_seed if seed is None else seed
+    model = SequentialRecommender(
+        cfg, num_items, compute_dtype=model_dtype(cfg), device=device,
+        generator=torch.Generator().manual_seed(seed),
+    )
+    optimizer = make_optimizer(cfg, model)
+    sampler = _make_sampler(cfg, all_item_ids, device)
+    state = TrainState(model, optimizer, 0)
+    return model, state, make_train_step(cfg, model, optimizer, sampler), sampler

@@ -4,18 +4,20 @@ Marked `gpu`; every test skips without a CUDA device. On a card:
 `python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py -q`
 (`--noconftest` where jax is not installed: tests/conftest.py imports it).
 `chip_smoke.py`
-covers the serving shapes; these cover small, ragged and odd shapes and the
-whole slice at the synthetic-small geometry.
+covers the serving and training shapes; these cover small, ragged and odd
+shapes and both slices at the synthetic-small geometry.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from rails_tpu.core.config import get_experiment_config
+from rails_tpu_torch.core.config import get_experiment_config
 from rails_tpu_torch.data.datasets import SequenceDataset, generate_synthetic_sequences
 from rails_tpu_torch.models.encoder import SequentialRecommender
-from rails_tpu_torch.ops import hstu_block, mol_scoring
+from rails_tpu_torch.ops import hash_dropout, hstu_block, hstu_block_train, mol_scoring
+from rails_tpu_torch.train import fused_adamw
+from rails_tpu_torch.train.loop import create_train_state
 from rails_tpu_torch.similarity.layers import l2_normalize
 from rails_tpu_torch.train.evaluation import get_eval_state, make_eval_step_fn
 
@@ -35,7 +37,7 @@ def cuda():
 def _k1_args(b, n, d, h, dqk, dv, max_seq_len, dtype, device, seed=0):
     g = torch.Generator().manual_seed(seed)
     f = 2 * h * dv + 2 * h * dqk
-    lengths = torch.randint(1, n, (b,), generator=g)
+    lengths = torch.randint(1, max(n, 2), (b,), generator=g)
     ts = torch.cumsum(torch.randint(1, 10**6, (b, n), generator=g), dim=1).to(torch.int32)
     pos_w = 0.02 * torch.randn(2 * max_seq_len - 1, generator=g)
     i, j = torch.arange(n)[:, None], torch.arange(n)[None, :]
@@ -136,3 +138,98 @@ def test_slice_on_cuda_matches_cpu(cuda, method):
     torch.testing.assert_close(s_gpu, s_cpu, rtol=1e-4, atol=1e-4)
     assert (r_gpu == r_cpu).float().mean().item() >= 0.99
     assert (i_gpu == i_cpu).float().mean().item() >= 0.99
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 256), (3, 33, 40), (128, 211, 256)],
+                         ids=["one_row", "odd", "ml20m"])
+@pytest.mark.parametrize("rate", [0.2, 0.5])
+def test_k3_kernel_is_bit_equal_to_plain(cuda, shape, rate):
+    for seed0 in (0, -1_498_392_781, 2**31 - 1, -(2**31)):
+        before = hash_dropout.hash_keep_mask.launches
+        got = hash_dropout.hash_keep_mask(*shape, seed0, rate, cuda)
+        assert hash_dropout.hash_keep_mask.launches == before + 1
+        assert torch.equal(got, hash_dropout.hash_keep_mask_reference(*shape, seed0, rate, cuda))
+
+
+GRAD_NAMES = ("x", "rel_pos", "tsw", "uvqk", "o_kernel", "o_bias")
+
+
+@pytest.mark.parametrize("rate,num_buckets", [(0.0, 128), (0.2, 32)], ids=["rate0", "rate0.2_b32"])
+@pytest.mark.parametrize("b,n", [(1, 1), (2, 33), (1, 211), (3, 97)],
+                         ids=["n1", "n33", "n211", "b3_n97"])
+def test_k4_matches_plain_autograd(cuda, b, n, rate, num_buckets):
+    """Forward and every gradient of the kernel block against autograd of the
+    plain forward, at the ml-20m block widths."""
+    args, kw = _k1_args(b, n, 256, 8, 32, 32, 211, torch.float32, cuda, seed=n)
+    args["x"] = args["x"] * args["colmask"][..., None]
+    meta = hstu_block_train.BlockMeta(8, 32, 32, kw["inv_n"], kw["eps"], num_buckets, rate)
+    w = torch.cos(torch.arange(args["x"].numel(), device=cuda, dtype=torch.float32)).reshape(
+        args["x"].shape)
+    res = []
+    for fn in (hstu_block_train.fused_train_block,
+               hstu_block_train.fused_train_block_autograd_reference):
+        leaves = [args[k].clone().requires_grad_(True) for k in GRAD_NAMES]
+        out = fn(*leaves, args["colmask"], args["ext"], -77, meta)
+        (out * w).sum().backward()
+        res.append((out.detach(), [t.grad for t in leaves]))
+    torch.testing.assert_close(res[0][0], res[1][0], rtol=1e-3, atol=1e-4)
+    for name, got, want in zip(GRAD_NAMES, res[0][1], res[1][1]):
+        scale = want.abs().max().clamp_min(1e-30)
+        assert ((got - want).abs().max() / scale).item() <= 1e-3, name
+
+
+@pytest.mark.parametrize("numel", [1, 7, 4099, 1_000_003, (26_745 * 256)])
+def test_k7_matches_plain_and_torch_fused_adamw(cuda, numel):
+    g = torch.Generator(device=cuda).manual_seed(numel)
+    grad = 1e-2 * torch.randn(numel, generator=g, device=cuda)
+    p = torch.randn(numel, generator=g, device=cuda)
+    mu = 1e-3 * torch.randn(numel, generator=g, device=cuda)
+    nu = 1e-5 * torch.rand(numel, generator=g, device=cuda)
+    count = 4
+    c1, c2 = 1.0 / (1.0 - 0.9 ** count), 1.0 / (1.0 - 0.98 ** count)
+    kw = dict(lr=1e-3, c1=c1, c2=c2, b1=0.9, b2=0.98, eps=1e-8, wd=1e-3)
+    got = [t.clone() for t in (p, mu, nu)]
+    ref = [t.clone() for t in (p, mu, nu)]
+    before = fused_adamw.adamw_leaf_update.launches
+    fused_adamw.adamw_leaf_update(grad, *got, **kw)
+    assert fused_adamw.adamw_leaf_update.launches == before + 1
+    fused_adamw.adamw_leaf_update_reference(grad, *ref, **kw)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+    lib = [t.clone() for t in (p, mu, nu)]
+    torch._fused_adamw_([lib[0]], [grad], [lib[1]], [lib[2]], [],
+                        [torch.tensor(float(count), device=cuda)], lr=1e-3, beta1=0.9,
+                        beta2=0.98, weight_decay=1e-3, eps=1e-8, amsgrad=False, maximize=False)
+    torch.testing.assert_close(got[0], lib[0], rtol=1e-6, atol=1e-6)
+
+
+def test_train_step_on_cuda_matches_cpu(cuda, monkeypatch):
+    """One synthetic-small train step through the kernels and through the
+    plain versions on the CPU, from the same weights and negatives with every
+    dropout off: the same loss and gradients."""
+    from rails_tpu_torch.losses import samplers
+
+    cfg = get_experiment_config("synthetic-small")
+    cfg = cfg.replace(
+        hstu=cfg.hstu.replace(fused_train=True, linear_dropout_rate=0.0),
+        train=cfg.train.replace(dropout_rate=0.0, num_negatives=16),
+        mol=cfg.mol.replace(uid_dropout_rate=0.0, item_dropout_rate=0.0,
+                            softmax_dropout_rate=0.0),
+    )
+    num_items = 300
+    seqs = generate_synthetic_sequences(num_users=64, num_items=num_items, max_len=34, seed=2)
+    ds = SequenceDataset(seqs, cfg.data.max_sequence_length, ignore_last_n=1)
+    all_ids = np.arange(1, num_items + 1, dtype=np.int32)
+    negatives = np.random.default_rng(0).integers(1, num_items + 1, (16 * 34, 16)).astype(np.int32)
+    out = {}
+    for device in ("cpu", cuda):
+        monkeypatch.setattr(samplers.LocalNegativesSampler, "sample",
+                            lambda self, gen, shape, d=device: torch.from_numpy(negatives).to(d))
+        model, state, step, _ = create_train_state(cfg, num_items, all_ids, seed=0, device=device)
+        batch = next(ds.batches(16, cfg.train.gr_output_length + 1, shuffle=False, device=device))
+        _, m = step(state, batch, torch.Generator(device=device).manual_seed(0))
+        out[str(device)] = (m["loss"].item(), {k: p.grad.cpu() for k, p in model.named_parameters()})
+    (loss_c, g_c), (loss_g, g_g) = out["cpu"], out[str(cuda)]
+    assert abs(loss_g - loss_c) <= 1e-4 * abs(loss_c)
+    for k in g_c:
+        torch.testing.assert_close(g_g[k], g_c[k], rtol=5e-3, atol=1e-4, msg=k)

@@ -1,6 +1,8 @@
-"""rails_tpu_torch package hygiene: no JAX, a build that fails loudly, and
-unported paths that say so."""
+"""rails_tpu_torch package hygiene: no JAX and nothing of the JAX package, a
+config copy that cannot drift, entry points on the card by default, a build
+that fails loudly, and unported paths that say so."""
 
+import ast
 import os
 import shutil
 import subprocess
@@ -8,24 +10,29 @@ import sys
 import textwrap
 
 import pytest
+import torch
 
-from rails_tpu.core.config import get_experiment_config
+from rails_tpu.core import config as jax_config
+from rails_tpu_torch.core import config as port_config
+from rails_tpu_torch.core.config import get_experiment_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCRIPTS = ("chip_smoke.py", "profile_serving.py", "profile_train.py")
 
 
 def test_port_imports_no_jax():
-    """Every module of the package imports with jax and flax blocked."""
+    """Every module of the package imports with jax, flax and the JAX
+    package blocked."""
     code = textwrap.dedent(
         """
         import importlib, pkgutil, sys
-        for name in ("jax", "flax"):
-            sys.modules[name] = None      # any `import jax` now raises
+        for name in ("jax", "flax", "rails_tpu"):
+            sys.modules[name] = None      # any `import jax` / `import rails_tpu.x` now raises
         import rails_tpu_torch
         mods = [m.name for m in pkgutil.walk_packages(rails_tpu_torch.__path__, "rails_tpu_torch.")]
         for m in mods:
             importlib.import_module(m)
-        leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "jaxlib")
+        leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "jaxlib", "rails_tpu")
                   and sys.modules[m] is not None]
         assert not leaked, leaked
         print(len(mods))
@@ -35,7 +42,54 @@ def test_port_imports_no_jax():
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 28
+
+
+@pytest.mark.parametrize("script", SCRIPTS)
+def test_scripts_import_nothing_of_the_jax_package(script):
+    tree = ast.parse(open(os.path.join(REPO, script)).read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    roots = {n.split(".")[0] for n in names}
+    assert not roots & {"jax", "flax", "jaxlib", "rails_tpu"}, roots
+    assert "rails_tpu_torch" in roots
+
+
+def test_config_copy_agrees_with_the_jax_package():
+    names = jax_config.list_experiment_configs()
+    assert port_config.list_experiment_configs() == names
+    for name in names:
+        assert (port_config.get_experiment_config(name).to_dict()
+                == jax_config.get_experiment_config(name).to_dict()), name
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """Entry points called without `device=` go to the card; without one they
+    raise instead of running on the CPU."""
+    from rails_tpu_torch.core import device
+    from rails_tpu_torch.data.features import batch_from_rows
+    from rails_tpu_torch.models.encoder import SequentialRecommender
+    from rails_tpu_torch.train.loop import create_train_state
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device is required"):
+        device.default_device()
+    cfg = get_experiment_config("synthetic-small")
+    with pytest.raises(RuntimeError, match="CUDA device is required"):
+        SequentialRecommender(cfg, num_items=10)
+    with pytest.raises(RuntimeError, match="CUDA device is required"):
+        create_train_state(cfg, 10, list(range(1, 11)))
+    rows = [torch.zeros(2, dtype=torch.int32).numpy()] + [torch.zeros(2, 3).numpy()] * 3
+    rows += [torch.zeros(2).numpy()] * 4
+    with pytest.raises(RuntimeError, match="CUDA device is required"):
+        batch_from_rows(*rows, max_output_length=1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert device.default_device() == torch.device("cuda")
+    assert device.resolve_device("cpu") == torch.device("cpu")
 
 
 @pytest.fixture
@@ -63,7 +117,9 @@ def test_build_raises_when_nvcc_fails(fresh_build, monkeypatch, tmp_path):
 
 def test_source_hash_covers_every_source(fresh_build):
     names = {p.name for p in fresh_build._sources()}
-    assert {"hstu_block.cu", "mol_scoring.cu", "common.cuh"} <= names
+    assert {"hstu_block.cu", "mol_scoring.cu", "common.cuh", "hstu_block.cuh",
+            "hstu_block_train.cu", "hash_dropout.cu", "hash_dropout.cuh",
+            "fused_adamw.cu"} <= names
     assert len(fresh_build.source_hash()) == 16
 
 
@@ -82,6 +138,40 @@ def test_unported_model_configs_raise(change):
     cfg = get_experiment_config("synthetic-small").replace(**change)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         SequentialRecommender(cfg, num_items=10)
+
+
+@pytest.mark.parametrize(
+    "change",
+    [
+        dict(hstu=dict(fused_train=False)),
+        dict(hstu=dict(fused_train=True, attn_dropout_rate=0.1)),
+        dict(train=dict(main_module_bf16=True)),
+        dict(train=dict(shared_negatives=True, fused_mol_loss=True)),
+        dict(train=dict(loss_activation_checkpoint=True)),
+        dict(train=dict(sampling_strategy="in-batch")),
+        dict(train=dict(loss_module="BCELoss")),
+    ],
+    ids=["xla_train", "attn_dropout", "bf16", "shared_negatives", "checkpoint", "in_batch", "bce"],
+)
+def test_unported_training_options_raise(change):
+    """Each training option off the ported path refuses with a pointer to
+    ROADMAP.md, at the latest on the first step."""
+    import numpy as np
+
+    from rails_tpu_torch.data.features import batch_from_rows
+    from rails_tpu_torch.train.loop import create_train_state
+
+    cfg = get_experiment_config("synthetic-small")
+    cfg = cfg.replace(**{k: getattr(cfg, k).replace(**v) for k, v in change.items()})
+    n = cfg.data.max_sequence_length
+    lengths = np.array([5, 9])
+    ids = (np.arange(1, n + 1)[None] * (np.arange(n)[None] < lengths[:, None])).astype(np.int32)
+    batch = batch_from_rows(lengths, ids, ids, ids * 1000, np.array([3, 4]), np.array([1, 1]),
+                            np.array([90000, 90000]), np.array([0, 1]),
+                            max_output_length=cfg.train.gr_output_length + 1, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        _, state, step, _ = create_train_state(cfg, 60, np.arange(1, 61), device="cpu")
+        step(state, batch, torch.Generator().manual_seed(0))
 
 
 def test_unported_top_k_methods_raise():

@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from rails_tpu.core.config import get_experiment_config
+from rails_tpu_torch.core.config import get_experiment_config
 from rails_tpu.ops.pallas import hstu_block as jax_hstu
 from rails_tpu.ops.pallas import mol_scoring as jax_mol
 from rails_tpu_torch.core.device import use_kernel

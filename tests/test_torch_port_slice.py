@@ -19,6 +19,7 @@ from rails_tpu.data.features import truncate_features as jax_truncate
 from rails_tpu.train import evaluation as jax_eval
 from rails_tpu.train.loop import create_train_state
 from rails_tpu_torch.compat.from_jax import state_dict_from_jax_params
+from rails_tpu_torch.core import config as port_config
 from rails_tpu_torch.data import datasets as port_datasets
 from rails_tpu_torch.data.features import SequentialFeatures, truncate_features
 from rails_tpu_torch.models.encoder import SequentialRecommender
@@ -33,14 +34,20 @@ def slice_setup():
         train=cfg.train.replace(local_batch_size=16, num_negatives=8),
         hstu=cfg.hstu.replace(fused_inference=True),
     )
+    port_cfg = port_config.get_experiment_config("synthetic-small")
+    port_cfg = port_cfg.replace(
+        data=port_cfg.data.replace(synthetic_num_users=64, synthetic_num_items=150),
+        train=port_cfg.train.replace(local_batch_size=16, num_negatives=8),
+        hstu=port_cfg.hstu.replace(fused_inference=True),
+    )
     ds = jax_datasets.get_reco_dataset(cfg.data)
     batch = next(ds.eval_dataset.batches(
         batch_size=16, max_output_length=cfg.train.gr_output_length + 1, shuffle=False,
     ))
     model, state, _, _ = create_train_state(cfg, ds.max_item_id, ds.all_item_ids, batch)
-    port = SequentialRecommender(cfg, ds.max_item_id)
+    port = SequentialRecommender(port_cfg, ds.max_item_id, device="cpu")
     port.load_state_dict(
-        state_dict_from_jax_params(jax.tree_util.tree_map(np.asarray, state.params), cfg),
+        state_dict_from_jax_params(jax.tree_util.tree_map(np.asarray, state.params), port_cfg),
         strict=True,
     )
     return cfg, ds, batch, model, state.params, port
@@ -98,7 +105,8 @@ def test_eval_step_matches_jax(slice_setup, method):
     ranks, ids, scores = (np.asarray(a) for a in jstep(
         params, es.topk_state, es.item_embeddings, batch.features, batch.target_ids))
 
-    pes = port_eval.get_eval_state(port, ds.all_item_ids, method, table_dtype=torch.float32)
+    pes = port_eval.get_eval_state(port, ds.all_item_ids, method, table_dtype=torch.float32,
+                                    device="cpu")
     pstep = port_eval.make_eval_step_fn(port, method, k=k, num_objects=pes.num_objects,
                                         truncate_k_prime_to=k_cap)
     p_ranks, p_ids, p_scores = pstep(
@@ -125,7 +133,8 @@ def test_eval_step_on_a_truncated_batch(slice_setup):
     es = jax_eval.get_eval_state(model, params, ds.all_item_ids, method, table_dtype=jnp.float32)
     jstep = jax_eval.make_eval_step_fn(model, method, k=30, num_objects=es.num_objects)
     ranks = np.asarray(jstep(params, es.topk_state, es.item_embeddings, feats, batch.target_ids)[0])
-    pes = port_eval.get_eval_state(port, ds.all_item_ids, method, table_dtype=torch.float32)
+    pes = port_eval.get_eval_state(port, ds.all_item_ids, method, table_dtype=torch.float32,
+                                    device="cpu")
     pstep = port_eval.make_eval_step_fn(port, method, k=30, num_objects=pes.num_objects)
     p_ranks = pstep(pes.topk_state, truncate_features(_torch_features(batch.features), n),
                     torch.from_numpy(np.array(batch.target_ids)))[0]
@@ -156,7 +165,7 @@ def test_batches_match_jax(distribution, order):
     bkw = dict(batch_size=16, max_output_length=3, shuffle=order == "shuffle", seed=5,
                sort_by_length=order == "sort_by_length")
     j_batches = list(j_ds.batches(**bkw))
-    p_batches = list(p_ds.batches(**bkw))
+    p_batches = list(p_ds.batches(**bkw, device="cpu"))
     assert len(p_batches) == len(j_batches) == 3
     for jb, pb in zip(j_batches, p_batches):
         for name in jb.features._fields:
