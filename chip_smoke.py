@@ -21,6 +21,15 @@ Phases (one line each, any failure raises and exits non-zero):
      N=211, R=128, f32): step 1 through the kernels vs the same step through
      the plain versions, then 20 steps on one batch (the loss must fall),
      ms/step, peak memory and launch counts.
+ 10. K5 (`fused_mol_loss_forward`, `fused_mol_loss_backward`) at M=26,880,
+     R=128 shared negatives, MoL 8x4x128, H=128, dropout 0.2 / 0.1: forward
+     and the 8 gradients vs the plain autograd version.
+ 11. K6 (`scatter_add_rows`): the (128, 211) ids of an ML-20M-shaped batch
+     into (26,745, 256) f32, and a small case with duplicate, negative and
+     out-of-range ids, vs its plain version, with `index_add_` timed as a
+     yardstick.
+ 12. train-fast: ml-20m-hstu-mol-fast with pallas_scatter_grad (B=128, N=211,
+     R=128 shared, f32), as in 9, through K3-K7.
 The line before the last is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script fails before printing
 any result.
@@ -53,6 +62,11 @@ K4_TOL = (1e-3, 1e-4)          # (rtol, atol) of the f32 forward, as K1
 GRAD_REL_TOL = 1e-3
 TRAIN_LOSS_RTOL = 1e-4
 K7_ATOL = 1e-6
+# K6: max |kernel - plain| over max(1, max |plain|). Both sum in f32, in other
+# orders where ids repeat.
+K6_TOL = 1e-6
+K5_RATES = (0.2, 0.1)          # ml-20m-hstu-mol: softmax, gating-qi dropout
+NUM_NEGATIVES = 128            # ml-20m-hstu-mol num_negatives
 K1_TOL = {"float32": (1e-3, 1e-4), "bfloat16": (2e-2, 2e-2)}   # (rtol, atol)
 K2_TOL_F32 = (1e-4, 1e-3)      # logits carry 1/T = 20
 # (dtype name, min rank agreement, min top-120 overlap) of the serving step's
@@ -75,7 +89,8 @@ def ptxas_summary(log: str) -> str:
             mangled = entry.group(1)
             name = re.search(r"(ln_gemm_kernel|hstu_attn_bwd_kernel|hstu_attn_kernel|"
                              r"attn_row_bwd_kernel|mol_scores_kernel|hash_keep_mask_kernel|"
-                             r"adamw_kernel)", mangled)
+                             r"adamw_kernel|mol_loss_fwd_kernel|mol_loss_bwd_kernel|"
+                             r"reduce_slots_kernel|scatter_add_rows_kernel)", mangled)
             args = ["bf16" if "bfloat16" in mangled else "f32"] + re.findall(r"Li(\d+)E", mangled)
             label = f"{name.group(1) if name else mangled}<{','.join(args)}>"
             spilled = "?"
@@ -301,14 +316,24 @@ def run_batches(fn, batches) -> tuple:
 
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port by its summary name."""
-    from rails_tpu_torch.ops import hash_dropout, hstu_block, hstu_block_train, mol_scoring
+    from rails_tpu_torch.ops import (
+        hash_dropout,
+        hstu_block,
+        hstu_block_train,
+        mol_loss_train,
+        mol_scoring,
+        scatter_add,
+    )
     from rails_tpu_torch.train import fused_adamw
 
     return {
         "K1": hstu_block.fused_hstu_block, "K2": mol_scoring.fused_mol_scores_t,
         "K3": hash_dropout.hash_keep_mask,
         "K4 fwd": hstu_block_train.fused_train_block_forward,
-        "K4 bwd": hstu_block_train.attn_backward, "K7": fused_adamw.adamw_leaf_update,
+        "K4 bwd": hstu_block_train.attn_backward,
+        "K5 fwd": mol_loss_train.fused_mol_loss_forward,
+        "K5 bwd": mol_loss_train.fused_mol_loss_backward,
+        "K6": scatter_add.scatter_add_rows, "K7": fused_adamw.adamw_leaf_update,
     }
 
 
@@ -329,7 +354,14 @@ def plain_kernels():
 
     from rails_tpu_torch.index import top_k
     from rails_tpu_torch.models import hstu
-    from rails_tpu_torch.ops import hash_dropout, hstu_block, hstu_block_train, mol_scoring
+    from rails_tpu_torch.ops import (
+        hash_dropout,
+        hstu_block,
+        hstu_block_train,
+        mol_loss_train,
+        mol_scoring,
+        scatter_add,
+    )
     from rails_tpu_torch.train import fused_adamw
 
     before = launch_counts()
@@ -343,7 +375,13 @@ def plain_kernels():
             mock.patch.object(hstu_block_train, "hash_keep_mask",
                               hash_dropout.hash_keep_mask_reference), \
             mock.patch.object(fused_adamw, "adamw_leaf_update",
-                              fused_adamw.adamw_leaf_update_reference):
+                              fused_adamw.adamw_leaf_update_reference), \
+            mock.patch.object(mol_loss_train, "fused_mol_loss_forward",
+                              mol_loss_train.fused_mol_loss_forward_reference), \
+            mock.patch.object(mol_loss_train, "fused_mol_loss_backward",
+                              mol_loss_train.fused_mol_loss_backward_reference), \
+            mock.patch.object(scatter_add, "scatter_add_rows",
+                              scatter_add.scatter_add_rows_reference):
         yield
     if launch_counts() != before:
         raise AssertionError("the plain path launched a kernel")
@@ -558,32 +596,54 @@ def check_k7(device) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": library_ms}
 
 
-def train_setup(device, batch: int = TRAIN_BATCH):
-    """ml-20m-hstu-mol training (seeded random weights, 26,744 items, f32)
-    and one batch of ML-20M-shaped synthetic users at N = 211."""
+def train_setup(device, config: str = "ml-20m-hstu-mol", batch: int = TRAIN_BATCH,
+                **train_overrides):
+    """`config` training (seeded random weights, 26,744 items, f32) with the
+    `train` fields in `train_overrides` replaced, and one batch of
+    ML-20M-shaped synthetic users at N = 211."""
     from rails_tpu_torch.core.config import get_experiment_config
-    from rails_tpu_torch.data.datasets import SequenceDataset, generate_synthetic_sequences
     from rails_tpu_torch.train.loop import create_train_state
 
-    cfg = get_experiment_config("ml-20m-hstu-mol")
+    cfg = get_experiment_config(config)
+    cfg = cfg.replace(train=cfg.train.replace(**train_overrides))
     model, state, step, _ = create_train_state(
         cfg, NUM_ITEMS, np.arange(1, NUM_ITEMS + 1, dtype=np.int32), seed=0, device=device)
+    return cfg, model, state, step, train_batch(cfg, device, batch)
+
+
+def train_batch(cfg, device, batch: int = TRAIN_BATCH):
+    """One training batch of ML-20M-shaped synthetic users at N = 211."""
+    from rails_tpu_torch.data.datasets import SequenceDataset, generate_synthetic_sequences
+
     seqs = generate_synthetic_sequences(num_users=4 * batch, num_items=NUM_ITEMS,
                                         max_len=cfg.data.max_sequence_length + 2, seed=1,
                                         length_distribution="ml20m")
     ds = SequenceDataset(seqs, cfg.data.max_sequence_length, ignore_last_n=1)
-    data = next(ds.batches(batch, cfg.train.gr_output_length + 1, shuffle=True, seed=0,
+    return next(ds.batches(batch, cfg.train.gr_output_length + 1, shuffle=True, seed=0,
                            drop_last=True, device=device))
-    return cfg, model, state, step, data
 
 
-def train_phase(device, name: str, smi: str) -> dict:
+def step_launches(cfg) -> dict:
+    """The kernel launches one training step of `cfg` makes: K3 and K4 once
+    per block, K7 on the two fused leaves; with the fused shared-negatives
+    loss K5 forward and backward once; with pallas_scatter_grad K6 once per
+    gather from the item table (the tokens, the encoder's input, the
+    negatives); no serving kernel."""
+    blocks = cfg.hstu.num_blocks
+    fused = cfg.train.shared_negatives and cfg.train.fused_mol_loss
+    return {"K1": 0, "K2": 0, "K3": blocks, "K4 fwd": blocks, "K4 bwd": blocks,
+            "K5 fwd": int(fused), "K5 bwd": int(fused),
+            "K6": 3 if cfg.train.pallas_scatter_grad else 0, "K7": 2}
+
+
+def train_phase(device, name: str, smi: str, config: str = "ml-20m-hstu-mol",
+                tag: str = "train", **train_overrides) -> dict:
     """Step 1 through the kernels vs through the plain versions from the same
     state and generator; then TRAIN_STEPS steps on the batch. Returns the
-    launch counts of the training kernels over those steps."""
+    launch counts of every kernel over those steps."""
     import torch
 
-    cfg, model, state, step, batch = train_setup(device)
+    cfg, model, state, step, batch = train_setup(device, config, **train_overrides)
     n = batch.features.ids.shape[1]
     params = dict(model.named_parameters())
     opt = state.optimizer
@@ -597,10 +657,8 @@ def train_phase(device, name: str, smi: str) -> dict:
     state, m_k = step(state, batch, gen)
     per_step = launch_counts()
     grads_k = {k: p.grad.detach().clone() for k, p in params.items()}
-    want = {"K3": cfg.hstu.num_blocks, "K4 fwd": cfg.hstu.num_blocks,
-            "K4 bwd": cfg.hstu.num_blocks, "K7": 2}
-    got = {k: per_step[k] for k in want}
-    if got != want or per_step["K1"] or per_step["K2"]:
+    want = step_launches(cfg)
+    if per_step != want:
         raise AssertionError(f"train step launches {per_step}, want {want}")
     for k, p in params.items():
         p.data.copy_(p0[k])
@@ -615,12 +673,14 @@ def train_phase(device, name: str, smi: str) -> dict:
     for k, p in params.items():
         group = k.split(".")[0]
         groups[group] = max(groups.get(group, 0.0), rel_err(grads_k[k], p.grad))
-    print(f"[train] step 1 kernels vs plain, ml-20m-hstu-mol B={TRAIN_BATCH} N={n} "
-          f"R={cfg.train.num_negatives} f32: loss {m_k['loss'].item():.6f} vs "
+    negatives = "shared" if cfg.train.shared_negatives else "per position"
+    print(f"[{tag}] step 1 kernels vs plain, {cfg.name} B={TRAIN_BATCH} N={n} "
+          f"R={cfg.train.num_negatives} {negatives}, pallas_scatter_grad="
+          f"{cfg.train.pallas_scatter_grad}, f32: loss {m_k['loss'].item():.6f} vs "
           f"{m_p['loss'].item():.6f} (rel {loss_err:.2e} <= {TRAIN_LOSS_RTOL}); gradient "
           f"max|err|/max|plain| per group "
           + ", ".join(f"{k} {v:.2e}" for k, v in groups.items())
-          + f" (<= {GRAD_REL_TOL}); launches per step {got}")
+          + f" (<= {GRAD_REL_TOL}); launches per step {per_step}")
     if loss_err > TRAIN_LOSS_RTOL or max(groups.values()) > GRAD_REL_TOL:
         raise AssertionError("the kernel step disagrees with the plain step")
     del grads_k, p0, mu0, nu0
@@ -642,7 +702,7 @@ def train_phase(device, name: str, smi: str) -> dict:
         raise AssertionError(f"non-finite training loss: {losses}")
     falls = np.mean(losses[-5:]) < np.mean(losses[:5]) and losses[-1] < losses[0]
     ms = statistics.median(times[2:])
-    print(f"[train] {TRAIN_STEPS} steps on one batch: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+    print(f"[{tag}] {TRAIN_STEPS} steps on one batch: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
           f"(first 5 mean {np.mean(losses[:5]):.4f}, last 5 mean {np.mean(losses[-5:]):.4f}); "
           f"median of steps 3-{TRAIN_STEPS} {ms:.3f} ms/step = "
           f"{TRAIN_BATCH / ms * 1e3:.1f} sequences/s; peak memory {peak / 2**30:.2f} GiB; "
@@ -650,16 +710,136 @@ def train_phase(device, name: str, smi: str) -> dict:
     if not falls:
         raise AssertionError(f"the training loss did not fall: {losses}")
     want_all = {k: v * TRAIN_STEPS for k, v in want.items()}
-    got_all = {k: counts[k] for k in want}
-    if got_all != want_all or counts["K1"] or counts["K2"]:
+    if counts != want_all:
         raise AssertionError(f"train launches {counts}, want {want_all}")
-    return got_all
+    return counts
+
+
+K5_NAMES = ("q_comp", "qp", "item_comp", "ip", "w1", "b1", "w2", "b2")
+
+
+def k5_inputs(device, seed: int = 5):
+    """ml-20m-fast K5 operands: M = 128 x 210 queries' l2-normalised 8 x 128
+    components and 32 gating partials, 128 shared negatives' 4 x 128
+    components and partials, and a qi MLP of 128 hidden units."""
+    import torch
+
+    from rails_tpu_torch.similarity.layers import l2_normalize
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    m, r, l, hd = TRAIN_BATCH * (MAX_SEQ_LEN - 1), NUM_NEGATIVES, P_Q * P_X, 128
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=device)
+
+    return [l2_normalize(randn(m, P_Q, D_P)), randn(m, l), l2_normalize(randn(r, P_X, D_P)),
+            randn(r, l), randn(l, hd) / l ** 0.5, 0.1 * randn(1, hd), randn(hd, l) / hd ** 0.5,
+            0.1 * randn(1, l)]
+
+
+def check_k5(device) -> tuple:
+    """K5 at ml-20m-fast's shapes, forward and backward, against the plain
+    version and autograd of it on the same inputs, mask seed and cotangent."""
+    import torch
+
+    from rails_tpu_torch.ops import mol_loss_train as mlt
+
+    args = k5_inputs(device)
+    m, r = args[0].shape[0], args[2].shape[0]
+    l, hd = P_Q * P_X, args[4].shape[1]
+    pi_rate, qi_rate = K5_RATES
+    kw = dict(p_q=P_Q, p_x=P_X, temperature=TEMPERATURE, qi_rate=qi_rate, pi_rate=pi_rate,
+              eps=1e-6)
+    seed = 424_242
+    got = mlt.fused_mol_loss_forward(*args, seed, **kw)
+    ref = mlt.fused_mol_loss_forward_reference(*args, seed, **kw)
+    rtol, atol = K2_TOL_F32
+    torch.testing.assert_close(got, ref, rtol=rtol, atol=atol)
+    err = (got - ref).abs().max().item()
+    cot = torch.randn(m, r, generator=torch.Generator(device=device).manual_seed(6),
+                      device=device)
+    grads = mlt.fused_mol_loss_backward(*args, seed, cot, **kw)
+    ref_grads = mlt.fused_mol_loss_backward_reference(*args, seed, cot, **kw)
+    grad_errs = {k: rel_err(a, b) for k, a, b in zip(K5_NAMES, grads, ref_grads)}
+    bwd_err = max((a - b).abs().max().item() for a, b in zip(grads, ref_grads))
+    if max(grad_errs.values()) > GRAD_REL_TOL:
+        raise AssertionError(f"K5 gradients outside {GRAD_REL_TOL}: {grad_errs}")
+    del got, ref, grads, ref_grads
+    torch.cuda.empty_cache()
+    fwd_ms = cuda_ms(lambda: mlt.fused_mol_loss_forward(*args, seed, **kw))
+    fwd_plain_ms = cuda_ms(lambda: mlt.fused_mol_loss_forward_reference(*args, seed, **kw),
+                           iters=3, warmup=1)
+    bwd_ms = cuda_ms(lambda: mlt.fused_mol_loss_backward(*args, seed, cot, **kw), iters=5)
+    bwd_plain_ms = cuda_ms(
+        lambda: mlt.fused_mol_loss_backward_reference(*args, seed, cot, **kw), iters=2, warmup=1)
+    pairs = m * r
+    fwd_flops = pairs * (2 * l * D_P + 4 * l * hd)      # component logits + the qi MLP
+    # d q and d item (2 x 2 L d_P), d_h, d t_in, dW1 and dW2 (4 x 2 L H) per pair.
+    bwd_flops = pairs * (4 * l * D_P + 8 * l * hd)
+    in_floats = sum(a.numel() for a in args)
+    fwd_bd = bound(fwd_flops, 4 * (in_floats + pairs), "float32")
+    bwd_bd = bound(bwd_flops, 4 * (2 * in_floats + pairs), "float32")
+    print(f"[K5] f32 M={m} R={r} MoL {P_Q}x{P_X}x{D_P} H={hd} dropout softmax {pi_rate} / "
+          f"qi {qi_rate}: forward max|err| {err:.3e} (rtol {rtol}, atol {atol}); gradient "
+          f"max|err|/max|plain| " + ", ".join(f"{k} {v:.2e}" for k, v in grad_errs.items())
+          + f" (<= {GRAD_REL_TOL})")
+    print(f"[K5] forward kernel {fwd_ms:.3f} ms, plain {fwd_plain_ms:.3f} ms, bound "
+          f"{fwd_bd['bound_ms']:.4f} ms ({fwd_bd['bound_by']}; {fwd_flops / 1e9:.1f} GFLOP); "
+          f"backward kernel {bwd_ms:.3f} ms, plain {bwd_plain_ms:.3f} ms, bound "
+          f"{bwd_bd['bound_ms']:.4f} ms ({bwd_bd['bound_by']}; {bwd_flops / 1e9:.1f} GFLOP)")
+    fwd = {"max_abs_err": err, "ms": fwd_ms, "plain_ms": fwd_plain_ms, **fwd_bd,
+           "library_ms": None}
+    bwd = {"max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": bwd_plain_ms, **bwd_bd,
+           "library_ms": None}
+    return fwd, bwd
+
+
+def check_k6(device, ids) -> dict:
+    """K6 on the (B, N) ids of an ML-20M-shaped batch (padding included) into
+    the (26,745, 256) f32 table, and on a small case with duplicate, negative and out-of-range
+    ids; `index_add_` is timed on the same rows as a yardstick."""
+    import torch
+
+    from rails_tpu_torch.ops.scatter_add import scatter_add_rows, scatter_add_rows_reference
+
+    num_rows = NUM_ITEMS + 1
+    g = torch.Generator(device=device).manual_seed(6)
+    # Zero at padding ids, as in the step's cotangent: padded positions carry
+    # no gradient, so each table row sums only its item's few occurrences.
+    rows = (torch.randn(tuple(ids.shape) + (D,), generator=g, device=device)
+            * (ids != 0)[..., None])
+    got = scatter_add_rows(ids, rows, num_rows)
+    ref = scatter_add_rows_reference(ids, rows, num_rows)
+    err = (got - ref).abs().max().item()
+    scale = max(1.0, ref.abs().max().item())
+    small_ids = torch.tensor([3, 3, -1, 9, 10, -11, 0, 3, 12, -12], dtype=torch.int32,
+                             device=device)
+    small_rows = torch.randn(10, 40, generator=g, device=device)
+    edge_err = (scatter_add_rows(small_ids, small_rows, 11)
+                - scatter_add_rows_reference(small_ids, small_rows, 11)).abs().max().item()
+    if err > K6_TOL * scale or edge_err > K6_TOL:
+        raise AssertionError(f"K6 differs from its plain version: {err} (scale {scale}), "
+                             f"edge case {edge_err}")
+    ms = cuda_ms(lambda: scatter_add_rows(ids, rows, num_rows))
+    plain_ms = cuda_ms(lambda: scatter_add_rows_reference(ids, rows, num_rows))
+    flat, src = ids.reshape(-1).long(), rows.reshape(-1, D)
+    library_ms = cuda_ms(lambda: torch.zeros(num_rows, D, device=device).index_add_(0, flat, src))
+    bd = bound(0, 4 * (ids.numel() * (D + 1) + num_rows * D), "float32")
+    distinct, padding = int(torch.unique(flat).numel()), int((flat == 0).sum())
+    print(f"[K6] ids {tuple(ids.shape)} ({distinct} distinct, {padding} padding) into "
+          f"({num_rows}, {D}) f32: "
+          f"max|err| {err:.3e} (<= {K6_TOL} x max(1, max|plain|) = {K6_TOL * scale:.3e}), "
+          f"duplicate/negative/out-of-range case {edge_err:.3e} (<= {K6_TOL}); kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms, bound "
+          f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": library_ms}
 
 
 
 def main() -> None:
     import torch
 
+    from rails_tpu_torch.core.config import get_experiment_config
     from rails_tpu_torch.core.device import require_cuda
     from rails_tpu_torch.ops import _build
 
@@ -694,7 +874,18 @@ def main() -> None:
     k4_fwd, k4_bwd = check_k4(device)
     k7 = check_k7(device)
     torch.cuda.empty_cache()
-    launches.update(train_phase(device, name, smi))
+    # Each path reports the launches of the kernels it adds.
+    train = train_phase(device, name, smi)
+    launches.update({k: train[k] for k in ("K3", "K4 fwd", "K4 bwd", "K7")})
+    torch.cuda.empty_cache()
+    k5_fwd, k5_bwd = check_k5(device)
+    torch.cuda.empty_cache()
+    cfg = get_experiment_config("ml-20m-hstu-mol")
+    k6 = check_k6(device, train_batch(cfg, device).features.ids)
+    torch.cuda.empty_cache()
+    fast = train_phase(device, name, smi, "ml-20m-hstu-mol-fast", "train-fast",
+                       pallas_scatter_grad=True)
+    launches.update({k: fast[k] for k in ("K5 fwd", "K5 bwd", "K6")})
 
     def entry(name_, source, replaces, key, measured):
         return {"name": name_, "route": "cuda", "source": f"rails_tpu_torch/csrc/{source}",
@@ -711,6 +902,12 @@ def main() -> None:
               "rails_tpu/ops/pallas/hstu_block_train.py:574", "K4 fwd", k4_fwd),
         entry("attn_backward", "hstu_block_train.cu",
               "rails_tpu/ops/pallas/hstu_block_train.py:629", "K4 bwd", k4_bwd),
+        entry("fused_mol_loss_forward", "mol_loss_train.cu",
+              "rails_tpu/ops/pallas/mol_loss_train.py:143", "K5 fwd", k5_fwd),
+        entry("fused_mol_loss_backward", "mol_loss_train.cu",
+              "rails_tpu/ops/pallas/mol_loss_train.py:159", "K5 bwd", k5_bwd),
+        entry("scatter_add_rows", "scatter_add.cu", "rails_tpu/ops/pallas/scatter_add.py:172",
+              "K6", k6),
         entry("adamw_leaf_update", "fused_adamw.cu", "rails_tpu/train/fused_adamw.py:87",
               "K7", k7),
     ]

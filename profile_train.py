@@ -1,19 +1,23 @@
 """Where the time of the port's training step goes, on one CUDA card.
 
-Run from the root of a checkout: `python3 profile_train.py`. It builds the
-kernels, then trains ml-20m-hstu-mol through `rails_tpu_torch` (f32, seeded
-random weights, 26,744 items, one batch of 128 ML-20M-shaped users at
-N = 211, 128 negatives per position; `chip_smoke.train_setup`). It prints
+Run from the root of a checkout: `python3 profile_train.py [--config NAME]
+[--pallas-scatter]`. It builds the kernels, then trains `--config` (default
+ml-20m-hstu-mol; ml-20m-hstu-mol-fast shares 128 negatives across the batch
+and scores them with K5) through `rails_tpu_torch` (f32, seeded random
+weights, 26,744 items, one batch of 128 ML-20M-shaped users at N = 211;
+`chip_smoke.train_setup`), with the item table's gradient through K6 when
+`--pallas-scatter` is given. It prints
   - ms/step on the host clock (median of 5 steps after 3 warm-up steps) and
     the peak device memory of those steps;
   - the device busy share of 2 steps under `torch.profiler`: the union of the
     device-side kernel and memory-op intervals over their wall time;
   - device time per kernel name over those steps, largest first, and the
-    share of the port's own kernels (K3, K4, K7) in it.
+    share of the port's own kernels (K3-K7) in it.
 """
 
 from __future__ import annotations
 
+import argparse
 import statistics
 import subprocess
 import time
@@ -24,10 +28,17 @@ from profile_serving import union_us
 WARMUP, TIMED, PROFILED = 3, 5, 2
 TOP_ROWS = 16
 OWN_KERNELS = ("hash_keep_mask_kernel", "ln_gemm_kernel", "hstu_attn_kernel",
-               "attn_row_bwd_kernel", "hstu_attn_bwd_kernel", "adamw_kernel")
+               "attn_row_bwd_kernel", "hstu_attn_bwd_kernel", "adamw_kernel",
+               "mol_loss_fwd_kernel", "mol_loss_bwd_kernel", "reduce_slots_kernel",
+               "scatter_add_rows_kernel")
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--config", default="ml-20m-hstu-mol")
+    parser.add_argument("--pallas-scatter", action="store_true",
+                        help="train.pallas_scatter_grad: the item table's gradient through K6")
+    args = parser.parse_args()
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -44,7 +55,8 @@ def main() -> None:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
     _build.load_library()
-    _, _, state, step, batch = chip_smoke.train_setup(device)
+    cfg, _, state, step, batch = chip_smoke.train_setup(
+        device, args.config, pallas_scatter_grad=args.pallas_scatter)
     gen = torch.Generator(device=device).manual_seed(0)
 
     def one_step():
@@ -62,7 +74,10 @@ def main() -> None:
     runs = [one_step() for _ in range(TIMED)]
     ms = statistics.median(t for t, _ in runs)
     peak = torch.cuda.max_memory_allocated()
-    print(f"[train] f32 ml-20m-hstu-mol B={chip_smoke.TRAIN_BATCH} N={batch.features.ids.shape[1]}: "
+    print(f"[train] f32 {cfg.name} (shared_negatives={cfg.train.shared_negatives}, "
+          f"fused_mol_loss={cfg.train.fused_mol_loss}, pallas_scatter_grad="
+          f"{cfg.train.pallas_scatter_grad}) B={chip_smoke.TRAIN_BATCH} "
+          f"N={batch.features.ids.shape[1]}: "
           f"{ms:.3f} ms/step (median of {TIMED}) = "
           f"{chip_smoke.TRAIN_BATCH / ms * 1e3:.1f} sequences/s, peak memory "
           f"{peak / 2**30:.2f} GiB, losses {[round(loss, 4) for _, loss in runs]} on {smi}")
@@ -84,7 +99,7 @@ def main() -> None:
     for e in device_events:
         per_name[e.name] = per_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     own = sum(us for name, us in per_name.items() if any(k in name for k in OWN_KERNELS))
-    print(f"[profile] the port's kernels (K3, K4, K7): {own / 1e3 / PROFILED:.3f} ms/step "
+    print(f"[profile] the port's kernels (K3-K7): {own / 1e3 / PROFILED:.3f} ms/step "
           f"= {own / busy_us:.2%} of device time")
     for name, us in sorted(per_name.items(), key=lambda kv: -kv[1])[:TOP_ROWS]:
         print(f"[profile] {us / 1e3 / PROFILED:10.3f} ms/step {us / busy_us:7.2%}  {name[:140]}")

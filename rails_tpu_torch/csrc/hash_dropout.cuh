@@ -8,7 +8,8 @@
 // two's-complement wrapping and logical right shifts; uint32_t arithmetic
 // gives the same bits. The keep test is `(h & 0x7fffffff) >= thresh` with
 // thresh = min(int(rate * 2^31), 2^31 - 1) computed on the host, exactly as
-// `hash_dropout.py:35` does.
+// `hash_dropout.py:35` does. K5 (mol_loss_train.cu) draws its two streams
+// through `keep_scale` with seed + salt (QI_SALT, PI_SALT in hash_dropout.py).
 #pragma once
 
 #include <cstdint>

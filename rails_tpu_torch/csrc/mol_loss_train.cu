@@ -1,0 +1,613 @@
+// Fused MoL training loss over shared negatives (K5), forward and backward,
+// hand-written for Hopper (sm_90a).
+//
+// Replaces `make_fused_mol_loss` (rails_tpu/ops/pallas/mol_loss_train.py): the
+// forward `_fwd_kernel` and the backward `_bwd_kernel` of its custom VJP. For
+// every (query m, shared negative r), with logits in the model's n-major order
+// l = n * PX + mx:
+//   t[l]  = <q[m, n], item[r, mx]> / T
+//   t_in  = t * qi_mask                              (qi-MLP input dropout only)
+//   qi    = W2^T silu(W1^T t_in + b1) + b2;  gi = qp[m] * ip[r] + qi
+//   p     = softmax_l(silu(gi));  q_w = p * pi_mask;  s = max(sum q_w, eps)
+//   out   = sum_l q_w * t / s                        (s = 1 exactly at rate 0)
+// The two masks are K3's counter hash (hash_dropout.cuh) at the JAX kernel's
+// flat index l' * (M_pad * R_pad) + m * R_pad + r, with its m-major row
+// l' = mx * PQ + n and its padded extents, under seed + salt; so the bits are
+// the JAX package's, and the backward regenerates the forward's.
+//
+// Bound: operations. Per pair the forward does 4k FMAs of logits and 8k of the
+// qi MLP (at 8x4x128, H = 128); the backward recomputes them and adds ~29k
+// (d_h, the z recompute, d_t, dW1, dW2, dq, d item). The inputs are a few
+// hundred MB at M = 26,880, R = 128. Everything runs in f32 on the CUDA cores.
+//
+// Forward design: K2's layout. One block per (32 negatives x 32 queries): lanes
+// own negatives, warps own queries; the item tile, W1^T, W2 and one query per
+// warp sit in shared memory, and each thread keeps its pair's 32 logits and 32
+// qi accumulators in registers, walking the hidden units one at a time.
+//
+// Backward design: the TPU kernel carries the item-side and weight gradients
+// across its sequential grid in VMEM; blocks on the card run in no order. So
+// one persistent block per SM walks groups of 8 queries (one per warp) and,
+// for each, the negatives in tiles of 32 (one per lane): 256 pairs per tile.
+// Each thread recomputes its pair's forward, then d_gi, and stages t_in and
+// d_gi in shared memory; the hidden layer is walked in chunks of 32 units whose
+// h and d_z are staged too, so the block can form dW1 = sum t_in d_z^T and
+// dW2 = sum h d_gi^T over the tile's pairs. d_q and d_qp belong to the block's
+// own queries and are added in place; dW1, dW2, db1, db2, d_ip and d_item are
+// added into the block's own slot of a partial buffer. Every entry is always
+// updated by the same thread, so there are no atomics and no races. A second
+// kernel sums the slots in block order: the result repeats bit for bit.
+#include <cmath>
+#include <cstdint>
+
+#include "common.cuh"
+#include "hash_dropout.cuh"
+
+namespace rails {
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTileR = 32;          // negatives per tile, one per lane
+constexpr int kFwdQueries = 32;     // queries per forward block
+constexpr int kJC = 32;             // hidden units per staged chunk (backward)
+constexpr int kSP = kThreads + 1;   // stride of a staged chunk row (no bank conflicts)
+constexpr int kMaxDP = 128;         // d_P held in 4 registers per lane
+constexpr int kDPK = kMaxDP / 32;
+
+struct Drop {
+  int use_qi, use_pi;
+  uint32_t seed_qi, thr_qi, seed_pi, thr_pi;
+  float scale_qi, scale_pi;
+  uint32_t mr;   // M_pad * R_pad
+  uint32_t r_pad;
+};
+
+__device__ __forceinline__ float sigmoid_exact(float v) { return 1.0f / (1.0f + expf(-v)); }
+
+// Keep scale of n-major logit l of pair (m, r): the JAX kernel's row l'.
+template <int PQ, int PX>
+__device__ __forceinline__ float mask_at(int l, int m, int r, uint32_t seed, uint32_t thr,
+                                         float scale, const Drop& d) {
+  const uint32_t lp = static_cast<uint32_t>((l % PX) * PQ + l / PX);
+  const uint32_t idx = lp * d.mr + static_cast<uint32_t>(m) * d.r_pad + static_cast<uint32_t>(r);
+  return keep_scale(idx, seed, thr, scale);
+}
+
+template <int PQ, int PX>
+size_t fwd_smem_bytes(int dP, int Hd) {
+  constexpr int L = PQ * PX;
+  return (2 * static_cast<size_t>(Hd) * L + Hd + L + static_cast<size_t>(kWarps) * PQ * dP +
+          static_cast<size_t>(PX) * dP * kTileR) *
+         sizeof(float);
+}
+
+template <int PQ, int PX>
+size_t bwd_smem_bytes(int dP, int Hd) {
+  constexpr int L = PQ * PX;
+  return (2 * static_cast<size_t>(Hd) * L + Hd + L + static_cast<size_t>(kWarps) * PQ * dP +
+          2 * static_cast<size_t>(kThreads) * (L + 1) + 2 * static_cast<size_t>(kJC) * kSP) *
+         sizeof(float);
+}
+
+template <int L>
+__device__ void stage_weights(float* w1s, float* w2s, float* b1s, float* b2s, const float* w1t,
+                              const float* w2, const float* b1, const float* b2, int Hd) {
+  for (int e = threadIdx.x; e < Hd * L; e += kThreads) {
+    w1s[e] = w1t[e];
+    w2s[e] = w2[e];
+  }
+  for (int e = threadIdx.x; e < Hd; e += kThreads) b1s[e] = b1[e];
+  for (int e = threadIdx.x; e < L; e += kThreads) b2s[e] = b2[e];
+}
+
+// sum_l W1[l, j] t_in[l] over the JAX kernel's m-major rows l' = mx * PQ + n,
+// the plain version's order (the sharp softmax shows f32 rounding of another).
+template <int PQ, int PX>
+__device__ __forceinline__ float hidden_pre(const float* w1r, const float (&tin)[PQ * PX]) {
+  float z = 0.f;
+#pragma unroll
+  for (int mx = 0; mx < PX; ++mx)
+#pragma unroll
+    for (int n = 0; n < PQ; ++n) z = fmaf(w1r[n * PX + mx], tin[n * PX + mx], z);
+  return z;
+}
+
+// The forward of one pair up to the softmax: t (lg), t_in, gi and p.
+template <int PQ, int PX>
+__device__ __forceinline__ void pair_forward(float (&lg)[PQ * PX], float (&tin)[PQ * PX],
+                                             float (&gi)[PQ * PX], float (&p)[PQ * PX],
+                                             const float* w1s,
+                                             const float* w2s, const float* b1s,
+                                             const float* b2s, const float* qpm,
+                                             const float* ip_t, int m, int r, bool rv, int R,
+                                             int Hd, float inv_t, const Drop& d) {
+  constexpr int L = PQ * PX;
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    lg[l] *= inv_t;
+    tin[l] = d.use_qi ? lg[l] * mask_at<PQ, PX>(l, m, r, d.seed_qi, d.thr_qi, d.scale_qi, d)
+                      : lg[l];
+    p[l] = 0.f;
+  }
+  for (int j = 0; j < Hd; ++j) {
+    const float z = hidden_pre<PQ, PX>(w1s + j * L, tin);
+    const float h = silu(z + b1s[j]);
+    const float* w2r = w2s + j * L;
+#pragma unroll
+    for (int l = 0; l < L; ++l) p[l] = fmaf(w2r[l], h, p[l]);
+  }
+  float gmax = -INFINITY;
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    const float ipv = rv ? ip_t[static_cast<int64_t>(l) * R + r] : 0.f;
+    gi[l] = fmaf(qpm[l], ipv, p[l] + b2s[l]);
+    p[l] = silu(gi[l]);
+    gmax = fmaxf(gmax, p[l]);
+  }
+  float se = 0.f;
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    p[l] = expf(p[l] - gmax);
+    se += p[l];
+  }
+#pragma unroll
+  for (int l = 0; l < L; ++l) p[l] = p[l] / se;
+}
+
+// Logits of one pair from the warp's staged query row and a strided item column.
+template <int PQ, int PX>
+__device__ __forceinline__ void pair_logits(float (&lg)[PQ * PX], const float* qrow,
+                                            const float* col, int64_t col_stride, int dP) {
+#pragma unroll
+  for (int l = 0; l < PQ * PX; ++l) lg[l] = 0.f;
+  for (int k = 0; k < dP; ++k) {
+    float iv[PX];
+#pragma unroll
+    for (int mx = 0; mx < PX; ++mx) iv[mx] = col[(mx * dP + k) * col_stride];
+#pragma unroll
+    for (int n = 0; n < PQ; ++n) {
+      const float qv = qrow[n * dP + k];
+#pragma unroll
+      for (int mx = 0; mx < PX; ++mx) lg[n * PX + mx] = fmaf(qv, iv[mx], lg[n * PX + mx]);
+    }
+  }
+}
+
+template <int PQ, int PX>
+__global__ void __launch_bounds__(kThreads)
+mol_loss_fwd_kernel(const float* __restrict__ q, const float* __restrict__ qp,
+                    const float* __restrict__ item_t, const float* __restrict__ ip_t,
+                    const float* __restrict__ w1t, const float* __restrict__ b1,
+                    const float* __restrict__ w2, const float* __restrict__ b2,
+                    float* __restrict__ out, int M, int R, int dP, int Hd, float inv_t, float eps,
+                    Drop d) {
+  constexpr int L = PQ * PX;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* w1s = reinterpret_cast<float*>(smem_raw);  // [Hd][L]
+  float* w2s = w1s + Hd * L;                        // [Hd][L]
+  float* b1s = w2s + Hd * L;                        // [Hd]
+  float* b2s = b1s + Hd;                            // [L]
+  float* qs = b2s + L;                              // [kWarps][PQ * dP]
+  float* its = qs + kWarps * PQ * dP;               // [PX * dP][kTileR]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int r0 = blockIdx.x * kTileR, r = r0 + lane;
+  const bool rv = r < R;
+  stage_weights<L>(w1s, w2s, b1s, b2s, w1t, w2, b1, b2, Hd);
+  for (int e = tid; e < PX * dP * kTileR; e += kThreads) {
+    const int row = e / kTileR, c = e % kTileR;
+    its[e] = r0 + c < R ? item_t[static_cast<int64_t>(row) * R + r0 + c] : 0.f;
+  }
+  __syncthreads();
+
+  float* qw = qs + warp * PQ * dP;
+  for (int qi = warp; qi < kFwdQueries; qi += kWarps) {
+    const int m = blockIdx.y * kFwdQueries + qi;
+    if (m >= M) break;  // warp-uniform
+    for (int e = lane; e < PQ * dP; e += 32) qw[e] = q[static_cast<int64_t>(m) * PQ * dP + e];
+    __syncwarp();
+    float lg[L], tin[L], gi[L], p[L];
+    pair_logits<PQ, PX>(lg, qw, its + lane, kTileR, dP);
+    pair_forward<PQ, PX>(lg, tin, gi, p, w1s, w2s, b1s, b2s, qp + static_cast<int64_t>(m) * L,
+                         ip_t, m, r, rv, R, Hd, inv_t, d);
+    float res;
+    if (d.use_pi) {
+      float sq = 0.f, st = 0.f;
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        const float qv = p[l] * mask_at<PQ, PX>(l, m, r, d.seed_pi, d.thr_pi, d.scale_pi, d);
+        sq += qv;
+        st = fmaf(qv, lg[l], st);
+      }
+      res = st / fmaxf(sq, eps);
+    } else {
+      float st = 0.f;
+#pragma unroll
+      for (int l = 0; l < L; ++l) st = fmaf(p[l], lg[l], st);
+      res = st;
+    }
+    if (rv) out[static_cast<int64_t>(m) * R + r] = res;
+    __syncwarp();
+  }
+}
+
+template <int PQ, int PX>
+__global__ void __launch_bounds__(kThreads, 1)
+mol_loss_bwd_kernel(const float* __restrict__ q, const float* __restrict__ qp,
+                    const float* __restrict__ item, const float* __restrict__ item_t,
+                    const float* __restrict__ ip, const float* __restrict__ ip_t,
+                    const float* __restrict__ w1t, const float* __restrict__ b1,
+                    const float* __restrict__ w2, const float* __restrict__ b2,
+                    const float* __restrict__ d_out, float* __restrict__ dq,
+                    float* __restrict__ dqp, float* __restrict__ part, int64_t stride, int M,
+                    int R, int dP, int Hd, float inv_t, float eps, Drop d) {
+  constexpr int L = PQ * PX;
+  constexpr int LS = L + 1;        // padded row stride of the staged pair vectors
+  constexpr int LE = L / kWarps;   // logits per thread in the dW reduction
+  static_assert(L % kWarps == 0, "L must be a multiple of 8");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* w1s = reinterpret_cast<float*>(smem_raw);  // [Hd][L]
+  float* w2s = w1s + Hd * L;                        // [Hd][L]
+  float* b1s = w2s + Hd * L;                        // [Hd]
+  float* b2s = b1s + Hd;                            // [L]
+  float* qs = b2s + L;                              // [kWarps][PQ * dP] the group's queries
+  float* bufa = qs + kWarps * PQ * dP;              // [256][LS] t_in, then d_t / T
+  float* bufb = bufa + kThreads * LS;               // [256][LS] d_gi
+  float* shh = bufb + kThreads * LS;                // [kJC][kSP] h of a hidden chunk
+  float* shz = shh + kJC * kSP;                     // [kJC][kSP] d_z of a hidden chunk
+
+  float* slot = part + static_cast<int64_t>(blockIdx.x) * stride;
+  float* pw1 = slot;                     // [Hd][L]
+  float* pw2 = pw1 + Hd * L;             // [Hd][L]
+  float* pb1 = pw2 + Hd * L;             // [Hd]
+  float* pb2 = pb1 + Hd;                 // [L]
+  float* pip = pb2 + L;                  // [R][L]
+  float* pit = pip + static_cast<int64_t>(R) * L;  // [R][PX][dP]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int pidx = tid;  // pair index in the tile: warp * 32 + lane
+  stage_weights<L>(w1s, w2s, b1s, b2s, w1t, w2, b1, b2, Hd);
+  const int ngroups = (M + kWarps - 1) / kWarps;
+
+  for (int grp = blockIdx.x; grp < ngroups; grp += gridDim.x) {
+    const int m = grp * kWarps + warp;
+    const bool mv = m < M;
+    float* qw = qs + warp * PQ * dP;
+    __syncthreads();  // the previous group's readers of qs are done
+    for (int e = lane; e < PQ * dP; e += 32)
+      qw[e] = mv ? q[static_cast<int64_t>(m) * PQ * dP + e] : 0.f;
+    __syncthreads();
+    const float* qpm = qp + static_cast<int64_t>(mv ? m : 0) * L;
+
+    for (int rc = 0; rc < R; rc += kTileR) {
+      const int r = rc + lane;
+      const bool rv = r < R;
+      const float dout = (mv && rv) ? d_out[static_cast<int64_t>(m) * R + r] : 0.f;
+
+      // Forward recompute.
+      float lg[L], tin[L], gi[L], p[L];
+      pair_logits<PQ, PX>(lg, qw, item_t + (rv ? r : 0), R, dP);
+      pair_forward<PQ, PX>(lg, tin, gi, p, w1s, w2s, b1s, b2s, qpm, ip_t, m, r, rv, R, Hd,
+                           inv_t, d);
+      float s = 1.f, st = 0.f;
+      if (d.use_pi) {
+        float sq = 0.f;
+#pragma unroll
+        for (int l = 0; l < L; ++l) {
+          const float qv = p[l] * mask_at<PQ, PX>(l, m, r, d.seed_pi, d.thr_pi, d.scale_pi, d);
+          sq += qv;
+          st = fmaf(qv, lg[l], st);
+        }
+        s = fmaxf(sq, eps);
+      } else {
+#pragma unroll
+        for (int l = 0; l < L; ++l) st = fmaf(p[l], lg[l], st);
+      }
+      const float inv_s = 1.0f / s;
+      const float a = dout * inv_s;
+      // d q_w = a * t - dout * out * inv_s where s > eps; d p = d q_w * mask.
+      const float corr = (d.use_pi && s > eps) ? dout * (st * inv_s) * inv_s : 0.f;
+      float dot = 0.f;
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        const float mk =
+            d.use_pi ? mask_at<PQ, PX>(l, m, r, d.seed_pi, d.thr_pi, d.scale_pi, d) : 1.f;
+        dot = fmaf((a * lg[l] - corr) * mk, p[l], dot);
+      }
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        const float mk =
+            d.use_pi ? mask_at<PQ, PX>(l, m, r, d.seed_pi, d.thr_pi, d.scale_pi, d) : 1.f;
+        const float dp = (a * lg[l] - corr) * mk;
+        const float sg = sigmoid_exact(gi[l]);
+        gi[l] = p[l] * (dp - dot) * (sg * (1.0f + gi[l] * (1.0f - sg)));  // d gi
+        lg[l] = a * p[l] * mk;                                          // d t, direct
+        p[l] = 0.f;                                                     // d t through the MLP
+        bufa[pidx * LS + l] = tin[l];
+        bufb[pidx * LS + l] = gi[l];
+      }
+
+      // The hidden layer in chunks: d_h, d_z, d t_in, and the dW1 / dW2 / db1 sums.
+      for (int jc = 0; jc < Hd; jc += kJC) {
+        const int nj = min(kJC, Hd - jc);
+        for (int jj = 0; jj < nj; ++jj) {
+          const int j = jc + jj;
+          const float* w1r = w1s + j * L;
+          const float* w2r = w2s + j * L;
+          const float z = hidden_pre<PQ, PX>(w1r, tin) + b1s[j];
+          float dh = 0.f;
+#pragma unroll
+          for (int l = 0; l < L; ++l) dh = fmaf(w2r[l], gi[l], dh);
+          const float sg = sigmoid_exact(z);
+          const float dz = dh * (sg * (1.0f + z * (1.0f - sg)));
+#pragma unroll
+          for (int l = 0; l < L; ++l) p[l] = fmaf(w1r[l], dz, p[l]);
+          shh[jj * kSP + pidx] = z * sg;
+          shz[jj * kSP + pidx] = dz;
+        }
+        __syncthreads();
+        const int jj = lane;
+        if (jj < nj) {
+          const int j = jc + jj;
+          const int l0 = warp * LE;
+          float s1[LE], s2[LE], sb = 0.f;
+#pragma unroll
+          for (int e = 0; e < LE; ++e) s1[e] = s2[e] = 0.f;
+          for (int pp = 0; pp < kThreads; ++pp) {
+            const float zv = shz[jj * kSP + pp], hv = shh[jj * kSP + pp];
+            sb += zv;
+#pragma unroll
+            for (int e = 0; e < LE; ++e) {
+              s1[e] = fmaf(bufa[pp * LS + l0 + e], zv, s1[e]);
+              s2[e] = fmaf(hv, bufb[pp * LS + l0 + e], s2[e]);
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < LE; ++e) {
+            pw1[j * L + l0 + e] += s1[e];
+            pw2[j * L + l0 + e] += s2[e];
+          }
+          if (warp == 0) pb1[j] += sb;
+        }
+        __syncthreads();
+      }
+
+      // d t = direct + (MLP part) * qi_mask; stage d t / T for d q and d item.
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        const float mk =
+            d.use_qi ? mask_at<PQ, PX>(l, m, r, d.seed_qi, d.thr_qi, d.scale_qi, d) : 1.f;
+        bufa[pidx * LS + l] = (lg[l] + p[l] * mk) * inv_t;
+      }
+      __syncthreads();
+
+      // d q of the warp's query: lanes over d_P.
+      {
+        float acc[PQ][kDPK];
+#pragma unroll
+        for (int n = 0; n < PQ; ++n)
+#pragma unroll
+          for (int kk = 0; kk < kDPK; ++kk) acc[n][kk] = 0.f;
+        for (int rr = 0; rr < kTileR && rc + rr < R; ++rr) {
+          const float* dt = bufa + (warp * kTileR + rr) * LS;
+#pragma unroll
+          for (int mx = 0; mx < PX; ++mx) {
+            const float* irow = item + (static_cast<int64_t>(rc + rr) * PX + mx) * dP;
+            float iv[kDPK];
+#pragma unroll
+            for (int kk = 0; kk < kDPK; ++kk) {
+              const int k = lane + 32 * kk;
+              iv[kk] = k < dP ? irow[k] : 0.f;
+            }
+#pragma unroll
+            for (int n = 0; n < PQ; ++n) {
+              const float dv = dt[n * PX + mx];
+#pragma unroll
+              for (int kk = 0; kk < kDPK; ++kk) acc[n][kk] = fmaf(dv, iv[kk], acc[n][kk]);
+            }
+          }
+        }
+        if (mv) {
+#pragma unroll
+          for (int n = 0; n < PQ; ++n)
+#pragma unroll
+            for (int kk = 0; kk < kDPK; ++kk) {
+              const int k = lane + 32 * kk;
+              if (k < dP) dq[(static_cast<int64_t>(m) * PQ + n) * dP + k] += acc[n][kk];
+            }
+        }
+      }
+
+      // d qp of the warp's query: lanes over L.
+      if (mv) {
+        for (int l = lane; l < L; l += 32) {
+          float acc = 0.f;
+          for (int rr = 0; rr < kTileR && rc + rr < R; ++rr)
+            acc = fmaf(bufb[(warp * kTileR + rr) * LS + l],
+                       ip[static_cast<int64_t>(rc + rr) * L + l], acc);
+          dqp[static_cast<int64_t>(m) * L + l] += acc;
+        }
+      }
+
+      // d ip of the lane's negative: warps over L.
+      if (rv) {
+        for (int l = warp; l < L; l += kWarps) {
+          float acc = 0.f;
+          for (int qq = 0; qq < kWarps; ++qq) {
+            const int mq = grp * kWarps + qq;
+            if (mq < M) acc = fmaf(bufb[(qq * kTileR + lane) * LS + l],
+                                   qp[static_cast<int64_t>(mq) * L + l], acc);
+          }
+          pip[static_cast<int64_t>(r) * L + l] += acc;
+        }
+      }
+
+      // db2.
+      if (tid < L) {
+        float acc = 0.f;
+        for (int pp = 0; pp < kThreads; ++pp) acc += bufb[pp * LS + tid];
+        pb2[tid] += acc;
+      }
+
+      // d item: warp w owns negatives w, w + 8, w + 16, w + 24 of the tile; lanes over d_P.
+      {
+        constexpr int kRI = kTileR / kWarps;
+        float acc[kRI][PX][kDPK];
+#pragma unroll
+        for (int i = 0; i < kRI; ++i)
+#pragma unroll
+          for (int mx = 0; mx < PX; ++mx)
+#pragma unroll
+            for (int kk = 0; kk < kDPK; ++kk) acc[i][mx][kk] = 0.f;
+        for (int qq = 0; qq < kWarps; ++qq) {
+          for (int n = 0; n < PQ; ++n) {
+            float qv[kDPK];
+#pragma unroll
+            for (int kk = 0; kk < kDPK; ++kk) {
+              const int k = lane + 32 * kk;
+              qv[kk] = k < dP ? qs[qq * PQ * dP + n * dP + k] : 0.f;
+            }
+#pragma unroll
+            for (int i = 0; i < kRI; ++i) {
+              const float* dt = bufa + (qq * kTileR + warp + kWarps * i) * LS + n * PX;
+#pragma unroll
+              for (int mx = 0; mx < PX; ++mx) {
+                const float dv = dt[mx];
+#pragma unroll
+                for (int kk = 0; kk < kDPK; ++kk) acc[i][mx][kk] = fmaf(dv, qv[kk], acc[i][mx][kk]);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kRI; ++i) {
+          const int rg = rc + warp + kWarps * i;
+          if (rg < R) {
+#pragma unroll
+            for (int mx = 0; mx < PX; ++mx)
+#pragma unroll
+              for (int kk = 0; kk < kDPK; ++kk) {
+                const int k = lane + 32 * kk;
+                if (k < dP) pit[(static_cast<int64_t>(rg) * PX + mx) * dP + k] += acc[i][mx][kk];
+              }
+          }
+        }
+      }
+      __syncthreads();  // bufa / bufb are rewritten by the next tile
+    }
+  }
+}
+
+// out[e] = sum over the slots b = 0 .. nb-1 of part[b][e], in that order.
+__global__ void reduce_slots_kernel(const float* __restrict__ part, int nb, int64_t stride,
+                                    float* __restrict__ out) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= stride) return;
+  float s = 0.f;
+  for (int b = 0; b < nb; ++b) s += part[b * stride + e];
+  out[e] = s;
+}
+
+Drop make_drop(int use_qi, unsigned seed_qi, unsigned thr_qi, float scale_qi, int use_pi,
+               unsigned seed_pi, unsigned thr_pi, float scale_pi, int m_pad, int r_pad) {
+  return Drop{use_qi, use_pi, seed_qi, thr_qi, seed_pi, thr_pi, scale_qi, scale_pi,
+              static_cast<uint32_t>(m_pad) * static_cast<uint32_t>(r_pad),
+              static_cast<uint32_t>(r_pad)};
+}
+
+template <int PQ, int PX>
+cudaError_t launch_fwd(const float* q, const float* qp, const float* item_t, const float* ip_t,
+                       const float* w1t, const float* b1, const float* w2, const float* b2,
+                       float* out, int M, int R, int dP, int Hd, float inv_t, float eps,
+                       const Drop& d, cudaStream_t stream) {
+  const size_t smem = fwd_smem_bytes<PQ, PX>(dP, Hd);
+  cudaError_t err = allow_smem(mol_loss_fwd_kernel<PQ, PX>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((R + kTileR - 1) / kTileR, (M + kFwdQueries - 1) / kFwdQueries);
+  mol_loss_fwd_kernel<PQ, PX><<<grid, kThreads, smem, stream>>>(q, qp, item_t, ip_t, w1t, b1, w2,
+                                                               b2, out, M, R, dP, Hd, inv_t, eps,
+                                                               d);
+  return cudaGetLastError();
+}
+
+template <int PQ, int PX>
+cudaError_t launch_bwd(const float* q, const float* qp, const float* item, const float* item_t,
+                       const float* ip, const float* ip_t, const float* w1t, const float* b1,
+                       const float* w2, const float* b2, const float* d_out, float* dq,
+                       float* dqp, float* part, float* red, int nb, int M, int R, int dP, int Hd,
+                       float inv_t, float eps, const Drop& d, cudaStream_t stream) {
+  constexpr int L = PQ * PX;
+  const size_t smem = bwd_smem_bytes<PQ, PX>(dP, Hd);
+  cudaError_t err = allow_smem(mol_loss_bwd_kernel<PQ, PX>, smem);
+  if (err != cudaSuccess) return err;
+  const int64_t stride = 2 * static_cast<int64_t>(Hd) * L + Hd + L +
+                         static_cast<int64_t>(R) * L + static_cast<int64_t>(R) * PX * dP;
+  mol_loss_bwd_kernel<PQ, PX><<<nb, kThreads, smem, stream>>>(
+      q, qp, item, item_t, ip, ip_t, w1t, b1, w2, b2, d_out, dq, dqp, part, stride, M, R, dP, Hd,
+      inv_t, eps, d);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  reduce_slots_kernel<<<static_cast<unsigned>((stride + 255) / 256), 256, 0, stream>>>(part, nb,
+                                                                                      stride, red);
+  return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace rails
+
+// q (M, PQ, dP); qp (M, L); item_t (PX, dP, R); ip_t (L, R); w1t (H, L); b1 (H);
+// w2 (H, L); b2 (L); out (M, R). All f32, n-major logits l = n * PX + mx.
+extern "C" int rails_mol_loss_fwd(int pq, int px, const float* q, const float* qp,
+                                  const float* item_t, const float* ip_t, const float* w1t,
+                                  const float* b1, const float* w2, const float* b2, float* out,
+                                  int M, int R, int dP, int Hd, int m_pad, int r_pad, float inv_t,
+                                  float eps, int use_qi, unsigned seed_qi, unsigned thr_qi,
+                                  float scale_qi, int use_pi, unsigned seed_pi, unsigned thr_pi,
+                                  float scale_pi, void* stream) {
+  if (dP > rails::kMaxDP) return cudaErrorInvalidValue;
+  const rails::Drop d = rails::make_drop(use_qi, seed_qi, thr_qi, scale_qi, use_pi, seed_pi,
+                                         thr_pi, scale_pi, m_pad, r_pad);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (pq == 8 && px == 4)
+    return rails::launch_fwd<8, 4>(q, qp, item_t, ip_t, w1t, b1, w2, b2, out, M, R, dP, Hd, inv_t,
+                                   eps, d, s);
+  if (pq == 4 && px == 2)
+    return rails::launch_fwd<4, 2>(q, qp, item_t, ip_t, w1t, b1, w2, b2, out, M, R, dP, Hd, inv_t,
+                                   eps, d, s);
+  return cudaErrorInvalidValue;
+}
+
+// As the forward, plus item (R, PX, dP), ip (R, L), d_out (M, R); dq (M, PQ, dP)
+// and dqp (M, L) zeroed by the caller and added to; part (nb, stride) zeroed;
+// red (stride) = [dW1 (H, L) | dW2 (H, L) | db1 (H) | db2 (L) | dip (R, L) |
+// ditem (R, PX, dP)], the sum of the nb slots.
+extern "C" int rails_mol_loss_bwd(int pq, int px, const float* q, const float* qp,
+                                  const float* item, const float* item_t, const float* ip,
+                                  const float* ip_t, const float* w1t, const float* b1,
+                                  const float* w2, const float* b2, const float* d_out, float* dq,
+                                  float* dqp, float* part, float* red, int nb, int M, int R,
+                                  int dP, int Hd, int m_pad, int r_pad, float inv_t, float eps,
+                                  int use_qi, unsigned seed_qi, unsigned thr_qi, float scale_qi,
+                                  int use_pi, unsigned seed_pi, unsigned thr_pi, float scale_pi,
+                                  void* stream) {
+  if (dP > rails::kMaxDP || nb < 1) return cudaErrorInvalidValue;
+  const rails::Drop d = rails::make_drop(use_qi, seed_qi, thr_qi, scale_qi, use_pi, seed_pi,
+                                         thr_pi, scale_pi, m_pad, r_pad);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (pq == 8 && px == 4)
+    return rails::launch_bwd<8, 4>(q, qp, item, item_t, ip, ip_t, w1t, b1, w2, b2, d_out, dq, dqp,
+                                   part, red, nb, M, R, dP, Hd, inv_t, eps, d, s);
+  if (pq == 4 && px == 2)
+    return rails::launch_bwd<4, 2>(q, qp, item, item_t, ip, ip_t, w1t, b1, w2, b2, d_out, dq, dqp,
+                                   part, red, nb, M, R, dP, Hd, inv_t, eps, d, s);
+  return cudaErrorInvalidValue;
+}
+
+extern "C" size_t rails_mol_loss_smem_bytes(int backward, int pq, int px, int dP, int Hd) {
+  if (pq == 8 && px == 4)
+    return backward ? rails::bwd_smem_bytes<8, 4>(dP, Hd) : rails::fwd_smem_bytes<8, 4>(dP, Hd);
+  if (pq == 4 && px == 2)
+    return backward ? rails::bwd_smem_bytes<4, 2>(dP, Hd) : rails::fwd_smem_bytes<4, 2>(dP, Hd);
+  return 0;
+}

@@ -1,17 +1,22 @@
 """Sampled-softmax autoregressive loss, dense-masked.
 
-Counterpart of `rails_tpu/losses/sampled_softmax.py`: the per-position path
-of `sampled_softmax_loss` (:84-259) with the local sampler, and
-`get_weighted_loss` (:262-271). All positions stay dense [B, N-1]: queries
-are the encoder outputs at positions [0, N-2], supervision the ids at
-[1, N-1], weighted 1 where the position is inside the history and the id is
-not padding. Each position draws its own R negatives; a negative equal to the
-positive id is masked to -5e4. The loss is the weighted mean of
--log_softmax([pos, negs])[0], and the aux losses come from the positives'
-similarity call only, as in the JAX package.
+Counterpart of `rails_tpu/losses/sampled_softmax.py`: `sampled_softmax_loss`
+(:84-259) with the local sampler, its fused shared-negatives route
+`_fused_negative_logits` (:30-81), and `get_weighted_loss` (:262-271). All
+positions stay dense [B, N-1]: queries are the encoder outputs at positions
+[0, N-2], supervision the ids at [1, N-1], weighted 1 where the position is
+inside the history and the id is not padding. Each position draws its own R
+negatives, or with `shared_negatives` one (R,) set serves the whole batch; a
+negative equal to the positive id is masked to -5e4. The loss is the weighted
+mean of -log_softmax([pos, negs])[0], and the aux losses come from the
+positives' similarity call only, as in the JAX package.
 
-Not ported (NotImplementedError naming ROADMAP.md): `shared_negatives` and
-`fused_mol_loss` (the K5 slice), `activation_checkpoint`.
+With shared negatives, `train.fused_mol_loss` and the published MoL shape
+(glu_silu, both gating partials, a hidden qi MLP) the negatives are scored by
+K5 (`ops.mol_loss_train.fused_mol_loss`), under the same gate as the JAX
+package (:190-200); otherwise through the similarity's shared-corpus einsum.
+
+Not ported (NotImplementedError naming ROADMAP.md): `activation_checkpoint`.
 """
 
 from __future__ import annotations
@@ -23,8 +28,51 @@ import torch
 from rails_tpu_torch.data.features import SequentialFeatures
 from rails_tpu_torch.losses.samplers import LocalNegativesSampler, maybe_l2_norm
 from rails_tpu_torch.models.preprocessors import length_mask
+from rails_tpu_torch.ops.mol_loss_train import fused_mol_loss
+from rails_tpu_torch.ops.mol_scoring import extract_gating_qi_weights
 
 AuxLosses = Dict[str, torch.Tensor]
+_INT32_MAX = 2 ** 31 - 1
+
+
+def _fused_ok(model, sampler, train: bool, shared_negatives: bool) -> bool:
+    """The JAX package's gate of the fused route (`sampled_softmax.py:190-200`)."""
+    cfg, c = model.cfg, model.cfg.mol
+    return bool(
+        train and shared_negatives and cfg.train.fused_mol_loss
+        and cfg.similarity_type == "MoL" and c.gating_combination_type == "glu_silu"
+        and c.gating_query_fn and c.gating_item_fn and c.gating_qi_hidden_dim > 0
+        and isinstance(sampler, LocalNegativesSampler)
+    )
+
+
+def _fused_negative_logits(
+    model, q: torch.Tensor, user_ids_flat: torch.Tensor, w_flat: torch.Tensor,
+    sampled_neg_embeddings: torch.Tensor, generator: Optional[torch.Generator],
+) -> torch.Tensor:
+    """(M, R) shared-negative MoL scores through K5. The component MLPs, the
+    gating partials and their dropouts run in torch (M query rows and R item
+    rows); the (M, R, L / H) gating pipeline runs in the kernel, forward and
+    backward. The K5 hash seed is an int32 from `generator` when either rate
+    is > 0, else 0 (`sampled_softmax.py:59-68`)."""
+    sim = model.mol
+    c = model.cfg.mol
+    q_comp, _ = sim.query_components_aux(q, user_ids_flat, True, w_flat, generator)
+    qp = sim.query_gating_partial(q)                                        # (M, L)
+    i_comp = sim.item_components(sampled_neg_embeddings, True, generator)   # (R, P_X, d_P)
+    ip = sim.item_gating_partial(sampled_neg_embeddings, True, generator)   # (R, L)
+    w = extract_gating_qi_weights(sim)
+    seed = 0
+    if c.softmax_dropout_rate > 0.0 or c.gating_qi_dropout_rate > 0.0:
+        seed = int(torch.randint(0, _INT32_MAX, (1,), generator=generator,
+                                 device=generator.device).item())
+    dt = i_comp.dtype
+    return fused_mol_loss(
+        q_comp.to(dt), qp.to(dt), i_comp, ip.to(dt), w.w1, w.b1[None], w.w2, w.b2[None], seed,
+        p_q=c.query_dot_product_groups, p_x=c.item_dot_product_groups,
+        temperature=c.temperature, qi_rate=c.gating_qi_dropout_rate,
+        pi_rate=c.softmax_dropout_rate, eps=c.eps,
+    )
 
 
 def sampled_softmax_loss(
@@ -41,11 +89,6 @@ def sampled_softmax_loss(
 ) -> Tuple[torch.Tensor, AuxLosses]:
     """(scalar loss, aux losses). `generator` draws the negatives and every
     dropout; `seed0` seeds the HSTU blocks' hash dropout."""
-    if shared_negatives:
-        raise NotImplementedError(
-            "shared_negatives (and the fused MoL loss, K5) are not ported "
-            "(ROADMAP.md, Queue 1: the -fast variant)"
-        )
     if activation_checkpoint:
         raise NotImplementedError(
             "loss_activation_checkpoint is not ported (ROADMAP.md, Queue 1: losses)"
@@ -68,7 +111,9 @@ def sampled_softmax_loss(
     sup_ids_flat = supervision_ids.reshape(m)
     user_ids_flat = torch.repeat_interleave(features.user_ids, n - 1)
 
-    sampled_ids = sampler.sample(generator, (m, num_negatives))
+    # One (R,) set for the batch, or (M, R) per position.
+    sampled_ids = sampler.sample(
+        generator, (num_negatives,) if shared_negatives else (m, num_negatives))
     sampled_neg_embeddings = maybe_l2_norm(
         model.get_item_embeddings(sampled_ids), sampler.l2_norm, sampler.l2_norm_eps)
     pos_embeddings = maybe_l2_norm(
@@ -77,8 +122,15 @@ def sampled_softmax_loss(
     positive_logits, aux_losses = model.similarity_fn(
         q, pos_embeddings[:, None, :], user_ids_flat, train, w_flat, generator)
     positive_logits = positive_logits / softmax_temperature                 # (M, 1)
-    negative_logits, _ = model.similarity_fn(
-        q, sampled_neg_embeddings, user_ids_flat, train, w_flat, generator)
+    if _fused_ok(model, sampler, train, shared_negatives):
+        negative_logits = _fused_negative_logits(
+            model, q, user_ids_flat, w_flat, sampled_neg_embeddings, generator)
+    else:
+        # (M, R, D) per position, or (1, R, D): the shared-corpus einsum.
+        negative_logits, _ = model.similarity_fn(
+            q, sampled_neg_embeddings[None] if shared_negatives else sampled_neg_embeddings,
+            user_ids_flat, train, w_flat, generator)
+    # (M, 1) against (R,) shared, or (M, R) per position.
     negative_logits = torch.where(
         sup_ids_flat[:, None] == sampled_ids,
         torch.full((), -5e4, dtype=negative_logits.dtype, device=negative_logits.device),

@@ -3,7 +3,8 @@ HSTU stack -> output norm, owning the MoL similarity.
 
 Counterpart of `rails_tpu/models/encoder.py` (`SequentialRecommender`) for
 model_type="HSTU", similarity_type="MoL", the positional preprocessor and the
-local embedding table: `encode_sequence`/`encode` (:167-202, eval and
+local embedding table (its gather's backward through K6 with
+`train.pallas_scatter_grad`, `encoder.py:58`): `encode_sequence`/`encode` (:167-202, eval and
 training), `get_item_embeddings`, `similarity_fn` (:255-267),
 `build_item_tables`, `query_components`, `query_gating_partial` and
 `score_precomputed`. Parameter names follow the
@@ -71,7 +72,8 @@ class SequentialRecommender(nn.Module):
         self.compute_dtype = compute_dtype
         d = cfg.train.item_embedding_dim
         n = cfg.max_seq_len_padded
-        self.item_emb = LocalEmbeddingModule(num_items, d, generator)
+        self.item_emb = LocalEmbeddingModule(num_items, d, generator,
+                                             scatter_grad_kernel=cfg.train.pallas_scatter_grad)
         self.input_preproc = LearnablePositionalEmbeddingInputPreprocessor(
             n, d, compute_dtype, generator, cfg.train.dropout_rate
         )

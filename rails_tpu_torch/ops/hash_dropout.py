@@ -1,4 +1,5 @@
-"""Counter-hash dropout (K3): the keep mask of the fused train block's o_input.
+"""Counter-hash dropout (K3): the keep mask of the fused train block's o_input,
+and the salted global stream of the fused MoL loss (K5).
 
 Replaces `keep_from_idx` (`rails_tpu/ops/pallas/hash_dropout.py:26-36`) and
 the batched o_input mask `_dropout_mask_batch`
@@ -15,15 +16,20 @@ o_input. `hash_keep_mask` follows the port's dispatch rule
 (`core.device.use_kernel`): a CPU device runs `hash_keep_mask_reference`, a
 CUDA device launches the kernel or raises. `hash_keep_mask.launches` counts
 kernel launches.
+
+`hash_keep_global_reference` is the plain (L, M, R) mask of K5's two
+streams (`hash_keep_global`, `rails_tpu/ops/pallas/mol_loss_train.py:57-64`):
+idx = row * (M * R) + m * R + r under the seed seed + salt, with the salts
+`QI_SALT` (the qi-MLP input) and `PI_SALT` (the softmax weights).
 """
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
-from rails_tpu_torch.core.device import use_kernel
+from rails_tpu_torch.core.device import resolve_device, use_kernel
 from rails_tpu_torch.ops import _build
 
 _MASK32 = 0xFFFFFFFF
@@ -32,6 +38,11 @@ _M1, _M2, _M3 = 0x9E3779B1, 0x85EBCA6B, 0xC2B2AE35
 USER_SALT = -1498392781
 # The per-layer seed step of `HSTUStack` (`rails_tpu/models/hstu.py:463`).
 LAYER_SALT = 1013904223
+# K5's stream salts (`mol_loss_train.py:46-47`): -1498392781 = 0xA6B05733 (the
+# JAX comment's 0xA6AC5333 is wrong; it is USER_SALT's value) and
+# -1789569707 = 0x95555555.
+QI_SALT = -1498392781
+PI_SALT = -1789569707
 
 
 def wrap_i32(v: int) -> int:
@@ -69,10 +80,11 @@ def keep_from_idx_reference(idx: torch.Tensor, seed: torch.Tensor, rate: float) 
 
 def hash_keep_mask_reference(
     b: int, n: int, width: int, seed0: int, rate: float,
-    device: Union[str, torch.device] = "cpu",
+    device: Optional[Union[str, torch.device]] = None,
 ) -> torch.Tensor:
     """(b, n, width) f32 o_input keep mask of layer seed `seed0`: user = batch
     row, idx = pos * width + col (`_dropout_mask_batch`)."""
+    device = resolve_device(device)
     idx = torch.arange(n * width, dtype=torch.int64, device=device).reshape(1, n, width)
     users = torch.arange(b, dtype=torch.int64, device=device).reshape(b, 1, 1)
     seeds = (seed0 + users * USER_SALT) & _MASK32
@@ -81,11 +93,11 @@ def hash_keep_mask_reference(
 
 def hash_keep_mask(
     b: int, n: int, width: int, seed0: int, rate: float,
-    device: Union[str, torch.device] = "cpu",
+    device: Optional[Union[str, torch.device]] = None,
 ) -> torch.Tensor:
-    """The o_input keep mask on `device`; same arguments as
-    `hash_keep_mask_reference`."""
-    probe = torch.empty(0, device=device)
+    """The o_input keep mask on `device` (the card when None); same arguments
+    as `hash_keep_mask_reference`."""
+    probe = torch.empty(0, device=resolve_device(device))
     if not use_kernel(probe):
         return hash_keep_mask_reference(b, n, width, seed0, rate, device)
     seed0 = wrap_i32(seed0)
@@ -102,3 +114,17 @@ def hash_keep_mask(
 
 
 hash_keep_mask.launches = 0
+
+
+def hash_keep_global_reference(
+    seed: int, salt: int, l: int, m: int, r: int, rate: float,
+    device: Optional[Union[str, torch.device]] = None,
+) -> torch.Tensor:
+    """(l, m, r) f32 scaled keep mask of K5's stream `salt`: flat index
+    row * (m * r) + mi * r + ci under seed + salt (`hash_keep_global`). K5
+    passes its padded extents (M to a multiple of min(8, M), R to a multiple
+    of 128) and its m-major row order (`mol_loss_train.lprime`)."""
+    device = resolve_device(device)
+    idx = torch.arange(l * m * r, dtype=torch.int64, device=device).reshape(l, m, r)
+    seeds = torch.tensor(wrap_i32(seed + salt), dtype=torch.int64, device=device)
+    return keep_from_idx_reference(idx, seeds, rate)

@@ -1,0 +1,273 @@
+"""Fused MoL training loss over shared negatives (K5): CUDA kernels + plain versions.
+
+Replaces `make_fused_mol_loss` (`rails_tpu/ops/pallas/mol_loss_train.py`): the
+forward `pallas_call` (:317 via `_core_call`, body `_fwd_kernel` :143 and
+`_forward_core` :75-140), the backward (`_bwd_kernel` :159-290) and the
+layout glue of its `fused` function (:440-462), for f32 operands:
+
+    t      = <q_comp[m, n], item_comp[r, mx]> / T         (M, R, L), l = n*P_X + mx
+    t_in   = t * qi_mask                                   (qi-MLP input only)
+    gi     = qp[m] * ip[r] + W2' silu(W1' t_in + b1) + b2
+    p      = softmax_l(silu(gi)) ;  q_w = p * pi_mask ;  s = max(sum_l q_w, eps)
+    out    = sum_l q_w * t / s                             (s = 1 exactly at pi rate 0)
+
+The masks are the JAX kernel's counter-hash streams (`hash_dropout.
+hash_keep_global_reference`, salts `QI_SALT` and `PI_SALT`): the flat index
+uses the kernel's m-major row l' = mx*P_Q + n (`lprime`) and its padded extents
+(M to a multiple of min(8, M), R to a multiple of 128; `padded_extents`), so
+the bits equal the JAX package's although the port keeps the model's n-major
+logit order and pads nothing. The arguments are in the JAX function's layout:
+q_comp (M, P_Q, d_P), qp (M, L), item_comp (R, P_X, d_P), ip (R, L), w1 (L, H),
+b1 (1, H), w2 (H, L), b2 (1, L), all n-major.
+
+Kernels (`csrc/mol_loss_train.cu`; its header says what bounds them and how
+the backward replaces the TPU kernel's carried VMEM sums with per-block slots
+and a fixed-order reduction): `fused_mol_loss_forward` and
+`fused_mol_loss_backward` follow the port's dispatch rule
+(`core.device.use_kernel`): CPU tensors run `*_reference`, CUDA tensors launch
+the kernel or raise. Each has a `.launches` counter. `fused_mol_loss` is the
+differentiable function (`FusedMolLoss`), whose backward is the backward
+kernel. Kernel instances: (P_Q, P_X) in `SUPPORTED_GROUPS`, d_P <= 128, f32;
+the bf16 K5 of `amzn-books-hstu-mol-fast` is not ported (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from rails_tpu_torch.core.device import use_kernel
+from rails_tpu_torch.ops import _build
+from rails_tpu_torch.ops.hash_dropout import (
+    PI_SALT,
+    QI_SALT,
+    hash_keep_global_reference,
+    keep_threshold,
+    wrap_i32,
+)
+from rails_tpu_torch.ops.hstu_block import MAX_SMEM_BYTES
+
+SUPPORTED_GROUPS = ((8, 4), (4, 2))
+MAX_DOT_PRODUCT_DIM = 128
+_BLOCK_Q = 8          # the JAX kernel's query block (`make_fused_mol_loss(block_q=8)`)
+_LANE = 128           # its R padding
+
+
+def lprime(p_q: int, p_x: int) -> torch.Tensor:
+    """(L,) the JAX kernel's m-major row l' = mx*P_Q + n of each n-major logit
+    l = n*P_X + mx (`m_major_perm`, inverted)."""
+    l = torch.arange(p_q * p_x)
+    return (l % p_x) * p_q + l // p_x
+
+
+def m_major_order(p_q: int, p_x: int) -> torch.Tensor:
+    """(L,) the n-major logit at each m-major row l' (`m_major_perm`)."""
+    return torch.argsort(lprime(p_q, p_x))
+
+
+def padded_extents(m: int, r: int) -> Tuple[int, int]:
+    """The JAX kernel's padded (M, R): M to a multiple of min(8, M), R to a
+    multiple of 128 (`mol_loss_train.py:444-446`)."""
+    g = min(_BLOCK_Q, m)
+    return m + (-m) % g, r + (-r) % _LANE
+
+
+def loss_mask(seed: int, salt: int, m: int, r: int, p_q: int, p_x: int, rate: float,
+              device) -> torch.Tensor:
+    """(M, R, L) n-major scaled keep mask of one K5 stream."""
+    mp, rp = padded_extents(m, r)
+    g = hash_keep_global_reference(seed, salt, p_q * p_x, mp, rp, rate, device)
+    return g[lprime(p_q, p_x).to(g.device), :m, :r].permute(1, 2, 0)
+
+
+def fused_mol_loss_forward_reference(
+    q_comp, qp, item_comp, ip, w1, b1, w2, b2, seed: int, *, p_q: int, p_x: int,
+    temperature: float, qi_rate: float, pi_rate: float, eps: float,
+) -> torch.Tensor:
+    """Plain PyTorch version of the forward: (M, R) f32 scores."""
+    m, r = q_comp.shape[0], item_comp.shape[0]
+    l = p_q * p_x
+    t = torch.einsum("mnd,rxd->mrnx", q_comp, item_comp).reshape(m, r, l) * (1.0 / temperature)
+    t_in = t
+    if qi_rate > 0.0:
+        t_in = t * loss_mask(seed, QI_SALT, m, r, p_q, p_x, qi_rate, t.device)
+    # The qi MLP's input sums in the JAX kernel's m-major row order: through
+    # the sharp softmax, f32 rounding of another order shows at 2e-4.
+    perm = m_major_order(p_q, p_x).to(t.device)
+    qi = F.silu(t_in[..., perm] @ w1[perm] + b1) @ w2 + b2
+    gi = qp[:, None, :] * ip[None, :, :] + qi
+    p = torch.softmax(F.silu(gi), dim=-1)
+    if pi_rate > 0.0:
+        q_w = p * loss_mask(seed, PI_SALT, m, r, p_q, p_x, pi_rate, t.device)
+        return (q_w * t).sum(dim=-1) / torch.clamp(q_w.sum(dim=-1), min=eps)
+    return (p * t).sum(dim=-1)
+
+
+def fused_mol_loss_backward_reference(
+    q_comp, qp, item_comp, ip, w1, b1, w2, b2, seed: int, d_out, **kw,
+) -> Tuple[torch.Tensor, ...]:
+    """Plain version of the backward: the gradients of sum(out * d_out) with
+    respect to the 8 array inputs, by autograd of the plain forward."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(True)
+                  for x in (q_comp, qp, item_comp, ip, w1, b1, w2, b2)]
+        out = fused_mol_loss_forward_reference(*leaves, seed, **kw)
+        return torch.autograd.grad(out, leaves, d_out)
+
+
+def _prepare(q_comp, qp, item_comp, ip, w1, b1, w2, b2, p_q: int, p_x: int, backward: bool,
+             what: str):
+    """Validate the operands of the forward or backward kernel; returns
+    (m, r, d_p, h, lib)."""
+    m, pq_, d_p = q_comp.shape
+    r = item_comp.shape[0]
+    l = p_q * p_x
+    h = w1.shape[-1]
+    if (p_q, p_x) not in SUPPORTED_GROUPS or d_p > MAX_DOT_PRODUCT_DIM:
+        raise NotImplementedError(
+            f"{what}: (P_Q, P_X)=({p_q}, {p_x}), d_P={d_p} has no kernel instance; supported: "
+            f"{SUPPORTED_GROUPS}, d_P <= {MAX_DOT_PRODUCT_DIM} (ROADMAP.md, Queue 1: K5 variants)"
+        )
+    tensors = (q_comp, qp, item_comp, ip, w1, b1, w2, b2)
+    if any(x.dtype != torch.float32 for x in tensors):
+        raise NotImplementedError(
+            f"{what}: only the f32 kernel is ported; got {[x.dtype for x in tensors]} "
+            "(ROADMAP.md, Queue 1: the bf16 K5 of amzn-books-hstu-mol-fast)"
+        )
+    want = {"q_comp": (m, p_q, d_p), "qp": (m, l), "item_comp": (r, p_x, d_p), "ip": (r, l),
+            "w1": (l, h), "b1": (1, h), "w2": (h, l), "b2": (1, l)}
+    got = dict(zip(want, (tuple(x.shape) for x in tensors)))
+    if got != want or pq_ != p_q:
+        raise ValueError(f"{what}: shapes {got}, want {want}")
+    lib = _build.load_library()
+    smem = lib.rails_mol_loss_smem_bytes(int(backward), p_q, p_x, d_p, h)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{what}: d_P={d_p}, H={h} need {smem} B of shared memory")
+    return m, r, d_p, h, lib
+
+
+def _kernel_layout(q_comp, qp, item_comp, ip, w1, b1, w2, b2) -> dict:
+    """Contiguous operands in the kernels' layouts (the dict keeps every
+    temporary alive until the launch has been enqueued)."""
+    return {"q": q_comp.contiguous(), "qp": qp.contiguous(), "item": item_comp.contiguous(),
+            "item_t": item_comp.permute(1, 2, 0).contiguous(),      # (P_X, d_P, R)
+            "ip": ip.contiguous(), "ip_t": ip.T.contiguous(),       # (L, R)
+            "w1t": w1.T.contiguous(), "b1": b1.contiguous(),        # (H, L)
+            "w2": w2.contiguous(), "b2": b2.contiguous()}
+
+
+def _drop_args(seed: int, qi_rate: float, pi_rate: float) -> list:
+    """The dropout arguments of both entry points: use, seed + salt, threshold
+    and scale of the qi stream, then of the pi stream."""
+    out = []
+    for salt, rate in ((QI_SALT, qi_rate), (PI_SALT, pi_rate)):
+        use = rate > 0.0
+        out += [int(use), wrap_i32(seed + salt) & 0xFFFFFFFF, keep_threshold(rate) if use else 0,
+                1.0 / (1.0 - rate) if use else 1.0]
+    return out
+
+
+def fused_mol_loss_forward(
+    q_comp, qp, item_comp, ip, w1, b1, w2, b2, seed: int, *, p_q: int, p_x: int,
+    temperature: float, qi_rate: float, pi_rate: float, eps: float,
+) -> torch.Tensor:
+    """The forward; same arguments as `fused_mol_loss_forward_reference`."""
+    kw = dict(p_q=p_q, p_x=p_x, temperature=temperature, qi_rate=qi_rate, pi_rate=pi_rate,
+              eps=eps)
+    tensors = (q_comp, qp, item_comp, ip, w1, b1, w2, b2)
+    if not use_kernel(*tensors):
+        return fused_mol_loss_forward_reference(*tensors, seed, **kw)
+    m, r, d_p, h, lib = _prepare(*tensors, p_q, p_x, False, "fused_mol_loss_forward")
+    mp, rp = padded_extents(m, r)
+    with torch.cuda.device(q_comp.device):
+        ops = _kernel_layout(*tensors)
+        out = torch.empty(m, r, dtype=torch.float32, device=q_comp.device)
+        err = lib.rails_mol_loss_fwd(
+            p_q, p_x, *(ops[k].data_ptr() for k in ("q", "qp", "item_t", "ip_t", "w1t", "b1",
+                                                    "w2", "b2")),
+            out.data_ptr(), m, r, d_p, h, mp, rp, 1.0 / temperature, eps,
+            *_drop_args(seed, qi_rate, pi_rate), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, err, "fused_mol_loss_forward")
+    fused_mol_loss_forward.launches += 1
+    return out
+
+
+fused_mol_loss_forward.launches = 0
+
+
+def fused_mol_loss_backward(
+    q_comp, qp, item_comp, ip, w1, b1, w2, b2, seed: int, d_out, *, p_q: int, p_x: int,
+    temperature: float, qi_rate: float, pi_rate: float, eps: float,
+) -> Tuple[torch.Tensor, ...]:
+    """The backward: gradients of sum(out * d_out) with respect to q_comp, qp,
+    item_comp, ip, w1, b1, w2 and b2; same arguments as
+    `fused_mol_loss_backward_reference`."""
+    kw = dict(p_q=p_q, p_x=p_x, temperature=temperature, qi_rate=qi_rate, pi_rate=pi_rate,
+              eps=eps)
+    tensors = (q_comp, qp, item_comp, ip, w1, b1, w2, b2)
+    if not use_kernel(*tensors, d_out):
+        return fused_mol_loss_backward_reference(*tensors, seed, d_out, **kw)
+    m, r, d_p, h, lib = _prepare(*tensors, p_q, p_x, True, "fused_mol_loss_backward")
+    if tuple(d_out.shape) != (m, r) or d_out.dtype != torch.float32:
+        raise ValueError(f"fused_mol_loss_backward: d_out must be f32 {(m, r)}; got "
+                         f"{d_out.dtype} {tuple(d_out.shape)}")
+    l = p_q * p_x
+    mp, rp = padded_extents(m, r)
+    dev = q_comp.device
+    stride = 2 * h * l + h + l + r * l + r * p_x * d_p
+    # One slot per persistent block: one block per SM, fewer when M is small.
+    nb = min(-(-m // _BLOCK_Q), torch.cuda.get_device_properties(dev).multi_processor_count)
+    with torch.cuda.device(dev):
+        ops = _kernel_layout(*tensors)
+        d_out = d_out.contiguous()
+        dq = torch.zeros(m, p_q, d_p, dtype=torch.float32, device=dev)
+        dqp = torch.zeros(m, l, dtype=torch.float32, device=dev)
+        part = torch.zeros(nb, stride, dtype=torch.float32, device=dev)
+        red = torch.empty(stride, dtype=torch.float32, device=dev)
+        err = lib.rails_mol_loss_bwd(
+            p_q, p_x, *(ops[k].data_ptr() for k in ("q", "qp", "item", "item_t", "ip", "ip_t",
+                                                    "w1t", "b1", "w2", "b2")),
+            d_out.data_ptr(), dq.data_ptr(), dqp.data_ptr(), part.data_ptr(), red.data_ptr(),
+            nb, m, r, d_p, h, mp, rp, 1.0 / temperature, eps,
+            *_drop_args(seed, qi_rate, pi_rate), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, err, "fused_mol_loss_backward")
+    fused_mol_loss_backward.launches += 1
+    dw1, dw2, db1, db2, dip, ditem = torch.split(red, [h * l, h * l, h, l, r * l, r * p_x * d_p])
+    return (dq, dqp, ditem.reshape(r, p_x, d_p), dip.reshape(r, l), dw1.reshape(h, l).T,
+            db1.reshape(1, h), dw2.reshape(h, l), db2.reshape(1, l))
+
+
+fused_mol_loss_backward.launches = 0
+
+
+class FusedMolLoss(torch.autograd.Function):
+    """(M, R) shared-negative MoL scores, differentiable in the 8 array inputs
+    (the JAX function's custom VJP); the backward regenerates the masks."""
+
+    @staticmethod
+    def forward(ctx, q_comp, qp, item_comp, ip, w1, b1, w2, b2, seed: int, kw: dict):
+        out = fused_mol_loss_forward(q_comp, qp, item_comp, ip, w1, b1, w2, b2, seed, **kw)
+        ctx.save_for_backward(q_comp, qp, item_comp, ip, w1, b1, w2, b2)
+        ctx.seed, ctx.kw = seed, kw
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        grads = fused_mol_loss_backward(*ctx.saved_tensors, ctx.seed, d_out.contiguous(),
+                                        **ctx.kw)
+        return (*grads, None, None)
+
+
+def fused_mol_loss(
+    q_comp, qp, item_comp, ip, w1, b1, w2, b2, seed: int, *, p_q: int, p_x: int,
+    temperature: float, qi_rate: float, pi_rate: float, eps: float,
+) -> torch.Tensor:
+    """`make_fused_mol_loss(p_q, p_x, temperature, pi_rate, qi_rate, eps)` applied
+    to (q_comp, qp, item_comp, ip, MoLKernelWeights(w1, b1, w2, b2), seed)."""
+    kw = dict(p_q=p_q, p_x=p_x, temperature=temperature, qi_rate=qi_rate, pi_rate=pi_rate,
+              eps=eps)
+    return FusedMolLoss.apply(q_comp, qp, item_comp, ip, w1, b1, w2, b2, wrap_i32(seed), kw)

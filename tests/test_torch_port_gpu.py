@@ -15,7 +15,14 @@ import torch
 from rails_tpu_torch.core.config import get_experiment_config
 from rails_tpu_torch.data.datasets import SequenceDataset, generate_synthetic_sequences
 from rails_tpu_torch.models.encoder import SequentialRecommender
-from rails_tpu_torch.ops import hash_dropout, hstu_block, hstu_block_train, mol_scoring
+from rails_tpu_torch.ops import (
+    hash_dropout,
+    hstu_block,
+    hstu_block_train,
+    mol_loss_train,
+    mol_scoring,
+    scatter_add,
+)
 from rails_tpu_torch.train import fused_adamw
 from rails_tpu_torch.train.loop import create_train_state
 from rails_tpu_torch.similarity.layers import l2_normalize
@@ -228,6 +235,141 @@ def test_train_step_on_cuda_matches_cpu(cuda, monkeypatch):
         model, state, step, _ = create_train_state(cfg, num_items, all_ids, seed=0, device=device)
         batch = next(ds.batches(16, cfg.train.gr_output_length + 1, shuffle=False, device=device))
         _, m = step(state, batch, torch.Generator(device=device).manual_seed(0))
+        out[str(device)] = (m["loss"].item(), {k: p.grad.cpu() for k, p in model.named_parameters()})
+    (loss_c, g_c), (loss_g, g_g) = out["cpu"], out[str(cuda)]
+    assert abs(loss_g - loss_c) <= 1e-4 * abs(loss_c)
+    for k in g_c:
+        torch.testing.assert_close(g_g[k], g_c[k], rtol=5e-3, atol=1e-4, msg=k)
+
+
+K5_NAMES = ("q_comp", "qp", "item_comp", "ip", "w1", "b1", "w2", "b2")
+
+
+def _k5_args(m, r, p_q, p_x, d_p, h, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    l = p_q * p_x
+    args = (
+        l2_normalize(torch.randn(m, p_q, d_p, generator=g)), torch.randn(m, l, generator=g),
+        l2_normalize(torch.randn(r, p_x, d_p, generator=g)), torch.randn(r, l, generator=g),
+        torch.randn(l, h, generator=g) / l**0.5, 0.1 * torch.randn(1, h, generator=g),
+        torch.randn(h, l, generator=g) / h**0.5, 0.1 * torch.randn(1, l, generator=g),
+    )
+    return [a.to(device) for a in args]
+
+
+@pytest.mark.parametrize(
+    "m,r,geom,pi_rate,qi_rate",
+    [(1, 1, (4, 2, 16, 24), 0.2, 0.0), (13, 37, (4, 2, 16, 24), 0.0, 0.0),
+     (20, 130, (4, 2, 16, 24), 0.2, 0.1), (24, 40, (4, 2, 16, 24), 0.9, 0.0),
+     (9, 128, (8, 4, 128, 128), 0.2, 0.1), (300, 200, (8, 4, 128, 128), 0.5, 0.3)],
+    ids=["one_pair", "rate0", "padded", "clamps_at_eps", "ml20m_small", "ml20m_many_blocks"],
+)
+def test_k5_matches_plain(cuda, m, r, geom, pi_rate, qi_rate):
+    """Forward and the 8 gradients of the K5 kernels against autograd of the
+    plain forward, at M not a multiple of 8, R not a multiple of 32 or 128, and
+    a softmax-dropout rate at which many pairs' renorm clamps at eps."""
+    p_q, p_x, d_p, h = geom
+    args = _k5_args(m, r, p_q, p_x, d_p, h, cuda, seed=m)
+    kw = dict(p_q=p_q, p_x=p_x, temperature=0.05, qi_rate=qi_rate, pi_rate=pi_rate, eps=1e-6)
+    cot = torch.randn(m, r, generator=torch.Generator().manual_seed(1)).to(cuda)
+    before = (mol_loss_train.fused_mol_loss_forward.launches,
+              mol_loss_train.fused_mol_loss_backward.launches)
+    got = mol_loss_train.fused_mol_loss_forward(*args, -1234567, **kw)
+    grads = mol_loss_train.fused_mol_loss_backward(*args, -1234567, cot, **kw)
+    assert (mol_loss_train.fused_mol_loss_forward.launches,
+            mol_loss_train.fused_mol_loss_backward.launches) == (before[0] + 1, before[1] + 1)
+    want = mol_loss_train.fused_mol_loss_forward_reference(*args, -1234567, **kw)
+    want_grads = mol_loss_train.fused_mol_loss_backward_reference(*args, -1234567, cot, **kw)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)   # logits carry 1/T = 20
+    for name, a, b in zip(K5_NAMES, grads, want_grads):
+        assert a.shape == b.shape, name
+        scale = b.abs().max().clamp_min(1e-30)
+        assert ((a - b).abs().max() / scale).item() <= 1e-3, name
+
+
+def test_k5_rejects_what_it_has_no_instance_for(cuda):
+    args = _k5_args(8, 16, 2, 2, 16, 8, cuda)
+    kw = dict(p_q=2, p_x=2, temperature=0.05, qi_rate=0.0, pi_rate=0.0, eps=1e-6)
+    with pytest.raises(NotImplementedError, match="no kernel instance"):
+        mol_loss_train.fused_mol_loss_forward(*args, 0, **kw)
+    args = _k5_args(8, 16, 4, 2, 16, 8, cuda)
+    kw.update(p_q=4)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        mol_loss_train.fused_mol_loss_forward(*[a.bfloat16() for a in args], 0, **kw)
+
+
+@pytest.mark.parametrize("case", ["duplicates", "wrap_and_drop", "empty", "narrow", "bf16",
+                                  "ml20m", "one_id"])
+def test_k6_matches_plain(cuda, case):
+    g = torch.Generator().manual_seed(len(case))
+    num_rows, d = 300, 128
+    if case == "duplicates":
+        ids = torch.randint(0, 7, (6, 50), generator=g)
+    elif case == "wrap_and_drop":
+        ids = torch.randint(-num_rows - 20, num_rows + 20, (4, 77), generator=g)
+    elif case == "empty":
+        ids = torch.zeros(0, dtype=torch.int64)
+    elif case == "narrow":
+        num_rows, d = 97, 40
+        ids = torch.randint(-5, num_rows, (3, 31), generator=g)
+    elif case == "ml20m":      # padding id 0 owns ~60% of the batch: a run of many pieces
+        num_rows, d = 26_745, 256
+        ids = torch.randint(0, num_rows, (128, 211), generator=g)
+        ids = torch.where(torch.rand(128, 211, generator=g) < 0.6, 0, ids)
+    elif case == "one_id":     # 1,000 entries of one row: 4 pieces of <= 256
+        ids = torch.full((1000,), 17)
+    else:
+        ids = torch.randint(0, num_rows, (2, 64), generator=g)
+    rows = torch.randn(ids.shape + (d,), generator=g)
+    if case == "bf16":
+        rows = rows.bfloat16()
+    ids, rows = ids.to(torch.int32).to(cuda), rows.to(cuda)
+    before = scatter_add.scatter_add_rows.launches
+    got = scatter_add.scatter_add_rows(ids, rows, num_rows, out_dtype=torch.float32)
+    assert scatter_add.scatter_add_rows.launches == before + 1
+    want = scatter_add.scatter_add_rows_reference(ids, rows, num_rows, out_dtype=torch.float32)
+    # Both sum in f32, in other orders where ids repeat (up to ~16k times here):
+    # each within the recursive-summation bound n_t * 2^-24 * sum |x| of row t.
+    flat = ids.reshape(-1).long()
+    flat = torch.where(flat < 0, flat + num_rows, flat)
+    keep = (flat >= 0) & (flat < num_rows)
+    mass = torch.zeros(num_rows, d, dtype=torch.float64, device=cuda).index_add_(
+        0, flat[keep], rows.reshape(-1, d)[keep].double().abs())
+    count = torch.bincount(flat[keep], minlength=num_rows).double()[:, None]
+    assert bool(((got - want).abs().double() <= 2 * count * 2.0**-24 * mass).all())
+
+
+def test_fast_train_step_on_cuda_matches_cpu(cuda, monkeypatch):
+    """One synthetic-small -fast step (shared negatives, K5, K6) through the
+    kernels and through the plain versions on the CPU, from the same weights
+    and (R,) negatives with every dropout off: the same loss and gradients."""
+    from rails_tpu_torch.losses import samplers
+
+    cfg = get_experiment_config("synthetic-small")
+    cfg = cfg.replace(
+        hstu=cfg.hstu.replace(fused_train=True, linear_dropout_rate=0.0),
+        train=cfg.train.replace(dropout_rate=0.0, num_negatives=40, shared_negatives=True,
+                                fused_mol_loss=True, pallas_scatter_grad=True),
+        mol=cfg.mol.replace(uid_dropout_rate=0.0, item_dropout_rate=0.0,
+                            softmax_dropout_rate=0.0),
+    )
+    num_items = 300
+    seqs = generate_synthetic_sequences(num_users=64, num_items=num_items, max_len=34, seed=2)
+    ds = SequenceDataset(seqs, cfg.data.max_sequence_length, ignore_last_n=1)
+    all_ids = np.arange(1, num_items + 1, dtype=np.int32)
+    negatives = np.random.default_rng(0).integers(1, num_items + 1, (40,)).astype(np.int32)
+    out = {}
+    for device in ("cpu", cuda):
+        monkeypatch.setattr(samplers.LocalNegativesSampler, "sample",
+                            lambda self, gen, shape, d=device: torch.from_numpy(negatives).to(d))
+        model, state, step, _ = create_train_state(cfg, num_items, all_ids, seed=0, device=device)
+        batch = next(ds.batches(16, cfg.train.gr_output_length + 1, shuffle=False, device=device))
+        before = (mol_loss_train.fused_mol_loss_forward.launches,
+                  scatter_add.scatter_add_rows.launches)
+        _, m = step(state, batch, torch.Generator(device=device).manual_seed(0))
+        launched = (mol_loss_train.fused_mol_loss_forward.launches - before[0],
+                    scatter_add.scatter_add_rows.launches - before[1])
+        assert launched == ((0, 0) if device == "cpu" else (1, 3))
         out[str(device)] = (m["loss"].item(), {k: p.grad.cpu() for k, p in model.named_parameters()})
     (loss_c, g_c), (loss_g, g_g) = out["cpu"], out[str(cuda)]
     assert abs(loss_g - loss_c) <= 1e-4 * abs(loss_c)
