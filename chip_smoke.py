@@ -30,6 +30,24 @@ Phases (one line each, any failure raises and exits non-zero):
      yardstick.
  12. train-fast: ml-20m-hstu-mol-fast with pallas_scatter_grad (B=128, N=211,
      R=128 shared, f32), as in 9, through K3-K7.
+ 13. K8 (`fused_mol_ub_t`), K9 (`fused_mol_group_block_max`) and K10
+     (`fused_mol_scores_tiles`, 1,024 tile ids with a duplicate and the last
+     tile) at B=32 over 1,048,576 items, f32 and bf16 tables, vs their plain
+     versions; K10 bit-equal to K2's columns of the same tiles; K8's bound
+     above K2's score of every (query, item) up to the certificate margin.
+ 14. approx: the frontier protocol (`rails_tpu/cli/frontier.py`) at
+     ml-20m-hstu-mol, bf16: a clustered synthetic corpus of 1,048,576 items
+     (cut from the frontier's 8M for the script's time), B=32, k=200, every
+     method through build_mol_topk_state + get_top_k_raw: ms/batch, launch
+     counts, top-200 overlap with the exact (K2) ids, recall@200 of the exact
+     top-1, and for the certified methods the certification rate (also at
+     budgets of 65,536 and 262,144). It gates on soundness only: certified
+     rows hold the exact top-k (see `check_certified`), and MoLCertTopK with
+     a budget >= X certifies every row.
+ 15. approx-e2e: the 3 serving batches of 512 through get_eval_state and
+     make_eval_step_fn with MoLCertTopK4096, MoLTileTopK8 and
+     MoLCombTopK50_4096, vs the same steps through the plain versions, and
+     recall_vs_exact against MoLBruteForceTopKFused.
 The line before the last is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script fails before printing
 any result.
@@ -77,6 +95,16 @@ E2E_TOL = (("bfloat16", 0.99, 0.96), ("float32", 0.995, 0.99))
 # The bf16 kernel path's top-120 overlap with the f32 plain path may trail
 # the bf16 plain path's by at most this much.
 BF16_VS_F32_SLACK = 0.01
+APPROX_ITEMS = 1 << 20         # the frontier's clustered corpus, cut from 8M items
+APPROX_BATCH, APPROX_K = 32, 200
+CLUSTER_SIGMA = 0.5            # cluster spread over the centroid rms (frontier default)
+K10_TILES = 1024
+APPROX_METHODS = (
+    "MoLBruteForceTopKFused", "MoLBruteForceTopKFusedApprox", "MoLCertTopK4096",
+    "MoLTileTopK8", "MoLTileTopK8B512", "MoLNaiveTopK50", "MoLAvgTopK4096",
+    "MoLCombTopK50_4096", "MIPSBruteForceTopK",
+)
+E2E_APPROX_METHODS = ("MoLCertTopK4096", "MoLTileTopK8", "MoLCombTopK50_4096")
 
 
 def ptxas_summary(log: str) -> str:
@@ -90,7 +118,8 @@ def ptxas_summary(log: str) -> str:
             name = re.search(r"(ln_gemm_kernel|hstu_attn_bwd_kernel|hstu_attn_kernel|"
                              r"attn_row_bwd_kernel|mol_scores_kernel|hash_keep_mask_kernel|"
                              r"adamw_kernel|mol_loss_fwd_kernel|mol_loss_bwd_kernel|"
-                             r"reduce_slots_kernel|scatter_add_rows_kernel)", mangled)
+                             r"reduce_slots_kernel|scatter_add_rows_kernel|mol_ub_kernel|"
+                             r"mol_group_block_max_kernel)", mangled)
             args = ["bf16" if "bfloat16" in mangled else "f32"] + re.findall(r"Li(\d+)E", mangled)
             label = f"{name.group(1) if name else mangled}<{','.join(args)}>"
             spilled = "?"
@@ -259,10 +288,11 @@ def check_k2(b: int, x: int, dtype, device) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": None}
 
 
-def serving_setup(compute_dtype, device, n_batches: int):
-    """The ml-20m-hstu-mol model (seeded random weights), its exact fused eval
-    state, the eval step and length-sorted ML-20M-shaped batches, each
-    truncated to its 64-bucket."""
+def serving_setup(compute_dtype, device, n_batches: int,
+                  top_k_method: str = "MoLBruteForceTopKFused"):
+    """The ml-20m-hstu-mol model (seeded random weights), its eval state for
+    `top_k_method` (by default the exact fused one), the eval step and
+    length-sorted ML-20M-shaped batches, each truncated to its 64-bucket."""
     import torch
 
     from rails_tpu_torch.core.config import get_experiment_config
@@ -282,7 +312,7 @@ def serving_setup(compute_dtype, device, n_batches: int):
         generator=torch.Generator().manual_seed(0),
     )
     es = get_eval_state(
-        model, np.arange(1, NUM_ITEMS + 1, dtype=np.int32), "MoLBruteForceTopKFused",
+        model, np.arange(1, NUM_ITEMS + 1, dtype=np.int32), top_k_method,
         table_dtype=compute_dtype, device=device,
     )
     step = make_eval_step_fn(
@@ -334,6 +364,8 @@ def kernel_wrappers() -> dict:
         "K5 fwd": mol_loss_train.fused_mol_loss_forward,
         "K5 bwd": mol_loss_train.fused_mol_loss_backward,
         "K6": scatter_add.scatter_add_rows, "K7": fused_adamw.adamw_leaf_update,
+        "K8": mol_scoring.fused_mol_ub_t, "K9": mol_scoring.fused_mol_group_block_max,
+        "K10": mol_scoring.fused_mol_scores_tiles,
     }
 
 
@@ -368,6 +400,11 @@ def plain_kernels():
     with mock.patch.object(hstu, "fused_hstu_block", hstu_block.fused_hstu_block_reference), \
             mock.patch.object(top_k, "fused_mol_scores_t",
                               mol_scoring.fused_mol_scores_t_reference), \
+            mock.patch.object(top_k, "fused_mol_ub_t", mol_scoring.fused_mol_ub_t_reference), \
+            mock.patch.object(top_k, "fused_mol_group_block_max",
+                              mol_scoring.fused_mol_group_block_max_reference), \
+            mock.patch.object(top_k, "fused_mol_scores_tiles",
+                              mol_scoring.fused_mol_scores_tiles_reference), \
             mock.patch.object(hstu_block_train, "fused_train_block_forward",
                               hstu_block_train.fused_train_block_forward_reference), \
             mock.patch.object(hstu_block_train, "attn_backward",
@@ -633,7 +670,8 @@ def step_launches(cfg) -> dict:
     fused = cfg.train.shared_negatives and cfg.train.fused_mol_loss
     return {"K1": 0, "K2": 0, "K3": blocks, "K4 fwd": blocks, "K4 bwd": blocks,
             "K5 fwd": int(fused), "K5 bwd": int(fused),
-            "K6": 3 if cfg.train.pallas_scatter_grad else 0, "K7": 2}
+            "K6": 3 if cfg.train.pallas_scatter_grad else 0, "K7": 2,
+            "K8": 0, "K9": 0, "K10": 0}
 
 
 def train_phase(device, name: str, smi: str, config: str = "ml-20m-hstu-mol",
@@ -835,6 +873,309 @@ def check_k6(device, ids) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": library_ms}
 
 
+def bound_inputs(b: int, x: int, dtype, device, seed: int = 8):
+    """K2-K10 operands over x items: l2-normalised 8 x 4 x 128 components,
+    random gating partials and a random qi MLP, made on the card."""
+    import torch
+
+    from rails_tpu_torch.ops.mol_scoring import MoLKernelWeights, prepare_fused_tables
+    from rails_tpu_torch.similarity.layers import l2_normalize
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    l, hd = P_Q * P_X, 128
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=device)
+
+    tables = prepare_fused_tables(l2_normalize(randn(x, P_X, D_P)).to(dtype),
+                                  randn(x, l).to(dtype))
+    w = MoLKernelWeights(randn(l, hd) / l ** 0.5, 0.1 * randn(hd), randn(hd, l) / hd ** 0.5,
+                         0.1 * randn(l))
+    q = l2_normalize(randn(b, P_Q, D_P)).to(dtype)
+    return (q, randn(b, l), tables.item_comp_t, tables.item_partial_t, w, TEMPERATURE)
+
+
+def check_bounds(device) -> dict:
+    """K8, K9 and K10 at B=32 over 1,048,576 items, f32 and bf16 tables:
+    each against its plain version; K8 above K2's score everywhere up to the
+    certificate margin; K9's tile maxima above K8; K10 bit-equal to K2's
+    columns of its tiles. Returns the bf16 entries of the kernel summary."""
+    import torch
+
+    from rails_tpu_torch.index.top_k import _CERT_DEFAULT_REL_MARGIN, _CERT_REL_MARGIN
+    from rails_tpu_torch.ops import mol_scoring as ms
+
+    b, l, hd = APPROX_BATCH, P_Q * P_X, 128
+    rtol, atol = K2_TOL_F32
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        args = bound_inputs(b, APPROX_ITEMS, dtype, device)
+        q, qp, items, ip, w, t = args
+        xp, es = items.shape[2], q.element_size()
+        nb = xp // ms.BLOCK_X
+        k2 = ms.fused_mol_scores_t(*args)
+        rel = _CERT_REL_MARGIN.get(dtype, _CERT_DEFAULT_REL_MARGIN)
+        table_bytes = es * (xp * P_X * D_P + b * P_Q * D_P)
+
+        ub = ms.fused_mol_ub_t(q, items, t)
+        ub_ref = ms.fused_mol_ub_t_reference(q, items, t)
+        torch.testing.assert_close(ub, ub_ref, rtol=rtol, atol=atol)
+        slack = (ub + rel * torch.maximum(ub.abs(), k2.abs()) - k2).min().item()
+        if slack < 0:
+            raise AssertionError(f"K8 {dt}: the bound sits {-slack} below K2's score")
+        k8 = {"max_abs_err": (ub - ub_ref).abs().max().item(),
+              "ms": cuda_ms(lambda: ms.fused_mol_ub_t(q, items, t)),
+              "plain_ms": cuda_ms(lambda: ms.fused_mol_ub_t_reference(q, items, t), iters=3,
+                                  warmup=1),
+              **bound(2 * b * xp * l * D_P, table_bytes + 4 * b * xp, dt), "library_ms": None}
+        print(f"[K8] {dt} tables B={b} X={xp} MoL {P_Q}x{P_X}x{D_P}: max|err| "
+              f"{k8['max_abs_err']:.3e} (rtol {rtol}, atol {atol}); UB + {rel:.2e} x max(|UB|, "
+              f"|score|) >= K2's score for all {b * xp} pairs (min slack {slack:.3e}); kernel "
+              f"{k8['ms']:.3f} ms, plain {k8['plain_ms']:.3f} ms, bound {k8['bound_ms']:.4f} ms "
+              f"({k8['bound_by']})")
+
+        gm = ms.fused_mol_group_block_max(q, items, t)
+        gm_ref = ms.fused_mol_group_block_max_reference(q, items, t)
+        torch.testing.assert_close(gm, gm_ref, rtol=rtol, atol=atol)
+        tile_of = torch.arange(xp, device=device) // ms.BLOCK_X
+        if not bool((gm.amax(dim=1)[:, tile_of] >= ub).all()):
+            raise AssertionError(f"K9 {dt}: a tile maximum sits below an item's bound")
+        k9 = {"max_abs_err": (gm - gm_ref).abs().max().item(),
+              "ms": cuda_ms(lambda: ms.fused_mol_group_block_max(q, items, t)),
+              "plain_ms": cuda_ms(lambda: ms.fused_mol_group_block_max_reference(q, items, t),
+                                  iters=3, warmup=1),
+              **bound(2 * b * xp * l * D_P, table_bytes + 4 * b * l * nb, dt),
+              "library_ms": None}
+        print(f"[K9] {dt} tables B={b} X={xp} ({nb} tiles of {ms.BLOCK_X}): max|err| "
+              f"{k9['max_abs_err']:.3e} (rtol {rtol}, atol {atol}); every tile maximum >= the "
+              f"K8 bound of its items; kernel {k9['ms']:.3f} ms, plain {k9['plain_ms']:.3f} ms, "
+              f"bound {k9['bound_ms']:.4f} ms ({k9['bound_by']})")
+
+        gen = torch.Generator(device=device).manual_seed(10)
+        tiles = torch.randint(0, nb, (K10_TILES,), generator=gen, device=device,
+                              dtype=torch.int32)
+        tiles[0], tiles[2] = nb - 1, tiles[1]          # the last tile and a duplicate
+        distinct = int(torch.unique(tiles).numel())
+        sc = ms.fused_mol_scores_tiles(q, qp, tiles, items, ip, w, t)
+        cols = (tiles.long()[:, None] * ms.BLOCK_X
+                + torch.arange(ms.BLOCK_X, device=device)).reshape(-1)
+        if not torch.equal(sc, k2[:, cols]):
+            raise AssertionError(f"K10 {dt} differs from K2's columns of the same tiles")
+        sc_ref = ms.fused_mol_scores_tiles_reference(q, qp, tiles, items, ip, w, t)
+        if dtype == torch.float32:
+            torch.testing.assert_close(sc, sc_ref, rtol=rtol, atol=atol)
+            verdict = f"rtol {rtol}, atol {atol}"
+        else:
+            top1 = (sc.argmax(dim=1) == sc_ref.argmax(dim=1)).float().mean().item()
+            overlap = topk_overlap(sc, sc_ref, 200)
+            verdict = f"top-1 agree {top1:.4f} (>= 0.99), top-200 overlap {overlap:.4f} (>= 0.994)"
+            if top1 < 0.99 or overlap < 0.994:
+                raise AssertionError(f"K10 bf16 outside K2's contract: {verdict}")
+        cols_n = K10_TILES * ms.BLOCK_X
+        k10 = {"max_abs_err": (sc - sc_ref).abs().max().item(),
+               "ms": cuda_ms(lambda: ms.fused_mol_scores_tiles(q, qp, tiles, items, ip, w, t)),
+               "plain_ms": cuda_ms(lambda: ms.fused_mol_scores_tiles_reference(
+                   q, qp, tiles, items, ip, w, t), iters=3, warmup=1),
+               **bound(cols_n * b * (2 * l * D_P + 4 * l * hd),
+                       es * (distinct * ms.BLOCK_X * (P_X * D_P + l) + b * P_Q * D_P)
+                       + 4 * (b * l + 2 * l * hd + hd + l + K10_TILES + b * cols_n), dt),
+               "library_ms": None}
+        print(f"[K10] {dt} tables B={b} T={K10_TILES} tiles ({distinct} distinct, the last tile "
+              f"and a duplicate) of X={xp}: bit-equal to K2's columns of the same tiles; vs "
+              f"plain max|err| {k10['max_abs_err']:.3e} ({verdict}); kernel {k10['ms']:.3f} ms, "
+              f"plain {k10['plain_ms']:.3f} ms, bound {k10['bound_ms']:.4f} ms "
+              f"({k10['bound_by']})")
+        out = {"K8": k8, "K9": k9, "K10": k10}
+        del args, q, qp, items, ip, w, k2, ub, ub_ref, gm, gm_ref, sc, sc_ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def approx_setup(device):
+    """ml-20m-hstu-mol in bf16 (seeded random weights), the frontier's
+    clustered corpus emb(i) = table[(i-1) % 26,744] + 0.5 rms eps(i) over
+    APPROX_ITEMS items with its bf16 standard, fused and avg tables, and the
+    query embeddings of one batch of 32 ML-20M-shaped users."""
+    import torch
+
+    from rails_tpu_torch.core.config import get_experiment_config
+    from rails_tpu_torch.data.datasets import SequenceDataset, generate_synthetic_sequences
+    from rails_tpu_torch.index.top_k import build_mol_topk_state
+    from rails_tpu_torch.models.encoder import SequentialRecommender
+
+    cfg = get_experiment_config("ml-20m-hstu-mol")
+    cfg = cfg.replace(hstu=cfg.hstu.replace(fused_inference=True),
+                      train=cfg.train.replace(main_module_bf16=True, eval_bf16=True))
+    model = SequentialRecommender(cfg, NUM_ITEMS, compute_dtype=torch.bfloat16, device=device,
+                                  generator=torch.Generator().manual_seed(0))
+    ids = torch.arange(1, APPROX_ITEMS + 1, dtype=torch.int32, device=device)
+    g = torch.Generator(device=device).manual_seed(2)
+    base = model.get_item_embeddings((ids - 1) % NUM_ITEMS + 1).float()
+    emb = base + CLUSTER_SIGMA * base.pow(2).mean().sqrt() * torch.randn(
+        base.shape, generator=g, device=device)
+    del base
+    state = build_mol_topk_state(model, ids, emb, torch.bfloat16, build_fused=True)
+    seqs = generate_synthetic_sequences(num_users=4 * APPROX_BATCH, num_items=NUM_ITEMS,
+                                        max_len=200, seed=3, length_distribution="ml20m")
+    ds = SequenceDataset(seqs, cfg.data.max_sequence_length, ignore_last_n=1)
+    batch = next(ds.batches(APPROX_BATCH, cfg.train.gr_output_length + 1, shuffle=False,
+                            device=device))
+    return model, state, emb, model.encode(batch.features), batch.features.user_ids
+
+
+def check_certified(res, cert, k2_scores, exact) -> tuple:
+    """Soundness of a certified method in bf16, tie-aware. The rerank scores
+    with the model's bf16 PyTorch path, the exact reference with K2, and the
+    two differ by bf16 rounding, so certified rows are held to K2's exact
+    top-k through K2's own scores: delta = max |rerank score - K2 score| of
+    the returned items (relative to the row's largest exact score), and
+    dev = max gap between the K2 scores of the returned items and the exact
+    top-k scores, both sorted. A certified row holds dev <= 2 delta (an item
+    it misses can outscore the ones it returns only through the scorers'
+    difference). Returns (certification rate, delta, dev)."""
+    import torch
+
+    rows = cert.certified
+    scale = exact.scores.abs().amax(dim=1, keepdim=True)
+    k2_of = k2_scores.gather(1, res.ids.long() - 1)       # corpus ids are positions + 1
+    delta = ((res.scores - k2_of).abs() / scale).max().item()
+    dev_rows = ((torch.sort(k2_of, dim=1, descending=True).values - exact.scores).abs()
+                / scale).amax(dim=1)
+    dev = dev_rows[rows].max().item() if bool(rows.any()) else 0.0
+    if dev > 2 * delta + 1e-5:
+        raise AssertionError(f"a certified row misses the exact top-k: dev {dev:.3e} > "
+                             f"2 x delta {delta:.3e}")
+    return rows.float().mean().item(), delta, dev
+
+
+def approx_phase(device, name: str, smi: str) -> None:
+    """Every ported method on the 1M-item clustered corpus: ms/batch (median
+    of 3, host clock), launches, top-200 overlap with the exact ids, recall of
+    the exact top-1; certification rate and soundness of the certified ones."""
+    import torch
+
+    from rails_tpu_torch.index import top_k as tk
+    from rails_tpu_torch.index.factory import get_top_k_raw, parse_top_k_budgets
+    from rails_tpu_torch.ops.mol_scoring import extract_gating_qi_weights, fused_mol_scores_t
+
+    model, state, emb, q, uids = approx_setup(device)
+    ft, k = state.fused_tables, APPROX_K
+    t0 = time.perf_counter()
+    k2_scores = fused_mol_scores_t(
+        tk._query_comp(model, ft, q, uids), model.query_gating_partial(q), ft.item_comp_t,
+        ft.item_partial_t, extract_gating_qi_weights(model.mol), TEMPERATURE,
+    )[:, :ft.num_items]
+    exact = get_top_k_raw("MoLBruteForceTopKFused")(model, state, q, k, uids)
+    torch.cuda.synchronize()
+    print(f"[approx] ml-20m-hstu-mol bf16, clustered corpus of {ft.num_items} items (sigma "
+          f"{CLUSTER_SIGMA}; the frontier's 8M cut to fit the script's time), B={q.shape[0]}, "
+          f"k={k}; device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB; exact "
+          f"reference (K2) in {1e3 * (time.perf_counter() - t0):.1f} ms on {name} ({smi})")
+    for method in APPROX_METHODS:
+        raw = get_top_k_raw(method)
+
+        def call():
+            return raw(model, state, q, k, uids, item_embeddings=emb)
+
+        reset_launches()
+        res = call()
+        torch.cuda.synchronize()
+        counts = {key: v for key, v in launch_counts().items() if v}
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        overlap = id_overlap(res.ids, exact.ids)
+        recall = (res.ids == exact.ids[:, :1]).any(dim=1).float().mean().item()
+        line = (f"[approx] {method}: {statistics.median(times):.3f} ms/batch, top-{k} overlap "
+                f"{overlap:.4f}, recall@{k} of the exact top-1 {recall:.4f}, launches {counts}")
+        budgets = parse_top_k_budgets(method)
+        if method.startswith(("MoLCertTopK", "MoLTileTopK")):
+            if method.startswith("MoLCertTopK"):
+                cres, cert = tk.mol_certified_top_k(model, state, q, k, budgets["cand_budget"],
+                                                    uids)
+            else:
+                cres, cert = tk.mol_tile_top_k_shared(
+                    model, state, q, k, budgets["tiles_per_group"], uids,
+                    tile_budget=budgets.get("tile_budget"), certified=True)
+            rate, delta, dev = check_certified(cres, cert, k2_scores, exact)
+            line += (f"; certified {rate:.4f} of rows (median gap bound "
+                     f"{cert.gap_bound.median().item():.4f}), certified rows exact up to the "
+                     f"scorers' difference: dev {dev:.3e} <= 2 x delta {delta:.3e}")
+        print(line)
+    # Where certification sets in with these weights, and the full-coverage
+    # invariant: a budget >= X certifies every row.
+    parts = []
+    for budget in (1 << 16, 1 << 18, ft.num_items):
+        res, cert = tk.mol_certified_top_k(model, state, q, k, budget, uids)
+        rate, delta, dev = check_certified(res, cert, k2_scores, exact)
+        parts.append(f"{budget}: {rate:.4f} (dev {dev:.3e} <= 2 x delta {delta:.3e})")
+    if rate < 1.0:
+        raise AssertionError(f"MoLCertTopK with a budget >= X certified only {rate} of rows")
+    print("[approx] MoLCertTopK certified share by budget, certified rows exact up to the "
+          "scorers' difference: " + "; ".join(parts))
+
+
+def approx_e2e(device, name: str, smi: str) -> dict:
+    """The serving step with approximate retrieval: the 3 serving batches of
+    512 through get_eval_state and make_eval_step_fn, per method the kernel
+    path (launch counts, ms/batch) against the same step through the plain
+    versions, and recall_vs_exact against MoLBruteForceTopKFused. Returns the
+    launch counts of the kernel-path run of all methods."""
+    import torch
+
+    from rails_tpu_torch.data.features import Batch
+    from rails_tpu_torch.train.evaluation import (
+        get_eval_state,
+        make_eval_step_fn,
+        recall_vs_exact,
+    )
+
+    dtype_name, min_rank_agree, min_overlap = E2E_TOL[0]
+    model, exact_es, _, batches = serving_setup(torch.bfloat16, device, 3)
+    all_ids = np.arange(1, NUM_ITEMS + 1, dtype=np.int32)
+    runs = {}
+    for method in E2E_APPROX_METHODS:
+        es = get_eval_state(model, all_ids, method, table_dtype=torch.bfloat16, device=device)
+        step = make_eval_step_fn(model, method, k=120, num_objects=es.num_objects,
+                                 filter_invalid_ids=True, truncate_k_prime_to=200)
+        runs[method] = (es, step)
+        run_batches(lambda f, t, es=es, step=step: step(es.topk_state, f, t), batches)  # warm-up
+    reset_launches()
+    outs = {m: run_batches(lambda f, t, es=es, step=step: step(es.topk_state, f, t), batches)
+            for m, (es, step) in runs.items()}
+    counts = launch_counts()
+    want = {"K1": 3 * len(batches) * model.cfg.hstu.num_blocks, "K2": 0, "K8": len(batches),
+            "K9": len(batches), "K10": len(batches)}
+    if any(counts[key] != v for key, v in want.items()):
+        raise AssertionError(f"approximate serving launches {counts}, want {want}")
+    t_batches = [Batch(f, t, torch.zeros_like(t)) for f, t in batches]
+    for method, (es, step) in runs.items():
+        outs_k, ms_k = outs[method]
+        check_outputs(outs_k, batches)
+        with plain_kernels():
+            outs_p, ms_p = run_batches(lambda f, t: step(es.topk_state, f, t), batches)
+        rk, rp = (torch.cat([o[0] for o in o_]) for o_ in (outs_k, outs_p))
+        ik, ip = (torch.cat([o[1] for o in o_]) for o_ in (outs_k, outs_p))
+        rank_agree = (rk == rp).float().mean().item()
+        overlap = id_overlap(ik, ip)
+        recall = recall_vs_exact(model, exact_es, es, t_batches, k=APPROX_K)
+        print(f"[approx-e2e] {method} {dtype_name}, {len(batches)} batches of {BATCH}, "
+              f"{NUM_ITEMS} items, k=120, k'=200: kernel path {ms_k:.3f} ms/batch, plain path "
+              f"{ms_p:.3f} ms/batch on {name} ({smi}); vs plain: ranks agree on "
+              f"{rank_agree:.4f} (>= {min_rank_agree}), top-120 overlap {overlap:.4f} "
+              f"(>= {min_overlap}); recall_vs_exact (MoLBruteForceTopKFused) "
+              + ", ".join(f"{key} {v:.4f}" for key, v in recall.items()))
+        if rank_agree < min_rank_agree or overlap < min_overlap:
+            raise AssertionError(f"{method}: the kernel path disagrees with the plain path")
+    print(f"[approx-e2e] launches of the kernel-path run of the {len(runs)} methods: "
+          f"{ {key: v for key, v in counts.items() if v} }")
+    return counts
+
 
 def main() -> None:
     import torch
@@ -886,6 +1227,13 @@ def main() -> None:
     fast = train_phase(device, name, smi, "ml-20m-hstu-mol-fast", "train-fast",
                        pallas_scatter_grad=True)
     launches.update({k: fast[k] for k in ("K5 fwd", "K5 bwd", "K6")})
+    torch.cuda.empty_cache()
+    bounds = check_bounds(device)
+    with torch.inference_mode():
+        approx_phase(device, name, smi)
+    torch.cuda.empty_cache()
+    approx = approx_e2e(device, name, smi)
+    launches.update({k: approx[k] for k in ("K8", "K9", "K10")})
 
     def entry(name_, source, replaces, key, measured):
         return {"name": name_, "route": "cuda", "source": f"rails_tpu_torch/csrc/{source}",
@@ -910,6 +1258,12 @@ def main() -> None:
               "K6", k6),
         entry("adamw_leaf_update", "fused_adamw.cu", "rails_tpu/train/fused_adamw.py:87",
               "K7", k7),
+        entry("fused_mol_ub_t", "mol_bounds.cu", "rails_tpu/ops/pallas/mol_scoring.py:427",
+              "K8", bounds["K8"]),
+        entry("fused_mol_group_block_max", "mol_bounds.cu",
+              "rails_tpu/ops/pallas/mol_scoring.py:346", "K9", bounds["K9"]),
+        entry("fused_mol_scores_tiles", "mol_scoring.cu",
+              "rails_tpu/ops/pallas/mol_scoring.py:875", "K10", bounds["K10"]),
     ]
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

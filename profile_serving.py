@@ -1,10 +1,12 @@
 """Where the time of the port's serving step goes, on one CUDA card.
 
-Run from the root of a checkout: `python3 profile_serving.py`. It builds the
-kernels, then serves `bench.py`'s protocol through `rails_tpu_torch`:
-ml-20m-hstu-mol in bf16 with seeded random weights, 26,744 items, 12
-length-sorted batches of 512 ML-20M-shaped users, each truncated to its
-64-bucket, k=120, k'=200. It prints
+Run from the root of a checkout: `python3 profile_serving.py
+[--top-k-method NAME]`. It builds the kernels, then serves `bench.py`'s
+protocol through `rails_tpu_torch`: ml-20m-hstu-mol in bf16 with seeded
+random weights, 26,744 items, 12 length-sorted batches of 512 ML-20M-shaped
+users, each truncated to its 64-bucket, k=120, k'=200, retrieving with
+`--top-k-method` (default MoLBruteForceTopKFused, the exact fused path; any
+spelling the port serves, e.g. MoLCertTopK4096). It prints
   - ms/batch and q/s on the host clock (median of 3 unprofiled sweeps);
   - the device busy share of one sweep under `torch.profiler`: the union of
     the device-side kernel and memory-op intervals over that sweep's wall time;
@@ -13,6 +15,7 @@ length-sorted batches of 512 ML-20M-shaped users, each truncated to its
 
 from __future__ import annotations
 
+import argparse
 import statistics
 import subprocess
 import time
@@ -37,6 +40,10 @@ def union_us(intervals) -> float:
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--top-k-method", default="MoLBruteForceTopKFused")
+    args = parser.parse_args()
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -52,15 +59,17 @@ def main() -> None:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
     _build.load_library()
-    model, es, step, batches = chip_smoke.serving_setup(torch.bfloat16, device, N_BATCHES)
+    model, es, step, batches = chip_smoke.serving_setup(torch.bfloat16, device, N_BATCHES,
+                                                        args.top_k_method)
 
     def serve(f, t):
-        return step(es.topk_state, f, t)
+        return step(es.topk_state, f, t, es.item_embeddings)
 
     chip_smoke.run_batches(serve, batches)                              # warm-up
     ms = statistics.median(chip_smoke.run_batches(serve, batches)[1] for _ in range(3))
     lens = [f.ids.shape[1] for f, _ in batches]
-    print(f"[serve] bf16 ml-20m-hstu-mol, {len(batches)} batches of {chip_smoke.BATCH} "
+    print(f"[serve] bf16 ml-20m-hstu-mol, {args.top_k_method}, {len(batches)} batches of "
+          f"{chip_smoke.BATCH} "
           f"(n={lens}): {ms:.3f} ms/batch = {chip_smoke.BATCH / ms * 1e3:.1f} q/s on {smi}")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

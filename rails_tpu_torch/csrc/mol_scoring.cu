@@ -1,8 +1,15 @@
-// Fused Mixture-of-Logits corpus scoring (K2), hand-written for Hopper (sm_90a).
+// Fused Mixture-of-Logits corpus scoring (K2) and tile scoring (K10), hand-written
+// for Hopper (sm_90a).
 //
-// Replaces the Pallas kernel `fused_mol_scores_t` in
+// K2 replaces the Pallas kernel `fused_mol_scores_t` in
 // rails_tpu/ops/pallas/mol_scoring.py (body `_kernel`), without its
-// emit_blockmax and int8 options. For every (query b, item x):
+// emit_blockmax and int8 options. K10 replaces `fused_mol_scores_tiles`: the
+// same kernel, whose corpus blocks read their 256-item tile from a list of
+// tile ids on the device (8 blocks of 32 items per tile), writing output
+// column s*256 + j for corpus column tile_ids[s]*256 + j. Sharing the code
+// makes K10's columns bit-equal to K2's columns of the same tiles. An
+// out-of-range tile id fills its output columns with NaN and reads nothing.
+// For every (query b, item x):
 //   logits[l = n*P_X + m] = <q[b, n], item[x, m]> / T
 //   qi   = W2^T silu(W1^T logits + b1) + b2          (gating qi MLP, L -> H -> L)
 //   gi   = qp[b] * ip[x] + qi;  gw = silu(gi)       ("glu_silu" combination)
@@ -33,6 +40,8 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTileX = 32;            // items per block, one per lane
 constexpr int kQueriesPerBlock = 32;  // each warp scores kQueriesPerBlock / kWarps queries
+constexpr int kTileCols = 256;        // K10's corpus tile
+constexpr int kBlocksPerTile = kTileCols / kTileX;
 
 template <typename T, int PQ, int PX>
 size_t smem_bytes(int dP, int Hd) {
@@ -48,7 +57,8 @@ mol_scores_kernel(const T* __restrict__ q, const float* __restrict__ qp,
                   const T* __restrict__ items, const T* __restrict__ ip,
                   const float* __restrict__ w1t, const float* __restrict__ b1,
                   const float* __restrict__ w2, const float* __restrict__ b2,
-                  float* __restrict__ out, int B, int Xp, int dP, int Hd, float inv_t) {
+                  float* __restrict__ out, const int* __restrict__ tile_ids, int B, int Xp,
+                  int Xo, int dP, int Hd, float inv_t) {
   constexpr int L = PQ * PX;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* w1s = reinterpret_cast<float*>(smem_raw);  // [Hd][L]  W1 transposed
@@ -59,7 +69,22 @@ mol_scores_kernel(const T* __restrict__ q, const float* __restrict__ qp,
   T* its = reinterpret_cast<T*>(qs + kWarps * PQ * dP);  // [PX * dP][kTileX]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int x0 = blockIdx.x * kTileX, x = x0 + lane;
+  // K2 (tile_ids == nullptr): corpus block blockIdx.x, written in place.
+  // K10: corpus tile tile_ids[blockIdx.x / 8], written at output block blockIdx.x.
+  int x0 = blockIdx.x * kTileX;
+  const int xo = blockIdx.x * kTileX + lane;
+  if (tile_ids != nullptr) {
+    const int t = tile_ids[blockIdx.x / kBlocksPerTile];
+    if (t < 0 || t >= Xp / kTileCols) {  // block-uniform
+      for (int e = tid; e < kQueriesPerBlock * kTileX; e += kThreads) {
+        const int b = blockIdx.y * kQueriesPerBlock + e / kTileX;
+        if (b < B) out[static_cast<int64_t>(b) * Xo + blockIdx.x * kTileX + e % kTileX] = NAN;
+      }
+      return;
+    }
+    x0 = t * kTileCols + (blockIdx.x % kBlocksPerTile) * kTileX;
+  }
+  const int x = x0 + lane;
   for (int e = tid; e < Hd * L; e += kThreads) {
     w1s[e] = w1t[e];
     w2s[e] = w2[e];
@@ -128,35 +153,57 @@ mol_scores_kernel(const T* __restrict__ q, const float* __restrict__ qp,
       s1 = fmaf(e, lg[l], s1);
       s0 += e;
     }
-    out[static_cast<int64_t>(b) * Xp + x] = s1 / s0;
+    out[static_cast<int64_t>(b) * Xo + xo] = s1 / s0;
     __syncwarp();
   }
 }
 
+// nt < 0: K2 over all Xp columns; nt >= 0: K10 over the nt tiles of tile_ids.
 template <typename T, int PQ, int PX>
 cudaError_t launch(const void* q, const float* qp, const void* items, const void* ip,
                    const float* w1t, const float* b1, const float* w2, const float* b2,
-                   float* out, int B, int Xp, int dP, int Hd, float inv_t, cudaStream_t stream) {
-  if (Xp % kTileX != 0) return cudaErrorInvalidValue;
+                   float* out, const int* tile_ids, int nt, int B, int Xp, int dP, int Hd,
+                   float inv_t, cudaStream_t stream) {
+  if (Xp % kTileX != 0 || (nt >= 0 && Xp % kTileCols != 0)) return cudaErrorInvalidValue;
+  const int xo = nt < 0 ? Xp : nt * kTileCols;
+  if (xo == 0) return cudaSuccess;
   const size_t smem = smem_bytes<T, PQ, PX>(dP, Hd);
   cudaError_t err = allow_smem(mol_scores_kernel<T, PQ, PX>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(Xp / kTileX, (B + kQueriesPerBlock - 1) / kQueriesPerBlock);
+  const dim3 grid(xo / kTileX, (B + kQueriesPerBlock - 1) / kQueriesPerBlock);
   mol_scores_kernel<T, PQ, PX><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), qp, static_cast<const T*>(items), static_cast<const T*>(ip), w1t,
-      b1, w2, b2, out, B, Xp, dP, Hd, inv_t);
+      b1, w2, b2, out, nt < 0 ? nullptr : tile_ids, B, Xp, xo, dP, Hd, inv_t);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(int pq, int px, const void* q, const float* qp, const void* items,
                      const void* ip, const float* w1t, const float* b1, const float* w2,
-                     const float* b2, float* out, int B, int Xp, int dP, int Hd, float inv_t,
-                     cudaStream_t s) {
+                     const float* b2, float* out, const int* tile_ids, int nt, int B, int Xp,
+                     int dP, int Hd, float inv_t, cudaStream_t s) {
   if (pq == 8 && px == 4)
-    return launch<T, 8, 4>(q, qp, items, ip, w1t, b1, w2, b2, out, B, Xp, dP, Hd, inv_t, s);
+    return launch<T, 8, 4>(q, qp, items, ip, w1t, b1, w2, b2, out, tile_ids, nt, B, Xp, dP, Hd,
+                           inv_t, s);
   if (pq == 4 && px == 2)
-    return launch<T, 4, 2>(q, qp, items, ip, w1t, b1, w2, b2, out, B, Xp, dP, Hd, inv_t, s);
+    return launch<T, 4, 2>(q, qp, items, ip, w1t, b1, w2, b2, out, tile_ids, nt, B, Xp, dP, Hd,
+                           inv_t, s);
+  return cudaErrorInvalidValue;
+}
+
+int scores(int dtype, int pq, int px, const void* q, const float* qp, const void* items,
+           const void* ip, const float* w1t, const float* b1, const float* w2, const float* b2,
+           float* out, const int* tile_ids, int nt, int B, int Xp, int dP, int Hd, float inv_t,
+           void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    return dispatch<__nv_bfloat16>(pq, px, q, qp, items, ip, w1t, b1, w2, b2, out, tile_ids, nt,
+                                   B, Xp, dP, Hd, inv_t, s);
+  }
+  if (dtype == 0) {
+    return dispatch<float>(pq, px, q, qp, items, ip, w1t, b1, w2, b2, out, tile_ids, nt, B, Xp,
+                           dP, Hd, inv_t, s);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -170,16 +217,20 @@ extern "C" int rails_mol_scores(int dtype, int pq, int px, const void* q, const 
                                 const void* items, const void* ip, const float* w1t,
                                 const float* b1, const float* w2, const float* b2, float* out,
                                 int B, int Xp, int dP, int Hd, float inv_t, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    return rails::dispatch<__nv_bfloat16>(pq, px, q, qp, items, ip, w1t, b1, w2, b2, out, B, Xp,
-                                          dP, Hd, inv_t, s);
-  }
-  if (dtype == 0) {
-    return rails::dispatch<float>(pq, px, q, qp, items, ip, w1t, b1, w2, b2, out, B, Xp, dP, Hd,
-                                  inv_t, s);
-  }
-  return cudaErrorInvalidValue;
+  return rails::scores(dtype, pq, px, q, qp, items, ip, w1t, b1, w2, b2, out, nullptr, -1, B, Xp,
+                       dP, Hd, inv_t, stream);
+}
+
+// K10: as rails_mol_scores over the nt tiles listed in tile_ids (nt,) int32 on
+// the device; Xp a multiple of 256; out (B, nt * 256) f32.
+extern "C" int rails_mol_scores_tiles(int dtype, int pq, int px, const void* q, const float* qp,
+                                      const int* tile_ids, const void* items, const void* ip,
+                                      const float* w1t, const float* b1, const float* w2,
+                                      const float* b2, float* out, int B, int Xp, int nt, int dP,
+                                      int Hd, float inv_t, void* stream) {
+  if (nt < 0) return cudaErrorInvalidValue;
+  return rails::scores(dtype, pq, px, q, qp, items, ip, w1t, b1, w2, b2, out, tile_ids, nt, B,
+                       Xp, dP, Hd, inv_t, stream);
 }
 
 extern "C" size_t rails_mol_scores_smem_bytes(int dtype, int pq, int px, int dP, int Hd) {

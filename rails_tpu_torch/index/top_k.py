@@ -1,34 +1,59 @@
-"""Exact MoL top-k over a corpus.
+"""Exact and approximate MoL top-k over a corpus.
 
-Counterpart of the exact part of `rails_tpu/index/top_k.py`: `NEG_PAD` and
+Counterpart of `rails_tpu/index/top_k.py`: `NEG_DUP`, `NEG_PAD` and
 `_mask_pad_rows` (:39-61), `TopKResult`, `MoLTopKState` and
-`build_mol_topk_state` (:107-208), `mol_brute_force_top_k` (:633-649) and
-`mol_brute_force_top_k_fused` (:698-737).
+`build_mol_topk_state` (:107-208), the exact methods `mol_brute_force_top_k`
+(:633-649), `mol_brute_force_top_k_fused` (:698-737) and
+`mol_brute_force_top_k_fused_approx` (:740-763), and approximate retrieval:
+the certificates and `mol_certified_top_k` (:766-884, K8), `mol_tile_top_k`
+(:887-994, K9) and `mol_tile_top_k_shared` (:997-1142, K9 + K10),
+`mips_brute_force_top_k` (:1145-1158), the candidate gather and
+`dedup_rerank_top_k` (:1182-1431), and Naive, Avg and Comb (:1438-1741).
 
 The selection is `torch.topk`, exact at every corpus width, where the JAX
-package uses `lax.top_k` (chunked below 262,144 items). Above that width the
-JAX package switches to `hierarchical_top_k` fed by the fused scorer's
-per-tile maxima; that pair is not ported yet (ROADMAP.md, Queue 1:
-hierarchical_top_k, K2 options). Ties may resolve to other indices than
-`lax.top_k`'s lowest-index rule.
+package uses `lax.top_k` (chunked below 262,144 items) and, above that width,
+`hierarchical_top_k` fed by the fused scorer's per-tile maxima; that pair is
+not ported yet (ROADMAP.md, Queue 1: K2 options). Ties may resolve to other
+indices than `lax.top_k`'s lowest-index rule.
+
+Not ported, because they work around XLA rather than state the algorithm:
+the streamed column gather with its optimization barriers (`top_k.py:1238-
+1302`; indexing a contiguous table copies only the gathered columns) and the
+static unrolling of the Naive corpus walk (the chunking stays: it bounds
+memory). IVF (`MoLIVFTopK`) is the next slice (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from rails_tpu_torch.ops.mol_scoring import (
+    BLOCK_X,
     FusedCorpusTables,
     extract_gating_qi_weights,
+    fused_mol_group_block_max,
     fused_mol_scores_t,
+    fused_mol_scores_tiles,
+    fused_mol_ub_t,
     prepare_fused_tables,
 )
 from rails_tpu_torch.similarity.mol import MoLItemTables
 
-# Item id 0 is the padding id; rows carrying it score this before any select.
+# Duplicate candidates score NEG_DUP; item id 0 is the padding id, and rows
+# carrying it score NEG_PAD before any select, so pads rank below duplicates.
+NEG_DUP = -32767.0
 NEG_PAD = -1.0e30
+# Naive candidate generation walks corpora above this size in chunks of it.
+_NAIVE_CORPUS_CHUNK = 131_072
+# Candidates per rerank step of the certified and per-query tile methods.
+_RERANK_CHUNK = 8192
+# Relative certificate margin per table dtype (`top_k.py:794-803`): the bound
+# and the rerank sum in other orders, so `ub <= kth` must absorb a few ULPs of
+# the table dtype; other dtypes still differ by summation order.
+_CERT_REL_MARGIN = {torch.int8: 2.0 ** -6, torch.bfloat16: 2.0 ** -7}
+_CERT_DEFAULT_REL_MARGIN = 2.0 ** -20
 
 
 def _mask_pad_rows(scores: torch.Tensor, item_ids: torch.Tensor) -> torch.Tensor:
@@ -41,12 +66,27 @@ class TopKResult(NamedTuple):
 
 
 class MoLTopKState(NamedTuple):
-    """Device-resident corpus state of the exact MoL top-k. (The JAX state's
-    `avg_component` and `ivf` serve approximate retrieval, not ported.)"""
+    """Device-resident corpus state shared by every MoL top-k method. A
+    `fused_only` state has an empty standard component table; the JAX
+    state's `ivf` belongs to IVF, not ported."""
 
     item_ids: torch.Tensor            # (X,) int32
     item_tables: MoLItemTables        # components (X, P_X, d_P) + gating (X, L)
+    avg_component: torch.Tensor       # (X, d_P): mean over P_X components
     fused_tables: Optional[FusedCorpusTables] = None
+
+
+class TopKCertificate(NamedTuple):
+    """Per-query bound of an approximate pass (`top_k.py:766-785`):
+    `ub_unexamined` bounds the exact score of every item the method did not
+    score; `certified` (ub + margin <= kth_score) proves the returned top-k
+    exact, and `gap_bound` bounds how far the true k-th score can sit above
+    the returned one."""
+
+    certified: torch.Tensor       # (B,) bool
+    ub_unexamined: torch.Tensor   # (B,)
+    kth_score: torch.Tensor       # (B,)
+    gap_bound: torch.Tensor       # (B,)
 
 
 def build_mol_topk_state(
@@ -55,20 +95,48 @@ def build_mol_topk_state(
     item_embeddings: torch.Tensor,
     table_dtype: torch.dtype = torch.bfloat16,
     build_fused: bool = False,
+    fused_only: bool = False,
 ) -> MoLTopKState:
     """Precompute the item-side tables of a corpus (X, D), in `table_dtype`;
-    `build_fused` adds the kernel-layout tables of the fused scorer."""
+    `build_fused` adds the kernel-layout tables, and `fused_only` keeps only
+    those (plus the avg table): every method still runs, gathering its
+    candidates from the kernel layout."""
+    if fused_only and not build_fused:
+        raise ValueError("fused_only requires build_fused=True")
     tables = model.build_item_tables(item_embeddings)
-    comp = tables.component_embeddings.to(table_dtype)
+    comp = tables.component_embeddings
     gating = tables.gating_partial.to(table_dtype)
-    fused = None
-    if build_fused:
-        fused = prepare_fused_tables(comp, gating)
+    fused = prepare_fused_tables(comp.to(table_dtype), gating) if build_fused else None
+    if fused_only:
+        item_tables = MoLItemTables(
+            component_embeddings=comp.new_zeros((0,) + tuple(comp.shape[1:]), dtype=table_dtype),
+            gating_partial=None,
+        )
+    else:
+        item_tables = MoLItemTables(component_embeddings=comp.to(table_dtype),
+                                    gating_partial=gating)
     return MoLTopKState(
         item_ids=item_ids.to(torch.int32),
-        item_tables=MoLItemTables(component_embeddings=comp, gating_partial=gating),
+        item_tables=item_tables,
+        avg_component=comp.mean(dim=1).to(table_dtype),
         fused_tables=fused,
     )
+
+
+def _temperature(model) -> float:
+    return float(model.cfg.mol.temperature)
+
+
+def _fused(state: MoLTopKState, name: str) -> FusedCorpusTables:
+    if state.fused_tables is None:
+        raise ValueError(f"{name} reads the fused kernel-layout tables: "
+                         "build_mol_topk_state(..., build_fused=True) is required")
+    return state.fused_tables
+
+
+def _query_comp(model, ft: FusedCorpusTables, query_embeddings, user_ids) -> torch.Tensor:
+    """(B, P_Q, d_P) query components in the table dtype, as the kernels take them."""
+    return model.query_components(query_embeddings, user_ids).to(ft.item_comp_t.dtype).contiguous()
 
 
 def mol_brute_force_top_k(
@@ -77,6 +145,8 @@ def mol_brute_force_top_k(
 ) -> TopKResult:
     """Exact MoL over the whole corpus through plain PyTorch scoring
     (`MoLBruteForceTopK`)."""
+    if state.item_tables.component_embeddings.shape[0] == 0:
+        raise ValueError("the state was built fused_only; use MoLBruteForceTopKFused")
     scores = model.score_precomputed(query_embeddings, state.item_tables, user_ids)
     scores = _mask_pad_rows(scores, state.item_ids)
     top_scores, top_idx = torch.topk(scores, k, dim=1)
@@ -89,15 +159,395 @@ def mol_brute_force_top_k_fused(
 ) -> TopKResult:
     """Exact MoL over the whole corpus through the fused scorer (K2):
     the (B, X, L) logits and the gating activations never reach memory."""
-    ft = state.fused_tables
-    if ft is None:
-        raise ValueError("build_mol_topk_state(..., build_fused=True) is required")
-    q_comp = model.query_components(query_embeddings, user_ids)
+    ft = _fused(state, "MoLBruteForceTopKFused")
     scores = fused_mol_scores_t(
-        q_comp.to(ft.item_comp_t.dtype).contiguous(), model.query_gating_partial(query_embeddings),
-        ft.item_comp_t, ft.item_partial_t, extract_gating_qi_weights(model.mol),
-        float(model.cfg.mol.temperature),
+        _query_comp(model, ft, query_embeddings, user_ids),
+        model.query_gating_partial(query_embeddings), ft.item_comp_t, ft.item_partial_t,
+        extract_gating_qi_weights(model.mol), _temperature(model),
     )
     scores = _mask_pad_rows(scores[:, : ft.num_items], state.item_ids)
     top_scores, top_idx = torch.topk(scores, k, dim=1)
     return TopKResult(scores=top_scores, ids=state.item_ids[top_idx])
+
+
+def mol_brute_force_top_k_fused_approx(
+    model, state: MoLTopKState, query_embeddings: torch.Tensor, k: int,
+    user_ids: Optional[torch.Tensor] = None,
+) -> TopKResult:
+    """`MoLBruteForceTopKFusedApprox`: the fused scores (K2) and an exact
+    `torch.topk`. The JAX method selects with `lax.approx_max_k` on a TPU and
+    with exact `lax.top_k` elsewhere (`top_k.py:757-758`); torch has no
+    approximate select, so the port always takes the exact one."""
+    return mol_brute_force_top_k_fused(model, state, query_embeddings, k, user_ids)
+
+
+def _table_dtype(state: MoLTopKState) -> torch.dtype:
+    if state.fused_tables is not None:
+        return state.fused_tables.item_comp_t.dtype
+    return state.item_tables.component_embeddings.dtype
+
+
+def _certificate(ub_unexamined: torch.Tensor, kth: torch.Tensor,
+                 table_dtype: torch.dtype) -> TopKCertificate:
+    rel = _CERT_REL_MARGIN.get(table_dtype, _CERT_DEFAULT_REL_MARGIN)
+    margin = rel * torch.maximum(ub_unexamined.abs(), kth.abs())
+    return TopKCertificate(
+        certified=ub_unexamined + margin <= kth,
+        ub_unexamined=ub_unexamined,
+        kth_score=kth,
+        gap_bound=torch.clamp(ub_unexamined - kth, min=0.0),
+    )
+
+
+def _gathered_candidate_tables(
+    state: MoLTopKState, idx: torch.Tensor,      # (B, K) corpus positions
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-query candidate tables ((B, K, P_X, d_P), (B, K, L)) from the
+    standard tables, or from the kernel layout when the state is `fused_only`
+    (`_direct_fused_column_gather`; the port's `item_partial_t` rows are
+    already in the n-major logit order)."""
+    it = state.item_tables
+    if it.component_embeddings.shape[0] > 0:
+        return it.component_embeddings[idx], it.gating_partial[idx]
+    ft = _fused(state, "the candidate gather of a fused_only state")
+    return ft.item_comp_t[:, :, idx].permute(2, 3, 0, 1), ft.item_partial_t[:, idx].permute(1, 2, 0)
+
+
+def _rerank_scores(model, state, query_embeddings, idx, is_first, user_ids) -> torch.Tensor:
+    """(B, C) exact MoL scores of the candidates, NEG_DUP where not first."""
+    comp, gp = _gathered_candidate_tables(state, idx)
+    scores = model.score_gathered(query_embeddings, comp, gp, user_ids)
+    scores = torch.where(is_first, scores, NEG_DUP)
+    return _mask_pad_rows(scores, state.item_ids[idx])
+
+
+def dedup_rerank_top_k(
+    model, state: MoLTopKState,
+    query_embeddings: torch.Tensor,
+    candidate_indices: torch.Tensor,           # (B, C) corpus positions
+    k: int,
+    user_ids: Optional[torch.Tensor],
+    cand_chunk: Optional[int] = None,
+    is_first: Optional[torch.Tensor] = None,   # (B, C) bool
+) -> TopKResult:
+    """Sort the candidates, mask duplicates, exact-MoL rerank, final top-k
+    (`top_k.py:1305-1431`). With `cand_chunk`, pools larger than it rerank
+    chunk by chunk (per-chunk top-k, then a merge: exact), so the gathered
+    tables peak at (B, cand_chunk, P_X, d_P). Given `is_first`, the caller
+    has deduplicated (one True per distinct real candidate) and the sort is
+    skipped."""
+    if is_first is None:
+        sorted_idx = torch.sort(candidate_indices, dim=1).values
+        is_first = torch.ones_like(sorted_idx, dtype=torch.bool)
+        is_first[:, 1:] = sorted_idx[:, 1:] != sorted_idx[:, :-1]
+    else:
+        sorted_idx = candidate_indices
+    b, c = sorted_idx.shape
+    if cand_chunk is None or c <= cand_chunk:
+        scores = _rerank_scores(model, state, query_embeddings, sorted_idx, is_first, user_ids)
+        top_scores, pos = torch.topk(scores, min(k, c), dim=1)
+        return TopKResult(scores=top_scores, ids=state.item_ids[sorted_idx.gather(1, pos)])
+    # Pad with duplicates of the last candidate, flagged not-first.
+    nc = -(-c // cand_chunk)
+    pad = nc * cand_chunk - c
+    if pad:
+        sorted_idx = torch.cat([sorted_idx, sorted_idx[:, -1:].expand(b, pad)], dim=1)
+        is_first = torch.cat([is_first, is_first.new_zeros(b, pad)], dim=1)
+    kk = min(k, cand_chunk)
+    vals, idxs = [], []
+    for s in range(0, nc * cand_chunk, cand_chunk):
+        idx_c = sorted_idx[:, s : s + cand_chunk]
+        scores = _rerank_scores(model, state, query_embeddings, idx_c,
+                                is_first[:, s : s + cand_chunk], user_ids)
+        v, pos = torch.topk(scores, kk, dim=1)
+        vals.append(v)
+        idxs.append(idx_c.gather(1, pos))
+    v_all, i_all = torch.cat(vals, dim=1), torch.cat(idxs, dim=1)
+    top_scores, pos = torch.topk(v_all, min(k, nc * kk), dim=1)
+    return TopKResult(scores=top_scores, ids=state.item_ids[i_all.gather(1, pos)])
+
+
+def mol_certified_top_k(
+    model, state: MoLTopKState,
+    query_embeddings: torch.Tensor,
+    k: int,
+    cand_budget: int,
+    user_ids: Optional[torch.Tensor] = None,
+) -> Tuple[TopKResult, TopKCertificate]:
+    """Upper-bound prefilter (K8) + exact rerank with a per-query
+    certificate (`top_k.py:821-884`). score(q, x) <= UB(q, x) = max_l
+    logit_l; the top-`cand_budget` items by UB are reranked, and the
+    (cand_budget+1)-th UB bounds every unexamined item, so UB spill <= the
+    returned k-th score proves the result exact."""
+    ft = _fused(state, "mol_certified_top_k")
+    q_comp = _query_comp(model, ft, query_embeddings, user_ids)
+    ub = fused_mol_ub_t(q_comp, ft.item_comp_t, _temperature(model))[:, : ft.num_items]
+    ub = _mask_pad_rows(ub, state.item_ids[: ub.shape[1]])
+    b, x = ub.shape
+    c = min(cand_budget, x)
+    if c >= x:   # full coverage: nothing unexamined
+        cand = torch.arange(x, device=ub.device).expand(b, x)
+        spill = torch.full((b,), NEG_PAD, dtype=torch.float32, device=ub.device)
+    else:
+        ub_top, cand = torch.topk(ub, c + 1, dim=1)
+        spill = ub_top[:, c]
+        cand = cand[:, :c]
+    res = dedup_rerank_top_k(model, state, query_embeddings, cand, k, user_ids,
+                             cand_chunk=_RERANK_CHUNK)
+    return res, _certificate(spill, res.scores[:, -1], _table_dtype(state))
+
+
+def _group_block_max(model, state, query_embeddings, user_ids, name):
+    ft = _fused(state, name)
+    q_comp = _query_comp(model, ft, query_embeddings, user_ids)
+    return ft, q_comp, fused_mol_group_block_max(q_comp, ft.item_comp_t, _temperature(model))
+
+
+def mol_tile_top_k(
+    model, state: MoLTopKState,
+    query_embeddings: torch.Tensor,
+    k: int,
+    tiles_per_group: int,
+    user_ids: Optional[torch.Tensor] = None,
+    certified: bool = False,
+):
+    """Tile-granular Naive (`top_k.py:887-994`): per (query, group) the top
+    `tiles_per_group` 256-item tiles by block-max logit (K9), the union's
+    items exact-reranked per query. Certificate: an item in no selected tile
+    has score <= max_l t_l, t_l group l's tiles_per_group-th block max."""
+    _, _, gmax = _group_block_max(model, state, query_embeddings, user_ids, "mol_tile_top_k")
+    b, l, nb = gmax.shape
+    kk = min(tiles_per_group, nb)
+    tv, tidx = torch.topk(gmax.reshape(b * l, nb), kk, dim=1)
+    tidx = tidx.reshape(b, l * kk)
+    if kk >= nb:
+        bound = torch.full((b,), NEG_PAD, dtype=torch.float32, device=gmax.device)
+    else:
+        bound = tv.reshape(b, l, kk)[:, :, -1].amax(dim=1)
+    # Tile-level dedup, then whole tiles expand to item columns.
+    tiles_sorted = torch.sort(tidx, dim=1).values
+    tile_first = torch.ones_like(tiles_sorted, dtype=torch.bool)
+    tile_first[:, 1:] = tiles_sorted[:, 1:] != tiles_sorted[:, :-1]
+    offsets = torch.arange(BLOCK_X, device=gmax.device)
+    cand = (tiles_sorted[:, :, None] * BLOCK_X + offsets).reshape(b, -1)
+    is_first = tile_first[:, :, None].expand(b, l * kk, BLOCK_X).reshape(b, -1)
+    x_ids = state.item_ids.shape[0]
+    if nb * BLOCK_X > x_ids:   # kernel pad columns: clamp the gather, mask them
+        is_first = is_first & (cand < x_ids)
+        cand = cand.clamp(max=x_ids - 1)
+    res = dedup_rerank_top_k(model, state, query_embeddings, cand, k, user_ids,
+                             cand_chunk=_RERANK_CHUNK, is_first=is_first)
+    if not certified:
+        return res
+    return res, _certificate(bound, res.scores[:, -1], _table_dtype(state))
+
+
+def mol_tile_top_k_shared(
+    model, state: MoLTopKState,
+    query_embeddings: torch.Tensor,
+    k: int,
+    tiles_per_group: int,
+    user_ids: Optional[torch.Tensor] = None,
+    tile_budget: Optional[int] = None,
+    certified: bool = False,
+):
+    """Batch-shared tile retrieval (`top_k.py:997-1142`): every (query,
+    group) nominates its top `tiles_per_group` tiles by block-max logit (K9);
+    the nominations, deduplicated, form one tile list of static size
+    t = min(tile_budget or n_all, n_all, n_tiles) for the whole batch (a
+    smaller budget keeps the distinct tiles of highest block max); K10 scores
+    those tiles in place for every query; one top-k per query. Certificate:
+    an item in no selected tile scores <= the largest block max of the
+    unselected tiles."""
+    ft, q_comp, gmax = _group_block_max(model, state, query_embeddings, user_ids,
+                                        "mol_tile_top_k_shared")
+    b, l, nb = gmax.shape
+    kk = min(tiles_per_group, nb)
+    tv, tidx = torch.topk(gmax.reshape(b * l, nb), kk, dim=1)
+    all_tiles, all_vals = tidx.reshape(-1), tv.reshape(-1)
+    sorted_tiles = torch.sort(all_tiles).values
+    first = torch.ones_like(sorted_tiles, dtype=torch.bool)
+    first[1:] = sorted_tiles[1:] != sorted_tiles[:-1]
+    n_all = sorted_tiles.shape[0]
+    # Never more slots than distinct corpus tiles: nominations repeat.
+    t = min(tile_budget or n_all, n_all, nb)
+    if t < n_all:
+        seg = torch.full((nb,), -torch.inf, device=gmax.device).scatter_reduce(
+            0, all_tiles, all_vals, "amax")
+        key = torch.where(first, seg[sorted_tiles], NEG_PAD)
+        pos = torch.topk(key, t).indices
+        sel_tiles, sel_first = sorted_tiles[pos], first[pos]
+    else:
+        sel_tiles, sel_first = sorted_tiles, first
+    if certified:
+        covered = torch.zeros(nb + 1, dtype=torch.bool, device=gmax.device)
+        covered[torch.where(sel_first, sel_tiles, nb)] = True
+        bound = torch.where(covered[None, None, :nb], NEG_PAD, gmax).amax(dim=(1, 2))
+    scores = fused_mol_scores_tiles(
+        q_comp, model.query_gating_partial(query_embeddings), sel_tiles.to(torch.int32),
+        ft.item_comp_t, ft.item_partial_t, extract_gating_qi_weights(model.mol),
+        _temperature(model),
+    )                                          # (B, t * BLOCK_X)
+    cols = (sel_tiles[:, None] * BLOCK_X + torch.arange(BLOCK_X, device=gmax.device)).reshape(-1)
+    valid = sel_first.repeat_interleave(BLOCK_X) & (cols < ft.num_items)
+    ids_flat = state.item_ids[cols.clamp(max=ft.num_items - 1)]
+    scores = _mask_pad_rows(torch.where(valid[None, :], scores, NEG_DUP), ids_flat)
+    top_scores, pos = torch.topk(scores, min(k, scores.shape[1]), dim=1)
+    res = TopKResult(scores=top_scores, ids=ids_flat[pos])
+    if not certified:
+        return res
+    return res, _certificate(bound, res.scores[:, -1], _table_dtype(state))
+
+
+def mips_brute_force_top_k(
+    item_ids: torch.Tensor,                   # (X,)
+    item_embeddings: torch.Tensor,            # (X, D)
+    query_embeddings: torch.Tensor,           # (B, D)
+    k: int,
+) -> TopKResult:
+    """`MIPSBruteForceTopK`: dot-product scores in f32, exact top-k."""
+    scores = query_embeddings.float() @ item_embeddings.float().T
+    scores = _mask_pad_rows(scores, item_ids)
+    top_scores, top_idx = torch.topk(scores, k, dim=1)
+    return TopKResult(scores=top_scores, ids=item_ids[top_idx])
+
+
+def _chunk_component_sims(state: MoLTopKState, q_comp: torch.Tensor, start: int,
+                          size: int) -> torch.Tensor:
+    """(B, P_Q, P_X, size) f32 component dot products of one corpus chunk,
+    from whichever layout the state holds."""
+    it = state.item_tables.component_embeddings
+    if it.shape[0] > 0:
+        return torch.einsum("bnd,cmd->bnmc", q_comp.float(), it[start : start + size].float())
+    sl = state.fused_tables.item_comp_t[:, :, start : start + size]
+    return torch.einsum("bnd,mdc->bnmc", q_comp.float(), sl.float())
+
+
+def _naive_candidates(
+    model, state: MoLTopKState,
+    query_embeddings: torch.Tensor,
+    k_per_group: int,
+    user_ids: Optional[torch.Tensor],
+    corpus_chunk: int = _NAIVE_CORPUS_CHUNK,
+    return_bound: bool = False,
+):
+    """Per-(query-group, item-group) dot-product top-k_per_group union
+    (`top_k.py:1498-1625`): (B, P_Q * P_X * k_per_group) corpus positions.
+    Corpora above `corpus_chunk` are walked in chunks (the last start clamped
+    back, its re-covered rows masked), with per-chunk top-k and an exact
+    merge. `return_bound` adds max_l t_l / T, t_l group l's k-th value: an
+    unseen item's logits are all below it."""
+    q_comp = model.query_components(query_embeddings, user_ids)
+    it = state.item_tables.component_embeddings
+    has_std = it.shape[0] > 0
+    if not has_std:
+        _fused(state, "Naive candidate generation on a fused_only state")
+    table_dtype = it.dtype if has_std else state.fused_tables.item_comp_t.dtype
+    q_comp = q_comp.to(table_dtype)
+    b = q_comp.shape[0]
+    x = state.item_ids.shape[0]
+    full_cover = k_per_group >= x
+    k_per_group = min(k_per_group, x)
+
+    def _maybe(cands, thresholds):
+        if not return_bound:
+            return cands
+        if full_cover:
+            return cands, torch.full((b,), NEG_PAD, dtype=torch.float32, device=cands.device)
+        return cands, thresholds.amax(dim=1) * (1.0 / _temperature(model))
+
+    if x <= corpus_chunk:
+        sims = _chunk_component_sims(state, q_comp, 0, x)            # (B, P_Q, P_X, X)
+        sims = _mask_pad_rows(sims, state.item_ids)
+        v, idx = torch.topk(sims, k_per_group, dim=-1)
+        return _maybe(idx.reshape(b, -1), v[..., -1].reshape(b, -1))
+    num_chunks = -(-x // corpus_chunk)
+    kk = min(k_per_group, corpus_chunk)
+    per_v, per_i = [], []
+    for ci in range(num_chunks):
+        start_nom = ci * corpus_chunk
+        start = min(start_nom, x - corpus_chunk)
+        col_ok = state.item_ids[start : start + corpus_chunk] != 0
+        if start != start_nom:   # clamped tail: mask the rows a chunk already covered
+            col_ok = col_ok & (torch.arange(corpus_chunk, device=col_ok.device)
+                               >= start_nom - start)
+        sims = _chunk_component_sims(state, q_comp, start, corpus_chunk)
+        sims = torch.where(col_ok, sims, NEG_PAD)
+        v, i = torch.topk(sims, kk, dim=-1)                          # (B, P_Q, P_X, kk)
+        per_v.append(v.reshape(b, -1, kk))
+        per_i.append((i + start).reshape(b, -1, kk))
+    vv, pos = torch.topk(torch.cat(per_v, dim=2), k_per_group, dim=2)
+    idx = torch.cat(per_i, dim=2).gather(2, pos)
+    return _maybe(idx.reshape(b, -1), vv[:, :, -1])
+
+
+def mol_naive_top_k(
+    model, state: MoLTopKState,
+    query_embeddings: torch.Tensor,
+    k: int,
+    k_per_group: int,
+    user_ids: Optional[torch.Tensor] = None,
+    corpus_chunk: int = _NAIVE_CORPUS_CHUNK,
+    certified: bool = False,
+):
+    """`MoLNaiveTopK` (`top_k.py:1628-1652`): the per-group union, one
+    rerank; `certified` adds the per-group-threshold certificate."""
+    out = _naive_candidates(model, state, query_embeddings, k_per_group, user_ids,
+                            corpus_chunk=corpus_chunk, return_bound=certified)
+    cands, bound = out if certified else (out, None)
+    res = dedup_rerank_top_k(model, state, query_embeddings, cands, k, user_ids)
+    if not certified:
+        return res
+    return res, _certificate(bound, res.scores[:, -1], _table_dtype(state))
+
+
+def _avg_candidates(model, state, query_embeddings, avg_top_k, user_ids) -> torch.Tensor:
+    """Top-`avg_top_k` corpus positions by the avg-component dot product."""
+    q_comp = model.query_components(query_embeddings, user_ids)
+    q_avg = q_comp.sum(dim=1)             # sum, not mean (`mol_top_k.py:352`)
+    avg = state.avg_component
+    scores = q_avg.to(avg.dtype).float() @ avg.float().T
+    scores = _mask_pad_rows(scores, state.item_ids)
+    return torch.topk(scores, avg_top_k, dim=1).indices
+
+
+def mol_avg_top_k(
+    model, state: MoLTopKState,
+    query_embeddings: torch.Tensor,
+    k: int,
+    avg_top_k: int,
+    user_ids: Optional[torch.Tensor] = None,
+) -> TopKResult:
+    """`MoLAvgTopK` (`top_k.py:1655-1698`): avg-embedding MIPS prefilter,
+    exact rerank; the budget clamps to the corpus size."""
+    avg_top_k = min(avg_top_k, state.item_ids.shape[0])
+    cand = _avg_candidates(model, state, query_embeddings, avg_top_k, user_ids)
+    comp, gp = _gathered_candidate_tables(state, cand)
+    scores = model.score_gathered(query_embeddings, comp, gp, user_ids)
+    scores = _mask_pad_rows(scores, state.item_ids[cand])
+    top_scores, pos = torch.topk(scores, min(k, avg_top_k), dim=1)
+    return TopKResult(scores=top_scores, ids=state.item_ids[cand.gather(1, pos)])
+
+
+def mol_comb_top_k(
+    model, state: MoLTopKState,
+    query_embeddings: torch.Tensor,
+    k: int,
+    avg_top_k: int,
+    k_per_group: int,
+    user_ids: Optional[torch.Tensor] = None,
+    corpus_chunk: int = _NAIVE_CORPUS_CHUNK,
+    certified: bool = False,
+):
+    """`MoLCombTopK` (`top_k.py:1701-1741`): Naive and Avg candidates, one
+    rerank; the Naive bound still covers every item outside the union."""
+    avg_top_k = min(avg_top_k, state.item_ids.shape[0])
+    out = _naive_candidates(model, state, query_embeddings, k_per_group, user_ids,
+                            corpus_chunk=corpus_chunk, return_bound=certified)
+    naive, bound = out if certified else (out, None)
+    cands = torch.cat(
+        [naive, _avg_candidates(model, state, query_embeddings, avg_top_k, user_ids)], dim=1)
+    res = dedup_rerank_top_k(model, state, query_embeddings, cands, k, user_ids)
+    if not certified:
+        return res
+    return res, _certificate(bound, res.scores[:, -1], _table_dtype(state))

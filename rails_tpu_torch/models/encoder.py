@@ -6,9 +6,9 @@ model_type="HSTU", similarity_type="MoL", the positional preprocessor and the
 local embedding table (its gather's backward through K6 with
 `train.pallas_scatter_grad`, `encoder.py:58`): `encode_sequence`/`encode` (:167-202, eval and
 training), `get_item_embeddings`, `similarity_fn` (:255-267),
-`build_item_tables`, `query_components`, `query_gating_partial` and
-`score_precomputed`. Parameter names follow the
-flax tree (`item_emb.embedding`, `input_preproc.pos_emb`,
+`build_item_tables`, `query_components`, `query_gating_partial`,
+`score_precomputed` and `score_gathered` (:284-294). Parameter names follow
+the flax tree (`item_emb.embedding`, `input_preproc.pos_emb`,
 `hstu.block_3.uvqk`, `mol.gating_qi.hidden.weight`, ...), so
 `compat.from_jax.state_dict_from_jax_params` loads a JAX model strictly.
 """
@@ -134,6 +134,13 @@ class SequentialRecommender(nn.Module):
         user_ids: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         return self.mol.score_precomputed(query_embeddings, item_tables, user_ids)
+
+    def score_gathered(
+        self, query_embeddings: torch.Tensor, component_embeddings: torch.Tensor,
+        gating_partial: torch.Tensor, user_ids: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        return self.mol.score_gathered(query_embeddings, component_embeddings, gating_partial,
+                                       user_ids)
 
     def query_components(
         self, query_embeddings: torch.Tensor, user_ids: Optional[torch.Tensor] = None

@@ -4,9 +4,10 @@ Counterpart of `rails_tpu/similarity/mol.py`: query components with the uid
 hash components, their L2 aux loss and uid dropout (:167-224), item
 components (:226), the gating partials (:244-258), `build_item_tables`
 (:260), the `glu_silu` combination with softmax dropout (:271-320), the
-training `__call__` (:326-367), `load_balancing_mi_loss` (:42-70) and
-`score_precomputed` (:404-448). Parameter names follow the flax tree
-(`query_proj.glu.w`, `uid_embeddings_0.embedding`, `gating_qi.hidden`, ...).
+training `__call__` (:326-367), `load_balancing_mi_loss` (:42-70),
+`score_gathered` (:369-402) and `score_precomputed` (:404-448). Parameter
+names follow the flax tree (`query_proj.glu.w`, `uid_embeddings_0.embedding`,
+`gating_qi.hidden`, ...).
 Every dropout draws from the `torch.Generator` the caller passes, on the
 tensors' device; the component products stay `torch.einsum`, as the JAX
 package leaves them to XLA.
@@ -259,3 +260,21 @@ class MoLSimilarity(nn.Module):
         logits = logits.reshape(b, x, c.num_logits) / c.temperature
         query_partial = self.query_gating_partial(query_embeddings)[:, None, :]
         return self._combine(logits, query_partial, item_tables.gating_partial[None])[0]
+
+    def score_gathered(
+        self,
+        query_embeddings: torch.Tensor,                 # (B, D)
+        component_embeddings: torch.Tensor,             # (B, K, P_X, d_P)
+        gating_partial: torch.Tensor,                   # (B, K, L)
+        user_ids: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """(B, K) scores of each query against its own gathered candidate
+        tables: the rerank of approximate retrieval."""
+        c = self.cfg
+        dt = self.compute_dtype
+        q_comp = self.query_components(query_embeddings, user_ids).to(dt)
+        logits = torch.einsum("bnd,bxmd->bxnm", q_comp, component_embeddings.to(dt))
+        b, k = component_embeddings.shape[:2]
+        logits = logits.reshape(b, k, c.num_logits) / c.temperature
+        query_partial = self.query_gating_partial(query_embeddings)[:, None, :]
+        return self._combine(logits, query_partial, gating_partial)[0]

@@ -1,16 +1,16 @@
-"""Serving/eval step: encode -> exact MoL top-k' -> seen-id filter -> ranks.
+"""Serving/eval step: encode -> MoL top-k' -> seen-id filter -> ranks.
 
 Counterpart of `rails_tpu/train/evaluation.py`: `EvalState` and
-`get_eval_state` (:64-138, without IVF and MIPS), `ranks_from_top_k`
-(:141-152), `metrics_from_ranks` (:155-172) and `make_eval_step_fn`
-(:192-237). The step is a plain Python function under `torch.inference_mode`:
-no jit and no CUDA graph yet.
+`get_eval_state` (:64-138, without IVF), `ranks_from_top_k` (:141-152),
+`metrics_from_ranks` (:155-172), `make_eval_step_fn` and `make_eval_step`
+(:192-262) and `recall_vs_exact` (:531-574). The step is a plain Python
+function under `torch.inference_mode`: no jit and no CUDA graph yet.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -20,6 +20,7 @@ from rails_tpu_torch.data.features import SequentialFeatures
 from rails_tpu_torch.index.candidate_index import k_prime_for, select_top_k_with_invalid_filter
 from rails_tpu_torch.index.factory import get_top_k_raw
 from rails_tpu_torch.index.top_k import MoLTopKState, build_mol_topk_state
+from rails_tpu_torch.similarity.mol import MoLItemTables
 
 NDCG_KS = (1, 5, 10, 50, 100, 200)
 HR_KS = (1, 5, 10, 50, 100, 200, 500, 1000)
@@ -27,11 +28,19 @@ HR_KS = (1, 5, 10, 50, 100, 200, 500, 1000)
 
 @dataclass
 class EvalState:
-    """The corpus's top-k state (ids and item tables)."""
+    """The corpus's top-k state (ids and item tables) and its embeddings,
+    which `MIPSBruteForceTopK` scores."""
 
     topk_state: MoLTopKState
     num_objects: int
     top_k_method: str = "MoLBruteForceTopK"
+    item_embeddings: Optional[torch.Tensor] = None   # (X, D)
+
+
+def _reads_fused_tables(top_k_method: str) -> bool:
+    # The certified UB and the tile block-max prefilters read the kernel
+    # layout too (`evaluation.py:108-114`).
+    return "Fused" in top_k_method or top_k_method.startswith(("MoLCertTopK", "MoLTileTopK"))
 
 
 @torch.inference_mode()
@@ -42,18 +51,26 @@ def get_eval_state(
     table_dtype: torch.dtype = torch.bfloat16,
     device: Optional[Union[str, torch.device]] = None,
 ) -> EvalState:
-    """Embed the whole corpus and build the exact top-k state on `device`
-    (the card unless the caller passes "cpu").
+    """Embed the whole corpus and build the method's top-k state on `device`
+    (the card unless the caller passes "cpu"): the kernel-layout tables for
+    the fused, certified and tile methods, no MoL tables for MIPS.
     (The JAX package's `item_l2_norm` serves the dot-product configs, which
     are not ported.)"""
     get_top_k_raw(top_k_method)   # refuse unported methods before any work
     ids = torch.as_tensor(np.asarray(all_item_ids, dtype=np.int32),
                           device=resolve_device(device))
-    state = build_mol_topk_state(
-        model, ids, model.get_item_embeddings(ids), table_dtype=table_dtype,
-        build_fused="Fused" in top_k_method,
-    )
-    return EvalState(topk_state=state, num_objects=int(ids.shape[0]), top_k_method=top_k_method)
+    emb = model.get_item_embeddings(ids)
+    if top_k_method == "MIPSBruteForceTopK":
+        state = MoLTopKState(
+            item_ids=ids,
+            item_tables=MoLItemTables(emb.new_zeros((0, 1, 1), dtype=table_dtype), None),
+            avg_component=emb.new_zeros((0, 1), dtype=table_dtype),
+        )
+    else:
+        state = build_mol_topk_state(model, ids, emb, table_dtype=table_dtype,
+                                     build_fused=_reads_fused_tables(top_k_method))
+    return EvalState(topk_state=state, num_objects=int(ids.shape[0]),
+                     top_k_method=top_k_method, item_embeddings=emb)
 
 
 def ranks_from_top_k(top_k_ids: torch.Tensor, target_ids: torch.Tensor) -> torch.Tensor:
@@ -88,22 +105,65 @@ def make_eval_step_fn(
     truncate_k_prime_to: Optional[int] = None,
 ) -> Callable:
     """The (encode -> top-k' -> filter -> rank) step, with the corpus state as
-    an argument: fn(topk_state, features, target_ids) -> (ranks (B,),
-    top-k ids (B, k), scores (B, k)). The JAX step's `params` and
-    `item_embeddings` arguments go: the weights live in `model`, and only the
-    MIPS method, not ported, reads the embeddings."""
+    an argument: fn(topk_state, features, target_ids, item_embeddings=None)
+    -> (ranks (B,), top-k ids (B, k), scores (B, k)). The JAX step's `params`
+    argument goes: the weights live in `model`. Only MIPS reads
+    `item_embeddings`. An approximate method whose pool is smaller than k
+    returns its pool; ranks beyond it count as misses."""
     raw = get_top_k_raw(top_k_method)
 
     @torch.inference_mode()
     def step(topk_state: MoLTopKState, features: SequentialFeatures,
-             target_ids: torch.Tensor):
+             target_ids: torch.Tensor, item_embeddings: Optional[torch.Tensor] = None):
         queries = model.encode(features)
         n0 = features.ids.shape[1] if filter_invalid_ids else 0
         k_prime = k_prime_for(k, num_objects, n0, truncate_k_prime_to)
-        res = raw(model, topk_state, queries, k_prime, features.user_ids)
+        res = raw(model, topk_state, queries, k_prime, features.user_ids,
+                  item_embeddings=item_embeddings)
         res = select_top_k_with_invalid_filter(
             res, features.ids if filter_invalid_ids else None, min(k, res.ids.shape[1])
         )
         return ranks_from_top_k(res.ids, target_ids), res.ids, res.scores
 
     return step
+
+
+def make_eval_step(
+    model,
+    eval_state: EvalState,
+    k: int,
+    filter_invalid_ids: bool = True,
+    truncate_k_prime_to: Optional[int] = None,
+) -> Callable:
+    """`make_eval_step_fn` bound to one eval state: fn(features, target_ids)."""
+    step_fn = make_eval_step_fn(model, eval_state.top_k_method, k, eval_state.num_objects,
+                                filter_invalid_ids, truncate_k_prime_to)
+
+    def step(features: SequentialFeatures, target_ids: torch.Tensor):
+        return step_fn(eval_state.topk_state, features, target_ids, eval_state.item_embeddings)
+
+    return step
+
+
+def recall_vs_exact(
+    model,
+    exact_state: EvalState,
+    approx_state: EvalState,
+    batches,
+    k: int = 200,
+    filter_invalid_ids: bool = True,
+) -> Dict[str, float]:
+    """Recall of an approximate method against the exact top-1: the exact
+    method's top-1 id becomes the target, and the approximate method's HR@k
+    against it is its recall (`eval_from_checkpoint.py:427-449`). `batches`
+    yields objects with `.features` and `.target_ids`. (The JAX version's
+    step overrides and `num_examples` serve its sharded steps.)"""
+    exact_step = make_eval_step(model, exact_state, 1, filter_invalid_ids=filter_invalid_ids)
+    approx_step = make_eval_step(model, approx_state, k, filter_invalid_ids=filter_invalid_ids)
+    hits: Dict[int, List[torch.Tensor]] = {kk: [] for kk in HR_KS if kk <= k}
+    for batch in batches:
+        _, exact_ids, _ = exact_step(batch.features, batch.target_ids)
+        ranks, _, _ = approx_step(batch.features, exact_ids[:, 0])
+        for kk in hits:
+            hits[kk].append((ranks <= kk).cpu())
+    return {f"recall@{kk}": torch.cat(v).float().mean().item() for kk, v in hits.items()}

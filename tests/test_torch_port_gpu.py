@@ -114,6 +114,75 @@ def test_k2_kernel_matches_plain(cuda, shape, dtype):
         torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
 
 
+BOUND_SHAPES = [(7, 100, 4, 2, 16), (33, 256, 8, 4, 128), (40, 1000, 8, 4, 64), (1, 513, 4, 2, 32)]
+BOUND_IDS = ["synthetic_small", "one_tile_ml20m", "odd", "one_query"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", BOUND_SHAPES, ids=BOUND_IDS)
+def test_k8_k9_match_plain(cuda, shape, dtype):
+    """K8 and K9 against their plain versions at B not a multiple of 32 and a
+    corpus of one tile; both bound K2's scores (K8's logits are K2's)."""
+    b, x, p_q, p_x, d_p = shape
+    args, _ = _k2_args(b, x, p_q, p_x, d_p, 32, dtype, cuda)
+    q, items = args[0], args[2]
+    for fn, ref in ((mol_scoring.fused_mol_ub_t, mol_scoring.fused_mol_ub_t_reference),
+                    (mol_scoring.fused_mol_group_block_max,
+                     mol_scoring.fused_mol_group_block_max_reference)):
+        before = fn.launches
+        got = fn(q, items, 0.05)
+        assert fn.launches == before + 1
+        torch.testing.assert_close(got, ref(q, items, 0.05), rtol=1e-4, atol=1e-3)
+    scores = mol_scoring.fused_mol_scores_t(*args)
+    ub = mol_scoring.fused_mol_ub_t(q, items, 0.05)
+    gmax = mol_scoring.fused_mol_group_block_max(q, items, 0.05).amax(dim=1)
+    tile_of = torch.arange(items.shape[2], device=cuda) // 256
+    assert bool((ub + 2.0**-20 * ub.abs() >= scores).all())
+    assert bool((gmax[:, tile_of] >= ub).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(7, 600, 4, 2, 16, 32), (40, 1000, 8, 4, 128, 128)],
+                         ids=["synthetic_small", "ml20m"])
+def test_k10_equals_k2_columns(cuda, shape, dtype):
+    """Duplicate and last-tile ids: K10's columns are K2's bit for bit; an
+    out-of-range id gives NaN columns; the plain version agrees."""
+    args, x = _k2_args(*shape, dtype, cuda)
+    q, qp, items, ip, w, t = args
+    nb = items.shape[2] // 256
+    tiles = torch.tensor([nb - 1, 0, nb - 1, 1, 0], dtype=torch.int32, device=cuda)
+    before = mol_scoring.fused_mol_scores_tiles.launches
+    got = mol_scoring.fused_mol_scores_tiles(q, qp, tiles, items, ip, w, t)
+    assert mol_scoring.fused_mol_scores_tiles.launches == before + 1
+    cols = (tiles.long()[:, None] * 256 + torch.arange(256, device=cuda)).reshape(-1)
+    assert torch.equal(got, mol_scoring.fused_mol_scores_t(*args)[:, cols])
+    want = mol_scoring.fused_mol_scores_tiles_reference(q, qp, tiles, items, ip, w, t)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+    else:
+        assert (got.argmax(dim=1) == want.argmax(dim=1)).float().mean().item() >= 0.99
+    bad = mol_scoring.fused_mol_scores_tiles(
+        q, qp, torch.tensor([1, nb, -1], dtype=torch.int32, device=cuda), items, ip, w, t)
+    assert not bool(bad[:, :256].isnan().any()) and bool(bad[:, 256:].isnan().all())
+
+
+def test_bound_and_tile_kernels_refuse_what_they_have_no_instance_for(cuda):
+    args, _ = _k2_args(4, 300, 8, 4, 32, 32, torch.float32, cuda)
+    q, qp, items, ip, w, t = args
+    tiles = torch.zeros(1, dtype=torch.int32, device=cuda)
+    int8 = items.to(torch.int8)
+    for call in (lambda: mol_scoring.fused_mol_ub_t(q, int8, t),
+                 lambda: mol_scoring.fused_mol_group_block_max(q, int8, t),
+                 lambda: mol_scoring.fused_mol_scores_tiles(q, qp, tiles, int8, ip, w, t)):
+        with pytest.raises(NotImplementedError, match="int8"):
+            call()
+    q2 = q[:, :2].contiguous()       # (P_Q, P_X) = (2, 4): no instance
+    for call in (lambda: mol_scoring.fused_mol_ub_t(q2, items, t),
+                 lambda: mol_scoring.fused_mol_group_block_max(q2, items, t)):
+        with pytest.raises(NotImplementedError, match="no kernel instance"):
+            call()
+
+
 def test_wrappers_reject_bad_cuda_inputs(cuda):
     args, kw = _k1_args(2, 16, 32, 2, 16, 16, 16, torch.float32, cuda)
     with pytest.raises(ValueError, match="uvqk"):
@@ -123,7 +192,9 @@ def test_wrappers_reject_bad_cuda_inputs(cuda):
         mol_scoring.fused_mol_scores_t(k2[0][:, :6].contiguous(), *k2[1:])
 
 
-@pytest.mark.parametrize("method", ["MoLBruteForceTopK", "MoLBruteForceTopKFused"])
+@pytest.mark.parametrize("method", ["MoLBruteForceTopK", "MoLBruteForceTopKFused",
+                                    "MoLCertTopK100", "MoLTileTopK1", "MoLTileTopK2B1",
+                                    "MoLCombTopK8_50", "MIPSBruteForceTopK"])
 def test_slice_on_cuda_matches_cpu(cuda, method):
     """One tiny model, f32: the eval step on the card (kernels) and on the
     CPU (plain versions) return the same ranks and top-k ids."""
@@ -140,7 +211,8 @@ def test_slice_on_cuda_matches_cpu(cuda, method):
         step = make_eval_step_fn(model, method, k=40, num_objects=es.num_objects,
                                  truncate_k_prime_to=60)
         batch = next(ds.batches(32, cfg.train.gr_output_length + 1, shuffle=False, device=device))
-        out[str(device)] = [t.cpu() for t in step(es.topk_state, batch.features, batch.target_ids)]
+        out[str(device)] = [t.cpu() for t in step(es.topk_state, batch.features, batch.target_ids,
+                                                   es.item_embeddings)]
     (r_cpu, i_cpu, s_cpu), (r_gpu, i_gpu, s_gpu) = out["cpu"], out[str(cuda)]
     torch.testing.assert_close(s_gpu, s_cpu, rtol=1e-4, atol=1e-4)
     assert (r_gpu == r_cpu).float().mean().item() >= 0.99

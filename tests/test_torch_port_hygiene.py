@@ -187,6 +187,6 @@ def test_unported_training_options_raise(change):
 def test_unported_top_k_methods_raise():
     from rails_tpu_torch.index.factory import get_top_k_raw
 
-    for method in ("MoLBruteForceTopKFusedInt8", "MoLNaiveTopK10", "MIPSBruteForceTopK"):
+    for method in ("MoLBruteForceTopKFusedInt8", "MoLIVFTopK8", "MoLCertTopK512Int8"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             get_top_k_raw(method)
