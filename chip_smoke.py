@@ -48,6 +48,24 @@ Phases (one line each, any failure raises and exits non-zero):
      make_eval_step_fn with MoLCertTopK4096, MoLTileTopK8 and
      MoLCombTopK50_4096, vs the same steps through the plain versions, and
      recall_vs_exact against MoLBruteForceTopKFused.
+int8 serving tables and the exact select at scale:
+ 16. K2 on int8 tables (quantize_fused_tables of phase 4's bf16 tables) at
+     B=512 over 26,744 items, and K8, K9, K10 on int8 tables at B=32 over
+     1,048,576 items (in phase 13's lines), each vs its plain version; K10
+     bit-equal to K2's columns, K8 >= K2 on every pair.
+ 17. K2-bmax: K2's emit_blockmax at B=32 over 1,048,575 items with mid-corpus
+     valid=0 columns and the pad tail: the scores bit-equal to K2's with those
+     columns at -1e30, the (B, X/256) maxima exact, vs the plain version.
+ 18. int8: the at-scale path at 4,194,304 items (the frontier's 4M size) of
+     phase 14's clustered corpus, built bf16 and int8 by
+     build_fused_state_chunked_on_device, with streamed_exact_top_k as the
+     oracle: the exact bf16 path (K2-bmax + hierarchical_top_k) held to the
+     oracle tie-aware and bit-equal to torch.topk of the same scores, and the
+     Int8 spellings, Naive on the int8 fused_only state, their ms/batch,
+     launches, overlap with the oracle and recall of its top-1; the certified
+     int8 rows sound.
+ 19. int8-e2e: the serving step with MoLBruteForceTopKFusedInt8 and
+     MoLCertTopK4096Int8, vs the plain path, recall_vs_exact and launches.
 The line before the last is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script fails before printing
 any result.
@@ -105,6 +123,14 @@ APPROX_METHODS = (
     "MoLCombTopK50_4096", "MIPSBruteForceTopK",
 )
 E2E_APPROX_METHODS = ("MoLCertTopK4096", "MoLTileTopK8", "MoLCombTopK50_4096")
+INT8_ITEMS = 1 << 22           # the frontier's 4M corpus
+INT8_METHODS = ("MoLBruteForceTopKFusedInt8", "MoLBruteForceTopKFusedInt8Approx",
+                "MoLCertTopK4096Int8", "MoLTileTopK8B512Int8", "MoLNaiveTopK50")
+E2E_INT8_METHODS = ("MoLBruteForceTopKFusedInt8", "MoLCertTopK4096Int8")
+BMAX_INVALID = (5, 77, 300_000, 777_777)   # mid-corpus valid=0 columns of [K2-bmax]
+# f32 rounding of K2's softmax mixture: K8's bound may sit this far (relative)
+# below K2's score when the mixture weights all fall on the largest logit.
+F32_MARGIN = 2.0 ** -20
 
 
 def ptxas_summary(log: str) -> str:
@@ -120,7 +146,11 @@ def ptxas_summary(log: str) -> str:
                              r"adamw_kernel|mol_loss_fwd_kernel|mol_loss_bwd_kernel|"
                              r"reduce_slots_kernel|scatter_add_rows_kernel|mol_ub_kernel|"
                              r"mol_group_block_max_kernel)", mangled)
-            args = ["bf16" if "bfloat16" in mangled else "f32"] + re.findall(r"Li(\d+)E", mangled)
+            # An int8 instance's first template argument is `signed char` ("Ia");
+            # its bf16 query type puts "bfloat16" in the name too.
+            dtype = ("int8" if re.search(r"kernelIaL", mangled) else
+                     "bf16" if "bfloat16" in mangled else "f32")
+            args = [dtype] + re.findall(r"Li(\d+)E", mangled)
             label = f"{name.group(1) if name else mangled}<{','.join(args)}>"
             spilled = "?"
         spill = re.search(r"(\d+) bytes spill stores", line)
@@ -254,35 +284,61 @@ def topk_overlap(a, b, k: int) -> float:
     return id_overlap(a.topk(k, dim=1).indices, b.topk(k, dim=1).indices)
 
 
-def check_k2(b: int, x: int, dtype, device) -> dict:
+def bf16_contract(got, ref, what: str) -> str:
+    """K2's contract where its MLP rounds to bf16: the top-1 on >= 99% of
+    rows and top-200 overlap >= 0.994 with the plain version."""
+    top1 = (got.argmax(dim=1) == ref.argmax(dim=1)).float().mean().item()
+    overlap = topk_overlap(got, ref, 200)
+    verdict = f"top-1 agree {top1:.4f} (>= 0.99), top-200 overlap {overlap:.4f} (>= 0.994)"
+    if top1 < 0.99 or overlap < 0.994:
+        raise AssertionError(f"{what} outside K2's bf16 contract: {verdict}")
+    return verdict
+
+
+def quantized(args: tuple) -> tuple:
+    """K2's operands (q, qp, items, ip, w, T) with the tables quantized to
+    int8 by the port's quantize_fused_tables, the scales appended."""
+    from rails_tpu_torch.ops.mol_scoring import FusedCorpusTables, quantize_fused_tables
+
+    q, qp, items, ip, w, t = args
+    ft = quantize_fused_tables(FusedCorpusTables(items, ip, items.shape[-1]))
+    return (q, qp, ft.item_comp_t, ft.item_partial_t, w, t, ft.comp_scale, ft.partial_scale)
+
+
+def table_bytes(args: tuple) -> int:
+    """Bytes of K2's tables (and an int8 table's scales) and its queries."""
+    q, items, ip = args[0], args[2], args[3]
+    scales = sum(4 * a.numel() for a in args[6:8])
+    return (q.numel() * q.element_size() + items.numel() * items.element_size()
+            + ip.numel() * ip.element_size() + scales)
+
+
+def check_k2(b: int, x: int, kind: str, device) -> dict:
+    """K2 at B x X over f32, bf16 or int8 tables (bf16 ones quantized)."""
     import torch
 
     from rails_tpu_torch.ops.mol_scoring import fused_mol_scores_t, fused_mol_scores_t_reference
 
-    args, x = k2_inputs(b, x, dtype, device)
+    args, x = k2_inputs(b, x, torch.float32 if kind == "float32" else torch.bfloat16, device)
+    if kind == "int8":
+        args = quantized(args)
     got = fused_mol_scores_t(*args)[:, :x]
     ref = fused_mol_scores_t_reference(*args)[:, :x]
     err = (got - ref).abs().max().item()
-    if dtype == torch.float32:
+    if kind == "float32":
         rtol, atol = K2_TOL_F32
         torch.testing.assert_close(got, ref, rtol=rtol, atol=atol)
         verdict = f"rtol {rtol}, atol {atol}"
     else:
-        top1 = (got.argmax(dim=1) == ref.argmax(dim=1)).float().mean().item()
-        overlap = topk_overlap(got, ref, 200)
-        verdict = f"top-1 agree {top1:.4f} (>= 0.99), top-200 overlap {overlap:.4f} (>= 0.994)"
-        if top1 < 0.99 or overlap < 0.994:
-            raise AssertionError(f"K2 bf16 outside its contract: {verdict}")
+        verdict = bf16_contract(got, ref, f"K2 {kind}")
     ms = cuda_ms(lambda: fused_mol_scores_t(*args))
     plain_ms = cuda_ms(lambda: fused_mol_scores_t_reference(*args), iters=3, warmup=1)
     l, hd = P_Q * P_X, 128
-    es = args[0].element_size()
     flops = b * x * (2 * l * D_P + 4 * l * hd)          # logits + the qi MLP per pair
-    nbytes = (es * (b * P_Q * D_P + x * (P_X * D_P + l)) + 4 * (b * l + 2 * l * hd + hd + l)
-              + 4 * b * args[2].shape[-1])
-    dt = str(dtype)[6:]
-    bd = bound(flops, nbytes, dt)
-    print(f"[K2] {dt} tables B={b} X={x} MoL {P_Q}x{P_X}x{D_P}: max|err| "
+    nbytes = table_bytes(args) + 4 * (b * l + 2 * l * hd + hd + l) + 4 * b * args[2].shape[-1]
+    # The int8 path's products and MLP run in bf16, so its peak is bf16's.
+    bd = bound(flops, nbytes, "float32" if kind == "float32" else "bfloat16")
+    print(f"[K2] {kind} tables B={b} X={x} MoL {P_Q}x{P_X}x{D_P}: max|err| "
           f"{err:.3e} ({verdict}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
           f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": None}
@@ -344,8 +400,10 @@ def run_batches(fn, batches) -> tuple:
     return outs, 1e3 * (time.perf_counter() - t0) / len(batches)
 
 
-def kernel_wrappers() -> dict:
-    """Every kernel wrapper of the port by its summary name."""
+def kernel_counters() -> dict:
+    """Every launch counter of the port by its summary name: (wrapper,
+    attribute). A variant's launches (int8 tables, K2's blockmax) count on its
+    own attribute as well as on `launches`."""
     from rails_tpu_torch.ops import (
         hash_dropout,
         hstu_block,
@@ -356,7 +414,7 @@ def kernel_wrappers() -> dict:
     )
     from rails_tpu_torch.train import fused_adamw
 
-    return {
+    wrappers = {
         "K1": hstu_block.fused_hstu_block, "K2": mol_scoring.fused_mol_scores_t,
         "K3": hash_dropout.hash_keep_mask,
         "K4 fwd": hstu_block_train.fused_train_block_forward,
@@ -367,15 +425,20 @@ def kernel_wrappers() -> dict:
         "K8": mol_scoring.fused_mol_ub_t, "K9": mol_scoring.fused_mol_group_block_max,
         "K10": mol_scoring.fused_mol_scores_tiles,
     }
+    counters = {name: (fn, "launches") for name, fn in wrappers.items()}
+    counters["K2-bmax"] = (mol_scoring.fused_mol_scores_t, "blockmax_launches")
+    for k in ("K2", "K8", "K9", "K10"):
+        counters[f"{k}-int8"] = (wrappers[k], "int8_launches")
+    return counters
 
 
 def reset_launches() -> None:
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
+    for fn, attr in kernel_counters().values():
+        setattr(fn, attr, 0)
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in kernel_counters().items()}
 
 
 @contextlib.contextmanager
@@ -668,10 +731,9 @@ def step_launches(cfg) -> dict:
     negatives); no serving kernel."""
     blocks = cfg.hstu.num_blocks
     fused = cfg.train.shared_negatives and cfg.train.fused_mol_loss
-    return {"K1": 0, "K2": 0, "K3": blocks, "K4 fwd": blocks, "K4 bwd": blocks,
-            "K5 fwd": int(fused), "K5 bwd": int(fused),
-            "K6": 3 if cfg.train.pallas_scatter_grad else 0, "K7": 2,
-            "K8": 0, "K9": 0, "K10": 0}
+    return {**{k: 0 for k in kernel_counters()}, "K3": blocks, "K4 fwd": blocks,
+            "K4 bwd": blocks, "K5 fwd": int(fused), "K5 bwd": int(fused),
+            "K6": 3 if cfg.train.pallas_scatter_grad else 0, "K7": 2}
 
 
 def train_phase(device, name: str, smi: str, config: str = "ml-20m-hstu-mol",
@@ -896,60 +958,77 @@ def bound_inputs(b: int, x: int, dtype, device, seed: int = 8):
 
 
 def check_bounds(device) -> dict:
-    """K8, K9 and K10 at B=32 over 1,048,576 items, f32 and bf16 tables:
-    each against its plain version; K8 above K2's score everywhere up to the
-    certificate margin; K9's tile maxima above K8; K10 bit-equal to K2's
-    columns of its tiles. Returns the bf16 entries of the kernel summary."""
+    """K8, K9 and K10 at B=32 over 1,048,576 items, f32, bf16 and int8 tables
+    (the bf16 ones quantized): each against its plain version (int8 K8 and K9
+    to 1e-5 of their largest value: f32 sums of exact products); K8 above
+    K2's score everywhere, up to the certificate margin of bf16 tables and
+    the f32 margin of f32 and int8 ones; K9's tile maxima above K8; K10
+    bit-equal to K2's columns of its tiles. Returns the bf16 and int8 entries
+    of the kernel summary."""
     import torch
 
-    from rails_tpu_torch.index.top_k import _CERT_DEFAULT_REL_MARGIN, _CERT_REL_MARGIN
+    from rails_tpu_torch.index.top_k import _CERT_REL_MARGIN
     from rails_tpu_torch.ops import mol_scoring as ms
 
     b, l, hd = APPROX_BATCH, P_Q * P_X, 128
     rtol, atol = K2_TOL_F32
     out = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        dt = str(dtype)[6:]
-        args = bound_inputs(b, APPROX_ITEMS, dtype, device)
-        q, qp, items, ip, w, t = args
-        xp, es = items.shape[2], q.element_size()
+    for kind in ("float32", "bfloat16", "int8"):
+        args = bound_inputs(b, APPROX_ITEMS, torch.float32 if kind == "float32" else torch.bfloat16,
+                            device)
+        if kind == "int8":
+            args = quantized(args)
+        q, qp, items, ip, w, t = args[:6]
+        cs = args[6] if kind == "int8" else None
+        peak = "float32" if kind == "float32" else "bfloat16"
+        xp = items.shape[2]
         nb = xp // ms.BLOCK_X
         k2 = ms.fused_mol_scores_t(*args)
-        rel = _CERT_REL_MARGIN.get(dtype, _CERT_DEFAULT_REL_MARGIN)
-        table_bytes = es * (xp * P_X * D_P + b * P_Q * D_P)
+        rel = _CERT_REL_MARGIN[torch.bfloat16] if kind == "bfloat16" else F32_MARGIN
+        comp_bytes = (q.numel() * q.element_size() + items.numel() * items.element_size()
+                      + (4 * cs.numel() if cs is not None else 0))
 
-        ub = ms.fused_mol_ub_t(q, items, t)
-        ub_ref = ms.fused_mol_ub_t_reference(q, items, t)
-        torch.testing.assert_close(ub, ub_ref, rtol=rtol, atol=atol)
+        def close(got, ref, what):
+            if kind == "int8":
+                err = rel_err(got, ref)
+                if err > 1e-5:
+                    raise AssertionError(f"{what} int8 differs from its plain version by {err}")
+                return "max|err|/max|plain| <= 1e-5"
+            torch.testing.assert_close(got, ref, rtol=rtol, atol=atol)
+            return f"rtol {rtol}, atol {atol}"
+
+        ub = ms.fused_mol_ub_t(q, items, t, cs)
+        ub_ref = ms.fused_mol_ub_t_reference(q, items, t, cs)
+        verdict = close(ub, ub_ref, "K8")
         slack = (ub + rel * torch.maximum(ub.abs(), k2.abs()) - k2).min().item()
         if slack < 0:
-            raise AssertionError(f"K8 {dt}: the bound sits {-slack} below K2's score")
+            raise AssertionError(f"K8 {kind}: the bound sits {-slack} below K2's score")
         k8 = {"max_abs_err": (ub - ub_ref).abs().max().item(),
-              "ms": cuda_ms(lambda: ms.fused_mol_ub_t(q, items, t)),
-              "plain_ms": cuda_ms(lambda: ms.fused_mol_ub_t_reference(q, items, t), iters=3,
+              "ms": cuda_ms(lambda: ms.fused_mol_ub_t(q, items, t, cs)),
+              "plain_ms": cuda_ms(lambda: ms.fused_mol_ub_t_reference(q, items, t, cs), iters=3,
                                   warmup=1),
-              **bound(2 * b * xp * l * D_P, table_bytes + 4 * b * xp, dt), "library_ms": None}
-        print(f"[K8] {dt} tables B={b} X={xp} MoL {P_Q}x{P_X}x{D_P}: max|err| "
-              f"{k8['max_abs_err']:.3e} (rtol {rtol}, atol {atol}); UB + {rel:.2e} x max(|UB|, "
+              **bound(2 * b * xp * l * D_P, comp_bytes + 4 * b * xp, peak), "library_ms": None}
+        print(f"[K8] {kind} tables B={b} X={xp} MoL {P_Q}x{P_X}x{D_P}: max|err| "
+              f"{k8['max_abs_err']:.3e} ({verdict}); UB + {rel:.2e} x max(|UB|, "
               f"|score|) >= K2's score for all {b * xp} pairs (min slack {slack:.3e}); kernel "
               f"{k8['ms']:.3f} ms, plain {k8['plain_ms']:.3f} ms, bound {k8['bound_ms']:.4f} ms "
               f"({k8['bound_by']})")
 
-        gm = ms.fused_mol_group_block_max(q, items, t)
-        gm_ref = ms.fused_mol_group_block_max_reference(q, items, t)
-        torch.testing.assert_close(gm, gm_ref, rtol=rtol, atol=atol)
+        gm = ms.fused_mol_group_block_max(q, items, t, cs)
+        gm_ref = ms.fused_mol_group_block_max_reference(q, items, t, cs)
+        verdict = close(gm, gm_ref, "K9")
         tile_of = torch.arange(xp, device=device) // ms.BLOCK_X
         if not bool((gm.amax(dim=1)[:, tile_of] >= ub).all()):
-            raise AssertionError(f"K9 {dt}: a tile maximum sits below an item's bound")
+            raise AssertionError(f"K9 {kind}: a tile maximum sits below an item's bound")
         k9 = {"max_abs_err": (gm - gm_ref).abs().max().item(),
-              "ms": cuda_ms(lambda: ms.fused_mol_group_block_max(q, items, t)),
-              "plain_ms": cuda_ms(lambda: ms.fused_mol_group_block_max_reference(q, items, t),
+              "ms": cuda_ms(lambda: ms.fused_mol_group_block_max(q, items, t, cs)),
+              "plain_ms": cuda_ms(lambda: ms.fused_mol_group_block_max_reference(q, items, t, cs),
                                   iters=3, warmup=1),
-              **bound(2 * b * xp * l * D_P, table_bytes + 4 * b * l * nb, dt),
+              **bound(2 * b * xp * l * D_P, comp_bytes + 4 * b * l * nb, peak),
               "library_ms": None}
-        print(f"[K9] {dt} tables B={b} X={xp} ({nb} tiles of {ms.BLOCK_X}): max|err| "
-              f"{k9['max_abs_err']:.3e} (rtol {rtol}, atol {atol}); every tile maximum >= the "
-              f"K8 bound of its items; kernel {k9['ms']:.3f} ms, plain {k9['plain_ms']:.3f} ms, "
+        print(f"[K9] {kind} tables B={b} X={xp} ({nb} tiles of {ms.BLOCK_X}): max|err| "
+              f"{k9['max_abs_err']:.3e} ({verdict}); every tile maximum >= the K8 bound of its "
+              f"items; kernel {k9['ms']:.3f} ms, plain {k9['plain_ms']:.3f} ms, "
               f"bound {k9['bound_ms']:.4f} ms ({k9['bound_by']})")
 
         gen = torch.Generator(device=device).manual_seed(10)
@@ -957,51 +1036,94 @@ def check_bounds(device) -> dict:
                               dtype=torch.int32)
         tiles[0], tiles[2] = nb - 1, tiles[1]          # the last tile and a duplicate
         distinct = int(torch.unique(tiles).numel())
-        sc = ms.fused_mol_scores_tiles(q, qp, tiles, items, ip, w, t)
+        tile_args = (q, qp, tiles, *args[2:])
+        sc = ms.fused_mol_scores_tiles(*tile_args)
         cols = (tiles.long()[:, None] * ms.BLOCK_X
                 + torch.arange(ms.BLOCK_X, device=device)).reshape(-1)
         if not torch.equal(sc, k2[:, cols]):
-            raise AssertionError(f"K10 {dt} differs from K2's columns of the same tiles")
-        sc_ref = ms.fused_mol_scores_tiles_reference(q, qp, tiles, items, ip, w, t)
-        if dtype == torch.float32:
+            raise AssertionError(f"K10 {kind} differs from K2's columns of the same tiles")
+        sc_ref = ms.fused_mol_scores_tiles_reference(*tile_args)
+        if kind == "float32":
             torch.testing.assert_close(sc, sc_ref, rtol=rtol, atol=atol)
             verdict = f"rtol {rtol}, atol {atol}"
         else:
-            top1 = (sc.argmax(dim=1) == sc_ref.argmax(dim=1)).float().mean().item()
-            overlap = topk_overlap(sc, sc_ref, 200)
-            verdict = f"top-1 agree {top1:.4f} (>= 0.99), top-200 overlap {overlap:.4f} (>= 0.994)"
-            if top1 < 0.99 or overlap < 0.994:
-                raise AssertionError(f"K10 bf16 outside K2's contract: {verdict}")
+            verdict = bf16_contract(sc, sc_ref, f"K10 {kind}")
         cols_n = K10_TILES * ms.BLOCK_X
+        per_col = (P_X * D_P + l) * items.element_size() + (4 * (P_X + 1) if cs is not None else 0)
         k10 = {"max_abs_err": (sc - sc_ref).abs().max().item(),
-               "ms": cuda_ms(lambda: ms.fused_mol_scores_tiles(q, qp, tiles, items, ip, w, t)),
-               "plain_ms": cuda_ms(lambda: ms.fused_mol_scores_tiles_reference(
-                   q, qp, tiles, items, ip, w, t), iters=3, warmup=1),
+               "ms": cuda_ms(lambda: ms.fused_mol_scores_tiles(*tile_args)),
+               "plain_ms": cuda_ms(lambda: ms.fused_mol_scores_tiles_reference(*tile_args),
+                                   iters=3, warmup=1),
                **bound(cols_n * b * (2 * l * D_P + 4 * l * hd),
-                       es * (distinct * ms.BLOCK_X * (P_X * D_P + l) + b * P_Q * D_P)
-                       + 4 * (b * l + 2 * l * hd + hd + l + K10_TILES + b * cols_n), dt),
+                       distinct * ms.BLOCK_X * per_col + q.numel() * q.element_size()
+                       + 4 * (b * l + 2 * l * hd + hd + l + K10_TILES + b * cols_n), peak),
                "library_ms": None}
-        print(f"[K10] {dt} tables B={b} T={K10_TILES} tiles ({distinct} distinct, the last tile "
-              f"and a duplicate) of X={xp}: bit-equal to K2's columns of the same tiles; vs "
+        print(f"[K10] {kind} tables B={b} T={K10_TILES} tiles ({distinct} distinct, the last "
+              f"tile and a duplicate) of X={xp}: bit-equal to K2's columns of the same tiles; vs "
               f"plain max|err| {k10['max_abs_err']:.3e} ({verdict}); kernel {k10['ms']:.3f} ms, "
               f"plain {k10['plain_ms']:.3f} ms, bound {k10['bound_ms']:.4f} ms "
               f"({k10['bound_by']})")
-        out = {"K8": k8, "K9": k9, "K10": k10}
-        del args, q, qp, items, ip, w, k2, ub, ub_ref, gm, gm_ref, sc, sc_ref
+        if kind == "bfloat16":
+            out.update({"K8": k8, "K9": k9, "K10": k10})
+        elif kind == "int8":
+            out.update({"K8-int8": k8, "K9-int8": k9, "K10-int8": k10})
+        del args, q, qp, items, ip, w, cs, k2, ub, ub_ref, gm, gm_ref, sc, sc_ref, tile_args
         torch.cuda.empty_cache()
     return out
 
 
-def approx_setup(device):
-    """ml-20m-hstu-mol in bf16 (seeded random weights), the frontier's
-    clustered corpus emb(i) = table[(i-1) % 26,744] + 0.5 rms eps(i) over
-    APPROX_ITEMS items with its bf16 standard, fused and avg tables, and the
-    query embeddings of one batch of 32 ML-20M-shaped users."""
+def check_k2_blockmax(device) -> dict:
+    """K2's emit_blockmax at B=32 over bf16 tables of 1,048,575 items (one
+    pad column at the end), with BMAX_INVALID valid=0 in mid-corpus: the
+    scores bit-equal to K2's with those columns and the pad tail at -1e30, the
+    (B, X/256) maxima equal to theirs exactly, the plain version by K2's bf16
+    contract; kernel ms with and without the option."""
+    import torch
+
+    from rails_tpu_torch.ops import mol_scoring as ms
+
+    args = bound_inputs(APPROX_BATCH, APPROX_ITEMS - 1, torch.bfloat16, device)
+    b, xp = args[0].shape[0], args[2].shape[2]
+    valid = torch.ones(APPROX_ITEMS - 1, device=device)
+    valid[list(BMAX_INVALID)] = 0.0
+    k2 = ms.fused_mol_scores_t(*args)
+    scores, tile_max = ms.fused_mol_scores_t(*args, emit_blockmax=True, valid=valid)
+    keep = torch.zeros(xp, device=device)
+    keep[: valid.shape[0]] = valid
+    masked = torch.where(keep != 0, k2, ms.MASKED_SCORE)
+    if not torch.equal(scores, masked):
+        raise AssertionError("K2-bmax scores differ from K2's with the invalid columns masked")
+    if not torch.equal(tile_max, scores.reshape(b, xp // ms.BLOCK_X, ms.BLOCK_X).amax(dim=2)):
+        raise AssertionError("K2-bmax tile maxima differ from the maxima of its scores")
+    ref_scores, ref_max = ms.fused_mol_scores_t_reference(*args, emit_blockmax=True, valid=valid)
+    verdict = bf16_contract(scores, ref_scores, "K2-bmax")
+    if not torch.equal(ref_max, ref_scores.reshape(b, -1, ms.BLOCK_X).amax(dim=2)):
+        raise AssertionError("the plain K2-bmax maxima differ from the maxima of its scores")
+    ms_bmax = cuda_ms(lambda: ms.fused_mol_scores_t(*args, emit_blockmax=True, valid=valid))
+    ms_plain_k2 = cuda_ms(lambda: ms.fused_mol_scores_t(*args))
+    plain_ms = cuda_ms(lambda: ms.fused_mol_scores_t_reference(*args, emit_blockmax=True,
+                                                               valid=valid), iters=3, warmup=1)
+    l, hd = P_Q * P_X, 128
+    flops = b * xp * (2 * l * D_P + 4 * l * hd)
+    nbytes = (table_bytes(args) + 4 * (b * l + 2 * l * hd + hd + l) + 4 * xp
+              + 4 * b * (xp + xp // ms.BLOCK_X))
+    bd = bound(flops, nbytes, "bfloat16")
+    print(f"[K2-bmax] bf16 tables B={b} X={xp} ({valid.shape[0]} items, valid=0 at "
+          f"{list(BMAX_INVALID)} and the pad tail): scores bit-equal to K2's with them at -1e30, "
+          f"({b}, {xp // ms.BLOCK_X}) tile maxima exact; vs plain {verdict}; kernel "
+          f"{ms_bmax:.3f} ms with emit_blockmax, {ms_plain_k2:.3f} ms without; plain "
+          f"{plain_ms:.3f} ms; bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    err = (scores - ref_scores).abs().max().item()
+    return {"max_abs_err": err, "ms": ms_bmax, "plain_ms": plain_ms, **bd, "library_ms": None}
+
+
+def approx_model(device):
+    """ml-20m-hstu-mol in bf16 (seeded random weights) and the query
+    embeddings and user ids of one batch of 32 ML-20M-shaped users."""
     import torch
 
     from rails_tpu_torch.core.config import get_experiment_config
     from rails_tpu_torch.data.datasets import SequenceDataset, generate_synthetic_sequences
-    from rails_tpu_torch.index.top_k import build_mol_topk_state
     from rails_tpu_torch.models.encoder import SequentialRecommender
 
     cfg = get_experiment_config("ml-20m-hstu-mol")
@@ -1009,6 +1131,23 @@ def approx_setup(device):
                       train=cfg.train.replace(main_module_bf16=True, eval_bf16=True))
     model = SequentialRecommender(cfg, NUM_ITEMS, compute_dtype=torch.bfloat16, device=device,
                                   generator=torch.Generator().manual_seed(0))
+    seqs = generate_synthetic_sequences(num_users=4 * APPROX_BATCH, num_items=NUM_ITEMS,
+                                        max_len=200, seed=3, length_distribution="ml20m")
+    ds = SequenceDataset(seqs, cfg.data.max_sequence_length, ignore_last_n=1)
+    batch = next(ds.batches(APPROX_BATCH, cfg.train.gr_output_length + 1, shuffle=False,
+                            device=device))
+    return model, model.encode(batch.features), batch.features.user_ids
+
+
+def approx_setup(device):
+    """`approx_model`, the frontier's clustered corpus emb(i) = table[(i-1) %
+    26,744] + 0.5 rms eps(i) over APPROX_ITEMS items with its bf16 standard,
+    fused and avg tables, and the query embeddings of the batch."""
+    import torch
+
+    from rails_tpu_torch.index.top_k import build_mol_topk_state
+
+    model, q, uids = approx_model(device)
     ids = torch.arange(1, APPROX_ITEMS + 1, dtype=torch.int32, device=device)
     g = torch.Generator(device=device).manual_seed(2)
     base = model.get_item_embeddings((ids - 1) % NUM_ITEMS + 1).float()
@@ -1016,12 +1155,248 @@ def approx_setup(device):
         base.shape, generator=g, device=device)
     del base
     state = build_mol_topk_state(model, ids, emb, torch.bfloat16, build_fused=True)
-    seqs = generate_synthetic_sequences(num_users=4 * APPROX_BATCH, num_items=NUM_ITEMS,
-                                        max_len=200, seed=3, length_distribution="ml20m")
-    ds = SequenceDataset(seqs, cfg.data.max_sequence_length, ignore_last_n=1)
-    batch = next(ds.batches(APPROX_BATCH, cfg.train.gr_output_length + 1, shuffle=False,
-                            device=device))
-    return model, state, emb, model.encode(batch.features), batch.features.user_ids
+    return model, state, emb, q, uids
+
+
+def clustered_chunk_fn(model, device):
+    """The frontier's embed_chunk_fn over the clustered corpus: emb(i) =
+    table[(i-1) % 26,744] + 0.5 rms eps(i), the noise of a chunk drawn from a
+    generator seeded with the chunk's start, so that the build and the oracle
+    see the same corpus whenever they chunk alike."""
+    import torch
+
+    table = model.get_item_embeddings(torch.arange(1, NUM_ITEMS + 1, device=device)).float()
+    sigma = CLUSTER_SIGMA * table.pow(2).mean().sqrt()
+
+    def embed(start: int, ids):
+        base = model.get_item_embeddings((ids - 1) % NUM_ITEMS + 1).float()
+        g = torch.Generator(device=device).manual_seed(start)
+        return base + sigma * torch.randn(base.shape, generator=g, device=device)
+
+    return embed
+
+
+def state_gib(state) -> float:
+    """Device memory of a top-k state's tensors, GiB."""
+    import torch
+
+    def tensors(obj):
+        if isinstance(obj, torch.Tensor):
+            yield obj
+        elif isinstance(obj, tuple):
+            for o in obj:
+                yield from tensors(o)
+
+    return sum(t.numel() * t.element_size() for t in tensors(state)) / 2**30
+
+
+def check_against_oracle(model, state, res, k2_scores, oracle, q, uids) -> tuple:
+    """The exact bf16 path against the streamed oracle, tie-aware. The oracle
+    scores with the model's plain bf16 path, K2 with its kernel; the two
+    differ by bf16 rounding, so the sorted score lists of the two top-k's are
+    held within twice the scorers' largest difference on their items (delta:
+    the oracle's items through K2, the returned items through the plain
+    path), relative to each row's largest score: the i-th largest of one
+    scorer is within delta of the other's. Returns (delta, dev)."""
+    import torch
+
+    from rails_tpu_torch.index import top_k as tk
+
+    scale = oracle.scores.abs().amax(dim=1, keepdim=True)
+    d_oracle = (oracle.scores - k2_scores.gather(1, oracle.ids.long() - 1)).abs() / scale
+    idx = res.ids.long() - 1
+    comp, gp = tk._gathered_candidate_tables(state, idx)
+    plain = model.score_gathered(q, comp, gp, uids).float()
+    d_res = (res.scores - plain).abs() / scale
+    delta = max(d_oracle.max().item(), d_res.max().item())
+    dev = ((res.scores - oracle.scores).abs() / scale).max().item()
+    if dev > 2 * delta + 1e-5:
+        raise AssertionError(f"the exact path misses the oracle's top-k: dev {dev:.3e} > "
+                             f"2 x delta {delta:.3e}")
+    return delta, dev
+
+
+def timed(call) -> tuple:
+    """call()'s result, the launches of that first call (nonzero counts), and
+    its host-clock ms: the median of 3 synchronised runs after the first."""
+    import torch
+
+    reset_launches()
+    res = call()
+    torch.cuda.synchronize()
+    counts = {key: v for key, v in launch_counts().items() if v}
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return res, counts, statistics.median(times)
+
+
+def int8_phase(device, name: str, smi: str) -> dict:
+    """The at-scale path at INT8_ITEMS items: bf16 and int8 states from the
+    chunked on-device builder, the streamed oracle, the exact bf16 path
+    through K2-bmax and hierarchical_top_k, and the INT8_METHODS. Returns the
+    launches of the K2-bmax, K9-int8 and K10-int8 variants on their paths."""
+    import torch
+
+    from rails_tpu_torch.index import top_k as tk
+    from rails_tpu_torch.index.factory import get_top_k_raw, parse_top_k_budgets
+    from rails_tpu_torch.index.oracle import streamed_exact_top_k
+    from rails_tpu_torch.ops.mol_scoring import extract_gating_qi_weights, fused_mol_scores_t
+
+    model, q, uids = approx_model(device)
+    embed = clustered_chunk_fn(model, device)
+    ids = torch.arange(1, INT8_ITEMS + 1, dtype=torch.int32, device=device)
+    states, build_s = {}, {}
+    for kind, quantize in (("bf16", False), ("int8", True)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states[kind] = tk.build_fused_state_chunked_on_device(
+            model, ids, embed, tk.BUILD_CHUNK, torch.bfloat16, quantize=quantize)
+        torch.cuda.synchronize()
+        build_s[kind] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    o_scores, o_ids = streamed_exact_top_k(model, states["bf16"], q, uids, APPROX_K,
+                                           embed_chunk_fn=embed, chunk=tk.BUILD_CHUNK)
+    oracle_s = time.perf_counter() - t0
+    oracle = tk.TopKResult(torch.from_numpy(o_scores).to(device),
+                           torch.from_numpy(o_ids).to(device))
+    print(f"[int8] ml-20m-hstu-mol bf16, clustered corpus of {INT8_ITEMS} items (the frontier's "
+          f"4M size; build chunk {tk.BUILD_CHUNK}), B={q.shape[0]}, k={APPROX_K}: build bf16 "
+          f"{build_s['bf16']:.2f} s ({state_gib(states['bf16']):.3f} GiB), int8 "
+          f"{build_s['int8']:.2f} s ({state_gib(states['int8']):.3f} GiB); streamed oracle "
+          f"{oracle_s:.2f} s on {name} ({smi})")
+
+    def k2_of(state):
+        ft = state.fused_tables
+        return fused_mol_scores_t(
+            tk._query_comp(model, ft, q, uids), model.query_gating_partial(q), ft.item_comp_t,
+            ft.item_partial_t, extract_gating_qi_weights(model.mol), TEMPERATURE, ft.comp_scale,
+            ft.partial_scale, emit_blockmax=True, valid=state.item_ids != 0)
+
+    def report(method, res, ms_, counts) -> str:
+        overlap = id_overlap(res.ids, oracle.ids)
+        recall = (res.ids == oracle.ids[:, :1]).any(dim=1).float().mean().item()
+        return (f"[int8] {method}: {ms_:.3f} ms/batch, top-{APPROX_K} overlap with the oracle "
+                f"{overlap:.4f}, recall@{APPROX_K} of the oracle's top-1 {recall:.4f}, launches "
+                f"{counts}")
+
+    launches = {}
+    res, counts, ms_ = timed(lambda: get_top_k_raw("MoLBruteForceTopKFused")(
+        model, states["bf16"], q, APPROX_K, uids))
+    launches["K2-bmax"] = counts.get("K2-bmax", 0)
+    scores, tile_max = k2_of(states["bf16"])
+    scores = scores[:, :INT8_ITEMS]
+    hv, _ = tk.hierarchical_top_k(scores, APPROX_K, tile_max=tile_max)
+    tv, _ = torch.topk(scores, APPROX_K, dim=1)
+    if not (torch.equal(hv, tv) and torch.equal(res.scores, tv)):
+        raise AssertionError("the hierarchical select differs from torch.topk of the same scores")
+    h_ms = cuda_ms(lambda: tk.hierarchical_top_k(scores, APPROX_K, tile_max=tile_max))
+    t_ms = cuda_ms(lambda: torch.topk(scores, APPROX_K, dim=1))
+    delta, dev = check_against_oracle(model, states["bf16"], res, scores, oracle, q, uids)
+    print(report("MoLBruteForceTopKFused", res, ms_, counts)
+          + f"; scores bit-equal to torch.topk of the same K2 scores; select "
+          f"hierarchical_top_k {h_ms:.3f} ms vs torch.topk {t_ms:.3f} ms; vs the oracle "
+          f"tie-aware: dev {dev:.3e} <= 2 x delta {delta:.3e}")
+    del scores, tile_max
+    torch.cuda.empty_cache()
+
+    int8 = states["int8"]
+    ft8, q8 = int8.fused_tables, tk._query_comp(model, int8.fused_tables, q, uids)
+    kernel_ms = {
+        "K2-bmax bf16": cuda_ms(lambda: k2_of(states["bf16"]), iters=3, warmup=1),
+        "K2-bmax int8": cuda_ms(lambda: k2_of(int8), iters=3, warmup=1),
+        "K8-int8": cuda_ms(lambda: tk.fused_mol_ub_t(q8, ft8.item_comp_t, TEMPERATURE,
+                                                     ft8.comp_scale), iters=3, warmup=1),
+        "K9-int8": cuda_ms(lambda: tk.fused_mol_group_block_max(
+            q8, ft8.item_comp_t, TEMPERATURE, ft8.comp_scale), iters=3, warmup=1),
+    }
+    print(f"[int8] device ms of the path's kernels at {INT8_ITEMS} items, B={q.shape[0]}: "
+          + ", ".join(f"{key} {v:.3f}" for key, v in kernel_ms.items()))
+    k2_8 = k2_of(int8)[0][:, :INT8_ITEMS]
+    exact8 = tk.TopKResult(*torch.topk(k2_8, APPROX_K, dim=1))
+    exact8 = exact8._replace(ids=exact8.ids + 1)          # corpus ids are positions + 1
+    for method in INT8_METHODS:
+        raw = get_top_k_raw(method)
+        res, counts, ms_ = timed(lambda: raw(model, int8, q, APPROX_K, uids))
+        for key in ("K9-int8", "K10-int8"):
+            launches[key] = launches.get(key, 0) + counts.get(key, 0)
+        line = report(method, res, ms_, counts)
+        if method.startswith("MoLBruteForceTopKFusedInt8"):
+            if not torch.equal(res.scores, exact8.scores):
+                raise AssertionError(f"{method} differs from torch.topk of K2-int8's scores")
+            line += "; scores bit-equal to torch.topk of K2-int8's scores"
+        if method.startswith("MoLCertTopK"):
+            cres, cert = tk.mol_certified_top_k(model, int8, q, APPROX_K,
+                                                parse_top_k_budgets(method)["cand_budget"], uids)
+            rate, delta, dev = check_certified(cres, cert, k2_8, exact8)
+            line += (f"; certified {rate:.4f} of rows, certified rows exact (K2-int8) up to the "
+                     f"scorers' difference: dev {dev:.3e} <= 2 x delta {delta:.3e}")
+        print(line)
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel variant of the at-scale path never launched: {launches}")
+    del states, int8, k2_8
+    torch.cuda.empty_cache()
+    return launches
+
+
+def int8_e2e(device, name: str, smi: str) -> dict:
+    """The serving step on int8 tables: the 3 serving batches of 512 through
+    get_eval_state and make_eval_step_fn with E2E_INT8_METHODS, the kernel
+    path (launch counts, ms/batch) against the same step through the plain
+    versions, and recall_vs_exact against MoLBruteForceTopKFused on bf16
+    tables. Returns the launch counts of the kernel-path run."""
+    import torch
+
+    from rails_tpu_torch.data.features import Batch
+    from rails_tpu_torch.train.evaluation import get_eval_state, make_eval_step_fn, recall_vs_exact
+
+    dtype_name, min_rank_agree, min_overlap = E2E_TOL[0]
+    model, exact_es, _, batches = serving_setup(torch.bfloat16, device, 3)
+    all_ids = np.arange(1, NUM_ITEMS + 1, dtype=np.int32)
+    runs = {}
+    for method in E2E_INT8_METHODS:
+        es = get_eval_state(model, all_ids, method, table_dtype=torch.bfloat16, device=device)
+        if es.topk_state.fused_tables.item_comp_t.dtype != torch.int8:
+            raise AssertionError(f"{method}: get_eval_state built no int8 tables")
+        step = make_eval_step_fn(model, method, k=120, num_objects=es.num_objects,
+                                 filter_invalid_ids=True, truncate_k_prime_to=200)
+        runs[method] = (es, step)
+        run_batches(lambda f, t, es=es, step=step: step(es.topk_state, f, t), batches)  # warm-up
+    reset_launches()
+    outs = {m: run_batches(lambda f, t, es=es, step=step: step(es.topk_state, f, t), batches)
+            for m, (es, step) in runs.items()}
+    counts = launch_counts()
+    n = len(batches)
+    want = {"K1": len(runs) * n * model.cfg.hstu.num_blocks, "K2": n, "K2-int8": n,
+            "K2-bmax": 0, "K8": n, "K8-int8": n}
+    if any(counts[key] != v for key, v in want.items()):
+        raise AssertionError(f"int8 serving launches {counts}, want {want}")
+    t_batches = [Batch(f, t, torch.zeros_like(t)) for f, t in batches]
+    for method, (es, step) in runs.items():
+        outs_k, ms_k = outs[method]
+        check_outputs(outs_k, batches)
+        with plain_kernels():
+            outs_p, ms_p = run_batches(lambda f, t: step(es.topk_state, f, t), batches)
+        rk, rp = (torch.cat([o[0] for o in o_]) for o_ in (outs_k, outs_p))
+        ik, ip = (torch.cat([o[1] for o in o_]) for o_ in (outs_k, outs_p))
+        rank_agree = (rk == rp).float().mean().item()
+        overlap = id_overlap(ik, ip)
+        recall = recall_vs_exact(model, exact_es, es, t_batches, k=APPROX_K)
+        print(f"[int8-e2e] {method} {dtype_name} tables quantized, {n} batches of {BATCH}, "
+              f"{NUM_ITEMS} items, k=120, k'=200: kernel path {ms_k:.3f} ms/batch, plain path "
+              f"{ms_p:.3f} ms/batch on {name} ({smi}); vs plain: ranks agree on "
+              f"{rank_agree:.4f} (>= {min_rank_agree}), top-120 overlap {overlap:.4f} "
+              f"(>= {min_overlap}); recall_vs_exact (MoLBruteForceTopKFused, bf16) "
+              + ", ".join(f"{key} {v:.4f}" for key, v in recall.items()))
+        if rank_agree < min_rank_agree or overlap < min_overlap:
+            raise AssertionError(f"{method}: the kernel path disagrees with the plain path")
+    print(f"[int8-e2e] launches of the kernel-path run of the {len(runs)} methods: "
+          f"{ {key: v for key, v in counts.items() if v} }")
+    return counts
 
 
 def check_certified(res, cert, k2_scores, exact) -> tuple:
@@ -1074,24 +1449,10 @@ def approx_phase(device, name: str, smi: str) -> None:
           f"reference (K2) in {1e3 * (time.perf_counter() - t0):.1f} ms on {name} ({smi})")
     for method in APPROX_METHODS:
         raw = get_top_k_raw(method)
-
-        def call():
-            return raw(model, state, q, k, uids, item_embeddings=emb)
-
-        reset_launches()
-        res = call()
-        torch.cuda.synchronize()
-        counts = {key: v for key, v in launch_counts().items() if v}
-        times = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            call()
-            torch.cuda.synchronize()
-            times.append(1e3 * (time.perf_counter() - t0))
+        res, counts, ms_ = timed(lambda: raw(model, state, q, k, uids, item_embeddings=emb))
         overlap = id_overlap(res.ids, exact.ids)
         recall = (res.ids == exact.ids[:, :1]).any(dim=1).float().mean().item()
-        line = (f"[approx] {method}: {statistics.median(times):.3f} ms/batch, top-{k} overlap "
+        line = (f"[approx] {method}: {ms_:.3f} ms/batch, top-{k} overlap "
                 f"{overlap:.4f}, recall@{k} of the exact top-1 {recall:.4f}, launches {counts}")
         budgets = parse_top_k_budgets(method)
         if method.startswith(("MoLCertTopK", "MoLTileTopK")):
@@ -1207,8 +1568,8 @@ def main() -> None:
     for dtype in (torch.float32, torch.bfloat16):
         for n in (64, MAX_SEQ_LEN):
             k1[(dtype, n)] = check_k1(BATCH, n, dtype, device)
-    k2 = {dtype: check_k2(BATCH, NUM_ITEMS, dtype, device)
-          for dtype in (torch.float32, torch.bfloat16)}
+    k2 = {kind: check_k2(BATCH, NUM_ITEMS, kind, device)
+          for kind in ("float32", "bfloat16", "int8")}
     launches = end_to_end(device, name, smi)
     torch.cuda.empty_cache()
     k3 = check_k3(device)
@@ -1229,11 +1590,19 @@ def main() -> None:
     launches.update({k: fast[k] for k in ("K5 fwd", "K5 bwd", "K6")})
     torch.cuda.empty_cache()
     bounds = check_bounds(device)
+    bmax = check_k2_blockmax(device)
+    torch.cuda.empty_cache()
     with torch.inference_mode():
         approx_phase(device, name, smi)
     torch.cuda.empty_cache()
     approx = approx_e2e(device, name, smi)
     launches.update({k: approx[k] for k in ("K8", "K9", "K10")})
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        launches.update(int8_phase(device, name, smi))
+    torch.cuda.empty_cache()
+    e2e8 = int8_e2e(device, name, smi)
+    launches.update({k: e2e8[k] for k in ("K2-int8", "K8-int8")})
 
     def entry(name_, source, replaces, key, measured):
         return {"name": name_, "route": "cuda", "source": f"rails_tpu_torch/csrc/{source}",
@@ -1243,7 +1612,7 @@ def main() -> None:
         entry("fused_hstu_block", "hstu_block.cu", "rails_tpu/ops/pallas/hstu_block.py:432",
               "K1", k1[(torch.bfloat16, MAX_SEQ_LEN)]),
         entry("fused_mol_scores_t", "mol_scoring.cu", "rails_tpu/ops/pallas/mol_scoring.py:724",
-              "K2", k2[torch.bfloat16]),
+              "K2", k2["bfloat16"]),
         entry("hash_keep_mask", "hash_dropout.cu", "rails_tpu/ops/pallas/hash_dropout.py:26",
               "K3", k3),
         entry("fused_train_block_forward", "hstu_block_train.cu",
@@ -1264,7 +1633,20 @@ def main() -> None:
               "rails_tpu/ops/pallas/mol_scoring.py:346", "K9", bounds["K9"]),
         entry("fused_mol_scores_tiles", "mol_scoring.cu",
               "rails_tpu/ops/pallas/mol_scoring.py:875", "K10", bounds["K10"]),
+        entry("fused_mol_scores_t (int8 tables)", "mol_scoring.cu",
+              "rails_tpu/ops/pallas/mol_scoring.py:724", "K2-int8", k2["int8"]),
+        entry("fused_mol_scores_t (emit_blockmax)", "mol_scoring.cu",
+              "rails_tpu/ops/pallas/mol_scoring.py:724", "K2-bmax", bmax),
+        entry("fused_mol_ub_t (int8 tables)", "mol_bounds.cu",
+              "rails_tpu/ops/pallas/mol_scoring.py:427", "K8-int8", bounds["K8-int8"]),
+        entry("fused_mol_group_block_max (int8 tables)", "mol_bounds.cu",
+              "rails_tpu/ops/pallas/mol_scoring.py:346", "K9-int8", bounds["K9-int8"]),
+        entry("fused_mol_scores_tiles (int8 tables)", "mol_scoring.cu",
+              "rails_tpu/ops/pallas/mol_scoring.py:875", "K10-int8", bounds["K10-int8"]),
     ]
+    missing = [e["name"] for e in summary if not e["launches"]]
+    if missing:
+        raise AssertionError(f"kernels never launched on their path: {missing}")
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

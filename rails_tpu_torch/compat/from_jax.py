@@ -7,7 +7,9 @@ numpy leaves (the caller converts, e.g.
 parameter names are the flax tree's paths joined by dots; a flax `Dense`
 `kernel` (in, out) becomes a torch `Linear` `weight` (out, in).
 `adamw_state_from_jax` carries the JAX `FusedAdamWState(count, mu, nu)` the
-same way into the port's `FusedAdamWState`. This module imports no jax.
+same way into the port's `FusedAdamWState`, and `fused_tables_from_jax` a JAX
+`FusedCorpusTables` (int8 codes and scales included) into the port's. This
+module imports no jax.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from rails_tpu_torch.core.config import ExperimentConfig
+from rails_tpu_torch.ops.mol_scoring import FusedCorpusTables
 from rails_tpu_torch.train.fused_adamw import FusedAdamWState
 
 
@@ -64,3 +67,27 @@ def adamw_state_from_jax(opt_state: Any) -> FusedAdamWState:
         mu=_port_names(opt_state.mu),
         nu=_port_names(opt_state.nu),
     )
+
+
+def fused_tables_from_jax(ft: Any) -> FusedCorpusTables:
+    """The port's kernel-layout tables from a JAX `FusedCorpusTables`
+    (`rails_tpu/ops/pallas/mol_scoring.py:487-503`) with numpy leaves: the
+    same bytes (bf16 leaves as ml_dtypes arrays), with the gating partial's
+    rows put back from the JAX kernel's m-major logit order (l' = m*P_Q + n)
+    into the port's n-major one (the inverse, `_inv_m_major_perm`,
+    `rails_tpu/index/top_k.py:1172-1179`). The per-item scales keep their
+    order."""
+    comp = _tensor(ft.item_comp_t)
+    p_x = comp.shape[0]
+    partial = _tensor(ft.item_partial_t)
+    p_q = partial.shape[0] // p_x
+    inv = [m * p_q + n for n in range(p_q) for m in range(p_x)]
+    scales = [None if t is None else _tensor(t) for t in (ft.comp_scale, ft.partial_scale)]
+    return FusedCorpusTables(comp, partial[inv].contiguous(), int(ft.num_items), *scales)
+
+
+def _tensor(a: Any) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":       # ml_dtypes: no numpy bf16 in torch.from_numpy
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(a).copy())

@@ -9,6 +9,9 @@
 // score is a softmax mixture of the logits, so both bound it from above
 // (T > 0). Neither runs the gating chain: per (query, item) pair they do the
 // P_Q * P_X * d_P = 4096 FMAs of the component logits and a max.
+// int8 tables (TableTraits<int8_t>, common.cuh): bf16 queries, and each raw
+// dot product times its item's component scale cs[m, x] before the max and
+// 1/T, as in JAX and as K2 scales its logits.
 //
 // Layout, as K2's (csrc/mol_scoring.cu): lanes own items, warps own queries.
 // A block stages 32 items of the (P_X, d_P, X_padded) table in shared memory
@@ -21,7 +24,8 @@
 // butterfly that halves the values each lane holds, so lane l / (32 / L)
 // ends up with group l), and keeps the running max per (query, group).
 // The logits are K2's: the same f32 values, summed over k in the same order
-// with fmaf, so K8's bound is exactly the max of K2's logits.
+// with fmaf and scaled the same way, so K8's bound is exactly the max of K2's
+// logits.
 // Bound: at B = 32 a 1 KB bf16 item row meets 32 * 4096 FMAs, far above the
 // card's bytes-to-operations line, so the kernels are bound by FP32 FMA issue
 // on the CUDA cores; the tensor cores are unused (later work).
@@ -62,6 +66,24 @@ template <typename T, int PQ>
 __device__ __forceinline__ void stage_query(const T* __restrict__ q, float* qw, int b, int dP) {
   for (int e = threadIdx.x & 31; e < PQ * dP; e += 32) {
     qw[e] = to_f<T>(q[static_cast<int64_t>(b) * PQ * dP + e]);
+  }
+}
+
+// The component scales cs[m, x] of an int8 table (1 otherwise).
+template <typename S, int PX>
+__device__ __forceinline__ void load_scales(const float* __restrict__ cs, int x, int Xp,
+                                            float (&csv)[PX]) {
+#pragma unroll
+  for (int m = 0; m < PX; ++m) {
+    csv[m] = TableTraits<S>::kQuant ? cs[static_cast<int64_t>(m) * Xp + x] : 1.f;
+  }
+}
+
+template <typename S, int PQ, int PX>
+__device__ __forceinline__ void scale_logits(const float (&csv)[PX], float (&lg)[PQ * PX]) {
+  if constexpr (TableTraits<S>::kQuant) {
+#pragma unroll
+    for (int l = 0; l < PQ * PX; ++l) lg[l] *= csv[l % PX];
   }
 }
 
@@ -114,27 +136,32 @@ __device__ __forceinline__ void group_max(float* v, int lane) {
   }
 }
 
-template <typename T, int PQ, int PX>
+template <typename S, int PQ, int PX>
 __global__ void __launch_bounds__(kThreads)
-mol_ub_kernel(const T* __restrict__ q, const T* __restrict__ items, float* __restrict__ out,
-              int B, int Xp, int dP, float inv_t) {
+mol_ub_kernel(const typename TableTraits<S>::Round* __restrict__ q, const S* __restrict__ items,
+              const float* __restrict__ cs, float* __restrict__ out, int B, int Xp, int dP,
+              float inv_t) {
+  using Q = typename TableTraits<S>::Round;
   constexpr int L = PQ * PX;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* its = reinterpret_cast<float*>(smem_raw);         // [kSubX][PX * dP + kPad]
   float* qs = its + kSubX * (PX * dP + kPad);              // [kWarps][PQ * dP]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int x0 = blockIdx.x * kSubX;
-  stage_items<T, PX>(items, its, x0, Xp, dP);
+  stage_items<S, PX>(items, its, x0, Xp, dP);
+  float csv[PX];
+  load_scales<S, PX>(cs, x0 + lane, Xp, csv);
   __syncthreads();
   float* qw = qs + warp * PQ * dP;
   const float* it = its + lane * (PX * dP + kPad);
   for (int qi = warp; qi < kQueriesPerBlock; qi += kWarps) {
     const int b = blockIdx.y * kQueriesPerBlock + qi;
     if (b >= B) break;  // warp-uniform
-    stage_query<T, PQ>(q, qw, b, dP);
+    stage_query<Q, PQ>(q, qw, b, dP);
     __syncwarp();
     float lg[L];
     item_logits<PQ, PX>(qw, it, dP, lg);
+    scale_logits<S, PQ, PX>(csv, lg);
     float mx = lg[0];
 #pragma unroll
     for (int l = 1; l < L; ++l) mx = fmaxf(mx, lg[l]);
@@ -143,10 +170,12 @@ mol_ub_kernel(const T* __restrict__ q, const T* __restrict__ items, float* __res
   }
 }
 
-template <typename T, int PQ, int PX>
+template <typename S, int PQ, int PX>
 __global__ void __launch_bounds__(kThreads)
-mol_group_block_max_kernel(const T* __restrict__ q, const T* __restrict__ items,
+mol_group_block_max_kernel(const typename TableTraits<S>::Round* __restrict__ q,
+                           const S* __restrict__ items, const float* __restrict__ cs,
                            float* __restrict__ out, int B, int Xp, int dP, float inv_t) {
+  using Q = typename TableTraits<S>::Round;
   constexpr int L = PQ * PX;
   static_assert(L <= 32 && (L & (L - 1)) == 0, "L must be a power of two <= 32");
   constexpr int kLanesPerGroup = 32 / L;
@@ -162,16 +191,20 @@ mol_group_block_max_kernel(const T* __restrict__ q, const T* __restrict__ items,
   for (int j = 0; j < kPerWarp; ++j) gm[j] = -INFINITY;
   for (int sub = 0; sub < kTileCols / kSubX; ++sub) {
     __syncthreads();  // every warp is done with the previous sub-tile
-    stage_items<T, PX>(items, its, tile * kTileCols + sub * kSubX, Xp, dP);
+    const int x0 = tile * kTileCols + sub * kSubX;
+    stage_items<S, PX>(items, its, x0, Xp, dP);
+    float csv[PX];
+    load_scales<S, PX>(cs, x0 + lane, Xp, csv);
     __syncthreads();
 #pragma unroll
     for (int j = 0; j < kPerWarp; ++j) {
       const int b = blockIdx.y * kQueriesPerBlock + warp + j * kWarps;
       if (b >= B) break;  // warp-uniform
-      stage_query<T, PQ>(q, qw, b, dP);
+      stage_query<Q, PQ>(q, qw, b, dP);
       __syncwarp();
       float lg[L];
       item_logits<PQ, PX>(qw, it, dP, lg);
+      scale_logits<S, PQ, PX>(csv, lg);
       group_max<L, 16>(lg, lane);
       gm[j] = fmaxf(gm[j], lg[0]);
       __syncwarp();
@@ -188,62 +221,68 @@ mol_group_block_max_kernel(const T* __restrict__ q, const T* __restrict__ items,
 }
 
 // kind 0: K8 (grid over 32-item sub-tiles), 1: K9 (grid over 256-item tiles).
-template <typename T, int PQ, int PX>
-cudaError_t run(int kind, const void* q, const void* items, float* out, int B, int Xp, int dP,
-                float inv_t, cudaStream_t stream) {
+template <typename S, int PQ, int PX>
+cudaError_t run(int kind, const void* q, const void* items, const float* cs, float* out, int B,
+                int Xp, int dP, float inv_t, cudaStream_t stream) {
   if (Xp % kTileCols != 0 || dP % 4 != 0 || B <= 0) return cudaErrorInvalidValue;
+  if (TableTraits<S>::kQuant && cs == nullptr) return cudaErrorInvalidValue;
   const size_t smem = smem_bytes<PQ, PX>(dP);
   const int query_blocks = (B + kQueriesPerBlock - 1) / kQueriesPerBlock;
-  const T* qt = static_cast<const T*>(q);
-  const T* it = static_cast<const T*>(items);
+  const auto* qt = static_cast<const typename TableTraits<S>::Round*>(q);
+  const S* it = static_cast<const S*>(items);
   if (kind == 0) {
-    cudaError_t err = allow_smem(mol_ub_kernel<T, PQ, PX>, smem);
+    cudaError_t err = allow_smem(mol_ub_kernel<S, PQ, PX>, smem);
     if (err != cudaSuccess) return err;
     const dim3 grid(Xp / kSubX, query_blocks);
-    mol_ub_kernel<T, PQ, PX><<<grid, kThreads, smem, stream>>>(qt, it, out, B, Xp, dP, inv_t);
+    mol_ub_kernel<S, PQ, PX><<<grid, kThreads, smem, stream>>>(qt, it, cs, out, B, Xp, dP,
+                                                               inv_t);
   } else {
-    cudaError_t err = allow_smem(mol_group_block_max_kernel<T, PQ, PX>, smem);
+    cudaError_t err = allow_smem(mol_group_block_max_kernel<S, PQ, PX>, smem);
     if (err != cudaSuccess) return err;
     const dim3 grid(Xp / kTileCols, query_blocks);
-    mol_group_block_max_kernel<T, PQ, PX><<<grid, kThreads, smem, stream>>>(qt, it, out, B, Xp,
-                                                                            dP, inv_t);
+    mol_group_block_max_kernel<S, PQ, PX><<<grid, kThreads, smem, stream>>>(qt, it, cs, out, B,
+                                                                            Xp, dP, inv_t);
   }
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(int kind, int pq, int px, const void* q, const void* items, float* out, int B,
-                     int Xp, int dP, float inv_t, cudaStream_t s) {
-  if (pq == 8 && px == 4) return run<T, 8, 4>(kind, q, items, out, B, Xp, dP, inv_t, s);
-  if (pq == 4 && px == 2) return run<T, 4, 2>(kind, q, items, out, B, Xp, dP, inv_t, s);
+template <typename S>
+cudaError_t dispatch(int kind, int pq, int px, const void* q, const void* items, const float* cs,
+                     float* out, int B, int Xp, int dP, float inv_t, cudaStream_t s) {
+  if (pq == 8 && px == 4) return run<S, 8, 4>(kind, q, items, cs, out, B, Xp, dP, inv_t, s);
+  if (pq == 4 && px == 2) return run<S, 4, 2>(kind, q, items, cs, out, B, Xp, dP, inv_t, s);
   return cudaErrorInvalidValue;
 }
 
-int bounds(int kind, int dtype, int pq, int px, const void* q, const void* items, float* out,
-           int B, int Xp, int dP, float inv_t, void* stream) {
+int bounds(int kind, int dtype, int pq, int px, const void* q, const void* items,
+           const float* cs, float* out, int B, int Xp, int dP, float inv_t, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    return dispatch<__nv_bfloat16>(kind, pq, px, q, items, out, B, Xp, dP, inv_t, s);
+  switch (dtype) {
+    case 0: return dispatch<float>(kind, pq, px, q, items, cs, out, B, Xp, dP, inv_t, s);
+    case 1: return dispatch<__nv_bfloat16>(kind, pq, px, q, items, cs, out, B, Xp, dP, inv_t, s);
+    case 2: return dispatch<int8_t>(kind, pq, px, q, items, cs, out, B, Xp, dP, inv_t, s);
+    default: return cudaErrorInvalidValue;
   }
-  if (dtype == 0) return dispatch<float>(kind, pq, px, q, items, out, B, Xp, dP, inv_t, s);
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace rails
 
-// dtype: 0 = float32, 1 = bfloat16 (q and items share it). q (B, PQ, dP);
-// items (PX, dP, Xp) with Xp a multiple of 256; out (B, Xp) f32 (K8) or
-// (B, L, Xp / 256) f32 (K9), L = PQ * PX in n-major order; dP a multiple of 4.
+// dtype: 0 = float32 (q and items f32), 1 = bfloat16 (both bf16), 2 = int8
+// (items int8 with cs (PX, Xp) f32 scales, q bf16; cs may be null otherwise).
+// q (B, PQ, dP); items (PX, dP, Xp) with Xp a multiple of 256; out (B, Xp) f32
+// (K8) or (B, L, Xp / 256) f32 (K9), L = PQ * PX in n-major order; dP a
+// multiple of 4.
 extern "C" int rails_mol_ub(int dtype, int pq, int px, const void* q, const void* items,
-                            float* out, int B, int Xp, int dP, float inv_t, void* stream) {
-  return rails::bounds(0, dtype, pq, px, q, items, out, B, Xp, dP, inv_t, stream);
+                            const float* cs, float* out, int B, int Xp, int dP, float inv_t,
+                            void* stream) {
+  return rails::bounds(0, dtype, pq, px, q, items, cs, out, B, Xp, dP, inv_t, stream);
 }
 
 extern "C" int rails_mol_group_block_max(int dtype, int pq, int px, const void* q,
-                                         const void* items, float* out, int B, int Xp, int dP,
-                                         float inv_t, void* stream) {
-  return rails::bounds(1, dtype, pq, px, q, items, out, B, Xp, dP, inv_t, stream);
+                                         const void* items, const float* cs, float* out, int B,
+                                         int Xp, int dP, float inv_t, void* stream) {
+  return rails::bounds(1, dtype, pq, px, q, items, cs, out, B, Xp, dP, inv_t, stream);
 }
 
 extern "C" size_t rails_mol_bounds_smem_bytes(int pq, int px, int dP) {

@@ -2,8 +2,8 @@
 // for Hopper (sm_90a).
 //
 // K2 replaces the Pallas kernel `fused_mol_scores_t` in
-// rails_tpu/ops/pallas/mol_scoring.py (body `_kernel`), without its
-// emit_blockmax and int8 options. K10 replaces `fused_mol_scores_tiles`: the
+// rails_tpu/ops/pallas/mol_scoring.py (body `_kernel`), with its int8 tables
+// and its emit_blockmax option. K10 replaces `fused_mol_scores_tiles`: the
 // same kernel, whose corpus blocks read their 256-item tile from a list of
 // tile ids on the device (8 blocks of 32 items per tile), writing output
 // column s*256 + j for corpus column tile_ids[s]*256 + j. Sharing the code
@@ -16,18 +16,29 @@
 //   out  = sum_l softmax_l(gw) * logits            (normalised once: sum e*l / sum e)
 // With bf16 tables the MLP inputs are rounded to bf16 where the JAX kernel
 // casts them (logits, h, W1, W2); everything accumulates in f32.
+// int8 tables (TableTraits<int8_t>, common.cuh): the query is bf16, the codes
+// convert exactly, and the per-(component, item) scale cs[m, x] multiplies each
+// raw dot product before 1/T, raw * cs * (1/T) in that order, as in JAX; the
+// gating partial is ip[l, x] * ps[x]; the MLP rounds to bf16.
+// emit_blockmax (tile_max != nullptr, K2 only): a column whose valid[x] is 0
+// scores -1e30, and tile_max[b, t] is the max of the scores of 256-column tile
+// t, reduced in-kernel: a warp-shuffle max over the block's 32 items, then a
+// float atomic max (common.cuh) from each of the tile's 8 blocks into a buffer
+// the wrapper fills with -1e30. Max is order-independent, so the result is
+// exact, and no pass reads the (B, X) scores back.
 //
 // Layout: one block per (32-item corpus tile x 32-query tile). Lanes own
 // items and warps own queries, so table reads, the item gating partial and
-// the (B, X) score stores are coalesced. The block stages the item tile, the
-// qi-MLP weights (W1^T and W2, H x L each) and one query per warp in shared
-// memory. Per (query, item) pair a thread keeps 32 logits and 32 qi
-// accumulators in registers and walks the hidden units one at a time,
-// h_j = silu(b1_j + sum_l W1[l, j] * logit_l), qi_l += W2[j, l] * h_j, so the
-// 128-wide hidden layer is never stored anywhere.
+// the (B, X) score stores are coalesced. The block stages the item tile (and
+// an int8 tile's P_X x 32 component scales), the qi-MLP weights (W1^T and W2,
+// H x L each) and one query per warp in shared memory. Per (query, item) pair
+// a thread keeps 32 logits and 32 qi accumulators in registers and walks the
+// hidden units one at a time, h_j = silu(b1_j + sum_l W1[l, j] * logit_l),
+// qi_l += W2[j, l] * h_j, so the 128-wide hidden layer is never stored.
 // Bound: ~12k FMAs per pair (4k for the logits, 8k for the MLP) against a few
 // bytes of table per pair once a tile is staged, so the kernel is bound by
 // FP32 FMA issue on the CUDA cores; the tensor cores are unused (later work).
+// int8 halves the table bytes and moves no FMA, so it runs at bf16's speed.
 #include <cmath>
 #include <cstdint>
 
@@ -40,25 +51,32 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTileX = 32;            // items per block, one per lane
 constexpr int kQueriesPerBlock = 32;  // each warp scores kQueriesPerBlock / kWarps queries
-constexpr int kTileCols = 256;        // K10's corpus tile
+constexpr int kTileCols = 256;        // K10's corpus tile, and emit_blockmax's
 constexpr int kBlocksPerTile = kTileCols / kTileX;
+constexpr float kMasked = -1.0e30f;   // score of a column with valid[x] == 0
 
-template <typename T, int PQ, int PX>
+template <typename S, int PQ, int PX>
 size_t smem_bytes(int dP, int Hd) {
   constexpr int L = PQ * PX;
-  return (2 * static_cast<size_t>(Hd) * L + Hd + L + static_cast<size_t>(kWarps) * PQ * dP) *
-             sizeof(float) +
-         static_cast<size_t>(PX) * dP * kTileX * sizeof(T);
+  constexpr int kScales = TableTraits<S>::kQuant ? PX * kTileX : 0;
+  return (2 * static_cast<size_t>(Hd) * L + Hd + L + static_cast<size_t>(kWarps) * PQ * dP +
+          kScales) * sizeof(float) +
+         static_cast<size_t>(PX) * dP * kTileX * sizeof(S);
 }
 
-template <typename T, int PQ, int PX>
+template <typename S, int PQ, int PX>
 __global__ void __launch_bounds__(kThreads)
-mol_scores_kernel(const T* __restrict__ q, const float* __restrict__ qp,
-                  const T* __restrict__ items, const T* __restrict__ ip,
-                  const float* __restrict__ w1t, const float* __restrict__ b1,
-                  const float* __restrict__ w2, const float* __restrict__ b2,
-                  float* __restrict__ out, const int* __restrict__ tile_ids, int B, int Xp,
-                  int Xo, int dP, int Hd, float inv_t) {
+mol_scores_kernel(const typename TableTraits<S>::Round* __restrict__ q,
+                  const float* __restrict__ qp, const S* __restrict__ items,
+                  const S* __restrict__ ip, const float* __restrict__ cs,
+                  const float* __restrict__ ps, const float* __restrict__ w1t,
+                  const float* __restrict__ b1, const float* __restrict__ w2,
+                  const float* __restrict__ b2, const float* __restrict__ valid,
+                  float* __restrict__ out, float* __restrict__ tile_max,
+                  const int* __restrict__ tile_ids, int B, int Xp, int Xo, int dP, int Hd,
+                  float inv_t) {
+  using Q = typename TableTraits<S>::Round;
+  constexpr bool kQuant = TableTraits<S>::kQuant;
   constexpr int L = PQ * PX;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* w1s = reinterpret_cast<float*>(smem_raw);  // [Hd][L]  W1 transposed
@@ -66,7 +84,8 @@ mol_scores_kernel(const T* __restrict__ q, const float* __restrict__ qp,
   float* b1s = w2s + Hd * L;                        // [Hd]
   float* b2s = b1s + Hd;                            // [L]
   float* qs = b2s + L;                              // [kWarps][PQ * dP]
-  T* its = reinterpret_cast<T*>(qs + kWarps * PQ * dP);  // [PX * dP][kTileX]
+  float* css = qs + kWarps * PQ * dP;               // [PX][kTileX] int8 scales
+  S* its = reinterpret_cast<S*>(css + (kQuant ? PX * kTileX : 0));  // [PX * dP][kTileX]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   // K2 (tile_ids == nullptr): corpus block blockIdx.x, written in place.
@@ -95,16 +114,28 @@ mol_scores_kernel(const T* __restrict__ q, const float* __restrict__ qp,
     const int r = e / kTileX, c = e % kTileX;
     its[e] = items[static_cast<int64_t>(r) * Xp + x0 + c];
   }
+  if constexpr (kQuant) {
+    for (int e = tid; e < PX * kTileX; e += kThreads) {
+      css[e] = cs[static_cast<int64_t>(e / kTileX) * Xp + x0 + e % kTileX];
+    }
+  }
   float ipv[L];
+  const float psv = kQuant ? ps[x] : 1.f;
 #pragma unroll
-  for (int l = 0; l < L; ++l) ipv[l] = to_f<T>(ip[static_cast<int64_t>(l) * Xp + x]);
+  for (int l = 0; l < L; ++l) {
+    ipv[l] = to_f<S>(ip[static_cast<int64_t>(l) * Xp + x]);
+    if constexpr (kQuant) ipv[l] *= psv;
+  }
   __syncthreads();
+  float csv[PX];
+#pragma unroll
+  for (int m = 0; m < PX; ++m) csv[m] = kQuant ? css[m * kTileX + lane] : 1.f;
 
   float* qw = qs + warp * PQ * dP;
   for (int qi = warp; qi < kQueriesPerBlock; qi += kWarps) {
     const int b = blockIdx.y * kQueriesPerBlock + qi;
     if (b >= B) break;  // warp-uniform
-    for (int e = lane; e < PQ * dP; e += 32) qw[e] = to_f<T>(q[static_cast<int64_t>(b) * PQ * dP + e]);
+    for (int e = lane; e < PQ * dP; e += 32) qw[e] = to_f<Q>(q[static_cast<int64_t>(b) * PQ * dP + e]);
     __syncwarp();
 
     float lg[L];
@@ -113,7 +144,7 @@ mol_scores_kernel(const T* __restrict__ q, const float* __restrict__ qp,
     for (int k = 0; k < dP; ++k) {
       float iv[PX];
 #pragma unroll
-      for (int m = 0; m < PX; ++m) iv[m] = to_f<T>(its[(m * dP + k) * kTileX + lane]);
+      for (int m = 0; m < PX; ++m) iv[m] = to_f<S>(its[(m * dP + k) * kTileX + lane]);
 #pragma unroll
       for (int nq = 0; nq < PQ; ++nq) {
         const float qv = qw[nq * dP + k];
@@ -124,8 +155,9 @@ mol_scores_kernel(const T* __restrict__ q, const float* __restrict__ qp,
     float mi[L], acc[L];
 #pragma unroll
     for (int l = 0; l < L; ++l) {
+      if constexpr (kQuant) lg[l] *= csv[l % PX];
       lg[l] *= inv_t;
-      mi[l] = round_to<T>(lg[l]);
+      mi[l] = round_to<Q>(lg[l]);
       acc[l] = 0.f;
     }
     for (int j = 0; j < Hd; ++j) {
@@ -133,7 +165,7 @@ mol_scores_kernel(const T* __restrict__ q, const float* __restrict__ qp,
       float h = 0.f;
 #pragma unroll
       for (int l = 0; l < L; ++l) h = fmaf(w1r[l], mi[l], h);
-      h = round_to<T>(silu(h + b1s[j]));
+      h = round_to<Q>(silu(h + b1s[j]));
       const float* w2r = w2s + j * L;
 #pragma unroll
       for (int l = 0; l < L; ++l) acc[l] = fmaf(w2r[l], h, acc[l]);
@@ -153,92 +185,129 @@ mol_scores_kernel(const T* __restrict__ q, const float* __restrict__ qp,
       s1 = fmaf(e, lg[l], s1);
       s0 += e;
     }
-    out[static_cast<int64_t>(b) * Xo + xo] = s1 / s0;
+    float v = s1 / s0;
+    if (tile_max != nullptr) {  // emit_blockmax: grid-uniform
+      if (valid[x] == 0.f) v = kMasked;
+      const float bmax = warp_max(v);
+      if (lane == 0) {
+        atomic_max_float(tile_max + static_cast<int64_t>(b) * (Xp / kTileCols) + x0 / kTileCols,
+                         bmax);
+      }
+    }
+    out[static_cast<int64_t>(b) * Xo + xo] = v;
     __syncwarp();
   }
 }
 
 // nt < 0: K2 over all Xp columns; nt >= 0: K10 over the nt tiles of tile_ids.
-template <typename T, int PQ, int PX>
+template <typename S, int PQ, int PX>
 cudaError_t launch(const void* q, const float* qp, const void* items, const void* ip,
-                   const float* w1t, const float* b1, const float* w2, const float* b2,
-                   float* out, const int* tile_ids, int nt, int B, int Xp, int dP, int Hd,
+                   const float* cs, const float* ps, const float* w1t, const float* b1,
+                   const float* w2, const float* b2, const float* valid, float* out,
+                   float* tile_max, const int* tile_ids, int nt, int B, int Xp, int dP, int Hd,
                    float inv_t, cudaStream_t stream) {
-  if (Xp % kTileX != 0 || (nt >= 0 && Xp % kTileCols != 0)) return cudaErrorInvalidValue;
+  const bool blockmax = tile_max != nullptr;
+  if (Xp % kTileX != 0 || ((nt >= 0 || blockmax) && Xp % kTileCols != 0)) {
+    return cudaErrorInvalidValue;
+  }
+  if ((TableTraits<S>::kQuant && (cs == nullptr || ps == nullptr)) ||
+      (blockmax && (nt >= 0 || valid == nullptr))) {
+    return cudaErrorInvalidValue;
+  }
   const int xo = nt < 0 ? Xp : nt * kTileCols;
   if (xo == 0) return cudaSuccess;
-  const size_t smem = smem_bytes<T, PQ, PX>(dP, Hd);
-  cudaError_t err = allow_smem(mol_scores_kernel<T, PQ, PX>, smem);
+  const size_t smem = smem_bytes<S, PQ, PX>(dP, Hd);
+  cudaError_t err = allow_smem(mol_scores_kernel<S, PQ, PX>, smem);
   if (err != cudaSuccess) return err;
+  using Q = typename TableTraits<S>::Round;
   const dim3 grid(xo / kTileX, (B + kQueriesPerBlock - 1) / kQueriesPerBlock);
-  mol_scores_kernel<T, PQ, PX><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), qp, static_cast<const T*>(items), static_cast<const T*>(ip), w1t,
-      b1, w2, b2, out, nt < 0 ? nullptr : tile_ids, B, Xp, xo, dP, Hd, inv_t);
+  mol_scores_kernel<S, PQ, PX><<<grid, kThreads, smem, stream>>>(
+      static_cast<const Q*>(q), qp, static_cast<const S*>(items), static_cast<const S*>(ip), cs,
+      ps, w1t, b1, w2, b2, valid, out, tile_max, nt < 0 ? nullptr : tile_ids, B, Xp, xo, dP, Hd,
+      inv_t);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename S>
 cudaError_t dispatch(int pq, int px, const void* q, const float* qp, const void* items,
-                     const void* ip, const float* w1t, const float* b1, const float* w2,
-                     const float* b2, float* out, const int* tile_ids, int nt, int B, int Xp,
+                     const void* ip, const float* cs, const float* ps, const float* w1t,
+                     const float* b1, const float* w2, const float* b2, const float* valid,
+                     float* out, float* tile_max, const int* tile_ids, int nt, int B, int Xp,
                      int dP, int Hd, float inv_t, cudaStream_t s) {
   if (pq == 8 && px == 4)
-    return launch<T, 8, 4>(q, qp, items, ip, w1t, b1, w2, b2, out, tile_ids, nt, B, Xp, dP, Hd,
-                           inv_t, s);
+    return launch<S, 8, 4>(q, qp, items, ip, cs, ps, w1t, b1, w2, b2, valid, out, tile_max,
+                           tile_ids, nt, B, Xp, dP, Hd, inv_t, s);
   if (pq == 4 && px == 2)
-    return launch<T, 4, 2>(q, qp, items, ip, w1t, b1, w2, b2, out, tile_ids, nt, B, Xp, dP, Hd,
-                           inv_t, s);
+    return launch<S, 4, 2>(q, qp, items, ip, cs, ps, w1t, b1, w2, b2, valid, out, tile_max,
+                           tile_ids, nt, B, Xp, dP, Hd, inv_t, s);
   return cudaErrorInvalidValue;
 }
 
 int scores(int dtype, int pq, int px, const void* q, const float* qp, const void* items,
-           const void* ip, const float* w1t, const float* b1, const float* w2, const float* b2,
-           float* out, const int* tile_ids, int nt, int B, int Xp, int dP, int Hd, float inv_t,
+           const void* ip, const float* cs, const float* ps, const float* w1t, const float* b1,
+           const float* w2, const float* b2, const float* valid, float* out, float* tile_max,
+           const int* tile_ids, int nt, int B, int Xp, int dP, int Hd, float inv_t,
            void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    return dispatch<__nv_bfloat16>(pq, px, q, qp, items, ip, w1t, b1, w2, b2, out, tile_ids, nt,
-                                   B, Xp, dP, Hd, inv_t, s);
+  switch (dtype) {
+    case 0:
+      return dispatch<float>(pq, px, q, qp, items, ip, cs, ps, w1t, b1, w2, b2, valid, out,
+                             tile_max, tile_ids, nt, B, Xp, dP, Hd, inv_t, s);
+    case 1:
+      return dispatch<__nv_bfloat16>(pq, px, q, qp, items, ip, cs, ps, w1t, b1, w2, b2, valid,
+                                     out, tile_max, tile_ids, nt, B, Xp, dP, Hd, inv_t, s);
+    case 2:
+      return dispatch<int8_t>(pq, px, q, qp, items, ip, cs, ps, w1t, b1, w2, b2, valid, out,
+                              tile_max, tile_ids, nt, B, Xp, dP, Hd, inv_t, s);
+    default:
+      return cudaErrorInvalidValue;
   }
-  if (dtype == 0) {
-    return dispatch<float>(pq, px, q, qp, items, ip, w1t, b1, w2, b2, out, tile_ids, nt, B, Xp,
-                           dP, Hd, inv_t, s);
+}
+
+template <int PQ, int PX>
+size_t smem_for(int dtype, int dP, int Hd) {
+  switch (dtype) {
+    case 0: return smem_bytes<float, PQ, PX>(dP, Hd);
+    case 1: return smem_bytes<__nv_bfloat16, PQ, PX>(dP, Hd);
+    case 2: return smem_bytes<int8_t, PQ, PX>(dP, Hd);
+    default: return 0;
   }
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace rails
 
-// dtype: 0 = float32, 1 = bfloat16 (q, items and ip share it).
+// dtype: 0 = float32 (q, items and ip f32), 1 = bfloat16 (all bf16), 2 = int8
+// (items and ip int8 with cs (PX, Xp) and ps (1, Xp) f32 scales; q bf16).
 // q (B, PQ, dP); qp (B, L) f32; items (PX, dP, Xp); ip (L, Xp); w1t (H, L);
 // b1 (H); w2 (H, L); b2 (L); out (B, Xp) f32. Logit order l = n*PX + m.
+// cs and ps may be null for dtypes 0 and 1. emit_blockmax: tile_max (B, Xp / 256)
+// f32 filled with -1e30 by the caller, valid (Xp) f32; both null otherwise.
 extern "C" int rails_mol_scores(int dtype, int pq, int px, const void* q, const float* qp,
-                                const void* items, const void* ip, const float* w1t,
-                                const float* b1, const float* w2, const float* b2, float* out,
-                                int B, int Xp, int dP, int Hd, float inv_t, void* stream) {
-  return rails::scores(dtype, pq, px, q, qp, items, ip, w1t, b1, w2, b2, out, nullptr, -1, B, Xp,
-                       dP, Hd, inv_t, stream);
+                                const void* items, const void* ip, const float* cs,
+                                const float* ps, const float* w1t, const float* b1,
+                                const float* w2, const float* b2, const float* valid, float* out,
+                                float* tile_max, int B, int Xp, int dP, int Hd, float inv_t,
+                                void* stream) {
+  return rails::scores(dtype, pq, px, q, qp, items, ip, cs, ps, w1t, b1, w2, b2, valid, out,
+                       tile_max, nullptr, -1, B, Xp, dP, Hd, inv_t, stream);
 }
 
 // K10: as rails_mol_scores over the nt tiles listed in tile_ids (nt,) int32 on
 // the device; Xp a multiple of 256; out (B, nt * 256) f32.
 extern "C" int rails_mol_scores_tiles(int dtype, int pq, int px, const void* q, const float* qp,
                                       const int* tile_ids, const void* items, const void* ip,
-                                      const float* w1t, const float* b1, const float* w2,
-                                      const float* b2, float* out, int B, int Xp, int nt, int dP,
-                                      int Hd, float inv_t, void* stream) {
+                                      const float* cs, const float* ps, const float* w1t,
+                                      const float* b1, const float* w2, const float* b2,
+                                      float* out, int B, int Xp, int nt, int dP, int Hd,
+                                      float inv_t, void* stream) {
   if (nt < 0) return cudaErrorInvalidValue;
-  return rails::scores(dtype, pq, px, q, qp, items, ip, w1t, b1, w2, b2, out, tile_ids, nt, B,
-                       Xp, dP, Hd, inv_t, stream);
+  return rails::scores(dtype, pq, px, q, qp, items, ip, cs, ps, w1t, b1, w2, b2, nullptr, out,
+                       nullptr, tile_ids, nt, B, Xp, dP, Hd, inv_t, stream);
 }
 
 extern "C" size_t rails_mol_scores_smem_bytes(int dtype, int pq, int px, int dP, int Hd) {
-  if (pq == 8 && px == 4)
-    return dtype == 1 ? rails::smem_bytes<__nv_bfloat16, 8, 4>(dP, Hd)
-                      : rails::smem_bytes<float, 8, 4>(dP, Hd);
-  if (pq == 4 && px == 2)
-    return dtype == 1 ? rails::smem_bytes<__nv_bfloat16, 4, 2>(dP, Hd)
-                      : rails::smem_bytes<float, 4, 2>(dP, Hd);
+  if (pq == 8 && px == 4) return rails::smem_for<8, 4>(dtype, dP, Hd);
+  if (pq == 4 && px == 2) return rails::smem_for<4, 2>(dtype, dP, Hd);
   return 0;
 }

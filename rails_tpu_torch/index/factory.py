@@ -1,9 +1,10 @@
 """Top-k method name -> retrieval function (`rails_tpu/index/factory.py:33-173`).
 
-Every spelling of the JAX factory is served except two families, which raise
-NotImplementedError: `MoLIVFTopK{n}` (IVF, the next slice) and the `...Int8...`
-spellings (int8 tables come with K2's options); ROADMAP.md, Queue 1. Unknown
-names raise ValueError, as in the JAX package.
+Every spelling of the JAX factory is served except `MoLIVFTopK{n}` (IVF, the
+next slice; ROADMAP.md, Queue 1), which raises NotImplementedError. The
+`...Int8...` spellings run the same algorithms as their bf16 twins: the
+quantization lives in the state (`get_eval_state` builds it from the name).
+Unknown names raise ValueError, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -11,10 +12,6 @@ from __future__ import annotations
 import re
 
 from rails_tpu_torch.index import top_k as tk
-
-_INT8 = re.compile(
-    r"MoLBruteForceTopKFusedInt8(?:Approx)?|MoLCertTopK\d+Int8|MoLTileTopK\d+(?:B\d+)?Int8"
-)
 
 
 def _bind(fn, **budgets):
@@ -41,17 +38,14 @@ def get_top_k_raw(top_k_method: str):
     exact = {
         "MoLBruteForceTopK": tk.mol_brute_force_top_k,
         "MoLBruteForceTopKFused": tk.mol_brute_force_top_k_fused,
+        "MoLBruteForceTopKFusedInt8": tk.mol_brute_force_top_k_fused,
         "MoLBruteForceTopKFusedApprox": tk.mol_brute_force_top_k_fused_approx,
+        "MoLBruteForceTopKFusedInt8Approx": tk.mol_brute_force_top_k_fused_approx,
     }
     if top_k_method in exact:
         return _bind(exact[top_k_method])
     if top_k_method == "MIPSBruteForceTopK":
         return _mips
-    if _INT8.fullmatch(top_k_method):
-        raise NotImplementedError(
-            f"top_k_method {top_k_method!r} needs int8 tables, not ported yet "
-            "(ROADMAP.md, Queue 1: K2 options with the int8 K8-K10)"
-        )
     if re.fullmatch(r"MoLIVFTopK\d+", top_k_method):
         raise NotImplementedError(
             f"top_k_method {top_k_method!r} is IVF retrieval, not ported yet "
@@ -62,10 +56,10 @@ def get_top_k_raw(top_k_method: str):
         (r"MoLNaive(?:Faiss)?TopK\d+", tk.mol_naive_top_k),
         (r"MoLAvgTopK\d+", tk.mol_avg_top_k),
         (r"MoLCombTopK\d+_\d+", tk.mol_comb_top_k),
-        (r"MoLCertTopK\d+", _certified_result),
+        (r"MoLCertTopK\d+(?:Int8)?", _certified_result),
         # One batch-shared tile set scored by K10; without a B suffix every
         # distinct nominated tile is kept.
-        (r"MoLTileTopK\d+(?:B\d+)?", tk.mol_tile_top_k_shared),
+        (r"MoLTileTopK\d+(?:B\d+)?(?:Int8)?", tk.mol_tile_top_k_shared),
     )
     for pattern, fn in approximate:
         if re.fullmatch(pattern, top_k_method):

@@ -1,33 +1,39 @@
 """Exact and approximate MoL top-k over a corpus.
 
-Counterpart of `rails_tpu/index/top_k.py`: `NEG_DUP`, `NEG_PAD` and
-`_mask_pad_rows` (:39-61), `TopKResult`, `MoLTopKState` and
-`build_mol_topk_state` (:107-208), the exact methods `mol_brute_force_top_k`
-(:633-649), `mol_brute_force_top_k_fused` (:698-737) and
-`mol_brute_force_top_k_fused_approx` (:740-763), and approximate retrieval:
-the certificates and `mol_certified_top_k` (:766-884, K8), `mol_tile_top_k`
-(:887-994, K9) and `mol_tile_top_k_shared` (:997-1142, K9 + K10),
-`mips_brute_force_top_k` (:1145-1158), the candidate gather and
-`dedup_rerank_top_k` (:1182-1431), and Naive, Avg and Comb (:1438-1741).
+Counterpart of `rails_tpu/index/top_k.py`: `NEG_DUP`, `NEG_PAD`,
+`_CHUNK_MAX_X`, `BUILD_CHUNK` and `_mask_pad_rows` (:39-61), `TopKResult`,
+`MoLTopKState`, `build_mol_topk_state` with `quantize_fused` (:107-208), the
+chunked on-device corpus build `build_fused_state_chunked_on_device`
+(:293-411), the exact select `hierarchical_top_k` and `chunked_top_k`
+(:507-630), the exact methods `mol_brute_force_top_k` (:633-649),
+`mol_brute_force_top_k_fused` (:652-737, K2 with its tile maxima above
+`_CHUNK_MAX_X` items) and `mol_brute_force_top_k_fused_approx` (:740-763),
+and approximate retrieval: the certificates and `mol_certified_top_k`
+(:766-884, K8), `mol_tile_top_k` (:887-994, K9) and `mol_tile_top_k_shared`
+(:997-1142, K9 + K10), `mips_brute_force_top_k` (:1145-1158), the candidate
+gather with int8 dequantization and `dedup_rerank_top_k` (:1182-1431), and
+Naive, Avg and Comb (:1438-1741). Every method takes int8 fused tables: the
+kernels read the scales, the gathers and the Naive walk dequantize.
 
-The selection is `torch.topk`, exact at every corpus width, where the JAX
-package uses `lax.top_k` (chunked below 262,144 items) and, above that width,
-`hierarchical_top_k` fed by the fused scorer's per-tile maxima; that pair is
-not ported yet (ROADMAP.md, Queue 1: K2 options). Ties may resolve to other
-indices than `lax.top_k`'s lowest-index rule.
+Up to `_CHUNK_MAX_X` columns the select is `torch.topk`; ties may resolve to
+other indices than `lax.top_k`'s lowest-index rule. Above it
+`hierarchical_top_k` selects exactly in the score multiset, as in JAX.
 
-Not ported, because they work around XLA rather than state the algorithm:
-the streamed column gather with its optimization barriers (`top_k.py:1238-
-1302`; indexing a contiguous table copies only the gathered columns) and the
-static unrolling of the Naive corpus walk (the chunking stays: it bounds
-memory). IVF (`MoLIVFTopK`) is the next slice (ROADMAP.md, Queue 1).
+Not ported, because they work around the TPU or XLA rather than state the
+algorithm: `chunked_top_k`'s per-chunk-then-merge select below
+`_CHUNK_MAX_X` (`top_k.py:595-603`, a TPU speed trade), the streamed column
+gather with its optimization barriers (`top_k.py:1238-1302`; indexing a
+contiguous table copies only the gathered columns) and the static unrolling
+of the Naive corpus walk (the chunking stays: it bounds memory). IVF
+(`MoLIVFTopK`) is the next slice (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from rails_tpu_torch.ops.mol_scoring import (
     BLOCK_X,
@@ -38,6 +44,9 @@ from rails_tpu_torch.ops.mol_scoring import (
     fused_mol_scores_tiles,
     fused_mol_ub_t,
     prepare_fused_tables,
+    quantize_columns,
+    quantize_fused_tables,
+    query_dtype,
 )
 from rails_tpu_torch.similarity.mol import MoLItemTables
 
@@ -45,6 +54,13 @@ from rails_tpu_torch.similarity.mol import MoLItemTables
 # carrying it score NEG_PAD before any select, so pads rank below duplicates.
 NEG_DUP = -32767.0
 NEG_PAD = -1.0e30
+# Above this many columns the exact select is `hierarchical_top_k` (and the
+# fused path feeds it K2's tile maxima); at or below it, `torch.topk`.
+_CHUNK_MAX_X = 262_144
+# The one corpus-chunk size of the chunked builder and the streamed oracle:
+# an embed_chunk_fn that keys its noise on the chunk start must see the same
+# chunks in both, or the oracle scores another corpus (`top_k.py:51-56`).
+BUILD_CHUNK = 262_144
 # Naive candidate generation walks corpora above this size in chunks of it.
 _NAIVE_CORPUS_CHUNK = 131_072
 # Candidates per rerank step of the certified and per-query tile methods.
@@ -96,17 +112,21 @@ def build_mol_topk_state(
     table_dtype: torch.dtype = torch.bfloat16,
     build_fused: bool = False,
     fused_only: bool = False,
+    quantize_fused: bool = False,
 ) -> MoLTopKState:
     """Precompute the item-side tables of a corpus (X, D), in `table_dtype`;
     `build_fused` adds the kernel-layout tables, and `fused_only` keeps only
     those (plus the avg table): every method still runs, gathering its
-    candidates from the kernel layout."""
-    if fused_only and not build_fused:
-        raise ValueError("fused_only requires build_fused=True")
+    candidates from the kernel layout. `quantize_fused` stores the fused
+    tables int8 with their scales (half the bytes; `quantize_fused_tables`)."""
+    if (fused_only or quantize_fused) and not build_fused:
+        raise ValueError("fused_only and quantize_fused require build_fused=True")
     tables = model.build_item_tables(item_embeddings)
     comp = tables.component_embeddings
     gating = tables.gating_partial.to(table_dtype)
     fused = prepare_fused_tables(comp.to(table_dtype), gating) if build_fused else None
+    if quantize_fused:
+        fused = quantize_fused_tables(fused)
     if fused_only:
         item_tables = MoLItemTables(
             component_embeddings=comp.new_zeros((0,) + tuple(comp.shape[1:]), dtype=table_dtype),
@@ -123,6 +143,65 @@ def build_mol_topk_state(
     )
 
 
+@torch.inference_mode()
+def build_fused_state_chunked_on_device(
+    model,
+    item_ids: torch.Tensor,                       # (X,) int32, on the target device
+    embed_chunk_fn: Callable[[int, torch.Tensor], torch.Tensor],  # (start, ids) -> (C, D)
+    chunk_size: int = BUILD_CHUNK,
+    table_dtype: torch.dtype = torch.bfloat16,
+    quantize: bool = False,
+) -> MoLTopKState:
+    """A `fused_only` state built chunk by chunk on `item_ids`' device
+    (`top_k.py:293-411`): the kernel-layout tables, the avg table and, with
+    `quantize`, the int8 codes and scales are allocated once at X padded to
+    256 and filled `chunk_size` items at a time, so the peak is the final
+    state plus one chunk, and with `quantize` the `table_dtype` tables never
+    exist whole. Per-chunk quantization gives the bytes of quantizing the
+    assembled tables (`quantize_columns`: the scales are per item); pad
+    columns keep codes 0 and the scale 1e-12 / 127. `item_ids` come back
+    zero-padded to X padded, as in JAX."""
+    mol = model.cfg.mol
+    if not mol.gating_item_fn:
+        raise ValueError("the fused kernel layout needs the item-side gating partial "
+                         "(mol.gating_item_fn=True)")
+    x = int(item_ids.shape[0])
+    xp = -(-x // BLOCK_X) * BLOCK_X
+    p_x, d_p, l = mol.item_dot_product_groups, mol.dot_product_dimension, mol.num_logits
+    dev = item_ids.device
+    tbl = torch.int8 if quantize else table_dtype
+    comp_buf = torch.zeros(p_x, d_p, xp, dtype=tbl, device=dev)
+    gp_buf = torch.zeros(l, xp, dtype=tbl, device=dev)
+    avg_buf = torch.zeros(xp, d_p, dtype=table_dtype, device=dev)
+    cs_buf = ps_buf = None
+    if quantize:
+        pad_scale = torch.full((), 1e-12, dtype=torch.float32, device=dev) / 127.0
+        cs_buf = pad_scale.expand(p_x, xp).clone()
+        ps_buf = pad_scale.expand(1, xp).clone()
+    for start in range(0, x, chunk_size):
+        end = min(start + chunk_size, x)
+        t = model.build_item_tables(embed_chunk_fn(start, item_ids[start:end]))
+        comp_t = t.component_embeddings.to(table_dtype).permute(1, 2, 0)     # (P_X, d_P, C)
+        gp_t = t.gating_partial.to(table_dtype).T                            # (L, C)
+        avg_buf[start:end] = t.component_embeddings.mean(dim=1).to(table_dtype)
+        if quantize:
+            comp_t, gp_t, cs_buf[:, start:end], ps_buf[:, start:end] = quantize_columns(
+                comp_t, gp_t)
+        comp_buf[:, :, start:end] = comp_t
+        gp_buf[:, start:end] = gp_t
+    ids = torch.zeros(xp, dtype=torch.int32, device=dev)
+    ids[:x] = item_ids
+    return MoLTopKState(
+        item_ids=ids,
+        item_tables=MoLItemTables(
+            component_embeddings=torch.zeros(0, p_x, d_p, dtype=table_dtype, device=dev),
+            gating_partial=None,
+        ),
+        avg_component=avg_buf,
+        fused_tables=FusedCorpusTables(comp_buf, gp_buf, x, cs_buf, ps_buf),
+    )
+
+
 def _temperature(model) -> float:
     return float(model.cfg.mol.temperature)
 
@@ -135,8 +214,58 @@ def _fused(state: MoLTopKState, name: str) -> FusedCorpusTables:
 
 
 def _query_comp(model, ft: FusedCorpusTables, query_embeddings, user_ids) -> torch.Tensor:
-    """(B, P_Q, d_P) query components in the table dtype, as the kernels take them."""
-    return model.query_components(query_embeddings, user_ids).to(ft.item_comp_t.dtype).contiguous()
+    """(B, P_Q, d_P) query components as the kernels take them: in the table
+    dtype, bf16 for int8 tables (`query_dtype`)."""
+    q = model.query_components(query_embeddings, user_ids)
+    return q.to(query_dtype(ft.item_comp_t.dtype)).contiguous()
+
+
+def hierarchical_top_k(
+    scores: torch.Tensor,                       # (B, X)
+    k: int,
+    tile: int = BLOCK_X,
+    tile_max: Optional[torch.Tensor] = None,   # (B, >= ceil(X / tile)) f32
+    extra_tiles: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k of multi-million-column rows through a tile-max hierarchy
+    (`top_k.py:507-587`): the top-k tiles by their maxima, then the top-k of
+    those tiles' columns. Every column scoring at least the k-th score lies in
+    a tile whose max is at least that score, and at most k tiles have one, so
+    the score multiset is exact; a tie at the k-th score may resolve to
+    another column than `torch.topk`'s. `tile_max` may come precomputed (K2's
+    emit_blockmax); if it over-states at most `extra_tiles` tiles, selecting
+    that many more tiles keeps the result exact. Pad columns score -inf,
+    strictly below NEG_PAD, so every returned column is < X."""
+    b, x = scores.shape
+    kk = min(k, x)
+    nt = -(-x // tile)
+    if nt <= kk or x <= 2 * k:
+        # Too few tiles for the hierarchy to skip anything.
+        return tuple(torch.topk(scores, kk, dim=1))
+    pad = nt * tile - x
+    if pad:
+        scores = F.pad(scores, (0, pad), value=-torch.inf)
+    tiles = scores.reshape(b, nt, tile)
+    if tile_max is None:
+        tile_max = tiles.amax(dim=2)
+        sel = kk
+    else:
+        if tile_max.shape[1] < nt:
+            raise ValueError(f"tile_max has {tile_max.shape[1]} tiles for {nt}")
+        tile_max = tile_max[:, :nt]
+        sel = min(kk + extra_tiles, nt)
+    tidx = chunked_top_k(tile_max, sel)[1]                              # (B, sel)
+    gathered = tiles.gather(1, tidx[:, :, None].expand(b, sel, tile)).reshape(b, sel * tile)
+    v, pos = chunked_top_k(gathered, kk)
+    return v, tidx.gather(1, pos // tile) * tile + pos % tile
+
+
+def chunked_top_k(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k along the last axis of (B, X) scores: `torch.topk` up to
+    `_CHUNK_MAX_X` columns, `hierarchical_top_k` above (`top_k.py:590-630`)."""
+    if scores.shape[1] > _CHUNK_MAX_X:
+        return hierarchical_top_k(scores, k)
+    return tuple(torch.topk(scores, min(k, scores.shape[1]), dim=1))
 
 
 def mol_brute_force_top_k(
@@ -149,7 +278,7 @@ def mol_brute_force_top_k(
         raise ValueError("the state was built fused_only; use MoLBruteForceTopKFused")
     scores = model.score_precomputed(query_embeddings, state.item_tables, user_ids)
     scores = _mask_pad_rows(scores, state.item_ids)
-    top_scores, top_idx = torch.topk(scores, k, dim=1)
+    top_scores, top_idx = chunked_top_k(scores, k)
     return TopKResult(scores=top_scores, ids=state.item_ids[top_idx])
 
 
@@ -157,16 +286,25 @@ def mol_brute_force_top_k_fused(
     model, state: MoLTopKState, query_embeddings: torch.Tensor, k: int,
     user_ids: Optional[torch.Tensor] = None,
 ) -> TopKResult:
-    """Exact MoL over the whole corpus through the fused scorer (K2):
-    the (B, X, L) logits and the gating activations never reach memory."""
+    """Exact MoL over the whole corpus through the fused scorer (K2): the
+    (B, X, L) logits and the gating activations never reach memory. Above
+    `_CHUNK_MAX_X` items K2 also emits its per-tile maxima with id-0 columns
+    masked in the kernel, and `hierarchical_top_k` selects from them with no
+    masking pass over the (B, X) scores (`top_k.py:698-737`)."""
     ft = _fused(state, "MoLBruteForceTopKFused")
-    scores = fused_mol_scores_t(
-        _query_comp(model, ft, query_embeddings, user_ids),
-        model.query_gating_partial(query_embeddings), ft.item_comp_t, ft.item_partial_t,
-        extract_gating_qi_weights(model.mol), _temperature(model),
-    )
-    scores = _mask_pad_rows(scores[:, : ft.num_items], state.item_ids)
-    top_scores, top_idx = torch.topk(scores, k, dim=1)
+    args = (_query_comp(model, ft, query_embeddings, user_ids),
+            model.query_gating_partial(query_embeddings), ft.item_comp_t, ft.item_partial_t,
+            extract_gating_qi_weights(model.mol), _temperature(model), ft.comp_scale,
+            ft.partial_scale)
+    if ft.num_items > _CHUNK_MAX_X:
+        scores, tile_max = fused_mol_scores_t(*args, emit_blockmax=True,
+                                              valid=state.item_ids != 0)
+        top_scores, top_idx = hierarchical_top_k(scores[:, : ft.num_items], k,
+                                                 tile_max=tile_max)
+    else:
+        scores = fused_mol_scores_t(*args)[:, : ft.num_items]
+        scores = _mask_pad_rows(scores, state.item_ids[: ft.num_items])
+        top_scores, top_idx = chunked_top_k(scores, k)
     return TopKResult(scores=top_scores, ids=state.item_ids[top_idx])
 
 
@@ -205,12 +343,18 @@ def _gathered_candidate_tables(
     """Per-query candidate tables ((B, K, P_X, d_P), (B, K, L)) from the
     standard tables, or from the kernel layout when the state is `fused_only`
     (`_direct_fused_column_gather`; the port's `item_partial_t` rows are
-    already in the n-major logit order)."""
+    already in the n-major logit order); int8 columns dequantize to f32 after
+    the gather (`_finalize_gathered`, `top_k.py:1218-1235`)."""
     it = state.item_tables
     if it.component_embeddings.shape[0] > 0:
         return it.component_embeddings[idx], it.gating_partial[idx]
     ft = _fused(state, "the candidate gather of a fused_only state")
-    return ft.item_comp_t[:, :, idx].permute(2, 3, 0, 1), ft.item_partial_t[:, idx].permute(1, 2, 0)
+    comp = ft.item_comp_t[:, :, idx].permute(2, 3, 0, 1)          # (B, K, P_X, d_P)
+    gp = ft.item_partial_t[:, idx].permute(1, 2, 0)               # (B, K, L)
+    if ft.comp_scale is not None:
+        comp = comp.float() * ft.comp_scale[:, idx].permute(1, 2, 0)[..., None]
+        gp = gp.float() * ft.partial_scale[0, idx][..., None]
+    return comp, gp
 
 
 def _rerank_scores(model, state, query_embeddings, idx, is_first, user_ids) -> torch.Tensor:
@@ -281,7 +425,8 @@ def mol_certified_top_k(
     returned k-th score proves the result exact."""
     ft = _fused(state, "mol_certified_top_k")
     q_comp = _query_comp(model, ft, query_embeddings, user_ids)
-    ub = fused_mol_ub_t(q_comp, ft.item_comp_t, _temperature(model))[:, : ft.num_items]
+    ub = fused_mol_ub_t(q_comp, ft.item_comp_t, _temperature(model),
+                        ft.comp_scale)[:, : ft.num_items]
     ub = _mask_pad_rows(ub, state.item_ids[: ub.shape[1]])
     b, x = ub.shape
     c = min(cand_budget, x)
@@ -300,7 +445,8 @@ def mol_certified_top_k(
 def _group_block_max(model, state, query_embeddings, user_ids, name):
     ft = _fused(state, name)
     q_comp = _query_comp(model, ft, query_embeddings, user_ids)
-    return ft, q_comp, fused_mol_group_block_max(q_comp, ft.item_comp_t, _temperature(model))
+    return ft, q_comp, fused_mol_group_block_max(q_comp, ft.item_comp_t, _temperature(model),
+                                                 ft.comp_scale)
 
 
 def mol_tile_top_k(
@@ -386,7 +532,7 @@ def mol_tile_top_k_shared(
     scores = fused_mol_scores_tiles(
         q_comp, model.query_gating_partial(query_embeddings), sel_tiles.to(torch.int32),
         ft.item_comp_t, ft.item_partial_t, extract_gating_qi_weights(model.mol),
-        _temperature(model),
+        _temperature(model), ft.comp_scale, ft.partial_scale,
     )                                          # (B, t * BLOCK_X)
     cols = (sel_tiles[:, None] * BLOCK_X + torch.arange(BLOCK_X, device=gmax.device)).reshape(-1)
     valid = sel_first.repeat_interleave(BLOCK_X) & (cols < ft.num_items)
@@ -415,12 +561,18 @@ def mips_brute_force_top_k(
 def _chunk_component_sims(state: MoLTopKState, q_comp: torch.Tensor, start: int,
                           size: int) -> torch.Tensor:
     """(B, P_Q, P_X, size) f32 component dot products of one corpus chunk,
-    from whichever layout the state holds."""
+    from whichever layout the state holds; an int8 chunk's scales multiply
+    the products (`top_k.py:1455-1495`: the scale folds in after the
+    contraction)."""
     it = state.item_tables.component_embeddings
     if it.shape[0] > 0:
         return torch.einsum("bnd,cmd->bnmc", q_comp.float(), it[start : start + size].float())
-    sl = state.fused_tables.item_comp_t[:, :, start : start + size]
-    return torch.einsum("bnd,mdc->bnmc", q_comp.float(), sl.float())
+    ft = state.fused_tables
+    sims = torch.einsum("bnd,mdc->bnmc", q_comp.float(),
+                        ft.item_comp_t[:, :, start : start + size].float())
+    if ft.comp_scale is not None:
+        sims = sims * ft.comp_scale[None, None, :, start : start + size]
+    return sims
 
 
 def _naive_candidates(
@@ -442,8 +594,8 @@ def _naive_candidates(
     has_std = it.shape[0] > 0
     if not has_std:
         _fused(state, "Naive candidate generation on a fused_only state")
-    table_dtype = it.dtype if has_std else state.fused_tables.item_comp_t.dtype
-    q_comp = q_comp.to(table_dtype)
+    # int8 tables take bf16 queries, as the JAX walk's bf16 dot does.
+    q_comp = q_comp.to(query_dtype(it.dtype if has_std else state.fused_tables.item_comp_t.dtype))
     b = q_comp.shape[0]
     x = state.item_ids.shape[0]
     full_cover = k_per_group >= x

@@ -115,14 +115,14 @@ def load_library() -> ctypes.CDLL:
     lib.rails_hstu_block_fwd.restype = i
     lib.rails_hstu_attn_smem_bytes.argtypes = [i, i, i]
     lib.rails_hstu_attn_smem_bytes.restype = ctypes.c_size_t
-    lib.rails_mol_scores.argtypes = [i, i, i] + [p] * 9 + [i] * 4 + [f, p]
+    lib.rails_mol_scores.argtypes = [i, i, i] + [p] * 13 + [i] * 4 + [f, p]
     lib.rails_mol_scores.restype = i
     lib.rails_mol_scores_smem_bytes.argtypes = [i] * 5
     lib.rails_mol_scores_smem_bytes.restype = ctypes.c_size_t
-    lib.rails_mol_scores_tiles.argtypes = [i, i, i] + [p] * 10 + [i] * 5 + [f, p]
+    lib.rails_mol_scores_tiles.argtypes = [i, i, i] + [p] * 12 + [i] * 5 + [f, p]
     lib.rails_mol_scores_tiles.restype = i
     for bound_fn in (lib.rails_mol_ub, lib.rails_mol_group_block_max):
-        bound_fn.argtypes = [i, i, i] + [p] * 3 + [i] * 3 + [f, p]
+        bound_fn.argtypes = [i, i, i] + [p] * 4 + [i] * 3 + [f, p]
         bound_fn.restype = i
     lib.rails_mol_bounds_smem_bytes.argtypes = [i] * 3
     lib.rails_mol_bounds_smem_bytes.restype = ctypes.c_size_t

@@ -1,7 +1,8 @@
 """Serving/eval step: encode -> MoL top-k' -> seen-id filter -> ranks.
 
 Counterpart of `rails_tpu/train/evaluation.py`: `EvalState` and
-`get_eval_state` (:64-138, without IVF), `ranks_from_top_k` (:141-152),
+`get_eval_state` (:64-138, int8 tables for the `...Int8...` spellings; without
+IVF), `ranks_from_top_k` (:141-152),
 `metrics_from_ranks` (:155-172), `make_eval_step_fn` and `make_eval_step`
 (:192-262) and `recall_vs_exact` (:531-574). The step is a plain Python
 function under `torch.inference_mode`: no jit and no CUDA graph yet.
@@ -53,7 +54,8 @@ def get_eval_state(
 ) -> EvalState:
     """Embed the whole corpus and build the method's top-k state on `device`
     (the card unless the caller passes "cpu"): the kernel-layout tables for
-    the fused, certified and tile methods, no MoL tables for MIPS.
+    the fused, certified and tile methods (int8 with their scales for the
+    `...Int8...` spellings), no MoL tables for MIPS.
     (The JAX package's `item_l2_norm` serves the dot-product configs, which
     are not ported.)"""
     get_top_k_raw(top_k_method)   # refuse unported methods before any work
@@ -68,7 +70,8 @@ def get_eval_state(
         )
     else:
         state = build_mol_topk_state(model, ids, emb, table_dtype=table_dtype,
-                                     build_fused=_reads_fused_tables(top_k_method))
+                                     build_fused=_reads_fused_tables(top_k_method),
+                                     quantize_fused="Int8" in top_k_method)
     return EvalState(topk_state=state, num_objects=int(ids.shape[0]),
                      top_k_method=top_k_method, item_embeddings=emb)
 

@@ -170,17 +170,112 @@ def test_bound_and_tile_kernels_refuse_what_they_have_no_instance_for(cuda):
     args, _ = _k2_args(4, 300, 8, 4, 32, 32, torch.float32, cuda)
     q, qp, items, ip, w, t = args
     tiles = torch.zeros(1, dtype=torch.int32, device=cuda)
-    int8 = items.to(torch.int8)
-    for call in (lambda: mol_scoring.fused_mol_ub_t(q, int8, t),
-                 lambda: mol_scoring.fused_mol_group_block_max(q, int8, t),
-                 lambda: mol_scoring.fused_mol_scores_tiles(q, qp, tiles, int8, ip, w, t)):
-        with pytest.raises(NotImplementedError, match="int8"):
+    half, q_half = items.half(), q.half()
+    for call in (lambda: mol_scoring.fused_mol_ub_t(q_half, half, t),
+                 lambda: mol_scoring.fused_mol_group_block_max(q_half, half, t),
+                 lambda: mol_scoring.fused_mol_scores_tiles(q_half, qp, tiles, half, ip.half(), w,
+                                                            t)):
+        with pytest.raises(NotImplementedError, match="no kernel instance"):
             call()
     q2 = q[:, :2].contiguous()       # (P_Q, P_X) = (2, 4): no instance
     for call in (lambda: mol_scoring.fused_mol_ub_t(q2, items, t),
                  lambda: mol_scoring.fused_mol_group_block_max(q2, items, t)):
         with pytest.raises(NotImplementedError, match="no kernel instance"):
             call()
+
+
+def _int8_args(b, x, p_q, p_x, d_p, hd, device, seed=0):
+    """K2's bf16 operands with the tables quantized to int8."""
+    (q, qp, items, ip, w, t), x = _k2_args(b, x, p_q, p_x, d_p, hd, torch.bfloat16, device, seed)
+    ft = mol_scoring.quantize_fused_tables(mol_scoring.FusedCorpusTables(items, ip, x))
+    return q, qp, ft, w, t, x
+
+
+INT8_SHAPES = [(7, 256, 4, 2, 16, 32), (33, 768, 8, 4, 128, 128), (40, 700, 8, 4, 64, 96)]
+
+
+def _launched(fn, call):
+    before = (fn.launches, fn.int8_launches)
+    out = call()
+    assert (fn.launches, fn.int8_launches) == (before[0] + 1, before[1] + 1)
+    return out
+
+
+@pytest.mark.parametrize("shape", INT8_SHAPES, ids=["one_tile", "three_tiles_ml20m", "odd"])
+def test_int8_kernels_match_plain(cuda, shape):
+    """K2, K10, K8 and K9 on int8 tables against their plain versions, at B
+    not a multiple of 32 and corpora of one and three tiles: K2 and K10 by
+    K2's bf16 contract, K8 and K9 to 1e-5 of their largest value; K10's
+    columns are K2's bit for bit; K8 bounds K2 and K9 bounds K8."""
+    q, qp, ft, w, t, x = _int8_args(*shape, cuda)
+    a8 = (q, qp, ft.item_comp_t, ft.item_partial_t, w, t, ft.comp_scale, ft.partial_scale)
+    k2 = _launched(mol_scoring.fused_mol_scores_t, lambda: mol_scoring.fused_mol_scores_t(*a8))
+    want = mol_scoring.fused_mol_scores_t_reference(*a8)
+    assert (k2[:, :x].argmax(dim=1) == want[:, :x].argmax(dim=1)).float().mean().item() >= 0.99
+    torch.testing.assert_close(k2, want, rtol=2e-2, atol=2e-2)
+    nb = ft.item_comp_t.shape[2] // 256
+    tiles = torch.tensor([nb - 1, 0, nb - 1], dtype=torch.int32, device=cuda)
+    k10 = _launched(mol_scoring.fused_mol_scores_tiles, lambda: mol_scoring.fused_mol_scores_tiles(
+        q, qp, tiles, *a8[2:]))
+    cols = (tiles.long()[:, None] * 256 + torch.arange(256, device=cuda)).reshape(-1)
+    assert torch.equal(k10, k2[:, cols])
+    torch.testing.assert_close(
+        k10, mol_scoring.fused_mol_scores_tiles_reference(q, qp, tiles, *a8[2:]),
+        rtol=2e-2, atol=2e-2)
+    for fn, ref in ((mol_scoring.fused_mol_ub_t, mol_scoring.fused_mol_ub_t_reference),
+                    (mol_scoring.fused_mol_group_block_max,
+                     mol_scoring.fused_mol_group_block_max_reference)):
+        got = _launched(fn, lambda: fn(q, ft.item_comp_t, t, ft.comp_scale))
+        plain = ref(q, ft.item_comp_t, t, ft.comp_scale)
+        assert ((got - plain).abs().max() / plain.abs().max()).item() <= 1e-5
+    ub = mol_scoring.fused_mol_ub_t(q, ft.item_comp_t, t, ft.comp_scale)
+    gmax = mol_scoring.fused_mol_group_block_max(q, ft.item_comp_t, t, ft.comp_scale).amax(dim=1)
+    assert bool((ub + 2.0**-20 * ub.abs() >= k2).all())
+    assert bool((gmax[:, torch.arange(ub.shape[1], device=cuda) // 256] >= ub).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8],
+                         ids=["f32", "bf16", "int8"])
+def test_k2_blockmax_matches_plain(cuda, dtype):
+    """emit_blockmax at B=33 over three tiles, `valid` with interior zeros and
+    shorter than the padded corpus: the scores are K2's with those columns at
+    -1e30, bit for bit; the maxima are theirs exactly; the plain version agrees."""
+    if dtype == torch.int8:
+        q, qp, ft, w, t, x = _int8_args(33, 700, 8, 4, 128, 128, cuda)
+        args = (q, qp, ft.item_comp_t, ft.item_partial_t, w, t, ft.comp_scale, ft.partial_scale)
+    else:
+        args, x = _k2_args(33, 700, 8, 4, 128, 128, dtype, cuda)
+    valid = torch.ones(x, device=cuda)
+    valid[[0, 3, 255, 256, 600]] = 0.0
+    k2 = mol_scoring.fused_mol_scores_t(*args)
+    before = mol_scoring.fused_mol_scores_t.blockmax_launches
+    scores, tile_max = mol_scoring.fused_mol_scores_t(*args, emit_blockmax=True, valid=valid)
+    assert mol_scoring.fused_mol_scores_t.blockmax_launches == before + 1
+    keep = torch.zeros(k2.shape[1], device=cuda)
+    keep[:x] = valid
+    assert torch.equal(scores, torch.where(keep != 0, k2, -1e30))
+    assert tile_max.shape == (33, 3)
+    assert torch.equal(tile_max, scores.reshape(33, 3, 256).amax(dim=2))
+    ref_scores, ref_max = mol_scoring.fused_mol_scores_t_reference(*args, emit_blockmax=True,
+                                                                  valid=valid)
+    tol = dict(rtol=1e-4, atol=1e-3) if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(scores, ref_scores, **tol)
+    torch.testing.assert_close(tile_max, ref_max, **tol)
+
+
+def test_int8_wrappers_need_scales_and_bf16_queries(cuda):
+    q, qp, ft, w, t, _ = _int8_args(4, 300, 8, 4, 32, 32, cuda)
+    tiles = torch.zeros(1, dtype=torch.int32, device=cuda)
+    for call in (lambda: mol_scoring.fused_mol_scores_t(q, qp, ft.item_comp_t, ft.item_partial_t,
+                                                        w, t, ft.comp_scale),
+                 lambda: mol_scoring.fused_mol_scores_tiles(q, qp, tiles, ft.item_comp_t,
+                                                            ft.item_partial_t, w, t),
+                 lambda: mol_scoring.fused_mol_ub_t(q, ft.item_comp_t, t),
+                 lambda: mol_scoring.fused_mol_group_block_max(q, ft.item_comp_t, t)):
+        with pytest.raises(ValueError, match="int8 tables need comp_scale"):
+            call()
+    with pytest.raises(ValueError, match="take torch.bfloat16 queries"):
+        mol_scoring.fused_mol_ub_t(q.float(), ft.item_comp_t, t, ft.comp_scale)
 
 
 def test_wrappers_reject_bad_cuda_inputs(cuda):
