@@ -13,8 +13,10 @@ Phases (one line each, any failure raises and exits non-zero):
      make_eval_step_fn, in bf16 (as served) and in f32, each with launch
      counts and against the same step through the plain versions.
   6. K3 (`hash_keep_mask`), the o_input mask at (128, 211, 256), bit-equal.
-  7. K4 (`fused_train_block_forward`, `attn_backward`): one f32 layer at
-     B=128, n=211, forward and every gradient vs the plain autograd version.
+  7. K4 (`fused_train_block_forward`, `attn_backward`): one layer at B=128,
+     n=211, f32 and bf16, forward and every gradient vs the plain versions
+     (f32: the plain autograd version; bf16: the block's glue over the plain
+     forward and attention backward), and the attention backward alone.
   8. K7 (`adamw_leaf_update`) on the two fused leaves of ml-20m, vs its plain
      version, with `torch._fused_adamw_` timed as a yardstick.
   9. train: create_train_state + train_step on ml-20m-hstu-mol (B=128,
@@ -66,6 +68,17 @@ int8 serving tables and the exact select at scale:
      int8 rows sound.
  19. int8-e2e: the serving step with MoLBruteForceTopKFusedInt8 and
      MoLCertTopK4096Int8, vs the plain path, recall_vs_exact and launches.
+The frontier and its bf16 pre-train:
+ 20. train-bf16: as 9 with main_module_bf16 (bf16 K4, 16 + 16 launches per
+     step), the kernel step vs the plain step at bf16 tolerances.
+ 21. frontier: `rails_tpu_torch.cli.frontier` through its functions at
+     8,000,000 items (uncut): 150 bf16 pre-train steps at B=32 (the loss must
+     fall), the chunked bf16 build, queries through the XLA-path encoder (no
+     K1), the streamed oracle, every default method (one JSON row each, as
+     the CLI prints it), then Fused, Cert4096 and Tile8 on the int8 build of
+     the same corpus. Gates: the exact bf16 path vs the oracle tie-aware, the
+     exact int8 path equal to torch.topk of K2-int8's scores, certified rows
+     holding K2's exact top-k. Recall is printed, not gated.
 The line before the last is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script fails before printing
 any result.
@@ -97,6 +110,15 @@ K4_TOL = (1e-3, 1e-4)          # (rtol, atol) of the f32 forward, as K1
 # paths sum in other f32 orders (and index_add_ bins d tsw with atomics).
 GRAD_REL_TOL = 1e-3
 TRAIN_LOSS_RTOL = 1e-4
+# bf16 K4 against its plain version: the forward and each gradient within
+# this share of its largest value (both round to bf16 at the same points and
+# sum in other f32 orders), as the CPU test holds the plain version to JAX.
+K4_BF16_TOL = 2e-2
+# The bf16 training step, kernels vs plain: loss rtol and gradient share.
+# One-ulp differences of the bf16 blocks grow through 16 layers and the bf16
+# loss: measured 1.9e-5 on the loss and up to 4.4e-2 (hstu) on the gradients
+# (NVIDIA H100 80GB HBM3, 700 W).
+BF16_TRAIN_TOL = (1e-2, 1e-1)
 K7_ATOL = 1e-6
 # K6: max |kernel - plain| over max(1, max |plain|). Both sum in f32, in other
 # orders where ids repeat.
@@ -127,6 +149,10 @@ INT8_ITEMS = 1 << 22           # the frontier's 4M corpus
 INT8_METHODS = ("MoLBruteForceTopKFusedInt8", "MoLBruteForceTopKFusedInt8Approx",
                 "MoLCertTopK4096Int8", "MoLTileTopK8B512Int8", "MoLNaiveTopK50")
 E2E_INT8_METHODS = ("MoLBruteForceTopKFusedInt8", "MoLCertTopK4096Int8")
+FRONTIER_ITEMS = 8_000_000     # the frontier's default corpus, uncut
+FRONTIER_STEPS = 150           # its default pre-train
+FRONTIER_RUNS = 8              # its default timed calls per method
+FRONTIER_INT8_METHODS = ("MoLBruteForceTopKFused", "MoLCertTopK4096", "MoLTileTopK8")
 BMAX_INVALID = (5, 77, 300_000, 777_777)   # mid-corpus valid=0 columns of [K2-bmax]
 # f32 rounding of K2's softmax mixture: K8's bound may sit this far (relative)
 # below K2's score when the mixture weights all fall on the largest logit.
@@ -429,6 +455,8 @@ def kernel_counters() -> dict:
     counters["K2-bmax"] = (mol_scoring.fused_mol_scores_t, "blockmax_launches")
     for k in ("K2", "K8", "K9", "K10"):
         counters[f"{k}-int8"] = (wrappers[k], "int8_launches")
+    for k in ("K4 fwd", "K4 bwd"):
+        counters[f"{k} (bf16)"] = (wrappers[k], "bf16_launches")
     return counters
 
 
@@ -581,66 +609,89 @@ def rel_err(got, ref) -> float:
     return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
 
 
-def check_k4(device) -> tuple:
-    """One f32 train block at B=128, n=211 with dropout 0.2: the kernels'
-    forward and every gradient against autograd of the plain forward; then
-    forward and attention-backward times of both."""
+def check_k4(device, dtype) -> tuple:
+    """One train block at B=128, n=211 with dropout 0.2, f32 or bf16 operands:
+    the kernels' forward and every gradient against the plain versions (f32:
+    autograd of the plain forward; bf16: the block's own glue with the plain
+    forward and attention backward, which round where the kernels round);
+    then forward and attention-backward times of both."""
     import torch
 
     from rails_tpu_torch.ops import hstu_block_train as hbt
     from rails_tpu_torch.ops.hash_dropout import hash_keep_mask
     from rails_tpu_torch.ops.hstu_block import ln
 
+    bf16 = dtype == torch.bfloat16
+    dt = "bf16" if bf16 else "f32"
     b, n = TRAIN_BATCH, MAX_SEQ_LEN
     (x, colmask, uvqk, o_kernel, o_bias, rel_pos, ext, tsw), kw = k1_inputs(
-        b, n, torch.float32, device, seed=3)
-    x = x * colmask[..., None]
+        b, n, dtype, device, seed=3)
+    x = x * colmask[..., None].to(dtype)
     meta = hbt.BlockMeta(H, DQK, DV, kw["inv_n"], kw["eps"], 128, 0.2)
     seed = 987_654_321
     w = torch.cos(torch.arange(x.numel(), device=device, dtype=torch.float32) * 0.01).reshape(x.shape)
     names = ("x", "rel_pos", "tsw", "uvqk", "o_kernel", "o_bias")
     results = {}
-    for label, fn in (("kernel", hbt.fused_train_block),
-                      ("plain", hbt.fused_train_block_autograd_reference)):
+    for label in ("kernel", "plain"):
+        fn = hbt.fused_train_block
+        if label == "plain" and not bf16:
+            fn = hbt.fused_train_block_autograd_reference
         leaves = [t.clone().requires_grad_(True) for t in (x, rel_pos, tsw, uvqk, o_kernel, o_bias)]
-        out = fn(*leaves, colmask, ext, seed, meta)
-        (out * w).sum().backward()
-        results[label] = (out.detach(), {k: t.grad for k, t in zip(names, leaves)})
+        with plain_kernels() if label == "plain" and bf16 else contextlib.nullcontext():
+            out = fn(*leaves, colmask, ext, seed, meta)
+            (out.float() * w).sum().backward()
+        results[label] = (out.detach().float(), {k: t.grad.float() for k, t in zip(names, leaves)})
     (out_k, g_k), (out_p, g_p) = results["kernel"], results["plain"]
-    rtol, atol = K4_TOL
-    torch.testing.assert_close(out_k, out_p, rtol=rtol, atol=atol)
+    grad_tol = K4_BF16_TOL if bf16 else GRAD_REL_TOL
+    if bf16:
+        err_share = rel_err(out_k, out_p)
+        if err_share > K4_BF16_TOL:
+            raise AssertionError(f"K4 bf16 forward outside {K4_BF16_TOL}: {err_share}")
+        verdict = f"max|err|/max|plain| {err_share:.2e} <= {K4_BF16_TOL}"
+    else:
+        rtol, atol = K4_TOL
+        torch.testing.assert_close(out_k, out_p, rtol=rtol, atol=atol)
+        verdict = f"rtol {rtol}, atol {atol}"
     err = (out_k - out_p).abs().max().item()
     grad_errs = {k: rel_err(g_k[k], g_p[k]) for k in names}
     worst = max(grad_errs.values())
-    if worst > GRAD_REL_TOL:
-        raise AssertionError(f"K4 gradients outside {GRAD_REL_TOL}: {grad_errs}")
+    if worst > grad_tol:
+        raise AssertionError(f"K4 {dt} gradients outside {grad_tol}: {grad_errs}")
 
     args = (x, colmask, uvqk, o_kernel, o_bias, rel_pos, ext, tsw, seed, meta)
     fwd_ms = cuda_ms(lambda: hbt.fused_train_block_forward(*args))
     fwd_plain_ms = cuda_ms(lambda: hbt.fused_train_block_forward_reference(*args), iters=3)
     _, attn = hbt.fused_train_block_forward(*args)
-    z = ln(x, meta.eps) @ uvqk
-    y = z * torch.sigmoid(z)
-    d_o = (w @ o_kernel.T) * hash_keep_mask(b, n, H * DV, seed, meta.rate, device)
-    bargs = (y, d_o, attn, colmask, rel_pos, ext, tsw, meta)
-    d_y_k, dbias_k = hbt.attn_backward(*bargs)
-    d_y_p, dbias_p = hbt.attn_backward_reference(*bargs)
+    n0 = ln(x.float(), meta.eps)
+    z = n0.to(dtype).float() @ uvqk.float()
+    y = (z * torch.sigmoid(z)).to(dtype)
+    d_o = ((w.to(dtype).float() @ o_kernel.float().T)
+           * hash_keep_mask(b, n, H * DV, seed, meta.rate, device)).to(dtype)
+    # The bf16 backward recomputes attn from its bf16 y, as the JAX backward does.
+    bargs = (y, d_o, None if bf16 else attn, colmask, rel_pos, ext, tsw, meta)
+    d_y_k, dbias_k, _ = hbt.attn_backward(*bargs)
+    d_y_p, dbias_p, _ = hbt.attn_backward_reference(*bargs)
     bwd_err = max(rel_err(d_y_k, d_y_p), rel_err(dbias_k, dbias_p))
-    if bwd_err > GRAD_REL_TOL:
-        raise AssertionError(f"K4 attention backward outside {GRAD_REL_TOL}: {bwd_err}")
+    if bwd_err > grad_tol:
+        raise AssertionError(f"K4 {dt} attention backward outside {grad_tol}: {bwd_err}")
     bwd_ms = cuda_ms(lambda: hbt.attn_backward(*bargs))
     bwd_plain_ms = cuda_ms(lambda: hbt.attn_backward_reference(*bargs), iters=3)
     pairs = b * H * n * (n + 1) // 2
-    fwd_bd = bound(block_flops(b, n), block_bytes(b, n, 4) + 4 * b * n * H * DV, "float32")
+    isz = x.element_size()
+    peak = "bfloat16" if bf16 else "float32"
+    fwd_bd = bound(block_flops(b, n), block_bytes(b, n, isz) + 4 * b * n * H * DV, peak)
     f = 2 * H * DV + 2 * H * DQK
-    bwd_bd = bound(5 * 2 * 32 * pairs,   # s, d_a, d_q, d_k, d_v over the causal pairs
-                   4 * (2 * b * n * f + 2 * b * n * H * DV + b * n * n + n * n + b * n
-                        + b * (n + 1) + 128), "float32")
-    print(f"[K4] f32 B={b} n={n} D={D} h={H} dropout {meta.rate}: forward max|err| {err:.3e} "
-          f"(rtol {rtol}, atol {atol}); gradient max|err|/max|plain| "
+    # s, d_a, d_q, d_k, d_v over the causal pairs; bf16 also recomputes attn (s, a v).
+    products = 7 if bf16 else 5
+    bwd_bd = bound(products * 2 * 32 * pairs,
+                   isz * (b * n * f + b * n * H * DV)
+                   + 4 * (b * n * f + b * n * H * DV + b * n * n + n * n + b * n
+                          + b * (n + 1) + 128), peak)
+    print(f"[K4] {dt} B={b} n={n} D={D} h={H} dropout {meta.rate}: forward max|err| {err:.3e} "
+          f"({verdict}); gradient max|err|/max|plain| "
           + ", ".join(f"{k} {v:.2e}" for k, v in grad_errs.items())
-          + f" (<= {GRAD_REL_TOL}); attention backward alone {bwd_err:.2e}")
-    print(f"[K4] forward kernel {fwd_ms:.3f} ms, plain {fwd_plain_ms:.3f} ms, bound "
+          + f" (<= {grad_tol}); attention backward alone {bwd_err:.2e}")
+    print(f"[K4] {dt} forward kernel {fwd_ms:.3f} ms, plain {fwd_plain_ms:.3f} ms, bound "
           f"{fwd_bd['bound_ms']:.4f} ms ({fwd_bd['bound_by']}); attention backward kernel "
           f"{bwd_ms:.3f} ms, plain {bwd_plain_ms:.3f} ms, bound {bwd_bd['bound_ms']:.4f} ms "
           f"({bwd_bd['bound_by']})")
@@ -725,14 +776,16 @@ def train_batch(cfg, device, batch: int = TRAIN_BATCH):
 
 def step_launches(cfg) -> dict:
     """The kernel launches one training step of `cfg` makes: K3 and K4 once
-    per block, K7 on the two fused leaves; with the fused shared-negatives
-    loss K5 forward and backward once; with pallas_scatter_grad K6 once per
-    gather from the item table (the tokens, the encoder's input, the
-    negatives); no serving kernel."""
+    per block (its bf16 instance with `main_module_bf16`), K7 on the two fused
+    leaves; with the fused shared-negatives loss K5 forward and backward
+    once; with pallas_scatter_grad K6 once per gather from the item table (the
+    tokens, the encoder's input, the negatives); no serving kernel."""
     blocks = cfg.hstu.num_blocks
     fused = cfg.train.shared_negatives and cfg.train.fused_mol_loss
+    bf16 = blocks if cfg.train.main_module_bf16 else 0
     return {**{k: 0 for k in kernel_counters()}, "K3": blocks, "K4 fwd": blocks,
-            "K4 bwd": blocks, "K5 fwd": int(fused), "K5 bwd": int(fused),
+            "K4 bwd": blocks, "K4 fwd (bf16)": bf16, "K4 bwd (bf16)": bf16,
+            "K5 fwd": int(fused), "K5 bwd": int(fused),
             "K6": 3 if cfg.train.pallas_scatter_grad else 0, "K7": 2}
 
 
@@ -769,6 +822,8 @@ def train_phase(device, name: str, smi: str, config: str = "ml-20m-hstu-mol",
     with plain_kernels():
         state, m_p = step(state, batch, gen)
     loss_err = abs(m_k["loss"].item() - m_p["loss"].item()) / abs(m_p["loss"].item())
+    dt = "bf16" if cfg.train.main_module_bf16 else "f32"
+    loss_tol, grad_tol = BF16_TRAIN_TOL if dt == "bf16" else (TRAIN_LOSS_RTOL, GRAD_REL_TOL)
     groups: dict = {}
     for k, p in params.items():
         group = k.split(".")[0]
@@ -776,12 +831,12 @@ def train_phase(device, name: str, smi: str, config: str = "ml-20m-hstu-mol",
     negatives = "shared" if cfg.train.shared_negatives else "per position"
     print(f"[{tag}] step 1 kernels vs plain, {cfg.name} B={TRAIN_BATCH} N={n} "
           f"R={cfg.train.num_negatives} {negatives}, pallas_scatter_grad="
-          f"{cfg.train.pallas_scatter_grad}, f32: loss {m_k['loss'].item():.6f} vs "
-          f"{m_p['loss'].item():.6f} (rel {loss_err:.2e} <= {TRAIN_LOSS_RTOL}); gradient "
+          f"{cfg.train.pallas_scatter_grad}, {dt}: loss {m_k['loss'].item():.6f} vs "
+          f"{m_p['loss'].item():.6f} (rel {loss_err:.2e} <= {loss_tol}); gradient "
           f"max|err|/max|plain| per group "
           + ", ".join(f"{k} {v:.2e}" for k, v in groups.items())
-          + f" (<= {GRAD_REL_TOL}); launches per step {per_step}")
-    if loss_err > TRAIN_LOSS_RTOL or max(groups.values()) > GRAD_REL_TOL:
+          + f" (<= {grad_tol}); launches per step {per_step}")
+    if loss_err > loss_tol or max(groups.values()) > grad_tol:
         raise AssertionError("the kernel step disagrees with the plain step")
     del grads_k, p0, mu0, nu0
 
@@ -1399,6 +1454,114 @@ def int8_e2e(device, name: str, smi: str) -> dict:
     return counts
 
 
+def frontier_phase(device, name: str, smi: str) -> dict:
+    """The port's frontier CLI (`rails_tpu_torch.cli.frontier`) through its
+    own functions at FRONTIER_ITEMS items: the bf16 pre-train (the loss must
+    fall: the mean of the last 10 steps below the first 10), the chunked
+    bf16 build, the queries through the XLA-path encoder, the streamed
+    oracle, every default method; then the int8 build of the same corpus and
+    FRONTIER_INT8_METHODS with `--int8`. Gates: the exact bf16 path against
+    the oracle tie-aware (`check_against_oracle`), the exact int8 path equal
+    to torch.topk of K2-int8's scores, and every certified row holding K2's
+    exact top-k (`check_certified`). Recall is printed, not gated. Returns the
+    launches of the whole phase."""
+    import torch
+
+    from rails_tpu_torch.cli import frontier as fr
+    from rails_tpu_torch.index import top_k as tk
+    from rails_tpu_torch.ops.mol_scoring import extract_gating_qi_weights, fused_mol_scores_t
+
+    args = fr.parse_args(["--num-items", str(FRONTIER_ITEMS), "--train-steps",
+                          str(FRONTIER_STEPS), "--runs", str(FRONTIER_RUNS)])
+    methods = fr.check_ported(args)
+    cfg = fr.configure(args)
+    ds = fr.synthetic_dataset(cfg)
+    k, x = args.k, args.num_items
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, losses = fr.pretrain(cfg, ds, args.train_steps, device)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    counts = launch_counts()
+    want = {key: v * len(losses) for key, v in step_launches(cfg).items()}
+    if counts != want:
+        raise AssertionError(f"frontier pre-train launches {counts}, want {want}")
+    first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+    print(f"[frontier] pre-train {cfg.name} bf16, B={args.batch_size}, {len(losses)} steps over "
+          f"{cfg.data.synthetic_num_users} synthetic users ({cfg.data.synthetic_num_items} items): "
+          f"loss first-10 mean {first:.4f}, last-10 mean {last:.4f}; {pre_s:.2f} s = "
+          f"{1e3 * pre_s / len(losses):.3f} ms/step; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{ {key: v for key, v in counts.items() if v} } on {name} ({smi})")
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError(f"the frontier pre-train loss did not fall: {losses}")
+    phase_counts = dict(counts)
+
+    with torch.inference_mode():
+        embed = fr.clustered_embed_fn(model, cfg.data.synthetic_num_items, args.cluster_sigma)
+        batch = next(ds.batches(args.batch_size, cfg.train.gr_output_length + 1, shuffle=False,
+                                device=device))
+        reset_launches()
+        q, uids = model.encode(batch.features), batch.features.user_ids
+        if launch_counts()["K1"]:
+            raise AssertionError("the frontier's encoder (fused_inference=False) launched K1")
+        oracle = oracle_t = None
+        for kind, methods_ in (("bf16", methods), ("int8", FRONTIER_INT8_METHODS)):
+            int8 = kind == "int8"
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state = fr.build_corpus(model, x, embed, int8, device)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            line = (f"[frontier] {kind} tables of a clustered corpus of {x} items (sigma "
+                    f"{args.cluster_sigma}, build chunk {tk.BUILD_CHUNK}), B={q.shape[0]}, k={k}: "
+                    f"build {build_s:.2f} s, state {state_gib(state):.3f} GiB")
+            if oracle is None:
+                t0 = time.perf_counter()
+                oracle = fr.exact_oracle(model, state, q, uids, k, embed)
+                line += f"; streamed oracle {time.perf_counter() - t0:.2f} s"
+                oracle_t = tk.TopKResult(torch.from_numpy(oracle.scores).to(device),
+                                         torch.from_numpy(oracle.ids).to(device))
+            ft = state.fused_tables
+            k2_scores = fused_mol_scores_t(
+                tk._query_comp(model, ft, q, uids), model.query_gating_partial(q),
+                ft.item_comp_t, ft.item_partial_t, extract_gating_qi_weights(model.mol),
+                TEMPERATURE, ft.comp_scale, ft.partial_scale)[:, :x]
+            exact = tk.TopKResult(*torch.topk(k2_scores, k, dim=1))
+            exact = exact._replace(ids=exact.ids + 1)           # corpus ids are positions + 1
+            print(line + f" on {name} ({smi})")
+            for method in methods_:
+                reset_launches()
+                row, res, cert = fr.run_method(model, state, q, uids, method, k, args.runs, int8,
+                                               oracle, device)
+                counts = launch_counts()
+                for key, v in counts.items():
+                    phase_counts[key] = phase_counts.get(key, 0) + v
+                line = f"[frontier] {json.dumps(row)}; launches { {a: v for a, v in counts.items() if v} }"
+                if method == "MoLBruteForceTopKFused" and not int8:
+                    delta, dev = check_against_oracle(model, state, res, k2_scores, oracle_t, q,
+                                                      uids)
+                    line += f"; vs the oracle tie-aware: dev {dev:.3e} <= 2 x delta {delta:.3e}"
+                elif method == "MoLBruteForceTopKFused":
+                    if not torch.equal(res.scores, exact.scores):
+                        raise AssertionError("FusedInt8 differs from torch.topk of K2-int8's scores")
+                    line += "; scores bit-equal to torch.topk of K2-int8's scores"
+                if cert is not None:
+                    rate, delta, dev = check_certified(res, cert, k2_scores, exact)
+                    line += (f"; certified rows exact (K2{'-int8' if int8 else ''}) up to the "
+                             f"scorers' difference: dev {dev:.3e} <= 2 x delta {delta:.3e}")
+                print(line)
+            print(f"[frontier] {kind} sweep peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            del state, ft, k2_scores, exact
+            torch.cuda.empty_cache()
+    print(f"[frontier] launches of the phase: { {a: v for a, v in phase_counts.items() if v} }")
+    return phase_counts
+
+
 def check_certified(res, cert, k2_scores, exact) -> tuple:
     """Soundness of a certified method in bf16, tie-aware. The rerank scores
     with the model's bf16 PyTorch path, the exact reference with K2, and the
@@ -1573,12 +1736,15 @@ def main() -> None:
     launches = end_to_end(device, name, smi)
     torch.cuda.empty_cache()
     k3 = check_k3(device)
-    k4_fwd, k4_bwd = check_k4(device)
+    k4_fwd, k4_bwd = check_k4(device, torch.float32)
+    k4_fwd16, k4_bwd16 = check_k4(device, torch.bfloat16)
     k7 = check_k7(device)
     torch.cuda.empty_cache()
     # Each path reports the launches of the kernels it adds.
     train = train_phase(device, name, smi)
     launches.update({k: train[k] for k in ("K3", "K4 fwd", "K4 bwd", "K7")})
+    torch.cuda.empty_cache()
+    train_phase(device, name, smi, tag="train-bf16", main_module_bf16=True)
     torch.cuda.empty_cache()
     k5_fwd, k5_bwd = check_k5(device)
     torch.cuda.empty_cache()
@@ -1603,6 +1769,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     e2e8 = int8_e2e(device, name, smi)
     launches.update({k: e2e8[k] for k in ("K2-int8", "K8-int8")})
+    torch.cuda.empty_cache()
+    front = frontier_phase(device, name, smi)
+    launches.update({k: front[k] for k in ("K4 fwd (bf16)", "K4 bwd (bf16)")})
 
     def entry(name_, source, replaces, key, measured):
         return {"name": name_, "route": "cuda", "source": f"rails_tpu_torch/csrc/{source}",
@@ -1643,6 +1812,10 @@ def main() -> None:
               "rails_tpu/ops/pallas/mol_scoring.py:346", "K9-int8", bounds["K9-int8"]),
         entry("fused_mol_scores_tiles (int8 tables)", "mol_scoring.cu",
               "rails_tpu/ops/pallas/mol_scoring.py:875", "K10-int8", bounds["K10-int8"]),
+        entry("fused_train_block_forward (bf16)", "hstu_block_train.cu",
+              "rails_tpu/ops/pallas/hstu_block_train.py:574", "K4 fwd (bf16)", k4_fwd16),
+        entry("attn_backward (bf16)", "hstu_block_train.cu",
+              "rails_tpu/ops/pallas/hstu_block_train.py:629", "K4 bwd (bf16)", k4_bwd16),
     ]
     missing = [e["name"] for e in summary if not e["launches"]]
     if missing:

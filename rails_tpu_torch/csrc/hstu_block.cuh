@@ -177,9 +177,12 @@ size_t attn_smem_bytes(int n, int dqk, int dv) {
   return floats * sizeof(float) + static_cast<size_t>(n + 1) * sizeof(int);
 }
 
-template <typename T>
+// T is the matmul type the products round to; Y the storage type of y: f32
+// in the forward, bf16 where the bf16 train block's backward recomputes attn
+// from the bf16-rounded projection, as the JAX backward does.
+template <typename T, typename Y = float>
 __global__ void __launch_bounds__(kThreads)
-hstu_attn_kernel(const float* __restrict__ y, const float* __restrict__ colmask,
+hstu_attn_kernel(const Y* __restrict__ y, const float* __restrict__ colmask,
                  const float* __restrict__ rel_pos, const int* __restrict__ ext,
                  const float* __restrict__ tsw, float* __restrict__ attn, int n, int H,
                  int dqk, int dv, float inv_n, int max_bucket) {
@@ -198,15 +201,15 @@ hstu_attn_kernel(const float* __restrict__ y, const float* __restrict__ colmask,
   const int voff = H * dv + hd * dv;
   const int qoff = 2 * H * dv + hd * dqk;
   const int koff = 2 * H * dv + H * dqk + hd * dqk;
-  const float* yb = y + static_cast<int64_t>(b) * n * F;
+  const Y* yb = y + static_cast<int64_t>(b) * n * F;
   for (int e = tid; e < n * dqk; e += kThreads) {
     const int i = e / dqk, d = e % dqk;
-    qs[e] = round_to<T>(yb[static_cast<int64_t>(i) * F + qoff + d]);
-    kt[d * ldk + i] = round_to<T>(yb[static_cast<int64_t>(i) * F + koff + d]);
+    qs[e] = round_to<T>(to_f<Y>(yb[static_cast<int64_t>(i) * F + qoff + d]));
+    kt[d * ldk + i] = round_to<T>(to_f<Y>(yb[static_cast<int64_t>(i) * F + koff + d]));
   }
   for (int e = tid; e < n * dv; e += kThreads) {
     const int i = e / dv, d = e % dv;
-    vs[e] = round_to<T>(yb[static_cast<int64_t>(i) * F + voff + d] * inv_n);
+    vs[e] = round_to<T>(to_f<Y>(yb[static_cast<int64_t>(i) * F + voff + d]) * inv_n);
   }
   for (int j = tid; j < n; j += kThreads) cm[j] = colmask[static_cast<int64_t>(b) * n + j];
   for (int j = tid; j <= n; j += kThreads) ex[j] = ext[static_cast<int64_t>(b) * (n + 1) + j];
@@ -251,8 +254,8 @@ cudaError_t launch(const void* x, const float* colmask, const void* uvqk, const 
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   const size_t smem = attn_smem_bytes(n, dqk, dv);
-  if ((err = allow_smem(hstu_attn_kernel<T>, smem)) != cudaSuccess) return err;
-  hstu_attn_kernel<T><<<dim3(H, B), kThreads, smem, stream>>>(
+  if ((err = allow_smem(hstu_attn_kernel<T, float>, smem)) != cudaSuccess) return err;
+  hstu_attn_kernel<T, float><<<dim3(H, B), kThreads, smem, stream>>>(
       y, colmask, rel_pos, ext, tsw, attn, n, H, dqk, dv, inv_n, max_bucket);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 

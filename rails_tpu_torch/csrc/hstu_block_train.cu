@@ -8,8 +8,20 @@
 // in PyTorch, as the JAX package leaves it to XLA.
 //
 // Forward: K1's three launches (hstu_block.cuh) with the K3 keep mask applied
-// in the output GEMM's A-tile loader. It leaves attn (B*n, h*dv) f32 in device
-// memory; the backward keeps it instead of recomputing it.
+// in the output GEMM's A-tile loader, instanced for f32 and bf16 operands (x,
+// uvqk, o_kernel and the output in bf16; f32 accumulation, o_bias, rel_pos and
+// the time table f32; the projection kept f32 in device memory, q, k, v and
+// the attention weights rounded to bf16 where `_fwd_kernel` casts to the
+// matmul dtype). It leaves attn (B*n, h*dv) f32 in device memory; the f32
+// backward keeps it instead of recomputing it.
+//
+// The bf16 backward takes y and d(o_input) in bf16, as `block_bwd` hands them
+// to `_attn_bwd_kernel`, and first recomputes attn from that bf16 y with K1's
+// attention kernel reading bf16 (the JAX backward recomputes it there: v is
+// rounded twice, bf16(bf16(y) / max_seq_len), so it is not the forward's).
+// Then the two kernels below round d_attn, v, the attention weights and d_s to
+// bf16 before each product, as `_attn_bwd_kernel` casts to `mm`; d_y, attn and
+// dbias stay f32.
 //
 // Backward. What it must produce per user (non-softmax branch): d_y = [d_u,
 // d_v, d_q, d_k] (n x F f32), and dbias = sum_h d_s_h (n x n). The TPU kernel
@@ -39,7 +51,10 @@
 // at the 67 TFLOP/s f32 rate; this kernel does 7, s and d_a twice), against
 // ~0.3 GB of traffic (y, d_o, attn, d_y, dbias), 0.09 ms at 3.35 TB/s: the
 // FP32 FMA rate of the CUDA cores bounds it. One block per user is 128 blocks
-// at B = 128, one wave on 132 SMs.
+// at B = 128, one wave on 132 SMs. The bf16 instances run the same FMAs on the
+// CUDA cores (products of bf16-rounded values, f32 sums) and read half the
+// bytes of y and d_o; their bound takes the bf16 tensor-core rate, which a
+// wgmma form of the five products would need to approach (later work).
 #include <cstdint>
 
 #include "common.cuh"
@@ -61,17 +76,19 @@ size_t attn_bwd_smem_bytes(int n, int dqk, int dv) {
   return floats * sizeof(float) + static_cast<size_t>(n + 1) * sizeof(int);
 }
 
-// (a) One warp per row of attn (M = B*n rows of width W = h*dv).
+// (a) One warp per row of attn (M = B*n rows of width W = h*dv); d_o and y
+// are stored as T.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-attn_row_bwd_kernel(const float* __restrict__ attn, const float* __restrict__ d_o,
-                    const float* __restrict__ y, int F, float* __restrict__ d_y,
+attn_row_bwd_kernel(const float* __restrict__ attn, const T* __restrict__ d_o,
+                    const T* __restrict__ y, int F, float* __restrict__ d_y,
                     float* __restrict__ d_attn, int64_t M, int W, float eps) {
   const int lane = threadIdx.x & 31;
   const int64_t row = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
   if (row >= M) return;
   const float* a = attn + row * W;
-  const float* g = d_o + row * W;
-  const float* u = y + row * F;
+  const T* g = d_o + row * W;
+  const T* u = y + row * F;
   float s = 0.f;
   for (int k = lane; k < W; k += 32) s += a[k];
   const float mean = warp_sum(s) / W;
@@ -84,8 +101,9 @@ attn_row_bwd_kernel(const float* __restrict__ attn, const float* __restrict__ d_
   float sum_dn = 0.f, sum_dn_nh = 0.f;
   for (int k = lane; k < W; k += 32) {
     const float nh = (a[k] - mean) * inv;
-    const float dn = g[k] * u[k];
-    d_y[row * F + k] = g[k] * nh;
+    const float gk = to_f<T>(g[k]);
+    const float dn = gk * to_f<T>(u[k]);
+    d_y[row * F + k] = gk * nh;
     sum_dn += dn;
     sum_dn_nh = fmaf(dn, nh, sum_dn_nh);
   }
@@ -93,7 +111,7 @@ attn_row_bwd_kernel(const float* __restrict__ attn, const float* __restrict__ d_
   const float mean_dn_nh = warp_sum(sum_dn_nh) / W;
   for (int k = lane; k < W; k += 32) {
     const float nh = (a[k] - mean) * inv;
-    const float dn = g[k] * u[k];
+    const float dn = to_f<T>(g[k]) * to_f<T>(u[k]);
     d_attn[row * W + k] = inv * (dn - mean_dn - nh * mean_dn_nh);
   }
 }
@@ -104,9 +122,11 @@ __device__ __forceinline__ void silu_grad(float s, float& sig, float& deriv) {
   deriv = sig * (1.f + s * (1.f - sig));
 }
 
-// (b) One block per user; heads in turn.
+// (b) One block per user; heads in turn. y is stored as T; v, d_attn, the
+// attention weights and d_s round to T before each product.
+template <typename T>
 __global__ void __launch_bounds__(kBwdThreads)
-hstu_attn_bwd_kernel(const float* __restrict__ y, const float* __restrict__ d_attn,
+hstu_attn_bwd_kernel(const T* __restrict__ y, const float* __restrict__ d_attn,
                      const float* __restrict__ colmask, const float* __restrict__ rel_pos,
                      const int* __restrict__ ext, const float* __restrict__ tsw,
                      float* __restrict__ d_y, float* __restrict__ dbias, int n, int H, int dqk,
@@ -139,14 +159,14 @@ hstu_attn_bwd_kernel(const float* __restrict__ y, const float* __restrict__ d_at
     __syncthreads();   // the previous head's readers are done
     for (int e = tid; e < n * dqk; e += kBwdThreads) {
       const int i = e / dqk, d = e % dqk;
-      const float* yr = y + (row0 + i) * F;
-      qT[d * ldk + i] = yr[qoff + d];
-      kT[d * ldk + i] = yr[koff + d];
+      const T* yr = y + (row0 + i) * F;
+      qT[d * ldk + i] = to_f<T>(yr[qoff + d]);
+      kT[d * ldk + i] = to_f<T>(yr[koff + d]);
     }
     for (int e = tid; e < n * dv; e += kBwdThreads) {
       const int i = e / dv, d = e % dv;
-      vT[d * ldk + i] = y[(row0 + i) * F + voff + d] * inv_n;
-      dT[d * ldk + i] = d_attn[(row0 + i) * hdv + hd * dv + d];
+      vT[d * ldk + i] = round_to<T>(to_f<T>(y[(row0 + i) * F + voff + d]) * inv_n);
+      dT[d * ldk + i] = round_to<T>(d_attn[(row0 + i) * hdv + hd * dv + d]);
     }
     __syncthreads();
 
@@ -172,7 +192,7 @@ hstu_attn_bwd_kernel(const float* __restrict__ y, const float* __restrict__ d_at
         float sig, deriv;
         silu_grad(s, sig, deriv);
         const float ds = da * deriv;
-        buf0[j] = ds;
+        buf0[j] = round_to<T>(ds);
         db[j] = hd == 0 ? ds : db[j] + ds;
       }
       if (hd == 0) {
@@ -212,8 +232,8 @@ hstu_attn_bwd_kernel(const float* __restrict__ y, const float* __restrict__ d_at
         s += rel_pos[static_cast<int64_t>(i) * n + j] + tw[time_bucket(ex[i + 1], tsj, max_bucket)];
         float sig, deriv;
         silu_grad(s, sig, deriv);
-        buf0[i] = da * deriv;
-        buf1[i] = s * sig;
+        buf0[i] = round_to<T>(da * deriv);
+        buf1[i] = round_to<T>(s * sig);
       }
       __syncwarp();
       for (int d = lane; d < dqk; d += 32) {
@@ -231,51 +251,88 @@ hstu_attn_bwd_kernel(const float* __restrict__ y, const float* __restrict__ d_at
   }
 }
 
+template <typename T>
+cudaError_t train_bwd(const T* y, const T* d_o, float* attn, bool recompute,
+                      const float* colmask, const float* rel_pos, const int* ext,
+                      const float* tsw, float* d_attn_scratch, float* d_y, float* dbias, int B,
+                      int n, int H, int dqk, int dv, float inv_n, float eps, int max_bucket,
+                      cudaStream_t s) {
+  if (dqk > kMaxHeadDim || dv > kMaxHeadDim) return cudaErrorInvalidValue;
+  const int F = 2 * H * dv + 2 * H * dqk;
+  const int64_t M = static_cast<int64_t>(B) * n;
+  if (M == 0) return cudaSuccess;
+  cudaError_t err;
+  if (recompute) {
+    const size_t smem = attn_smem_bytes(n, dqk, dv);
+    if ((err = allow_smem(hstu_attn_kernel<T, T>, smem)) != cudaSuccess) return err;
+    hstu_attn_kernel<T, T><<<dim3(H, B), kThreads, smem, s>>>(
+        y, colmask, rel_pos, ext, tsw, attn, n, H, dqk, dv, inv_n, max_bucket);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  attn_row_bwd_kernel<T><<<static_cast<unsigned>((M + kWarps - 1) / kWarps), kThreads, 0, s>>>(
+      attn, d_o, y, F, d_y, d_attn_scratch, M, H * dv, eps);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const size_t smem = attn_bwd_smem_bytes(n, dqk, dv);
+  if ((err = allow_smem(hstu_attn_bwd_kernel<T>, smem)) != cudaSuccess) return err;
+  hstu_attn_bwd_kernel<T><<<B, kBwdThreads, smem, s>>>(
+      y, d_attn_scratch, colmask, rel_pos, ext, tsw, d_y, dbias, n, H, dqk, dv, inv_n,
+      max_bucket);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace rails
 
-// K4 forward, f32: x, uvqk, o_kernel, out f32; y (B*n, F) and attn (B*n, H*dv)
-// f32 outputs the caller allocates (attn is kept for the backward). drop = 0
-// runs K1's kernels exactly; otherwise u * LN(attn) is multiplied by the keep
-// mask of seed0 (thresh, scale as `keep_from_idx` computes them).
-extern "C" int rails_hstu_train_fwd(const float* x, const float* colmask, const float* uvqk,
-                                    const float* o_kernel, const float* o_bias,
+// K4 forward. dtype: 0 = float32, 1 = bfloat16 (x, uvqk, o_kernel and out
+// share it); y (B*n, F) and attn (B*n, H*dv) f32 outputs the caller allocates
+// (the f32 backward keeps attn). drop = 0 runs K1's kernels exactly;
+// otherwise u * LN(attn) is multiplied by the keep mask of seed0 (thresh,
+// scale as `keep_from_idx` computes them).
+extern "C" int rails_hstu_train_fwd(int dtype, const void* x, const float* colmask,
+                                    const void* uvqk, const void* o_kernel, const float* o_bias,
                                     const float* rel_pos, const int* ext, const float* tsw,
-                                    float* y, float* attn, float* out, int B, int n, int D, int H,
+                                    float* y, float* attn, void* out, int B, int n, int D, int H,
                                     int dqk, int dv, float inv_n, float eps, int max_bucket,
                                     int drop, int seed0, unsigned thresh, float scale,
                                     void* stream) {
   const rails::Dropout dp{drop, n, seed0, thresh, scale};
-  return rails::launch<float>(x, colmask, uvqk, o_kernel, o_bias, rel_pos, ext, tsw, y, attn, out,
-                              B, n, D, H, dqk, dv, inv_n, eps, max_bucket, dp,
-                              static_cast<cudaStream_t>(stream));
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    return rails::launch<__nv_bfloat16>(x, colmask, uvqk, o_kernel, o_bias, rel_pos, ext, tsw,
+                                        y, attn, out, B, n, D, H, dqk, dv, inv_n, eps,
+                                        max_bucket, dp, s);
+  }
+  if (dtype == 0) {
+    return rails::launch<float>(x, colmask, uvqk, o_kernel, o_bias, rel_pos, ext, tsw, y, attn,
+                                out, B, n, D, H, dqk, dv, inv_n, eps, max_bucket, dp, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
-// K4 attention-core backward, f32. y (B, n, F) = silu(LN(x) @ uvqk); d_o
-// (B, n, H*dv) = d(o_input) with the keep mask applied; attn (B, n, H*dv) from
-// the forward. Outputs: d_y (B, n, F), dbias (B, n, n); d_attn_scratch
-// (B, n, H*dv) is scratch.
-extern "C" int rails_hstu_train_bwd(const float* y, const float* d_o, const float* attn,
+// K4 attention-core backward. y (B, n, F) = silu(LN(x) @ uvqk) and d_o
+// (B, n, H*dv) = d(o_input) with the keep mask applied, both stored in the
+// dtype (0 = float32, 1 = bfloat16). attn (B, n, H*dv) f32: with float32 the
+// forward's, read; with bfloat16 recomputed from y and written first. Outputs:
+// d_y (B, n, F) and dbias (B, n, n) f32; d_attn_scratch (B, n, H*dv) is
+// scratch.
+extern "C" int rails_hstu_train_bwd(int dtype, const void* y, const void* d_o, float* attn,
                                     const float* colmask, const float* rel_pos, const int* ext,
                                     const float* tsw, float* d_attn_scratch, float* d_y,
                                     float* dbias, int B, int n, int H, int dqk, int dv,
                                     float inv_n, float eps, int max_bucket, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (dqk > rails::kMaxHeadDim || dv > rails::kMaxHeadDim) return cudaErrorInvalidValue;
-  const int F = 2 * H * dv + 2 * H * dqk;
-  const int64_t M = static_cast<int64_t>(B) * n;
-  if (M == 0) return cudaSuccess;
-  rails::attn_row_bwd_kernel<<<static_cast<unsigned>((M + rails::kWarps - 1) / rails::kWarps),
-                               rails::kThreads, 0, s>>>(attn, d_o, y, F, d_y, d_attn_scratch, M,
-                                                        H * dv, eps);
-  cudaError_t err;
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const size_t smem = rails::attn_bwd_smem_bytes(n, dqk, dv);
-  if ((err = rails::allow_smem(rails::hstu_attn_bwd_kernel, smem)) != cudaSuccess) return err;
-  rails::hstu_attn_bwd_kernel<<<B, rails::kBwdThreads, smem, s>>>(
-      y, d_attn_scratch, colmask, rel_pos, ext, tsw, d_y, dbias, n, H, dqk, dv, inv_n,
-      max_bucket);
-  return cudaGetLastError();
+  if (dtype == 1) {
+    return rails::train_bwd(static_cast<const __nv_bfloat16*>(y),
+                            static_cast<const __nv_bfloat16*>(d_o), attn, true, colmask, rel_pos,
+                            ext, tsw, d_attn_scratch, d_y, dbias, B, n, H, dqk, dv, inv_n, eps,
+                            max_bucket, s);
+  }
+  if (dtype == 0) {
+    return rails::train_bwd(static_cast<const float*>(y), static_cast<const float*>(d_o), attn,
+                            false, colmask, rel_pos, ext, tsw, d_attn_scratch, d_y, dbias, B, n,
+                            H, dqk, dv, inv_n, eps, max_bucket, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 extern "C" size_t rails_hstu_train_bwd_smem_bytes(int n, int dqk, int dv) {

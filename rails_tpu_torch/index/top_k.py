@@ -118,16 +118,22 @@ def build_mol_topk_state(
     `build_fused` adds the kernel-layout tables, and `fused_only` keeps only
     those (plus the avg table): every method still runs, gathering its
     candidates from the kernel layout. `quantize_fused` stores the fused
-    tables int8 with their scales (half the bytes; `quantize_fused_tables`)."""
+    tables int8 with their scales (half the bytes; `quantize_fused_tables`).
+    A similarity without an item gating partial gets no fused tables, as in
+    JAX (`top_k.py:158`)."""
     if (fused_only or quantize_fused) and not build_fused:
         raise ValueError("fused_only and quantize_fused require build_fused=True")
     tables = model.build_item_tables(item_embeddings)
     comp = tables.component_embeddings
-    gating = tables.gating_partial.to(table_dtype)
-    fused = prepare_fused_tables(comp.to(table_dtype), gating) if build_fused else None
-    if quantize_fused:
-        fused = quantize_fused_tables(fused)
+    gating = None if tables.gating_partial is None else tables.gating_partial.to(table_dtype)
+    fused = None
+    if build_fused and gating is not None:
+        fused = prepare_fused_tables(comp.to(table_dtype), gating)
+        if quantize_fused:
+            fused = quantize_fused_tables(fused)
     if fused_only:
+        if fused is None:
+            raise ValueError("fused_only needs the fused tables, and so an item gating partial")
         item_tables = MoLItemTables(
             component_embeddings=comp.new_zeros((0,) + tuple(comp.shape[1:]), dtype=table_dtype),
             gating_partial=None,

@@ -16,7 +16,9 @@ With shared negatives, `train.fused_mol_loss` and the published MoL shape
 K5 (`ops.mol_loss_train.fused_mol_loss`), under the same gate as the JAX
 package (:190-200); otherwise through the similarity's shared-corpus einsum.
 
-Not ported (NotImplementedError naming ROADMAP.md): `activation_checkpoint`.
+Not ported (NotImplementedError naming ROADMAP.md): `activation_checkpoint`
+on the non-fused route, the only route where JAX reads it (:205-235); the
+fused route ignores it, as in JAX.
 """
 
 from __future__ import annotations
@@ -89,10 +91,6 @@ def sampled_softmax_loss(
 ) -> Tuple[torch.Tensor, AuxLosses]:
     """(scalar loss, aux losses). `generator` draws the negatives and every
     dropout; `seed0` seeds the HSTU blocks' hash dropout."""
-    if activation_checkpoint:
-        raise NotImplementedError(
-            "loss_activation_checkpoint is not ported (ROADMAP.md, Queue 1: losses)"
-        )
     if not isinstance(sampler, LocalNegativesSampler):
         raise NotImplementedError(
             f"sampler {type(sampler).__name__} is not ported (ROADMAP.md, Queue 1: losses)"
@@ -125,6 +123,10 @@ def sampled_softmax_loss(
     if _fused_ok(model, sampler, train, shared_negatives):
         negative_logits = _fused_negative_logits(
             model, q, user_ids_flat, w_flat, sampled_neg_embeddings, generator)
+    elif activation_checkpoint and train:
+        raise NotImplementedError(
+            "loss_activation_checkpoint is not ported (ROADMAP.md, Queue 1: losses)"
+        )
     else:
         # (M, R, D) per position, or (1, R, D): the shared-corpus einsum.
         negative_logits, _ = model.similarity_fn(

@@ -1,16 +1,22 @@
-"""HSTU encoder: eval through the K1 kernel, training through K4 (+ K3).
+"""HSTU encoder: eval through K1 or the XLA block path, training through K4 (+ K3).
 
-Counterpart of `rails_tpu/models/hstu.py`: `StackedRelativeBias` parameters
-with `pos_tables(n)` (:130-138) and `ts_tables128` (:140-150), `HSTUBlock`
-parameters (:183-208), the fused eval path of `HSTUStack.__call__`
-(:466-523) in internal-bias mode and its `fused_train` path (:414-465), each
+Counterpart of `rails_tpu/models/hstu.py`: `_bucketize_time_delta` (:30-36),
+`StackedRelativeBias` with its (L, B, N, N) bias (:103-128), `pos_tables(n)`
+(:130-138) and `ts_tables128` (:140-150), `HSTUBlock` with its eval forward
+(:183-299, SiLU, `rel_bias`/`hstu_rel_bias`, no `concat_ua`), and
+`HSTUStack.__call__`: the `fused_train` path (:414-465), the fused eval path
+(:466-523) in internal-bias mode, and the XLA eval path (:524-535), each
 ending with `x * valid`.
 
-`HSTUConfig.fused_inference` selects nothing here: the port's eval encoder
-always runs `ops.hstu_block.fused_hstu_block`, and its training encoder
-`ops.hstu_block_train.fused_train_block`; their plain versions serve CPU
-tensors. The XLA training path (`fused_train=False`) and the block variants
-the ported configs do not use raise NotImplementedError.
+Eval dispatches on `HSTUConfig.fused_inference` as JAX does: True runs
+`ops.hstu_block.fused_hstu_block` (K1), False the XLA block path in plain
+torch (JAX runs it in XLA, not Pallas). The XLA path buckets time deltas with
+log(.)/0.301 clipped to `num_buckets`, casts the bias to the compute dtype,
+and rounds to the compute dtype wherever JAX's einsums ask for
+`preferred_element_type=self.dtype`; its LayerNorm and SiLU run in that dtype.
+Training runs `ops.hstu_block_train.fused_train_block` (K4) in f32 or bf16.
+The XLA training path (`fused_train=False`), attention dropout and the block
+variants the ported configs do not use raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -27,6 +33,23 @@ from rails_tpu_torch.ops.hstu_block_train import BlockMeta, fused_train_block
 from rails_tpu_torch.similarity.layers import normal, xavier_uniform
 
 
+def bucketize_time_delta(delta: torch.Tensor, num_buckets: int) -> torch.Tensor:
+    """log(max(|delta|, 1)) / 0.301, truncated and clipped to
+    [0, num_buckets] (`_bucketize_time_delta`); int32."""
+    v = torch.log(torch.clamp(delta.abs().float(), min=1.0)) / 0.301
+    return torch.clamp(v.to(torch.int32), 0, num_buckets)
+
+
+def _ln_in_dtype(y: torch.Tensor, eps: float) -> torch.Tensor:
+    """`HSTUBlock._ln` in y's dtype: the mean and the variance accumulate in
+    f32 and round to y's dtype (jnp.mean / jnp.var of bf16), then every step
+    rounds to it."""
+    yf = y.float()
+    mu = yf.mean(dim=-1, keepdim=True).to(y.dtype)
+    var = yf.var(dim=-1, keepdim=True, unbiased=False).to(y.dtype)
+    return (y - mu) * torch.rsqrt(var + eps)
+
+
 class StackedRelativeBias(nn.Module):
     """All blocks' relative-attention bias weights: pos_w (L, 2N-1) and ts_w
     (L, num_buckets+1)."""
@@ -35,6 +58,7 @@ class StackedRelativeBias(nn.Module):
                  generator: torch.Generator):
         super().__init__()
         self.max_seq_len = max_seq_len
+        self.num_buckets = num_buckets
         self.pos_w = nn.Parameter(normal((num_blocks, 2 * max_seq_len - 1), 0.02, generator))
         self.ts_w = nn.Parameter(normal((num_blocks, num_buckets + 1), 0.02, generator))
 
@@ -53,17 +77,52 @@ class StackedRelativeBias(nn.Module):
             tbl = nn.functional.pad(tbl, (0, 128 - tbl.shape[1]))
         return tbl[:, :128].contiguous()
 
+    def forward(self, timestamps: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """(L, B, N, N) rel-pos + bucketed time bias of the XLA block path,
+        summed in f32 and cast to `dtype`."""
+        n = timestamps.shape[1]
+        i = torch.arange(n, device=timestamps.device)[:, None]
+        j = torch.arange(n, device=timestamps.device)[None, :]
+        rel_pos = self.pos_w[:, j - i + self.max_seq_len - 1]              # (L, N, N)
+        ext = torch.cat([timestamps, timestamps[:, n - 1 : n]], dim=1)
+        delta = ext[:, 1:, None] - ext[:, None, :-1]                        # (B, N, N)
+        buckets = bucketize_time_delta(delta, self.num_buckets)
+        rel_ts = self.ts_w.T[buckets.long()]                                # (B, N, N, L)
+        return (rel_pos[:, None] + rel_ts.movedim(-1, 0)).to(dtype)
+
 
 class HSTUBlock(nn.Module):
     """Parameters of one block: uvqk (D, 2h*dv + 2h*dqk), o_kernel (h*dv, D),
     o_bias (D,), in the flax layout the kernel reads."""
 
-    def __init__(self, cfg: HSTUConfig, generator: torch.Generator):
+    def __init__(self, cfg: HSTUConfig, max_seq_len: int, generator: torch.Generator):
         super().__init__()
+        self.cfg = cfg
+        self.max_seq_len = max_seq_len
         h, d = cfg.num_heads, cfg.embedding_dim
         self.uvqk = nn.Parameter(normal((d, 2 * h * cfg.dv + 2 * h * cfg.dqk), 0.02, generator))
         self.o_kernel = nn.Parameter(xavier_uniform((h * cfg.dv, d), generator))
         self.o_bias = nn.Parameter(torch.zeros(d))
+
+    def forward(self, x: torch.Tensor, attn_mask: torch.Tensor,
+                rel_bias: torch.Tensor) -> torch.Tensor:
+        """The XLA block's eval forward (`HSTUBlock.__call__`, pointwise SiLU
+        attention) in x's dtype: x (B, N, D), attn_mask (B, N, N) f32
+        causal x column-valid, rel_bias (B, N, N)."""
+        c = self.cfg
+        b, n, _ = x.shape
+        h, dqk, dv = c.num_heads, c.dqk, c.dv
+        dt = x.dtype
+        y = _ln_in_dtype(x, c.epsilon) @ self.uvqk.to(dt)
+        y = y * torch.sigmoid(y)
+        u, v, q, k = torch.split(y, [h * dv, h * dv, h * dqk, h * dqk], dim=-1)
+        qk = torch.einsum("bnhd,bmhd->bhnm", q.reshape(b, n, h, dqk), k.reshape(b, n, h, dqk))
+        qk = qk + rel_bias[:, None]
+        attn = qk * torch.sigmoid(qk) * (1.0 / self.max_seq_len)
+        attn = attn * attn_mask[:, None].to(dt)
+        attn_out = torch.einsum("bhnm,bmhd->bnhd", attn, v.reshape(b, n, h, dv))
+        o_input = u * _ln_in_dtype(attn_out.reshape(b, n, h * dv), c.epsilon)
+        return (o_input @ self.o_kernel.to(dt) + self.o_bias.to(dt)) + x
 
 
 class HSTUStack(nn.Module):
@@ -92,7 +151,7 @@ class HSTUStack(nn.Module):
             cfg.num_blocks, max_seq_len, cfg.num_time_buckets, generator
         )
         for i in range(cfg.num_blocks):
-            self.add_module(f"block_{i}", HSTUBlock(cfg, generator))
+            self.add_module(f"block_{i}", HSTUBlock(cfg, max_seq_len, generator))
 
     def block_operands(
         self, valid: torch.Tensor, timestamps: torch.Tensor
@@ -132,13 +191,22 @@ class HSTUStack(nn.Module):
         self, x: torch.Tensor, valid: torch.Tensor, timestamps: torch.Tensor,
         train: bool = False, seed0: Optional[int] = None,
     ) -> torch.Tensor:
-        """Eval through K1; with `train`, the `fused_train` path: block i
-        drops its o_input with the hash stream of seed seed0 + i * 1013904223
-        (int32), which the caller draws (0 when no dropout is on)."""
+        """Eval through K1 (`fused_inference`) or the XLA block path; with
+        `train`, the `fused_train` path: block i drops its o_input with the
+        hash stream of seed seed0 + i * 1013904223 (int32), which the caller
+        draws (0 when no dropout is on)."""
         if train:
             return self._train_forward(x, valid, timestamps, 0 if seed0 is None else seed0)
-        for kw in self.block_operands(valid, timestamps):
-            x = fused_hstu_block(x, **kw)
+        if self.cfg.fused_inference:
+            for kw in self.block_operands(valid, timestamps):
+                x = fused_hstu_block(x, **kw)
+            return x * valid[..., None].to(x.dtype)
+        n = x.shape[1]
+        bias_all = self.rel_attn_bias(timestamps, x.dtype)
+        causal = torch.tril(torch.ones(n, n, dtype=torch.float32, device=x.device))
+        attn_mask = causal[None] * valid[:, None, :].float()
+        for i in range(self.cfg.num_blocks):
+            x = getattr(self, f"block_{i}")(x, attn_mask, bias_all[i])
         return x * valid[..., None].to(x.dtype)
 
     def _train_forward(self, x, valid, timestamps, seed0: int) -> torch.Tensor:
@@ -148,11 +216,10 @@ class HSTUStack(nn.Module):
                 "HSTU training without fused_train (the XLA block path) is not ported "
                 "(ROADMAP.md, Queue 1: K4 variants)"
             )
-        if c.attn_dropout_rate > 0.0 or self.compute_dtype != torch.float32:
+        if c.attn_dropout_rate > 0.0:
             raise NotImplementedError(
-                f"HSTU training with attn_dropout_rate={c.attn_dropout_rate}, compute dtype "
-                f"{self.compute_dtype}: only the f32 train block without attention dropout "
-                "is ported (ROADMAP.md, Queue 1: K4 variants)"
+                f"HSTU training with attn_dropout_rate={c.attn_dropout_rate}: only the train "
+                "block without attention dropout is ported (ROADMAP.md, Queue 1: K4 variants)"
             )
         meta = BlockMeta(c.num_heads, c.dqk, c.dv, 1.0 / self.max_seq_len, c.epsilon,
                          c.num_time_buckets, c.linear_dropout_rate)

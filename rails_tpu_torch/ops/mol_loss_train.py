@@ -270,4 +270,10 @@ def fused_mol_loss(
     to (q_comp, qp, item_comp, ip, MoLKernelWeights(w1, b1, w2, b2), seed)."""
     kw = dict(p_q=p_q, p_x=p_x, temperature=temperature, qi_rate=qi_rate, pi_rate=pi_rate,
               eps=eps)
+    dtypes = [t.dtype for t in (q_comp, qp, item_comp, ip, w1, b1, w2, b2)]
+    if any(dt != torch.float32 for dt in dtypes):
+        raise NotImplementedError(
+            f"fused_mol_loss: only the f32 K5 is ported; got {dtypes} "
+            "(ROADMAP.md, Queue 1: the bf16 K5 of amzn-books-hstu-mol-fast)"
+        )
     return FusedMolLoss.apply(q_comp, qp, item_comp, ip, w1, b1, w2, b2, wrap_i32(seed), kw)

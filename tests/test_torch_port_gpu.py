@@ -352,6 +352,42 @@ def test_k4_matches_plain_autograd(cuda, b, n, rate, num_buckets):
         assert ((got - want).abs().max() / scale).item() <= 1e-3, name
 
 
+@pytest.mark.parametrize("b,n", [(1, 1), (1, 211), (128, 211), (3, 97)],
+                         ids=["n1", "n211", "b128_n211", "b3_n97"])
+def test_k4_bf16_matches_plain(cuda, b, n, monkeypatch):
+    """The bf16 block through its kernels against the same block with the
+    plain forward and attention backward (which round where the kernels
+    round): the forward within 1e-2 and each gradient within 2e-2 of its
+    largest value; the bf16 counters count the launches."""
+    args, kw = _k1_args(b, n, 256, 8, 32, 32, 211, torch.bfloat16, cuda, seed=n)
+    args["x"] = args["x"] * args["colmask"][..., None].to(torch.bfloat16)
+    meta = hstu_block_train.BlockMeta(8, 32, 32, kw["inv_n"], kw["eps"], 128, 0.2)
+    w = torch.cos(torch.arange(args["x"].numel(), device=cuda, dtype=torch.float32)).reshape(
+        args["x"].shape)
+    fwd, bwd = hstu_block_train.fused_train_block_forward, hstu_block_train.attn_backward
+    res = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(hstu_block_train, "fused_train_block_forward",
+                                hstu_block_train.fused_train_block_forward_reference)
+            monkeypatch.setattr(hstu_block_train, "attn_backward",
+                                hstu_block_train.attn_backward_reference)
+        before = (fwd.bf16_launches, bwd.bf16_launches)
+        leaves = [args[k].clone().requires_grad_(True) for k in GRAD_NAMES]
+        out = hstu_block_train.fused_train_block(*leaves, args["colmask"], args["ext"], 11, meta)
+        (out.float() * w).sum().backward()
+        assert out.dtype == torch.bfloat16
+        assert (fwd.bf16_launches, bwd.bf16_launches) == tuple(
+            v + (0 if plain else 1) for v in before)
+        res.append((out.detach().float(), [t.grad for t in leaves]))
+    (out_k, g_k), (out_p, g_p) = res
+    assert ((out_k - out_p).abs().max() / out_p.abs().max()).item() <= 1e-2
+    for name, got, want in zip(GRAD_NAMES, g_k, g_p):
+        assert got.dtype == want.dtype, name
+        scale = want.float().abs().max().clamp_min(1e-30)
+        assert ((got.float() - want.float()).abs().max() / scale).item() <= 2e-2, name
+
+
 @pytest.mark.parametrize("numel", [1, 7, 4099, 1_000_003, (26_745 * 256)])
 def test_k7_matches_plain_and_torch_fused_adamw(cuda, numel):
     g = torch.Generator(device=cuda).manual_seed(numel)

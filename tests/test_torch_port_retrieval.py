@@ -319,3 +319,38 @@ def test_bounds_dominate_scores(setup):
     gmax = mol_scoring.fused_mol_group_block_max(tq, ft.item_comp_t, temp).amax(dim=1)
     tile_of = torch.arange(NUM_ITEMS) // 256
     assert bool((gmax[:, tile_of] >= scores - 1e-5).all())
+
+
+def test_state_without_gating_partial_matches_jax(setup):
+    """A similarity without the item gating partial (`gating_item_fn=False`,
+    the `none` combination) gets a state with no gating table and no fused
+    tables, as in JAX (`top_k.py:158,201-204`); the port's MoL does not take
+    that combination yet, so its item tables come from a stand-in model."""
+    from types import SimpleNamespace
+
+    from rails_tpu_torch.similarity.mol import MoLItemTables
+
+    model, params, port = setup["model"], setup["params"], setup["port"]
+    cfg = model.cfg.replace(mol=model.cfg.mol.replace(gating_combination_type="none",
+                                                      gating_item_fn=False))
+    jmodel = model.clone(cfg=cfg)
+    ids = jnp.arange(1, NUM_ITEMS + 1, dtype=jnp.int32)
+    jstate = jtk.build_mol_topk_state(jmodel, params, ids, setup["emb"],
+                                      table_dtype=jnp.bfloat16, build_fused=True)
+    assert jstate.fused_tables is None and jstate.item_tables.gating_partial is None
+    stand_in = SimpleNamespace(
+        build_item_tables=lambda e: MoLItemTables(port.mol.item_components(e), None))
+    t_ids = torch.from_numpy(np.array(ids))
+    with torch.inference_mode():
+        emb = port.get_item_embeddings(t_ids)
+        pstate = ptk.build_mol_topk_state(stand_in, t_ids, emb, torch.bfloat16, build_fused=True)
+        with pytest.raises(ValueError, match="gating partial"):
+            ptk.build_mol_topk_state(stand_in, t_ids, emb, torch.bfloat16, build_fused=True,
+                                     fused_only=True)
+    assert pstate.fused_tables is None and pstate.item_tables.gating_partial is None
+    for got, want in ((pstate.item_tables.component_embeddings,
+                       jstate.item_tables.component_embeddings),
+                      (pstate.avg_component, jstate.avg_component)):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                   rtol=1e-2, atol=1e-3)

@@ -211,3 +211,28 @@ def test_fast_step_with_published_dropout_runs_and_learns():
         losses.append(m["loss"].item())
     assert np.isfinite(losses).all()
     assert np.mean(losses[-3:]) < np.mean(losses[:3])
+
+
+def test_fast_step_ignores_loss_activation_checkpoint(fast_setup, monkeypatch):
+    """JAX picks the fused route before it reads `loss_activation_checkpoint`,
+    so a `-fast` step with the flag trains, and gives the step without it;
+    the non-fused route still refuses the flag."""
+    s = fast_setup
+    _fix_negatives(monkeypatch, s["negatives"])
+    batch = _port_batch(s["batch"])
+    results = []
+    for flag in (False, True):
+        cfg = s["port_cfg"]
+        cfg = cfg.replace(train=cfg.train.replace(loss_activation_checkpoint=flag))
+        model, state, train_step = _port_state(s, cfg)
+        _, m = train_step(state, batch, torch.Generator().manual_seed(0))
+        results.append((m["loss"].item(), {k: p.grad.clone() for k, p in model.named_parameters()}))
+    assert results[0][0] == results[1][0]
+    for name, grad in results[0][1].items():
+        assert torch.equal(grad, results[1][1][name]), name
+    cfg = s["port_cfg"]
+    cfg = cfg.replace(train=cfg.train.replace(loss_activation_checkpoint=True,
+                                              fused_mol_loss=False))
+    _, state, train_step = _port_state(s, cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1: losses"):
+        train_step(state, batch, torch.Generator().manual_seed(0))
