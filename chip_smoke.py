@@ -79,6 +79,17 @@ The frontier and its bf16 pre-train:
      the same corpus. Gates: the exact bf16 path vs the oracle tie-aware, the
      exact int8 path equal to torch.topk of K2-int8's scores, certified rows
      holding K2's exact top-k. Recall is printed, not gated.
+Amazon Books (amzn-books-hstu-mol[-fast]: MoL 8x8x32, L=64, H=128; bf16):
+ 22. K2, K8, K9, K10 at 8x8x32 on f32, bf16 and int8 tables and K2-bmax, at
+     B=64 over the Books vocabulary of 695,762 items, with the checks of 4,
+     13 and 17.
+ 23. K5 bf16 at M=3,840, R=512 (B=64, N=61): forward and the 8 gradients
+     against the bf16 plain versions.
+ 24. books-e2e: the Books serving step at 16 blocks (the XLA-path encoder,
+     no K1) over 695,762 items, B=64, through Fused, Cert4096 and Tile8 and
+     their Int8 forms, against the plain path; launch counts.
+ 25. books-train and books-train-fast: as 9 at B=64, N=61, R=512 in bf16;
+     the XLA block path launches no kernel, -fast the bf16 K5 1 + 1 per step.
 The line before the last is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script fails before printing
 any result.
@@ -154,6 +165,19 @@ FRONTIER_STEPS = 150           # its default pre-train
 FRONTIER_RUNS = 8              # its default timed calls per method
 FRONTIER_INT8_METHODS = ("MoLBruteForceTopKFused", "MoLCertTopK4096", "MoLTileTopK8")
 BMAX_INVALID = (5, 77, 300_000, 777_777)   # mid-corpus valid=0 columns of [K2-bmax]
+ML20M_GEOM = (P_Q, P_X, D_P)
+# amzn-books-hstu-mol (`rails_tpu_torch/core/config.py`): MoL 8x8x32 (L=64,
+# H=128), the 5-core Amazon Books vocabulary, eval and train batch 64.
+BOOKS_GEOM = (8, 8, 32)
+BOOKS_ITEMS = 695_762
+BOOKS_BATCH = 64
+BOOKS_INVALID = (5, 77, 300_000, 695_000)  # mid-corpus valid=0 columns of the Books [K2-bmax]
+BOOKS_METHODS = ("MoLBruteForceTopKFused", "MoLBruteForceTopKFusedInt8", "MoLCertTopK4096",
+                 "MoLCertTopK4096Int8", "MoLTileTopK8", "MoLTileTopK8Int8")
+# The bf16 K5 against its plain version: the forward and each gradient within
+# this share of its largest value (both round to bf16 at the same points and
+# sum in other f32 orders).
+K5_BF16_TOL = (2e-2, 3e-2)
 # f32 rounding of K2's softmax mixture: K8's bound may sit this far (relative)
 # below K2's score when the mixture weights all fall on the largest logit.
 F32_MARGIN = 2.0 ** -20
@@ -278,29 +302,6 @@ def check_k1(b: int, n: int, dtype, device) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": None}
 
 
-def k2_inputs(b: int, x: int, dtype, device, seed: int = 1):
-    import torch
-
-    from rails_tpu_torch.ops.mol_scoring import MoLKernelWeights, prepare_fused_tables
-    from rails_tpu_torch.similarity.layers import l2_normalize
-
-    g = torch.Generator().manual_seed(seed)
-    l, hd = P_Q * P_X, 128
-    q = l2_normalize(torch.randn(b, P_Q, D_P, generator=g))
-    items = l2_normalize(torch.randn(x, P_X, D_P, generator=g))
-    tables = prepare_fused_tables(items.to(dtype), torch.randn(x, l, generator=g).to(dtype))
-    w = MoLKernelWeights(
-        torch.randn(l, hd, generator=g) / l ** 0.5, 0.1 * torch.randn(hd, generator=g),
-        torch.randn(hd, l, generator=g) / hd ** 0.5, 0.1 * torch.randn(l, generator=g),
-    )
-    args = (
-        q.to(dtype).to(device), torch.randn(b, l, generator=g).to(device),
-        tables.item_comp_t.to(device), tables.item_partial_t.to(device),
-        MoLKernelWeights(*(t.to(device) for t in w)), TEMPERATURE,
-    )
-    return args, tables.num_items
-
-
 def id_overlap(ia, ib) -> float:
     """Mean share of each row of ia (B, k) that also appears in that row of ib."""
     return (ia[:, :, None] == ib[:, None, :]).any(dim=2).float().mean().item()
@@ -339,13 +340,15 @@ def table_bytes(args: tuple) -> int:
             + ip.numel() * ip.element_size() + scales)
 
 
-def check_k2(b: int, x: int, kind: str, device) -> dict:
-    """K2 at B x X over f32, bf16 or int8 tables (bf16 ones quantized)."""
+def check_k2(b: int, x: int, kind: str, device, geom: tuple = ML20M_GEOM) -> dict:
+    """K2 at B x X over f32, bf16 or int8 tables (bf16 ones quantized), MoL
+    `geom` = (P_Q, P_X, d_P)."""
     import torch
 
     from rails_tpu_torch.ops.mol_scoring import fused_mol_scores_t, fused_mol_scores_t_reference
 
-    args, x = k2_inputs(b, x, torch.float32 if kind == "float32" else torch.bfloat16, device)
+    args = bound_inputs(b, x, torch.float32 if kind == "float32" else torch.bfloat16, device,
+                        seed=1, geom=geom)
     if kind == "int8":
         args = quantized(args)
     got = fused_mol_scores_t(*args)[:, :x]
@@ -359,12 +362,13 @@ def check_k2(b: int, x: int, kind: str, device) -> dict:
         verdict = bf16_contract(got, ref, f"K2 {kind}")
     ms = cuda_ms(lambda: fused_mol_scores_t(*args))
     plain_ms = cuda_ms(lambda: fused_mol_scores_t_reference(*args), iters=3, warmup=1)
-    l, hd = P_Q * P_X, 128
-    flops = b * x * (2 * l * D_P + 4 * l * hd)          # logits + the qi MLP per pair
+    p_q, p_x, d_p = geom
+    l, hd = p_q * p_x, 128
+    flops = b * x * (2 * l * d_p + 4 * l * hd)          # logits + the qi MLP per pair
     nbytes = table_bytes(args) + 4 * (b * l + 2 * l * hd + hd + l) + 4 * b * args[2].shape[-1]
     # The int8 path's products and MLP run in bf16, so its peak is bf16's.
     bd = bound(flops, nbytes, "float32" if kind == "float32" else "bfloat16")
-    print(f"[K2] {kind} tables B={b} X={x} MoL {P_Q}x{P_X}x{D_P}: max|err| "
+    print(f"[K2] {kind} tables B={b} X={x} MoL {p_q}x{p_x}x{d_p}: max|err| "
           f"{err:.3e} ({verdict}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
           f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": None}
@@ -455,7 +459,7 @@ def kernel_counters() -> dict:
     counters["K2-bmax"] = (mol_scoring.fused_mol_scores_t, "blockmax_launches")
     for k in ("K2", "K8", "K9", "K10"):
         counters[f"{k}-int8"] = (wrappers[k], "int8_launches")
-    for k in ("K4 fwd", "K4 bwd"):
+    for k in ("K4 fwd", "K4 bwd", "K5 fwd", "K5 bwd"):
         counters[f"{k} (bf16)"] = (wrappers[k], "bf16_launches")
     return counters
 
@@ -515,14 +519,14 @@ def plain_kernels():
         raise AssertionError("the plain path launched a kernel")
 
 
-def check_outputs(outs, batches, k: int = 120) -> None:
+def check_outputs(outs, batches, k: int = 120, num_items: int = NUM_ITEMS) -> None:
     import torch
 
     for (ranks, ids, scores), (f, _) in zip(outs, batches):
         b = f.ids.shape[0]
         assert ranks.shape == (b,) and ids.shape == (b, k) and scores.shape == (b, k)
         assert bool(torch.isfinite(scores).all()), "non-finite scores"
-        assert bool(((ids >= 1) & (ids <= NUM_ITEMS)).all()), "ids outside the corpus"
+        assert bool(((ids >= 1) & (ids <= num_items)).all()), "ids outside the corpus"
         assert bool((scores[:, 1:] <= scores[:, :-1]).all()), "scores not sorted"
         assert bool((((ranks >= 1) & (ranks <= k)) | (ranks == 1001)).all()), "bad ranks"
 
@@ -748,55 +752,65 @@ def check_k7(device) -> dict:
 
 
 def train_setup(device, config: str = "ml-20m-hstu-mol", batch: int = TRAIN_BATCH,
-                **train_overrides):
-    """`config` training (seeded random weights, 26,744 items, f32) with the
-    `train` fields in `train_overrides` replaced, and one batch of
-    ML-20M-shaped synthetic users at N = 211."""
+                num_items: int = NUM_ITEMS, lengths: str = "ml20m", **train_overrides):
+    """`config` training (seeded random weights over `num_items` items, the
+    config's dtype) with the `train` fields in `train_overrides` replaced, and
+    one batch of synthetic users at the config's N (ML-20M-shaped lengths by
+    default)."""
     from rails_tpu_torch.core.config import get_experiment_config
     from rails_tpu_torch.train.loop import create_train_state
 
     cfg = get_experiment_config(config)
     cfg = cfg.replace(train=cfg.train.replace(**train_overrides))
     model, state, step, _ = create_train_state(
-        cfg, NUM_ITEMS, np.arange(1, NUM_ITEMS + 1, dtype=np.int32), seed=0, device=device)
-    return cfg, model, state, step, train_batch(cfg, device, batch)
+        cfg, num_items, np.arange(1, num_items + 1, dtype=np.int32), seed=0, device=device)
+    return cfg, model, state, step, train_batch(cfg, device, batch, num_items, lengths)
 
 
-def train_batch(cfg, device, batch: int = TRAIN_BATCH):
-    """One training batch of ML-20M-shaped synthetic users at N = 211."""
+def train_batch(cfg, device, batch: int = TRAIN_BATCH, num_items: int = NUM_ITEMS,
+                lengths: str = "ml20m"):
+    """One training batch of synthetic users at the config's N, with
+    `lengths` ("ml20m" or "uniform") history lengths."""
     from rails_tpu_torch.data.datasets import SequenceDataset, generate_synthetic_sequences
 
-    seqs = generate_synthetic_sequences(num_users=4 * batch, num_items=NUM_ITEMS,
+    seqs = generate_synthetic_sequences(num_users=4 * batch, num_items=num_items,
                                         max_len=cfg.data.max_sequence_length + 2, seed=1,
-                                        length_distribution="ml20m")
+                                        length_distribution=lengths)
     ds = SequenceDataset(seqs, cfg.data.max_sequence_length, ignore_last_n=1)
     return next(ds.batches(batch, cfg.train.gr_output_length + 1, shuffle=True, seed=0,
                            drop_last=True, device=device))
 
 
-def step_launches(cfg) -> dict:
-    """The kernel launches one training step of `cfg` makes: K3 and K4 once
-    per block (its bf16 instance with `main_module_bf16`), K7 on the two fused
-    leaves; with the fused shared-negatives loss K5 forward and backward
-    once; with pallas_scatter_grad K6 once per gather from the item table (the
-    tokens, the encoder's input, the negatives); no serving kernel."""
-    blocks = cfg.hstu.num_blocks
-    fused = cfg.train.shared_negatives and cfg.train.fused_mol_loss
-    bf16 = blocks if cfg.train.main_module_bf16 else 0
+def step_launches(cfg, model, optimizer) -> dict:
+    """The kernel launches one training step of `cfg` makes: with
+    `fused_train` K3 and K4 once per block (its bf16 instance in bf16), none
+    on the XLA block path; K7 once per leaf the optimizer fuses; with the
+    fused shared-negatives loss K5 forward and backward once (its bf16
+    instance in bf16); with pallas_scatter_grad K6 once per gather from the
+    item table (the tokens, the encoder's input, the negatives); no serving
+    kernel."""
+    import torch
+
+    blocks = cfg.hstu.num_blocks if cfg.hstu.fused_train else 0
+    fused = int(cfg.train.shared_negatives and cfg.train.fused_mol_loss)
+    bf16 = model.compute_dtype == torch.bfloat16
     return {**{k: 0 for k in kernel_counters()}, "K3": blocks, "K4 fwd": blocks,
-            "K4 bwd": blocks, "K4 fwd (bf16)": bf16, "K4 bwd (bf16)": bf16,
-            "K5 fwd": int(fused), "K5 bwd": int(fused),
-            "K6": 3 if cfg.train.pallas_scatter_grad else 0, "K7": 2}
+            "K4 bwd": blocks, "K4 fwd (bf16)": blocks * bf16, "K4 bwd (bf16)": blocks * bf16,
+            "K5 fwd": fused, "K5 bwd": fused, "K5 fwd (bf16)": fused * bf16,
+            "K5 bwd (bf16)": fused * bf16, "K6": 3 if cfg.train.pallas_scatter_grad else 0,
+            "K7": sum(optimizer.fused(p.numel()) for p in model.parameters())}
 
 
 def train_phase(device, name: str, smi: str, config: str = "ml-20m-hstu-mol",
-                tag: str = "train", **train_overrides) -> dict:
+                tag: str = "train", batch_size: int = TRAIN_BATCH, num_items: int = NUM_ITEMS,
+                lengths: str = "ml20m", **train_overrides) -> dict:
     """Step 1 through the kernels vs through the plain versions from the same
     state and generator; then TRAIN_STEPS steps on the batch. Returns the
     launch counts of every kernel over those steps."""
     import torch
 
-    cfg, model, state, step, batch = train_setup(device, config, **train_overrides)
+    cfg, model, state, step, batch = train_setup(device, config, batch_size, num_items, lengths,
+                                                 **train_overrides)
     n = batch.features.ids.shape[1]
     params = dict(model.named_parameters())
     opt = state.optimizer
@@ -810,7 +824,7 @@ def train_phase(device, name: str, smi: str, config: str = "ml-20m-hstu-mol",
     state, m_k = step(state, batch, gen)
     per_step = launch_counts()
     grads_k = {k: p.grad.detach().clone() for k, p in params.items()}
-    want = step_launches(cfg)
+    want = step_launches(cfg, model, opt)
     if per_step != want:
         raise AssertionError(f"train step launches {per_step}, want {want}")
     for k, p in params.items():
@@ -822,14 +836,14 @@ def train_phase(device, name: str, smi: str, config: str = "ml-20m-hstu-mol",
     with plain_kernels():
         state, m_p = step(state, batch, gen)
     loss_err = abs(m_k["loss"].item() - m_p["loss"].item()) / abs(m_p["loss"].item())
-    dt = "bf16" if cfg.train.main_module_bf16 else "f32"
+    dt = "bf16" if model.compute_dtype == torch.bfloat16 else "f32"
     loss_tol, grad_tol = BF16_TRAIN_TOL if dt == "bf16" else (TRAIN_LOSS_RTOL, GRAD_REL_TOL)
     groups: dict = {}
     for k, p in params.items():
         group = k.split(".")[0]
         groups[group] = max(groups.get(group, 0.0), rel_err(grads_k[k], p.grad))
     negatives = "shared" if cfg.train.shared_negatives else "per position"
-    print(f"[{tag}] step 1 kernels vs plain, {cfg.name} B={TRAIN_BATCH} N={n} "
+    print(f"[{tag}] step 1 kernels vs plain, {cfg.name} B={batch_size} N={n} "
           f"R={cfg.train.num_negatives} {negatives}, pallas_scatter_grad="
           f"{cfg.train.pallas_scatter_grad}, {dt}: loss {m_k['loss'].item():.6f} vs "
           f"{m_p['loss'].item():.6f} (rel {loss_err:.2e} <= {loss_tol}); gradient "
@@ -860,7 +874,7 @@ def train_phase(device, name: str, smi: str, config: str = "ml-20m-hstu-mol",
     print(f"[{tag}] {TRAIN_STEPS} steps on one batch: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
           f"(first 5 mean {np.mean(losses[:5]):.4f}, last 5 mean {np.mean(losses[-5:]):.4f}); "
           f"median of steps 3-{TRAIN_STEPS} {ms:.3f} ms/step = "
-          f"{TRAIN_BATCH / ms * 1e3:.1f} sequences/s; peak memory {peak / 2**30:.2f} GiB; "
+          f"{batch_size / ms * 1e3:.1f} sequences/s; peak memory {peak / 2**30:.2f} GiB; "
           f"launches {counts} on {name} ({smi})")
     if not falls:
         raise AssertionError(f"the training loss did not fall: {losses}")
@@ -873,52 +887,67 @@ def train_phase(device, name: str, smi: str, config: str = "ml-20m-hstu-mol",
 K5_NAMES = ("q_comp", "qp", "item_comp", "ip", "w1", "b1", "w2", "b2")
 
 
-def k5_inputs(device, seed: int = 5):
-    """ml-20m-fast K5 operands: M = 128 x 210 queries' l2-normalised 8 x 128
-    components and 32 gating partials, 128 shared negatives' 4 x 128
-    components and partials, and a qi MLP of 128 hidden units."""
+def k5_inputs(device, m: int, r: int, geom: tuple, dtype, seed: int = 5):
+    """K5 operands: M queries' l2-normalised P_Q x d_P components and L gating
+    partials, R shared negatives' P_X x d_P components and partials (in
+    `dtype`), and an f32 qi MLP of 128 hidden units."""
     import torch
 
     from rails_tpu_torch.similarity.layers import l2_normalize
 
     g = torch.Generator(device=device).manual_seed(seed)
-    m, r, l, hd = TRAIN_BATCH * (MAX_SEQ_LEN - 1), NUM_NEGATIVES, P_Q * P_X, 128
+    p_q, p_x, d_p = geom
+    l, hd = p_q * p_x, 128
 
     def randn(*shape):
         return torch.randn(*shape, generator=g, device=device)
 
-    return [l2_normalize(randn(m, P_Q, D_P)), randn(m, l), l2_normalize(randn(r, P_X, D_P)),
-            randn(r, l), randn(l, hd) / l ** 0.5, 0.1 * randn(1, hd), randn(hd, l) / hd ** 0.5,
-            0.1 * randn(1, l)]
+    ops = [l2_normalize(randn(m, p_q, d_p)), randn(m, l), l2_normalize(randn(r, p_x, d_p)),
+           randn(r, l)]
+    return [t.to(dtype) for t in ops] + [randn(l, hd) / l ** 0.5, 0.1 * randn(1, hd),
+                                         randn(hd, l) / hd ** 0.5, 0.1 * randn(1, l)]
 
 
-def check_k5(device) -> tuple:
-    """K5 at ml-20m-fast's shapes, forward and backward, against the plain
-    version and autograd of it on the same inputs, mask seed and cotangent."""
+def check_k5(device, m: int = TRAIN_BATCH * (MAX_SEQ_LEN - 1), r: int = NUM_NEGATIVES,
+             geom: tuple = ML20M_GEOM, dtype_name: str = "float32",
+             rates: tuple = K5_RATES) -> tuple:
+    """K5 forward and backward (ml-20m-fast's shapes by default) against the
+    plain versions on the same inputs, mask seed and cotangent: f32 to K2's
+    f32 tolerance and GRAD_REL_TOL, bf16 operands within K5_BF16_TOL."""
     import torch
 
     from rails_tpu_torch.ops import mol_loss_train as mlt
 
-    args = k5_inputs(device)
-    m, r = args[0].shape[0], args[2].shape[0]
-    l, hd = P_Q * P_X, args[4].shape[1]
-    pi_rate, qi_rate = K5_RATES
-    kw = dict(p_q=P_Q, p_x=P_X, temperature=TEMPERATURE, qi_rate=qi_rate, pi_rate=pi_rate,
+    args = k5_inputs(device, m, r, geom, getattr(torch, dtype_name))
+    p_q, p_x, d_p = geom
+    l, hd = p_q * p_x, args[4].shape[1]
+    pi_rate, qi_rate = rates
+    kw = dict(p_q=p_q, p_x=p_x, temperature=TEMPERATURE, qi_rate=qi_rate, pi_rate=pi_rate,
               eps=1e-6)
     seed = 424_242
     got = mlt.fused_mol_loss_forward(*args, seed, **kw)
     ref = mlt.fused_mol_loss_forward_reference(*args, seed, **kw)
-    rtol, atol = K2_TOL_F32
-    torch.testing.assert_close(got, ref, rtol=rtol, atol=atol)
     err = (got - ref).abs().max().item()
+    if dtype_name == "float32":
+        rtol, atol = K2_TOL_F32
+        torch.testing.assert_close(got, ref, rtol=rtol, atol=atol)
+        fwd_verdict, grad_tol = f"rtol {rtol}, atol {atol}", GRAD_REL_TOL
+    else:
+        fwd_tol, grad_tol = K5_BF16_TOL
+        fwd_share = rel_err(got, ref)
+        if fwd_share > fwd_tol:
+            raise AssertionError(f"K5 {dtype_name} forward outside {fwd_tol}: {fwd_share}")
+        fwd_verdict = f"max|err|/max|plain| {fwd_share:.2e} <= {fwd_tol}"
     cot = torch.randn(m, r, generator=torch.Generator(device=device).manual_seed(6),
                       device=device)
     grads = mlt.fused_mol_loss_backward(*args, seed, cot, **kw)
     ref_grads = mlt.fused_mol_loss_backward_reference(*args, seed, cot, **kw)
-    grad_errs = {k: rel_err(a, b) for k, a, b in zip(K5_NAMES, grads, ref_grads)}
-    bwd_err = max((a - b).abs().max().item() for a, b in zip(grads, ref_grads))
-    if max(grad_errs.values()) > GRAD_REL_TOL:
-        raise AssertionError(f"K5 gradients outside {GRAD_REL_TOL}: {grad_errs}")
+    if any(a.dtype != b.dtype for a, b in zip(grads, ref_grads)):
+        raise AssertionError("K5 gradients and plain gradients differ in dtype")
+    grad_errs = {k: rel_err(a.float(), b.float()) for k, a, b in zip(K5_NAMES, grads, ref_grads)}
+    bwd_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(grads, ref_grads))
+    if max(grad_errs.values()) > grad_tol:
+        raise AssertionError(f"K5 gradients outside {grad_tol}: {grad_errs}")
     del got, ref, grads, ref_grads
     torch.cuda.empty_cache()
     fwd_ms = cuda_ms(lambda: mlt.fused_mol_loss_forward(*args, seed, **kw))
@@ -928,17 +957,18 @@ def check_k5(device) -> tuple:
     bwd_plain_ms = cuda_ms(
         lambda: mlt.fused_mol_loss_backward_reference(*args, seed, cot, **kw), iters=2, warmup=1)
     pairs = m * r
-    fwd_flops = pairs * (2 * l * D_P + 4 * l * hd)      # component logits + the qi MLP
+    fwd_flops = pairs * (2 * l * d_p + 4 * l * hd)      # component logits + the qi MLP
     # d q and d item (2 x 2 L d_P), d_h, d t_in, dW1 and dW2 (4 x 2 L H) per pair.
-    bwd_flops = pairs * (4 * l * D_P + 8 * l * hd)
-    in_floats = sum(a.numel() for a in args)
-    fwd_bd = bound(fwd_flops, 4 * (in_floats + pairs), "float32")
-    bwd_bd = bound(bwd_flops, 4 * (2 * in_floats + pairs), "float32")
-    print(f"[K5] f32 M={m} R={r} MoL {P_Q}x{P_X}x{D_P} H={hd} dropout softmax {pi_rate} / "
-          f"qi {qi_rate}: forward max|err| {err:.3e} (rtol {rtol}, atol {atol}); gradient "
+    bwd_flops = pairs * (4 * l * d_p + 8 * l * hd)
+    in_bytes = sum(a.numel() * a.element_size() for a in args)
+    fwd_bd = bound(fwd_flops, in_bytes + 4 * pairs, dtype_name)
+    bwd_bd = bound(bwd_flops, 2 * in_bytes + 4 * pairs, dtype_name)
+    dt = "f32" if dtype_name == "float32" else "bf16"
+    print(f"[K5] {dt} M={m} R={r} MoL {p_q}x{p_x}x{d_p} H={hd} dropout softmax {pi_rate} / "
+          f"qi {qi_rate}: forward max|err| {err:.3e} ({fwd_verdict}); gradient "
           f"max|err|/max|plain| " + ", ".join(f"{k} {v:.2e}" for k, v in grad_errs.items())
-          + f" (<= {GRAD_REL_TOL})")
-    print(f"[K5] forward kernel {fwd_ms:.3f} ms, plain {fwd_plain_ms:.3f} ms, bound "
+          + f" (<= {grad_tol})")
+    print(f"[K5] {dt} forward kernel {fwd_ms:.3f} ms, plain {fwd_plain_ms:.3f} ms, bound "
           f"{fwd_bd['bound_ms']:.4f} ms ({fwd_bd['bound_by']}; {fwd_flops / 1e9:.1f} GFLOP); "
           f"backward kernel {bwd_ms:.3f} ms, plain {bwd_plain_ms:.3f} ms, bound "
           f"{bwd_bd['bound_ms']:.4f} ms ({bwd_bd['bound_by']}; {bwd_flops / 1e9:.1f} GFLOP)")
@@ -990,47 +1020,51 @@ def check_k6(device, ids) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": library_ms}
 
 
-def bound_inputs(b: int, x: int, dtype, device, seed: int = 8):
-    """K2-K10 operands over x items: l2-normalised 8 x 4 x 128 components,
-    random gating partials and a random qi MLP, made on the card."""
+def bound_inputs(b: int, x: int, dtype, device, seed: int = 8, geom: tuple = ML20M_GEOM):
+    """K2-K10 operands (q, qp, items, ip, w, T) over x items: l2-normalised
+    P_Q / P_X x d_P components of `geom`, random gating partials and a random
+    qi MLP of 128 hidden units, made on the card."""
     import torch
 
     from rails_tpu_torch.ops.mol_scoring import MoLKernelWeights, prepare_fused_tables
     from rails_tpu_torch.similarity.layers import l2_normalize
 
     g = torch.Generator(device=device).manual_seed(seed)
-    l, hd = P_Q * P_X, 128
+    p_q, p_x, d_p = geom
+    l, hd = p_q * p_x, 128
 
     def randn(*shape):
         return torch.randn(*shape, generator=g, device=device)
 
-    tables = prepare_fused_tables(l2_normalize(randn(x, P_X, D_P)).to(dtype),
+    tables = prepare_fused_tables(l2_normalize(randn(x, p_x, d_p)).to(dtype),
                                   randn(x, l).to(dtype))
     w = MoLKernelWeights(randn(l, hd) / l ** 0.5, 0.1 * randn(hd), randn(hd, l) / hd ** 0.5,
                          0.1 * randn(l))
-    q = l2_normalize(randn(b, P_Q, D_P)).to(dtype)
+    q = l2_normalize(randn(b, p_q, d_p)).to(dtype)
     return (q, randn(b, l), tables.item_comp_t, tables.item_partial_t, w, TEMPERATURE)
 
 
-def check_bounds(device) -> dict:
-    """K8, K9 and K10 at B=32 over 1,048,576 items, f32, bf16 and int8 tables
-    (the bf16 ones quantized): each against its plain version (int8 K8 and K9
-    to 1e-5 of their largest value: f32 sums of exact products); K8 above
-    K2's score everywhere, up to the certificate margin of bf16 tables and
-    the f32 margin of f32 and int8 ones; K9's tile maxima above K8; K10
-    bit-equal to K2's columns of its tiles. Returns the bf16 and int8 entries
-    of the kernel summary."""
+def check_bounds(device, b: int = APPROX_BATCH, x: int = APPROX_ITEMS,
+                 geom: tuple = ML20M_GEOM) -> dict:
+    """K8, K9 and K10 at B x X (B=32 over 1,048,576 items by default), f32,
+    bf16 and int8 tables (the bf16 ones quantized): each against its plain
+    version (int8 K8 and K9 to 1e-5 of their largest value: f32 sums of exact
+    products); K8 above K2's score everywhere, up to the certificate margin
+    of bf16 tables and the f32 margin of f32 and int8 ones; K9's tile maxima
+    above K8; K10 bit-equal to K2's columns of its tiles. Returns the bf16
+    and int8 entries of the kernel summary."""
     import torch
 
     from rails_tpu_torch.index.top_k import _CERT_REL_MARGIN
     from rails_tpu_torch.ops import mol_scoring as ms
 
-    b, l, hd = APPROX_BATCH, P_Q * P_X, 128
+    p_q, p_x, d_p = geom
+    l, hd = p_q * p_x, 128
     rtol, atol = K2_TOL_F32
     out = {}
     for kind in ("float32", "bfloat16", "int8"):
-        args = bound_inputs(b, APPROX_ITEMS, torch.float32 if kind == "float32" else torch.bfloat16,
-                            device)
+        args = bound_inputs(b, x, torch.float32 if kind == "float32" else torch.bfloat16,
+                            device, geom=geom)
         if kind == "int8":
             args = quantized(args)
         q, qp, items, ip, w, t = args[:6]
@@ -1062,8 +1096,8 @@ def check_bounds(device) -> dict:
               "ms": cuda_ms(lambda: ms.fused_mol_ub_t(q, items, t, cs)),
               "plain_ms": cuda_ms(lambda: ms.fused_mol_ub_t_reference(q, items, t, cs), iters=3,
                                   warmup=1),
-              **bound(2 * b * xp * l * D_P, comp_bytes + 4 * b * xp, peak), "library_ms": None}
-        print(f"[K8] {kind} tables B={b} X={xp} MoL {P_Q}x{P_X}x{D_P}: max|err| "
+              **bound(2 * b * xp * l * d_p, comp_bytes + 4 * b * xp, peak), "library_ms": None}
+        print(f"[K8] {kind} tables B={b} X={xp} MoL {p_q}x{p_x}x{d_p}: max|err| "
               f"{k8['max_abs_err']:.3e} ({verdict}); UB + {rel:.2e} x max(|UB|, "
               f"|score|) >= K2's score for all {b * xp} pairs (min slack {slack:.3e}); kernel "
               f"{k8['ms']:.3f} ms, plain {k8['plain_ms']:.3f} ms, bound {k8['bound_ms']:.4f} ms "
@@ -1079,9 +1113,10 @@ def check_bounds(device) -> dict:
               "ms": cuda_ms(lambda: ms.fused_mol_group_block_max(q, items, t, cs)),
               "plain_ms": cuda_ms(lambda: ms.fused_mol_group_block_max_reference(q, items, t, cs),
                                   iters=3, warmup=1),
-              **bound(2 * b * xp * l * D_P, comp_bytes + 4 * b * l * nb, peak),
+              **bound(2 * b * xp * l * d_p, comp_bytes + 4 * b * l * nb, peak),
               "library_ms": None}
-        print(f"[K9] {kind} tables B={b} X={xp} ({nb} tiles of {ms.BLOCK_X}): max|err| "
+        print(f"[K9] {kind} tables B={b} X={xp} MoL {p_q}x{p_x}x{d_p} ({nb} tiles of "
+              f"{ms.BLOCK_X}): max|err| "
               f"{k9['max_abs_err']:.3e} ({verdict}); every tile maximum >= the K8 bound of its "
               f"items; kernel {k9['ms']:.3f} ms, plain {k9['plain_ms']:.3f} ms, "
               f"bound {k9['bound_ms']:.4f} ms ({k9['bound_by']})")
@@ -1104,17 +1139,17 @@ def check_bounds(device) -> dict:
         else:
             verdict = bf16_contract(sc, sc_ref, f"K10 {kind}")
         cols_n = K10_TILES * ms.BLOCK_X
-        per_col = (P_X * D_P + l) * items.element_size() + (4 * (P_X + 1) if cs is not None else 0)
+        per_col = (p_x * d_p + l) * items.element_size() + (4 * (p_x + 1) if cs is not None else 0)
         k10 = {"max_abs_err": (sc - sc_ref).abs().max().item(),
                "ms": cuda_ms(lambda: ms.fused_mol_scores_tiles(*tile_args)),
                "plain_ms": cuda_ms(lambda: ms.fused_mol_scores_tiles_reference(*tile_args),
                                    iters=3, warmup=1),
-               **bound(cols_n * b * (2 * l * D_P + 4 * l * hd),
+               **bound(cols_n * b * (2 * l * d_p + 4 * l * hd),
                        distinct * ms.BLOCK_X * per_col + q.numel() * q.element_size()
                        + 4 * (b * l + 2 * l * hd + hd + l + K10_TILES + b * cols_n), peak),
                "library_ms": None}
-        print(f"[K10] {kind} tables B={b} T={K10_TILES} tiles ({distinct} distinct, the last "
-              f"tile and a duplicate) of X={xp}: bit-equal to K2's columns of the same tiles; vs "
+        print(f"[K10] {kind} tables B={b} MoL {p_q}x{p_x}x{d_p} T={K10_TILES} tiles ({distinct} "
+              f"distinct, the last tile and a duplicate) of X={xp}: bit-equal to K2's columns of the same tiles; vs "
               f"plain max|err| {k10['max_abs_err']:.3e} ({verdict}); kernel {k10['ms']:.3f} ms, "
               f"plain {k10['plain_ms']:.3f} ms, bound {k10['bound_ms']:.4f} ms "
               f"({k10['bound_by']})")
@@ -1127,20 +1162,21 @@ def check_bounds(device) -> dict:
     return out
 
 
-def check_k2_blockmax(device) -> dict:
-    """K2's emit_blockmax at B=32 over bf16 tables of 1,048,575 items (one
-    pad column at the end), with BMAX_INVALID valid=0 in mid-corpus: the
-    scores bit-equal to K2's with those columns and the pad tail at -1e30, the
-    (B, X/256) maxima equal to theirs exactly, the plain version by K2's bf16
-    contract; kernel ms with and without the option."""
+def check_k2_blockmax(device, b: int = APPROX_BATCH, x: int = APPROX_ITEMS - 1,
+                      geom: tuple = ML20M_GEOM, invalid: tuple = BMAX_INVALID) -> dict:
+    """K2's emit_blockmax at B x X over bf16 tables (B=32 over 1,048,575 items,
+    one pad column at the end, by default), with `invalid` valid=0 in
+    mid-corpus: the scores bit-equal to K2's with those columns and the pad
+    tail at -1e30, the (B, X/256) maxima equal to theirs exactly, the plain
+    version by K2's bf16 contract; kernel ms with and without the option."""
     import torch
 
     from rails_tpu_torch.ops import mol_scoring as ms
 
-    args = bound_inputs(APPROX_BATCH, APPROX_ITEMS - 1, torch.bfloat16, device)
-    b, xp = args[0].shape[0], args[2].shape[2]
-    valid = torch.ones(APPROX_ITEMS - 1, device=device)
-    valid[list(BMAX_INVALID)] = 0.0
+    args = bound_inputs(b, x, torch.bfloat16, device, geom=geom)
+    xp = args[2].shape[2]
+    valid = torch.ones(x, device=device)
+    valid[list(invalid)] = 0.0
     k2 = ms.fused_mol_scores_t(*args)
     scores, tile_max = ms.fused_mol_scores_t(*args, emit_blockmax=True, valid=valid)
     keep = torch.zeros(xp, device=device)
@@ -1158,13 +1194,14 @@ def check_k2_blockmax(device) -> dict:
     ms_plain_k2 = cuda_ms(lambda: ms.fused_mol_scores_t(*args))
     plain_ms = cuda_ms(lambda: ms.fused_mol_scores_t_reference(*args, emit_blockmax=True,
                                                                valid=valid), iters=3, warmup=1)
-    l, hd = P_Q * P_X, 128
-    flops = b * xp * (2 * l * D_P + 4 * l * hd)
+    p_q, p_x, d_p = geom
+    l, hd = p_q * p_x, 128
+    flops = b * xp * (2 * l * d_p + 4 * l * hd)
     nbytes = (table_bytes(args) + 4 * (b * l + 2 * l * hd + hd + l) + 4 * xp
               + 4 * b * (xp + xp // ms.BLOCK_X))
     bd = bound(flops, nbytes, "bfloat16")
-    print(f"[K2-bmax] bf16 tables B={b} X={xp} ({valid.shape[0]} items, valid=0 at "
-          f"{list(BMAX_INVALID)} and the pad tail): scores bit-equal to K2's with them at -1e30, "
+    print(f"[K2-bmax] bf16 tables B={b} X={xp} MoL {p_q}x{p_x}x{d_p} ({valid.shape[0]} items, "
+          f"valid=0 at {list(invalid)} and the pad tail): scores bit-equal to K2's with them at -1e30, "
           f"({b}, {xp // ms.BLOCK_X}) tile maxima exact; vs plain {verdict}; kernel "
           f"{ms_bmax:.3f} ms with emit_blockmax, {ms_plain_k2:.3f} ms without; plain "
           f"{plain_ms:.3f} ms; bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
@@ -1470,6 +1507,7 @@ def frontier_phase(device, name: str, smi: str) -> dict:
     from rails_tpu_torch.cli import frontier as fr
     from rails_tpu_torch.index import top_k as tk
     from rails_tpu_torch.ops.mol_scoring import extract_gating_qi_weights, fused_mol_scores_t
+    from rails_tpu_torch.train.loop import make_optimizer
 
     args = fr.parse_args(["--num-items", str(FRONTIER_ITEMS), "--train-steps",
                           str(FRONTIER_STEPS), "--runs", str(FRONTIER_RUNS)])
@@ -1485,7 +1523,8 @@ def frontier_phase(device, name: str, smi: str) -> dict:
     torch.cuda.synchronize()
     pre_s = time.perf_counter() - t0
     counts = launch_counts()
-    want = {key: v * len(losses) for key, v in step_launches(cfg).items()}
+    want = {key: v * len(losses)
+            for key, v in step_launches(cfg, model, make_optimizer(cfg, model)).items()}
     if counts != want:
         raise AssertionError(f"frontier pre-train launches {counts}, want {want}")
     first, last = np.mean(losses[:10]), np.mean(losses[-10:])
@@ -1701,6 +1740,77 @@ def approx_e2e(device, name: str, smi: str) -> dict:
     return counts
 
 
+def books_e2e(device, name: str, smi: str, n_batches: int = 3) -> dict:
+    """amzn-books-hstu-mol serving at full width: 16 blocks (seeded random
+    weights, bf16 as `eval_bf16` serves it) over BOOKS_ITEMS items, batches of
+    BOOKS_BATCH synthetic users at N = 61, k=120, k'=200, through
+    get_eval_state and make_eval_step_fn for every BOOKS_METHODS spelling: the
+    kernel path (launch counts, ms/batch) against the same step through the
+    plain versions, with `[e2e]`'s bf16 rank and overlap checks. The encoder
+    runs the XLA block path (`fused_inference=False`), so no K1. Returns the
+    launch counts of the kernel-path run of all methods."""
+    import torch
+
+    from rails_tpu_torch.core.config import get_experiment_config
+    from rails_tpu_torch.data.datasets import SequenceDataset, generate_synthetic_sequences
+    from rails_tpu_torch.models.encoder import SequentialRecommender
+    from rails_tpu_torch.train.evaluation import get_eval_state, make_eval_step_fn
+
+    dtype_name, min_rank_agree, min_overlap = E2E_TOL[0]
+    cfg = get_experiment_config("amzn-books-hstu-mol")
+    model = SequentialRecommender(cfg, BOOKS_ITEMS, compute_dtype=torch.bfloat16, device=device,
+                                  generator=torch.Generator().manual_seed(0))
+    seqs = generate_synthetic_sequences(num_users=BOOKS_BATCH * n_batches, num_items=BOOKS_ITEMS,
+                                        max_len=cfg.data.max_sequence_length + 2, seed=4)
+    ds = SequenceDataset(seqs, cfg.data.max_sequence_length, ignore_last_n=1)
+    batches = [(b.features, b.target_ids) for b in ds.batches(
+        BOOKS_BATCH, cfg.train.gr_output_length + 1, shuffle=False, drop_last=True,
+        device=device)]
+    all_ids = np.arange(1, BOOKS_ITEMS + 1, dtype=np.int32)
+    n = len(batches)
+    counts, launches = {}, {}
+    for method in BOOKS_METHODS:
+        es = get_eval_state(model, all_ids, method, table_dtype=torch.bfloat16, device=device)
+        step = make_eval_step_fn(model, method, k=120, num_objects=es.num_objects,
+                                 filter_invalid_ids=True, truncate_k_prime_to=200)
+
+        def serve(f, t, es=es, step=step):
+            return step(es.topk_state, f, t)
+
+        run_batches(serve, batches)                                       # warm-up
+        reset_launches()
+        outs_k, ms_k = run_batches(serve, batches)
+        counts = {key: v for key, v in launch_counts().items() if v}
+        for key, v in counts.items():
+            launches[key] = launches.get(key, 0) + v
+        check_outputs(outs_k, batches, num_items=BOOKS_ITEMS)
+        with plain_kernels():
+            outs_p, ms_p = run_batches(serve, batches)
+        rk, rp = (torch.cat([o[0] for o in o_]) for o_ in (outs_k, outs_p))
+        ik, ip = (torch.cat([o[1] for o in o_]) for o_ in (outs_k, outs_p))
+        rank_agree = (rk == rp).float().mean().item()
+        overlap = id_overlap(ik, ip)
+        print(f"[books-e2e] {method} {dtype_name} {cfg.name}, {n} batches of {BOOKS_BATCH} "
+              f"(N={batches[0][0].ids.shape[1]}), {BOOKS_ITEMS} items, k=120, k'=200: kernel "
+              f"path {ms_k:.3f} ms/batch = {BOOKS_BATCH / ms_k * 1e3:.1f} q/s, plain path "
+              f"{ms_p:.3f} ms/batch on {name} ({smi}); launches {counts}; vs plain: ranks agree "
+              f"on {rank_agree:.4f} of {rk.numel()} rows (>= {min_rank_agree}), top-120 overlap "
+              f"{overlap:.4f} (>= {min_overlap})")
+        if rank_agree < min_rank_agree or overlap < min_overlap:
+            raise AssertionError(f"{method}: the kernel path disagrees with the plain path")
+        if counts.get("K1", 0):
+            raise AssertionError(f"{method}: the XLA-path encoder launched K1")
+        del es, step, outs_k, outs_p
+        torch.cuda.empty_cache()
+    want = {"K2": 2 * n, "K2-bmax": 2 * n, "K2-int8": n, "K8": 2 * n, "K8-int8": n,
+            "K9": 2 * n, "K9-int8": n, "K10": 2 * n, "K10-int8": n}
+    if any(launches.get(key, 0) != v for key, v in want.items()):
+        raise AssertionError(f"Books serving launches {launches}, want {want}")
+    print(f"[books-e2e] launches of the kernel-path runs of the {len(BOOKS_METHODS)} methods: "
+          f"{launches}")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -1772,10 +1882,34 @@ def main() -> None:
     torch.cuda.empty_cache()
     front = frontier_phase(device, name, smi)
     launches.update({k: front[k] for k in ("K4 fwd (bf16)", "K4 bwd (bf16)")})
+    torch.cuda.empty_cache()
 
-    def entry(name_, source, replaces, key, measured):
+    # Amazon Books: the 8x8x32 kernels at its serving shapes, the bf16 K5 at
+    # its training shapes, then its serving and training paths.
+    books_cfg = get_experiment_config("amzn-books-hstu-mol")
+    k2b = {kind: check_k2(BOOKS_BATCH, BOOKS_ITEMS, kind, device, BOOKS_GEOM)
+           for kind in ("float32", "bfloat16", "int8")}
+    torch.cuda.empty_cache()
+    boundsb = check_bounds(device, BOOKS_BATCH, BOOKS_ITEMS, BOOKS_GEOM)
+    bmaxb = check_k2_blockmax(device, BOOKS_BATCH, BOOKS_ITEMS, BOOKS_GEOM, BOOKS_INVALID)
+    torch.cuda.empty_cache()
+    k5b_fwd, k5b_bwd = check_k5(
+        device, BOOKS_BATCH * (books_cfg.max_seq_len_padded - 1), books_cfg.train.num_negatives,
+        BOOKS_GEOM, "bfloat16",
+        (books_cfg.mol.softmax_dropout_rate, books_cfg.mol.gating_qi_dropout_rate))
+    torch.cuda.empty_cache()
+    books = books_e2e(device, name, smi)
+    torch.cuda.empty_cache()
+    books_train = {"lengths": "uniform", "batch_size": BOOKS_BATCH, "num_items": BOOKS_ITEMS}
+    train_phase(device, name, smi, "amzn-books-hstu-mol", "books-train", **books_train)
+    torch.cuda.empty_cache()
+    fastb = train_phase(device, name, smi, "amzn-books-hstu-mol-fast", "books-train-fast",
+                        **books_train)
+    books.update({k: fastb[k] for k in ("K5 fwd (bf16)", "K5 bwd (bf16)")})
+
+    def entry(name_, source, replaces, key, measured, counts=launches):
         return {"name": name_, "route": "cuda", "source": f"rails_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": launches[key], **measured}
+                "replaces": replaces, "launches": counts[key], **measured}
 
     summary = [
         entry("fused_hstu_block", "hstu_block.cu", "rails_tpu/ops/pallas/hstu_block.py:432",
@@ -1816,6 +1950,28 @@ def main() -> None:
               "rails_tpu/ops/pallas/hstu_block_train.py:574", "K4 fwd (bf16)", k4_fwd16),
         entry("attn_backward (bf16)", "hstu_block_train.cu",
               "rails_tpu/ops/pallas/hstu_block_train.py:629", "K4 bwd (bf16)", k4_bwd16),
+        entry("fused_mol_scores_t (8x8x32)", "mol_scoring.cu",
+              "rails_tpu/ops/pallas/mol_scoring.py:724", "K2", k2b["bfloat16"], books),
+        entry("fused_mol_scores_t (8x8x32, int8 tables)", "mol_scoring.cu",
+              "rails_tpu/ops/pallas/mol_scoring.py:724", "K2-int8", k2b["int8"], books),
+        entry("fused_mol_scores_t (8x8x32, emit_blockmax)", "mol_scoring.cu",
+              "rails_tpu/ops/pallas/mol_scoring.py:724", "K2-bmax", bmaxb, books),
+        entry("fused_mol_ub_t (8x8x32)", "mol_bounds.cu",
+              "rails_tpu/ops/pallas/mol_scoring.py:427", "K8", boundsb["K8"], books),
+        entry("fused_mol_ub_t (8x8x32, int8 tables)", "mol_bounds.cu",
+              "rails_tpu/ops/pallas/mol_scoring.py:427", "K8-int8", boundsb["K8-int8"], books),
+        entry("fused_mol_group_block_max (8x8x32)", "mol_bounds.cu",
+              "rails_tpu/ops/pallas/mol_scoring.py:346", "K9", boundsb["K9"], books),
+        entry("fused_mol_group_block_max (8x8x32, int8 tables)", "mol_bounds.cu",
+              "rails_tpu/ops/pallas/mol_scoring.py:346", "K9-int8", boundsb["K9-int8"], books),
+        entry("fused_mol_scores_tiles (8x8x32)", "mol_scoring.cu",
+              "rails_tpu/ops/pallas/mol_scoring.py:875", "K10", boundsb["K10"], books),
+        entry("fused_mol_scores_tiles (8x8x32, int8 tables)", "mol_scoring.cu",
+              "rails_tpu/ops/pallas/mol_scoring.py:875", "K10-int8", boundsb["K10-int8"], books),
+        entry("fused_mol_loss_forward (bf16, 8x8x32)", "mol_loss_train.cu",
+              "rails_tpu/ops/pallas/mol_loss_train.py:143", "K5 fwd (bf16)", k5b_fwd, books),
+        entry("fused_mol_loss_backward (bf16, 8x8x32)", "mol_loss_train.cu",
+              "rails_tpu/ops/pallas/mol_loss_train.py:159", "K5 bwd (bf16)", k5b_bwd, books),
     ]
     missing = [e["name"] for e in summary if not e["launches"]]
     if missing:

@@ -8,7 +8,8 @@
 // over 256-item corpus tiles, rows in the port's n-major logit order. The MoL
 // score is a softmax mixture of the logits, so both bound it from above
 // (T > 0). Neither runs the gating chain: per (query, item) pair they do the
-// P_Q * P_X * d_P = 4096 FMAs of the component logits and a max.
+// P_Q * P_X * d_P FMAs of the component logits (4096 at 8x4x128, 2048 at
+// 8x8x32) and a max.
 // int8 tables (TableTraits<int8_t>, common.cuh): bf16 queries, and each raw
 // dot product times its item's component scale cs[m, x] before the max and
 // 1/T, as in JAX and as K2 scales its logits.
@@ -16,13 +17,14 @@
 // Layout, as K2's (csrc/mol_scoring.cu): lanes own items, warps own queries.
 // A block stages 32 items of the (P_X, d_P, X_padded) table in shared memory
 // as f32, one padded row per item, and each warp walks 4 of the block's 32
-// queries, staging one query at a time. A thread keeps its item's 32 logits in
+// queries, staging one query at a time. A thread keeps its item's L logits in
 // registers and reads the item and the query as float4s (the row pad of 4
-// floats makes the item reads conflict-free). K8 writes the max over the 32
+// floats makes the item reads conflict-free). K8 writes the max over the L
 // logits per (query, item); K9 walks its 256-item tile as 8 such sub-tiles,
 // reduces each sub-tile's logits over the 32 lanes into one max per group (a
-// butterfly that halves the values each lane holds, so lane l / (32 / L)
-// ends up with group l), and keeps the running max per (query, group).
+// butterfly that halves the values each lane holds: at L <= 32 lane
+// l / (32 / L) ends up with group l, at L = 64 lane i with groups 2i and
+// 2i + 1), and keeps the running max per (query, group).
 // The logits are K2's: the same f32 values, summed over k in the same order
 // with fmaf and scaled the same way, so K8's bound is exactly the max of K2's
 // logits.
@@ -113,9 +115,10 @@ __device__ __forceinline__ void item_logits(const float* qw, const float* it, in
 }
 
 // Max over the warp's 32 lanes of each of the N values v[0..N), N a power of
-// two <= 32: while a lane holds more than one value it keeps the half whose
+// two <= 64: while a lane holds more than one value it keeps the half whose
 // group bit matches its lane bit S, maxed with its partner's; then plain
-// butterfly rounds. Lane i returns group i / (32 / N).
+// butterfly rounds. For N <= 32 lane i returns group i / (32 / N) in v[0];
+// for N = 64 it returns groups 2i and 2i + 1 in v[0] and v[1].
 template <int N, int S>
 __device__ __forceinline__ void group_max(float* v, int lane) {
   if constexpr (S > 0) {
@@ -177,8 +180,9 @@ mol_group_block_max_kernel(const typename TableTraits<S>::Round* __restrict__ q,
                            float* __restrict__ out, int B, int Xp, int dP, float inv_t) {
   using Q = typename TableTraits<S>::Round;
   constexpr int L = PQ * PX;
-  static_assert(L <= 32 && (L & (L - 1)) == 0, "L must be a power of two <= 32");
-  constexpr int kLanesPerGroup = 32 / L;
+  static_assert(L <= 64 && (L & (L - 1)) == 0, "L must be a power of two <= 64");
+  constexpr int kLanesPerGroup = L < 32 ? 32 / L : 1;   // lanes that end with one group
+  constexpr int kVals = L > 32 ? L / 32 : 1;            // groups each lane ends with
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* its = reinterpret_cast<float*>(smem_raw);
   float* qs = its + kSubX * (PX * dP + kPad);
@@ -186,9 +190,11 @@ mol_group_block_max_kernel(const typename TableTraits<S>::Round* __restrict__ q,
   const int tile = blockIdx.x, nb = Xp / kTileCols;
   float* qw = qs + warp * PQ * dP;
   const float* it = its + lane * (PX * dP + kPad);
-  float gm[kPerWarp];
+  float gm[kPerWarp][kVals];
 #pragma unroll
-  for (int j = 0; j < kPerWarp; ++j) gm[j] = -INFINITY;
+  for (int j = 0; j < kPerWarp; ++j)
+#pragma unroll
+    for (int v = 0; v < kVals; ++v) gm[j][v] = -INFINITY;
   for (int sub = 0; sub < kTileCols / kSubX; ++sub) {
     __syncthreads();  // every warp is done with the previous sub-tile
     const int x0 = tile * kTileCols + sub * kSubX;
@@ -206,7 +212,8 @@ mol_group_block_max_kernel(const typename TableTraits<S>::Round* __restrict__ q,
       item_logits<PQ, PX>(qw, it, dP, lg);
       scale_logits<S, PQ, PX>(csv, lg);
       group_max<L, 16>(lg, lane);
-      gm[j] = fmaxf(gm[j], lg[0]);
+#pragma unroll
+      for (int v = 0; v < kVals; ++v) gm[j][v] = fmaxf(gm[j][v], lg[v]);
       __syncwarp();
     }
   }
@@ -215,7 +222,11 @@ mol_group_block_max_kernel(const typename TableTraits<S>::Round* __restrict__ q,
     const int b = blockIdx.y * kQueriesPerBlock + warp + j * kWarps;
     if (b >= B) break;
     if (lane % kLanesPerGroup == 0) {
-      out[(static_cast<int64_t>(b) * L + lane / kLanesPerGroup) * nb + tile] = gm[j] * inv_t;
+#pragma unroll
+      for (int v = 0; v < kVals; ++v) {
+        const int g = lane / kLanesPerGroup * kVals + v;
+        out[(static_cast<int64_t>(b) * L + g) * nb + tile] = gm[j][v] * inv_t;
+      }
     }
   }
 }
@@ -251,6 +262,7 @@ cudaError_t dispatch(int kind, int pq, int px, const void* q, const void* items,
                      float* out, int B, int Xp, int dP, float inv_t, cudaStream_t s) {
   if (pq == 8 && px == 4) return run<S, 8, 4>(kind, q, items, cs, out, B, Xp, dP, inv_t, s);
   if (pq == 4 && px == 2) return run<S, 4, 2>(kind, q, items, cs, out, B, Xp, dP, inv_t, s);
+  if (pq == 8 && px == 8) return run<S, 8, 8>(kind, q, items, cs, out, B, Xp, dP, inv_t, s);
   return cudaErrorInvalidValue;
 }
 
@@ -288,5 +300,6 @@ extern "C" int rails_mol_group_block_max(int dtype, int pq, int px, const void* 
 extern "C" size_t rails_mol_bounds_smem_bytes(int pq, int px, int dP) {
   if (pq == 8 && px == 4) return rails::smem_bytes<8, 4>(dP);
   if (pq == 4 && px == 2) return rails::smem_bytes<4, 2>(dP);
+  if (pq == 8 && px == 8) return rails::smem_bytes<8, 8>(dP);
   return 0;
 }

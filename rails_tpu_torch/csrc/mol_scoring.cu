@@ -30,15 +30,19 @@
 // Layout: one block per (32-item corpus tile x 32-query tile). Lanes own
 // items and warps own queries, so table reads, the item gating partial and
 // the (B, X) score stores are coalesced. The block stages the item tile (and
-// an int8 tile's P_X x 32 component scales), the qi-MLP weights (W1^T and W2,
-// H x L each) and one query per warp in shared memory. Per (query, item) pair
-// a thread keeps 32 logits and 32 qi accumulators in registers and walks the
+// an int8 tile's P_X x 32 component scales), the tile's L x 32 item gating
+// partials, the qi-MLP weights (W1^T and W2, H x L each) and one query per
+// warp in shared memory. Per (query, item) pair a thread keeps its L logits,
+// their MLP-rounded copies and L qi accumulators in registers and walks the
 // hidden units one at a time, h_j = silu(b1_j + sum_l W1[l, j] * logit_l),
-// qi_l += W2[j, l] * h_j, so the 128-wide hidden layer is never stored.
-// Bound: ~12k FMAs per pair (4k for the logits, 8k for the MLP) against a few
-// bytes of table per pair once a tile is staged, so the kernel is bound by
-// FP32 FMA issue on the CUDA cores; the tensor cores are unused (later work).
-// int8 halves the table bytes and moves no FMA, so it runs at bf16's speed.
+// qi_l += W2[j, l] * h_j, so the 128-wide hidden layer is never stored. The
+// gating partials wait in shared memory, not registers: at 8x8 (L = 64) the
+// three per-pair arrays already take 192 of the thread's 255 registers.
+// Bound: per pair 2 L d_P FMAs for the logits and 2 L H for the MLP (12k at
+// 8x4x128, 18k at 8x8x32, H = 128) against a few bytes of table per pair once
+// a tile is staged, so the kernel is bound by FP32 FMA issue on the CUDA cores;
+// the tensor cores are unused (later work). int8 halves the table bytes and
+// moves no FMA, so it runs at bf16's speed.
 #include <cmath>
 #include <cstdint>
 
@@ -60,7 +64,7 @@ size_t smem_bytes(int dP, int Hd) {
   constexpr int L = PQ * PX;
   constexpr int kScales = TableTraits<S>::kQuant ? PX * kTileX : 0;
   return (2 * static_cast<size_t>(Hd) * L + Hd + L + static_cast<size_t>(kWarps) * PQ * dP +
-          kScales) * sizeof(float) +
+          L * kTileX + kScales) * sizeof(float) +
          static_cast<size_t>(PX) * dP * kTileX * sizeof(S);
 }
 
@@ -84,7 +88,8 @@ mol_scores_kernel(const typename TableTraits<S>::Round* __restrict__ q,
   float* b1s = w2s + Hd * L;                        // [Hd]
   float* b2s = b1s + Hd;                            // [L]
   float* qs = b2s + L;                              // [kWarps][PQ * dP]
-  float* css = qs + kWarps * PQ * dP;               // [PX][kTileX] int8 scales
+  float* ips = qs + kWarps * PQ * dP;               // [L][kTileX] item gating partials
+  float* css = ips + L * kTileX;                    // [PX][kTileX] int8 scales
   S* its = reinterpret_cast<S*>(css + (kQuant ? PX * kTileX : 0));  // [PX * dP][kTileX]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -119,12 +124,10 @@ mol_scores_kernel(const typename TableTraits<S>::Round* __restrict__ q,
       css[e] = cs[static_cast<int64_t>(e / kTileX) * Xp + x0 + e % kTileX];
     }
   }
-  float ipv[L];
-  const float psv = kQuant ? ps[x] : 1.f;
-#pragma unroll
-  for (int l = 0; l < L; ++l) {
-    ipv[l] = to_f<S>(ip[static_cast<int64_t>(l) * Xp + x]);
-    if constexpr (kQuant) ipv[l] *= psv;
+  for (int e = tid; e < L * kTileX; e += kThreads) {
+    const int c = e % kTileX;
+    const float v = to_f<S>(ip[static_cast<int64_t>(e / kTileX) * Xp + x0 + c]);
+    ips[e] = kQuant ? v * ps[x0 + c] : v;
   }
   __syncthreads();
   float csv[PX];
@@ -174,7 +177,7 @@ mol_scores_kernel(const typename TableTraits<S>::Round* __restrict__ q,
     float gmax = -INFINITY;
 #pragma unroll
     for (int l = 0; l < L; ++l) {
-      const float gi = fmaf(qpb[l], ipv[l], acc[l] + b2s[l]);
+      const float gi = fmaf(qpb[l], ips[l * kTileX + lane], acc[l] + b2s[l]);
       acc[l] = silu(gi);
       gmax = fmaxf(gmax, acc[l]);
     }
@@ -239,6 +242,9 @@ cudaError_t dispatch(int pq, int px, const void* q, const float* qp, const void*
                            tile_ids, nt, B, Xp, dP, Hd, inv_t, s);
   if (pq == 4 && px == 2)
     return launch<S, 4, 2>(q, qp, items, ip, cs, ps, w1t, b1, w2, b2, valid, out, tile_max,
+                           tile_ids, nt, B, Xp, dP, Hd, inv_t, s);
+  if (pq == 8 && px == 8)
+    return launch<S, 8, 8>(q, qp, items, ip, cs, ps, w1t, b1, w2, b2, valid, out, tile_max,
                            tile_ids, nt, B, Xp, dP, Hd, inv_t, s);
   return cudaErrorInvalidValue;
 }
@@ -309,5 +315,6 @@ extern "C" int rails_mol_scores_tiles(int dtype, int pq, int px, const void* q, 
 extern "C" size_t rails_mol_scores_smem_bytes(int dtype, int pq, int px, int dP, int Hd) {
   if (pq == 8 && px == 4) return rails::smem_for<8, 4>(dtype, dP, Hd);
   if (pq == 4 && px == 2) return rails::smem_for<4, 2>(dtype, dP, Hd);
+  if (pq == 8 && px == 8) return rails::smem_for<8, 8>(dtype, dP, Hd);
   return 0;
 }

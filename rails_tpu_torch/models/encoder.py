@@ -103,10 +103,11 @@ class SequentialRecommender(nn.Module):
         self, features: SequentialFeatures, train: bool = False,
         generator: Optional[torch.Generator] = None, seed0: Optional[int] = None,
     ) -> torch.Tensor:
-        """[B, N] -> [B, N, D]. Training draws the input dropout from
-        `generator` and seeds the HSTU blocks' hash dropout with `seed0`."""
+        """[B, N] -> [B, N, D]. Training draws the input dropout (and the XLA
+        block path's dropouts) from `generator` and seeds the fused HSTU
+        blocks' hash dropout with `seed0`."""
         x, valid = self.preprocess(features, train, generator)
-        return self.postprocess(self.hstu(x, valid, features.timestamps, train, seed0))
+        return self.postprocess(self.hstu(x, valid, features.timestamps, train, seed0, generator))
 
     def similarity_fn(
         self,

@@ -14,8 +14,12 @@ torch (JAX runs it in XLA, not Pallas). The XLA path buckets time deltas with
 log(.)/0.301 clipped to `num_buckets`, casts the bias to the compute dtype,
 and rounds to the compute dtype wherever JAX's einsums ask for
 `preferred_element_type=self.dtype`; its LayerNorm and SiLU run in that dtype.
-Training runs `ops.hstu_block_train.fused_train_block` (K4) in f32 or bf16.
-The XLA training path (`fused_train=False`), attention dropout and the block
+Training dispatches on `HSTUConfig.fused_train`: True runs
+`ops.hstu_block_train.fused_train_block` (K4) in f32 or bf16; False (ML-1M,
+Amazon Books) the XLA block path with autograd through plain torch, with
+flax's attention dropout (after the mask) and o_input dropout drawn from the
+caller's `torch.Generator` (checked by rate and scale: flax's PRNG bits
+cannot be matched). The fused path with attention dropout and the block
 variants the ported configs do not use raise NotImplementedError.
 """
 
@@ -30,7 +34,7 @@ from rails_tpu_torch.core.config import HSTUConfig
 from rails_tpu_torch.ops.hash_dropout import LAYER_SALT, wrap_i32
 from rails_tpu_torch.ops.hstu_block import fused_hstu_block
 from rails_tpu_torch.ops.hstu_block_train import BlockMeta, fused_train_block
-from rails_tpu_torch.similarity.layers import normal, xavier_uniform
+from rails_tpu_torch.similarity.layers import dropout, normal, xavier_uniform
 
 
 def bucketize_time_delta(delta: torch.Tensor, num_buckets: int) -> torch.Tensor:
@@ -104,11 +108,13 @@ class HSTUBlock(nn.Module):
         self.o_kernel = nn.Parameter(xavier_uniform((h * cfg.dv, d), generator))
         self.o_bias = nn.Parameter(torch.zeros(d))
 
-    def forward(self, x: torch.Tensor, attn_mask: torch.Tensor,
-                rel_bias: torch.Tensor) -> torch.Tensor:
-        """The XLA block's eval forward (`HSTUBlock.__call__`, pointwise SiLU
-        attention) in x's dtype: x (B, N, D), attn_mask (B, N, N) f32
-        causal x column-valid, rel_bias (B, N, N)."""
+    def forward(self, x: torch.Tensor, attn_mask: torch.Tensor, rel_bias: torch.Tensor,
+                train: bool = False, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """The XLA block (`HSTUBlock.__call__`, pointwise SiLU attention) in
+        x's dtype: x (B, N, D), attn_mask (B, N, N) f32 causal x column-valid,
+        rel_bias (B, N, N). With `train`, the attention weights (after the
+        mask) and o_input drop at their configured rates."""
         c = self.cfg
         b, n, _ = x.shape
         h, dqk, dv = c.num_heads, c.dqk, c.dv
@@ -120,8 +126,12 @@ class HSTUBlock(nn.Module):
         qk = qk + rel_bias[:, None]
         attn = qk * torch.sigmoid(qk) * (1.0 / self.max_seq_len)
         attn = attn * attn_mask[:, None].to(dt)
+        if train:
+            attn = dropout(attn, c.attn_dropout_rate, generator)
         attn_out = torch.einsum("bhnm,bmhd->bnhd", attn, v.reshape(b, n, h, dv))
         o_input = u * _ln_in_dtype(attn_out.reshape(b, n, h * dv), c.epsilon)
+        if train:
+            o_input = dropout(o_input, c.linear_dropout_rate, generator)
         return (o_input @ self.o_kernel.to(dt) + self.o_bias.to(dt)) + x
 
 
@@ -190,14 +200,16 @@ class HSTUStack(nn.Module):
     def forward(
         self, x: torch.Tensor, valid: torch.Tensor, timestamps: torch.Tensor,
         train: bool = False, seed0: Optional[int] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        """Eval through K1 (`fused_inference`) or the XLA block path; with
-        `train`, the `fused_train` path: block i drops its o_input with the
-        hash stream of seed seed0 + i * 1013904223 (int32), which the caller
-        draws (0 when no dropout is on)."""
-        if train:
-            return self._train_forward(x, valid, timestamps, 0 if seed0 is None else seed0)
-        if self.cfg.fused_inference:
+        """Eval through K1 (`fused_inference`) or the XLA block path. Training
+        with `fused_train` runs K4: block i drops its o_input with the hash
+        stream of seed seed0 + i * 1013904223 (int32), which the caller draws
+        (0 when no dropout is on); without it, the XLA block path, whose
+        dropouts draw from `generator`."""
+        if train and self.cfg.fused_train:
+            return self._fused_train_forward(x, valid, timestamps, 0 if seed0 is None else seed0)
+        if self.cfg.fused_inference and not train:
             for kw in self.block_operands(valid, timestamps):
                 x = fused_hstu_block(x, **kw)
             return x * valid[..., None].to(x.dtype)
@@ -206,16 +218,11 @@ class HSTUStack(nn.Module):
         causal = torch.tril(torch.ones(n, n, dtype=torch.float32, device=x.device))
         attn_mask = causal[None] * valid[:, None, :].float()
         for i in range(self.cfg.num_blocks):
-            x = getattr(self, f"block_{i}")(x, attn_mask, bias_all[i])
+            x = getattr(self, f"block_{i}")(x, attn_mask, bias_all[i], train, generator)
         return x * valid[..., None].to(x.dtype)
 
-    def _train_forward(self, x, valid, timestamps, seed0: int) -> torch.Tensor:
+    def _fused_train_forward(self, x, valid, timestamps, seed0: int) -> torch.Tensor:
         c = self.cfg
-        if not c.fused_train:
-            raise NotImplementedError(
-                "HSTU training without fused_train (the XLA block path) is not ported "
-                "(ROADMAP.md, Queue 1: K4 variants)"
-            )
         if c.attn_dropout_rate > 0.0:
             raise NotImplementedError(
                 f"HSTU training with attn_dropout_rate={c.attn_dropout_rate}: only the train "

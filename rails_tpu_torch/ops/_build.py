@@ -137,9 +137,9 @@ def load_library() -> ctypes.CDLL:
     lib.rails_adamw_update.argtypes = [p] * 4 + [ctypes.c_longlong] + [f] * 9 + [p]
     lib.rails_adamw_update.restype = i
     drop = [i, u32, u32, f, i, u32, u32, f]   # use, seed, threshold, scale: qi, then pi
-    lib.rails_mol_loss_fwd.argtypes = [i, i] + [p] * 9 + [i] * 6 + [f, f] + drop + [p]
+    lib.rails_mol_loss_fwd.argtypes = [i, i, i] + [p] * 9 + [i] * 6 + [f, f] + drop + [p]
     lib.rails_mol_loss_fwd.restype = i
-    lib.rails_mol_loss_bwd.argtypes = [i, i] + [p] * 15 + [i] * 7 + [f, f] + drop + [p]
+    lib.rails_mol_loss_bwd.argtypes = [i, i, i] + [p] * 15 + [i] * 7 + [f, f] + drop + [p]
     lib.rails_mol_loss_bwd.restype = i
     lib.rails_mol_loss_smem_bytes.argtypes = [i] * 5
     lib.rails_mol_loss_smem_bytes.restype = ctypes.c_size_t

@@ -3,7 +3,7 @@
 Replaces `make_fused_mol_loss` (`rails_tpu/ops/pallas/mol_loss_train.py`): the
 forward `pallas_call` (:317 via `_core_call`, body `_fwd_kernel` :143 and
 `_forward_core` :75-140), the backward (`_bwd_kernel` :159-290) and the
-layout glue of its `fused` function (:440-462), for f32 operands:
+layout glue of its `fused` function (:440-462), for f32 and bf16 operands:
 
     t      = <q_comp[m, n], item_comp[r, mx]> / T         (M, R, L), l = n*P_X + mx
     t_in   = t * qi_mask                                   (qi-MLP input only)
@@ -20,6 +20,16 @@ logit order and pads nothing. The arguments are in the JAX function's layout:
 q_comp (M, P_Q, d_P), qp (M, L), item_comp (R, P_X, d_P), ip (R, L), w1 (L, H),
 b1 (1, H), w2 (H, L), b2 (1, L), all n-major.
 
+bf16 operands (q_comp, qp, item_comp, ip; `amzn-books-hstu-mol-fast`) run the
+qi MLP in bf16 as JAX does (`mlp_dtype`, :362-364, :388-390): t and its
+products sum in f32; t_in, W1, W2 and h round to bf16 before their products
+(:107-115); the backward rounds d_qi = d_gi, d_z and d_t / T to bf16 before
+their products (:212, :228, :255-257) and keeps d_gi for d_qp, d_ip and db2
+and d_z for db1 in f32; the gradients come back in each operand's dtype
+(:428-434): bf16 for the four operands, f32 for the f32 weights. Both plain
+versions write these rounding points out (the backward as JAX's `_bwd_kernel`
+does, not by autograd, which would round at the casts' transposes instead).
+
 Kernels (`csrc/mol_loss_train.cu`; its header says what bounds them and how
 the backward replaces the TPU kernel's carried VMEM sums with per-block slots
 and a fixed-order reduction): `fused_mol_loss_forward` and
@@ -27,8 +37,9 @@ and a fixed-order reduction): `fused_mol_loss_forward` and
 (`core.device.use_kernel`): CPU tensors run `*_reference`, CUDA tensors launch
 the kernel or raise. Each has a `.launches` counter. `fused_mol_loss` is the
 differentiable function (`FusedMolLoss`), whose backward is the backward
-kernel. Kernel instances: (P_Q, P_X) in `SUPPORTED_GROUPS`, d_P <= 128, f32;
-the bf16 K5 of `amzn-books-hstu-mol-fast` is not ported (ROADMAP.md).
+kernel. Kernel instances: (P_Q, P_X) in `SUPPORTED_GROUPS`, d_P <= 128, f32
+and bf16 operands; launches of the bf16 instances also count on
+`.bf16_launches`.
 """
 
 from __future__ import annotations
@@ -49,7 +60,8 @@ from rails_tpu_torch.ops.hash_dropout import (
 )
 from rails_tpu_torch.ops.hstu_block import MAX_SMEM_BYTES
 
-SUPPORTED_GROUPS = ((8, 4), (4, 2))
+SUPPORTED_GROUPS = ((8, 4), (4, 2), (8, 8))
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_DOT_PRODUCT_DIM = 128
 _BLOCK_Q = 8          # the JAX kernel's query block (`make_fused_mol_loss(block_q=8)`)
 _LANE = 128           # its R padding
@@ -82,45 +94,97 @@ def loss_mask(seed: int, salt: int, m: int, r: int, p_q: int, p_x: int, rate: fl
     return g[lprime(p_q, p_x).to(g.device), :m, :r].permute(1, 2, 0)
 
 
+def _mlp_dtype(item_comp: torch.Tensor) -> torch.dtype:
+    return torch.bfloat16 if item_comp.dtype == torch.bfloat16 else torch.float32
+
+
+def _forward_parts(q_comp, qp, item_comp, ip, w1, b1, w2, b2, seed: int, *, p_q: int,
+                   p_x: int, temperature: float, qi_rate: float, pi_rate: float,
+                   eps: float) -> dict:
+    """The forward's intermediates (`_forward_core`), with its rounding points."""
+    mlp = _mlp_dtype(item_comp)
+
+    def rnd(x):
+        return x.to(mlp).float()
+
+    m, r = q_comp.shape[0], item_comp.shape[0]
+    l = p_q * p_x
+    dev = q_comp.device
+    t = (torch.einsum("mnd,rxd->mrnx", q_comp.float(), item_comp.float()).reshape(m, r, l)
+         * (1.0 / temperature))
+    qi_mask = loss_mask(seed, QI_SALT, m, r, p_q, p_x, qi_rate, dev) if qi_rate > 0.0 else None
+    t_in = rnd(t if qi_mask is None else t * qi_mask)
+    # The qi MLP's input sums in the JAX kernel's m-major row order: through
+    # the sharp softmax, f32 rounding of another order shows at 2e-4.
+    perm = m_major_order(p_q, p_x).to(dev)
+    w1r, w2r = rnd(w1.float()), rnd(w2.float())
+    z = t_in[..., perm] @ w1r[perm] + b1.float()
+    h = rnd(F.silu(z))
+    gi = qp.float()[:, None, :] * ip.float()[None, :, :] + (h @ w2r + b2.float())
+    p = torch.softmax(F.silu(gi), dim=-1)
+    pi_mask = loss_mask(seed, PI_SALT, m, r, p_q, p_x, pi_rate, dev) if pi_rate > 0.0 else None
+    q_w = p if pi_mask is None else p * pi_mask
+    s = (torch.ones(m, r, device=dev) if pi_mask is None
+         else torch.clamp(q_w.sum(dim=-1), min=eps))
+    return dict(rnd=rnd, t=t, qi_mask=qi_mask, t_in=t_in, w1r=w1r, w2r=w2r, z=z, h=h, gi=gi, p=p,
+                pi_mask=pi_mask, q_w=q_w, s=s)
+
+
 def fused_mol_loss_forward_reference(
     q_comp, qp, item_comp, ip, w1, b1, w2, b2, seed: int, *, p_q: int, p_x: int,
     temperature: float, qi_rate: float, pi_rate: float, eps: float,
 ) -> torch.Tensor:
     """Plain PyTorch version of the forward: (M, R) f32 scores."""
-    m, r = q_comp.shape[0], item_comp.shape[0]
-    l = p_q * p_x
-    t = torch.einsum("mnd,rxd->mrnx", q_comp, item_comp).reshape(m, r, l) * (1.0 / temperature)
-    t_in = t
-    if qi_rate > 0.0:
-        t_in = t * loss_mask(seed, QI_SALT, m, r, p_q, p_x, qi_rate, t.device)
-    # The qi MLP's input sums in the JAX kernel's m-major row order: through
-    # the sharp softmax, f32 rounding of another order shows at 2e-4.
-    perm = m_major_order(p_q, p_x).to(t.device)
-    qi = F.silu(t_in[..., perm] @ w1[perm] + b1) @ w2 + b2
-    gi = qp[:, None, :] * ip[None, :, :] + qi
-    p = torch.softmax(F.silu(gi), dim=-1)
-    if pi_rate > 0.0:
-        q_w = p * loss_mask(seed, PI_SALT, m, r, p_q, p_x, pi_rate, t.device)
-        return (q_w * t).sum(dim=-1) / torch.clamp(q_w.sum(dim=-1), min=eps)
-    return (p * t).sum(dim=-1)
+    f = _forward_parts(q_comp, qp, item_comp, ip, w1, b1, w2, b2, seed, p_q=p_q, p_x=p_x,
+                       temperature=temperature, qi_rate=qi_rate, pi_rate=pi_rate, eps=eps)
+    return (f["q_w"] * f["t"]).sum(dim=-1) / f["s"]
 
 
 def fused_mol_loss_backward_reference(
-    q_comp, qp, item_comp, ip, w1, b1, w2, b2, seed: int, d_out, **kw,
+    q_comp, qp, item_comp, ip, w1, b1, w2, b2, seed: int, d_out, *, p_q: int, p_x: int,
+    temperature: float, qi_rate: float, pi_rate: float, eps: float,
 ) -> Tuple[torch.Tensor, ...]:
     """Plain version of the backward: the gradients of sum(out * d_out) with
-    respect to the 8 array inputs, by autograd of the plain forward."""
-    with torch.enable_grad():
-        leaves = [x.detach().requires_grad_(True)
-                  for x in (q_comp, qp, item_comp, ip, w1, b1, w2, b2)]
-        out = fused_mol_loss_forward_reference(*leaves, seed, **kw)
-        return torch.autograd.grad(out, leaves, d_out)
+    respect to the 8 array inputs, in their dtypes, as `_bwd_kernel`
+    (:182-274) computes them."""
+    f = _forward_parts(q_comp, qp, item_comp, ip, w1, b1, w2, b2, seed, p_q=p_q, p_x=p_x,
+                       temperature=temperature, qi_rate=qi_rate, pi_rate=pi_rate, eps=eps)
+    rnd, t, p, gi, z = f["rnd"], f["t"], f["p"], f["gi"], f["z"]
+    m, r, l = t.shape
+    d_out = d_out.float()
+    inv_s = 1.0 / f["s"]
+    a = (d_out * inv_s)[..., None]
+    d_t = a * f["q_w"]                                    # the direct term
+    d_p = a * t
+    if f["pi_mask"] is not None:
+        out_v = (f["q_w"] * t).sum(dim=-1) * inv_s
+        live = (f["s"] > eps).float()
+        d_p = (d_p - (d_out * out_v * inv_s * live)[..., None]) * f["pi_mask"]
+    d_gw = p * (d_p - (d_p * p).sum(dim=-1, keepdim=True))
+    sig = torch.sigmoid(gi)
+    d_gi = d_gw * (sig * (1.0 + gi * (1.0 - sig)))
+    dqp = torch.einsum("mrl,rl->ml", d_gi, ip.float())
+    dip = torch.einsum("mrl,ml->rl", d_gi, qp.float())
+    d_qi = rnd(d_gi)
+    sig_z = torch.sigmoid(z)
+    d_z = (d_qi @ f["w2r"].T) * (sig_z * (1.0 + z * (1.0 - sig_z)))
+    d_zr = rnd(d_z)
+    dw1 = torch.einsum("mrl,mrh->lh", f["t_in"], d_zr)
+    dw2 = torch.einsum("mrh,mrl->hl", f["h"], d_qi)
+    d_t_mlp = d_zr @ f["w1r"].T
+    if f["qi_mask"] is not None:
+        d_t_mlp = d_t_mlp * f["qi_mask"]
+    d_tm = rnd((d_t + d_t_mlp) * (1.0 / temperature)).reshape(m, r, p_q, p_x)
+    dq = torch.einsum("mrnx,rxd->mnd", d_tm, item_comp.float())
+    ditem = torch.einsum("mrnx,mnd->rxd", d_tm, q_comp.float())
+    grads = (dq, dqp, ditem, dip, dw1, d_z.sum(dim=(0, 1))[None], dw2, d_gi.sum(dim=(0, 1))[None])
+    return tuple(g.to(x.dtype) for g, x in zip(grads, (q_comp, qp, item_comp, ip, w1, b1, w2, b2)))
 
 
 def _prepare(q_comp, qp, item_comp, ip, w1, b1, w2, b2, p_q: int, p_x: int, backward: bool,
              what: str):
     """Validate the operands of the forward or backward kernel; returns
-    (m, r, d_p, h, lib)."""
+    (m, r, d_p, h, dtype code, lib)."""
     m, pq_, d_p = q_comp.shape
     r = item_comp.shape[0]
     l = p_q * p_x
@@ -131,10 +195,12 @@ def _prepare(q_comp, qp, item_comp, ip, w1, b1, w2, b2, p_q: int, p_x: int, back
             f"{SUPPORTED_GROUPS}, d_P <= {MAX_DOT_PRODUCT_DIM} (ROADMAP.md, Queue 1: K5 variants)"
         )
     tensors = (q_comp, qp, item_comp, ip, w1, b1, w2, b2)
-    if any(x.dtype != torch.float32 for x in tensors):
+    dtype = item_comp.dtype
+    if (dtype not in _DTYPE_CODE or any(x.dtype != dtype for x in tensors[:4])
+            or any(x.dtype != torch.float32 for x in tensors[4:])):
         raise NotImplementedError(
-            f"{what}: only the f32 kernel is ported; got {[x.dtype for x in tensors]} "
-            "(ROADMAP.md, Queue 1: the bf16 K5 of amzn-books-hstu-mol-fast)"
+            f"{what}: the kernel takes q_comp, qp, item_comp and ip all f32 or all bf16, "
+            f"with f32 weights; got {[x.dtype for x in tensors]}"
         )
     want = {"q_comp": (m, p_q, d_p), "qp": (m, l), "item_comp": (r, p_x, d_p), "ip": (r, l),
             "w1": (l, h), "b1": (1, h), "w2": (h, l), "b2": (1, l)}
@@ -145,17 +211,20 @@ def _prepare(q_comp, qp, item_comp, ip, w1, b1, w2, b2, p_q: int, p_x: int, back
     smem = lib.rails_mol_loss_smem_bytes(int(backward), p_q, p_x, d_p, h)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"{what}: d_P={d_p}, H={h} need {smem} B of shared memory")
-    return m, r, d_p, h, lib
+    return m, r, d_p, h, _DTYPE_CODE[dtype], lib
 
 
 def _kernel_layout(q_comp, qp, item_comp, ip, w1, b1, w2, b2) -> dict:
-    """Contiguous operands in the kernels' layouts (the dict keeps every
-    temporary alive until the launch has been enqueued)."""
+    """Contiguous operands in the kernels' layouts, W1 and W2 rounded to the
+    MLP's dtype (the dict keeps every temporary alive until the launch has
+    been enqueued)."""
+    mlp = _mlp_dtype(item_comp)
     return {"q": q_comp.contiguous(), "qp": qp.contiguous(), "item": item_comp.contiguous(),
             "item_t": item_comp.permute(1, 2, 0).contiguous(),      # (P_X, d_P, R)
             "ip": ip.contiguous(), "ip_t": ip.T.contiguous(),       # (L, R)
-            "w1t": w1.T.contiguous(), "b1": b1.contiguous(),        # (H, L)
-            "w2": w2.contiguous(), "b2": b2.contiguous()}
+            "w1t": w1.to(mlp).float().T.contiguous(),               # (H, L)
+            "b1": b1.contiguous(),
+            "w2": w2.to(mlp).float().contiguous(), "b2": b2.contiguous()}
 
 
 def _drop_args(seed: int, qi_rate: float, pi_rate: float) -> list:
@@ -179,23 +248,25 @@ def fused_mol_loss_forward(
     tensors = (q_comp, qp, item_comp, ip, w1, b1, w2, b2)
     if not use_kernel(*tensors):
         return fused_mol_loss_forward_reference(*tensors, seed, **kw)
-    m, r, d_p, h, lib = _prepare(*tensors, p_q, p_x, False, "fused_mol_loss_forward")
+    m, r, d_p, h, code, lib = _prepare(*tensors, p_q, p_x, False, "fused_mol_loss_forward")
     mp, rp = padded_extents(m, r)
     with torch.cuda.device(q_comp.device):
         ops = _kernel_layout(*tensors)
         out = torch.empty(m, r, dtype=torch.float32, device=q_comp.device)
         err = lib.rails_mol_loss_fwd(
-            p_q, p_x, *(ops[k].data_ptr() for k in ("q", "qp", "item_t", "ip_t", "w1t", "b1",
+            code, p_q, p_x, *(ops[k].data_ptr() for k in ("q", "qp", "item_t", "ip_t", "w1t", "b1",
                                                     "w2", "b2")),
             out.data_ptr(), m, r, d_p, h, mp, rp, 1.0 / temperature, eps,
             *_drop_args(seed, qi_rate, pi_rate), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, err, "fused_mol_loss_forward")
     fused_mol_loss_forward.launches += 1
+    fused_mol_loss_forward.bf16_launches += code == 1
     return out
 
 
 fused_mol_loss_forward.launches = 0
+fused_mol_loss_forward.bf16_launches = 0
 
 
 def fused_mol_loss_backward(
@@ -210,7 +281,7 @@ def fused_mol_loss_backward(
     tensors = (q_comp, qp, item_comp, ip, w1, b1, w2, b2)
     if not use_kernel(*tensors, d_out):
         return fused_mol_loss_backward_reference(*tensors, seed, d_out, **kw)
-    m, r, d_p, h, lib = _prepare(*tensors, p_q, p_x, True, "fused_mol_loss_backward")
+    m, r, d_p, h, code, lib = _prepare(*tensors, p_q, p_x, True, "fused_mol_loss_backward")
     if tuple(d_out.shape) != (m, r) or d_out.dtype != torch.float32:
         raise ValueError(f"fused_mol_loss_backward: d_out must be f32 {(m, r)}; got "
                          f"{d_out.dtype} {tuple(d_out.shape)}")
@@ -228,7 +299,7 @@ def fused_mol_loss_backward(
         part = torch.zeros(nb, stride, dtype=torch.float32, device=dev)
         red = torch.empty(stride, dtype=torch.float32, device=dev)
         err = lib.rails_mol_loss_bwd(
-            p_q, p_x, *(ops[k].data_ptr() for k in ("q", "qp", "item", "item_t", "ip", "ip_t",
+            code, p_q, p_x, *(ops[k].data_ptr() for k in ("q", "qp", "item", "item_t", "ip", "ip_t",
                                                     "w1t", "b1", "w2", "b2")),
             d_out.data_ptr(), dq.data_ptr(), dqp.data_ptr(), part.data_ptr(), red.data_ptr(),
             nb, m, r, d_p, h, mp, rp, 1.0 / temperature, eps,
@@ -236,12 +307,15 @@ def fused_mol_loss_backward(
         )
     _build.check(lib, err, "fused_mol_loss_backward")
     fused_mol_loss_backward.launches += 1
+    fused_mol_loss_backward.bf16_launches += code == 1
     dw1, dw2, db1, db2, dip, ditem = torch.split(red, [h * l, h * l, h, l, r * l, r * p_x * d_p])
-    return (dq, dqp, ditem.reshape(r, p_x, d_p), dip.reshape(r, l), dw1.reshape(h, l).T,
-            db1.reshape(1, h), dw2.reshape(h, l), db2.reshape(1, l))
+    grads = (dq, dqp, ditem.reshape(r, p_x, d_p), dip.reshape(r, l), dw1.reshape(h, l).T,
+             db1.reshape(1, h), dw2.reshape(h, l), db2.reshape(1, l))
+    return tuple(g.to(x.dtype) for g, x in zip(grads, tensors))
 
 
 fused_mol_loss_backward.launches = 0
+fused_mol_loss_backward.bf16_launches = 0
 
 
 class FusedMolLoss(torch.autograd.Function):
@@ -270,10 +344,4 @@ def fused_mol_loss(
     to (q_comp, qp, item_comp, ip, MoLKernelWeights(w1, b1, w2, b2), seed)."""
     kw = dict(p_q=p_q, p_x=p_x, temperature=temperature, qi_rate=qi_rate, pi_rate=pi_rate,
               eps=eps)
-    dtypes = [t.dtype for t in (q_comp, qp, item_comp, ip, w1, b1, w2, b2)]
-    if any(dt != torch.float32 for dt in dtypes):
-        raise NotImplementedError(
-            f"fused_mol_loss: only the f32 K5 is ported; got {dtypes} "
-            "(ROADMAP.md, Queue 1: the bf16 K5 of amzn-books-hstu-mol-fast)"
-        )
     return FusedMolLoss.apply(q_comp, qp, item_comp, ip, w1, b1, w2, b2, wrap_i32(seed), kw)

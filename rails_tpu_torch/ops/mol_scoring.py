@@ -61,9 +61,9 @@ from rails_tpu_torch.ops import _build
 from rails_tpu_torch.ops.hstu_block import MAX_SMEM_BYTES
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-# (P_Q, P_X) geometries the kernels are instantiated for: ML-1M/ML-20M and
-# the synthetic-small test config.
-SUPPORTED_GROUPS = ((8, 4), (4, 2))
+# (P_Q, P_X) geometries the kernels are instantiated for: ML-1M/ML-20M, the
+# synthetic-small test config and Amazon Books (8x8x32).
+SUPPORTED_GROUPS = ((8, 4), (4, 2), (8, 8))
 BLOCK_X = 256         # corpus padding multiple; the tile of K9, K10 and blockmax
 _TILE_X = 32          # items per K2 block (`kTileX` in csrc/mol_scoring.cu)
 _REF_CHUNK = 64       # queries per step of the K2/K10 plain version
@@ -273,7 +273,7 @@ def _check_groups(name: str, p_q: int, p_x: int) -> None:
     if (p_q, p_x) not in SUPPORTED_GROUPS:
         raise NotImplementedError(
             f"{name}: (P_Q, P_X)=({p_q}, {p_x}) has no kernel instance; "
-            f"supported: {SUPPORTED_GROUPS} (ROADMAP.md, Queue 1, item 4: other geometries)"
+            f"supported: {SUPPORTED_GROUPS} (ROADMAP.md, Queue 1: other geometries)"
         )
 
 

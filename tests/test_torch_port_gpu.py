@@ -98,8 +98,9 @@ def _k2_args(b, x, p_q, p_x, d_p, hd, dtype, device, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize(
-    "shape", [(7, 100, 4, 2, 16, 32), (33, 300, 8, 4, 128, 128), (40, 513, 8, 4, 64, 96)],
-    ids=["synthetic_small", "ml20m", "odd"],
+    "shape", [(7, 100, 4, 2, 16, 32), (33, 300, 8, 4, 128, 128), (40, 513, 8, 4, 64, 96),
+              (33, 256, 8, 8, 32, 128), (40, 700, 8, 8, 32, 128)],
+    ids=["synthetic_small", "ml20m", "odd", "books_one_tile", "books_odd"],
 )
 def test_k2_kernel_matches_plain(cuda, shape, dtype):
     args, x = _k2_args(*shape, dtype, cuda)
@@ -114,8 +115,9 @@ def test_k2_kernel_matches_plain(cuda, shape, dtype):
         torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
 
 
-BOUND_SHAPES = [(7, 100, 4, 2, 16), (33, 256, 8, 4, 128), (40, 1000, 8, 4, 64), (1, 513, 4, 2, 32)]
-BOUND_IDS = ["synthetic_small", "one_tile_ml20m", "odd", "one_query"]
+BOUND_SHAPES = [(7, 100, 4, 2, 16), (33, 256, 8, 4, 128), (40, 1000, 8, 4, 64), (1, 513, 4, 2, 32),
+                (33, 256, 8, 8, 32), (40, 1000, 8, 8, 32)]
+BOUND_IDS = ["synthetic_small", "one_tile_ml20m", "odd", "one_query", "one_tile_books", "books"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -142,8 +144,9 @@ def test_k8_k9_match_plain(cuda, shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", [(7, 600, 4, 2, 16, 32), (40, 1000, 8, 4, 128, 128)],
-                         ids=["synthetic_small", "ml20m"])
+@pytest.mark.parametrize("shape", [(7, 600, 4, 2, 16, 32), (40, 1000, 8, 4, 128, 128),
+                                   (40, 1000, 8, 8, 32, 128)],
+                         ids=["synthetic_small", "ml20m", "books"])
 def test_k10_equals_k2_columns(cuda, shape, dtype):
     """Duplicate and last-tile ids: K10's columns are K2's bit for bit; an
     out-of-range id gives NaN columns; the plain version agrees."""
@@ -191,7 +194,8 @@ def _int8_args(b, x, p_q, p_x, d_p, hd, device, seed=0):
     return q, qp, ft, w, t, x
 
 
-INT8_SHAPES = [(7, 256, 4, 2, 16, 32), (33, 768, 8, 4, 128, 128), (40, 700, 8, 4, 64, 96)]
+INT8_SHAPES = [(7, 256, 4, 2, 16, 32), (33, 768, 8, 4, 128, 128), (40, 700, 8, 4, 64, 96),
+               (33, 256, 8, 8, 32, 128), (40, 700, 8, 8, 32, 128)]
 
 
 def _launched(fn, call):
@@ -201,7 +205,8 @@ def _launched(fn, call):
     return out
 
 
-@pytest.mark.parametrize("shape", INT8_SHAPES, ids=["one_tile", "three_tiles_ml20m", "odd"])
+@pytest.mark.parametrize("shape", INT8_SHAPES, ids=["one_tile", "three_tiles_ml20m", "odd",
+                                                    "one_tile_books", "books_odd"])
 def test_int8_kernels_match_plain(cuda, shape):
     """K2, K10, K8 and K9 on int8 tables against their plain versions, at B
     not a multiple of 32 and corpora of one and three tiles: K2 and K10 by
@@ -234,17 +239,18 @@ def test_int8_kernels_match_plain(cuda, shape):
     assert bool((gmax[:, torch.arange(ub.shape[1], device=cuda) // 256] >= ub).all())
 
 
+@pytest.mark.parametrize("geom", [(8, 4, 128), (8, 8, 32)], ids=["ml20m", "books"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8],
                          ids=["f32", "bf16", "int8"])
-def test_k2_blockmax_matches_plain(cuda, dtype):
+def test_k2_blockmax_matches_plain(cuda, dtype, geom):
     """emit_blockmax at B=33 over three tiles, `valid` with interior zeros and
     shorter than the padded corpus: the scores are K2's with those columns at
     -1e30, bit for bit; the maxima are theirs exactly; the plain version agrees."""
     if dtype == torch.int8:
-        q, qp, ft, w, t, x = _int8_args(33, 700, 8, 4, 128, 128, cuda)
+        q, qp, ft, w, t, x = _int8_args(33, 700, *geom, 128, cuda)
         args = (q, qp, ft.item_comp_t, ft.item_partial_t, w, t, ft.comp_scale, ft.partial_scale)
     else:
-        args, x = _k2_args(33, 700, 8, 4, 128, 128, dtype, cuda)
+        args, x = _k2_args(33, 700, *geom, 128, dtype, cuda)
     valid = torch.ones(x, device=cuda)
     valid[[0, 3, 255, 256, 600]] = 0.0
     k2 = mol_scoring.fused_mol_scores_t(*args)
@@ -464,12 +470,14 @@ def _k5_args(m, r, p_q, p_x, d_p, h, device, seed=0):
     "m,r,geom,pi_rate,qi_rate",
     [(1, 1, (4, 2, 16, 24), 0.2, 0.0), (13, 37, (4, 2, 16, 24), 0.0, 0.0),
      (20, 130, (4, 2, 16, 24), 0.2, 0.1), (24, 40, (4, 2, 16, 24), 0.9, 0.0),
-     (9, 128, (8, 4, 128, 128), 0.2, 0.1), (300, 200, (8, 4, 128, 128), 0.5, 0.3)],
-    ids=["one_pair", "rate0", "padded", "clamps_at_eps", "ml20m_small", "ml20m_many_blocks"],
+     (9, 128, (8, 4, 128, 128), 0.2, 0.1), (300, 200, (8, 4, 128, 128), 0.5, 0.3),
+     (13, 37, (8, 8, 32, 128), 0.2, 0.1), (300, 520, (8, 8, 32, 128), 0.2, 0.0)],
+    ids=["one_pair", "rate0", "padded", "clamps_at_eps", "ml20m_small", "ml20m_many_blocks",
+         "books_small", "books_many_blocks"],
 )
 def test_k5_matches_plain(cuda, m, r, geom, pi_rate, qi_rate):
-    """Forward and the 8 gradients of the K5 kernels against autograd of the
-    plain forward, at M not a multiple of 8, R not a multiple of 32 or 128, and
+    """Forward and the 8 gradients of the K5 kernels against the plain
+    forward and backward, at M not a multiple of 8, R not a multiple of 32 or 128, and
     a softmax-dropout rate at which many pairs' renorm clamps at eps."""
     p_q, p_x, d_p, h = geom
     args = _k5_args(m, r, p_q, p_x, d_p, h, cuda, seed=m)
@@ -490,6 +498,37 @@ def test_k5_matches_plain(cuda, m, r, geom, pi_rate, qi_rate):
         assert ((a - b).abs().max() / scale).item() <= 1e-3, name
 
 
+@pytest.mark.parametrize(
+    "m,r,geom,pi_rate,qi_rate",
+    [(1, 1, (4, 2, 16, 24), 0.2, 0.0), (20, 130, (4, 2, 16, 24), 0.2, 0.1),
+     (9, 128, (8, 4, 128, 128), 0.2, 0.1), (13, 37, (8, 8, 32, 128), 0.2, 0.1),
+     (300, 520, (8, 8, 32, 128), 0.0, 0.0)],
+    ids=["one_pair", "padded", "ml20m_small", "books_small", "books_many_blocks"],
+)
+def test_k5_bf16_matches_plain(cuda, m, r, geom, pi_rate, qi_rate):
+    """The bf16 K5 (bf16 operands, f32 weights, the qi MLP in bf16) against
+    the bf16 plain versions, which round at the same points and sum in other
+    orders: the forward within 2e-2 and each gradient within 3e-2 of its
+    largest value, gradients in the operands' dtypes; `.bf16_launches` counts."""
+    p_q, p_x, d_p, h = geom
+    args = _k5_args(m, r, p_q, p_x, d_p, h, cuda, seed=m)
+    args = [a.bfloat16() for a in args[:4]] + args[4:]
+    kw = dict(p_q=p_q, p_x=p_x, temperature=0.05, qi_rate=qi_rate, pi_rate=pi_rate, eps=1e-6)
+    cot = torch.randn(m, r, generator=torch.Generator().manual_seed(1)).to(cuda)
+    fwd, bwd = mol_loss_train.fused_mol_loss_forward, mol_loss_train.fused_mol_loss_backward
+    before = (fwd.bf16_launches, bwd.bf16_launches)
+    got = fwd(*args, 77, **kw)
+    grads = bwd(*args, 77, cot, **kw)
+    assert (fwd.bf16_launches, bwd.bf16_launches) == (before[0] + 1, before[1] + 1)
+    want = mol_loss_train.fused_mol_loss_forward_reference(*args, 77, **kw)
+    want_grads = mol_loss_train.fused_mol_loss_backward_reference(*args, 77, cot, **kw)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 2e-2
+    for name, a, b, x in zip(K5_NAMES, grads, want_grads, args):
+        assert a.dtype == b.dtype == x.dtype and a.shape == b.shape, name
+        scale = b.float().abs().max().clamp_min(1e-30)
+        assert ((a.float() - b.float()).abs().max() / scale).item() <= 3e-2, name
+
+
 def test_k5_rejects_what_it_has_no_instance_for(cuda):
     args = _k5_args(8, 16, 2, 2, 16, 8, cuda)
     kw = dict(p_q=2, p_x=2, temperature=0.05, qi_rate=0.0, pi_rate=0.0, eps=1e-6)
@@ -497,8 +536,9 @@ def test_k5_rejects_what_it_has_no_instance_for(cuda):
         mol_loss_train.fused_mol_loss_forward(*args, 0, **kw)
     args = _k5_args(8, 16, 4, 2, 16, 8, cuda)
     kw.update(p_q=4)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        mol_loss_train.fused_mol_loss_forward(*[a.bfloat16() for a in args], 0, **kw)
+    mixed = [args[0].bfloat16()] + args[1:]      # bf16 queries against f32 items
+    with pytest.raises(NotImplementedError, match="all f32 or all bf16"):
+        mol_loss_train.fused_mol_loss_forward(*mixed, 0, **kw)
 
 
 @pytest.mark.parametrize("case", ["duplicates", "wrap_and_drop", "empty", "narrow", "bf16",

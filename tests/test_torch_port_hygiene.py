@@ -177,18 +177,12 @@ def test_unported_model_configs_raise(change):
 @pytest.mark.parametrize(
     "change",
     [
-        dict(hstu=dict(fused_train=False)),
         dict(hstu=dict(fused_train=True, attn_dropout_rate=0.1)),
-        # f32 -fast and the bf16 per-position step are ported; a bf16 -fast
-        # step needs the bf16 K5 (amzn-books-hstu-mol-fast never reaches K4:
-        # its bf16 needs are K5 and K2/K8-K10 at 8x8x32).
-        dict(hstu=dict(fused_train=True), train=dict(shared_negatives=True, fused_mol_loss=True),
-             mol=dict(bf16_training=True)),
         dict(train=dict(loss_activation_checkpoint=True)),
         dict(train=dict(sampling_strategy="in-batch")),
         dict(train=dict(loss_module="BCELoss")),
     ],
-    ids=["xla_train", "attn_dropout", "shared_negatives", "checkpoint", "in_batch", "bce"],
+    ids=["attn_dropout", "checkpoint", "in_batch", "bce"],
 )
 def test_unported_training_options_raise(change):
     """Each training option off the ported path refuses with a pointer to
@@ -209,6 +203,57 @@ def test_unported_training_options_raise(change):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         _, state, step, _ = create_train_state(cfg, 60, np.arange(1, 61), device="cpu")
         step(state, batch, torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize(
+    "change,loss_rtol",
+    [
+        # The XLA block path (fused_train=False), f32.
+        (dict(hstu=dict(fused_train=False)), 1e-4),
+        # The bf16 -fast step: shared negatives through the bf16 K5.
+        (dict(hstu=dict(fused_train=True), train=dict(shared_negatives=True, fused_mol_loss=True),
+              mol=dict(bf16_training=True)), 1e-2),
+    ],
+    ids=["xla_train", "shared_negatives"],
+)
+def test_formerly_refused_training_options_run_and_match_jax(change, loss_rtol, monkeypatch):
+    """Training options that refused before the Books slice now run one
+    synthetic-small step whose loss matches `make_train_step`'s (every
+    dropout off, the same fixed negatives; bf16 within the bf16 step's rtol 1e-2)."""
+    import jax
+    import numpy as np
+
+    from rails_tpu.core.config import get_experiment_config as jax_experiment_config
+    from rails_tpu.data import datasets as jax_datasets
+    from rails_tpu.train import loop as jax_loop
+    from tests.test_torch_port_train_step import (
+        NO_DROPOUT,
+        _configure,
+        _fix_negatives,
+        _port_batch,
+        _port_state,
+    )
+
+    changes = {k: dict(NO_DROPOUT.get(k, {}), **change.get(k, {}))
+               for k in set(NO_DROPOUT) | set(change)}
+    cfg = _configure(jax_experiment_config("synthetic-small"), changes)
+    port_cfg = _configure(get_experiment_config("synthetic-small"), changes)
+    ds = jax_datasets.get_reco_dataset(cfg.data)
+    batch = next(ds.train_dataset.batches(
+        batch_size=8, max_output_length=cfg.train.gr_output_length + 1, shuffle=False))
+    b, n = batch.features.ids.shape
+    r = cfg.train.num_negatives
+    shape = (r,) if cfg.train.shared_negatives else (b * (n - 1), r)
+    negatives = np.random.default_rng(5).choice(ds.all_item_ids, size=shape).astype(np.int32)
+    _fix_negatives(monkeypatch, negatives)
+    model, state, train_step, _ = jax_loop.create_train_state(
+        cfg, ds.max_item_id, ds.all_item_ids, batch)
+    s = dict(port_cfg=port_cfg, ds=ds, params=jax.tree_util.tree_map(np.asarray, state.params),
+             opt_state=jax.tree_util.tree_map(np.asarray, state.opt_state))
+    _, want = train_step(state, batch, jax.random.PRNGKey(0))
+    _, port_state, port_step = _port_state(s)
+    _, got = port_step(port_state, _port_batch(batch), torch.Generator().manual_seed(0))
+    np.testing.assert_allclose(got["loss"].item(), float(want["loss"]), rtol=loss_rtol)
 
 
 def test_unported_top_k_methods_raise():
