@@ -90,6 +90,24 @@ Amazon Books (amzn-books-hstu-mol[-fast]: MoL 8x8x32, L=64, H=128; bf16):
      their Int8 forms, against the plain path; launch counts.
  25. books-train and books-train-fast: as 9 at B=64, N=61, R=512 in bf16;
      the XLA block path launches no kernel, -fast the bf16 K5 1 + 1 per step.
+K1's block variants and the cost probes:
+ 26. K1-var: each of K1_VAR_INSTANCES (concat_ua, activation none, softmax
+     with the in-kernel bias, softmax with a precomputed raw bias,
+     mask_in_bias, no bias, concat_ua + softmax) at B=512, n=211, f32 and
+     bf16, vs its plain version.
+ 27. variants-e2e: ml-20m-hstu-mol in bf16 with fused_inference and each
+     variant's `--set` overrides (int64 timestamps for the precomputed-bias
+     modes): one batch of 512 through K1 + K2 vs the plain path, with 5's
+     bf16 checks; 16 K1 launches per batch.
+ 28. P1: `rails_tpu_torch.cli.encode_probe`: every mode vs its plain version
+     (one block, B=64, n=192), full vs K1's concat_ua instance, per-mode
+     kernel, plain and bound ms at B=512, n=192, and the CLI's 16-block
+     sweep of every mode with --runs cut to P1_RUNS.
+ 29. P2: `rails_tpu_torch.cli.mol_probe` at B=32 over 2,000,000 items (data
+     drawn on the card): every mode vs its plain version on 32,768 columns,
+     full vs K2 with the weights in K2's n-major order (K2's bf16 contract),
+     per-mode kernel, plain and bound ms, and the CLI's timing of every mode
+     and of the hierarchical select.
 The line before the last is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script fails before printing
 any result.
@@ -178,6 +196,28 @@ BOOKS_METHODS = ("MoLBruteForceTopKFused", "MoLBruteForceTopKFusedInt8", "MoLCer
 # this share of its largest value (both round to bf16 at the same points and
 # sum in other f32 orders).
 K5_BF16_TOL = (2e-2, 3e-2)
+# K1's variant instances (bias mode, activation, normalization, concat_ua):
+# the bias built in-kernel ("internal"), precomputed in x's dtype raw ("raw")
+# or with the -30000 penalty folded in ("penalty", mask_in_bias), or none.
+K1_VAR_INSTANCES = {
+    "concat_ua": ("internal", "silu", "rel_bias", True),
+    "activation none": ("internal", "none", "rel_bias", False),
+    "softmax": ("internal", "silu", "softmax_rel_bias", False),
+    "softmax, precomputed bias": ("raw", "silu", "softmax_rel_bias", False),
+    "mask_in_bias": ("penalty", "silu", "rel_bias", False),
+    "no bias": ("none", "silu", "rel_bias", False),
+    "concat_ua+softmax": ("internal", "silu", "softmax_rel_bias", True),
+}
+# P1 (encode_probe): the probe's longest default length, the batch of an
+# extra kernel-vs-plain check at a second shape, and its --runs cut for the
+# script's time.
+P1_LENGTH, P1_CHECK_BATCH, P1_RUNS = 192, 64, 2
+# P2 (mol_probe): its default corpus and its --runs cut; kernel vs plain
+# within `mol_probe_error_bound` at P2_TOL: of the largest |score|, or per
+# score where noexp's denominator cancels (`tests/test_torch_port_probes.py`:
+# the MLP rounds to bf16 at the same points on both sides, in other f32
+# orders).
+P2_ITEMS, P2_RUNS, P2_TOL = 2_000_000, 2, 2e-3
 # f32 rounding of K2's softmax mixture: K8's bound may sit this far (relative)
 # below K2's score when the mixture weights all fall on the largest logit.
 F32_MARGIN = 2.0 ** -20
@@ -192,6 +232,7 @@ def ptxas_summary(log: str) -> str:
         if entry:
             mangled = entry.group(1)
             name = re.search(r"(ln_gemm_kernel|hstu_attn_bwd_kernel|hstu_attn_kernel|"
+                             r"hstu_softmax_attn_kernel|mol_probe_kernel|"
                              r"attn_row_bwd_kernel|mol_scores_kernel|hash_keep_mask_kernel|"
                              r"adamw_kernel|mol_loss_fwd_kernel|mol_loss_bwd_kernel|"
                              r"reduce_slots_kernel|scatter_add_rows_kernel|mol_ub_kernel|"
@@ -375,10 +416,12 @@ def check_k2(b: int, x: int, kind: str, device, geom: tuple = ML20M_GEOM) -> dic
 
 
 def serving_setup(compute_dtype, device, n_batches: int,
-                  top_k_method: str = "MoLBruteForceTopKFused"):
+                  top_k_method: str = "MoLBruteForceTopKFused", overrides: tuple = ()):
     """The ml-20m-hstu-mol model (seeded random weights), its eval state for
     `top_k_method` (by default the exact fused one), the eval step and
-    length-sorted ML-20M-shaped batches, each truncated to its 64-bucket."""
+    length-sorted ML-20M-shaped batches, each truncated to its 64-bucket.
+    `overrides` are `section.field=value` strings, applied as the CLIs'
+    `--set` applies them."""
     import torch
 
     from rails_tpu_torch.core.config import get_experiment_config
@@ -387,8 +430,12 @@ def serving_setup(compute_dtype, device, n_batches: int,
     from rails_tpu_torch.models.encoder import SequentialRecommender
     from rails_tpu_torch.train.evaluation import get_eval_state, make_eval_step_fn
 
+    from rails_tpu_torch.cli.train import apply_override
+
     bf16 = compute_dtype == torch.bfloat16
     cfg = get_experiment_config("ml-20m-hstu-mol")
+    for dotted in overrides:
+        cfg = apply_override(cfg, *dotted.split("=", 1))
     cfg = cfg.replace(
         hstu=cfg.hstu.replace(fused_inference=True),
         train=cfg.train.replace(main_module_bf16=bf16, eval_bf16=bf16),
@@ -435,10 +482,12 @@ def kernel_counters() -> dict:
     attribute). A variant's launches (int8 tables, K2's blockmax) count on its
     own attribute as well as on `launches`."""
     from rails_tpu_torch.ops import (
+        encode_probe,
         hash_dropout,
         hstu_block,
         hstu_block_train,
         mol_loss_train,
+        mol_probe,
         mol_scoring,
         scatter_add,
     )
@@ -454,6 +503,7 @@ def kernel_counters() -> dict:
         "K6": scatter_add.scatter_add_rows, "K7": fused_adamw.adamw_leaf_update,
         "K8": mol_scoring.fused_mol_ub_t, "K9": mol_scoring.fused_mol_group_block_max,
         "K10": mol_scoring.fused_mol_scores_tiles,
+        "P1": encode_probe.encode_probe_block, "P2": mol_probe.mol_probe_scores,
     }
     counters = {name: (fn, "launches") for name, fn in wrappers.items()}
     counters["K2-bmax"] = (mol_scoring.fused_mol_scores_t, "blockmax_launches")
@@ -1811,6 +1861,306 @@ def books_e2e(device, name: str, smi: str, n_batches: int = 3) -> dict:
     return launches
 
 
+def k1_variant_inputs(b: int, n: int, dtype, device, instance: str):
+    """`k1_inputs` for one of K1_VAR_INSTANCES: a (3*h*dv, D) output
+    projection for concat_ua; the layer's bias built in-kernel, or the same
+    bias precomputed in x's dtype (raw, or with the -30000 penalty folded in
+    for mask_in_bias), or none."""
+    import torch
+
+    from rails_tpu_torch.ops.hstu_block import time_bucket
+
+    mode, activation, normalization, concat_ua = K1_VAR_INSTANCES[instance]
+    (x, colmask, uvqk, o_kernel, o_bias, rel_pos, ext, tsw), kw = k1_inputs(b, n, dtype, device)
+    if concat_ua:
+        g = torch.Generator().manual_seed(3)
+        o_kernel = (torch.randn(3 * H * DV, D, generator=g) / (H * DV) ** 0.5).to(dtype).to(device)
+    args = dict(x=x, colmask=colmask, uvqk=uvqk, o_kernel=o_kernel, o_bias=o_bias)
+    if mode == "internal":
+        args.update(rel_pos=rel_pos, ext=ext, tsw=tsw)
+    elif mode in ("raw", "penalty"):
+        bias = rel_pos[None] + tsw[time_bucket(ext[:, 1:, None] - ext[:, None, :n], 128).long()]
+        if mode == "penalty":
+            causal = torch.tril(torch.ones(n, n, device=device))
+            bias = bias + (causal[None] * colmask[:, None, :] - 1.0) * 30000.0
+        args.update(bias=bias.to(dtype).contiguous(), mask_in_bias=mode == "penalty")
+    kw.update(activation=activation, normalization=normalization)
+    return args, kw
+
+
+def k1_variant_flops(b: int, n: int, softmax: bool, out_rows: int, attention: bool = True) -> int:
+    """FLOPs one block forward needs at ml-20m widths: the projection, the
+    attention (pointwise: q k^T and a v over the causal pairs; softmax: q k^T
+    over every pair, since the denominator covers all columns, and a v over
+    the causal ones) and an output projection of `out_rows` rows."""
+    f = 2 * H * DV + 2 * H * DQK
+    pairs = n * (n + 1) // 2
+    if not attention:
+        attn = 0
+    elif softmax:
+        attn = b * (2 * n * n * H * DQK + 2 * pairs * H * DV)
+    else:
+        attn = b * H * pairs * 2 * (DQK + DV)
+    return 2 * b * n * D * f + attn + 2 * b * n * out_rows * D
+
+
+def k1_variant_bytes(b: int, n: int, itemsize: int, out_rows: int, bias: str) -> int:
+    """Bytes one block forward must move: x and out, the weights, the column
+    mask, and the bias tables (internal) or the (B, n, n) bias (precomputed)."""
+    f = 2 * H * DV + 2 * H * DQK
+    nbytes = itemsize * (2 * b * n * D + D * f + out_rows * D) + 4 * (D + b * n)
+    if bias == "internal":
+        nbytes += 4 * (n * n + 128 + b * (n + 1))
+    elif bias in ("raw", "penalty"):
+        nbytes += itemsize * b * n * n
+    return nbytes
+
+
+def check_k1_variant(b: int, n: int, dtype, device, instance: str) -> dict:
+    """One of K1's variant instances against its plain version."""
+    import torch
+
+    from rails_tpu_torch.ops.hstu_block import fused_hstu_block, fused_hstu_block_reference
+
+    mode, _, normalization, concat_ua = K1_VAR_INSTANCES[instance]
+    args, kw = k1_variant_inputs(b, n, dtype, device, instance)
+    got = fused_hstu_block(**args, **kw)
+    ref = fused_hstu_block_reference(**args, **kw)
+    dt = str(dtype)[6:]
+    rtol, atol = K1_TOL[dt]
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=atol)
+    err = (got.float() - ref.float()).abs().max().item()
+    ms = cuda_ms(lambda: fused_hstu_block(**args, **kw))
+    plain_ms = cuda_ms(lambda: fused_hstu_block_reference(**args, **kw), iters=3, warmup=1)
+    rows = (3 if concat_ua else 1) * H * DV
+    softmax = normalization == "softmax_rel_bias"
+    bd = bound(k1_variant_flops(b, n, softmax, rows),
+               k1_variant_bytes(b, n, args["x"].element_size(), rows, mode), dt)
+    print(f"[K1-var] {instance} {dt} B={b} n={n} D={D} h={H} (bias {mode}, "
+          f"{kw['activation']}, {normalization}, o_kernel {rows} rows): max|err| {err:.3e} "
+          f"(rtol {rtol}, atol {atol}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": None}
+
+
+def variant_config(instance: str) -> tuple:
+    """The `--set` overrides of ml-20m-hstu-mol that select a K1 variant
+    instance, and whether its timestamps go int64: JAX precomputes the bias
+    (raw under softmax, with the mask penalty otherwise) only for timestamps
+    that are not int32."""
+    mode, activation, normalization, concat_ua = K1_VAR_INSTANCES[instance]
+    overrides = ((f"hstu.linear_activation={activation}",) if activation != "silu" else ())
+    overrides += (("hstu.concat_ua=true",) if concat_ua else ())
+    overrides += ((f"hstu.normalization={normalization}",) if normalization != "rel_bias" else ())
+    overrides += (("hstu.enable_relative_attention_bias=false",) if mode == "none" else ())
+    return overrides, mode in ("raw", "penalty")
+
+
+def variants_e2e(device, name: str, smi: str) -> dict:
+    """ml-20m-hstu-mol in bf16 with fused_inference and each K1 variant's
+    configuration (`variant_config`, through `apply_override`): one batch of
+    512 through get_eval_state and make_eval_step_fn (K1 + K2) against the
+    same step through the plain versions, with `[e2e]`'s bf16 rank and
+    overlap checks. Returns each instance's launch counts of its kernel-path
+    run."""
+    import torch
+
+    _, min_rank_agree, min_overlap = E2E_TOL[0]
+    runs = {}
+    for instance in K1_VAR_INSTANCES:
+        overrides, int64 = variant_config(instance)
+        model, es, step, batches = serving_setup(torch.bfloat16, device, 1, overrides=overrides)
+        if int64:
+            batches = [(f._replace(timestamps=f.timestamps.long()), t) for f, t in batches]
+
+        def serve(f, t, es=es, step=step):
+            return step(es.topk_state, f, t)
+
+        run_batches(serve, batches)                                       # warm-up
+        reset_launches()
+        outs_k, ms_k = run_batches(serve, batches)
+        counts = {k: v for k, v in launch_counts().items() if v}
+        check_outputs(outs_k, batches)
+        want = model.cfg.hstu.num_blocks * len(batches)
+        if counts.get("K1") != want or counts.get("K2", 0) < len(batches):
+            raise AssertionError(f"{instance}: launches {counts}, want K1 {want}")
+        with plain_kernels():
+            outs_p, ms_p = run_batches(serve, batches)
+        rk, rp = (torch.cat([o[0] for o in o_]) for o_ in (outs_k, outs_p))
+        ik, ip = (torch.cat([o[1] for o in o_]) for o_ in (outs_k, outs_p))
+        rank_agree = (rk == rp).float().mean().item()
+        overlap = id_overlap(ik, ip)
+        print(f"[variants-e2e] {instance}: ml-20m-hstu-mol bf16 fused_inference "
+              f"{list(overrides)}{' + int64 timestamps' if int64 else ''}, {len(batches)} batch "
+              f"of {BATCH} (n={batches[0][0].ids.shape[1]}), {NUM_ITEMS} items, k=120, k'=200: "
+              f"launches {counts}; kernel path {ms_k:.3f} ms/batch, plain path {ms_p:.3f} "
+              f"ms/batch on {name} ({smi}); vs plain: ranks agree on {rank_agree:.4f} of "
+              f"{rk.numel()} rows (>= {min_rank_agree}), top-120 overlap {overlap:.4f} "
+              f"(>= {min_overlap})")
+        if rank_agree < min_rank_agree or overlap < min_overlap:
+            raise AssertionError(f"{instance}: the kernel path disagrees with the plain path")
+        runs[instance] = counts
+        del model, es, step, batches, outs_k, outs_p
+        torch.cuda.empty_cache()
+    return runs
+
+
+def p1_flops_bytes(b: int, n: int, mode: str) -> tuple:
+    """FLOPs and bytes of one probe block in `mode` (bf16, concat_ua)."""
+    rows = 3 * H * DV
+    if mode == "ident":   # LN and the whole (D, F) projection; out = Y[:, :D] + x
+        f = 2 * H * DV + 2 * H * DQK
+        return 2 * b * n * D * f, 2 * (2 * b * n * D + D * f)
+    flops = k1_variant_flops(b, n, False, rows, attention=mode != "noattn")
+    return flops, k1_variant_bytes(b, n, 2, rows, "internal")
+
+
+def p1_phase(device, name: str, smi: str) -> dict:
+    """P1 (`rails_tpu_torch.cli.encode_probe`): at B=512, n=192, each mode's
+    kernel against its plain version on one block (and again at
+    B=P1_CHECK_BATCH on other data), `full` against `production` (K1's
+    concat_ua instance), each mode's kernel and plain ms; then the CLI's
+    16-block sweep of every mode with `--runs` cut to P1_RUNS. Returns the
+    `full` row and the CLI run's launches."""
+    import torch
+
+    from rails_tpu_torch.cli import encode_probe as cli
+    from rails_tpu_torch.ops import encode_probe as ep
+    from rails_tpu_torch.ops.hstu_block import fused_hstu_block
+
+    n = P1_LENGTH
+    kw = dict(num_heads=H, dqk=DQK, dv=DV, inv_n=1.0 / n)
+    rtol, atol = K1_TOL["bfloat16"]
+
+    def block_args(d):
+        return (d["x0"], d["colmask"], d["uvqk"][0], d["ow"][0], d["ob"][0], d["rel_pos"],
+                d["ext"], d["tsw"])
+
+    small = block_args(cli.probe_data(P1_CHECK_BATCH, n, 1, np.random.default_rng(1), device))
+    small_errs = {}
+    for mode in ep.MODES:
+        got = ep.encode_probe_block(mode, *small, **kw).float()
+        ref = ep.encode_probe_block_reference(mode, *small, **kw).float()
+        torch.testing.assert_close(got, ref, rtol=rtol, atol=atol)
+        small_errs[mode] = (got - ref).abs().max().item()
+    del small
+    args = block_args(cli.probe_data(BATCH, n, 1, np.random.default_rng(2), device))
+    errs = {}
+    for mode in ep.MODES:
+        got = ep.encode_probe_block(mode, *args, **kw).float()
+        ref = ep.encode_probe_block_reference(mode, *args, **kw).float()
+        torch.testing.assert_close(got, ref, rtol=rtol, atol=atol)
+        errs[mode] = (got - ref).abs().max().item()
+        if mode == "full":
+            prod = fused_hstu_block(*args, **kw).float()
+            torch.testing.assert_close(got, prod, rtol=rtol, atol=atol)
+            prod_err = (got - prod).abs().max().item()
+        del got, ref
+    print(f"[P1] B={BATCH} n={n} bf16, one block: max|kernel - plain| per mode "
+          f"{ {m: float(f'{e:.3e}') for m, e in errs.items()} } (rtol {rtol}, atol {atol}); "
+          f"at B={P1_CHECK_BATCH} {max(small_errs.values()):.3e}; full vs production "
+          f"(K1 concat_ua) {prod_err:.3e}")
+    rows = {}
+    for mode in ep.MODES:
+        ms = cuda_ms(lambda: ep.encode_probe_block(mode, *args, **kw))
+        plain_ms = cuda_ms(lambda: ep.encode_probe_block_reference(mode, *args, **kw), iters=3,
+                           warmup=1)
+        bd = bound(*p1_flops_bytes(BATCH, n, mode), "bfloat16")
+        rows[mode] = {"max_abs_err": errs[mode], "ms": ms, "plain_ms": plain_ms, **bd,
+                      "library_ms": None}
+        print(f"[P1] {mode} B={BATCH} n={n} one block: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+              f"ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    del args
+    torch.cuda.empty_cache()
+    ep.encode_probe_block.launches = 0
+    out = cli.main(["--batch-size", str(BATCH), "--lengths", str(n), "--runs", str(P1_RUNS),
+                    "--device", str(device)])
+    launches = ep.encode_probe_block.launches
+    row = out["ms_per_encode"][n]
+    if launches != len(ep.MODES) * 16 * P1_RUNS * 4:
+        raise AssertionError(f"P1 launched {launches} times")
+    print(f"[P1] cli.encode_probe B={BATCH} n={n}, 16 blocks, --runs {P1_RUNS} on {name} ({smi}): "
+          f"ms per encode {row}; term costs vs full: "
+          f"{ {m: round(row['full'] - row[m], 3) for m in row if m != 'full'} }; "
+          f"{launches} probe launches")
+    return {"full": rows["full"], "rows": rows, "launches": launches}
+
+
+def p2_phase(device, name: str, smi: str) -> dict:
+    """P2 (`rails_tpu_torch.cli.mol_probe`) at B=32 over P2_ITEMS items, the
+    probe's geometry and types, data drawn on the card in the probe's m-major
+    layout and put into K2's order by `probe_operands`: each mode's kernel
+    against its plain version over the whole corpus, `full` against K2 on the
+    same operands (K2's bf16 contract; the same kernel, so bit-equal is
+    expected), each mode's kernel and plain ms, then the CLI's timing of
+    every mode (`--runs` cut to P2_RUNS) and of the hierarchical select.
+    Returns the `full` row and the CLI run's launches."""
+    import torch
+
+    from rails_tpu_torch.cli import mol_probe as cli
+    from rails_tpu_torch.ops import mol_probe as mp
+    from rails_tpu_torch.ops.mol_scoring import fused_mol_scores_t
+
+    b, x = APPROX_BATCH, P2_ITEMS
+    x_pad = -(-x // cli.BLOCK_X) * cli.BLOCK_X
+    l = P_Q * P_X
+    g = torch.Generator(device=device).manual_seed(9)
+
+    def randn(*shape):
+        return 0.1 * torch.randn(*shape, generator=g, device=device)
+
+    ops = mp.probe_operands(
+        q=randn(P_Q, b, D_P), qp=randn(b, l), item=randn(P_X, D_P, x_pad).bfloat16(),
+        ip=randn(l, x_pad).bfloat16(), w1=randn(l, 128), b1=randn(128), w2=randn(128, l),
+        b2=randn(l))
+    k2_full = fused_mol_scores_t(*ops, 1.0 / mp.INV_TEMPERATURE)
+    k2_ms = cuda_ms(lambda: fused_mol_scores_t(*ops, 1.0 / mp.INV_TEMPERATURE), iters=3,
+                    warmup=1)
+    errs, ratios, rows = {}, {}, {}
+    for mode in mp.MODES:
+        got = mp.mol_probe_scores(mode, *ops)
+        ref = mp.mol_probe_scores_reference(mode, *ops)
+        err = (got - ref).abs()
+        ratios[mode] = (err / mp.mol_probe_error_bound(mode, *ops, tol=P2_TOL)).max().item()
+        errs[mode] = err.max().item()
+        if not ratios[mode] <= 1.0:
+            raise AssertionError(f"P2 {mode}: kernel vs plain at {ratios[mode]:.3e} of its bound")
+        if mode == "full":
+            verdict = bf16_contract(got[:, :x], k2_full[:, :x], "P2 full vs K2")
+            bit_equal = torch.equal(got, k2_full)
+        del got, ref, err
+        ms = cuda_ms(lambda: mp.mol_probe_scores(mode, *ops), iters=3, warmup=1)
+        plain_ms = cuda_ms(lambda: mp.mol_probe_scores_reference(mode, *ops), iters=1,
+                           warmup=0)
+        per_pair = 2 * l * D_P + (4 * l * 128 if mode in ("full", "nosilu", "noexp") else 0)
+        nbytes = 2 * (P_X * D_P + l) * x_pad + 4 * b * x_pad + 4 * (b * l + 2 * l * 128)
+        bd = bound(b * x_pad * per_pair, nbytes, "bfloat16")
+        rows[mode] = {"max_abs_err": errs[mode], "ms": ms, "plain_ms": plain_ms, **bd,
+                      "library_ms": None}
+        print(f"[P2] {mode} B={b} X={x}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    print(f"[P2] B={b} X={x} MoL {P_Q}x{P_X}x{D_P} H=128 bf16, all {x_pad} columns: "
+          f"max|kernel - plain| per mode { {m: float(f'{e:.3e}') for m, e in errs.items()} }, "
+          f"its largest share of `mol_probe_error_bound` (tol {P2_TOL}) "
+          f"{ {m: float(f'{r:.3e}') for m, r in ratios.items()} } (<= 1); full vs K2 on the "
+          f"same operands: {verdict}, bit-equal {bit_equal}; K2 {k2_ms:.3f} ms")
+    del k2_full
+    mp.mol_probe_scores.launches = 0
+    res = cli.time_modes(ops, mp.MODES, P2_RUNS, device)
+    launches = mp.mol_probe_scores.launches
+    if launches != len(mp.MODES) * P2_RUNS * 4:
+        raise AssertionError(f"P2 launched {launches} times")
+    del ops
+    torch.cuda.empty_cache()
+    scores = torch.randn(b, x, generator=g, device=device)
+    sel = cli.time_select(scores, APPROX_K, P2_RUNS, device)
+    print(f"[P2] cli.mol_probe B={b} X={x}, --runs {P2_RUNS} on {name} ({smi}): ms per batch "
+          f"{res}, select_hierarchical {sel:.3f}; stage costs vs full: "
+          f"{ {m: round(res['full'] - res[m], 2) for m in res if m != 'full'} }; "
+          f"{launches} probe launches")
+    return {"full": rows["full"], "rows": rows, "launches": launches}
+
+
 def main() -> None:
     import torch
 
@@ -1906,6 +2256,17 @@ def main() -> None:
     fastb = train_phase(device, name, smi, "amzn-books-hstu-mol-fast", "books-train-fast",
                         **books_train)
     books.update({k: fastb[k] for k in ("K5 fwd (bf16)", "K5 bwd (bf16)")})
+    torch.cuda.empty_cache()
+
+    # K1's variants at ML-20M width and their serving runs; the cost probes.
+    k1v = {(inst, dtype): check_k1_variant(BATCH, MAX_SEQ_LEN, dtype, device, inst)
+           for inst in K1_VAR_INSTANCES for dtype in (torch.float32, torch.bfloat16)}
+    torch.cuda.empty_cache()
+    k1v_runs = variants_e2e(device, name, smi)
+    torch.cuda.empty_cache()
+    p1 = p1_phase(device, name, smi)
+    torch.cuda.empty_cache()
+    p2 = p2_phase(device, name, smi)
 
     def entry(name_, source, replaces, key, measured, counts=launches):
         return {"name": name_, "route": "cuda", "source": f"rails_tpu_torch/csrc/{source}",
@@ -1972,6 +2333,18 @@ def main() -> None:
               "rails_tpu/ops/pallas/mol_loss_train.py:143", "K5 fwd (bf16)", k5b_fwd, books),
         entry("fused_mol_loss_backward (bf16, 8x8x32)", "mol_loss_train.cu",
               "rails_tpu/ops/pallas/mol_loss_train.py:159", "K5 bwd (bf16)", k5b_bwd, books),
+    ]
+    summary += [
+        entry(f"fused_hstu_block ({inst}, bf16)", "hstu_block.cu",
+              "rails_tpu/ops/pallas/hstu_block.py:432", "K1", k1v[(inst, torch.bfloat16)],
+              k1v_runs[inst])
+        for inst in K1_VAR_INSTANCES
+    ]
+    summary += [
+        entry("encode_probe_block (full)", "encode_probe.cu",
+              "rails_tpu/cli/encode_probe.py:150", "P1", p1["full"], {"P1": p1["launches"]}),
+        entry("mol_probe_scores (full)", "mol_probe.cu", "rails_tpu/cli/mol_probe.py:156", "P2",
+              p2["full"], {"P2": p2["launches"]}),
     ]
     missing = [e["name"] for e in summary if not e["launches"]]
     if missing:

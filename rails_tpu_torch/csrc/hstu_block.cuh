@@ -1,31 +1,57 @@
 // One HSTU block forward: the device code shared by the serving block (K1,
-// hstu_block.cu) and the training block's forward (K4, hstu_block_train.cu).
+// hstu_block.cu), the training block's forward (K4, hstu_block_train.cu) and
+// the encode cost probe (P1, encode_probe.cu).
 //
 // Replaces the body `_kernel` of rails_tpu/ops/pallas/hstu_block.py and
-// `_fwd_kernel` of rails_tpu/ops/pallas/hstu_block_train.py, internal-bias
-// mode: LayerNorm -> x @ uvqk -> SiLU -> per-head pointwise-SiLU attention with
-// the relative-position + time-bucket bias built on the fly, causal x
-// column-valid mask and 1/max_seq_len folded into v -> u * LayerNorm(attn)
-// [x dropout keep mask] -> @ Wo + bo + x.
+// `_fwd_kernel` of rails_tpu/ops/pallas/hstu_block_train.py: LayerNorm ->
+// x @ uvqk -> SiLU (or none) -> attention -> o_input -> @ Wo + bo + x, where
+// the attention is
+//   - pointwise SiLU (rel_bias, hstu_rel_bias): per head, with the bias built
+//     on the fly from the relative-position slab and the time-bucket table
+//     (internal bias), read from a precomputed (B, n, n) tensor in x's type,
+//     or absent; causal x column-valid mask and 1/max_seq_len folded into v;
+//   - softmax (softmax_rel_bias): ONE (n, n) map over the full h*dqk
+//     contraction shared by every value head, the bias added before the
+//     1/sqrt(dqk) scale, the softmax over every column and the mask applied
+//     after normalisation;
+// and o_input is u * LayerNorm(attn) [x dropout keep mask], or, with
+// concat_ua, [u, LN(attn), u * LN(attn)] against an o_kernel of 3*h*dv rows.
 //
 // The TPU kernel keeps a whole user's (n, F) projection in VMEM. At serving
 // geometry (n=211, F=1024) that is 864 KB in f32, far over the 227 KB of shared
 // memory a Hopper block can hold, so the block runs as three launches:
-//   1. ln_gemm<kProj>: Y = silu(LN(x) @ uvqk), a tiled GEMM whose A-tile loader
+//   1. ln_gemm<kProj>: Y = act(LN(x) @ uvqk), a tiled GEMM whose A-tile loader
 //      normalises rows on the fly; Y (B*n, F) f32 goes to device memory.
-//   2. hstu_attn: one block per (head, user). It stages that head's q, k and
-//      v = v/max_seq_len (n x 32 each) in shared memory and runs the SiLU
-//      attention one query row per warp: lanes over key columns for the scores,
-//      then lanes over value columns for a @ v. No (B, n, n) tensor exists.
-//   3. ln_gemm<kOut>: out = (u * LN(attn) [* keep]) @ Wo + bo + x. In training
-//      the loader multiplies by the K3 keep mask (hash_dropout.cuh) of the
-//      o_input stream; the serving call passes no dropout.
+//   2. the attention, writing attn (B*n, h*dv) f32. Pointwise: hstu_attn, one
+//      block per (head, user); it stages that head's q, k and v = v/max_seq_len
+//      (n x 32 each) in shared memory and runs one query row per warp: lanes
+//      over key columns for the scores, then lanes over value columns for
+//      a @ v. Softmax: hstu_softmax_attn, one block per (user, 32 query rows),
+//      because a whole user's k and v in f32 (n x h*dqk, n x h*dv: 216 KB each
+//      at n=211, h*dqk=256) do not fit a block. It streams k in chunks of 32
+//      rows for the (32, n) scores, which stay in shared memory; normalises
+//      each row over all n columns, rounds a = e / S * mask to the matmul type
+//      (the JAX kernel rounds the normalised, masked a before a @ v, so an
+//      online rescaling would round elsewhere); then streams v in chunks for
+//      a @ v over all h*dv columns. No (B, n, n) tensor exists.
+//   3. ln_gemm<kOut>: out = o_input @ Wo + bo + x. Its A-loader builds o_input
+//      from attn's LayerNorm statistics (computed once per row over the h*dv
+//      columns) and u, for K = h*dv or, with concat_ua, K = 3*h*dv columns
+//      [u | LN(a) | u*LN(a)]; the K3 keep mask of the train forward indexes
+//      row position * K + column, whichever the layout. The serving call
+//      passes no dropout.
+// The probe-only switches (kProbeIdent, kProbeFromV, kBiasRelPos, a linear
+// attention gate) are template arguments whose defaults leave K1's and K4's
+// instances as they are; only encode_probe.cu instantiates them.
 // Bound: at serving shapes the FLOPs (2*n*D*F + 4*h*n^2*dqk + 2*n*h*dv*D per
-// user) dominate the bytes, so the kernels are bound by the FP32 FMA rate of
-// the CUDA cores; the Y round trip adds ~0.9 GB of traffic per layer at B=512,
-// n=211. Moving the projections onto wgmma and keeping Y on chip is later work.
+// user; softmax 4*n^2*h*dqk, the map shared by the heads) dominate the bytes,
+// so the kernels are bound by the FP32 FMA rate of the CUDA cores; the Y round
+// trip adds ~0.9 GB of traffic per layer at B=512, n=211, and a precomputed
+// bias 45 MB (bf16). Moving the projections onto wgmma and keeping Y on chip
+// is later work.
 #pragma once
 
+#include <cmath>
 #include <cstdint>
 
 #include "common.cuh"
@@ -42,35 +68,57 @@ constexpr float kInvLogBase = static_cast<float>(1.0 / 0.301);
 
 enum Mode { kProj = 0, kOut = 1 };
 
+// Loader and epilogue switches of ln_gemm_kernel, OR-ed into its VAR argument.
+constexpr int kGemmPlain = 0;
+constexpr int kActNone = 1;     // kProj: Y = LN(x) @ uvqk, no SiLU (linear_activation="none")
+constexpr int kConcatUA = 2;    // kOut: A' = [u | LN(a) | u*LN(a)], K = 3 * (h*dv)
+constexpr int kProbeFromV = 4;  // kOut, probe only: a = round_T(v * a_scale), v read from Y
+constexpr int kProbeIdent = 8;  // kProj, probe only: out = (LN(x) @ W)[:, :lda] + x, in x's
+                                // type; all N columns computed, the rest dropped
+
+// Where the attention's additive bias comes from.
+enum Bias {
+  kBiasInternal = 0,  // rel_pos[i, j] + tsw[bucket(ext[i+1] - ext[j])], built on the fly
+  kBiasTensor = 1,    // a precomputed (B, n, n) bias in x's type (mask_in_bias or raw)
+  kBiasNone = 2,      // no relative-attention bias
+  kBiasRelPos = 3,    // probe only: rel_pos without the time term
+};
+
 // The o_input dropout of the train forward. A zero-initialised Dropout (no
 // drop) leaves the serving block exactly as it is.
 struct Dropout {
-  int drop;          // 1: multiply u * LN(attn) by the K3 keep mask
+  int drop;          // 1: multiply o_input by the K3 keep mask
   int n_per_user;    // rows per batch row: the mask's user index is row / n
   int seed0;         // the layer's seed (int32)
   uint32_t thresh;   // min(int(rate * 2^31), 2^31 - 1)
   float scale;       // f32(1 / (1 - rate))
 };
 
-// Element (row, k) of the raw A operand: x (T) for kProj, attn (f32) for kOut.
-template <typename T, int MODE>
-__device__ __forceinline__ float load_a(const void* a, int ld, int64_t row, int k) {
+// Element (row, k) of the raw A operand: x (T) for kProj, attn (f32) for kOut
+// (with kProbeFromV, v of Y scaled and rounded as the probe's noattn mode).
+template <typename T, int MODE, int VAR>
+__device__ __forceinline__ float load_a(const void* a, int lda, int64_t row, int k,
+                                        float a_scale) {
   if constexpr (MODE == kProj) {
-    return to_f<T>(static_cast<const T*>(a)[row * ld + k]);
+    return to_f<T>(static_cast<const T*>(a)[row * lda + k]);
+  } else if constexpr ((VAR & kProbeFromV) != 0) {
+    return round_to<T>(static_cast<const float*>(a)[row * lda + k] * a_scale);
   } else {
-    return static_cast<const float*>(a)[row * ld + k];
+    return static_cast<const float*>(a)[row * lda + k];
   }
 }
 
-// C[M, N] = A'[M, K] @ W[K, N] with A' = LN(A) (kProj) or u * LN(A) (kOut),
-// the latter times the keep mask when dropout is on, rounded to T as the JAX
-// kernel casts it before the product.
-template <typename T, int MODE>
+// C[M, N] = A'[M, K] @ W[K, N] with A' = LN(A) (kProj) or the o_input built
+// from LN(A) and u (kOut), the latter times the keep mask when dropout is on,
+// rounded to T as the JAX kernel casts it before the product. A is (M, ka)
+// with row stride lda; its LayerNorm statistics run over its ka columns. W
+// has row stride ldw.
+template <typename T, int MODE, int VAR = kGemmPlain>
 __global__ void __launch_bounds__(kThreads)
-ln_gemm_kernel(const void* __restrict__ a, const float* __restrict__ u, int ldu,
-               const T* __restrict__ w, const float* __restrict__ bias,
+ln_gemm_kernel(const void* __restrict__ a, int lda, int ka, const float* __restrict__ u,
+               int ldu, const T* __restrict__ w, int ldw, const float* __restrict__ bias,
                const T* __restrict__ resid, void* __restrict__ out, int M, int N, int K,
-               float eps, Dropout dp) {
+               float eps, float a_scale, Dropout dp) {
   __shared__ float As[BK][BM + 4];
   __shared__ float Ws[BK][BN + 4];
   __shared__ float mu[BM], rs[BM];
@@ -84,14 +132,14 @@ ln_gemm_kernel(const void* __restrict__ a, const float* __restrict__ u, int ldu,
     float mean = 0.f, rstd = 0.f;
     if (row < M) {
       float s = 0.f;
-      for (int k = lane; k < K; k += 32) s += load_a<T, MODE>(a, K, row, k);
-      mean = warp_sum(s) / K;
+      for (int k = lane; k < ka; k += 32) s += load_a<T, MODE, VAR>(a, lda, row, k, a_scale);
+      mean = warp_sum(s) / ka;
       float v = 0.f;
-      for (int k = lane; k < K; k += 32) {
-        const float d = load_a<T, MODE>(a, K, row, k) - mean;
+      for (int k = lane; k < ka; k += 32) {
+        const float d = load_a<T, MODE, VAR>(a, lda, row, k, a_scale) - mean;
         v = fmaf(d, d, v);
       }
-      rstd = rsqrtf(warp_sum(v) / K + eps);
+      rstd = rsqrtf(warp_sum(v) / ka + eps);
     }
     if (lane == 0) {
       mu[r] = mean;
@@ -108,9 +156,21 @@ ln_gemm_kernel(const void* __restrict__ a, const float* __restrict__ u, int ldu,
       const int64_t row = m0 + r;
       float v = 0.f;
       if (row < M && k < K) {
-        v = (load_a<T, MODE>(a, K, row, k) - mu[r]) * rs[r];
+        if constexpr (MODE == kOut && (VAR & kConcatUA) != 0) {
+          // Column k of [u | LN(a) | u*LN(a)]: part k / ka, column k % ka.
+          const int part = k / ka, c = k - part * ka;
+          const float uc = u[row * ldu + c];
+          if (part == 0) {
+            v = uc;
+          } else {
+            const float an = (load_a<T, MODE, VAR>(a, lda, row, c, a_scale) - mu[r]) * rs[r];
+            v = part == 1 ? an : uc * an;
+          }
+        } else {
+          v = (load_a<T, MODE, VAR>(a, lda, row, k, a_scale) - mu[r]) * rs[r];
+          if constexpr (MODE == kOut) v *= u[row * ldu + k];
+        }
         if constexpr (MODE == kOut) {
-          v *= u[row * ldu + k];
           if (dp.drop) {
             const int user = static_cast<int>(row / dp.n_per_user);
             const int pos = static_cast<int>(row - static_cast<int64_t>(user) * dp.n_per_user);
@@ -124,7 +184,7 @@ ln_gemm_kernel(const void* __restrict__ a, const float* __restrict__ u, int ldu,
     }
     for (int e = tid; e < BK * BN; e += kThreads) {
       const int kk = e / BN, c = e % BN, k = k0 + kk, col = n0 + c;
-      Ws[kk][c] = (k < K && col < N) ? to_f<T>(w[static_cast<int64_t>(k) * N + col]) : 0.f;
+      Ws[kk][c] = (k < K && col < N) ? to_f<T>(w[static_cast<int64_t>(k) * ldw + col]) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -152,7 +212,16 @@ ln_gemm_kernel(const void* __restrict__ a, const float* __restrict__ u, int ldu,
       if (col >= N) continue;
       const int64_t o = row * N + col;
       if constexpr (MODE == kProj) {
-        static_cast<float*>(out)[o] = silu(acc[i][j]);
+        if constexpr ((VAR & kProbeIdent) != 0) {
+          if (col < lda) {  // out and resid are (M, lda)
+            const int64_t oi = row * lda + col;
+            static_cast<T*>(out)[oi] = from_f<T>(acc[i][j] + to_f<T>(resid[oi]));
+          }
+        } else if constexpr ((VAR & kActNone) != 0) {
+          static_cast<float*>(out)[o] = acc[i][j];
+        } else {
+          static_cast<float*>(out)[o] = silu(acc[i][j]);
+        }
       } else {
         static_cast<T*>(out)[o] = from_f<T>(acc[i][j] + bias[col] + to_f<T>(resid[o]));
       }
@@ -179,13 +248,17 @@ size_t attn_smem_bytes(int n, int dqk, int dv) {
 
 // T is the matmul type the products round to; Y the storage type of y: f32
 // in the forward, bf16 where the bf16 train block's backward recomputes attn
-// from the bf16-rounded projection, as the JAX backward does.
-template <typename T, typename Y = float>
+// from the bf16-rounded projection, as the JAX backward does. BIAS picks the
+// additive bias; ACT false is the probe's linear gate (a = qk). With a
+// precomputed bias that folds the -30000 penalty in (mask_in_bias) SiLU is
+// exactly 0 at every masked pair, so the causal loop bound and the column
+// multiply below change nothing there.
+template <typename T, typename Y = float, int BIAS = kBiasInternal, bool ACT = true>
 __global__ void __launch_bounds__(kThreads)
 hstu_attn_kernel(const Y* __restrict__ y, const float* __restrict__ colmask,
                  const float* __restrict__ rel_pos, const int* __restrict__ ext,
                  const float* __restrict__ tsw, float* __restrict__ attn, int n, int H,
-                 int dqk, int dv, float inv_n, int max_bucket) {
+                 int dqk, int dv, float inv_n, int max_bucket, const T* __restrict__ bias) {
   extern __shared__ float smem[];
   const int ldk = n | 1;                       // odd row stride: no bank conflicts
   float* kt = smem;                            // [dqk][ldk]  k transposed
@@ -212,8 +285,10 @@ hstu_attn_kernel(const Y* __restrict__ y, const float* __restrict__ colmask,
     vs[e] = round_to<T>(to_f<Y>(yb[static_cast<int64_t>(i) * F + voff + d]) * inv_n);
   }
   for (int j = tid; j < n; j += kThreads) cm[j] = colmask[static_cast<int64_t>(b) * n + j];
-  for (int j = tid; j <= n; j += kThreads) ex[j] = ext[static_cast<int64_t>(b) * (n + 1) + j];
-  for (int t = tid; t < 128; t += kThreads) tw[t] = tsw[t];
+  if constexpr (BIAS == kBiasInternal) {
+    for (int j = tid; j <= n; j += kThreads) ex[j] = ext[static_cast<int64_t>(b) * (n + 1) + j];
+    for (int t = tid; t < 128; t += kThreads) tw[t] = tsw[t];
+  }
   __syncthreads();
 
   const int warp = tid >> 5, lane = tid & 31;
@@ -221,12 +296,18 @@ hstu_attn_kernel(const Y* __restrict__ y, const float* __restrict__ colmask,
   for (int i = warp; i < n; i += kWarps) {
     const float* qi = qs + i * dqk;
     const float* rp = rel_pos + static_cast<int64_t>(i) * n;
-    const int nxt = ex[i + 1];
+    const int nxt = BIAS == kBiasInternal ? ex[i + 1] : 0;
     for (int j = lane; j <= i; j += 32) {
       float s = 0.f;
       for (int d = 0; d < dqk; ++d) s = fmaf(qi[d], kt[d * ldk + j], s);
-      s += rp[j] + tw[time_bucket(nxt, ex[j], max_bucket)];
-      a_row[j] = round_to<T>(silu(s) * cm[j]);
+      if constexpr (BIAS == kBiasInternal) {
+        s += rp[j] + tw[time_bucket(nxt, ex[j], max_bucket)];
+      } else if constexpr (BIAS == kBiasRelPos) {
+        s += rp[j];
+      } else if constexpr (BIAS == kBiasTensor) {
+        s += to_f<T>(bias[(static_cast<int64_t>(b) * n + i) * n + j]);
+      }
+      a_row[j] = round_to<T>((ACT ? silu(s) : s) * cm[j]);
     }
     __syncwarp();
     for (int d = lane; d < dv; d += 32) {
@@ -238,8 +319,196 @@ hstu_attn_kernel(const Y* __restrict__ y, const float* __restrict__ colmask,
   }
 }
 
-// The block's three launches; attn (B*n, H*dv) f32 is left in device memory,
-// where the train block's backward reads it.
+// The softmax attention: query rows per block and key/value rows per chunk.
+constexpr int kSmRows = 32;
+constexpr int kSmCols = 32;
+constexpr int kSmRowsPerWarp = kSmRows / kWarps;
+
+size_t softmax_smem_bytes(int n, int H, int dqk, int dv) {
+  const size_t hq = static_cast<size_t>(H) * dqk, hv = static_cast<size_t>(H) * dv;
+  const size_t chunk = hq * (kSmCols + 1) > hv * kSmCols ? hq * (kSmCols + 1) : hv * kSmCols;
+  const size_t floats = kSmRows * hq + chunk + static_cast<size_t>(kSmRows) * n + n + 128;
+  return floats * sizeof(float) + static_cast<size_t>(n + 1) * sizeof(int);
+}
+
+// softmax_rel_bias: attn[i] = sum_j round_T(softmax_j(((q_i . k_j) + bias_ij)
+// * inv_sqrt_dqk) * mask_ij) * round_T(v_j) over the whole h*dqk contraction
+// and all h*dv value columns (the Pallas body's `if softmax` branch). The
+// denominator covers every column, masked and future ones included; the mask
+// (causal x column-valid) multiplies after normalisation, so a @ v skips the
+// columns past the block's last row, where every a is 0.
+template <typename T, int BIAS>
+__global__ void __launch_bounds__(kThreads)
+hstu_softmax_attn_kernel(const float* __restrict__ y, const float* __restrict__ colmask,
+                         const float* __restrict__ rel_pos, const int* __restrict__ ext,
+                         const float* __restrict__ tsw, const T* __restrict__ bias,
+                         float* __restrict__ attn, int n, int H, int dqk, int dv,
+                         float inv_sqrt_dqk, int max_bucket) {
+  extern __shared__ float smem[];
+  const int hq = H * dqk, hv = H * dv, F = 2 * hv + 2 * hq;
+  constexpr int ldc = kSmCols + 1;             // odd stride of the transposed k chunk
+  const int chunk = hq * ldc > hv * kSmCols ? hq * ldc : hv * kSmCols;
+  float* qs = smem;                            // [kSmRows][hq]  q rows of the block
+  float* kv = qs + kSmRows * hq;               // [hq][ldc] k chunk transposed, then [kSmCols][hv] v
+  float* sc = kv + chunk;                      // [kSmRows][n]   scores, then a
+  float* cm = sc + kSmRows * n;                // [n]
+  float* tw = cm + n;                          // [128]
+  int* ex = reinterpret_cast<int*>(tw + 128);  // [n + 1]
+
+  const int b = blockIdx.y, i0 = blockIdx.x * kSmRows, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int rows = min(kSmRows, n - i0);
+  const float* yb = y + static_cast<int64_t>(b) * n * F;
+  for (int e = tid; e < kSmRows * hq; e += kThreads) {
+    const int r = e / hq, d = e % hq;
+    qs[e] = r < rows ? round_to<T>(yb[static_cast<int64_t>(i0 + r) * F + 2 * hv + d]) : 0.f;
+  }
+  for (int j = tid; j < n; j += kThreads) cm[j] = colmask[static_cast<int64_t>(b) * n + j];
+  if constexpr (BIAS == kBiasInternal) {
+    for (int j = tid; j <= n; j += kThreads) ex[j] = ext[static_cast<int64_t>(b) * (n + 1) + j];
+    for (int t = tid; t < 128; t += kThreads) tw[t] = tsw[t];
+  }
+
+  // Scores: lanes over the chunk's key rows, each warp kSmRowsPerWarp query rows.
+  for (int j0 = 0; j0 < n; j0 += kSmCols) {
+    const int cols = min(kSmCols, n - j0);
+    __syncthreads();
+    for (int e = tid; e < cols * hq; e += kThreads) {
+      const int c = e / hq, d = e % hq;
+      kv[d * ldc + c] = round_to<T>(yb[static_cast<int64_t>(j0 + c) * F + 2 * hv + hq + d]);
+    }
+    __syncthreads();
+    if (lane < cols) {
+      float s[kSmRowsPerWarp] = {};
+      for (int d = 0; d < hq; ++d) {
+        const float kd = kv[d * ldc + lane];
+#pragma unroll
+        for (int r = 0; r < kSmRowsPerWarp; ++r) s[r] = fmaf(qs[(warp + r * kWarps) * hq + d], kd, s[r]);
+      }
+      const int j = j0 + lane;
+#pragma unroll
+      for (int r = 0; r < kSmRowsPerWarp; ++r) {
+        const int i = warp + r * kWarps;
+        if (i >= rows) break;
+        const int gi = i0 + i;
+        float v = s[r];
+        if constexpr (BIAS == kBiasInternal) {
+          v += rel_pos[static_cast<int64_t>(gi) * n + j] + tw[time_bucket(ex[gi + 1], ex[j], max_bucket)];
+        } else if constexpr (BIAS == kBiasTensor) {
+          v += to_f<T>(bias[(static_cast<int64_t>(b) * n + gi) * n + j]);
+        }
+        sc[i * n + j] = v * inv_sqrt_dqk;
+      }
+    }
+  }
+  __syncthreads();
+
+  // Normalise each row over all n columns, then mask and round: a warp per row.
+  for (int i = warp; i < rows; i += kWarps) {
+    float* row = sc + i * n;
+    float m = -INFINITY;
+    for (int j = lane; j < n; j += 32) m = fmaxf(m, row[j]);
+    m = warp_max(m);
+    float ssum = 0.f;
+    for (int j = lane; j < n; j += 32) {
+      const float e = expf(row[j] - m);
+      row[j] = e;
+      ssum += e;
+    }
+    ssum = warp_sum(ssum);
+    const int gi = i0 + i;
+    for (int j = lane; j < n; j += 32) {
+      const float mask = j <= gi ? cm[j] : 0.f;
+      row[j] = round_to<T>(row[j] / ssum * mask);
+    }
+  }
+
+  // a @ v: thread c owns value column c of every row of the block.
+  const int jmax = i0 + rows;
+  for (int c0 = 0; c0 < hv; c0 += kThreads) {
+    const int c = c0 + tid;
+    float acc[kSmRows] = {};
+    for (int j0 = 0; j0 < jmax; j0 += kSmCols) {
+      const int cols = min(kSmCols, jmax - j0);
+      __syncthreads();
+      for (int e = tid; e < cols * hv; e += kThreads) {
+        const int jj = e / hv, d = e % hv;
+        kv[e] = round_to<T>(yb[static_cast<int64_t>(j0 + jj) * F + hv + d]);
+      }
+      __syncthreads();
+      if (c < hv) {
+        for (int jj = 0; jj < cols; ++jj) {
+          const float vv = kv[jj * hv + c];
+#pragma unroll
+          for (int r = 0; r < kSmRows; ++r) acc[r] = fmaf(sc[r * n + j0 + jj], vv, acc[r]);
+        }
+      }
+    }
+    if (c < hv) {
+      for (int r = 0; r < rows; ++r) attn[(static_cast<int64_t>(b) * n + i0 + r) * hv + c] = acc[r];
+    }
+  }
+}
+
+inline dim3 gemm_grid(int N, int M) { return dim3((N + BN - 1) / BN, (M + BM - 1) / BM); }
+
+// Launch 1: y (M, F) f32 = act(LN(x) @ uvqk).
+template <typename T, int VAR>
+cudaError_t launch_proj(const void* x, const void* uvqk, float* y, int M, int F, int D,
+                        float eps, cudaStream_t stream) {
+  ln_gemm_kernel<T, kProj, VAR><<<gemm_grid(F, M), kThreads, 0, stream>>>(
+      x, D, D, nullptr, 0, static_cast<const T*>(uvqk), F, nullptr, nullptr, y, M, F, D, eps,
+      1.f, Dropout{});
+  return cudaGetLastError();
+}
+
+// Launch 3: out (M, D) in T = o_input @ Wo + bo + x, o_input built from a
+// (M, ka) with row stride lda and from u, the first ka columns of y.
+template <typename T, int VAR>
+cudaError_t launch_out(const float* a, int lda, int ka, float a_scale, const float* y, int F,
+                       const void* o_kernel, const float* o_bias, const void* x, void* out,
+                       int M, int D, float eps, Dropout dp, cudaStream_t stream) {
+  const int K = (VAR & kConcatUA) != 0 ? 3 * ka : ka;
+  ln_gemm_kernel<T, kOut, VAR><<<gemm_grid(D, M), kThreads, 0, stream>>>(
+      a, lda, ka, y, F, static_cast<const T*>(o_kernel), D, o_bias, static_cast<const T*>(x),
+      out, M, D, K, eps, a_scale, dp);
+  return cudaGetLastError();
+}
+
+// Launch 2, pointwise SiLU attention (or the probe's linear gate).
+template <typename T, int BIAS, bool ACT = true>
+cudaError_t launch_attn(const float* y, const float* colmask, const float* rel_pos,
+                        const int* ext, const float* tsw, const void* bias, float* attn, int B,
+                        int n, int H, int dqk, int dv, float inv_n, int max_bucket,
+                        cudaStream_t stream) {
+  const size_t smem = attn_smem_bytes(n, dqk, dv);
+  cudaError_t err = allow_smem(hstu_attn_kernel<T, float, BIAS, ACT>, smem);
+  if (err != cudaSuccess) return err;
+  hstu_attn_kernel<T, float, BIAS, ACT><<<dim3(H, B), kThreads, smem, stream>>>(
+      y, colmask, rel_pos, ext, tsw, attn, n, H, dqk, dv, inv_n, max_bucket,
+      static_cast<const T*>(bias));
+  return cudaGetLastError();
+}
+
+// Launch 2, softmax attention.
+template <typename T, int BIAS>
+cudaError_t launch_softmax(const float* y, const float* colmask, const float* rel_pos,
+                           const int* ext, const float* tsw, const void* bias, float* attn,
+                           int B, int n, int H, int dqk, int dv, float inv_sqrt_dqk,
+                           int max_bucket, cudaStream_t stream) {
+  const size_t smem = softmax_smem_bytes(n, H, dqk, dv);
+  cudaError_t err = allow_smem(hstu_softmax_attn_kernel<T, BIAS>, smem);
+  if (err != cudaSuccess) return err;
+  hstu_softmax_attn_kernel<T, BIAS><<<dim3((n + kSmRows - 1) / kSmRows, B), kThreads, smem,
+                                      stream>>>(
+      y, colmask, rel_pos, ext, tsw, static_cast<const T*>(bias), attn, n, H, dqk, dv,
+      inv_sqrt_dqk, max_bucket);
+  return cudaGetLastError();
+}
+
+// The block's three launches with the internal bias, SiLU and u * LN(attn)
+// (K4's forward); attn (B*n, H*dv) f32 is left in device memory, where the
+// train block's backward reads it.
 template <typename T>
 cudaError_t launch(const void* x, const float* colmask, const void* uvqk, const void* o_kernel,
                    const float* o_bias, const float* rel_pos, const int* ext, const float* tsw,
@@ -249,20 +518,16 @@ cudaError_t launch(const void* x, const float* colmask, const void* uvqk, const 
   const int F = 2 * H * dv + 2 * H * dqk;
   const int M = B * n;
   cudaError_t err;
-  ln_gemm_kernel<T, kProj><<<dim3((F + BN - 1) / BN, (M + BM - 1) / BM), kThreads, 0, stream>>>(
-      x, nullptr, 0, static_cast<const T*>(uvqk), nullptr, nullptr, y, M, F, D, eps, Dropout{});
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  const size_t smem = attn_smem_bytes(n, dqk, dv);
-  if ((err = allow_smem(hstu_attn_kernel<T, float>, smem)) != cudaSuccess) return err;
-  hstu_attn_kernel<T, float><<<dim3(H, B), kThreads, smem, stream>>>(
-      y, colmask, rel_pos, ext, tsw, attn, n, H, dqk, dv, inv_n, max_bucket);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  ln_gemm_kernel<T, kOut><<<dim3((D + BN - 1) / BN, (M + BM - 1) / BM), kThreads, 0, stream>>>(
-      attn, y, F, static_cast<const T*>(o_kernel), o_bias, static_cast<const T*>(x), out, M, D,
-      H * dv, eps, dp);
-  return cudaGetLastError();
+  if ((err = launch_proj<T, kGemmPlain>(x, uvqk, y, M, F, D, eps, stream)) != cudaSuccess) {
+    return err;
+  }
+  if ((err = launch_attn<T, kBiasInternal>(y, colmask, rel_pos, ext, tsw, nullptr, attn, B, n,
+                                           H, dqk, dv, inv_n, max_bucket, stream)) !=
+      cudaSuccess) {
+    return err;
+  }
+  return launch_out<T, kGemmPlain>(attn, H * dv, H * dv, 1.f, y, F, o_kernel, o_bias, x, out,
+                                   M, D, eps, dp, stream);
 }
 
 }  // namespace

@@ -266,7 +266,7 @@ cudaError_t train_bwd(const T* y, const T* d_o, float* attn, bool recompute,
     const size_t smem = attn_smem_bytes(n, dqk, dv);
     if ((err = allow_smem(hstu_attn_kernel<T, T>, smem)) != cudaSuccess) return err;
     hstu_attn_kernel<T, T><<<dim3(H, B), kThreads, smem, s>>>(
-        y, colmask, rel_pos, ext, tsw, attn, n, H, dqk, dv, inv_n, max_bucket);
+        y, colmask, rel_pos, ext, tsw, attn, n, H, dqk, dv, inv_n, max_bucket, nullptr);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   attn_row_bwd_kernel<T><<<static_cast<unsigned>((M + kWarps - 1) / kWarps), kThreads, 0, s>>>(

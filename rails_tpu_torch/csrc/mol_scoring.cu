@@ -43,164 +43,10 @@
 // a tile is staged, so the kernel is bound by FP32 FMA issue on the CUDA cores;
 // the tensor cores are unused (later work). int8 halves the table bytes and
 // moves no FMA, so it runs at bf16's speed.
-#include <cmath>
-#include <cstdint>
-
-#include "common.cuh"
+#include "mol_scoring.cuh"
 
 namespace rails {
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTileX = 32;            // items per block, one per lane
-constexpr int kQueriesPerBlock = 32;  // each warp scores kQueriesPerBlock / kWarps queries
-constexpr int kTileCols = 256;        // K10's corpus tile, and emit_blockmax's
-constexpr int kBlocksPerTile = kTileCols / kTileX;
-constexpr float kMasked = -1.0e30f;   // score of a column with valid[x] == 0
-
-template <typename S, int PQ, int PX>
-size_t smem_bytes(int dP, int Hd) {
-  constexpr int L = PQ * PX;
-  constexpr int kScales = TableTraits<S>::kQuant ? PX * kTileX : 0;
-  return (2 * static_cast<size_t>(Hd) * L + Hd + L + static_cast<size_t>(kWarps) * PQ * dP +
-          L * kTileX + kScales) * sizeof(float) +
-         static_cast<size_t>(PX) * dP * kTileX * sizeof(S);
-}
-
-template <typename S, int PQ, int PX>
-__global__ void __launch_bounds__(kThreads)
-mol_scores_kernel(const typename TableTraits<S>::Round* __restrict__ q,
-                  const float* __restrict__ qp, const S* __restrict__ items,
-                  const S* __restrict__ ip, const float* __restrict__ cs,
-                  const float* __restrict__ ps, const float* __restrict__ w1t,
-                  const float* __restrict__ b1, const float* __restrict__ w2,
-                  const float* __restrict__ b2, const float* __restrict__ valid,
-                  float* __restrict__ out, float* __restrict__ tile_max,
-                  const int* __restrict__ tile_ids, int B, int Xp, int Xo, int dP, int Hd,
-                  float inv_t) {
-  using Q = typename TableTraits<S>::Round;
-  constexpr bool kQuant = TableTraits<S>::kQuant;
-  constexpr int L = PQ * PX;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* w1s = reinterpret_cast<float*>(smem_raw);  // [Hd][L]  W1 transposed
-  float* w2s = w1s + Hd * L;                        // [Hd][L]
-  float* b1s = w2s + Hd * L;                        // [Hd]
-  float* b2s = b1s + Hd;                            // [L]
-  float* qs = b2s + L;                              // [kWarps][PQ * dP]
-  float* ips = qs + kWarps * PQ * dP;               // [L][kTileX] item gating partials
-  float* css = ips + L * kTileX;                    // [PX][kTileX] int8 scales
-  S* its = reinterpret_cast<S*>(css + (kQuant ? PX * kTileX : 0));  // [PX * dP][kTileX]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  // K2 (tile_ids == nullptr): corpus block blockIdx.x, written in place.
-  // K10: corpus tile tile_ids[blockIdx.x / 8], written at output block blockIdx.x.
-  int x0 = blockIdx.x * kTileX;
-  const int xo = blockIdx.x * kTileX + lane;
-  if (tile_ids != nullptr) {
-    const int t = tile_ids[blockIdx.x / kBlocksPerTile];
-    if (t < 0 || t >= Xp / kTileCols) {  // block-uniform
-      for (int e = tid; e < kQueriesPerBlock * kTileX; e += kThreads) {
-        const int b = blockIdx.y * kQueriesPerBlock + e / kTileX;
-        if (b < B) out[static_cast<int64_t>(b) * Xo + blockIdx.x * kTileX + e % kTileX] = NAN;
-      }
-      return;
-    }
-    x0 = t * kTileCols + (blockIdx.x % kBlocksPerTile) * kTileX;
-  }
-  const int x = x0 + lane;
-  for (int e = tid; e < Hd * L; e += kThreads) {
-    w1s[e] = w1t[e];
-    w2s[e] = w2[e];
-  }
-  for (int e = tid; e < Hd; e += kThreads) b1s[e] = b1[e];
-  for (int e = tid; e < L; e += kThreads) b2s[e] = b2[e];
-  for (int e = tid; e < PX * dP * kTileX; e += kThreads) {
-    const int r = e / kTileX, c = e % kTileX;
-    its[e] = items[static_cast<int64_t>(r) * Xp + x0 + c];
-  }
-  if constexpr (kQuant) {
-    for (int e = tid; e < PX * kTileX; e += kThreads) {
-      css[e] = cs[static_cast<int64_t>(e / kTileX) * Xp + x0 + e % kTileX];
-    }
-  }
-  for (int e = tid; e < L * kTileX; e += kThreads) {
-    const int c = e % kTileX;
-    const float v = to_f<S>(ip[static_cast<int64_t>(e / kTileX) * Xp + x0 + c]);
-    ips[e] = kQuant ? v * ps[x0 + c] : v;
-  }
-  __syncthreads();
-  float csv[PX];
-#pragma unroll
-  for (int m = 0; m < PX; ++m) csv[m] = kQuant ? css[m * kTileX + lane] : 1.f;
-
-  float* qw = qs + warp * PQ * dP;
-  for (int qi = warp; qi < kQueriesPerBlock; qi += kWarps) {
-    const int b = blockIdx.y * kQueriesPerBlock + qi;
-    if (b >= B) break;  // warp-uniform
-    for (int e = lane; e < PQ * dP; e += 32) qw[e] = to_f<Q>(q[static_cast<int64_t>(b) * PQ * dP + e]);
-    __syncwarp();
-
-    float lg[L];
-#pragma unroll
-    for (int l = 0; l < L; ++l) lg[l] = 0.f;
-    for (int k = 0; k < dP; ++k) {
-      float iv[PX];
-#pragma unroll
-      for (int m = 0; m < PX; ++m) iv[m] = to_f<S>(its[(m * dP + k) * kTileX + lane]);
-#pragma unroll
-      for (int nq = 0; nq < PQ; ++nq) {
-        const float qv = qw[nq * dP + k];
-#pragma unroll
-        for (int m = 0; m < PX; ++m) lg[nq * PX + m] = fmaf(qv, iv[m], lg[nq * PX + m]);
-      }
-    }
-    float mi[L], acc[L];
-#pragma unroll
-    for (int l = 0; l < L; ++l) {
-      if constexpr (kQuant) lg[l] *= csv[l % PX];
-      lg[l] *= inv_t;
-      mi[l] = round_to<Q>(lg[l]);
-      acc[l] = 0.f;
-    }
-    for (int j = 0; j < Hd; ++j) {
-      const float* w1r = w1s + j * L;
-      float h = 0.f;
-#pragma unroll
-      for (int l = 0; l < L; ++l) h = fmaf(w1r[l], mi[l], h);
-      h = round_to<Q>(silu(h + b1s[j]));
-      const float* w2r = w2s + j * L;
-#pragma unroll
-      for (int l = 0; l < L; ++l) acc[l] = fmaf(w2r[l], h, acc[l]);
-    }
-    const float* qpb = qp + static_cast<int64_t>(b) * L;
-    float gmax = -INFINITY;
-#pragma unroll
-    for (int l = 0; l < L; ++l) {
-      const float gi = fmaf(qpb[l], ips[l * kTileX + lane], acc[l] + b2s[l]);
-      acc[l] = silu(gi);
-      gmax = fmaxf(gmax, acc[l]);
-    }
-    float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-    for (int l = 0; l < L; ++l) {
-      const float e = expf(acc[l] - gmax);
-      s1 = fmaf(e, lg[l], s1);
-      s0 += e;
-    }
-    float v = s1 / s0;
-    if (tile_max != nullptr) {  // emit_blockmax: grid-uniform
-      if (valid[x] == 0.f) v = kMasked;
-      const float bmax = warp_max(v);
-      if (lane == 0) {
-        atomic_max_float(tile_max + static_cast<int64_t>(b) * (Xp / kTileCols) + x0 / kTileCols,
-                         bmax);
-      }
-    }
-    out[static_cast<int64_t>(b) * Xo + xo] = v;
-    __syncwarp();
-  }
-}
 
 // nt < 0: K2 over all Xp columns; nt >= 0: K10 over the nt tiles of tile_ids.
 template <typename S, int PQ, int PX>

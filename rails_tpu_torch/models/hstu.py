@@ -1,26 +1,33 @@
 """HSTU encoder: eval through K1 or the XLA block path, training through K4 (+ K3).
 
 Counterpart of `rails_tpu/models/hstu.py`: `_bucketize_time_delta` (:30-36),
-`StackedRelativeBias` with its (L, B, N, N) bias (:103-128), `pos_tables(n)`
-(:130-138) and `ts_tables128` (:140-150), `HSTUBlock` with its eval forward
-(:183-299, SiLU, `rel_bias`/`hstu_rel_bias`, no `concat_ua`), and
-`HSTUStack.__call__`: the `fused_train` path (:414-465), the fused eval path
-(:466-523) in internal-bias mode, and the XLA eval path (:524-535), each
-ending with `x * valid`.
+`StackedRelativeBias` with its (L, B, N, N) bias and optional mask penalty
+(:103-128), `pos_tables(n)` (:130-138) and `ts_tables128` (:140-150),
+`HSTUBlock` with its eval and training forward (:175-299: SiLU or no
+activation, `rel_bias`/`hstu_rel_bias` or `softmax_rel_bias`, `concat_ua`,
+with or without the relative-attention bias), and `HSTUStack.__call__`: the
+`fused_train` path (:414-465), the fused eval path (:466-523) and the XLA
+eval path (:524-535), each ending with `x * valid`.
 
 Eval dispatches on `HSTUConfig.fused_inference` as JAX does: True runs
-`ops.hstu_block.fused_hstu_block` (K1), False the XLA block path in plain
-torch (JAX runs it in XLA, not Pallas). The XLA path buckets time deltas with
-log(.)/0.301 clipped to `num_buckets`, casts the bias to the compute dtype,
-and rounds to the compute dtype wherever JAX's einsums ask for
-`preferred_element_type=self.dtype`; its LayerNorm and SiLU run in that dtype.
-Training dispatches on `HSTUConfig.fused_train`: True runs
-`ops.hstu_block_train.fused_train_block` (K4) in f32 or bf16; False (ML-1M,
-Amazon Books) the XLA block path with autograd through plain torch, with
-flax's attention dropout (after the mask) and o_input dropout drawn from the
-caller's `torch.Generator` (checked by rate and scale: flax's PRNG bits
-cannot be matched). The fused path with attention dropout and the block
-variants the ported configs do not use raise NotImplementedError.
+`ops.hstu_block.fused_hstu_block` (K1) in the mode JAX picks
+(`block_operands`): the bias built in-kernel for int32 timestamps; otherwise
+a precomputed (L, B, N, N) bias in the compute dtype, raw under softmax (the
+kernel masks after normalisation) and with the -30000 mask penalty folded in
+for pointwise attention; no bias without `enable_relative_attention_bias`.
+False runs the XLA block path in plain torch (JAX runs it in XLA, not
+Pallas). The XLA path buckets time deltas with log(.)/0.301 clipped to
+`num_buckets`, casts the bias to the compute dtype, and rounds to the compute
+dtype wherever JAX's einsums ask for `preferred_element_type=self.dtype`; its
+LayerNorm, SiLU and softmax run in that dtype. Training dispatches on
+`HSTUConfig.fused_train`: True runs `ops.hstu_block_train.fused_train_block`
+(K4) in f32 or bf16 for int32 timestamps (other timestamps take the XLA path,
+as in JAX); False (ML-1M, Amazon Books) the XLA block path with autograd
+through plain torch, with flax's attention dropout (after the mask) and
+o_input dropout drawn from the caller's `torch.Generator` (checked by rate
+and scale: flax's PRNG bits cannot be matched). The fused path with attention
+dropout or a block variant (no activation, softmax, concat_ua, no bias)
+raises NotImplementedError naming `K4 variants`.
 """
 
 from __future__ import annotations
@@ -81,9 +88,11 @@ class StackedRelativeBias(nn.Module):
             tbl = nn.functional.pad(tbl, (0, 128 - tbl.shape[1]))
         return tbl[:, :128].contiguous()
 
-    def forward(self, timestamps: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, timestamps: torch.Tensor, dtype: torch.dtype,
+                penalty: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(L, B, N, N) rel-pos + bucketed time bias of the XLA block path,
-        summed in f32 and cast to `dtype`."""
+        summed in f32 and cast to `dtype`; an additive (B, N, N) `penalty`
+        (the fused path's mask) is added in f32 before the cast."""
         n = timestamps.shape[1]
         i = torch.arange(n, device=timestamps.device)[:, None]
         j = torch.arange(n, device=timestamps.device)[None, :]
@@ -92,101 +101,134 @@ class StackedRelativeBias(nn.Module):
         delta = ext[:, 1:, None] - ext[:, None, :-1]                        # (B, N, N)
         buckets = bucketize_time_delta(delta, self.num_buckets)
         rel_ts = self.ts_w.T[buckets.long()]                                # (B, N, N, L)
-        return (rel_pos[:, None] + rel_ts.movedim(-1, 0)).to(dtype)
+        bias = rel_pos[:, None] + rel_ts.movedim(-1, 0)
+        if penalty is not None:
+            bias = bias + penalty[None].to(bias.dtype)
+        return bias.to(dtype)
 
 
 class HSTUBlock(nn.Module):
     """Parameters of one block: uvqk (D, 2h*dv + 2h*dqk), o_kernel (h*dv, D),
-    o_bias (D,), in the flax layout the kernel reads."""
+    or (3*h*dv, D) with `concat_ua`, and o_bias (D,), in the flax layout the
+    kernel reads."""
 
     def __init__(self, cfg: HSTUConfig, max_seq_len: int, generator: torch.Generator):
         super().__init__()
         self.cfg = cfg
         self.max_seq_len = max_seq_len
         h, d = cfg.num_heads, cfg.embedding_dim
+        o_in = h * cfg.dv * (3 if cfg.concat_ua else 1)
         self.uvqk = nn.Parameter(normal((d, 2 * h * cfg.dv + 2 * h * cfg.dqk), 0.02, generator))
-        self.o_kernel = nn.Parameter(xavier_uniform((h * cfg.dv, d), generator))
+        self.o_kernel = nn.Parameter(xavier_uniform((o_in, d), generator))
         self.o_bias = nn.Parameter(torch.zeros(d))
 
-    def forward(self, x: torch.Tensor, attn_mask: torch.Tensor, rel_bias: torch.Tensor,
-                train: bool = False, generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
-        """The XLA block (`HSTUBlock.__call__`, pointwise SiLU attention) in
-        x's dtype: x (B, N, D), attn_mask (B, N, N) f32 causal x column-valid,
-        rel_bias (B, N, N). With `train`, the attention weights (after the
-        mask) and o_input drop at their configured rates."""
+    def forward(self, x: torch.Tensor, attn_mask: torch.Tensor,
+                rel_bias: Optional[torch.Tensor], train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The XLA block (`HSTUBlock.__call__`) in x's dtype: x (B, N, D),
+        attn_mask (B, N, N) f32 causal x column-valid, rel_bias (B, N, N) or
+        None. With `train`, the attention weights (after the mask) and
+        o_input drop at their configured rates."""
         c = self.cfg
         b, n, _ = x.shape
         h, dqk, dv = c.num_heads, c.dqk, c.dv
         dt = x.dtype
         y = _ln_in_dtype(x, c.epsilon) @ self.uvqk.to(dt)
-        y = y * torch.sigmoid(y)
+        if c.linear_activation == "silu":
+            y = y * torch.sigmoid(y)
+        elif c.linear_activation != "none":
+            raise ValueError(f"Unknown linear_activation {c.linear_activation!r}")
         u, v, q, k = torch.split(y, [h * dv, h * dv, h * dqk, h * dqk], dim=-1)
-        qk = torch.einsum("bnhd,bmhd->bhnm", q.reshape(b, n, h, dqk), k.reshape(b, n, h, dqk))
-        qk = qk + rel_bias[:, None]
-        attn = qk * torch.sigmoid(qk) * (1.0 / self.max_seq_len)
-        attn = attn * attn_mask[:, None].to(dt)
-        if train:
-            attn = dropout(attn, c.attn_dropout_rate, generator)
-        attn_out = torch.einsum("bhnm,bmhd->bnhd", attn, v.reshape(b, n, h, dv))
-        o_input = u * _ln_in_dtype(attn_out.reshape(b, n, h * dv), c.epsilon)
+        if c.normalization == "softmax_rel_bias":
+            # One map over the full h*dqk contraction shared by every value
+            # head, scaled by sqrt(dqk) and masked after normalisation.
+            s = q @ k.transpose(1, 2)
+            if rel_bias is not None:
+                s = s + rel_bias
+            attn = torch.softmax(s / torch.tensor(float(dqk) ** 0.5).to(dt), dim=-1)
+            attn = attn * attn_mask.to(dt)
+            if train:
+                attn = dropout(attn, c.attn_dropout_rate, generator)
+            attn_out = attn @ v
+        elif c.normalization in ("rel_bias", "hstu_rel_bias"):
+            qk = torch.einsum("bnhd,bmhd->bhnm", q.reshape(b, n, h, dqk),
+                              k.reshape(b, n, h, dqk))
+            if rel_bias is not None:
+                qk = qk + rel_bias[:, None]
+            attn = qk * torch.sigmoid(qk) * (1.0 / self.max_seq_len)
+            attn = attn * attn_mask[:, None].to(dt)
+            if train:
+                attn = dropout(attn, c.attn_dropout_rate, generator)
+            attn_out = torch.einsum("bhnm,bmhd->bnhd", attn,
+                                    v.reshape(b, n, h, dv)).reshape(b, n, h * dv)
+        else:
+            raise ValueError(f"Unknown normalization {c.normalization!r}")
+        a = _ln_in_dtype(attn_out, c.epsilon)
+        o_input = torch.cat([u, a, u * a], dim=-1) if c.concat_ua else u * a
         if train:
             o_input = dropout(o_input, c.linear_dropout_rate, generator)
         return (o_input @ self.o_kernel.to(dt) + self.o_bias.to(dt)) + x
 
 
 class HSTUStack(nn.Module):
-    """Stack of HSTU blocks, eval (`HSTUJagged`)."""
+    """Stack of HSTU blocks (`HSTUJagged`)."""
 
     def __init__(self, cfg: HSTUConfig, max_seq_len: int, compute_dtype: torch.dtype,
                  generator: torch.Generator):
         super().__init__()
-        if not cfg.enable_relative_attention_bias:
-            raise NotImplementedError(
-                "HSTU without relative attention bias needs the no-bias K1 variant "
-                "(ROADMAP.md, Queue 1: K1 variants)"
-            )
-        if cfg.concat_ua or cfg.linear_activation != "silu" or cfg.normalization not in (
-            "rel_bias", "hstu_rel_bias"
-        ):
-            raise NotImplementedError(
-                f"HSTU concat_ua={cfg.concat_ua}, linear_activation="
-                f"{cfg.linear_activation!r}, normalization={cfg.normalization!r}: "
-                "only the SiLU rel_bias block is ported (ROADMAP.md, Queue 1: K1 variants)"
-            )
         self.cfg = cfg
         self.max_seq_len = max_seq_len
         self.compute_dtype = compute_dtype
-        self.rel_attn_bias = StackedRelativeBias(
-            cfg.num_blocks, max_seq_len, cfg.num_time_buckets, generator
+        # No `rel_attn_bias` entry at all without the bias, as in the flax tree.
+        self.rel_attn_bias = (
+            StackedRelativeBias(cfg.num_blocks, max_seq_len, cfg.num_time_buckets, generator)
+            if cfg.enable_relative_attention_bias else None
         )
         for i in range(cfg.num_blocks):
             self.add_module(f"block_{i}", HSTUBlock(cfg, max_seq_len, generator))
 
+    def _internal_bias(self, timestamps: Optional[torch.Tensor]) -> bool:
+        """Whether the kernels build the bias themselves (int32 timestamps)."""
+        return (self.rel_attn_bias is not None and timestamps is not None
+                and timestamps.dtype == torch.int32)
+
     def block_operands(
-        self, valid: torch.Tensor, timestamps: torch.Tensor
+        self, valid: torch.Tensor, timestamps: Optional[torch.Tensor]
     ) -> Iterator[dict]:
         """Keyword arguments of `fused_hstu_block` (all but x) for each block,
-        in order: weights in the compute dtype, this batch's column mask,
-        extended timestamps and the layer's bias tables."""
-        if timestamps.dtype != torch.int32:
-            raise ValueError("the in-kernel time bias needs int32 timestamps")
+        in order: weights in the compute dtype, this batch's column mask and
+        the bias in JAX's mode (`rails_tpu/models/hstu.py:466-523`): the
+        extended timestamps and the layer's bias tables for int32 timestamps;
+        else the layer's precomputed bias in the compute dtype, raw under
+        softmax and with the -30000 mask penalty folded in otherwise; no bias
+        without `enable_relative_attention_bias` or timestamps."""
         c, dt = self.cfg, self.compute_dtype
-        n = timestamps.shape[1]
+        n = valid.shape[1]
+        softmax = c.normalization == "softmax_rel_bias"
         colmask = valid.float().contiguous()
-        ext = torch.cat([timestamps, timestamps[:, n - 1 : n]], dim=1).contiguous()
-        pos_all = self.rel_attn_bias.pos_tables(n)
-        tsw_all = self.rel_attn_bias.ts_tables128()
-        for i in range(c.num_blocks):
+        per_layer = [{} for _ in range(c.num_blocks)]
+        if self._internal_bias(timestamps):
+            ext = torch.cat([timestamps, timestamps[:, n - 1 : n]], dim=1).contiguous()
+            pos_all = self.rel_attn_bias.pos_tables(n)
+            tsw_all = self.rel_attn_bias.ts_tables128()
+            for i, kw in enumerate(per_layer):
+                kw.update(rel_pos=pos_all[i], ext=ext, tsw=tsw_all[i])
+        elif self.rel_attn_bias is not None and timestamps is not None:
+            penalty = None
+            if not softmax:
+                causal = torch.tril(torch.ones(n, n, dtype=torch.float32, device=valid.device))
+                penalty = (causal[None] * colmask[:, None, :] - 1.0) * 30000.0
+            bias_all = self.rel_attn_bias(timestamps, dt, penalty)
+            for i, kw in enumerate(per_layer):
+                kw.update(bias=bias_all[i].contiguous(), mask_in_bias=not softmax)
+        for i, kw in enumerate(per_layer):
             blk = getattr(self, f"block_{i}")
             yield dict(
+                kw,
                 colmask=colmask,
                 uvqk=blk.uvqk.to(dt).contiguous(),
                 o_kernel=blk.o_kernel.to(dt).contiguous(),
                 o_bias=blk.o_bias.float().contiguous(),
-                rel_pos=pos_all[i],
-                ext=ext,
-                tsw=tsw_all[i],
                 num_heads=c.num_heads,
                 dqk=c.dqk,
                 dv=c.dv,
@@ -195,38 +237,52 @@ class HSTUStack(nn.Module):
                 inv_n=1.0 / self.max_seq_len,
                 eps=c.epsilon,
                 num_buckets=c.num_time_buckets,
+                activation=c.linear_activation,
+                normalization=c.normalization,
             )
 
     def forward(
-        self, x: torch.Tensor, valid: torch.Tensor, timestamps: torch.Tensor,
+        self, x: torch.Tensor, valid: torch.Tensor, timestamps: Optional[torch.Tensor],
         train: bool = False, seed0: Optional[int] = None,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """Eval through K1 (`fused_inference`) or the XLA block path. Training
-        with `fused_train` runs K4: block i drops its o_input with the hash
-        stream of seed seed0 + i * 1013904223 (int32), which the caller draws
-        (0 when no dropout is on); without it, the XLA block path, whose
+        with `fused_train` runs K4 when the bias can be built in-kernel
+        (int32 timestamps, or no bias): block i drops its o_input with the
+        hash stream of seed seed0 + i * 1013904223 (int32), which the caller
+        draws (0 when no dropout is on); otherwise the XLA block path, whose
         dropouts draw from `generator`."""
-        if train and self.cfg.fused_train:
+        fused_train_ok = self.rel_attn_bias is None or self._internal_bias(timestamps)
+        if train and self.cfg.fused_train and fused_train_ok:
             return self._fused_train_forward(x, valid, timestamps, 0 if seed0 is None else seed0)
         if self.cfg.fused_inference and not train:
             for kw in self.block_operands(valid, timestamps):
                 x = fused_hstu_block(x, **kw)
             return x * valid[..., None].to(x.dtype)
         n = x.shape[1]
-        bias_all = self.rel_attn_bias(timestamps, x.dtype)
+        bias_all = (None if self.rel_attn_bias is None or timestamps is None
+                    else self.rel_attn_bias(timestamps, x.dtype))
         causal = torch.tril(torch.ones(n, n, dtype=torch.float32, device=x.device))
         attn_mask = causal[None] * valid[:, None, :].float()
         for i in range(self.cfg.num_blocks):
-            x = getattr(self, f"block_{i}")(x, attn_mask, bias_all[i], train, generator)
+            x = getattr(self, f"block_{i}")(x, attn_mask, None if bias_all is None else bias_all[i],
+                                            train, generator)
         return x * valid[..., None].to(x.dtype)
 
     def _fused_train_forward(self, x, valid, timestamps, seed0: int) -> torch.Tensor:
         c = self.cfg
-        if c.attn_dropout_rate > 0.0:
+        flags = [f"{k}={v}" for k, v, ported in (
+            ("attn_dropout_rate", c.attn_dropout_rate, c.attn_dropout_rate == 0.0),
+            ("linear_activation", c.linear_activation, c.linear_activation == "silu"),
+            ("normalization", c.normalization, c.normalization != "softmax_rel_bias"),
+            ("concat_ua", c.concat_ua, not c.concat_ua),
+            ("enable_relative_attention_bias", False, self.rel_attn_bias is not None),
+        ) if not ported]
+        if flags:
             raise NotImplementedError(
-                f"HSTU training with attn_dropout_rate={c.attn_dropout_rate}: only the train "
-                "block without attention dropout is ported (ROADMAP.md, Queue 1: K4 variants)"
+                f"HSTU training with fused_train and {', '.join(flags)}: only the train block "
+                "with SiLU, rel_bias, the relative-attention bias and no attention dropout is "
+                "ported (ROADMAP.md, Queue 1: K4 variants)"
             )
         meta = BlockMeta(c.num_heads, c.dqk, c.dv, 1.0 / self.max_seq_len, c.epsilon,
                          c.num_time_buckets, c.linear_dropout_rate)

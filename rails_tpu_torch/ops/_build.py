@@ -109,12 +109,18 @@ def load_library() -> ctypes.CDLL:
     stream pass as `c_void_p`; every entry point returns a cudaError_t."""
     lib = ctypes.CDLL(str(build()))
     p, i, f, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
-    lib.rails_hstu_block_fwd.argtypes = (
-        [i] + [p] * 11 + [i] * 6 + [f, f, i, p]
-    )
+    lib.rails_hstu_block_fwd.argtypes = [i] + [p] * 12 + [i] * 6 + [f] * 3 + [i] * 5 + [p]
     lib.rails_hstu_block_fwd.restype = i
     lib.rails_hstu_attn_smem_bytes.argtypes = [i, i, i]
     lib.rails_hstu_attn_smem_bytes.restype = ctypes.c_size_t
+    lib.rails_encode_probe.argtypes = [i, i] + [p] * 11 + [i] * 6 + [f, f, i, p]
+    lib.rails_encode_probe.restype = i
+    lib.rails_mol_probe.argtypes = [i] + [p] * 9 + [i] * 4 + [f, p]
+    lib.rails_mol_probe.restype = i
+    lib.rails_mol_probe_smem_bytes.argtypes = [i, i]
+    lib.rails_mol_probe_smem_bytes.restype = ctypes.c_size_t
+    lib.rails_hstu_softmax_smem_bytes.argtypes = [i] * 4
+    lib.rails_hstu_softmax_smem_bytes.restype = ctypes.c_size_t
     lib.rails_mol_scores.argtypes = [i, i, i] + [p] * 13 + [i] * 4 + [f, p]
     lib.rails_mol_scores.restype = i
     lib.rails_mol_scores_smem_bytes.argtypes = [i] * 5

@@ -38,8 +38,8 @@ kernel or raise; on the CPU, `FusedTrainBlock` runs the plain forward and the
 plain attention backward inside the same glue. `.launches` counts kernel
 launches of each wrapper, and `.bf16_launches` those of its bf16 instance as
 well. The other variants of the TPU kernel (attention dropout, `concat_ua`,
-`softmax_rel_bias`, no bias, no activation) raise NotImplementedError in
-`models.hstu.HSTUStack`.
+`softmax_rel_bias`, no bias, no activation) raise NotImplementedError naming
+`K4 variants` in `models.hstu.HSTUStack`.
 """
 
 from __future__ import annotations
@@ -257,7 +257,7 @@ def attn_backward(
     if dqk > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
         raise NotImplementedError(
             f"the train block's backward kernel takes head dims <= {MAX_HEAD_DIM}; got "
-            f"dqk={dqk}, dv={dv} (ROADMAP.md, Queue 1: K1 variants)"
+            f"dqk={dqk}, dv={dv} (ROADMAP.md, Queue 1: K4 variants)"
         )
     f32, mm = torch.float32, y.dtype
     expect = {

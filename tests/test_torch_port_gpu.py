@@ -16,10 +16,12 @@ from rails_tpu_torch.core.config import get_experiment_config
 from rails_tpu_torch.data.datasets import SequenceDataset, generate_synthetic_sequences
 from rails_tpu_torch.models.encoder import SequentialRecommender
 from rails_tpu_torch.ops import (
+    encode_probe,
     hash_dropout,
     hstu_block,
     hstu_block_train,
     mol_loss_train,
+    mol_probe,
     mol_scoring,
     scatter_add,
 )
@@ -74,6 +76,98 @@ def test_k1_kernel_matches_plain(cuda, shape, dtype):
     assert hstu_block.fused_hstu_block.launches == before + 1
     want = hstu_block.fused_hstu_block_reference(**args, **kw)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+# K1's variants: (bias mode, activation, normalization, concat_ua).
+K1_VARIANTS = [
+    ("internal", "none", "rel_bias", True),
+    ("internal", "silu", "softmax_rel_bias", False),
+    ("internal", "silu", "softmax_rel_bias", True),
+    ("penalty", "silu", "rel_bias", False),
+    ("penalty", "none", "rel_bias", True),
+    ("raw", "silu", "softmax_rel_bias", False),
+    ("raw", "silu", "rel_bias", True),
+    ("none", "silu", "rel_bias", False),
+    ("none", "none", "softmax_rel_bias", True),
+]
+
+
+def _k1_variant_args(shape, variant, dtype, device):
+    """K1's operands for a variant: the in-kernel bias tables, or the same
+    bias precomputed in x's dtype (with the -30000 penalty for `penalty`),
+    or none; a (3*h*dv, D) output projection for concat_ua."""
+    mode, activation, normalization, concat_ua = variant
+    b, n, d, h, dqk, dv, max_seq_len = shape
+    args, kw = _k1_args(*shape, dtype, torch.device("cpu"))
+    if concat_ua:
+        g = torch.Generator().manual_seed(5)
+        args["o_kernel"] = (torch.randn(3 * h * dv, d, generator=g) / (h * dv) ** 0.5).to(dtype)
+    rel_pos, ext, tsw = (args.pop(k) for k in ("rel_pos", "ext", "tsw"))
+    if mode == "internal":
+        args.update(rel_pos=rel_pos, ext=ext, tsw=tsw)
+    elif mode in ("penalty", "raw"):
+        delta = ext[:, 1:, None] - ext[:, None, :n]
+        bias = rel_pos[None] + tsw[hstu_block.time_bucket(delta, 128).long()]
+        if mode == "penalty":
+            causal = torch.tril(torch.ones(n, n))
+            bias = bias + (causal[None] * args["colmask"][:, None, :] - 1.0) * 30000.0
+        args.update(bias=bias.to(dtype).contiguous(), mask_in_bias=mode == "penalty")
+    kw.update(activation=activation, normalization=normalization)
+    return {k: (v.to(device) if torch.is_tensor(v) else v) for k, v in args.items()}, kw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("variant", K1_VARIANTS, ids=lambda v: "-".join(str(x) for x in v))
+@pytest.mark.parametrize(
+    "shape", [(5, 35, 32, 2, 16, 16, 35), (3, 97, 64, 4, 16, 16, 211), (2, 211, 256, 8, 32, 32, 211)],
+    ids=["tiny", "ragged", "ml20m"],
+)
+def test_k1_variants_match_plain(cuda, shape, variant, dtype):
+    args, kw = _k1_variant_args(shape, variant, dtype, cuda)
+    before = hstu_block.fused_hstu_block.launches
+    got = hstu_block.fused_hstu_block(**args, **kw)
+    assert hstu_block.fused_hstu_block.launches == before + 1
+    want = hstu_block.fused_hstu_block_reference(**args, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("mode", encode_probe.MODES)
+@pytest.mark.parametrize("shape", [(3, 97, 64, 4, 16, 16, 97), (2, 192, 256, 8, 32, 32, 192)],
+                         ids=["ragged", "ml20m"])
+def test_encode_probe_matches_plain(cuda, shape, mode, dtype):
+    args, kw = _k1_args(*shape, dtype, cuda)
+    b, n, d, h, dqk, dv, _ = shape
+    g = torch.Generator().manual_seed(5)
+    args["o_kernel"] = (torch.randn(3 * h * dv, d, generator=g) / (h * dv) ** 0.5).to(dtype).to(cuda)
+    before = encode_probe.encode_probe_block.launches
+    got = encode_probe.encode_probe_block(mode, **args, **kw)
+    assert encode_probe.encode_probe_block.launches == before + 1
+    want = encode_probe.encode_probe_block_reference(mode, **args, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("mode", mol_probe.MODES)
+@pytest.mark.parametrize("shape", [(32, 512), (5, 96), (40, 2048)], ids=["probe", "odd", "two_blocks"])
+def test_mol_probe_matches_plain(cuda, shape, mode):
+    b, x = shape
+    g = torch.Generator().manual_seed(6)
+    l, hd = 32, 128
+    a = dict(q=0.1 * torch.randn(8, b, 128, generator=g), qp=0.1 * torch.randn(b, l, generator=g),
+             item=(0.1 * torch.randn(4, 128, x, generator=g)).bfloat16(),
+             ip=(0.1 * torch.randn(l, x, generator=g)).bfloat16(),
+             w1=0.1 * torch.randn(l, hd, generator=g), b1=0.1 * torch.randn(hd, generator=g),
+             w2=0.1 * torch.randn(hd, l, generator=g), b2=0.1 * torch.randn(l, generator=g))
+    ops = mol_probe.probe_operands(**{k: v.to(cuda) for k, v in a.items()})
+    before = mol_probe.mol_probe_scores.launches
+    got = mol_probe.mol_probe_scores(mode, *ops)
+    assert mol_probe.mol_probe_scores.launches == before + 1
+    want = mol_probe.mol_probe_scores_reference(mode, *ops)
+    # The test's P2 tolerance (`test_torch_port_probes.py`): the MLP rounds to
+    # bf16 at the same points on both sides, in other f32 orders; 2e-3 of
+    # the largest |score|, or per score where noexp's sum(e) cancels.
+    bound = mol_probe.mol_probe_error_bound(mode, *ops, tol=2e-3)
+    assert ((got - want).abs() <= bound).all(), ((got - want).abs() / bound).max().item()
 
 
 def _k2_args(b, x, p_q, p_x, d_p, hd, dtype, device, seed=0):

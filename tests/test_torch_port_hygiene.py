@@ -36,6 +36,8 @@ def test_port_imports_no_jax():
                   and sys.modules[m] is not None]
         assert not leaked, leaked
         assert "rails_tpu_torch.index.oracle" in mods, mods
+        for m in ("cli.encode_probe", "cli.mol_probe", "ops.encode_probe", "ops.mol_probe"):
+            assert "rails_tpu_torch." + m in mods, mods
         print(len(mods))
         """
     )
@@ -61,6 +63,31 @@ def test_frontier_cli_imports_nothing_of_the_jax_package():
             assert "ROADMAP.md" in str(e), e
         else:
             raise AssertionError("IVF did not raise")
+        leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "jaxlib", "rails_tpu")
+                  and sys.modules[m] is not None]
+        assert not leaked, leaked
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("cli", ["encode_probe", "mol_probe"])
+def test_probe_clis_import_nothing_of_the_jax_package(cli):
+    """The cost-probe CLIs run on the CPU, at tiny sizes, with jax, flax and
+    the JAX package blocked."""
+    args = {"encode_probe": ["--batch-size", "2", "--lengths", "8", "--num-blocks", "1",
+                             "--runs", "1", "--modes", "full,ident"],
+            "mol_probe": ["--num-items", "64", "--runs", "1", "--k", "8", "--modes", "full"]}[cli]
+    code = textwrap.dedent(
+        f"""
+        import sys
+        for name in ("jax", "flax", "rails_tpu"):
+            sys.modules[name] = None
+        from rails_tpu_torch.cli import {cli}
+        {cli}.main({args!r} + ["--device", "cpu"])
         leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "jaxlib", "rails_tpu")
                   and sys.modules[m] is not None]
         assert not leaked, leaked
@@ -153,7 +180,8 @@ def test_source_hash_covers_every_source(fresh_build):
     names = {p.name for p in fresh_build._sources()}
     assert {"hstu_block.cu", "mol_scoring.cu", "common.cuh", "hstu_block.cuh",
             "hstu_block_train.cu", "hash_dropout.cu", "hash_dropout.cuh",
-            "fused_adamw.cu", "mol_loss_train.cu", "scatter_add.cu"} <= names
+            "fused_adamw.cu", "mol_loss_train.cu", "scatter_add.cu", "encode_probe.cu",
+            "mol_probe.cu", "mol_scoring.cuh"} <= names
     assert len(fresh_build.source_hash()) == 16
 
 

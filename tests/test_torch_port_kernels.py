@@ -175,19 +175,29 @@ def test_dispatch_rule():
 
 @pytest.mark.parametrize("variant", ["activation", "normalization", "concat_ua"])
 def test_unported_k1_variants_raise(variant):
-    """The encoder refuses configurations of unported K1 variants; the
-    wrapper refuses a concat_ua-shaped output projection."""
+    """K1's variants are ported; what stays refused: the fused train block
+    (K4) with the variant's flag, and, in K1's wrapper, an output projection
+    of neither h*dv nor 3*h*dv rows and an unknown activation or
+    normalization."""
+    ops, kw = _k1_operands(np.zeros((1, 4), np.int64), np.array([3]), max_seq_len=4, seed=2)
+    args = {k: torch.from_numpy(v) for k, v in ops.items()}
     if variant == "concat_ua":
-        ops, kw = _k1_operands(np.zeros((1, 4), np.int64), np.array([3]), max_seq_len=4, seed=2)
-        args = {k: torch.from_numpy(v) for k, v in ops.items()}
-        args["o_kernel"] = torch.zeros(3 * args["o_kernel"].shape[0], args["o_kernel"].shape[1])
-        with pytest.raises(NotImplementedError, match="K1 variants"):
+        args["o_kernel"] = torch.zeros(2 * args["o_kernel"].shape[0], args["o_kernel"].shape[1])
+        with pytest.raises(ValueError, match="3\\*h\\*dv"):
             hstu_block.fused_hstu_block(**args, **kw)
-        return
-    hstu_cfg = get_experiment_config("synthetic-small").hstu
-    hstu_cfg = hstu_cfg.replace(
-        **({"linear_activation": "none"} if variant == "activation"
-           else {"normalization": "softmax_rel_bias"})
-    )
-    with pytest.raises(NotImplementedError, match="K1 variants"):
-        HSTUStack(hstu_cfg, 8, torch.float32, torch.Generator().manual_seed(0))
+        change = {"concat_ua": True}
+    elif variant == "activation":
+        with pytest.raises(ValueError, match="activation"):
+            hstu_block.fused_hstu_block(**args, **kw, activation="gelu")
+        change = {"linear_activation": "none"}
+    else:
+        with pytest.raises(ValueError, match="normalization"):
+            hstu_block.fused_hstu_block(**args, **kw, normalization="softmax")
+        change = {"normalization": "softmax_rel_bias"}
+    hstu_cfg = get_experiment_config("synthetic-small").hstu.replace(fused_train=True, **change)
+    stack = HSTUStack(hstu_cfg, 8, torch.float32, torch.Generator().manual_seed(0))
+    x = torch.zeros(1, 8, hstu_cfg.embedding_dim)
+    valid = torch.ones(1, 8, dtype=torch.bool)
+    ts = torch.arange(8, dtype=torch.int32)[None]
+    with pytest.raises(NotImplementedError, match="K4 variants"):
+        stack(x, valid, ts, train=True)
