@@ -108,6 +108,16 @@ K1's block variants and the cost probes:
      full vs K2 with the weights in K2's n-major order (K2's bf16 contract),
      per-mode kernel, plain and bound ms, and the CLI's timing of every mode
      and of the hierarchical select.
+K4's variants (the fused train block's flags):
+ 30. K4-var: each of K4_VAR_INSTANCES (concat_ua, activation none, softmax,
+     no bias, attention dropout 0.2, concat_ua + softmax + attention dropout,
+     h=4 with dqk=dv=64) at B=128, n=211, f32 and bf16, as 7: forward, every
+     gradient and the attention backward alone vs the plain versions;
+     kernel, plain and bound ms of both directions.
+ 31. train-var: ml-20m-hstu-mol with fused_train and each instance's flags,
+     f32 and bf16: step 1 kernels vs plain to 9's contract, then TRAIN_STEPS steps
+     (ms/step, peak memory, launch counts: K4 forward and backward and the
+     variant's own counters 16 per step).
 The line before the last is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script fails before printing
 any result.
@@ -121,6 +131,7 @@ import re
 import statistics
 import subprocess
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -208,6 +219,18 @@ K1_VAR_INSTANCES = {
     "no bias": ("none", "silu", "rel_bias", False),
     "concat_ua+softmax": ("internal", "silu", "softmax_rel_bias", True),
 }
+# K4's variant instances: the ml-20m-hstu-mol `hstu` fields each sets. `[K4-var]`
+# checks each instance's kernels, `[train-var]` trains with its flags.
+K4_VAR_INSTANCES = {
+    "concat_ua": dict(concat_ua=True),
+    "activation none": dict(linear_activation="none"),
+    "softmax": dict(normalization="softmax_rel_bias"),
+    "no bias": dict(enable_relative_attention_bias=False),
+    "attention dropout": dict(attn_dropout_rate=0.2),
+    "concat_ua+softmax+attention dropout": dict(
+        concat_ua=True, normalization="softmax_rel_bias", attn_dropout_rate=0.2),
+    "h=4, dqk=dv=64": dict(num_heads=4, dqk=64, dv=64),
+}
 # P1 (encode_probe): the probe's longest default length, the batch of an
 # extra kernel-vs-plain check at a second shape, and its --runs cut for the
 # script's time.
@@ -232,6 +255,7 @@ def ptxas_summary(log: str) -> str:
         if entry:
             mangled = entry.group(1)
             name = re.search(r"(ln_gemm_kernel|hstu_attn_bwd_kernel|hstu_attn_kernel|"
+                             r"softmax_bwd_rows_kernel|softmax_bwd_cols_kernel|"
                              r"hstu_softmax_attn_kernel|mol_probe_kernel|"
                              r"attn_row_bwd_kernel|mol_scores_kernel|hash_keep_mask_kernel|"
                              r"adamw_kernel|mol_loss_fwd_kernel|mol_loss_bwd_kernel|"
@@ -241,7 +265,7 @@ def ptxas_summary(log: str) -> str:
             # its bf16 query type puts "bfloat16" in the name too.
             dtype = ("int8" if re.search(r"kernelIaL", mangled) else
                      "bf16" if "bfloat16" in mangled else "f32")
-            args = [dtype] + re.findall(r"Li(\d+)E", mangled)
+            args = [dtype] + re.findall(r"L[ib](\d+)E", mangled)
             label = f"{name.group(1) if name else mangled}<{','.join(args)}>"
             spilled = "?"
         spill = re.search(r"(\d+) bytes spill stores", line)
@@ -514,13 +538,36 @@ def kernel_counters() -> dict:
     return counters
 
 
+def k4_wrappers() -> dict:
+    from rails_tpu_torch.ops import hstu_block_train
+
+    return {"K4 fwd": hstu_block_train.fused_train_block_forward,
+            "K4 bwd": hstu_block_train.attn_backward}
+
+
 def reset_launches() -> None:
     for fn, attr in kernel_counters().values():
         setattr(fn, attr, 0)
+    for fn in k4_wrappers().values():
+        fn.variant_launches.clear()
 
 
 def launch_counts() -> dict:
-    return {name: getattr(fn, attr) for name, (fn, attr) in kernel_counters().items()}
+    """Every counter of `kernel_counters`, and K4's launches per variant
+    other than the default as "K4 fwd [variant]" and "K4 bwd [variant]"."""
+    counts = {name: getattr(fn, attr) for name, (fn, attr) in kernel_counters().items()}
+    for name, fn in k4_wrappers().items():
+        counts.update({f"{name} [{v}]": c for v, c in fn.variant_launches.items()})
+    return counts
+
+
+def k4_variant(cfg) -> str:
+    """The K4 variant name (`variant_name`) a config's fused train step runs."""
+    from rails_tpu_torch.models.hstu import train_block_meta
+    from rails_tpu_torch.ops.hstu_block_train import variant_name
+
+    return variant_name(train_block_meta(cfg.hstu, cfg.max_seq_len_padded),
+                        cfg.hstu.enable_relative_attention_bias)
 
 
 @contextlib.contextmanager
@@ -663,12 +710,40 @@ def rel_err(got, ref) -> float:
     return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
 
 
-def check_k4(device, dtype) -> tuple:
-    """One train block at B=128, n=211 with dropout 0.2, f32 or bf16 operands:
-    the kernels' forward and every gradient against the plain versions (f32:
-    autograd of the plain forward; bf16: the block's own glue with the plain
-    forward and attention backward, which round where the kernels round);
-    then forward and attention-backward times of both."""
+def k4_meta(instance: Optional[str]) -> tuple:
+    """The BlockMeta of ml-20m-hstu-mol's train block with the fields of one
+    of K4_VAR_INSTANCES (None: the default block), and whether it has the
+    bias."""
+    from rails_tpu_torch.core.config import get_experiment_config
+    from rails_tpu_torch.models.hstu import train_block_meta
+
+    hstu = get_experiment_config("ml-20m-hstu-mol").hstu.replace(
+        **K4_VAR_INSTANCES.get(instance, {}))
+    return train_block_meta(hstu, MAX_SEQ_LEN), hstu.enable_relative_attention_bias
+
+
+def k4_bwd_flops(b: int, n: int, meta, bf16: bool) -> int:
+    """FLOPs the attention backward needs at ml-20m widths (h*dqk = h*dv =
+    256 in every instance). Pointwise: s, d_a, d_q, d_k, d_v over the causal
+    pairs (bf16 also recomputes attn: s and a v). Softmax: s, d_q and d_k
+    over every pair (the mask follows the normalisation), d_a and d_v over
+    the causal ones (bf16: + s over every pair and a v)."""
+    hq, hv = meta.num_heads * meta.dqk, meta.num_heads * meta.dv
+    pairs = n * (n + 1) // 2
+    if meta.softmax:
+        flops = 2 * b * (3 * n * n * hq + 2 * pairs * hv)
+        return flops + (2 * b * (n * n * hq + pairs * hv) if bf16 else 0)
+    return (7 if bf16 else 5) * 2 * b * pairs * hq
+
+
+def check_k4(device, dtype, instance: Optional[str] = None) -> tuple:
+    """One train block at B=128, n=211 with o_input dropout 0.2, f32 or bf16
+    operands, the default block (`[K4]`) or one of K4_VAR_INSTANCES
+    (`[K4-var]`): the kernels' forward and every gradient against the plain
+    versions (f32: autograd of the plain forward; bf16: the block's own glue
+    with the plain forward and attention backward, which round where the
+    kernels round); the attention backward alone; then forward and
+    attention-backward times of both, and their bounds."""
     import torch
 
     from rails_tpu_torch.ops import hstu_block_train as hbt
@@ -677,30 +752,39 @@ def check_k4(device, dtype) -> tuple:
 
     bf16 = dtype == torch.bfloat16
     dt = "bf16" if bf16 else "f32"
+    tag = "[K4]" if instance is None else f"[K4-var] {instance}"
     b, n = TRAIN_BATCH, MAX_SEQ_LEN
     (x, colmask, uvqk, o_kernel, o_bias, rel_pos, ext, tsw), kw = k1_inputs(
         b, n, dtype, device, seed=3)
     x = x * colmask[..., None].to(dtype)
-    meta = hbt.BlockMeta(H, DQK, DV, kw["inv_n"], kw["eps"], 128, 0.2)
+    meta, has_bias = k4_meta(instance)
+    if meta.concat_ua:
+        g = torch.Generator().manual_seed(3)
+        o_kernel = (torch.randn(meta.o_width, D, generator=g) / (H * DV) ** 0.5).to(dtype).to(device)
+    if not has_bias:
+        rel_pos = ext = tsw = None
     seed = 987_654_321
     w = torch.cos(torch.arange(x.numel(), device=device, dtype=torch.float32) * 0.01).reshape(x.shape)
-    names = ("x", "rel_pos", "tsw", "uvqk", "o_kernel", "o_bias")
+    names = ("x", "rel_pos", "tsw", "uvqk", "o_kernel", "o_bias") if has_bias else (
+        "x", "uvqk", "o_kernel", "o_bias")
+    operands = dict(x=x, rel_pos=rel_pos, tsw=tsw, uvqk=uvqk, o_kernel=o_kernel, o_bias=o_bias)
     results = {}
     for label in ("kernel", "plain"):
         fn = hbt.fused_train_block
         if label == "plain" and not bf16:
             fn = hbt.fused_train_block_autograd_reference
-        leaves = [t.clone().requires_grad_(True) for t in (x, rel_pos, tsw, uvqk, o_kernel, o_bias)]
+        leaves = {k: operands[k].clone().requires_grad_(True) for k in names}
         with plain_kernels() if label == "plain" and bf16 else contextlib.nullcontext():
-            out = fn(*leaves, colmask, ext, seed, meta)
+            out = fn(leaves["x"], leaves.get("rel_pos"), leaves.get("tsw"), leaves["uvqk"],
+                     leaves["o_kernel"], leaves["o_bias"], colmask, ext, seed, meta)
             (out.float() * w).sum().backward()
-        results[label] = (out.detach().float(), {k: t.grad.float() for k, t in zip(names, leaves)})
+        results[label] = (out.detach().float(), {k: t.grad.float() for k, t in leaves.items()})
     (out_k, g_k), (out_p, g_p) = results["kernel"], results["plain"]
     grad_tol = K4_BF16_TOL if bf16 else GRAD_REL_TOL
     if bf16:
         err_share = rel_err(out_k, out_p)
         if err_share > K4_BF16_TOL:
-            raise AssertionError(f"K4 bf16 forward outside {K4_BF16_TOL}: {err_share}")
+            raise AssertionError(f"{tag} bf16 forward outside {K4_BF16_TOL}: {err_share}")
         verdict = f"max|err|/max|plain| {err_share:.2e} <= {K4_BF16_TOL}"
     else:
         rtol, atol = K4_TOL
@@ -710,7 +794,7 @@ def check_k4(device, dtype) -> tuple:
     grad_errs = {k: rel_err(g_k[k], g_p[k]) for k in names}
     worst = max(grad_errs.values())
     if worst > grad_tol:
-        raise AssertionError(f"K4 {dt} gradients outside {grad_tol}: {grad_errs}")
+        raise AssertionError(f"{tag} {dt} gradients outside {grad_tol}: {grad_errs}")
 
     args = (x, colmask, uvqk, o_kernel, o_bias, rel_pos, ext, tsw, seed, meta)
     fwd_ms = cuda_ms(lambda: hbt.fused_train_block_forward(*args))
@@ -718,34 +802,41 @@ def check_k4(device, dtype) -> tuple:
     _, attn = hbt.fused_train_block_forward(*args)
     n0 = ln(x.float(), meta.eps)
     z = n0.to(dtype).float() @ uvqk.float()
-    y = (z * torch.sigmoid(z)).to(dtype)
+    y = (z * torch.sigmoid(z) if meta.activation == "silu" else z).to(dtype)
     d_o = ((w.to(dtype).float() @ o_kernel.float().T)
-           * hash_keep_mask(b, n, H * DV, seed, meta.rate, device)).to(dtype)
+           * hash_keep_mask(b, n, meta.o_width, seed, meta.rate, device)).to(dtype)
     # The bf16 backward recomputes attn from its bf16 y, as the JAX backward does.
-    bargs = (y, d_o, None if bf16 else attn, colmask, rel_pos, ext, tsw, meta)
+    bargs = (y, d_o, None if bf16 else attn, colmask, rel_pos, ext, tsw, meta, seed)
     d_y_k, dbias_k, _ = hbt.attn_backward(*bargs)
     d_y_p, dbias_p, _ = hbt.attn_backward_reference(*bargs)
-    bwd_err = max(rel_err(d_y_k, d_y_p), rel_err(dbias_k, dbias_p))
+    bwd_err = rel_err(d_y_k, d_y_p)
+    if has_bias:
+        bwd_err = max(bwd_err, rel_err(dbias_k, dbias_p))
+    elif dbias_k is not None:
+        raise AssertionError(f"{tag}: a dbias without the bias")
     if bwd_err > grad_tol:
-        raise AssertionError(f"K4 {dt} attention backward outside {grad_tol}: {bwd_err}")
+        raise AssertionError(f"{tag} {dt} attention backward outside {grad_tol}: {bwd_err}")
     bwd_ms = cuda_ms(lambda: hbt.attn_backward(*bargs))
     bwd_plain_ms = cuda_ms(lambda: hbt.attn_backward_reference(*bargs), iters=3)
-    pairs = b * H * n * (n + 1) // 2
     isz = x.element_size()
     peak = "bfloat16" if bf16 else "float32"
-    fwd_bd = bound(block_flops(b, n), block_bytes(b, n, isz) + 4 * b * n * H * DV, peak)
+    bias_kind = "internal" if has_bias else "none"
+    fwd_bd = bound(k1_variant_flops(b, n, meta.softmax, meta.o_width),
+                   k1_variant_bytes(b, n, isz, meta.o_width, bias_kind) + 4 * b * n * H * DV,
+                   peak)
     f = 2 * H * DV + 2 * H * DQK
-    # s, d_a, d_q, d_k, d_v over the causal pairs; bf16 also recomputes attn (s, a v).
-    products = 7 if bf16 else 5
-    bwd_bd = bound(products * 2 * 32 * pairs,
-                   isz * (b * n * f + b * n * H * DV)
-                   + 4 * (b * n * f + b * n * H * DV + b * n * n + n * n + b * n
-                          + b * (n + 1) + 128), peak)
-    print(f"[K4] {dt} B={b} n={n} D={D} h={H} dropout {meta.rate}: forward max|err| {err:.3e} "
-          f"({verdict}); gradient max|err|/max|plain| "
-          + ", ".join(f"{k} {v:.2e}" for k, v in grad_errs.items())
+    # y and d_o in; d_y, attn (f32: in; bf16: out) and dbias out; the bias tables.
+    bwd_bytes = (isz * (b * n * f + b * n * meta.o_width)
+                 + 4 * (b * n * f + b * n * H * DV + b * n + 128))
+    if has_bias:
+        bwd_bytes += 4 * (b * n * n + n * n + b * (n + 1))
+    bwd_bd = bound(k4_bwd_flops(b, n, meta, bf16), bwd_bytes, peak)
+    label = f"{tag} {dt} B={b} n={n} D={D} h={meta.num_heads} dqk={meta.dqk} dv={meta.dv}"
+    print(f"{label} dropout {meta.rate} / attention {meta.attn_rate} "
+          f"({hbt.variant_name(meta, has_bias)}): forward max|err| {err:.3e} ({verdict}); "
+          f"gradient max|err|/max|plain| " + ", ".join(f"{k} {v:.2e}" for k, v in grad_errs.items())
           + f" (<= {grad_tol}); attention backward alone {bwd_err:.2e}")
-    print(f"[K4] {dt} forward kernel {fwd_ms:.3f} ms, plain {fwd_plain_ms:.3f} ms, bound "
+    print(f"{tag} {dt} forward kernel {fwd_ms:.3f} ms, plain {fwd_plain_ms:.3f} ms, bound "
           f"{fwd_bd['bound_ms']:.4f} ms ({fwd_bd['bound_by']}); attention backward kernel "
           f"{bwd_ms:.3f} ms, plain {bwd_plain_ms:.3f} ms, bound {bwd_bd['bound_ms']:.4f} ms "
           f"({bwd_bd['bound_by']})")
@@ -802,16 +893,18 @@ def check_k7(device) -> dict:
 
 
 def train_setup(device, config: str = "ml-20m-hstu-mol", batch: int = TRAIN_BATCH,
-                num_items: int = NUM_ITEMS, lengths: str = "ml20m", **train_overrides):
+                num_items: int = NUM_ITEMS, lengths: str = "ml20m",
+                hstu: Optional[dict] = None, **train_overrides):
     """`config` training (seeded random weights over `num_items` items, the
-    config's dtype) with the `train` fields in `train_overrides` replaced, and
-    one batch of synthetic users at the config's N (ML-20M-shaped lengths by
-    default)."""
+    config's dtype) with the `hstu` fields in `hstu` and the `train` fields in
+    `train_overrides` replaced, and one batch of synthetic users at the
+    config's N (ML-20M-shaped lengths by default)."""
     from rails_tpu_torch.core.config import get_experiment_config
     from rails_tpu_torch.train.loop import create_train_state
 
     cfg = get_experiment_config(config)
-    cfg = cfg.replace(train=cfg.train.replace(**train_overrides))
+    cfg = cfg.replace(train=cfg.train.replace(**train_overrides),
+                      hstu=cfg.hstu.replace(**(hstu or {})))
     model, state, step, _ = create_train_state(
         cfg, num_items, np.arange(1, num_items + 1, dtype=np.int32), seed=0, device=device)
     return cfg, model, state, step, train_batch(cfg, device, batch, num_items, lengths)
@@ -844,7 +937,10 @@ def step_launches(cfg, model, optimizer) -> dict:
     blocks = cfg.hstu.num_blocks if cfg.hstu.fused_train else 0
     fused = int(cfg.train.shared_negatives and cfg.train.fused_mol_loss)
     bf16 = model.compute_dtype == torch.bfloat16
-    return {**{k: 0 for k in kernel_counters()}, "K3": blocks, "K4 fwd": blocks,
+    variant = k4_variant(cfg)
+    per_variant = {} if variant == "default" or not blocks else {
+        f"K4 fwd [{variant}]": blocks, f"K4 bwd [{variant}]": blocks}
+    return {**{k: 0 for k in kernel_counters()}, **per_variant, "K3": blocks, "K4 fwd": blocks,
             "K4 bwd": blocks, "K4 fwd (bf16)": blocks * bf16, "K4 bwd (bf16)": blocks * bf16,
             "K5 fwd": fused, "K5 bwd": fused, "K5 fwd (bf16)": fused * bf16,
             "K5 bwd (bf16)": fused * bf16, "K6": 3 if cfg.train.pallas_scatter_grad else 0,
@@ -853,14 +949,15 @@ def step_launches(cfg, model, optimizer) -> dict:
 
 def train_phase(device, name: str, smi: str, config: str = "ml-20m-hstu-mol",
                 tag: str = "train", batch_size: int = TRAIN_BATCH, num_items: int = NUM_ITEMS,
-                lengths: str = "ml20m", **train_overrides) -> dict:
+                lengths: str = "ml20m", hstu: Optional[dict] = None,
+                **train_overrides) -> dict:
     """Step 1 through the kernels vs through the plain versions from the same
     state and generator; then TRAIN_STEPS steps on the batch. Returns the
     launch counts of every kernel over those steps."""
     import torch
 
     cfg, model, state, step, batch = train_setup(device, config, batch_size, num_items, lengths,
-                                                 **train_overrides)
+                                                 hstu, **train_overrides)
     n = batch.features.ids.shape[1]
     params = dict(model.named_parameters())
     opt = state.optimizer
@@ -893,7 +990,8 @@ def train_phase(device, name: str, smi: str, config: str = "ml-20m-hstu-mol",
         group = k.split(".")[0]
         groups[group] = max(groups.get(group, 0.0), rel_err(grads_k[k], p.grad))
     negatives = "shared" if cfg.train.shared_negatives else "per position"
-    print(f"[{tag}] step 1 kernels vs plain, {cfg.name} B={batch_size} N={n} "
+    variant = "" if k4_variant(cfg) == "default" else f" (K4 variant {k4_variant(cfg)})"
+    print(f"[{tag}] step 1 kernels vs plain, {cfg.name}{variant} B={batch_size} N={n} "
           f"R={cfg.train.num_negatives} {negatives}, pallas_scatter_grad="
           f"{cfg.train.pallas_scatter_grad}, {dt}: loss {m_k['loss'].item():.6f} vs "
           f"{m_p['loss'].item():.6f} (rel {loss_err:.2e} <= {loss_tol}); gradient "
@@ -2005,6 +2103,24 @@ def variants_e2e(device, name: str, smi: str) -> dict:
     return runs
 
 
+def train_var_phase(device, name: str, smi: str) -> dict:
+    """ml-20m-hstu-mol with fused_train and each of K4_VAR_INSTANCES, in f32 and
+    in bf16 (main_module_bf16): `[train]`'s step-1 contract, then
+    TRAIN_STEPS steps, each making 16 launches of K4's forward and
+    backward and of the variant's counters. Returns each run's launch counts
+    by (instance, dtype)."""
+    import torch
+
+    runs = {}
+    for instance, hstu in K4_VAR_INSTANCES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dict(main_module_bf16=True) if dtype == torch.bfloat16 else {}
+            runs[(instance, dtype)] = train_phase(device, name, smi, tag="train-var", hstu=hstu,
+                                                  **bf16)
+            torch.cuda.empty_cache()
+    return runs
+
+
 def p1_flops_bytes(b: int, n: int, mode: str) -> tuple:
     """FLOPs and bytes of one probe block in `mode` (bf16, concat_ua)."""
     rows = 3 * H * DV
@@ -2167,6 +2283,7 @@ def main() -> None:
     from rails_tpu_torch.core.config import get_experiment_config
     from rails_tpu_torch.core.device import require_cuda
     from rails_tpu_torch.ops import _build
+    from rails_tpu_torch.ops.hstu_block_train import variant_name
 
     require_cuda()
     device = torch.device("cuda", 0)
@@ -2267,6 +2384,13 @@ def main() -> None:
     p1 = p1_phase(device, name, smi)
     torch.cuda.empty_cache()
     p2 = p2_phase(device, name, smi)
+    torch.cuda.empty_cache()
+
+    # K4's variants at ML-20M width and a training run of each.
+    k4v = {(inst, dtype): check_k4(device, dtype, inst)
+           for inst in K4_VAR_INSTANCES for dtype in (torch.float32, torch.bfloat16)}
+    torch.cuda.empty_cache()
+    k4v_runs = train_var_phase(device, name, smi)
 
     def entry(name_, source, replaces, key, measured, counts=launches):
         return {"name": name_, "route": "cuda", "source": f"rails_tpu_torch/csrc/{source}",
@@ -2346,6 +2470,21 @@ def main() -> None:
         entry("mol_probe_scores (full)", "mol_probe.cu", "rails_tpu/cli/mol_probe.py:156", "P2",
               p2["full"], {"P2": p2["launches"]}),
     ]
+    for inst in K4_VAR_INSTANCES:
+        meta, has_bias = k4_meta(inst)
+        variant = variant_name(meta, has_bias)
+        bwd_src = "hstu_softmax_train.cu" if meta.softmax else "hstu_block_train.cu"
+        for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, ", bf16")):
+            fwd, bwd = k4v[(inst, dtype)]
+            runs = k4v_runs[(inst, dtype)]
+            summary += [
+                entry(f"fused_train_block_forward ({inst}{suffix})", "hstu_block_train.cu",
+                      "rails_tpu/ops/pallas/hstu_block_train.py:574", f"K4 fwd [{variant}]", fwd,
+                      runs),
+                entry(f"attn_backward ({inst}{suffix})", bwd_src,
+                      "rails_tpu/ops/pallas/hstu_block_train.py:629", f"K4 bwd [{variant}]", bwd,
+                      runs),
+            ]
     missing = [e["name"] for e in summary if not e["launches"]]
     if missing:
         raise AssertionError(f"kernels never launched on their path: {missing}")

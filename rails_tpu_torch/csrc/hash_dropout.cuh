@@ -8,8 +8,10 @@
 // two's-complement wrapping and logical right shifts; uint32_t arithmetic
 // gives the same bits. The keep test is `(h & 0x7fffffff) >= thresh` with
 // thresh = min(int(rate * 2^31), 2^31 - 1) computed on the host, exactly as
-// `hash_dropout.py:35` does. K5 (mol_loss_train.cu) draws its two streams
-// through `keep_scale` with seed + salt (QI_SALT, PI_SALT in hash_dropout.py).
+// `hash_dropout.py:35` does. K4's attention dropout draws the per-head stream
+// of `attn_seed` inside its attention kernels, forward and backward. K5
+// (mol_loss_train.cu) draws its two streams through `keep_scale` with
+// seed + salt (QI_SALT, PI_SALT in hash_dropout.py).
 #pragma once
 
 #include <cstdint>
@@ -33,6 +35,17 @@ __device__ __forceinline__ uint32_t hash_bits(uint32_t idx, uint32_t seed) {
 // Seed of batch row `user`: seed0 + user * kUserSalt, wrapping.
 __device__ __forceinline__ uint32_t user_seed(int seed0, int user) {
   return static_cast<uint32_t>(seed0) + static_cast<uint32_t>(user) * kUserSalt;
+}
+
+// The attention-weight stream's per-head salt, -1789569707 as int32
+// (`_attn_dropout_mask`, hstu_block_train.py:113-121).
+constexpr uint32_t kHeadSalt = 0x95555555u;
+
+// Seed of the attention keep mask of (batch row `user`, head `head`):
+// seed0 + user * kUserSalt + (head + 1) * kHeadSalt, wrapping; its flat index
+// is i * n + j over the (n, n) map. The softmax map uses head 0.
+__device__ __forceinline__ uint32_t attn_seed(int seed0, int user, int head) {
+  return user_seed(seed0, user) + static_cast<uint32_t>(head + 1) * kHeadSalt;
 }
 
 // 0 or `scale` = f32(1 / (1 - rate)) for flat index idx = pos * width + col.

@@ -42,7 +42,10 @@
 //      passes no dropout.
 // The probe-only switches (kProbeIdent, kProbeFromV, kBiasRelPos, a linear
 // attention gate) are template arguments whose defaults leave K1's and K4's
-// instances as they are; only encode_probe.cu instantiates them.
+// instances as they are; only encode_probe.cu instantiates them. So is the
+// train block's attention dropout (ADROP: the weights times the per-head K3
+// stream after the mask, before the rounding), which only K4 instantiates;
+// K4's forward (`launch`) runs every train variant with K1's kernels.
 // Bound: at serving shapes the FLOPs (2*n*D*F + 4*h*n^2*dqk + 2*n*h*dv*D per
 // user; softmax 4*n^2*h*dqk, the map shared by the heads) dominate the bytes,
 // so the kernels are bound by the FP32 FMA rate of the CUDA cores; the Y round
@@ -84,11 +87,13 @@ enum Bias {
   kBiasRelPos = 3,    // probe only: rel_pos without the time term
 };
 
-// The o_input dropout of the train forward. A zero-initialised Dropout (no
-// drop) leaves the serving block exactly as it is.
+// A dropout stream of the train forward: the o_input mask (K3 in the output
+// GEMM's loader) or the attention-weight mask (in the attention kernels, under
+// their ADROP switch). A zero-initialised Dropout (no drop) leaves the serving
+// block exactly as it is.
 struct Dropout {
-  int drop;          // 1: multiply o_input by the K3 keep mask
-  int n_per_user;    // rows per batch row: the mask's user index is row / n
+  int drop;          // 1: multiply by the K3 keep mask
+  int n_per_user;    // rows per batch row: the o_input mask's user index is row / n
   int seed0;         // the layer's seed (int32)
   uint32_t thresh;   // min(int(rate * 2^31), 2^31 - 1)
   float scale;       // f32(1 / (1 - rate))
@@ -252,13 +257,17 @@ size_t attn_smem_bytes(int n, int dqk, int dv) {
 // additive bias; ACT false is the probe's linear gate (a = qk). With a
 // precomputed bias that folds the -30000 penalty in (mask_in_bias) SiLU is
 // exactly 0 at every masked pair, so the causal loop bound and the column
-// multiply below change nothing there.
-template <typename T, typename Y = float, int BIAS = kBiasInternal, bool ACT = true>
+// multiply below change nothing there. ADROP (the train block's attention
+// dropout) multiplies each weight after the mask by the keep mask of the
+// (user, head) stream `adp` (`_attn_dropout_mask`), before the rounding.
+template <typename T, typename Y = float, int BIAS = kBiasInternal, bool ACT = true,
+          bool ADROP = false>
 __global__ void __launch_bounds__(kThreads)
 hstu_attn_kernel(const Y* __restrict__ y, const float* __restrict__ colmask,
                  const float* __restrict__ rel_pos, const int* __restrict__ ext,
                  const float* __restrict__ tsw, float* __restrict__ attn, int n, int H,
-                 int dqk, int dv, float inv_n, int max_bucket, const T* __restrict__ bias) {
+                 int dqk, int dv, float inv_n, int max_bucket, const T* __restrict__ bias,
+                 Dropout adp) {
   extern __shared__ float smem[];
   const int ldk = n | 1;                       // odd row stride: no bank conflicts
   float* kt = smem;                            // [dqk][ldk]  k transposed
@@ -292,6 +301,7 @@ hstu_attn_kernel(const Y* __restrict__ y, const float* __restrict__ colmask,
   __syncthreads();
 
   const int warp = tid >> 5, lane = tid & 31;
+  const uint32_t aseed = ADROP ? attn_seed(adp.seed0, b, hd) : 0u;
   float* a_row = ab + warp * n;
   for (int i = warp; i < n; i += kWarps) {
     const float* qi = qs + i * dqk;
@@ -307,7 +317,11 @@ hstu_attn_kernel(const Y* __restrict__ y, const float* __restrict__ colmask,
       } else if constexpr (BIAS == kBiasTensor) {
         s += to_f<T>(bias[(static_cast<int64_t>(b) * n + i) * n + j]);
       }
-      a_row[j] = round_to<T>((ACT ? silu(s) : s) * cm[j]);
+      float a = (ACT ? silu(s) : s) * cm[j];
+      if constexpr (ADROP) {
+        a *= keep_scale(static_cast<uint32_t>(i * n + j), aseed, adp.thresh, adp.scale);
+      }
+      a_row[j] = round_to<T>(a);
     }
     __syncwarp();
     for (int d = lane; d < dv; d += 32) {
@@ -336,14 +350,16 @@ size_t softmax_smem_bytes(int n, int H, int dqk, int dv) {
 // and all h*dv value columns (the Pallas body's `if softmax` branch). The
 // denominator covers every column, masked and future ones included; the mask
 // (causal x column-valid) multiplies after normalisation, so a @ v skips the
-// columns past the block's last row, where every a is 0.
-template <typename T, int BIAS>
+// columns past the block's last row, where every a is 0. Y is y's storage
+// type (bf16 in the bf16 train backward's recompute); ADROP multiplies a after
+// the mask by the keep mask of the user's head-0 attention stream.
+template <typename T, int BIAS, typename Y = float, bool ADROP = false>
 __global__ void __launch_bounds__(kThreads)
-hstu_softmax_attn_kernel(const float* __restrict__ y, const float* __restrict__ colmask,
+hstu_softmax_attn_kernel(const Y* __restrict__ y, const float* __restrict__ colmask,
                          const float* __restrict__ rel_pos, const int* __restrict__ ext,
                          const float* __restrict__ tsw, const T* __restrict__ bias,
                          float* __restrict__ attn, int n, int H, int dqk, int dv,
-                         float inv_sqrt_dqk, int max_bucket) {
+                         float inv_sqrt_dqk, int max_bucket, Dropout adp) {
   extern __shared__ float smem[];
   const int hq = H * dqk, hv = H * dv, F = 2 * hv + 2 * hq;
   constexpr int ldc = kSmCols + 1;             // odd stride of the transposed k chunk
@@ -358,10 +374,11 @@ hstu_softmax_attn_kernel(const float* __restrict__ y, const float* __restrict__ 
   const int b = blockIdx.y, i0 = blockIdx.x * kSmRows, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int rows = min(kSmRows, n - i0);
-  const float* yb = y + static_cast<int64_t>(b) * n * F;
+  const Y* yb = y + static_cast<int64_t>(b) * n * F;
   for (int e = tid; e < kSmRows * hq; e += kThreads) {
     const int r = e / hq, d = e % hq;
-    qs[e] = r < rows ? round_to<T>(yb[static_cast<int64_t>(i0 + r) * F + 2 * hv + d]) : 0.f;
+    qs[e] = r < rows ? round_to<T>(to_f<Y>(yb[static_cast<int64_t>(i0 + r) * F + 2 * hv + d]))
+                     : 0.f;
   }
   for (int j = tid; j < n; j += kThreads) cm[j] = colmask[static_cast<int64_t>(b) * n + j];
   if constexpr (BIAS == kBiasInternal) {
@@ -375,7 +392,7 @@ hstu_softmax_attn_kernel(const float* __restrict__ y, const float* __restrict__ 
     __syncthreads();
     for (int e = tid; e < cols * hq; e += kThreads) {
       const int c = e / hq, d = e % hq;
-      kv[d * ldc + c] = round_to<T>(yb[static_cast<int64_t>(j0 + c) * F + 2 * hv + hq + d]);
+      kv[d * ldc + c] = round_to<T>(to_f<Y>(yb[static_cast<int64_t>(j0 + c) * F + 2 * hv + hq + d]));
     }
     __syncthreads();
     if (lane < cols) {
@@ -419,7 +436,12 @@ hstu_softmax_attn_kernel(const float* __restrict__ y, const float* __restrict__ 
     const int gi = i0 + i;
     for (int j = lane; j < n; j += 32) {
       const float mask = j <= gi ? cm[j] : 0.f;
-      row[j] = round_to<T>(row[j] / ssum * mask);
+      float a = row[j] / ssum * mask;
+      if constexpr (ADROP) {
+        a *= keep_scale(static_cast<uint32_t>(gi * n + j), attn_seed(adp.seed0, b, 0),
+                        adp.thresh, adp.scale);
+      }
+      row[j] = round_to<T>(a);
     }
   }
 
@@ -433,7 +455,7 @@ hstu_softmax_attn_kernel(const float* __restrict__ y, const float* __restrict__ 
       __syncthreads();
       for (int e = tid; e < cols * hv; e += kThreads) {
         const int jj = e / hv, d = e % hv;
-        kv[e] = round_to<T>(yb[static_cast<int64_t>(j0 + jj) * F + hv + d]);
+        kv[e] = round_to<T>(to_f<Y>(yb[static_cast<int64_t>(j0 + jj) * F + hv + d]));
       }
       __syncthreads();
       if (c < hv) {
@@ -475,59 +497,116 @@ cudaError_t launch_out(const float* a, int lda, int ka, float a_scale, const flo
   return cudaGetLastError();
 }
 
-// Launch 2, pointwise SiLU attention (or the probe's linear gate).
-template <typename T, int BIAS, bool ACT = true>
-cudaError_t launch_attn(const float* y, const float* colmask, const float* rel_pos,
+// Launch 2, pointwise SiLU attention (or the probe's linear gate), over y
+// stored as Y, with the train block's attention dropout `adp` under ADROP.
+template <typename T, int BIAS, bool ACT = true, typename Y = float, bool ADROP = false>
+cudaError_t launch_attn(const Y* y, const float* colmask, const float* rel_pos,
                         const int* ext, const float* tsw, const void* bias, float* attn, int B,
                         int n, int H, int dqk, int dv, float inv_n, int max_bucket,
-                        cudaStream_t stream) {
+                        cudaStream_t stream, Dropout adp = Dropout{}) {
   const size_t smem = attn_smem_bytes(n, dqk, dv);
-  cudaError_t err = allow_smem(hstu_attn_kernel<T, float, BIAS, ACT>, smem);
+  cudaError_t err = allow_smem(hstu_attn_kernel<T, Y, BIAS, ACT, ADROP>, smem);
   if (err != cudaSuccess) return err;
-  hstu_attn_kernel<T, float, BIAS, ACT><<<dim3(H, B), kThreads, smem, stream>>>(
+  hstu_attn_kernel<T, Y, BIAS, ACT, ADROP><<<dim3(H, B), kThreads, smem, stream>>>(
       y, colmask, rel_pos, ext, tsw, attn, n, H, dqk, dv, inv_n, max_bucket,
-      static_cast<const T*>(bias));
+      static_cast<const T*>(bias), adp);
   return cudaGetLastError();
 }
 
-// Launch 2, softmax attention.
-template <typename T, int BIAS>
-cudaError_t launch_softmax(const float* y, const float* colmask, const float* rel_pos,
+// Launch 2, softmax attention; Y, ADROP and `adp` as in launch_attn.
+template <typename T, int BIAS, typename Y = float, bool ADROP = false>
+cudaError_t launch_softmax(const Y* y, const float* colmask, const float* rel_pos,
                            const int* ext, const float* tsw, const void* bias, float* attn,
                            int B, int n, int H, int dqk, int dv, float inv_sqrt_dqk,
-                           int max_bucket, cudaStream_t stream) {
+                           int max_bucket, cudaStream_t stream, Dropout adp = Dropout{}) {
   const size_t smem = softmax_smem_bytes(n, H, dqk, dv);
-  cudaError_t err = allow_smem(hstu_softmax_attn_kernel<T, BIAS>, smem);
+  cudaError_t err = allow_smem(hstu_softmax_attn_kernel<T, BIAS, Y, ADROP>, smem);
   if (err != cudaSuccess) return err;
-  hstu_softmax_attn_kernel<T, BIAS><<<dim3((n + kSmRows - 1) / kSmRows, B), kThreads, smem,
-                                      stream>>>(
-      y, colmask, rel_pos, ext, tsw, static_cast<const T*>(bias), attn, n, H, dqk, dv,
-      inv_sqrt_dqk, max_bucket);
+  hstu_softmax_attn_kernel<T, BIAS, Y, ADROP>
+      <<<dim3((n + kSmRows - 1) / kSmRows, B), kThreads, smem, stream>>>(
+          y, colmask, rel_pos, ext, tsw, static_cast<const T*>(bias), attn, n, H, dqk, dv,
+          inv_sqrt_dqk, max_bucket, adp);
   return cudaGetLastError();
 }
 
-// The block's three launches with the internal bias, SiLU and u * LN(attn)
-// (K4's forward); attn (B*n, H*dv) f32 is left in device memory, where the
-// train block's backward reads it.
+// A train block's variant: the flags of `make_fused_train_block`.
+struct TrainVariant {
+  int act_none;   // linear_activation="none": y = LN(x) @ uvqk, no SiLU
+  int softmax;    // softmax_rel_bias: one map over h*dqk (hstu_softmax_attn_kernel)
+  int concat_ua;  // o_input = [u, LN(a), u*LN(a)] against 3*h*dv rows of Wo
+  int has_bias;   // the relative-attention bias, built in-kernel; else none
+};
+
+// The train block's attention over y stored as Y: launch 2 of the forward
+// (Y = f32), and the bf16 backward's recompute of attn (Y = bf16, as the JAX
+// backward recomputes it from the bf16 y); pointwise or softmax, the bias
+// built in-kernel or none (the pointwise map is then SiLU(q.k) over the
+// causal, valid pairs, which the JAX kernel's -30000 penalty makes exactly 0
+// elsewhere, and the softmax map has a zero bias), with or without attention
+// dropout.
+template <typename T, typename Y, int BIAS, bool ADROP>
+cudaError_t train_attn_instance(const Y* y, const float* colmask, const float* rel_pos,
+                                const int* ext, const float* tsw, float* attn, int B, int n,
+                                int H, int dqk, int dv, float inv_n, float inv_sqrt_dqk,
+                                int max_bucket, bool softmax, Dropout adp, cudaStream_t s) {
+  if (softmax) {
+    return launch_softmax<T, BIAS, Y, ADROP>(y, colmask, rel_pos, ext, tsw, nullptr, attn, B, n,
+                                             H, dqk, dv, inv_sqrt_dqk, max_bucket, s, adp);
+  }
+  return launch_attn<T, BIAS, true, Y, ADROP>(y, colmask, rel_pos, ext, tsw, nullptr, attn, B, n,
+                                              H, dqk, dv, inv_n, max_bucket, s, adp);
+}
+
+// The train block's attention: the instance of the variant's bias and
+// attention-dropout switches.
+template <typename T, typename Y>
+cudaError_t train_attn(const Y* y, const float* colmask, const float* rel_pos, const int* ext,
+                       const float* tsw, float* attn, int B, int n, int H, int dqk, int dv,
+                       float inv_n, float inv_sqrt_dqk, int max_bucket, TrainVariant v,
+                       Dropout adp, cudaStream_t s) {
+  const bool sm = v.softmax != 0;
+  if (v.has_bias) {
+    return adp.drop ? train_attn_instance<T, Y, kBiasInternal, true>(
+                          y, colmask, rel_pos, ext, tsw, attn, B, n, H, dqk, dv, inv_n,
+                          inv_sqrt_dqk, max_bucket, sm, adp, s)
+                    : train_attn_instance<T, Y, kBiasInternal, false>(
+                          y, colmask, rel_pos, ext, tsw, attn, B, n, H, dqk, dv, inv_n,
+                          inv_sqrt_dqk, max_bucket, sm, adp, s);
+  }
+  return adp.drop ? train_attn_instance<T, Y, kBiasNone, true>(
+                        y, colmask, rel_pos, ext, tsw, attn, B, n, H, dqk, dv, inv_n,
+                        inv_sqrt_dqk, max_bucket, sm, adp, s)
+                  : train_attn_instance<T, Y, kBiasNone, false>(
+                        y, colmask, rel_pos, ext, tsw, attn, B, n, H, dqk, dv, inv_n,
+                        inv_sqrt_dqk, max_bucket, sm, adp, s);
+}
+
+// K4's forward: the block's three launches for the variant `v`, with the
+// o_input keep mask `dp` in the output GEMM's loader (over 3*h*dv columns
+// under concat_ua) and the attention keep mask `adp` in the attention kernel.
+// attn (B*n, H*dv) f32 is left in device memory, where the f32 backward reads
+// it. The default variant (SiLU, internal bias, no attention dropout) runs the
+// instances K4 ran before its variants were ported.
 template <typename T>
 cudaError_t launch(const void* x, const float* colmask, const void* uvqk, const void* o_kernel,
                    const float* o_bias, const float* rel_pos, const int* ext, const float* tsw,
                    float* y, float* attn, void* out, int B, int n, int D, int H, int dqk,
-                   int dv, float inv_n, float eps, int max_bucket, Dropout dp,
-                   cudaStream_t stream) {
+                   int dv, float inv_n, float inv_sqrt_dqk, float eps, int max_bucket,
+                   TrainVariant v, Dropout dp, Dropout adp, cudaStream_t stream) {
   const int F = 2 * H * dv + 2 * H * dqk;
   const int M = B * n;
-  cudaError_t err;
-  if ((err = launch_proj<T, kGemmPlain>(x, uvqk, y, M, F, D, eps, stream)) != cudaSuccess) {
+  cudaError_t err = v.act_none ? launch_proj<T, kActNone>(x, uvqk, y, M, F, D, eps, stream)
+                               : launch_proj<T, kGemmPlain>(x, uvqk, y, M, F, D, eps, stream);
+  if (err != cudaSuccess) return err;
+  if ((err = train_attn<T, float>(y, colmask, rel_pos, ext, tsw, attn, B, n, H, dqk, dv, inv_n,
+                                  inv_sqrt_dqk, max_bucket, v, adp, stream)) != cudaSuccess) {
     return err;
   }
-  if ((err = launch_attn<T, kBiasInternal>(y, colmask, rel_pos, ext, tsw, nullptr, attn, B, n,
-                                           H, dqk, dv, inv_n, max_bucket, stream)) !=
-      cudaSuccess) {
-    return err;
-  }
-  return launch_out<T, kGemmPlain>(attn, H * dv, H * dv, 1.f, y, F, o_kernel, o_bias, x, out,
-                                   M, D, eps, dp, stream);
+  const int hv = H * dv;
+  return v.concat_ua ? launch_out<T, kConcatUA>(attn, hv, hv, 1.f, y, F, o_kernel, o_bias, x,
+                                                out, M, D, eps, dp, stream)
+                     : launch_out<T, kGemmPlain>(attn, hv, hv, 1.f, y, F, o_kernel, o_bias, x,
+                                                 out, M, D, eps, dp, stream);
 }
 
 }  // namespace

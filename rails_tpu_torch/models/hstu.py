@@ -21,13 +21,14 @@ Pallas). The XLA path buckets time deltas with log(.)/0.301 clipped to
 dtype wherever JAX's einsums ask for `preferred_element_type=self.dtype`; its
 LayerNorm, SiLU and softmax run in that dtype. Training dispatches on
 `HSTUConfig.fused_train`: True runs `ops.hstu_block_train.fused_train_block`
-(K4) in f32 or bf16 for int32 timestamps (other timestamps take the XLA path,
-as in JAX); False (ML-1M, Amazon Books) the XLA block path with autograd
-through plain torch, with flax's attention dropout (after the mask) and
-o_input dropout drawn from the caller's `torch.Generator` (checked by rate
-and scale: flax's PRNG bits cannot be matched). The fused path with attention
-dropout or a block variant (no activation, softmax, concat_ua, no bias)
-raises NotImplementedError naming `K4 variants`.
+(K4) in f32 or bf16 for int32 timestamps or without the bias (other
+timestamps take the XLA path, as in JAX), for every block variant (no
+activation, softmax, concat_ua, no bias, head dims above 32) with o_input and
+attention dropout from the counter-hash streams of the layer's seed; False
+(ML-1M, Amazon Books) the XLA block path with autograd through plain torch,
+with flax's attention dropout (after the mask) and o_input dropout drawn from
+the caller's `torch.Generator` (checked by rate and scale: flax's PRNG bits
+cannot be matched).
 """
 
 from __future__ import annotations
@@ -59,6 +60,14 @@ def _ln_in_dtype(y: torch.Tensor, eps: float) -> torch.Tensor:
     mu = yf.mean(dim=-1, keepdim=True).to(y.dtype)
     var = yf.var(dim=-1, keepdim=True, unbiased=False).to(y.dtype)
     return (y - mu) * torch.rsqrt(var + eps)
+
+
+def train_block_meta(c: HSTUConfig, max_seq_len: int) -> BlockMeta:
+    """The fused train block's static description (K4's variant) for a
+    config; the normaliser 1/max_seq_len is part of the trained function."""
+    return BlockMeta(c.num_heads, c.dqk, c.dv, 1.0 / max_seq_len, c.epsilon, c.num_time_buckets,
+                     c.linear_dropout_rate, c.linear_activation,
+                     c.normalization == "softmax_rel_bias", c.concat_ua, c.attn_dropout_rate)
 
 
 class StackedRelativeBias(nn.Module):
@@ -249,7 +258,8 @@ class HSTUStack(nn.Module):
         """Eval through K1 (`fused_inference`) or the XLA block path. Training
         with `fused_train` runs K4 when the bias can be built in-kernel
         (int32 timestamps, or no bias): block i drops its o_input with the
-        hash stream of seed seed0 + i * 1013904223 (int32), which the caller
+        hash stream of seed seed0 + i * 1013904223 (int32), and its attention
+        weights with the per-head stream of the same seed, which the caller
         draws (0 when no dropout is on); otherwise the XLA block path, whose
         dropouts draw from `generator`."""
         fused_train_ok = self.rel_attn_bias is None or self._internal_bias(timestamps)
@@ -270,25 +280,11 @@ class HSTUStack(nn.Module):
         return x * valid[..., None].to(x.dtype)
 
     def _fused_train_forward(self, x, valid, timestamps, seed0: int) -> torch.Tensor:
-        c = self.cfg
-        flags = [f"{k}={v}" for k, v, ported in (
-            ("attn_dropout_rate", c.attn_dropout_rate, c.attn_dropout_rate == 0.0),
-            ("linear_activation", c.linear_activation, c.linear_activation == "silu"),
-            ("normalization", c.normalization, c.normalization != "softmax_rel_bias"),
-            ("concat_ua", c.concat_ua, not c.concat_ua),
-            ("enable_relative_attention_bias", False, self.rel_attn_bias is not None),
-        ) if not ported]
-        if flags:
-            raise NotImplementedError(
-                f"HSTU training with fused_train and {', '.join(flags)}: only the train block "
-                "with SiLU, rel_bias, the relative-attention bias and no attention dropout is "
-                "ported (ROADMAP.md, Queue 1: K4 variants)"
-            )
-        meta = BlockMeta(c.num_heads, c.dqk, c.dv, 1.0 / self.max_seq_len, c.epsilon,
-                         c.num_time_buckets, c.linear_dropout_rate)
+        meta = train_block_meta(self.cfg, self.max_seq_len)
         for i, kw in enumerate(self.block_operands(valid, timestamps)):
+            # No rel_pos, ext or tsw without the relative-attention bias.
             x = fused_train_block(
-                x, kw["rel_pos"], kw["tsw"], kw["uvqk"], kw["o_kernel"], kw["o_bias"],
-                kw["colmask"], kw["ext"], wrap_i32(seed0 + i * LAYER_SALT), meta,
+                x, kw.get("rel_pos"), kw.get("tsw"), kw["uvqk"], kw["o_kernel"], kw["o_bias"],
+                kw["colmask"], kw.get("ext"), wrap_i32(seed0 + i * LAYER_SALT), meta,
             )
         return x * valid[..., None].to(x.dtype)

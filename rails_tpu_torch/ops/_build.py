@@ -132,10 +132,17 @@ def load_library() -> ctypes.CDLL:
         bound_fn.restype = i
     lib.rails_mol_bounds_smem_bytes.argtypes = [i] * 3
     lib.rails_mol_bounds_smem_bytes.restype = ctypes.c_size_t
-    lib.rails_hstu_train_fwd.argtypes = [i] + [p] * 11 + [i] * 6 + [f, f, i, i, i, u32, f, p]
+    drop1 = [i, i, u32, f]   # use, seed, threshold, scale
+    lib.rails_hstu_train_fwd.argtypes = ([i] + [p] * 11 + [i] * 6 + [f] * 3 + [i] * 5 + drop1
+                                         + [i, u32, f, p])
     lib.rails_hstu_train_fwd.restype = i
-    lib.rails_hstu_train_bwd.argtypes = [i] + [p] * 10 + [i] * 5 + [f, f, i, p]
+    lib.rails_hstu_train_bwd.argtypes = [i] + [p] * 10 + [i] * 5 + [f, f] + [i] * 4 + drop1 + [p]
     lib.rails_hstu_train_bwd.restype = i
+    lib.rails_hstu_softmax_train_bwd.argtypes = ([i] + [p] * 11 + [i] * 5 + [f, f] + [i] * 3
+                                                 + drop1 + [p])
+    lib.rails_hstu_softmax_train_bwd.restype = i
+    lib.rails_hstu_softmax_train_bwd_smem_bytes.argtypes = [i] * 4
+    lib.rails_hstu_softmax_train_bwd_smem_bytes.restype = ctypes.c_size_t
     lib.rails_hstu_train_bwd_smem_bytes.argtypes = [i, i, i]
     lib.rails_hstu_train_bwd_smem_bytes.restype = ctypes.c_size_t
     lib.rails_hash_keep_mask.argtypes = [p, i, i, i, i, u32, f, p]

@@ -17,6 +17,14 @@ o_input. `hash_keep_mask` follows the port's dispatch rule
 CUDA device launches the kernel or raises. `hash_keep_mask.launches` counts
 kernel launches.
 
+`attn_keep_mask_reference` is the plain attention-weight mask of the train
+block's attention dropout (`_attn_dropout_mask`,
+`rails_tpu/ops/pallas/hstu_block_train.py:113-121`): per (user, head) the
+seed seed0 + user * (-1498392781) + (head + 1) * (-1789569707) over the flat
+index i * n + j of the (n, n) map; the softmax map draws head 0. K4's kernels
+regenerate it in place (`attn_seed` in `csrc/hash_dropout.cuh`), so it has no
+kernel of its own.
+
 `hash_keep_global_reference` is the plain (L, M, R) mask of K5's two
 streams (`hash_keep_global`, `rails_tpu/ops/pallas/mol_loss_train.py:57-64`):
 idx = row * (M * R) + m * R + r under the seed seed + salt, with the salts
@@ -43,6 +51,8 @@ LAYER_SALT = 1013904223
 # -1789569707 = 0x95555555.
 QI_SALT = -1498392781
 PI_SALT = -1789569707
+# The attention stream's per-head salt, int32 -1789569707 = 0x95555555.
+HEAD_SALT = -1789569707
 
 
 def wrap_i32(v: int) -> int:
@@ -88,6 +98,22 @@ def hash_keep_mask_reference(
     idx = torch.arange(n * width, dtype=torch.int64, device=device).reshape(1, n, width)
     users = torch.arange(b, dtype=torch.int64, device=device).reshape(b, 1, 1)
     seeds = (seed0 + users * USER_SALT) & _MASK32
+    return keep_from_idx_reference(idx, seeds, rate)
+
+
+def attn_keep_mask_reference(
+    b: int, n: int, num_heads: int, seed0: int, rate: float,
+    device: Optional[Union[str, torch.device]] = None,
+) -> torch.Tensor:
+    """(b, num_heads, n, n) f32 attention keep mask of layer seed `seed0`:
+    user = batch row, head h's seed seed0 + user * USER_SALT + (h + 1) *
+    HEAD_SALT, idx = i * n + j (`_attn_dropout_mask`). The softmax map is
+    num_heads = 1 (head 0)."""
+    device = resolve_device(device)
+    idx = torch.arange(n * n, dtype=torch.int64, device=device).reshape(1, 1, n, n)
+    users = torch.arange(b, dtype=torch.int64, device=device).reshape(b, 1, 1, 1)
+    heads = torch.arange(num_heads, dtype=torch.int64, device=device).reshape(1, num_heads, 1, 1)
+    seeds = (seed0 + users * USER_SALT + (heads + 1) * HEAD_SALT) & _MASK32
     return keep_from_idx_reference(idx, seeds, rate)
 
 

@@ -124,12 +124,15 @@ def block_forward_reference(
     x, colmask, uvqk, o_kernel, o_bias, rel_pos, ext, tsw, *, num_heads: int, dqk: int,
     dv: int, inv_n: float, eps: float, num_buckets: int, keep: Optional[torch.Tensor] = None,
     bias: Optional[torch.Tensor] = None, mask_in_bias: bool = False, activation: str = "silu",
-    softmax: bool = False,
+    softmax: bool = False, attn_keep: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, attn (B, n, h*dv) f32) of one block; `keep` (B, n, width of
-    o_input), the train block's o_input dropout mask, multiplies o_input.
-    The in-kernel bias is used when `rel_pos` is given; with
-    `mask_in_bias` the penalty in `bias` stands in for the mask."""
+    o_input), the train block's o_input dropout mask, multiplies o_input, and
+    `attn_keep` (B, h, n, n; B, 1, n, n under softmax), its attention
+    dropout mask, multiplies the attention weights after the mask, before
+    they round to the matmul dtype. The in-kernel bias is used when `rel_pos`
+    is given; with `mask_in_bias` the penalty in `bias` stands in for the
+    mask."""
     concat_ua = _variant(num_heads, dv, o_kernel, rel_pos, bias, mask_in_bias, activation,
                          softmax)
     b, n, _ = x.shape
@@ -165,6 +168,8 @@ def block_forward_reference(
         a = e / e.sum(dim=-1, keepdim=True)
         if mask is not None:
             a = a * mask
+        if attn_keep is not None:
+            a = a * attn_keep[:, 0]
         attn = rnd(a) @ v                                              # (B, n, h*dv)
     else:
         qk = torch.einsum("bnhd,bmhd->bhnm", q.reshape(b, n, h, dqk), k.reshape(b, n, h, dqk))
@@ -173,6 +178,8 @@ def block_forward_reference(
         a = qk * torch.sigmoid(qk)
         if mask is not None:
             a = a * mask[:, None]
+        if attn_keep is not None:
+            a = a * attn_keep
         attn = torch.einsum("bhnm,bmhd->bnhd", rnd(a), v.reshape(b, n, h, dv))
         attn = attn.reshape(b, n, h * dv)
     a_ln = ln(attn, eps)

@@ -488,6 +488,121 @@ def test_k4_bf16_matches_plain(cuda, b, n, monkeypatch):
         assert ((got.float() - want.float()).abs().max() / scale).item() <= 2e-2, name
 
 
+# K4's variant instances: BlockMeta fields beyond the default and whether the
+# block has the relative-attention bias. "wide" is h=4, dqk=dv=64.
+K4_VARIANTS = {
+    "concat_ua": (dict(concat_ua=True), True),
+    "act_none": (dict(activation="none"), True),
+    "softmax": (dict(softmax=True), True),
+    "no_bias": ({}, False),
+    "attn_dropout": (dict(attn_rate=0.2), True),
+    "softmax+no_bias": (dict(softmax=True), False),
+    "concat_ua+softmax+attn_dropout": (dict(concat_ua=True, softmax=True, attn_rate=0.2), True),
+    "wide": ({}, True),
+    "wide+attn_dropout+no_bias": (dict(attn_rate=0.2), False),
+}
+# (b, n, D, h, dqk, dv) at each edge; "padded" has one user with no valid
+# position; the small shapes run softmax at h*dv = 32 < 256.
+K4_SHAPES = {"n1": (1, 1, 64, 2, 16, 16), "n33_padded": (3, 33, 64, 2, 16, 16),
+             "n211": (2, 211, 256, 8, 32, 32)}
+
+
+def _k4_variant_block(variant, shape, dtype, device):
+    fields, has_bias = K4_VARIANTS[variant]
+    b, n, d, h, dqk, dv = K4_SHAPES[shape]
+    if variant.startswith("wide"):
+        h, dqk, dv = 4, 64, 64
+    args, kw = _k1_args(b, n, d, h, dqk, dv, 211, dtype, device, seed=n + 7)
+    if shape == "n33_padded":
+        args["colmask"][1] = 0.0
+    args["x"] = args["x"] * args["colmask"][..., None].to(dtype)
+    meta = hstu_block_train.BlockMeta(h, dqk, dv, kw["inv_n"], kw["eps"], 128, 0.2, **fields)
+    if meta.concat_ua:
+        g = torch.Generator().manual_seed(5)
+        args["o_kernel"] = (torch.randn(3 * h * dv, d, generator=g) / (h * dv) ** 0.5).to(
+            dtype).to(device)
+    if not has_bias:
+        args.update(rel_pos=None, ext=None, tsw=None)
+    return args, meta
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", list(K4_SHAPES))
+@pytest.mark.parametrize("variant", list(K4_VARIANTS))
+def test_k4_variants_match_plain(cuda, variant, shape, dtype, monkeypatch):
+    """Each K4 variant instance, forward and attention backward, against its
+    plain version (f32: autograd of the plain forward; bf16: the block's glue
+    over the plain forward and attention backward), at the tolerances of the
+    default instance's tests; the variant counters count the launches."""
+    args, meta = _k4_variant_block(variant, shape, dtype, cuda)
+    has_bias = args["rel_pos"] is not None
+    bf16 = dtype == torch.bfloat16
+    fwd, bwd = hstu_block_train.fused_train_block_forward, hstu_block_train.attn_backward
+    name = hstu_block_train.variant_name(meta, has_bias)
+    assert name != "default"
+    names = GRAD_NAMES if has_bias else ("x", "uvqk", "o_kernel", "o_bias")
+    w = torch.cos(torch.arange(args["x"].numel(), device=cuda, dtype=torch.float32)).reshape(
+        args["x"].shape)
+    res = []
+    for plain in (False, True):
+        fn = hstu_block_train.fused_train_block
+        if plain and bf16:
+            monkeypatch.setattr(hstu_block_train, "fused_train_block_forward",
+                                hstu_block_train.fused_train_block_forward_reference)
+            monkeypatch.setattr(hstu_block_train, "attn_backward",
+                                hstu_block_train.attn_backward_reference)
+        elif plain:
+            fn = hstu_block_train.fused_train_block_autograd_reference
+        before = (fwd.variant_launches.get(name, 0), bwd.variant_launches.get(name, 0))
+        leaves = {k: args[k].clone().requires_grad_(True) for k in names}
+        out = fn(leaves["x"], leaves.get("rel_pos"), leaves.get("tsw"), leaves["uvqk"],
+                 leaves["o_kernel"], leaves["o_bias"], args["colmask"], args["ext"], 11, meta)
+        (out.float() * w).sum().backward()
+        assert (fwd.variant_launches.get(name, 0), bwd.variant_launches.get(name, 0)) == tuple(
+            v + (0 if plain else 1) for v in before)
+        res.append((out.detach().float(), {k: leaves[k].grad.float() for k in names}))
+    (out_k, g_k), (out_p, g_p) = res
+    assert bool(torch.isfinite(out_k).all())
+    if bf16:
+        assert ((out_k - out_p).abs().max() / out_p.abs().max()).item() <= 1e-2
+    else:
+        torch.testing.assert_close(out_k, out_p, rtol=1e-3, atol=1e-4)
+    for k in names:
+        scale = g_p[k].abs().max().clamp_min(1e-30)
+        assert ((g_k[k] - g_p[k]).abs().max() / scale).item() <= (2e-2 if bf16 else 1e-3), k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", list(K4_SHAPES))
+@pytest.mark.parametrize("variant", list(K4_VARIANTS))
+def test_k4_variant_attn_backward_matches_plain(cuda, variant, shape, dtype):
+    """The attention backward alone, d_y and dbias (None without the bias),
+    against its plain version on the same y and d(o_input)."""
+    args, meta = _k4_variant_block(variant, shape, dtype, cuda)
+    b, n = args["colmask"].shape
+    f = args["uvqk"].shape[1]
+    g = torch.Generator(device=cuda).manual_seed(n)
+    y = torch.randn(b, n, f, generator=g, device=cuda).to(dtype)
+    d_o = torch.randn(b, n, meta.o_width, generator=g, device=cuda).to(dtype)
+    attn = None
+    if dtype == torch.float32:
+        attn = hstu_block_train.fused_train_block_forward(
+            args["x"], args["colmask"], args["uvqk"], args["o_kernel"], args["o_bias"],
+            args["rel_pos"], args["ext"], args["tsw"], 11, meta)[1]
+    bargs = (y, d_o, attn, args["colmask"], args["rel_pos"], args["ext"], args["tsw"], meta, 11)
+    d_y_k, dbias_k, attn_k = hstu_block_train.attn_backward(*bargs)
+    d_y_p, dbias_p, attn_p = hstu_block_train.attn_backward_reference(*bargs)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-3
+    pairs = [(d_y_k, d_y_p), (attn_k, attn_p)]
+    if args["rel_pos"] is None:
+        assert dbias_k is None and dbias_p is None
+    else:
+        pairs.append((dbias_k, dbias_p))
+    for got, want in pairs:
+        assert bool(torch.isfinite(got).all())
+        assert ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item() <= tol
+
+
 @pytest.mark.parametrize("numel", [1, 7, 4099, 1_000_003, (26_745 * 256)])
 def test_k7_matches_plain_and_torch_fused_adamw(cuda, numel):
     g = torch.Generator(device=cuda).manual_seed(numel)

@@ -301,15 +301,34 @@ def test_three_xla_train_steps_match_jax_for_concat_ua_softmax(monkeypatch):
 
 
 @pytest.mark.parametrize("variant", ["concat_ua", "softmax", "act_none", "no_bias"])
-def test_fused_train_with_a_variant_raises(variant):
+def test_fused_train_with_a_variant_raises(variant, monkeypatch):
+    """fused_train=True with a variant flag once raised NotImplementedError
+    naming `K4 variants`; it now trains through K4 (its plain versions on the
+    CPU) with the variant in the block's meta and, without the bias, no bias
+    operands; gradients reach x and every block weight."""
     changes = _merge(VARIANTS[variant], dict(hstu=dict(fused_train=True)))
     cfg = _configure(port_config.get_experiment_config("synthetic-small"), changes)
     stack = port_hstu.HSTUStack(cfg.hstu, 8, torch.float32, torch.Generator().manual_seed(0))
-    x = torch.zeros(2, 8, cfg.hstu.embedding_dim)
+    x = torch.randn(2, 8, cfg.hstu.embedding_dim, generator=torch.Generator().manual_seed(1))
+    x.requires_grad_(True)
     valid = torch.ones(2, 8, dtype=torch.bool)
     ts = torch.arange(16, dtype=torch.int32).reshape(2, 8)
-    with pytest.raises(NotImplementedError, match="K4 variants"):
-        stack(x, valid, ts, train=True)
+    calls = []
+    real = port_hstu.fused_train_block
+    monkeypatch.setattr(port_hstu, "fused_train_block",
+                        lambda *a: calls.append(a) or real(*a))
+    out = stack(x, valid, ts, train=True, seed0=5)
+    out.sum().backward()
+    assert len(calls) == cfg.hstu.num_blocks
+    meta = calls[0][-1]
+    assert (meta.concat_ua, meta.softmax, meta.activation) == (
+        cfg.hstu.concat_ua, cfg.hstu.normalization == "softmax_rel_bias",
+        cfg.hstu.linear_activation)
+    assert (calls[0][1] is None) == (variant == "no_bias")
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())
+    assert x.grad is not None and bool(torch.isfinite(x.grad).all())
+    for name, p in stack.named_parameters():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
 
 
 def test_no_bias_state_dict_has_no_rel_attn_bias():

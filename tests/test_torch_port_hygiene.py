@@ -17,7 +17,7 @@ from rails_tpu_torch.core import config as port_config
 from rails_tpu_torch.core.config import get_experiment_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SCRIPTS = ("chip_smoke.py", "profile_serving.py", "profile_train.py")
+SCRIPTS = ("chip_smoke.py", "profile_serving.py", "profile_train.py", "profile_k4_bwd.py")
 
 
 def test_port_imports_no_jax():
@@ -181,7 +181,8 @@ def test_source_hash_covers_every_source(fresh_build):
     assert {"hstu_block.cu", "mol_scoring.cu", "common.cuh", "hstu_block.cuh",
             "hstu_block_train.cu", "hash_dropout.cu", "hash_dropout.cuh",
             "fused_adamw.cu", "mol_loss_train.cu", "scatter_add.cu", "encode_probe.cu",
-            "mol_probe.cu", "mol_scoring.cuh"} <= names
+            "mol_probe.cu", "mol_scoring.cuh", "hstu_softmax_train.cu",
+            "hstu_train.cuh"} <= names
     assert len(fresh_build.source_hash()) == 16
 
 
@@ -205,12 +206,11 @@ def test_unported_model_configs_raise(change):
 @pytest.mark.parametrize(
     "change",
     [
-        dict(hstu=dict(fused_train=True, attn_dropout_rate=0.1)),
         dict(train=dict(loss_activation_checkpoint=True)),
         dict(train=dict(sampling_strategy="in-batch")),
         dict(train=dict(loss_module="BCELoss")),
     ],
-    ids=["attn_dropout", "checkpoint", "in_batch", "bce"],
+    ids=["checkpoint", "in_batch", "bce"],
 )
 def test_unported_training_options_raise(change):
     """Each training option off the ported path refuses with a pointer to
