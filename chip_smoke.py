@@ -17,8 +17,9 @@ Phases (one line each, any failure raises and exits non-zero):
      n=211, f32 and bf16, forward and every gradient vs the plain versions
      (f32: the plain autograd version; bf16: the block's glue over the plain
      forward and attention backward), and the attention backward alone.
-  8. K7 (`adamw_leaf_update`) on the two fused leaves of ml-20m, vs its plain
-     version, with `torch._fused_adamw_` timed as a yardstick.
+  8. K7 (`adamw_update_leaves`) on the two fused leaves of ml-20m in one
+     launch, vs its plain version, with `torch._fused_adamw_` timed as a
+     yardstick and the call's device operations under torch.profiler.
   9. train: create_train_state + train_step on ml-20m-hstu-mol (B=128,
      N=211, R=128, f32): step 1 through the kernels vs the same step through
      the plain versions, then 20 steps on one batch (the loss must fall),
@@ -28,8 +29,10 @@ Phases (one line each, any failure raises and exits non-zero):
      and the 8 gradients vs the plain autograd version.
  11. K6 (`scatter_add_rows`): the (128, 211) ids of an ML-20M-shaped batch
      into (26,745, 256) f32, and a small case with duplicate, negative and
-     out-of-range ids, vs its plain version, with `index_add_` timed as a
-     yardstick.
+     out-of-range ids, vs its plain version, two calls bit-equal, with
+     `index_add_` timed as a yardstick and the call's device operations under
+     torch.profiler (only the kernel's own: no torch sort, search or scan);
+     then the (64, 61) ids of an Amazon Books batch into (695,763, 64) f32.
  12. train-fast: ml-20m-hstu-mol-fast with pallas_scatter_grad (B=128, N=211,
      R=128 shared, f32), as in 9, through K3-K7.
  13. K8 (`fused_mol_ub_t`), K9 (`fused_mol_group_block_max`) and K10
@@ -159,7 +162,6 @@ K4_BF16_TOL = 2e-2
 # loss: measured 1.9e-5 on the loss and up to 4.4e-2 (hstu) on the gradients
 # (NVIDIA H100 80GB HBM3, 700 W).
 BF16_TRAIN_TOL = (1e-2, 1e-1)
-K7_ATOL = 1e-6
 # K6: max |kernel - plain| over max(1, max |plain|). Both sum in f32, in other
 # orders where ids repeat.
 K6_TOL = 1e-6
@@ -258,8 +260,9 @@ def ptxas_summary(log: str) -> str:
                              r"softmax_bwd_rows_kernel|softmax_bwd_cols_kernel|"
                              r"hstu_softmax_attn_kernel|mol_probe_kernel|"
                              r"attn_row_bwd_kernel|mol_scores_kernel|hash_keep_mask_kernel|"
-                             r"adamw_kernel|mol_loss_fwd_kernel|mol_loss_bwd_kernel|"
-                             r"reduce_slots_kernel|scatter_add_rows_kernel|mol_ub_kernel|"
+                             r"adamw_leaves_kernel|mol_loss_fwd_kernel|mol_loss_bwd_kernel|"
+                             r"reduce_slots_kernel|count_kernel|scan_kernel|place_kernel|"
+                             r"sum_kernel|mol_ub_kernel|"
                              r"mol_group_block_max_kernel)", mangled)
             # An int8 instance's first template argument is `signed char` ("Ia");
             # its bf16 query type puts "bfloat16" in the name too.
@@ -276,6 +279,23 @@ def ptxas_summary(log: str) -> str:
             out.append(f"{label} {regs.group(1)} ({spilled})")
             label = None
     return ", ".join(out)
+
+
+def host_us(fn, iters: int = 200) -> float:
+    """Mean host time of one call of fn in us, `iters` calls enqueued without
+    waiting for the card (the host does not wait for it; the device keeps up
+    or falls behind)."""
+    import time
+
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / iters
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -524,7 +544,7 @@ def kernel_counters() -> dict:
         "K4 bwd": hstu_block_train.attn_backward,
         "K5 fwd": mol_loss_train.fused_mol_loss_forward,
         "K5 bwd": mol_loss_train.fused_mol_loss_backward,
-        "K6": scatter_add.scatter_add_rows, "K7": fused_adamw.adamw_leaf_update,
+        "K6": scatter_add.scatter_add_rows, "K7": fused_adamw.adamw_update_leaves,
         "K8": mol_scoring.fused_mol_ub_t, "K9": mol_scoring.fused_mol_group_block_max,
         "K10": mol_scoring.fused_mol_scores_tiles,
         "P1": encode_probe.encode_probe_block, "P2": mol_probe.mol_probe_scores,
@@ -603,8 +623,8 @@ def plain_kernels():
                               hstu_block_train.attn_backward_reference), \
             mock.patch.object(hstu_block_train, "hash_keep_mask",
                               hash_dropout.hash_keep_mask_reference), \
-            mock.patch.object(fused_adamw, "adamw_leaf_update",
-                              fused_adamw.adamw_leaf_update_reference), \
+            mock.patch.object(fused_adamw, "adamw_update_leaves",
+                              fused_adamw.adamw_update_leaves_reference), \
             mock.patch.object(mol_loss_train, "fused_mol_loss_forward",
                               mol_loss_train.fused_mol_loss_forward_reference), \
             mock.patch.object(mol_loss_train, "fused_mol_loss_backward",
@@ -847,13 +867,106 @@ def check_k4(device, dtype, instance: Optional[str] = None) -> tuple:
     return fwd, bwd
 
 
+def device_timeline(fn) -> list:
+    """One call of fn (after warm-up) under torch.profiler: its device
+    operations in launch order as (issuer, name, device us, idle us before
+    it), the issuer being the torch op that launched it or "ctypes" for an
+    entry point of the kernel library. The profiler slows the host, so the
+    idle gaps are upper bounds of the unprofiled ones. Empty when three
+    profiled calls recorded no device operation (the profiler sometimes
+    misses a session's device activity)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    label = "timed call"
+    for _ in range(3):
+        fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function(label):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        device = sorted((e for e in events
+                         if e.device_type == DeviceType.CUDA and e.name != label),
+                        key=lambda e: e.time_range.start)
+        if device:
+            break
+    else:
+        return []
+    launches = sorted((e for e in events if e.device_type == DeviceType.CPU
+                       and e.name.startswith("cu")
+                       and any(k in e.name for k in ("Launch", "Memset", "Memcpy"))),
+                      key=lambda e: e.time_range.start)
+
+    def issuer(launch) -> str:
+        op = launch
+        while op.cpu_parent is not None and op.cpu_parent.name != label:
+            op = op.cpu_parent
+        return "ctypes" if op is launch else op.name
+
+    names = ([issuer(e) for e in launches] if len(launches) == len(device)
+             else ["?"] * len(device))
+    ends = [device[0].time_range.start] + [e.time_range.end for e in device[:-1]]
+    return [(who, e.name, e.time_range.end - e.time_range.start,
+             max(0.0, e.time_range.start - end)) for who, e, end in zip(names, device, ends)]
+
+
+def torch_calls(fn) -> list:
+    """Names of the torch functions and tensor methods that one call of fn
+    makes (a TorchFunctionMode record, which needs no profiler)."""
+    from torch.overrides import TorchFunctionMode
+
+    class Record(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            self.names.append(getattr(func, "__name__", str(func)))
+            return func(*args, **(kwargs or {}))
+
+    with Record() as record:
+        fn()
+    return record.names
+
+
+# What K6's plain route ran on the card and its kernel must not (a torch sort,
+# search, scan, select or cast); any name containing one of the first three.
+K6_FORBIDDEN = ("sort", "search", "cumsum", "where", "to", "index", "index_put_", "index_add_",
+                "__getitem__", "long", "unique", "bincount", "nonzero")
+
+
+def own_stages(timeline, kernels: tuple) -> str:
+    """The timeline as "name us + ... = total us device"; raises if any
+    device operation is neither one of `kernels` nor a memset, or was issued
+    by a torch op (where the profiler pairs operations with their launches:
+    "?" where it does not, and then the names alone decide; a torch sort,
+    search or scan runs kernels of its own)."""
+    if not timeline:
+        return "device operations not recorded by torch.profiler"
+    parts = []
+    for who, name, us, _ in timeline:
+        short = next((k for k in kernels if k in name), None)
+        if who not in ("ctypes", "?") or (short is None and not name.startswith("Memset")):
+            raise AssertionError(f"a device operation outside the kernel: {who}: {name}")
+        parts.append(f"{short or 'memset'} {us:.2f}")
+    return " + ".join(parts) + f" = {sum(t[2] for t in timeline):.2f} us device"
+
+
 def check_k7(device) -> dict:
-    """AdamW on ml-20m's two fused leaves (the item table and the uid table):
-    the kernel against its plain version, and torch._fused_adamw_ timed on the
-    same tensors as a yardstick (the port never calls it)."""
+    """AdamW on ml-20m's two fused leaves (the item table and the uid table)
+    in one launch: the kernel against its plain version, and
+    torch._fused_adamw_ timed on the same tensors as a yardstick (the port
+    never calls it)."""
     import torch
 
-    from rails_tpu_torch.train.fused_adamw import adamw_leaf_update, adamw_leaf_update_reference
+    from rails_tpu_torch.train.fused_adamw import (
+        adamw_update_leaves,
+        adamw_update_leaves_reference,
+    )
 
     g = torch.Generator(device=device).manual_seed(7)
     shapes = ((NUM_ITEMS + 1, D), (16_385, D_P))
@@ -861,34 +974,45 @@ def check_k7(device) -> dict:
                     for sc in (1e-3, 1.0, 1e-4, 1e-8)) for s in shapes]   # g, p, mu, nu
     leaves = [(gr, p, mu, nu.abs()) for gr, p, mu, nu in leaves]
     kw = dict(lr=1e-3, c1=10.0, c2=50.5, b1=0.9, b2=0.98, eps=1e-8, wd=1e-3)
-    err = 0.0
-    for gr, p, mu, nu in leaves:
-        got = [t.clone() for t in (p, mu, nu)]
-        ref = [t.clone() for t in (p, mu, nu)]
-        adamw_leaf_update(gr, *got, **kw)
-        adamw_leaf_update_reference(gr, *ref, **kw)
-        err = max(err, max((a - b).abs().max().item() for a, b in zip(got, ref)))
-    if err > K7_ATOL:
-        raise AssertionError(f"K7 differs from its plain version by {err}")
-    work = [[t.clone() for t in leaf] for leaf in leaves]
-
-    def run(fn):
-        for gr, p, mu, nu in work:
-            fn(gr, p, mu, nu, **kw)
-
-    ms = cuda_ms(lambda: run(adamw_leaf_update))
-    plain_ms = cuda_ms(lambda: run(adamw_leaf_update_reference))
+    got = [(gr, *(t.clone() for t in rest)) for gr, *rest in leaves]
+    ref = [(gr, *(t.clone() for t in rest)) for gr, *rest in leaves]
+    before = adamw_update_leaves.launches
+    adamw_update_leaves(got, **kw)
+    if adamw_update_leaves.launches != before + 1:
+        raise AssertionError("K7: one call over both leaves must be one launch")
+    adamw_update_leaves_reference(ref, **kw)
+    err = max((a - b).abs().max().item()
+              for lg, lr_ in zip(got, ref) for a, b in zip(lg[1:], lr_[1:]))
+    # The kernel keeps the plain version's rounding order: every leaf's p, mu
+    # and nu must be bit-equal to it.
+    for n, (lg, lr_) in enumerate(zip(got, ref)):
+        for name, a, b in zip(("p", "mu", "nu"), lg[1:], lr_[1:]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"K7 leaf {n} {name} differs from its plain version by "
+                                     f"{(a - b).abs().max().item()}")
+    work = [(gr, *(t.clone() for t in rest)) for gr, *rest in leaves]
+    ms = cuda_ms(lambda: adamw_update_leaves(work, **kw))
+    plain_ms = cuda_ms(lambda: adamw_update_leaves_reference(work, **kw))
+    stages = own_stages(device_timeline(lambda: adamw_update_leaves(work, **kw)),
+                        ("adamw_leaves_kernel",))
     lib = [[t.clone() for t in leaf] for leaf in leaves]
     steps = [torch.tensor(3.0, device=device) for _ in lib]
-    library_ms = cuda_ms(lambda: torch._fused_adamw_(
-        [lf[1] for lf in lib], [lf[0] for lf in lib], [lf[2] for lf in lib],
-        [lf[3] for lf in lib], [], steps, lr=1e-3, beta1=0.9, beta2=0.98, weight_decay=1e-3,
-        eps=1e-8, amsgrad=False, maximize=False))
+
+    def library():
+        torch._fused_adamw_(
+            [lf[1] for lf in lib], [lf[0] for lf in lib], [lf[2] for lf in lib],
+            [lf[3] for lf in lib], [], steps, lr=1e-3, beta1=0.9, beta2=0.98, weight_decay=1e-3,
+            eps=1e-8, amsgrad=False, maximize=False)
+
+    library_ms = cuda_ms(library)
+    host, library_host = host_us(lambda: adamw_update_leaves(work, **kw)), host_us(library)
     numel = sum(leaf[0].numel() for leaf in leaves)
     bd = bound(12 * numel, 28 * numel, "float32")
-    print(f"[K7] AdamW leaves {[tuple(s) for s in shapes]} ({numel} elements): max|err| {err:.3e} "
-          f"(<= {K7_ATOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch._fused_adamw_ "
-          f"{library_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    print(f"[K7] AdamW leaves {[tuple(s) for s in shapes]} ({numel} elements), one launch: "
+          f"p, mu and nu bit-equal to the plain version (max|err| {err:.3e}); kernel {ms:.4f} ms ({stages}; host "
+          f"{host:.1f} us a call), plain {plain_ms:.4f} ms, torch._fused_adamw_ "
+          f"{library_ms:.4f} ms (host {library_host:.1f} us a call), bound "
+          f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": library_ms}
 
 
@@ -924,10 +1048,23 @@ def train_batch(cfg, device, batch: int = TRAIN_BATCH, num_items: int = NUM_ITEM
                            drop_last=True, device=device))
 
 
+def zipf_ids(device, shape: tuple, num_items: int, seed: int = 11):
+    """Item ids 1..num_items of `shape`, drawn with Zipf popularity (item r
+    with probability proportional to 1 / r), made on the card."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    weight = 1.0 / torch.arange(1, num_items + 1, device=device, dtype=torch.float32)
+    n = 1
+    for size in shape:
+        n *= size
+    return (torch.multinomial(weight, n, replacement=True, generator=g) + 1).int().view(shape)
+
+
 def step_launches(cfg, model, optimizer) -> dict:
     """The kernel launches one training step of `cfg` makes: with
     `fused_train` K3 and K4 once per block (its bf16 instance in bf16), none
-    on the XLA block path; K7 once per leaf the optimizer fuses; with the
+    on the XLA block path; K7 once where the optimizer fuses a leaf; with the
     fused shared-negatives loss K5 forward and backward once (its bf16
     instance in bf16); with pallas_scatter_grad K6 once per gather from the
     item table (the tokens, the encoder's input, the negatives); no serving
@@ -944,7 +1081,7 @@ def step_launches(cfg, model, optimizer) -> dict:
             "K4 bwd": blocks, "K4 fwd (bf16)": blocks * bf16, "K4 bwd (bf16)": blocks * bf16,
             "K5 fwd": fused, "K5 bwd": fused, "K5 fwd (bf16)": fused * bf16,
             "K5 bwd (bf16)": fused * bf16, "K6": 3 if cfg.train.pallas_scatter_grad else 0,
-            "K7": sum(optimizer.fused(p.numel()) for p in model.parameters())}
+            "K7": int(any(optimizer.fused(p.numel()) for p in model.parameters()))}
 
 
 def train_phase(device, name: str, smi: str, config: str = "ml-20m-hstu-mol",
@@ -1127,44 +1264,82 @@ def check_k5(device, m: int = TRAIN_BATCH * (MAX_SEQ_LEN - 1), r: int = NUM_NEGA
     return fwd, bwd
 
 
-def check_k6(device, ids) -> dict:
-    """K6 on the (B, N) ids of an ML-20M-shaped batch (padding included) into
-    the (26,745, 256) f32 table, and on a small case with duplicate, negative and out-of-range
-    ids; `index_add_` is timed on the same rows as a yardstick."""
+K6_KERNELS = ("count_kernel", "chunk_scan_kernel", "scan_kernel", "rank_kernel", "place_kernel",
+              "sum_kernel")
+
+
+def check_k6(device, ids, num_rows: int = NUM_ITEMS + 1, d: int = D,
+             long_sums: bool = False) -> dict:
+    """K6 on the (B, N) ids of a batch (padding included) into the
+    (num_rows, d) f32 table, and on a small case with duplicate, negative and
+    out-of-range ids; two calls bit-equal, one launch each, and every device
+    operation of a call the kernel's own; `index_add_` is timed on the same
+    rows as a yardstick. With `long_sums` (rows of thousands of nonzero
+    updates) each element is held to the recursive-summation bound of its
+    row, 2 n_t 2^-24 sum|x| (as tests/test_torch_port_gpu.py holds K6), in
+    place of K6_TOL."""
     import torch
 
     from rails_tpu_torch.ops.scatter_add import scatter_add_rows, scatter_add_rows_reference
 
-    num_rows = NUM_ITEMS + 1
     g = torch.Generator(device=device).manual_seed(6)
     # Zero at padding ids, as in the step's cotangent: padded positions carry
     # no gradient, so each table row sums only its item's few occurrences.
-    rows = (torch.randn(tuple(ids.shape) + (D,), generator=g, device=device)
+    rows = (torch.randn(tuple(ids.shape) + (d,), generator=g, device=device)
             * (ids != 0)[..., None])
+    before = scatter_add_rows.launches
     got = scatter_add_rows(ids, rows, num_rows)
+    again = scatter_add_rows(ids, rows, num_rows)
+    if scatter_add_rows.launches != before + 2:
+        raise AssertionError("K6: a call must be one launch")
+    if not torch.equal(got, again):
+        raise AssertionError("K6: two calls on the same inputs differ")
     ref = scatter_add_rows_reference(ids, rows, num_rows)
     err = (got - ref).abs().max().item()
     scale = max(1.0, ref.abs().max().item())
+    if long_sums:
+        flat = ids.reshape(-1).long()
+        mass = torch.zeros(num_rows, d, dtype=torch.float64, device=device).index_add_(
+            0, flat, rows.reshape(-1, d).double().abs())
+        count = torch.bincount(flat, minlength=num_rows).double()[:, None]
+        within = bool(((got - ref).double().abs() <= 2 * count * 2.0**-24 * mass).all())
+        tol_text = "<= 2 n_t 2^-24 sum|x| per element"
+    else:
+        within = err <= K6_TOL * scale
+        tol_text = f"<= {K6_TOL} x max(1, max|plain|) = {K6_TOL * scale:.3e}"
     small_ids = torch.tensor([3, 3, -1, 9, 10, -11, 0, 3, 12, -12], dtype=torch.int32,
                              device=device)
     small_rows = torch.randn(10, 40, generator=g, device=device)
     edge_err = (scatter_add_rows(small_ids, small_rows, 11)
                 - scatter_add_rows_reference(small_ids, small_rows, 11)).abs().max().item()
-    if err > K6_TOL * scale or edge_err > K6_TOL:
+    if not within or edge_err > K6_TOL:
         raise AssertionError(f"K6 differs from its plain version: {err} (scale {scale}), "
                              f"edge case {edge_err}")
     ms = cuda_ms(lambda: scatter_add_rows(ids, rows, num_rows))
     plain_ms = cuda_ms(lambda: scatter_add_rows_reference(ids, rows, num_rows))
-    flat, src = ids.reshape(-1).long(), rows.reshape(-1, D)
-    library_ms = cuda_ms(lambda: torch.zeros(num_rows, D, device=device).index_add_(0, flat, src))
-    bd = bound(0, 4 * (ids.numel() * (D + 1) + num_rows * D), "float32")
+    flat, src = ids.reshape(-1).long(), rows.reshape(-1, d)
+
+    def library():
+        torch.zeros(num_rows, d, device=device).index_add_(0, flat, src)
+
+    library_ms = cuda_ms(library)
+    host = host_us(lambda: scatter_add_rows(ids, rows, num_rows))
+    library_host = host_us(library)
+    calls = torch_calls(lambda: scatter_add_rows(ids, rows, num_rows))
+    bad = [c for c in calls if c in K6_FORBIDDEN or any(k in c for k in K6_FORBIDDEN[:3])]
+    if bad:
+        raise AssertionError(f"K6 called torch ops besides its kernel: {bad}")
+    stages = own_stages(device_timeline(lambda: scatter_add_rows(ids, rows, num_rows)),
+                        K6_KERNELS)
+    bd = bound(0, 4 * (ids.numel() * (d + 1) + num_rows * d), "float32")
     distinct, padding = int(torch.unique(flat).numel()), int((flat == 0).sum())
     print(f"[K6] ids {tuple(ids.shape)} ({distinct} distinct, {padding} padding) into "
-          f"({num_rows}, {D}) f32: "
-          f"max|err| {err:.3e} (<= {K6_TOL} x max(1, max|plain|) = {K6_TOL * scale:.3e}), "
-          f"duplicate/negative/out-of-range case {edge_err:.3e} (<= {K6_TOL}); kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms, bound "
-          f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+          f"({num_rows}, {d}) f32: "
+          f"max|err| {err:.3e} ({tol_text}), "
+          f"duplicate/negative/out-of-range case {edge_err:.3e} (<= {K6_TOL}), two calls "
+          f"bit-equal; kernel {ms:.4f} ms ({stages}; host {host:.1f} us a call), plain "
+          f"{plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms (host {library_host:.1f} us a "
+          f"call), bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": library_ms}
 
 
@@ -2327,6 +2502,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     cfg = get_experiment_config("ml-20m-hstu-mol")
     k6 = check_k6(device, train_batch(cfg, device).features.ids)
+    books_cfg = get_experiment_config("amzn-books-hstu-mol")
+    check_k6(device, train_batch(books_cfg, device, BOOKS_BATCH, BOOKS_ITEMS, "uniform")
+             .features.ids, BOOKS_ITEMS + 1, books_cfg.train.item_embedding_dim)
+    # Zipf-popular items in a batch of 1,024 users: ~600 rows of more than
+    # 32 updates over 53 chunks of 4,096 ids, where the long rows' placement
+    # does most of its work.
+    check_k6(device, zipf_ids(device, (1024, 211), NUM_ITEMS), long_sums=True)
     torch.cuda.empty_cache()
     fast = train_phase(device, name, smi, "ml-20m-hstu-mol-fast", "train-fast",
                        pallas_scatter_grad=True)
@@ -2353,7 +2535,6 @@ def main() -> None:
 
     # Amazon Books: the 8x8x32 kernels at its serving shapes, the bf16 K5 at
     # its training shapes, then its serving and training paths.
-    books_cfg = get_experiment_config("amzn-books-hstu-mol")
     k2b = {kind: check_k2(BOOKS_BATCH, BOOKS_ITEMS, kind, device, BOOKS_GEOM)
            for kind in ("float32", "bfloat16", "int8")}
     torch.cuda.empty_cache()
@@ -2413,7 +2594,7 @@ def main() -> None:
               "rails_tpu/ops/pallas/mol_loss_train.py:159", "K5 bwd", k5_bwd),
         entry("scatter_add_rows", "scatter_add.cu", "rails_tpu/ops/pallas/scatter_add.py:172",
               "K6", k6),
-        entry("adamw_leaf_update", "fused_adamw.cu", "rails_tpu/train/fused_adamw.py:87",
+        entry("adamw_update_leaves", "fused_adamw.cu", "rails_tpu/train/fused_adamw.py:87",
               "K7", k7),
         entry("fused_mol_ub_t", "mol_bounds.cu", "rails_tpu/ops/pallas/mol_scoring.py:427",
               "K8", bounds["K8"]),

@@ -7,7 +7,7 @@ and scores them with K5) through `rails_tpu_torch` (f32, seeded random
 weights, 26,744 items, one batch of 128 ML-20M-shaped users at N = 211;
 `chip_smoke.train_setup`), with the item table's gradient through K6 when
 `--pallas-scatter` is given. It prints
-  - ms/step on the host clock (median of 5 steps after 3 warm-up steps) and
+  - ms/step on the host clock (median of 30 steps after 3 warm-up steps) and
     the peak device memory of those steps;
   - the device busy share of 2 steps under `torch.profiler`: the union of the
     device-side kernel and memory-op intervals over their wall time;
@@ -25,12 +25,12 @@ import time
 import chip_smoke
 from profile_serving import union_us
 
-WARMUP, TIMED, PROFILED = 3, 5, 2
+WARMUP, TIMED, PROFILED = 3, 30, 2
 TOP_ROWS = 16
 OWN_KERNELS = ("hash_keep_mask_kernel", "ln_gemm_kernel", "hstu_attn_kernel",
-               "attn_row_bwd_kernel", "hstu_attn_bwd_kernel", "adamw_kernel",
+               "attn_row_bwd_kernel", "hstu_attn_bwd_kernel", "adamw_leaves_kernel",
                "mol_loss_fwd_kernel", "mol_loss_bwd_kernel", "reduce_slots_kernel",
-               "scatter_add_rows_kernel")
+               "count_kernel", "scan_kernel", "rank_kernel", "place_kernel", "sum_kernel")
 
 
 def main() -> None:

@@ -72,6 +72,18 @@ __device__ __forceinline__ void atomic_max_float(float* addr, float v) {
   }
 }
 
+// The current device's SM count, read once per device (0 on an error).
+inline int sm_count() {
+  constexpr int kMaxDevices = 64;
+  static int count[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return 0;
+  if (count[dev] == 0 &&
+      cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return count[dev];
+}
+
 // Opt a kernel into more than 48 KB of dynamic shared memory.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {

@@ -147,8 +147,8 @@ def load_library() -> ctypes.CDLL:
     lib.rails_hstu_train_bwd_smem_bytes.restype = ctypes.c_size_t
     lib.rails_hash_keep_mask.argtypes = [p, i, i, i, i, u32, f, p]
     lib.rails_hash_keep_mask.restype = i
-    lib.rails_adamw_update.argtypes = [p] * 4 + [ctypes.c_longlong] + [f] * 9 + [p]
-    lib.rails_adamw_update.restype = i
+    lib.rails_adamw_update_leaves.argtypes = [i, p] + [f] * 9 + [p]
+    lib.rails_adamw_update_leaves.restype = i
     drop = [i, u32, u32, f, i, u32, u32, f]   # use, seed, threshold, scale: qi, then pi
     lib.rails_mol_loss_fwd.argtypes = [i, i, i] + [p] * 9 + [i] * 6 + [f, f] + drop + [p]
     lib.rails_mol_loss_fwd.restype = i
@@ -156,7 +156,9 @@ def load_library() -> ctypes.CDLL:
     lib.rails_mol_loss_bwd.restype = i
     lib.rails_mol_loss_smem_bytes.argtypes = [i] * 5
     lib.rails_mol_loss_smem_bytes.restype = ctypes.c_size_t
-    lib.rails_scatter_add_rows.argtypes = [i] + [p] * 6 + [ctypes.c_longlong, i, i, i, p]
+    ll = ctypes.c_longlong
+    lib.rails_scatter_add_rows.argtypes = ([i] * 3 + [p] * 3 + [ll] + [i] * 4 + [ll] * 3
+                                           + [p, ll] + [p] * 11 + [p])
     lib.rails_scatter_add_rows.restype = i
     lib.rails_cuda_error_string.argtypes = [i]
     lib.rails_cuda_error_string.restype = ctypes.c_char_p

@@ -7,22 +7,21 @@ Replaces `scatter_add_rows` (`rails_tpu/ops/pallas/scatter_add.py:84-194`,
 cast to `out_dtype`. Negative ids wrap once (+ num_rows); ids still out of
 range are dropped; duplicates sum in f32.
 
-The kernel (`csrc/scatter_add.cu`; its header gives the bound and the design)
-takes the update rows in id order: the wrapper sorts the wrapped ids with a
-stable `torch.argsort` and finds each table row's run with
-`torch.searchsorted`, as the JAX function leaves its sort and bounds to XLA,
-and cuts each row's run into pieces of at most `PIECE` entries. One warp sums
-each piece in sorted order; rows of one piece are written straight to the
-table, zeros included, and longer runs (a padding id may own most of a batch)
-are summed piece by piece in a second pass: no atomics, and the bits repeat.
-The lane packing for D < 128 (`scatter_add.py:106-141`) is a TPU layout
-workaround and is not ported.
+On CUDA tensors the wrapper allocates the table and one scratch buffer
+(`scratch_layout`) with `torch.empty` and makes one call into
+`csrc/scatter_add.cu`, whose header gives the bound and the design: the id
+wrap, the per-row counts, their scan, the placement of each update and the
+sums, written in `out_dtype`, all run on the card with no torch sort, search
+or scan and no host sync. Each row sums its updates in increasing index
+order (no floating-point atomics), so two calls give the same bits. The lane
+packing for D < 128 (`scatter_add.py:106-141`) is a TPU layout workaround;
+here a row of D = 64 takes 16 lanes of a warp (`lanes_per_row`).
 
 `scatter_add_rows` follows the port's dispatch rule (`core.device.use_kernel`):
 CPU tensors run `scatter_add_rows_reference` (`index_put_` with accumulate),
 CUDA tensors launch the kernel or raise. `scatter_add_rows.launches` counts
-kernel launches. `gather_rows(table, ids)` is `table[ids]` whose backward is
-`scatter_add_rows`.
+calls of the kernel's entry point. `gather_rows(table, ids)` is `table[ids]`
+whose backward is `scatter_add_rows`.
 """
 
 from __future__ import annotations
@@ -35,7 +34,43 @@ from rails_tpu_torch.core.device import use_kernel
 from rails_tpu_torch.ops import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-PIECE = 256           # sorted entries per warp in the kernel's first pass
+_ID_CODE = {torch.int32: 0, torch.int64: 1}
+# The kernel's constants (`csrc/scatter_add.cu`): a row of more than SHORT
+# updates is a long row, summed in pieces of PIECE updates and ranked in
+# chunks of RANK_CHUNK ids; the scan takes tiles of SCAN_TILE rows.
+SHORT, PIECE, SCAN_TILE, RANK_CHUNK = 32, 128, 4096, 4096
+# Scratch parts in layout order; those up to "cnt" are zeroed by the kernel's
+# memset.
+_SCRATCH_PARTS = ("status", "chunk_cnt", "counters", "done", "cnt", "wid", "start", "slots",
+                  "rank", "long_row", "piece_base", "piece_row", "partial")
+
+
+def scratch_layout(m: int, num_rows: int, d: int) -> dict:
+    """The kernel's scratch for m ids into (num_rows, d): byte offsets of
+    each part (16-byte aligned) in one buffer of `bytes`, the `zero_bytes`
+    the kernel clears from its start, and the grid bounds `max_long` (rows
+    of more than SHORT updates), `max_pieces` (their pieces) and `chunks`
+    (of RANK_CHUNK ids, counted per long row)."""
+    max_long = m // (SHORT + 1)
+    max_pieces = m // PIECE + max_long
+    chunks = -(-m // RANK_CHUNK)
+    sizes = dict(status=8 * (num_rows // SCAN_TILE + 1), chunk_cnt=4 * max_long * chunks,
+                 counters=16, done=4 * max_long, cnt=4 * num_rows, wid=4 * m,
+                 start=4 * (num_rows + 1), slots=4 * m, rank=4 * m, long_row=4 * max_long,
+                 piece_base=4 * max_long, piece_row=4 * max_pieces, partial=4 * max_pieces * d)
+    offsets, at = {}, 0
+    for name in _SCRATCH_PARTS:
+        offsets[name] = at
+        at += -(-sizes[name] // 16) * 16
+    return dict(offsets=offsets, bytes=at, zero_bytes=offsets["wid"], max_long=max_long,
+                max_pieces=max_pieces, chunks=chunks)
+
+
+def lanes_per_row(d: int, vec: int) -> int:
+    """Lanes of a warp that sum one short row of d columns, `vec` per lane:
+    the power of two covering d / vec, between 4 and 32."""
+    need = -(-d // vec)
+    return min(32, max(4, 1 << (need - 1).bit_length()))
 
 
 def _wrapped_ids(ids: torch.Tensor, num_rows: int) -> torch.Tensor:
@@ -72,30 +107,38 @@ def scatter_add_rows(
     if rows.numel() != ids.numel() * d:
         raise ValueError(f"scatter_add_rows: rows {tuple(rows.shape)} do not match ids "
                          f"{tuple(ids.shape)}")
-    lib = _build.load_library()
+    out_dtype = out_dtype or rows.dtype
+    if out_dtype not in _DTYPE_CODE:
+        raise ValueError(f"scatter_add_rows: out_dtype must be float32 or bfloat16; "
+                         f"got {out_dtype}")
+    if max(ids.numel(), num_rows) >= 2**31 - 1:
+        raise ValueError("scatter_add_rows: the kernel indexes ids and rows in int32")
     dev = rows.device
+    if num_rows <= 0:
+        return torch.empty(0, d, dtype=out_dtype, device=dev)
+    flat = ids.reshape(-1)
+    if flat.dtype not in _ID_CODE:
+        flat = flat.long()
+    src = rows.reshape(-1, d).contiguous()
+    m = flat.numel()
+    lay = scratch_layout(m, num_rows, d)
+    out = torch.empty(num_rows, d, dtype=out_dtype, device=dev)
+    scratch = torch.empty(lay["bytes"], dtype=torch.uint8, device=dev)
+    vec = 4 if d % 4 == 0 and src.data_ptr() % (4 * src.element_size()) == 0 else 1
+    base, off = scratch.data_ptr(), lay["offsets"]
+    lib = _build.load_library()
     with torch.cuda.device(dev):
-        flat = _wrapped_ids(ids, num_rows)
-        order = torch.argsort(flat, stable=True)
-        bounds = torch.searchsorted(flat[order],
-                                    torch.arange(num_rows + 1, dtype=torch.int64, device=dev))
-        pieces = torch.clamp((bounds[1:] - bounds[:-1] + PIECE - 1) // PIECE, min=1)
-        first = torch.zeros(num_rows + 1, dtype=torch.int64, device=dev)
-        torch.cumsum(pieces, dim=0, out=first[1:])
-        # sum max(1, ceil(run / PIECE)) <= num_rows + M // PIECE: the grid and
-        # the scratch are sized without reading `first` back (no host sync).
-        max_pieces = num_rows + flat.numel() // PIECE
-        src = rows.reshape(-1, d).contiguous()
-        out = torch.empty(num_rows, d, dtype=torch.float32, device=dev)
-        partial = torch.empty(max_pieces, d, dtype=torch.float32, device=dev)
         err = lib.rails_scatter_add_rows(
-            _DTYPE_CODE[rows.dtype], src.data_ptr(), order.data_ptr(), bounds.data_ptr(),
-            first.data_ptr(), out.data_ptr(), partial.data_ptr(), max_pieces, num_rows, d, PIECE,
+            _ID_CODE[flat.dtype], _DTYPE_CODE[rows.dtype], _DTYPE_CODE[out_dtype],
+            flat.data_ptr(), src.data_ptr(), out.data_ptr(), m, num_rows, d, vec,
+            lanes_per_row(d, vec), lay["max_long"], lay["max_pieces"], lay["chunks"],
+            base + off["status"],
+            lay["zero_bytes"], *(base + off[k] for k in _SCRATCH_PARTS[1:]),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, err, "scatter_add_rows")
     scatter_add_rows.launches += 1
-    return out.to(out_dtype or rows.dtype)
+    return out
 
 
 scatter_add_rows.launches = 0

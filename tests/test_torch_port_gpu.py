@@ -615,9 +615,9 @@ def test_k7_matches_plain_and_torch_fused_adamw(cuda, numel):
     kw = dict(lr=1e-3, c1=c1, c2=c2, b1=0.9, b2=0.98, eps=1e-8, wd=1e-3)
     got = [t.clone() for t in (p, mu, nu)]
     ref = [t.clone() for t in (p, mu, nu)]
-    before = fused_adamw.adamw_leaf_update.launches
+    before = fused_adamw.adamw_update_leaves.launches
     fused_adamw.adamw_leaf_update(grad, *got, **kw)
-    assert fused_adamw.adamw_leaf_update.launches == before + 1
+    assert fused_adamw.adamw_update_leaves.launches == before + 1
     fused_adamw.adamw_leaf_update_reference(grad, *ref, **kw)
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
@@ -626,6 +626,57 @@ def test_k7_matches_plain_and_torch_fused_adamw(cuda, numel):
                         [torch.tensor(float(count), device=cuda)], lr=1e-3, beta1=0.9,
                         beta2=0.98, weight_decay=1e-3, eps=1e-8, amsgrad=False, maximize=False)
     torch.testing.assert_close(got[0], lib[0], rtol=1e-6, atol=1e-6)
+
+
+K7_NUMELS = (1, 7, 4099, 1_000_003, 26_745 * 256)
+
+
+def _k7_leaves(device, seed=3):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [(1e-2 * torch.randn(n, generator=g, device=device),
+             torch.randn(n, generator=g, device=device),
+             1e-3 * torch.randn(n, generator=g, device=device),
+             1e-5 * torch.rand(n, generator=g, device=device)) for n in K7_NUMELS]
+
+
+def test_k7_updates_every_leaf_in_one_launch(cuda):
+    kw = dict(lr=1e-3, c1=1.0 / (1.0 - 0.9**4), c2=1.0 / (1.0 - 0.98**4), b1=0.9, b2=0.98,
+              eps=1e-8, wd=1e-3)
+    leaves = _k7_leaves(cuda)
+    got = [(g, *(t.clone() for t in rest)) for g, *rest in leaves]
+    ref = [(g, *(t.clone() for t in rest)) for g, *rest in leaves]
+    before = fused_adamw.adamw_update_leaves.launches
+    fused_adamw.adamw_update_leaves(got, **kw)
+    assert fused_adamw.adamw_update_leaves.launches == before + 1
+    fused_adamw.adamw_update_leaves_reference(ref, **kw)
+    for n, a, b in zip(K7_NUMELS, got, ref):
+        for x, y in zip(a[1:], b[1:]):
+            assert torch.equal(x, y), n     # the same separately rounded f32 operations
+
+
+def test_k7_takes_more_leaves_than_its_table_in_more_launches(cuda):
+    kw = dict(lr=1e-3, c1=10.0, c2=50.0, b1=0.9, b2=0.98, eps=1e-8, wd=1e-3)
+    g = torch.Generator(device=cuda).manual_seed(50)
+    leaves = [tuple(torch.rand(1000 + k, generator=g, device=cuda) for _ in range(4))
+              for k in range(fused_adamw.MAX_LEAVES + 2)]
+    got = [(gr, *(t.clone() for t in rest)) for gr, *rest in leaves]
+    ref = [(gr, *(t.clone() for t in rest)) for gr, *rest in leaves]
+    before = fused_adamw.adamw_update_leaves.launches
+    fused_adamw.adamw_update_leaves(got, **kw)
+    assert fused_adamw.adamw_update_leaves.launches == before + 2
+    fused_adamw.adamw_update_leaves_reference(ref, **kw)
+    assert all(torch.equal(x, y) for a, b in zip(got, ref) for x, y in zip(a, b))
+
+
+def test_k7_rejects_misaligned_or_non_f32_leaves(cuda):
+    kw = dict(lr=1e-3, c1=10.0, c2=50.0, b1=0.9, b2=0.98, eps=1e-8, wd=1e-3)
+    leaves = _k7_leaves(cuda)[:3]
+    g, p, mu, nu = leaves[2]
+    misaligned = (g[1:], p[1:], mu[1:], nu[1:])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_adamw.adamw_update_leaves(leaves[:2] + [misaligned], **kw)
+    with pytest.raises(ValueError, match="contiguous f32"):
+        fused_adamw.adamw_update_leaves(leaves[:2] + [(g, p.double(), mu, nu)], **kw)
 
 
 def test_train_step_on_cuda_matches_cpu(cuda, monkeypatch):
@@ -750,11 +801,13 @@ def test_k5_rejects_what_it_has_no_instance_for(cuda):
         mol_loss_train.fused_mol_loss_forward(*mixed, 0, **kw)
 
 
-@pytest.mark.parametrize("case", ["duplicates", "wrap_and_drop", "empty", "narrow", "bf16",
-                                  "ml20m", "one_id"])
-def test_k6_matches_plain(cuda, case):
+K6_BOOKS = [f"books_{r}_{o}" for r in ("f32", "bf16") for o in ("f32", "bf16")]
+
+
+def _k6_case(case):
+    """(ids, rows, num_rows, out_dtype) of a K6 case, on the CPU."""
     g = torch.Generator().manual_seed(len(case))
-    num_rows, d = 300, 128
+    num_rows, d, out_dtype = 300, 128, torch.float32
     if case == "duplicates":
         ids = torch.randint(0, 7, (6, 50), generator=g)
     elif case == "wrap_and_drop":
@@ -770,25 +823,73 @@ def test_k6_matches_plain(cuda, case):
         ids = torch.where(torch.rand(128, 211, generator=g) < 0.6, 0, ids)
     elif case == "one_id":     # 1,000 entries of one row: 4 pieces of <= 256
         ids = torch.full((1000,), 17)
+    elif case.startswith("books"):   # Amazon Books: (64, 61) ids into (695,763, 64)
+        num_rows, d = 695_763, 64
+        ids = torch.randint(0, num_rows, (64, 61), generator=g)
+        ids = torch.where(torch.rand(64, 61, generator=g) < 0.57, 0, ids)
+        out_dtype = torch.bfloat16 if case.endswith("bf16") else torch.float32
+    elif case == "long_runs":  # runs just past the in-warp sort limit (32) and the piece (256)
+        runs = ((5, 33), (9, 32), (11, 257), (12, 513))
+        ids = torch.cat([torch.full((n,), r) for r, n in runs])
+        ids = ids[torch.randperm(ids.numel(), generator=g)]
+    elif case == "many_long_rows":  # 700 rows of 33-96 updates each: ~45,000 ids, 11 chunks
+        counts = torch.randint(33, 97, (700,), generator=g)
+        ids = torch.repeat_interleave(torch.arange(700), counts)
+        ids = ids[torch.randperm(ids.numel(), generator=g)]
+    elif case == "odd_width":  # D % 4 != 0: one value a lane
+        num_rows, d = 97, 30
+        ids = torch.randint(-5, num_rows, (3, 31), generator=g)
+        ids[0, :9] = 7      # one row with 9 updates
+    elif case == "one_row":
+        num_rows = 1
+        ids = torch.randint(-1, 1, (5, 40), generator=g)
+    elif case == "all_dropped":
+        ids = torch.cat([torch.randint(num_rows, 2 * num_rows, (50,), generator=g),
+                         torch.randint(-3 * num_rows, -num_rows, (50,), generator=g)])
     else:
         ids = torch.randint(0, num_rows, (2, 64), generator=g)
     rows = torch.randn(ids.shape + (d,), generator=g)
-    if case == "bf16":
+    if case == "bf16" or case.startswith("books_bf16"):
         rows = rows.bfloat16()
-    ids, rows = ids.to(torch.int32).to(cuda), rows.to(cuda)
+    return ids.to(torch.int32), rows, num_rows, out_dtype
+
+
+@pytest.mark.parametrize("case", ["duplicates", "wrap_and_drop", "empty", "narrow", "bf16",
+                                  "ml20m", "one_id", *K6_BOOKS, "long_runs", "many_long_rows",
+                                  "odd_width", "one_row", "all_dropped"])
+def test_k6_matches_plain(cuda, case):
+    ids, rows, num_rows, out_dtype = _k6_case(case)
+    ids, rows = ids.to(cuda), rows.to(cuda)
+    d = rows.shape[-1]
     before = scatter_add.scatter_add_rows.launches
-    got = scatter_add.scatter_add_rows(ids, rows, num_rows, out_dtype=torch.float32)
+    got = scatter_add.scatter_add_rows(ids, rows, num_rows, out_dtype=out_dtype)
     assert scatter_add.scatter_add_rows.launches == before + 1
-    want = scatter_add.scatter_add_rows_reference(ids, rows, num_rows, out_dtype=torch.float32)
+    want = scatter_add.scatter_add_rows_reference(ids, rows, num_rows, out_dtype=out_dtype)
+    assert got.dtype == want.dtype == out_dtype and got.shape == want.shape
     # Both sum in f32, in other orders where ids repeat (up to ~16k times here):
-    # each within the recursive-summation bound n_t * 2^-24 * sum |x| of row t.
+    # each within the recursive-summation bound n_t * 2^-24 * sum |x| of row t;
+    # a bf16 table rounds both f32 sums once more (2^-8 of the value).
     flat = ids.reshape(-1).long()
     flat = torch.where(flat < 0, flat + num_rows, flat)
     keep = (flat >= 0) & (flat < num_rows)
     mass = torch.zeros(num_rows, d, dtype=torch.float64, device=cuda).index_add_(
         0, flat[keep], rows.reshape(-1, d)[keep].double().abs())
     count = torch.bincount(flat[keep], minlength=num_rows).double()[:, None]
-    assert bool(((got - want).abs().double() <= 2 * count * 2.0**-24 * mass).all())
+    tol = 2 * count * 2.0**-24 * mass
+    if out_dtype == torch.bfloat16:
+        tol = tol + 2.0**-8 * want.double().abs()
+    assert bool(((got.double() - want.double()).abs() <= tol).all())
+    if case == "all_dropped":
+        assert not bool(got.any())
+
+
+@pytest.mark.parametrize("case", ["ml20m", "one_id", "long_runs", "many_long_rows"])
+def test_k6_two_calls_give_the_same_bits(cuda, case):
+    ids, rows, num_rows, out_dtype = _k6_case(case)
+    ids, rows = ids.to(cuda), rows.to(cuda)
+    first = scatter_add.scatter_add_rows(ids, rows, num_rows, out_dtype=out_dtype)
+    assert torch.equal(first, scatter_add.scatter_add_rows(ids, rows, num_rows,
+                                                           out_dtype=out_dtype))
 
 
 def test_fast_train_step_on_cuda_matches_cpu(cuda, monkeypatch):

@@ -168,4 +168,4 @@ def test_adamw_matches_fused_adamw(warmup):
             np.testing.assert_allclose(popt.state.nu[k].numpy(), np.asarray(st.nu[k]),
                                        **ADAMW_TOL)
     assert popt.state.count == int(st.count) == 3
-    assert port_adamw.adamw_leaf_update.launches == 0
+    assert port_adamw.adamw_update_leaves.launches == 0
