@@ -6,8 +6,15 @@ training step end to end.
 Run from the root of a checkout with one CUDA card: `python3 chip_smoke.py`.
 Phases (one line each, any failure raises and exits non-zero):
   1. device: card name, `nvidia-smi` name and power limit; TF32 off.
-  2. build:  nvcc builds every kernel for sm_90a into build/rails_tpu_torch/.
-  3. K1 (`fused_hstu_block`) vs its plain version at ML-20M block shapes.
+  2. build:  nvcc builds every kernel for sm_90a into build/rails_tpu_torch/;
+     the tensor-core instructions (HMMA, HGMMA) of each of K1's bf16 kernels
+     in the library's SASS (`cuobjdump -sass`), none may have zero.
+  3. K1 (`fused_hstu_block`) vs its plain version at ML-20M block shapes,
+     with each stage's device time and the instruction it multiplies with;
+     its three bf16 stages (`project`, `attention_oinput` pointwise and
+     softmax, `out_gemm`) each vs its plain stage version; K1 at the Amazon
+     Books (D=64, h=8, dqk=dv=8, N=61) and ML-1M (D=50, h=2, dqk=dv=25,
+     N=211) widths and the softmax variant at h=4, dqk=dv=16.
   4. K2 (`fused_mol_scores_t`) vs its plain version over 26,744 items.
   5. e2e: ml-20m-hstu-mol serving through get_eval_state and
      make_eval_step_fn, in bf16 (as served) and in f32, each with launch
@@ -134,6 +141,7 @@ import re
 import statistics
 import subprocess
 import time
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -168,6 +176,15 @@ K6_TOL = 1e-6
 K5_RATES = (0.2, 0.1)          # ml-20m-hstu-mol: softmax, gating-qi dropout
 NUM_NEGATIVES = 128            # ml-20m-hstu-mol num_negatives
 K1_TOL = {"float32": (1e-3, 1e-4), "bfloat16": (2e-2, 2e-2)}   # (rtol, atol)
+# K1 geometries (D, h, dqk, dv, max_seq_len): ml-20m-hstu-mol, amzn-books-hstu-mol,
+# ml-1m's HSTU, and h=4 with dqk=dv=16 (a softmax map over h*dqk = 64).
+K1_GEOMS = {"ml-20m": (256, 8, 32, 32, 211), "books": (64, 8, 8, 8, 61),
+            "ml-1m": (50, 2, 25, 25, 211), "h=4": (64, 4, 16, 16, 211)}
+# K1's bf16 tensor-core kernels (csrc/hstu_block_tc.cuh) and the instruction
+# each multiplies with; every other K1 kernel runs FFMA on the CUDA cores.
+TC_KERNELS = ("tc_proj_kernel", "tc_attn_kernel", "tc_softmax_kernel", "tc_out_kernel")
+TC_INSTRUCTION = "mma.sync.m16n8k16 bf16 (HMMA)"
+K1_STAGES = ("K1 proj", "K1 attn", "K1 out")   # their launch counters
 K2_TOL_F32 = (1e-4, 1e-3)      # logits carry 1/T = 20
 # (dtype name, min rank agreement, min top-120 overlap) of the serving step's
 # kernel path against its plain path on the same model, tables and batches.
@@ -256,7 +273,8 @@ def ptxas_summary(log: str) -> str:
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             mangled = entry.group(1)
-            name = re.search(r"(ln_gemm_kernel|hstu_attn_bwd_kernel|hstu_attn_kernel|"
+            name = re.search(r"(tc_proj_kernel|tc_attn_kernel|tc_softmax_kernel|tc_out_kernel|"
+                             r"ln_gemm_kernel|hstu_attn_bwd_kernel|hstu_attn_kernel|"
                              r"softmax_bwd_rows_kernel|softmax_bwd_cols_kernel|"
                              r"hstu_softmax_attn_kernel|mol_probe_kernel|"
                              r"attn_row_bwd_kernel|mol_scores_kernel|hash_keep_mask_kernel|"
@@ -266,8 +284,9 @@ def ptxas_summary(log: str) -> str:
                              r"mol_group_block_max_kernel)", mangled)
             # An int8 instance's first template argument is `signed char` ("Ia");
             # its bf16 query type puts "bfloat16" in the name too.
+            tc = bool(name) and name.group(1).startswith("tc_")
             dtype = ("int8" if re.search(r"kernelIaL", mangled) else
-                     "bf16" if "bfloat16" in mangled else "f32")
+                     "bf16" if "bfloat16" in mangled or tc else "f32")
             args = [dtype] + re.findall(r"L[ib](\d+)E", mangled)
             label = f"{name.group(1) if name else mangled}<{','.join(args)}>"
             spilled = "?"
@@ -279,6 +298,34 @@ def ptxas_summary(log: str) -> str:
             out.append(f"{label} {regs.group(1)} ({spilled})")
             label = None
     return ", ".join(out)
+
+
+def tensor_core_sass(lib_path) -> dict:
+    """HMMA and HGMMA instruction counts of each instance of K1's bf16
+    kernels in the built library's SASS (`cuobjdump -sass`), by
+    "kernel<dv_p> (source)". Raises if a kernel is missing or has neither."""
+    from rails_tpu_torch.ops import _build
+
+    cuobjdump = str(Path(_build.find_nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, label = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"(tc_\w+?_kernel)(?:ILi(\d+)EE)?", line)
+            src = "encode_probe.cu" if "encode_probe_cu" in line else "hstu_block.cu"
+            label = (f"{m.group(1)}{'<' + m.group(2) + '>' if m.group(2) else ''} ({src})"
+                     if m else None)
+            if label:
+                counts[label] = [0, 0]
+        elif label:
+            counts[label][0] += len(re.findall(r"\bHMMA\.", line))
+            counts[label][1] += len(re.findall(r"\bHGMMA\.", line))
+    missing = [k for k in TC_KERNELS if not any(label.startswith(k) for label in counts)]
+    empty = [label for label, (hmma, hgmma) in counts.items() if hmma + hgmma == 0]
+    if missing or empty:
+        raise AssertionError(f"tensor-core kernels missing {missing} or without HMMA/HGMMA {empty}")
+    return counts
 
 
 def host_us(fn, iters: int = 200) -> float:
@@ -323,55 +370,62 @@ def bound(flops: float, nbytes: float, dtype_name: str) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def block_flops(b: int, n: int) -> int:
-    """FLOPs of one HSTU block forward at ml-20m widths: the two projections
-    and q k^T, a v over the causal pairs j <= i the block needs."""
-    f = 2 * H * DV + 2 * H * DQK
-    pairs = n * (n + 1) // 2
-    return 2 * b * n * D * f + b * H * pairs * 2 * (DQK + DV) + 2 * b * n * H * DV * D
-
-
-def block_bytes(b: int, n: int, itemsize: int) -> int:
-    """Bytes one block forward must move: x and out, the weights, the bias
-    tables, the column mask and the timestamps."""
-    f = 2 * H * DV + 2 * H * DQK
-    return (itemsize * (2 * b * n * D + D * f + H * DV * D)
-            + 4 * (D + n * n + 128 + b * n + b * (n + 1)))
-
-
-def k1_inputs(b: int, n: int, dtype, device, seed: int = 0):
-    """Random ML-20M-shaped K1 operands: ragged lengths, sorted int32
-    timestamps, the layer's rel-pos slab for n <= MAX_SEQ_LEN."""
+def k1_inputs(b: int, n: int, dtype, device, seed: int = 0, geom: tuple = K1_GEOMS["ml-20m"]):
+    """Random K1 operands at a geometry of K1_GEOMS (ML-20M by default):
+    ragged lengths, sorted int32 timestamps, the layer's rel-pos slab for
+    n <= max_seq_len."""
     import torch
 
+    d, h, dqk, dv, max_seq_len = geom
     g = torch.Generator().manual_seed(seed)
-    f = 2 * H * DV + 2 * H * DQK
+    f = 2 * h * dv + 2 * h * dqk
     lengths = torch.randint(1, n, (b,), generator=g)
     colmask = (torch.arange(n)[None, :] < lengths[:, None]).float()
     ts = torch.cumsum(torch.randint(60, 600_000, (b, n), generator=g), dim=1).to(torch.int32)
     ext = torch.cat([ts, ts[:, n - 1 :]], dim=1)
-    pos_w = 0.02 * torch.randn(2 * MAX_SEQ_LEN - 1, generator=g)
+    pos_w = 0.02 * torch.randn(2 * max_seq_len - 1, generator=g)
     i, j = torch.arange(n)[:, None], torch.arange(n)[None, :]
     args = (
-        torch.randn(b, n, D, generator=g).to(dtype),
+        torch.randn(b, n, d, generator=g).to(dtype),
         colmask,
-        (torch.randn(D, f, generator=g) / D ** 0.5).to(dtype),
-        (torch.randn(H * DV, D, generator=g) / (H * DV) ** 0.5).to(dtype),
-        0.02 * torch.randn(D, generator=g),
-        pos_w[j - i + MAX_SEQ_LEN - 1].contiguous(),
+        (torch.randn(d, f, generator=g) / d ** 0.5).to(dtype),
+        (torch.randn(h * dv, d, generator=g) / (h * dv) ** 0.5).to(dtype),
+        0.02 * torch.randn(d, generator=g),
+        pos_w[j - i + max_seq_len - 1].contiguous(),
         ext.contiguous(),
         0.1 * torch.randn(128, generator=g),
     )
-    kw = dict(num_heads=H, dqk=DQK, dv=DV, inv_n=1.0 / MAX_SEQ_LEN, eps=1e-6, num_buckets=128)
+    kw = dict(num_heads=h, dqk=dqk, dv=dv, inv_n=1.0 / max_seq_len, eps=1e-6, num_buckets=128)
     return tuple(a.to(device) for a in args), kw
 
 
-def check_k1(b: int, n: int, dtype, device) -> dict:
+def stage_split(fn) -> str:
+    """One call of fn under torch.profiler: each device operation's us and
+    the instruction its products run on."""
+    timeline = device_timeline(fn)
+    if not timeline:
+        return "not recorded by torch.profiler"
+    parts = []
+    for _, name, us, _ in timeline:
+        short = re.search(r"(tc_\w+?_kernel|ln_gemm_kernel|hstu_\w*attn_kernel)", name)
+        label = short.group(1) if short else name[:40]
+        unit = TC_INSTRUCTION if label.startswith("tc_") else "FFMA (CUDA cores)"
+        parts.append(f"{label} {us:.2f} us [{unit}]")
+    return " + ".join(parts) + f" = {sum(t[2] for t in timeline):.2f} us device"
+
+
+def check_k1(b: int, n: int, dtype, device, geom_name: str = "ml-20m",
+             normalization: str = "rel_bias") -> dict:
+    """K1 against its plain version at a geometry of K1_GEOMS; kernel, plain
+    and bound ms, and one call's device time per stage."""
     import torch
 
     from rails_tpu_torch.ops.hstu_block import fused_hstu_block, fused_hstu_block_reference
 
-    args, kw = k1_inputs(b, n, dtype, device)
+    geom = K1_GEOMS[geom_name]
+    d, h, dqk, dv, _ = geom
+    args, kw = k1_inputs(b, n, dtype, device, geom=geom)
+    kw["normalization"] = normalization
     got = fused_hstu_block(*args, **kw)
     ref = fused_hstu_block_reference(*args, **kw)
     rtol, atol = K1_TOL[str(dtype).split(".")[-1]]
@@ -380,11 +434,76 @@ def check_k1(b: int, n: int, dtype, device) -> dict:
     ms = cuda_ms(lambda: fused_hstu_block(*args, **kw))
     plain_ms = cuda_ms(lambda: fused_hstu_block_reference(*args, **kw))
     dt = str(dtype)[6:]
-    bd = bound(block_flops(b, n), block_bytes(b, n, args[0].element_size()), dt)
-    print(f"[K1] {dt} B={b} n={n} D={D} h={H}: max|err| {err:.3e} "
-          f"(rtol {rtol}, atol {atol}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    softmax = normalization == "softmax_rel_bias"
+    bd = bound(k1_variant_flops(b, n, softmax, h * dv, geom=geom),
+               k1_variant_bytes(b, n, args[0].element_size(), h * dv, "internal", geom=geom), dt)
+    label = "" if geom_name == "ml-20m" else f" {geom_name}"
+    print(f"[K1]{label} {dt} B={b} n={n} D={d} h={h} dqk={dqk} dv={dv}"
+          f"{' softmax' if softmax else ''}: max|err| {err:.3e} (rtol {rtol}, atol {atol}); "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bd['bound_ms']:.4f} ms "
+          f"({bd['bound_by']}); stages {stage_split(lambda: fused_hstu_block(*args, **kw))}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": None}
+
+
+def check_k1_stages(b: int, n: int, device) -> dict:
+    """K1's three bf16 tensor-core stages at ML-20M widths, each against its
+    plain stage version on the same inputs (the attention and the output GEMM
+    fed the plain stages' outputs): error, kernel, plain and bound ms. The
+    attention twice: pointwise and softmax. Returns the four by name."""
+    import torch
+
+    from rails_tpu_torch.ops import hstu_block as hb
+
+    d, h, dqk, dv, _ = K1_GEOMS["ml-20m"]
+    rtol, atol = K1_TOL["bfloat16"]
+    (x, colmask, uvqk, o_kernel, o_bias, rel_pos, ext, tsw), kw = k1_inputs(
+        b, n, torch.bfloat16, device)
+    layout = dict(num_heads=h, dqk=dqk, dv=dv)
+    m, hv, width = b * n, h * dv, hb.vqk_layout(h, dqk, dv)[2]
+    out = {}
+
+    def report(name, got, want, kernel, plain, flops, nbytes):
+        err = 0.0
+        for g_, w_ in zip(got, want):
+            torch.testing.assert_close(g_.float(), w_.float(), rtol=rtol, atol=atol)
+            err = max(err, (g_.float() - w_.float()).abs().max().item())
+        ms, plain_ms = cuda_ms(kernel), cuda_ms(plain, iters=3, warmup=1)
+        bd = bound(flops, nbytes, "bfloat16")
+        print(f"[K1-stage] {name} bf16 B={b} n={n}: max|err| {err:.3e} (rtol {rtol}, atol "
+              f"{atol}); kernel {ms:.3f} ms [{TC_INSTRUCTION}], plain {plain_ms:.3f} ms, bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": None}
+
+    for softmax in (False, True):
+        pkw = dict(layout, inv_n=kw["inv_n"], softmax=softmax)
+        u_p, v_p, q_p, k_p = hb.project_reference(x, uvqk, **pkw)
+        vqk_p = hb.pack_vqk(v_p, q_p, k_p, **layout).contiguous()
+        if not softmax:
+            report("project", hb.project(x, uvqk, **pkw), (u_p, vqk_p),
+                   lambda: hb.project(x, uvqk, **pkw), lambda: hb.project_reference(x, uvqk, **pkw),
+                   2 * m * d * 4 * hv, 2 * (m * d + d * 4 * hv) + 4 * m * hv + 2 * m * width)
+        akw = dict(layout, softmax=softmax)
+        args = (u_p.contiguous(), vqk_p, colmask, rel_pos, ext, tsw)
+
+        def plain(akw=akw):
+            return hb.attention_oinput_reference(u_p, v_p, q_p, k_p, colmask, rel_pos, ext, tsw,
+                                                 **akw)
+
+        pairs = n * (n + 1) // 2
+        flops = (b * (2 * n * n * h * dqk + 2 * pairs * h * dv) if softmax
+                 else b * h * pairs * 2 * (dqk + dv))
+        report("attention softmax" if softmax else "attention",
+               (hb.attention_oinput(*args, **akw),), (plain(),),
+               lambda args=args, akw=akw: hb.attention_oinput(*args, **akw), plain, flops,
+               2 * m * width + 4 * m * hv + 2 * m * hv + 4 * (2 * m + b + n * n + 128))
+        if not softmax:
+            o_ref = plain()
+    report("out_gemm", (hb.out_gemm(o_ref, o_kernel, o_bias, x),),
+           (hb.out_gemm_reference(o_ref, o_kernel, o_bias, x),),
+           lambda: hb.out_gemm(o_ref, o_kernel, o_bias, x),
+           lambda: hb.out_gemm_reference(o_ref, o_kernel, o_bias, x), 2 * m * hv * d,
+           2 * (m * hv + hv * d + 2 * m * d) + 4 * d)
+    return out
 
 
 def id_overlap(ia, ib) -> float:
@@ -548,6 +667,8 @@ def kernel_counters() -> dict:
         "K8": mol_scoring.fused_mol_ub_t, "K9": mol_scoring.fused_mol_group_block_max,
         "K10": mol_scoring.fused_mol_scores_tiles,
         "P1": encode_probe.encode_probe_block, "P2": mol_probe.mol_probe_scores,
+        "K1 proj": hstu_block.project, "K1 attn": hstu_block.attention_oinput,
+        "K1 out": hstu_block.out_gemm,
     }
     counters = {name: (fn, "launches") for name, fn in wrappers.items()}
     counters["K2-bmax"] = (mol_scoring.fused_mol_scores_t, "blockmax_launches")
@@ -670,8 +791,10 @@ def end_to_end(device, name: str, smi: str, n_batches: int = 3) -> dict:
         run_batches(serve, batches)                                       # warm-up
         reset_launches()
         outs_k, ms = run_batches(serve, batches)
-        counts = {k: v for k, v in launch_counts().items() if k in ("K1", "K2")}
-        if counts["K1"] != model.cfg.hstu.num_blocks * len(batches) or counts["K2"] < len(batches):
+        counts = {k: v for k, v in launch_counts().items() if k in ("K1", "K2") + K1_STAGES}
+        stages = counts["K1"] if dtype == torch.bfloat16 else 0   # f32: the CUDA-core K1
+        if (counts["K1"] != model.cfg.hstu.num_blocks * len(batches) or counts["K2"] < len(batches)
+                or any(counts[k] != stages for k in K1_STAGES)):
             raise AssertionError(f"main path launches {counts} for {len(batches)} batches")
         launches[dtype_name] = counts
         check_outputs(outs_k, batches)
@@ -2161,27 +2284,32 @@ def k1_variant_inputs(b: int, n: int, dtype, device, instance: str):
     return args, kw
 
 
-def k1_variant_flops(b: int, n: int, softmax: bool, out_rows: int, attention: bool = True) -> int:
-    """FLOPs one block forward needs at ml-20m widths: the projection, the
-    attention (pointwise: q k^T and a v over the causal pairs; softmax: q k^T
-    over every pair, since the denominator covers all columns, and a v over
-    the causal ones) and an output projection of `out_rows` rows."""
-    f = 2 * H * DV + 2 * H * DQK
+def k1_variant_flops(b: int, n: int, softmax: bool, out_rows: int, attention: bool = True,
+                     geom: tuple = K1_GEOMS["ml-20m"]) -> int:
+    """FLOPs one block forward needs at a geometry of K1_GEOMS: the
+    projection, the attention (pointwise: q k^T and a v over the causal
+    pairs; softmax: q k^T over every pair, since the denominator covers all
+    columns, and a v over the causal ones) and an output projection of
+    `out_rows` rows."""
+    d, h, dqk, dv, _ = geom
+    f = 2 * h * dv + 2 * h * dqk
     pairs = n * (n + 1) // 2
     if not attention:
         attn = 0
     elif softmax:
-        attn = b * (2 * n * n * H * DQK + 2 * pairs * H * DV)
+        attn = b * (2 * n * n * h * dqk + 2 * pairs * h * dv)
     else:
-        attn = b * H * pairs * 2 * (DQK + DV)
-    return 2 * b * n * D * f + attn + 2 * b * n * out_rows * D
+        attn = b * h * pairs * 2 * (dqk + dv)
+    return 2 * b * n * d * f + attn + 2 * b * n * out_rows * d
 
 
-def k1_variant_bytes(b: int, n: int, itemsize: int, out_rows: int, bias: str) -> int:
+def k1_variant_bytes(b: int, n: int, itemsize: int, out_rows: int, bias: str,
+                     geom: tuple = K1_GEOMS["ml-20m"]) -> int:
     """Bytes one block forward must move: x and out, the weights, the column
     mask, and the bias tables (internal) or the (B, n, n) bias (precomputed)."""
-    f = 2 * H * DV + 2 * H * DQK
-    nbytes = itemsize * (2 * b * n * D + D * f + out_rows * D) + 4 * (D + b * n)
+    d, h, dqk, dv, _ = geom
+    f = 2 * h * dv + 2 * h * dqk
+    nbytes = itemsize * (2 * b * n * d + d * f + out_rows * d) + 4 * (d + b * n)
     if bias == "internal":
         nbytes += 4 * (n * n + 128 + b * (n + 1))
     elif bias in ("raw", "penalty"):
@@ -2255,7 +2383,9 @@ def variants_e2e(device, name: str, smi: str) -> dict:
         counts = {k: v for k, v in launch_counts().items() if v}
         check_outputs(outs_k, batches)
         want = model.cfg.hstu.num_blocks * len(batches)
-        if counts.get("K1") != want or counts.get("K2", 0) < len(batches):
+        stages = want if model.cfg.hstu.linear_activation == "silu" else 0   # `tc_block`
+        if (counts.get("K1") != want or counts.get("K2", 0) < len(batches)
+                or any(counts.get(k, 0) != stages for k in K1_STAGES)):
             raise AssertionError(f"{instance}: launches {counts}, want K1 {want}")
         with plain_kernels():
             outs_p, ms_p = run_batches(serve, batches)
@@ -2478,11 +2608,20 @@ def main() -> None:
     print(f"[build] every kernel for sm_90a in {time.perf_counter() - t0:.1f} s -> {lib_path}")
     print(f"[build] registers per thread (spilled bytes): "
           f"{ptxas_summary((lib_path.parent / 'build.log').read_text())}")
+    sass = tensor_core_sass(lib_path)
+    print(f"[build] tensor-core instructions in the SASS (HMMA, HGMMA) of K1's bf16 kernels: "
+          f"{ {k: tuple(v) for k, v in sass.items()} }")
 
     k1 = {}
     for dtype in (torch.float32, torch.bfloat16):
         for n in (64, MAX_SEQ_LEN):
             k1[(dtype, n)] = check_k1(BATCH, n, dtype, device)
+    k1_stages = check_k1_stages(BATCH, MAX_SEQ_LEN, device)
+    for dtype in (torch.float32, torch.bfloat16):
+        check_k1(BATCH, K1_GEOMS["books"][4], dtype, device, "books")
+        check_k1(BATCH, MAX_SEQ_LEN, dtype, device, "ml-1m")
+        check_k1(BATCH, MAX_SEQ_LEN, dtype, device, "h=4", "softmax_rel_bias")
+    torch.cuda.empty_cache()
     k2 = {kind: check_k2(BATCH, NUM_ITEMS, kind, device)
           for kind in ("float32", "bfloat16", "int8")}
     launches = end_to_end(device, name, smi)
@@ -2644,6 +2783,17 @@ def main() -> None:
               "rails_tpu/ops/pallas/hstu_block.py:432", "K1", k1v[(inst, torch.bfloat16)],
               k1v_runs[inst])
         for inst in K1_VAR_INSTANCES
+    ]
+    tc_src, k1_site = "hstu_block_tc.cuh", "rails_tpu/ops/pallas/hstu_block.py:432"
+    summary += [
+        entry("tc_proj_kernel (K1 LayerNorm + projection, bf16)", tc_src, k1_site, "K1 proj",
+              k1_stages["project"]),
+        entry("tc_attn_kernel (K1 attention + o_input, bf16)", tc_src, k1_site, "K1 attn",
+              k1_stages["attention"]),
+        entry("tc_softmax_kernel (K1 softmax attention + o_input, bf16)", tc_src, k1_site,
+              "K1 attn", k1_stages["attention softmax"], k1v_runs["softmax"]),
+        entry("tc_out_kernel (K1 output GEMM, bf16)", tc_src, k1_site, "K1 out",
+              k1_stages["out_gemm"]),
     ]
     summary += [
         entry("encode_probe_block (full)", "encode_probe.cu",

@@ -18,7 +18,14 @@
 // device times is the cost of the term on this card. These instances live in
 // this file alone: K1's and K4's builds do not change.
 // Bound: as K1 (hstu_block.cuh), the FP32 FMA rate of the CUDA cores.
+// The bf16 modes at the widths of hstu_block_tc.cuh run K1's tensor-core
+// kernels with the same switches (rails_encode_probe_tc), so that P1 prices
+// the tensor-core K1: noact the projection epilogue's SiLU, linattn the
+// attention's gate, nottb the bias tile's time buckets, noattn the attention
+// launch's epilogue over v, ident the projection with the epilogue
+// (LN(x) @ uvqk)[:, :D] + x.
 #include "hstu_block.cuh"
+#include "hstu_block_tc.cuh"
 
 namespace rails {
 namespace {
@@ -94,4 +101,35 @@ extern "C" int rails_encode_probe(int dtype, int mode, const void* x, const floa
                                attn, out, B, n, D, H, dqk, dv, inv_n, eps, max_bucket, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// The bf16 probe on the tensor-core kernels (hstu_block_tc.cuh); u, vqk and
+// oin are scratch as for rails_hstu_tc_block, o_kernel (3*H*dv, D).
+extern "C" int rails_encode_probe_tc(int mode, const void* x, const float* colmask,
+                                     const void* uvqk, const void* o_kernel, const float* o_bias,
+                                     const float* rel_pos, const int* ext, const float* tsw,
+                                     float* u, void* vqk, void* oin, void* out, int B, int n, int D,
+                                     int H, int dqk, int dv, float inv_n, float eps,
+                                     int max_bucket, void* stream) {
+  using rails::tc::bf16;
+  namespace r = rails;
+  auto s = static_cast<cudaStream_t>(stream);
+  const int M = B * n;
+  const auto* xb = static_cast<const bf16*>(x);
+  if (mode == r::kIdent) {
+    return r::tc::launch_tc_proj(xb, static_cast<const bf16*>(uvqk), u, static_cast<bf16*>(vqk),
+                                 static_cast<bf16*>(out), M, D, H, dqk, dv, eps, inv_n, 0, 1, s);
+  }
+  if (mode < r::kFull || mode > r::kNoAttn) return cudaErrorInvalidValue;
+  cudaError_t err = r::tc::launch_tc_proj(xb, static_cast<const bf16*>(uvqk), u,
+                                          static_cast<bf16*>(vqk), nullptr, M, D, H, dqk, dv, eps,
+                                          inv_n, mode == r::kNoAct ? 0 : 1, 0, s);
+  if (err != cudaSuccess) return err;
+  err = r::tc::launch_tc_attn(static_cast<const bf16*>(vqk), u, colmask, rel_pos, ext, tsw,
+                              nullptr, static_cast<bf16*>(oin), B, n, H, dqk, dv, 1.f, eps,
+                              max_bucket, mode == r::kNoTtb ? r::kBiasRelPos : r::kBiasInternal,
+                              mode == r::kLinAttn ? 1 : 0, 0, 1, mode == r::kNoAttn ? 1 : 0, s);
+  if (err != cudaSuccess) return err;
+  return r::tc::launch_tc_out(static_cast<const bf16*>(oin), static_cast<const bf16*>(o_kernel),
+                              o_bias, xb, static_cast<bf16*>(out), M, 3 * H * dv, D, s);
 }

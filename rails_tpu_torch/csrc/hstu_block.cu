@@ -8,8 +8,10 @@
 // pointwise SiLU or softmax attention; u * LN(attn) or the concat_ua o_input.
 // The kernels, their design and what bounds them are in hstu_block.cuh; this
 // file is K1's entry point, which picks one instance of each of the three
-// launches and runs them without dropout.
+// launches and runs them without dropout. The bf16 instances at the widths
+// of hstu_block_tc.cuh run its tensor-core kernels instead (rails_hstu_tc_*).
 #include "hstu_block.cuh"
+#include "hstu_block_tc.cuh"
 
 namespace rails {
 namespace {
@@ -107,6 +109,45 @@ extern "C" size_t rails_hstu_attn_smem_bytes(int n, int dqk, int dv) {
 
 extern "C" size_t rails_hstu_softmax_smem_bytes(int n, int H, int dqk, int dv) {
   return rails::softmax_smem_bytes(n, H, dqk, dv);
+}
+
+// The bf16 tensor-core block (hstu_block_tc.cuh), one stage a function: the
+// projection writes u (B*n, H*dv) f32 and vqk (B*n, padded H*(dv_p +
+// 2*dqk_p)) bf16, the attention reads them and writes oin (B*n, H*dv or
+// 3*H*dv) bf16, the output GEMM reads it; the caller allocates each. bias_mode
+// as above; vscale multiplies v before its bf16 rounding (1/max_seq_len
+// pointwise, 1 under softmax).
+extern "C" int rails_hstu_tc_project(const void* x, const void* uvqk, float* u, void* vqk, int M,
+                                     int D, int H, int dqk, int dv, float eps, float vscale,
+                                     int act_none, void* stream) {
+  using rails::tc::bf16;
+  return rails::tc::launch_tc_proj(static_cast<const bf16*>(x), static_cast<const bf16*>(uvqk), u,
+                                   static_cast<bf16*>(vqk), nullptr, M, D, H, dqk, dv, eps, vscale,
+                                   act_none ? 0 : 1, 0, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int rails_hstu_tc_attention(const void* vqk, const float* u, const float* colmask,
+                                       const float* rel_pos, const int* ext, const float* tsw,
+                                       const void* bias, void* oin, int B, int n, int H, int dqk,
+                                       int dv, float inv_sqrt_dqk, float eps, int max_bucket,
+                                       int bias_mode, int softmax, int concat_ua, void* stream) {
+  using rails::tc::bf16;
+  return rails::tc::launch_tc_attn(
+      static_cast<const bf16*>(vqk), u, colmask, rel_pos, ext, tsw,
+      static_cast<const bf16*>(bias), static_cast<bf16*>(oin), B, n, H, dqk, dv, inv_sqrt_dqk,
+      eps, max_bucket, bias_mode, 0, softmax, concat_ua, 0, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int rails_hstu_tc_out(const void* oin, const void* o_kernel, const float* o_bias,
+                                 const void* x, void* out, int M, int K, int N, void* stream) {
+  using rails::tc::bf16;
+  return rails::tc::launch_tc_out(static_cast<const bf16*>(oin), static_cast<const bf16*>(o_kernel),
+                                  o_bias, static_cast<const bf16*>(x), static_cast<bf16*>(out), M,
+                                  K, N, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" size_t rails_hstu_tc_attn_smem_bytes(int n, int H, int dqk, int dv, int softmax) {
+  return rails::tc::attn_smem_bytes(n, H, dqk, dv, softmax);
 }
 
 extern "C" const char* rails_cuda_error_string(int err) {

@@ -48,10 +48,15 @@
 // K4's forward (`launch`) runs every train variant with K1's kernels.
 // Bound: at serving shapes the FLOPs (2*n*D*F + 4*h*n^2*dqk + 2*n*h*dv*D per
 // user; softmax 4*n^2*h*dqk, the map shared by the heads) dominate the bytes,
-// so the kernels are bound by the FP32 FMA rate of the CUDA cores; the Y round
-// trip adds ~0.9 GB of traffic per layer at B=512, n=211, and a precomputed
-// bias 45 MB (bf16). Moving the projections onto wgmma and keeping Y on chip
-// is later work.
+// so these kernels are bound by the FP32 FMA rate of the CUDA cores; the Y
+// round trip adds ~0.9 GB of traffic per layer at B=512, n=211, and a
+// precomputed bias 45 MB (bf16). They run K1's f32 instances, its bf16
+// instances outside `tc_block` (ops/hstu_block.py: other widths, and the
+// linear activation), K4's forward and the bf16 train backward's recompute
+// of attn. K1's bf16 instances run on the tensor cores
+// (hstu_block_tc.cuh: mma.sync GEMMs and attention, q, k and v stored in bf16,
+// the bias built once for all heads); K4's forward moves there with its
+// backward, which reads the f32 y and attn these kernels write.
 #pragma once
 
 #include <cmath>

@@ -111,6 +111,16 @@ def load_library() -> ctypes.CDLL:
     p, i, f, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
     lib.rails_hstu_block_fwd.argtypes = [i] + [p] * 12 + [i] * 6 + [f] * 3 + [i] * 5 + [p]
     lib.rails_hstu_block_fwd.restype = i
+    lib.rails_hstu_tc_project.argtypes = [p] * 4 + [i] * 5 + [f, f, i, p]
+    lib.rails_hstu_tc_project.restype = i
+    lib.rails_hstu_tc_attention.argtypes = [p] * 8 + [i] * 5 + [f, f] + [i] * 4 + [p]
+    lib.rails_hstu_tc_attention.restype = i
+    lib.rails_hstu_tc_out.argtypes = [p] * 5 + [i] * 3 + [p]
+    lib.rails_hstu_tc_out.restype = i
+    lib.rails_hstu_tc_attn_smem_bytes.argtypes = [i] * 5
+    lib.rails_hstu_tc_attn_smem_bytes.restype = ctypes.c_size_t
+    lib.rails_encode_probe_tc.argtypes = [i] + [p] * 12 + [i] * 6 + [f, f, i, p]
+    lib.rails_encode_probe_tc.restype = i
     lib.rails_hstu_attn_smem_bytes.argtypes = [i, i, i]
     lib.rails_hstu_attn_smem_bytes.restype = ctypes.c_size_t
     lib.rails_encode_probe.argtypes = [i, i] + [p] * 11 + [i] * 6 + [f, f, i, p]

@@ -15,11 +15,13 @@ prices the term:
     ident    out = (LN(x) @ uvqk)[:, :D] + x: LayerNorm and the whole
              projection GEMM, its other columns dropped
 
-Kernel: `csrc/encode_probe.cu`, K1's kernels (`csrc/hstu_block.cuh`)
-instantiated with the probe-only template switches; what bounds them is in
-that header. `encode_probe_block` follows the port's dispatch rule (CPU
-tensors run `encode_probe_block_reference`, CUDA tensors launch the kernel
-or raise) and counts its kernel launches in `.launches`.
+Kernel: `csrc/encode_probe.cu`, K1's kernels with the probe's switches: at
+the widths of `hstu_block.tc_route` (bf16) the tensor-core kernels of
+`csrc/hstu_block_tc.cuh` (`rails_encode_probe_tc`), otherwise the CUDA-core
+kernels of `csrc/hstu_block.cuh`; what bounds them is in those headers.
+`encode_probe_block` follows the port's dispatch rule (CPU tensors run
+`encode_probe_block_reference`, CUDA tensors launch the kernel or raise) and
+counts its kernel launches in `.launches`.
 """
 
 from __future__ import annotations
@@ -28,7 +30,14 @@ import torch
 
 from rails_tpu_torch.core.device import use_kernel
 from rails_tpu_torch.ops import _build
-from rails_tpu_torch.ops.hstu_block import MAX_SMEM_BYTES, ln, time_bucket
+from rails_tpu_torch.ops.hstu_block import (
+    MAX_SMEM_BYTES,
+    check_tc_smem,
+    ln,
+    tc_route,
+    time_bucket,
+    vqk_layout,
+)
 
 MODES = ("full", "noact", "linattn", "nottb", "noattn", "ident")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -140,6 +149,23 @@ def encode_probe_block(
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f"encode_probe_block: unsupported dtype {x.dtype}")
     lib = _build.load_library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if tc_route(x.dtype, d, h, dqk, dv):
+        check_tc_smem(lib, n, h, dqk, dv, False, "encode_probe_block")
+        with torch.cuda.device(x.device):
+            u = torch.empty(b * n, h * dv, dtype=torch.float32, device=x.device)
+            vqk = torch.empty(b * n, vqk_layout(h, dqk, dv)[2], dtype=torch.bfloat16,
+                              device=x.device)
+            oin = torch.empty(b * n, 3 * h * dv, dtype=torch.bfloat16, device=x.device)
+            out = torch.empty_like(x)
+            err = lib.rails_encode_probe_tc(
+                MODES.index(mode), x.data_ptr(), colmask.data_ptr(), uvqk.data_ptr(),
+                o_kernel.data_ptr(), o_bias.data_ptr(), rel_pos.data_ptr(), ext.data_ptr(),
+                tsw.data_ptr(), u.data_ptr(), vqk.data_ptr(), oin.data_ptr(), out.data_ptr(), b,
+                n, d, h, dqk, dv, inv_n, eps, min(num_buckets, 127), stream)
+        _build.check(lib, err, "encode_probe_block")
+        encode_probe_block.launches += 1
+        return out
     if lib.rails_hstu_attn_smem_bytes(n, dqk, dv) > MAX_SMEM_BYTES:
         raise ValueError(f"encode_probe_block: n={n} does not fit the attention's shared memory")
     with torch.cuda.device(x.device):
@@ -150,8 +176,7 @@ def encode_probe_block(
             _DTYPE_CODE[x.dtype], MODES.index(mode), x.data_ptr(), colmask.data_ptr(),
             uvqk.data_ptr(), o_kernel.data_ptr(), o_bias.data_ptr(), rel_pos.data_ptr(),
             ext.data_ptr(), tsw.data_ptr(), y.data_ptr(), attn.data_ptr(), out.data_ptr(),
-            b, n, d, h, dqk, dv, inv_n, eps, min(num_buckets, 127),
-            torch.cuda.current_stream().cuda_stream,
+            b, n, d, h, dqk, dv, inv_n, eps, min(num_buckets, 127), stream,
         )
     _build.check(lib, err, "encode_probe_block")
     encode_probe_block.launches += 1

@@ -16,14 +16,25 @@ penalty), or absent. o_input is u * LayerNorm(attn), or [u, LN(attn),
 u * LN(attn)] when the output projection has 3*h*dv rows (`concat_ua`, read
 from its shape as in JAX).
 
-Kernel: `csrc/hstu_block.cu`, three launches per call (LN+projection GEMM,
-the attention, LN+output GEMM), f32 accumulation for f32 or bf16 operands.
-What bounds it on an H100 and how the softmax attention streams k and v
-through shared memory is in `csrc/hstu_block.cuh`.
+Kernels: three launches per call (LN + projection GEMM, the attention,
+the output GEMM), f32 accumulation. bf16 operands at the widths of
+`tc_route` with the SiLU projection (`tc_block`) run the tensor-core kernels
+of `csrc/hstu_block_tc.cuh` (mma.sync bf16): the projection stores u in f32
+and v, q, k as the bf16 values the JAX kernel rounds them to (`project`), the
+attention builds the bias once for all heads and writes o_input in bf16
+(`attention_oinput`), and `out_gemm` adds bo and x. Every other instance
+(f32, bf16 outside the width rule, linear_activation="none") runs the
+CUDA-core kernels of `csrc/hstu_block.cuh`. What bounds each and how is in
+the two headers.
 
-`fused_hstu_block` follows the port's dispatch rule (`core.device.use_kernel`):
-CPU tensors run `fused_hstu_block_reference`, CUDA tensors launch the kernel
-or raise. `fused_hstu_block.launches` counts kernel launches.
+Each stage has a plain version (`project_reference`,
+`attention_oinput_reference`, `out_gemm_reference`); composed they give
+`fused_hstu_block_reference` bit for bit. Every wrapper follows the port's
+dispatch rule (`core.device.use_kernel`): CPU tensors run the plain version,
+CUDA tensors launch the kernel or raise. `fused_hstu_block.launches` counts
+block calls on the card, and `project.launches`, `attention_oinput.launches`
+and `out_gemm.launches` each stage's tensor-core launches (the block's own
+included).
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from rails_tpu_torch.core.device import use_kernel
 from rails_tpu_torch.ops import _build
@@ -54,6 +66,106 @@ _ACTIVATIONS = ("silu", "none")
 _NORMALIZATIONS = ("rel_bias", "hstu_rel_bias", "softmax_rel_bias")
 # Bias modes of the kernel (`enum Bias`, csrc/hstu_block.cuh).
 _BIAS_INTERNAL, _BIAS_TENSOR, _BIAS_NONE = 0, 1, 2
+# Heads a warp of the tensor-core attention holds at most, and the static
+# shared memory of its LayerNorm reduction (csrc/hstu_block_tc.cuh).
+_TC_HEADS_PER_WARP = 4
+_TC_STATIC_SMEM = 2 * 64 * 2 * 4
+
+
+def tc_route(dtype: torch.dtype, d: int, num_heads: int, dqk: int, dv: int) -> bool:
+    """The width rule of K1's tensor-core kernels (`widths_ok` in
+    csrc/hstu_block_tc.cuh): bf16 operands, D <= 256 (a block's LayerNorm'd x
+    rows fit the projection's A tile), dqk <= 32 and dv <= 32 (heads padded
+    to 16 or 32 and to 8, 16 or 32 columns), and at most 4 heads a head warp
+    (h <= 3, or an even h <= 8). f32, and bf16 at any other width, run the
+    CUDA-core kernels of csrc/hstu_block.cuh."""
+    warps = 2 if num_heads % 2 == 0 else 1
+    return (dtype == torch.bfloat16 and 1 <= d <= 256 and 1 <= dqk <= 32 and 1 <= dv <= 32
+            and num_heads >= 1 and num_heads // warps <= _TC_HEADS_PER_WARP)
+
+
+def tc_block(dtype: torch.dtype, d: int, num_heads: int, dqk: int, dv: int,
+             activation: str) -> bool:
+    """Whether `fused_hstu_block` runs the tensor-core kernels: the widths of
+    `tc_route` and the SiLU projection. linear_activation="none" stays on the
+    CUDA-core kernels. Its unsquashed projection carries any change in the
+    order of the GEMMs' f32 sums through 16 blocks into the served ranking: on
+    one ml-20m-hstu-mol batch of 512 the tensor-core block agrees with the
+    plain path on 0.945 of the top-120 ids, and a plain path whose GEMMs run
+    in f64 on 0.951, below E2E_TOL's 0.96, while the CUDA-core kernels'
+    sequential f32 sums agree on 0.973 (`profile_k1_agreement.py`, PERF.md
+    §6). The SiLU variants agree on 0.968-0.985 through the tensor cores."""
+    return activation == "silu" and tc_route(dtype, d, num_heads, dqk, dv)
+
+
+def require_tc(dtype: torch.dtype, d: int, num_heads: int, dqk: int, dv: int, what: str) -> None:
+    """Raise ValueError unless `tc_route` takes these widths: the stage
+    kernels have no other instance."""
+    if not tc_route(dtype, d, num_heads, dqk, dv):
+        raise ValueError(f"{what}: no tensor-core instance for {dtype}, D={d}, h={num_heads}, "
+                         f"dqk={dqk}, dv={dv} (tc_route: bf16, D <= 256, dqk and dv <= 32, "
+                         f"h <= 3 or an even h <= 8)")
+
+
+def vqk_layout(num_heads: int, dqk: int, dv: int) -> Tuple[int, int, int]:
+    """(dqk_p, dv_p, width) of the projection's bf16 [v | q | k] rows: each
+    head padded with zeros to dqk_p (a multiple of 16) and dv_p (8, or a
+    multiple of 16) columns, as `col_map` in csrc/hstu_block_tc.cuh lays
+    them out."""
+    dqk_p = -(-dqk // 16) * 16
+    dv_p = 8 if dv <= 8 else -(-dv // 16) * 16
+    return dqk_p, dv_p, num_heads * (dv_p + 2 * dqk_p)
+
+
+def pack_vqk(v: torch.Tensor, q: torch.Tensor, k: torch.Tensor, *, num_heads: int, dqk: int,
+             dv: int) -> torch.Tensor:
+    """v (..., h*dv), q and k (..., h*dqk) in the padded layout of
+    `vqk_layout`."""
+    dqk_p, dv_p, _ = vqk_layout(num_heads, dqk, dv)
+    lead = v.shape[:-1]
+
+    def pad(t, w, w_p):
+        return F.pad(t.reshape(*lead, num_heads, w), (0, w_p - w)).reshape(*lead, num_heads * w_p)
+
+    return torch.cat([pad(v, dv, dv_p), pad(q, dqk, dqk_p), pad(k, dqk, dqk_p)], dim=-1)
+
+
+def split_vqk(vqk: torch.Tensor, *, num_heads: int, dqk: int,
+              dv: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(v, q, k) without the padding of `pack_vqk`."""
+    dqk_p, dv_p, _ = vqk_layout(num_heads, dqk, dv)
+    lead = vqk.shape[:-1]
+    hv, hq = num_heads * dv_p, num_heads * dqk_p
+
+    def unpad(t, w, w_p):
+        return t.reshape(*lead, num_heads, w_p)[..., :w].reshape(*lead, num_heads * w)
+
+    return (unpad(vqk[..., :hv], dv, dv_p), unpad(vqk[..., hv:hv + hq], dqk, dqk_p),
+            unpad(vqk[..., hv + hq:], dqk, dqk_p))
+
+
+def check_tc_smem(lib, n: int, num_heads: int, dqk: int, dv: int, softmax: bool,
+                  what: str) -> None:
+    """Raise unless the tensor-core attention block fits a block's shared
+    memory at length n: its dynamic bytes (`attn_smem_bytes` in
+    csrc/hstu_block_tc.cuh: q, a key and a value tile and the bias tile, or
+    the (64, n) f32 scores under softmax, and the epilogue's LN(attn) tile)
+    plus its static LayerNorm reduction."""
+    smem = (lib.rails_hstu_tc_attn_smem_bytes(n, num_heads, dqk, dv, int(softmax))
+            + _TC_STATIC_SMEM)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{what}: n={n} needs {smem} B of shared memory in the tensor-core "
+                         f"attention; a block has {MAX_SMEM_BYTES}")
+
+
+def _check_bias_flags(rel_pos, bias, mask_in_bias: bool, softmax: bool) -> None:
+    if rel_pos is not None and bias is not None:
+        raise ValueError("the in-kernel bias (rel_pos, ext, tsw) and `bias` are exclusive")
+    if mask_in_bias and bias is None:
+        raise ValueError("mask_in_bias requires a bias")
+    if softmax and mask_in_bias:
+        raise ValueError("softmax applies the mask after normalization: pass the raw bias "
+                         "with mask_in_bias=False")
 
 
 def _variant(num_heads: int, dv: int, o_kernel: torch.Tensor, rel_pos, bias,
@@ -62,13 +174,7 @@ def _variant(num_heads: int, dv: int, o_kernel: torch.Tensor, rel_pos, bias,
     concat_ua, which the output projection's row count says."""
     if activation not in _ACTIVATIONS:
         raise ValueError(f"activation {activation!r}; expected one of {_ACTIVATIONS}")
-    if rel_pos is not None and bias is not None:
-        raise ValueError("the in-kernel bias (rel_pos, ext, tsw) and `bias` are exclusive")
-    if mask_in_bias and bias is None:
-        raise ValueError("mask_in_bias requires a bias")
-    if softmax and mask_in_bias:
-        raise ValueError("softmax applies the mask after normalization: pass the raw bias "
-                         "with mask_in_bias=False")
+    _check_bias_flags(rel_pos, bias, mask_in_bias, softmax)
     rows = o_kernel.shape[0]
     if rows not in (num_heads * dv, 3 * num_heads * dv):
         raise ValueError(f"o_kernel has {rows} rows; expected h*dv={num_heads * dv} or "
@@ -190,6 +296,224 @@ def block_forward_reference(
     return out.to(x.dtype), attn
 
 
+def project_reference(
+    x: torch.Tensor, uvqk: torch.Tensor, *, num_heads: int, dqk: int, dv: int, inv_n: float,
+    eps: float = 1e-6, activation: str = "silu", softmax: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the projection stage: (u, v, q, k) with u (B, n,
+    h*dv) f32 and v, q, k in the matmul dtype, the values the JAX kernel
+    rounds them to before any use (`hstu_block.py:167-176`): v scaled by
+    1/max_seq_len before its rounding unless `softmax`."""
+    if activation not in _ACTIVATIONS:
+        raise ValueError(f"activation {activation!r}; expected one of {_ACTIVATIONS}")
+    h, mm = num_heads, uvqk.dtype
+    y = ln(x.float(), eps).to(mm).float() @ uvqk.float()
+    if activation == "silu":
+        y = y * torch.sigmoid(y)
+    v = y[..., h * dv : 2 * h * dv]
+    return (y[..., : h * dv], (v if softmax else v * inv_n).to(mm),
+            y[..., 2 * h * dv : 2 * h * dv + h * dqk].to(mm), y[..., 2 * h * dv + h * dqk :].to(mm))
+
+
+def attention_oinput_reference(
+    u: torch.Tensor,          # (B, n, h*dv) f32
+    v: torch.Tensor,          # (B, n, h*dv), matmul dtype (1/max_seq_len folded in unless softmax)
+    q: torch.Tensor,          # (B, n, h*dqk), matmul dtype
+    k: torch.Tensor,          # (B, n, h*dqk), matmul dtype
+    colmask: torch.Tensor,
+    rel_pos: Optional[torch.Tensor] = None,
+    ext: Optional[torch.Tensor] = None,
+    tsw: Optional[torch.Tensor] = None,
+    *,
+    num_heads: int,
+    dqk: int,
+    dv: int,
+    eps: float = 1e-6,
+    num_buckets: int = 128,
+    bias: Optional[torch.Tensor] = None,
+    mask_in_bias: bool = False,
+    softmax: bool = False,
+    concat_ua: bool = False,
+) -> torch.Tensor:
+    """Plain version of the attention stage: o_input (B, n, h*dv, or 3*h*dv
+    with concat_ua) in the matmul dtype, from the projection's outputs; the
+    bias, mask and attention as in `block_forward_reference`."""
+    b, n, _ = u.shape
+    h, mm = num_heads, q.dtype
+    v, q, k = v.float(), q.float(), k.float()
+    if rel_pos is not None:
+        delta = ext[:, 1:, None] - ext[:, None, :n]
+        add = rel_pos[None] + tsw[time_bucket(delta, num_buckets).long()]
+    else:
+        add = None if bias is None else bias.float()
+    mask = None
+    if not mask_in_bias:
+        causal = torch.tril(torch.ones(n, n, dtype=torch.float32, device=u.device))
+        mask = causal[None] * colmask[:, None, :]
+    if softmax:
+        qk = q @ k.transpose(1, 2)
+        if add is not None:
+            qk = qk + add
+        p = qk * (1.0 / float(dqk) ** 0.5)
+        e = torch.exp(p - p.amax(dim=-1, keepdim=True))
+        a = e / e.sum(dim=-1, keepdim=True)
+        if mask is not None:
+            a = a * mask
+        attn = a.to(mm).float() @ v
+    else:
+        qk = torch.einsum("bnhd,bmhd->bhnm", q.reshape(b, n, h, dqk), k.reshape(b, n, h, dqk))
+        if add is not None:
+            qk = qk + add[:, None]
+        a = qk * torch.sigmoid(qk)
+        if mask is not None:
+            a = a * mask[:, None]
+        attn = torch.einsum("bhnm,bmhd->bnhd", a.to(mm).float(), v.reshape(b, n, h, dv))
+        attn = attn.reshape(b, n, h * dv)
+    a_ln = ln(attn, eps)
+    return (torch.cat([u, a_ln, u * a_ln], dim=-1) if concat_ua else u * a_ln).to(mm)
+
+
+def out_gemm_reference(o_input: torch.Tensor, o_kernel: torch.Tensor, o_bias: torch.Tensor,
+                       x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the output stage: o_input @ Wo + bo + x in x's dtype."""
+    return (o_input.float() @ o_kernel.float() + o_bias.float() + x.float()).to(x.dtype)
+
+
+def _check(what: str, expect: dict) -> None:
+    """Raise unless every named tensor is contiguous with its dtype and shape."""
+    for name, (t, dtype, shape) in expect.items():
+        if t is None or t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+            got = "None" if t is None else (f"{t.dtype} {tuple(t.shape)} "
+                                            f"contiguous={t.is_contiguous()}")
+            raise ValueError(f"{what}: {name} must be a contiguous {dtype} {shape}; got {got}")
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def project(x: torch.Tensor, uvqk: torch.Tensor, *, num_heads: int, dqk: int, dv: int,
+            inv_n: float, eps: float = 1e-6, activation: str = "silu",
+            softmax: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The projection stage: (u (B, n, h*dv) f32, vqk (B, n, width)), v, q
+    and k in the padded layout of `vqk_layout`. CUDA: `tc_proj_kernel`
+    (bf16 at the widths of `tc_route`, else raises)."""
+    if not use_kernel(x, uvqk):
+        u, v, q, k = project_reference(x, uvqk, num_heads=num_heads, dqk=dqk, dv=dv, inv_n=inv_n,
+                                       eps=eps, activation=activation, softmax=softmax)
+        return u, pack_vqk(v, q, k, num_heads=num_heads, dqk=dqk, dv=dv)
+    b, n, d = x.shape
+    h = num_heads
+    require_tc(x.dtype, d, h, dqk, dv, "project")
+    if activation not in _ACTIVATIONS:
+        raise ValueError(f"activation {activation!r}; expected one of {_ACTIVATIONS}")
+    _check("project", {"x": (x, x.dtype, (b, n, d)),
+                       "uvqk": (uvqk, x.dtype, (d, 2 * h * dv + 2 * h * dqk))})
+    lib = _build.load_library()
+    with torch.cuda.device(x.device):
+        u = torch.empty(b, n, h * dv, dtype=torch.float32, device=x.device)
+        vqk = torch.empty(b, n, vqk_layout(h, dqk, dv)[2], dtype=torch.bfloat16, device=x.device)
+        err = lib.rails_hstu_tc_project(
+            x.data_ptr(), uvqk.data_ptr(), u.data_ptr(), vqk.data_ptr(), b * n, d, h, dqk, dv,
+            eps, 1.0 if softmax else inv_n, int(activation == "none"),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, err, "project")
+    project.launches += 1
+    return u, vqk
+
+
+def attention_oinput(
+    u: torch.Tensor,
+    vqk: torch.Tensor,
+    colmask: torch.Tensor,
+    rel_pos: Optional[torch.Tensor] = None,
+    ext: Optional[torch.Tensor] = None,
+    tsw: Optional[torch.Tensor] = None,
+    *,
+    num_heads: int,
+    dqk: int,
+    dv: int,
+    eps: float = 1e-6,
+    num_buckets: int = 128,
+    bias: Optional[torch.Tensor] = None,
+    mask_in_bias: bool = False,
+    softmax: bool = False,
+    concat_ua: bool = False,
+) -> torch.Tensor:
+    """The attention stage over `project`'s (u, vqk): o_input (B, n, h*dv,
+    or 3*h*dv with concat_ua). CUDA: `tc_attn_kernel` or `tc_softmax_kernel`
+    (bf16 at the widths of `tc_route`, else raises)."""
+    tensors = tuple(t for t in (u, vqk, colmask, rel_pos, ext, tsw, bias) if t is not None)
+    kw = dict(num_heads=num_heads, dqk=dqk, dv=dv, eps=eps, num_buckets=num_buckets, bias=bias,
+              mask_in_bias=mask_in_bias, softmax=softmax, concat_ua=concat_ua)
+    if not use_kernel(*tensors):
+        v, q, k = split_vqk(vqk, num_heads=num_heads, dqk=dqk, dv=dv)
+        return attention_oinput_reference(u, v, q, k, colmask, rel_pos, ext, tsw, **kw)
+    b, n, _ = u.shape
+    h = num_heads
+    require_tc(vqk.dtype, 1, h, dqk, dv, "attention_oinput")
+    _check_bias_flags(rel_pos, bias, mask_in_bias, softmax)
+    expect = {"u": (u, torch.float32, (b, n, h * dv)),
+              "vqk": (vqk, torch.bfloat16, (b, n, vqk_layout(h, dqk, dv)[2])),
+              "colmask": (colmask, torch.float32, (b, n))}
+    expect.update(_bias_expect(rel_pos, ext, tsw, bias, b, n, torch.bfloat16))
+    _check("attention_oinput", expect)
+    lib = _build.load_library()
+    check_tc_smem(lib, n, h, dqk, dv, softmax, "attention_oinput")
+    with torch.cuda.device(u.device):
+        oin = torch.empty(b, n, (3 if concat_ua else 1) * h * dv, dtype=torch.bfloat16,
+                          device=u.device)
+        err = lib.rails_hstu_tc_attention(
+            vqk.data_ptr(), u.data_ptr(), colmask.data_ptr(), _ptr(rel_pos), _ptr(ext),
+            _ptr(tsw), _ptr(bias), oin.data_ptr(), b, n, h, dqk, dv, 1.0 / float(dqk) ** 0.5,
+            eps, min(num_buckets, 127), _bias_mode(rel_pos, bias), int(softmax), int(concat_ua),
+            torch.cuda.current_stream(u.device).cuda_stream)
+    _build.check(lib, err, "attention_oinput")
+    attention_oinput.launches += 1
+    return oin
+
+
+def out_gemm(o_input: torch.Tensor, o_kernel: torch.Tensor, o_bias: torch.Tensor,
+             x: torch.Tensor) -> torch.Tensor:
+    """The output stage: o_input @ Wo + bo + x in x's dtype. CUDA:
+    `tc_out_kernel` (bf16 only, else raises)."""
+    if not use_kernel(o_input, o_kernel, o_bias, x):
+        return out_gemm_reference(o_input, o_kernel, o_bias, x)
+    b, n, d = x.shape
+    rows = o_input.shape[-1]
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"out_gemm: no tensor-core instance for {x.dtype}")
+    _check("out_gemm", {"o_input": (o_input, x.dtype, (b, n, rows)),
+                        "o_kernel": (o_kernel, x.dtype, (rows, d)),
+                        "o_bias": (o_bias, torch.float32, (d,)), "x": (x, x.dtype, (b, n, d))})
+    lib = _build.load_library()
+    with torch.cuda.device(x.device):
+        out = torch.empty_like(x)
+        err = lib.rails_hstu_tc_out(o_input.data_ptr(), o_kernel.data_ptr(), o_bias.data_ptr(),
+                                    x.data_ptr(), out.data_ptr(), b * n, rows, d,
+                                    torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, err, "out_gemm")
+    out_gemm.launches += 1
+    return out
+
+
+def _bias_mode(rel_pos, bias) -> int:
+    if rel_pos is not None:
+        return _BIAS_INTERNAL
+    return _BIAS_TENSOR if bias is not None else _BIAS_NONE
+
+
+def _bias_expect(rel_pos, ext, tsw, bias, b: int, n: int, dtype: torch.dtype) -> dict:
+    """The bias operands a kernel reads: the in-kernel tables, or the
+    precomputed (B, n, n) bias in the compute dtype, or none."""
+    if rel_pos is not None:
+        return dict(rel_pos=(rel_pos, torch.float32, (n, n)), ext=(ext, torch.int32, (b, n + 1)),
+                    tsw=(tsw, torch.float32, (128,)))
+    if bias is not None:
+        return dict(bias=(bias, dtype, (b, n, n)))
+    return {}
+
+
 def fused_hstu_block(
     x: torch.Tensor,
     colmask: torch.Tensor,
@@ -213,7 +537,6 @@ def fused_hstu_block(
 ) -> torch.Tensor:
     """One HSTU block forward, eval (`HSTUBlock.__call__` semantics); same
     arguments as `fused_hstu_block_reference`."""
-    internal = rel_pos is not None
     tensors = tuple(t for t in (x, colmask, uvqk, o_kernel, o_bias, rel_pos, ext, tsw, bias)
                     if t is not None)
     kw = dict(num_heads=num_heads, dqk=dqk, dv=dv, inv_n=inv_n, eps=eps,
@@ -228,46 +551,44 @@ def fused_hstu_block(
     b, n, d = x.shape
     h = num_heads
     f = 2 * h * dv + 2 * h * dqk
+    rows = (3 if concat_ua else 1) * h * dv
     expect = {
         "x": (x, x.dtype, (b, n, d)),
         "colmask": (colmask, torch.float32, (b, n)),
         "uvqk": (uvqk, x.dtype, (d, f)),
-        "o_kernel": (o_kernel, x.dtype, ((3 if concat_ua else 1) * h * dv, d)),
+        "o_kernel": (o_kernel, x.dtype, (rows, d)),
         "o_bias": (o_bias, torch.float32, (d,)),
     }
-    if internal:
-        expect.update(rel_pos=(rel_pos, torch.float32, (n, n)),
-                      ext=(ext, torch.int32, (b, n + 1)), tsw=(tsw, torch.float32, (128,)))
-    elif bias is not None:
-        expect.update(bias=(bias, x.dtype, (b, n, n)))
-    for name, (t, dtype, shape) in expect.items():
-        if t is None or t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
-            got = "None" if t is None else (f"{t.dtype} {tuple(t.shape)} "
-                                            f"contiguous={t.is_contiguous()}")
-            raise ValueError(f"fused_hstu_block: {name} must be a contiguous {dtype} {shape}; "
-                             f"got {got}")
+    expect.update(_bias_expect(rel_pos, ext, tsw, bias, b, n, x.dtype))
+    _check("fused_hstu_block", expect)
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f"fused_hstu_block: unsupported dtype {x.dtype}")
+    if tc_block(x.dtype, d, h, dqk, dv, activation):
+        u, vqk = project(x, uvqk, num_heads=h, dqk=dqk, dv=dv, inv_n=inv_n, eps=eps,
+                         activation=activation, softmax=softmax)
+        o_input = attention_oinput(u, vqk, colmask, rel_pos, ext, tsw, num_heads=h, dqk=dqk,
+                                   dv=dv, eps=eps, num_buckets=num_buckets, bias=bias,
+                                   mask_in_bias=mask_in_bias, softmax=softmax,
+                                   concat_ua=concat_ua)
+        out = out_gemm(o_input, o_kernel, o_bias, x)
+        fused_hstu_block.launches += 1
+        return out
     lib = _build.load_library()
     smem = (lib.rails_hstu_softmax_smem_bytes(n, h, dqk, dv) if softmax
             else lib.rails_hstu_attn_smem_bytes(n, dqk, dv))
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"fused_hstu_block: n={n} needs {smem} B of shared memory")
-    mode = _BIAS_INTERNAL if internal else _BIAS_TENSOR if bias is not None else _BIAS_NONE
-
-    def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
-        return None if t is None else t.data_ptr()
-
     with torch.cuda.device(x.device):
         y = torch.empty(b * n, f, dtype=torch.float32, device=x.device)
         attn = torch.empty(b * n, h * dv, dtype=torch.float32, device=x.device)
         out = torch.empty_like(x)
         err = lib.rails_hstu_block_fwd(
             _DTYPE_CODE[x.dtype], x.data_ptr(), colmask.data_ptr(), uvqk.data_ptr(),
-            o_kernel.data_ptr(), o_bias.data_ptr(), ptr(rel_pos), ptr(ext), ptr(tsw), ptr(bias),
-            y.data_ptr(), attn.data_ptr(), out.data_ptr(), b, n, d, h, dqk, dv, inv_n,
+            o_kernel.data_ptr(), o_bias.data_ptr(), _ptr(rel_pos), _ptr(ext), _ptr(tsw),
+            _ptr(bias), y.data_ptr(), attn.data_ptr(), out.data_ptr(), b, n, d, h, dqk, dv, inv_n,
             1.0 / float(dqk) ** 0.5, eps, min(num_buckets, 127), int(activation == "none"),
-            int(concat_ua), mode, int(softmax), torch.cuda.current_stream().cuda_stream,
+            int(concat_ua), _bias_mode(rel_pos, bias), int(softmax),
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(lib, err, "fused_hstu_block")
     fused_hstu_block.launches += 1
@@ -275,3 +596,6 @@ def fused_hstu_block(
 
 
 fused_hstu_block.launches = 0
+project.launches = 0
+attention_oinput.launches = 0
+out_gemm.launches = 0

@@ -64,11 +64,16 @@ def _k1_args(b, n, d, h, dqk, dv, max_seq_len, dtype, device, seed=0):
     return {k: v.to(device) for k, v in args.items()}, kw
 
 
+# K1's shapes (b, n, D, h, dqk, dv, max_seq_len): small, ragged and ML-20M,
+# and the Amazon Books (D=64, h=8, dqk=dv=8, N=61) and ML-1M (D=50, h=2,
+# dqk=dv=25, N=211) widths, which pad the heads of the tensor-core kernels.
+K1_SHAPES = [(5, 35, 32, 2, 16, 16, 35), (3, 97, 64, 4, 16, 16, 211), (2, 211, 256, 8, 32, 32, 211),
+             (3, 61, 64, 8, 8, 8, 61), (2, 211, 50, 2, 25, 25, 211)]
+K1_SHAPE_IDS = ["tiny", "ragged", "ml20m", "books", "ml1m"]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize(
-    "shape", [(5, 35, 32, 2, 16, 16, 35), (3, 97, 64, 4, 16, 16, 211), (2, 211, 256, 8, 32, 32, 211)],
-    ids=["tiny", "ragged", "ml20m"],
-)
+@pytest.mark.parametrize("shape", K1_SHAPES, ids=K1_SHAPE_IDS)
 def test_k1_kernel_matches_plain(cuda, shape, dtype):
     args, kw = _k1_args(*shape, dtype, cuda)
     before = hstu_block.fused_hstu_block.launches
@@ -118,10 +123,7 @@ def _k1_variant_args(shape, variant, dtype, device):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("variant", K1_VARIANTS, ids=lambda v: "-".join(str(x) for x in v))
-@pytest.mark.parametrize(
-    "shape", [(5, 35, 32, 2, 16, 16, 35), (3, 97, 64, 4, 16, 16, 211), (2, 211, 256, 8, 32, 32, 211)],
-    ids=["tiny", "ragged", "ml20m"],
-)
+@pytest.mark.parametrize("shape", K1_SHAPES, ids=K1_SHAPE_IDS)
 def test_k1_variants_match_plain(cuda, shape, variant, dtype):
     args, kw = _k1_variant_args(shape, variant, dtype, cuda)
     before = hstu_block.fused_hstu_block.launches
@@ -129,6 +131,76 @@ def test_k1_variants_match_plain(cuda, shape, variant, dtype):
     assert hstu_block.fused_hstu_block.launches == before + 1
     want = hstu_block.fused_hstu_block_reference(**args, **kw)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("variant", K1_VARIANTS, ids=lambda v: "-".join(str(x) for x in v))
+@pytest.mark.parametrize("shape", K1_SHAPES, ids=K1_SHAPE_IDS)
+def test_k1_stage_kernels_match_plain(cuda, shape, variant):
+    """Each tensor-core stage against its plain version on the same inputs:
+    the projection's u within f32 sums of another order and v, q, k within
+    one bf16 rounding; the attention and the output GEMM fed the plain
+    stage's outputs."""
+    args, kw = _k1_variant_args(shape, variant, torch.bfloat16, cuda)
+    h, dqk, dv = kw["num_heads"], kw["dqk"], kw["dv"]
+    softmax = kw.pop("normalization") == "softmax_rel_bias"
+    activation = kw.pop("activation")
+    inv_n = kw.pop("inv_n")
+    concat_ua = args["o_kernel"].shape[0] == 3 * h * dv
+    proj_kw = dict(num_heads=h, dqk=dqk, dv=dv, inv_n=inv_n, activation=activation,
+                   softmax=softmax)
+    counts = [f.launches for f in (hstu_block.project, hstu_block.attention_oinput,
+                                   hstu_block.out_gemm)]
+    u, vqk = hstu_block.project(args["x"], args["uvqk"], **proj_kw)
+    u_p, v_p, q_p, k_p = hstu_block.project_reference(args["x"], args["uvqk"], **proj_kw)
+    # Both round LN(x) to bf16 from statistics summed in other orders: an
+    # element one bf16 ulp apart (2^-6 at |LN(x)| in [2, 4)) moves y by that
+    # times a uvqk entry (~1/16); v, q, k then round to bf16 once more.
+    proj_tol = dict(rtol=1e-2, atol=2e-3)
+    torch.testing.assert_close(u, u_p, **proj_tol)
+    layout = dict(num_heads=h, dqk=dqk, dv=dv)
+    for got, want in zip(hstu_block.split_vqk(vqk, **layout), (v_p, q_p, k_p)):
+        torch.testing.assert_close(got.float(), want.float(), **proj_tol)
+    vqk_p = hstu_block.pack_vqk(v_p, q_p, k_p, **layout).contiguous()
+    assert vqk.shape == vqk_p.shape
+    # The padding is zeros.
+    assert torch.equal(hstu_block.pack_vqk(*hstu_block.split_vqk(vqk, **layout), **layout), vqk)
+    bias_kw = {k: args.get(k) for k in ("rel_pos", "ext", "tsw")}
+    att_kw = dict(layout, bias=args.get("bias"), mask_in_bias=args.get("mask_in_bias", False),
+                  softmax=softmax, concat_ua=concat_ua)
+    oin = hstu_block.attention_oinput(u_p.contiguous(), vqk_p, args["colmask"], **bias_kw,
+                                      **att_kw)
+    oin_p = hstu_block.attention_oinput_reference(u_p, v_p, q_p, k_p, args["colmask"], **bias_kw,
+                                                  **att_kw)
+    torch.testing.assert_close(oin.float(), oin_p.float(), **TOL[torch.bfloat16])
+    out = hstu_block.out_gemm(oin_p, args["o_kernel"], args["o_bias"], args["x"])
+    out_p = hstu_block.out_gemm_reference(oin_p, args["o_kernel"], args["o_bias"], args["x"])
+    torch.testing.assert_close(out.float(), out_p.float(), rtol=1e-2, atol=1e-2)
+    assert [f.launches for f in (hstu_block.project, hstu_block.attention_oinput,
+                                 hstu_block.out_gemm)] == [c + 1 for c in counts]
+
+
+def test_k1_tensor_core_route_and_counters(cuda):
+    """bf16 at the widths of `tc_route` with SiLU runs the three stage
+    kernels (one launch of each counter); f32, wider heads and the linear
+    activation run the CUDA-core block (`tc_block`); the stage wrappers raise
+    outside the width rule; softmax scores past a block's shared memory
+    raise."""
+    counters = (hstu_block.project, hstu_block.attention_oinput, hstu_block.out_gemm)
+    small, wide = (2, 40, 64, 4, 16, 16, 40), (2, 40, 64, 4, 64, 64, 40)
+    for shape, dtype, activation, stages in ((small, torch.bfloat16, "silu", 1),
+                                             (small, torch.float32, "silu", 0),
+                                             (wide, torch.bfloat16, "silu", 0),
+                                             (small, torch.bfloat16, "none", 0)):
+        args, kw = _k1_args(*shape, dtype, cuda)
+        before = [f.launches for f in counters]
+        hstu_block.fused_hstu_block(**args, **kw, activation=activation)
+        assert [f.launches for f in counters] == [c + stages for c in before]
+    args, kw = _k1_args(2, 40, 64, 4, 16, 16, 40, torch.float32, cuda)
+    with pytest.raises(ValueError, match="no tensor-core instance"):
+        hstu_block.project(args["x"], args["uvqk"], num_heads=4, dqk=16, dv=16, inv_n=0.1)
+    long_args, long_kw = _k1_args(1, 1024, 64, 4, 16, 16, 1024, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        hstu_block.fused_hstu_block(**long_args, **long_kw, normalization="softmax_rel_bias")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

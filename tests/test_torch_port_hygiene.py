@@ -17,7 +17,8 @@ from rails_tpu_torch.core import config as port_config
 from rails_tpu_torch.core.config import get_experiment_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SCRIPTS = ("chip_smoke.py", "profile_serving.py", "profile_train.py", "profile_k4_bwd.py")
+SCRIPTS = ("chip_smoke.py", "profile_serving.py", "profile_train.py", "profile_k4_bwd.py",
+           "profile_k1.py", "profile_k1_agreement.py")
 
 
 def test_port_imports_no_jax():
