@@ -8,17 +8,25 @@ Phases (one line each, any failure raises and exits non-zero):
   1. device: card name, `nvidia-smi` name and power limit; TF32 off.
   2. build:  nvcc builds every kernel for sm_90a into build/rails_tpu_torch/;
      the tensor-core instructions (HMMA, HGMMA) of each of K1's bf16 kernels
-     in the library's SASS (`cuobjdump -sass`), none may have zero.
+     and of every instance of K2's tensor-core kernel (`mol_tc_kernel`) in
+     the library's SASS (`cuobjdump -sass`), none may have zero.
   3. K1 (`fused_hstu_block`) vs its plain version at ML-20M block shapes,
      with each stage's device time and the instruction it multiplies with;
      its three bf16 stages (`project`, `attention_oinput` pointwise and
      softmax, `out_gemm`) each vs its plain stage version; K1 at the Amazon
      Books (D=64, h=8, dqk=dv=8, N=61) and ML-1M (D=50, h=2, dqk=dv=25,
      N=211) widths and the softmax variant at h=4, dqk=dv=16.
-  4. K2 (`fused_mol_scores_t`) vs its plain version over 26,744 items.
+  4. K2 (`fused_mol_scores_t`) vs its plain version over 26,744 items: bf16
+     tables on the tensor cores, f32 and int8 on the CUDA cores. The K2, K10,
+     K2-bmax and P2 bounds carry a MUFU term: one special-function result
+     (ex2) for each SiLU and exp the function needs, at the SM clock
+     `nvidia-smi` reads under load; their lines also give one call's device
+     time under torch.profiler.
   5. e2e: ml-20m-hstu-mol serving through get_eval_state and
      make_eval_step_fn, in bf16 (as served) and in f32, each with launch
-     counts and against the same step through the plain versions.
+     counts and against the same step through the plain versions. Here and
+     in approx, books-e2e and frontier, every bf16 K2 and K10 launch must
+     have taken the tensor-core route (`.tc_launches`).
   6. K3 (`hash_keep_mask`), the o_input mask at (128, 211, 256), bit-equal.
   7. K4 (`fused_train_block_forward`, `attn_backward`): one layer at B=128,
      n=211, f32 and bf16, forward and every gradient vs the plain versions
@@ -156,6 +164,9 @@ TRAIN_STEPS = 20
 # bf16 on them; HBM3 bandwidth.
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 HBM_BYTES_PER_S = 3.35e12
+# Hopper's special-function units: 16 MUFU results (ex2, rcp, tanh) per SM
+# per clock (four per SM sub-partition), at the SM clock the card holds.
+SFU_PER_SM_CLOCK = 16
 K4_TOL = (1e-3, 1e-4)          # (rtol, atol) of the f32 forward, as K1
 # Gradients: max |kernel - plain| over max |plain|, per tensor or group. Both
 # paths sum in other f32 orders (and index_add_ bins d tsw with atomics).
@@ -277,7 +288,7 @@ def ptxas_summary(log: str) -> str:
                              r"ln_gemm_kernel|hstu_attn_bwd_kernel|hstu_attn_kernel|"
                              r"softmax_bwd_rows_kernel|softmax_bwd_cols_kernel|"
                              r"hstu_softmax_attn_kernel|mol_probe_kernel|"
-                             r"attn_row_bwd_kernel|mol_scores_kernel|hash_keep_mask_kernel|"
+                             r"attn_row_bwd_kernel|mol_scores_kernel|mol_tc_kernel|hash_keep_mask_kernel|"
                              r"adamw_leaves_kernel|mol_loss_fwd_kernel|mol_loss_bwd_kernel|"
                              r"reduce_slots_kernel|count_kernel|scan_kernel|place_kernel|"
                              r"sum_kernel|mol_ub_kernel|"
@@ -301,27 +312,31 @@ def ptxas_summary(log: str) -> str:
 
 
 def tensor_core_sass(lib_path) -> dict:
-    """HMMA and HGMMA instruction counts of each instance of K1's bf16
-    kernels in the built library's SASS (`cuobjdump -sass`), by
-    "kernel<dv_p> (source)". Raises if a kernel is missing or has neither."""
+    """HMMA and HGMMA instruction counts of each instance of the tensor-core
+    kernels (K1's bf16 kernels and K2's `mol_tc_kernel`) in the built
+    library's SASS (`cuobjdump -sass`), by "kernel<template ints> (source)".
+    Raises if a kernel is missing or an instance has neither."""
     from rails_tpu_torch.ops import _build
 
     cuobjdump = str(Path(_build.find_nvcc()).parent / "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
                           timeout=300, check=True).stdout
+    sources = {"encode_probe_cu": "encode_probe.cu", "mol_probe_cu": "mol_probe.cu",
+               "mol_scoring_cu": "mol_scoring.cu"}
     counts, label = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"(tc_\w+?_kernel)(?:ILi(\d+)EE)?", line)
-            src = "encode_probe.cu" if "encode_probe_cu" in line else "hstu_block.cu"
-            label = (f"{m.group(1)}{'<' + m.group(2) + '>' if m.group(2) else ''} ({src})"
-                     if m else None)
+            m = re.search(r"(mol_tc_kernel|tc_\w+?_kernel)(?:I((?:Li\d+E)+)E)?", line)
+            src = next((v for k, v in sources.items() if k in line), "hstu_block.cu")
+            args = ",".join(re.findall(r"\d+", m.group(2))) if m and m.group(2) else ""
+            label = f"{m.group(1)}{'<' + args + '>' if args else ''} ({src})" if m else None
             if label:
                 counts[label] = [0, 0]
         elif label:
             counts[label][0] += len(re.findall(r"\bHMMA\.", line))
             counts[label][1] += len(re.findall(r"\bHGMMA\.", line))
-    missing = [k for k in TC_KERNELS if not any(label.startswith(k) for label in counts)]
+    missing = [k for k in TC_KERNELS + ("mol_tc_kernel",)
+               if not any(label.startswith(k) for label in counts)]
     empty = [label for label, (hmma, hgmma) in counts.items() if hmma + hgmma == 0]
     if missing or empty:
         raise AssertionError(f"tensor-core kernels missing {missing} or without HMMA/HGMMA {empty}")
@@ -361,13 +376,64 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float, dtype_name: str) -> dict:
-    """The least time the card could take: the larger of the operations over
-    the peak rate for their type and the bytes over the HBM rate."""
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return {"bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+def busy_sm_clock_hz(fn, ms: float, busy_ms: float = 300.0) -> float:
+    """The SM clock in Hz that `nvidia-smi --query-gpu=clocks.sm` reads while
+    fn (one call: about ms) runs back to back on the card for about busy_ms:
+    the calls are queued first, so the card is under this load when the
+    query runs."""
+    import torch
+
+    for _ in range(max(1, min(5000, int(busy_ms / max(ms, 1e-3))))):
+        fn()
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.split()[0]
+    torch.cuda.synchronize()
+    return float(mhz) * 1e6
+
+
+def bound(flops: float, nbytes: float, dtype_name: str, sfu_ops: float = 0.0,
+          sm_clock_hz: Optional[float] = None) -> dict:
+    """The least time the card could take: the largest of the operations
+    over the peak rate for their type, the bytes over the HBM rate and, where
+    `sfu_ops` special-function (MUFU: ex2, rcp, tanh) results are needed, those
+    over SFU_PER_SM_CLOCK per SM per clock at `sm_clock_hz` (the clock under
+    load, `busy_sm_clock_hz`)."""
+    import torch
+
+    terms = {"operations": flops / PEAK_FLOPS[dtype_name] * 1e3,
+             "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    if sfu_ops:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        terms["sfu"] = sfu_ops / (SFU_PER_SM_CLOCK * sms * sm_clock_hz) * 1e3
+    by = max(terms, key=terms.get)
+    return {"bound_ms": terms[by], "bound_by": by}
+
+
+def mol_sfu_per_pair(l: int, hd: int, mode: str = "full") -> int:
+    """MUFU results one (query, item) pair of K2 (or of a P2 `mode`) needs at
+    the least, whatever forms a kernel picks: one ex2 for each SiLU v / (1 +
+    e^-v), H hidden and L gating ones, and for each of the L softmax exps,
+    with every reciprocal on the FMA units (Newton steps). The kernels issue
+    more (`mol_scoring_tc.cuh` states its counts)."""
+    return {"full": hd + 2 * l, "nosilu": hd + l, "noexp": hd + l, "nomlp": 2 * l,
+            "nocombine": 0, "writeonly": 0}[mode]
+
+
+def mol_bound(fn, ms: float, pairs: int, per_pair_flops: int, nbytes: float,
+              dtype_name: str, sfu_per_pair: int) -> dict:
+    """`bound` of a MoL scorer over `pairs` (query, item) pairs, its MUFU term
+    at the SM clock read while fn (one call: ms) runs, and the device us of
+    the scoring kernel in one call (`device_us`, NaN where three profiled
+    calls recorded no such kernel: the profiler sometimes misses it)."""
+    for _ in range(3):
+        kernel = [t[2] for t in device_timeline(fn) if "mol_" in t[1]]
+        if kernel:
+            break
+    device_us = sum(kernel) if kernel else float("nan")
+    return {**bound(pairs * per_pair_flops, nbytes, dtype_name, pairs * sfu_per_pair,
+                    busy_sm_clock_hz(fn, ms)), "device_us": device_us}
 
 
 def k1_inputs(b: int, n: int, dtype, device, seed: int = 0, geom: tuple = K1_GEOMS["ml-20m"]):
@@ -544,9 +610,19 @@ def table_bytes(args: tuple) -> int:
             + ip.numel() * ip.element_size() + scales)
 
 
-def check_k2(b: int, x: int, kind: str, device, geom: tuple = ML20M_GEOM) -> dict:
+def mol_route(geom: tuple, dtype) -> str:
+    """The route K2, K10 and P2 take for tables of `dtype` at `geom`."""
+    from rails_tpu_torch.ops import mol_scoring
+
+    route = getattr(mol_scoring, "tc_route", None)     # absent on a tree before it
+    return "tensor cores" if route is not None and route(dtype, *geom, 128) else "CUDA cores"
+
+
+def check_k2(b: int, x: int, kind: str, device, geom: tuple = ML20M_GEOM,
+             plain: bool = True) -> dict:
     """K2 at B x X over f32, bf16 or int8 tables (bf16 ones quantized), MoL
-    `geom` = (P_Q, P_X, d_P)."""
+    `geom` = (P_Q, P_X, d_P); without `plain`, no plain version (its check,
+    error and time NaN), for corpora whose plain scores do not fit."""
     import torch
 
     from rails_tpu_torch.ops.mol_scoring import fused_mol_scores_t, fused_mol_scores_t_reference
@@ -555,26 +631,32 @@ def check_k2(b: int, x: int, kind: str, device, geom: tuple = ML20M_GEOM) -> dic
                         seed=1, geom=geom)
     if kind == "int8":
         args = quantized(args)
-    got = fused_mol_scores_t(*args)[:, :x]
-    ref = fused_mol_scores_t_reference(*args)[:, :x]
-    err = (got - ref).abs().max().item()
-    if kind == "float32":
-        rtol, atol = K2_TOL_F32
-        torch.testing.assert_close(got, ref, rtol=rtol, atol=atol)
-        verdict = f"rtol {rtol}, atol {atol}"
-    else:
-        verdict = bf16_contract(got, ref, f"K2 {kind}")
+    err, plain_ms, verdict = float("nan"), float("nan"), "no plain run"
+    if plain:
+        got = fused_mol_scores_t(*args)[:, :x]
+        ref = fused_mol_scores_t_reference(*args)[:, :x]
+        err = (got - ref).abs().max().item()
+        if kind == "float32":
+            rtol, atol = K2_TOL_F32
+            torch.testing.assert_close(got, ref, rtol=rtol, atol=atol)
+            verdict = f"rtol {rtol}, atol {atol}"
+        else:
+            verdict = bf16_contract(got, ref, f"K2 {kind}")
+        del got, ref
+        plain_ms = cuda_ms(lambda: fused_mol_scores_t_reference(*args), iters=3, warmup=1)
     ms = cuda_ms(lambda: fused_mol_scores_t(*args))
-    plain_ms = cuda_ms(lambda: fused_mol_scores_t_reference(*args), iters=3, warmup=1)
     p_q, p_x, d_p = geom
     l, hd = p_q * p_x, 128
-    flops = b * x * (2 * l * d_p + 4 * l * hd)          # logits + the qi MLP per pair
     nbytes = table_bytes(args) + 4 * (b * l + 2 * l * hd + hd + l) + 4 * b * args[2].shape[-1]
-    # The int8 path's products and MLP run in bf16, so its peak is bf16's.
-    bd = bound(flops, nbytes, "float32" if kind == "float32" else "bfloat16")
-    print(f"[K2] {kind} tables B={b} X={x} MoL {p_q}x{p_x}x{d_p}: max|err| "
-          f"{err:.3e} ({verdict}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    # Per pair the logits and the qi MLP. The int8 path's products and MLP run
+    # in bf16, so its peak is bf16's.
+    bd = mol_bound(lambda: fused_mol_scores_t(*args), ms, b * x, 2 * l * d_p + 4 * l * hd,
+                   nbytes, "float32" if kind == "float32" else "bfloat16",
+                   mol_sfu_per_pair(l, hd))
+    print(f"[K2] {kind} tables B={b} X={x} MoL {p_q}x{p_x}x{d_p}, "
+          f"{mol_route(geom, args[2].dtype)}: max|err| {err:.3e} ({verdict}); kernel {ms:.3f} "
+          f"ms, device {bd['device_us']:.2f} us, plain {plain_ms:.3f} ms, bound "
+          f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": None}
 
 
@@ -674,6 +756,8 @@ def kernel_counters() -> dict:
     counters["K2-bmax"] = (mol_scoring.fused_mol_scores_t, "blockmax_launches")
     for k in ("K2", "K8", "K9", "K10"):
         counters[f"{k}-int8"] = (wrappers[k], "int8_launches")
+    for k in ("K2", "K10", "P2"):
+        counters[f"{k}-tc"] = (wrappers[k], "tc_launches")
     for k in ("K4 fwd", "K4 bwd", "K5 fwd", "K5 bwd"):
         counters[f"{k} (bf16)"] = (wrappers[k], "bf16_launches")
     return counters
@@ -700,6 +784,17 @@ def launch_counts() -> dict:
     for name, fn in k4_wrappers().items():
         counts.update({f"{name} [{v}]": c for v, c in fn.variant_launches.items()})
     return counts
+
+
+def check_tc_route(counts: dict, what: str) -> None:
+    """Every launch of K2 and K10 in `counts` on bf16 tables (those that are
+    not int8; the serving paths build no f32 tables) took the tensor-core
+    route: their `.tc_launches` equal them."""
+    for k in ("K2", "K10"):
+        bf16 = counts.get(k, 0) - counts.get(f"{k}-int8", 0)
+        if counts.get(f"{k}-tc", 0) != bf16:
+            raise AssertionError(f"{what}: {bf16} bf16 {k} launches, "
+                                 f"{counts.get(f'{k}-tc', 0)} of them on the tensor cores")
 
 
 def k4_variant(cfg) -> str:
@@ -791,10 +886,13 @@ def end_to_end(device, name: str, smi: str, n_batches: int = 3) -> dict:
         run_batches(serve, batches)                                       # warm-up
         reset_launches()
         outs_k, ms = run_batches(serve, batches)
-        counts = {k: v for k, v in launch_counts().items() if k in ("K1", "K2") + K1_STAGES}
-        stages = counts["K1"] if dtype == torch.bfloat16 else 0   # f32: the CUDA-core K1
+        counts = {k: v for k, v in launch_counts().items()
+                  if k in ("K1", "K2", "K2-tc") + K1_STAGES}
+        bf16 = dtype == torch.bfloat16
+        stages = counts["K1"] if bf16 else 0   # f32: the CUDA-core K1 and K2
         if (counts["K1"] != model.cfg.hstu.num_blocks * len(batches) or counts["K2"] < len(batches)
-                or any(counts[k] != stages for k in K1_STAGES)):
+                or any(counts[k] != stages for k in K1_STAGES)
+                or counts["K2-tc"] != (counts["K2"] if bf16 else 0)):
             raise AssertionError(f"main path launches {counts} for {len(batches)} batches")
         launches[dtype_name] = counts
         check_outputs(outs_k, batches)
@@ -1586,19 +1684,22 @@ def check_bounds(device, b: int = APPROX_BATCH, x: int = APPROX_ITEMS,
             verdict = bf16_contract(sc, sc_ref, f"K10 {kind}")
         cols_n = K10_TILES * ms.BLOCK_X
         per_col = (p_x * d_p + l) * items.element_size() + (4 * (p_x + 1) if cs is not None else 0)
-        k10 = {"max_abs_err": (sc - sc_ref).abs().max().item(),
-               "ms": cuda_ms(lambda: ms.fused_mol_scores_tiles(*tile_args)),
+        k10_ms = cuda_ms(lambda: ms.fused_mol_scores_tiles(*tile_args))
+        k10 = {"max_abs_err": (sc - sc_ref).abs().max().item(), "ms": k10_ms,
                "plain_ms": cuda_ms(lambda: ms.fused_mol_scores_tiles_reference(*tile_args),
                                    iters=3, warmup=1),
-               **bound(cols_n * b * (2 * l * d_p + 4 * l * hd),
-                       distinct * ms.BLOCK_X * per_col + q.numel() * q.element_size()
-                       + 4 * (b * l + 2 * l * hd + hd + l + K10_TILES + b * cols_n), peak),
+               **mol_bound(lambda: ms.fused_mol_scores_tiles(*tile_args), k10_ms,
+                           cols_n * b, 2 * l * d_p + 4 * l * hd,
+                           distinct * ms.BLOCK_X * per_col + q.numel() * q.element_size()
+                           + 4 * (b * l + 2 * l * hd + hd + l + K10_TILES + b * cols_n), peak,
+                           mol_sfu_per_pair(l, hd)),
                "library_ms": None}
         print(f"[K10] {kind} tables B={b} MoL {p_q}x{p_x}x{d_p} T={K10_TILES} tiles ({distinct} "
-              f"distinct, the last tile and a duplicate) of X={xp}: bit-equal to K2's columns of the same tiles; vs "
+              f"distinct, the last tile and a duplicate) of X={xp}, "
+              f"{mol_route(geom, items.dtype)}: bit-equal to K2's columns of the same tiles; vs "
               f"plain max|err| {k10['max_abs_err']:.3e} ({verdict}); kernel {k10['ms']:.3f} ms, "
-              f"plain {k10['plain_ms']:.3f} ms, bound {k10['bound_ms']:.4f} ms "
-              f"({k10['bound_by']})")
+              f"device {k10['device_us']:.2f} us, plain {k10['plain_ms']:.3f} ms, bound "
+              f"{k10['bound_ms']:.4f} ms ({k10['bound_by']})")
         if kind == "bfloat16":
             out.update({"K8": k8, "K9": k9, "K10": k10})
         elif kind == "int8":
@@ -1642,14 +1743,17 @@ def check_k2_blockmax(device, b: int = APPROX_BATCH, x: int = APPROX_ITEMS - 1,
                                                                valid=valid), iters=3, warmup=1)
     p_q, p_x, d_p = geom
     l, hd = p_q * p_x, 128
-    flops = b * xp * (2 * l * d_p + 4 * l * hd)
     nbytes = (table_bytes(args) + 4 * (b * l + 2 * l * hd + hd + l) + 4 * xp
               + 4 * b * (xp + xp // ms.BLOCK_X))
-    bd = bound(flops, nbytes, "bfloat16")
+    bd = mol_bound(lambda: ms.fused_mol_scores_t(*args, emit_blockmax=True, valid=valid),
+                   ms_bmax, b * xp, 2 * l * d_p + 4 * l * hd, nbytes, "bfloat16",
+                   mol_sfu_per_pair(l, hd))
     print(f"[K2-bmax] bf16 tables B={b} X={xp} MoL {p_q}x{p_x}x{d_p} ({valid.shape[0]} items, "
-          f"valid=0 at {list(invalid)} and the pad tail): scores bit-equal to K2's with them at -1e30, "
+          f"valid=0 at {list(invalid)} and the pad tail), {mol_route(geom, torch.bfloat16)}: "
+          f"scores bit-equal to K2's with them at -1e30, "
           f"({b}, {xp // ms.BLOCK_X}) tile maxima exact; vs plain {verdict}; kernel "
-          f"{ms_bmax:.3f} ms with emit_blockmax, {ms_plain_k2:.3f} ms without; plain "
+          f"{ms_bmax:.3f} ms with emit_blockmax (device {bd['device_us']:.2f} us), "
+          f"{ms_plain_k2:.3f} ms without; plain "
           f"{plain_ms:.3f} ms; bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
     err = (scores - ref_scores).abs().max().item()
     return {"max_abs_err": err, "ms": ms_bmax, "plain_ms": plain_ms, **bd, "library_ms": None}
@@ -2043,6 +2147,7 @@ def frontier_phase(device, name: str, smi: str) -> dict:
                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
             del state, ft, k2_scores, exact
             torch.cuda.empty_cache()
+    check_tc_route(phase_counts, "[frontier]")
     print(f"[frontier] launches of the phase: { {a: v for a, v in phase_counts.items() if v} }")
     return phase_counts
 
@@ -2098,6 +2203,7 @@ def approx_phase(device, name: str, smi: str) -> None:
     for method in APPROX_METHODS:
         raw = get_top_k_raw(method)
         res, counts, ms_ = timed(lambda: raw(model, state, q, k, uids, item_embeddings=emb))
+        check_tc_route(counts, f"[approx] {method}")
         overlap = id_overlap(res.ids, exact.ids)
         recall = (res.ids == exact.ids[:, :1]).any(dim=1).float().mean().item()
         line = (f"[approx] {method}: {ms_:.3f} ms/batch, top-{k} overlap "
@@ -2252,6 +2358,7 @@ def books_e2e(device, name: str, smi: str, n_batches: int = 3) -> dict:
             "K9": 2 * n, "K9-int8": n, "K10": 2 * n, "K10-int8": n}
     if any(launches.get(key, 0) != v for key, v in want.items()):
         raise AssertionError(f"Books serving launches {launches}, want {want}")
+    check_tc_route(launches, "[books-e2e]")
     print(f"[books-e2e] launches of the kernel-path runs of the {len(BOOKS_METHODS)} methods: "
           f"{launches}")
     return launches
@@ -2507,33 +2614,40 @@ def p1_phase(device, name: str, smi: str) -> dict:
     return {"full": rows["full"], "rows": rows, "launches": launches}
 
 
-def p2_phase(device, name: str, smi: str) -> dict:
-    """P2 (`rails_tpu_torch.cli.mol_probe`) at B=32 over P2_ITEMS items, the
-    probe's geometry and types, data drawn on the card in the probe's m-major
-    layout and put into K2's order by `probe_operands`: each mode's kernel
-    against its plain version over the whole corpus, `full` against K2 on the
-    same operands (K2's bf16 contract; the same kernel, so bit-equal is
-    expected), each mode's kernel and plain ms, then the CLI's timing of
-    every mode (`--runs` cut to P2_RUNS) and of the hierarchical select.
-    Returns the `full` row and the CLI run's launches."""
+def p2_operands(device, seed: int = 9) -> tuple:
+    """P2's operands at B=32 over P2_ITEMS items (padded to 256), the probe's
+    geometry and types, drawn on the card from `seed` in the probe's m-major
+    layout and put into K2's order by `probe_operands`."""
     import torch
 
-    from rails_tpu_torch.cli import mol_probe as cli
     from rails_tpu_torch.ops import mol_probe as mp
-    from rails_tpu_torch.ops.mol_scoring import fused_mol_scores_t
 
-    b, x = APPROX_BATCH, P2_ITEMS
-    x_pad = -(-x // cli.BLOCK_X) * cli.BLOCK_X
+    b, x_pad = APPROX_BATCH, -(-P2_ITEMS // 256) * 256
     l = P_Q * P_X
-    g = torch.Generator(device=device).manual_seed(9)
+    g = torch.Generator(device=device).manual_seed(seed)
 
     def randn(*shape):
         return 0.1 * torch.randn(*shape, generator=g, device=device)
 
-    ops = mp.probe_operands(
+    return mp.probe_operands(
         q=randn(P_Q, b, D_P), qp=randn(b, l), item=randn(P_X, D_P, x_pad).bfloat16(),
         ip=randn(l, x_pad).bfloat16(), w1=randn(l, 128), b1=randn(128), w2=randn(128, l),
         b2=randn(l))
+
+
+def check_p2(device, ops: tuple) -> dict:
+    """P2's kernel in each mode on `ops` (`p2_operands`) against its plain
+    version over the whole corpus (within `mol_probe_error_bound` at P2_TOL),
+    `full` against K2 on the same operands (K2's bf16 contract; the same
+    kernel, so bit-equal is expected), each mode's kernel and plain ms and
+    bound. Returns each mode's row of the kernel summary."""
+    import torch
+
+    from rails_tpu_torch.ops import mol_probe as mp
+    from rails_tpu_torch.ops.mol_scoring import fused_mol_scores_t
+
+    b, x_pad, x = ops[0].shape[0], ops[2].shape[2], P2_ITEMS
+    l = P_Q * P_X
     k2_full = fused_mol_scores_t(*ops, 1.0 / mp.INV_TEMPERATURE)
     k2_ms = cuda_ms(lambda: fused_mol_scores_t(*ops, 1.0 / mp.INV_TEMPERATURE), iters=3,
                     warmup=1)
@@ -2555,24 +2669,43 @@ def p2_phase(device, name: str, smi: str) -> dict:
                            warmup=0)
         per_pair = 2 * l * D_P + (4 * l * 128 if mode in ("full", "nosilu", "noexp") else 0)
         nbytes = 2 * (P_X * D_P + l) * x_pad + 4 * b * x_pad + 4 * (b * l + 2 * l * 128)
-        bd = bound(b * x_pad * per_pair, nbytes, "bfloat16")
+        bd = mol_bound(lambda: mp.mol_probe_scores(mode, *ops), ms, b * x_pad, per_pair,
+                       nbytes, "bfloat16", mol_sfu_per_pair(l, 128, mode))
         rows[mode] = {"max_abs_err": errs[mode], "ms": ms, "plain_ms": plain_ms, **bd,
                       "library_ms": None}
-        print(f"[P2] {mode} B={b} X={x}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        print(f"[P2] {mode} B={b} X={x}, {mol_route((P_Q, P_X, D_P), torch.bfloat16)}: kernel "
+              f"{ms:.3f} ms, device {bd['device_us']:.2f} us, plain {plain_ms:.3f} ms, bound "
               f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
     print(f"[P2] B={b} X={x} MoL {P_Q}x{P_X}x{D_P} H=128 bf16, all {x_pad} columns: "
           f"max|kernel - plain| per mode { {m: float(f'{e:.3e}') for m, e in errs.items()} }, "
           f"its largest share of `mol_probe_error_bound` (tol {P2_TOL}) "
           f"{ {m: float(f'{r:.3e}') for m, r in ratios.items()} } (<= 1); full vs K2 on the "
           f"same operands: {verdict}, bit-equal {bit_equal}; K2 {k2_ms:.3f} ms")
-    del k2_full
-    mp.mol_probe_scores.launches = 0
+    return rows
+
+
+def p2_phase(device, name: str, smi: str) -> dict:
+    """P2 (`rails_tpu_torch.cli.mol_probe`) at B=32 over P2_ITEMS items:
+    `check_p2` on `p2_operands`, then the CLI's timing of every mode
+    (`--runs` cut to P2_RUNS) and of the hierarchical select. Returns the
+    `full` row and the CLI run's launches."""
+    import torch
+
+    from rails_tpu_torch.cli import mol_probe as cli
+    from rails_tpu_torch.ops import mol_probe as mp
+
+    b, x = APPROX_BATCH, P2_ITEMS
+    ops = p2_operands(device)
+    rows = check_p2(device, ops)
+    mp.mol_probe_scores.launches = mp.mol_probe_scores.tc_launches = 0
     res = cli.time_modes(ops, mp.MODES, P2_RUNS, device)
     launches = mp.mol_probe_scores.launches
-    if launches != len(mp.MODES) * P2_RUNS * 4:
-        raise AssertionError(f"P2 launched {launches} times")
+    if launches != len(mp.MODES) * P2_RUNS * 4 or mp.mol_probe_scores.tc_launches != launches:
+        raise AssertionError(f"P2 launched {launches} times, "
+                             f"{mp.mol_probe_scores.tc_launches} on the tensor cores")
     del ops
     torch.cuda.empty_cache()
+    g = torch.Generator(device=device).manual_seed(9)
     scores = torch.randn(b, x, generator=g, device=device)
     sel = cli.time_select(scores, APPROX_K, P2_RUNS, device)
     print(f"[P2] cli.mol_probe B={b} X={x}, --runs {P2_RUNS} on {name} ({smi}): ms per batch "
@@ -2609,7 +2742,8 @@ def main() -> None:
     print(f"[build] registers per thread (spilled bytes): "
           f"{ptxas_summary((lib_path.parent / 'build.log').read_text())}")
     sass = tensor_core_sass(lib_path)
-    print(f"[build] tensor-core instructions in the SASS (HMMA, HGMMA) of K1's bf16 kernels: "
+    print(f"[build] tensor-core instructions in the SASS (HMMA, HGMMA) of K1's bf16 kernels "
+          f"and K2's tensor-core kernel: "
           f"{ {k: tuple(v) for k, v in sass.items()} }")
 
     k1 = {}
@@ -2660,7 +2794,7 @@ def main() -> None:
         approx_phase(device, name, smi)
     torch.cuda.empty_cache()
     approx = approx_e2e(device, name, smi)
-    launches.update({k: approx[k] for k in ("K8", "K9", "K10")})
+    launches.update({k: approx[k] for k in ("K8", "K9", "K10", "K10-tc")})
     torch.cuda.empty_cache()
     with torch.inference_mode():
         launches.update(int8_phase(device, name, smi))
@@ -2713,14 +2847,18 @@ def main() -> None:
     k4v_runs = train_var_phase(device, name, smi)
 
     def entry(name_, source, replaces, key, measured, counts=launches):
+        # The MUFU term of a bound is an operations term.
         return {"name": name_, "route": "cuda", "source": f"rails_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": counts[key], **measured}
+                "replaces": replaces, "launches": counts[key],
+                **{k: measured[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")},
+                "bound_by": "bytes" if measured["bound_by"] == "bytes" else "operations",
+                "library_ms": measured["library_ms"]}
 
     summary = [
         entry("fused_hstu_block", "hstu_block.cu", "rails_tpu/ops/pallas/hstu_block.py:432",
               "K1", k1[(torch.bfloat16, MAX_SEQ_LEN)]),
-        entry("fused_mol_scores_t", "mol_scoring.cu", "rails_tpu/ops/pallas/mol_scoring.py:724",
-              "K2", k2["bfloat16"]),
+        entry("fused_mol_scores_t", "mol_scoring_tc.cuh",
+              "rails_tpu/ops/pallas/mol_scoring.py:724", "K2-tc", k2["bfloat16"]),
         entry("hash_keep_mask", "hash_dropout.cu", "rails_tpu/ops/pallas/hash_dropout.py:26",
               "K3", k3),
         entry("fused_train_block_forward", "hstu_block_train.cu",
@@ -2739,11 +2877,11 @@ def main() -> None:
               "K8", bounds["K8"]),
         entry("fused_mol_group_block_max", "mol_bounds.cu",
               "rails_tpu/ops/pallas/mol_scoring.py:346", "K9", bounds["K9"]),
-        entry("fused_mol_scores_tiles", "mol_scoring.cu",
-              "rails_tpu/ops/pallas/mol_scoring.py:875", "K10", bounds["K10"]),
+        entry("fused_mol_scores_tiles", "mol_scoring_tc.cuh",
+              "rails_tpu/ops/pallas/mol_scoring.py:875", "K10-tc", bounds["K10"]),
         entry("fused_mol_scores_t (int8 tables)", "mol_scoring.cu",
               "rails_tpu/ops/pallas/mol_scoring.py:724", "K2-int8", k2["int8"]),
-        entry("fused_mol_scores_t (emit_blockmax)", "mol_scoring.cu",
+        entry("fused_mol_scores_t (emit_blockmax)", "mol_scoring_tc.cuh",
               "rails_tpu/ops/pallas/mol_scoring.py:724", "K2-bmax", bmax),
         entry("fused_mol_ub_t (int8 tables)", "mol_bounds.cu",
               "rails_tpu/ops/pallas/mol_scoring.py:427", "K8-int8", bounds["K8-int8"]),
@@ -2755,11 +2893,11 @@ def main() -> None:
               "rails_tpu/ops/pallas/hstu_block_train.py:574", "K4 fwd (bf16)", k4_fwd16),
         entry("attn_backward (bf16)", "hstu_block_train.cu",
               "rails_tpu/ops/pallas/hstu_block_train.py:629", "K4 bwd (bf16)", k4_bwd16),
-        entry("fused_mol_scores_t (8x8x32)", "mol_scoring.cu",
-              "rails_tpu/ops/pallas/mol_scoring.py:724", "K2", k2b["bfloat16"], books),
+        entry("fused_mol_scores_t (8x8x32)", "mol_scoring_tc.cuh",
+              "rails_tpu/ops/pallas/mol_scoring.py:724", "K2-tc", k2b["bfloat16"], books),
         entry("fused_mol_scores_t (8x8x32, int8 tables)", "mol_scoring.cu",
               "rails_tpu/ops/pallas/mol_scoring.py:724", "K2-int8", k2b["int8"], books),
-        entry("fused_mol_scores_t (8x8x32, emit_blockmax)", "mol_scoring.cu",
+        entry("fused_mol_scores_t (8x8x32, emit_blockmax)", "mol_scoring_tc.cuh",
               "rails_tpu/ops/pallas/mol_scoring.py:724", "K2-bmax", bmaxb, books),
         entry("fused_mol_ub_t (8x8x32)", "mol_bounds.cu",
               "rails_tpu/ops/pallas/mol_scoring.py:427", "K8", boundsb["K8"], books),
@@ -2769,8 +2907,8 @@ def main() -> None:
               "rails_tpu/ops/pallas/mol_scoring.py:346", "K9", boundsb["K9"], books),
         entry("fused_mol_group_block_max (8x8x32, int8 tables)", "mol_bounds.cu",
               "rails_tpu/ops/pallas/mol_scoring.py:346", "K9-int8", boundsb["K9-int8"], books),
-        entry("fused_mol_scores_tiles (8x8x32)", "mol_scoring.cu",
-              "rails_tpu/ops/pallas/mol_scoring.py:875", "K10", boundsb["K10"], books),
+        entry("fused_mol_scores_tiles (8x8x32)", "mol_scoring_tc.cuh",
+              "rails_tpu/ops/pallas/mol_scoring.py:875", "K10-tc", boundsb["K10"], books),
         entry("fused_mol_scores_tiles (8x8x32, int8 tables)", "mol_scoring.cu",
               "rails_tpu/ops/pallas/mol_scoring.py:875", "K10-int8", boundsb["K10-int8"], books),
         entry("fused_mol_loss_forward (bf16, 8x8x32)", "mol_loss_train.cu",
@@ -2798,8 +2936,8 @@ def main() -> None:
     summary += [
         entry("encode_probe_block (full)", "encode_probe.cu",
               "rails_tpu/cli/encode_probe.py:150", "P1", p1["full"], {"P1": p1["launches"]}),
-        entry("mol_probe_scores (full)", "mol_probe.cu", "rails_tpu/cli/mol_probe.py:156", "P2",
-              p2["full"], {"P2": p2["launches"]}),
+        entry("mol_probe_scores (full)", "mol_scoring_tc.cuh", "rails_tpu/cli/mol_probe.py:156",
+              "P2", p2["full"], {"P2": p2["launches"]}),
     ]
     for inst in K4_VAR_INSTANCES:
         meta, has_bias = k4_meta(inst)

@@ -125,17 +125,17 @@ def load_library() -> ctypes.CDLL:
     lib.rails_hstu_attn_smem_bytes.restype = ctypes.c_size_t
     lib.rails_encode_probe.argtypes = [i, i] + [p] * 11 + [i] * 6 + [f, f, i, p]
     lib.rails_encode_probe.restype = i
-    lib.rails_mol_probe.argtypes = [i] + [p] * 9 + [i] * 4 + [f, p]
+    lib.rails_mol_probe.argtypes = [i, i] + [p] * 9 + [i] * 4 + [f, p]
     lib.rails_mol_probe.restype = i
-    lib.rails_mol_probe_smem_bytes.argtypes = [i, i]
+    lib.rails_mol_probe_smem_bytes.argtypes = [i] * 3
     lib.rails_mol_probe_smem_bytes.restype = ctypes.c_size_t
     lib.rails_hstu_softmax_smem_bytes.argtypes = [i] * 4
     lib.rails_hstu_softmax_smem_bytes.restype = ctypes.c_size_t
-    lib.rails_mol_scores.argtypes = [i, i, i] + [p] * 13 + [i] * 4 + [f, p]
+    lib.rails_mol_scores.argtypes = [i] * 4 + [p] * 13 + [i] * 4 + [f, p]
     lib.rails_mol_scores.restype = i
-    lib.rails_mol_scores_smem_bytes.argtypes = [i] * 5
+    lib.rails_mol_scores_smem_bytes.argtypes = [i] * 6
     lib.rails_mol_scores_smem_bytes.restype = ctypes.c_size_t
-    lib.rails_mol_scores_tiles.argtypes = [i, i, i] + [p] * 12 + [i] * 5 + [f, p]
+    lib.rails_mol_scores_tiles.argtypes = [i] * 4 + [p] * 12 + [i] * 5 + [f, p]
     lib.rails_mol_scores_tiles.restype = i
     for bound_fn in (lib.rails_mol_ub, lib.rails_mol_group_block_max):
         bound_fn.argtypes = [i, i, i] + [p] * 4 + [i] * 3 + [f, p]
@@ -168,7 +168,7 @@ def load_library() -> ctypes.CDLL:
     lib.rails_mol_loss_smem_bytes.restype = ctypes.c_size_t
     ll = ctypes.c_longlong
     lib.rails_scatter_add_rows.argtypes = ([i] * 3 + [p] * 3 + [ll] + [i] * 4 + [ll] * 3
-                                           + [p, ll] + [p] * 11 + [p])
+                                           + [p, ll] + [p] * 12 + [p])
     lib.rails_scatter_add_rows.restype = i
     lib.rails_cuda_error_string.argtypes = [i]
     lib.rails_cuda_error_string.restype = ctypes.c_char_p

@@ -15,13 +15,16 @@ device time, subtracted from `full`'s, prices the stage:
 
 The probe lays its logits, qp and ip rows, W1 rows, W2 columns and b2 out
 m-major (l = m * P_Q + n, `mol_probe.py:55-58`); K2 is n-major. The kernel
-is K2's own (`csrc/mol_scoring.cuh`, instantiated per mode in
-`csrc/mol_probe.cu`), so `probe_operands` puts the probe's arrays into K2's
-order once at set-up, and both functions here take the result: q_comp
+is K2's own (its tensor-core kernel `csrc/mol_scoring_tc.cuh` at the widths
+of `tc_route`, the probe's among them, else `csrc/mol_scoring.cuh`;
+instantiated per mode in `csrc/mol_probe.cu`), so `probe_operands` puts the
+probe's arrays into K2's order once at set-up, and both functions here take
+the result: q_comp
 (B, P_Q, d_P) bf16, qp (B, L) f32, item (P_X, d_P, X) and ip (L, X) bf16,
 and the qi MLP as `MoLKernelWeights`. `mol_probe_scores` follows the port's
 dispatch rule (CPU tensors run `mol_probe_scores_reference`, CUDA tensors
-launch the kernel or raise) and counts its launches in `.launches`.
+launch the kernel or raise) and counts its launches in `.launches`, those on
+the tensor cores in `.tc_launches`.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import torch
 from rails_tpu_torch.core.device import use_kernel
 from rails_tpu_torch.ops import _build
 from rails_tpu_torch.ops.hstu_block import MAX_SMEM_BYTES
-from rails_tpu_torch.ops.mol_scoring import MoLKernelWeights
+from rails_tpu_torch.ops.mol_scoring import MoLKernelWeights, tc_route
 
 MODES = ("full", "nosilu", "noexp", "nomlp", "nocombine", "writeonly")
 GEOMETRY = (8, 4)          # (P_Q, P_X) of the kernel's one instance
@@ -188,8 +191,9 @@ def mol_probe_scores(
             f"{tuple(item.shape)}, ip {ip.dtype} {tuple(ip.shape)}, w1 "
             f"{tuple(weights.w1.shape)}, w2 {tuple(weights.w2.shape)}"
         )
+    tc = tc_route(torch.bfloat16, p_q, p_x, d_p, hd)
     lib = _build.load_library()
-    if lib.rails_mol_probe_smem_bytes(d_p, hd) > MAX_SMEM_BYTES:
+    if lib.rails_mol_probe_smem_bytes(int(tc), d_p, hd) > MAX_SMEM_BYTES:
         raise ValueError(f"mol_probe_scores: d_P={d_p}, H={hd} do not fit shared memory")
     with torch.cuda.device(q_comp.device):
         w1t = weights.w1.to(torch.bfloat16).float().T.contiguous()        # (H, L)
@@ -199,14 +203,16 @@ def mol_probe_scores(
         qpf = qp.float().contiguous()
         out = torch.empty(b, x, dtype=torch.float32, device=q_comp.device)
         err = lib.rails_mol_probe(
-            MODES.index(mode), q_comp.data_ptr(), qpf.data_ptr(), item.data_ptr(),
+            int(tc), MODES.index(mode), q_comp.data_ptr(), qpf.data_ptr(), item.data_ptr(),
             ip.data_ptr(), w1t.data_ptr(), b1f.data_ptr(), w2f.data_ptr(), b2f.data_ptr(),
             out.data_ptr(), b, x, d_p, hd, inv_temperature,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, err, "mol_probe_scores")
     mol_probe_scores.launches += 1
+    mol_probe_scores.tc_launches += tc
     return out
 
 
 mol_probe_scores.launches = 0
+mol_probe_scores.tc_launches = 0

@@ -10,12 +10,17 @@ f32, bf16 and int8 tables:
     gi  = qp * ip + qi ;  gw = silu(gi)
     out = sum_l softmax_l(gw) * logits
 
-Kernel: `csrc/mol_scoring.cu`, one block per (32 items x 32 queries); the
-source's header says what bounds it on an H100 and how the design keeps the
-qi MLP in registers. The logits stay in the model's n-major order (the TPU
-kernel's m-major permutation is a VMEM layout choice), so the tables are the
-model's tables transposed to (P_X, d_P, X) and (L, X) and zero-padded to a
-multiple of `BLOCK_X` = 256 items, the JAX build's `fused_block_x`
+Kernels (`csrc/mol_scoring.cu` launches both; no fallback between them):
+bf16 tables at the geometries of `tc_route` run on the tensor cores
+(`csrc/mol_scoring_tc.cuh`: mma.sync for the logits and both products of the
+qi MLP, whose hidden layer never leaves registers; bound by the MUFU results
+of its SiLUs and exps), f32 and int8 tables on the CUDA cores
+(`csrc/mol_scoring.cuh`, one block per (32 items x 32 queries)); each
+source's header says what bounds it on an H100. The logits stay in the
+model's n-major order (the TPU kernel's m-major permutation is a VMEM layout
+choice), so the tables are the model's tables transposed to (P_X, d_P, X)
+and (L, X) and zero-padded to a multiple of `BLOCK_X` = 256 items, the JAX
+build's `fused_block_x`
 (`prepare_fused_tables`): a "tile" of K9, K10 and the tile methods is 256
 contiguous corpus columns, the same columns as in the JAX package.
 
@@ -44,7 +49,8 @@ The approximate-retrieval kernels read the same tables:
 Every wrapper follows the port's dispatch rule: CPU tensors run its
 `*_reference` plain version, CUDA tensors launch the kernel or raise. Each
 counts its kernel launches in `.launches`, and the int8 (and K2's blockmax)
-launches among them in `.int8_launches` (`.blockmax_launches`). The plain
+launches among them in `.int8_launches` (`.blockmax_launches`); K2 and K10
+count their tensor-core launches in `.tc_launches`. The plain
 versions walk the corpus in column chunks, so they stay within memory at a
 million columns.
 """
@@ -277,6 +283,24 @@ def _check_groups(name: str, p_q: int, p_x: int) -> None:
         )
 
 
+def tc_route(dtype: torch.dtype, p_q: int, p_x: int, d_p: int, hd: int) -> bool:
+    """The width rule of K2's tensor-core kernel (`tc_ok` in
+    csrc/mol_scoring_tc.cuh), which K10 and the probe P2 share: bf16 tables,
+    P_Q = 8 (a query's components are one n8 tile of the logits' product),
+    P_X 4 or 8 (L = 32 or 64 logits, whole k16 steps of the qi MLP), d_P a
+    multiple of 16 with P_X * d_P <= 512 and H a multiple of 16 up to 256
+    (whole k16 and n8 steps; the staged item tiles, queries and weights fit
+    shared memory). ML-20M's 8x4x128, ML-1M's 8x4x64 and Amazon Books' 8x8x32
+    at H = 128 take it. f32 tables stay on the CUDA-core kernel: a
+    tensor-core f32 product rounds its operands to TF32, and K2_TOL_F32 holds
+    the kernel to the plain f32 path. int8 tables stay there until K8 and K9
+    move too: they bound K2's logits summed in the CUDA-core kernel's order.
+    synthetic-small's 4x2x16 stays as well (P_Q = 4 fills half an n8 tile,
+    L = 8 half a k16 step)."""
+    return (dtype == torch.bfloat16 and p_q == 8 and p_x in (4, 8) and d_p >= 16
+            and d_p % 16 == 0 and p_x * d_p <= 512 and 16 <= hd <= 256 and hd % 16 == 0)
+
+
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
@@ -284,7 +308,8 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 def _launch_scores(name, q_comp, query_partial, item_comp_t, item_partial_t, weights,
                    temperature, comp_scale, partial_scale, tile_ids=None, valid=None):
     """Validate and launch K2 (tile_ids None; with `valid`, emit_blockmax) or
-    K10 on CUDA tensors. Returns the scores, or (scores, tile maxima)."""
+    K10 on CUDA tensors. Returns (the scores, or (scores, tile maxima); 1 if
+    the tensor-core kernel ran, else 0)."""
     b, p_q, d_p = q_comp.shape
     p_x, _, x = item_comp_t.shape
     l = p_q * p_x
@@ -315,8 +340,9 @@ def _launch_scores(name, q_comp, query_partial, item_comp_t, item_partial_t, wei
     if tile_ids is not None and (tile_ids.dtype != torch.int32 or tile_ids.dim() != 1
                                  or not tile_ids.is_contiguous()):
         raise ValueError(f"{name}: tile_ids must be a contiguous (T,) int32 tensor")
+    tc = int(tc_route(item_comp_t.dtype, p_q, p_x, d_p, hd))
     lib = _build.load_library()
-    smem = lib.rails_mol_scores_smem_bytes(code, p_q, p_x, d_p, hd)
+    smem = lib.rails_mol_scores_smem_bytes(tc, code, p_q, p_x, d_p, hd)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"{name}: d_P={d_p}, H={hd} need {smem} B of shared memory")
     mlp = _mlp_dtype(item_comp_t)
@@ -338,7 +364,7 @@ def _launch_scores(name, q_comp, query_partial, item_comp_t, item_partial_t, wei
                 tile_max = torch.full((b, x // BLOCK_X), MASKED_SCORE, dtype=torch.float32,
                                       device=q_comp.device)
             err = lib.rails_mol_scores(
-                code, p_q, p_x, q_comp.data_ptr(), qp.data_ptr(), item_comp_t.data_ptr(),
+                tc, code, p_q, p_x, q_comp.data_ptr(), qp.data_ptr(), item_comp_t.data_ptr(),
                 item_partial_t.data_ptr(), *common, _ptr(valid), out.data_ptr(),
                 _ptr(tile_max), b, x, d_p, hd, 1.0 / temperature, stream,
             )
@@ -346,12 +372,12 @@ def _launch_scores(name, q_comp, query_partial, item_comp_t, item_partial_t, wei
             nt = tile_ids.shape[0]
             out = torch.empty(b, nt * BLOCK_X, dtype=torch.float32, device=q_comp.device)
             err = lib.rails_mol_scores_tiles(
-                code, p_q, p_x, q_comp.data_ptr(), qp.data_ptr(), tile_ids.data_ptr(),
+                tc, code, p_q, p_x, q_comp.data_ptr(), qp.data_ptr(), tile_ids.data_ptr(),
                 item_comp_t.data_ptr(), item_partial_t.data_ptr(), *common, out.data_ptr(),
                 b, x, nt, d_p, hd, 1.0 / temperature, stream,
             )
     _build.check(lib, err, name)
-    return out if tile_max is None else (out, tile_max)
+    return (out if tile_max is None else (out, tile_max)), tc
 
 
 def fused_mol_scores_t(
@@ -382,18 +408,20 @@ def fused_mol_scores_t(
             q_comp, query_partial, item_comp_t, item_partial_t, weights, temperature,
             *scales, emit_blockmax, valid,
         )
-    out = _launch_scores("fused_mol_scores_t", q_comp, query_partial, item_comp_t,
-                         item_partial_t, weights, temperature, *scales,
-                         valid=valid if emit_blockmax else None)
+    out, tc = _launch_scores("fused_mol_scores_t", q_comp, query_partial, item_comp_t,
+                             item_partial_t, weights, temperature, *scales,
+                             valid=valid if emit_blockmax else None)
     fused_mol_scores_t.launches += 1
     fused_mol_scores_t.int8_launches += quant
     fused_mol_scores_t.blockmax_launches += emit_blockmax
+    fused_mol_scores_t.tc_launches += tc
     return out
 
 
 fused_mol_scores_t.launches = 0
 fused_mol_scores_t.int8_launches = 0
 fused_mol_scores_t.blockmax_launches = 0
+fused_mol_scores_t.tc_launches = 0
 
 
 def fused_mol_scores_tiles_reference(
@@ -452,15 +480,17 @@ def fused_mol_scores_tiles(
     if tile_ids.numel() == 0 or q_comp.shape[0] == 0:
         return torch.empty(q_comp.shape[0], tile_ids.numel() * BLOCK_X, dtype=torch.float32,
                            device=q_comp.device)
-    out = _launch_scores("fused_mol_scores_tiles", q_comp, query_partial, item_comp_t,
-                         item_partial_t, weights, temperature, *scales, tile_ids=tile_ids)
+    out, tc = _launch_scores("fused_mol_scores_tiles", q_comp, query_partial, item_comp_t,
+                             item_partial_t, weights, temperature, *scales, tile_ids=tile_ids)
     fused_mol_scores_tiles.launches += 1
     fused_mol_scores_tiles.int8_launches += quant
+    fused_mol_scores_tiles.tc_launches += tc
     return out
 
 
 fused_mol_scores_tiles.launches = 0
 fused_mol_scores_tiles.int8_launches = 0
+fused_mol_scores_tiles.tc_launches = 0
 
 
 def _require_positive(temperature: float) -> None:

@@ -231,9 +231,11 @@ def test_mol_probe_matches_plain(cuda, shape, mode):
              w1=0.1 * torch.randn(l, hd, generator=g), b1=0.1 * torch.randn(hd, generator=g),
              w2=0.1 * torch.randn(hd, l, generator=g), b2=0.1 * torch.randn(l, generator=g))
     ops = mol_probe.probe_operands(**{k: v.to(cuda) for k, v in a.items()})
-    before = mol_probe.mol_probe_scores.launches
+    before = (mol_probe.mol_probe_scores.launches, mol_probe.mol_probe_scores.tc_launches)
     got = mol_probe.mol_probe_scores(mode, *ops)
-    assert mol_probe.mol_probe_scores.launches == before + 1
+    # The probe's 8x4x128, H=128 runs K2's tensor-core kernel (`tc_route`).
+    assert (mol_probe.mol_probe_scores.launches,
+            mol_probe.mol_probe_scores.tc_launches) == (before[0] + 1, before[1] + 1)
     want = mol_probe.mol_probe_scores_reference(mode, *ops)
     # The test's P2 tolerance (`test_torch_port_probes.py`): the MLP rounds to
     # bf16 at the same points on both sides, in other f32 orders; 2e-3 of
@@ -433,6 +435,109 @@ def test_k2_blockmax_matches_plain(cuda, dtype, geom):
     tol = dict(rtol=1e-4, atol=1e-3) if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
     torch.testing.assert_close(scores, ref_scores, **tol)
     torch.testing.assert_close(tile_max, ref_max, **tol)
+
+
+TC_GEOMS = [(8, 4, 128), (8, 4, 64), (8, 8, 32)]
+TC_IDS = ["ml20m", "ml1m", "books"]
+
+
+def _counts(fn):
+    return fn.launches, fn.tc_launches
+
+
+@pytest.mark.parametrize("geom", TC_GEOMS, ids=TC_IDS)
+@pytest.mark.parametrize("shape", [(33, 256), (45, 700), (5, 768)],
+                         ids=["one_tile", "three_tiles", "three_tiles_five_queries"])
+def test_k2_tensor_core_route_matches_plain(cuda, geom, shape):
+    """K2's tensor-core kernel at each geometry `tc_route` takes, B not a
+    multiple of its 32-query block, corpora of one and three tiles: K2 by its
+    bf16 contract against the plain version; K10 over duplicate, last and
+    out-of-range tile ids bit-equal to K2's columns (NaN for the bad ids);
+    emit_blockmax with mid-corpus valid == 0 columns bit-equal to K2 masked,
+    its maxima exact. Every launch counts on `.tc_launches`."""
+    b, x = shape
+    assert mol_scoring.tc_route(torch.bfloat16, *geom, 128)
+    args, x = _k2_args(b, x, *geom, 128, torch.bfloat16, cuda, seed=4)
+    q, qp, items, ip, w, t = args
+    k2_fn, k10_fn = mol_scoring.fused_mol_scores_t, mol_scoring.fused_mol_scores_tiles
+    before = _counts(k2_fn)
+    k2 = k2_fn(*args)
+    assert _counts(k2_fn) == (before[0] + 1, before[1] + 1)
+    want = mol_scoring.fused_mol_scores_t_reference(*args)
+    assert (k2[:, :x].argmax(dim=1) == want[:, :x].argmax(dim=1)).float().mean().item() >= 0.99
+    torch.testing.assert_close(k2[:, :x], want[:, :x], rtol=2e-2, atol=2e-2)
+
+    nb = items.shape[2] // 256
+    tiles = torch.tensor([nb - 1, 0, nb, nb - 1, -1, 0], dtype=torch.int32, device=cuda)
+    before = _counts(k10_fn)
+    k10 = k10_fn(q, qp, tiles, items, ip, w, t)
+    assert _counts(k10_fn) == (before[0] + 1, before[1] + 1)
+    good = torch.tensor([0, 1, 3, 5], device=cuda)
+    cols = (tiles.long()[good, None] * 256 + torch.arange(256, device=cuda)).reshape(-1)
+    got = k10.reshape(b, -1, 256)
+    assert torch.equal(got[:, good].reshape(b, -1), k2[:, cols])
+    assert bool(got[:, [2, 4]].isnan().all())
+
+    valid = torch.ones(x, device=cuda)
+    valid[[1, x // 3, x // 2 + 1, x - 3]] = 0.0
+    before = _counts(k2_fn)
+    scores, tile_max = k2_fn(*args, emit_blockmax=True, valid=valid)
+    assert _counts(k2_fn) == (before[0] + 1, before[1] + 1)
+    keep = torch.zeros(k2.shape[1], device=cuda)
+    keep[:x] = valid
+    assert torch.equal(scores, torch.where(keep != 0, k2, -1e30))
+    assert torch.equal(tile_max, scores.reshape(b, nb, 256).amax(dim=2))
+
+
+@pytest.mark.parametrize("kind", ["f32", "int8"])
+def test_k2_f32_and_int8_tables_stay_on_the_cuda_cores(cuda, kind):
+    """f32 and int8 tables at ML-20M's geometry launch the CUDA-core kernel:
+    `.launches` advances, `.tc_launches` does not."""
+    if kind == "int8":
+        q, qp, ft, w, t, _ = _int8_args(33, 300, 8, 4, 128, 128, cuda)
+        args = (q, qp, ft.item_comp_t, ft.item_partial_t, w, t, ft.comp_scale, ft.partial_scale)
+    else:
+        args, _ = _k2_args(33, 300, 8, 4, 128, 128, torch.float32, cuda)
+    assert not mol_scoring.tc_route(args[2].dtype, 8, 4, 128, 128)
+    tiles = torch.zeros(2, dtype=torch.int32, device=cuda)
+    for fn, call in ((mol_scoring.fused_mol_scores_t, lambda: mol_scoring.fused_mol_scores_t(
+                         *args)),
+                     (mol_scoring.fused_mol_scores_tiles,
+                      lambda: mol_scoring.fused_mol_scores_tiles(args[0], args[1], tiles,
+                                                                 *args[2:]))):
+        before = _counts(fn)
+        call()
+        assert _counts(fn) == (before[0] + 1, before[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_k2_library_refuses_a_route_against_the_width_rule(cuda, dtype):
+    """The library takes the tensor-core route exactly where `tc_route` does:
+    bf16 tables at its widths sent to the CUDA-core kernel, f32 ones sent to
+    the tensor cores, and the probe's bf16 operands sent to the CUDA-core
+    kernel are refused (cudaErrorInvalidValue) and write nothing."""
+    from rails_tpu_torch.ops import _build
+
+    args, _ = _k2_args(33, 256, 8, 4, 128, 128, dtype, cuda)
+    q, qp, items, ip, w, t = args
+    wrong = 1 - int(mol_scoring.tc_route(dtype, 8, 4, 128, 128))
+    lib = _build.load_library()
+    w1t, w2 = w.w1.float().T.contiguous(), w.w2.float().contiguous()
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.full((33, items.shape[2]), 7.0, device=cuda)
+    weights = (w1t.data_ptr(), w.b1.data_ptr(), w2.data_ptr(), w.b2.data_ptr())
+    err = lib.rails_mol_scores(
+        wrong, int(dtype == torch.bfloat16), 8, 4, q.data_ptr(), qp.data_ptr(),
+        items.data_ptr(), ip.data_ptr(), None, None, *weights, None, out.data_ptr(), None, 33,
+        items.shape[2], 128, 128, 1.0 / t, stream)
+    torch.cuda.synchronize()
+    assert err == 1 and bool((out == 7.0).all())
+    if dtype == torch.bfloat16:
+        err = lib.rails_mol_probe(wrong, 0, q.data_ptr(), qp.data_ptr(), items.data_ptr(),
+                                  ip.data_ptr(), *weights, out.data_ptr(), 33, items.shape[2],
+                                  128, 128, 20.0, stream)
+        torch.cuda.synchronize()
+        assert err == 1 and bool((out == 7.0).all())
 
 
 def test_int8_wrappers_need_scales_and_bf16_queries(cuda):

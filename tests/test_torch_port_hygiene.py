@@ -3,11 +3,14 @@ config copy that cannot drift, entry points on the card by default, a build
 that fails loudly, and unported paths that say so."""
 
 import ast
+import ctypes
 import os
+import re
 import shutil
 import subprocess
 import sys
 import textwrap
+import types
 
 import pytest
 import torch
@@ -18,7 +21,8 @@ from rails_tpu_torch.core.config import get_experiment_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = ("chip_smoke.py", "profile_serving.py", "profile_train.py", "profile_k4_bwd.py",
-           "profile_k1.py", "profile_k1_agreement.py")
+           "profile_k1.py", "profile_k1_agreement.py", "profile_k2.py",
+           "profile_p2_agreement.py", "profile_books.py")
 
 
 def test_port_imports_no_jax():
@@ -183,8 +187,67 @@ def test_source_hash_covers_every_source(fresh_build):
             "hstu_block_train.cu", "hash_dropout.cu", "hash_dropout.cuh",
             "fused_adamw.cu", "mol_loss_train.cu", "scatter_add.cu", "encode_probe.cu",
             "mol_probe.cu", "mol_scoring.cuh", "hstu_softmax_train.cu",
-            "hstu_train.cuh"} <= names
+            "hstu_train.cuh", "mol_scoring_tc.cuh", "mma_sync.cuh"} <= names
     assert len(fresh_build.source_hash()) == 16
+
+
+# The ctypes class of each C parameter or return type the entry points use.
+_C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong, "unsigned": ctypes.c_uint,
+            "uint32_t": ctypes.c_uint32, "float": ctypes.c_float, "size_t": ctypes.c_size_t,
+            "const char*": ctypes.c_char_p}
+
+
+def _c_class(decl: str):
+    """The ctypes class of one C parameter (`const float* x`) or return type."""
+    if "*" in decl and decl.replace(" ", "") != "constchar*":
+        return ctypes.c_void_p
+    words = [w for w in decl.replace("*", "* ").split() if w != "const"]
+    base = " ".join(words[:-1]) if len(words) > 1 and "*" not in decl else " ".join(words)
+    return _C_TYPES["const char*" if "*" in decl else base]
+
+
+def _extern_c_signatures() -> dict:
+    """name -> (return class, [parameter classes]) of every `extern "C"`
+    function in rails_tpu_torch/csrc/*.cu."""
+    out = {}
+    csrc = os.path.join(REPO, "rails_tpu_torch", "csrc")
+    for fname in sorted(os.listdir(csrc)):
+        if not fname.endswith(".cu"):
+            continue
+        text = open(os.path.join(csrc, fname)).read()
+        for ret, name, params in re.findall(r'extern "C"\s+(.+?)\s*\b(rails_\w+)\s*\(([^)]*)\)',
+                                            text, re.S):
+            out[name] = (_c_class(ret), [_c_class(p) for p in params.split(",") if p.strip()])
+    return out
+
+
+def test_ctypes_bindings_match_the_c_signatures(fresh_build, monkeypatch):
+    """Every `extern "C"` entry point is bound by `load_library` with its C
+    signature: as many argtypes as parameters, position by position the
+    class (int, long long, uint32_t, float, pointer, size_t), and its return
+    type. An unlisted argument goes through ctypes as a 32-bit int, which cuts
+    a pointer or a stream."""
+    bound = {}
+
+    class Recorder:
+        def __init__(self, path):
+            pass
+
+        def __getattr__(self, name):
+            return bound.setdefault(name, types.SimpleNamespace(argtypes=None, restype=None))
+
+    monkeypatch.setattr(fresh_build, "build", lambda: "librails.so")
+    monkeypatch.setattr(ctypes, "CDLL", Recorder)
+    fresh_build.load_library()
+    declared = _extern_c_signatures()
+    assert len(declared) >= 29 and "rails_scatter_add_rows" in declared
+    assert set(bound) == set(declared)
+    for name, (ret, params) in declared.items():
+        fn = bound[name]
+        assert fn.restype is ret, (name, fn.restype, ret)
+        assert len(fn.argtypes) == len(params), (name, len(fn.argtypes), len(params))
+        for pos, (got, want) in enumerate(zip(fn.argtypes, params)):
+            assert got is want, (name, pos, got, want)
 
 
 @pytest.mark.parametrize(
