@@ -8,6 +8,8 @@ Phases (one line each, any failure raises and exits non-zero):
   1. device: card name, `nvidia-smi` name and power limit; TF32 off.
   2. build:  nvcc builds every kernel for sm_90a into build/rails_tpu_torch/;
      the tensor-core instructions (HMMA, HGMMA) of each of K1's bf16 kernels
+     (with their TRAIN instances, K4's bf16 forward), of K4's bf16 backward
+     kernels (`tc_bwd_rows_kernel`, `tc_bwd_dq_kernel`, `tc_bwd_dkv_kernel`)
      and of every instance of K2's tensor-core kernel (`mol_tc_kernel`) in
      the library's SASS (`cuobjdump -sass`), none may have zero.
   3. K1 (`fused_hstu_block`) vs its plain version at ML-20M block shapes,
@@ -31,7 +33,11 @@ Phases (one line each, any failure raises and exits non-zero):
   7. K4 (`fused_train_block_forward`, `attn_backward`): one layer at B=128,
      n=211, f32 and bf16, forward and every gradient vs the plain versions
      (f32: the plain autograd version; bf16: the block's glue over the plain
-     forward and attention backward), and the attention backward alone.
+     forward and attention backward), and the attention backward alone; the
+     route of each direction (bf16: the tensor cores) with each stage's
+     device us. K4-stage: the bf16 route's four kernels (the TRAIN attention,
+     the backward's rows, dq and dkv stages) each vs its plain stage version,
+     two calls bit-equal.
   8. K7 (`adamw_update_leaves`) on the two fused leaves of ml-20m in one
      launch, vs its plain version, with `torch._fused_adamw_` timed as a
      yardstick and the call's device operations under torch.profiler.
@@ -88,13 +94,15 @@ int8 serving tables and the exact select at scale:
      MoLCertTopK4096Int8, vs the plain path, recall_vs_exact and launches.
 The frontier and its bf16 pre-train:
  20. train-bf16: as 9 with main_module_bf16 (bf16 K4, 16 + 16 launches per
-     step), the kernel step vs the plain step at bf16 tolerances.
+     step, all on the tensor cores: `.tc_launches`, and each stage kernel 16
+     a step), the kernel step vs the plain step at bf16 tolerances.
  21. frontier: `rails_tpu_torch.cli.frontier` through its functions at
      8,000,000 items (uncut): 150 bf16 pre-train steps at B=32 (the loss must
      fall), the chunked bf16 build, queries through the XLA-path encoder (no
      K1), the streamed oracle, every default method (one JSON row each, as
      the CLI prints it), then Fused, Cert4096 and Tile8 on the int8 build of
-     the same corpus. Gates: the exact bf16 path vs the oracle tie-aware, the
+     the same corpus. Every bf16 K4 launch of the pre-train takes the
+     tensor-core route. Gates: the exact bf16 path vs the oracle tie-aware, the
      exact int8 path equal to torch.topk of K2-int8's scores, certified rows
      holding K2's exact top-k. Recall is printed, not gated.
 Amazon Books (amzn-books-hstu-mol[-fast]: MoL 8x8x32, L=64, H=128; bf16):
@@ -122,7 +130,9 @@ K1's block variants and the cost probes:
      kernel, plain and bound ms at B=512, n=192, and the CLI's 16-block
      sweep of every mode with --runs cut to P1_RUNS.
  29. P2: `rails_tpu_torch.cli.mol_probe` at B=32 over 2,000,000 items (data
-     drawn on the card): every mode vs its plain version on 32,768 columns,
+     drawn on the card): every mode vs its plain version over every column
+     within `mol_probe_error_bound` (one bf16 flip of an MLP input), which
+     the kernel on each seeded fault of P2_FAULTS must break,
      full vs K2 with the weights in K2's n-major order (K2's bf16 contract),
      per-mode kernel, plain and bound ms, and the CLI's timing of every mode
      and of the hierarchical select.
@@ -194,6 +204,11 @@ K1_GEOMS = {"ml-20m": (256, 8, 32, 32, 211), "books": (64, 8, 8, 8, 61),
 # K1's bf16 tensor-core kernels (csrc/hstu_block_tc.cuh) and the instruction
 # each multiplies with; every other K1 kernel runs FFMA on the CUDA cores.
 TC_KERNELS = ("tc_proj_kernel", "tc_attn_kernel", "tc_softmax_kernel", "tc_out_kernel")
+# K4's bf16 backward on the tensor cores (csrc/hstu_train_tc.cuh); its forward
+# runs the TRAIN instances of K1's attention kernels.
+K4_TC_KERNELS = ("tc_bwd_rows_kernel", "tc_bwd_dq_kernel", "tc_bwd_dkv_kernel")
+# Their launch counters: the train attention stage and the backward's three.
+K4_STAGES = ("K4 attn", "K4 bwd rows", "K4 bwd dq", "K4 bwd dkv")
 TC_INSTRUCTION = "mma.sync.m16n8k16 bf16 (HMMA)"
 K1_STAGES = ("K1 proj", "K1 attn", "K1 out")   # their launch counters
 K2_TOL_F32 = (1e-4, 1e-3)      # logits carry 1/T = 20
@@ -265,12 +280,12 @@ K4_VAR_INSTANCES = {
 # extra kernel-vs-plain check at a second shape, and its --runs cut for the
 # script's time.
 P1_LENGTH, P1_CHECK_BATCH, P1_RUNS = 192, 64, 2
-# P2 (mol_probe): its default corpus and its --runs cut; kernel vs plain
-# within `mol_probe_error_bound` at P2_TOL: of the largest |score|, or per
-# score where noexp's denominator cancels (`tests/test_torch_port_probes.py`:
-# the MLP rounds to bf16 at the same points on both sides, in other f32
-# orders).
-P2_ITEMS, P2_RUNS, P2_TOL = 2_000_000, 2, 2e-3
+# P2 (mol_probe): its default corpus and its --runs cut. Kernel vs plain is
+# held per score to `mol_probe_error_bound`, derived from one bf16 rounding
+# flip of an MLP input (`ops/mol_probe.py`); it must reject each of
+# P2_FAULTS, the kernel run on seeded wrong weights.
+P2_ITEMS, P2_RUNS = 2_000_000, 2
+P2_FAULTS = ("W2 rows 0 and 1 swapped", "logit 5 dropped from the MLP")
 # f32 rounding of K2's softmax mixture: K8's bound may sit this far (relative)
 # below K2's score when the mixture weights all fall on the largest logit.
 F32_MARGIN = 2.0 ** -20
@@ -285,6 +300,7 @@ def ptxas_summary(log: str) -> str:
         if entry:
             mangled = entry.group(1)
             name = re.search(r"(tc_proj_kernel|tc_attn_kernel|tc_softmax_kernel|tc_out_kernel|"
+                             r"tc_bwd_rows_kernel|tc_bwd_dq_kernel|tc_bwd_dkv_kernel|"
                              r"ln_gemm_kernel|hstu_attn_bwd_kernel|hstu_attn_kernel|"
                              r"softmax_bwd_rows_kernel|softmax_bwd_cols_kernel|"
                              r"hstu_softmax_attn_kernel|mol_probe_kernel|"
@@ -313,20 +329,21 @@ def ptxas_summary(log: str) -> str:
 
 def tensor_core_sass(lib_path) -> dict:
     """HMMA and HGMMA instruction counts of each instance of the tensor-core
-    kernels (K1's bf16 kernels and K2's `mol_tc_kernel`) in the built
-    library's SASS (`cuobjdump -sass`), by "kernel<template ints> (source)".
-    Raises if a kernel is missing or an instance has neither."""
+    kernels (K1's bf16 kernels with their TRAIN instances, K4's backward
+    kernels and K2's `mol_tc_kernel`) in the built library's SASS
+    (`cuobjdump -sass`), by "kernel<template ints> (source)". Raises if a
+    kernel is missing or an instance has neither."""
     from rails_tpu_torch.ops import _build
 
     cuobjdump = str(Path(_build.find_nvcc()).parent / "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
                           timeout=300, check=True).stdout
     sources = {"encode_probe_cu": "encode_probe.cu", "mol_probe_cu": "mol_probe.cu",
-               "mol_scoring_cu": "mol_scoring.cu"}
+               "mol_scoring_cu": "mol_scoring.cu", "hstu_block_train_cu": "hstu_block_train.cu"}
     counts, label = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"(mol_tc_kernel|tc_\w+?_kernel)(?:I((?:Li\d+E)+)E)?", line)
+            m = re.search(r"(mol_tc_kernel|tc_\w+?_kernel)(?:I((?:L[ib]\d+E)+)E)?", line)
             src = next((v for k, v in sources.items() if k in line), "hstu_block.cu")
             args = ",".join(re.findall(r"\d+", m.group(2))) if m and m.group(2) else ""
             label = f"{m.group(1)}{'<' + args + '>' if args else ''} ({src})" if m else None
@@ -335,7 +352,7 @@ def tensor_core_sass(lib_path) -> dict:
         elif label:
             counts[label][0] += len(re.findall(r"\bHMMA\.", line))
             counts[label][1] += len(re.findall(r"\bHGMMA\.", line))
-    missing = [k for k in TC_KERNELS + ("mol_tc_kernel",)
+    missing = [k for k in TC_KERNELS + K4_TC_KERNELS + ("mol_tc_kernel",)
                if not any(label.startswith(k) for label in counts)]
     empty = [label for label, (hmma, hgmma) in counts.items() if hmma + hgmma == 0]
     if missing or empty:
@@ -473,7 +490,8 @@ def stage_split(fn) -> str:
         return "not recorded by torch.profiler"
     parts = []
     for _, name, us, _ in timeline:
-        short = re.search(r"(tc_\w+?_kernel|ln_gemm_kernel|hstu_\w*attn_kernel)", name)
+        short = re.search(r"(tc_\w+?_kernel|ln_gemm_kernel|hstu_\w*attn\w*_kernel|"
+                          r"attn_row_bwd_kernel|softmax_bwd_\w+?_kernel)", name)
         label = short.group(1) if short else name[:40]
         unit = TC_INSTRUCTION if label.startswith("tc_") else "FFMA (CUDA cores)"
         parts.append(f"{label} {us:.2f} us [{unit}]")
@@ -751,12 +769,15 @@ def kernel_counters() -> dict:
         "P1": encode_probe.encode_probe_block, "P2": mol_probe.mol_probe_scores,
         "K1 proj": hstu_block.project, "K1 attn": hstu_block.attention_oinput,
         "K1 out": hstu_block.out_gemm,
+        "K4 attn": hstu_block_train.train_attention_oinput,
+        "K4 bwd rows": hstu_block_train.attn_bwd_rows, "K4 bwd dq": hstu_block_train.attn_bwd_dq,
+        "K4 bwd dkv": hstu_block_train.attn_bwd_dkv,
     }
     counters = {name: (fn, "launches") for name, fn in wrappers.items()}
     counters["K2-bmax"] = (mol_scoring.fused_mol_scores_t, "blockmax_launches")
     for k in ("K2", "K8", "K9", "K10"):
         counters[f"{k}-int8"] = (wrappers[k], "int8_launches")
-    for k in ("K2", "K10", "P2"):
+    for k in ("K2", "K10", "P2", "K4 fwd", "K4 bwd"):
         counters[f"{k}-tc"] = (wrappers[k], "tc_launches")
     for k in ("K4 fwd", "K4 bwd", "K5 fwd", "K5 bwd"):
         counters[f"{k} (bf16)"] = (wrappers[k], "bf16_launches")
@@ -1073,6 +1094,11 @@ def check_k4(device, dtype, instance: Optional[str] = None) -> tuple:
         bwd_bytes += 4 * (b * n * n + n * n + b * (n + 1))
     bwd_bd = bound(k4_bwd_flops(b, n, meta, bf16), bwd_bytes, peak)
     label = f"{tag} {dt} B={b} n={n} D={D} h={meta.num_heads} dqk={meta.dqk} dv={meta.dv}"
+    routes = [f"{what} {'tensor cores' if tc else 'CUDA cores'}" for what, tc in (
+        ("forward", hbt.tc_fwd_route(dtype, D, meta)), ("backward", hbt.tc_bwd_route(dtype, meta)))]
+    print(f"{tag} {dt} route: {', '.join(routes)}; forward stages "
+          f"{stage_split(lambda: hbt.fused_train_block_forward(*args))}; attention backward "
+          f"stages {stage_split(lambda: hbt.attn_backward(*bargs))}")
     print(f"{label} dropout {meta.rate} / attention {meta.attn_rate} "
           f"({hbt.variant_name(meta, has_bias)}): forward max|err| {err:.3e} ({verdict}); "
           f"gradient max|err|/max|plain| " + ", ".join(f"{k} {v:.2e}" for k, v in grad_errs.items())
@@ -1086,6 +1112,83 @@ def check_k4(device, dtype, instance: Optional[str] = None) -> tuple:
     bwd = {"max_abs_err": (d_y_k - d_y_p).abs().max().item(), "ms": bwd_ms,
            "plain_ms": bwd_plain_ms, **bwd_bd, "library_ms": None}
     return fwd, bwd
+
+
+def check_k4_stages(device) -> dict:
+    """K4's bf16 tensor-core kernels at ml-20m-hstu-mol's train block (B=128,
+    n=211, o_input dropout 0.2), each against its plain stage version on the
+    same inputs within K4_BF16_TOL of its largest value: the TRAIN attention
+    over K1's projection (o_input, attn), then the backward's rows (d_u,
+    d_attn, attn), dq (d_q, dbias) and dkv (d_v, d_k) stages on a seeded bf16
+    y and d(o_input), dq and dkv fed the plain d_attn; each kernel twice,
+    bit-equal; error, kernel, plain and bound ms. Returns the four by
+    counter name (K4_STAGES)."""
+    import torch
+
+    from rails_tpu_torch.ops import hstu_block as hb
+    from rails_tpu_torch.ops import hstu_block_train as hbt
+
+    b, n = TRAIN_BATCH, MAX_SEQ_LEN
+    (x, colmask, uvqk, _, _, rel_pos, ext, tsw), _ = k1_inputs(b, n, torch.bfloat16, device,
+                                                               seed=3)
+    x = x * colmask[..., None].to(x.dtype)
+    meta, _ = k4_meta(None)
+    seed, tables = 987_654_321, (rel_pos, ext, tsw)
+    h, dqk, dv = meta.num_heads, meta.dqk, meta.dv
+    hdv, hq, f = h * dv, h * dqk, 2 * H * DV + 2 * H * DQK
+    m, pairs = b * n, b * h * (n * (n + 1) // 2)
+    u, vqk = hb.project(x, uvqk, num_heads=h, dqk=dqk, dv=dv, inv_n=meta.inv_n, eps=meta.eps)
+    v, q, k = hb.split_vqk(vqk, num_heads=h, dqk=dqk, dv=dv)
+    g = torch.Generator(device=device).manual_seed(13)
+    y = torch.randn(b, n, f, generator=g, device=device).bfloat16()
+    d_o = torch.randn(b, n, meta.o_width, generator=g, device=device).bfloat16()
+    bargs = (colmask, *tables, meta, seed)
+    _, d_attn_p, _ = hbt.attn_bwd_rows_reference(y, d_o, *bargs)
+    out = {}
+
+    def report(name, kernel, plain, cols, flops, nbytes, timed=None):
+        # `timed`: the kernel writing into a d_y allocated once, as the
+        # composed backward does (a new d_y is zeroed first).
+        timed = timed or kernel
+        got, again, want = kernel(), kernel(), plain()
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            raise AssertionError(f"[K4-stage] {name}: two calls differ")
+        shares = [rel_err(got[i][..., c].float(), want[i][..., c].float()) for i, c in cols]
+        if max(shares) > K4_BF16_TOL:
+            raise AssertionError(f"[K4-stage] {name} outside {K4_BF16_TOL}: {shares}")
+        err = max((got[i][..., c].float() - want[i][..., c].float()).abs().max().item()
+                  for i, c in cols)
+        ms, plain_ms = cuda_ms(timed), cuda_ms(plain, iters=3, warmup=1)
+        bd = bound(flops, nbytes, "bfloat16")
+        print(f"[K4-stage] {name} bf16 B={b} n={n}: max|err|/max|plain| per output "
+              f"{[float(f'{x_:.2e}') for x_ in shares]} (<= {K4_BF16_TOL}), two calls bit-equal; "
+              f"kernel {ms:.3f} ms [{TC_INSTRUCTION}], plain {plain_ms:.3f} ms, bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}); "
+              f"{stage_split(timed)}")
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": None}
+
+    every = slice(None)
+    report("K4 attn", lambda: hbt.train_attention_oinput(u, vqk, colmask, *tables, seed, meta),
+           lambda: hbt.train_attention_oinput_reference(u, v, q, k, colmask, *tables, seed, meta),
+           [(0, every), (1, every)], 4 * pairs * dqk,
+           4 * m * hdv + 2 * m * vqk.shape[-1] + 2 * m * meta.o_width + 4 * m * hdv)
+    buf = torch.empty(b, n, f, device=device)
+    report("K4 bwd rows", lambda: hbt.attn_bwd_rows(y, d_o, *bargs),
+           lambda: hbt.attn_bwd_rows_reference(y, d_o, *bargs),
+           [(0, slice(0, hdv)), (1, every), (2, every)], 4 * pairs * dqk,
+           2 * m * (f + meta.o_width) + 4 * m * hdv + 2 * m * hdv + 4 * m * hdv,
+           lambda: hbt.attn_bwd_rows(y, d_o, *bargs, d_y=buf))
+    report("K4 bwd dq", lambda: hbt.attn_bwd_dq(y, d_attn_p, *bargs),
+           lambda: hbt.attn_bwd_dq_reference(y, d_attn_p, *bargs),
+           [(0, slice(2 * hdv, 2 * hdv + hq)), (1, every)], 6 * pairs * dqk,
+           2 * m * (f + hdv) + 4 * m * hq + 4 * b * n * n,
+           lambda: hbt.attn_bwd_dq(y, d_attn_p, *bargs, d_y=buf))
+    report("K4 bwd dkv", lambda: (hbt.attn_bwd_dkv(y, d_attn_p, *bargs),),
+           lambda: (hbt.attn_bwd_dkv_reference(y, d_attn_p, *bargs),),
+           [(0, slice(hdv, 2 * hdv)), (0, slice(2 * hdv + hq, None))], 8 * pairs * dqk,
+           2 * m * (f + hdv) + 4 * m * (hq + hdv),
+           lambda: hbt.attn_bwd_dkv(y, d_attn_p, *bargs, d_y=buf))
+    return out
 
 
 def device_timeline(fn) -> list:
@@ -1284,7 +1387,9 @@ def zipf_ids(device, shape: tuple, num_items: int, seed: int = 11):
 
 def step_launches(cfg, model, optimizer) -> dict:
     """The kernel launches one training step of `cfg` makes: with
-    `fused_train` K3 and K4 once per block (its bf16 instance in bf16), none
+    `fused_train` K3 and K4 once per block (its bf16 instance in bf16, at
+    the tensor-core widths on the tensor cores: `tc_fwd_route`,
+    `tc_bwd_route`), none
     on the XLA block path; K7 once where the optimizer fuses a leaf; with the
     fused shared-negatives loss K5 forward and backward once (its bf16
     instance in bf16); with pallas_scatter_grad K6 once per gather from the
@@ -1292,14 +1397,26 @@ def step_launches(cfg, model, optimizer) -> dict:
     kernel."""
     import torch
 
+    from rails_tpu_torch.models.hstu import train_block_meta
+    from rails_tpu_torch.ops.hstu_block_train import tc_bwd_route, tc_fwd_route
+
     blocks = cfg.hstu.num_blocks if cfg.hstu.fused_train else 0
     fused = int(cfg.train.shared_negatives and cfg.train.fused_mol_loss)
     bf16 = model.compute_dtype == torch.bfloat16
     variant = k4_variant(cfg)
     per_variant = {} if variant == "default" or not blocks else {
         f"K4 fwd [{variant}]": blocks, f"K4 bwd [{variant}]": blocks}
-    return {**{k: 0 for k in kernel_counters()}, **per_variant, "K3": blocks, "K4 fwd": blocks,
-            "K4 bwd": blocks, "K4 fwd (bf16)": blocks * bf16, "K4 bwd (bf16)": blocks * bf16,
+    # bf16 K4 on the tensor cores: the forward through K1's projection and
+    # output GEMM around the train attention stage, the pointwise backward's
+    # three stages.
+    meta = train_block_meta(cfg.hstu, cfg.max_seq_len_padded)
+    fwd_tc = blocks * int(tc_fwd_route(model.compute_dtype, cfg.hstu.embedding_dim, meta))
+    bwd_tc = blocks * int(tc_bwd_route(model.compute_dtype, meta))
+    tc = {"K4 fwd-tc": fwd_tc, "K1 proj": fwd_tc, "K4 attn": fwd_tc, "K1 out": fwd_tc,
+          "K4 bwd-tc": bwd_tc, "K4 bwd rows": bwd_tc, "K4 bwd dq": bwd_tc, "K4 bwd dkv": bwd_tc}
+    return {**{k: 0 for k in kernel_counters()}, **per_variant, **tc, "K3": blocks,
+            "K4 fwd": blocks, "K4 bwd": blocks, "K4 fwd (bf16)": blocks * bf16,
+            "K4 bwd (bf16)": blocks * bf16,
             "K5 fwd": fused, "K5 bwd": fused, "K5 fwd (bf16)": fused * bf16,
             "K5 bwd (bf16)": fused * bf16, "K6": 3 if cfg.train.pallas_scatter_grad else 0,
             "K7": int(any(optimizer.fused(p.numel()) for p in model.parameters()))}
@@ -2077,6 +2194,10 @@ def frontier_phase(device, name: str, smi: str) -> dict:
             for key, v in step_launches(cfg, model, make_optimizer(cfg, model)).items()}
     if counts != want:
         raise AssertionError(f"frontier pre-train launches {counts}, want {want}")
+    for k4 in ("K4 fwd", "K4 bwd"):
+        if counts[f"{k4}-tc"] != counts[f"{k4} (bf16)"] or not counts[f"{k4}-tc"]:
+            raise AssertionError(f"frontier pre-train: {counts[f'{k4} (bf16)']} bf16 {k4} "
+                                 f"launches, {counts[f'{k4}-tc']} of them on the tensor cores")
     first, last = np.mean(losses[:10]), np.mean(losses[-10:])
     print(f"[frontier] pre-train {cfg.name} bf16, B={args.batch_size}, {len(losses)} steps over "
           f"{cfg.data.synthetic_num_users} synthetic users ({cfg.data.synthetic_num_items} items): "
@@ -2635,12 +2756,24 @@ def p2_operands(device, seed: int = 9) -> tuple:
         b2=randn(l))
 
 
+def p2_faults(ops: tuple) -> dict:
+    """P2_FAULTS: `ops` with seeded wrong weights, by name."""
+    q, qp, item, ip, w = ops
+    w2 = w.w2.clone()
+    w2[[0, 1]] = w2[[1, 0]]
+    w1 = w.w1.clone()
+    w1[5] = 0.0
+    wrong = (type(w)(w.w1, w.b1, w2, w.b2), type(w)(w1, w.b1, w.w2, w.b2))
+    return {name: (q, qp, item, ip, wt) for name, wt in zip(P2_FAULTS, wrong)}
+
+
 def check_p2(device, ops: tuple) -> dict:
     """P2's kernel in each mode on `ops` (`p2_operands`) against its plain
-    version over the whole corpus (within `mol_probe_error_bound` at P2_TOL),
-    `full` against K2 on the same operands (K2's bf16 contract; the same
-    kernel, so bit-equal is expected), each mode's kernel and plain ms and
-    bound. Returns each mode's row of the kernel summary."""
+    version over the whole corpus, per score within `mol_probe_error_bound`;
+    in `full`, the kernel on each of P2_FAULTS must break that bound; `full`
+    against K2 on the same operands (K2's bf16 contract; the same kernel, so
+    bit-equal is expected); each mode's kernel and plain ms and bound.
+    Returns each mode's row of the kernel summary."""
     import torch
 
     from rails_tpu_torch.ops import mol_probe as mp
@@ -2651,19 +2784,25 @@ def check_p2(device, ops: tuple) -> dict:
     k2_full = fused_mol_scores_t(*ops, 1.0 / mp.INV_TEMPERATURE)
     k2_ms = cuda_ms(lambda: fused_mol_scores_t(*ops, 1.0 / mp.INV_TEMPERATURE), iters=3,
                     warmup=1)
-    errs, ratios, rows = {}, {}, {}
+    errs, ratios, rows, faults = {}, {}, {}, {}
     for mode in mp.MODES:
         got = mp.mol_probe_scores(mode, *ops)
         ref = mp.mol_probe_scores_reference(mode, *ops)
+        bd = mp.mol_probe_error_bound(mode, *ops)
         err = (got - ref).abs()
-        ratios[mode] = (err / mp.mol_probe_error_bound(mode, *ops, tol=P2_TOL)).max().item()
+        ratios[mode] = (err / bd).max().item()
         errs[mode] = err.max().item()
         if not ratios[mode] <= 1.0:
             raise AssertionError(f"P2 {mode}: kernel vs plain at {ratios[mode]:.3e} of its bound")
         if mode == "full":
             verdict = bf16_contract(got[:, :x], k2_full[:, :x], "P2 full vs K2")
             bit_equal = torch.equal(got, k2_full)
-        del got, ref, err
+            for fault, wrong in p2_faults(ops).items():
+                faults[fault] = ((mp.mol_probe_scores(mode, *wrong) - ref).abs() / bd).max().item()
+                if not faults[fault] > 1.0:
+                    raise AssertionError(f"P2 full: the bound misses the seeded fault {fault!r} "
+                                         f"({faults[fault]:.3e} of it)")
+        del got, ref, err, bd
         ms = cuda_ms(lambda: mp.mol_probe_scores(mode, *ops), iters=3, warmup=1)
         plain_ms = cuda_ms(lambda: mp.mol_probe_scores_reference(mode, *ops), iters=1,
                            warmup=0)
@@ -2678,9 +2817,10 @@ def check_p2(device, ops: tuple) -> dict:
               f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
     print(f"[P2] B={b} X={x} MoL {P_Q}x{P_X}x{D_P} H=128 bf16, all {x_pad} columns: "
           f"max|kernel - plain| per mode { {m: float(f'{e:.3e}') for m, e in errs.items()} }, "
-          f"its largest share of `mol_probe_error_bound` (tol {P2_TOL}) "
-          f"{ {m: float(f'{r:.3e}') for m, r in ratios.items()} } (<= 1); full vs K2 on the "
-          f"same operands: {verdict}, bit-equal {bit_equal}; K2 {k2_ms:.3f} ms")
+          f"its largest share of `mol_probe_error_bound` (one bf16 flip) "
+          f"{ {m: float(f'{r:.3e}') for m, r in ratios.items()} } (<= 1); the kernel on "
+          f"seeded faults, full: { {k: float(f'{v:.3e}') for k, v in faults.items()} } (> 1); "
+          f"full vs K2 on the same operands: {verdict}, bit-equal {bit_equal}; K2 {k2_ms:.3f} ms")
     return rows
 
 
@@ -2721,7 +2861,7 @@ def main() -> None:
     from rails_tpu_torch.core.config import get_experiment_config
     from rails_tpu_torch.core.device import require_cuda
     from rails_tpu_torch.ops import _build
-    from rails_tpu_torch.ops.hstu_block_train import variant_name
+    from rails_tpu_torch.ops.hstu_block_train import tc_bwd_route, tc_fwd_route, variant_name
 
     require_cuda()
     device = torch.device("cuda", 0)
@@ -2743,7 +2883,7 @@ def main() -> None:
           f"{ptxas_summary((lib_path.parent / 'build.log').read_text())}")
     sass = tensor_core_sass(lib_path)
     print(f"[build] tensor-core instructions in the SASS (HMMA, HGMMA) of K1's bf16 kernels "
-          f"and K2's tensor-core kernel: "
+          f"(<DVP, 1>: K4's TRAIN attention), K4's backward kernels and K2's tensor-core kernel: "
           f"{ {k: tuple(v) for k, v in sass.items()} }")
 
     k1 = {}
@@ -2763,13 +2903,14 @@ def main() -> None:
     k3 = check_k3(device)
     k4_fwd, k4_bwd = check_k4(device, torch.float32)
     k4_fwd16, k4_bwd16 = check_k4(device, torch.bfloat16)
+    k4_stages = check_k4_stages(device)
     k7 = check_k7(device)
     torch.cuda.empty_cache()
     # Each path reports the launches of the kernels it adds.
     train = train_phase(device, name, smi)
     launches.update({k: train[k] for k in ("K3", "K4 fwd", "K4 bwd", "K7")})
     torch.cuda.empty_cache()
-    train_phase(device, name, smi, tag="train-bf16", main_module_bf16=True)
+    train16 = train_phase(device, name, smi, tag="train-bf16", main_module_bf16=True)
     torch.cuda.empty_cache()
     k5_fwd, k5_bwd = check_k5(device)
     torch.cuda.empty_cache()
@@ -2889,9 +3030,9 @@ def main() -> None:
               "rails_tpu/ops/pallas/mol_scoring.py:346", "K9-int8", bounds["K9-int8"]),
         entry("fused_mol_scores_tiles (int8 tables)", "mol_scoring.cu",
               "rails_tpu/ops/pallas/mol_scoring.py:875", "K10-int8", bounds["K10-int8"]),
-        entry("fused_train_block_forward (bf16)", "hstu_block_train.cu",
+        entry("fused_train_block_forward (bf16)", "hstu_block_tc.cuh",
               "rails_tpu/ops/pallas/hstu_block_train.py:574", "K4 fwd (bf16)", k4_fwd16),
-        entry("attn_backward (bf16)", "hstu_block_train.cu",
+        entry("attn_backward (bf16)", "hstu_train_tc.cuh",
               "rails_tpu/ops/pallas/hstu_block_train.py:629", "K4 bwd (bf16)", k4_bwd16),
         entry("fused_mol_scores_t (8x8x32)", "mol_scoring_tc.cuh",
               "rails_tpu/ops/pallas/mol_scoring.py:724", "K2-tc", k2b["bfloat16"], books),
@@ -2933,6 +3074,18 @@ def main() -> None:
         entry("tc_out_kernel (K1 output GEMM, bf16)", tc_src, k1_site, "K1 out",
               k1_stages["out_gemm"]),
     ]
+    k4_fwd_site = "rails_tpu/ops/pallas/hstu_block_train.py:574"
+    k4_bwd_site = "rails_tpu/ops/pallas/hstu_block_train.py:629"
+    summary += [
+        entry("tc_attn_kernel<32, TRAIN> (K4 attention + dropout + o_input, bf16)", tc_src,
+              k4_fwd_site, "K4 attn", k4_stages["K4 attn"], train16),
+        entry("tc_bwd_rows_kernel (K4 attn recompute + LN backward, bf16)", "hstu_train_tc.cuh",
+              k4_bwd_site, "K4 bwd rows", k4_stages["K4 bwd rows"], train16),
+        entry("tc_bwd_dq_kernel (K4 d_q + dbias, bf16)", "hstu_train_tc.cuh", k4_bwd_site,
+              "K4 bwd dq", k4_stages["K4 bwd dq"], train16),
+        entry("tc_bwd_dkv_kernel (K4 d_k + d_v, bf16)", "hstu_train_tc.cuh", k4_bwd_site,
+              "K4 bwd dkv", k4_stages["K4 bwd dkv"], train16),
+    ]
     summary += [
         entry("encode_probe_block (full)", "encode_probe.cu",
               "rails_tpu/cli/encode_probe.py:150", "P1", p1["full"], {"P1": p1["launches"]}),
@@ -2942,12 +3095,14 @@ def main() -> None:
     for inst in K4_VAR_INSTANCES:
         meta, has_bias = k4_meta(inst)
         variant = variant_name(meta, has_bias)
-        bwd_src = "hstu_softmax_train.cu" if meta.softmax else "hstu_block_train.cu"
         for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, ", bf16")):
             fwd, bwd = k4v[(inst, dtype)]
             runs = k4v_runs[(inst, dtype)]
+            fwd_src = "hstu_block_tc.cuh" if tc_fwd_route(dtype, D, meta) else "hstu_block_train.cu"
+            bwd_src = ("hstu_train_tc.cuh" if tc_bwd_route(dtype, meta) else
+                       "hstu_softmax_train.cu" if meta.softmax else "hstu_block_train.cu")
             summary += [
-                entry(f"fused_train_block_forward ({inst}{suffix})", "hstu_block_train.cu",
+                entry(f"fused_train_block_forward ({inst}{suffix})", fwd_src,
                       "rails_tpu/ops/pallas/hstu_block_train.py:574", f"K4 fwd [{variant}]", fwd,
                       runs),
                 entry(f"attn_backward ({inst}{suffix})", bwd_src,

@@ -28,8 +28,9 @@ PROFILED = 5
 DEFAULT_INSTANCES = ("default", "no bias", "softmax")
 REGS_PER_SM, SMEM_PER_SM, SMEM_PER_BLOCK_RESERVED, MAX_WARPS_PER_SM = 65_536, 232_448, 1024, 64
 BWD_KERNELS = ("attn_row_bwd_kernel", "hstu_attn_bwd_kernel", "softmax_bwd_rows_kernel",
-               "softmax_bwd_cols_kernel", "hstu_attn_kernel", "hstu_softmax_attn_kernel")
-THREADS = {"hstu_attn_bwd_kernel": 512}   # the others run 256 threads a block
+               "softmax_bwd_cols_kernel", "hstu_attn_kernel", "hstu_softmax_attn_kernel",
+               "tc_bwd_rows_kernel", "tc_bwd_dq_kernel", "tc_bwd_dkv_kernel")
+THREADS = {"hstu_attn_bwd_kernel": 512}   # the others run 256 threads a block (the CUDA-core ones)
 
 
 def blocks_per_sm(regs: int, smem: int, threads: int) -> int:

@@ -1,9 +1,11 @@
 """Where the time of the port's training step goes, on one CUDA card.
 
 Run from the root of a checkout: `python3 profile_train.py [--config NAME]
-[--pallas-scatter]`. It builds the kernels, then trains `--config` (default
-ml-20m-hstu-mol; ml-20m-hstu-mol-fast shares 128 negatives across the batch
-and scores them with K5) through `rails_tpu_torch` (f32, seeded random
+[--pallas-scatter] [--main-module-bf16] [--frontier]`. It builds the
+kernels, optionally times the frontier's bf16 pre-train, then trains
+`--config` (default ml-20m-hstu-mol; ml-20m-hstu-mol-fast shares 128
+negatives across the batch and scores them with K5) through
+`rails_tpu_torch` (f32, or bf16 with `--main-module-bf16`, seeded random
 weights, 26,744 items, one batch of 128 ML-20M-shaped users at N = 211;
 `chip_smoke.train_setup`), with the item table's gradient through K6 when
 `--pallas-scatter` is given. It prints
@@ -27,10 +29,32 @@ from profile_serving import union_us
 
 WARMUP, TIMED, PROFILED = 3, 30, 2
 TOP_ROWS = 16
-OWN_KERNELS = ("hash_keep_mask_kernel", "ln_gemm_kernel", "hstu_attn_kernel",
+OWN_KERNELS = ("hash_keep_mask_kernel", "ln_gemm_kernel", "hstu_attn_kernel", "tc_proj_kernel",
+               "tc_attn_kernel", "tc_softmax_kernel", "tc_out_kernel", "tc_bwd_rows_kernel",
+               "tc_bwd_dq_kernel", "tc_bwd_dkv_kernel",
                "attn_row_bwd_kernel", "hstu_attn_bwd_kernel", "adamw_leaves_kernel",
                "mol_loss_fwd_kernel", "mol_loss_bwd_kernel", "reduce_slots_kernel",
                "count_kernel", "scan_kernel", "rank_kernel", "place_kernel", "sum_kernel")
+
+
+def frontier_pretrain(device, smi: str) -> None:
+    """The frontier CLI's pre-train at its defaults (`cli/frontier.py`: 150
+    bf16 steps of ml-20m-hstu-mol at B=32), twice: ms/step of the second."""
+    import torch
+
+    from rails_tpu_torch.cli import frontier as fr
+
+    args = fr.parse_args([])
+    cfg = fr.configure(args)
+    ds = fr.synthetic_dataset(cfg)
+    for rep in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, losses = fr.pretrain(cfg, ds, args.train_steps, device)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / len(losses)
+    print(f"[frontier-pretrain] {cfg.name} bf16, B={args.batch_size}, {len(losses)} steps: "
+          f"{ms:.3f} ms/step (the second of two runs), last loss {losses[-1]:.4f} on {smi}")
 
 
 def main() -> None:
@@ -38,6 +62,11 @@ def main() -> None:
     parser.add_argument("--config", default="ml-20m-hstu-mol")
     parser.add_argument("--pallas-scatter", action="store_true",
                         help="train.pallas_scatter_grad: the item table's gradient through K6")
+    parser.add_argument("--main-module-bf16", action="store_true",
+                        help="train.main_module_bf16: the encoder in bf16 (bf16 K4)")
+    parser.add_argument("--frontier", action="store_true",
+                        help="first time the frontier's bf16 pre-train (its defaults: 150 steps "
+                             "at B=32), host clock")
     args = parser.parse_args()
     import torch
     from torch.autograd import DeviceType
@@ -55,8 +84,11 @@ def main() -> None:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
     _build.load_library()
+    if args.frontier:
+        frontier_pretrain(device, smi)
     cfg, _, state, step, batch = chip_smoke.train_setup(
-        device, args.config, pallas_scatter_grad=args.pallas_scatter)
+        device, args.config, pallas_scatter_grad=args.pallas_scatter,
+        main_module_bf16=args.main_module_bf16)
     gen = torch.Generator(device=device).manual_seed(0)
 
     def one_step():
@@ -74,7 +106,8 @@ def main() -> None:
     runs = [one_step() for _ in range(TIMED)]
     ms = statistics.median(t for t, _ in runs)
     peak = torch.cuda.max_memory_allocated()
-    print(f"[train] f32 {cfg.name} (shared_negatives={cfg.train.shared_negatives}, "
+    dt = "bf16" if args.main_module_bf16 else "f32"
+    print(f"[train] {dt} {cfg.name} (shared_negatives={cfg.train.shared_negatives}, "
           f"fused_mol_loss={cfg.train.fused_mol_loss}, pallas_scatter_grad="
           f"{cfg.train.pallas_scatter_grad}) B={chip_smoke.TRAIN_BATCH} "
           f"N={batch.features.ids.shape[1]}: "

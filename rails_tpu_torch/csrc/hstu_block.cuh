@@ -55,8 +55,9 @@
 // linear activation), K4's forward and the bf16 train backward's recompute
 // of attn. K1's bf16 instances run on the tensor cores
 // (hstu_block_tc.cuh: mma.sync GEMMs and attention, q, k and v stored in bf16,
-// the bias built once for all heads); K4's forward moves there with its
-// backward, which reads the f32 y and attn these kernels write.
+// the bias built once for all heads), and so does K4's bf16 forward at those
+// widths with the SiLU projection (hstu_block_tc.cuh's TRAIN instances;
+// its pointwise backward is hstu_train_tc.cuh).
 #pragma once
 
 #include <cmath>

@@ -1,6 +1,8 @@
 // The bf16 HSTU serving block on the H100's tensor cores: K1's bf16
-// instances (hstu_block.cu) and the bf16 modes of its cost probe P1
-// (encode_probe.cu).
+// instances (hstu_block.cu), the bf16 modes of its cost probe P1
+// (encode_probe.cu), and K4's bf16 train forward (hstu_block_train.cu: the
+// projection and output GEMM as they are, the attention in its TRAIN
+// instances, below).
 //
 // Replaces, for bf16 operands, the body `_kernel` of
 // rails_tpu/ops/pallas/hstu_block.py (:96-276): LayerNorm -> x @ uvqk ->
@@ -51,6 +53,18 @@
 // the SiLU (silu_bf16 below) differ. time_bucket is hstu_block.cuh's (logf,
 // no fast math).
 //
+// K4's train forward (`_fwd_kernel`, rails_tpu/ops/pallas/hstu_block_train.py
+// :124-232) runs launches 1 and 3 unchanged and launch 2 in its TRAIN
+// instance (`TrainAttnArgs`; hstu_block_train.cu launches it): a times the attention
+// keep mask of its (user, head) K3 stream (head 0 under softmax; idx = i * n
+// + j) before its rounding, o_input times its keep mask (the user's stream,
+// idx = position * o_width + column) before its rounding, as `_fwd_kernel`
+// multiplies before its casts, and attn written in f32 straight from the
+// fragments (27.7 MB at B = 128, n = 211: the train forward's function
+// returns it). At B = 128 the forward needs 20.6 GFLOP (0.021 ms at 989
+// TFLOP/s), ~28 MB (0.008 ms) and ~51 M ex2 (0.012 ms at 16 MUFU results an
+// SM a clock). The serving instances take `AttnArgs` and compile as before.
+//
 // Widths: D <= 256, dqk <= 32, dv <= 32, and h <= 4 or an even h <= 8 (a head
 // warp holds at most 4 heads' (16, dv_p) attn fragments); `tc_route` in
 // ops/hstu_block.py states the same rule. Other bf16 widths stay on the
@@ -60,7 +74,9 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
+#include "hash_dropout.cuh"
 #include "hstu_block.cuh"
 #include "mma_sync.cuh"
 
@@ -631,6 +647,23 @@ struct AttnArgs {
   float eps, inv_sqrt_dqk;
 };
 
+// The train forward's (K4's) arguments, which only the TRAIN instances take:
+// attn (B*n, h*dv) f32 out, and the K3 keep masks of the layer's seed, on
+// o_input (odrop) and on the attention weights (adrop).
+struct TrainAttnArgs : AttnArgs {
+  float* attn;
+  int seed0;
+  int odrop;
+  uint32_t othresh;
+  float oscale;
+  int adrop;
+  uint32_t athresh;
+  float ascale;
+};
+
+template <bool TRAIN>
+using AttnArgsOf = std::conditional_t<TRAIN, TrainAttnArgs, AttnArgs>;
+
 __device__ __forceinline__ float bias_at(const AttnArgs& p, int b, int i, int j, const int* ex,
                                          const float* tw) {
   switch (p.bias_mode) {
@@ -702,13 +735,41 @@ __device__ __forceinline__ void store_bf16x4(bf16* dst, float a, float b, float 
   *reinterpret_cast<uint2*>(dst) = v;
 }
 
+// The train forward's o_input rows from the staged LN(attn) (row stride lds)
+// and u: o_input = u * LN(attn), or concat_ua's [u, LN(attn), u * LN(attn)],
+// times the o_input keep mask (idx = position * o_width + column, the user's
+// seed) before the rounding (`_fwd_kernel`: o_in * mask, then the cast).
+__device__ __forceinline__ void train_oinput_rows(const TrainAttnArgs& p, const float* stage, int lds,
+                                                  int b, int i0, int rows, int ldo,
+                                                  int64_t row0) {
+  const int hdv = p.H * p.dv;
+  const uint32_t oseed = user_seed(p.seed0, b);
+  for (int e = threadIdx.x; e < rows * hdv; e += blockDim.x) {
+    const int r = e / hdv, c = e - r * hdv;
+    const float a = stage[r * lds + c], uu = p.u[(row0 + r) * hdv + c];
+    const uint32_t idx = static_cast<uint32_t>((i0 + r) * ldo + c);
+    auto keep = [&](int part) {
+      return p.odrop ? keep_scale(idx + part * hdv, oseed, p.othresh, p.oscale) : 1.f;
+    };
+    bf16* o = p.oin + (row0 + r) * ldo + c;
+    int part = 0;
+    if (p.concat_ua) {
+      o[0] = __float2bfloat16_rn(uu * keep(0));
+      o[hdv] = __float2bfloat16_rn(a * keep(1));
+      o += 2 * hdv;
+      part = 2;
+    }
+    o[0] = __float2bfloat16_rn(uu * a * keep(part));
+  }
+}
+
 // The attention epilogue: LayerNorm statistics of whole attn rows across the
 // head warps, then o_input = bf16(u * LN(attn)) or concat_ua's
 // [bf16(u), bf16(LN(attn)), bf16(u * LN(attn))]. `stage` is the block's
 // dynamic shared memory, (kRows, h*dv + 4) floats, free once every warp is
 // past its last product (the first barrier below).
-template <int DVP>
-__device__ __forceinline__ void oinput_epilogue(const AttnArgs& p,
+template <int DVP, bool TRAIN>
+__device__ __forceinline__ void oinput_epilogue(const AttnArgsOf<TRAIN>& p,
                                                 const float (&O)[kHeadsPerWarp][DVP / 8][4],
                                                 int b, int i0, int wr, int wc, int hw, int nwc,
                                                 int lane, float (&red)[2][kRows][2],
@@ -754,6 +815,22 @@ __device__ __forceinline__ void oinput_epilogue(const AttnArgs& p,
       }
     }
   }
+  if constexpr (TRAIN) {  // attn itself, f32, straight from the fragments
+#pragma unroll
+    for (int hh = 0; hh < kHeadsPerWarp; ++hh) {
+      if (hh >= hw) break;
+#pragma unroll
+      for (int ni = 0; ni < DVP / 8; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = i0 + wr * 16 + g + (e >> 1) * 8, d = ni * 8 + 2 * t + (e & 1);
+          if (i < p.n && d < p.dv) {
+            p.attn[(static_cast<int64_t>(b) * p.n + i) * hdv + (wc * hw + hh) * p.dv + d] =
+                O[hh][ni][e];
+          }
+        }
+    }
+  }
   // LN(attn) staged through shared memory (the block's tiles are dead), so
   // that u is read and o_input written in whole rows, 16 and 8 bytes a lane.
   const int lds = hdv + 4;
@@ -779,6 +856,10 @@ __device__ __forceinline__ void oinput_epilogue(const AttnArgs& p,
   __syncthreads();
   const int rows = min(kRows, p.n - i0), ldo = p.concat_ua ? 3 * hdv : hdv;
   const int64_t row0 = static_cast<int64_t>(b) * p.n + i0;
+  if constexpr (TRAIN) {
+    train_oinput_rows(p, stage, lds, b, i0, rows, ldo, row0);
+    return;
+  }
   if ((hdv & 3) == 0) {
     const int q4 = hdv / 4;
     for (int e = threadIdx.x; e < rows * q4; e += blockDim.x) {
@@ -827,8 +908,10 @@ size_t attn_smem_bytes(int n, int H, int dqk, int dv, int softmax) {
 }
 
 // Launch 2, pointwise SiLU attention (or the probe's linear gate / noattn).
-template <int DVP>
-__global__ void __launch_bounds__(kThreads, 2) tc_attn_kernel(AttnArgs p) {
+// TRAIN (K4's forward): the attention keep mask times a before its rounding,
+// o_input's keep mask, and attn written in f32.
+template <int DVP, bool TRAIN = false>
+__global__ void __launch_bounds__(kThreads, 2) tc_attn_kernel(AttnArgsOf<TRAIN> p) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
   __shared__ float red[2][kRows][2];
   const int H = p.H, hq = H * p.dqk_p, hvp = H * DVP;
@@ -935,6 +1018,14 @@ __global__ void __launch_bounds__(kThreads, 2) tc_attn_kernel(AttnArgs p) {
               a0 = silu_bf16(a0);
               a1 = silu_bf16(a1);
             }
+            if constexpr (TRAIN) {  // `_fwd_kernel`: a_h * mask before the cast
+              if (p.adrop) {
+                const uint32_t idx = static_cast<uint32_t>((i0 + r) * p.n + j0 + c);
+                const uint32_t aseed = attn_seed(p.seed0, b, hd);
+                a0 *= keep_scale(idx, aseed, p.athresh, p.ascale);
+                a1 *= keep_scale(idx + 1, aseed, p.athresh, p.ascale);
+              }
+            }
             P[ni >> 1][(ni & 1) * 2 + half] = pack_bf16(a0, a1);
           }
         }
@@ -942,13 +1033,14 @@ __global__ void __launch_bounds__(kThreads, 2) tc_attn_kernel(AttnArgs p) {
       }
     }
   }
-  oinput_epilogue<DVP>(p, O, b, i0, wr, wc, hw, nwc, lane, red,
-                       reinterpret_cast<float*>(tc_smem));
+  oinput_epilogue<DVP, TRAIN>(p, O, b, i0, wr, wc, hw, nwc, lane, red,
+                              reinterpret_cast<float*>(tc_smem));
 }
 
-// Launch 2, softmax attention (softmax_rel_bias).
-template <int DVP>
-__global__ void __launch_bounds__(kThreads, 2) tc_softmax_kernel(AttnArgs p) {
+// Launch 2, softmax attention (softmax_rel_bias); TRAIN as tc_attn_kernel,
+// the attention keep mask of head 0.
+template <int DVP, bool TRAIN = false>
+__global__ void __launch_bounds__(kThreads, 2) tc_softmax_kernel(AttnArgsOf<TRAIN> p) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
   __shared__ float red[2][kRows][2];
   const int H = p.H, hq = H * p.dqk_p, hvp = H * DVP;
@@ -1033,7 +1125,13 @@ __global__ void __launch_bounds__(kThreads, 2) tc_softmax_kernel(AttnArgs p) {
     }
     ssum = warp_sum(ssum);
     for (int j = lane; j < np32; j += 32) {
-      const float a = j < p.n ? srow[j] / ssum * (j <= i ? cm[j] : 0.f) : 0.f;
+      float a = j < p.n ? srow[j] / ssum * (j <= i ? cm[j] : 0.f) : 0.f;
+      if constexpr (TRAIN) {
+        if (p.adrop) {
+          a *= keep_scale(static_cast<uint32_t>(i * p.n + j), attn_seed(p.seed0, b, 0),
+                          p.athresh, p.ascale);
+        }
+      }
       arow[j] = __float2bfloat16_rn(a);
     }
   }
@@ -1066,8 +1164,8 @@ __global__ void __launch_bounds__(kThreads, 2) tc_softmax_kernel(AttnArgs p) {
       av_head<DVP>(O[hh], a, KV, ldvs, wc * hw + hh, lane);
     }
   }
-  oinput_epilogue<DVP>(p, O, b, i0, wr, wc, hw, nwc, lane, red,
-                       reinterpret_cast<float*>(tc_smem));
+  oinput_epilogue<DVP, TRAIN>(p, O, b, i0, wr, wc, hw, nwc, lane, red,
+                              reinterpret_cast<float*>(tc_smem));
 }
 
 // ---- host launchers --------------------------------------------------------
@@ -1093,20 +1191,33 @@ cudaError_t launch_tc_proj(const bf16* x, const bf16* w, float* u, bf16* vqk, bf
   return cudaGetLastError();
 }
 
-template <int DVP>
-cudaError_t launch_tc_attn_dv(const AttnArgs& p, int B, int softmax, cudaStream_t s) {
+template <int DVP, bool TRAIN>
+cudaError_t launch_tc_attn_dv(const AttnArgsOf<TRAIN>& p, int B, int softmax, cudaStream_t s) {
   const size_t smem = attn_smem_bytes(p.n, p.H, p.dqk, p.dv, softmax);
   const dim3 grid(B, (p.n + kRows - 1) / kRows);
   const int threads = 128 * head_warps(p.H);
   cudaError_t err;
   if (softmax) {
-    if ((err = allow_smem(tc_softmax_kernel<DVP>, smem)) != cudaSuccess) return err;
-    tc_softmax_kernel<DVP><<<grid, threads, smem, s>>>(p);
+    if ((err = allow_smem(tc_softmax_kernel<DVP, TRAIN>, smem)) != cudaSuccess) return err;
+    tc_softmax_kernel<DVP, TRAIN><<<grid, threads, smem, s>>>(p);
   } else {
-    if ((err = allow_smem(tc_attn_kernel<DVP>, smem)) != cudaSuccess) return err;
-    tc_attn_kernel<DVP><<<grid, threads, smem, s>>>(p);
+    if ((err = allow_smem(tc_attn_kernel<DVP, TRAIN>, smem)) != cudaSuccess) return err;
+    tc_attn_kernel<DVP, TRAIN><<<grid, threads, smem, s>>>(p);
   }
   return cudaGetLastError();
+}
+
+template <bool TRAIN>
+cudaError_t launch_tc_attn_instance(const AttnArgsOf<TRAIN>& p, int B, int softmax,
+                                    cudaStream_t s) {
+  switch (p.dv_p) {
+    case 8:
+      return launch_tc_attn_dv<8, TRAIN>(p, B, softmax, s);
+    case 16:
+      return launch_tc_attn_dv<16, TRAIN>(p, B, softmax, s);
+    default:
+      return launch_tc_attn_dv<32, TRAIN>(p, B, softmax, s);
+  }
 }
 
 // Launch 2 over the projection's u and vqk; writes o_input (B*n, h*dv, or
@@ -1120,14 +1231,7 @@ cudaError_t launch_tc_attn(const bf16* vqk, const float* u, const float* colmask
   const AttnArgs p{vqk,  u,       colmask,   rel_pos,     ext,    tsw,         bias,
                    oin,  n,       H,         dqk,         dv,     pad_dqk(dqk), pad_dv(dv),
                    bias_mode, gate, concat_ua, noattn, max_bucket, eps, inv_sqrt_dqk};
-  switch (p.dv_p) {
-    case 8:
-      return launch_tc_attn_dv<8>(p, B, softmax, s);
-    case 16:
-      return launch_tc_attn_dv<16>(p, B, softmax, s);
-    default:
-      return launch_tc_attn_dv<32>(p, B, softmax, s);
-  }
+  return launch_tc_attn_instance<false>(p, B, softmax, s);
 }
 
 // Launch 3: out (M, N) = o_input (M, K) @ Wo (K, N) + bo + x, bf16.

@@ -70,16 +70,23 @@
 // at the 67 TFLOP/s f32 rate; this kernel does 7, s and d_a twice), against
 // ~0.3 GB of traffic (y, d_o, attn, d_y, dbias), 0.09 ms at 3.35 TB/s: the
 // FP32 FMA rate of the CUDA cores bounds it. One block per user is 128 blocks
-// at B = 128, one wave on 132 SMs. The bf16 instances run the same FMAs on the
-// CUDA cores (products of bf16-rounded values, f32 sums) and read half the
-// bytes of y and d_o; their bound takes the bf16 tensor-core rate, which a
-// wgmma form of the five products would need to approach (later work).
+// at B = 128, one wave on 132 SMs. The bf16 instances here run the same FMAs
+// on the CUDA cores (products of bf16-rounded values, f32 sums) and read half
+// the bytes of y and d_o: those outside K1's tensor-core widths (dqk or dv >
+// 32, other head counts) and linear_activation="none". At those widths with
+// the SiLU projection the bf16 block runs on the tensor cores instead: the
+// forward through hstu_block_tc.cuh (rails_hstu_tc_train_attention between
+// K1's projection and output GEMM), the pointwise backward through
+// hstu_train_tc.cuh (rails_hstu_tc_train_bwd); the entry points below refuse
+// those instances.
 #include <cstdint>
 
 #include "common.cuh"
 #include "hash_dropout.cuh"
 #include "hstu_block.cuh"
+#include "hstu_block_tc.cuh"
 #include "hstu_train.cuh"
+#include "hstu_train_tc.cuh"
 
 namespace rails {
 namespace {
@@ -287,6 +294,39 @@ hstu_attn_bwd_kernel(const T* __restrict__ y, const float* __restrict__ d_attn,
   }
 }
 
+namespace tc {
+
+// K4's train forward, launch 2: the SiLU (or softmax) attention with the
+// in-kernel bias or none, the two keep masks of seed0 (odrop on o_input,
+// adrop on the attention weights, each a (thresh, scale) as K3 takes it),
+// o_input written in bf16 and attn in f32.
+cudaError_t launch_tc_train_attn(const bf16* vqk, const float* u, const float* colmask,
+                                 const float* rel_pos, const int* ext, const float* tsw,
+                                 bf16* oin, float* attn, int B, int n, int H, int dqk, int dv,
+                                 float inv_sqrt_dqk, float eps, int max_bucket, int has_bias,
+                                 int softmax, int concat_ua, int seed0, int odrop,
+                                 uint32_t othresh, float oscale, int adrop, uint32_t athresh,
+                                 float ascale, cudaStream_t s) {
+  if (!widths_ok(1, H, dqk, dv) || n < 1 || attn == nullptr) return cudaErrorInvalidValue;
+  TrainAttnArgs p;
+  static_cast<AttnArgs&>(p) =
+      AttnArgs{vqk,  u,       colmask,   rel_pos,     ext,    tsw,         nullptr,
+               oin,  n,       H,         dqk,         dv,     pad_dqk(dqk), pad_dv(dv),
+               has_bias ? kBiasInternal : kBiasNone, 0, concat_ua, 0, max_bucket, eps,
+               inv_sqrt_dqk};
+  p.attn = attn;
+  p.seed0 = seed0;
+  p.odrop = odrop;
+  p.othresh = othresh;
+  p.oscale = oscale;
+  p.adrop = adrop;
+  p.athresh = athresh;
+  p.ascale = ascale;
+  return launch_tc_attn_instance<true>(p, B, softmax, s);
+}
+
+}  // namespace tc
+
 template <typename T, bool ADROP, bool WIDE>
 cudaError_t launch_attn_bwd(const T* y, const float* d_attn, const float* colmask,
                             const float* rel_pos, const int* ext, const float* tsw, float* d_y,
@@ -361,6 +401,9 @@ extern "C" int rails_hstu_train_fwd(int dtype, const void* x, const float* colma
   const rails::Dropout adp{adrop, n, seed0, athresh, ascale};
   const rails::TrainVariant v{act_none, softmax, concat_ua, has_bias};
   auto s = static_cast<cudaStream_t>(stream);
+  // The tensor-core route's instances (ops/hstu_block_train.py:tc_fwd_route)
+  // run rails_hstu_tc_train_attention between K1's tensor-core stages.
+  if (dtype == 1 && !act_none && rails::tc::widths_ok(D, H, dqk, dv)) return cudaErrorInvalidValue;
   if (dtype == 1) {
     return rails::launch<__nv_bfloat16>(x, colmask, uvqk, o_kernel, o_bias, rel_pos, ext, tsw,
                                         y, attn, out, B, n, D, H, dqk, dv, inv_n, inv_sqrt_dqk,
@@ -393,6 +436,8 @@ extern "C" int rails_hstu_train_bwd(int dtype, const void* y, const void* d_o, f
   const rails::Dropout adp{adrop, n, seed0, athresh, ascale};
   const rails::TrainVariant v{act_none, 0, concat_ua, has_bias};
   auto s = static_cast<cudaStream_t>(stream);
+  // The tensor-core route's instances (tc_bwd_route) run rails_hstu_tc_train_bwd.
+  if (dtype == 1 && !act_none && rails::tc::widths_ok(1, H, dqk, dv)) return cudaErrorInvalidValue;
   if (dtype == 1) {
     return rails::train_bwd(static_cast<const __nv_bfloat16*>(y),
                             static_cast<const __nv_bfloat16*>(d_o), attn, true, colmask, rel_pos,
@@ -409,4 +454,55 @@ extern "C" int rails_hstu_train_bwd(int dtype, const void* y, const void* d_o, f
 
 extern "C" size_t rails_hstu_train_bwd_smem_bytes(int n, int dqk, int dv) {
   return rails::attn_bwd_smem_bytes(n, dqk, dv);
+}
+
+// K4's bf16 forward on the tensor cores, launch 2 (between K1's
+// rails_hstu_tc_project and rails_hstu_tc_out): the attention over the
+// projection's u and vqk with the in-kernel bias (has_bias) or none, the
+// attention keep mask (adrop: athresh, ascale) times the weights before their
+// rounding, o_input (B*n, H*dv or 3*H*dv) bf16 times its keep mask (odrop:
+// othresh, oscale) before its rounding, both of the layer's seed0, and attn
+// (B*n, H*dv) f32. Refused outside K1's tensor-core widths.
+extern "C" int rails_hstu_tc_train_attention(const void* vqk, const float* u,
+                                             const float* colmask, const float* rel_pos,
+                                             const int* ext, const float* tsw, void* oin,
+                                             float* attn, int B, int n, int H, int dqk, int dv,
+                                             float inv_sqrt_dqk, float eps, int max_bucket,
+                                             int has_bias, int softmax, int concat_ua, int seed0,
+                                             int odrop, unsigned othresh, float oscale, int adrop,
+                                             unsigned athresh, float ascale, void* stream) {
+  using rails::tc::bf16;
+  return rails::tc::launch_tc_train_attn(
+      static_cast<const bf16*>(vqk), u, colmask, rel_pos, ext, tsw, static_cast<bf16*>(oin), attn,
+      B, n, H, dqk, dv, inv_sqrt_dqk, eps, max_bucket, has_bias, softmax, concat_ua, seed0, odrop,
+      othresh, oscale, adrop, athresh, ascale, static_cast<cudaStream_t>(stream));
+}
+
+// K4's bf16 pointwise attention-core backward on the tensor cores
+// (hstu_train_tc.cuh), one launch a call: stage 0 reads y and d_o and writes
+// d_u into d_y, d_attn_out (B*n, H*dv) bf16 and attn (B*n, H*dv) f32; stage 1
+// reads y and d_attn and writes d_q into d_y and, unless null, dbias (B, n, n);
+// stage 2 reads y and d_attn and writes d_v and d_k into d_y. y (B*n, F) and
+// d_o are bf16 as `block_bwd` hands them over; rel_pos, ext and tsw only with
+// has_bias; adrop: the attention keep mask of seed0. Refused outside K1's
+// tensor-core widths.
+extern "C" int rails_hstu_tc_train_bwd(int stage, const void* y, const void* d_o,
+                                       const void* d_attn, void* d_attn_out, float* attn,
+                                       float* d_y, float* dbias, const float* colmask,
+                                       const float* rel_pos, const int* ext, const float* tsw,
+                                       int B, int n, int H, int dqk, int dv, float inv_n,
+                                       float eps, int max_bucket, int has_bias, int concat_ua,
+                                       int adrop, int seed0, unsigned athresh, float ascale,
+                                       void* stream) {
+  using rails::tc::bf16;
+  const rails::tc::BwdArgs p{static_cast<const bf16*>(y), static_cast<const bf16*>(d_o),
+                             static_cast<const bf16*>(d_attn), static_cast<bf16*>(d_attn_out),
+                             attn, d_y, dbias, colmask, rel_pos, ext, tsw, n, H, dqk, dv,
+                             2 * H * dv + 2 * H * dqk, has_bias, concat_ua, max_bucket, inv_n, eps,
+                             adrop, seed0, athresh, ascale};
+  return rails::tc::launch_tc_bwd(stage, p, B, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" size_t rails_hstu_tc_train_bwd_smem_bytes(int stage, int n, int H, int dqk, int dv) {
+  return rails::tc::tc_bwd_smem_bytes(stage, n, H, dqk, dv);
 }

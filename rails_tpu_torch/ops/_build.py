@@ -153,6 +153,13 @@ def load_library() -> ctypes.CDLL:
     lib.rails_hstu_softmax_train_bwd.restype = i
     lib.rails_hstu_softmax_train_bwd_smem_bytes.argtypes = [i] * 4
     lib.rails_hstu_softmax_train_bwd_smem_bytes.restype = ctypes.c_size_t
+    lib.rails_hstu_tc_train_attention.argtypes = ([p] * 8 + [i] * 5 + [f, f] + [i] * 5 + [i, u32, f]
+                                                  + [i, u32, f, p])
+    lib.rails_hstu_tc_train_attention.restype = i
+    lib.rails_hstu_tc_train_bwd.argtypes = [i] + [p] * 11 + [i] * 5 + [f, f] + [i] * 5 + [u32, f, p]
+    lib.rails_hstu_tc_train_bwd.restype = i
+    lib.rails_hstu_tc_train_bwd_smem_bytes.argtypes = [i] * 5
+    lib.rails_hstu_tc_train_bwd_smem_bytes.restype = ctypes.c_size_t
     lib.rails_hstu_train_bwd_smem_bytes.argtypes = [i, i, i]
     lib.rails_hstu_train_bwd_smem_bytes.restype = ctypes.c_size_t
     lib.rails_hash_keep_mask.argtypes = [p, i, i, i, i, u32, f, p]

@@ -17,12 +17,22 @@ any head dim, with f32 or bf16 operands (the matmul dtype is the weights',
   and attn (B, n, h*dv) f32. The f32 backward keeps attn in place of the JAX
   backward's recompute of the attention (16 layers x 27.7 MB at B = 128,
   n = 211); the bf16 backward recomputes it from the bf16 y, as JAX does,
-  because that attn differs from the forward's (v rounds twice).
+  because that attn differs from the forward's (v rounds twice). bf16 at
+  the widths of K1's tensor-core kernels with the SiLU projection
+  (`tc_fwd_route`) runs on the tensor cores: K1's `project` and `out_gemm`
+  around `train_attention_oinput`, the TRAIN instance of K1's tensor-core
+  attention (`csrc/hstu_block_tc.cuh`: both keep masks before their
+  roundings, attn written in f32).
 - `attn_backward`: the attention-core backward, a row kernel (LN backward of
   attn) then, pointwise, a per-user kernel over the heads (d_q, d_k, d_v and
   the dense d(bias); `csrc/hstu_block_train.cu`) or, softmax, a kernel per
   (user, 32 query rows) and one per (user, 32 key columns)
   (`csrc/hstu_softmax_train.cu`); the bf16 instances first recompute attn.
+  bf16 pointwise at the tensor-core widths (`tc_bwd_route`) runs three
+  mma.sync stages over (user, 64-row) tiles instead (`csrc/hstu_train_tc.cuh`;
+  `attn_bwd_rows`: attn recomputed, LN backward, d_u, d_attn; `attn_bwd_dq`:
+  d_q and dbias; `attn_bwd_dkv`: d_k and d_v), whose plain versions
+  `*_reference` compose to `attn_backward_reference` bit for bit.
   No atomics, so the result repeats bit for bit. y and d(o_input) come in
   the matmul dtype; d_y, attn and dbias are f32.
 - `FusedTrainBlock`: the autograd Function. Its backward is the JAX glue in
@@ -45,9 +55,10 @@ CPU tensors run the plain version (`*_reference`), CUDA tensors launch the
 kernel or raise; on the CPU, `FusedTrainBlock` runs the plain forward and the
 plain attention backward inside the same glue. `.launches` counts kernel
 launches of each wrapper, `.bf16_launches` those of its bf16 instance as
-well, and `.variant_launches[variant_name(...)]` those of each variant other
-than the default (SiLU, rel_bias, the bias, no attention dropout, head dims
-<= 32).
+well, `.tc_launches` those on the tensor cores, and
+`.variant_launches[variant_name(...)]` those of each variant other than the
+default (SiLU, rel_bias, the bias, no attention dropout, head dims <= 32);
+each tensor-core stage wrapper counts its own `.launches`.
 """
 
 from __future__ import annotations
@@ -69,8 +80,15 @@ from rails_tpu_torch.ops.hstu_block import (
     _ACTIVATIONS,
     MAX_SMEM_BYTES,
     block_forward_reference,
+    check_tc_smem,
     ln,
+    out_gemm,
+    project,
+    require_tc,
+    split_vqk,
+    tc_block,
     time_bucket,
+    vqk_layout,
 )
 
 # The causal / column-validity penalty folded into the pointwise kernels' bias.
@@ -153,6 +171,36 @@ def _check_variant(meta: BlockMeta, rel_pos, ext, tsw) -> bool:
     return has_bias
 
 
+def tc_fwd_route(dtype: torch.dtype, d: int, meta: BlockMeta) -> bool:
+    """Whether `fused_train_block_forward` runs on the tensor cores: K1's
+    `tc_block` (bf16, D <= 256, dqk and dv <= 32, h <= 3 or an even h <= 8,
+    the SiLU projection), pointwise or softmax attention, with or without the
+    bias and either dropout. f32, linear_activation="none" and wider heads
+    run the CUDA-core kernels of csrc/hstu_block_train.cu."""
+    return tc_block(dtype, d, meta.num_heads, meta.dqk, meta.dv, meta.activation)
+
+
+def tc_bwd_route(dtype: torch.dtype, meta: BlockMeta) -> bool:
+    """Whether `attn_backward` runs on the tensor cores
+    (csrc/hstu_train_tc.cuh): `tc_fwd_route`'s widths and activation with the
+    pointwise attention. The softmax backward stays on
+    csrc/hstu_softmax_train.cu."""
+    return not meta.softmax and tc_block(dtype, 1, meta.num_heads, meta.dqk, meta.dv,
+                                         meta.activation)
+
+
+def _keep_masks(b: int, n: int, seed: int, meta: BlockMeta, device):
+    """(o_input keep mask or None, attention keep mask or None) of the layer
+    seed, as the JAX kernels draw them."""
+    keep = attn_keep = None
+    if meta.rate > 0.0:
+        keep = hash_keep_mask_reference(b, n, meta.o_width, seed, meta.rate, device)
+    if meta.attn_rate > 0.0:
+        attn_keep = attn_keep_mask_reference(b, n, 1 if meta.softmax else meta.num_heads, seed,
+                                             meta.attn_rate, device)
+    return keep, attn_keep
+
+
 def fused_train_block_forward_reference(
     x: torch.Tensor,          # (B, n, D) f32 or bf16
     colmask: torch.Tensor,    # (B, n) f32 {0, 1}
@@ -169,18 +217,66 @@ def fused_train_block_forward_reference(
     (B, n, h*dv) f32)."""
     _check_variant(meta, rel_pos, ext, tsw)
     b, n = x.shape[:2]
-    keep = attn_keep = None
-    if meta.rate > 0.0:
-        keep = hash_keep_mask_reference(b, n, meta.o_width, seed, meta.rate, x.device)
-    if meta.attn_rate > 0.0:
-        attn_keep = attn_keep_mask_reference(b, n, 1 if meta.softmax else meta.num_heads, seed,
-                                             meta.attn_rate, x.device)
+    keep, attn_keep = _keep_masks(b, n, seed, meta, x.device)
     return block_forward_reference(
         x, colmask, uvqk, o_kernel, o_bias, rel_pos, ext, tsw, num_heads=meta.num_heads,
         dqk=meta.dqk, dv=meta.dv, inv_n=meta.inv_n, eps=meta.eps,
         num_buckets=meta.num_buckets, keep=keep, activation=meta.activation,
         softmax=meta.softmax, attn_keep=attn_keep,
     )
+
+
+def train_attention_oinput_reference(
+    u: torch.Tensor,          # (B, n, h*dv) f32
+    v: torch.Tensor,          # (B, n, h*dv) matmul dtype, 1/max_seq_len folded in unless softmax
+    q: torch.Tensor,          # (B, n, h*dqk) matmul dtype
+    k: torch.Tensor,          # (B, n, h*dqk) matmul dtype
+    colmask: torch.Tensor,
+    rel_pos: Optional[torch.Tensor],
+    ext: Optional[torch.Tensor],
+    tsw: Optional[torch.Tensor],
+    seed: int,
+    meta: BlockMeta,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the train forward's attention stage, between K1's
+    `project_reference` and `out_gemm_reference` (composed they give
+    `fused_train_block_forward_reference` bit for bit): (o_input (B, n,
+    o_width) in the matmul dtype with its keep mask applied before the
+    rounding, attn (B, n, h*dv) f32), the attention weights times their keep
+    mask before they round (`_fwd_kernel` :209-229)."""
+    has_bias = _check_variant(meta, rel_pos, ext, tsw)
+    b, n, _ = u.shape
+    h, dqk, dv, mm = meta.num_heads, meta.dqk, meta.dv, q.dtype
+    keep, attn_keep = _keep_masks(b, n, seed, meta, u.device)
+    v, q, k = v.float(), q.float(), k.float()
+    add = _bias(rel_pos, ext, tsw, meta.num_buckets) if has_bias else None
+    mask = _mask(colmask)
+    if meta.softmax:
+        qk = q @ k.transpose(1, 2)
+        if add is not None:
+            qk = qk + add
+        p = qk * (1.0 / float(dqk) ** 0.5)
+        e = torch.exp(p - p.amax(dim=-1, keepdim=True))
+        a = e / e.sum(dim=-1, keepdim=True)
+        a = a * mask
+        if attn_keep is not None:
+            a = a * attn_keep[:, 0]
+        attn = a.to(mm).float() @ v
+    else:
+        qk = torch.einsum("bnhd,bmhd->bhnm", q.reshape(b, n, h, dqk), k.reshape(b, n, h, dqk))
+        if add is not None:
+            qk = qk + add[:, None]
+        a = qk * torch.sigmoid(qk)
+        a = a * mask[:, None]
+        if attn_keep is not None:
+            a = a * attn_keep
+        attn = torch.einsum("bhnm,bmhd->bnhd", a.to(mm).float(), v.reshape(b, n, h, dv))
+        attn = attn.reshape(b, n, h * dv)
+    a_ln = ln(attn, meta.eps)
+    o_in = torch.cat([u, a_ln, u * a_ln], dim=-1) if meta.concat_ua else u * a_ln
+    if keep is not None:
+        o_in = o_in * keep
+    return o_in.to(mm), attn
 
 
 def _check(name: str, tensors: dict) -> None:
@@ -199,8 +295,9 @@ def _bias_expect(has_bias: bool, b: int, n: int, rel_pos, ext, tsw) -> dict:
             "ext": (ext, torch.int32, (b, n + 1)), "tsw": (tsw, torch.float32, (128,))}
 
 
-def _count(fn, dtype: torch.dtype, meta: BlockMeta, has_bias: bool) -> None:
+def _count(fn, dtype: torch.dtype, meta: BlockMeta, has_bias: bool, tc: bool = False) -> None:
     fn.launches += 1
+    fn.tc_launches += tc
     if dtype == torch.bfloat16:
         fn.bf16_launches += 1
     name = variant_name(meta, has_bias)
@@ -219,11 +316,55 @@ def _attn_drop_args(meta: BlockMeta) -> tuple:
     return 1, keep_threshold(meta.attn_rate), 1.0 / (1.0 - meta.attn_rate)
 
 
+def train_attention_oinput(u, vqk, colmask, rel_pos, ext, tsw, seed: int,
+                           meta: BlockMeta) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The train forward's attention stage over K1's `project` (u, vqk):
+    (o_input, attn) as `train_attention_oinput_reference` gives them. CUDA:
+    `tc_attn_kernel` or `tc_softmax_kernel` of csrc/hstu_block_tc.cuh in
+    their TRAIN instance (bf16 at the widths of `tc_route`, else raises)."""
+    has_bias = _check_variant(meta, rel_pos, ext, tsw)
+    h, dqk, dv = meta.num_heads, meta.dqk, meta.dv
+    tensors = tuple(t for t in (u, vqk, colmask, rel_pos, ext, tsw) if t is not None)
+    if not use_kernel(*tensors):
+        v, q, k = split_vqk(vqk, num_heads=h, dqk=dqk, dv=dv)
+        return train_attention_oinput_reference(u, v, q, k, colmask, rel_pos, ext, tsw, seed,
+                                                meta)
+    b, n, _ = u.shape
+    require_tc(vqk.dtype, 1, h, dqk, dv, "train_attention_oinput")
+    f32 = torch.float32
+    _check("train_attention_oinput", {
+        "u": (u, f32, (b, n, h * dv)),
+        "vqk": (vqk, torch.bfloat16, (b, n, vqk_layout(h, dqk, dv)[2])),
+        "colmask": (colmask, f32, (b, n)), **_bias_expect(has_bias, b, n, rel_pos, ext, tsw),
+    })
+    lib = _build.load_library()
+    check_tc_smem(lib, n, h, dqk, dv, meta.softmax, "train_attention_oinput")
+    drop = meta.rate > 0.0
+    with torch.cuda.device(u.device):
+        oin = torch.empty(b, n, meta.o_width, dtype=torch.bfloat16, device=u.device)
+        attn = torch.empty(b, n, h * dv, dtype=f32, device=u.device)
+        err = lib.rails_hstu_tc_train_attention(
+            vqk.data_ptr(), u.data_ptr(), colmask.data_ptr(), _ptr(rel_pos), _ptr(ext), _ptr(tsw),
+            oin.data_ptr(), attn.data_ptr(), b, n, h, dqk, dv, 1.0 / float(dqk) ** 0.5, meta.eps,
+            min(meta.num_buckets, 127), int(has_bias), int(meta.softmax), int(meta.concat_ua),
+            wrap_i32(seed), int(drop), keep_threshold(meta.rate) if drop else 0,
+            1.0 / (1.0 - meta.rate) if drop else 1.0, *_attn_drop_args(meta),
+            torch.cuda.current_stream(u.device).cuda_stream)
+    _build.check(lib, err, "train_attention_oinput")
+    train_attention_oinput.launches += 1
+    return oin, attn
+
+
+train_attention_oinput.launches = 0
+
+
 def fused_train_block_forward(
     x, colmask, uvqk, o_kernel, o_bias, rel_pos, ext, tsw, seed: int, meta: BlockMeta,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The train block's forward; same arguments as
-    `fused_train_block_forward_reference`."""
+    `fused_train_block_forward_reference`. At `tc_fwd_route`'s widths: K1's
+    `project`, `train_attention_oinput` and K1's `out_gemm`, three
+    tensor-core launches (`.tc_launches` counts these calls)."""
     has_bias = _check_variant(meta, rel_pos, ext, tsw)
     tensors = tuple(t for t in (x, colmask, uvqk, o_kernel, o_bias, rel_pos, ext, tsw)
                     if t is not None)
@@ -241,6 +382,13 @@ def fused_train_block_forward(
         "uvqk": (uvqk, mm, (d, f)), "o_kernel": (o_kernel, mm, (meta.o_width, d)),
         "o_bias": (o_bias, f32, (d,)), **_bias_expect(has_bias, b, n, rel_pos, ext, tsw),
     })
+    if tc_fwd_route(mm, d, meta):
+        u, vqk = project(x, uvqk, num_heads=h, dqk=dqk, dv=dv, inv_n=meta.inv_n, eps=meta.eps,
+                         activation=meta.activation, softmax=meta.softmax)
+        oin, attn = train_attention_oinput(u, vqk, colmask, rel_pos, ext, tsw, seed, meta)
+        out = out_gemm(oin, o_kernel, o_bias, x)
+        _count(fused_train_block_forward, mm, meta, has_bias, tc=True)
+        return out, attn
     lib = _build.load_library()
     smem = (lib.rails_hstu_softmax_smem_bytes(n, h, dqk, dv) if meta.softmax
             else lib.rails_hstu_attn_smem_bytes(n, dqk, dv))
@@ -268,6 +416,7 @@ def fused_train_block_forward(
 
 fused_train_block_forward.launches = 0
 fused_train_block_forward.bf16_launches = 0
+fused_train_block_forward.tc_launches = 0
 fused_train_block_forward.variant_launches = {}
 
 
@@ -374,6 +523,192 @@ def attn_backward_reference(
     return d_y, d_s.sum(dim=1) if has_bias else None, attn
 
 
+def _pointwise_maps(y, colmask, rel_pos, ext, tsw, meta: BlockMeta, seed: int):
+    """The pointwise attention's per-head pieces as `attn_backward_reference`
+    computes them from the bf16 y: (q, k (B, n, h, dqk), v (B, n, h, dv) JAX's
+    twice-rounded bf16(bf16(y) / max_seq_len), a = bf16(silu(s) * keep) and
+    silu'(s) (B, h, n, n), the keep mask or None), f32."""
+    has_bias = _check_variant(meta, rel_pos, ext, tsw)
+    b, n, _ = y.shape
+    h, dqk, dv = meta.num_heads, meta.dqk, meta.dv
+    hdv, hq = h * dv, h * dqk
+    mm = y.dtype
+    yf = y.float()
+    q = yf[..., 2 * hdv : 2 * hdv + hq].reshape(b, n, h, dqk)
+    k = yf[..., 2 * hdv + hq :].reshape(b, n, h, dqk)
+    v = (yf[..., hdv : 2 * hdv] * meta.inv_n).to(mm).float().reshape(b, n, h, dv)
+    mask = _mask(colmask)
+    bias = _bias(rel_pos, ext, tsw, meta.num_buckets) if has_bias else None
+    keep = None
+    if meta.attn_rate > 0.0:
+        keep = attn_keep_mask_reference(b, n, h, seed, meta.attn_rate, y.device)
+    penalty = (mask - 1.0) * PENALTY
+    s = torch.einsum("bnhd,bmhd->bhnm", q, k) + (
+        penalty if bias is None else bias + penalty)[:, None]
+    sig = torch.sigmoid(s)
+    a = s * sig
+    deriv = sig * (1.0 + s * (1.0 - sig))
+    if keep is not None:
+        a = a * keep
+    return q, k, v, a.to(mm).float(), deriv, keep
+
+
+def _stage_d_y(y: torch.Tensor, d_y: Optional[torch.Tensor]) -> torch.Tensor:
+    return torch.zeros(y.shape, dtype=torch.float32, device=y.device) if d_y is None else d_y
+
+
+def attn_bwd_rows_reference(y, d_o_in, colmask, rel_pos, ext, tsw, meta: BlockMeta,
+                            seed: int = 0, d_y: Optional[torch.Tensor] = None):
+    """Plain version of the tensor-core backward's first stage (pointwise
+    attention, bf16 y): (d_y with its d_u columns written, d_attn (B, n,
+    h*dv) in y's dtype, attn (B, n, h*dv) f32), attn recomputed from y and
+    d_attn = LN-backward(attn, d_gln) rounded, as `attn_backward_reference`
+    computes them. A new d_y is zeros."""
+    b, n, _ = y.shape
+    hdv = meta.num_heads * meta.dv
+    _, _, v, a, _, _ = _pointwise_maps(y, colmask, rel_pos, ext, tsw, meta, seed)
+    attn = torch.einsum("bhnm,bmhd->bnhd", a, v).reshape(b, n, hdv)
+    d_u, d_gln = _d_o_split(d_o_in.float(), ln(attn, meta.eps), y.float()[..., :hdv],
+                            meta.concat_ua)
+    d_y = _stage_d_y(y, d_y)
+    d_y[..., :hdv] = d_u
+    return d_y, ln_backward(attn, d_gln, meta.eps).to(y.dtype), attn
+
+
+def attn_bwd_dq_reference(y, d_attn, colmask, rel_pos, ext, tsw, meta: BlockMeta, seed: int = 0,
+                          d_y: Optional[torch.Tensor] = None):
+    """Plain version of the second stage: (d_y with its d_q columns written,
+    dbias = sum_h d_s (B, n, n) f32, or None without the bias)."""
+    has_bias = _check_variant(meta, rel_pos, ext, tsw)
+    b, n, _ = y.shape
+    h, dqk, dv = meta.num_heads, meta.dqk, meta.dv
+    _, k, v, _, deriv, keep = _pointwise_maps(y, colmask, rel_pos, ext, tsw, meta, seed)
+    d_a = torch.einsum("bnhd,bmhd->bhnm", d_attn.float().reshape(b, n, h, dv), v)
+    if keep is not None:
+        d_a = d_a * keep
+    d_s = d_a * deriv
+    d_q = torch.einsum("bhnm,bmhd->bnhd", d_s.to(y.dtype).float(), k)
+    d_y = _stage_d_y(y, d_y)
+    d_y[..., 2 * h * dv : 2 * h * dv + h * dqk] = d_q.reshape(b, n, h * dqk)
+    return d_y, d_s.sum(dim=1) if has_bias else None
+
+
+def attn_bwd_dkv_reference(y, d_attn, colmask, rel_pos, ext, tsw, meta: BlockMeta,
+                           seed: int = 0, d_y: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of the third stage: d_y with its d_v and d_k columns
+    written."""
+    b, n, _ = y.shape
+    h, dqk, dv = meta.num_heads, meta.dqk, meta.dv
+    hdv = h * dv
+    q, _, v, a, deriv, keep = _pointwise_maps(y, colmask, rel_pos, ext, tsw, meta, seed)
+    d_attn = d_attn.float().reshape(b, n, h, dv)
+    d_a = torch.einsum("bnhd,bmhd->bhnm", d_attn, v)
+    if keep is not None:
+        d_a = d_a * keep
+    d_s = d_a * deriv
+    d_v = torch.einsum("bhnm,bnhd->bmhd", a, d_attn) * meta.inv_n
+    d_k = torch.einsum("bhnm,bnhd->bmhd", d_s.to(y.dtype).float(), q)
+    d_y = _stage_d_y(y, d_y)
+    d_y[..., hdv : 2 * hdv] = d_v.reshape(b, n, hdv)
+    d_y[..., 2 * hdv + h * dqk :] = d_k.reshape(b, n, h * dqk)
+    return d_y
+
+
+_BWD_STAGES = {"rows": 0, "dq": 1, "dkv": 2}
+
+
+def _tc_bwd_launch(stage: str, y, d_o_in, d_attn, colmask, rel_pos, ext, tsw, meta: BlockMeta,
+                   seed: int, d_y: Optional[torch.Tensor]):
+    """Validate and launch one stage of the tensor-core backward
+    (`rails_hstu_tc_train_bwd`); returns (d_y, d_attn, attn, dbias), the
+    stage's outputs and None for the others."""
+    has_bias = _check_variant(meta, rel_pos, ext, tsw)
+    b, n, f = y.shape
+    h, dqk, dv = meta.num_heads, meta.dqk, meta.dv
+    what = f"attn_bwd_{stage}"
+    if meta.softmax:
+        raise ValueError(f"{what}: the softmax backward has no tensor-core stages")
+    require_tc(y.dtype, 1, h, dqk, dv, what)
+    f32, bf16 = torch.float32, torch.bfloat16
+    expect = {"y": (y, bf16, (b, n, 2 * h * dv + 2 * h * dqk)),
+              "colmask": (colmask, f32, (b, n)), **_bias_expect(has_bias, b, n, rel_pos, ext, tsw)}
+    if stage == "rows":
+        expect["d_o_in"] = (d_o_in, bf16, (b, n, meta.o_width))
+    else:
+        expect["d_attn"] = (d_attn, bf16, (b, n, h * dv))
+    if d_y is not None:
+        expect["d_y"] = (d_y, f32, (b, n, f))
+    _check(what, expect)
+    lib = _build.load_library()
+    code = _BWD_STAGES[stage]
+    smem = lib.rails_hstu_tc_train_bwd_smem_bytes(code, n, h, dqk, dv)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{what}: n={n} needs {smem} B of shared memory")
+    attn = dbias = d_attn_out = None
+    with torch.cuda.device(y.device):
+        if d_y is None:
+            d_y = torch.zeros(b, n, f, dtype=f32, device=y.device)
+        if stage == "rows":
+            d_attn_out = torch.empty(b, n, h * dv, dtype=bf16, device=y.device)
+            attn = torch.empty(b, n, h * dv, dtype=f32, device=y.device)
+        if stage == "dq" and has_bias:
+            dbias = torch.empty(b, n, n, dtype=f32, device=y.device)
+        adrop = _attn_drop_args(meta)
+        err = lib.rails_hstu_tc_train_bwd(
+            code, y.data_ptr(), _ptr(d_o_in if stage == "rows" else None),
+            _ptr(d_attn if stage != "rows" else None), _ptr(d_attn_out), _ptr(attn),
+            d_y.data_ptr(), _ptr(dbias), colmask.data_ptr(), _ptr(rel_pos), _ptr(ext), _ptr(tsw),
+            b, n, h, dqk, dv, meta.inv_n, meta.eps, min(meta.num_buckets, 127), int(has_bias),
+            int(meta.concat_ua), adrop[0], wrap_i32(seed), *adrop[1:],
+            torch.cuda.current_stream(y.device).cuda_stream)
+    _build.check(lib, err, what)
+    return d_y, d_attn_out, attn, dbias
+
+
+def attn_bwd_rows(y, d_o_in, colmask, rel_pos, ext, tsw, meta: BlockMeta, seed: int = 0,
+                  d_y: Optional[torch.Tensor] = None):
+    """The tensor-core backward's first stage; same arguments and results as
+    `attn_bwd_rows_reference`. CUDA: `tc_bwd_rows_kernel`
+    (csrc/hstu_train_tc.cuh), bf16 at `tc_route`'s widths, else raises."""
+    tensors = tuple(t for t in (y, d_o_in, colmask, rel_pos, ext, tsw, d_y) if t is not None)
+    if not use_kernel(*tensors):
+        return attn_bwd_rows_reference(y, d_o_in, colmask, rel_pos, ext, tsw, meta, seed, d_y)
+    d_y, d_attn, attn, _ = _tc_bwd_launch("rows", y, d_o_in, None, colmask, rel_pos, ext, tsw,
+                                          meta, seed, d_y)
+    attn_bwd_rows.launches += 1
+    return d_y, d_attn, attn
+
+
+def attn_bwd_dq(y, d_attn, colmask, rel_pos, ext, tsw, meta: BlockMeta, seed: int = 0,
+                d_y: Optional[torch.Tensor] = None):
+    """The second stage; same arguments and results as
+    `attn_bwd_dq_reference`. CUDA: `tc_bwd_dq_kernel`."""
+    tensors = tuple(t for t in (y, d_attn, colmask, rel_pos, ext, tsw, d_y) if t is not None)
+    if not use_kernel(*tensors):
+        return attn_bwd_dq_reference(y, d_attn, colmask, rel_pos, ext, tsw, meta, seed, d_y)
+    d_y, _, _, dbias = _tc_bwd_launch("dq", y, None, d_attn, colmask, rel_pos, ext, tsw, meta,
+                                      seed, d_y)
+    attn_bwd_dq.launches += 1
+    return d_y, dbias
+
+
+def attn_bwd_dkv(y, d_attn, colmask, rel_pos, ext, tsw, meta: BlockMeta, seed: int = 0,
+                 d_y: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The third stage; same arguments and results as
+    `attn_bwd_dkv_reference`. CUDA: `tc_bwd_dkv_kernel`."""
+    tensors = tuple(t for t in (y, d_attn, colmask, rel_pos, ext, tsw, d_y) if t is not None)
+    if not use_kernel(*tensors):
+        return attn_bwd_dkv_reference(y, d_attn, colmask, rel_pos, ext, tsw, meta, seed, d_y)
+    d_y = _tc_bwd_launch("dkv", y, None, d_attn, colmask, rel_pos, ext, tsw, meta, seed, d_y)[0]
+    attn_bwd_dkv.launches += 1
+    return d_y
+
+
+attn_bwd_rows.launches = 0
+attn_bwd_dq.launches = 0
+attn_bwd_dkv.launches = 0
+
+
 def attn_backward(
     y, d_o_in, attn, colmask, rel_pos, ext, tsw, meta: BlockMeta, seed: int = 0,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
@@ -391,6 +726,14 @@ def attn_backward(
     b, n, f = y.shape
     h, dqk, dv = meta.num_heads, meta.dqk, meta.dv
     f32, mm = torch.float32, y.dtype
+    if tc_bwd_route(mm, meta):
+        with torch.cuda.device(y.device):
+            d_y = torch.empty(b, n, f, dtype=f32, device=y.device)
+        d_y, d_attn, attn = attn_bwd_rows(y, d_o_in, colmask, rel_pos, ext, tsw, meta, seed, d_y)
+        d_y, dbias = attn_bwd_dq(y, d_attn, colmask, rel_pos, ext, tsw, meta, seed, d_y)
+        d_y = attn_bwd_dkv(y, d_attn, colmask, rel_pos, ext, tsw, meta, seed, d_y)
+        _count(attn_backward, mm, meta, has_bias, tc=True)
+        return d_y, dbias, attn
     expect = {
         "y": (y, mm, (b, n, 2 * h * dv + 2 * h * dqk)),
         "d_o_in": (d_o_in, mm, (b, n, meta.o_width)), "colmask": (colmask, f32, (b, n)),
@@ -450,6 +793,7 @@ def attn_backward(
 
 attn_backward.launches = 0
 attn_backward.bf16_launches = 0
+attn_backward.tc_launches = 0
 attn_backward.variant_launches = {}
 
 

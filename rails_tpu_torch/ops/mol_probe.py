@@ -29,6 +29,8 @@ the tensor cores in `.tc_launches`.
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
 from rails_tpu_torch.core.device import use_kernel
@@ -66,10 +68,23 @@ def probe_operands(
             ip[perm].contiguous(), weights)
 
 
+class _Chunk(NamedTuple):
+    """One step of the plain version: the first corpus column, the logits
+    (B, C, L), and where the mode has them the bf16-rounded hidden units
+    (B, C, H), the gating inputs gi and weights gw (B, C, L) and the mixture
+    weights e (B, C, L)."""
+
+    col: int
+    logits: torch.Tensor
+    hidden: Optional[torch.Tensor] = None
+    gi: Optional[torch.Tensor] = None
+    gw: Optional[torch.Tensor] = None
+    e: Optional[torch.Tensor] = None
+
+
 def _mixture_chunks(mode, q_comp, qp, item, ip, weights, inv_temperature):
-    """Per `_REF_COLS` corpus columns: (first column, logits (B, C, L), the
-    mixture weights e (B, C, L), or None in the modes that do not combine),
-    with the probe's bf16 rounding points (the MLP's inputs)."""
+    """The plain version's steps over `_REF_COLS` corpus columns at a time
+    (`_Chunk`), with the probe's bf16 rounding points (the MLP's inputs)."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}; expected one of {MODES}")
     b, p_q, _ = q_comp.shape
@@ -84,17 +99,20 @@ def _mixture_chunks(mode, q_comp, qp, item, ip, weights, inv_temperature):
         # logits[b, x, n * P_X + m] = <q_n, item_m> * inv_temperature
         logits = torch.einsum("bnd,mdx->bxnm", qf, items).reshape(b, -1, l) * inv_temperature
         if mode in ("writeonly", "nocombine"):
-            yield c, logits, None
+            yield _Chunk(c, logits)
             continue
+        hidden = None
         if mode == "nomlp":
             qi = b2f.expand_as(logits)
         else:
             h = logits.to(torch.bfloat16).float() @ w1f + b1f
             h = h * torch.sigmoid(h)
-            qi = h.to(torch.bfloat16).float() @ w2f + b2f
+            hidden = h.to(torch.bfloat16).float()
+            qi = hidden @ w2f + b2f
         gi = qp.float()[:, None, :] * ip[:, c : c + _REF_COLS].float().T[None] + qi
         gw = gi if mode == "nosilu" else gi * torch.sigmoid(gi)
-        yield c, logits, gw if mode == "noexp" else torch.exp(gw - gw.amax(dim=-1, keepdim=True))
+        e = gw if mode == "noexp" else torch.exp(gw - gw.amax(dim=-1, keepdim=True))
+        yield _Chunk(c, logits, hidden, gi, gw, e)
 
 
 def mol_probe_scores_reference(
@@ -111,14 +129,39 @@ def mol_probe_scores_reference(
     points (the MLP's inputs)."""
     b, x = q_comp.shape[0], item.shape[2]
     out = torch.empty(b, x, dtype=torch.float32, device=q_comp.device)
-    for c, logits, e in _mixture_chunks(mode, q_comp, qp, item, ip, weights, inv_temperature):
-        if e is not None:
-            out[:, c : c + _REF_COLS] = (e * logits).sum(dim=-1) / e.sum(dim=-1)
+    for t in _mixture_chunks(mode, q_comp, qp, item, ip, weights, inv_temperature):
+        cols = slice(t.col, t.col + _REF_COLS)
+        if t.e is not None:
+            out[:, cols] = (t.e * t.logits).sum(dim=-1) / t.e.sum(dim=-1)
         elif mode == "writeonly":
-            out[:, c : c + _REF_COLS] = logits[..., 0]
+            out[:, cols] = t.logits[..., 0]
         else:
-            out[:, c : c + _REF_COLS] = logits.mean(dim=-1)
+            out[:, cols] = t.logits.mean(dim=-1)
     return out
+
+
+# The rounding model of `mol_probe_error_bound`: the f32 unit roundoff, the
+# largest slope of SiLU (|d silu(v) / dv| peaks at 1.0998, v = 2.3994), and
+# the accuracy of the kernel's `__expf` (2 + 1.16 |x| ulp) and `__fdividef`
+# (2 ulp; CUDA C++ Programming Guide, intrinsic functions).
+F32_UNIT = 2.0 ** -24
+SILU_SLOPE = 1.0998
+_EXPF_ULPS = (2.0, 1.16)
+_FDIV_ULPS = 2.0
+
+
+def _gamma(n: int) -> float:
+    """Relative error bound of an f32 sum of n terms, any order:
+    n u / (1 - n u)."""
+    return n * F32_UNIT / (1.0 - n * F32_UNIT)
+
+
+def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at |t|: the spacing of bf16 values just above |t|'s bf16
+    rounding (the wider one where that value is a power of two)."""
+    mag = t.abs().to(torch.bfloat16).float() * (1.0 + 2.0 ** -8)
+    _, exp = torch.frexp(mag.clamp_min(torch.finfo(torch.float32).tiny))
+    return torch.ldexp(torch.ones_like(mag), exp - 8)
 
 
 def mol_probe_error_bound(
@@ -128,31 +171,103 @@ def mol_probe_error_bound(
     item: torch.Tensor,
     ip: torch.Tensor,
     weights: MoLKernelWeights,
-    tol: float,
     inv_temperature: float = INV_TEMPERATURE,
 ) -> torch.Tensor:
-    """How far (B, X) a kernel's score may lie from the plain version's,
-    for a relative perturbation `tol` of the terms each score sums: both
-    round the MLP's inputs to bf16 at the same points but sum in other f32
-    orders, so a rare (query, item) pair rounds a logit or hidden unit one
-    bf16 ulp apart and its gating terms move.
+    """How far (B, X) a kernel's score may lie from the plain version's, per
+    score, under the rounding model both share: they round the MLP's inputs
+    (the L logits and the H hidden units) to bf16 at the same points and sum
+    in other f32 orders, so a rare (query, item) pair rounds ONE of those
+    inputs one bf16 ulp (`bf16_ulp`, 2^-8 to 2^-7 of it) apart. The bound is
+    the largest effect of any one such flip, carried through the MLP with
+    absolute weights, plus every f32 term (`_gamma` of each sum's length, the
+    kernel's `__expf` and `__fdividef`):
 
-    Every mode but noexp scores a mean or a convex combination of its
-    logits: tol * max |score|, the same for every score. noexp's weights
-    e = silu(gi) are signed, so sum(e) can cancel and the score
-    sum(e * logit) / sum(e) has no such scale; its bound is per score,
-    tol * sum_l |e_l| * (max_l |logit_l| + |score|) / |sum(e)|, which for
-    weights that are all positive is at most tol * 2 max |logit|."""
-    if mode != "noexp":
-        ref = mol_probe_scores_reference(mode, q_comp, qp, item, ip, weights, inv_temperature)
-        return torch.full_like(ref, tol * ref.abs().max().item())
+      a logit l0 moves by d0 = ulp(logit l0): each hidden unit by at most
+        SILU_SLOPE |W1[l0, k]| d0, and by one ulp of its own more where that
+        crosses a rounding boundary (every unit is counted as crossing); each
+        gating input gi_l then by SILU_SLOPE d0 (|W1| @ |W2|)[l0, l] +
+        (ulp(hidden) @ |W2|)_l;
+      a hidden unit k0 moves by ulp(hidden k0): gi_l by that times |W2[k0, l]|;
+      the gating SiLU multiplies a move by at most SILU_SLOPE (nosilu: 1).
+
+    With moves delta_l of the gating weights (|delta_l| <= D), a softmax
+    mixture's score sum_l pi_l logit_l moves by at most
+    e^(2D) sum_l pi_l |logit_l - score| |delta_l|. noexp's weights e = silu(gi)
+    are signed and sum(e) can cancel, so its bound is per score:
+    (sum_l |logit_l - score| |delta_l| + the logits' f32 terms) /
+    (|sum(e)| - sum_l |delta_l|), infinite where that is not positive. nomlp flips
+    nothing (no bf16 input), and writeonly and nocombine score logits only:
+    their bounds are the f32 terms alone."""
     b, x = q_comp.shape[0], item.shape[2]
+    d_p, hd = item.shape[1], weights.w1.shape[1]
+    l = q_comp.shape[1] * item.shape[0]
+    w1a = weights.w1.to(torch.bfloat16).float().abs()
+    w2a = weights.w2.to(torch.bfloat16).float().abs()
+    through = w1a @ w2a                                   # (L, L) logit l0 -> gating input l
+    slope = 1.0 if mode == "nosilu" else SILU_SLOPE
+    qa = q_comp.float().abs()
+    u = F32_UNIT
     out = torch.empty(b, x, dtype=torch.float32, device=q_comp.device)
-    for c, logits, e in _mixture_chunks(mode, q_comp, qp, item, ip, weights, inv_temperature):
-        s0 = e.sum(dim=-1)
-        score = (e * logits).sum(dim=-1) / s0
-        out[:, c : c + _REF_COLS] = (tol * e.abs().sum(dim=-1)
-                                     * (logits.abs().amax(dim=-1) + score.abs()) / s0.abs())
+    for t in _mixture_chunks(mode, q_comp, qp, item, ip, weights, inv_temperature):
+        cols = slice(t.col, t.col + _REF_COLS)
+        lg = t.logits
+        # Each side's f32 logit lies within gamma(d_P) sum |q||item| / T of the exact one.
+        d32 = 2.0 * _gamma(d_p) * inv_temperature * torch.einsum(
+            "bnd,mdx->bxnm", qa, item[:, :, cols].float().abs()).reshape(lg.shape)
+        if mode == "writeonly":
+            out[:, cols] = d32[..., 0]
+            continue
+        if mode == "nocombine":
+            out[:, cols] = d32.mean(dim=-1) + 2.0 * _gamma(l) * lg.abs().mean(dim=-1)
+            continue
+        # The gating inputs' f32 terms: qp * ip + (hidden @ W2 + b2), both sides.
+        gate_sum = (qp.float().abs()[:, None, :] * ip[:, cols].float().abs().T[None]
+                    + weights.b2.float().abs())
+        if t.hidden is not None:
+            gate_sum = gate_sum + t.hidden.abs() @ w2a
+        dg = slope * 2.0 * _gamma(2 if t.hidden is None else hd + 2) * gate_sum
+        if mode != "nosilu":      # the kernel's SiLU: __expf and __fdividef
+            dg = dg + (_EXPF_ULPS[0] + _FDIV_ULPS + _EXPF_ULPS[1] * t.gi.abs()) * u * t.gw.abs()
+        if mode != "noexp":       # its softmax exp, a relative error: an exponent shift
+            dg = dg + (_EXPF_ULPS[0] + _EXPF_ULPS[1]
+                       * (t.gw - t.gw.amax(dim=-1, keepdim=True)).abs()) * u
+        if t.e is not None and mode != "noexp":
+            pi = t.e / t.e.sum(dim=-1, keepdim=True)
+            score = (pi * lg).sum(dim=-1)
+        else:
+            s0 = t.e.sum(dim=-1)
+            score = (t.e * lg).sum(dim=-1) / s0
+        dev = (lg - score[..., None]).abs()
+        wgt = dev if mode == "noexp" else pi * dev
+        d, shift = dg.amax(dim=-1), dg.sum(dim=-1)
+        flip = torch.zeros_like(score)
+        if t.hidden is not None:
+            d0, uh = bf16_ulp(lg), bf16_ulp(t.hidden)
+            reround = uh @ w2a                                       # (B, C, L)
+
+            def worst(weight):
+                """The largest sum_l weight_l |delta_l| of one flip."""
+                by_logit = ((SILU_SLOPE * d0 * (weight @ through.T)).amax(dim=-1)
+                            + (weight * reround).sum(dim=-1))
+                return slope * torch.maximum(by_logit, (uh * (weight @ w2a.T)).amax(dim=-1))
+
+            flip = worst(wgt)
+            shift = shift + worst(torch.ones_like(wgt))
+            moves = torch.maximum(SILU_SLOPE * d0.amax(dim=-1, keepdim=True) * through.amax(dim=0)
+                                  + reround, uh.amax(dim=-1, keepdim=True) * w2a.amax(dim=0))
+            d = d + slope * moves.amax(dim=-1)
+        gate = flip + (wgt * dg).sum(dim=-1)
+        if mode == "noexp":
+            ea = t.e.abs()
+            den = s0.abs() - shift
+            num = gate + ((ea + d[..., None]) * d32).sum(dim=-1)
+            f32_mix = 2.0 * (_gamma(l) * ((ea * lg.abs()).sum(-1) + score.abs() * ea.sum(-1))
+                             / s0.abs() + u * score.abs())
+            out[:, cols] = torch.where(den > 0, num / den.clamp_min(torch.finfo(torch.float32).tiny)
+                                       + f32_mix, torch.full_like(den, float("inf")))
+        else:
+            f32_mix = 2.0 * (_gamma(l) * ((pi * lg.abs()).sum(-1) + score.abs()) + u * score.abs())
+            out[:, cols] = torch.exp(2.0 * d) * gate + (pi * d32).sum(dim=-1) + f32_mix
     return out
 
 

@@ -36,10 +36,10 @@ P2_MODES = ("full", "nosilu", "noexp", "nomlp", "nocombine", "writeonly")
 P1_TOL = {"float32": dict(rtol=1e-4, atol=1e-5),
           # bf16: one ulp of the bf16 output (2^-8 relative) from those orders.
           "bfloat16": dict(rtol=1e-2, atol=1e-2)}
-# P2 (bf16 tables, MLP in bf16): within this share of the largest |score|.
-# Both round the logits and the hidden layer to bf16 at the same points; an
-# f32 summation order that moves a value across a bf16 rounding boundary
-# moves its gating term by one bf16 ulp.
+# P2's plain version vs the JAX probe (bf16 tables, MLP in bf16): within
+# this share of the largest |score|. Both round the logits and the hidden
+# layer to bf16 at the same points; an f32 summation order that moves a value
+# across a bf16 rounding boundary moves its gating term by one bf16 ulp.
 P2_TOL = 2e-3
 
 
@@ -201,9 +201,9 @@ def test_probe_full_modes_equal_the_serving_kernels_plain_versions():
 def test_mol_probe_error_bound_holds_for_another_summation_order(mode, mol_arrays):
     """The same scores summed in another order, the query and item
     components reversed (their logits, gating terms and MLP rows with them),
-    lie within `mol_probe_error_bound` of the plain version, which for every
-    mode but noexp is P2_TOL of the largest |score|. (writeonly scores logit
-    0, which the reversal moves.)"""
+    lie within `mol_probe_error_bound` of the plain version, a finite bound
+    for every score but noexp's, whose sum(e) may cancel. (writeonly scores
+    logit 0, which the reversal moves.)"""
     t = {k: _tensor(np.asarray(v)) for k, v in mol_arrays.items()}
     q, qp, item, ip, w = mol_probe.probe_operands(**t)
     p_q, p_x = q.shape[1], item.shape[0]
@@ -213,7 +213,56 @@ def test_mol_probe_error_bound_holds_for_another_summation_order(mode, mol_array
                type(w)(w.w1[rev], w.b1, w.w2[:, rev], w.b2[rev]))
     want = mol_probe.mol_probe_scores_reference(mode, q, qp, item, ip, w)
     got = mol_probe.mol_probe_scores_reference(mode, *flipped)
-    bound = mol_probe.mol_probe_error_bound(mode, q, qp, item, ip, w, tol=P2_TOL)
+    bound = mol_probe.mol_probe_error_bound(mode, q, qp, item, ip, w)
     if mode != "noexp":
-        torch.testing.assert_close(bound, torch.full_like(want, P2_TOL * want.abs().max().item()))
+        assert torch.isfinite(bound).all()
     assert ((got - want).abs() <= bound).all(), ((got - want).abs() / bound).max().item()
+
+
+def _scores_with_one_flip(mode, ops, logit=None, hidden=None):
+    """The plain version's scores with ONE of its MLP inputs, logit `logit`
+    or hidden unit `hidden` of every score, moved to the next bf16 value away
+    from zero: one bf16 ulp, the flip `mol_probe_error_bound` allows."""
+    q, qp, item, ip, w = ops
+    b, l = q.shape[0], q.shape[1] * item.shape[0]
+
+    def flip(v, idx):
+        if idx is not None:
+            v = v.clone()
+            v[..., idx] += torch.sign(v[..., idx]) * mol_probe.bf16_ulp(v[..., idx])
+        return v
+
+    lg = torch.einsum("bnd,mdx->bxnm", q.float(), item.float()).reshape(b, -1, l) * 20.0
+    h = flip(lg.to(torch.bfloat16).float(), logit) @ w.w1.to(torch.bfloat16).float() + w.b1
+    h = h * torch.sigmoid(h)
+    qi = flip(h.to(torch.bfloat16).float(), hidden) @ w.w2.to(torch.bfloat16).float() + w.b2
+    gi = qp[:, None, :] * ip.float().T[None] + qi
+    gw = gi if mode == "nosilu" else gi * torch.sigmoid(gi)
+    e = gw if mode == "noexp" else torch.exp(gw - gw.amax(dim=-1, keepdim=True))
+    return (e * lg).sum(dim=-1) / e.sum(dim=-1)
+
+
+@pytest.mark.parametrize("mode", ["full", "nosilu", "noexp"])
+def test_mol_probe_error_bound_covers_one_flip_and_rejects_seeded_faults(mode, mol_arrays):
+    """`mol_probe_error_bound` is derived from one bf16 rounding flip of an
+    MLP input: moving any one logit or hidden unit of the plain version's
+    MLP by one bf16 ulp stays within it at every score, while the scores of
+    seeded wrong weights (`chip_smoke.P2_FAULTS`: two W2 rows swapped, a
+    logit dropped from the MLP) break it."""
+    t = {k: _tensor(np.asarray(v)) for k, v in mol_arrays.items()}
+    ops = mol_probe.probe_operands(**t)
+    q, qp, item, ip, w = ops
+    want = mol_probe.mol_probe_scores_reference(mode, *ops)
+    assert torch.equal(_scores_with_one_flip(mode, ops), want)
+    bound = mol_probe.mol_probe_error_bound(mode, *ops)
+    for flipped in ([dict(logit=i) for i in (0, 13, 31)] + [dict(hidden=k) for k in (0, 77, 127)]):
+        moved = (_scores_with_one_flip(mode, ops, **flipped) - want).abs()
+        assert (moved > 0).any(), flipped
+        assert (moved <= bound).all(), (flipped, (moved / bound).max().item())
+    w2 = w.w2.clone()
+    w2[[0, 1]] = w2[[1, 0]]
+    w1 = w.w1.clone()
+    w1[5] = 0.0
+    for wrong in (type(w)(w.w1, w.b1, w2, w.b2), type(w)(w1, w.b1, w.w2, w.b2)):
+        got = mol_probe.mol_probe_scores_reference(mode, q, qp, item, ip, wrong)
+        assert ((got - want).abs() / bound).max().item() > 1.0
