@@ -10,8 +10,9 @@ Phases (one line each, any failure raises and exits non-zero):
      the tensor-core instructions (HMMA, HGMMA) of each of K1's bf16 kernels
      (with their TRAIN instances, K4's bf16 forward), of K4's bf16 backward
      kernels (`tc_bwd_rows_kernel`, `tc_bwd_dq_kernel`, `tc_bwd_dkv_kernel`)
-     and of every instance of K2's tensor-core kernel (`mol_tc_kernel`) in
-     the library's SASS (`cuobjdump -sass`), none may have zero.
+     and of every instance of K2's and K5's tensor-core kernels
+     (`mol_tc_kernel`, `mol_loss_tc_kernel`) in the library's SASS
+     (`cuobjdump -sass`), none may have zero.
   3. K1 (`fused_hstu_block`) vs its plain version at ML-20M block shapes,
      with each stage's device time and the instruction it multiplies with;
      its three bf16 stages (`project`, `attention_oinput` pointwise and
@@ -46,8 +47,11 @@ Phases (one line each, any failure raises and exits non-zero):
      the plain versions, then 20 steps on one batch (the loss must fall),
      ms/step, peak memory and launch counts.
  10. K5 (`fused_mol_loss_forward`, `fused_mol_loss_backward`) at M=26,880,
-     R=128 shared negatives, MoL 8x4x128, H=128, dropout 0.2 / 0.1: forward
-     and the 8 gradients vs the plain autograd version.
+     R=128 shared negatives, H=128: ML-20M's MoL 8x4x128 (dropout 0.2 / 0.1)
+     and ML-1M's 8x4x64 (0.2 / 0), f32: forward and the 8 gradients vs the
+     plain versions, each direction on the route `tc_route` names (the
+     tensor cores, 3xTF32: `.tc_launches`), two backward calls bit-equal;
+     the bound's operations at 3xTF32's rate and its MUFU term.
  11. K6 (`scatter_add_rows`): the (128, 211) ids of an ML-20M-shaped batch
      into (26,745, 256) f32, and a small case with duplicate, negative and
      out-of-range ids, vs its plain version, two calls bit-equal, with
@@ -109,8 +113,9 @@ Amazon Books (amzn-books-hstu-mol[-fast]: MoL 8x8x32, L=64, H=128; bf16):
  22. K2, K8, K9, K10 at 8x8x32 on f32, bf16 and int8 tables and K2-bmax, at
      B=64 over the Books vocabulary of 695,762 items, with the checks of 4,
      13 and 17.
- 23. K5 bf16 at M=3,840, R=512 (B=64, N=61): forward and the 8 gradients
-     against the bf16 plain versions.
+ 23. K5 bf16 at M=3,840, R=512 (B=64, N=61), 8x8x32 on the tensor cores
+     (mma.sync bf16): forward and the 8 gradients against the bf16 plain
+     versions, as 10.
  24. books-e2e: the Books serving step at 16 blocks (the XLA-path encoder,
      no K1) over 695,762 items, B=64, through Fused, Cert4096 and Tile8 and
      their Int8 forms, against the plain path; launch counts.
@@ -173,6 +178,9 @@ TRAIN_STEPS = 20
 # Published peaks of one H100 SXM (dense): f32 outside the tensor cores and
 # bf16 on them; HBM3 bandwidth.
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# f32 products as 3xTF32 on the tensor cores (K5's f32 route): three TF32
+# products (495 TFLOP/s dense) for each.
+TF32X3_FLOPS = 495e12 / 3
 HBM_BYTES_PER_S = 3.35e12
 # Hopper's special-function units: 16 MUFU results (ex2, rcp, tanh) per SM
 # per clock (four per SM sub-partition), at the SM clock the card holds.
@@ -303,7 +311,7 @@ def ptxas_summary(log: str) -> str:
                              r"tc_bwd_rows_kernel|tc_bwd_dq_kernel|tc_bwd_dkv_kernel|"
                              r"ln_gemm_kernel|hstu_attn_bwd_kernel|hstu_attn_kernel|"
                              r"softmax_bwd_rows_kernel|softmax_bwd_cols_kernel|"
-                             r"hstu_softmax_attn_kernel|mol_probe_kernel|"
+                             r"hstu_softmax_attn_kernel|mol_probe_kernel|mol_loss_tc_kernel|"
                              r"attn_row_bwd_kernel|mol_scores_kernel|mol_tc_kernel|hash_keep_mask_kernel|"
                              r"adamw_leaves_kernel|mol_loss_fwd_kernel|mol_loss_bwd_kernel|"
                              r"reduce_slots_kernel|count_kernel|scan_kernel|place_kernel|"
@@ -339,11 +347,15 @@ def tensor_core_sass(lib_path) -> dict:
     sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
                           timeout=300, check=True).stdout
     sources = {"encode_probe_cu": "encode_probe.cu", "mol_probe_cu": "mol_probe.cu",
+               "mol_loss_tc_cu": "mol_loss_tc.cu",
                "mol_scoring_cu": "mol_scoring.cu", "hstu_block_train_cu": "hstu_block_train.cu"}
     counts, label = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"(mol_tc_kernel|tc_\w+?_kernel)(?:I((?:L[ib]\d+E)+)E)?", line)
+            # The digit is the mangled name's length prefix: "tc_" inside a
+            # file name (mol_loss_tc_cu) is no kernel.
+            m = re.search(r"\d(mol_loss_tc_kernel|mol_tc_kernel|tc_[a-z0-9_]+?_kernel)"
+                          r"(?:I\w*?((?:L[ib]\d+E)+)E)?", line)
             src = next((v for k, v in sources.items() if k in line), "hstu_block.cu")
             args = ",".join(re.findall(r"\d+", m.group(2))) if m and m.group(2) else ""
             label = f"{m.group(1)}{'<' + args + '>' if args else ''} ({src})" if m else None
@@ -352,7 +364,7 @@ def tensor_core_sass(lib_path) -> dict:
         elif label:
             counts[label][0] += len(re.findall(r"\bHMMA\.", line))
             counts[label][1] += len(re.findall(r"\bHGMMA\.", line))
-    missing = [k for k in TC_KERNELS + K4_TC_KERNELS + ("mol_tc_kernel",)
+    missing = [k for k in TC_KERNELS + K4_TC_KERNELS + ("mol_tc_kernel", "mol_loss_tc_kernel")
                if not any(label.startswith(k) for label in counts)]
     empty = [label for label, (hmma, hgmma) in counts.items() if hmma + hgmma == 0]
     if missing or empty:
@@ -416,10 +428,12 @@ def bound(flops: float, nbytes: float, dtype_name: str, sfu_ops: float = 0.0,
     over the peak rate for their type, the bytes over the HBM rate and, where
     `sfu_ops` special-function (MUFU: ex2, rcp, tanh) results are needed, those
     over SFU_PER_SM_CLOCK per SM per clock at `sm_clock_hz` (the clock under
-    load, `busy_sm_clock_hz`)."""
+    load, `busy_sm_clock_hz`). `dtype_name` "tf32x3" prices f32 products made
+    as 3xTF32 on the tensor cores (TF32X3_FLOPS)."""
     import torch
 
-    terms = {"operations": flops / PEAK_FLOPS[dtype_name] * 1e3,
+    peak = TF32X3_FLOPS if dtype_name == "tf32x3" else PEAK_FLOPS[dtype_name]
+    terms = {"operations": flops / peak * 1e3,
              "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
     if sfu_ops:
         sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -777,7 +791,7 @@ def kernel_counters() -> dict:
     counters["K2-bmax"] = (mol_scoring.fused_mol_scores_t, "blockmax_launches")
     for k in ("K2", "K8", "K9", "K10"):
         counters[f"{k}-int8"] = (wrappers[k], "int8_launches")
-    for k in ("K2", "K10", "P2", "K4 fwd", "K4 bwd"):
+    for k in ("K2", "K10", "P2", "K4 fwd", "K4 bwd", "K5 fwd", "K5 bwd"):
         counters[f"{k}-tc"] = (wrappers[k], "tc_launches")
     for k in ("K4 fwd", "K4 bwd", "K5 fwd", "K5 bwd"):
         counters[f"{k} (bf16)"] = (wrappers[k], "bf16_launches")
@@ -1399,9 +1413,14 @@ def step_launches(cfg, model, optimizer) -> dict:
 
     from rails_tpu_torch.models.hstu import train_block_meta
     from rails_tpu_torch.ops.hstu_block_train import tc_bwd_route, tc_fwd_route
+    from rails_tpu_torch.ops.mol_loss_train import tc_route as k5_tc_route
 
     blocks = cfg.hstu.num_blocks if cfg.hstu.fused_train else 0
     fused = int(cfg.train.shared_negatives and cfg.train.fused_mol_loss)
+    mol = cfg.mol
+    k5_tc = fused * int(k5_tc_route(model.compute_dtype, mol.query_dot_product_groups,
+                                    mol.item_dot_product_groups, mol.dot_product_dimension,
+                                    mol.gating_qi_hidden_dim))
     bf16 = model.compute_dtype == torch.bfloat16
     variant = k4_variant(cfg)
     per_variant = {} if variant == "default" or not blocks else {
@@ -1417,7 +1436,8 @@ def step_launches(cfg, model, optimizer) -> dict:
     return {**{k: 0 for k in kernel_counters()}, **per_variant, **tc, "K3": blocks,
             "K4 fwd": blocks, "K4 bwd": blocks, "K4 fwd (bf16)": blocks * bf16,
             "K4 bwd (bf16)": blocks * bf16,
-            "K5 fwd": fused, "K5 bwd": fused, "K5 fwd (bf16)": fused * bf16,
+            "K5 fwd": fused, "K5 bwd": fused, "K5 fwd-tc": k5_tc, "K5 bwd-tc": k5_tc,
+            "K5 fwd (bf16)": fused * bf16,
             "K5 bwd (bf16)": fused * bf16, "K6": 3 if cfg.train.pallas_scatter_grad else 0,
             "K7": int(any(optimizer.fused(p.numel()) for p in model.parameters()))}
 
@@ -1533,38 +1553,63 @@ def k5_inputs(device, m: int, r: int, geom: tuple, dtype, seed: int = 5):
 
 def check_k5(device, m: int = TRAIN_BATCH * (MAX_SEQ_LEN - 1), r: int = NUM_NEGATIVES,
              geom: tuple = ML20M_GEOM, dtype_name: str = "float32",
-             rates: tuple = K5_RATES) -> tuple:
+             rates: tuple = K5_RATES, what: str = "ML-20M", seed: int = 5,
+             timed: bool = True) -> tuple:
     """K5 forward and backward (ml-20m-fast's shapes by default) against the
     plain versions on the same inputs, mask seed and cotangent: f32 to K2's
-    f32 tolerance and GRAD_REL_TOL, bf16 operands within K5_BF16_TOL."""
+    f32 tolerance and GRAD_REL_TOL, bf16 operands within K5_BF16_TOL. Each
+    direction must take the route `tc_route` names (`.tc_launches`), and two
+    backward calls must give the same bits. The bound's operations term is
+    at the route's rate (3xTF32 for f32 on the tensor cores, the 67 TFLOP/s
+    of the CUDA cores printed beside it), and its MUFU term counts one ex2
+    for each SiLU and exp a pair needs, H + 2 L in either direction. `seed`
+    draws the operands, the cotangent and the masks; with `timed` False the
+    line carries the errors alone, and the result is each direction's share
+    of its tolerance (1 at the limit)."""
     import torch
 
     from rails_tpu_torch.ops import mol_loss_train as mlt
 
-    args = k5_inputs(device, m, r, geom, getattr(torch, dtype_name))
+    dtype = getattr(torch, dtype_name)
+    args = k5_inputs(device, m, r, geom, dtype, seed)
     p_q, p_x, d_p = geom
     l, hd = p_q * p_x, args[4].shape[1]
     pi_rate, qi_rate = rates
     kw = dict(p_q=p_q, p_x=p_x, temperature=TEMPERATURE, qi_rate=qi_rate, pi_rate=pi_rate,
               eps=1e-6)
-    seed = 424_242
-    got = mlt.fused_mol_loss_forward(*args, seed, **kw)
-    ref = mlt.fused_mol_loss_forward_reference(*args, seed, **kw)
+    mask_seed = 424_237 + seed   # 424,242 at the default seed 5
+    fwd_fn, bwd_fn = mlt.fused_mol_loss_forward, mlt.fused_mol_loss_backward
+    tc = mlt.tc_route(dtype, p_q, p_x, d_p, hd)
+    route = ("CUDA cores" if not tc else "tensor cores, mma.sync bf16" if dtype_name == "bfloat16"
+             else "tensor cores, 3xTF32 mma.sync")
+    before = (fwd_fn.tc_launches, bwd_fn.tc_launches)
+    got = fwd_fn(*args, mask_seed, **kw)
+    ref = mlt.fused_mol_loss_forward_reference(*args, mask_seed, **kw)
     err = (got - ref).abs().max().item()
     if dtype_name == "float32":
         rtol, atol = K2_TOL_F32
+        fwd_use = ((got - ref).abs() / (atol + rtol * ref.abs())).max().item()
         torch.testing.assert_close(got, ref, rtol=rtol, atol=atol)
-        fwd_verdict, grad_tol = f"rtol {rtol}, atol {atol}", GRAD_REL_TOL
+        fwd_verdict, grad_tol = f"rtol {rtol}, atol {atol}: {fwd_use:.3f} of it", GRAD_REL_TOL
     else:
         fwd_tol, grad_tol = K5_BF16_TOL
         fwd_share = rel_err(got, ref)
+        fwd_use = fwd_share / fwd_tol
         if fwd_share > fwd_tol:
             raise AssertionError(f"K5 {dtype_name} forward outside {fwd_tol}: {fwd_share}")
         fwd_verdict = f"max|err|/max|plain| {fwd_share:.2e} <= {fwd_tol}"
-    cot = torch.randn(m, r, generator=torch.Generator(device=device).manual_seed(6),
+    cot = torch.randn(m, r, generator=torch.Generator(device=device).manual_seed(seed + 1),
                       device=device)
-    grads = mlt.fused_mol_loss_backward(*args, seed, cot, **kw)
-    ref_grads = mlt.fused_mol_loss_backward_reference(*args, seed, cot, **kw)
+    grads = bwd_fn(*args, mask_seed, cot, **kw)
+    if (fwd_fn.tc_launches - before[0], bwd_fn.tc_launches - before[1]) != (int(tc), int(tc)):
+        raise AssertionError(f"K5 {what} {dtype_name}: tc_route says {tc}, the wrappers "
+                             f"launched {fwd_fn.tc_launches - before[0]} / "
+                             f"{bwd_fn.tc_launches - before[1]} on the tensor cores")
+    again = bwd_fn(*args, mask_seed, cot, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        raise AssertionError(f"K5 {what} {dtype_name}: two backward calls differ")
+    del again
+    ref_grads = mlt.fused_mol_loss_backward_reference(*args, mask_seed, cot, **kw)
     if any(a.dtype != b.dtype for a, b in zip(grads, ref_grads)):
         raise AssertionError("K5 gradients and plain gradients differ in dtype")
     grad_errs = {k: rel_err(a.float(), b.float()) for k, a, b in zip(K5_NAMES, grads, ref_grads)}
@@ -1573,32 +1618,60 @@ def check_k5(device, m: int = TRAIN_BATCH * (MAX_SEQ_LEN - 1), r: int = NUM_NEGA
         raise AssertionError(f"K5 gradients outside {grad_tol}: {grad_errs}")
     del got, ref, grads, ref_grads
     torch.cuda.empty_cache()
-    fwd_ms = cuda_ms(lambda: mlt.fused_mol_loss_forward(*args, seed, **kw))
-    fwd_plain_ms = cuda_ms(lambda: mlt.fused_mol_loss_forward_reference(*args, seed, **kw),
+    dt = "f32" if dtype_name == "float32" else "bf16"
+    head = (f"[K5] {what} {dt} M={m} R={r} MoL {p_q}x{p_x}x{d_p} H={hd} dropout softmax "
+            f"{pi_rate} / qi {qi_rate}, route {route}")
+    grad_text = (f"gradient max|err|/max|plain| "
+                 + ", ".join(f"{k} {v:.2e}" for k, v in grad_errs.items())
+                 + f" (<= {grad_tol})")
+    if not timed:
+        print(f"{head}, seed {seed}: forward {fwd_verdict}; {grad_text}", flush=True)
+        return fwd_use, max(grad_errs.values()) / grad_tol
+
+    def fwd_call():
+        return fwd_fn(*args, mask_seed, **kw)
+
+    def bwd_call():
+        return bwd_fn(*args, mask_seed, cot, **kw)
+
+    fwd_ms = cuda_ms(fwd_call)
+    fwd_plain_ms = cuda_ms(lambda: mlt.fused_mol_loss_forward_reference(*args, mask_seed, **kw),
                            iters=3, warmup=1)
-    bwd_ms = cuda_ms(lambda: mlt.fused_mol_loss_backward(*args, seed, cot, **kw), iters=5)
+    bwd_ms = cuda_ms(bwd_call, iters=5)
     bwd_plain_ms = cuda_ms(
-        lambda: mlt.fused_mol_loss_backward_reference(*args, seed, cot, **kw), iters=2, warmup=1)
+        lambda: mlt.fused_mol_loss_backward_reference(*args, mask_seed, cot, **kw), iters=2,
+        warmup=1)
     pairs = m * r
     fwd_flops = pairs * (2 * l * d_p + 4 * l * hd)      # component logits + the qi MLP
     # d q and d item (2 x 2 L d_P), d_h, d t_in, dW1 and dW2 (4 x 2 L H) per pair.
     bwd_flops = pairs * (4 * l * d_p + 8 * l * hd)
     in_bytes = sum(a.numel() * a.element_size() for a in args)
-    fwd_bd = bound(fwd_flops, in_bytes + 4 * pairs, dtype_name)
-    bwd_bd = bound(bwd_flops, 2 * in_bytes + 4 * pairs, dtype_name)
-    dt = "f32" if dtype_name == "float32" else "bf16"
-    print(f"[K5] {dt} M={m} R={r} MoL {p_q}x{p_x}x{d_p} H={hd} dropout softmax {pi_rate} / "
-          f"qi {qi_rate}: forward max|err| {err:.3e} ({fwd_verdict}); gradient "
-          f"max|err|/max|plain| " + ", ".join(f"{k} {v:.2e}" for k, v in grad_errs.items())
-          + f" (<= {grad_tol})")
-    print(f"[K5] {dt} forward kernel {fwd_ms:.3f} ms, plain {fwd_plain_ms:.3f} ms, bound "
-          f"{fwd_bd['bound_ms']:.4f} ms ({fwd_bd['bound_by']}; {fwd_flops / 1e9:.1f} GFLOP); "
-          f"backward kernel {bwd_ms:.3f} ms, plain {bwd_plain_ms:.3f} ms, bound "
-          f"{bwd_bd['bound_ms']:.4f} ms ({bwd_bd['bound_by']}; {bwd_flops / 1e9:.1f} GFLOP)")
-    fwd = {"max_abs_err": err, "ms": fwd_ms, "plain_ms": fwd_plain_ms, **fwd_bd,
-           "library_ms": None}
-    bwd = {"max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": bwd_plain_ms, **bwd_bd,
-           "library_ms": None}
+    sfu = pairs * mol_sfu_per_pair(l, hd)
+    rate = "tf32x3" if tc and dtype_name == "float32" else dtype_name
+    bds = []
+    for fn, ms_, flops, nbytes in ((fwd_call, fwd_ms, fwd_flops, in_bytes + 4 * pairs),
+                                   (bwd_call, bwd_ms, bwd_flops, 2 * in_bytes + 4 * pairs)):
+        bd = bound(flops, nbytes, rate, sfu, busy_sm_clock_hz(fn, ms_))
+        bd["f32_cores_ms"] = flops / PEAK_FLOPS["float32"] * 1e3
+        bds.append(bd)
+    fwd_bd, bwd_bd = bds
+    print(f"{head}: forward max|err| {err:.3e} ({fwd_verdict}); {grad_text}; two backward "
+          f"calls bit-equal", flush=True)
+
+    def bound_text(bd, flops):
+        at = (f", {bd['f32_cores_ms']:.4f} ms at the CUDA cores' 67 TFLOP/s"
+              if rate == "tf32x3" else "")
+        return (f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}; {flops / 1e9:.1f} GFLOP at "
+                f"{'3xTF32' if rate == 'tf32x3' else dt}, {sfu / 1e6:.1f}M MUFU{at})")
+
+    print(f"[K5] {what} {dt} forward kernel {fwd_ms:.3f} ms, plain {fwd_plain_ms:.3f} ms, "
+          f"{bound_text(fwd_bd, fwd_flops)}; backward kernel {bwd_ms:.3f} ms, plain "
+          f"{bwd_plain_ms:.3f} ms, {bound_text(bwd_bd, bwd_flops)}", flush=True)
+    keys = ("bound_ms", "bound_by")
+    fwd = {"max_abs_err": err, "ms": fwd_ms, "plain_ms": fwd_plain_ms,
+           **{k: fwd_bd[k] for k in keys}, "library_ms": None}
+    bwd = {"max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+           **{k: bwd_bd[k] for k in keys}, "library_ms": None}
     return fwd, bwd
 
 
@@ -2913,6 +2986,10 @@ def main() -> None:
     train16 = train_phase(device, name, smi, tag="train-bf16", main_module_bf16=True)
     torch.cuda.empty_cache()
     k5_fwd, k5_bwd = check_k5(device)
+    ml1m = get_experiment_config("ml-1m-hstu-mol-fast").mol
+    check_k5(device, geom=(ml1m.query_dot_product_groups, ml1m.item_dot_product_groups,
+                           ml1m.dot_product_dimension),
+             rates=(ml1m.softmax_dropout_rate, ml1m.gating_qi_dropout_rate), what="ML-1M")
     torch.cuda.empty_cache()
     cfg = get_experiment_config("ml-20m-hstu-mol")
     k6 = check_k6(device, train_batch(cfg, device).features.ids)
@@ -2958,7 +3035,7 @@ def main() -> None:
     k5b_fwd, k5b_bwd = check_k5(
         device, BOOKS_BATCH * (books_cfg.max_seq_len_padded - 1), books_cfg.train.num_negatives,
         BOOKS_GEOM, "bfloat16",
-        (books_cfg.mol.softmax_dropout_rate, books_cfg.mol.gating_qi_dropout_rate))
+        (books_cfg.mol.softmax_dropout_rate, books_cfg.mol.gating_qi_dropout_rate), "Books")
     torch.cuda.empty_cache()
     books = books_e2e(device, name, smi)
     torch.cuda.empty_cache()
@@ -3006,9 +3083,9 @@ def main() -> None:
               "rails_tpu/ops/pallas/hstu_block_train.py:574", "K4 fwd", k4_fwd),
         entry("attn_backward", "hstu_block_train.cu",
               "rails_tpu/ops/pallas/hstu_block_train.py:629", "K4 bwd", k4_bwd),
-        entry("fused_mol_loss_forward", "mol_loss_train.cu",
+        entry("fused_mol_loss_forward", "mol_loss_tc.cuh",
               "rails_tpu/ops/pallas/mol_loss_train.py:143", "K5 fwd", k5_fwd),
-        entry("fused_mol_loss_backward", "mol_loss_train.cu",
+        entry("fused_mol_loss_backward", "mol_loss_tc.cuh",
               "rails_tpu/ops/pallas/mol_loss_train.py:159", "K5 bwd", k5_bwd),
         entry("scatter_add_rows", "scatter_add.cu", "rails_tpu/ops/pallas/scatter_add.py:172",
               "K6", k6),
@@ -3052,9 +3129,9 @@ def main() -> None:
               "rails_tpu/ops/pallas/mol_scoring.py:875", "K10-tc", boundsb["K10"], books),
         entry("fused_mol_scores_tiles (8x8x32, int8 tables)", "mol_scoring.cu",
               "rails_tpu/ops/pallas/mol_scoring.py:875", "K10-int8", boundsb["K10-int8"], books),
-        entry("fused_mol_loss_forward (bf16, 8x8x32)", "mol_loss_train.cu",
+        entry("fused_mol_loss_forward (bf16, 8x8x32)", "mol_loss_tc.cuh",
               "rails_tpu/ops/pallas/mol_loss_train.py:143", "K5 fwd (bf16)", k5b_fwd, books),
-        entry("fused_mol_loss_backward (bf16, 8x8x32)", "mol_loss_train.cu",
+        entry("fused_mol_loss_backward (bf16, 8x8x32)", "mol_loss_tc.cuh",
               "rails_tpu/ops/pallas/mol_loss_train.py:159", "K5 bwd (bf16)", k5b_bwd, books),
     ]
     summary += [

@@ -1,7 +1,8 @@
 // mma.sync and copy primitives shared by the tensor-core kernels: K1's
-// bf16 instances (hstu_block_tc.cuh) and K2's (mol_scoring_tc.cuh). bf16
-// operands in m16n8k16 tiles with f32 accumulators, fed from shared memory by
-// ldmatrix; global -> shared copies by cp.async.
+// bf16 instances (hstu_block_tc.cuh), K2's (mol_scoring_tc.cuh) and K5's
+// (mol_loss_tc.cuh). bf16 operands in m16n8k16 tiles and TF32 operands in
+// m16n8k8 tiles, both with f32 accumulators, fed from shared memory by
+// ldmatrix (bf16) or plain loads (TF32); global -> shared copies by cp.async.
 #pragma once
 
 #include <cstdint>
@@ -42,6 +43,12 @@ __device__ __forceinline__ void ldsm_x4_t(const void* p, uint32_t (&r)[4]) {
                : "r"(smem_u32(p))
                : "memory");
 }
+__device__ __forceinline__ void ldsm_x2(const void* p, uint32_t (&r)[2]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p))
+               : "memory");
+}
 __device__ __forceinline__ void ldsm_x2_t(const void* p, uint32_t (&r)[2]) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
@@ -57,6 +64,17 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a (16x8, row) @ b (8x8, col), TF32 operands (f32 bits, of which the
+// tensor core reads the top 19), f32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // Two floats rounded to bf16 (RN) in one register, lo in the low half.

@@ -1,10 +1,10 @@
 // Fused MoL training loss over shared negatives (K5), forward and backward,
-// hand-written for Hopper (sm_90a).
+// hand-written for Hopper (sm_90a): the CUDA-core route.
 //
 // Replaces `make_fused_mol_loss` (rails_tpu/ops/pallas/mol_loss_train.py): the
-// forward `_fwd_kernel` and the backward `_bwd_kernel` of its custom VJP. For
-// every (query m, shared negative r), with logits in the model's n-major order
-// l = n * PX + mx:
+// forward `_fwd_kernel` (:143, body `_forward_core` :75-140) and the backward
+// `_bwd_kernel` (:159-290) of its custom VJP. For every (query m, shared
+// negative r), with logits in the model's n-major order l = n * PX + mx:
 //   t[l]  = <q[m, n], item[r, mx]> / T
 //   t_in  = t * qi_mask                              (qi-MLP input dropout only)
 //   qi    = W2^T silu(W1^T t_in + b1) + b2;  gi = qp[m] * ip[r] + qi
@@ -14,6 +14,17 @@
 // flat index l' * (M_pad * R_pad) + m * R_pad + r, with its m-major row
 // l' = mx * PQ + n and its padded extents, under seed + salt; so the bits are
 // the JAX package's, and the backward regenerates the forward's.
+//
+// Two routes, chosen by the wrapper (`tc_route` in ops/mol_loss_train.py)
+// from the geometry and the operand type; each set of entry points refuses
+// the other's geometries, and there is no fallback between them:
+//   - P_Q = 8 with P_X = 4 (f32 or bf16) or 8 (bf16), d_P <= 128, H a multiple
+//     of 16 up to 128 (ML-1M, ML-20M, Amazon Books): the tensor-core kernel of
+//     mol_loss_tc.cuh (entry points in mol_loss_tc.cu), every product a tile
+//     GEMM on mma.sync, bf16 or 3xTF32; its note gives its design and bounds;
+//   - every other supported geometry ((4, 2): synthetic-small; H not a
+//     multiple of 16; f32 at 8x8): this file's kernels, every product a scalar
+//     FMA loop on the CUDA cores.
 //
 // Operand types T: f32, or bf16 (`amzn-books-hstu-mol-fast`, bf16_training),
 // where JAX runs the qi MLP in bf16 (`mlp_dtype`): the products of bf16 q and
@@ -26,8 +37,9 @@
 // Bound: operations. Per pair the forward does 2 L d_P FMAs of logits and
 // 2 L H of the qi MLP (12k at 8x4x128, 18k at 8x8x32, H = 128); the backward
 // recomputes them and adds ~2.5x as many (d_h, the z recompute, d_t, dW1,
-// dW2, dq, d item). The inputs are a few hundred MB at M = 26,880, R = 128.
-// Everything accumulates in f32 on the CUDA cores.
+// dW2, dq, d item). Everything accumulates in f32 on the CUDA cores, where
+// each FMA reads a weight from shared memory: the loops are bound by those
+// loads, several times above the 67 TFLOP/s FMA bound.
 //
 // Forward design: K2's layout. One block per (32 negatives x 32 queries): lanes
 // own negatives, warps own queries; the item tile, W1^T, W2 and one query per
@@ -47,8 +59,9 @@
 // by one thread. d_q and d_qp belong to the block's own queries and are added
 // in place; dW1, dW2, db1, db2, d_ip and d_item are added into the block's own
 // slot of a partial buffer. Every entry is always updated by the same thread,
-// so there are no atomics and no races. A second kernel sums the slots in
-// block order: the result repeats bit for bit.
+// so there are no atomics and no races. reduce_slots_kernel (mol_loss_tc.cuh,
+// shared with the tensor-core route) sums the slots in block order: the result
+// repeats bit for bit.
 // At 8x8 (L = 64) that layout needs 273,408 B of shared memory at kJC = 32,
 // over the 232,448 a block may have; the W1/W2 copies (64 KB) and the staged
 // t_in / d_gi rows (130 KB) are the bulk. The chunk drops to kJC = 8 units
@@ -63,6 +76,7 @@
 
 #include "common.cuh"
 #include "hash_dropout.cuh"
+#include "mol_loss_tc.cuh"
 
 namespace rails {
 namespace {
@@ -74,14 +88,6 @@ constexpr int kFwdQueries = 32;     // queries per forward block
 constexpr int kSP = kThreads + 1;   // stride of a staged chunk row (no bank conflicts)
 constexpr int kMaxDP = 128;         // d_P held in 4 registers per lane
 constexpr int kDPK = kMaxDP / 32;
-
-struct Drop {
-  int use_qi, use_pi;
-  uint32_t seed_qi, thr_qi, seed_pi, thr_pi;
-  float scale_qi, scale_pi;
-  uint32_t mr;   // M_pad * R_pad
-  uint32_t r_pad;
-};
 
 __device__ __forceinline__ float sigmoid_exact(float v) { return 1.0f / (1.0f + expf(-v)); }
 
@@ -560,23 +566,6 @@ mol_loss_bwd_kernel(const T* __restrict__ q, const T* __restrict__ qp,
   }
 }
 
-// out[e] = sum over the slots b = 0 .. nb-1 of part[b][e], in that order.
-__global__ void reduce_slots_kernel(const float* __restrict__ part, int nb, int64_t stride,
-                                    float* __restrict__ out) {
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= stride) return;
-  float s = 0.f;
-  for (int b = 0; b < nb; ++b) s += part[b * stride + e];
-  out[e] = s;
-}
-
-Drop make_drop(int use_qi, unsigned seed_qi, unsigned thr_qi, float scale_qi, int use_pi,
-               unsigned seed_pi, unsigned thr_pi, float scale_pi, int m_pad, int r_pad) {
-  return Drop{use_qi, use_pi, seed_qi, thr_qi, seed_pi, thr_pi, scale_qi, scale_pi,
-              static_cast<uint32_t>(m_pad) * static_cast<uint32_t>(r_pad),
-              static_cast<uint32_t>(r_pad)};
-}
-
 template <typename T, int PQ, int PX>
 cudaError_t launch_fwd(const void* q, const void* qp, const void* item_t, const void* ip_t,
                        const float* w1t, const float* b1, const float* w2, const float* b2,
@@ -664,7 +653,8 @@ extern "C" int rails_mol_loss_fwd(int dtype, int pq, int px, const void* q, cons
                                   float eps, int use_qi, unsigned seed_qi, unsigned thr_qi,
                                   float scale_qi, int use_pi, unsigned seed_pi, unsigned thr_pi,
                                   float scale_pi, void* stream) {
-  if (dP > rails::kMaxDP) return cudaErrorInvalidValue;
+  if (dP > rails::kMaxDP || rails::losstc::tc_ok(dtype, pq, px, dP, Hd))
+    return cudaErrorInvalidValue;
   const rails::Drop d = rails::make_drop(use_qi, seed_qi, thr_qi, scale_qi, use_pi, seed_pi,
                                          thr_pi, scale_pi, m_pad, r_pad);
   auto s = static_cast<cudaStream_t>(stream);
@@ -690,7 +680,8 @@ extern "C" int rails_mol_loss_bwd(int dtype, int pq, int px, const void* q, cons
                                   int use_qi, unsigned seed_qi, unsigned thr_qi, float scale_qi,
                                   int use_pi, unsigned seed_pi, unsigned thr_pi, float scale_pi,
                                   void* stream) {
-  if (dP > rails::kMaxDP || nb < 1) return cudaErrorInvalidValue;
+  if (dP > rails::kMaxDP || nb < 1 || rails::losstc::tc_ok(dtype, pq, px, dP, Hd))
+    return cudaErrorInvalidValue;
   const rails::Drop d = rails::make_drop(use_qi, seed_qi, thr_qi, scale_qi, use_pi, seed_pi,
                                          thr_pi, scale_pi, m_pad, r_pad);
   auto s = static_cast<cudaStream_t>(stream);

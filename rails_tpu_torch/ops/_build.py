@@ -173,6 +173,12 @@ def load_library() -> ctypes.CDLL:
     lib.rails_mol_loss_bwd.restype = i
     lib.rails_mol_loss_smem_bytes.argtypes = [i] * 5
     lib.rails_mol_loss_smem_bytes.restype = ctypes.c_size_t
+    lib.rails_mol_loss_tc_fwd.argtypes = [i, i] + [p] * 9 + [i] * 6 + [f, f] + drop + [p]
+    lib.rails_mol_loss_tc_fwd.restype = i
+    lib.rails_mol_loss_tc_bwd.argtypes = [i, i] + [p] * 13 + [i] * 7 + [f, f] + drop + [p]
+    lib.rails_mol_loss_tc_bwd.restype = i
+    lib.rails_mol_loss_tc_smem_bytes.argtypes = [i] * 5
+    lib.rails_mol_loss_tc_smem_bytes.restype = ctypes.c_size_t
     ll = ctypes.c_longlong
     lib.rails_scatter_add_rows.argtypes = ([i] * 3 + [p] * 3 + [ll] + [i] * 4 + [ll] * 3
                                            + [p, ll] + [p] * 12 + [p])

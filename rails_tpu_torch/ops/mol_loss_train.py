@@ -30,16 +30,31 @@ and d_z for db1 in f32; the gradients come back in each operand's dtype
 versions write these rounding points out (the backward as JAX's `_bwd_kernel`
 does, not by autograd, which would round at the casts' transposes instead).
 
-Kernels (`csrc/mol_loss_train.cu`; its header says what bounds them and how
-the backward replaces the TPU kernel's carried VMEM sums with per-block slots
-and a fixed-order reduction): `fused_mol_loss_forward` and
-`fused_mol_loss_backward` follow the port's dispatch rule
-(`core.device.use_kernel`): CPU tensors run `*_reference`, CUDA tensors launch
-the kernel or raise. Each has a `.launches` counter. `fused_mol_loss` is the
-differentiable function (`FusedMolLoss`), whose backward is the backward
-kernel. Kernel instances: (P_Q, P_X) in `SUPPORTED_GROUPS`, d_P <= 128, f32
-and bf16 operands; launches of the bf16 instances also count on
-`.bf16_launches`.
+Kernels, two routes chosen by `tc_route` from the geometry and the operand
+dtype alone (no flag, no fallback; each set of C entry points refuses the
+other's geometries):
+  - the tensor-core route (`csrc/mol_loss_tc.cuh`, entry points in
+    `csrc/mol_loss_tc.cu`): P_Q = 8 with P_X = 4 (f32 or bf16) or 8 (bf16),
+    d_P <= 128, H a multiple of 16 up to 128 -- ML-1M's 8x4x64 and ML-20M's
+    8x4x128 in f32, Amazon Books' 8x8x32 in bf16. Every product of the loss
+    is a GEMM over tiles of 8 queries x 16 negatives on mma.sync: bf16
+    m16n8k16 at JAX's rounding points for bf16 operands, 3xTF32 (hi/lo
+    splits, three m16n8k8 TF32 products added in f32) for f32 ones; SiLU,
+    sigmoid and exp in the fast forms `__expf`/`__fdividef`. Its header says
+    what bounds it and how the backward's cross-block sums stay free of
+    atomics. Launches also count on `.tc_launches`.
+  - the CUDA-core route (`csrc/mol_loss_train.cu`): every other geometry in
+    `SUPPORTED_GROUPS` (synthetic-small's 4x2, H not a multiple of 16, f32 at
+    8x8), every product a scalar FMA loop.
+Both replace the TPU kernel's carried VMEM sums with per-block slots and a
+fixed-order reduction, so two calls give the same bits.
+`fused_mol_loss_forward` and `fused_mol_loss_backward` follow the port's
+dispatch rule (`core.device.use_kernel`): CPU tensors run `*_reference`,
+CUDA tensors launch the route's kernel or raise. Each has `.launches`;
+launches of the bf16 instances also count on `.bf16_launches`.
+`fused_mol_loss` is the differentiable function (`FusedMolLoss`), whose
+backward is the backward kernel. Kernel instances: (P_Q, P_X) in
+`SUPPORTED_GROUPS`, d_P <= 128, f32 and bf16 operands.
 """
 
 from __future__ import annotations
@@ -181,10 +196,29 @@ def fused_mol_loss_backward_reference(
     return tuple(g.to(x.dtype) for g, x in zip(grads, (q_comp, qp, item_comp, ip, w1, b1, w2, b2)))
 
 
+def tc_route(dtype: torch.dtype, p_q: int, p_x: int, d_p: int, hd: int) -> bool:
+    """The width rule of K5's tensor-core route (`losstc::tc_ok` in
+    csrc/mol_loss_tc.cuh; the CUDA-core entry points refuse what it takes):
+    P_Q = 8 (a query's components are one n8 tile of the logits' product);
+    P_X = 4, or 8 with bf16 operands (L = 32 or 64 logits, whole k16 steps;
+    f32 at P_X = 8 would need at least 243,456 B of shared memory at H =
+    128); d_P <= 128, a multiple of 16 for bf16 (whole k16 steps) or of 8
+    for f32 (staged with zeros to a multiple of 16); H a multiple of 16 up to
+    128 (one 16-unit hidden chunk per warp, its dW1 and dW2 sums in
+    registers). ML-1M's 8x4x64 and ML-20M's 8x4x128 in f32 and Amazon Books'
+    8x8x32 in bf16, H = 128, take it; the (4, 2) instances (synthetic-small)
+    and H = 24 stay on the CUDA cores."""
+    bf16 = dtype == torch.bfloat16
+    mult = 16 if bf16 else 8
+    return (dtype in _DTYPE_CODE and p_q == 8 and (p_x == 4 or (bf16 and p_x == 8))
+            and 0 < d_p <= MAX_DOT_PRODUCT_DIM and d_p % mult == 0 and 16 <= hd <= 128
+            and hd % 16 == 0)
+
+
 def _prepare(q_comp, qp, item_comp, ip, w1, b1, w2, b2, p_q: int, p_x: int, backward: bool,
              what: str):
     """Validate the operands of the forward or backward kernel; returns
-    (m, r, d_p, h, dtype code, lib)."""
+    (m, r, d_p, h, dtype code, tc route, lib)."""
     m, pq_, d_p = q_comp.shape
     r = item_comp.shape[0]
     l = p_q * p_x
@@ -208,23 +242,29 @@ def _prepare(q_comp, qp, item_comp, ip, w1, b1, w2, b2, p_q: int, p_x: int, back
     if got != want or pq_ != p_q:
         raise ValueError(f"{what}: shapes {got}, want {want}")
     lib = _build.load_library()
-    smem = lib.rails_mol_loss_smem_bytes(int(backward), p_q, p_x, d_p, h)
+    code, tc = _DTYPE_CODE[dtype], tc_route(dtype, p_q, p_x, d_p, h)
+    smem = (lib.rails_mol_loss_tc_smem_bytes(int(backward), code, p_x, d_p, h) if tc
+            else lib.rails_mol_loss_smem_bytes(int(backward), p_q, p_x, d_p, h))
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"{what}: d_P={d_p}, H={h} need {smem} B of shared memory")
-    return m, r, d_p, h, _DTYPE_CODE[dtype], lib
+    return m, r, d_p, h, code, tc, lib
 
 
-def _kernel_layout(q_comp, qp, item_comp, ip, w1, b1, w2, b2) -> dict:
+def _kernel_layout(q_comp, qp, item_comp, ip, w1, b1, w2, b2, tc: bool) -> dict:
     """Contiguous operands in the kernels' layouts, W1 and W2 rounded to the
     MLP's dtype (the dict keeps every temporary alive until the launch has
-    been enqueued)."""
+    been enqueued). The tensor-core route reads item and ip as they are; the
+    CUDA-core route reads their transposes."""
     mlp = _mlp_dtype(item_comp)
-    return {"q": q_comp.contiguous(), "qp": qp.contiguous(), "item": item_comp.contiguous(),
-            "item_t": item_comp.permute(1, 2, 0).contiguous(),      # (P_X, d_P, R)
-            "ip": ip.contiguous(), "ip_t": ip.T.contiguous(),       # (L, R)
-            "w1t": w1.to(mlp).float().T.contiguous(),               # (H, L)
-            "b1": b1.contiguous(),
-            "w2": w2.to(mlp).float().contiguous(), "b2": b2.contiguous()}
+    ops = {"q": q_comp.contiguous(), "qp": qp.contiguous(), "item": item_comp.contiguous(),
+           "ip": ip.contiguous(),
+           "w1t": w1.to(mlp).float().T.contiguous(),               # (H, L)
+           "b1": b1.contiguous(),
+           "w2": w2.to(mlp).float().contiguous(), "b2": b2.contiguous()}
+    if not tc:
+        ops.update(item_t=item_comp.permute(1, 2, 0).contiguous(),  # (P_X, d_P, R)
+                   ip_t=ip.T.contiguous())                          # (L, R)
+    return ops
 
 
 def _drop_args(seed: int, qi_rate: float, pi_rate: float) -> list:
@@ -248,25 +288,35 @@ def fused_mol_loss_forward(
     tensors = (q_comp, qp, item_comp, ip, w1, b1, w2, b2)
     if not use_kernel(*tensors):
         return fused_mol_loss_forward_reference(*tensors, seed, **kw)
-    m, r, d_p, h, code, lib = _prepare(*tensors, p_q, p_x, False, "fused_mol_loss_forward")
+    m, r, d_p, h, code, tc, lib = _prepare(*tensors, p_q, p_x, False, "fused_mol_loss_forward")
     mp, rp = padded_extents(m, r)
     with torch.cuda.device(q_comp.device):
-        ops = _kernel_layout(*tensors)
+        ops = _kernel_layout(*tensors, tc)
         out = torch.empty(m, r, dtype=torch.float32, device=q_comp.device)
-        err = lib.rails_mol_loss_fwd(
-            code, p_q, p_x, *(ops[k].data_ptr() for k in ("q", "qp", "item_t", "ip_t", "w1t", "b1",
-                                                    "w2", "b2")),
-            out.data_ptr(), m, r, d_p, h, mp, rp, 1.0 / temperature, eps,
-            *_drop_args(seed, qi_rate, pi_rate), torch.cuda.current_stream().cuda_stream,
-        )
+        if tc:
+            err = lib.rails_mol_loss_tc_fwd(
+                code, p_x, *(ops[k].data_ptr() for k in ("q", "qp", "item", "ip", "w1t", "b1",
+                                                       "w2", "b2")),
+                out.data_ptr(), m, r, d_p, h, mp, rp, 1.0 / temperature, eps,
+                *_drop_args(seed, qi_rate, pi_rate), torch.cuda.current_stream().cuda_stream,
+            )
+        else:
+            err = lib.rails_mol_loss_fwd(
+                code, p_q, p_x, *(ops[k].data_ptr() for k in ("q", "qp", "item_t", "ip_t", "w1t",
+                                                        "b1", "w2", "b2")),
+                out.data_ptr(), m, r, d_p, h, mp, rp, 1.0 / temperature, eps,
+                *_drop_args(seed, qi_rate, pi_rate), torch.cuda.current_stream().cuda_stream,
+            )
     _build.check(lib, err, "fused_mol_loss_forward")
     fused_mol_loss_forward.launches += 1
     fused_mol_loss_forward.bf16_launches += code == 1
+    fused_mol_loss_forward.tc_launches += tc
     return out
 
 
 fused_mol_loss_forward.launches = 0
 fused_mol_loss_forward.bf16_launches = 0
+fused_mol_loss_forward.tc_launches = 0
 
 
 def fused_mol_loss_backward(
@@ -281,7 +331,7 @@ def fused_mol_loss_backward(
     tensors = (q_comp, qp, item_comp, ip, w1, b1, w2, b2)
     if not use_kernel(*tensors, d_out):
         return fused_mol_loss_backward_reference(*tensors, seed, d_out, **kw)
-    m, r, d_p, h, code, lib = _prepare(*tensors, p_q, p_x, True, "fused_mol_loss_backward")
+    m, r, d_p, h, code, tc, lib = _prepare(*tensors, p_q, p_x, True, "fused_mol_loss_backward")
     if tuple(d_out.shape) != (m, r) or d_out.dtype != torch.float32:
         raise ValueError(f"fused_mol_loss_backward: d_out must be f32 {(m, r)}; got "
                          f"{d_out.dtype} {tuple(d_out.shape)}")
@@ -292,22 +342,27 @@ def fused_mol_loss_backward(
     # One slot per persistent block: one block per SM, fewer when M is small.
     nb = min(-(-m // _BLOCK_Q), torch.cuda.get_device_properties(dev).multi_processor_count)
     with torch.cuda.device(dev):
-        ops = _kernel_layout(*tensors)
+        ops = _kernel_layout(*tensors, tc)
         d_out = d_out.contiguous()
         dq = torch.zeros(m, p_q, d_p, dtype=torch.float32, device=dev)
         dqp = torch.zeros(m, l, dtype=torch.float32, device=dev)
         part = torch.zeros(nb, stride, dtype=torch.float32, device=dev)
         red = torch.empty(stride, dtype=torch.float32, device=dev)
-        err = lib.rails_mol_loss_bwd(
-            code, p_q, p_x, *(ops[k].data_ptr() for k in ("q", "qp", "item", "item_t", "ip", "ip_t",
-                                                    "w1t", "b1", "w2", "b2")),
-            d_out.data_ptr(), dq.data_ptr(), dqp.data_ptr(), part.data_ptr(), red.data_ptr(),
-            nb, m, r, d_p, h, mp, rp, 1.0 / temperature, eps,
-            *_drop_args(seed, qi_rate, pi_rate), torch.cuda.current_stream().cuda_stream,
-        )
+        tail = (d_out.data_ptr(), dq.data_ptr(), dqp.data_ptr(), part.data_ptr(), red.data_ptr(),
+                nb, m, r, d_p, h, mp, rp, 1.0 / temperature, eps,
+                *_drop_args(seed, qi_rate, pi_rate), torch.cuda.current_stream().cuda_stream)
+        if tc:
+            err = lib.rails_mol_loss_tc_bwd(
+                code, p_x, *(ops[k].data_ptr() for k in ("q", "qp", "item", "ip", "w1t", "b1",
+                                                       "w2", "b2")), *tail)
+        else:
+            err = lib.rails_mol_loss_bwd(
+                code, p_q, p_x, *(ops[k].data_ptr() for k in ("q", "qp", "item", "item_t", "ip",
+                                                        "ip_t", "w1t", "b1", "w2", "b2")), *tail)
     _build.check(lib, err, "fused_mol_loss_backward")
     fused_mol_loss_backward.launches += 1
     fused_mol_loss_backward.bf16_launches += code == 1
+    fused_mol_loss_backward.tc_launches += tc
     dw1, dw2, db1, db2, dip, ditem = torch.split(red, [h * l, h * l, h, l, r * l, r * p_x * d_p])
     grads = (dq, dqp, ditem.reshape(r, p_x, d_p), dip.reshape(r, l), dw1.reshape(h, l).T,
              db1.reshape(1, h), dw2.reshape(h, l), db2.reshape(1, l))
@@ -316,6 +371,7 @@ def fused_mol_loss_backward(
 
 fused_mol_loss_backward.launches = 0
 fused_mol_loss_backward.bf16_launches = 0
+fused_mol_loss_backward.tc_launches = 0
 
 
 class FusedMolLoss(torch.autograd.Function):

@@ -1028,29 +1028,46 @@ def _k5_args(m, r, p_q, p_x, d_p, h, device, seed=0):
     return [a.to(device) for a in args]
 
 
+def _k5_route_launches(dtype, geom):
+    """(launches, tc_launches) that one call of a K5 wrapper must add: the
+    tensor-core route exactly where `tc_route` takes the geometry."""
+    p_q, p_x, d_p, h = geom
+    return 1, int(mol_loss_train.tc_route(dtype, p_q, p_x, d_p, h))
+
+
+def _k5_counts():
+    return tuple((f.launches, f.tc_launches) for f in (mol_loss_train.fused_mol_loss_forward,
+                                                       mol_loss_train.fused_mol_loss_backward))
+
+
 @pytest.mark.parametrize(
     "m,r,geom,pi_rate,qi_rate",
     [(1, 1, (4, 2, 16, 24), 0.2, 0.0), (13, 37, (4, 2, 16, 24), 0.0, 0.0),
      (20, 130, (4, 2, 16, 24), 0.2, 0.1), (24, 40, (4, 2, 16, 24), 0.9, 0.0),
      (9, 128, (8, 4, 128, 128), 0.2, 0.1), (300, 200, (8, 4, 128, 128), 0.5, 0.3),
-     (13, 37, (8, 8, 32, 128), 0.2, 0.1), (300, 520, (8, 8, 32, 128), 0.2, 0.0)],
+     (13, 37, (8, 8, 32, 128), 0.2, 0.1), (300, 520, (8, 8, 32, 128), 0.2, 0.0),
+     (77, 130, (8, 4, 64, 128), 0.2, 0.1), (5, 3, (8, 4, 64, 128), 0.9, 0.0),
+     (40, 70, (8, 4, 120, 64), 0.2, 0.1)],
     ids=["one_pair", "rate0", "padded", "clamps_at_eps", "ml20m_small", "ml20m_many_blocks",
-         "books_small", "books_many_blocks"],
+         "books_small", "books_many_blocks", "ml1m_small", "ml1m_clamps_at_eps",
+         "dp120_h64"],
 )
 def test_k5_matches_plain(cuda, m, r, geom, pi_rate, qi_rate):
     """Forward and the 8 gradients of the K5 kernels against the plain
-    forward and backward, at M not a multiple of 8, R not a multiple of 32 or 128, and
-    a softmax-dropout rate at which many pairs' renorm clamps at eps."""
+    forward and backward, at M not a multiple of 8, R not a multiple of 16, 32
+    or 128, and a softmax-dropout rate at which many pairs' renorm clamps at
+    eps; each call on the route `tc_route` names (`.tc_launches`): the
+    tensor cores (3xTF32) at P_Q = 8, P_X = 4, the CUDA cores at 4x2 and
+    H = 24."""
     p_q, p_x, d_p, h = geom
     args = _k5_args(m, r, p_q, p_x, d_p, h, cuda, seed=m)
     kw = dict(p_q=p_q, p_x=p_x, temperature=0.05, qi_rate=qi_rate, pi_rate=pi_rate, eps=1e-6)
     cot = torch.randn(m, r, generator=torch.Generator().manual_seed(1)).to(cuda)
-    before = (mol_loss_train.fused_mol_loss_forward.launches,
-              mol_loss_train.fused_mol_loss_backward.launches)
+    before = _k5_counts()
     got = mol_loss_train.fused_mol_loss_forward(*args, -1234567, **kw)
     grads = mol_loss_train.fused_mol_loss_backward(*args, -1234567, cot, **kw)
-    assert (mol_loss_train.fused_mol_loss_forward.launches,
-            mol_loss_train.fused_mol_loss_backward.launches) == (before[0] + 1, before[1] + 1)
+    add = _k5_route_launches(torch.float32, geom)
+    assert _k5_counts() == tuple((b[0] + add[0], b[1] + add[1]) for b in before)
     want = mol_loss_train.fused_mol_loss_forward_reference(*args, -1234567, **kw)
     want_grads = mol_loss_train.fused_mol_loss_backward_reference(*args, -1234567, cot, **kw)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)   # logits carry 1/T = 20
@@ -1064,14 +1081,17 @@ def test_k5_matches_plain(cuda, m, r, geom, pi_rate, qi_rate):
     "m,r,geom,pi_rate,qi_rate",
     [(1, 1, (4, 2, 16, 24), 0.2, 0.0), (20, 130, (4, 2, 16, 24), 0.2, 0.1),
      (9, 128, (8, 4, 128, 128), 0.2, 0.1), (13, 37, (8, 8, 32, 128), 0.2, 0.1),
-     (300, 520, (8, 8, 32, 128), 0.0, 0.0)],
-    ids=["one_pair", "padded", "ml20m_small", "books_small", "books_many_blocks"],
+     (300, 520, (8, 8, 32, 128), 0.0, 0.0), (70, 33, (8, 8, 128, 96), 0.2, 0.1),
+     (13, 37, (8, 8, 32, 24), 0.2, 0.1)],
+    ids=["one_pair", "padded", "ml20m_small", "books_small", "books_many_blocks",
+         "px8_dp128_h96", "books_h24"],
 )
 def test_k5_bf16_matches_plain(cuda, m, r, geom, pi_rate, qi_rate):
     """The bf16 K5 (bf16 operands, f32 weights, the qi MLP in bf16) against
     the bf16 plain versions, which round at the same points and sum in other
     orders: the forward within 2e-2 and each gradient within 3e-2 of its
-    largest value, gradients in the operands' dtypes; `.bf16_launches` counts."""
+    largest value, gradients in the operands' dtypes; `.bf16_launches` counts,
+    and `.tc_launches` where `tc_route` takes the geometry (P_Q = 8)."""
     p_q, p_x, d_p, h = geom
     args = _k5_args(m, r, p_q, p_x, d_p, h, cuda, seed=m)
     args = [a.bfloat16() for a in args[:4]] + args[4:]
@@ -1079,9 +1099,12 @@ def test_k5_bf16_matches_plain(cuda, m, r, geom, pi_rate, qi_rate):
     cot = torch.randn(m, r, generator=torch.Generator().manual_seed(1)).to(cuda)
     fwd, bwd = mol_loss_train.fused_mol_loss_forward, mol_loss_train.fused_mol_loss_backward
     before = (fwd.bf16_launches, bwd.bf16_launches)
+    before_tc = _k5_counts()
     got = fwd(*args, 77, **kw)
     grads = bwd(*args, 77, cot, **kw)
     assert (fwd.bf16_launches, bwd.bf16_launches) == (before[0] + 1, before[1] + 1)
+    add = _k5_route_launches(torch.bfloat16, geom)
+    assert _k5_counts() == tuple((b[0] + add[0], b[1] + add[1]) for b in before_tc)
     want = mol_loss_train.fused_mol_loss_forward_reference(*args, 77, **kw)
     want_grads = mol_loss_train.fused_mol_loss_backward_reference(*args, 77, cot, **kw)
     assert ((got - want).abs().max() / want.abs().max()).item() <= 2e-2
@@ -1089,6 +1112,93 @@ def test_k5_bf16_matches_plain(cuda, m, r, geom, pi_rate, qi_rate):
         assert a.dtype == b.dtype == x.dtype and a.shape == b.shape, name
         scale = b.float().abs().max().clamp_min(1e-30)
         assert ((a.float() - b.float()).abs().max() / scale).item() <= 3e-2, name
+
+
+# One geometry per K5 route: (dtype, m, r, (P_Q, P_X, d_P, H)).
+K5_ROUTES = {
+    "tc_f32": (torch.float32, 300, 200, (8, 4, 128, 128)),
+    "tc_bf16": (torch.bfloat16, 300, 520, (8, 8, 32, 128)),
+    "cuda_core_f32": (torch.float32, 20, 130, (4, 2, 16, 24)),
+    "cuda_core_bf16": (torch.bfloat16, 13, 37, (8, 8, 32, 24)),
+}
+
+
+def _k5_route_case(route, device):
+    dtype, m, r, geom = K5_ROUTES[route]
+    p_q, p_x, d_p, h = geom
+    args = _k5_args(m, r, p_q, p_x, d_p, h, device, seed=m)
+    args = [a.to(dtype) for a in args[:4]] + args[4:]
+    kw = dict(p_q=p_q, p_x=p_x, temperature=0.05, qi_rate=0.1, pi_rate=0.2, eps=1e-6)
+    cot = torch.randn(m, r, generator=torch.Generator().manual_seed(1)).to(device)
+    return args, kw, cot
+
+
+@pytest.mark.parametrize("route", list(K5_ROUTES))
+def test_k5_backward_repeats_bit_for_bit(cuda, route):
+    """No floating-point atomics on either route: two backward calls (and two
+    forward calls) on the same inputs give the same bits."""
+    args, kw, cot = _k5_route_case(route, cuda)
+    assert mol_loss_train.tc_route(args[0].dtype, kw["p_q"], kw["p_x"], args[0].shape[2],
+                                   args[4].shape[1]) == route.startswith("tc")
+    for fn, extra in ((mol_loss_train.fused_mol_loss_forward, ()),
+                      (mol_loss_train.fused_mol_loss_backward, (cot,))):
+        a = fn(*args, 5, *extra, **kw)
+        b = fn(*args, 5, *extra, **kw)
+        for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(x, y), fn.__name__
+
+
+def _k5_errors(got, got_grads, want, want_grads):
+    """max|kernel - plain| over max|plain| of the forward and of each gradient."""
+    def share(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)).item()
+    return [share(got, want)] + [share(a, b) for a, b in zip(got_grads, want_grads)]
+
+
+@pytest.mark.parametrize("fault", ["w2_rows_swapped", "pi_mask_bit_flipped",
+                                   "qi_mask_bit_flipped"])
+@pytest.mark.parametrize("route", ["tc_f32", "tc_bf16"])
+def test_k5_tolerance_catches_seeded_faults(cuda, route, fault, monkeypatch):
+    """The tolerances the kernel meets reject a seeded fault: the kernel run
+    with W2's rows 0 and 1 swapped, or held to a plain version whose dropout
+    mask has one bit flipped (the kept logit of largest softmax weight in the
+    pi stream, of largest |t| in the qi stream), lies outside them (f32:
+    rtol 1e-4 / atol 1e-3 forward, 1e-3 gradients; bf16: 2e-2 / 3e-2)."""
+    args, kw, cot = _k5_route_case(route, cuda)
+    bf16 = args[0].dtype == torch.bfloat16
+    plain = [mol_loss_train.fused_mol_loss_forward_reference(*args, 5, **kw),
+             mol_loss_train.fused_mol_loss_backward_reference(*args, 5, cot, **kw)]
+    if fault == "w2_rows_swapped":
+        bad = list(args)
+        bad[6] = args[6][[1, 0] + list(range(2, args[6].shape[0]))].contiguous()
+        got = mol_loss_train.fused_mol_loss_forward(*bad, 5, **kw)
+        got_grads = mol_loss_train.fused_mol_loss_backward(*bad, 5, cot, **kw)
+    else:
+        got = mol_loss_train.fused_mol_loss_forward(*args, 5, **kw)
+        got_grads = mol_loss_train.fused_mol_loss_backward(*args, 5, cot, **kw)
+        salt = hash_dropout.PI_SALT if fault.startswith("pi") else hash_dropout.QI_SALT
+        f = mol_loss_train._forward_parts(*args, 5, **kw)
+        weight = f["p"] if salt == hash_dropout.PI_SALT else f["t"].abs()
+        true_mask = mol_loss_train.loss_mask
+
+        def flipped(seed, s, m, r, p_q, p_x, rate, device):
+            mask = true_mask(seed, s, m, r, p_q, p_x, rate, device)
+            if s == salt:
+                mask = mask.contiguous().clone()
+                at = torch.argmax(torch.where(mask > 0, weight, -1.0))
+                mask.view(-1)[at] = 0.0
+            return mask
+
+        monkeypatch.setattr(mol_loss_train, "loss_mask", flipped)
+        plain = [mol_loss_train.fused_mol_loss_forward_reference(*args, 5, **kw),
+                 mol_loss_train.fused_mol_loss_backward_reference(*args, 5, cot, **kw)]
+    errs = _k5_errors(got, got_grads, *plain)
+    if bf16:
+        outside = errs[0] > 2e-2 or max(errs[1:]) > 3e-2
+    else:
+        fwd_ok = torch.allclose(got, plain[0], rtol=1e-4, atol=1e-3)
+        outside = not fwd_ok or max(errs[1:]) > 1e-3
+    assert outside, (fault, errs)
 
 
 def test_k5_rejects_what_it_has_no_instance_for(cuda):
