@@ -10,9 +10,9 @@ Phases (one line each, any failure raises and exits non-zero):
      the tensor-core instructions (HMMA, HGMMA) of each of K1's bf16 kernels
      (with their TRAIN instances, K4's bf16 forward), of K4's bf16 backward
      kernels (`tc_bwd_rows_kernel`, `tc_bwd_dq_kernel`, `tc_bwd_dkv_kernel`)
-     and of every instance of K2's and K5's tensor-core kernels
-     (`mol_tc_kernel`, `mol_loss_tc_kernel`) in the library's SASS
-     (`cuobjdump -sass`), none may have zero.
+     and of every instance of K2's, K8/K9's and K5's tensor-core kernels
+     (`mol_tc_kernel`, `mol_bounds_tc_kernel`, `mol_loss_tc_kernel`) in the
+     library's SASS (`cuobjdump -sass`), none may have zero.
   3. K1 (`fused_hstu_block`) vs its plain version at ML-20M block shapes,
      with each stage's device time and the instruction it multiplies with;
      its three bf16 stages (`project`, `attention_oinput` pointwise and
@@ -20,7 +20,8 @@ Phases (one line each, any failure raises and exits non-zero):
      Books (D=64, h=8, dqk=dv=8, N=61) and ML-1M (D=50, h=2, dqk=dv=25,
      N=211) widths and the softmax variant at h=4, dqk=dv=16.
   4. K2 (`fused_mol_scores_t`) vs its plain version over 26,744 items: bf16
-     tables on the tensor cores, f32 and int8 on the CUDA cores. The K2, K10,
+     and int8 tables on the tensor cores (`.tc_launches` printed), f32 on the
+     CUDA cores. The K2, K10,
      K2-bmax and P2 bounds carry a MUFU term: one special-function result
      (ex2) for each SiLU and exp the function needs, at the SM clock
      `nvidia-smi` reads under load; their lines also give one call's device
@@ -28,8 +29,9 @@ Phases (one line each, any failure raises and exits non-zero):
   5. e2e: ml-20m-hstu-mol serving through get_eval_state and
      make_eval_step_fn, in bf16 (as served) and in f32, each with launch
      counts and against the same step through the plain versions. Here and
-     in approx, books-e2e and frontier, every bf16 K2 and K10 launch must
-     have taken the tensor-core route (`.tc_launches`).
+     in approx, int8, int8-e2e, books-e2e and frontier, every K2, K8, K9
+     and K10 launch on bf16 or int8 tables must have taken the tensor-core
+     route (`.tc_launches`).
   6. K3 (`hash_keep_mask`), the o_input mask at (128, 211, 256), bit-equal.
   7. K4 (`fused_train_block_forward`, `attn_backward`): one layer at B=128,
      n=211, f32 and bf16, forward and every gradient vs the plain versions
@@ -63,8 +65,11 @@ Phases (one line each, any failure raises and exits non-zero):
  13. K8 (`fused_mol_ub_t`), K9 (`fused_mol_group_block_max`) and K10
      (`fused_mol_scores_tiles`, 1,024 tile ids with a duplicate and the last
      tile) at B=32 over 1,048,576 items, f32 and bf16 tables, vs their plain
-     versions; K10 bit-equal to K2's columns of the same tiles; K8's bound
-     above K2's score of every (query, item) up to the certificate margin.
+     versions, each line with its route and `.tc_launches`; K10 bit-equal to
+     K2's columns of the same tiles; K8's bound above K2's score of every
+     (query, item) up to F32_MARGIN (the mixture's f32 rounding: where both
+     take the tensor cores, K8 is the max of K2's logits bit for bit); K9's
+     max over l equal to K8's per-tile max bit for bit.
  14. approx: the frontier protocol (`rails_tpu/cli/frontier.py`) at
      ml-20m-hstu-mol, bf16: a clustered synthetic corpus of 1,048,576 items
      (cut from the frontier's 8M for the script's time), B=32, k=200, every
@@ -82,7 +87,7 @@ int8 serving tables and the exact select at scale:
  16. K2 on int8 tables (quantize_fused_tables of phase 4's bf16 tables) at
      B=512 over 26,744 items, and K8, K9, K10 on int8 tables at B=32 over
      1,048,576 items (in phase 13's lines), each vs its plain version; K10
-     bit-equal to K2's columns, K8 >= K2 on every pair.
+     bit-equal to K2's columns, K8 >= K2 on every pair, K9 = K8 per tile.
  17. K2-bmax: K2's emit_blockmax at B=32 over 1,048,575 items with mid-corpus
      valid=0 columns and the pad tail: the scores bit-equal to K2's with those
      columns at -1e30, the (B, X/256) maxima exact, vs the plain version.
@@ -315,7 +320,7 @@ def ptxas_summary(log: str) -> str:
                              r"attn_row_bwd_kernel|mol_scores_kernel|mol_tc_kernel|hash_keep_mask_kernel|"
                              r"adamw_leaves_kernel|mol_loss_fwd_kernel|mol_loss_bwd_kernel|"
                              r"reduce_slots_kernel|count_kernel|scan_kernel|place_kernel|"
-                             r"sum_kernel|mol_ub_kernel|"
+                             r"sum_kernel|mol_ub_kernel|mol_bounds_tc_kernel|"
                              r"mol_group_block_max_kernel)", mangled)
             # An int8 instance's first template argument is `signed char` ("Ia");
             # its bf16 query type puts "bfloat16" in the name too.
@@ -338,33 +343,36 @@ def ptxas_summary(log: str) -> str:
 def tensor_core_sass(lib_path) -> dict:
     """HMMA and HGMMA instruction counts of each instance of the tensor-core
     kernels (K1's bf16 kernels with their TRAIN instances, K4's backward
-    kernels and K2's `mol_tc_kernel`) in the built library's SASS
-    (`cuobjdump -sass`), by "kernel<template ints> (source)". Raises if a
-    kernel is missing or an instance has neither."""
+    kernels, K2's `mol_tc_kernel` and K8/K9's `mol_bounds_tc_kernel`) in the
+    built library's SASS (`cuobjdump -sass`), by "kernel<int8 if so, template
+    ints> (source)". Raises if a kernel is missing or an instance has
+    neither."""
     from rails_tpu_torch.ops import _build
 
     cuobjdump = str(Path(_build.find_nvcc()).parent / "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
                           timeout=300, check=True).stdout
     sources = {"encode_probe_cu": "encode_probe.cu", "mol_probe_cu": "mol_probe.cu",
-               "mol_loss_tc_cu": "mol_loss_tc.cu",
+               "mol_loss_tc_cu": "mol_loss_tc.cu", "mol_bounds_cu": "mol_bounds.cu",
                "mol_scoring_cu": "mol_scoring.cu", "hstu_block_train_cu": "hstu_block_train.cu"}
     counts, label = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             # The digit is the mangled name's length prefix: "tc_" inside a
             # file name (mol_loss_tc_cu) is no kernel.
-            m = re.search(r"\d(mol_loss_tc_kernel|mol_tc_kernel|tc_[a-z0-9_]+?_kernel)"
-                          r"(?:I\w*?((?:L[ib]\d+E)+)E)?", line)
+            m = re.search(r"\d(mol_loss_tc_kernel|mol_bounds_tc_kernel|mol_tc_kernel|"
+                          r"tc_[a-z0-9_]+?_kernel)(I(a)?\w*?((?:L[ib]\d+E)+)E)?", line)
             src = next((v for k, v in sources.items() if k in line), "hstu_block.cu")
-            args = ",".join(re.findall(r"\d+", m.group(2))) if m and m.group(2) else ""
+            args = ",".join(["int8"] * bool(m and m.group(3))
+                            + (re.findall(r"\d+", m.group(4)) if m and m.group(4) else []))
             label = f"{m.group(1)}{'<' + args + '>' if args else ''} ({src})" if m else None
             if label:
                 counts[label] = [0, 0]
         elif label:
             counts[label][0] += len(re.findall(r"\bHMMA\.", line))
             counts[label][1] += len(re.findall(r"\bHGMMA\.", line))
-    missing = [k for k in TC_KERNELS + K4_TC_KERNELS + ("mol_tc_kernel", "mol_loss_tc_kernel")
+    missing = [k for k in TC_KERNELS + K4_TC_KERNELS
+               + ("mol_tc_kernel", "mol_bounds_tc_kernel", "mol_loss_tc_kernel")
                if not any(label.startswith(k) for label in counts)]
     empty = [label for label, (hmma, hgmma) in counts.items() if hmma + hgmma == 0]
     if missing or empty:
@@ -650,6 +658,21 @@ def mol_route(geom: tuple, dtype) -> str:
     return "tensor cores" if route is not None and route(dtype, *geom, 128) else "CUDA cores"
 
 
+def bounds_route(geom: tuple, dtype) -> str:
+    """The route K8 and K9 take for tables of `dtype` at `geom`."""
+    from rails_tpu_torch.ops import mol_scoring
+
+    route = getattr(mol_scoring, "bounds_tc_route", None)   # absent on a tree before it
+    return "tensor cores" if route is not None and route(dtype, *geom) else "CUDA cores"
+
+
+def tc_launched(fn, call):
+    """call()'s result and the tensor-core launches of wrapper fn it made."""
+    before = getattr(fn, "tc_launches", 0)
+    out = call()
+    return out, getattr(fn, "tc_launches", 0) - before
+
+
 def check_k2(b: int, x: int, kind: str, device, geom: tuple = ML20M_GEOM,
              plain: bool = True) -> dict:
     """K2 at B x X over f32, bf16 or int8 tables (bf16 ones quantized), MoL
@@ -664,6 +687,9 @@ def check_k2(b: int, x: int, kind: str, device, geom: tuple = ML20M_GEOM,
     if kind == "int8":
         args = quantized(args)
     err, plain_ms, verdict = float("nan"), float("nan"), "no plain run"
+    _, tc = tc_launched(fused_mol_scores_t, lambda: fused_mol_scores_t(*args))
+    if tc != (mol_route(geom, args[2].dtype) == "tensor cores"):
+        raise AssertionError(f"K2 {kind}: {tc} tensor-core launches off its route")
     if plain:
         got = fused_mol_scores_t(*args)[:, :x]
         ref = fused_mol_scores_t_reference(*args)[:, :x]
@@ -686,7 +712,8 @@ def check_k2(b: int, x: int, kind: str, device, geom: tuple = ML20M_GEOM,
                    nbytes, "float32" if kind == "float32" else "bfloat16",
                    mol_sfu_per_pair(l, hd))
     print(f"[K2] {kind} tables B={b} X={x} MoL {p_q}x{p_x}x{d_p}, "
-          f"{mol_route(geom, args[2].dtype)}: max|err| {err:.3e} ({verdict}); kernel {ms:.3f} "
+          f"{mol_route(geom, args[2].dtype)} (.tc_launches +{tc} a call): max|err| {err:.3e} "
+          f"({verdict}); kernel {ms:.3f} "
           f"ms, device {bd['device_us']:.2f} us, plain {plain_ms:.3f} ms, bound "
           f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": None}
@@ -791,7 +818,7 @@ def kernel_counters() -> dict:
     counters["K2-bmax"] = (mol_scoring.fused_mol_scores_t, "blockmax_launches")
     for k in ("K2", "K8", "K9", "K10"):
         counters[f"{k}-int8"] = (wrappers[k], "int8_launches")
-    for k in ("K2", "K10", "P2", "K4 fwd", "K4 bwd", "K5 fwd", "K5 bwd"):
+    for k in ("K2", "K8", "K9", "K10", "P2", "K4 fwd", "K4 bwd", "K5 fwd", "K5 bwd"):
         counters[f"{k}-tc"] = (wrappers[k], "tc_launches")
     for k in ("K4 fwd", "K4 bwd", "K5 fwd", "K5 bwd"):
         counters[f"{k} (bf16)"] = (wrappers[k], "bf16_launches")
@@ -822,13 +849,12 @@ def launch_counts() -> dict:
 
 
 def check_tc_route(counts: dict, what: str) -> None:
-    """Every launch of K2 and K10 in `counts` on bf16 tables (those that are
-    not int8; the serving paths build no f32 tables) took the tensor-core
-    route: their `.tc_launches` equal them."""
-    for k in ("K2", "K10"):
-        bf16 = counts.get(k, 0) - counts.get(f"{k}-int8", 0)
-        if counts.get(f"{k}-tc", 0) != bf16:
-            raise AssertionError(f"{what}: {bf16} bf16 {k} launches, "
+    """Every launch of K2, K8, K9 and K10 in `counts` took the tensor-core
+    route: the serving paths build bf16 and int8 tables at registry widths
+    (no f32 tables), so their `.tc_launches` equal them."""
+    for k in ("K2", "K8", "K9", "K10"):
+        if counts.get(f"{k}-tc", 0) != counts.get(k, 0):
+            raise AssertionError(f"{what}: {counts.get(k, 0)} {k} launches, "
                                  f"{counts.get(f'{k}-tc', 0)} of them on the tensor cores")
 
 
@@ -1783,13 +1809,13 @@ def check_bounds(device, b: int = APPROX_BATCH, x: int = APPROX_ITEMS,
     """K8, K9 and K10 at B x X (B=32 over 1,048,576 items by default), f32,
     bf16 and int8 tables (the bf16 ones quantized): each against its plain
     version (int8 K8 and K9 to 1e-5 of their largest value: f32 sums of exact
-    products); K8 above K2's score everywhere, up to the certificate margin
-    of bf16 tables and the f32 margin of f32 and int8 ones; K9's tile maxima
-    above K8; K10 bit-equal to K2's columns of its tiles. Returns the bf16
-    and int8 entries of the kernel summary."""
+    products), on the route `bounds_route` / `mol_route` names, counted on
+    `.tc_launches`; K8 above K2's score everywhere up to F32_MARGIN (the f32
+    rounding of K2's mixture; K8's logits are K2's); K9's max over l equal to
+    K8's per-tile max bit for bit; K10 bit-equal to K2's columns of its
+    tiles. Returns the bf16 and int8 entries of the kernel summary."""
     import torch
 
-    from rails_tpu_torch.index.top_k import _CERT_REL_MARGIN
     from rails_tpu_torch.ops import mol_scoring as ms
 
     p_q, p_x, d_p = geom
@@ -1807,7 +1833,8 @@ def check_bounds(device, b: int = APPROX_BATCH, x: int = APPROX_ITEMS,
         xp = items.shape[2]
         nb = xp // ms.BLOCK_X
         k2 = ms.fused_mol_scores_t(*args)
-        rel = _CERT_REL_MARGIN[torch.bfloat16] if kind == "bfloat16" else F32_MARGIN
+        rel = F32_MARGIN
+        route = bounds_route(geom, items.dtype)
         comp_bytes = (q.numel() * q.element_size() + items.numel() * items.element_size()
                       + (4 * cs.numel() if cs is not None else 0))
 
@@ -1820,7 +1847,9 @@ def check_bounds(device, b: int = APPROX_BATCH, x: int = APPROX_ITEMS,
             torch.testing.assert_close(got, ref, rtol=rtol, atol=atol)
             return f"rtol {rtol}, atol {atol}"
 
-        ub = ms.fused_mol_ub_t(q, items, t, cs)
+        ub, tc8 = tc_launched(ms.fused_mol_ub_t, lambda: ms.fused_mol_ub_t(q, items, t, cs))
+        if tc8 != (route == "tensor cores"):
+            raise AssertionError(f"K8 {kind}: {tc8} tensor-core launches off its route")
         ub_ref = ms.fused_mol_ub_t_reference(q, items, t, cs)
         verdict = close(ub, ub_ref, "K8")
         slack = (ub + rel * torch.maximum(ub.abs(), k2.abs()) - k2).min().item()
@@ -1831,18 +1860,21 @@ def check_bounds(device, b: int = APPROX_BATCH, x: int = APPROX_ITEMS,
               "plain_ms": cuda_ms(lambda: ms.fused_mol_ub_t_reference(q, items, t, cs), iters=3,
                                   warmup=1),
               **bound(2 * b * xp * l * d_p, comp_bytes + 4 * b * xp, peak), "library_ms": None}
-        print(f"[K8] {kind} tables B={b} X={xp} MoL {p_q}x{p_x}x{d_p}: max|err| "
+        print(f"[K8] {kind} tables B={b} X={xp} MoL {p_q}x{p_x}x{d_p}, {route} (.tc_launches "
+              f"+{tc8} a call): max|err| "
               f"{k8['max_abs_err']:.3e} ({verdict}); UB + {rel:.2e} x max(|UB|, "
               f"|score|) >= K2's score for all {b * xp} pairs (min slack {slack:.3e}); kernel "
               f"{k8['ms']:.3f} ms, plain {k8['plain_ms']:.3f} ms, bound {k8['bound_ms']:.4f} ms "
               f"({k8['bound_by']})")
 
-        gm = ms.fused_mol_group_block_max(q, items, t, cs)
+        gm, tc9 = tc_launched(ms.fused_mol_group_block_max,
+                              lambda: ms.fused_mol_group_block_max(q, items, t, cs))
+        if tc9 != (route == "tensor cores"):
+            raise AssertionError(f"K9 {kind}: {tc9} tensor-core launches off its route")
         gm_ref = ms.fused_mol_group_block_max_reference(q, items, t, cs)
         verdict = close(gm, gm_ref, "K9")
-        tile_of = torch.arange(xp, device=device) // ms.BLOCK_X
-        if not bool((gm.amax(dim=1)[:, tile_of] >= ub).all()):
-            raise AssertionError(f"K9 {kind}: a tile maximum sits below an item's bound")
+        if not torch.equal(gm.amax(dim=1), ub.reshape(b, nb, ms.BLOCK_X).amax(dim=2)):
+            raise AssertionError(f"K9 {kind}: the max over l differs from K8's per-tile max")
         k9 = {"max_abs_err": (gm - gm_ref).abs().max().item(),
               "ms": cuda_ms(lambda: ms.fused_mol_group_block_max(q, items, t, cs)),
               "plain_ms": cuda_ms(lambda: ms.fused_mol_group_block_max_reference(q, items, t, cs),
@@ -1850,9 +1882,9 @@ def check_bounds(device, b: int = APPROX_BATCH, x: int = APPROX_ITEMS,
               **bound(2 * b * xp * l * d_p, comp_bytes + 4 * b * l * nb, peak),
               "library_ms": None}
         print(f"[K9] {kind} tables B={b} X={xp} MoL {p_q}x{p_x}x{d_p} ({nb} tiles of "
-              f"{ms.BLOCK_X}): max|err| "
-              f"{k9['max_abs_err']:.3e} ({verdict}); every tile maximum >= the K8 bound of its "
-              f"items; kernel {k9['ms']:.3f} ms, plain {k9['plain_ms']:.3f} ms, "
+              f"{ms.BLOCK_X}), {route} (.tc_launches +{tc9} a call): max|err| "
+              f"{k9['max_abs_err']:.3e} ({verdict}); max over l bit-equal to K8's per-tile "
+              f"max; kernel {k9['ms']:.3f} ms, plain {k9['plain_ms']:.3f} ms, "
               f"bound {k9['bound_ms']:.4f} ms ({k9['bound_by']})")
 
         gen = torch.Generator(device=device).manual_seed(10)
@@ -1861,7 +1893,10 @@ def check_bounds(device, b: int = APPROX_BATCH, x: int = APPROX_ITEMS,
         tiles[0], tiles[2] = nb - 1, tiles[1]          # the last tile and a duplicate
         distinct = int(torch.unique(tiles).numel())
         tile_args = (q, qp, tiles, *args[2:])
-        sc = ms.fused_mol_scores_tiles(*tile_args)
+        sc, tc10 = tc_launched(ms.fused_mol_scores_tiles,
+                               lambda: ms.fused_mol_scores_tiles(*tile_args))
+        if tc10 != (mol_route(geom, items.dtype) == "tensor cores"):
+            raise AssertionError(f"K10 {kind}: {tc10} tensor-core launches off its route")
         cols = (tiles.long()[:, None] * ms.BLOCK_X
                 + torch.arange(ms.BLOCK_X, device=device)).reshape(-1)
         if not torch.equal(sc, k2[:, cols]):
@@ -1886,7 +1921,8 @@ def check_bounds(device, b: int = APPROX_BATCH, x: int = APPROX_ITEMS,
                "library_ms": None}
         print(f"[K10] {kind} tables B={b} MoL {p_q}x{p_x}x{d_p} T={K10_TILES} tiles ({distinct} "
               f"distinct, the last tile and a duplicate) of X={xp}, "
-              f"{mol_route(geom, items.dtype)}: bit-equal to K2's columns of the same tiles; vs "
+              f"{mol_route(geom, items.dtype)} (.tc_launches +{tc10} a call): bit-equal to K2's "
+              f"columns of the same tiles; vs "
               f"plain max|err| {k10['max_abs_err']:.3e} ({verdict}); kernel {k10['ms']:.3f} ms, "
               f"device {k10['device_us']:.2f} us, plain {k10['plain_ms']:.3f} ms, bound "
               f"{k10['bound_ms']:.4f} ms ({k10['bound_by']})")
@@ -2154,6 +2190,7 @@ def int8_phase(device, name: str, smi: str) -> dict:
     for method in INT8_METHODS:
         raw = get_top_k_raw(method)
         res, counts, ms_ = timed(lambda: raw(model, int8, q, APPROX_K, uids))
+        check_tc_route(counts, f"[int8] {method}")
         for key in ("K9-int8", "K10-int8"):
             launches[key] = launches.get(key, 0) + counts.get(key, 0)
         line = report(method, res, ms_, counts)
@@ -2207,6 +2244,7 @@ def int8_e2e(device, name: str, smi: str) -> dict:
             "K2-bmax": 0, "K8": n, "K8-int8": n}
     if any(counts[key] != v for key, v in want.items()):
         raise AssertionError(f"int8 serving launches {counts}, want {want}")
+    check_tc_route(counts, "[int8-e2e]")
     t_batches = [Batch(f, t, torch.zeros_like(t)) for f, t in batches]
     for method, (es, step) in runs.items():
         outs_k, ms_k = outs[method]
@@ -2956,7 +2994,8 @@ def main() -> None:
           f"{ptxas_summary((lib_path.parent / 'build.log').read_text())}")
     sass = tensor_core_sass(lib_path)
     print(f"[build] tensor-core instructions in the SASS (HMMA, HGMMA) of K1's bf16 kernels "
-          f"(<DVP, 1>: K4's TRAIN attention), K4's backward kernels and K2's tensor-core kernel: "
+          f"(<DVP, 1>: K4's TRAIN attention), K4's backward kernels and K2's and K8/K9's "
+          f"tensor-core kernels: "
           f"{ {k: tuple(v) for k, v in sass.items()} }")
 
     k1 = {}
@@ -3012,13 +3051,15 @@ def main() -> None:
         approx_phase(device, name, smi)
     torch.cuda.empty_cache()
     approx = approx_e2e(device, name, smi)
-    launches.update({k: approx[k] for k in ("K8", "K9", "K10", "K10-tc")})
+    launches.update({k: approx[k] for k in ("K8", "K9", "K10", "K8-tc", "K9-tc", "K10-tc")})
     torch.cuda.empty_cache()
     with torch.inference_mode():
         launches.update(int8_phase(device, name, smi))
     torch.cuda.empty_cache()
     e2e8 = int8_e2e(device, name, smi)
     launches.update({k: e2e8[k] for k in ("K2-int8", "K8-int8")})
+    if e2e8["K2-tc"] != e2e8["K2"] or e2e8["K8-tc"] != e2e8["K8"]:
+        raise AssertionError(f"[int8-e2e]: int8 K2 / K8 off the tensor cores: {e2e8}")
     torch.cuda.empty_cache()
     front = frontier_phase(device, name, smi)
     launches.update({k: front[k] for k in ("K4 fwd (bf16)", "K4 bwd (bf16)")})
@@ -3091,21 +3132,21 @@ def main() -> None:
               "K6", k6),
         entry("adamw_update_leaves", "fused_adamw.cu", "rails_tpu/train/fused_adamw.py:87",
               "K7", k7),
-        entry("fused_mol_ub_t", "mol_bounds.cu", "rails_tpu/ops/pallas/mol_scoring.py:427",
-              "K8", bounds["K8"]),
-        entry("fused_mol_group_block_max", "mol_bounds.cu",
-              "rails_tpu/ops/pallas/mol_scoring.py:346", "K9", bounds["K9"]),
+        entry("fused_mol_ub_t (mol_bounds_tc_kernel)", "mol_bounds.cu",
+              "rails_tpu/ops/pallas/mol_scoring.py:427", "K8-tc", bounds["K8"]),
+        entry("fused_mol_group_block_max (mol_bounds_tc_kernel)", "mol_bounds.cu",
+              "rails_tpu/ops/pallas/mol_scoring.py:346", "K9-tc", bounds["K9"]),
         entry("fused_mol_scores_tiles", "mol_scoring_tc.cuh",
               "rails_tpu/ops/pallas/mol_scoring.py:875", "K10-tc", bounds["K10"]),
-        entry("fused_mol_scores_t (int8 tables)", "mol_scoring.cu",
+        entry("fused_mol_scores_t (int8 tables, mol_tc_kernel)", "mol_scoring_tc.cuh",
               "rails_tpu/ops/pallas/mol_scoring.py:724", "K2-int8", k2["int8"]),
         entry("fused_mol_scores_t (emit_blockmax)", "mol_scoring_tc.cuh",
               "rails_tpu/ops/pallas/mol_scoring.py:724", "K2-bmax", bmax),
-        entry("fused_mol_ub_t (int8 tables)", "mol_bounds.cu",
+        entry("fused_mol_ub_t (int8 tables, mol_bounds_tc_kernel)", "mol_bounds.cu",
               "rails_tpu/ops/pallas/mol_scoring.py:427", "K8-int8", bounds["K8-int8"]),
-        entry("fused_mol_group_block_max (int8 tables)", "mol_bounds.cu",
+        entry("fused_mol_group_block_max (int8 tables, mol_bounds_tc_kernel)", "mol_bounds.cu",
               "rails_tpu/ops/pallas/mol_scoring.py:346", "K9-int8", bounds["K9-int8"]),
-        entry("fused_mol_scores_tiles (int8 tables)", "mol_scoring.cu",
+        entry("fused_mol_scores_tiles (int8 tables, mol_tc_kernel)", "mol_scoring_tc.cuh",
               "rails_tpu/ops/pallas/mol_scoring.py:875", "K10-int8", bounds["K10-int8"]),
         entry("fused_train_block_forward (bf16)", "hstu_block_tc.cuh",
               "rails_tpu/ops/pallas/hstu_block_train.py:574", "K4 fwd (bf16)", k4_fwd16),
@@ -3113,21 +3154,22 @@ def main() -> None:
               "rails_tpu/ops/pallas/hstu_block_train.py:629", "K4 bwd (bf16)", k4_bwd16),
         entry("fused_mol_scores_t (8x8x32)", "mol_scoring_tc.cuh",
               "rails_tpu/ops/pallas/mol_scoring.py:724", "K2-tc", k2b["bfloat16"], books),
-        entry("fused_mol_scores_t (8x8x32, int8 tables)", "mol_scoring.cu",
+        entry("fused_mol_scores_t (8x8x32, int8 tables, mol_tc_kernel)", "mol_scoring_tc.cuh",
               "rails_tpu/ops/pallas/mol_scoring.py:724", "K2-int8", k2b["int8"], books),
         entry("fused_mol_scores_t (8x8x32, emit_blockmax)", "mol_scoring_tc.cuh",
               "rails_tpu/ops/pallas/mol_scoring.py:724", "K2-bmax", bmaxb, books),
-        entry("fused_mol_ub_t (8x8x32)", "mol_bounds.cu",
-              "rails_tpu/ops/pallas/mol_scoring.py:427", "K8", boundsb["K8"], books),
-        entry("fused_mol_ub_t (8x8x32, int8 tables)", "mol_bounds.cu",
+        entry("fused_mol_ub_t (8x8x32, mol_bounds_tc_kernel)", "mol_bounds.cu",
+              "rails_tpu/ops/pallas/mol_scoring.py:427", "K8-tc", boundsb["K8"], books),
+        entry("fused_mol_ub_t (8x8x32, int8 tables, mol_bounds_tc_kernel)", "mol_bounds.cu",
               "rails_tpu/ops/pallas/mol_scoring.py:427", "K8-int8", boundsb["K8-int8"], books),
-        entry("fused_mol_group_block_max (8x8x32)", "mol_bounds.cu",
-              "rails_tpu/ops/pallas/mol_scoring.py:346", "K9", boundsb["K9"], books),
-        entry("fused_mol_group_block_max (8x8x32, int8 tables)", "mol_bounds.cu",
-              "rails_tpu/ops/pallas/mol_scoring.py:346", "K9-int8", boundsb["K9-int8"], books),
+        entry("fused_mol_group_block_max (8x8x32, mol_bounds_tc_kernel)", "mol_bounds.cu",
+              "rails_tpu/ops/pallas/mol_scoring.py:346", "K9-tc", boundsb["K9"], books),
+        entry("fused_mol_group_block_max (8x8x32, int8 tables, mol_bounds_tc_kernel)",
+              "mol_bounds.cu", "rails_tpu/ops/pallas/mol_scoring.py:346", "K9-int8",
+              boundsb["K9-int8"], books),
         entry("fused_mol_scores_tiles (8x8x32)", "mol_scoring_tc.cuh",
               "rails_tpu/ops/pallas/mol_scoring.py:875", "K10-tc", boundsb["K10"], books),
-        entry("fused_mol_scores_tiles (8x8x32, int8 tables)", "mol_scoring.cu",
+        entry("fused_mol_scores_tiles (8x8x32, int8 tables, mol_tc_kernel)", "mol_scoring_tc.cuh",
               "rails_tpu/ops/pallas/mol_scoring.py:875", "K10-int8", boundsb["K10-int8"], books),
         entry("fused_mol_loss_forward (bf16, 8x8x32)", "mol_loss_tc.cuh",
               "rails_tpu/ops/pallas/mol_loss_train.py:143", "K5 fwd (bf16)", k5b_fwd, books),

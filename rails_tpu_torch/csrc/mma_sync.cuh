@@ -1,6 +1,6 @@
 // mma.sync and copy primitives shared by the tensor-core kernels: K1's
-// bf16 instances (hstu_block_tc.cuh), K2's (mol_scoring_tc.cuh) and K5's
-// (mol_loss_tc.cuh). bf16 operands in m16n8k16 tiles and TF32 operands in
+// bf16 instances (hstu_block_tc.cuh), K2's and K8/K9's (the logits routine of
+// mol_tc_logits.cuh) and K5's (mol_loss_tc.cuh). bf16 operands in m16n8k16 tiles and TF32 operands in
 // m16n8k8 tiles, both with f32 accumulators, fed from shared memory by
 // ldmatrix (bf16) or plain loads (TF32); global -> shared copies by cp.async.
 #pragma once

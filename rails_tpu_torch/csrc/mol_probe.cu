@@ -40,8 +40,9 @@ cudaError_t launch(int tc, const void* q, const float* qp, const void* items, co
                    float* out, int B, int Xp, int dP, int Hd, float inv_t, cudaStream_t s) {
   if ((tc != 0) != moltc::tc_ok(PQ, PX, dP, Hd)) return cudaErrorInvalidValue;
   if (tc) {
-    return moltc::launch<PX, MODE>(q, qp, items, ip, w1t, b1, w2, b2, nullptr, out, nullptr,
-                                   nullptr, -1, B, Xp, dP, Hd, inv_t, s);
+    return moltc::launch<bf16, PX, MODE>(q, qp, items, ip, nullptr, nullptr, w1t, b1, w2, b2,
+                                         nullptr, out, nullptr, nullptr, -1, B, Xp, dP, Hd,
+                                         inv_t, s);
   }
   const size_t smem = smem_bytes<bf16, PQ, PX>(dP, Hd);
   cudaError_t err = allow_smem(mol_scores_kernel<bf16, PQ, PX, MODE>, smem);
@@ -97,7 +98,7 @@ extern "C" int rails_mol_probe(int tc, int mode, const void* q, const float* qp,
 extern "C" size_t rails_mol_probe_smem_bytes(int tc, int dP, int Hd) {
   if (tc) {
     return rails::moltc::tc_ok(rails::PQ, rails::PX, dP, Hd)
-               ? rails::moltc::smem_bytes(rails::PX, dP, Hd) : 0;
+               ? rails::moltc::smem_bytes(rails::PX, dP, Hd, false) : 0;
   }
   return rails::smem_bytes<rails::bf16, rails::PQ, rails::PX>(dP, Hd);
 }

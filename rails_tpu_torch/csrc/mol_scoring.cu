@@ -29,29 +29,28 @@
 //
 // Two routes, chosen by the wrapper (`tc_route` in ops/mol_scoring.py) and
 // passed as `tc`; there is no fallback between them:
-//   - bf16 tables at P_Q = 8, P_X in {4, 8} (ML-20M, ML-1M, Amazon Books):
-//     the tensor-core kernel of mol_scoring_tc.cuh, whose note gives its
-//     design and its per-pair counts (mma.sync for the logits and both MLP
-//     products; bound by the MUFU results of its SiLUs and exps);
-//   - f32 and int8 tables, and synthetic-small's 4x2x16: the CUDA-core
-//     kernel of mol_scoring.cuh. One block per (32-item corpus tile x
-//     32-query tile); lanes own items and warps own queries, so table reads,
-//     the item gating partial and the (B, X) score stores are coalesced. The
-//     block stages the item tile (and an int8 tile's P_X x 32 component
-//     scales), the tile's L x 32 item gating partials, the qi-MLP weights
-//     (W1^T and W2, H x L each) and one query per warp in shared memory. Per
-//     (query, item) pair a thread keeps its L logits, their MLP-rounded
-//     copies and L qi accumulators in registers and walks the hidden units
-//     one at a time, h_j = silu(b1_j + sum_l W1[l, j] * logit_l), qi_l +=
-//     W2[j, l] * h_j, so the 128-wide hidden layer is never stored. The
-//     gating partials wait in shared memory, not registers: at 8x8 (L = 64)
-//     the three per-pair arrays already take 192 of the thread's 255
-//     registers. Bound: per pair 2 L d_P FMAs for the logits and 2 L H for
-//     the MLP (12k at 8x4x128, 18k at 8x8x32, H = 128) against a few bytes of
-//     table per pair once a tile is staged, so it is bound by the FP32 FMA
-//     rate of the CUDA cores. int8 halves the table bytes and moves no FMA; its
-//     route moves to the tensor cores with K8 and K9, whose bound is its
-//     logits summed in this kernel's order (ROADMAP.md, Queue 2B).
+//   - bf16 and int8 tables at P_Q = 8, P_X in {4, 8} (ML-20M, ML-1M, Amazon
+//     Books): the tensor-core kernel of mol_scoring_tc.cuh, whose note gives
+//     its design and its per-pair counts (mma.sync for the logits, through
+//     the routine K8 and K9 share (mol_tc_logits.cuh), and both MLP products;
+//     bound by the MUFU results of its SiLUs and exps);
+//   - f32 tables and synthetic-small's 4x2x16: the CUDA-core kernel of
+//     mol_scoring.cuh. One block per (32-item corpus tile x 32-query tile);
+//     lanes own items and warps own queries, so table reads, the item gating
+//     partial and the (B, X) score stores are coalesced. The block stages the
+//     item tile (and an int8 tile's P_X x 32 component scales), the tile's
+//     L x 32 item gating partials, the qi-MLP weights (W1^T and W2, H x L
+//     each) and one query per warp in shared memory. Per (query, item) pair a
+//     thread keeps its L logits, their MLP-rounded copies and L qi
+//     accumulators in registers and walks the hidden units one at a time,
+//     h_j = silu(b1_j + sum_l W1[l, j] * logit_l), qi_l += W2[j, l] * h_j, so
+//     the 128-wide hidden layer is never stored. The gating partials wait in
+//     shared memory, not registers: at 8x8 (L = 64) the three per-pair arrays
+//     already take 192 of the thread's 255 registers. Bound: per pair 2 L d_P
+//     FMAs for the logits and 2 L H for the MLP (12k at 8x4x128, 18k at
+//     8x8x32, H = 128) against a few bytes of table per pair once a tile is
+//     staged, so it is bound by the FP32 FMA rate of the CUDA cores. Its int8
+//     instances serve the widths the tensor-core kernel does not take.
 #include <type_traits>
 
 #include "mol_scoring.cuh"
@@ -61,9 +60,9 @@ namespace rails {
 namespace {
 
 // nt < 0: K2 over all Xp columns; nt >= 0: K10 over the nt tiles of tile_ids.
-// tc: the tensor-core kernel (mol_scoring_tc.cuh), which bf16 tables at its
-// geometries (moltc::tc_ok) must take and nothing else may; otherwise the
-// CUDA-core kernel (mol_scoring.cuh). A tc that disagrees is refused.
+// tc: the tensor-core kernel (mol_scoring_tc.cuh), which bf16 and int8 tables
+// at its geometries (moltc::tc_ok) must take and nothing else may; otherwise
+// the CUDA-core kernel (mol_scoring.cuh). A tc that disagrees is refused.
 template <typename S, int PQ, int PX>
 cudaError_t launch(int tc, const void* q, const float* qp, const void* items, const void* ip,
                    const float* cs, const float* ps, const float* w1t, const float* b1,
@@ -78,13 +77,12 @@ cudaError_t launch(int tc, const void* q, const float* qp, const void* items, co
       (blockmax && (nt >= 0 || valid == nullptr))) {
     return cudaErrorInvalidValue;
   }
-  if ((tc != 0) != (std::is_same_v<S, __nv_bfloat16> && moltc::tc_ok(PQ, PX, dP, Hd))) {
-    return cudaErrorInvalidValue;
-  }
+  constexpr bool kTcType = std::is_same_v<S, __nv_bfloat16> || std::is_same_v<S, int8_t>;
+  if ((tc != 0) != (kTcType && moltc::tc_ok(PQ, PX, dP, Hd))) return cudaErrorInvalidValue;
   if (tc) {
-    if constexpr (std::is_same_v<S, __nv_bfloat16> && PQ == moltc::kPQ && PX != 2) {
-      return moltc::launch<PX>(q, qp, items, ip, w1t, b1, w2, b2, valid, out, tile_max,
-                               tile_ids, nt, B, Xp, dP, Hd, inv_t, stream);
+    if constexpr (kTcType && PQ == moltc::kPQ && PX != 2) {
+      return moltc::launch<S, PX>(q, qp, items, ip, cs, ps, w1t, b1, w2, b2, valid, out,
+                                  tile_max, tile_ids, nt, B, Xp, dP, Hd, inv_t, stream);
     }
     return cudaErrorInvalidValue;
   }
@@ -155,8 +153,8 @@ size_t smem_for(int dtype, int dP, int Hd) {
 }  // namespace rails
 
 // tc: 1 for the tensor-core kernel, 0 for the CUDA-core kernel: 1 exactly for
-// bf16 tables at the tensor-core geometries (ops/mol_scoring.py:tc_route),
-// else cudaErrorInvalidValue.
+// bf16 and int8 tables at the tensor-core geometries
+// (ops/mol_scoring.py:tc_route), else cudaErrorInvalidValue.
 // dtype: 0 = float32 (q, items and ip f32), 1 = bfloat16 (all bf16), 2 = int8
 // (items and ip int8 with cs (PX, Xp) and ps (1, Xp) f32 scales; q bf16).
 // q (B, PQ, dP); qp (B, L) f32; items (PX, dP, Xp); ip (L, Xp); w1t (H, L);
@@ -188,7 +186,10 @@ extern "C" int rails_mol_scores_tiles(int tc, int dtype, int pq, int px, const v
 
 extern "C" size_t rails_mol_scores_smem_bytes(int tc, int dtype, int pq, int px, int dP,
                                               int Hd) {
-  if (tc) return rails::moltc::tc_ok(pq, px, dP, Hd) ? rails::moltc::smem_bytes(px, dP, Hd) : 0;
+  if (tc) {
+    return (dtype == 1 || dtype == 2) && rails::moltc::tc_ok(pq, px, dP, Hd)
+               ? rails::moltc::smem_bytes(px, dP, Hd, dtype == 2) : 0;
+  }
   if (pq == 8 && px == 4) return rails::smem_for<8, 4>(dtype, dP, Hd);
   if (pq == 4 && px == 2) return rails::smem_for<4, 2>(dtype, dP, Hd);
   if (pq == 8 && px == 8) return rails::smem_for<8, 8>(dtype, dP, Hd);

@@ -1,7 +1,7 @@
 // K2's CUDA-core scoring kernel, shared by K2 and K10 (mol_scoring.cu, whose
 // note says what it computes, how it is laid out and what bounds it) and by
-// the cost probe P2 (mol_probe.cu), for f32 and int8 tables and the
-// geometries the tensor-core kernel (mol_scoring_tc.cuh) does not take. MODE
+// the cost probe P2 (mol_probe.cu), for f32 tables and the geometries the
+// tensor-core kernel (mol_scoring_tc.cuh) does not take. MODE
 // drops one stage of the chain for the probe; its default, kMolFull, is K2's
 // and K10's kernel.
 #pragma once

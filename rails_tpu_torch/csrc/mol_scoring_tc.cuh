@@ -1,13 +1,19 @@
-// K2's bf16 instances on the H100's tensor cores: the exact MoL corpus scorer
-// (mol_scoring.cu: K2, with and without emit_blockmax, and K10 over a tile
-// list) and the modes of its cost probe P2 (mol_probe.cu), for bf16 tables at
-// P_Q = 8, P_X in {4, 8}, d_P a multiple of 16 (P_X * d_P <= 512) and H a
-// multiple of 16 up to 256: ML-20M's 8x4x128, ML-1M's 8x4x64 and Amazon Books'
-// 8x8x32, H = 128 (`tc_route` in ops/mol_scoring.py states the same rule).
-// f32 tables stay on the CUDA-core kernel of mol_scoring.cuh (a tensor-core
-// f32 product rounds its operands to TF32), and so do int8 tables (K8 and K9
-// bound K2's logits summed in the CUDA-core order) and synthetic-small's
-// 4x2x16 (P_Q = 4 is half an n8 tile, L = 8 half a k16 step).
+// K2's bf16 and int8 instances on the H100's tensor cores: the exact MoL
+// corpus scorer (mol_scoring.cu: K2, with and without emit_blockmax, and K10
+// over a tile list) and the modes of its cost probe P2 (mol_probe.cu, bf16),
+// for bf16 and int8 tables at P_Q = 8, P_X in {4, 8}, d_P a multiple of 16
+// (P_X * d_P <= 512) and H a multiple of 16 up to 256: ML-20M's 8x4x128,
+// ML-1M's 8x4x64 and Amazon Books' 8x8x32, H = 128 (`tc_route` in
+// ops/mol_scoring.py states the same rule). The logits are the routine of
+// mol_tc_logits.cuh, which K8 and K9 (mol_bounds.cu) share, so their bounds
+// are maxima of these logits bit for bit. f32 tables stay on the CUDA-core
+// kernel of mol_scoring.cuh (a tensor-core f32 product rounds its operands to
+// TF32), and so does synthetic-small's 4x2x16 (P_Q = 4 is half an n8 tile,
+// L = 8 half a k16 step).
+// int8 tables: the codes convert exactly to bf16 (Int8Rows, loaded into
+// registers one item block ahead), each raw logit is multiplied by cs[m, x]
+// before 1/T, the gating partial is code * ps[x] in f32, and the MLP rounds
+// to bf16 as with bf16 tables (mol_scoring.cuh orders them the same way).
 //
 // Replaces the body `_kernel` of rails_tpu/ops/pallas/mol_scoring.py
 // (:53-182), which computes with three products on the matrix unit, each with
@@ -44,9 +50,12 @@
 // arguments, which hold bf16 values, so the conversion is exact), and walks
 // item blocks of 32 items (blockIdx.y, + gridDim.y, ...; one CTA per SM, the
 // grid sized to the card), each staged by cp.async into one of two buffers
-// while the other is scored. A warp scores 16 items x 8 queries, two queries
-// at a time:
-//   1. Logits: A = the item tile (16 items x d_P, ldmatrix.trans from the
+// while the other is scored (int8 tables: the codes through registers one
+// block ahead, the scales by cp.async). A warp scores 16 items x 8 queries,
+// two queries at a time:
+//   1. Logits, the routine of mol_tc_logits.cuh (`tile_logits`, then
+//      `scale_logits`: int8 times cs[m, x], then 1/T), which K8 and K9 run
+//      too: A = the item tile (16 items x d_P, ldmatrix.trans from the
 //      table's (d_P, X) rows), B = a query's (d_P x 8 n) components, one n8
 //      tile per item group m. Lane (g, t) of the C fragment holds, for items g
 //      and g + 8, the logits of n = 2t, 2t+1 at every m. Each k16 step's
@@ -75,27 +84,16 @@
 #include <cmath>
 #include <cstdint>
 
-#include "mma_sync.cuh"
 #include "mol_scoring.cuh"
+#include "mol_tc_logits.cuh"
 
 namespace rails {
 namespace {
 namespace moltc {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kPQ = 8;                          // query components: one n8 tile
-constexpr int kThreads = 256, kWarps = kThreads / 32;
-constexpr int kTX = 32;                         // items per item block: two m16 groups
-constexpr int kQB = 32;                         // queries a CTA owns
-constexpr int kLdX = kTX + 8;                   // row stride of staged item rows (bf16)
-constexpr int kTileBlocks = kTileCols / kTX;    // item blocks per 256-column tile
-static_assert(kWarps == 2 * (kQB / 8), "a warp scores 16 items x 8 queries");
-
 // The geometries this kernel takes (ops/mol_scoring.py:tc_route states the same).
 inline bool tc_ok(int pq, int px, int dP, int Hd) {
-  return pq == kPQ && (px == 4 || px == 8) && dP >= 16 && dP % 16 == 0 && px * dP <= 512 &&
-         Hd >= 16 && Hd % 16 == 0 && Hd <= 256;
+  return logits_ok(pq, px, dP) && Hd >= 16 && Hd % 16 == 0 && Hd <= 256;
 }
 
 // Shared memory, byte offsets (every one a multiple of 16).
@@ -103,8 +101,9 @@ template <int PX>
 struct Layout {
   static constexpr int L = kPQ * PX;
   int ldq, ldw1, ldw2;
-  size_t items, q, w1, w2, ip, qp, b1, b2, bytes;
-  __host__ __device__ Layout(int dP, int Hd) : ldq(dP + 8), ldw1(L + 8), ldw2(Hd + 8) {
+  size_t items, q, w1, w2, ip, qp, b1, b2, cs, ps, bytes;
+  __host__ __device__ Layout(int dP, int Hd, bool quant)
+      : ldq(dP + 8), ldw1(L + 8), ldw2(Hd + 8) {
     size_t o = 0;
     items = o; o += 2 * static_cast<size_t>(PX) * dP * kLdX * 2;  // two buffers [PX*dP][kLdX]
     q = o;     o += static_cast<size_t>(kQB) * kPQ * ldq * 2;     // [kQB*8][dP + 8]
@@ -114,6 +113,8 @@ struct Layout {
     qp = o;    o += static_cast<size_t>(kQB) * L * 4;              // [kQB][l] f32
     b1 = o;    o += static_cast<size_t>(Hd) * 4;
     b2 = o;    o += static_cast<size_t>(L) * 4;
+    cs = o;    o += quant ? 2 * static_cast<size_t>(PX) * kTX * 4 : 0;  // two [PX][32] f32
+    ps = o;    o += quant ? 2 * static_cast<size_t>(kTX) * 4 : 0;       // two [32] f32
     bytes = o;
   }
 };
@@ -139,23 +140,20 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-template <int PX, int MODE = kMolFull>
+template <typename S, int PX, int MODE = kMolFull>
 __global__ void __launch_bounds__(kThreads, 1)
 mol_tc_kernel(const bf16* __restrict__ q, const float* __restrict__ qp,
-              const bf16* __restrict__ items, const bf16* __restrict__ ip,
+              const S* __restrict__ items, const S* __restrict__ ip,
+              const float* __restrict__ cs, const float* __restrict__ ps,
               const float* __restrict__ w1t, const float* __restrict__ b1,
               const float* __restrict__ w2, const float* __restrict__ b2,
               const float* __restrict__ valid, float* __restrict__ out,
               float* __restrict__ tile_max, const int* __restrict__ tile_ids, int nib, int B,
               int Xp, int Xo, int dP, int Hd, float inv_t) {
   constexpr int L = kPQ * PX;
+  constexpr bool kQuant = kInt8<S>;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout<PX> lay(dP, Hd);
+  const Layout<PX> lay(dP, Hd, kQuant);
   bf16* its = reinterpret_cast<bf16*>(smem + lay.items);
   bf16* qs = reinterpret_cast<bf16*>(smem + lay.q);
   bf16* w1s = reinterpret_cast<bf16*>(smem + lay.w1);
@@ -164,21 +162,17 @@ mol_tc_kernel(const bf16* __restrict__ q, const float* __restrict__ qp,
   float* qps = reinterpret_cast<float*>(smem + lay.qp);
   float* b1s = reinterpret_cast<float*>(smem + lay.b1);
   float* b2s = reinterpret_cast<float*>(smem + lay.b2);
+  float* css = reinterpret_cast<float*>(smem + lay.cs);
+  float* pss = reinterpret_cast<float*>(smem + lay.ps);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * kQB;
+  const int rows = PX * dP;
 
   // Once per CTA: the query block (zeros past B), its gating partials, the
   // MLP's weights in bf16 on the kappa axis, and the biases.
-  const int qchunks = dP / 8;
-  for (int e = tid; e < kQB * kPQ * qchunks; e += kThreads) {
-    const int r = e / qchunks, c = e % qchunks;  // r = query * 8 + n
-    const int b = q0 + r / kPQ;
-    tc::cp_async16(qs + r * lay.ldq + c * 8,
-                   q + (static_cast<int64_t>(min(b, B - 1)) * kPQ + r % kPQ) * dP + c * 8,
-                   b < B);
-  }
+  stage_queries(q, qs, lay.ldq, q0, B, dP);
   tc::cp_async_commit();
   for (int e = tid; e < Hd * L; e += kThreads) {
     const int j = e / L, k = e % L;
@@ -201,20 +195,37 @@ mol_tc_kernel(const bf16* __restrict__ q, const float* __restrict__ qp,
     return (tile < 0 || tile >= Xp / kTileCols) ? -1
                                                 : tile * kTileCols + (ib % kTileBlocks) * kTX;
   };
-  // The item rows (PX * dP of them) and the gating partials (rows in kappa
-  // order) of the 32 items from corpus column x0, into buffer buf.
+  // What cp.async stages of the 32 items from corpus column x0 into buffer
+  // buf: bf16 tables, the item rows (PX * dP of them) and the gating partials
+  // (rows in kappa order); int8 tables, their scales (the codes go through
+  // `raw`, below).
   auto stage = [&](int x0, int buf) {
-    bf16* dst = its + static_cast<size_t>(buf) * PX * dP * kLdX;
-    for (int e = tid; e < PX * dP * 4; e += kThreads) {
-      const int r = e >> 2, c = e & 3;
-      tc::cp_async16(dst + r * kLdX + c * 8, items + static_cast<int64_t>(r) * Xp + x0 + c * 8,
-                     true);
+    if constexpr (kQuant) {
+      stage_scales_async(cs, css + buf * PX * kTX, PX, Xp, x0);
+      stage_scales_async(ps, pss + buf * kTX, 1, Xp, x0);
+    } else {
+      stage_rows_async(items, its + static_cast<size_t>(buf) * rows * kLdX, rows, Xp, x0);
+      bf16* dip = ips + buf * L * kLdX;
+      for (int e = tid; e < L * 4; e += kThreads) {
+        const int k = e >> 2, c = e & 3;
+        tc::cp_async16(dip + k * kLdX + c * 8,
+                       ip + static_cast<int64_t>(logit_of<PX>(k)) * Xp + x0 + c * 8, true);
+      }
     }
-    bf16* dip = ips + buf * L * kLdX;
-    for (int e = tid; e < L * 4; e += kThreads) {
-      const int k = e >> 2, c = e & 3;
-      tc::cp_async16(dip + k * kLdX + c * 8,
-                     ip + static_cast<int64_t>(logit_of<PX>(k)) * Xp + x0 + c * 8, true);
+  };
+  // int8 tables: the codes of the next block in registers, loaded while the
+  // current block is scored and stored as bf16 after it.
+  Int8Rows raw, raw_ip;
+  auto load_codes = [&](int x0) {
+    if constexpr (kQuant) {
+      raw.load(items, Xp, x0, rows, [](int r) { return r; });
+      raw_ip.load(ip, Xp, x0, L, [](int k) { return logit_of<PX>(k); });
+    }
+  };
+  auto store_codes = [&](int buf) {
+    if constexpr (kQuant) {
+      raw.store(its + static_cast<size_t>(buf) * rows * kLdX, rows);
+      raw_ip.store(ips + buf * L * kLdX, L);
     }
   };
 
@@ -223,12 +234,16 @@ mol_tc_kernel(const bf16* __restrict__ q, const float* __restrict__ qp,
   const int xl = ig * 16 + g;     // block-local items of lane rows g and g + 8: xl, xl + 8
   int ib = blockIdx.y;
   int x0 = ib < nib ? corpus_x0(ib) : -1;
-  if (x0 >= 0) stage(x0, 0);
+  if (x0 >= 0) {
+    stage(x0, 0);
+    load_codes(x0);
+    store_codes(0);
+  }
   tc::cp_async_commit();
+  int x0_next = ib + static_cast<int>(gridDim.y) < nib ? corpus_x0(ib + gridDim.y) : -1;
+  if (x0_next >= 0) load_codes(x0_next);
   for (int i = 0; ib < nib; ++i, ib += gridDim.y) {
     const int buf = i & 1;
-    const int x0_next = ib + static_cast<int>(gridDim.y) < nib
-                            ? corpus_x0(ib + gridDim.y) : -1;
     if (x0_next >= 0) stage(x0_next, buf ^ 1);
     tc::cp_async_commit();
     tc::cp_async_wait<1>();
@@ -240,49 +255,19 @@ mol_tc_kernel(const bf16* __restrict__ q, const float* __restrict__ qp,
         if (b < B) out[static_cast<int64_t>(b) * Xo + xo + e % kTX] = NAN;
       }
     } else {
-      const bf16* it = its + static_cast<size_t>(buf) * PX * dP * kLdX;
+      const bf16* it = its + static_cast<size_t>(buf) * rows * kLdX;
       const bf16* ipb = ips + buf * L * kLdX;
+      const float* csx = css + buf * PX * kTX + xl;
+      const float* psx = pss + buf * kTX + xl;
       for (int pass = 0; pass < 4; ++pass) {
         const int qa = qg * 8 + pass * 2;  // CTA-local queries qa, qa + 1
         if (q0 + qa >= B) break;           // warp-uniform
 
-        // 1. The logits of (items, 2 queries), scaled by 1/T.
+        // 1. The logits of (items, 2 queries): the shared routine, then
+        // (int8) times cs[m, x] and times 1/T.
         float lg[2][PX][4];
-#pragma unroll
-        for (int s = 0; s < 2; ++s)
-#pragma unroll
-          for (int m = 0; m < PX; ++m)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) lg[s][m][e] = 0.f;
-        for (int ks = 0; ks < dP / 16; ++ks) {
-          uint32_t bq[4];
-          tc::ldsm_x4(qs + ((qa + (lane >> 4)) * kPQ + (lane & 7)) * lay.ldq + ks * 16 +
-                          ((lane >> 3) & 1) * 8,
-                      bq);
-#pragma unroll
-          for (int m = 0; m < PX; ++m) {
-            uint32_t a[4];
-            tc::ldsm_x4_t(it + (m * dP + ks * 16 + ((lane >> 4) & 1) * 8 + (lane & 7)) * kLdX +
-                              ig * 16 + ((lane >> 3) & 1) * 8,
-                          a);
-            // Each k16 step's product from zero, added in f32 (round to
-            // nearest): the mma's own accumulation of lg is less accurate.
-            float p0[4] = {0.f, 0.f, 0.f, 0.f}, p1[4] = {0.f, 0.f, 0.f, 0.f};
-            tc::mma_bf16(p0, a, bq[0], bq[1]);
-            tc::mma_bf16(p1, a, bq[2], bq[3]);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              lg[0][m][e] += p0[e];
-              lg[1][m][e] += p1[e];
-            }
-          }
-        }
-#pragma unroll
-        for (int s = 0; s < 2; ++s)
-#pragma unroll
-          for (int m = 0; m < PX; ++m)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) lg[s][m][e] *= inv_t;
+        tile_logits<PX>(it + ig * 16, qs + qa * kPQ * lay.ldq, lay.ldq, dP, lane, lg);
+        scale_logits<kQuant, PX>(lg, csx, inv_t);
 
         float v[2][2];  // [query][row g, row g + 8]
         if constexpr (MODE == kMolNoCombine || MODE == kMolWriteOnly) {
@@ -391,7 +376,8 @@ mol_tc_kernel(const bf16* __restrict__ q, const float* __restrict__ qp,
               for (int e = 0; e < 4; ++e) {
                 const int k = m * kPQ + 2 * t + (e & 1);
                 const int l = logit_of<PX>(k);
-                const float ipv = __bfloat162float(ipb[k * kLdX + xl + (e >> 1) * 8]);
+                float ipv = __bfloat162float(ipb[k * kLdX + xl + (e >> 1) * 8]);
+                if constexpr (kQuant) ipv *= psx[(e >> 1) * 8];   // code * ps[x]
                 const float gi = fmaf(qpb[l], ipv, qi[s][m][e] + b2s[l]);
                 gw[m][e] = MODE == kMolNoSilu ? gi : silu_fast(gi);
                 mx[e >> 1] = fmaxf(mx[e >> 1], gw[m][e]);
@@ -434,8 +420,15 @@ mol_tc_kernel(const bf16* __restrict__ q, const float* __restrict__ qp,
         }
       }
     }
+    // int8: the next block's codes into the free buffer, and the one after
+    // into registers while the next is scored.
+    const int x0_after = ib + 2 * static_cast<int>(gridDim.y) < nib
+                             ? corpus_x0(ib + 2 * gridDim.y) : -1;
+    if (x0_next >= 0) store_codes(buf ^ 1);
+    if (x0_after >= 0) load_codes(x0_after);
     __syncthreads();
     x0 = x0_next;
+    x0_next = x0_after;
   }
   tc::cp_async_wait<0>();
 }
@@ -443,17 +436,20 @@ mol_tc_kernel(const bf16* __restrict__ q, const float* __restrict__ qp,
 // K2 (tile_ids null, nt < 0) over all Xp columns, or K10 over the nt tiles of
 // tile_ids; emit_blockmax when tile_max is set. One CTA per (32-query block,
 // walker): the walkers split the item blocks, and the grid fills the card.
-template <int PX, int MODE = kMolFull>
+// cs and ps: an int8 table's scales (null for bf16).
+template <typename S, int PX, int MODE = kMolFull>
 cudaError_t launch(const void* q, const float* qp, const void* items, const void* ip,
-                   const float* w1t, const float* b1, const float* w2, const float* b2,
-                   const float* valid, float* out, float* tile_max, const int* tile_ids, int nt,
-                   int B, int Xp, int dP, int Hd, float inv_t, cudaStream_t stream) {
+                   const float* cs, const float* ps, const float* w1t, const float* b1,
+                   const float* w2, const float* b2, const float* valid, float* out,
+                   float* tile_max, const int* tile_ids, int nt, int B, int Xp, int dP, int Hd,
+                   float inv_t, cudaStream_t stream) {
   if (!tc_ok(kPQ, PX, dP, Hd) || Xp % kTX != 0) return cudaErrorInvalidValue;
+  if (kInt8<S> && (cs == nullptr || ps == nullptr)) return cudaErrorInvalidValue;
   const int xo = nt < 0 ? Xp : nt * kTileCols;
   if (xo == 0 || B == 0) return cudaSuccess;
   const int nib = xo / kTX;
-  const size_t smem = Layout<PX>(dP, Hd).bytes;
-  auto kernel = mol_tc_kernel<PX, MODE>;
+  const size_t smem = Layout<PX>(dP, Hd, kInt8<S>).bytes;
+  auto kernel = mol_tc_kernel<S, PX, MODE>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   int per_sm = 0;
@@ -462,14 +458,14 @@ cudaError_t launch(const void* q, const float* qp, const void* items, const void
   const int nqb = (B + kQB - 1) / kQB;
   const int walkers = std::max(1, std::min(nib, std::max(1, per_sm) * sm_count() / nqb));
   kernel<<<dim3(nqb, walkers), kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), qp, static_cast<const bf16*>(items),
-      static_cast<const bf16*>(ip), w1t, b1, w2, b2, valid, out, tile_max,
-      nt < 0 ? nullptr : tile_ids, nib, B, Xp, xo, dP, Hd, inv_t);
+      static_cast<const bf16*>(q), qp, static_cast<const S*>(items), static_cast<const S*>(ip),
+      cs, ps, w1t, b1, w2, b2, valid, out, tile_max, nt < 0 ? nullptr : tile_ids, nib, B, Xp,
+      xo, dP, Hd, inv_t);
   return cudaGetLastError();
 }
 
-inline size_t smem_bytes(int px, int dP, int Hd) {
-  return px == 4 ? Layout<4>(dP, Hd).bytes : Layout<8>(dP, Hd).bytes;
+inline size_t smem_bytes(int px, int dP, int Hd, bool quant) {
+  return px == 4 ? Layout<4>(dP, Hd, quant).bytes : Layout<8>(dP, Hd, quant).bytes;
 }
 
 }  // namespace moltc

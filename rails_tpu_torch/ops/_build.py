@@ -138,9 +138,9 @@ def load_library() -> ctypes.CDLL:
     lib.rails_mol_scores_tiles.argtypes = [i] * 4 + [p] * 12 + [i] * 5 + [f, p]
     lib.rails_mol_scores_tiles.restype = i
     for bound_fn in (lib.rails_mol_ub, lib.rails_mol_group_block_max):
-        bound_fn.argtypes = [i, i, i] + [p] * 4 + [i] * 3 + [f, p]
+        bound_fn.argtypes = [i] * 4 + [p] * 4 + [i] * 3 + [f, p]
         bound_fn.restype = i
-    lib.rails_mol_bounds_smem_bytes.argtypes = [i] * 3
+    lib.rails_mol_bounds_smem_bytes.argtypes = [i] * 4
     lib.rails_mol_bounds_smem_bytes.restype = ctypes.c_size_t
     drop1 = [i, i, u32, f]   # use, seed, threshold, scale
     lib.rails_hstu_train_fwd.argtypes = ([i] + [p] * 11 + [i] * 6 + [f] * 3 + [i] * 5 + drop1

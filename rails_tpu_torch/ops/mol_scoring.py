@@ -11,12 +11,13 @@ f32, bf16 and int8 tables:
     out = sum_l softmax_l(gw) * logits
 
 Kernels (`csrc/mol_scoring.cu` launches both; no fallback between them):
-bf16 tables at the geometries of `tc_route` run on the tensor cores
+bf16 and int8 tables at the geometries of `tc_route` run on the tensor cores
 (`csrc/mol_scoring_tc.cuh`: mma.sync for the logits and both products of the
 qi MLP, whose hidden layer never leaves registers; bound by the MUFU results
-of its SiLUs and exps), f32 and int8 tables on the CUDA cores
-(`csrc/mol_scoring.cuh`, one block per (32 items x 32 queries)); each
-source's header says what bounds it on an H100. The logits stay in the
+of its SiLUs and exps), f32 tables and synthetic-small's 4x2x16 on the CUDA
+cores (`csrc/mol_scoring.cuh`, one block per (32 items x 32 queries)); each
+source's header says what bounds it on an H100. The tensor-core logits are
+one routine (`csrc/mol_tc_logits.cuh`) that K8 and K9 share. The logits stay in the
 model's n-major order (the TPU kernel's m-major permutation is a VMEM layout
 choice), so the tables are the model's tables transposed to (P_X, d_P, X)
 and (L, X) and zero-padded to a multiple of `BLOCK_X` = 256 items, the JAX
@@ -41,6 +42,11 @@ The approximate-retrieval kernels read the same tables:
     :222-256): gmax[b, l, t] = max over 256-item tile t of logit_l, rows in
     the port's n-major order (the JAX rows are m-major); `csrc/mol_bounds.cu`.
     Pad columns count as logit 0 in the last tile, as in JAX.
+    K8 and K9 on bf16 and int8 tables at the widths of `bounds_tc_route` run
+    on the tensor cores with K2's logits routine, so where K2 takes its
+    tensor-core route too, K8 is the max of K2's logits and K9's max over l
+    is K8's per-tile max, bit for bit; f32 tables and 4x2x16 run the
+    CUDA-core kernels, whose logits are those of K2's CUDA-core kernel.
   - K10 `fused_mol_scores_tiles` (:766-893): K2 over a list of tile ids (T,)
     int32 read on the device; output column s*256 + j is corpus column
     tile_ids[s]*256 + j. The kernel is K2's code with one indirection on the
@@ -49,8 +55,8 @@ The approximate-retrieval kernels read the same tables:
 Every wrapper follows the port's dispatch rule: CPU tensors run its
 `*_reference` plain version, CUDA tensors launch the kernel or raise. Each
 counts its kernel launches in `.launches`, and the int8 (and K2's blockmax)
-launches among them in `.int8_launches` (`.blockmax_launches`); K2 and K10
-count their tensor-core launches in `.tc_launches`. The plain
+launches among them in `.int8_launches` (`.blockmax_launches`); K2, K8, K9
+and K10 count their tensor-core launches in `.tc_launches`. The plain
 versions walk the corpus in column chunks, so they stay within memory at a
 million columns.
 """
@@ -283,22 +289,35 @@ def _check_groups(name: str, p_q: int, p_x: int) -> None:
         )
 
 
+def bounds_tc_route(dtype: torch.dtype, p_q: int, p_x: int, d_p: int) -> bool:
+    """The width rule of the tensor-core logits routine
+    (`csrc/mol_tc_logits.cuh`, `logits_ok`), which K8 and K9 take
+    (`mol_bounds_tc_kernel` in csrc/mol_bounds.cu): bf16 and int8 tables
+    (int8 codes convert exactly to bf16), P_Q = 8 (a query's components are
+    one n8 tile of the logits' product), P_X 4 or 8, d_P a multiple of 16
+    (whole k16 steps) with P_X * d_P <= 512 (the staged item tiles and the
+    queries fit shared memory). ML-20M's 8x4x128, ML-1M's 8x4x64 and Amazon
+    Books' 8x8x32 take it. f32 tables stay on the CUDA-core kernels: K2's f32
+    logits are CUDA-core f32 sums, and a tensor-core f32 product rounds its
+    operands to TF32. synthetic-small's 4x2x16 stays as well (P_Q = 4 fills
+    half an n8 tile)."""
+    return (dtype in (torch.bfloat16, torch.int8) and p_q == 8 and p_x in (4, 8)
+            and d_p >= 16 and d_p % 16 == 0 and p_x * d_p <= 512)
+
+
 def tc_route(dtype: torch.dtype, p_q: int, p_x: int, d_p: int, hd: int) -> bool:
     """The width rule of K2's tensor-core kernel (`tc_ok` in
-    csrc/mol_scoring_tc.cuh), which K10 and the probe P2 share: bf16 tables,
-    P_Q = 8 (a query's components are one n8 tile of the logits' product),
-    P_X 4 or 8 (L = 32 or 64 logits, whole k16 steps of the qi MLP), d_P a
-    multiple of 16 with P_X * d_P <= 512 and H a multiple of 16 up to 256
-    (whole k16 and n8 steps; the staged item tiles, queries and weights fit
-    shared memory). ML-20M's 8x4x128, ML-1M's 8x4x64 and Amazon Books' 8x8x32
-    at H = 128 take it. f32 tables stay on the CUDA-core kernel: a
-    tensor-core f32 product rounds its operands to TF32, and K2_TOL_F32 holds
-    the kernel to the plain f32 path. int8 tables stay there until K8 and K9
-    move too: they bound K2's logits summed in the CUDA-core kernel's order.
-    synthetic-small's 4x2x16 stays as well (P_Q = 4 fills half an n8 tile,
-    L = 8 half a k16 step)."""
-    return (dtype == torch.bfloat16 and p_q == 8 and p_x in (4, 8) and d_p >= 16
-            and d_p % 16 == 0 and p_x * d_p <= 512 and 16 <= hd <= 256 and hd % 16 == 0)
+    csrc/mol_scoring_tc.cuh), which K10 and the probe P2 share:
+    `bounds_tc_route`'s tables and widths, whose logits routine it runs (so
+    K8's and K9's bounds are maxima of its logits bit for bit), and H a
+    multiple of 16 up to 256 (whole k16 and n8 steps of the qi MLP; the
+    staged weights fit shared memory). ML-20M's 8x4x128, ML-1M's 8x4x64 and
+    Amazon Books' 8x8x32 at H = 128 take it, with bf16 or int8 tables. f32
+    tables stay on the CUDA-core kernel: K2_TOL_F32 holds it to the plain f32
+    path. Where H alone keeps K2 off the tensor cores, K8 and K9 still take
+    them, and K8 bounds K2's scores within the certificate's margin
+    (`index/top_k.py`, `_CERT_REL_MARGIN`) rather than bit for bit."""
+    return bounds_tc_route(dtype, p_q, p_x, d_p) and 16 <= hd <= 256 and hd % 16 == 0
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -554,8 +573,9 @@ def fused_mol_group_block_max_reference(
 
 
 def _launch_bounds(name: str, entry: str, q_comp: torch.Tensor, item_comp_t: torch.Tensor,
-                   comp_scale, temperature: float, out_shape: tuple) -> torch.Tensor:
-    """Validate and launch K8 or K9 on CUDA tensors."""
+                   comp_scale, temperature: float, out_shape: tuple):
+    """Validate and launch K8 or K9 on CUDA tensors. Returns (the output; 1 if
+    the tensor-core kernel ran, else 0)."""
     b, p_q, d_p = q_comp.shape
     p_x, _, x = item_comp_t.shape
     _check_groups(name, p_q, p_x)
@@ -568,19 +588,20 @@ def _launch_bounds(name: str, entry: str, q_comp: torch.Tensor, item_comp_t: tor
         )
     if not (q_comp.is_contiguous() and item_comp_t.is_contiguous()):
         raise ValueError(f"{name}: q_comp and item_comp_t must be contiguous")
+    tc = int(bounds_tc_route(item_comp_t.dtype, p_q, p_x, d_p))
     lib = _build.load_library()
-    smem = lib.rails_mol_bounds_smem_bytes(p_q, p_x, d_p)
+    smem = lib.rails_mol_bounds_smem_bytes(tc, p_q, p_x, d_p)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"{name}: d_P={d_p} needs {smem} B of shared memory")
     out = torch.empty(out_shape, dtype=torch.float32, device=q_comp.device)
     with torch.cuda.device(q_comp.device):
         err = getattr(lib, entry)(
-            code, p_q, p_x, q_comp.data_ptr(), item_comp_t.data_ptr(),
+            tc, code, p_q, p_x, q_comp.data_ptr(), item_comp_t.data_ptr(),
             _ptr(comp_scale if quant else None), out.data_ptr(), b, x, d_p, 1.0 / temperature,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, err, name)
-    return out
+    return out, tc
 
 
 def fused_mol_ub_t(
@@ -599,15 +620,17 @@ def fused_mol_ub_t(
     b, x = q_comp.shape[0], item_comp_t.shape[2]
     if b == 0:
         return torch.empty(0, x, dtype=torch.float32, device=q_comp.device)
-    out = _launch_bounds("fused_mol_ub_t", "rails_mol_ub", q_comp, item_comp_t, comp_scale,
-                         temperature, (b, x))
+    out, tc = _launch_bounds("fused_mol_ub_t", "rails_mol_ub", q_comp, item_comp_t, comp_scale,
+                             temperature, (b, x))
     fused_mol_ub_t.launches += 1
     fused_mol_ub_t.int8_launches += quant
+    fused_mol_ub_t.tc_launches += tc
     return out
 
 
 fused_mol_ub_t.launches = 0
 fused_mol_ub_t.int8_launches = 0
+fused_mol_ub_t.tc_launches = 0
 
 
 def fused_mol_group_block_max(
@@ -628,12 +651,15 @@ def fused_mol_group_block_max(
     if b == 0:
         return torch.empty(0, p_q * p_x, x // BLOCK_X, dtype=torch.float32,
                            device=q_comp.device)
-    out = _launch_bounds("fused_mol_group_block_max", "rails_mol_group_block_max", q_comp,
-                         item_comp_t, comp_scale, temperature, (b, p_q * p_x, x // BLOCK_X))
+    out, tc = _launch_bounds("fused_mol_group_block_max", "rails_mol_group_block_max", q_comp,
+                             item_comp_t, comp_scale, temperature,
+                             (b, p_q * p_x, x // BLOCK_X))
     fused_mol_group_block_max.launches += 1
     fused_mol_group_block_max.int8_launches += quant
+    fused_mol_group_block_max.tc_launches += tc
     return out
 
 
 fused_mol_group_block_max.launches = 0
 fused_mol_group_block_max.int8_launches = 0
+fused_mol_group_block_max.tc_launches = 0

@@ -287,27 +287,86 @@ BOUND_SHAPES = [(7, 100, 4, 2, 16), (33, 256, 8, 4, 128), (40, 1000, 8, 4, 64), 
 BOUND_IDS = ["synthetic_small", "one_tile_ml20m", "odd", "one_query", "one_tile_books", "books"]
 
 
+def _bounds_hold(ub, gmax, k2, rel=2.0**-20):
+    """K8 + rel * |K8| >= K2 on every pair (K8's logits are K2's: only the
+    mixture's f32 rounding is left), and K9's max over l equal to K8's
+    per-tile max bit for bit."""
+    assert bool((ub + rel * ub.abs() >= k2).all())
+    b, x = ub.shape
+    assert torch.equal(gmax.amax(dim=1), ub.reshape(b, x // 256, 256).amax(dim=2))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape", BOUND_SHAPES, ids=BOUND_IDS)
 def test_k8_k9_match_plain(cuda, shape, dtype):
     """K8 and K9 against their plain versions at B not a multiple of 32 and a
-    corpus of one tile; both bound K2's scores (K8's logits are K2's)."""
+    corpus of one tile, each on the route `bounds_tc_route` names
+    (`.tc_launches`); K8 bounds K2's scores (K8's logits are K2's) and K9's
+    max over l is K8's per-tile max."""
     b, x, p_q, p_x, d_p = shape
     args, _ = _k2_args(b, x, p_q, p_x, d_p, 32, dtype, cuda)
     q, items = args[0], args[2]
+    tc = int(mol_scoring.bounds_tc_route(dtype, p_q, p_x, d_p))
     for fn, ref in ((mol_scoring.fused_mol_ub_t, mol_scoring.fused_mol_ub_t_reference),
                     (mol_scoring.fused_mol_group_block_max,
                      mol_scoring.fused_mol_group_block_max_reference)):
-        before = fn.launches
+        before = _counts(fn)
         got = fn(q, items, 0.05)
-        assert fn.launches == before + 1
+        assert _counts(fn) == (before[0] + 1, before[1] + tc)
         torch.testing.assert_close(got, ref(q, items, 0.05), rtol=1e-4, atol=1e-3)
     scores = mol_scoring.fused_mol_scores_t(*args)
     ub = mol_scoring.fused_mol_ub_t(q, items, 0.05)
-    gmax = mol_scoring.fused_mol_group_block_max(q, items, 0.05).amax(dim=1)
-    tile_of = torch.arange(items.shape[2], device=cuda) // 256
-    assert bool((ub + 2.0**-20 * ub.abs() >= scores).all())
-    assert bool((gmax[:, tile_of] >= ub).all())
+    _bounds_hold(ub, mol_scoring.fused_mol_group_block_max(q, items, 0.05), scores)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("geom", [(8, 4, 128), (8, 8, 32)], ids=["ml20m", "books"])
+def test_k8_bounds_k2_bit_for_bit_over_seeds(cuda, geom, kind):
+    """Seeds 1-8, B=37 over three tiles, H=128: K2 and K8 both on the tensor
+    cores, so K8 is the max of K2's logits and bounds K2's scores within
+    the mixture's f32 rounding (2^-20); K9's max over l is K8's per tile."""
+    assert mol_scoring.tc_route(torch.bfloat16, *geom, 128)
+    for seed in range(1, 9):
+        if kind == "int8":
+            q, qp, ft, w, t, _ = _int8_args(37, 700, *geom, 128, cuda, seed=seed)
+            args = (q, qp, ft.item_comp_t, ft.item_partial_t, w, t, ft.comp_scale,
+                    ft.partial_scale)
+            cs = ft.comp_scale
+        else:
+            args, _ = _k2_args(37, 700, *geom, 128, torch.bfloat16, cuda, seed=seed)
+            cs = None
+        q, items, t = args[0], args[2], args[5]
+        _bounds_hold(mol_scoring.fused_mol_ub_t(q, items, t, cs),
+                     mol_scoring.fused_mol_group_block_max(q, items, t, cs),
+                     mol_scoring.fused_mol_scores_t(*args))
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_k8_bounds_k2_off_its_tensor_cores_within_the_certificate_margin(cuda, kind):
+    """H = 24 keeps K2 on the CUDA cores (not whole n8 steps of its MLP)
+    while K8 takes the tensor cores: K8's logits are then not K2's, and K8
+    bounds K2's scores within the certificate's margin (`_CERT_REL_MARGIN`)."""
+    from rails_tpu_torch.index.top_k import _CERT_REL_MARGIN
+
+    geom, hd = (8, 4, 128), 24
+    dtype = torch.int8 if kind == "int8" else torch.bfloat16
+    assert mol_scoring.bounds_tc_route(dtype, *geom)
+    assert not mol_scoring.tc_route(dtype, *geom, hd)
+    if kind == "int8":
+        q, qp, ft, w, t, _ = _int8_args(37, 700, *geom, hd, cuda, seed=3)
+        args = (q, qp, ft.item_comp_t, ft.item_partial_t, w, t, ft.comp_scale, ft.partial_scale)
+        cs = ft.comp_scale
+    else:
+        args, _ = _k2_args(37, 700, *geom, hd, dtype, cuda, seed=3)
+        cs = None
+    k2_before = _counts(mol_scoring.fused_mol_scores_t)
+    k2 = mol_scoring.fused_mol_scores_t(*args)
+    assert _counts(mol_scoring.fused_mol_scores_t) == (k2_before[0] + 1, k2_before[1])
+    ub_before = _counts(mol_scoring.fused_mol_ub_t)
+    ub = mol_scoring.fused_mol_ub_t(args[0], args[2], args[5], cs)
+    assert _counts(mol_scoring.fused_mol_ub_t) == (ub_before[0] + 1, ub_before[1] + 1)
+    rel = _CERT_REL_MARGIN[dtype]
+    assert bool((ub + rel * torch.maximum(ub.abs(), k2.abs()) >= k2).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -365,10 +424,11 @@ INT8_SHAPES = [(7, 256, 4, 2, 16, 32), (33, 768, 8, 4, 128, 128), (40, 700, 8, 4
                (33, 256, 8, 8, 32, 128), (40, 700, 8, 8, 32, 128)]
 
 
-def _launched(fn, call):
-    before = (fn.launches, fn.int8_launches)
+def _launched(fn, call, tc=1):
+    before = (fn.launches, fn.int8_launches, fn.tc_launches)
     out = call()
-    assert (fn.launches, fn.int8_launches) == (before[0] + 1, before[1] + 1)
+    assert (fn.launches, fn.int8_launches, fn.tc_launches) == (before[0] + 1, before[1] + 1,
+                                                               before[2] + tc)
     return out
 
 
@@ -376,19 +436,25 @@ def _launched(fn, call):
                                                     "one_tile_books", "books_odd"])
 def test_int8_kernels_match_plain(cuda, shape):
     """K2, K10, K8 and K9 on int8 tables against their plain versions, at B
-    not a multiple of 32 and corpora of one and three tiles: K2 and K10 by
-    K2's bf16 contract, K8 and K9 to 1e-5 of their largest value; K10's
-    columns are K2's bit for bit; K8 bounds K2 and K9 bounds K8."""
+    not a multiple of 32 and corpora of one and three tiles, each on its
+    route (`tc_route`, `bounds_tc_route`: the tensor cores but at 4x2x16):
+    K2 and K10 by K2's bf16 contract, K8 and K9 to 1e-5 of their largest
+    value; K10's columns are K2's bit for bit; K8 bounds K2 within 2^-20 and
+    K9's max over l is K8's per-tile max bit for bit."""
     q, qp, ft, w, t, x = _int8_args(*shape, cuda)
+    b, p_q, p_x, d_p, hd = shape[0], *shape[2:]
+    tc, tc_bounds = (int(mol_scoring.tc_route(torch.int8, p_q, p_x, d_p, hd)),
+                     int(mol_scoring.bounds_tc_route(torch.int8, p_q, p_x, d_p)))
     a8 = (q, qp, ft.item_comp_t, ft.item_partial_t, w, t, ft.comp_scale, ft.partial_scale)
-    k2 = _launched(mol_scoring.fused_mol_scores_t, lambda: mol_scoring.fused_mol_scores_t(*a8))
+    k2 = _launched(mol_scoring.fused_mol_scores_t, lambda: mol_scoring.fused_mol_scores_t(*a8),
+                   tc)
     want = mol_scoring.fused_mol_scores_t_reference(*a8)
     assert (k2[:, :x].argmax(dim=1) == want[:, :x].argmax(dim=1)).float().mean().item() >= 0.99
     torch.testing.assert_close(k2, want, rtol=2e-2, atol=2e-2)
     nb = ft.item_comp_t.shape[2] // 256
     tiles = torch.tensor([nb - 1, 0, nb - 1], dtype=torch.int32, device=cuda)
     k10 = _launched(mol_scoring.fused_mol_scores_tiles, lambda: mol_scoring.fused_mol_scores_tiles(
-        q, qp, tiles, *a8[2:]))
+        q, qp, tiles, *a8[2:]), tc)
     cols = (tiles.long()[:, None] * 256 + torch.arange(256, device=cuda)).reshape(-1)
     assert torch.equal(k10, k2[:, cols])
     torch.testing.assert_close(
@@ -397,13 +463,11 @@ def test_int8_kernels_match_plain(cuda, shape):
     for fn, ref in ((mol_scoring.fused_mol_ub_t, mol_scoring.fused_mol_ub_t_reference),
                     (mol_scoring.fused_mol_group_block_max,
                      mol_scoring.fused_mol_group_block_max_reference)):
-        got = _launched(fn, lambda: fn(q, ft.item_comp_t, t, ft.comp_scale))
+        got = _launched(fn, lambda: fn(q, ft.item_comp_t, t, ft.comp_scale), tc_bounds)
         plain = ref(q, ft.item_comp_t, t, ft.comp_scale)
         assert ((got - plain).abs().max() / plain.abs().max()).item() <= 1e-5
-    ub = mol_scoring.fused_mol_ub_t(q, ft.item_comp_t, t, ft.comp_scale)
-    gmax = mol_scoring.fused_mol_group_block_max(q, ft.item_comp_t, t, ft.comp_scale).amax(dim=1)
-    assert bool((ub + 2.0**-20 * ub.abs() >= k2).all())
-    assert bool((gmax[:, torch.arange(ub.shape[1], device=cuda) // 256] >= ub).all())
+    _bounds_hold(mol_scoring.fused_mol_ub_t(q, ft.item_comp_t, t, ft.comp_scale),
+                 mol_scoring.fused_mol_group_block_max(q, ft.item_comp_t, t, ft.comp_scale), k2)
 
 
 @pytest.mark.parametrize("geom", [(8, 4, 128), (8, 8, 32)], ids=["ml20m", "books"])
@@ -490,14 +554,18 @@ def test_k2_tensor_core_route_matches_plain(cuda, geom, shape):
 
 @pytest.mark.parametrize("kind", ["f32", "int8"])
 def test_k2_f32_and_int8_tables_stay_on_the_cuda_cores(cuda, kind):
-    """f32 and int8 tables at ML-20M's geometry launch the CUDA-core kernel:
-    `.launches` advances, `.tc_launches` does not."""
+    """f32 tables at ML-20M's geometry and int8 tables at synthetic-small's
+    4x2x16 launch the CUDA-core kernel: `.launches` advances, `.tc_launches`
+    does not (int8 tables at the registry's other widths take the tensor
+    cores: test_int8_kernels_match_plain)."""
     if kind == "int8":
-        q, qp, ft, w, t, _ = _int8_args(33, 300, 8, 4, 128, 128, cuda)
+        geom = (4, 2, 16, 32)
+        q, qp, ft, w, t, _ = _int8_args(33, 300, *geom, cuda)
         args = (q, qp, ft.item_comp_t, ft.item_partial_t, w, t, ft.comp_scale, ft.partial_scale)
     else:
-        args, _ = _k2_args(33, 300, 8, 4, 128, 128, torch.float32, cuda)
-    assert not mol_scoring.tc_route(args[2].dtype, 8, 4, 128, 128)
+        geom = (8, 4, 128, 128)
+        args, _ = _k2_args(33, 300, *geom, torch.float32, cuda)
+    assert not mol_scoring.tc_route(args[2].dtype, *geom)
     tiles = torch.zeros(2, dtype=torch.int32, device=cuda)
     for fn, call in ((mol_scoring.fused_mol_scores_t, lambda: mol_scoring.fused_mol_scores_t(
                          *args)),
@@ -509,28 +577,43 @@ def test_k2_f32_and_int8_tables_stay_on_the_cuda_cores(cuda, kind):
         assert _counts(fn) == (before[0] + 1, before[1])
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8],
+                         ids=["bf16", "f32", "int8"])
 def test_k2_library_refuses_a_route_against_the_width_rule(cuda, dtype):
     """The library takes the tensor-core route exactly where `tc_route` does:
-    bf16 tables at its widths sent to the CUDA-core kernel, f32 ones sent to
-    the tensor cores, and the probe's bf16 operands sent to the CUDA-core
-    kernel are refused (cudaErrorInvalidValue) and write nothing."""
+    bf16 and int8 tables at its widths sent to the CUDA-core kernel, f32 ones
+    sent to the tensor cores, and the probe's bf16 operands sent to the
+    CUDA-core kernel are refused (cudaErrorInvalidValue) and write nothing."""
     from rails_tpu_torch.ops import _build
 
-    args, _ = _k2_args(33, 256, 8, 4, 128, 128, dtype, cuda)
-    q, qp, items, ip, w, t = args
+    scales = (None, None)
+    if dtype == torch.int8:
+        q, qp, ft, w, t, _ = _int8_args(33, 256, 8, 4, 128, 128, cuda)
+        items, ip = ft.item_comp_t, ft.item_partial_t
+        scales = (ft.comp_scale.data_ptr(), ft.partial_scale.data_ptr())
+    else:
+        args, _ = _k2_args(33, 256, 8, 4, 128, 128, dtype, cuda)
+        q, qp, items, ip, w, t = args
     wrong = 1 - int(mol_scoring.tc_route(dtype, 8, 4, 128, 128))
     lib = _build.load_library()
     w1t, w2 = w.w1.float().T.contiguous(), w.w2.float().contiguous()
     stream = torch.cuda.current_stream().cuda_stream
     out = torch.full((33, items.shape[2]), 7.0, device=cuda)
     weights = (w1t.data_ptr(), w.b1.data_ptr(), w2.data_ptr(), w.b2.data_ptr())
+    code = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}[dtype]
     err = lib.rails_mol_scores(
-        wrong, int(dtype == torch.bfloat16), 8, 4, q.data_ptr(), qp.data_ptr(),
-        items.data_ptr(), ip.data_ptr(), None, None, *weights, None, out.data_ptr(), None, 33,
-        items.shape[2], 128, 128, 1.0 / t, stream)
+        wrong, code, 8, 4, q.data_ptr(), qp.data_ptr(), items.data_ptr(), ip.data_ptr(),
+        *scales, *weights, None, out.data_ptr(), None, 33, items.shape[2], 128, 128, 1.0 / t,
+        stream)
     torch.cuda.synchronize()
     assert err == 1 and bool((out == 7.0).all())
+    ub = torch.full((33, items.shape[2]), 7.0, device=cuda)
+    wrong_bounds = 1 - int(mol_scoring.bounds_tc_route(dtype, 8, 4, 128))
+    for entry in (lib.rails_mol_ub, lib.rails_mol_group_block_max):
+        err = entry(wrong_bounds, code, 8, 4, q.data_ptr(), items.data_ptr(), scales[0],
+                    ub.data_ptr(), 33, items.shape[2], 128, 1.0 / t, stream)
+        torch.cuda.synchronize()
+        assert err == 1 and bool((ub == 7.0).all())
     if dtype == torch.bfloat16:
         err = lib.rails_mol_probe(wrong, 0, q.data_ptr(), qp.data_ptr(), items.data_ptr(),
                                   ip.data_ptr(), *weights, out.data_ptr(), 33, items.shape[2],

@@ -22,7 +22,8 @@ from rails_tpu_torch.core.config import get_experiment_config
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = ("chip_smoke.py", "profile_serving.py", "profile_train.py", "profile_k4_bwd.py",
            "profile_k1.py", "profile_k1_agreement.py", "profile_k2.py",
-           "profile_p2_agreement.py", "profile_books.py", "profile_k5.py")
+           "profile_p2_agreement.py", "profile_books.py", "profile_k5.py",
+           "profile_bounds.py")
 
 
 def test_port_imports_no_jax():

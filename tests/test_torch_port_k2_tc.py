@@ -21,7 +21,7 @@ from rails_tpu_torch.ops import mol_scoring
 from tests.test_torch_port_kernels import _k2_operands
 
 # The MoL geometries (P_Q, P_X, d_P, H) of the registry and whether K2's bf16
-# tables take the tensor cores there. A new geometry must be added here.
+# and int8 tables take the tensor cores there. A new geometry must be added here.
 REGISTRY_ROUTES = {
     (8, 4, 128, 128): True,    # ml-20m-*
     (8, 4, 64, 128): True,     # ml-1m-*
@@ -43,12 +43,14 @@ def _mol_geometry(cfg):
 @pytest.mark.parametrize("name", [n for n in list_experiment_configs()
                                   if get_experiment_config(n).similarity_type == "MoL"])
 def test_tc_route_of_every_registry_mol_config(name):
-    """bf16 tables at the published geometries take the tensor cores; f32
-    and int8 tables never do."""
+    """bf16 and int8 tables at the published geometries take the tensor
+    cores (int8 codes convert exactly to bf16, and K8 and K9 share the
+    logits routine); f32 and fp16 tables never do."""
     geom = _mol_geometry(get_experiment_config(name))
     assert geom in REGISTRY_ROUTES, f"{name}: new MoL geometry {geom}"
-    assert mol_scoring.tc_route(torch.bfloat16, *geom) is REGISTRY_ROUTES[geom]
-    for dtype in (torch.float32, torch.int8, torch.float16):
+    for dtype in (torch.bfloat16, torch.int8):
+        assert mol_scoring.tc_route(dtype, *geom) is REGISTRY_ROUTES[geom]
+    for dtype in (torch.float32, torch.float16):
         assert mol_scoring.tc_route(dtype, *geom) is False
 
 
