@@ -11,8 +11,9 @@ Phases (one line each, any failure raises and exits non-zero):
      (with their TRAIN instances, K4's bf16 forward), of K4's bf16 backward
      kernels (`tc_bwd_rows_kernel`, `tc_bwd_dq_kernel`, `tc_bwd_dkv_kernel`)
      and of every instance of K2's, K8/K9's and K5's tensor-core kernels
-     (`mol_tc_kernel`, `mol_bounds_tc_kernel`, `mol_loss_tc_kernel`) in the
-     library's SASS (`cuobjdump -sass`), none may have zero.
+     (`mol_tc_kernel`, `mol_bounds_tc_kernel`, `mol_loss_tc_kernel`) and of
+     K4's f32 route (`tc_tf32_*`, TF32 HMMA) in the library's SASS
+     (`cuobjdump -sass`), none may have zero.
   3. K1 (`fused_hstu_block`) vs its plain version at ML-20M block shapes,
      with each stage's device time and the instruction it multiplies with;
      its three bf16 stages (`project`, `attention_oinput` pointwise and
@@ -38,9 +39,12 @@ Phases (one line each, any failure raises and exits non-zero):
      (f32: the plain autograd version; bf16: the block's glue over the plain
      forward and attention backward), and the attention backward alone; the
      route of each direction (bf16: the tensor cores) with each stage's
-     device us. K4-stage: the bf16 route's four kernels (the TRAIN attention,
-     the backward's rows, dq and dkv stages) each vs its plain stage version,
-     two calls bit-equal.
+     device us; f32 on the tensor cores by 3xTF32 in both directions, its
+     bounds at 3xTF32's 165 TFLOP/s with the CUDA cores' 67 beside them.
+     K4-stage: the bf16 route's four kernels (the TRAIN attention, the
+     backward's rows, dq and dkv stages) and the f32 route's six stages
+     (projection, attention, output GEMM, rows, dq, dkv) each vs its plain
+     stage version, two calls bit-equal.
   8. K7 (`adamw_update_leaves`) on the two fused leaves of ml-20m in one
      launch, vs its plain version, with `torch._fused_adamw_` timed as a
      yardstick and the call's device operations under torch.profiler.
@@ -195,6 +199,12 @@ K4_TOL = (1e-3, 1e-4)          # (rtol, atol) of the f32 forward, as K1
 # paths sum in other f32 orders (and index_add_ bins d tsw with atomics).
 GRAD_REL_TOL = 1e-3
 TRAIN_LOSS_RTOL = 1e-4
+# Each stage of K4's f32 route (3xTF32) against its plain version alone:
+# max |kernel - plain| over max |plain| per output. Measured 0.9-3.2e-6 on an
+# H100 (the sums run in other f32 orders); the same kernels with the lo terms
+# dropped (1xTF32, `profile_k4_f32.py --variant 1xtf32`) reach 6.2e-4 to
+# 2.3e-3 in every TF32 stage, which GRAD_REL_TOL = 1e-3 would partly pass.
+K4_TF32_STAGE_TOL = 2e-5
 # bf16 K4 against its plain version: the forward and each gradient within
 # this share of its largest value (both round to bf16 at the same points and
 # sum in other f32 orders), as the CPU test holds the plain version to JAX.
@@ -222,7 +232,15 @@ TC_KERNELS = ("tc_proj_kernel", "tc_attn_kernel", "tc_softmax_kernel", "tc_out_k
 K4_TC_KERNELS = ("tc_bwd_rows_kernel", "tc_bwd_dq_kernel", "tc_bwd_dkv_kernel")
 # Their launch counters: the train attention stage and the backward's three.
 K4_STAGES = ("K4 attn", "K4 bwd rows", "K4 bwd dq", "K4 bwd dkv")
+# K4's f32 route on the tensor cores, 3xTF32 (csrc/hstu_train_tf32.cuh), and
+# the launch counters of its six stages (the backward's rows stage is
+# attn_row_bwd_kernel of csrc/hstu_train.cuh).
+K4_TF32_KERNELS = ("tc_tf32_proj_kernel", "tc_tf32_attn_kernel", "tc_tf32_out_kernel",
+                   "tc_tf32_dq_kernel", "tc_tf32_dkv_kernel")
+K4_TF32_STAGES = ("K4 f32 proj", "K4 f32 attn", "K4 f32 out", "K4 f32 bwd rows",
+                  "K4 f32 bwd dq", "K4 f32 bwd dkv")
 TC_INSTRUCTION = "mma.sync.m16n8k16 bf16 (HMMA)"
+TF32_INSTRUCTION = "mma.sync.m16n8k8 3xTF32 (HMMA)"
 K1_STAGES = ("K1 proj", "K1 attn", "K1 out")   # their launch counters
 K2_TOL_F32 = (1e-4, 1e-3)      # logits carry 1/T = 20
 # (dtype name, min rank agreement, min top-120 overlap) of the serving step's
@@ -312,7 +330,9 @@ def ptxas_summary(log: str) -> str:
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             mangled = entry.group(1)
-            name = re.search(r"(tc_proj_kernel|tc_attn_kernel|tc_softmax_kernel|tc_out_kernel|"
+            name = re.search(r"(tc_tf32_proj_kernel|tc_tf32_attn_kernel|tc_tf32_out_kernel|"
+                             r"tc_tf32_dq_kernel|tc_tf32_dkv_kernel|"
+                             r"tc_proj_kernel|tc_attn_kernel|tc_softmax_kernel|tc_out_kernel|"
                              r"tc_bwd_rows_kernel|tc_bwd_dq_kernel|tc_bwd_dkv_kernel|"
                              r"ln_gemm_kernel|hstu_attn_bwd_kernel|hstu_attn_kernel|"
                              r"softmax_bwd_rows_kernel|softmax_bwd_cols_kernel|"
@@ -324,7 +344,7 @@ def ptxas_summary(log: str) -> str:
                              r"mol_group_block_max_kernel)", mangled)
             # An int8 instance's first template argument is `signed char` ("Ia");
             # its bf16 query type puts "bfloat16" in the name too.
-            tc = bool(name) and name.group(1).startswith("tc_")
+            tc = bool(name) and name.group(1).startswith("tc_") and "tf32" not in name.group(1)
             dtype = ("int8" if re.search(r"kernelIaL", mangled) else
                      "bf16" if "bfloat16" in mangled or tc else "f32")
             args = [dtype] + re.findall(r"L[ib](\d+)E", mangled)
@@ -342,8 +362,9 @@ def ptxas_summary(log: str) -> str:
 
 def tensor_core_sass(lib_path) -> dict:
     """HMMA and HGMMA instruction counts of each instance of the tensor-core
-    kernels (K1's bf16 kernels with their TRAIN instances, K4's backward
-    kernels, K2's `mol_tc_kernel` and K8/K9's `mol_bounds_tc_kernel`) in the
+    kernels (K1's bf16 kernels with their TRAIN instances, K4's bf16 backward
+    kernels and its f32 route's 3xTF32 kernels, K2's `mol_tc_kernel` and
+    K8/K9's `mol_bounds_tc_kernel`) in the
     built library's SASS (`cuobjdump -sass`), by "kernel<int8 if so, template
     ints> (source)". Raises if a kernel is missing or an instance has
     neither."""
@@ -354,7 +375,8 @@ def tensor_core_sass(lib_path) -> dict:
                           timeout=300, check=True).stdout
     sources = {"encode_probe_cu": "encode_probe.cu", "mol_probe_cu": "mol_probe.cu",
                "mol_loss_tc_cu": "mol_loss_tc.cu", "mol_bounds_cu": "mol_bounds.cu",
-               "mol_scoring_cu": "mol_scoring.cu", "hstu_block_train_cu": "hstu_block_train.cu"}
+               "mol_scoring_cu": "mol_scoring.cu", "hstu_block_train_cu": "hstu_block_train.cu",
+               "hstu_train_tf32_cu": "hstu_train_tf32.cu"}
     counts, label = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -371,7 +393,7 @@ def tensor_core_sass(lib_path) -> dict:
         elif label:
             counts[label][0] += len(re.findall(r"\bHMMA\.", line))
             counts[label][1] += len(re.findall(r"\bHGMMA\.", line))
-    missing = [k for k in TC_KERNELS + K4_TC_KERNELS
+    missing = [k for k in TC_KERNELS + K4_TC_KERNELS + K4_TF32_KERNELS
                + ("mol_tc_kernel", "mol_bounds_tc_kernel", "mol_loss_tc_kernel")
                if not any(label.startswith(k) for label in counts)]
     empty = [label for label, (hmma, hgmma) in counts.items() if hmma + hgmma == 0]
@@ -515,7 +537,8 @@ def stage_split(fn) -> str:
         short = re.search(r"(tc_\w+?_kernel|ln_gemm_kernel|hstu_\w*attn\w*_kernel|"
                           r"attn_row_bwd_kernel|softmax_bwd_\w+?_kernel)", name)
         label = short.group(1) if short else name[:40]
-        unit = TC_INSTRUCTION if label.startswith("tc_") else "FFMA (CUDA cores)"
+        unit = (TF32_INSTRUCTION if label.startswith("tc_tf32") else
+                TC_INSTRUCTION if label.startswith("tc_") else "FFMA (CUDA cores)")
         parts.append(f"{label} {us:.2f} us [{unit}]")
     return " + ".join(parts) + f" = {sum(t[2] for t in timeline):.2f} us device"
 
@@ -813,6 +836,10 @@ def kernel_counters() -> dict:
         "K4 attn": hstu_block_train.train_attention_oinput,
         "K4 bwd rows": hstu_block_train.attn_bwd_rows, "K4 bwd dq": hstu_block_train.attn_bwd_dq,
         "K4 bwd dkv": hstu_block_train.attn_bwd_dkv,
+        **dict(zip(K4_TF32_STAGES, (
+            hstu_block_train.tf32_project, hstu_block_train.tf32_attention,
+            hstu_block_train.tf32_out_gemm, hstu_block_train.tf32_bwd_rows,
+            hstu_block_train.tf32_bwd_dq, hstu_block_train.tf32_bwd_dkv))),
     }
     counters = {name: (fn, "launches") for name, fn in wrappers.items()}
     counters["K2-bmax"] = (mol_scoring.fused_mol_scores_t, "blockmax_launches")
@@ -1121,9 +1148,13 @@ def check_k4(device, dtype, instance: Optional[str] = None) -> tuple:
     bwd_ms = cuda_ms(lambda: hbt.attn_backward(*bargs))
     bwd_plain_ms = cuda_ms(lambda: hbt.attn_backward_reference(*bargs), iters=3)
     isz = x.element_size()
-    peak = "bfloat16" if bf16 else "float32"
+    # f32 on the tensor cores (3xTF32): both directions, bounds at 3xTF32's
+    # rate with the CUDA cores' 67 TFLOP/s beside them.
+    tf32 = hbt.tf32_fwd_route(dtype, D, n, meta)
+    peak = "bfloat16" if bf16 else "tf32x3" if tf32 else "float32"
     bias_kind = "internal" if has_bias else "none"
-    fwd_bd = bound(k1_variant_flops(b, n, meta.softmax, meta.o_width),
+    fwd_flops = k1_variant_flops(b, n, meta.softmax, meta.o_width)
+    fwd_bd = bound(fwd_flops,
                    k1_variant_bytes(b, n, isz, meta.o_width, bias_kind) + 4 * b * n * H * DV,
                    peak)
     f = 2 * H * DV + 2 * H * DQK
@@ -1135,7 +1166,13 @@ def check_k4(device, dtype, instance: Optional[str] = None) -> tuple:
     bwd_bd = bound(k4_bwd_flops(b, n, meta, bf16), bwd_bytes, peak)
     label = f"{tag} {dt} B={b} n={n} D={D} h={meta.num_heads} dqk={meta.dqk} dv={meta.dv}"
     routes = [f"{what} {'tensor cores' if tc else 'CUDA cores'}" for what, tc in (
-        ("forward", hbt.tc_fwd_route(dtype, D, meta)), ("backward", hbt.tc_bwd_route(dtype, meta)))]
+        ("forward", hbt.tc_fwd_route(dtype, D, meta) or tf32),
+        ("backward", hbt.tc_bwd_route(dtype, meta) or hbt.tf32_bwd_route(dtype, n, meta)))]
+    f32_cores = ""
+    if tf32:
+        f32_cores = (f" (3xTF32 at {TF32X3_FLOPS / 1e12:.0f} TFLOP/s; at the CUDA cores' 67 "
+                     f"TFLOP/s forward {fwd_flops / PEAK_FLOPS['float32'] * 1e3:.4f} ms, backward "
+                     f"{k4_bwd_flops(b, n, meta, bf16) / PEAK_FLOPS['float32'] * 1e3:.4f} ms)")
     print(f"{tag} {dt} route: {', '.join(routes)}; forward stages "
           f"{stage_split(lambda: hbt.fused_train_block_forward(*args))}; attention backward "
           f"stages {stage_split(lambda: hbt.attn_backward(*bargs))}")
@@ -1146,7 +1183,7 @@ def check_k4(device, dtype, instance: Optional[str] = None) -> tuple:
     print(f"{tag} {dt} forward kernel {fwd_ms:.3f} ms, plain {fwd_plain_ms:.3f} ms, bound "
           f"{fwd_bd['bound_ms']:.4f} ms ({fwd_bd['bound_by']}); attention backward kernel "
           f"{bwd_ms:.3f} ms, plain {bwd_plain_ms:.3f} ms, bound {bwd_bd['bound_ms']:.4f} ms "
-          f"({bwd_bd['bound_by']})")
+          f"({bwd_bd['bound_by']}){f32_cores}")
     fwd = {"max_abs_err": err, "ms": fwd_ms, "plain_ms": fwd_plain_ms, **fwd_bd,
            "library_ms": None}
     bwd = {"max_abs_err": (d_y_k - d_y_p).abs().max().item(), "ms": bwd_ms,
@@ -1228,6 +1265,103 @@ def check_k4_stages(device) -> dict:
            [(0, slice(hdv, 2 * hdv)), (0, slice(2 * hdv + hq, None))], 8 * pairs * dqk,
            2 * m * (f + hdv) + 4 * m * (hq + hdv),
            lambda: hbt.attn_bwd_dkv(y, d_attn_p, *bargs, d_y=buf))
+    return out
+
+
+def k4_tf32_stage_cases(device) -> list:
+    """K4's f32 route (3xTF32, csrc/hstu_train_tf32.cuh) at ml-20m-hstu-mol's
+    train block (B=128, n=211, o_input dropout 0.2), stage by stage on the
+    same inputs: the projection, the attention over the plain y, the output
+    GEMM over the plain y and attn, then the backward's rows (d_u, d_attn),
+    dq (d_q, dbias) and dkv (d_v, d_k) stages over the plain y and d_attn.
+    Each case is (counter name, kernel, plain, the (output, columns) compared,
+    FLOPs, bytes moved (each input read once, each output written once), the
+    call timed)."""
+    import torch
+
+    from rails_tpu_torch.ops import hstu_block_train as hbt
+
+    b, n = TRAIN_BATCH, MAX_SEQ_LEN
+    (x, colmask, uvqk, o_kernel, o_bias, rel_pos, ext, tsw), _ = k1_inputs(b, n, torch.float32,
+                                                                           device, seed=3)
+    x = x * colmask[..., None]
+    meta, _ = k4_meta(None)
+    seed, tables = 987_654_321, (rel_pos, ext, tsw)
+    h, dqk, dv = meta.num_heads, meta.dqk, meta.dv
+    hdv, hq, f = h * dv, h * dqk, 2 * H * DV + 2 * H * DQK
+    m, pairs = b * n, b * h * (n * (n + 1) // 2)
+    y = hbt.tf32_project_reference(x, uvqk, meta)
+    attn = hbt.tf32_attention_reference(y, colmask, *tables, seed, meta)
+    g = torch.Generator(device=device).manual_seed(13)
+    d_o = torch.randn(b, n, meta.o_width, generator=g, device=device)
+    _, d_attn = hbt.tf32_bwd_rows_reference(y, d_o, attn, meta)
+    bargs = (colmask, *tables, meta, seed)
+    buf = torch.empty(b, n, f, device=device)
+    every = slice(None)
+    return [
+        ("K4 f32 proj", lambda: (hbt.tf32_project(x, uvqk, meta),),
+         lambda: (hbt.tf32_project_reference(x, uvqk, meta),), [(0, every)],
+         2 * m * D * f, 4 * (m * D + D * f + m * f), None),
+        ("K4 f32 attn", lambda: (hbt.tf32_attention(y, colmask, *tables, seed, meta),),
+         lambda: (hbt.tf32_attention_reference(y, colmask, *tables, seed, meta),), [(0, every)],
+         4 * pairs * dqk, 4 * (m * (hdv + 2 * hq) + m * hdv + n * n + b * (n + 1)), None),
+        # u and attn read once each (concat_ua's three parts are built from them).
+        ("K4 f32 out", lambda: (hbt.tf32_out_gemm(x, y, attn, o_kernel, o_bias, seed, meta),),
+         lambda: (hbt.tf32_out_gemm_reference(x, y, attn, o_kernel, o_bias, seed, meta),),
+         [(0, every)], 2 * m * meta.o_width * D,
+         4 * (2 * m * hdv + meta.o_width * D + 2 * m * D), None),
+        ("K4 f32 bwd rows", lambda: hbt.tf32_bwd_rows(y, d_o, attn, meta),
+         lambda: hbt.tf32_bwd_rows_reference(y, d_o, attn, meta),
+         [(0, slice(0, hdv)), (1, every)], 0, 4 * m * (3 * hdv + meta.o_width + hdv),
+         lambda: hbt.tf32_bwd_rows(y, d_o, attn, meta, buf)),
+        ("K4 f32 bwd dq", lambda: hbt.tf32_bwd_dq(y, d_attn, *bargs),
+         lambda: hbt.attn_bwd_dq_reference(y, d_attn, *bargs),
+         [(0, slice(2 * hdv, 2 * hdv + hq)), (1, every)], 6 * pairs * dqk,
+         4 * (m * (f - hdv) + m * hdv + m * hq + b * n * n),
+         lambda: hbt.tf32_bwd_dq(y, d_attn, *bargs, d_y=buf)),
+        ("K4 f32 bwd dkv", lambda: (hbt.tf32_bwd_dkv(y, d_attn, *bargs),),
+         lambda: (hbt.attn_bwd_dkv_reference(y, d_attn, *bargs),),
+         [(0, slice(hdv, 2 * hdv)), (0, slice(2 * hdv + hq, None))], 8 * pairs * dqk,
+         4 * (m * (f - hdv) + m * hdv + m * (hq + hdv)),
+         lambda: hbt.tf32_bwd_dkv(y, d_attn, *bargs, d_y=buf)),
+    ]
+
+
+def k4_tf32_stage_shares(kernel, plain, cols) -> tuple:
+    """One stage case's outputs against its plain version: (max |err| / max
+    |plain| per compared output, max |err|, whether two kernel calls gave the
+    same bits)."""
+    import torch
+
+    got, again, want = kernel(), kernel(), plain()
+    shares = [rel_err(got[i][..., c], want[i][..., c]) for i, c in cols]
+    err = max((got[i][..., c] - want[i][..., c]).abs().max().item() for i, c in cols)
+    return shares, err, all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+def check_k4_tf32_stages(device) -> dict:
+    """Each case of `k4_tf32_stage_cases` twice, bit-equal, within
+    K4_TF32_STAGE_TOL of its largest value; error, kernel, plain and bound ms
+    (operations at 3xTF32's rate, bytes at HBM's). Returns them by counter
+    name (K4_TF32_STAGES)."""
+    b, n = TRAIN_BATCH, MAX_SEQ_LEN
+    out = {}
+    for name, kernel, plain, cols, flops, nbytes, timed in k4_tf32_stage_cases(device):
+        timed = timed or kernel
+        shares, err, same = k4_tf32_stage_shares(kernel, plain, cols)
+        if not same:
+            raise AssertionError(f"[K4-stage] {name}: two calls differ")
+        if max(shares) > K4_TF32_STAGE_TOL:
+            raise AssertionError(f"[K4-stage] {name} outside {K4_TF32_STAGE_TOL}: {shares}")
+        ms, plain_ms = cuda_ms(timed), cuda_ms(plain, iters=3, warmup=1)
+        bd = bound(flops, nbytes, "tf32x3")
+        unit = "FFMA (CUDA cores)" if name.endswith("rows") else TF32_INSTRUCTION
+        print(f"[K4-stage] {name} B={b} n={n}: max|err|/max|plain| per output "
+              f"{[float(f'{x_:.2e}') for x_ in shares]} (<= {K4_TF32_STAGE_TOL}), two calls "
+              f"bit-equal; kernel {ms:.3f} ms [{unit}], plain {plain_ms:.3f} ms, bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}; {flops / PEAK_FLOPS['float32'] * 1e3:.4f}"
+              f" ms at the CUDA cores' 67 TFLOP/s); {stage_split(timed)}")
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": None}
     return out
 
 
@@ -1429,7 +1563,7 @@ def step_launches(cfg, model, optimizer) -> dict:
     """The kernel launches one training step of `cfg` makes: with
     `fused_train` K3 and K4 once per block (its bf16 instance in bf16, at
     the tensor-core widths on the tensor cores: `tc_fwd_route`,
-    `tc_bwd_route`), none
+    `tc_bwd_route`; f32 there by 3xTF32: `tf32_fwd_route`, `tf32_bwd_route`), none
     on the XLA block path; K7 once where the optimizer fuses a leaf; with the
     fused shared-negatives loss K5 forward and backward once (its bf16
     instance in bf16); with pallas_scatter_grad K6 once per gather from the
@@ -1438,7 +1572,12 @@ def step_launches(cfg, model, optimizer) -> dict:
     import torch
 
     from rails_tpu_torch.models.hstu import train_block_meta
-    from rails_tpu_torch.ops.hstu_block_train import tc_bwd_route, tc_fwd_route
+    from rails_tpu_torch.ops.hstu_block_train import (
+        tc_bwd_route,
+        tc_fwd_route,
+        tf32_bwd_route,
+        tf32_fwd_route,
+    )
     from rails_tpu_torch.ops.mol_loss_train import tc_route as k5_tc_route
 
     blocks = cfg.hstu.num_blocks if cfg.hstu.fused_train else 0
@@ -1453,12 +1592,17 @@ def step_launches(cfg, model, optimizer) -> dict:
         f"K4 fwd [{variant}]": blocks, f"K4 bwd [{variant}]": blocks}
     # bf16 K4 on the tensor cores: the forward through K1's projection and
     # output GEMM around the train attention stage, the pointwise backward's
-    # three stages.
-    meta = train_block_meta(cfg.hstu, cfg.max_seq_len_padded)
+    # three stages; f32 K4 on them (3xTF32): the six f32 stages.
+    n = cfg.max_seq_len_padded
+    meta = train_block_meta(cfg.hstu, n)
     fwd_tc = blocks * int(tc_fwd_route(model.compute_dtype, cfg.hstu.embedding_dim, meta))
     bwd_tc = blocks * int(tc_bwd_route(model.compute_dtype, meta))
-    tc = {"K4 fwd-tc": fwd_tc, "K1 proj": fwd_tc, "K4 attn": fwd_tc, "K1 out": fwd_tc,
-          "K4 bwd-tc": bwd_tc, "K4 bwd rows": bwd_tc, "K4 bwd dq": bwd_tc, "K4 bwd dkv": bwd_tc}
+    fwd_32 = blocks * int(tf32_fwd_route(model.compute_dtype, cfg.hstu.embedding_dim, n, meta))
+    bwd_32 = blocks * int(tf32_bwd_route(model.compute_dtype, n, meta))
+    tc = {"K4 fwd-tc": fwd_tc + fwd_32, "K1 proj": fwd_tc, "K4 attn": fwd_tc, "K1 out": fwd_tc,
+          "K4 bwd-tc": bwd_tc + bwd_32, "K4 bwd rows": bwd_tc, "K4 bwd dq": bwd_tc,
+          "K4 bwd dkv": bwd_tc,
+          **{k: fwd_32 for k in K4_TF32_STAGES[:3]}, **{k: bwd_32 for k in K4_TF32_STAGES[3:]}}
     return {**{k: 0 for k in kernel_counters()}, **per_variant, **tc, "K3": blocks,
             "K4 fwd": blocks, "K4 bwd": blocks, "K4 fwd (bf16)": blocks * bf16,
             "K4 bwd (bf16)": blocks * bf16,
@@ -2972,7 +3116,13 @@ def main() -> None:
     from rails_tpu_torch.core.config import get_experiment_config
     from rails_tpu_torch.core.device import require_cuda
     from rails_tpu_torch.ops import _build
-    from rails_tpu_torch.ops.hstu_block_train import tc_bwd_route, tc_fwd_route, variant_name
+    from rails_tpu_torch.ops.hstu_block_train import (
+        tc_bwd_route,
+        tc_fwd_route,
+        tf32_bwd_route,
+        tf32_fwd_route,
+        variant_name,
+    )
 
     require_cuda()
     device = torch.device("cuda", 0)
@@ -2994,8 +3144,8 @@ def main() -> None:
           f"{ptxas_summary((lib_path.parent / 'build.log').read_text())}")
     sass = tensor_core_sass(lib_path)
     print(f"[build] tensor-core instructions in the SASS (HMMA, HGMMA) of K1's bf16 kernels "
-          f"(<DVP, 1>: K4's TRAIN attention), K4's backward kernels and K2's and K8/K9's "
-          f"tensor-core kernels: "
+          f"(<DVP, 1>: K4's TRAIN attention), K4's bf16 backward kernels, K4's f32 route "
+          f"(tc_tf32_*: TF32 HMMA) and K2's, K5's and K8/K9's tensor-core kernels: "
           f"{ {k: tuple(v) for k, v in sass.items()} }")
 
     k1 = {}
@@ -3016,11 +3166,12 @@ def main() -> None:
     k4_fwd, k4_bwd = check_k4(device, torch.float32)
     k4_fwd16, k4_bwd16 = check_k4(device, torch.bfloat16)
     k4_stages = check_k4_stages(device)
+    k4_tf32 = check_k4_tf32_stages(device)
     k7 = check_k7(device)
     torch.cuda.empty_cache()
     # Each path reports the launches of the kernels it adds.
     train = train_phase(device, name, smi)
-    launches.update({k: train[k] for k in ("K3", "K4 fwd", "K4 bwd", "K7")})
+    launches.update({k: train[k] for k in ("K3", "K4 fwd", "K4 bwd", "K7") + K4_TF32_STAGES})
     torch.cuda.empty_cache()
     train16 = train_phase(device, name, smi, tag="train-bf16", main_module_bf16=True)
     torch.cuda.empty_cache()
@@ -3120,9 +3271,9 @@ def main() -> None:
               "rails_tpu/ops/pallas/mol_scoring.py:724", "K2-tc", k2["bfloat16"]),
         entry("hash_keep_mask", "hash_dropout.cu", "rails_tpu/ops/pallas/hash_dropout.py:26",
               "K3", k3),
-        entry("fused_train_block_forward", "hstu_block_train.cu",
+        entry("fused_train_block_forward", "hstu_train_tf32.cuh",
               "rails_tpu/ops/pallas/hstu_block_train.py:574", "K4 fwd", k4_fwd),
-        entry("attn_backward", "hstu_block_train.cu",
+        entry("attn_backward", "hstu_train_tf32.cuh",
               "rails_tpu/ops/pallas/hstu_block_train.py:629", "K4 bwd", k4_bwd),
         entry("fused_mol_loss_forward", "mol_loss_tc.cuh",
               "rails_tpu/ops/pallas/mol_loss_train.py:143", "K5 fwd", k5_fwd),
@@ -3205,6 +3356,16 @@ def main() -> None:
         entry("tc_bwd_dkv_kernel (K4 d_k + d_v, bf16)", "hstu_train_tc.cuh", k4_bwd_site,
               "K4 bwd dkv", k4_stages["K4 bwd dkv"], train16),
     ]
+    tf32_src = "hstu_train_tf32.cuh"
+    summary += [
+        entry(f"{kernel} ({what}, f32 3xTF32)", tf32_src, site, stage, k4_tf32[stage])
+        for kernel, what, site, stage in (
+            ("tc_tf32_proj_kernel", "K4 LayerNorm + projection", k4_fwd_site, "K4 f32 proj"),
+            ("tc_tf32_attn_kernel", "K4 attention", k4_fwd_site, "K4 f32 attn"),
+            ("tc_tf32_out_kernel", "K4 o_input + output GEMM", k4_fwd_site, "K4 f32 out"),
+            ("tc_tf32_dq_kernel", "K4 d_q + dbias", k4_bwd_site, "K4 f32 bwd dq"),
+            ("tc_tf32_dkv_kernel", "K4 d_k + d_v", k4_bwd_site, "K4 f32 bwd dkv"))
+    ]
     summary += [
         entry("encode_probe_block (full)", "encode_probe.cu",
               "rails_tpu/cli/encode_probe.py:150", "P1", p1["full"], {"P1": p1["launches"]}),
@@ -3217,8 +3378,11 @@ def main() -> None:
         for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, ", bf16")):
             fwd, bwd = k4v[(inst, dtype)]
             runs = k4v_runs[(inst, dtype)]
-            fwd_src = "hstu_block_tc.cuh" if tc_fwd_route(dtype, D, meta) else "hstu_block_train.cu"
+            fwd_src = ("hstu_block_tc.cuh" if tc_fwd_route(dtype, D, meta) else
+                       "hstu_train_tf32.cuh" if tf32_fwd_route(dtype, D, MAX_SEQ_LEN, meta) else
+                       "hstu_block_train.cu")
             bwd_src = ("hstu_train_tc.cuh" if tc_bwd_route(dtype, meta) else
+                       "hstu_train_tf32.cuh" if tf32_bwd_route(dtype, MAX_SEQ_LEN, meta) else
                        "hstu_softmax_train.cu" if meta.softmax else "hstu_block_train.cu")
             summary += [
                 entry(f"fused_train_block_forward ({inst}{suffix})", fwd_src,

@@ -52,8 +52,8 @@
 // round trip adds ~0.9 GB of traffic per layer at B=512, n=211, and a
 // precomputed bias 45 MB (bf16). They run K1's f32 instances, its bf16
 // instances outside `tc_block` (ops/hstu_block.py: other widths, and the
-// linear activation), K4's forward and the bf16 train backward's recompute
-// of attn. K1's bf16 instances run on the tensor cores
+// linear activation), K4's forward off its tensor-core routes and the bf16
+// train backward's recompute of attn. K1's bf16 instances run on the tensor cores
 // (hstu_block_tc.cuh: mma.sync GEMMs and attention, q, k and v stored in bf16,
 // the bias built once for all heads), and so does K4's bf16 forward at those
 // widths with the SiLU projection (hstu_block_tc.cuh's TRAIN instances;

@@ -116,6 +116,12 @@ inline bool widths_ok(int D, int H, int dqk, int dv) {
   return D >= 1 && D <= 256 && dqk >= 1 && dqk <= 32 && dv >= 1 && dv <= 32 && H >= 1 &&
          H / head_warps(H) <= kHeadsPerWarp;
 }
+// K4's f32 train block on the tensor cores (hstu_train_tf32.cuh) takes the
+// same widths at lengths n <= 256 (its bias block holds every key of a row).
+constexpr int kTf32MaxN = 256;
+inline bool tf32_widths_ok(int D, int H, int dqk, int dv, int n) {
+  return widths_ok(D, H, dqk, dv) && n >= 1 && n <= kTf32MaxN;
+}
 
 // ---- the shared GEMM pieces -----------------------------------------------
 

@@ -78,7 +78,9 @@
 // forward through hstu_block_tc.cuh (rails_hstu_tc_train_attention between
 // K1's projection and output GEMM), the pointwise backward through
 // hstu_train_tc.cuh (rails_hstu_tc_train_bwd); the entry points below refuse
-// those instances.
+// those instances, and the f32 ones at those widths with n <= 256, the SiLU
+// projection and the pointwise attention, which run 3xTF32 on the tensor
+// cores (hstu_train_tf32.cu).
 #include <cstdint>
 
 #include "common.cuh"
@@ -404,6 +406,9 @@ extern "C" int rails_hstu_train_fwd(int dtype, const void* x, const float* colma
   // The tensor-core route's instances (ops/hstu_block_train.py:tc_fwd_route)
   // run rails_hstu_tc_train_attention between K1's tensor-core stages.
   if (dtype == 1 && !act_none && rails::tc::widths_ok(D, H, dqk, dv)) return cudaErrorInvalidValue;
+  // And the f32 ones (tf32_fwd_route) the 3xTF32 kernels of hstu_train_tf32.cu.
+  if (dtype == 0 && !act_none && !softmax && rails::tc::tf32_widths_ok(D, H, dqk, dv, n))
+    return cudaErrorInvalidValue;
   if (dtype == 1) {
     return rails::launch<__nv_bfloat16>(x, colmask, uvqk, o_kernel, o_bias, rel_pos, ext, tsw,
                                         y, attn, out, B, n, D, H, dqk, dv, inv_n, inv_sqrt_dqk,
@@ -438,6 +443,9 @@ extern "C" int rails_hstu_train_bwd(int dtype, const void* y, const void* d_o, f
   auto s = static_cast<cudaStream_t>(stream);
   // The tensor-core route's instances (tc_bwd_route) run rails_hstu_tc_train_bwd.
   if (dtype == 1 && !act_none && rails::tc::widths_ok(1, H, dqk, dv)) return cudaErrorInvalidValue;
+  // The f32 ones (tf32_bwd_route) run rails_hstu_tf32_bwd.
+  if (dtype == 0 && !act_none && rails::tc::tf32_widths_ok(1, H, dqk, dv, n))
+    return cudaErrorInvalidValue;
   if (dtype == 1) {
     return rails::train_bwd(static_cast<const __nv_bfloat16*>(y),
                             static_cast<const __nv_bfloat16*>(d_o), attn, true, colmask, rel_pos,

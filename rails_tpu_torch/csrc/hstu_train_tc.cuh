@@ -7,8 +7,9 @@
 // recomputed from the bf16 y as the JAX backward does: per user, from y =
 // [u | v | q | k] (n x F, bf16) and d(o_input) (bf16, keep mask applied),
 // d_y = [d_u, d_v, d_q, d_k] (f32), dbias = sum_h d_s_h (n x n, f32) and attn
-// (f32). The bf16 instances at other widths, the f32 ones and the softmax
-// attention stay on hstu_block_train.cu and hstu_softmax_train.cu.
+// (f32). The f32 instances at these widths run 3xTF32 (hstu_train_tf32.cuh);
+// the bf16 ones at other widths, the f32 ones there and the softmax attention
+// stay on hstu_block_train.cu and hstu_softmax_train.cu.
 //
 // Bound. At ml-20m-hstu-mol's train block (B = 128, n = 211, h = 8, dqk = dv
 // = 32) the function needs 5 products of 2 x 32 FLOPs over the causal (user,

@@ -79,8 +79,14 @@ def tc_route(dtype: torch.dtype, d: int, num_heads: int, dqk: int, dv: int) -> b
     to 16 or 32 and to 8, 16 or 32 columns), and at most 4 heads a head warp
     (h <= 3, or an even h <= 8). f32, and bf16 at any other width, run the
     CUDA-core kernels of csrc/hstu_block.cuh."""
+    return dtype == torch.bfloat16 and tc_widths(d, num_heads, dqk, dv)
+
+
+def tc_widths(d: int, num_heads: int, dqk: int, dv: int) -> bool:
+    """`tc_route`'s widths whatever the dtype: D <= 256, dqk and dv <= 32, h
+    <= 3 or an even h <= 8 (K4's f32 route takes them too)."""
     warps = 2 if num_heads % 2 == 0 else 1
-    return (dtype == torch.bfloat16 and 1 <= d <= 256 and 1 <= dqk <= 32 and 1 <= dv <= 32
+    return (1 <= d <= 256 and 1 <= dqk <= 32 and 1 <= dv <= 32
             and num_heads >= 1 and num_heads // warps <= _TC_HEADS_PER_WARP)
 
 

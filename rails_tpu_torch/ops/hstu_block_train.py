@@ -22,7 +22,11 @@ any head dim, with f32 or bf16 operands (the matmul dtype is the weights',
   (`tc_fwd_route`) runs on the tensor cores: K1's `project` and `out_gemm`
   around `train_attention_oinput`, the TRAIN instance of K1's tensor-core
   attention (`csrc/hstu_block_tc.cuh`: both keep masks before their
-  roundings, attn written in f32).
+  roundings, attn written in f32). f32 at those widths with n <= 256, the
+  SiLU projection and the pointwise attention (`tf32_fwd_route`) runs on
+  the tensor cores too, every product as 3xTF32 (`csrc/hstu_train_tf32.cuh`):
+  `tf32_project`, `tf32_attention` and `tf32_out_gemm`, with plain versions
+  `tf32_*_reference`.
 - `attn_backward`: the attention-core backward, a row kernel (LN backward of
   attn) then, pointwise, a per-user kernel over the heads (d_q, d_k, d_v and
   the dense d(bias); `csrc/hstu_block_train.cu`) or, softmax, a kernel per
@@ -32,7 +36,11 @@ any head dim, with f32 or bf16 operands (the matmul dtype is the weights',
   mma.sync stages over (user, 64-row) tiles instead (`csrc/hstu_train_tc.cuh`;
   `attn_bwd_rows`: attn recomputed, LN backward, d_u, d_attn; `attn_bwd_dq`:
   d_q and dbias; `attn_bwd_dkv`: d_k and d_v), whose plain versions
-  `*_reference` compose to `attn_backward_reference` bit for bit.
+  `*_reference` compose to `attn_backward_reference` bit for bit. f32 on
+  `tf32_bwd_route` runs `tf32_bwd_rows` (the LN row kernel), `tf32_bwd_dq`
+  and `tf32_bwd_dkv` (3xTF32 over (user, 64-row) tiles, heads in turn; plain
+  versions `tf32_bwd_rows_reference`, `attn_bwd_dq_reference`,
+  `attn_bwd_dkv_reference`).
   No atomics, so the result repeats bit for bit. y and d(o_input) come in
   the matmul dtype; d_y, attn and dbias are f32.
 - `FusedTrainBlock`: the autograd Function. Its backward is the JAX glue in
@@ -58,7 +66,7 @@ launches of each wrapper, `.bf16_launches` those of its bf16 instance as
 well, `.tc_launches` those on the tensor cores, and
 `.variant_launches[variant_name(...)]` those of each variant other than the
 default (SiLU, rel_bias, the bias, no attention dropout, head dims <= 32);
-each tensor-core stage wrapper counts its own `.launches`.
+each tensor-core stage wrapper (bf16 and f32) counts its own `.launches`.
 """
 
 from __future__ import annotations
@@ -87,6 +95,7 @@ from rails_tpu_torch.ops.hstu_block import (
     require_tc,
     split_vqk,
     tc_block,
+    tc_widths,
     time_bucket,
     vqk_layout,
 )
@@ -96,6 +105,9 @@ PENALTY = 30000.0
 # Head dims the backward kernel holds in registers at a time; wider heads
 # run its WIDE instances in chunks of this many.
 HEAD_DIM_CHUNK = 32
+# The longest sequence of K4's f32 route on the tensor cores: a block of 64
+# rows holds the bias of every key (`kTf32MaxN`, csrc/hstu_block_tc.cuh).
+TF32_MAX_N = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -187,6 +199,26 @@ def tc_bwd_route(dtype: torch.dtype, meta: BlockMeta) -> bool:
     csrc/hstu_softmax_train.cu."""
     return not meta.softmax and tc_block(dtype, 1, meta.num_heads, meta.dqk, meta.dv,
                                          meta.activation)
+
+
+def tf32_fwd_route(dtype: torch.dtype, d: int, n: int, meta: BlockMeta) -> bool:
+    """Whether `fused_train_block_forward` runs K4's f32 forward on the tensor
+    cores, every product as 3xTF32 on mma.sync (csrc/hstu_train_tf32.cuh):
+    f32 operands at `tc_route`'s widths (D <= 256, dqk and dv <= 32, h <= 3
+    or an even h <= 8) with n <= TF32_MAX_N, the SiLU projection and the
+    pointwise attention, with or without the bias. o_input dropout,
+    attention dropout and concat_ua take the same kernels (runtime
+    switches). The softmax attention, linear_activation="none", wider heads
+    and longer sequences run the CUDA-core kernels of
+    csrc/hstu_block_train.cu and hstu_softmax_train.cu."""
+    return (dtype == torch.float32 and meta.activation == "silu" and not meta.softmax
+            and 1 <= n <= TF32_MAX_N and tc_widths(d, meta.num_heads, meta.dqk, meta.dv))
+
+
+def tf32_bwd_route(dtype: torch.dtype, n: int, meta: BlockMeta) -> bool:
+    """Whether `attn_backward` runs K4's f32 attention backward on the tensor
+    cores (3xTF32): `tf32_fwd_route`'s rule without D."""
+    return tf32_fwd_route(dtype, 1, n, meta)
 
 
 def _keep_masks(b: int, n: int, seed: int, meta: BlockMeta, device):
@@ -389,6 +421,12 @@ def fused_train_block_forward(
         out = out_gemm(oin, o_kernel, o_bias, x)
         _count(fused_train_block_forward, mm, meta, has_bias, tc=True)
         return out, attn
+    if tf32_fwd_route(mm, d, n, meta):
+        y = tf32_project(x, uvqk, meta)
+        attn = tf32_attention(y, colmask, rel_pos, ext, tsw, seed, meta)
+        out = tf32_out_gemm(x, y, attn, o_kernel, o_bias, seed, meta)
+        _count(fused_train_block_forward, mm, meta, has_bias, tc=True)
+        return out, attn
     lib = _build.load_library()
     smem = (lib.rails_hstu_softmax_smem_bytes(n, h, dqk, dv) if meta.softmax
             else lib.rails_hstu_attn_smem_bytes(n, dqk, dv))
@@ -577,8 +615,9 @@ def attn_bwd_rows_reference(y, d_o_in, colmask, rel_pos, ext, tsw, meta: BlockMe
 
 def attn_bwd_dq_reference(y, d_attn, colmask, rel_pos, ext, tsw, meta: BlockMeta, seed: int = 0,
                           d_y: Optional[torch.Tensor] = None):
-    """Plain version of the second stage: (d_y with its d_q columns written,
-    dbias = sum_h d_s (B, n, n) f32, or None without the bias)."""
+    """Plain version of the second stage (and of the f32 route's dq stage,
+    y f32): (d_y with its d_q columns written, dbias = sum_h d_s (B, n, n)
+    f32, or None without the bias)."""
     has_bias = _check_variant(meta, rel_pos, ext, tsw)
     b, n, _ = y.shape
     h, dqk, dv = meta.num_heads, meta.dqk, meta.dv
@@ -595,8 +634,8 @@ def attn_bwd_dq_reference(y, d_attn, colmask, rel_pos, ext, tsw, meta: BlockMeta
 
 def attn_bwd_dkv_reference(y, d_attn, colmask, rel_pos, ext, tsw, meta: BlockMeta,
                            seed: int = 0, d_y: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain version of the third stage: d_y with its d_v and d_k columns
-    written."""
+    """Plain version of the third stage (and of the f32 route's dkv stage):
+    d_y with its d_v and d_k columns written."""
     b, n, _ = y.shape
     h, dqk, dv = meta.num_heads, meta.dqk, meta.dv
     hdv = h * dv
@@ -709,6 +748,229 @@ attn_bwd_dq.launches = 0
 attn_bwd_dkv.launches = 0
 
 
+# ---- K4's f32 route on the tensor cores (3xTF32, csrc/hstu_train_tf32.cuh):
+# three forward stages, three backward stages; plain versions beside them.
+
+
+def tf32_project_reference(x: torch.Tensor, uvqk: torch.Tensor, meta: BlockMeta) -> torch.Tensor:
+    """Plain version of the f32 route's projection: y = SiLU(LN(x) @ uvqk),
+    (B, n, F) f32."""
+    y = ln(x.float(), meta.eps) @ uvqk.float()
+    return y * torch.sigmoid(y)
+
+
+def tf32_attention_reference(y, colmask, rel_pos, ext, tsw, seed: int,
+                             meta: BlockMeta) -> torch.Tensor:
+    """Plain version of the f32 route's attention: attn (B, n, h*dv) f32 from
+    y = [u | v | q | k], v times 1/max_seq_len."""
+    hdv, hq = meta.num_heads * meta.dv, meta.num_heads * meta.dqk
+    u, v = y[..., :hdv], y[..., hdv:2 * hdv] * meta.inv_n
+    q, k = y[..., 2 * hdv:2 * hdv + hq], y[..., 2 * hdv + hq:]
+    return train_attention_oinput_reference(u, v, q, k, colmask, rel_pos, ext, tsw, seed, meta)[1]
+
+
+def tf32_out_gemm_reference(x, y, attn, o_kernel, o_bias, seed: int,
+                            meta: BlockMeta) -> torch.Tensor:
+    """Plain version of the f32 route's output GEMM: out = o_input @ Wo + bo
+    + x, o_input = u * LN(attn) (concat_ua: [u, LN(attn), u * LN(attn)])
+    times its keep mask."""
+    b, n, _ = x.shape
+    u, a_ln = y[..., :meta.num_heads * meta.dv], ln(attn, meta.eps)
+    o_in = torch.cat([u, a_ln, u * a_ln], dim=-1) if meta.concat_ua else u * a_ln
+    keep, _ = _keep_masks(b, n, seed, meta, x.device)
+    if keep is not None:
+        o_in = o_in * keep
+    return o_in @ o_kernel.float() + o_bias.float() + x.float()
+
+
+def tf32_bwd_rows_reference(y, d_o_in, attn, meta: BlockMeta,
+                            d_y: Optional[torch.Tensor] = None):
+    """Plain version of the f32 route's backward rows stage: (d_y with its
+    d_u columns written, d_attn (B, n, h*dv) f32), from the forward's attn.
+    The dq and dkv stages' plain versions are `attn_bwd_dq_reference` and
+    `attn_bwd_dkv_reference`, which take an f32 y as they take a bf16 one."""
+    hdv = meta.num_heads * meta.dv
+    d_u, d_gln = _d_o_split(d_o_in.float(), ln(attn, meta.eps), y.float()[..., :hdv],
+                            meta.concat_ua)
+    d_y = _stage_d_y(y, d_y)
+    d_y[..., :hdv] = d_u
+    return d_y, ln_backward(attn, d_gln, meta.eps)
+
+
+_TF32_GEMM_SMEM, _TF32_BWD_STAGES = 3, {"rows": 0, "dq": 1, "dkv": 2}
+
+
+def _tf32_lib(what: str, dtype: torch.dtype, d: int, n: int, meta: BlockMeta,
+              kind: Optional[int]):
+    """The library, after the route and shared-memory checks of one f32-route
+    launch (kind: 0 attention, 1 dq, 2 dkv, 3 the GEMMs, None the rows
+    stage, which uses none)."""
+    if not tf32_fwd_route(dtype, d, n, meta):
+        raise ValueError(f"{what}: no 3xTF32 instance for {dtype}, D={d}, n={n}, "
+                         f"h={meta.num_heads}, dqk={meta.dqk}, dv={meta.dv}, "
+                         f"{meta.activation}, softmax={meta.softmax} (tf32_fwd_route)")
+    lib = _build.load_library()
+    if kind is None:
+        return lib
+    smem = lib.rails_hstu_tf32_smem_bytes(kind, n, meta.dqk, meta.dv)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{what}: n={n} needs {smem} B of shared memory")
+    return lib
+
+
+def tf32_project(x, uvqk, meta: BlockMeta) -> torch.Tensor:
+    """The f32 route's projection; same arguments and result as
+    `tf32_project_reference`. CUDA: `tc_tf32_proj_kernel`."""
+    if not use_kernel(x, uvqk):
+        return tf32_project_reference(x, uvqk, meta)
+    b, n, d = x.shape
+    h, dqk, dv = meta.num_heads, meta.dqk, meta.dv
+    f = 2 * h * dv + 2 * h * dqk
+    lib = _tf32_lib("tf32_project", x.dtype, d, n, meta, _TF32_GEMM_SMEM)
+    f32 = torch.float32
+    _check("tf32_project", {"x": (x, f32, (b, n, d)), "uvqk": (uvqk, f32, (d, f))})
+    with torch.cuda.device(x.device):
+        y = torch.empty(b, n, f, dtype=f32, device=x.device)
+        err = lib.rails_hstu_tf32_project(x.data_ptr(), uvqk.data_ptr(), y.data_ptr(), b, n, d, h,
+                                          dqk, dv, meta.eps,
+                                          torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, err, "tf32_project")
+    tf32_project.launches += 1
+    return y
+
+
+def tf32_attention(y, colmask, rel_pos, ext, tsw, seed: int, meta: BlockMeta) -> torch.Tensor:
+    """The f32 route's attention; same arguments and result as
+    `tf32_attention_reference`. CUDA: `tc_tf32_attn_kernel`."""
+    has_bias = _check_variant(meta, rel_pos, ext, tsw)
+    tensors = tuple(t for t in (y, colmask, rel_pos, ext, tsw) if t is not None)
+    if not use_kernel(*tensors):
+        return tf32_attention_reference(y, colmask, rel_pos, ext, tsw, seed, meta)
+    b, n, f = y.shape
+    h, dqk, dv = meta.num_heads, meta.dqk, meta.dv
+    lib = _tf32_lib("tf32_attention", y.dtype, 1, n, meta, 0)
+    f32 = torch.float32
+    _check("tf32_attention", {"y": (y, f32, (b, n, 2 * h * dv + 2 * h * dqk)),
+                              "colmask": (colmask, f32, (b, n)),
+                              **_bias_expect(has_bias, b, n, rel_pos, ext, tsw)})
+    with torch.cuda.device(y.device):
+        attn = torch.empty(b, n, h * dv, dtype=f32, device=y.device)
+        err = lib.rails_hstu_tf32_attention(
+            y.data_ptr(), colmask.data_ptr(), _ptr(rel_pos), _ptr(ext), _ptr(tsw), attn.data_ptr(),
+            b, n, h, dqk, dv, meta.inv_n, min(meta.num_buckets, 127), int(has_bias),
+            wrap_i32(seed), *_attn_drop_args(meta), torch.cuda.current_stream(y.device).cuda_stream)
+    _build.check(lib, err, "tf32_attention")
+    tf32_attention.launches += 1
+    return attn
+
+
+def tf32_out_gemm(x, y, attn, o_kernel, o_bias, seed: int, meta: BlockMeta) -> torch.Tensor:
+    """The f32 route's output GEMM; same arguments and result as
+    `tf32_out_gemm_reference`. CUDA: `tc_tf32_out_kernel`."""
+    if not use_kernel(x, y, attn, o_kernel, o_bias):
+        return tf32_out_gemm_reference(x, y, attn, o_kernel, o_bias, seed, meta)
+    b, n, d = x.shape
+    h, dqk, dv = meta.num_heads, meta.dqk, meta.dv
+    lib = _tf32_lib("tf32_out_gemm", x.dtype, d, n, meta, _TF32_GEMM_SMEM)
+    f32 = torch.float32
+    _check("tf32_out_gemm", {
+        "x": (x, f32, (b, n, d)), "y": (y, f32, (b, n, 2 * h * dv + 2 * h * dqk)),
+        "attn": (attn, f32, (b, n, h * dv)), "o_kernel": (o_kernel, f32, (meta.o_width, d)),
+        "o_bias": (o_bias, f32, (d,))})
+    drop = meta.rate > 0.0
+    with torch.cuda.device(x.device):
+        out = torch.empty(b, n, d, dtype=f32, device=x.device)
+        err = lib.rails_hstu_tf32_out(
+            attn.data_ptr(), y.data_ptr(), o_kernel.data_ptr(), o_bias.data_ptr(), x.data_ptr(),
+            out.data_ptr(), b, n, d, h, dqk, dv, meta.eps, int(meta.concat_ua), int(drop),
+            wrap_i32(seed), keep_threshold(meta.rate) if drop else 0,
+            1.0 / (1.0 - meta.rate) if drop else 1.0,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, err, "tf32_out_gemm")
+    tf32_out_gemm.launches += 1
+    return out
+
+
+def _tf32_bwd_launch(stage: str, y, d_o_in, attn, d_attn, colmask, rel_pos, ext, tsw,
+                     meta: BlockMeta, seed: int, d_y: Optional[torch.Tensor]):
+    """Validate and launch one stage of the f32 route's backward
+    (`rails_hstu_tf32_bwd`); returns (d_y, d_attn, dbias), the stage's
+    outputs and None for the others."""
+    has_bias = _check_variant(meta, rel_pos, ext, tsw)
+    b, n, f = y.shape
+    h, dqk, dv = meta.num_heads, meta.dqk, meta.dv
+    what = f"tf32_bwd_{stage}"
+    code = _TF32_BWD_STAGES[stage]
+    lib = _tf32_lib(what, y.dtype, 1, n, meta, None if stage == "rows" else code)
+    f32 = torch.float32
+    expect = {"y": (y, f32, (b, n, 2 * h * dv + 2 * h * dqk))}
+    if stage == "rows":
+        expect.update(d_o_in=(d_o_in, f32, (b, n, meta.o_width)), attn=(attn, f32, (b, n, h * dv)))
+    else:
+        expect.update(d_attn=(d_attn, f32, (b, n, h * dv)), colmask=(colmask, f32, (b, n)),
+                      **_bias_expect(has_bias, b, n, rel_pos, ext, tsw))
+    if d_y is not None:
+        expect["d_y"] = (d_y, f32, (b, n, f))
+    _check(what, expect)
+    d_attn_out = dbias = None
+    with torch.cuda.device(y.device):
+        if d_y is None:
+            d_y = torch.zeros(b, n, f, dtype=f32, device=y.device)
+        if stage == "rows":
+            d_attn_out = torch.empty(b, n, h * dv, dtype=f32, device=y.device)
+        if stage == "dq" and has_bias:
+            dbias = torch.empty(b, n, n, dtype=f32, device=y.device)
+        err = lib.rails_hstu_tf32_bwd(
+            code, y.data_ptr(), _ptr(d_o_in), _ptr(attn), _ptr(d_attn), _ptr(d_attn_out),
+            d_y.data_ptr(), _ptr(dbias), _ptr(colmask), _ptr(rel_pos), _ptr(ext), _ptr(tsw), b, n,
+            h, dqk, dv, meta.inv_n, meta.eps, min(meta.num_buckets, 127), int(has_bias),
+            int(meta.concat_ua), wrap_i32(seed), *_attn_drop_args(meta),
+            torch.cuda.current_stream(y.device).cuda_stream)
+    _build.check(lib, err, what)
+    return d_y, d_attn_out, dbias
+
+
+def tf32_bwd_rows(y, d_o_in, attn, meta: BlockMeta, d_y: Optional[torch.Tensor] = None):
+    """The f32 route's backward rows stage; same arguments and results as
+    `tf32_bwd_rows_reference`. CUDA: `attn_row_bwd_kernel` (csrc/hstu_train.cuh)."""
+    if not use_kernel(*(t for t in (y, d_o_in, attn, d_y) if t is not None)):
+        return tf32_bwd_rows_reference(y, d_o_in, attn, meta, d_y)
+    d_y, d_attn, _ = _tf32_bwd_launch("rows", y, d_o_in, attn, None, None, None, None, None, meta,
+                                      0, d_y)
+    tf32_bwd_rows.launches += 1
+    return d_y, d_attn
+
+
+def tf32_bwd_dq(y, d_attn, colmask, rel_pos, ext, tsw, meta: BlockMeta, seed: int = 0,
+                d_y: Optional[torch.Tensor] = None):
+    """The f32 route's dq stage: (d_y with its d_q columns written, dbias or
+    None) as `attn_bwd_dq_reference` gives them. CUDA: `tc_tf32_dq_kernel`."""
+    tensors = tuple(t for t in (y, d_attn, colmask, rel_pos, ext, tsw, d_y) if t is not None)
+    if not use_kernel(*tensors):
+        return attn_bwd_dq_reference(y, d_attn, colmask, rel_pos, ext, tsw, meta, seed, d_y)
+    d_y, _, dbias = _tf32_bwd_launch("dq", y, None, None, d_attn, colmask, rel_pos, ext, tsw, meta,
+                                     seed, d_y)
+    tf32_bwd_dq.launches += 1
+    return d_y, dbias
+
+
+def tf32_bwd_dkv(y, d_attn, colmask, rel_pos, ext, tsw, meta: BlockMeta, seed: int = 0,
+                 d_y: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The f32 route's dkv stage: d_y with its d_v and d_k columns written,
+    as `attn_bwd_dkv_reference` gives it. CUDA: `tc_tf32_dkv_kernel`."""
+    tensors = tuple(t for t in (y, d_attn, colmask, rel_pos, ext, tsw, d_y) if t is not None)
+    if not use_kernel(*tensors):
+        return attn_bwd_dkv_reference(y, d_attn, colmask, rel_pos, ext, tsw, meta, seed, d_y)
+    d_y = _tf32_bwd_launch("dkv", y, None, None, d_attn, colmask, rel_pos, ext, tsw, meta, seed,
+                           d_y)[0]
+    tf32_bwd_dkv.launches += 1
+    return d_y
+
+
+for _fn in (tf32_project, tf32_attention, tf32_out_gemm, tf32_bwd_rows, tf32_bwd_dq, tf32_bwd_dkv):
+    _fn.launches = 0
+
+
 def attn_backward(
     y, d_o_in, attn, colmask, rel_pos, ext, tsw, meta: BlockMeta, seed: int = 0,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
@@ -732,6 +994,14 @@ def attn_backward(
         d_y, d_attn, attn = attn_bwd_rows(y, d_o_in, colmask, rel_pos, ext, tsw, meta, seed, d_y)
         d_y, dbias = attn_bwd_dq(y, d_attn, colmask, rel_pos, ext, tsw, meta, seed, d_y)
         d_y = attn_bwd_dkv(y, d_attn, colmask, rel_pos, ext, tsw, meta, seed, d_y)
+        _count(attn_backward, mm, meta, has_bias, tc=True)
+        return d_y, dbias, attn
+    if tf32_bwd_route(mm, n, meta):
+        with torch.cuda.device(y.device):   # the three stages write every column
+            d_y = torch.empty(b, n, f, dtype=f32, device=y.device)
+        d_y, d_attn = tf32_bwd_rows(y, d_o_in, attn, meta, d_y)
+        d_y, dbias = tf32_bwd_dq(y, d_attn, colmask, rel_pos, ext, tsw, meta, seed, d_y)
+        d_y = tf32_bwd_dkv(y, d_attn, colmask, rel_pos, ext, tsw, meta, seed, d_y)
         _count(attn_backward, mm, meta, has_bias, tc=True)
         return d_y, dbias, attn
     expect = {

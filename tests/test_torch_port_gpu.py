@@ -933,25 +933,123 @@ def test_k4_tensor_core_stages_match_plain(cuda, variant, shape):
 
 
 def test_k4_tensor_core_route_and_counters(cuda):
-    """bf16 at the tensor-core widths takes the route in both directions
-    (`.tc_launches`, one launch of each stage kernel); f32 and the linear
-    activation do not; the softmax backward stays off it."""
+    """bf16 at the tensor-core widths takes the bf16 route in both directions
+    (`.tc_launches`, one launch of each stage kernel), f32 there the 3xTF32
+    route (one launch of each f32 stage); the linear activation takes
+    neither; the softmax backward stays off both, and f32 softmax entirely."""
     hbt = hstu_block_train
     fwd, bwd = hbt.fused_train_block_forward, hbt.attn_backward
     stages = (hbt.train_attention_oinput, hbt.attn_bwd_rows, hbt.attn_bwd_dq, hbt.attn_bwd_dkv)
+    f32_stages = (hbt.tf32_project, hbt.tf32_attention, hbt.tf32_out_gemm, hbt.tf32_bwd_rows,
+                  hbt.tf32_bwd_dq, hbt.tf32_bwd_dkv)
     for variant, dtype, tc_f, tc_b in (("no_bias", torch.bfloat16, 1, 1),
                                        ("softmax", torch.bfloat16, 1, 0),
                                        ("act_none", torch.bfloat16, 0, 0),
-                                       ("no_bias", torch.float32, 0, 0)):
+                                       ("no_bias", torch.float32, 1, 1),
+                                       ("act_none", torch.float32, 0, 0),
+                                       ("softmax", torch.float32, 0, 0)):
         args, meta = _k4_variant_block(variant, "n33_padded", dtype, cuda)
-        before = [fwd.tc_launches, bwd.tc_launches] + [f.launches for f in stages]
+        counters = lambda: ([fwd.tc_launches, bwd.tc_launches]  # noqa: E731
+                            + [f.launches for f in stages + f32_stages])
+        before = counters()
         x = args["x"].clone().requires_grad_(True)
         out = hbt.fused_train_block(x, args["rel_pos"], args["tsw"], args["uvqk"],
                                     args["o_kernel"], args["o_bias"], args["colmask"],
                                     args["ext"], 11, meta)
         out.float().sum().backward()
-        after = [fwd.tc_launches, bwd.tc_launches] + [f.launches for f in stages]
-        assert [a - b for a, b in zip(after, before)] == [tc_f, tc_b, tc_f, tc_b, tc_b, tc_b], variant
+        bf = dtype == torch.bfloat16
+        want = ([tc_f, tc_b] + [tc_f * bf] + [tc_b * bf] * 3 + [tc_f * (not bf)] * 3
+                + [tc_b * (not bf)] * 3)
+        assert [a - b for a, b in zip(counters(), before)] == want, (variant, dtype)
+
+
+# K4's f32 route (3xTF32): ML-20M's block and ML-1M's odd widths (D, h, dqk,
+# dv), n = 211.
+K4_TF32_SHAPES = {"ml20m": (256, 8, 32, 32), "ml1m": (50, 2, 25, 25)}
+
+
+@pytest.mark.parametrize("seed", range(1, 9))
+@pytest.mark.parametrize("shape", list(K4_TF32_SHAPES))
+def test_k4_f32_route_matches_plain_over_seeds(cuda, shape, seed):
+    """The f32 block on its 3xTF32 route against autograd of the plain
+    forward over seeds 1-8: the forward within K4's (1e-3, 1e-4) and every
+    gradient within 1e-3 of its largest value; both directions on the route
+    (`.tc_launches`)."""
+    d, h, dqk, dv = K4_TF32_SHAPES[shape]
+    args, kw = _k1_args(4, 211, d, h, dqk, dv, 211, torch.float32, cuda, seed=seed)
+    args["x"] = args["x"] * args["colmask"][..., None]
+    meta = hstu_block_train.BlockMeta(h, dqk, dv, kw["inv_n"], kw["eps"], 128, 0.2)
+    assert hstu_block_train.tf32_fwd_route(torch.float32, d, 211, meta)
+    fwd, bwd = hstu_block_train.fused_train_block_forward, hstu_block_train.attn_backward
+    w = torch.cos(torch.arange(args["x"].numel(), device=cuda, dtype=torch.float32)).reshape(
+        args["x"].shape)
+    res = []
+    for fn in (hstu_block_train.fused_train_block,
+               hstu_block_train.fused_train_block_autograd_reference):
+        before = (fwd.tc_launches, bwd.tc_launches)
+        leaves = [args[k].clone().requires_grad_(True) for k in GRAD_NAMES]
+        out = fn(*leaves, args["colmask"], args["ext"], seed, meta)
+        (out * w).sum().backward()
+        res.append((out.detach(), [t.grad for t in leaves], (fwd.tc_launches - before[0],
+                                                             bwd.tc_launches - before[1])))
+    assert res[0][2] == (1, 1) and res[1][2] == (0, 0)
+    torch.testing.assert_close(res[0][0], res[1][0], rtol=1e-3, atol=1e-4)
+    for name, got, want in zip(GRAD_NAMES, res[0][1], res[1][1]):
+        assert ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item() <= 1e-3, name
+
+
+@pytest.mark.parametrize("shape", list(K4_TF32_SHAPES))
+def test_k4_f32_route_repeats_bit_for_bit(cuda, shape):
+    """Two calls of each f32-route stage give the same bits: no atomics, one
+    writer per output element."""
+    hbt = hstu_block_train
+    d, h, dqk, dv = K4_TF32_SHAPES[shape]
+    args, kw = _k1_args(3, 211, d, h, dqk, dv, 211, torch.float32, cuda, seed=5)
+    meta = hbt.BlockMeta(h, dqk, dv, kw["inv_n"], kw["eps"], 128, 0.2, attn_rate=0.2)
+    tables = (args["rel_pos"], args["ext"], args["tsw"])
+    d_o = torch.randn(3, 211, meta.o_width, device=cuda)
+    runs = []
+    for _ in range(2):
+        y = hbt.tf32_project(args["x"], args["uvqk"], meta)
+        attn = hbt.tf32_attention(y, args["colmask"], *tables, 11, meta)
+        out = hbt.tf32_out_gemm(args["x"], y, attn, args["o_kernel"], args["o_bias"], 11, meta)
+        d_y, d_attn = hbt.tf32_bwd_rows(y, d_o, attn, meta)
+        d_y, dbias = hbt.tf32_bwd_dq(y, d_attn, args["colmask"], *tables, meta, 11, d_y)
+        d_y = hbt.tf32_bwd_dkv(y, d_attn, args["colmask"], *tables, meta, 11, d_y)
+        runs.append((y, attn, out, d_attn, d_y, dbias))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_k4_f32_entry_points_refuse_against_the_route(cuda):
+    """The 3xTF32 entry points refuse every instance outside the route (dqk =
+    64, h = 5, n = 257) and the CUDA-core ones the f32 instances on it:
+    cudaErrorInvalidValue (1), nothing launched; the wrappers raise off the
+    route."""
+    from rails_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    buf = torch.zeros(1 << 20, device=cuda)
+    p = buf.data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
+    for h, dqk, n in ((2, 64, 8), (5, 16, 8), (2, 16, 257)):
+        assert lib.rails_hstu_tf32_project(p, p, p, 1, n, 64, h, dqk, dqk, 1e-6, stream) == 1
+        assert lib.rails_hstu_tf32_attention(p, p, None, None, None, p, 1, n, h, dqk, dqk, 0.1, 127,
+                                             0, 0, 0, 0, 1.0, stream) == 1
+        assert lib.rails_hstu_tf32_out(p, p, p, p, p, p, 1, n, 64, h, dqk, dqk, 1e-6, 0, 0, 0, 0,
+                                       1.0, stream) == 1
+        for stage in range(3):
+            assert lib.rails_hstu_tf32_bwd(stage, p, p, p, p, p, p, None, p, None, None, None, 1, n,
+                                           h, dqk, dqk, 0.1, 1e-6, 127, 0, 0, 0, 0, 0, 1.0,
+                                           stream) == 1
+    drop = (0, 0, 0, 1.0, 0, 0, 1.0)
+    assert lib.rails_hstu_train_fwd(0, p, p, p, p, p, None, None, None, p, p, p, 1, 8, 64, 2, 16,
+                                    16, 0.125, 0.25, 1e-6, 127, 0, 0, 0, 0, *drop, stream) == 1
+    assert lib.rails_hstu_train_bwd(0, p, p, p, p, p, p, p, p, p, p, 1, 8, 2, 16, 16, 0.125, 1e-6,
+                                    127, 0, 0, 1, 0, 0, 0, 1.0, stream) == 1
+    torch.cuda.synchronize()
+    args, meta = _k4_variant_block("softmax", "n1", torch.float32, cuda)
+    with pytest.raises(ValueError, match="no 3xTF32 instance"):
+        hstu_block_train.tf32_project(args["x"], args["uvqk"], meta)
 
 
 def test_k4_library_refuses_a_route_against_the_width_rule(cuda):

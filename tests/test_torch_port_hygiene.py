@@ -4,6 +4,7 @@ that fails loudly, and unported paths that say so."""
 
 import ast
 import ctypes
+import glob
 import os
 import re
 import shutil
@@ -20,10 +21,9 @@ from rails_tpu_torch.core import config as port_config
 from rails_tpu_torch.core.config import get_experiment_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SCRIPTS = ("chip_smoke.py", "profile_serving.py", "profile_train.py", "profile_k4_bwd.py",
-           "profile_k1.py", "profile_k1_agreement.py", "profile_k2.py",
-           "profile_p2_agreement.py", "profile_books.py", "profile_k5.py",
-           "profile_bounds.py")
+# The chip scripts at the root: the smoke test and every profile script.
+SCRIPTS = ("chip_smoke.py",) + tuple(sorted(
+    os.path.basename(p) for p in glob.glob(os.path.join(REPO, "profile_*.py"))))
 
 
 def test_port_imports_no_jax():
