@@ -15,9 +15,14 @@ Phases (one line each, any failure raises and exits non-zero):
      K4's f32 route (`tc_tf32_*`, TF32 HMMA) in the library's SASS
      (`cuobjdump -sass`), none may have zero.
   3. K1 (`fused_hstu_block`) vs its plain version at ML-20M block shapes,
-     with each stage's device time and the instruction it multiplies with;
-     its three bf16 stages (`project`, `attention_oinput` pointwise and
-     softmax, `out_gemm`) each vs its plain stage version; K1 at the Amazon
+     with its route, each stage's device time and the instruction it
+     multiplies with; its three bf16 stages (`project`, `attention_oinput`
+     pointwise and softmax, `out_gemm`) each vs its plain stage version; the
+     f32 route's stages (3xTF32: `tf32_project`, `tf32_attention` pointwise
+     and softmax, `tf32_out_gemm`) each within K1_TF32_STAGE_TOL of its
+     plain stage, two calls bit-equal, bounds at 3xTF32's 165 TFLOP/s, the
+     CUDA cores' 67 and in bytes; `[K1-hash]`, the hashes of the outputs
+     the f32 route must leave alone (`untouched_hashes`); K1 at the Amazon
      Books (D=64, h=8, dqk=dv=8, N=61) and ML-1M (D=50, h=2, dqk=dv=25,
      N=211) widths and the softmax variant at h=4, dqk=dv=16.
   4. K2 (`fused_mol_scores_t`) vs its plain version over 26,744 items: bf16
@@ -29,7 +34,8 @@ Phases (one line each, any failure raises and exits non-zero):
      time under torch.profiler.
   5. e2e: ml-20m-hstu-mol serving through get_eval_state and
      make_eval_step_fn, in bf16 (as served) and in f32, each with launch
-     counts and against the same step through the plain versions. Here and
+     counts (every K1 block on its route's stages: bf16 and f32 on the
+     tensor cores) and against the same step through the plain versions. Here and
      in approx, int8, int8-e2e, books-e2e and frontier, every K2, K8, K9
      and K10 launch on bf16 or int8 tables must have taken the tensor-core
      route (`.tc_launches`).
@@ -134,11 +140,14 @@ K1's block variants and the cost probes:
  26. K1-var: each of K1_VAR_INSTANCES (concat_ua, activation none, softmax
      with the in-kernel bias, softmax with a precomputed raw bias,
      mask_in_bias, no bias, concat_ua + softmax) at B=512, n=211, f32 and
-     bf16, vs its plain version.
+     bf16, vs its plain version, with its route (f32 but activation none on
+     the 3xTF32 stages, each launched once).
  27. variants-e2e: ml-20m-hstu-mol in bf16 with fused_inference and each
      variant's `--set` overrides (int64 timestamps for the precomputed-bias
      modes): one batch of 512 through K1 + K2 vs the plain path, with 5's
-     bf16 checks; 16 K1 launches per batch.
+     bf16 checks; 16 K1 launches per batch; then each SiLU instance in f32
+     with 5's f32 checks, every block on the 3xTF32 stages (softmax on
+     `serve_softmax_kernel`).
  28. P1: `rails_tpu_torch.cli.encode_probe`: every mode vs its plain version
      (one block, B=64, n=192), full vs K1's concat_ua instance, per-mode
      kernel, plain and bound ms at B=512, n=192, and the CLI's 16-block
@@ -168,6 +177,7 @@ any result.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import re
 import statistics
@@ -242,6 +252,16 @@ K4_TF32_STAGES = ("K4 f32 proj", "K4 f32 attn", "K4 f32 out", "K4 f32 bwd rows",
 TC_INSTRUCTION = "mma.sync.m16n8k16 bf16 (HMMA)"
 TF32_INSTRUCTION = "mma.sync.m16n8k8 3xTF32 (HMMA)"
 K1_STAGES = ("K1 proj", "K1 attn", "K1 out")   # their launch counters
+# K1's f32 route on the tensor cores, 3xTF32 (csrc/hstu_serve_tf32.cuh), and
+# the launch counters of its stages ("K1 f32 attn" counts both attention
+# kernels' launches, "K1 f32 softmax" the softmax kernel's).
+K1_TF32_KERNELS = ("serve_proj_kernel", "serve_attn_kernel", "serve_softmax_kernel",
+                   "serve_out_kernel")
+K1_TF32_STAGES = ("K1 f32 proj", "K1 f32 attn", "K1 f32 out")
+# Each stage of K1's f32 route against its plain version alone: max |err|
+# over max |plain| per output, the CPU test's limit
+# (tests/test_torch_port_k1_tf32.py), as K4_TF32_STAGE_TOL is for K4.
+K1_TF32_STAGE_TOL = 2e-5
 K2_TOL_F32 = (1e-4, 1e-3)      # logits carry 1/T = 20
 # (dtype name, min rank agreement, min top-120 overlap) of the serving step's
 # kernel path against its plain path on the same model, tables and batches.
@@ -330,7 +350,9 @@ def ptxas_summary(log: str) -> str:
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             mangled = entry.group(1)
-            name = re.search(r"(tc_tf32_proj_kernel|tc_tf32_attn_kernel|tc_tf32_out_kernel|"
+            name = re.search(r"(serve_proj_kernel|serve_out_kernel|serve_attn_kernel|"
+                             r"serve_softmax_kernel|"
+                             r"tc_tf32_proj_kernel|tc_tf32_attn_kernel|tc_tf32_out_kernel|"
                              r"tc_tf32_dq_kernel|tc_tf32_dkv_kernel|"
                              r"tc_proj_kernel|tc_attn_kernel|tc_softmax_kernel|tc_out_kernel|"
                              r"tc_bwd_rows_kernel|tc_bwd_dq_kernel|tc_bwd_dkv_kernel|"
@@ -363,7 +385,7 @@ def ptxas_summary(log: str) -> str:
 def tensor_core_sass(lib_path) -> dict:
     """HMMA and HGMMA instruction counts of each instance of the tensor-core
     kernels (K1's bf16 kernels with their TRAIN instances, K4's bf16 backward
-    kernels and its f32 route's 3xTF32 kernels, K2's `mol_tc_kernel` and
+    kernels, K4's and K1's f32 routes' 3xTF32 kernels, K2's `mol_tc_kernel` and
     K8/K9's `mol_bounds_tc_kernel`) in the
     built library's SASS (`cuobjdump -sass`), by "kernel<int8 if so, template
     ints> (source)". Raises if a kernel is missing or an instance has
@@ -376,14 +398,16 @@ def tensor_core_sass(lib_path) -> dict:
     sources = {"encode_probe_cu": "encode_probe.cu", "mol_probe_cu": "mol_probe.cu",
                "mol_loss_tc_cu": "mol_loss_tc.cu", "mol_bounds_cu": "mol_bounds.cu",
                "mol_scoring_cu": "mol_scoring.cu", "hstu_block_train_cu": "hstu_block_train.cu",
-               "hstu_train_tf32_cu": "hstu_train_tf32.cu"}
+               "hstu_train_tf32_cu": "hstu_train_tf32.cu",
+               "hstu_serve_tf32_cu": "hstu_serve_tf32.cu"}
     counts, label = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             # The digit is the mangled name's length prefix: "tc_" inside a
             # file name (mol_loss_tc_cu) is no kernel.
             m = re.search(r"\d(mol_loss_tc_kernel|mol_bounds_tc_kernel|mol_tc_kernel|"
-                          r"tc_[a-z0-9_]+?_kernel)(I(a)?\w*?((?:L[ib]\d+E)+)E)?", line)
+                          r"serve_[a-z]+_kernel|tc_[a-z0-9_]+?_kernel)"
+                          r"(I(a)?\w*?((?:L[ib]\d+E)+)E)?", line)
             src = next((v for k, v in sources.items() if k in line), "hstu_block.cu")
             args = ",".join(["int8"] * bool(m and m.group(3))
                             + (re.findall(r"\d+", m.group(4)) if m and m.group(4) else []))
@@ -393,7 +417,7 @@ def tensor_core_sass(lib_path) -> dict:
         elif label:
             counts[label][0] += len(re.findall(r"\bHMMA\.", line))
             counts[label][1] += len(re.findall(r"\bHGMMA\.", line))
-    missing = [k for k in TC_KERNELS + K4_TC_KERNELS + K4_TF32_KERNELS
+    missing = [k for k in TC_KERNELS + K4_TC_KERNELS + K4_TF32_KERNELS + K1_TF32_KERNELS
                + ("mol_tc_kernel", "mol_bounds_tc_kernel", "mol_loss_tc_kernel")
                if not any(label.startswith(k) for label in counts)]
     empty = [label for label, (hmma, hgmma) in counts.items() if hmma + hgmma == 0]
@@ -534,13 +558,55 @@ def stage_split(fn) -> str:
         return "not recorded by torch.profiler"
     parts = []
     for _, name, us, _ in timeline:
-        short = re.search(r"(tc_\w+?_kernel|ln_gemm_kernel|hstu_\w*attn\w*_kernel|"
-                          r"attn_row_bwd_kernel|softmax_bwd_\w+?_kernel)", name)
+        short = re.search(r"(tc_\w+?_kernel|serve_\w+?_kernel(?:<\d+(?:, \d+)?>)?|ln_gemm_kernel|"
+                          r"hstu_\w*attn\w*_kernel|attn_row_bwd_kernel|softmax_bwd_\w+?_kernel)",
+                          name)
         label = short.group(1) if short else name[:40]
-        unit = (TF32_INSTRUCTION if label.startswith("tc_tf32") else
+        unit = (TF32_INSTRUCTION if label.startswith(("tc_tf32", "serve_")) else
                 TC_INSTRUCTION if label.startswith("tc_") else "FFMA (CUDA cores)")
         parts.append(f"{label} {us:.2f} us [{unit}]")
     return " + ".join(parts) + f" = {sum(t[2] for t in timeline):.2f} us device"
+
+
+K1_TF32_ROUTE = "3xTF32 tensor cores"
+
+
+def k1_route(dtype, d: int, n: int, h: int, dqk: int, dv: int, activation: str) -> str:
+    """The route `fused_hstu_block` takes for these operands."""
+    from rails_tpu_torch.ops import hstu_block as hb
+
+    if hb.tf32_block(dtype, d, n, h, dqk, dv, activation):
+        return K1_TF32_ROUTE
+    if hb.tc_block(dtype, d, h, dqk, dv, activation):
+        return "bf16 tensor cores"
+    return "CUDA cores"
+
+
+def tf32_launched(call, route: str):
+    """call() (one K1 block), checking that it launched each of the f32
+    route's three stages once on that route and none off it."""
+    from rails_tpu_torch.ops import hstu_block as hb
+
+    stages = (hb.tf32_project, hb.tf32_attention, hb.tf32_out_gemm)
+    before = [f.launches for f in stages]
+    out = call()
+    made = [f.launches - c for f, c in zip(stages, before)]
+    if made != [int(route == K1_TF32_ROUTE)] * 3:
+        raise AssertionError(f"K1 on the {route} route launched the f32 stages {made} times")
+    return out
+
+
+def bound_terms(flops: float, nbytes: float, route: str) -> str:
+    """The bound's terms spelled out: the operations at 3xTF32's 165 TFLOP/s
+    and at the CUDA cores' 67 (the f32 route), or at the route's own peak,
+    and the bytes at HBM's rate."""
+    if route == K1_TF32_ROUTE:
+        ops = (f"operations {flops / TF32X3_FLOPS * 1e3:.4f} ms at 3xTF32's 165 TFLOP/s, "
+               f"{flops / PEAK_FLOPS['float32'] * 1e3:.4f} at 67")
+    else:
+        peak = PEAK_FLOPS["bfloat16" if route.startswith("bf16") else "float32"]
+        ops = f"operations {flops / peak * 1e3:.4f} ms"
+    return f"{ops}; bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms"
 
 
 def check_k1(b: int, n: int, dtype, device, geom_name: str = "ml-20m",
@@ -555,7 +621,8 @@ def check_k1(b: int, n: int, dtype, device, geom_name: str = "ml-20m",
     d, h, dqk, dv, _ = geom
     args, kw = k1_inputs(b, n, dtype, device, geom=geom)
     kw["normalization"] = normalization
-    got = fused_hstu_block(*args, **kw)
+    route = k1_route(dtype, d, n, h, dqk, dv, "silu")
+    got = tf32_launched(lambda: fused_hstu_block(*args, **kw), route)
     ref = fused_hstu_block_reference(*args, **kw)
     rtol, atol = K1_TOL[str(dtype).split(".")[-1]]
     torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=atol)
@@ -564,13 +631,15 @@ def check_k1(b: int, n: int, dtype, device, geom_name: str = "ml-20m",
     plain_ms = cuda_ms(lambda: fused_hstu_block_reference(*args, **kw))
     dt = str(dtype)[6:]
     softmax = normalization == "softmax_rel_bias"
-    bd = bound(k1_variant_flops(b, n, softmax, h * dv, geom=geom),
-               k1_variant_bytes(b, n, args[0].element_size(), h * dv, "internal", geom=geom), dt)
+    flops = k1_variant_flops(b, n, softmax, h * dv, geom=geom)
+    nbytes = k1_variant_bytes(b, n, args[0].element_size(), h * dv, "internal", geom=geom)
+    bd = bound(flops, nbytes, "tf32x3" if route == K1_TF32_ROUTE else dt)
     label = "" if geom_name == "ml-20m" else f" {geom_name}"
     print(f"[K1]{label} {dt} B={b} n={n} D={d} h={h} dqk={dqk} dv={dv}"
-          f"{' softmax' if softmax else ''}: max|err| {err:.3e} (rtol {rtol}, atol {atol}); "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bd['bound_ms']:.4f} ms "
-          f"({bd['bound_by']}); stages {stage_split(lambda: fused_hstu_block(*args, **kw))}")
+          f"{' softmax' if softmax else ''} ({route}): max|err| {err:.3e} (rtol {rtol}, atol "
+          f"{atol}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bd['bound_ms']:.4f} ms "
+          f"({bd['bound_by']}; {bound_terms(flops, nbytes, route)}); "
+          f"stages {stage_split(lambda: fused_hstu_block(*args, **kw))}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": None}
 
 
@@ -632,6 +701,135 @@ def check_k1_stages(b: int, n: int, device) -> dict:
            lambda: hb.out_gemm(o_ref, o_kernel, o_bias, x),
            lambda: hb.out_gemm_reference(o_ref, o_kernel, o_bias, x), 2 * m * hv * d,
            2 * (m * hv + hv * d + 2 * m * d) + 4 * d)
+    return out
+
+
+def check_k1_tf32_stages(b: int, n: int, device) -> dict:
+    """K1's f32 route (3xTF32, csrc/hstu_serve_tf32.cuh) at ML-20M widths,
+    stage by stage on the same inputs: the projection, the pointwise and the
+    softmax attention over the plain y, the output GEMM over the plain y and
+    attn. Each twice, bit-equal, within K1_TF32_STAGE_TOL of its largest
+    value; kernel and plain ms, one call's device us, and the bound with its
+    terms (operations at 3xTF32's 165 TFLOP/s and the CUDA cores' 67, bytes:
+    each input read once, each output written once). Returns them by name."""
+    import torch
+
+    from rails_tpu_torch.ops import hstu_block as hb
+
+    d, h, dqk, dv, _ = K1_GEOMS["ml-20m"]
+    (x, colmask, uvqk, o_kernel, o_bias, rel_pos, ext, tsw), kw = k1_inputs(
+        b, n, torch.float32, device)
+    lay = dict(num_heads=h, dqk=dqk, dv=dv)
+    akw = dict(lay, inv_n=kw["inv_n"])
+    m, hdv, hq = b * n, h * dv, h * dqk
+    f, causal = 2 * hdv + 2 * hq, n * (n + 1) // 2
+    y = hb.tf32_project_reference(x, uvqk)
+    attn = hb.tf32_attention_reference(y, colmask, rel_pos, ext, tsw, **akw)
+    att_bytes = 4 * (m * (hdv + 2 * hq) + m * hdv + n * n + 128 + b * (n + 1) + m)
+    cases = (
+        ("project", lambda: hb.tf32_project(x, uvqk, **lay),
+         lambda: hb.tf32_project_reference(x, uvqk), 2 * m * d * f, 4 * (m * d + d * f + m * f)),
+        ("attention", lambda: hb.tf32_attention(y, colmask, rel_pos, ext, tsw, **akw),
+         lambda: hb.tf32_attention_reference(y, colmask, rel_pos, ext, tsw, **akw),
+         2 * b * h * causal * (dqk + dv), att_bytes),
+        ("attention softmax",
+         lambda: hb.tf32_attention(y, colmask, rel_pos, ext, tsw, **akw, softmax=True),
+         lambda: hb.tf32_attention_reference(y, colmask, rel_pos, ext, tsw, **akw, softmax=True),
+         b * (2 * n * n * hq + 2 * causal * hdv), att_bytes),
+        ("out_gemm", lambda: hb.tf32_out_gemm(x, y, attn, o_kernel, o_bias, **lay),
+         lambda: hb.tf32_out_gemm_reference(x, y, attn, o_kernel, o_bias, num_heads=h, dv=dv),
+         2 * m * hdv * d, 4 * (2 * m * hdv + hdv * d + d + 2 * m * d)),
+    )
+    out = {}
+    for name, kernel, plain, flops, nbytes in cases:
+        got, again, want = kernel(), kernel(), plain()
+        share = rel_err(got, want)
+        if not torch.equal(got, again):
+            raise AssertionError(f"[K1-stage] {name} f32: two calls differ")
+        if share > K1_TF32_STAGE_TOL:
+            raise AssertionError(f"[K1-stage] {name} f32 outside {K1_TF32_STAGE_TOL}: {share}")
+        err = (got - want).abs().max().item()
+        ms, plain_ms = cuda_ms(kernel), cuda_ms(plain, iters=3, warmup=1)
+        bd = bound(flops, nbytes, "tf32x3")
+        print(f"[K1-stage] {name} f32 B={b} n={n}: max|err|/max|plain| {share:.2e} (<= "
+              f"{K1_TF32_STAGE_TOL}), max|err| {err:.3e}, two calls bit-equal; kernel {ms:.3f} "
+              f"ms [{TF32_INSTRUCTION}], plain {plain_ms:.3f} ms, bound {bd['bound_ms']:.4f} ms "
+              f"({bd['bound_by']}; {bound_terms(flops, nbytes, K1_TF32_ROUTE)}); "
+              f"{stage_split(kernel)}")
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": None}
+    return out
+
+
+def digest(*tensors) -> str:
+    """sha256 prefix of the tensors' bytes (None skipped)."""
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        if t is not None:
+            h.update(t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def untouched_hashes(device) -> dict:
+    """`[K1-hash]`: sha256 prefixes of the outputs K1's f32 route leaves
+    alone, on operands from fixed seeds: bf16 K1 and each bf16 variant
+    instance; the f32 K1 instances off the route (activation none, n = 257,
+    h = 4 with dqk = dv = 64); K4's forward and attention backward (f32 on
+    its 3xTF32 route, its off-route softmax, activation none and h = 4, dqk
+    = dv = 64 instances, and bf16); P1's modes in f32 and bf16. Only calls an
+    older tree has: the lines of a tree unpacked by `git archive` (with this
+    file copied in) compare bit for bit. Returns them by name."""
+    import numpy as np
+    import torch
+
+    from rails_tpu_torch.cli import encode_probe as p1cli
+    from rails_tpu_torch.ops import encode_probe as ep
+    from rails_tpu_torch.ops import hstu_block_train as hbt
+    from rails_tpu_torch.ops.hstu_block import fused_hstu_block, ln
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    out = {}
+    b, n = 64, MAX_SEQ_LEN
+    args, kw = k1_inputs(b, n, bf16, device)
+    out["K1 bf16"] = digest(fused_hstu_block(*args, **kw))
+    for inst in K1_VAR_INSTANCES:
+        vargs, vkw = k1_variant_inputs(b, n, bf16, device, inst)
+        out[f"K1 bf16 {inst}"] = digest(fused_hstu_block(**vargs, **vkw))
+    vargs, vkw = k1_variant_inputs(b, n, f32, device, "activation none")
+    out["K1 f32 activation none"] = digest(fused_hstu_block(**vargs, **vkw))
+    for label, geom in (("n=257", (D, H, DQK, DV, 257)), ("h=4, dqk=dv=64", (D, 4, 64, 64, n))):
+        gargs, gkw = k1_inputs(8, geom[4], f32, device, geom=geom)
+        out[f"K1 f32 {label}"] = digest(fused_hstu_block(*gargs, **gkw))
+    seed = 987_654_321
+    for inst, dtype in ((None, f32), ("softmax", f32), ("activation none", f32),
+                        ("h=4, dqk=dv=64", f32), (None, bf16)):
+        meta, has_bias = k4_meta(inst)
+        geom = (D, meta.num_heads, meta.dqk, meta.dv, n)
+        (x, colmask, uvqk, o_kernel, o_bias, rel_pos, ext, tsw), _ = k1_inputs(
+            32, n, dtype, device, seed=3, geom=geom)
+        x = x * colmask[..., None].to(dtype)
+        if not has_bias:
+            rel_pos = ext = tsw = None
+        fwd, attn = hbt.fused_train_block_forward(x, colmask, uvqk, o_kernel, o_bias, rel_pos,
+                                                  ext, tsw, seed, meta)
+        z = ln(x.float(), meta.eps).to(dtype).float() @ uvqk.float()
+        y = (z * torch.sigmoid(z) if meta.activation == "silu" else z).to(dtype)
+        g = torch.Generator(device=device).manual_seed(13)
+        d_o = torch.randn(32, n, meta.o_width, generator=g, device=device).to(dtype)
+        bwd = hbt.attn_backward(y, d_o, None if dtype == bf16 else attn, colmask, rel_pos, ext,
+                                tsw, meta, seed)
+        name = f"K4 {inst or 'default'} {str(dtype)[6:]}"
+        out[f"{name} forward"], out[f"{name} attention backward"] = digest(fwd, attn), digest(*bwd)
+    for dtype in (f32, bf16):
+        d = p1cli.probe_data(16, P1_LENGTH, 1, np.random.default_rng(2), device)
+        pargs = (d["x0"].to(dtype), d["colmask"], d["uvqk"][0].to(dtype), d["ow"][0].to(dtype),
+                 d["ob"][0], d["rel_pos"], d["ext"], d["tsw"])
+        pkw = dict(num_heads=H, dqk=DQK, dv=DV, inv_n=1.0 / P1_LENGTH)
+        for mode in ep.MODES:
+            out[f"P1 {mode} {str(dtype)[6:]}"] = digest(ep.encode_probe_block(mode, *pargs, **pkw))
+    for name, value in out.items():
+        print(f"[K1-hash] {name}: {value}")
     return out
 
 
@@ -833,6 +1031,8 @@ def kernel_counters() -> dict:
         "P1": encode_probe.encode_probe_block, "P2": mol_probe.mol_probe_scores,
         "K1 proj": hstu_block.project, "K1 attn": hstu_block.attention_oinput,
         "K1 out": hstu_block.out_gemm,
+        **dict(zip(K1_TF32_STAGES, (hstu_block.tf32_project, hstu_block.tf32_attention,
+                                    hstu_block.tf32_out_gemm))),
         "K4 attn": hstu_block_train.train_attention_oinput,
         "K4 bwd rows": hstu_block_train.attn_bwd_rows, "K4 bwd dq": hstu_block_train.attn_bwd_dq,
         "K4 bwd dkv": hstu_block_train.attn_bwd_dkv,
@@ -843,6 +1043,7 @@ def kernel_counters() -> dict:
     }
     counters = {name: (fn, "launches") for name, fn in wrappers.items()}
     counters["K2-bmax"] = (mol_scoring.fused_mol_scores_t, "blockmax_launches")
+    counters["K1 f32 softmax"] = (hstu_block.tf32_attention, "softmax_launches")
     for k in ("K2", "K8", "K9", "K10"):
         counters[f"{k}-int8"] = (wrappers[k], "int8_launches")
     for k in ("K2", "K8", "K9", "K10", "P2", "K4 fwd", "K4 bwd", "K5 fwd", "K5 bwd"):
@@ -956,7 +1157,7 @@ def end_to_end(device, name: str, smi: str, n_batches: int = 3) -> dict:
     """bf16 (the served path, `bench.py`'s settings) and f32: the kernel path
     with its launch counts and times, against the same step through the plain
     versions on the card; then both bf16 paths against the f32 plain path.
-    Returns the bf16 run's launch counts."""
+    Returns each run's launch counts by dtype name."""
     import torch
 
     launches, ids = {}, {}
@@ -975,11 +1176,15 @@ def end_to_end(device, name: str, smi: str, n_batches: int = 3) -> dict:
         reset_launches()
         outs_k, ms = run_batches(serve, batches)
         counts = {k: v for k, v in launch_counts().items()
-                  if k in ("K1", "K2", "K2-tc") + K1_STAGES}
+                  if k in ("K1", "K2", "K2-tc", "K1 f32 softmax") + K1_STAGES + K1_TF32_STAGES}
         bf16 = dtype == torch.bfloat16
-        stages = counts["K1"] if bf16 else 0   # f32: the CUDA-core K1 and K2
+        # bf16: K1's bf16 tensor-core stages; f32: its 3xTF32 stages (the
+        # pointwise attention) and the CUDA-core K2 on f32 tables.
+        stages, stages32 = (counts["K1"], 0) if bf16 else (0, counts["K1"])
         if (counts["K1"] != model.cfg.hstu.num_blocks * len(batches) or counts["K2"] < len(batches)
                 or any(counts[k] != stages for k in K1_STAGES)
+                or any(counts[k] != stages32 for k in K1_TF32_STAGES)
+                or counts["K1 f32 softmax"] != 0
                 or counts["K2-tc"] != (counts["K2"] if bf16 else 0)):
             raise AssertionError(f"main path launches {counts} for {len(batches)} batches")
         launches[dtype_name] = counts
@@ -1009,7 +1214,7 @@ def end_to_end(device, name: str, smi: str, n_batches: int = 3) -> dict:
           f"bf16 plain path {plain_bf16:.4f} (kernel >= plain - {BF16_VS_F32_SLACK})")
     if kernel_bf16 < plain_bf16 - BF16_VS_F32_SLACK:
         raise AssertionError("the bf16 kernel path is further from f32 than the bf16 plain path")
-    return launches["bfloat16"]
+    return launches
 
 
 def check_k3(device) -> dict:
@@ -2806,9 +3011,10 @@ def check_k1_variant(b: int, n: int, dtype, device, instance: str) -> dict:
 
     from rails_tpu_torch.ops.hstu_block import fused_hstu_block, fused_hstu_block_reference
 
-    mode, _, normalization, concat_ua = K1_VAR_INSTANCES[instance]
+    mode, activation, normalization, concat_ua = K1_VAR_INSTANCES[instance]
     args, kw = k1_variant_inputs(b, n, dtype, device, instance)
-    got = fused_hstu_block(**args, **kw)
+    route = k1_route(dtype, D, n, H, DQK, DV, activation)
+    got = tf32_launched(lambda: fused_hstu_block(**args, **kw), route)
     ref = fused_hstu_block_reference(**args, **kw)
     dt = str(dtype)[6:]
     rtol, atol = K1_TOL[dt]
@@ -2818,12 +3024,13 @@ def check_k1_variant(b: int, n: int, dtype, device, instance: str) -> dict:
     plain_ms = cuda_ms(lambda: fused_hstu_block_reference(**args, **kw), iters=3, warmup=1)
     rows = (3 if concat_ua else 1) * H * DV
     softmax = normalization == "softmax_rel_bias"
-    bd = bound(k1_variant_flops(b, n, softmax, rows),
-               k1_variant_bytes(b, n, args["x"].element_size(), rows, mode), dt)
+    flops = k1_variant_flops(b, n, softmax, rows)
+    nbytes = k1_variant_bytes(b, n, args["x"].element_size(), rows, mode)
+    bd = bound(flops, nbytes, "tf32x3" if route == K1_TF32_ROUTE else dt)
     print(f"[K1-var] {instance} {dt} B={b} n={n} D={D} h={H} (bias {mode}, "
-          f"{kw['activation']}, {normalization}, o_kernel {rows} rows): max|err| {err:.3e} "
-          f"(rtol {rtol}, atol {atol}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+          f"{kw['activation']}, {normalization}, o_kernel {rows} rows; {route}): max|err| "
+          f"{err:.3e} (rtol {rtol}, atol {atol}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}; {bound_terms(flops, nbytes, route)})")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": None}
 
 
@@ -2841,19 +3048,22 @@ def variant_config(instance: str) -> tuple:
 
 
 def variants_e2e(device, name: str, smi: str) -> dict:
-    """ml-20m-hstu-mol in bf16 with fused_inference and each K1 variant's
-    configuration (`variant_config`, through `apply_override`): one batch of
-    512 through get_eval_state and make_eval_step_fn (K1 + K2) against the
-    same step through the plain versions, with `[e2e]`'s bf16 rank and
-    overlap checks. Returns each instance's launch counts of its kernel-path
-    run."""
+    """ml-20m-hstu-mol with fused_inference and each K1 variant's
+    configuration (`variant_config`, through `apply_override`), in bf16 and,
+    for the instances of K1's f32 route (SiLU), in f32: one batch of 512
+    through get_eval_state and make_eval_step_fn (K1 + K2) against the same
+    step through the plain versions, with `[e2e]`'s rank and overlap checks
+    of its dtype; every block on its route's stages. Returns each run's
+    launch counts by (instance, dtype name)."""
     import torch
 
-    _, min_rank_agree, min_overlap = E2E_TOL[0]
     runs = {}
-    for instance in K1_VAR_INSTANCES:
+    for instance, dtype_name in [(i, d) for d, *_ in E2E_TOL for i in K1_VAR_INSTANCES
+                                 if d == "bfloat16" or K1_VAR_INSTANCES[i][1] == "silu"]:
+        min_rank_agree, min_overlap = {d: t for d, *t in E2E_TOL}[dtype_name]
+        dtype = getattr(torch, dtype_name)
         overrides, int64 = variant_config(instance)
-        model, es, step, batches = serving_setup(torch.bfloat16, device, 1, overrides=overrides)
+        model, es, step, batches = serving_setup(dtype, device, 1, overrides=overrides)
         if int64:
             batches = [(f._replace(timestamps=f.timestamps.long()), t) for f, t in batches]
 
@@ -2866,17 +3076,22 @@ def variants_e2e(device, name: str, smi: str) -> dict:
         counts = {k: v for k, v in launch_counts().items() if v}
         check_outputs(outs_k, batches)
         want = model.cfg.hstu.num_blocks * len(batches)
-        stages = want if model.cfg.hstu.linear_activation == "silu" else 0   # `tc_block`
+        silu = model.cfg.hstu.linear_activation == "silu"   # `tc_block`, `tf32_block`
+        bf16 = dtype == torch.bfloat16
+        stages, stages32 = (want * silu, 0) if bf16 else (0, want)
+        softmax32 = stages32 * (K1_VAR_INSTANCES[instance][2] == "softmax_rel_bias")
         if (counts.get("K1") != want or counts.get("K2", 0) < len(batches)
-                or any(counts.get(k, 0) != stages for k in K1_STAGES)):
-            raise AssertionError(f"{instance}: launches {counts}, want K1 {want}")
+                or any(counts.get(k, 0) != stages for k in K1_STAGES)
+                or any(counts.get(k, 0) != stages32 for k in K1_TF32_STAGES)
+                or counts.get("K1 f32 softmax", 0) != softmax32):
+            raise AssertionError(f"{instance} {dtype_name}: launches {counts}, want K1 {want}")
         with plain_kernels():
             outs_p, ms_p = run_batches(serve, batches)
         rk, rp = (torch.cat([o[0] for o in o_]) for o_ in (outs_k, outs_p))
         ik, ip = (torch.cat([o[1] for o in o_]) for o_ in (outs_k, outs_p))
         rank_agree = (rk == rp).float().mean().item()
         overlap = id_overlap(ik, ip)
-        print(f"[variants-e2e] {instance}: ml-20m-hstu-mol bf16 fused_inference "
+        print(f"[variants-e2e] {instance}: ml-20m-hstu-mol {dtype_name} fused_inference "
               f"{list(overrides)}{' + int64 timestamps' if int64 else ''}, {len(batches)} batch "
               f"of {BATCH} (n={batches[0][0].ids.shape[1]}), {NUM_ITEMS} items, k=120, k'=200: "
               f"launches {counts}; kernel path {ms_k:.3f} ms/batch, plain path {ms_p:.3f} "
@@ -2884,8 +3099,9 @@ def variants_e2e(device, name: str, smi: str) -> dict:
               f"{rk.numel()} rows (>= {min_rank_agree}), top-120 overlap {overlap:.4f} "
               f"(>= {min_overlap})")
         if rank_agree < min_rank_agree or overlap < min_overlap:
-            raise AssertionError(f"{instance}: the kernel path disagrees with the plain path")
-        runs[instance] = counts
+            raise AssertionError(f"{instance} {dtype_name}: the kernel path disagrees with the "
+                                 f"plain path")
+        runs[(instance, dtype_name)] = counts
         del model, es, step, batches, outs_k, outs_p
         torch.cuda.empty_cache()
     return runs
@@ -3153,6 +3369,8 @@ def main() -> None:
         for n in (64, MAX_SEQ_LEN):
             k1[(dtype, n)] = check_k1(BATCH, n, dtype, device)
     k1_stages = check_k1_stages(BATCH, MAX_SEQ_LEN, device)
+    k1_tf32 = check_k1_tf32_stages(BATCH, MAX_SEQ_LEN, device)
+    untouched_hashes(device)
     for dtype in (torch.float32, torch.bfloat16):
         check_k1(BATCH, K1_GEOMS["books"][4], dtype, device, "books")
         check_k1(BATCH, MAX_SEQ_LEN, dtype, device, "ml-1m")
@@ -3160,7 +3378,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     k2 = {kind: check_k2(BATCH, NUM_ITEMS, kind, device)
           for kind in ("float32", "bfloat16", "int8")}
-    launches = end_to_end(device, name, smi)
+    e2e = end_to_end(device, name, smi)
+    launches = dict(e2e["bfloat16"])
     torch.cuda.empty_cache()
     k3 = check_k3(device)
     k4_fwd, k4_bwd = check_k4(device, torch.float32)
@@ -3330,7 +3549,7 @@ def main() -> None:
     summary += [
         entry(f"fused_hstu_block ({inst}, bf16)", "hstu_block.cu",
               "rails_tpu/ops/pallas/hstu_block.py:432", "K1", k1v[(inst, torch.bfloat16)],
-              k1v_runs[inst])
+              k1v_runs[(inst, "bfloat16")])
         for inst in K1_VAR_INSTANCES
     ]
     tc_src, k1_site = "hstu_block_tc.cuh", "rails_tpu/ops/pallas/hstu_block.py:432"
@@ -3340,9 +3559,30 @@ def main() -> None:
         entry("tc_attn_kernel (K1 attention + o_input, bf16)", tc_src, k1_site, "K1 attn",
               k1_stages["attention"]),
         entry("tc_softmax_kernel (K1 softmax attention + o_input, bf16)", tc_src, k1_site,
-              "K1 attn", k1_stages["attention softmax"], k1v_runs["softmax"]),
+              "K1 attn", k1_stages["attention softmax"], k1v_runs[("softmax", "bfloat16")]),
         entry("tc_out_kernel (K1 output GEMM, bf16)", tc_src, k1_site, "K1 out",
               k1_stages["out_gemm"]),
+    ]
+    # K1's f32 route (3xTF32): the block on the f32 serving path, its kernels
+    # (launches from [e2e] f32; the softmax kernel's from its variant's f32
+    # serving run) and its f32 variant instances.
+    serve_src, f32_runs = "hstu_serve_tf32.cuh", e2e["float32"]
+    summary += [
+        entry("fused_hstu_block (f32, 3xTF32)", "hstu_serve_tf32.cu", k1_site, "K1",
+              k1[(torch.float32, MAX_SEQ_LEN)], f32_runs),
+        entry("serve_proj_kernel (K1 LayerNorm + projection, f32 3xTF32)", serve_src,
+              k1_site, "K1 f32 proj", k1_tf32["project"], f32_runs),
+        entry("serve_attn_kernel (K1 pointwise attention, f32 3xTF32)", serve_src, k1_site,
+              "K1 f32 attn", k1_tf32["attention"], f32_runs),
+        entry("serve_softmax_kernel (K1 softmax attention, f32 3xTF32)", serve_src, k1_site,
+              "K1 f32 softmax", k1_tf32["attention softmax"], k1v_runs[("softmax", "float32")]),
+        entry("serve_out_kernel (K1 o_input + output GEMM, f32 3xTF32)", serve_src,
+              k1_site, "K1 f32 out", k1_tf32["out_gemm"], f32_runs),
+    ]
+    summary += [
+        entry(f"fused_hstu_block ({inst}, f32, 3xTF32)", "hstu_serve_tf32.cu", k1_site, "K1",
+              k1v[(inst, torch.float32)], k1v_runs[(inst, "float32")])
+        for inst in K1_VAR_INSTANCES if (inst, "float32") in k1v_runs
     ]
     k4_fwd_site = "rails_tpu/ops/pallas/hstu_block_train.py:574"
     k4_bwd_site = "rails_tpu/ops/pallas/hstu_block_train.py:629"

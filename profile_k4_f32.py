@@ -31,9 +31,9 @@ ml-20m-hstu-mol's train block (B = 128, n = 211, o_input dropout 0.2;
     stage outside it.
 `--time-only` prints only the time lines (and the stage errors if asked).
 `--variant NAME` copies the package, this script and chip_smoke.py to
-build/k4_variant/NAME/, rewrites csrc/hstu_train_tf32.cuh there as VARIANTS
-says, and runs this script in the copy with the other arguments (the copy
-builds its own library): `two-ctas` lays the attention, dq and dkv blocks
+build/k4_variant/NAME/, rewrites its sources there as VARIANTS says, and
+runs this script in the copy with the other arguments (the copy builds its
+own library): `two-ctas` lays the attention, dq and dkv blocks
 out as 32 rows x 64 columns of 4 warps, two blocks an SM (98-112 KB of
 shared memory each at n = 211); `1xtf32` drops the lo terms of every product
 (hi.hi alone), the fault K4_TF32_STAGE_TOL must catch. The script takes only calls an
@@ -63,13 +63,15 @@ KERNELS = ("tc_tf32_proj_kernel", "tc_tf32_attn_kernel", "tc_tf32_out_kernel",
            "tc_tf32_dq_kernel", "tc_tf32_dkv_kernel", "attn_row_bwd_kernel")
 REGS_PER_SM, SMEM_PER_SM, SMEM_PER_BLOCK_RESERVED, MAX_WARPS_PER_SM = 65_536, 232_448, 1024, 64
 HEADER = Path("rails_tpu_torch") / "csrc" / "hstu_train_tf32.cuh"
-# --variant's rewrites of HEADER: (text, replacement), each found exactly once.
+MMA_HEADER = Path("rails_tpu_torch") / "csrc" / "tf32_mma.cuh"   # the 3xTF32 products
+# --variant's rewrites: (file, text, replacement), each text found exactly once.
 VARIANTS = {
-    "two-ctas": [("constexpr int kTRows = 64;", "constexpr int kTRows = 32;"),
-                 ("constexpr int kColWarps = 4;", "constexpr int kColWarps = 2;"),
-                 ("constexpr int kAttnBlocksPerSm = 1;", "constexpr int kAttnBlocksPerSm = 2;")],
-    "1xtf32": [("tc::mma_tf32(c[j], a.lo, b[j].hi);", "{}"),
-               ("tc::mma_tf32(c[j], a.hi, b[j].lo);", "{}")],
+    "two-ctas": [(HEADER, "constexpr int kTRows = 64;", "constexpr int kTRows = 32;"),
+                 (HEADER, "constexpr int kColWarps = 4;", "constexpr int kColWarps = 2;"),
+                 (HEADER, "constexpr int kAttnBlocksPerSm = 1;",
+                  "constexpr int kAttnBlocksPerSm = 2;")],
+    "1xtf32": [(MMA_HEADER, "tc::mma_tf32(c[j], a.lo, b[j].hi);", "{}"),
+               (MMA_HEADER, "tc::mma_tf32(c[j], a.hi, b[j].lo);", "{}")],
 }
 MMA_RATE_SRC = r"""
 #include <cstdint>
@@ -326,13 +328,12 @@ def run_variant(name: str, args: list) -> None:
                     ignore=shutil.ignore_patterns("__pycache__"))
     for script in ("chip_smoke.py", "profile_k4_f32.py"):
         shutil.copy2(root / script, tree / script)
-    text = (tree / HEADER).read_text()
-    for old, new in VARIANTS[name]:
+    for path, old, new in VARIANTS[name]:
+        text = (tree / path).read_text()
         if text.count(old) != 1:
             raise RuntimeError(f"variant {name}: {old!r} found {text.count(old)} times")
-        text = text.replace(old, new)
-    (tree / HEADER).write_text(text)
-    print(f"[K4-variant] {name}: {'; '.join(f'{o!r} -> {n!r}' for o, n in VARIANTS[name])}",
+        (tree / path).write_text(text.replace(old, new))
+    print(f"[K4-variant] {name}: {'; '.join(f'{o!r} -> {n!r}' for _, o, n in VARIANTS[name])}",
           flush=True)
     subprocess.run([sys.executable, "profile_k4_f32.py", *args], cwd=tree, check=True,
                    timeout=1800)

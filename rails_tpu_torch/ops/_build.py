@@ -170,6 +170,14 @@ def load_library() -> ctypes.CDLL:
     lib.rails_hstu_tf32_bwd.restype = i
     lib.rails_hstu_tf32_smem_bytes.argtypes = [i] * 4
     lib.rails_hstu_tf32_smem_bytes.restype = ctypes.c_size_t
+    lib.rails_hstu_serve_tf32_project.argtypes = [p] * 3 + [i] * 6 + [f, p]
+    lib.rails_hstu_serve_tf32_project.restype = i
+    lib.rails_hstu_serve_tf32_attention.argtypes = [p] * 7 + [i] * 5 + [f, f] + [i] * 3 + [p]
+    lib.rails_hstu_serve_tf32_attention.restype = i
+    lib.rails_hstu_serve_tf32_out.argtypes = [p] * 6 + [i] * 6 + [f, i, p]
+    lib.rails_hstu_serve_tf32_out.restype = i
+    lib.rails_hstu_serve_tf32_smem_bytes.argtypes = [i] * 5
+    lib.rails_hstu_serve_tf32_smem_bytes.restype = ctypes.c_size_t
     lib.rails_hstu_train_bwd_smem_bytes.argtypes = [i, i, i]
     lib.rails_hstu_train_bwd_smem_bytes.restype = ctypes.c_size_t
     lib.rails_hash_keep_mask.argtypes = [p, i, i, i, i, u32, f, p]

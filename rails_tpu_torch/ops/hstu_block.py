@@ -22,19 +22,24 @@ the output GEMM), f32 accumulation. bf16 operands at the widths of
 of `csrc/hstu_block_tc.cuh` (mma.sync bf16): the projection stores u in f32
 and v, q, k as the bf16 values the JAX kernel rounds them to (`project`), the
 attention builds the bias once for all heads and writes o_input in bf16
-(`attention_oinput`), and `out_gemm` adds bo and x. Every other instance
-(f32, bf16 outside the width rule, linear_activation="none") runs the
+(`attention_oinput`), and `out_gemm` adds bo and x. f32 operands at the
+same widths with n <= 256 and the SiLU projection (`tf32_block`) run the
+3xTF32 kernels of `csrc/hstu_serve_tf32.cuh` (mma.sync, every product as lo.hi
++ hi.lo + hi.hi of split f32 operands): `tf32_project` writes y = [u | v | q |
+k] in f32, `tf32_attention` attn in f32 (pointwise, or the softmax map), and
+`tf32_out_gemm` builds o_input from attn and u and adds bo and x. Every other
+instance (bf16 or f32 outside those rules, linear_activation="none") runs the
 CUDA-core kernels of `csrc/hstu_block.cuh`. What bounds each and how is in
-the two headers.
+the headers.
 
 Each stage has a plain version (`project_reference`,
-`attention_oinput_reference`, `out_gemm_reference`); composed they give
-`fused_hstu_block_reference` bit for bit. Every wrapper follows the port's
-dispatch rule (`core.device.use_kernel`): CPU tensors run the plain version,
-CUDA tensors launch the kernel or raise. `fused_hstu_block.launches` counts
-block calls on the card, and `project.launches`, `attention_oinput.launches`
-and `out_gemm.launches` each stage's tensor-core launches (the block's own
-included).
+`attention_oinput_reference`, `out_gemm_reference`; `tf32_*_reference`);
+composed they give `fused_hstu_block_reference` bit for bit. Every wrapper
+follows the port's dispatch rule (`core.device.use_kernel`): CPU tensors run
+the plain version, CUDA tensors launch the kernel or raise.
+`fused_hstu_block.launches` counts block calls on the card, and each stage
+wrapper's `.launches` its own launches (the block's included);
+`tf32_attention.softmax_launches` counts the softmax kernel's.
 """
 
 from __future__ import annotations
@@ -51,6 +56,10 @@ from rails_tpu_torch.ops import _build
 _INV_LOG_BASE = torch.tensor(1.0 / 0.301, dtype=torch.float32)
 # Shared memory one Hopper block may use.
 MAX_SMEM_BYTES = 232_448
+# The longest sequence of K1's f32 route on the tensor cores: a block of 64
+# rows holds the bias (softmax: the scores) of every key (`kTf32MaxN`,
+# csrc/hstu_block_tc.cuh).
+TF32_MAX_N = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -102,6 +111,32 @@ def tc_block(dtype: torch.dtype, d: int, num_heads: int, dqk: int, dv: int,
     sequential f32 sums agree on 0.973 (`profile_k1_agreement.py`, PERF.md
     §6). The SiLU variants agree on 0.968-0.985 through the tensor cores."""
     return activation == "silu" and tc_route(dtype, d, num_heads, dqk, dv)
+
+
+def tf32_block(dtype: torch.dtype, d: int, n: int, num_heads: int, dqk: int, dv: int,
+               activation: str) -> bool:
+    """Whether `fused_hstu_block` runs K1's f32 serving route on the tensor
+    cores, every product as 3xTF32 (csrc/hstu_serve_tf32.cuh: `tf32_project`,
+    `tf32_attention`, `tf32_out_gemm`): f32 operands at `tc_widths` (D <=
+    256, dqk and dv <= 32, h <= 3 or an even h <= 8) with 1 <= n <=
+    TF32_MAX_N and the SiLU projection; any bias (in-kernel, precomputed raw
+    or with mask_in_bias, none), concat_ua, pointwise or softmax attention.
+    linear_activation="none" stays on the CUDA-core kernels, as `tc_block`
+    says for bf16: its unsquashed projection carries the GEMMs' order of f32
+    sums into the served ranking. Wider heads and longer sequences stay there
+    too."""
+    return (dtype == torch.float32 and activation == "silu" and 1 <= n <= TF32_MAX_N
+            and tc_widths(d, num_heads, dqk, dv))
+
+
+def require_tf32(dtype: torch.dtype, d: int, n: int, num_heads: int, dqk: int, dv: int,
+                 what: str) -> None:
+    """Raise ValueError unless `tf32_block`'s widths take these operands: the
+    f32 route's stage kernels have no other instance."""
+    if not tf32_block(dtype, d, n, num_heads, dqk, dv, "silu"):
+        raise ValueError(f"{what}: no 3xTF32 instance for {dtype}, D={d}, n={n}, h={num_heads}, "
+                         f"dqk={dqk}, dv={dv} (tf32_block: f32, D <= 256, dqk and dv <= 32, "
+                         f"h <= 3 or an even h <= 8, n <= {TF32_MAX_N})")
 
 
 def require_tc(dtype: torch.dtype, d: int, num_heads: int, dqk: int, dv: int, what: str) -> None:
@@ -247,7 +282,6 @@ def block_forward_reference(
     mask."""
     concat_ua = _variant(num_heads, dv, o_kernel, rel_pos, bias, mask_in_bias, activation,
                          softmax)
-    b, n, _ = x.shape
     h = num_heads
     mm = uvqk.dtype
 
@@ -262,6 +296,27 @@ def block_forward_reference(
     v = rnd(v if softmax else v * inv_n)
     q = rnd(y[..., 2 * h * dv : 2 * h * dv + h * dqk])
     k = rnd(y[..., 2 * h * dv + h * dqk :])
+    attn = _attention(q, k, v, colmask, rel_pos, ext, tsw, num_heads=h, dqk=dqk, dv=dv,
+                      num_buckets=num_buckets, bias=bias, mask_in_bias=mask_in_bias,
+                      softmax=softmax, mm=mm, attn_keep=attn_keep)
+    a_ln = ln(attn, eps)
+    o_in = torch.cat([u, a_ln, u * a_ln], dim=-1) if concat_ua else u * a_ln
+    if keep is not None:
+        o_in = o_in * keep
+    out = rnd(o_in) @ o_kernel.float() + o_bias.float() + x.float()
+    return out.to(x.dtype), attn
+
+
+def _attention(q, k, v, colmask, rel_pos, ext, tsw, *, num_heads: int, dqk: int, dv: int,
+               num_buckets: int, bias: Optional[torch.Tensor], mask_in_bias: bool,
+               softmax: bool, mm: torch.dtype,
+               attn_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """attn (B, n, h*dv) f32 from f32 q, k, v (the matmul dtype's values; v
+    already scaled by 1/max_seq_len unless softmax): the bias, the mask and
+    the attention of `block_forward_reference`, a rounded to `mm` before a @
+    v."""
+    b, n, _ = q.shape
+    h = num_heads
     if rel_pos is not None:
         delta = ext[:, 1:, None] - ext[:, None, :n]                   # (B, n, n)
         add = rel_pos[None] + tsw[time_bucket(delta, num_buckets).long()]
@@ -269,7 +324,7 @@ def block_forward_reference(
         add = None if bias is None else bias.float()
     mask = None
     if not mask_in_bias:
-        causal = torch.tril(torch.ones(n, n, dtype=torch.float32, device=x.device))
+        causal = torch.tril(torch.ones(n, n, dtype=torch.float32, device=q.device))
         mask = causal[None] * colmask[:, None, :]                      # (B, n, n)
     if softmax:
         qk = q @ k.transpose(1, 2)                                      # (B, n, n)
@@ -282,24 +337,17 @@ def block_forward_reference(
             a = a * mask
         if attn_keep is not None:
             a = a * attn_keep[:, 0]
-        attn = rnd(a) @ v                                              # (B, n, h*dv)
-    else:
-        qk = torch.einsum("bnhd,bmhd->bhnm", q.reshape(b, n, h, dqk), k.reshape(b, n, h, dqk))
-        if add is not None:
-            qk = qk + add[:, None]
-        a = qk * torch.sigmoid(qk)
-        if mask is not None:
-            a = a * mask[:, None]
-        if attn_keep is not None:
-            a = a * attn_keep
-        attn = torch.einsum("bhnm,bmhd->bnhd", rnd(a), v.reshape(b, n, h, dv))
-        attn = attn.reshape(b, n, h * dv)
-    a_ln = ln(attn, eps)
-    o_in = torch.cat([u, a_ln, u * a_ln], dim=-1) if concat_ua else u * a_ln
-    if keep is not None:
-        o_in = o_in * keep
-    out = rnd(o_in) @ o_kernel.float() + o_bias.float() + x.float()
-    return out.to(x.dtype), attn
+        return a.to(mm).float() @ v                                    # (B, n, h*dv)
+    qk = torch.einsum("bnhd,bmhd->bhnm", q.reshape(b, n, h, dqk), k.reshape(b, n, h, dqk))
+    if add is not None:
+        qk = qk + add[:, None]
+    a = qk * torch.sigmoid(qk)
+    if mask is not None:
+        a = a * mask[:, None]
+    if attn_keep is not None:
+        a = a * attn_keep
+    attn = torch.einsum("bhnm,bmhd->bnhd", a.to(mm).float(), v.reshape(b, n, h, dv))
+    return attn.reshape(b, n, h * dv)
 
 
 def project_reference(
@@ -344,39 +392,11 @@ def attention_oinput_reference(
     """Plain version of the attention stage: o_input (B, n, h*dv, or 3*h*dv
     with concat_ua) in the matmul dtype, from the projection's outputs; the
     bias, mask and attention as in `block_forward_reference`."""
-    b, n, _ = u.shape
-    h, mm = num_heads, q.dtype
-    v, q, k = v.float(), q.float(), k.float()
-    if rel_pos is not None:
-        delta = ext[:, 1:, None] - ext[:, None, :n]
-        add = rel_pos[None] + tsw[time_bucket(delta, num_buckets).long()]
-    else:
-        add = None if bias is None else bias.float()
-    mask = None
-    if not mask_in_bias:
-        causal = torch.tril(torch.ones(n, n, dtype=torch.float32, device=u.device))
-        mask = causal[None] * colmask[:, None, :]
-    if softmax:
-        qk = q @ k.transpose(1, 2)
-        if add is not None:
-            qk = qk + add
-        p = qk * (1.0 / float(dqk) ** 0.5)
-        e = torch.exp(p - p.amax(dim=-1, keepdim=True))
-        a = e / e.sum(dim=-1, keepdim=True)
-        if mask is not None:
-            a = a * mask
-        attn = a.to(mm).float() @ v
-    else:
-        qk = torch.einsum("bnhd,bmhd->bhnm", q.reshape(b, n, h, dqk), k.reshape(b, n, h, dqk))
-        if add is not None:
-            qk = qk + add[:, None]
-        a = qk * torch.sigmoid(qk)
-        if mask is not None:
-            a = a * mask[:, None]
-        attn = torch.einsum("bhnm,bmhd->bnhd", a.to(mm).float(), v.reshape(b, n, h, dv))
-        attn = attn.reshape(b, n, h * dv)
+    attn = _attention(q.float(), k.float(), v.float(), colmask, rel_pos, ext, tsw,
+                      num_heads=num_heads, dqk=dqk, dv=dv, num_buckets=num_buckets, bias=bias,
+                      mask_in_bias=mask_in_bias, softmax=softmax, mm=q.dtype)
     a_ln = ln(attn, eps)
-    return (torch.cat([u, a_ln, u * a_ln], dim=-1) if concat_ua else u * a_ln).to(mm)
+    return (torch.cat([u, a_ln, u * a_ln], dim=-1) if concat_ua else u * a_ln).to(q.dtype)
 
 
 def out_gemm_reference(o_input: torch.Tensor, o_kernel: torch.Tensor, o_bias: torch.Tensor,
@@ -503,6 +523,153 @@ def out_gemm(o_input: torch.Tensor, o_kernel: torch.Tensor, o_bias: torch.Tensor
     return out
 
 
+# ---- K1's f32 route on the tensor cores (3xTF32, csrc/hstu_serve_tf32.cuh):
+# three stages over y = [u | v | q | k] (B, n, F) f32 and attn (B, n, h*dv)
+# f32; composed, their plain versions give `fused_hstu_block_reference` bit
+# for bit.
+
+
+def tf32_project_reference(x: torch.Tensor, uvqk: torch.Tensor, *, eps: float = 1e-6
+                           ) -> torch.Tensor:
+    """Plain version of the f32 route's projection: y = SiLU(LN(x) @ uvqk),
+    (B, n, F) f32, v not yet scaled."""
+    y = ln(x.float(), eps) @ uvqk.float()
+    return y * torch.sigmoid(y)
+
+
+def tf32_attention_reference(
+    y: torch.Tensor, colmask: torch.Tensor, rel_pos: Optional[torch.Tensor] = None,
+    ext: Optional[torch.Tensor] = None, tsw: Optional[torch.Tensor] = None, *, num_heads: int,
+    dqk: int, dv: int, inv_n: float, num_buckets: int = 128, bias: Optional[torch.Tensor] = None,
+    mask_in_bias: bool = False, softmax: bool = False,
+) -> torch.Tensor:
+    """Plain version of the f32 route's attention: attn (B, n, h*dv) f32 from
+    y, v times 1/max_seq_len unless softmax."""
+    hdv, hq = num_heads * dv, num_heads * dqk
+    v = y[..., hdv:2 * hdv]
+    return _attention(y[..., 2 * hdv:2 * hdv + hq], y[..., 2 * hdv + hq:],
+                      v if softmax else v * inv_n, colmask, rel_pos, ext, tsw,
+                      num_heads=num_heads, dqk=dqk, dv=dv, num_buckets=num_buckets, bias=bias,
+                      mask_in_bias=mask_in_bias, softmax=softmax, mm=torch.float32)
+
+
+def tf32_out_gemm_reference(x: torch.Tensor, y: torch.Tensor, attn: torch.Tensor,
+                            o_kernel: torch.Tensor, o_bias: torch.Tensor, *, num_heads: int,
+                            dv: int, eps: float = 1e-6) -> torch.Tensor:
+    """Plain version of the f32 route's output GEMM: o_input @ Wo + bo + x,
+    o_input = u * LN(attn) or, when Wo has 3*h*dv rows, [u, LN(attn), u *
+    LN(attn)]; u the first h*dv columns of y."""
+    u, a_ln = y[..., :num_heads * dv], ln(attn, eps)
+    o_in = (torch.cat([u, a_ln, u * a_ln], dim=-1) if o_kernel.shape[0] == 3 * num_heads * dv
+            else u * a_ln)
+    return (o_in @ o_kernel.float() + o_bias.float() + x.float()).to(x.dtype)
+
+
+# Shared-memory kinds of `rails_hstu_serve_tf32_smem_bytes`.
+_TF32_POINT, _TF32_SOFTMAX, _TF32_PROJ, _TF32_OUT = 0, 1, 2, 3
+
+
+def _tf32_lib(what: str, kind: int, n: int, num_heads: int, dqk: int, dv: int):
+    """The library, after the shared-memory check of one f32-route launch."""
+    lib = _build.load_library()
+    smem = lib.rails_hstu_serve_tf32_smem_bytes(kind, n, num_heads, dqk, dv)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{what}: n={n} needs {smem} B of shared memory")
+    return lib
+
+
+def tf32_project(x: torch.Tensor, uvqk: torch.Tensor, *, num_heads: int, dqk: int, dv: int,
+                 eps: float = 1e-6) -> torch.Tensor:
+    """The f32 route's projection; same result as `tf32_project_reference`.
+    CUDA: `serve_proj_kernel` (f32 at the widths of `tf32_block`, else
+    raises)."""
+    if not use_kernel(x, uvqk):
+        return tf32_project_reference(x, uvqk, eps=eps)
+    b, n, d = x.shape
+    h, f32 = num_heads, torch.float32
+    require_tf32(x.dtype, d, n, h, dqk, dv, "tf32_project")
+    f = 2 * h * dv + 2 * h * dqk
+    _check("tf32_project", {"x": (x, f32, (b, n, d)), "uvqk": (uvqk, f32, (d, f))})
+    lib = _tf32_lib("tf32_project", _TF32_PROJ, n, h, dqk, dv)
+    with torch.cuda.device(x.device):
+        y = torch.empty(b, n, f, dtype=f32, device=x.device)
+        err = lib.rails_hstu_serve_tf32_project(
+            x.data_ptr(), uvqk.data_ptr(), y.data_ptr(), b, n, d, h, dqk, dv, eps,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, err, "tf32_project")
+    tf32_project.launches += 1
+    return y
+
+
+def tf32_attention(
+    y: torch.Tensor, colmask: torch.Tensor, rel_pos: Optional[torch.Tensor] = None,
+    ext: Optional[torch.Tensor] = None, tsw: Optional[torch.Tensor] = None, *, num_heads: int,
+    dqk: int, dv: int, inv_n: float, num_buckets: int = 128, bias: Optional[torch.Tensor] = None,
+    mask_in_bias: bool = False, softmax: bool = False,
+) -> torch.Tensor:
+    """The f32 route's attention; same result as `tf32_attention_reference`.
+    CUDA: `serve_attn_kernel` or, with softmax, `serve_softmax_kernel` (f32 at
+    the widths of `tf32_block`, else raises); `.softmax_launches` counts the
+    latter's."""
+    kw = dict(num_heads=num_heads, dqk=dqk, dv=dv, num_buckets=num_buckets, bias=bias,
+              mask_in_bias=mask_in_bias, softmax=softmax)
+    tensors = tuple(t for t in (y, colmask, rel_pos, ext, tsw, bias) if t is not None)
+    if not use_kernel(*tensors):
+        return tf32_attention_reference(y, colmask, rel_pos, ext, tsw, inv_n=inv_n, **kw)
+    b, n, _ = y.shape
+    h, f32 = num_heads, torch.float32
+    require_tf32(y.dtype, 1, n, h, dqk, dv, "tf32_attention")
+    _check_bias_flags(rel_pos, bias, mask_in_bias, softmax)
+    expect = {"y": (y, f32, (b, n, 2 * h * dv + 2 * h * dqk)),
+              "colmask": (colmask, f32, (b, n))}
+    expect.update(_bias_expect(rel_pos, ext, tsw, bias, b, n, f32))
+    _check("tf32_attention", expect)
+    lib = _tf32_lib("tf32_attention", _TF32_SOFTMAX if softmax else _TF32_POINT, n, h, dqk, dv)
+    with torch.cuda.device(y.device):
+        attn = torch.empty(b, n, h * dv, dtype=f32, device=y.device)
+        err = lib.rails_hstu_serve_tf32_attention(
+            y.data_ptr(), colmask.data_ptr(), _ptr(rel_pos), _ptr(ext), _ptr(tsw), _ptr(bias),
+            attn.data_ptr(), b, n, h, dqk, dv, inv_n, 1.0 / float(dqk) ** 0.5,
+            min(num_buckets, 127), _bias_mode(rel_pos, bias), int(softmax),
+            torch.cuda.current_stream(y.device).cuda_stream)
+    _build.check(lib, err, "tf32_attention")
+    tf32_attention.launches += 1
+    tf32_attention.softmax_launches += int(softmax)
+    return attn
+
+
+def tf32_out_gemm(x: torch.Tensor, y: torch.Tensor, attn: torch.Tensor, o_kernel: torch.Tensor,
+                  o_bias: torch.Tensor, *, num_heads: int, dqk: int, dv: int,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """The f32 route's output GEMM; same result as `tf32_out_gemm_reference`
+    (concat_ua when Wo has 3*h*dv rows). CUDA: `serve_out_kernel` (f32 at the
+    widths of `tf32_block`, else raises)."""
+    if not use_kernel(x, y, attn, o_kernel, o_bias):
+        return tf32_out_gemm_reference(x, y, attn, o_kernel, o_bias, num_heads=num_heads, dv=dv,
+                                       eps=eps)
+    b, n, d = x.shape
+    h, f32 = num_heads, torch.float32
+    require_tf32(x.dtype, d, n, h, dqk, dv, "tf32_out_gemm")
+    rows = o_kernel.shape[0]
+    if rows not in (h * dv, 3 * h * dv):
+        raise ValueError(f"tf32_out_gemm: o_kernel has {rows} rows; expected h*dv={h * dv} or "
+                         f"3*h*dv (concat_ua)")
+    _check("tf32_out_gemm", {"x": (x, f32, (b, n, d)),
+                             "y": (y, f32, (b, n, 2 * h * dv + 2 * h * dqk)),
+                             "attn": (attn, f32, (b, n, h * dv)),
+                             "o_kernel": (o_kernel, f32, (rows, d)), "o_bias": (o_bias, f32, (d,))})
+    lib = _tf32_lib("tf32_out_gemm", _TF32_OUT, n, h, dqk, dv)
+    with torch.cuda.device(x.device):
+        out = torch.empty_like(x)
+        err = lib.rails_hstu_serve_tf32_out(
+            attn.data_ptr(), y.data_ptr(), o_kernel.data_ptr(), o_bias.data_ptr(), x.data_ptr(),
+            out.data_ptr(), b, n, d, h, dqk, dv, eps, int(rows == 3 * h * dv),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, err, "tf32_out_gemm")
+    tf32_out_gemm.launches += 1
+    return out
+
+
 def _bias_mode(rel_pos, bias) -> int:
     if rel_pos is not None:
         return _BIAS_INTERNAL
@@ -569,6 +736,14 @@ def fused_hstu_block(
     _check("fused_hstu_block", expect)
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f"fused_hstu_block: unsupported dtype {x.dtype}")
+    if tf32_block(x.dtype, d, n, h, dqk, dv, activation):
+        y = tf32_project(x, uvqk, num_heads=h, dqk=dqk, dv=dv, eps=eps)
+        attn = tf32_attention(y, colmask, rel_pos, ext, tsw, num_heads=h, dqk=dqk, dv=dv,
+                              inv_n=inv_n, num_buckets=num_buckets, bias=bias,
+                              mask_in_bias=mask_in_bias, softmax=softmax)
+        out = tf32_out_gemm(x, y, attn, o_kernel, o_bias, num_heads=h, dqk=dqk, dv=dv, eps=eps)
+        fused_hstu_block.launches += 1
+        return out
     if tc_block(x.dtype, d, h, dqk, dv, activation):
         u, vqk = project(x, uvqk, num_heads=h, dqk=dqk, dv=dv, inv_n=inv_n, eps=eps,
                          activation=activation, softmax=softmax)
@@ -605,3 +780,7 @@ fused_hstu_block.launches = 0
 project.launches = 0
 attention_oinput.launches = 0
 out_gemm.launches = 0
+tf32_project.launches = 0
+tf32_attention.launches = 0
+tf32_attention.softmax_launches = 0
+tf32_out_gemm.launches = 0

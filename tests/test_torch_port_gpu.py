@@ -203,6 +203,108 @@ def test_k1_tensor_core_route_and_counters(cuda):
         hstu_block.fused_hstu_block(**long_args, **long_kw, normalization="softmax_rel_bias")
 
 
+# K1's f32 route (3xTF32, csrc/hstu_serve_tf32.cuh): each stage against its
+# plain version within this share of its largest value (the CPU test's and
+# chip_smoke.py's K1_TF32_STAGE_TOL; 1xTF32 misses it ~100x).
+K1_TF32_STAGE_TOL = 2e-5
+K1_TF32_VARIANTS = [v for v in K1_VARIANTS if v[1] == "silu"]
+# K1's shapes and the route's edges: one query row, and n = 256 (every key
+# of a row block in its bias block or scores).
+K1_TF32_SHAPES = K1_SHAPES + [(3, 1, 32, 2, 16, 16, 8), (2, 256, 64, 2, 16, 16, 256)]
+K1_TF32_SHAPE_IDS = K1_SHAPE_IDS + ["n1", "n256"]
+
+
+def _k1_tf32_stages(args, kw, plain: bool):
+    """(y, attn, out) of the f32 route's three stages, each on the plain
+    versions of the stages before it."""
+    h, dqk, dv = kw["num_heads"], kw["dqk"], kw["dv"]
+    lay = dict(num_heads=h, dqk=dqk, dv=dv)
+    tables = {k: args.get(k) for k in ("rel_pos", "ext", "tsw")}
+    akw = dict(lay, inv_n=kw["inv_n"], bias=args.get("bias"),
+               mask_in_bias=args.get("mask_in_bias", False),
+               softmax=kw["normalization"] == "softmax_rel_bias")
+    y_p = hstu_block.tf32_project_reference(args["x"], args["uvqk"])
+    attn_p = hstu_block.tf32_attention_reference(y_p, args["colmask"], **tables, **akw)
+    if plain:
+        return y_p, attn_p, hstu_block.tf32_out_gemm_reference(
+            args["x"], y_p, attn_p, args["o_kernel"], args["o_bias"], num_heads=h, dv=dv)
+    return (hstu_block.tf32_project(args["x"], args["uvqk"], **lay),
+            hstu_block.tf32_attention(y_p, args["colmask"], **tables, **akw),
+            hstu_block.tf32_out_gemm(args["x"], y_p, attn_p, args["o_kernel"], args["o_bias"],
+                                     **lay))
+
+
+@pytest.mark.parametrize("variant", K1_TF32_VARIANTS, ids=lambda v: "-".join(str(x) for x in v))
+@pytest.mark.parametrize("shape", K1_TF32_SHAPES, ids=K1_TF32_SHAPE_IDS)
+def test_k1_f32_route_stages_match_plain(cuda, shape, variant):
+    """Each stage of K1's f32 route on its plain inputs within
+    K1_TF32_STAGE_TOL of its plain version; the block on the route, one
+    launch of each stage (the softmax kernel's counter for softmax)."""
+    args, kw = _k1_variant_args(shape, variant, torch.float32, cuda)
+    b, n, d, h, dqk, dv, _ = shape
+    assert hstu_block.tf32_block(torch.float32, d, n, h, dqk, dv, "silu")
+    counters = (hstu_block.tf32_project, hstu_block.tf32_attention, hstu_block.tf32_out_gemm)
+    before = [f.launches for f in counters] + [hstu_block.tf32_attention.softmax_launches]
+    for name, got, want in zip(("y", "attn", "out"), _k1_tf32_stages(args, kw, False),
+                               _k1_tf32_stages(args, kw, True)):
+        share = ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+        assert share <= K1_TF32_STAGE_TOL, (name, share)
+    got = hstu_block.fused_hstu_block(**args, **kw)
+    want = hstu_block.fused_hstu_block_reference(**args, **kw)
+    torch.testing.assert_close(got, want, **TOL[torch.float32])
+    softmax = int(kw["normalization"] == "softmax_rel_bias")
+    assert ([f.launches for f in counters] + [hstu_block.tf32_attention.softmax_launches]
+            == [c + 2 for c in before[:3]] + [before[3] + 2 * softmax])
+
+
+@pytest.mark.parametrize("normalization", ["rel_bias", "softmax_rel_bias"])
+@pytest.mark.parametrize("shape", K1_TF32_SHAPES, ids=K1_TF32_SHAPE_IDS)
+def test_k1_f32_route_repeats_bit_for_bit(cuda, shape, normalization):
+    """Two calls of each f32-route stage give the same bits: no atomics, one
+    writer per output element."""
+    args, kw = _k1_variant_args(shape, ("internal", "silu", normalization, True), torch.float32,
+                                cuda)
+    runs = [_k1_tf32_stages(args, kw, False) for _ in range(2)]
+    assert all(torch.equal(a, c) for a, c in zip(*runs))
+
+
+def test_k1_f32_route_rule_and_refusals(cuda):
+    """f32 at the route's widths runs the three 3xTF32 stages (one launch
+    each); linear_activation="none", dqk = dv = 64 and n = 257 run the
+    CUDA-core block (no stage launch). The entry points refuse every instance
+    outside the route: cudaErrorInvalidValue (1), nothing launched; the
+    stage wrappers raise there."""
+    from rails_tpu_torch.ops import _build
+
+    counters = (hstu_block.tf32_project, hstu_block.tf32_attention, hstu_block.tf32_out_gemm)
+    for shape, activation, stages in (((2, 40, 64, 4, 16, 16, 40), "silu", 1),
+                                      ((2, 40, 64, 4, 16, 16, 40), "none", 0),
+                                      ((2, 40, 64, 4, 64, 64, 40), "silu", 0),
+                                      ((1, 257, 64, 4, 16, 16, 257), "silu", 0)):
+        args, kw = _k1_args(*shape, torch.float32, cuda)
+        before = [f.launches for f in counters]
+        got = hstu_block.fused_hstu_block(**args, **kw, activation=activation)
+        want = hstu_block.fused_hstu_block_reference(**args, **kw, activation=activation)
+        torch.testing.assert_close(got, want, **TOL[torch.float32])
+        assert [f.launches for f in counters] == [c + stages for c in before], (shape, activation)
+    lib = _build.load_library()
+    buf = torch.zeros(1 << 20, device=cuda)
+    p = buf.data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
+    for h, dqk, n in ((2, 64, 8), (5, 16, 8), (2, 16, 257)):
+        assert lib.rails_hstu_serve_tf32_project(p, p, p, 1, n, 64, h, dqk, dqk, 1e-6, stream) == 1
+        for softmax in (0, 1):
+            assert lib.rails_hstu_serve_tf32_attention(p, p, None, None, None, None, p, 1, n, h,
+                                                       dqk, dqk, 0.1, 0.25, 127, 2, softmax,
+                                                       stream) == 1
+        assert lib.rails_hstu_serve_tf32_out(p, p, p, p, p, p, 1, n, 64, h, dqk, dqk, 1e-6, 0,
+                                             stream) == 1
+    torch.cuda.synchronize()
+    args, kw = _k1_args(1, 257, 64, 4, 16, 16, 257, torch.float32, cuda)
+    with pytest.raises(ValueError, match="no 3xTF32 instance"):
+        hstu_block.tf32_project(args["x"], args["uvqk"], num_heads=4, dqk=16, dv=16)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("mode", encode_probe.MODES)
 @pytest.mark.parametrize("shape", [(3, 97, 64, 4, 16, 16, 97), (2, 192, 256, 8, 32, 32, 192)],
