@@ -233,7 +233,10 @@ K1_TOL = {"float32": (1e-3, 1e-4), "bfloat16": (2e-2, 2e-2)}   # (rtol, atol)
 # K1 geometries (D, h, dqk, dv, max_seq_len): ml-20m-hstu-mol, amzn-books-hstu-mol,
 # ml-1m's HSTU, and h=4 with dqk=dv=16 (a softmax map over h*dqk = 64).
 K1_GEOMS = {"ml-20m": (256, 8, 32, 32, 211), "books": (64, 8, 8, 8, 61),
-            "ml-1m": (50, 2, 25, 25, 211), "h=4": (64, 4, 16, 16, 211)}
+            "ml-1m": (50, 2, 25, 25, 211), "h=4": (64, 4, 16, 16, 211),
+            # ml-20m-hstu-mol's block under the rated preprocessor (D = 256 + 8)
+            # and under the combined one (items and ratings interleaved: n = 2 x 211).
+            "rated": (264, 8, 32, 32, 211), "combined": (256, 8, 32, 32, 422)}
 # K1's bf16 tensor-core kernels (csrc/hstu_block_tc.cuh) and the instruction
 # each multiplies with; every other K1 kernel runs FFMA on the CUDA cores.
 TC_KERNELS = ("tc_proj_kernel", "tc_attn_kernel", "tc_softmax_kernel", "tc_out_kernel")
@@ -326,6 +329,28 @@ K4_VAR_INSTANCES = {
     "concat_ua+softmax+attention dropout": dict(
         concat_ua=True, normalization="softmax_rel_bias", attn_dropout_rate=0.2),
     "h=4, dqk=dv=64": dict(num_heads=4, dqk=64, dv=64),
+}
+# The registry configs this slice ports beyond `[sasrec-*]` and `[dot-*]`'s
+# ml-20m-sasrec-mol and ml-20m-hstu-dot: one eval batch each in `[models]`.
+MODEL_CONFIGS = ("ml-1m-sasrec-mol", "amzn-books-sasrec-mol", "ml-1m-hstu-dot",
+                 "amzn-books-hstu-dot", "ml-1m-sasrec-dot", "ml-20m-sasrec-dot",
+                 "amzn-books-sasrec-dot")
+ML1M_ITEMS = 3_706             # ML-1M movies with a rating
+# ML-20M's genre labels, the categories of `[models-var]`'s categorical table.
+NUM_CATEGORIES = 20
+# The options no registry config sets, each one train step on ml-20m-hstu-mol
+# in `[models-var]` (`configure`'s changes).
+VAR_OPTIONS = {
+    "in-batch": dict(train=dict(sampling_strategy="in-batch")),
+    "BCE": dict(train=dict(loss_module="BCELoss")),
+    "BCE with ratings": dict(train=dict(loss_module="BCELossWithRatings")),
+    "checkpoint": dict(train=dict(loss_activation_checkpoint=True)),
+    "rated": dict(input_preprocessor_type="rated"),
+    "combined": dict(input_preprocessor_type="combined"),
+    "categorical": dict(embedding_module_type="categorical", num_item_categories=NUM_CATEGORIES,
+                        train=dict(pallas_scatter_grad=True)),
+    "glu_silu_ln": dict(mol=dict(gating_combination_type="glu_silu_ln")),
+    "none": dict(mol=dict(gating_combination_type="none", gating_item_fn=False)),
 }
 # P1 (encode_probe): the probe's longest default length, the batch of an
 # extra kernel-vs-plain check at a second shape, and its --runs cut for the
@@ -1244,16 +1269,16 @@ def rel_err(got, ref) -> float:
     return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
 
 
-def k4_meta(instance: Optional[str]) -> tuple:
+def k4_meta(instance: Optional[str], max_seq_len: int = MAX_SEQ_LEN) -> tuple:
     """The BlockMeta of ml-20m-hstu-mol's train block with the fields of one
-    of K4_VAR_INSTANCES (None: the default block), and whether it has the
-    bias."""
+    of K4_VAR_INSTANCES (None: the default block) at `max_seq_len`, and
+    whether it has the bias."""
     from rails_tpu_torch.core.config import get_experiment_config
     from rails_tpu_torch.models.hstu import train_block_meta
 
     hstu = get_experiment_config("ml-20m-hstu-mol").hstu.replace(
         **K4_VAR_INSTANCES.get(instance, {}))
-    return train_block_meta(hstu, MAX_SEQ_LEN), hstu.enable_relative_attention_bias
+    return train_block_meta(hstu, max_seq_len), hstu.enable_relative_attention_bias
 
 
 def k4_bwd_flops(b: int, n: int, meta, bf16: bool) -> int:
@@ -1270,9 +1295,10 @@ def k4_bwd_flops(b: int, n: int, meta, bf16: bool) -> int:
     return (7 if bf16 else 5) * 2 * b * pairs * hq
 
 
-def check_k4(device, dtype, instance: Optional[str] = None) -> tuple:
+def check_k4(device, dtype, instance: Optional[str] = None, geom_name: str = "ml-20m") -> tuple:
     """One train block at B=128, n=211 with o_input dropout 0.2, f32 or bf16
-    operands, the default block (`[K4]`) or one of K4_VAR_INSTANCES
+    operands, the default block (`[K4]`; at another geometry of K1_GEOMS, its
+    D and n = its max_seq_len) or one of K4_VAR_INSTANCES
     (`[K4-var]`): the kernels' forward and every gradient against the plain
     versions (f32: autograd of the plain forward; bf16: the block's own glue
     with the plain forward and attention backward, which round where the
@@ -1286,15 +1312,18 @@ def check_k4(device, dtype, instance: Optional[str] = None) -> tuple:
 
     bf16 = dtype == torch.bfloat16
     dt = "bf16" if bf16 else "f32"
-    tag = "[K4]" if instance is None else f"[K4-var] {instance}"
-    b, n = TRAIN_BATCH, MAX_SEQ_LEN
+    tag = ("[K4]" if geom_name == "ml-20m" else f"[K4] {geom_name}") if instance is None else (
+        f"[K4-var] {instance}")
+    geom = K1_GEOMS[geom_name]
+    d, n = geom[0], geom[4]
+    b = TRAIN_BATCH
     (x, colmask, uvqk, o_kernel, o_bias, rel_pos, ext, tsw), kw = k1_inputs(
-        b, n, dtype, device, seed=3)
+        b, n, dtype, device, seed=3, geom=geom)
     x = x * colmask[..., None].to(dtype)
-    meta, has_bias = k4_meta(instance)
+    meta, has_bias = k4_meta(instance, n)
     if meta.concat_ua:
         g = torch.Generator().manual_seed(3)
-        o_kernel = (torch.randn(meta.o_width, D, generator=g) / (H * DV) ** 0.5).to(dtype).to(device)
+        o_kernel = (torch.randn(meta.o_width, d, generator=g) / (H * DV) ** 0.5).to(dtype).to(device)
     if not has_bias:
         rel_pos = ext = tsw = None
     seed = 987_654_321
@@ -1355,13 +1384,13 @@ def check_k4(device, dtype, instance: Optional[str] = None) -> tuple:
     isz = x.element_size()
     # f32 on the tensor cores (3xTF32): both directions, bounds at 3xTF32's
     # rate with the CUDA cores' 67 TFLOP/s beside them.
-    tf32 = hbt.tf32_fwd_route(dtype, D, n, meta)
+    tf32 = hbt.tf32_fwd_route(dtype, d, n, meta)
     peak = "bfloat16" if bf16 else "tf32x3" if tf32 else "float32"
     bias_kind = "internal" if has_bias else "none"
-    fwd_flops = k1_variant_flops(b, n, meta.softmax, meta.o_width)
+    fwd_flops = k1_variant_flops(b, n, meta.softmax, meta.o_width, geom=geom)
     fwd_bd = bound(fwd_flops,
-                   k1_variant_bytes(b, n, isz, meta.o_width, bias_kind) + 4 * b * n * H * DV,
-                   peak)
+                   k1_variant_bytes(b, n, isz, meta.o_width, bias_kind, geom=geom)
+                   + 4 * b * n * H * DV, peak)
     f = 2 * H * DV + 2 * H * DQK
     # y and d_o in; d_y, attn (f32: in; bf16: out) and dbias out; the bias tables.
     bwd_bytes = (isz * (b * n * f + b * n * meta.o_width)
@@ -1369,9 +1398,9 @@ def check_k4(device, dtype, instance: Optional[str] = None) -> tuple:
     if has_bias:
         bwd_bytes += 4 * (b * n * n + n * n + b * (n + 1))
     bwd_bd = bound(k4_bwd_flops(b, n, meta, bf16), bwd_bytes, peak)
-    label = f"{tag} {dt} B={b} n={n} D={D} h={meta.num_heads} dqk={meta.dqk} dv={meta.dv}"
+    label = f"{tag} {dt} B={b} n={n} D={d} h={meta.num_heads} dqk={meta.dqk} dv={meta.dv}"
     routes = [f"{what} {'tensor cores' if tc else 'CUDA cores'}" for what, tc in (
-        ("forward", hbt.tc_fwd_route(dtype, D, meta) or tf32),
+        ("forward", hbt.tc_fwd_route(dtype, d, meta) or tf32),
         ("backward", hbt.tc_bwd_route(dtype, meta) or hbt.tf32_bwd_route(dtype, n, meta)))]
     f32_cores = ""
     if tf32:
@@ -1719,21 +1748,40 @@ def check_k7(device) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": library_ms}
 
 
+def configure(cfg, changes: Optional[dict] = None):
+    """`cfg` with `changes` applied: a dict value replaces fields of that
+    section (`train`, `hstu`, `mol`, ...), any other a top-level field."""
+    changes = changes or {}
+    sections = {k: getattr(cfg, k).replace(**v) for k, v in changes.items() if isinstance(v, dict)}
+    return cfg.replace(**sections, **{k: v for k, v in changes.items() if not isinstance(v, dict)})
+
+
+def category_map(cfg, num_items: int) -> Optional[np.ndarray]:
+    """The id -> category remap of a categorical-embedding config: item i in
+    category (i - 1) % num_item_categories; None for the local table."""
+    if cfg.embedding_module_type != "categorical":
+        return None
+    return np.arange(num_items, dtype=np.int32) % cfg.num_item_categories
+
+
 def train_setup(device, config: str = "ml-20m-hstu-mol", batch: int = TRAIN_BATCH,
                 num_items: int = NUM_ITEMS, lengths: str = "ml20m",
-                hstu: Optional[dict] = None, **train_overrides):
+                hstu: Optional[dict] = None, changes: Optional[dict] = None,
+                **train_overrides):
     """`config` training (seeded random weights over `num_items` items, the
-    config's dtype) with the `hstu` fields in `hstu` and the `train` fields in
-    `train_overrides` replaced, and one batch of synthetic users at the
-    config's N (ML-20M-shaped lengths by default)."""
+    config's dtype) with `changes` applied (`configure`), the `hstu` fields
+    in `hstu` and the `train` fields in `train_overrides` replaced, and one
+    batch of synthetic users at the config's N (ML-20M-shaped lengths by
+    default)."""
     from rails_tpu_torch.core.config import get_experiment_config
     from rails_tpu_torch.train.loop import create_train_state
 
-    cfg = get_experiment_config(config)
+    cfg = configure(get_experiment_config(config), changes)
     cfg = cfg.replace(train=cfg.train.replace(**train_overrides),
                       hstu=cfg.hstu.replace(**(hstu or {})))
     model, state, step, _ = create_train_state(
-        cfg, num_items, np.arange(1, num_items + 1, dtype=np.int32), seed=0, device=device)
+        cfg, num_items, np.arange(1, num_items + 1, dtype=np.int32), seed=0, device=device,
+        item_id_to_category_id=category_map(cfg, num_items))
     return cfg, model, state, step, train_batch(cfg, device, batch, num_items, lengths)
 
 
@@ -1765,15 +1813,17 @@ def zipf_ids(device, shape: tuple, num_items: int, seed: int = 11):
 
 
 def step_launches(cfg, model, optimizer) -> dict:
-    """The kernel launches one training step of `cfg` makes: with
-    `fused_train` K3 and K4 once per block (its bf16 instance in bf16, at
+    """The kernel launches one training step of `cfg` makes: with an HSTU
+    encoder and `fused_train` K3 and K4 once per block at the encoder's
+    width and length (its bf16 instance in bf16, at
     the tensor-core widths on the tensor cores: `tc_fwd_route`,
     `tc_bwd_route`; f32 there by 3xTF32: `tf32_fwd_route`, `tf32_bwd_route`), none
     on the XLA block path; K7 once where the optimizer fuses a leaf; with the
     fused shared-negatives loss K5 forward and backward once (its bf16
     instance in bf16); with pallas_scatter_grad K6 once per gather from the
-    item table (the tokens, the encoder's input, the negatives); no serving
-    kernel."""
+    item table (the tokens, the encoder's input, and the local sampler's
+    negatives unless the loss is BCE with ratings, which draws none); no
+    serving kernel."""
     import torch
 
     from rails_tpu_torch.models.hstu import train_block_meta
@@ -1785,9 +1835,15 @@ def step_launches(cfg, model, optimizer) -> dict:
     )
     from rails_tpu_torch.ops.mol_loss_train import tc_route as k5_tc_route
 
-    blocks = cfg.hstu.num_blocks if cfg.hstu.fused_train else 0
-    fused = int(cfg.train.shared_negatives and cfg.train.fused_mol_loss)
-    mol = cfg.mol
+    blocks = cfg.hstu.num_blocks if cfg.model_type == "HSTU" and cfg.hstu.fused_train else 0
+    # K5 where the JAX loss takes its fused route (`sampled_softmax.py:190-200`):
+    # the local sampler, the sampled softmax with shared negatives and the
+    # fused loss, over a glu_silu MoL with both gating partials and a qi MLP.
+    t, mol = cfg.train, cfg.mol
+    fused = int(t.sampling_strategy == "local" and t.loss_module == "SampledSoftmaxLoss"
+                and t.shared_negatives and t.fused_mol_loss and cfg.similarity_type == "MoL"
+                and mol.gating_combination_type == "glu_silu" and mol.gating_query_fn
+                and mol.gating_item_fn and mol.gating_qi_hidden_dim > 0)
     k5_tc = fused * int(k5_tc_route(model.compute_dtype, mol.query_dot_product_groups,
                                     mol.item_dot_product_groups, mol.dot_product_dimension,
                                     mol.gating_qi_hidden_dim))
@@ -1798,12 +1854,14 @@ def step_launches(cfg, model, optimizer) -> dict:
     # bf16 K4 on the tensor cores: the forward through K1's projection and
     # output GEMM around the train attention stage, the pointwise backward's
     # three stages; f32 K4 on them (3xTF32): the six f32 stages.
-    n = cfg.max_seq_len_padded
+    n, d = model.n_enc, model.d_model
     meta = train_block_meta(cfg.hstu, n)
-    fwd_tc = blocks * int(tc_fwd_route(model.compute_dtype, cfg.hstu.embedding_dim, meta))
+    fwd_tc = blocks * int(tc_fwd_route(model.compute_dtype, d, meta))
     bwd_tc = blocks * int(tc_bwd_route(model.compute_dtype, meta))
-    fwd_32 = blocks * int(tf32_fwd_route(model.compute_dtype, cfg.hstu.embedding_dim, n, meta))
+    fwd_32 = blocks * int(tf32_fwd_route(model.compute_dtype, d, n, meta))
     bwd_32 = blocks * int(tf32_bwd_route(model.compute_dtype, n, meta))
+    gathers = 3 if (cfg.train.sampling_strategy == "local"
+                    and cfg.train.loss_module != "BCELossWithRatings") else 2
     tc = {"K4 fwd-tc": fwd_tc + fwd_32, "K1 proj": fwd_tc, "K4 attn": fwd_tc, "K1 out": fwd_tc,
           "K4 bwd-tc": bwd_tc + bwd_32, "K4 bwd rows": bwd_tc, "K4 bwd dq": bwd_tc,
           "K4 bwd dkv": bwd_tc,
@@ -1813,21 +1871,23 @@ def step_launches(cfg, model, optimizer) -> dict:
             "K4 bwd (bf16)": blocks * bf16,
             "K5 fwd": fused, "K5 bwd": fused, "K5 fwd-tc": k5_tc, "K5 bwd-tc": k5_tc,
             "K5 fwd (bf16)": fused * bf16,
-            "K5 bwd (bf16)": fused * bf16, "K6": 3 if cfg.train.pallas_scatter_grad else 0,
+            "K5 bwd (bf16)": fused * bf16, "K6": gathers if cfg.train.pallas_scatter_grad else 0,
             "K7": int(any(optimizer.fused(p.numel()) for p in model.parameters()))}
 
 
 def train_phase(device, name: str, smi: str, config: str = "ml-20m-hstu-mol",
                 tag: str = "train", batch_size: int = TRAIN_BATCH, num_items: int = NUM_ITEMS,
                 lengths: str = "ml20m", hstu: Optional[dict] = None,
+                changes: Optional[dict] = None, what: str = "", steps: int = TRAIN_STEPS,
                 **train_overrides) -> dict:
     """Step 1 through the kernels vs through the plain versions from the same
-    state and generator; then TRAIN_STEPS steps on the batch. Returns the
-    launch counts of every kernel over those steps."""
+    state and generator; then `steps` steps on the batch. Returns the launch
+    counts of every kernel over those steps, or of step 1 when `steps` is
+    0. `what` names the run after the tag."""
     import torch
 
     cfg, model, state, step, batch = train_setup(device, config, batch_size, num_items, lengths,
-                                                 hstu, **train_overrides)
+                                                 hstu, changes, **train_overrides)
     n = batch.features.ids.shape[1]
     params = dict(model.named_parameters())
     opt = state.optimizer
@@ -1861,7 +1921,8 @@ def train_phase(device, name: str, smi: str, config: str = "ml-20m-hstu-mol",
         groups[group] = max(groups.get(group, 0.0), rel_err(grads_k[k], p.grad))
     negatives = "shared" if cfg.train.shared_negatives else "per position"
     variant = "" if k4_variant(cfg) == "default" else f" (K4 variant {k4_variant(cfg)})"
-    print(f"[{tag}] step 1 kernels vs plain, {cfg.name}{variant} B={batch_size} N={n} "
+    what = f" {what}" if what else ""
+    print(f"[{tag}]{what} step 1 kernels vs plain, {cfg.name}{variant} B={batch_size} N={n} "
           f"R={cfg.train.num_negatives} {negatives}, pallas_scatter_grad="
           f"{cfg.train.pallas_scatter_grad}, {dt}: loss {m_k['loss'].item():.6f} vs "
           f"{m_p['loss'].item():.6f} (rel {loss_err:.2e} <= {loss_tol}); gradient "
@@ -1871,12 +1932,14 @@ def train_phase(device, name: str, smi: str, config: str = "ml-20m-hstu-mol",
     if loss_err > loss_tol or max(groups.values()) > grad_tol:
         raise AssertionError("the kernel step disagrees with the plain step")
     del grads_k, p0, mu0, nu0
+    if not steps:
+        return per_step
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     losses, times = [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = step(state, batch, gen)
@@ -1889,14 +1952,14 @@ def train_phase(device, name: str, smi: str, config: str = "ml-20m-hstu-mol",
         raise AssertionError(f"non-finite training loss: {losses}")
     falls = np.mean(losses[-5:]) < np.mean(losses[:5]) and losses[-1] < losses[0]
     ms = statistics.median(times[2:])
-    print(f"[{tag}] {TRAIN_STEPS} steps on one batch: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+    print(f"[{tag}]{what} {steps} steps on one batch: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
           f"(first 5 mean {np.mean(losses[:5]):.4f}, last 5 mean {np.mean(losses[-5:]):.4f}); "
-          f"median of steps 3-{TRAIN_STEPS} {ms:.3f} ms/step = "
+          f"median of steps 3-{steps} {ms:.3f} ms/step = "
           f"{batch_size / ms * 1e3:.1f} sequences/s; peak memory {peak / 2**30:.2f} GiB; "
           f"launches {counts} on {name} ({smi})")
     if not falls:
         raise AssertionError(f"the training loss did not fall: {losses}")
-    want_all = {k: v * TRAIN_STEPS for k, v in want.items()}
+    want_all = {k: v * steps for k, v in want.items()}
     if counts != want_all:
         raise AssertionError(f"train launches {counts}, want {want_all}")
     return counts
@@ -2945,6 +3008,158 @@ def books_e2e(device, name: str, smi: str, n_batches: int = 3) -> dict:
     return launches
 
 
+def model_serving(device, config: str, num_items: int, batch: int, n_batches: int,
+                  lengths: str, changes: Optional[dict] = None):
+    """A registry config's serving step at full width (seeded random weights;
+    bf16 where the config sets `eval_bf16`, else f32; HSTU blocks through K1,
+    `fused_inference`): MoL through the exact fused method on bf16 tables
+    (K2), DotProduct through MIPS over the l2-normalised items where the
+    config sets `item_l2_norm`; `n_batches` length-sorted batches of `batch`
+    synthetic users with `lengths` history lengths, each truncated to its
+    64-bucket. Returns (cfg, model, state, step, batches, dtype)."""
+    import torch
+
+    from rails_tpu_torch.core.config import get_experiment_config
+    from rails_tpu_torch.data.datasets import SequenceDataset, generate_synthetic_sequences
+    from rails_tpu_torch.data.features import serving_pad_length, truncate_features
+    from rails_tpu_torch.models.encoder import SequentialRecommender
+    from rails_tpu_torch.train.evaluation import get_eval_state, make_eval_step_fn
+
+    cfg = configure(get_experiment_config(config), changes)
+    cfg = cfg.replace(hstu=cfg.hstu.replace(fused_inference=True))
+    dtype = torch.bfloat16 if cfg.train.eval_bf16 else torch.float32
+    model = SequentialRecommender(cfg, num_items, compute_dtype=dtype, device=device,
+                                  generator=torch.Generator().manual_seed(0),
+                                  item_id_to_category_id=category_map(cfg, num_items))
+    method = "MoLBruteForceTopKFused" if cfg.similarity_type == "MoL" else cfg.train.top_k_method
+    t = cfg.train
+    es = get_eval_state(model, np.arange(1, num_items + 1, dtype=np.int32), method,
+                        table_dtype=torch.bfloat16, device=device, item_l2_norm=t.item_l2_norm,
+                        l2_norm_eps=t.l2_norm_eps)
+    step = make_eval_step_fn(model, method, k=120, num_objects=es.num_objects,
+                             filter_invalid_ids=True, truncate_k_prime_to=200)
+    seqs = generate_synthetic_sequences(num_users=batch * n_batches, num_items=num_items,
+                                        max_len=cfg.data.max_sequence_length + 2, seed=0,
+                                        length_distribution=lengths)
+    ds = SequenceDataset(seqs, cfg.data.max_sequence_length, ignore_last_n=1)
+    batches = []
+    for b in ds.batches(batch, cfg.train.gr_output_length + 1, shuffle=False,
+                        sort_by_length=True, drop_last=True, device=device):
+        n = min(b.features.ids.shape[1], serving_pad_length(int(b.features.lengths.max()), 64))
+        batches.append((truncate_features(b.features, n), b.target_ids))
+    return cfg, model, es, step, batches, dtype
+
+
+def serve_phase(device, name: str, smi: str, tag: str, config: str, num_items: int,
+                batch: int = BATCH, n_batches: int = 1, lengths: str = "ml20m",
+                changes: Optional[dict] = None, what: str = "") -> dict:
+    """`model_serving`'s step through the kernels against the same step
+    through the plain versions (`plain_kernels`) on the same model, tables
+    and batches, at `[e2e]`'s rank and overlap tolerances for the dtype: K1 a
+    block per batch with an HSTU encoder, K2 on the tensor cores with MoL.
+    Returns the kernel-path run's launch counts and ms per batch."""
+    import torch
+
+    cfg, model, es, step, batches, dtype = model_serving(device, config, num_items, batch,
+                                                         n_batches, lengths, changes)
+    dt = str(dtype)[6:]
+    _, min_rank_agree, min_overlap = next(t for t in E2E_TOL if t[0] == dt)
+
+    def serve(f, t):
+        return step(es.topk_state, f, t, es.item_embeddings)
+
+    run_batches(serve, batches)                                           # warm-up
+    reset_launches()
+    outs_k, ms = run_batches(serve, batches)
+    counts = {k: v for k, v in launch_counts().items() if v}
+    hstu, mol = cfg.model_type == "HSTU", cfg.similarity_type == "MoL"
+    want_k1 = cfg.hstu.num_blocks * len(batches) if hstu else 0
+    if (counts.get("K1", 0) != want_k1 or (counts.get("K2", 0) >= len(batches)) != mol
+            or counts.get("K2-tc", 0) != counts.get("K2", 0)):
+        raise AssertionError(f"[{tag}] {cfg.name} launches {counts} for {len(batches)} batches")
+    check_outputs(outs_k, batches, num_items=num_items)
+    ms_k = statistics.median([ms] + [run_batches(serve, batches)[1] for _ in range(2)])
+    with plain_kernels():
+        run_batches(serve, batches)                                       # warm-up
+        outs_p, ms_p = run_batches(serve, batches)
+    rk, rp = (torch.cat([o[0] for o in outs]) for outs in (outs_k, outs_p))
+    ik, ip = (torch.cat([o[1] for o in outs]) for outs in (outs_k, outs_p))
+    rank_agree = (rk == rp).float().mean().item()
+    overlap = id_overlap(ik, ip)
+    # The encoder's length: the combined preprocessor interleaves to 2n.
+    d = model.d_model
+    n_enc = batches[0][0].ids.shape[1] * (2 if cfg.input_preprocessor_type == "combined" else 1)
+    h = cfg.hstu
+    route = (f"K1 at n={n_enc} on the "
+             f"{k1_route(dtype, d, n_enc, h.num_heads, h.dqk, h.dv, h.linear_activation)}"
+             if hstu else "SASRec in plain torch")
+    what = f" {what}" if what else ""
+    print(f"[{tag}]{what} {cfg.name} {dt}, {cfg.model_type}/{cfg.similarity_type} D={d}, "
+          f"{len(batches)} batch(es) of {batch} (n={[f.ids.shape[1] for f, _ in batches]}), "
+          f"{num_items} items, k=120, k'=200 ({route}; "
+          f"{'K2 on bf16 tables' if mol else 'MIPS over the item embeddings'}): launches "
+          f"{counts}; kernel path median {ms_k:.3f} ms/batch = {batch / ms_k * 1e3:.1f} q/s, "
+          f"plain path {ms_p:.3f} ms/batch on {name} ({smi}); vs plain: ranks agree on "
+          f"{rank_agree:.4f} of {rk.numel()} rows (>= {min_rank_agree}), top-120 overlap "
+          f"{overlap:.4f} (>= {min_overlap})")
+    if rank_agree < min_rank_agree or overlap < min_overlap:
+        raise AssertionError(f"[{tag}] {cfg.name}: the kernel path disagrees with the plain path")
+    return {**counts, "ms": ms_k, "plain_ms": ms_p}
+
+
+def corpus(config: str) -> tuple:
+    """(items, history-length distribution) of a registry config's dataset."""
+    if config.startswith("ml-20m"):
+        return NUM_ITEMS, "ml20m"
+    if config.startswith("ml-1m"):
+        return ML1M_ITEMS, "uniform"
+    return BOOKS_ITEMS, "uniform"
+
+
+def models_phase(device, name: str, smi: str) -> dict:
+    """`[models]`: one eval batch of each of MODEL_CONFIGS at its published
+    widths (Books' 695,762 items at B=64), kernels against plain. Returns the
+    launch counts by config."""
+    import torch
+
+    runs = {}
+    for config in MODEL_CONFIGS:
+        items, lengths = corpus(config)
+        batch = BOOKS_BATCH if config.startswith("amzn-books") else BATCH
+        runs[config] = serve_phase(device, name, smi, "models", config, items, batch, 1, lengths)
+        torch.cuda.empty_cache()
+    return runs
+
+
+def models_var_phase(device, name: str, smi: str) -> dict:
+    """`[models-var]`: one ml-20m-hstu-mol train step with each of
+    VAR_OPTIONS, kernels against plain (`train_phase` with no further
+    steps); for the rated and the combined preprocessor also a bf16 train
+    step (main_module_bf16) and one eval batch of 512 in f32 and in bf16
+    (K1 at their width and length). Returns each run's launch counts by
+    (option, dtype name, "train" or "serve")."""
+    import torch
+
+    runs = {}
+    for option, changes in VAR_OPTIONS.items():
+        runs[(option, "float32", "train")] = train_phase(
+            device, name, smi, tag="models-var", changes=changes, what=option, steps=0)
+        torch.cuda.empty_cache()
+        if option not in ("rated", "combined"):
+            continue
+        runs[(option, "bfloat16", "train")] = train_phase(
+            device, name, smi, tag="models-var", changes=changes, what=option, steps=0,
+            main_module_bf16=True)
+        torch.cuda.empty_cache()
+        for bf16 in (False, True):
+            serve_changes = dict(changes, train=dict(eval_bf16=bf16))
+            runs[(option, "bfloat16" if bf16 else "float32", "serve")] = serve_phase(
+                device, name, smi, "models-var", "ml-20m-hstu-mol", NUM_ITEMS,
+                changes=serve_changes, what=option)
+            torch.cuda.empty_cache()
+    return runs
+
+
 def k1_variant_inputs(b: int, n: int, dtype, device, instance: str):
     """`k1_inputs` for one of K1_VAR_INSTANCES: a (3*h*dv, D) output
     projection for concat_ua; the layer's bias built in-kernel, or the same
@@ -3474,6 +3689,33 @@ def main() -> None:
            for inst in K4_VAR_INSTANCES for dtype in (torch.float32, torch.bfloat16)}
     torch.cuda.empty_cache()
     k4v_runs = train_var_phase(device, name, smi)
+    torch.cuda.empty_cache()
+
+    # SASRec and the dot-product similarity at ml-20m widths, the other
+    # registry configs they open, and the options no registry config sets
+    # with the K1/K4/K6 instances they reach.
+    serve_phase(device, name, smi, "sasrec-e2e", "ml-20m-sasrec-mol", NUM_ITEMS, BATCH, 3)
+    torch.cuda.empty_cache()
+    train_phase(device, name, smi, "ml-20m-sasrec-mol", "sasrec-train")
+    torch.cuda.empty_cache()
+    serve_phase(device, name, smi, "dot-e2e", "ml-20m-hstu-dot", NUM_ITEMS, BATCH, 3)
+    torch.cuda.empty_cache()
+    train_phase(device, name, smi, "ml-20m-hstu-dot", "dot-train")
+    torch.cuda.empty_cache()
+    models_phase(device, name, smi)
+    var_runs = models_var_phase(device, name, smi)
+    k1p = {(geom, dtype): check_k1(BATCH, K1_GEOMS[geom][4], dtype, device, geom)
+           for geom in ("rated", "combined") for dtype in (torch.float32, torch.bfloat16)}
+    torch.cuda.empty_cache()
+    k4p = {(geom, dtype): check_k4(device, dtype, geom_name=geom)
+           for geom in ("rated", "combined") for dtype in (torch.float32, torch.bfloat16)}
+    torch.cuda.empty_cache()
+    cat_cfg = configure(get_experiment_config("ml-20m-hstu-mol"), VAR_OPTIONS["categorical"])
+    cat_ids = train_batch(cat_cfg, device).features.ids
+    cat_rows = torch.as_tensor(category_map(cat_cfg, NUM_ITEMS), device=device)[
+        (cat_ids.long() - 1).clamp(min=0)] + 1
+    k6c = check_k6(device, torch.where(cat_ids == 0, 0, cat_rows).to(torch.int32),
+                   NUM_CATEGORIES + 1, D, long_sums=True)
 
     def entry(name_, source, replaces, key, measured, counts=launches):
         # The MUFU term of a bound is an operations term.
@@ -3632,6 +3874,31 @@ def main() -> None:
                       "rails_tpu/ops/pallas/hstu_block_train.py:629", f"K4 bwd [{variant}]", bwd,
                       runs),
             ]
+    for geom in ("rated", "combined"):
+        d, n = K1_GEOMS[geom][0], K1_GEOMS[geom][4]
+        meta, _ = k4_meta(None, n)
+        for dtype, dt in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+            k1_src = {K1_TF32_ROUTE: "hstu_serve_tf32.cu", "bf16 tensor cores": "hstu_block_tc.cuh",
+                      "CUDA cores": "hstu_block.cu"}[k1_route(dtype, d, n, H, DQK, DV, "silu")]
+            fwd_src = ("hstu_block_tc.cuh" if tc_fwd_route(dtype, d, meta) else
+                       "hstu_train_tf32.cuh" if tf32_fwd_route(dtype, d, n, meta) else
+                       "hstu_block_train.cu")
+            bwd_src = ("hstu_train_tc.cuh" if tc_bwd_route(dtype, meta) else
+                       "hstu_train_tf32.cuh" if tf32_bwd_route(dtype, n, meta) else
+                       "hstu_block_train.cu")
+            what = f"{geom} preprocessor, D={d}, n={n}, {'bf16' if dt == 'bfloat16' else 'f32'}"
+            fwd, bwd = k4p[(geom, dtype)]
+            summary += [
+                entry(f"fused_hstu_block ({what})", k1_src, k1_site, "K1", k1p[(geom, dtype)],
+                      var_runs[(geom, dt, "serve")]),
+                entry(f"fused_train_block_forward ({what})", fwd_src, k4_fwd_site, "K4 fwd", fwd,
+                      var_runs[(geom, dt, "train")]),
+                entry(f"attn_backward ({what})", bwd_src, k4_bwd_site, "K4 bwd", bwd,
+                      var_runs[(geom, dt, "train")]),
+            ]
+    summary.append(entry(f"scatter_add_rows (categorical table ({NUM_CATEGORIES + 1}, {D}))",
+                         "scatter_add.cu", "rails_tpu/ops/pallas/scatter_add.py:172", "K6", k6c,
+                         var_runs[("categorical", "float32", "train")]))
     missing = [e["name"] for e in summary if not e["launches"]]
     if missing:
         raise AssertionError(f"kernels never launched on their path: {missing}")

@@ -38,12 +38,14 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 def state_dict_from_jax_params(
     params: Mapping, cfg: ExperimentConfig
 ) -> Dict[str, torch.Tensor]:
-    """Port state dict of a JAX `SequentialRecommender` built from `cfg`."""
-    if cfg.model_type != "HSTU" or cfg.similarity_type != "MoL":
-        raise NotImplementedError(
-            f"{cfg.model_type}/{cfg.similarity_type} weights have no port model yet "
-            "(ROADMAP.md, Queue 1: SASRec; preprocessors, embeddings and similarities)"
-        )
+    """Port state dict of a JAX `SequentialRecommender` built from `cfg`:
+    HSTU or SASRec, MoL or DotProduct (which has no parameters), any input
+    preprocessor and embedding module. The port's modules carry the flax
+    names, so the tree maps by name alone."""
+    if cfg.model_type not in ("HSTU", "SASRec") or cfg.similarity_type not in ("MoL",
+                                                                                "DotProduct"):
+        raise ValueError(f"{cfg.model_type}/{cfg.similarity_type} is not a model of the "
+                         "JAX package")
     return _port_names(params)
 
 

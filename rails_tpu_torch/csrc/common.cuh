@@ -84,6 +84,20 @@ inline int sm_count() {
   return count[dev];
 }
 
+// The current device's opt-in dynamic shared memory of one block, read once
+// per device (0 on an error).
+inline size_t max_block_smem() {
+  constexpr int kMaxDevices = 64;
+  static int bytes[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return 0;
+  if (bytes[dev] == 0 &&
+      cudaDeviceGetAttribute(&bytes[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess)
+    return 0;
+  return static_cast<size_t>(bytes[dev]);
+}
+
 // Opt a kernel into more than 48 KB of dynamic shared memory.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {

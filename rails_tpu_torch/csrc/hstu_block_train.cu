@@ -64,7 +64,11 @@
 //       n = 211, would not fit with the row buffers), the row's q and d_attn
 //       (pass 1) or the column's k and v (pass 2) come from device memory 32
 //       dims at a time into the same registers, and each chunk's partial s and
-//       d_a wait in the warp's row buffers.
+//       d_a wait in the warp's row buffers. Narrow heads take the WIDE
+//       instances too where their four staged arrays would not fit a block
+//       (n > 357 at dqk = dv = 32: the combined preprocessor's n = 422 needs
+//       274,484 B that way, 166,196 B this way); the products are the same
+//       values in the same order, so the result is the same bits.
 // Bound: the function needs 5 products of 2 * 32 FLOPs over the causal
 // (user, head, i, j) pairs, 7.3 GFLOP per layer at B = 128, n = 211 (0.11 ms
 // at the 67 TFLOP/s f32 rate; this kernel does 7, s and d_a twice), against
@@ -99,12 +103,21 @@ constexpr int kChunk = 32;   // head dims held in registers at a time: one per l
 
 // Narrow heads (dqk, dv <= 32) stage q, k, v and d_attn once per head; wide
 // ones stage the two operands each pass reads in two arrays.
-size_t attn_bwd_smem_bytes(int n, int dqk, int dv) {
-  const bool wide = dqk > kChunk || dv > kChunk;
+size_t attn_bwd_bytes(int n, int dqk, int dv, bool wide) {
   const size_t ldk = static_cast<size_t>(n | 1);
   const size_t floats = (wide ? 1 : 2) * (static_cast<size_t>(dqk) + dv) * ldk +
                         static_cast<size_t>(kBwdWarps) * 2 * n + n + 128;
   return floats * sizeof(float) + static_cast<size_t>(n + 1) * sizeof(int);
+}
+
+// The WIDE instance: head dims above 32, or narrow heads whose four staged
+// arrays would not fit a block at this length.
+bool attn_bwd_wide(int n, int dqk, int dv) {
+  return dqk > kChunk || dv > kChunk || attn_bwd_bytes(n, dqk, dv, false) > max_block_smem();
+}
+
+size_t attn_bwd_smem_bytes(int n, int dqk, int dv) {
+  return attn_bwd_bytes(n, dqk, dv, attn_bwd_wide(n, dqk, dv));
 }
 
 // (b) One block per user; heads in turn. y is stored as T; v, d_attn, the
@@ -362,7 +375,7 @@ cudaError_t train_bwd(const T* y, const T* d_o, float* attn, bool recompute,
                                v.concat_ua != 0, s)) != cudaSuccess) {
     return err;
   }
-  const bool wide = dqk > kChunk || dv > kChunk;
+  const bool wide = attn_bwd_wide(n, dqk, dv);
   if (adp.drop) {
     return wide ? launch_attn_bwd<T, true, true>(y, d_attn_scratch, colmask, rel_pos, ext, tsw,
                                                  d_y, dbias, B, n, H, dqk, dv, inv_n, max_bucket,

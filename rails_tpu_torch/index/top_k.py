@@ -119,15 +119,17 @@ def build_mol_topk_state(
     those (plus the avg table): every method still runs, gathering its
     candidates from the kernel layout. `quantize_fused` stores the fused
     tables int8 with their scales (half the bytes; `quantize_fused_tables`).
-    A similarity without an item gating partial gets no fused tables, as in
-    JAX (`top_k.py:158`)."""
+    The kernel layout serves only K2's function, the glu_silu combination
+    (`rails_tpu/ops/pallas/mol_scoring.py:20-22`): any other combination, or
+    a similarity without an item gating partial, gets no fused tables, and
+    every method that reads them refuses it (`fused_scoring`)."""
     if (fused_only or quantize_fused) and not build_fused:
         raise ValueError("fused_only and quantize_fused require build_fused=True")
     tables = model.build_item_tables(item_embeddings)
     comp = tables.component_embeddings
     gating = None if tables.gating_partial is None else tables.gating_partial.to(table_dtype)
     fused = None
-    if build_fused and gating is not None:
+    if build_fused and fused_scoring(model.cfg.mol):
         fused = prepare_fused_tables(comp.to(table_dtype), gating)
         if quantize_fused:
             fused = quantize_fused_tables(fused)
@@ -168,9 +170,9 @@ def build_fused_state_chunked_on_device(
     columns keep codes 0 and the scale 1e-12 / 127. `item_ids` come back
     zero-padded to X padded, as in JAX."""
     mol = model.cfg.mol
-    if not mol.gating_item_fn:
-        raise ValueError("the fused kernel layout needs the item-side gating partial "
-                         "(mol.gating_item_fn=True)")
+    if not fused_scoring(mol):
+        raise ValueError("the fused kernel layout serves only K2's function, the glu_silu "
+                         "combination with both gating partials")
     x = int(item_ids.shape[0])
     xp = -(-x // BLOCK_X) * BLOCK_X
     p_x, d_p, l = mol.item_dot_product_groups, mol.dot_product_dimension, mol.num_logits
@@ -206,6 +208,12 @@ def build_fused_state_chunked_on_device(
         avg_component=avg_buf,
         fused_tables=FusedCorpusTables(comp_buf, gp_buf, x, cs_buf, ps_buf),
     )
+
+
+def fused_scoring(mol) -> bool:
+    """Whether K2's kernel layout serves a MoL config: the glu_silu
+    combination (which has both gating partials), K2's only function."""
+    return mol.gating_combination_type == "glu_silu"
 
 
 def _temperature(model) -> float:
@@ -296,7 +304,12 @@ def mol_brute_force_top_k_fused(
     (B, X, L) logits and the gating activations never reach memory. Above
     `_CHUNK_MAX_X` items K2 also emits its per-tile maxima with id-0 columns
     masked in the kernel, and `hierarchical_top_k` selects from them with no
-    masking pass over the (B, X) scores (`top_k.py:698-737`)."""
+    masking pass over the (B, X) scores (`top_k.py:698-737`). A config
+    outside K2's function (`fused_scoring`) is refused before any launch, as
+    the other methods that read the kernel layout refuse it."""
+    if not fused_scoring(model.cfg.mol):
+        raise ValueError("MoLBruteForceTopKFused scores through K2, which serves only the "
+                         "glu_silu combination; use MoLBruteForceTopK")
     ft = _fused(state, "MoLBruteForceTopKFused")
     args = (_query_comp(model, ft, query_embeddings, user_ids),
             model.query_gating_partial(query_embeddings), ft.item_comp_t, ft.item_partial_t,

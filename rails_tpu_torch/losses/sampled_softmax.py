@@ -1,7 +1,8 @@
 """Sampled-softmax autoregressive loss, dense-masked.
 
 Counterpart of `rails_tpu/losses/sampled_softmax.py`: `sampled_softmax_loss`
-(:84-259) with the local sampler, its fused shared-negatives route
+(:84-259) with the local and the in-batch samplers, its fused
+shared-negatives route
 `_fused_negative_logits` (:30-81), and `get_weighted_loss` (:262-271). All
 positions stay dense [B, N-1]: queries are the encoder outputs at positions
 [0, N-2], supervision the ids at [1, N-1], weighted 1 where the position is
@@ -11,30 +12,46 @@ negative equal to the positive id is masked to -5e4. The loss is the weighted
 mean of -log_softmax([pos, negs])[0], and the aux losses come from the
 positives' similarity call only, as in the JAX package.
 
+The in-batch sampler draws each position's R negatives from the batch's
+own deduplicated ids and their already-gathered embeddings (:148-171); it
+always samples per position, and `shared_negatives` only logs a warning, as
+in JAX.
+
 With shared negatives, `train.fused_mol_loss` and the published MoL shape
 (glu_silu, both gating partials, a hidden qi MLP) the negatives are scored by
 K5 (`ops.mol_loss_train.fused_mol_loss`), under the same gate as the JAX
 package (:190-200); otherwise through the similarity's shared-corpus einsum.
-
-Not ported (NotImplementedError naming ROADMAP.md): `activation_checkpoint`
-on the non-fused route, the only route where JAX reads it (:205-235); the
-fused route ignores it, as in JAX.
+`activation_checkpoint` on that non-fused route, the only one where JAX
+reads it (:205-235), scores the negatives in CHECKPOINT_CHUNKS chunks of
+positions under `torch.utils.checkpoint`, so the backward recomputes each
+chunk's (rows, R, L) logits and gating activations instead of keeping them.
+Each chunk's dropouts draw from a generator seeded once per chunk from the
+caller's, so the recomputation draws the same masks.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from rails_tpu_torch.data.features import SequentialFeatures
-from rails_tpu_torch.losses.samplers import LocalNegativesSampler, maybe_l2_norm
+from rails_tpu_torch.losses.samplers import (
+    InBatchNegativesSampler,
+    LocalNegativesSampler,
+    maybe_l2_norm,
+)
 from rails_tpu_torch.models.preprocessors import length_mask
 from rails_tpu_torch.ops.mol_loss_train import fused_mol_loss
 from rails_tpu_torch.ops.mol_scoring import extract_gating_qi_weights
 
 AuxLosses = Dict[str, torch.Tensor]
 _INT32_MAX = 2 ** 31 - 1
+# Chunks of positions of the checkpointed negatives' scoring (JAX's
+# `checkpoint_chunks` default, which no caller changes).
+CHECKPOINT_CHUNKS = 4
 
 
 def _fused_ok(model, sampler, train: bool, shared_negatives: bool) -> bool:
@@ -77,10 +94,37 @@ def _fused_negative_logits(
     )
 
 
+def _checkpointed_negative_logits(
+    model, q: torch.Tensor, neg_embeddings: torch.Tensor, user_ids_flat: torch.Tensor,
+    generator: Optional[torch.Generator], chunks: int,
+) -> torch.Tensor:
+    """(M, R) negative scores in `chunks` chunks of positions, each under
+    `torch.utils.checkpoint` (`sampled_softmax.py:205-235`); (R, D) shared or
+    (M, R, D) per-position negatives. The chunks pass no row weights: they
+    would shape only the aux losses, which come from the positives' call."""
+    m = q.shape[0]
+    size = -(-m // chunks)
+    parts = []
+    for s in range(0, m, size):
+        e = min(s + size, m)
+        neg = neg_embeddings[None] if neg_embeddings.ndim == 2 else neg_embeddings[s:e]
+        seed = None if generator is None else int(torch.randint(
+            0, _INT32_MAX, (1,), generator=generator, device=generator.device).item())
+        parts.append(checkpoint(_negative_chunk, model, q[s:e], neg, user_ids_flat[s:e], seed,
+                                use_reentrant=False))
+    return torch.cat(parts, dim=0)
+
+
+def _negative_chunk(model, q: torch.Tensor, neg: torch.Tensor, user_ids: torch.Tensor,
+                    seed: Optional[int]) -> torch.Tensor:
+    generator = None if seed is None else torch.Generator(q.device).manual_seed(seed)
+    return model.similarity_fn(q, neg, user_ids, True, None, generator)[0]
+
+
 def sampled_softmax_loss(
     model,                                   # SequentialRecommender
     features: SequentialFeatures,            # target already scattered at [len]
-    sampler: LocalNegativesSampler,
+    sampler,                                 # LocalNegativesSampler | InBatchNegativesSampler
     num_negatives: int,
     softmax_temperature: float,
     train: bool = True,
@@ -91,10 +135,8 @@ def sampled_softmax_loss(
 ) -> Tuple[torch.Tensor, AuxLosses]:
     """(scalar loss, aux losses). `generator` draws the negatives and every
     dropout; `seed0` seeds the HSTU blocks' hash dropout."""
-    if not isinstance(sampler, LocalNegativesSampler):
-        raise NotImplementedError(
-            f"sampler {type(sampler).__name__} is not ported (ROADMAP.md, Queue 1: losses)"
-        )
+    if not isinstance(sampler, (LocalNegativesSampler, InBatchNegativesSampler)):
+        raise TypeError(f"Unknown sampler {type(sampler)}")
     ids = features.ids
     b, n = ids.shape
     d = model.cfg.train.item_embedding_dim
@@ -109,11 +151,23 @@ def sampled_softmax_loss(
     sup_ids_flat = supervision_ids.reshape(m)
     user_ids_flat = torch.repeat_interleave(features.user_ids, n - 1)
 
-    # One (R,) set for the batch, or (M, R) per position.
-    sampled_ids = sampler.sample(
-        generator, (num_negatives,) if shared_negatives else (m, num_negatives))
-    sampled_neg_embeddings = maybe_l2_norm(
-        model.get_item_embeddings(sampled_ids), sampler.l2_norm, sampler.l2_norm_eps)
+    if isinstance(sampler, LocalNegativesSampler):
+        # One (R,) set for the batch, or (M, R) per position.
+        sampled_ids = sampler.sample(
+            generator, (num_negatives,) if shared_negatives else (m, num_negatives))
+        sampled_neg_embeddings = maybe_l2_norm(
+            model.get_item_embeddings(sampled_ids), sampler.l2_norm, sampler.l2_norm_eps)
+    else:
+        if shared_negatives:
+            logging.getLogger("rails_tpu_torch").warning(
+                "train.shared_negatives=True has no effect with the in-batch sampler; "
+                "sampling per position")
+        # The target-scattered ids and their already-gathered embeddings.
+        flat_ids = ids.reshape(-1)
+        state = sampler.process_batch(flat_ids, flat_ids != 0, input_embeddings.reshape(b * n, d))
+        sampled_ids, sampled_neg_embeddings = sampler.sample(state, generator,
+                                                             (m, num_negatives))
+        shared_negatives = False
     pos_embeddings = maybe_l2_norm(
         input_embeddings[:, 1:, :].reshape(m, d), sampler.l2_norm, sampler.l2_norm_eps)
 
@@ -124,9 +178,8 @@ def sampled_softmax_loss(
         negative_logits = _fused_negative_logits(
             model, q, user_ids_flat, w_flat, sampled_neg_embeddings, generator)
     elif activation_checkpoint and train:
-        raise NotImplementedError(
-            "loss_activation_checkpoint is not ported (ROADMAP.md, Queue 1: losses)"
-        )
+        negative_logits = _checkpointed_negative_logits(
+            model, q, sampled_neg_embeddings, user_ids_flat, generator, CHECKPOINT_CHUNKS)
     else:
         # (M, R, D) per position, or (1, R, D): the shared-corpus einsum.
         negative_logits, _ = model.similarity_fn(

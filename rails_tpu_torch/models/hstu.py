@@ -42,7 +42,12 @@ from rails_tpu_torch.core.config import HSTUConfig
 from rails_tpu_torch.ops.hash_dropout import LAYER_SALT, wrap_i32
 from rails_tpu_torch.ops.hstu_block import fused_hstu_block
 from rails_tpu_torch.ops.hstu_block_train import BlockMeta, fused_train_block
-from rails_tpu_torch.similarity.layers import dropout, normal, xavier_uniform
+from rails_tpu_torch.similarity.layers import (
+    dropout,
+    layer_norm_in_dtype,
+    normal,
+    xavier_uniform,
+)
 
 
 def bucketize_time_delta(delta: torch.Tensor, num_buckets: int) -> torch.Tensor:
@@ -50,16 +55,6 @@ def bucketize_time_delta(delta: torch.Tensor, num_buckets: int) -> torch.Tensor:
     [0, num_buckets] (`_bucketize_time_delta`); int32."""
     v = torch.log(torch.clamp(delta.abs().float(), min=1.0)) / 0.301
     return torch.clamp(v.to(torch.int32), 0, num_buckets)
-
-
-def _ln_in_dtype(y: torch.Tensor, eps: float) -> torch.Tensor:
-    """`HSTUBlock._ln` in y's dtype: the mean and the variance accumulate in
-    f32 and round to y's dtype (jnp.mean / jnp.var of bf16), then every step
-    rounds to it."""
-    yf = y.float()
-    mu = yf.mean(dim=-1, keepdim=True).to(y.dtype)
-    var = yf.var(dim=-1, keepdim=True, unbiased=False).to(y.dtype)
-    return (y - mu) * torch.rsqrt(var + eps)
 
 
 def train_block_meta(c: HSTUConfig, max_seq_len: int) -> BlockMeta:
@@ -142,7 +137,7 @@ class HSTUBlock(nn.Module):
         b, n, _ = x.shape
         h, dqk, dv = c.num_heads, c.dqk, c.dv
         dt = x.dtype
-        y = _ln_in_dtype(x, c.epsilon) @ self.uvqk.to(dt)
+        y = layer_norm_in_dtype(x, c.epsilon) @ self.uvqk.to(dt)
         if c.linear_activation == "silu":
             y = y * torch.sigmoid(y)
         elif c.linear_activation != "none":
@@ -172,7 +167,7 @@ class HSTUBlock(nn.Module):
                                     v.reshape(b, n, h, dv)).reshape(b, n, h * dv)
         else:
             raise ValueError(f"Unknown normalization {c.normalization!r}")
-        a = _ln_in_dtype(attn_out, c.epsilon)
+        a = layer_norm_in_dtype(attn_out, c.epsilon)
         o_input = torch.cat([u, a, u * a], dim=-1) if c.concat_ua else u * a
         if train:
             o_input = dropout(o_input, c.linear_dropout_rate, generator)

@@ -1,9 +1,13 @@
 """Input preprocessor and output postprocessor.
 
 Counterpart of `rails_tpu/models/preprocessors.py`: `length_mask` (:25), the
-learnable positional preprocessor with its train-mode dropout (:30-55) and
-`postprocess_output` (:160-171). The rated and combined preprocessors are
-not ported yet.
+learnable positional preprocessor with its train-mode dropout (:30-55), the
+rated one (:66-107: [item, rating] embeddings of width D + rating_dim, the
+ratings clipped to the vocabulary), the combined one (:110-157: items and
+ratings interleaved to length 2N, lengths doubled) and `postprocess_output`
+(:160-171). The rated and combined embeddings concatenate the compute-dtype
+item rows with the f32 rating rows in f32, as jnp's type promotion does, and
+round to the compute dtype at the end.
 """
 
 from __future__ import annotations
@@ -13,7 +17,12 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from rails_tpu_torch.similarity.layers import dropout, l2_normalize, xavier_normal
+from rails_tpu_torch.similarity.layers import (
+    dropout,
+    l2_normalize,
+    truncated_normal,
+    xavier_normal,
+)
 
 
 def length_mask(lengths: torch.Tensor, n: int) -> torch.Tensor:
@@ -46,6 +55,81 @@ class LearnablePositionalEmbeddingInputPreprocessor(nn.Module):
         valid = length_mask(past_lengths, n)
         x = x * valid[..., None].to(x.dtype)
         return x.to(self.compute_dtype), valid
+
+
+class LearnablePositionalEmbeddingRatedInputPreprocessor(nn.Module):
+    """[item_emb, rating_emb] * sqrt(D + R) + pos_emb[:n], dropout in
+    training, invalid positions zeroed; width D + R."""
+
+    def __init__(
+        self, max_sequence_len: int, item_embedding_dim: int, rating_embedding_dim: int,
+        num_ratings: int, compute_dtype: torch.dtype, generator: torch.Generator,
+        dropout_rate: float = 0.0,
+    ):
+        super().__init__()
+        d = item_embedding_dim + rating_embedding_dim
+        self.embedding_dim = d
+        self.num_ratings = num_ratings
+        self.dropout_rate = dropout_rate
+        self.compute_dtype = compute_dtype
+        std = (1.0 / d) ** 0.5
+        self.pos_emb = nn.Parameter(truncated_normal((max_sequence_len, d), std, generator))
+        self.rating_emb = nn.Parameter(
+            truncated_normal((num_ratings, rating_embedding_dim), std, generator))
+
+    def forward(
+        self, past_lengths: torch.Tensor, past_embeddings: torch.Tensor, ratings: torch.Tensor,
+        train: bool = False, generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        n = past_embeddings.shape[1]
+        rating_emb = self.rating_emb[ratings.long().clamp(0, self.num_ratings - 1)]
+        x = torch.cat([past_embeddings.float(), rating_emb], dim=-1)
+        x = x * (self.embedding_dim ** 0.5) + self.pos_emb[None, :n, :]
+        if train:
+            x = dropout(x, self.dropout_rate, generator)
+        valid = length_mask(past_lengths, n)
+        x = x * valid[..., None].to(x.dtype)
+        return x.to(self.compute_dtype), valid
+
+
+class CombinedItemAndRatingInputPreprocessor(nn.Module):
+    """[item_0, rating_0, item_1, rating_1, ...] (length 2N) * sqrt(D) +
+    pos_emb[:2N], dropout in training, invalid pairs zeroed; returns the
+    doubled lengths too. The interleave needs rating_embedding_dim == D."""
+
+    def __init__(
+        self, max_sequence_len: int, embedding_dim: int, rating_embedding_dim: int,
+        num_ratings: int, compute_dtype: torch.dtype, generator: torch.Generator,
+        dropout_rate: float = 0.0,
+    ):
+        super().__init__()
+        if rating_embedding_dim != embedding_dim:
+            raise ValueError("CombinedItemAndRating requires rating_embedding_dim == "
+                             "item embedding_dim")
+        self.embedding_dim = embedding_dim
+        self.num_ratings = num_ratings
+        self.dropout_rate = dropout_rate
+        self.compute_dtype = compute_dtype
+        std = (1.0 / embedding_dim) ** 0.5
+        # max_sequence_len already counts the 2x interleave.
+        self.pos_emb = nn.Parameter(
+            truncated_normal((max_sequence_len, embedding_dim), std, generator))
+        self.rating_emb = nn.Parameter(
+            truncated_normal((num_ratings, rating_embedding_dim), std, generator))
+
+    def forward(
+        self, past_lengths: torch.Tensor, past_embeddings: torch.Tensor, ratings: torch.Tensor,
+        train: bool = False, generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        b, n, d = past_embeddings.shape
+        rating_emb = self.rating_emb[ratings.long().clamp(0, self.num_ratings - 1)]
+        x = torch.stack([past_embeddings.float(), rating_emb], dim=2).reshape(b, 2 * n, d)
+        x = x * (d ** 0.5) + self.pos_emb[None, : 2 * n, :]
+        if train:
+            x = dropout(x, self.dropout_rate, generator)
+        valid = length_mask(past_lengths, n).repeat_interleave(2, dim=1)
+        x = x * valid[..., None].to(x.dtype)
+        return x.to(self.compute_dtype), valid, past_lengths * 2
 
 
 def postprocess_output(

@@ -88,6 +88,16 @@ def l2_normalize(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return x / torch.sqrt(torch.clamp(sq, min=eps * eps))
 
 
+def layer_norm_in_dtype(y: torch.Tensor, eps: float) -> torch.Tensor:
+    """Parameter-free LayerNorm over the last axis in y's dtype, as
+    `jnp.mean` / `jnp.var` compute it: the mean and the variance accumulate
+    in f32 and round to y's dtype, then every step rounds to it."""
+    yf = y.float()
+    mu = yf.mean(dim=-1, keepdim=True).to(y.dtype)
+    var = yf.var(dim=-1, keepdim=True, unbiased=False).to(y.dtype)
+    return (y - mu) * torch.rsqrt(var + eps)
+
+
 class GLU(nn.Module):
     """One 2x-wide Linear, split, act(lhs) * rhs; lhs is the first half
     (`layers.py:37-66`). "gelu" is the exact erf GeLU."""

@@ -3,8 +3,9 @@
 Counterpart of `rails_tpu/similarity/mol.py`: query components with the uid
 hash components, their L2 aux loss and uid dropout (:167-224), item
 components (:226), the gating partials (:244-258), `build_item_tables`
-(:260), the `glu_silu` combination with softmax dropout (:271-320), the
-training `__call__` (:326-367), `load_balancing_mi_loss` (:42-70),
+(:260), the `glu_silu`, `glu_silu_ln` and `none` combinations with softmax
+dropout (:271-320; `none` takes whichever gating partials the config
+builds, :88-96), the training `__call__` (:326-367), `load_balancing_mi_loss` (:42-70),
 `score_gathered` (:369-402) and `score_precomputed` (:404-448). Parameter
 names follow the flax tree (`query_proj.glu.w`, `uid_embeddings_0.embedding`,
 `gating_qi.hidden`, ...).
@@ -26,10 +27,12 @@ from rails_tpu_torch.similarity.layers import (
     ProjMLP,
     dropout,
     l2_normalize,
+    layer_norm_in_dtype,
     normal,
 )
 
 AuxLosses = Dict[str, torch.Tensor]
+COMBINATIONS = ("glu_silu", "glu_silu_ln", "none")
 
 
 def load_balancing_mi_loss(
@@ -52,11 +55,16 @@ def load_balancing_mi_loss(
     return -util_entropy + per_example_entropy
 
 
+def _rows(partial: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """(B, L) -> (B, 1, L); None stays None."""
+    return None if partial is None else partial[:, None, :]
+
+
 class MoLItemTables(NamedTuple):
     """Precomputed item-side state for decoupled (indexing-time) scoring."""
 
     component_embeddings: torch.Tensor        # (X, P_X, d_P)
-    gating_partial: Optional[torch.Tensor]    # (X, L)
+    gating_partial: Optional[torch.Tensor]    # (X, L), or None without gating_item_fn
 
 
 class Embed(nn.Module):
@@ -78,13 +86,12 @@ class MoLSimilarity(nn.Module):
         self, cfg: MoLConfig, compute_dtype: torch.dtype, generator: torch.Generator
     ):
         super().__init__()
-        if cfg.gating_combination_type != "glu_silu":
-            raise NotImplementedError(
-                f"gating_combination_type={cfg.gating_combination_type!r}: only "
-                "glu_silu is ported (ROADMAP.md, Queue 1: preprocessors, embeddings and similarities)"
-            )
-        if not (cfg.gating_query_fn and cfg.gating_item_fn):
-            raise ValueError("glu_silu requires gating_query_fn and gating_item_fn")
+        if cfg.gating_combination_type not in COMBINATIONS:
+            raise ValueError(f"Unknown gating_combination_type {cfg.gating_combination_type!r}")
+        if cfg.gating_combination_type != "none" and not (cfg.gating_query_fn
+                                                         and cfg.gating_item_fn):
+            raise ValueError(f"gating_combination_type={cfg.gating_combination_type!r} requires "
+                             "gating_query_fn and gating_item_fn (use 'none' to drop a partial)")
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         d_p, g = cfg.dot_product_dimension, generator
@@ -101,14 +108,15 @@ class MoLSimilarity(nn.Module):
         for i, hash_size in enumerate(cfg.uid_embedding_hash_sizes):
             table = normal((hash_size + 1, d_p), 1.0, g)
             self.add_module(f"uid_embeddings_{i}", Embed(table, compute_dtype))
+        # No module (and no parameters) for a partial the config turns off.
         self.gating_query = GatingPartialMLP(
             cfg.query_embedding_dim, cfg.num_logits, cfg.gating_query_hidden_dim, False,
             compute_dtype, g,
-        )
+        ) if cfg.gating_query_fn else None
         self.gating_item = GatingPartialMLP(
             cfg.item_embedding_dim, cfg.num_logits, cfg.gating_item_hidden_dim, False,
             compute_dtype, g, cfg.gating_item_dropout_rate,
-        )
+        ) if cfg.gating_item_fn else None
         self.gating_qi = GatingPartialMLP(
             cfg.num_logits, cfg.num_logits, cfg.gating_qi_hidden_dim, True, compute_dtype, g,
             cfg.gating_qi_dropout_rate,
@@ -177,11 +185,20 @@ class MoLSimilarity(nn.Module):
     def item_gating_partial(
         self, item_embeddings: torch.Tensor, train: bool = False,
         generator: Optional[torch.Generator] = None,
-    ) -> torch.Tensor:
+    ) -> Optional[torch.Tensor]:
+        """(..., D') -> (..., L), or None without gating_item_fn."""
+        if self.gating_item is None:
+            return None
         return self.gating_item(item_embeddings, train, generator)
 
-    def query_gating_partial(self, query_embeddings: torch.Tensor) -> torch.Tensor:
-        return self.gating_query(query_embeddings)
+    def query_gating_partial(
+        self, query_embeddings: torch.Tensor, train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> Optional[torch.Tensor]:
+        """(B, D) -> (B, L), or None without gating_query_fn."""
+        if self.gating_query is None:
+            return None
+        return self.gating_query(query_embeddings, train, generator)
 
     def build_item_tables(self, item_embeddings: torch.Tensor) -> MoLItemTables:
         """Per-item state for indexing; item_embeddings (X, D')."""
@@ -192,19 +209,30 @@ class MoLSimilarity(nn.Module):
 
     def _combine(
         self,
-        logits: torch.Tensor,          # (B, X, L), already divided by T
-        query_partial: torch.Tensor,   # (B, 1, L)
-        item_partial: torch.Tensor,    # (1 or B, X, L)
+        logits: torch.Tensor,                    # (B, X, L), already divided by T
+        query_partial: Optional[torch.Tensor],   # (B, 1, L)
+        item_partial: Optional[torch.Tensor],    # (1 or B, X, L)
         train: bool = False,
         weights: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, AuxLosses]:
-        """glu_silu gating and the softmax-dropout combine (`mol.py:271-320`);
-        in training, the MI aux loss."""
+        """The gating combination and the softmax-dropout combine
+        (`mol.py:271-320`); in training, the MI aux loss. glu_silu_ln's
+        parameter-free LayerNorm (eps 1e-5) runs in the partials' dtype, as
+        jnp.mean / jnp.var do."""
         c = self.cfg
         qi_partial = self.gating_qi(logits, train, generator)
-        gating_inputs = query_partial * item_partial + qi_partial
-        gating_weights = gating_inputs * torch.sigmoid(gating_inputs)
+        if c.gating_combination_type == "none":
+            gating_weights = qi_partial
+            for partial in (query_partial, item_partial):
+                if partial is not None:
+                    gating_weights = gating_weights + partial
+        else:
+            gating_inputs = query_partial * item_partial + qi_partial
+            gate = gating_inputs
+            if c.gating_combination_type == "glu_silu_ln":
+                gate = layer_norm_in_dtype(gating_inputs, 1e-5)
+            gating_weights = gating_inputs * torch.sigmoid(gate)
         pi = torch.softmax(gating_weights.float(), dim=-1)
         if train and c.softmax_dropout_rate > 0.0:
             pi = dropout(pi, c.softmax_dropout_rate, generator)
@@ -238,7 +266,7 @@ class MoLSimilarity(nn.Module):
         else:
             logits = torch.einsum("bnd,bxmd->bxnm", q_comp, i_comp)
         logits = logits.reshape(b, x, c.num_logits) / c.temperature
-        query_partial = self.gating_query(query_embeddings, train, generator)[:, None, :]
+        query_partial = _rows(self.query_gating_partial(query_embeddings, train, generator))
         item_partial = self.item_gating_partial(item_embeddings, train, generator)
         scores, gate_aux = self._combine(
             logits, query_partial, item_partial, train, weights, generator)
@@ -258,14 +286,16 @@ class MoLSimilarity(nn.Module):
         logits = torch.einsum("bnd,xmd->bxnm", q_comp, i_comp)
         b, x = logits.shape[:2]
         logits = logits.reshape(b, x, c.num_logits) / c.temperature
-        query_partial = self.query_gating_partial(query_embeddings)[:, None, :]
-        return self._combine(logits, query_partial, item_tables.gating_partial[None])[0]
+        query_partial = _rows(self.query_gating_partial(query_embeddings))
+        item_partial = item_tables.gating_partial
+        return self._combine(logits, query_partial,
+                             None if item_partial is None else item_partial[None])[0]
 
     def score_gathered(
         self,
         query_embeddings: torch.Tensor,                 # (B, D)
         component_embeddings: torch.Tensor,             # (B, K, P_X, d_P)
-        gating_partial: torch.Tensor,                   # (B, K, L)
+        gating_partial: Optional[torch.Tensor],         # (B, K, L) or None
         user_ids: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """(B, K) scores of each query against its own gathered candidate
@@ -276,5 +306,5 @@ class MoLSimilarity(nn.Module):
         logits = torch.einsum("bnd,bxmd->bxnm", q_comp, component_embeddings.to(dt))
         b, k = component_embeddings.shape[:2]
         logits = logits.reshape(b, k, c.num_logits) / c.temperature
-        query_partial = self.query_gating_partial(query_embeddings)[:, None, :]
+        query_partial = _rows(self.query_gating_partial(query_embeddings))
         return self._combine(logits, query_partial, gating_partial)[0]

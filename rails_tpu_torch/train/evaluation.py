@@ -1,10 +1,12 @@
 """Serving/eval step: encode -> MoL top-k' -> seen-id filter -> ranks.
 
 Counterpart of `rails_tpu/train/evaluation.py`: `EvalState` and
-`get_eval_state` (:64-138, int8 tables for the `...Int8...` spellings; without
-IVF), `ranks_from_top_k` (:141-152),
-`metrics_from_ranks` (:155-172), `make_eval_step_fn` and `make_eval_step`
-(:192-262) and `recall_vs_exact` (:531-574). The step is a plain Python
+`get_eval_state` (:64-138, int8 tables for the `...Int8...` spellings, the
+item embeddings l2-normalised with `item_l2_norm`; without IVF),
+`ranks_from_top_k` (:141-152), `metrics_from_ranks` (:155-172),
+`make_eval_step_fn` and `make_eval_step` (:192-262, `max_num_invalid` caps
+the seen ids k' makes room for) and `recall_vs_exact` (:531-574). A
+DotProduct model serves through `MIPSBruteForceTopK`. The step is a plain Python
 function under `torch.inference_mode`: no jit and no CUDA graph yet.
 """
 
@@ -21,6 +23,7 @@ from rails_tpu_torch.data.features import SequentialFeatures
 from rails_tpu_torch.index.candidate_index import k_prime_for, select_top_k_with_invalid_filter
 from rails_tpu_torch.index.factory import get_top_k_raw
 from rails_tpu_torch.index.top_k import MoLTopKState, build_mol_topk_state
+from rails_tpu_torch.losses.samplers import maybe_l2_norm
 from rails_tpu_torch.similarity.mol import MoLItemTables
 
 NDCG_KS = (1, 5, 10, 50, 100, 200)
@@ -51,17 +54,18 @@ def get_eval_state(
     top_k_method: str,
     table_dtype: torch.dtype = torch.bfloat16,
     device: Optional[Union[str, torch.device]] = None,
+    item_l2_norm: bool = False,
+    l2_norm_eps: float = 1e-6,
 ) -> EvalState:
-    """Embed the whole corpus and build the method's top-k state on `device`
+    """Embed the whole corpus (l2-normalised with `item_l2_norm`, as the
+    `*-dot` configs set it) and build the method's top-k state on `device`
     (the card unless the caller passes "cpu"): the kernel-layout tables for
     the fused, certified and tile methods (int8 with their scales for the
-    `...Int8...` spellings), no MoL tables for MIPS.
-    (The JAX package's `item_l2_norm` serves the dot-product configs, which
-    are not ported.)"""
+    `...Int8...` spellings), no MoL tables for MIPS."""
     get_top_k_raw(top_k_method)   # refuse unported methods before any work
     ids = torch.as_tensor(np.asarray(all_item_ids, dtype=np.int32),
                           device=resolve_device(device))
-    emb = model.get_item_embeddings(ids)
+    emb = maybe_l2_norm(model.get_item_embeddings(ids), item_l2_norm, l2_norm_eps)
     if top_k_method == "MIPSBruteForceTopK":
         state = MoLTopKState(
             item_ids=ids,
@@ -106,13 +110,15 @@ def make_eval_step_fn(
     num_objects: int,
     filter_invalid_ids: bool = True,
     truncate_k_prime_to: Optional[int] = None,
+    max_num_invalid: Optional[int] = None,
 ) -> Callable:
     """The (encode -> top-k' -> filter -> rank) step, with the corpus state as
     an argument: fn(topk_state, features, target_ids, item_embeddings=None)
     -> (ranks (B,), top-k ids (B, k), scores (B, k)). The JAX step's `params`
     argument goes: the weights live in `model`. Only MIPS reads
-    `item_embeddings`. An approximate method whose pool is smaller than k
-    returns its pool; ranks beyond it count as misses."""
+    `item_embeddings`. k' makes room for the N seen ids of a batch, or for
+    at most `max_num_invalid` of them. An approximate method whose pool is
+    smaller than k returns its pool; ranks beyond it count as misses."""
     raw = get_top_k_raw(top_k_method)
 
     @torch.inference_mode()
@@ -120,6 +126,8 @@ def make_eval_step_fn(
              target_ids: torch.Tensor, item_embeddings: Optional[torch.Tensor] = None):
         queries = model.encode(features)
         n0 = features.ids.shape[1] if filter_invalid_ids else 0
+        if max_num_invalid is not None:
+            n0 = min(n0, max_num_invalid)
         k_prime = k_prime_for(k, num_objects, n0, truncate_k_prime_to)
         res = raw(model, topk_state, queries, k_prime, features.user_ids,
                   item_embeddings=item_embeddings)
@@ -137,10 +145,11 @@ def make_eval_step(
     k: int,
     filter_invalid_ids: bool = True,
     truncate_k_prime_to: Optional[int] = None,
+    max_num_invalid: Optional[int] = None,
 ) -> Callable:
     """`make_eval_step_fn` bound to one eval state: fn(features, target_ids)."""
     step_fn = make_eval_step_fn(model, eval_state.top_k_method, k, eval_state.num_objects,
-                                filter_invalid_ids, truncate_k_prime_to)
+                                filter_invalid_ids, truncate_k_prime_to, max_num_invalid)
 
     def step(features: SequentialFeatures, target_ids: torch.Tensor):
         return step_fn(eval_state.topk_state, features, target_ids, eval_state.item_embeddings)

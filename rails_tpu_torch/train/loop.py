@@ -2,15 +2,14 @@
 
 Counterpart of `rails_tpu/train/loop.py`: `model_dtype` (:71-77),
 `make_optimizer` (:38-61), `scatter_target` (:64-68), `make_train_step`
-(:132-193) and `create_train_state` (:196-225). The training state is
+(:132-193, with its sampler choice and loss dispatch, :115-167) and
+`create_train_state` (:196-225). The training state is
 (model, optimizer, step): the model's parameters and the optimizer's moments
 are updated in place. One explicit `torch.Generator` on the model's device
 draws, per step, the HSTU blocks' dropout seed, the negatives and every
 other dropout. The step is a plain Python function: no jit, no CUDA graph.
-
-Only the `SampledSoftmaxLoss` with the local sampler is ported; the BCE
-losses and the in-batch sampler raise NotImplementedError naming
-ROADMAP.md.
+The losses are `SampledSoftmaxLoss`, `BCELoss` and `BCELossWithRatings`; the
+samplers the local and the in-batch one.
 """
 
 from __future__ import annotations
@@ -23,8 +22,9 @@ import torch
 from rails_tpu_torch.core.config import ExperimentConfig
 from rails_tpu_torch.core.device import resolve_device
 from rails_tpu_torch.data.features import Batch, SequentialFeatures
+from rails_tpu_torch.losses.bce import bce_loss, bce_loss_with_ratings
 from rails_tpu_torch.losses.sampled_softmax import get_weighted_loss, sampled_softmax_loss
-from rails_tpu_torch.losses.samplers import LocalNegativesSampler
+from rails_tpu_torch.losses.samplers import InBatchNegativesSampler, LocalNegativesSampler
 from rails_tpu_torch.models.encoder import SequentialRecommender
 from rails_tpu_torch.train.fused_adamw import FusedAdamW, linear_schedule
 
@@ -69,28 +69,36 @@ def scatter_target(features: SequentialFeatures, target_ids: torch.Tensor) -> Se
     return features._replace(ids=ids)
 
 
-def _make_sampler(cfg: ExperimentConfig, all_item_ids: np.ndarray, device) -> LocalNegativesSampler:
+def _make_sampler(cfg: ExperimentConfig, all_item_ids: np.ndarray, device):
     t = cfg.train
-    if t.sampling_strategy != "local":
-        raise NotImplementedError(
-            f"sampling_strategy={t.sampling_strategy!r} is not ported (ROADMAP.md, Queue 1: losses)"
-        )
-    ids = torch.as_tensor(np.asarray(all_item_ids, dtype=np.int32), device=device)
-    return LocalNegativesSampler(ids, t.item_l2_norm, t.l2_norm_eps)
+    if t.sampling_strategy == "local":
+        ids = torch.as_tensor(np.asarray(all_item_ids, dtype=np.int32), device=device)
+        return LocalNegativesSampler(ids, t.item_l2_norm, t.l2_norm_eps)
+    if t.sampling_strategy == "in-batch":
+        return InBatchNegativesSampler(t.item_l2_norm, t.l2_norm_eps)
+    raise ValueError(f"Unknown sampling_strategy {t.sampling_strategy!r}")
 
 
 def make_train_step(
     cfg: ExperimentConfig, model: SequentialRecommender, optimizer: FusedAdamW,
-    sampler: LocalNegativesSampler,
+    sampler,
 ) -> Callable:
     """fn(state, batch, generator) -> (state, metrics) with metrics
     {"loss", "loss_incl_aux", "aux/<name>"} as detached scalars. The
     gradients stay in the parameters' `.grad` after the step."""
     t = cfg.train
-    if t.loss_module != "SampledSoftmaxLoss":
-        raise NotImplementedError(
-            f"loss_module={t.loss_module!r} is not ported (ROADMAP.md, Queue 1: losses)"
-        )
+    if t.loss_module == "SampledSoftmaxLoss":
+        def apply_loss(features, generator, seed0):
+            return sampled_softmax_loss(
+                model, features, sampler, t.num_negatives, t.temperature, True, generator, seed0,
+                t.loss_activation_checkpoint, t.shared_negatives)
+    elif t.loss_module in ("BCELoss", "BCELossWithRatings"):
+        loss_fn = bce_loss if t.loss_module == "BCELoss" else bce_loss_with_ratings
+
+        def apply_loss(features, generator, seed0):
+            return loss_fn(model, features, sampler, t.temperature, True, generator, seed0)
+    else:
+        raise ValueError(f"Unknown loss_module {t.loss_module!r}")
     loss_weights = dict(t.loss_weights)
     params = dict(model.named_parameters())
 
@@ -100,10 +108,7 @@ def make_train_step(
         seed0 = int(torch.randint(0, _INT32_MAX, (1,), generator=generator,
                                   device=generator.device).item())
         model.zero_grad(set_to_none=True)
-        main_loss, aux = sampled_softmax_loss(
-            model, features, sampler, t.num_negatives, t.temperature, True, generator, seed0,
-            t.loss_activation_checkpoint, t.shared_negatives,
-        )
+        main_loss, aux = apply_loss(features, generator, seed0)
         total = get_weighted_loss(main_loss, aux, loss_weights)
         total.backward()
         optimizer.step({k: p.grad for k, p in params.items()})
@@ -120,15 +125,18 @@ def create_train_state(
     all_item_ids: np.ndarray,
     seed: Optional[int] = None,
     device: Optional[Union[str, torch.device]] = None,
+    item_id_to_category_id: Optional[np.ndarray] = None,
 ):
     """Returns (model, state, train_step, sampler) on `device`, the card
     unless the caller passes "cpu". Weights are drawn from `seed`
-    (`cfg.train.random_seed` by default)."""
+    (`cfg.train.random_seed` by default); `item_id_to_category_id` serves the
+    categorical embedding."""
     device = resolve_device(device)
     seed = cfg.train.random_seed if seed is None else seed
     model = SequentialRecommender(
         cfg, num_items, compute_dtype=model_dtype(cfg), device=device,
         generator=torch.Generator().manual_seed(seed),
+        item_id_to_category_id=item_id_to_category_id,
     )
     optimizer = make_optimizer(cfg, model)
     sampler = _make_sampler(cfg, all_item_ids, device)

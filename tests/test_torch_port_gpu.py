@@ -1623,3 +1623,118 @@ def test_fast_train_step_on_cuda_matches_cpu(cuda, monkeypatch):
     assert abs(loss_g - loss_c) <= 1e-4 * abs(loss_c)
     for k in g_c:
         torch.testing.assert_close(g_g[k], g_c[k], rtol=5e-3, atol=1e-4, msg=k)
+
+
+# The K1/K4 instances of the rated and combined preprocessors at ML-20M
+# widths (b, n, D, h, dqk, dv, max_seq_len): the rated one widens D to
+# 256 + 8 = 264, past the tensor-core kernels' D <= 256; the combined one
+# doubles n to 2 x 211 = 422, past f32's TF32_MAX_N = 256.
+PREPROC_SHAPES = {"rated": (2, 211, 264, 8, 32, 32, 211),
+                  "combined": (2, 422, 256, 8, 32, 32, 422)}
+
+
+def _k1_route_counts():
+    return (hstu_block.project.launches, hstu_block.tf32_project.launches,
+            hstu_block.fused_hstu_block.launches)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("instance", list(PREPROC_SHAPES))
+def test_k1_preprocessor_instances_match_plain(cuda, instance, dtype):
+    """K1 at the rated width and the combined length, against its plain
+    version, on the route its width rules name: the CUDA-core kernels for the
+    rated D = 264 and for f32 at n = 422; bf16 at n = 422 on the tensor cores,
+    whose attention fits a block's shared memory there (`check_tc_smem`)."""
+    b, n, d, h, dqk, dv, max_seq_len = PREPROC_SHAPES[instance]
+    args, kw = _k1_args(b, n, d, h, dqk, dv, max_seq_len, dtype, cuda, seed=n)
+    tc = hstu_block.tc_block(dtype, d, h, dqk, dv, "silu")
+    tf32 = hstu_block.tf32_block(dtype, d, n, h, dqk, dv, "silu")
+    assert not tf32 and tc == (instance == "combined" and dtype == torch.bfloat16)
+    before = _k1_route_counts()
+    got = hstu_block.fused_hstu_block(**args, **kw)
+    launched = tuple(a - c for a, c in zip(_k1_route_counts(), before))
+    assert launched == (int(tc), 0, 1)
+    want = hstu_block.fused_hstu_block_reference(**args, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("instance", list(PREPROC_SHAPES))
+def test_k4_preprocessor_instances_match_plain(cuda, instance, dtype, monkeypatch):
+    """K4 (forward and attention backward) at the rated width and the
+    combined length against its plain version, at the default instance's
+    tolerances (f32: autograd of the plain forward; bf16: the glue over the
+    plain forward and backward), on the routes of `tc_fwd_route`,
+    `tc_bwd_route`, `tf32_fwd_route` and `tf32_bwd_route`, which the
+    `.tc_launches` counters show."""
+    b, n, d, h, dqk, dv, max_seq_len = PREPROC_SHAPES[instance]
+    args, kw = _k1_args(b, n, d, h, dqk, dv, max_seq_len, dtype, cuda, seed=n + 1)
+    args["x"] = args["x"] * args["colmask"][..., None].to(dtype)
+    meta = hstu_block_train.BlockMeta(h, dqk, dv, kw["inv_n"], kw["eps"], 128, 0.2)
+    bf16 = dtype == torch.bfloat16
+    fwd, bwd = hstu_block_train.fused_train_block_forward, hstu_block_train.attn_backward
+    want_tc = (int(hstu_block_train.tc_fwd_route(dtype, d, meta)
+                   or hstu_block_train.tf32_fwd_route(dtype, d, n, meta)),
+               int(hstu_block_train.tc_bwd_route(dtype, meta)
+                   or hstu_block_train.tf32_bwd_route(dtype, n, meta)))
+    # The backward's routes do not read D: the rated one takes them at n = 211.
+    assert want_tc == ((0, 1) if instance == "rated" else (1, 1) if bf16 else (0, 0))
+    w = torch.cos(torch.arange(args["x"].numel(), device=cuda, dtype=torch.float32)).reshape(
+        args["x"].shape)
+    res = []
+    for plain in (False, True):
+        fn = hstu_block_train.fused_train_block
+        if plain and bf16:
+            monkeypatch.setattr(hstu_block_train, "fused_train_block_forward",
+                                hstu_block_train.fused_train_block_forward_reference)
+            monkeypatch.setattr(hstu_block_train, "attn_backward",
+                                hstu_block_train.attn_backward_reference)
+        elif plain:
+            fn = hstu_block_train.fused_train_block_autograd_reference
+        before = (fwd.launches, bwd.launches, fwd.tc_launches, bwd.tc_launches)
+        leaves = [args[k].clone().requires_grad_(True) for k in GRAD_NAMES]
+        out = fn(*leaves, args["colmask"], args["ext"], 13, meta)
+        (out.float() * w).sum().backward()
+        launched = tuple(a - c for a, c in zip(
+            (fwd.launches, bwd.launches, fwd.tc_launches, bwd.tc_launches), before))
+        assert launched == ((0, 0, 0, 0) if plain else (1, 1) + want_tc)
+        res.append((out.detach().float(), [t.grad.float() for t in leaves]))
+    (out_k, g_k), (out_p, g_p) = res
+    assert bool(torch.isfinite(out_k).all())
+    if bf16:
+        assert ((out_k - out_p).abs().max() / out_p.abs().max()).item() <= 1e-2
+    else:
+        torch.testing.assert_close(out_k, out_p, rtol=1e-3, atol=1e-4)
+    for name, got, want in zip(GRAD_NAMES, g_k, g_p):
+        scale = want.abs().max().clamp_min(1e-30)
+        assert ((got - want).abs().max() / scale).item() <= (2e-2 if bf16 else 1e-3), name
+
+
+def test_k6_on_a_categorical_table(cuda):
+    """The categorical embedding's gather backward through K6 into its
+    (num_categories + 1, D) table at ML-20M width: 128 users x 211 ids over
+    20 categories (about 1,350 updates a row), against the plain scatter,
+    each row within its recursive-summation bound; two calls bit-equal."""
+    from rails_tpu_torch.models.embedding import CategoricalEmbeddingModule
+
+    g = torch.Generator().manual_seed(4)
+    remap = torch.randint(0, 20, (26_744,), generator=g).numpy()
+    ids = torch.randint(0, 26_745, (128, 211), generator=g).to(torch.int32)
+    emb = CategoricalEmbeddingModule(20, 256, remap, g, scatter_grad_kernel=True).to(cuda)
+    rows = emb.category_ids(ids.to(cuda)).to(torch.int32)
+    upstream = torch.randn(128, 211, 256, generator=g).to(cuda)
+    grads = []
+    for _ in range(2):
+        before = scatter_add.scatter_add_rows.launches
+        emb.embedding.grad = None
+        (emb(ids.to(cuda)) * upstream).sum().backward()
+        assert scatter_add.scatter_add_rows.launches == before + 1
+        grads.append(emb.embedding.grad.clone())
+    assert torch.equal(grads[0], grads[1])
+    want = scatter_add.scatter_add_rows_reference(rows, upstream, 21)
+    flat = rows.reshape(-1).long()
+    mass = torch.zeros(21, 256, dtype=torch.float64, device=cuda).index_add_(
+        0, flat, upstream.reshape(-1, 256).double().abs())
+    count = torch.bincount(flat, minlength=21).double()[:, None]
+    assert int(count[1:].min()) > 1000
+    assert bool(((grads[0].double() - want.double()).abs() <= 2 * count * 2.0**-24 * mass).all())

@@ -42,7 +42,8 @@ def test_port_imports_no_jax():
                   and sys.modules[m] is not None]
         assert not leaked, leaked
         assert "rails_tpu_torch.index.oracle" in mods, mods
-        for m in ("cli.encode_probe", "cli.mol_probe", "ops.encode_probe", "ops.mol_probe"):
+        for m in ("cli.encode_probe", "cli.mol_probe", "ops.encode_probe", "ops.mol_probe",
+                  "models.sasrec", "similarity.dot_product", "losses.bce"):
             assert "rails_tpu_torch." + m in mods, mods
         print(len(mods))
         """
@@ -256,16 +257,47 @@ def test_ctypes_bindings_match_the_c_signatures(fresh_build, monkeypatch):
     [
         dict(model_type="SASRec"),
         dict(input_preprocessor_type="rated"),
-        dict(embedding_module_type="categorical"),
+        dict(embedding_module_type="categorical", num_item_categories=7),
     ],
     ids=lambda c: next(iter(c)),
 )
 def test_unported_model_configs_raise(change):
+    """The model configurations that refused before this slice (SASRec, the
+    rated preprocessor, the categorical embedding) now build, load a
+    rails_tpu model's weights strictly and encode as it does (f32)."""
+    import jax
+    import numpy as np
+
+    from rails_tpu.core.config import get_experiment_config as jax_experiment_config
+    from rails_tpu.data import datasets as jax_datasets
+    from rails_tpu.train import loop as jax_loop
+    from rails_tpu_torch.compat.from_jax import state_dict_from_jax_params
+    from rails_tpu_torch.data.features import SequentialFeatures
     from rails_tpu_torch.models.encoder import SequentialRecommender
 
-    cfg = get_experiment_config("synthetic-small").replace(**change)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SequentialRecommender(cfg, num_items=10)
+    data = dict(synthetic_num_users=32, synthetic_num_items=90)
+    cfg = jax_experiment_config("synthetic-small").replace(**change)
+    cfg = cfg.replace(data=cfg.data.replace(**data))
+    port_cfg = get_experiment_config("synthetic-small").replace(**change)
+    port_cfg = port_cfg.replace(data=port_cfg.data.replace(**data))
+    ds = jax_datasets.get_reco_dataset(cfg.data)
+    batch = next(ds.eval_dataset.batches(
+        batch_size=8, max_output_length=cfg.train.gr_output_length + 1, shuffle=False))
+    mapping = (np.arange(ds.max_item_id, dtype=np.int32) % 7
+               if "embedding_module_type" in change else None)
+    model, params = jax_loop.init_model(cfg, ds.max_item_id, jax.random.PRNGKey(0), batch,
+                                        item_id_to_category_id=mapping)
+    port = SequentialRecommender(port_cfg, ds.max_item_id, device="cpu",
+                                 item_id_to_category_id=mapping)
+    port.load_state_dict(
+        state_dict_from_jax_params(jax.tree_util.tree_map(np.asarray, params), port_cfg),
+        strict=True)
+    want = np.asarray(jax.jit(lambda p: model.apply(p, batch.features, method=model.encode))(
+        params))
+    with torch.no_grad():
+        got = port.encode(SequentialFeatures(
+            *(torch.from_numpy(np.array(f)) for f in batch.features))).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize(
@@ -277,25 +309,55 @@ def test_unported_model_configs_raise(change):
     ],
     ids=["checkpoint", "in_batch", "bce"],
 )
-def test_unported_training_options_raise(change):
-    """Each training option off the ported path refuses with a pointer to
-    ROADMAP.md, at the latest on the first step."""
+def test_unported_training_options_raise(change, monkeypatch):
+    """The training options that refused before this slice (the loss's
+    activation checkpoint, the in-batch sampler, BCE) now run one step whose
+    loss matches `make_train_step`'s (every dropout off, the same draws;
+    tests/test_torch_port_models_train.py holds the gradients too)."""
+    import jax
     import numpy as np
 
-    from rails_tpu_torch.data.features import batch_from_rows
+    from tests.test_torch_port_models_train import _fix_draws
+    from tests.test_torch_port_train_step import NO_DROPOUT, _configure, _port_batch
+
+    from rails_tpu.core.config import get_experiment_config as jax_experiment_config
+    from rails_tpu.data import datasets as jax_datasets
+    from rails_tpu.train import loop as jax_loop
+    from rails_tpu_torch.compat.from_jax import state_dict_from_jax_params
     from rails_tpu_torch.train.loop import create_train_state
 
-    cfg = get_experiment_config("synthetic-small")
-    cfg = cfg.replace(**{k: getattr(cfg, k).replace(**v) for k, v in change.items()})
-    n = cfg.data.max_sequence_length
-    lengths = np.array([5, 9])
-    ids = (np.arange(1, n + 1)[None] * (np.arange(n)[None] < lengths[:, None])).astype(np.int32)
-    batch = batch_from_rows(lengths, ids, ids, ids * 1000, np.array([3, 4]), np.array([1, 1]),
-                            np.array([90000, 90000]), np.array([0, 1]),
-                            max_output_length=cfg.train.gr_output_length + 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _, state, step, _ = create_train_state(cfg, 60, np.arange(1, 61), device="cpu")
-        step(state, batch, torch.Generator().manual_seed(0))
+    changes = {k: dict(NO_DROPOUT.get(k, {}), **change.get(k, {}))
+               for k in set(NO_DROPOUT) | set(change)}
+    changes["hstu"] = dict(changes["hstu"], fused_train=False)
+    cfg = _configure(jax_experiment_config("synthetic-small"), changes)
+    port_cfg = _configure(get_experiment_config("synthetic-small"), changes)
+    ds = jax_datasets.get_reco_dataset(cfg.data)
+    batch = next(ds.train_dataset.batches(
+        batch_size=8, max_output_length=cfg.train.gr_output_length + 1, shuffle=False))
+    b, n = batch.features.ids.shape
+    _fix_draws(monkeypatch, cfg, b * (n - 1), np.asarray(ds.all_item_ids))
+    _, state, train_step, _ = jax_loop.create_train_state(
+        cfg, ds.max_item_id, ds.all_item_ids, batch)
+    port, port_state, port_step, _ = create_train_state(
+        port_cfg, ds.max_item_id, ds.all_item_ids, device="cpu")
+    port.load_state_dict(state_dict_from_jax_params(
+        jax.tree_util.tree_map(np.asarray, state.params), port_cfg), strict=True)
+    _, want = train_step(state, batch, jax.random.PRNGKey(0))
+    _, got = port_step(port_state, _port_batch(batch), torch.Generator().manual_seed(0))
+    np.testing.assert_allclose(got["loss"].item(), float(want["loss"]), rtol=1e-4)
+
+
+def test_no_refusal_names_a_ported_queue_item():
+    """No NotImplementedError of the package names a Queue 1 item this slice
+    ported (`losses`, `SASRec`, `preprocessors, embeddings and
+    similarities`); IVF still refuses."""
+    ported = ("Queue 1: losses", "Queue 1: SASRec",
+              "Queue 1: preprocessors, embeddings and similarities")
+    hits = []
+    for path in glob.glob(os.path.join(REPO, "rails_tpu_torch", "**", "*.py"), recursive=True):
+        text = open(path).read()
+        hits += [(path, label) for label in ported if label in text]
+    assert not hits, hits
 
 
 @pytest.mark.parametrize(

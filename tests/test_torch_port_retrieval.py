@@ -324,22 +324,20 @@ def test_bounds_dominate_scores(setup):
 def test_state_without_gating_partial_matches_jax(setup):
     """A similarity without the item gating partial (`gating_item_fn=False`,
     the `none` combination) gets a state with no gating table and no fused
-    tables, as in JAX (`top_k.py:158,201-204`); the port's MoL does not take
-    that combination yet, so its item tables come from a stand-in model."""
-    from types import SimpleNamespace
-
-    from rails_tpu_torch.similarity.mol import MoLItemTables
-
+    tables, as in JAX (`top_k.py:158,201-204`): the port's model of that
+    config, with the same weights but the item gating MLP it does not have."""
     model, params, port = setup["model"], setup["params"], setup["port"]
-    cfg = model.cfg.replace(mol=model.cfg.mol.replace(gating_combination_type="none",
-                                                      gating_item_fn=False))
+    none = dict(gating_combination_type="none", gating_item_fn=False)
+    cfg = model.cfg.replace(mol=model.cfg.mol.replace(**none))
     jmodel = model.clone(cfg=cfg)
     ids = jnp.arange(1, NUM_ITEMS + 1, dtype=jnp.int32)
     jstate = jtk.build_mol_topk_state(jmodel, params, ids, setup["emb"],
                                       table_dtype=jnp.bfloat16, build_fused=True)
     assert jstate.fused_tables is None and jstate.item_tables.gating_partial is None
-    stand_in = SimpleNamespace(
-        build_item_tables=lambda e: MoLItemTables(port.mol.item_components(e), None))
+    stand_in = SequentialRecommender(port.cfg.replace(mol=port.cfg.mol.replace(**none)),
+                                     NUM_ITEMS, device="cpu")
+    stand_in.load_state_dict({k: v for k, v in port.state_dict().items()
+                              if not k.startswith("mol.gating_item.")}, strict=True)
     t_ids = torch.from_numpy(np.array(ids))
     with torch.inference_mode():
         emb = port.get_item_embeddings(t_ids)
@@ -354,3 +352,23 @@ def test_state_without_gating_partial_matches_jax(setup):
         assert got.dtype == torch.bfloat16
         np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
                                    rtol=1e-2, atol=1e-3)
+
+
+@pytest.mark.parametrize("combination", ["glu_silu_ln", "none"])
+def test_fused_spelling_refuses_other_combinations(setup, combination):
+    """K2 computes the glu_silu combination alone, so the port builds no
+    fused tables for another one and `MoLBruteForceTopKFused` raises before
+    any launch; `MoLBruteForceTopK` scores the same state."""
+    port = setup["port"]
+    cfg = port.cfg.replace(mol=port.cfg.mol.replace(gating_combination_type=combination))
+    other = SequentialRecommender(cfg, NUM_ITEMS, device="cpu")
+    other.load_state_dict(port.state_dict(), strict=True)
+    t_ids = torch.arange(1, NUM_ITEMS + 1, dtype=torch.int32)
+    with torch.inference_mode():
+        state = ptk.build_mol_topk_state(other, t_ids, other.get_item_embeddings(t_ids),
+                                         table_dtype=torch.float32, build_fused=True)
+        assert state.fused_tables is None
+        with pytest.raises(ValueError, match="glu_silu"):
+            ptk.mol_brute_force_top_k_fused(other, state, setup["tq"], 10, setup["tuids"])
+        res = ptk.mol_brute_force_top_k(other, state, setup["tq"], 10, setup["tuids"])
+    assert res.ids.shape == (setup["tq"].shape[0], 10)
