@@ -119,8 +119,10 @@ The frontier and its bf16 pre-train:
      8,000,000 items (uncut): 150 bf16 pre-train steps at B=32 (the loss must
      fall), the chunked bf16 build, queries through the XLA-path encoder (no
      K1), the streamed oracle, every default method (one JSON row each, as
-     the CLI prints it), then Fused, Cert4096 and Tile8 on the int8 build of
-     the same corpus. Every bf16 K4 launch of the pre-train takes the
+     the CLI prints it; before the first IVF method the `ivf_build` row with
+     its seconds and nlist, and each MoLIVFTopK8/32/128 row with the JAX
+     package's 8M recall beside it), then Fused, Cert4096 and Tile8 on the
+     int8 build of the same corpus. Every bf16 K4 launch of the pre-train takes the
      tensor-core route. Gates: the exact bf16 path vs the oracle tie-aware, the
      exact int8 path equal to torch.topk of K2-int8's scores, certified rows
      holding K2's exact top-k. Recall is printed, not gated.
@@ -169,6 +171,20 @@ K4's variants (the fused train block's flags):
      f32 and bf16: step 1 kernels vs plain to 9's contract, then TRAIN_STEPS steps
      (ms/step, peak memory, launch counts: K4 forward and backward and the
      variant's own counters 16 per step).
+IVF and the data pipeline (no kernel of their own: plain torch and host code):
+ 32. ivf (after 15): phase 14's corpus with bf16 standard and fused tables,
+     nlist 4,096: k-means twice with one seed, bit-equal; every real
+     position once in buckets + overflow; every list probed = the exact
+     fused top-k (tie-aware); after `permute_state_items` in cluster order
+     the exact method's scores bit-equal; IVF8/32 and Tile8 on both layouts
+     (recall printed, not gated).
+ 33. data (last): an ML-1M-shaped ratings.dat at full size (6,040 users,
+     3,706 items, ~1M events) through the pandas-free preprocessor and
+     `get_reco_dataset` (the native parser must run, its arrays equal to the
+     Python parser's, both timed); one ml-1m-hstu-mol eval batch through
+     MoLBruteForceTopKFused (K2 once, on the tensor cores) vs the plain path;
+     three ml-1m-hstu-mol-fast steps (K5) from `prefetch_batches`, step 1
+     kernels vs plain, every step's launches checked.
 The line before the last is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script fails before printing
 any result.
@@ -179,6 +195,7 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -292,6 +309,15 @@ FRONTIER_ITEMS = 8_000_000     # the frontier's default corpus, uncut
 FRONTIER_STEPS = 150           # its default pre-train
 FRONTIER_RUNS = 8              # its default timed calls per method
 FRONTIER_INT8_METHODS = ("MoLBruteForceTopKFused", "MoLCertTopK4096", "MoLTileTopK8")
+# recall@200 of the JAX package's IVF rows in its own 8M frontier record
+# (docs/frontier_8m.json); its MoLIVFTopK128 row is a compile error.
+JAX_IVF_RECALL = {"MoLIVFTopK8": 0.1195, "MoLIVFTopK32": 0.2969, "MoLIVFTopK128": None}
+# `[data]`: an ML-1M-shaped ratings.dat at full size (GroupLens ML-1M README:
+# 1,000,209 ratings of 3,706 movies by 6,040 users, at least 20 each; ids up
+# to 3,952). Per-user counts: a lognormal with ML-1M's median 96 and mean
+# 165.6, clamped to [20, 2,314].
+ML1M_USERS, ML1M_MAX_ID = 6_040, 3_952
+ML1M_MEDIAN, ML1M_MEAN, ML1M_MAX_LEN = 96.0, 165.6, 2_314
 BMAX_INVALID = (5, 77, 300_000, 777_777)   # mid-corpus valid=0 columns of [K2-bmax]
 ML20M_GEOM = (P_Q, P_X, D_P)
 # amzn-books-hstu-mol (`rails_tpu_torch/core/config.py`): MoL 8x8x32 (L=64,
@@ -1875,23 +1901,16 @@ def step_launches(cfg, model, optimizer) -> dict:
             "K7": int(any(optimizer.fused(p.numel()) for p in model.parameters()))}
 
 
-def train_phase(device, name: str, smi: str, config: str = "ml-20m-hstu-mol",
-                tag: str = "train", batch_size: int = TRAIN_BATCH, num_items: int = NUM_ITEMS,
-                lengths: str = "ml20m", hstu: Optional[dict] = None,
-                changes: Optional[dict] = None, what: str = "", steps: int = TRAIN_STEPS,
-                **train_overrides) -> dict:
-    """Step 1 through the kernels vs through the plain versions from the same
-    state and generator; then `steps` steps on the batch. Returns the launch
-    counts of every kernel over those steps, or of step 1 when `steps` is
-    0. `what` names the run after the tag."""
+def first_step_vs_plain(cfg, model, state, step, batch, gen, tag: str, what: str = "") -> tuple:
+    """Step 1 through the kernels (its launches checked against
+    `step_launches`) vs the same step through the plain versions from the
+    same weights, moments and generator state; prints the line. Returns the
+    state after the plain step, step 1's launches and the expected ones."""
     import torch
 
-    cfg, model, state, step, batch = train_setup(device, config, batch_size, num_items, lengths,
-                                                 hstu, changes, **train_overrides)
-    n = batch.features.ids.shape[1]
+    batch_size, n = batch.features.ids.shape
     params = dict(model.named_parameters())
     opt = state.optimizer
-    gen = torch.Generator(device=device).manual_seed(0)
     p0 = {k: p.detach().clone() for k, p in params.items()}
     mu0 = {k: t.clone() for k, t in opt.state.mu.items()}
     nu0 = {k: t.clone() for k, t in opt.state.nu.items()}
@@ -1931,7 +1950,25 @@ def train_phase(device, name: str, smi: str, config: str = "ml-20m-hstu-mol",
           + f" (<= {grad_tol}); launches per step {per_step}")
     if loss_err > loss_tol or max(groups.values()) > grad_tol:
         raise AssertionError("the kernel step disagrees with the plain step")
-    del grads_k, p0, mu0, nu0
+    return state, per_step, want
+
+
+def train_phase(device, name: str, smi: str, config: str = "ml-20m-hstu-mol",
+                tag: str = "train", batch_size: int = TRAIN_BATCH, num_items: int = NUM_ITEMS,
+                lengths: str = "ml20m", hstu: Optional[dict] = None,
+                changes: Optional[dict] = None, what: str = "", steps: int = TRAIN_STEPS,
+                **train_overrides) -> dict:
+    """Step 1 through the kernels vs through the plain versions from the same
+    state and generator; then `steps` steps on the batch. Returns the launch
+    counts of every kernel over those steps, or of step 1 when `steps` is
+    0. `what` names the run after the tag."""
+    import torch
+
+    cfg, model, state, step, batch = train_setup(device, config, batch_size, num_items, lengths,
+                                                 hstu, changes, **train_overrides)
+    gen = torch.Generator(device=device).manual_seed(0)
+    state, per_step, want = first_step_vs_plain(cfg, model, state, step, batch, gen, tag, what)
+    what = f" {what}" if what else ""
     if not steps:
         return per_step
 
@@ -2686,7 +2723,9 @@ def frontier_phase(device, name: str, smi: str) -> dict:
     own functions at FRONTIER_ITEMS items: the bf16 pre-train (the loss must
     fall: the mean of the last 10 steps below the first 10), the chunked
     bf16 build, the queries through the XLA-path encoder, the streamed
-    oracle, every default method; then the int8 build of the same corpus and
+    oracle, every default method (the IVF index built before the first IVF
+    method, its `ivf_build` row printed; IVF recall beside the JAX package's,
+    not gated); then the int8 build of the same corpus and
     FRONTIER_INT8_METHODS with `--int8`. Gates: the exact bf16 path against
     the oracle tie-aware (`check_against_oracle`), the exact int8 path equal
     to torch.topk of K2-int8's scores, and every certified row holding K2's
@@ -2767,6 +2806,9 @@ def frontier_phase(device, name: str, smi: str) -> dict:
             exact = exact._replace(ids=exact.ids + 1)           # corpus ids are positions + 1
             print(line + f" on {name} ({smi})")
             for method in methods_:
+                if method.startswith("MoLIVF") and state.ivf is None:
+                    state, row = fr.attach_ivf(state, fr.ivf_nlist(args), args.ivf_iters)
+                    print(f"[frontier] {json.dumps(row)} on {name} ({smi})")
                 reset_launches()
                 row, res, cert = fr.run_method(model, state, q, uids, method, k, args.runs, int8,
                                                oracle, device)
@@ -2786,6 +2828,9 @@ def frontier_phase(device, name: str, smi: str) -> dict:
                     rate, delta, dev = check_certified(res, cert, k2_scores, exact)
                     line += (f"; certified rows exact (K2{'-int8' if int8 else ''}) up to the "
                              f"scorers' difference: dev {dev:.3e} <= 2 x delta {delta:.3e}")
+                if method in JAX_IVF_RECALL:
+                    line += (f"; the JAX package's recall@{k} at 8M items (docs/frontier_8m.json): "
+                             f"{JAX_IVF_RECALL[method] or 'none, its run failed to compile it'}")
                 print(line)
             print(f"[frontier] {kind} sweep peak memory "
                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -2877,6 +2922,107 @@ def approx_phase(device, name: str, smi: str) -> None:
         raise AssertionError(f"MoLCertTopK with a budget >= X certified only {rate} of rows")
     print("[approx] MoLCertTopK certified share by budget, certified rows exact up to the "
           "scorers' difference: " + "; ".join(parts))
+
+
+def ivf_phase(device, name: str, smi: str) -> dict:
+    """`[ivf]`: IVF on the `[approx]` clustered corpus (bf16 standard and
+    fused tables), nlist = max(64, 4 sqrt(X)) as the frontier sets it, with
+    the JAX module's invariants as gates: two k-means calls with one seed
+    bit-equal; every real position exactly once in buckets + overflow, the
+    fill within cap; every list probed = the exact fused path's top-k,
+    tie-aware (`check_certified` with every row held); after the
+    cluster-order relayout the exact method's scores bit-equal and its ids
+    equal wherever scores differ. Prints the build's seconds, IVF8/32 and
+    Tile8 on the unordered and the cluster-ordered layout (recall not
+    gated). Returns the phase's launches."""
+    import types
+
+    import torch
+
+    from rails_tpu_torch.cli import frontier as fr
+    from rails_tpu_torch.index import ivf
+    from rails_tpu_torch.index import top_k as tk
+    from rails_tpu_torch.index.factory import get_top_k_raw
+    from rails_tpu_torch.ops.mol_scoring import extract_gating_qi_weights, fused_mol_scores_t
+
+    model, state, emb, q, uids = approx_setup(device)
+    del emb
+    ft, k, b = state.fused_tables, APPROX_K, q.shape[0]
+    x = ft.num_items
+    nlist = max(64, int(4 * np.sqrt(x)))
+    reset_launches()
+    k2_scores = fused_mol_scores_t(
+        tk._query_comp(model, ft, q, uids), model.query_gating_partial(q), ft.item_comp_t,
+        ft.item_partial_t, extract_gating_qi_weights(model.mol), TEMPERATURE)[:, :x]
+    exact = tk.TopKResult(*torch.topk(k2_scores, k, dim=1))
+    exact = exact._replace(ids=exact.ids + 1)                  # corpus ids are positions + 1
+    valid = state.item_ids != 0
+    cents, secs = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cents.append(ivf.kmeans(state.avg_component, nlist, chunk=fr.IVF_CHUNK, valid=valid))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    if not torch.equal(*cents):
+        raise AssertionError("[ivf] two k-means calls with one seed differ")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index, perm = ivf.build_ivf_index(state.avg_component, state.item_ids, nlist=nlist,
+                                      chunk=fr.IVF_CHUNK, mol_state=state,
+                                      return_cluster_perm=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if not torch.equal(index.centroids, cents[0]):
+        raise AssertionError("[ivf] the index's k-means differs from kmeans with its seed")
+    cap = index.buckets.shape[1]
+    slots = torch.cat([index.buckets.reshape(-1), index.overflow]).long()
+    counts = torch.bincount(slots, minlength=x)
+    fill = (index.buckets != 0).sum(dim=1)
+    if not (bool((counts[1:] == 1).all()) and counts[0] >= 1 and int(fill.max()) <= cap):
+        raise AssertionError(f"[ivf] a real position is not listed exactly once: counts of "
+                             f"positions 1.. in {counts[1:].unique().tolist()}, fill max "
+                             f"{int(fill.max())} of cap {cap}")
+    print(f"[ivf] clustered corpus of {x} items (bf16 standard + fused tables), nlist {nlist}, "
+          f"10 Lloyd iterations in chunks of {fr.IVF_CHUNK}: kmeans {secs[0]:.2f} s and "
+          f"{secs[1]:.2f} s, bit-equal; build with MoL-aware probes and the cluster order "
+          f"{build_s:.2f} s; cap {cap}, fill mean {fill.float().mean().item():.1f} max "
+          f"{int(fill.max())}, overflow {int(index.overflow.shape[0])} slots; every position "
+          f"listed once on {name} ({smi})")
+    st = state._replace(ivf=index)
+    t0 = time.perf_counter()
+    full = ivf.mol_ivf_top_k(model, st, q, k, nprobe=nlist, user_ids=uids, cand_chunk=1 << 16)
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    every_row = types.SimpleNamespace(certified=torch.ones(b, dtype=torch.bool, device=device))
+    _, delta, dev = check_certified(full, every_row, k2_scores, exact)
+    print(f"[ivf] every list probed ({nlist} x {cap} slots + overflow a query, B={b}, k={k}, "
+          f"{full_s:.2f} s): the exact fused top-k up to the scorers' difference, dev "
+          f"{dev:.3e} <= 2 x delta {delta:.3e}")
+    sp = tk.permute_state_items(st, perm)
+    fused = get_top_k_raw("MoLBruteForceTopKFused")
+    a, c = fused(model, st, q, k, uids), fused(model, sp, q, k, uids)
+    gap = a.scores[:, 1:] != a.scores[:, :-1]
+    apart = torch.ones_like(a.scores, dtype=torch.bool)
+    apart[:, 1:] &= gap
+    apart[:, :-1] &= gap
+    if not (torch.equal(a.scores, c.scores) and torch.equal(a.ids[apart], c.ids[apart])):
+        raise AssertionError("[ivf] the exact method's result moved with the cluster order")
+    line = (f"[ivf] cluster-order relayout (permute_state_items): the exact fused method's "
+            f"scores bit-equal, ids equal on the {apart.float().mean().item():.4f} of places "
+            f"whose score is not tied")
+    for method in ("MoLIVFTopK8", "MoLIVFTopK32", "MoLTileTopK8"):
+        for layout, st_ in (("unordered", st), ("cluster-ordered", sp)):
+            if method.startswith("MoLIVF") and layout != "unordered":
+                continue
+            res, counts_, ms_ = timed(lambda: get_top_k_raw(method)(model, st_, q, k, uids))
+            check_tc_route(counts_, f"[ivf] {method}")
+            recall = (res.ids == exact.ids[:, :1]).any(dim=1).float().mean().item()
+            line += (f"; {method} {layout}: {ms_:.3f} ms/batch, top-{k} overlap "
+                     f"{id_overlap(res.ids, exact.ids):.4f}, recall@{k} of the exact top-1 "
+                     f"{recall:.4f}")
+    print(line)
+    return launch_counts()
 
 
 def approx_e2e(device, name: str, smi: str) -> dict:
@@ -3541,6 +3687,159 @@ def p2_phase(device, name: str, smi: str) -> dict:
     return {"full": rows["full"], "rows": rows, "launches": launches}
 
 
+def ml1m_ratings_dat(path: str, seed: int = 0) -> int:
+    """Write an ML-1M-shaped ratings.dat (`user::item::rating::timestamp`):
+    ML1M_USERS users with lognormal per-user counts (ML1M_MEDIAN, ML1M_MEAN,
+    clamped to [20, ML1M_MAX_LEN]), items drawn with Zipf popularity from
+    3,706 ids up to ML1M_MAX_ID (each at least once), ratings 1-5, each
+    user's timestamps increasing, lines in shuffled order. Returns the number
+    of events."""
+    rng = np.random.default_rng(seed)
+    items = np.sort(np.concatenate([rng.choice(np.arange(1, ML1M_MAX_ID), 3_705, replace=False),
+                                    [ML1M_MAX_ID]]))
+    sigma = np.sqrt(2.0 * np.log(ML1M_MEAN / ML1M_MEDIAN))
+    lens = np.clip(rng.lognormal(np.log(ML1M_MEDIAN), sigma, ML1M_USERS), 20,
+                   ML1M_MAX_LEN).astype(np.int64)
+    n = int(lens.sum())
+    popularity = 1.0 / np.arange(1, items.size + 1)
+    picks = rng.choice(items.size, n, p=popularity / popularity.sum())
+    picks[rng.choice(n, items.size, replace=False)] = rng.permutation(items.size)
+    users = np.repeat(np.arange(1, ML1M_USERS + 1), lens)
+    starts = np.repeat(np.cumsum(lens) - lens, lens)
+    gaps = np.cumsum(rng.integers(1, 3_600, n))
+    ts = 956_703_932 + rng.integers(0, 10**7, ML1M_USERS)[users - 1] + gaps - gaps[starts]
+    rows = np.stack([users, items[picks], rng.integers(1, 6, n), ts], axis=1)
+    np.savetxt(path, rows[rng.permutation(n)], fmt="%d::%d::%d::%d")
+    return n
+
+
+def data_phase(device, name: str, smi: str) -> dict:
+    """`[data]`: the port's data pipeline at ML-1M's full size. An
+    ML-1M-shaped ratings.dat (`ml1m_ratings_dat`) in a temporary directory
+    through the ml-1m preprocessor (pandas-free, its unique-item and max-id
+    checks included) into sasrec_format.csv; `get_reco_dataset` on it,
+    gated on the native parser having run and on its arrays equal to the
+    Python parser's (both timed); one eval batch of ml-1m-hstu-mol through
+    MoLBruteForceTopKFused (K2 at 8x4x64 on bf16 tables, no K1: the config
+    leaves fused_inference off) against the plain path; then three
+    ml-1m-hstu-mol-fast steps (K5) from `prefetch_batches` over the train
+    split, step 1 kernels vs plain, each step's launches checked. Returns
+    the launches of the serving batch and the three steps."""
+    import itertools
+    import tempfile
+
+    import torch
+
+    from rails_tpu_torch.core.config import get_experiment_config
+    from rails_tpu_torch.data import datasets, native
+    from rails_tpu_torch.data.preprocessor import get_common_preprocessors
+    from rails_tpu_torch.models.encoder import SequentialRecommender
+    from rails_tpu_torch.train.evaluation import get_eval_state, make_eval_step_fn
+    from rails_tpu_torch.train.loop import create_train_state
+
+    with tempfile.TemporaryDirectory() as root:
+        os.makedirs(os.path.join(root, "tmp", "ml-1m"))
+        t0 = time.perf_counter()
+        n = ml1m_ratings_dat(os.path.join(root, "tmp", "ml-1m", "ratings.dat"))
+        write_s = time.perf_counter() - t0
+        proc = get_common_preprocessors(root)["ml-1m"]
+        t0 = time.perf_counter()
+        unique = proc.preprocess_rating()
+        pre_s = time.perf_counter() - t0
+        csv_path = proc.output_format_csv()
+        cfg = get_experiment_config("ml-1m-hstu-mol")
+        before = native.parse_sasrec_csv_native.calls
+        t0 = time.perf_counter()
+        ds = datasets.get_reco_dataset(cfg.data, root)
+        native_s = time.perf_counter() - t0
+        if native.parse_sasrec_csv_native.calls != before + 1:
+            raise AssertionError("[data] get_reco_dataset did not parse with the native loader")
+        t0 = time.perf_counter()
+        py = datasets._parse_sasrec_csv_python(csv_path)
+        python_s = time.perf_counter() - t0
+        seqs = ds.eval_dataset._seqs
+        for f in ("user_ids", "offsets", "item_ids", "ratings", "timestamps"):
+            if not np.array_equal(getattr(seqs, f), getattr(py, f)):
+                raise AssertionError(f"[data] native and Python parsers differ in {f}")
+        mb = os.path.getsize(csv_path) / 2**20
+    print(f"[data] ML-1M-shaped ratings.dat: {n} events of {ML1M_USERS} users, {unique} items "
+          f"(max id {ds.max_item_id}), written in {write_s:.2f} s; preprocess (pandas-free) "
+          f"{pre_s:.2f} s -> sasrec_format.csv {mb:.1f} MiB; get_reco_dataset with the native "
+          f"parser {native_s:.3f} s, the Python parser alone {python_s:.3f} s, arrays equal; "
+          f"{len(ds.train_dataset)} train and {len(ds.eval_dataset)} eval users")
+
+    dtype = torch.bfloat16 if cfg.train.eval_bf16 else torch.float32
+    model = SequentialRecommender(cfg, ds.max_item_id, compute_dtype=dtype, device=device,
+                                  generator=torch.Generator().manual_seed(0))
+    method = "MoLBruteForceTopKFused"
+    es = get_eval_state(model, ds.all_item_ids, method, table_dtype=torch.bfloat16,
+                        device=device)
+    step = make_eval_step_fn(model, method, k=120, num_objects=es.num_objects,
+                             filter_invalid_ids=True, truncate_k_prime_to=200)
+    batch = next(ds.eval_dataset.batches(cfg.train.eval_batch_size,
+                                         cfg.train.gr_output_length + 1, shuffle=False,
+                                         device=device))
+    batches = [(batch.features, batch.target_ids)]
+
+    def serve(f, t):
+        return step(es.topk_state, f, t)
+
+    run_batches(serve, batches)                                           # warm-up
+    reset_launches()
+    outs_k, ms_k = run_batches(serve, batches)
+    counts = {k: v for k, v in launch_counts().items() if v}
+    if counts != {"K2": 1, "K2-tc": 1}:
+        raise AssertionError(f"[data] ml-1m-hstu-mol serving launches {counts}, want K2 once on "
+                             f"the tensor cores")
+    check_outputs(outs_k, batches, num_items=ds.max_item_id)
+    with plain_kernels():
+        outs_p, ms_p = run_batches(serve, batches)
+    _, min_rank_agree, min_overlap = next(t for t in E2E_TOL if t[0] == str(dtype)[6:])
+    rank_agree = (outs_k[0][0] == outs_p[0][0]).float().mean().item()
+    overlap = id_overlap(outs_k[0][1], outs_p[0][1])
+    print(f"[data] {cfg.name} {str(dtype)[6:]}, one eval batch of {batch.target_ids.shape[0]} "
+          f"from the loaded split (N={batch.features.ids.shape[1]}), {es.num_objects} items, "
+          f"k=120, k'=200, MoLBruteForceTopKFused: launches {counts}; kernel path {ms_k:.3f} "
+          f"ms, plain path {ms_p:.3f} ms on {name} ({smi}); vs plain: ranks agree on "
+          f"{rank_agree:.4f} (>= {min_rank_agree}), top-120 overlap {overlap:.4f} "
+          f"(>= {min_overlap})")
+    if rank_agree < min_rank_agree or overlap < min_overlap:
+        raise AssertionError("[data] the kernel path disagrees with the plain path")
+    del model, es
+    torch.cuda.empty_cache()
+
+    fast = get_experiment_config("ml-1m-hstu-mol-fast")
+    model, state, step, _ = create_train_state(fast, ds.max_item_id, ds.all_item_ids, seed=0,
+                                               device=device)
+    batches = datasets.prefetch_batches(itertools.islice(ds.train_dataset.batches(
+        fast.train.local_batch_size, fast.train.gr_output_length + 1, shuffle=True, seed=0,
+        drop_last=True, device=device), 3))
+    gen = torch.Generator(device=device).manual_seed(0)
+    state, per_step, want = first_step_vs_plain(fast, model, state, step, next(batches), gen,
+                                                "data", "from prefetch_batches over the train "
+                                                "split,")
+    if not (per_step.get("K5 fwd") and per_step.get("K5 bwd")):
+        raise AssertionError(f"[data] {fast.name} step launched no K5: {per_step}")
+    reset_launches()
+    losses, times = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b, gen)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(m["loss"].item())
+    steps = launch_counts()
+    if len(losses) != 2 or not np.isfinite(losses).all():
+        raise AssertionError(f"[data] steps 2-3 from the prefetched batches: losses {losses}")
+    if steps != {k: 2 * v for k, v in want.items()}:
+        raise AssertionError(f"[data] steps 2-3 launches {steps}, want twice {want}")
+    print(f"[data] {fast.name} steps 2-3 on the next prefetched batches: loss "
+          f"{losses[0]:.4f}, {losses[1]:.4f}; {times[0]:.3f} and {times[1]:.3f} ms/step; "
+          f"launches {({k: v for k, v in steps.items() if v})} on {name} ({smi})")
+    return {k: counts.get(k, 0) + per_step[k] + steps[k] for k in steps}
+
+
 def main() -> None:
     import torch
 
@@ -3639,6 +3938,9 @@ def main() -> None:
     launches.update({k: approx[k] for k in ("K8", "K9", "K10", "K8-tc", "K9-tc", "K10-tc")})
     torch.cuda.empty_cache()
     with torch.inference_mode():
+        ivf_phase(device, name, smi)
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
         launches.update(int8_phase(device, name, smi))
     torch.cuda.empty_cache()
     e2e8 = int8_e2e(device, name, smi)
@@ -3716,6 +4018,8 @@ def main() -> None:
         (cat_ids.long() - 1).clamp(min=0)] + 1
     k6c = check_k6(device, torch.where(cat_ids == 0, 0, cat_rows).to(torch.int32),
                    NUM_CATEGORIES + 1, D, long_sums=True)
+    torch.cuda.empty_cache()
+    data_phase(device, name, smi)
 
     def entry(name_, source, replaces, key, measured, counts=launches):
         # The MUFU term of a bound is an operations term.

@@ -19,8 +19,14 @@ Differences from the JAX CLI:
 - the avg table stays on the device for the whole sweep: the JAX CLI parks it
   on the host to fit 16 GB of HBM, which changes no result;
 - a method that fails ends the run (the JAX CLI records an error row);
-- IVF methods, `--cluster-order`, `--ivf-nlist` and `--ivf-iters` raise
-  NotImplementedError (ROADMAP.md, Queue 1: IVF).
+- `--cluster-order` relays the built state out with `permute_state_items`
+  (one on-device `index_select` per table; both layouts fit in 80 GB), so
+  the ordered tables equal the unordered ones column for column. The JAX CLI
+  rebuilds them from a bf16 copy of the raw embeddings to fit 16 GB of HBM,
+  which can move a table entry by a bf16 step;
+- the IVF index is built before the first IVF method (or, with
+  `--cluster-order`, before the sweep) with the avg table in place: the JAX
+  CLI's host parking of that table is a memory workaround.
 
 Usage (one H100, 8M items):
   python3 -m rails_tpu_torch.cli.frontier --num-items 8000000 --train-steps 150
@@ -35,7 +41,6 @@ from __future__ import annotations
 import argparse
 import json
 import logging
-import re
 import sys
 import time
 from typing import Callable, List, NamedTuple, Optional, Tuple
@@ -49,6 +54,7 @@ from rails_tpu_torch.core.device import resolve_device
 from rails_tpu_torch.data.datasets import SequenceDataset, generate_synthetic_sequences
 from rails_tpu_torch.index import top_k as tk
 from rails_tpu_torch.index.factory import get_top_k_raw, parse_top_k_budgets
+from rails_tpu_torch.index.ivf import build_ivf_index
 from rails_tpu_torch.index.oracle import streamed_exact_top_k
 from rails_tpu_torch.train.loop import create_train_state
 
@@ -68,8 +74,13 @@ DEFAULT_METHODS = (
     "MoLAvgTopK16384",
     "MoLCombTopK50_4096",
     "MoLNaiveTopK50",
+    "MoLIVFTopK8",
+    "MoLIVFTopK32",
+    "MoLIVFTopK128",
 )
-_NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1: IVF)"
+# k-means and list assignment stream the corpus in chunks of this many rows:
+# the (chunk, nlist) f32 one-hot of ~11,000 lists at 8M items is 0.74 GB.
+IVF_CHUNK = 16_384
 
 log = logging.getLogger("rails_tpu_torch.frontier")
 
@@ -95,9 +106,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--methods", default=",".join(DEFAULT_METHODS))
     p.add_argument("--int8", action="store_true",
                    help="build the corpus tables int8 and run the sweep against them")
-    p.add_argument("--ivf-nlist", type=int, default=None, help=f"IVF: {_NOT_PORTED}")
-    p.add_argument("--ivf-iters", type=int, default=None, help=f"IVF: {_NOT_PORTED}")
-    p.add_argument("--cluster-order", action="store_true", help=f"IVF: {_NOT_PORTED}")
+    p.add_argument("--ivf-nlist", type=int, default=None,
+                   help="IVF lists (default max(64, floor(4 sqrt(num_items))))")
+    p.add_argument("--ivf-iters", type=int, default=10, help="IVF k-means iterations")
+    p.add_argument("--cluster-order", action="store_true",
+                   help="relay the corpus state out in IVF-cluster order before the sweep "
+                        "(tile methods then see cluster-coherent tiles; exact methods are "
+                        "invariant)")
     p.add_argument("--skip-oracle", action="store_true",
                    help="debug: skip the streamed exact oracle (recall then reads 0)")
     p.add_argument("--output-json", default=None)
@@ -107,17 +122,48 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def check_ported(args: argparse.Namespace) -> List[str]:
-    """The method list; raises NotImplementedError for what needs IVF."""
+    """The method list; every spelling of the factory is served, and an
+    unknown one raises ValueError before any work."""
     methods = [m for m in args.methods.split(",") if m]
-    ivf = [m for m in methods if re.fullmatch(r"MoLIVFTopK\d+", m)]
-    if ivf:
-        raise NotImplementedError(f"frontier methods {ivf}: IVF retrieval is {_NOT_PORTED}")
-    for flag, given in (("--cluster-order", args.cluster_order),
-                        ("--ivf-nlist", args.ivf_nlist is not None),
-                        ("--ivf-iters", args.ivf_iters is not None)):
-        if given:
-            raise NotImplementedError(f"frontier {flag}: IVF is {_NOT_PORTED}")
+    for m in methods:
+        get_top_k_raw(m)
     return methods
+
+
+def ivf_nlist(args: argparse.Namespace) -> int:
+    """`--ivf-nlist`, by default max(64, floor(4 sqrt(X))) (`frontier.py:267`)."""
+    return args.ivf_nlist or max(64, int(4 * np.sqrt(args.num_items)))
+
+
+def attach_ivf(state: tk.MoLTopKState, nlist: int, iters: int, cluster_order: bool = False
+               ) -> Tuple[tk.MoLTopKState, dict]:
+    """The state with an IVF index over its avg table (MoL-aware probes, k-means
+    chunks of IVF_CHUNK rows) and the `ivf_build` row: build seconds, nlist,
+    cap, overflow length. With `cluster_order`, the state relaid out in the
+    index's cluster order (`permute_state_items`, the index remapped), the
+    relayout's seconds in the row."""
+    dev = state.item_ids.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    sync()
+    t0 = time.perf_counter()
+    out = build_ivf_index(state.avg_component, state.item_ids, nlist=nlist, num_iters=iters,
+                          chunk=IVF_CHUNK, mol_state=state, return_cluster_perm=cluster_order)
+    ivf, perm = out if cluster_order else (out, None)
+    sync()
+    row = {"method": "ivf_build", "seconds": time.perf_counter() - t0,
+           "nlist": int(ivf.centroids.shape[0]), "cap": int(ivf.buckets.shape[1]),
+           "overflow": int(ivf.overflow.shape[0])}
+    state = state._replace(ivf=ivf)
+    if cluster_order:
+        t0 = time.perf_counter()
+        state = tk.permute_state_items(state, perm)
+        sync()
+        row.update(cluster_order=True, relayout_seconds=time.perf_counter() - t0)
+    return state, row
 
 
 def configure(args: argparse.Namespace) -> ExperimentConfig:
@@ -310,7 +356,15 @@ def main(argv=None) -> dict:
             oracle = exact_oracle(model, state, q, user_ids, args.k, embed)
             log.info("exact oracle computed in %.1f s", time.perf_counter() - t0)
         rows = []
+        if args.cluster_order:
+            state, row = attach_ivf(state, ivf_nlist(args), args.ivf_iters, cluster_order=True)
+            rows.append(row)
+            log.info("%s", json.dumps(row))
         for method in methods:
+            if method.startswith("MoLIVF") and state.ivf is None:
+                state, row = attach_ivf(state, ivf_nlist(args), args.ivf_iters)
+                rows.append(row)
+                log.info("%s", json.dumps(row))
             row, _, _ = run_method(model, state, q, user_ids, method, args.k, args.runs,
                                    args.int8, oracle, device)
             rows.append(row)

@@ -1,19 +1,30 @@
 """Host-side datasets: ragged user sequences -> fixed-shape torch batches.
 
-The numpy parts of `rails_tpu/data/datasets.py`, copied because that module
-imports the jax-backed batch type: `RaggedSequences` (:29), the leave-one-out
-`SequenceDataset` with its `batches` (:141-195), and the synthetic
-ML-20M-shaped generator (:281-360). Positional subsampling and per-host
-sharding (training only) are not ported yet.
+Counterpart of `rails_tpu/data/datasets.py` (the numpy code, copied: that
+module imports the jax-backed batch type): `RaggedSequences` (:29), the
+leave-one-out `SequenceDataset` (:47-195) with positional subsampling
+(`_subsample_events`, :249-278) and native batch assembly
+(`data/native.py`) beside its numpy rows, `prefetch_batches` (:198-232),
+`RecoDataset` (:235-246), the synthetic generator (:281-360), the
+`sasrec_format.csv` loader with the native parser and the Python one where
+that declines (:363-424), and `get_reco_dataset` (:427-492). Per-host
+sharding of the epoch (`num_shards`, `shard_index`) belongs to the
+distributed path, not ported.
 """
 
 from __future__ import annotations
 
+import csv
+import os
+import queue
+import threading
 from dataclasses import dataclass
-from typing import Iterator, Tuple
+from typing import Iterator, List, Tuple
 
 import numpy as np
 
+from rails_tpu_torch.core.config import DataConfig
+from rails_tpu_torch.data import native
 from rails_tpu_torch.data.features import Batch, Device, batch_from_rows
 
 
@@ -40,13 +51,20 @@ class SequenceDataset:
     """Leave-one-out view over RaggedSequences (`datasets.py:47-195`)."""
 
     def __init__(
-        self, sequences: RaggedSequences, max_sequence_length: int, ignore_last_n: int
+        self, sequences: RaggedSequences, max_sequence_length: int, ignore_last_n: int,
+        sample_ratio: float = 1.0,
     ) -> None:
+        """`sample_ratio` < 1 keeps that share of each user's events, drawn
+        once (seed 0); the last `ignore_last_n` events, which the trim
+        removes, are never dropped (the reference trims, then samples)."""
         self._seqs = sequences
         self._max_seq_len = max_sequence_length
         self._ignore_last_n = ignore_last_n
+        if sample_ratio < 1.0:
+            self._seqs = _subsample_events(sequences, sample_ratio, seed=0,
+                                           protect_last_n=ignore_last_n)
         # Users must keep >= 2 events (1 history + 1 target) after trimming.
-        lens = np.diff(sequences.offsets) - ignore_last_n
+        lens = np.diff(self._seqs.offsets) - ignore_last_n
         self._valid_users = np.nonzero(lens >= 2)[0]
 
     def __len__(self) -> int:
@@ -59,7 +77,14 @@ class SequenceDataset:
         return np.minimum(raw, self._max_seq_len).astype(np.int32)
 
     def rows(self, indices: np.ndarray):
-        """Fixed-shape host arrays for a batch of example indices."""
+        """Fixed-shape host arrays for a batch of example indices, through
+        the native assembler where it is built, else `_rows_numpy`."""
+        out = native.assemble_batch_native(
+            self._seqs, self._valid_users[np.asarray(indices)], self._max_seq_len,
+            self._ignore_last_n)
+        return self._rows_numpy(indices) if out is None else out
+
+    def _rows_numpy(self, indices: np.ndarray):
         n = self._max_seq_len
         b = len(indices)
         hist_ids = np.zeros((b, n), dtype=np.int32)
@@ -134,6 +159,70 @@ class SequenceDataset:
         )
 
 
+def prefetch_batches(batch_iter: Iterator[Batch], depth: int = 2) -> Iterator[Batch]:
+    """Batches from `batch_iter` assembled by a background thread, `depth`
+    ahead, in order (`datasets.py:198-232`). A failure in the thread is
+    raised in the consumer, never presented as the end of the epoch."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    end = object()
+
+    def worker():
+        try:
+            for b in batch_iter:
+                q.put(b)
+            q.put(end)
+        except BaseException as e:    # noqa: BLE001 -- re-raised in the consumer
+            q.put(e)
+
+    threading.Thread(target=worker, daemon=True).start()
+    while True:
+        b = q.get()
+        if b is end:
+            return
+        if isinstance(b, BaseException):
+            raise b
+        yield b
+
+
+@dataclass
+class RecoDataset:
+    """`RecoDataset` (`datasets.py:235-246`): train (leave-one-out) and eval
+    views of one corpus, its item ids and, for MovieLens where the processed
+    movies.csv exists, hashed item side features (built, not consumed)."""
+
+    max_sequence_length: int
+    num_unique_items: int
+    max_item_id: int
+    all_item_ids: np.ndarray     # (num_unique_items,) int32, ids > 0
+    train_dataset: SequenceDataset
+    eval_dataset: SequenceDataset
+    item_features: object = None
+
+
+def _subsample_events(
+    seqs: RaggedSequences, ratio: float, seed: int, protect_last_n: int = 0
+) -> RaggedSequences:
+    """Keep ~ratio of each user's events, drawn once by numpy's
+    `default_rng(seed)` as the JAX package draws them (`datasets.py:249-278`);
+    each user's last `protect_last_n` events always stay."""
+    rng = np.random.default_rng(seed)
+    keep = rng.random(len(seqs.item_ids)) < ratio
+    for j in range(1, protect_last_n + 1):
+        tails = seqs.offsets[1:] - j
+        keep[tails[tails >= seqs.offsets[:-1]]] = True     # users with >= j events
+    csum = np.concatenate([[0], np.cumsum(keep.astype(np.int64))])
+    lens = csum[seqs.offsets[1:]] - csum[seqs.offsets[:-1]]
+    offsets = np.zeros(len(seqs.user_ids) + 1, dtype=np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    return RaggedSequences(
+        user_ids=seqs.user_ids,
+        offsets=offsets,
+        item_ids=seqs.item_ids[keep],
+        ratings=seqs.ratings[keep],
+        timestamps=seqs.timestamps[keep],
+    )
+
+
 def ml20m_like_lengths(rng: np.random.Generator, num_users: int, cap: int) -> np.ndarray:
     """Sequence lengths shaped like ML-20M's ratings per user
     (`datasets.py:281-299`): a lognormal with median 68 and mean 144.4,
@@ -188,4 +277,108 @@ def generate_synthetic_sequences(
         item_ids=item_ids,
         ratings=ratings,
         timestamps=timestamps,
+    )
+
+
+def load_sasrec_format_csv(path: str, shift_id_by: int = 0) -> RaggedSequences:
+    """The RaggedSequences of a sasrec_format.csv (user_id and the stringified
+    per-user lists sequence_item_ids, sequence_ratings, sequence_timestamps;
+    `datasets.py:363-413`): the native parser, or the Python one where it
+    declines. Float ratings floor-cast to int. A git-LFS pointer stub raises
+    FileNotFoundError."""
+    if _is_lfs_stub(path):
+        raise FileNotFoundError(
+            f"{path} is a git-LFS pointer stub, not real data; run "
+            "`python -m rails_tpu_torch.cli.preprocess` on the raw files, or use the "
+            "synthetic dataset.")
+    seqs = native.parse_sasrec_csv_native(path)
+    if seqs is not None:
+        if shift_id_by:
+            seqs.item_ids += shift_id_by
+        return seqs
+    return _parse_sasrec_csv_python(path, shift_id_by)
+
+
+def _parse_sasrec_csv_python(path: str, shift_id_by: int = 0) -> RaggedSequences:
+    def ints(field: str, dtype) -> np.ndarray:
+        return np.fromstring(field.strip("[]()"), dtype=dtype, sep=",")
+
+    user_ids: List[int] = []
+    flat_ids, flat_ratings, flat_ts = [], [], []
+    with open(path, newline="") as f:
+        for rec in csv.DictReader(f):
+            user_ids.append(int(rec["user_id"]))
+            flat_ids.append(ints(rec["sequence_item_ids"], np.int64) + shift_id_by)
+            flat_ratings.append(ints(rec["sequence_ratings"], np.float64).astype(np.int64))
+            flat_ts.append(ints(rec["sequence_timestamps"], np.int64))
+    offsets = np.zeros(len(user_ids) + 1, dtype=np.int64)
+    np.cumsum([len(a) for a in flat_ids], out=offsets[1:])
+    return RaggedSequences(
+        user_ids=np.asarray(user_ids, dtype=np.int32),
+        offsets=offsets,
+        item_ids=np.concatenate(flat_ids).astype(np.int32),
+        ratings=np.concatenate(flat_ratings).astype(np.int32),
+        timestamps=np.concatenate(flat_ts).astype(np.int64),
+    )
+
+
+def _is_lfs_stub(path: str) -> bool:
+    try:
+        with open(path, "rb") as f:
+            return f.read(64).startswith(b"version https://git-lfs")
+    except OSError:
+        return True
+
+
+_DATASET_FILES = {
+    # name -> (csv relpath, shift_id_by, expected_max_item_id or None)
+    "ml-1m": ("tmp/ml-1m/sasrec_format.csv", 0, 3952),
+    "ml-20m": ("tmp/ml-20m/sasrec_format.csv", 0, 131262),
+    "amzn-books": ("tmp/amzn_books/sasrec_format.csv", 1, None),
+}
+
+
+def get_reco_dataset(cfg: DataConfig, data_root: str = ".") -> RecoDataset:
+    """Train (ignore_last_n=1, positional subsampling) and eval
+    (ignore_last_n=0) datasets of `cfg.dataset_name` (`datasets.py:
+    427-492`): synthetic users, or `data_root`/tmp/<name>/sasrec_format.csv.
+    Amazon Books ids shift by +1 so that 0 stays the padding id; max_item_id
+    is at least the dataset's published maximum."""
+    if cfg.dataset_name == "synthetic":
+        seqs = generate_synthetic_sequences(
+            num_users=cfg.synthetic_num_users,
+            num_items=cfg.synthetic_num_items,
+            max_len=cfg.synthetic_max_len or cfg.max_sequence_length + 2,
+            seed=cfg.synthetic_seed,
+            length_distribution=cfg.synthetic_length_distribution,
+        )
+        max_item_id = cfg.synthetic_num_items
+    elif cfg.dataset_name in _DATASET_FILES:
+        rel, shift, expected_max = _DATASET_FILES[cfg.dataset_name]
+        seqs = load_sasrec_format_csv(os.path.join(data_root, rel), shift_id_by=shift)
+        max_item_id = int(seqs.item_ids.max())
+        if expected_max is not None:
+            max_item_id = max(max_item_id, expected_max)
+    else:
+        raise ValueError(f"Unknown dataset {cfg.dataset_name!r}")
+
+    item_features = None
+    if cfg.dataset_name in ("ml-1m", "ml-20m"):
+        movies_csv = os.path.join(data_root, f"tmp/processed/{cfg.dataset_name}/movies.csv")
+        if os.path.exists(movies_csv) and not _is_lfs_stub(movies_csv):
+            from rails_tpu_torch.data.item_features import load_movielens_item_features
+
+            item_features = load_movielens_item_features(movies_csv, max_item_id)
+
+    all_item_ids = np.unique(seqs.item_ids)
+    all_item_ids = all_item_ids[all_item_ids > 0].astype(np.int32)
+    return RecoDataset(
+        max_sequence_length=cfg.max_sequence_length,
+        num_unique_items=len(all_item_ids),
+        max_item_id=max_item_id,
+        all_item_ids=all_item_ids,
+        train_dataset=SequenceDataset(seqs, cfg.max_sequence_length, ignore_last_n=1,
+                                      sample_ratio=cfg.positional_sampling_ratio),
+        eval_dataset=SequenceDataset(seqs, cfg.max_sequence_length, ignore_last_n=0),
+        item_features=item_features,
     )

@@ -1,7 +1,7 @@
 """Top-k method name -> retrieval function (`rails_tpu/index/factory.py:33-173`).
 
-Every spelling of the JAX factory is served except `MoLIVFTopK{n}` (IVF, the
-next slice; ROADMAP.md, Queue 1), which raises NotImplementedError. The
+Every spelling of the JAX factory is served; `MoLIVFTopK{n}` probes the
+state's IVF index (`ivf.mol_ivf_top_k`; `get_eval_state` builds it). The
 `...Int8...` spellings run the same algorithms as their bf16 twins: the
 quantization lives in the state (`get_eval_state` builds it from the name).
 Unknown names raise ValueError, as in the JAX package.
@@ -12,6 +12,7 @@ from __future__ import annotations
 import re
 
 from rails_tpu_torch.index import top_k as tk
+from rails_tpu_torch.index.ivf import mol_ivf_top_k
 
 
 def _bind(fn, **budgets):
@@ -46,16 +47,12 @@ def get_top_k_raw(top_k_method: str):
         return _bind(exact[top_k_method])
     if top_k_method == "MIPSBruteForceTopK":
         return _mips
-    if re.fullmatch(r"MoLIVFTopK\d+", top_k_method):
-        raise NotImplementedError(
-            f"top_k_method {top_k_method!r} is IVF retrieval, not ported yet "
-            "(ROADMAP.md, Queue 1: IVF)"
-        )
     budgets = parse_top_k_budgets(top_k_method)
     approximate = (
         (r"MoLNaive(?:Faiss)?TopK\d+", tk.mol_naive_top_k),
         (r"MoLAvgTopK\d+", tk.mol_avg_top_k),
         (r"MoLCombTopK\d+_\d+", tk.mol_comb_top_k),
+        (r"MoLIVFTopK\d+", mol_ivf_top_k),
         (r"MoLCertTopK\d+(?:Int8)?", _certified_result),
         # One batch-shared tile set scored by K10; without a B suffix every
         # distinct nominated tile is kept.

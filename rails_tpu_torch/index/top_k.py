@@ -11,9 +11,11 @@ chunked on-device corpus build `build_fused_state_chunked_on_device`
 and approximate retrieval: the certificates and `mol_certified_top_k`
 (:766-884, K8), `mol_tile_top_k` (:887-994, K9) and `mol_tile_top_k_shared`
 (:997-1142, K9 + K10), `mips_brute_force_top_k` (:1145-1158), the candidate
-gather with int8 dequantization and `dedup_rerank_top_k` (:1182-1431), and
-Naive, Avg and Comb (:1438-1741). Every method takes int8 fused tables: the
-kernels read the scales, the gathers and the Naive walk dequantize.
+gather with int8 dequantization and `dedup_rerank_top_k` (:1182-1431),
+Naive, Avg and Comb (:1438-1741), and `permute_state_items` (:414-499), the
+cluster-order relayout of IVF (`index/ivf.py`, whose index rides on the
+state). Every method takes int8 fused tables: the kernels read the scales,
+the gathers and the Naive walk dequantize.
 
 Up to `_CHUNK_MAX_X` columns the select is `torch.topk`; ties may resolve to
 other indices than `lax.top_k`'s lowest-index rule. Above it
@@ -24,14 +26,16 @@ algorithm: `chunked_top_k`'s per-chunk-then-merge select below
 `_CHUNK_MAX_X` (`top_k.py:595-603`, a TPU speed trade), the streamed column
 gather with its optimization barriers (`top_k.py:1238-1302`; indexing a
 contiguous table copies only the gathered columns) and the static unrolling
-of the Naive corpus walk (the chunking stays: it bounds memory). IVF
-(`MoLIVFTopK`) is the next slice (ROADMAP.md, Queue 1).
+of the Naive corpus walk (the chunking stays: it bounds memory), and
+`permute_state_items`' host round trip of each table (an on-device
+`index_select` copies one table at a time).
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import TYPE_CHECKING, Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -49,6 +53,9 @@ from rails_tpu_torch.ops.mol_scoring import (
     query_dtype,
 )
 from rails_tpu_torch.similarity.mol import MoLItemTables
+
+if TYPE_CHECKING:
+    from rails_tpu_torch.index.ivf import IVFIndex
 
 # Duplicate candidates score NEG_DUP; item id 0 is the padding id, and rows
 # carrying it score NEG_PAD before any select, so pads rank below duplicates.
@@ -83,13 +90,14 @@ class TopKResult(NamedTuple):
 
 class MoLTopKState(NamedTuple):
     """Device-resident corpus state shared by every MoL top-k method. A
-    `fused_only` state has an empty standard component table; the JAX
-    state's `ivf` belongs to IVF, not ported."""
+    `fused_only` state has an empty standard component table; `ivf` is the
+    inverted-file index `MoLIVFTopK{n}` probes (`ivf.build_ivf_index`)."""
 
     item_ids: torch.Tensor            # (X,) int32
     item_tables: MoLItemTables        # components (X, P_X, d_P) + gating (X, L)
     avg_component: torch.Tensor       # (X, d_P): mean over P_X components
     fused_tables: Optional[FusedCorpusTables] = None
+    ivf: Optional["IVFIndex"] = None
 
 
 class TopKCertificate(NamedTuple):
@@ -208,6 +216,49 @@ def build_fused_state_chunked_on_device(
         avg_component=avg_buf,
         fused_tables=FusedCorpusTables(comp_buf, gp_buf, x, cs_buf, ps_buf),
     )
+
+
+@torch.inference_mode()
+def permute_state_items(state: MoLTopKState, perm) -> MoLTopKState:
+    """The corpus state with its item columns in the order `perm` (new
+    position -> old position), e.g. `build_ivf_index(...,
+    return_cluster_perm=True)`'s cluster order (`top_k.py:414-499`). The ids
+    travel with the tables, so every method returns the same ids and scores
+    (ties aside); only the tiles' composition changes, which sharpens the
+    tile methods' block maxima on a cluster-ordered corpus. Each table is one
+    `index_select` on its device; columns past len(perm) (the kernel layout's
+    pad) stay in place. An attached `ivf` is remapped through the inverse
+    permutation (bucket pad slots remap to some real position, which the
+    rerank's dedup still collapses)."""
+    dev = state.item_ids.device
+    perm = torch.as_tensor(np.asarray(perm), dtype=torch.int64, device=dev)
+    x = int(perm.shape[0])
+
+    def take(t: Optional[torch.Tensor], dim: int) -> Optional[torch.Tensor]:
+        if t is None:
+            return None
+        n = t.shape[dim]
+        idx = perm if n == x else torch.cat([perm, torch.arange(x, n, device=dev)])
+        return t.index_select(dim, idx)
+
+    it = state.item_tables
+    if it.component_embeddings.shape[0] > 0:
+        it = MoLItemTables(take(it.component_embeddings, 0), take(it.gating_partial, 0))
+    avg = state.avg_component
+    if avg.shape[0] == x:
+        avg = take(avg, 0)
+    ft = state.fused_tables
+    if ft is not None:
+        ft = FusedCorpusTables(take(ft.item_comp_t, 2), take(ft.item_partial_t, 1), ft.num_items,
+                               take(ft.comp_scale, 1), take(ft.partial_scale, 1))
+    ivf = state.ivf
+    if ivf is not None:
+        inv = torch.empty_like(perm)
+        inv[perm] = torch.arange(x, device=dev)
+        ivf = ivf._replace(buckets=inv[ivf.buckets.long()].to(torch.int32),
+                           overflow=inv[ivf.overflow.long()].to(torch.int32))
+    return MoLTopKState(item_ids=take(state.item_ids, 0), item_tables=it, avg_component=avg,
+                        fused_tables=ft, ivf=ivf)
 
 
 def fused_scoring(mol) -> bool:

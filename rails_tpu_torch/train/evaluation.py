@@ -2,7 +2,8 @@
 
 Counterpart of `rails_tpu/train/evaluation.py`: `EvalState` and
 `get_eval_state` (:64-138, int8 tables for the `...Int8...` spellings, the
-item embeddings l2-normalised with `item_l2_norm`; without IVF),
+item embeddings l2-normalised with `item_l2_norm`, the IVF index of the
+`MoLIVFTopK{n}` spellings),
 `ranks_from_top_k` (:141-152), `metrics_from_ranks` (:155-172),
 `make_eval_step_fn` and `make_eval_step` (:192-262, `max_num_invalid` caps
 the seen ids k' makes room for) and `recall_vs_exact` (:531-574). A
@@ -12,6 +13,7 @@ function under `torch.inference_mode`: no jit and no CUDA graph yet.
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Union
 
@@ -22,6 +24,7 @@ from rails_tpu_torch.core.device import resolve_device
 from rails_tpu_torch.data.features import SequentialFeatures
 from rails_tpu_torch.index.candidate_index import k_prime_for, select_top_k_with_invalid_filter
 from rails_tpu_torch.index.factory import get_top_k_raw
+from rails_tpu_torch.index.ivf import build_ivf_index
 from rails_tpu_torch.index.top_k import MoLTopKState, build_mol_topk_state
 from rails_tpu_torch.losses.samplers import maybe_l2_norm
 from rails_tpu_torch.similarity.mol import MoLItemTables
@@ -56,12 +59,15 @@ def get_eval_state(
     device: Optional[Union[str, torch.device]] = None,
     item_l2_norm: bool = False,
     l2_norm_eps: float = 1e-6,
+    ivf_nlist: Optional[int] = None,
 ) -> EvalState:
     """Embed the whole corpus (l2-normalised with `item_l2_norm`, as the
     `*-dot` configs set it) and build the method's top-k state on `device`
     (the card unless the caller passes "cpu"): the kernel-layout tables for
     the fused, certified and tile methods (int8 with their scales for the
-    `...Int8...` spellings), no MoL tables for MIPS."""
+    `...Int8...` spellings), no MoL tables for MIPS, and for `MoLIVFTopK{n}`
+    an IVF index with MoL-aware probes over `ivf_nlist` lists, by default
+    max(16, floor(4 sqrt(X))) for X real items (`evaluation.py:117-127`)."""
     get_top_k_raw(top_k_method)   # refuse unported methods before any work
     ids = torch.as_tensor(np.asarray(all_item_ids, dtype=np.int32),
                           device=resolve_device(device))
@@ -76,6 +82,11 @@ def get_eval_state(
         state = build_mol_topk_state(model, ids, emb, table_dtype=table_dtype,
                                      build_fused=_reads_fused_tables(top_k_method),
                                      quantize_fused="Int8" in top_k_method)
+    if re.fullmatch(r"MoLIVFTopK\d+", top_k_method):
+        x_real = int(torch.count_nonzero(ids).item())
+        nlist = ivf_nlist or max(16, int(4 * np.sqrt(x_real)))
+        state = state._replace(ivf=build_ivf_index(state.avg_component, state.item_ids,
+                                                   nlist=nlist, mol_state=state))
     return EvalState(topk_state=state, num_objects=int(ids.shape[0]),
                      top_k_method=top_k_method, item_embeddings=emb)
 

@@ -152,8 +152,10 @@ def test_int8_eval_step_matches_jax(setup, method):
 
 @pytest.mark.parametrize("method", ["MoLIVFTopK8"])
 def test_unported_spellings_raise(method):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_top_k_raw(method)
+    """IVF, once the one unported spelling, now serves: the factory binds
+    its probe budget (tests/test_torch_port_ivf.py holds it to JAX)."""
+    assert callable(get_top_k_raw(method))
+    assert parse_top_k_budgets(method) == {"nprobe": 8}
 
 
 @pytest.mark.parametrize("method", ["MoLFooTopK8", "MoLCertTopK", "MoLTileTopKB8",

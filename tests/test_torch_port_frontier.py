@@ -5,7 +5,7 @@ pieces on a `synthetic-small` model with the JAX weights (through
 `state_dict_from_jax_params`) over a chunked clustered corpus of a few
 thousand items, `BUILD_CHUNK` patched small on both sides and one numpy noise
 function feeding both corpora; the CLI's summary on the CPU; and the IVF
-spellings, which raise.
+spellings and flags, which the CLI accepts before any work.
 
 The pieces run the model in f32 (`--set train.main_module_bf16=false`; the
 corpus tables stay bf16, as the study builds them), so both sides build the
@@ -193,8 +193,7 @@ def test_cli_prints_the_jax_summary(capsys):
         assert set(row) <= jax_keys and {"ms_per_batch", "qps", "recall@10"} <= set(row)
         assert row["ms_per_batch"] > 0
     assert "score_rel_dev_max" in last["rows"][0] and "cert_rate" in last["rows"][1]
-    assert set(frontier.DEFAULT_METHODS) == {m for m in jax_frontier.DEFAULT_METHODS
-                                             if not m.startswith("MoLIVF")}
+    assert frontier.DEFAULT_METHODS == jax_frontier.DEFAULT_METHODS
 
 
 @pytest.mark.parametrize("extra", [["--methods", "MoLBruteForceTopKFused,MoLIVFTopK8"],
@@ -202,9 +201,17 @@ def test_cli_prints_the_jax_summary(capsys):
                                    ["--ivf-nlist", "64"], ["--ivf-iters", "3"]],
                          ids=["ivf_in_list", "ivf_alone", "cluster_order", "nlist", "iters"])
 def test_ivf_spellings_raise_before_any_work(extra, monkeypatch):
+    """The IVF methods and flags, which refused before IVF was ported, pass
+    the method check (`check_ported`) and the work starts; the flags parse
+    to JAX's defaults where not given."""
     def no_work(*args, **kwargs):
-        raise AssertionError("work started before the IVF check")
+        raise AssertionError("work started")
 
     monkeypatch.setattr(frontier, "pretrain", no_work)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1: IVF"):
+    with pytest.raises(AssertionError, match="work started"):
         frontier.main(SMALL + extra)
+    args = frontier.parse_args(SMALL + extra)
+    assert frontier.check_ported(args) == [m for m in args.methods.split(",") if m]
+    assert args.ivf_iters == (3 if "--ivf-iters" in extra else 10)
+    assert frontier.ivf_nlist(args) == (64 if "--ivf-nlist" in extra else
+                                        max(64, int(4 * np.sqrt(NUM_ITEMS))))

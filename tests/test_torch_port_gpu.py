@@ -1738,3 +1738,58 @@ def test_k6_on_a_categorical_table(cuda):
     count = torch.bincount(flat, minlength=21).double()[:, None]
     assert int(count[1:].min()) > 1000
     assert bool(((grads[0].double() - want.double()).abs() <= 2 * count * 2.0**-24 * mass).all())
+
+
+def test_kmeans_repeats_bit_for_bit_on_the_card(cuda):
+    """IVF's k-means on the card: one seed, the same centroids twice (the
+    seeding's generator draws and the one-hot cluster sums repeat), and a
+    valid mask with pad rows."""
+    from rails_tpu_torch.index.ivf import kmeans
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    centers = 4.0 * torch.randn(24, 32, generator=g, device=cuda)
+    data = centers[torch.randint(0, 24, (20_000,), generator=g, device=cuda)]
+    data = (data + 0.5 * torch.randn(data.shape, generator=g, device=cuda)).to(torch.bfloat16)
+    valid = torch.arange(20_000, device=cuda) % 97 != 0
+    a = kmeans(data, 64, num_iters=5, chunk=4096, valid=valid)
+    b = kmeans(data, 64, num_iters=5, chunk=4096, valid=valid)
+    assert a.shape == (64, 32) and torch.isfinite(a).all()
+    assert torch.equal(a, b)
+
+
+def test_ivf_full_probe_equals_exact_fused_on_the_card(cuda):
+    """`MoLIVFTopK{nlist}` over a few thousand items on the card probes every
+    list and returns the exact fused (K2) method's top-k: scores within the
+    two scorers' f32 difference, ids where scores stand apart; two builds
+    with one seed give the same index."""
+    from rails_tpu_torch.index.ivf import build_ivf_index, mol_ivf_top_k
+    from rails_tpu_torch.index.top_k import build_mol_topk_state, mol_brute_force_top_k_fused
+
+    cfg = get_experiment_config("synthetic-small")
+    num_items, k = 3000, 40
+    model = SequentialRecommender(cfg, num_items, device=cuda,
+                                  generator=torch.Generator().manual_seed(0))
+    seqs = generate_synthetic_sequences(num_users=64, num_items=num_items, max_len=34, seed=1)
+    ds = SequenceDataset(seqs, cfg.data.max_sequence_length, ignore_last_n=1)
+    batch = next(ds.batches(32, cfg.train.gr_output_length + 1, shuffle=False, device=cuda))
+    with torch.inference_mode():
+        ids = torch.arange(1, num_items + 1, dtype=torch.int32, device=cuda)
+        state = build_mol_topk_state(model, ids, model.get_item_embeddings(ids), torch.float32,
+                                     build_fused=True)
+        index = build_ivf_index(state.avg_component, state.item_ids, nlist=16, chunk=1024,
+                                mol_state=state)
+        again = build_ivf_index(state.avg_component, state.item_ids, nlist=16, chunk=1024,
+                                mol_state=state)
+        for a, b in zip(index, again):
+            assert torch.equal(a, b)
+        state = state._replace(ivf=index)
+        q, uids = model.encode(batch.features), batch.features.user_ids
+        exact = mol_brute_force_top_k_fused(model, state, q, k, uids)
+        got = mol_ivf_top_k(model, state, q, k, nprobe=16, user_ids=uids)
+    torch.testing.assert_close(got.scores, exact.scores, rtol=1e-4, atol=1e-4)
+    scores = exact.scores
+    gap = (scores[:, 1:] - scores[:, :-1]).abs() > 1e-4
+    isolated = torch.ones_like(scores, dtype=torch.bool)
+    isolated[:, 1:] &= gap
+    isolated[:, :-1] &= gap
+    assert torch.equal(got.ids[isolated], exact.ids[isolated])

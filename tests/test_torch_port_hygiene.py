@@ -43,7 +43,9 @@ def test_port_imports_no_jax():
         assert not leaked, leaked
         assert "rails_tpu_torch.index.oracle" in mods, mods
         for m in ("cli.encode_probe", "cli.mol_probe", "ops.encode_probe", "ops.mol_probe",
-                  "models.sasrec", "similarity.dot_product", "losses.bce"):
+                  "models.sasrec", "similarity.dot_product", "losses.bce", "index.ivf",
+                  "data.native", "data.preprocessor", "data.item_features", "data.tables",
+                  "cli.preprocess"):
             assert "rails_tpu_torch." + m in mods, mods
         print(len(mods))
         """
@@ -56,20 +58,25 @@ def test_port_imports_no_jax():
 
 
 def test_frontier_cli_imports_nothing_of_the_jax_package():
-    """The frontier CLI runs (up to its IVF refusal) with jax, flax and the
-    JAX package blocked."""
+    """The frontier CLI runs on the CPU at a tiny size, IVF with
+    `--cluster-order` included, with jax, flax and the JAX package blocked;
+    so does the preprocessing CLI on an ML-1M-shaped ratings.dat."""
     code = textwrap.dedent(
         """
-        import sys
+        import os, sys, tempfile
         for name in ("jax", "flax", "rails_tpu"):
             sys.modules[name] = None
-        from rails_tpu_torch.cli import frontier
-        try:
-            frontier.main(["--methods", "MoLIVFTopK8", "--device", "cpu"])
-        except NotImplementedError as e:
-            assert "ROADMAP.md" in str(e), e
-        else:
-            raise AssertionError("IVF did not raise")
+        from rails_tpu_torch.cli import frontier, preprocess
+        out = frontier.main(["--config", "synthetic-small", "--set", "hstu.fused_train=true",
+                             "--num-items", "600", "--train-steps", "1", "--runs", "1",
+                             "--methods", "MoLIVFTopK8", "--cluster-order", "--device", "cpu"])
+        assert [r["method"] for r in out["rows"]] == ["ivf_build", "MoLIVFTopK8"], out
+        root = tempfile.mkdtemp()
+        os.makedirs(os.path.join(root, "tmp", "ml-1m"))
+        with open(os.path.join(root, "tmp", "ml-1m", "ratings.dat"), "w") as f:
+            f.writelines(f"{i % 7 + 1}::{i}::{i % 5 + 1}::{1000 + i}\\n" for i in range(247, 3953))
+        preprocess.main(["--datasets", "ml-1m", "--root", root])
+        assert os.path.getsize(os.path.join(root, "tmp", "ml-1m", "sasrec_format.csv"))
         leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "jaxlib", "rails_tpu")
                   and sys.modules[m] is not None]
         assert not leaked, leaked
@@ -348,11 +355,11 @@ def test_unported_training_options_raise(change, monkeypatch):
 
 
 def test_no_refusal_names_a_ported_queue_item():
-    """No NotImplementedError of the package names a Queue 1 item this slice
+    """No NotImplementedError of the package names a Queue 1 item that is
     ported (`losses`, `SASRec`, `preprocessors, embeddings and
-    similarities`); IVF still refuses."""
+    similarities`, `IVF`)."""
     ported = ("Queue 1: losses", "Queue 1: SASRec",
-              "Queue 1: preprocessors, embeddings and similarities")
+              "Queue 1: preprocessors, embeddings and similarities", "Queue 1: IVF")
     hits = []
     for path in glob.glob(os.path.join(REPO, "rails_tpu_torch", "**", "*.py"), recursive=True):
         text = open(path).read()
@@ -412,8 +419,65 @@ def test_formerly_refused_training_options_run_and_match_jax(change, loss_rtol, 
 
 
 def test_unported_top_k_methods_raise():
+    """Every top-k spelling of the JAX factory is served, IVF's included:
+    no spelling raises NotImplementedError."""
     from rails_tpu_torch.index.factory import get_top_k_raw
 
     for method in ("MoLIVFTopK8", "MoLIVFTopK64"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_top_k_raw(method)
+        assert callable(get_top_k_raw(method))
+
+
+def _cpp_class(decl: str):
+    """The ctypes class of one parameter or return type of
+    native/sequence_loader.cpp: int64_t, const char*, void, or a pointer."""
+    decl = decl.replace("const ", "").strip()
+    if decl.startswith("char*"):
+        return ctypes.c_char_p
+    if "*" in decl:
+        return "pointer"
+    return {"int64_t": ctypes.c_int64, "void": None}[decl.split()[0]]
+
+
+def test_native_loader_bindings_match_the_cpp_signatures(monkeypatch):
+    """`data/native.py` declares every `extern "C"` function of
+    native/sequence_loader.cpp with its signature (count and class by
+    position, pointers as c_void_p or a ctypes pointer type), and its
+    `_ParsedSequences` has the C struct's fields in order."""
+    from rails_tpu_torch.data import native
+
+    src = open(os.path.join(REPO, "native", "sequence_loader.cpp")).read()
+    body = re.sub(r"//[^\n]*", "", src[src.index('extern "C" {'):])
+    declared = {name: (_cpp_class(ret), [_cpp_class(p.strip().rsplit(" ", 1)[0])
+                                         for p in params.split(",")])
+                for ret, name, params in re.findall(r"\n(\w[\w ]*\*?)\s+(\w+)\(([^)]*)\)\s*\{",
+                                                    body)}
+    assert set(declared) == {"parse_sasrec_csv", "free_parsed_sequences", "assemble_batch"}
+
+    bound = {}
+
+    class Recorder:
+        def __getattr__(self, name):
+            return bound.setdefault(name, types.SimpleNamespace(argtypes=None, restype=None))
+
+    native.declare(Recorder())
+    assert set(bound) == set(declared)
+    for name, (ret, params) in declared.items():
+        fn = bound[name]
+        got = [fn.restype] + list(fn.argtypes)
+        for pos, (g, want) in enumerate(zip(got, [ret] + params)):
+            if want == "pointer":
+                assert g is ctypes.c_void_p or issubclass(g, ctypes._Pointer), (name, pos, g)
+            else:
+                assert g is want, (name, pos, g, want)
+        assert len(fn.argtypes) == len(params), name
+    struct = re.search(r"struct ParsedSequences \{(.*?)\};", src, re.S).group(1)
+    fields = re.findall(r"^\s*([\w*]+\*?)\s+(\w+);", struct, re.M)
+    assert [n for _, n in fields] == [n for n, _ in native._ParsedSequences._fields_]
+    for (ctype, _), (_, cls) in zip(fields, native._ParsedSequences._fields_):
+        if ctype == "char*":
+            assert cls is ctypes.c_char_p
+        elif ctype.endswith("*"):
+            base = {"int32_t*": ctypes.c_int32, "int64_t*": ctypes.c_int64}[ctype]
+            assert cls._type_ is base, ctype
+        else:
+            assert cls is {"int64_t": ctypes.c_int64}[ctype], ctype
