@@ -168,7 +168,7 @@ K4's variants (the fused train block's flags):
      gradient and the attention backward alone vs the plain versions;
      kernel, plain and bound ms of both directions.
  31. train-var: ml-20m-hstu-mol with fused_train and each instance's flags,
-     f32 and bf16: step 1 kernels vs plain to 9's contract, then TRAIN_STEPS steps
+     f32 and bf16: step 1 kernels vs plain to 9's contract, then TRAIN_VAR_STEPS steps
      (ms/step, peak memory, launch counts: K4 forward and backward and the
      variant's own counters 16 per step).
 IVF and the data pipeline (no kernel of their own: plain torch and host code):
@@ -178,13 +178,30 @@ IVF and the data pipeline (no kernel of their own: plain torch and host code):
      fused top-k (tie-aware); after `permute_state_items` in cluster order
      the exact method's scores bit-equal; IVF8/32 and Tile8 on both layouts
      (recall printed, not gated).
- 33. data (last): an ML-1M-shaped ratings.dat at full size (6,040 users,
+ 33. data: an ML-1M-shaped ratings.dat at full size (6,040 users,
      3,706 items, ~1M events) through the pandas-free preprocessor and
      `get_reco_dataset` (the native parser must run, its arrays equal to the
      Python parser's, both timed); one ml-1m-hstu-mol eval batch through
      MoLBruteForceTopKFused (K2 once, on the tensor cores) vs the plain path;
      three ml-1m-hstu-mol-fast steps (K5) from `prefetch_batches`, step 1
      kernels vs plain, every step's launches checked.
+ 34. sharded: 4 ranks on the card (spawned, gloo, joined within
+     SHARD_TIMEOUT) serve ml-20m-hstu-mol (bf16, K1 encode) over 2,097,152
+     items sharded on the mesh's `item` axis, each rank building only its
+     slab and its slab's IVF index: the exact methods return the
+     single-process path's ids, Naive and Comb at full budget are exact,
+     ids in range, every rank the same lists, each rank launched K1, K2
+     with its tile maxima, K8, K9, K10; Avg, Cert, Tile and IVF32 ms/batch
+     and recall@200 beside the unsharded method's (not gated).
+ 35. shard-bench: `cli/shard_bench.py`'s main at one rank (nccl) over
+     8,000,000 items, MoLBruteForceTopKFused: build s and ms/batch.
+ 36. dp-train: 2 ranks on the card (gloo), 3 data-parallel steps of
+     ml-20m-hstu-mol and ml-20m-hstu-mol-fast at a global batch of 128, vs
+     the single-process step on the same batch (losses, step 1's gradients
+     within each config's limit, the parameters), the ranks' parameters
+     bit-equal, K3-K7 launched; a planted fault (the hash streams number a
+     rank's rows from 0) must fall outside the gradient limit. Several
+     ranks on one card check correctness only.
 The line before the last is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script fails before printing
 any result.
@@ -211,6 +228,7 @@ NUM_ITEMS = 26_744                                    # ML-20M unique items
 BATCH = 512
 TRAIN_BATCH = 128                                     # ml-20m-hstu-mol local_batch_size
 TRAIN_STEPS = 20
+TRAIN_VAR_STEPS = 10           # [train-var]'s steps a run, cut from 20 to keep the script's time
 # Published peaks of one H100 SXM (dense): f32 outside the tensor cores and
 # bf16 on them; HBM3 bandwidth.
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -3471,7 +3489,7 @@ def variants_e2e(device, name: str, smi: str) -> dict:
 def train_var_phase(device, name: str, smi: str) -> dict:
     """ml-20m-hstu-mol with fused_train and each of K4_VAR_INSTANCES, in f32 and
     in bf16 (main_module_bf16): `[train]`'s step-1 contract, then
-    TRAIN_STEPS steps, each making 16 launches of K4's forward and
+    TRAIN_VAR_STEPS steps, each making 16 launches of K4's forward and
     backward and of the variant's counters. Returns each run's launch counts
     by (instance, dtype)."""
     import torch
@@ -3481,7 +3499,7 @@ def train_var_phase(device, name: str, smi: str) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             bf16 = dict(main_module_bf16=True) if dtype == torch.bfloat16 else {}
             runs[(instance, dtype)] = train_phase(device, name, smi, tag="train-var", hstu=hstu,
-                                                  **bf16)
+                                                  steps=TRAIN_VAR_STEPS, **bf16)
             torch.cuda.empty_cache()
     return runs
 
@@ -3840,6 +3858,392 @@ def data_phase(device, name: str, smi: str) -> dict:
     return {k: counts.get(k, 0) + per_step[k] + steps[k] for k in steps}
 
 
+SHARD_RANKS = 4
+SHARD_ITEMS = 1 << 21          # 2,097,152 items: 524,288 a shard, above _CHUNK_MAX_X
+SHARD_VOCAB = 100_000          # shard_bench's vocabulary: min(X, 100,000)
+SHARD_BATCH = 32
+SHARD_K = 200
+SHARD_SMALL_ITEMS = 1_024      # Naive and Comb at full budget: 256 a shard
+SHARD_EXACT = ("MoLBruteForceTopKFused", "MoLBruteForceTopKFusedInt8")
+SHARD_SMALL = ("MoLNaiveTopK1024", "MoLCombTopK1024_1024")
+SHARD_APPROX = ("MoLAvgTopK4096", "MoLCertTopK4096", "MoLTileTopK8", "MoLIVFTopK32")
+SHARD_NLIST = 5_792            # IVF lists a shard: shard_bench's max(64, 4 sqrt(X))
+SHARD_RUNS = 5
+SHARD_TIMEOUT = 300.0
+BENCH_ITEMS = 8_000_000        # [shard-bench]: the frontier's corpus
+DP_RANKS = 2
+DP_STEPS = 3
+# (tag, config, train overrides, step 1's gradient limit: max |dp - one| over
+# each tensor's largest |value|). Each limit sits between the sound step's
+# reading and that of the planted fault `[dp-train]` also runs, the HSTU hash
+# streams numbering a rank's rows from 0 (PERF.md records both readings).
+DP_CONFIGS = (("ml-20m-hstu-mol", "ml-20m-hstu-mol", {}, 1e-5),
+              ("ml-20m-hstu-mol-fast", "ml-20m-hstu-mol-fast", {"pallas_scatter_grad": True},
+               1e-3))
+DP_LOSS_RTOL = 1e-5            # the step's loss, each of 3 steps
+DP_PARAM_RATIO = 1e-2          # |p_dp - p_one| / |p_one - p_start| over every parameter
+DP_TIMEOUT = 300.0
+
+
+def shard_model(device):
+    """The [sharded] model: ml-20m-hstu-mol at full width, bf16 as served, K1
+    for the encode (`fused_inference`), seeded random weights over
+    SHARD_VOCAB items; the batch of SHARD_BATCH synthetic users; the corpus
+    embedding function of `cli/shard_bench.py`."""
+    import torch
+
+    from rails_tpu_torch.cli.shard_bench import embed_fn
+    from rails_tpu_torch.core.config import get_experiment_config
+    from rails_tpu_torch.data.datasets import SequenceDataset, generate_synthetic_sequences
+    from rails_tpu_torch.models.encoder import SequentialRecommender
+
+    cfg = get_experiment_config("ml-20m-hstu-mol")
+    cfg = cfg.replace(hstu=cfg.hstu.replace(fused_inference=True),
+                      train=cfg.train.replace(main_module_bf16=True, eval_bf16=True))
+    model = SequentialRecommender(cfg, SHARD_VOCAB, compute_dtype=torch.bfloat16, device=device,
+                                  generator=torch.Generator().manual_seed(0)).eval()
+    seqs = generate_synthetic_sequences(num_users=256, num_items=SHARD_VOCAB, max_len=202, seed=0,
+                                        length_distribution="ml20m")
+    batch = next(SequenceDataset(seqs, cfg.data.max_sequence_length, ignore_last_n=1).batches(
+        SHARD_BATCH, cfg.train.gr_output_length + 1, shuffle=False, device=device))
+    return model, batch.features, embed_fn(model, SHARD_VOCAB, device)
+
+
+def small_state(model, embed, device):
+    """The SHARD_SMALL_ITEMS corpus with standard bf16 tables."""
+    import torch
+
+    from rails_tpu_torch.index.top_k import build_mol_topk_state
+
+    ids = torch.arange(1, SHARD_SMALL_ITEMS + 1, dtype=torch.int32, device=device)
+    return build_mol_topk_state(model, ids, embed(0, ids), torch.bfloat16)
+
+
+def sharded_rank(rank: int, world: int, store: str, out_dir: str,
+                 device_name: str = "cuda:0") -> None:
+    """One [sharded] rank on the card (gloo): builds only its slab of the
+    corpus (`build_shard_state`) and its IVF index (`build_rank_ivf`), and
+    runs every method through `make_sharded_top_k_fn`; the launch counts
+    are this rank's over the methods' runs."""
+    import torch
+
+    from rails_tpu_torch.cli.frontier import timed_ms
+    from rails_tpu_torch.core import distributed
+    from rails_tpu_torch.core.config import MeshConfig
+    from rails_tpu_torch.core.mesh import make_mesh
+    from rails_tpu_torch.index.ivf import build_rank_ivf
+    from rails_tpu_torch.index.sharded import (
+        build_shard_state,
+        make_sharded_top_k_fn,
+        pad_and_shard_state,
+    )
+    from rails_tpu_torch.ops.mol_scoring import quantize_fused_tables
+
+    device = torch.device(device_name)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.initialize(f"file://{store}", world, rank, backend="gloo", device=device)
+    mesh = make_mesh(MeshConfig(item_parallel=world))
+    out = {}
+    with torch.inference_mode():
+        model, feats, embed = shard_model(device)
+        t0 = time.perf_counter()
+        sh = build_shard_state(model, SHARD_ITEMS, embed, mesh)
+        sync(device)
+        out["build_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sh = sh._replace(ivf=build_rank_ivf(sh, mesh, nlist=SHARD_NLIST, chunk=16_384))
+        sync(device)
+        out["ivf_s"] = time.perf_counter() - t0
+        out["slab"] = int(sh.item_ids.shape[0])
+        states = {m: sh for m in SHARD_EXACT + SHARD_APPROX}
+        states["MoLBruteForceTopKFusedInt8"] = sh._replace(
+            fused_tables=quantize_fused_tables(sh.fused_tables))
+        small = pad_and_shard_state(small_state(model, embed, device), mesh)
+        reset_launches()
+        q = model.encode(feats)
+        for m in SHARD_EXACT + SHARD_APPROX + SHARD_SMALL:
+            fn = make_sharded_top_k_fn(m, model, small if m in SHARD_SMALL else states[m], mesh,
+                                       k=SHARD_K, avg_top_k=4000, k_per_group=50)
+            res = fn(q, feats.user_ids)
+            out[m] = (res.scores.float().cpu().numpy(), res.ids.cpu().numpy(),
+                      timed_ms(lambda: fn(q, feats.user_ids), SHARD_RUNS, device))
+        out["launches"] = launch_counts()
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    distributed.shutdown()
+
+
+def tie_rule(got_ids, want_ids, want_scores, rel: float) -> int:
+    """Positions where the ids differ and the reference's score there has no
+    other score in its row within `rel` of its |value|; 0 means equal under
+    the tie rule."""
+    bad = 0
+    for b, j in zip(*np.nonzero(got_ids != want_ids)):
+        near = np.abs(want_scores[b] - want_scores[b, j]) <= rel * abs(want_scores[b, j])
+        bad += int(near.sum() <= 1)
+    return bad
+
+
+def sharded_phase(device, name: str, smi: str) -> dict:
+    """[sharded]: SHARD_RANKS ranks on the one card, started by
+    `run_ranks` on gloo, serve ml-20m-hstu-mol over a corpus of SHARD_ITEMS
+    items sharded over the `item` axis, B=SHARD_BATCH, k=SHARD_K. Gated: the
+    exact methods return the single-process exact path's ids on the same
+    card (the same K2 scores: a shard's columns score as in the whole
+    table); Naive and Comb at full budget over SHARD_SMALL_ITEMS items
+    return the plain exact MoL's ids within one bf16 step (2^-7 of a score)
+    of a tie; no rank returns id 0 or an id past X; every rank returns the
+    same lists; each rank launched K1, K2 (with its tile maxima), K8, K9 and
+    K10. Printed: the approximate methods' ms/batch and recall@200 beside
+    the unsharded method's. Several ranks on one card check correctness:
+    their times say nothing of four cards' speed."""
+    import torch
+
+    from rails_tpu_torch.cli.frontier import attach_ivf, timed_ms
+    from rails_tpu_torch.core.distributed import run_ranks
+    from rails_tpu_torch.index import top_k as tk
+    from rails_tpu_torch.index.factory import get_top_k_raw
+    from rails_tpu_torch.ops.mol_scoring import quantize_fused_tables
+
+    work = Path("build") / "sharded"
+    work.mkdir(parents=True, exist_ok=True)
+    for f in work.glob("*"):
+        f.unlink()
+    with torch.inference_mode():
+        model, feats, embed = shard_model(device)
+        q, uids = model.encode(feats), feats.user_ids
+        ids = torch.arange(1, SHARD_ITEMS + 1, dtype=torch.int32, device=device)
+        state = tk.build_fused_state_chunked_on_device(model, ids, embed, tk.BUILD_CHUNK,
+                                                       torch.bfloat16)
+        want = {"MoLBruteForceTopKFused": tk.mol_brute_force_top_k_fused(model, state, q, SHARD_K,
+                                                                         uids),
+                "MoLBruteForceTopKFusedInt8": tk.mol_brute_force_top_k_fused(
+                    model, state._replace(fused_tables=quantize_fused_tables(state.fused_tables)),
+                    q, SHARD_K, uids)}
+        small = small_state(model, embed, device)
+        exact_small = tk.mol_brute_force_top_k(model, small, q, SHARD_K, uids)
+        single = {}
+        for m in SHARD_APPROX:
+            st = attach_ivf(state, SHARD_NLIST, 10)[0] if m.startswith("MoLIVF") else state
+            raw = get_top_k_raw(m)
+            res = raw(model, st, q, SHARD_K, uids)
+            single[m] = (res.ids.cpu().numpy(),
+                         timed_ms(lambda: raw(model, st, q, SHARD_K, uids), SHARD_RUNS, device))
+        del state
+    t0 = time.perf_counter()
+    run_ranks(sharded_rank, SHARD_RANKS, (SHARD_RANKS, str((work / "store").resolve()),
+                                         str(work), str(device)), timeout=SHARD_TIMEOUT)
+    ranks_s = time.perf_counter() - t0
+    outs = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(SHARD_RANKS)]
+    print(f"[sharded] ml-20m-hstu-mol bf16 (K1 encode), {SHARD_ITEMS:,} items over "
+          f"{SHARD_RANKS} ranks (slab {outs[0]['slab']:,} items), B={SHARD_BATCH}, k={SHARD_K}, "
+          f"gloo, all on one card: ranks' wall {ranks_s:.1f} s, each rank's build of its slab "
+          f"{[round(o['build_s'], 2) for o in outs]} s and of its IVF index (nlist "
+          f"{SHARD_NLIST}) {[round(o['ivf_s'], 2) for o in outs]} s on {name} ({smi}); "
+          f"several ranks on one card check correctness, their times say nothing of four "
+          f"cards' speed")
+    for m in SHARD_EXACT + SHARD_SMALL + SHARD_APPROX:
+        for o in outs[1:]:
+            if not (np.array_equal(o[m][0], outs[0][m][0]) and np.array_equal(o[m][1], outs[0][m][1])):
+                raise AssertionError(f"[sharded] {m}: the ranks returned different lists")
+        got_ids = outs[0][m][1]
+        if got_ids.min() < 1 or got_ids.max() > SHARD_ITEMS:
+            raise AssertionError(f"[sharded] {m}: ids outside [1, {SHARD_ITEMS}]")
+    lines = []
+    for m in SHARD_EXACT:
+        w = want[m]
+        bad = tie_rule(outs[0][m][1], w.ids.cpu().numpy(), w.scores.float().cpu().numpy(), 1e-6)
+        dev = float(np.max(np.abs(outs[0][m][0] - w.scores.float().cpu().numpy())))
+        lines.append(f"{m}: ids == the single-process path's ({bad} mismatches off a tie), "
+                     f"max |score diff| {dev:.3g}, {outs[0][m][2]:.3f} ms/batch")
+        if bad:
+            raise AssertionError(f"[sharded] {m}: {bad} ids differ from the single-process path")
+    for m in SHARD_SMALL:
+        bad = tie_rule(outs[0][m][1], exact_small.ids.cpu().numpy(),
+                       exact_small.scores.float().cpu().numpy(), 2.0 ** -7)
+        lines.append(f"{m} over {SHARD_SMALL_ITEMS:,} items (full budget): {bad} ids off the "
+                     f"exact MoL's beyond a bf16 tie")
+        if bad:
+            raise AssertionError(f"[sharded] {m} at full budget is not exact: {bad} ids")
+    print("[sharded] " + "; ".join(lines))
+    exact_ids = want["MoLBruteForceTopKFused"].ids.cpu().numpy()
+    rows = []
+    for m in SHARD_APPROX:
+        rec, rec1 = (float(np.mean([len(set(a) & set(b)) / SHARD_K for a, b in zip(ids, exact_ids)]))
+                     for ids in (outs[0][m][1], single[m][0]))
+        rows.append(f"{m} {outs[0][m][2]:.3f} ms/batch recall@{SHARD_K} {rec:.4f} (unsharded "
+                    f"{single[m][1]:.3f} ms, {rec1:.4f})")
+    print("[sharded] approximate, per-shard budgets (not gated): " + "; ".join(rows))
+    need = ("K1", "K2", "K2-bmax", "K8", "K9", "K10")
+    for r, o in enumerate(outs):
+        if any(not o["launches"][k] for k in need):
+            raise AssertionError(f"[sharded] rank {r} launched none of some of {need}: "
+                                 f"{o['launches']}")
+    print(f"[sharded] launches per rank: "
+          f"{[{k: o['launches'][k] for k in need + ('K2-tc', 'K8-tc', 'K9-tc', 'K10-tc')} for o in outs]}")
+    return {k: sum(o["launches"][k] for o in outs) for k in need}
+
+
+def sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def shard_bench_phase(name: str, smi: str) -> dict:
+    """[shard-bench]: `cli/shard_bench.py`'s `main` at one rank on NCCL over
+    BENCH_ITEMS items, MoLBruteForceTopKFused: build s and ms/batch."""
+    from rails_tpu_torch.cli import shard_bench
+    from rails_tpu_torch.core import distributed
+
+    reset_launches()
+    try:
+        summary = shard_bench.main(["--num-items", str(BENCH_ITEMS), "--runs", "10"])
+    finally:
+        distributed.shutdown()
+    counts = launch_counts()
+    print(f"[shard-bench] {summary['metric']}: {summary['num_items']:,} items, item_parallel "
+          f"{summary['item_parallel']} (one rank, nccl): build {summary['build_seconds']:.2f} s, "
+          f"{summary['ms_per_batch']:.3f} ms/batch = {summary['value']:.1f} queries/s; launches "
+          f"K2 {counts['K2']}, K2-bmax {counts['K2-bmax']}, K2-tc {counts['K2-tc']} on {name} "
+          f"({smi})")
+    if not counts["K2-bmax"] or counts["K2-tc"] != counts["K2"]:
+        raise AssertionError(f"[shard-bench] K2's tile maxima or tensor cores not used: {counts}")
+    return counts
+
+
+def dp_rank(rank: int, world: int, store: str, out_dir: str, device_name: str = "cuda:0") -> None:
+    """One [dp-train] rank (gloo, the card): DP_STEPS data-parallel steps of
+    each DP_CONFIGS config over its rows of the global batch; its losses,
+    step 1's gradients, the parameters after the steps and its launches;
+    then, with the fault planted (the HSTU hash streams number this rank's
+    rows from 0, as if it were alone), step 1's gradients again."""
+    import torch
+
+    from rails_tpu_torch.core import distributed
+    from rails_tpu_torch.core.config import MeshConfig
+    from rails_tpu_torch.core.mesh import make_mesh
+    from rails_tpu_torch.models import hstu
+
+    device = torch.device(device_name)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.initialize(f"file://{store}", world, rank, backend="gloo", device=device)
+    mesh = make_mesh(MeshConfig(data_parallel=world, item_parallel=1))
+    out = {tag: dp_steps(device, config, overrides, mesh) for tag, config, overrides, _ in DP_CONFIGS}
+    own_row_span, hstu.row_span = hstu.row_span, lambda n: (0, n)
+    try:
+        for tag, config, overrides, _ in DP_CONFIGS:
+            out[tag]["fault_grads"] = dp_steps(device, config, overrides, mesh, steps=1)["grads"]
+    finally:
+        hstu.row_span = own_row_span
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    distributed.shutdown()
+
+
+def dp_steps(device, config: str, overrides: dict, mesh=None, steps: int = DP_STEPS) -> dict:
+    """`steps` steps of `config` from chip_smoke's seeded state on its
+    global batch of TRAIN_BATCH rows, this rank's rows with a mesh."""
+    import torch
+
+    from rails_tpu_torch.core.config import get_experiment_config
+    from rails_tpu_torch.core.mesh import shard_batch
+    from rails_tpu_torch.train.loop import create_train_state
+
+    cfg = get_experiment_config(config)
+    cfg = cfg.replace(train=cfg.train.replace(**overrides))
+    model, state, step, _ = create_train_state(
+        cfg, NUM_ITEMS, np.arange(1, NUM_ITEMS + 1, dtype=np.int32), seed=0, device=device,
+        mesh=mesh)
+    batch = train_batch(cfg, device)
+    if mesh is not None:
+        batch = shard_batch(batch, mesh)
+    gen = torch.Generator(device=device).manual_seed(0)
+    start = {k: p.detach().to("cpu", copy=True) for k, p in model.named_parameters()}
+    reset_launches()
+    losses, grads = [], None
+    for i in range(steps):
+        state, m = step(state, batch, gen)
+        losses.append(m["loss"].item())
+        if i == 0:
+            grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()
+                     if p.grad is not None}
+    return dict(losses=losses, grads=grads, launches=launch_counts(), start=start,
+                lr=cfg.train.learning_rate,
+                params={k: p.detach().cpu() for k, p in model.named_parameters()})
+
+
+def dp_train_phase(device, name: str, smi: str) -> dict:
+    """[dp-train]: DP_RANKS ranks on the one card (gloo), DP_STEPS steps of
+    ml-20m-hstu-mol and ml-20m-hstu-mol-fast (K6 scatter) at a global batch
+    of TRAIN_BATCH (TRAIN_BATCH / DP_RANKS a rank), dropout at the configs'
+    rates. Gated against the single-process port step over the same global
+    batch on the card, which differs from it only in the order of its sums:
+    each step's loss within DP_LOSS_RTOL; step 1's gradients within the
+    config's limit of each tensor's largest value, and the planted fault's
+    (a rank's hash streams numbered from 0) beyond it, so the gate
+    separates the two; the parameters after the steps
+    within DP_PARAM_RATIO of how far the steps moved them (L2 over every
+    parameter), and no element further apart than the 2 x lr a step that
+    AdamW can move one whose gradient is near 0 either way; the ranks'
+    parameters bit-equal; each rank launched K3, K4 and K7, and K5 and K6 for
+    -fast."""
+    import torch
+
+    from rails_tpu_torch.core.distributed import run_ranks
+
+    work = Path("build") / "dp_train"
+    work.mkdir(parents=True, exist_ok=True)
+    for f in work.glob("*"):
+        f.unlink()
+    t0 = time.perf_counter()
+    run_ranks(dp_rank, DP_RANKS, (DP_RANKS, str((work / "store").resolve()), str(work),
+                                  str(device)), timeout=DP_TIMEOUT)
+    ranks_s = time.perf_counter() - t0
+    outs = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(DP_RANKS)]
+    launches = {}
+    for tag, config, overrides, grad_tol in DP_CONFIGS:
+        single = dp_steps(device, config, overrides)
+        got = [o[tag] for o in outs]
+        same = all(torch.equal(p, g["params"][k]) for g in got[1:] for k, p in got[0]["params"].items())
+        loss_dev = max(abs(a - b) / abs(b) for a, b in zip(got[0]["losses"], single["losses"]))
+        grad_dev, fault_dev = (
+            max(float((grads[k] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+                for k, g in single["grads"].items())
+            for grads in (got[0]["grads"], got[0]["fault_grads"]))
+        diff = torch.cat([(got[0]["params"][k] - p).reshape(-1)
+                          for k, p in single["params"].items()]).double()
+        moved = torch.cat([(p - single["start"][k]).reshape(-1)
+                           for k, p in single["params"].items()]).double()
+        p_ratio = float(diff.norm() / moved.norm())
+        p_max = float(diff.abs().max())
+        p_limit = 2 * single["lr"] * DP_STEPS
+        shares = " / ".join(f"{float((diff.abs() > t).double().mean()):.3g}" for t in (1e-6, 1e-4))
+        need = ("K3", "K4 fwd", "K4 bwd", "K7") + (("K5 fwd", "K5 bwd", "K6")
+                                                   if tag.endswith("-fast") else ())
+        counts = [{k: g["launches"][k] for k in need} for g in got]
+        print(f"[dp-train] {tag}: {DP_RANKS} ranks x {TRAIN_BATCH // DP_RANKS} rows vs one "
+              f"process x {TRAIN_BATCH}, {DP_STEPS} steps: losses {got[0]['losses']} vs "
+              f"{single['losses']} (max rel {loss_dev:.3g}); step 1 gradients max "
+              f"{grad_dev:.3g} of each tensor's largest (limit {grad_tol:g}; the planted fault, "
+              f"hash streams numbered per rank: {fault_dev:.3g}); parameters after {DP_STEPS} steps: "
+              f"apart {p_ratio:.3g} of their move (L2), max {p_max:.3g} (limit {p_limit:.3g}), "
+              f"share more than 1e-6 / 1e-4 apart {shares} of {diff.numel():,}; ranks' parameters "
+              f"bit-equal {same}; launches per rank {counts} (ranks' wall {ranks_s:.1f} s for "
+              f"both configs) on {name} ({smi})")
+        if not same:
+            raise AssertionError(f"[dp-train] {tag}: the ranks' parameters differ")
+        if fault_dev <= grad_tol:
+            raise AssertionError(f"[dp-train] {tag}: the gradient gate passes the planted fault")
+        if (loss_dev > DP_LOSS_RTOL or grad_dev > grad_tol or p_ratio > DP_PARAM_RATIO
+                or p_max > p_limit):
+            raise AssertionError(f"[dp-train] {tag}: the data-parallel step is off the "
+                                 "single-process step")
+        if any(not c[k] for c in counts for k in need):
+            raise AssertionError(f"[dp-train] {tag}: a rank launched none of {need}")
+        launches[tag] = counts
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -4020,6 +4424,14 @@ def main() -> None:
                    NUM_CATEGORIES + 1, D, long_sums=True)
     torch.cuda.empty_cache()
     data_phase(device, name, smi)
+    torch.cuda.empty_cache()
+    # The scale slice: an item-sharded corpus over 4 ranks, shard_bench at
+    # one rank, data-parallel training over 2 ranks, all on this card.
+    sharded_phase(device, name, smi)
+    torch.cuda.empty_cache()
+    shard_bench_phase(name, smi)
+    torch.cuda.empty_cache()
+    dp_train_phase(device, name, smi)
 
     def entry(name_, source, replaces, key, measured, counts=launches):
         # The MUFU term of a bound is an operations term.

@@ -225,14 +225,14 @@ def pretrain(cfg: ExperimentConfig, ds: SequenceDataset, steps: int, device
     return model, losses
 
 
-def _chunk_noise(start: int, shape, device) -> torch.Tensor:
+def chunk_noise(start: int, shape, device) -> torch.Tensor:
     g = torch.Generator(device=device).manual_seed(start)
     return torch.randn(shape, generator=g, device=device)
 
 
 def clustered_embed_fn(
     model, vocab: int, sigma: float,
-    noise: Callable[[int, Tuple[int, ...], torch.device], torch.Tensor] = _chunk_noise,
+    noise: Callable[[int, Tuple[int, ...], torch.device], torch.Tensor] = chunk_noise,
 ) -> Callable[[int, torch.Tensor], torch.Tensor]:
     """embed_chunk_fn(start, ids) of the clustered corpus (`frontier.py:
     156-173`): the centroids table[(id-1) % vocab], plus sigma times their

@@ -7,9 +7,9 @@ leave-one-out `SequenceDataset` (:47-195) with positional subsampling
 (`data/native.py`) beside its numpy rows, `prefetch_batches` (:198-232),
 `RecoDataset` (:235-246), the synthetic generator (:281-360), the
 `sasrec_format.csv` loader with the native parser and the Python one where
-that declines (:363-424), and `get_reco_dataset` (:427-492). Per-host
-sharding of the epoch (`num_shards`, `shard_index`) belongs to the
-distributed path, not ported.
+that declines (:363-424), and `get_reco_dataset` (:427-492). The epoch shards over the ranks of a
+data-parallel run as in JAX (`num_shards`, `shard_index`: every
+`num_shards`-th example of the epoch's order, :141-195).
 """
 
 from __future__ import annotations
@@ -125,11 +125,17 @@ class SequenceDataset:
         shuffle: bool = True,
         seed: int = 0,
         drop_last: bool = False,
+        num_shards: int = 1,
+        shard_index: int = 0,
         sort_by_length: bool = False,
         device: Device = None,
     ) -> Iterator[Batch]:
         """One epoch of batches on `device` (the card unless the caller
         passes "cpu").
+
+        `num_shards` / `shard_index` give a rank of a data-parallel run its
+        share of the epoch, as torch's `DistributedSampler` does: every
+        `num_shards`-th example of the epoch's order from `shard_index`.
 
         `sort_by_length` orders examples by history length (stable), so that
         serving batches can be truncated to their own max length
@@ -142,6 +148,7 @@ class SequenceDataset:
             order = order[np.argsort(self.lengths_of(order), kind="stable")]
         elif shuffle:
             np.random.default_rng(seed).shuffle(order)
+        order = order[shard_index::num_shards]
         n_batches = len(order) // batch_size
         rem = len(order) % batch_size
         for i in range(n_batches):

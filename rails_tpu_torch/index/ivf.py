@@ -24,7 +24,13 @@ Where the port differs:
 - the rerank's query-batch split is a Python loop: JAX's optimization
   barrier between the sub-batches is a TPU scheduling workaround.
 
-`build_sharded_ivf` (:616-725) belongs to the sharded path, not ported.
+`build_sharded_ivf` (:616-725) builds one index per corpus slab of
+`index/sharded.py`, with slab-local positions, stacked on a leading shard
+axis and padded to the largest shard's lists; one shard indexes the corpus
+in place with the MoL-aware probes, several shards without them, as in JAX.
+`build_rank_ivf` builds one rank's index of that stack from the rank's own
+slab (`sharded.build_shard_state`), which is all a rank holds of a corpus
+larger than one card.
 
 Invariants (tests/test_torch_port_ivf.py, and `[ivf]` of chip_smoke.py on
 the card): every real corpus position appears exactly once across buckets
@@ -396,3 +402,118 @@ def mol_ivf_top_k(
         return outs[0]
     return tk.TopKResult(scores=torch.cat([r.scores for r in outs]),
                          ids=torch.cat([r.ids for r in outs]))
+
+
+def _host(t) -> np.ndarray:
+    return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _slab_index(avg_l: torch.Tensor, ids_l: torch.Tensor, seed: int, nlist: int,
+                num_iters: int, cap_factor: float, num_choices: int, chunk: int) -> IVFIndex:
+    """One shard's index over its slab's avg rows and ids (0 for padding),
+    without the MoL-aware probes; a slab of pad rows only gets one zero
+    list."""
+    dev = avg_l.device
+    if bool((ids_l != 0).any()):
+        return build_ivf_index(avg_l, ids_l, nlist=nlist, num_iters=num_iters,
+                               cap_factor=cap_factor, num_choices=num_choices, seed=seed,
+                               chunk=chunk)
+    return IVFIndex(
+        centroids=torch.zeros(min(nlist, 1), avg_l.shape[1], dtype=torch.float32, device=dev),
+        buckets=torch.zeros(min(nlist, 1), 8, dtype=torch.int32, device=dev),
+        overflow=torch.zeros(0, dtype=torch.int32, device=dev))
+
+
+def _pad_index(p: IVFIndex, nl: int, cap: int, o: int) -> IVFIndex:
+    """`p` with nl lists of cap slots and o overflow slots, the new slots
+    pointing at local position 0."""
+
+    def pad(t: torch.Tensor, shape) -> torch.Tensor:
+        out = torch.zeros(shape, dtype=t.dtype, device=t.device)
+        out[tuple(slice(0, n) for n in t.shape)] = t
+        return out
+
+    return IVFIndex(centroids=pad(p.centroids, (nl, p.centroids.shape[1])),
+                    buckets=pad(p.buckets, (nl, cap)), overflow=pad(p.overflow, (o,)))
+
+
+def build_sharded_ivf(
+    state: "tk.MoLTopKState",     # the unsharded state, on the host or a device
+    num_shards: int,
+    nlist: int = 1024,
+    num_iters: int = 10,
+    cap_factor: float = 2.0,
+    num_choices: int = 4,
+    seed: int = 0,
+    chunk: int = 65_536,
+    device=None,
+) -> IVFIndex:
+    """Per-shard IVF indexes stacked on a leading shard axis
+    (`ivf.py:616-725`): shard i indexes its slab of the corpus padded to
+    `sharded.shard_unit` with seed `seed + i`, its buckets holding
+    slab-local positions; lists, caps and overflow lengths pad to the
+    largest shard's (pad slots point at local position 0, the extra
+    candidate the rerank's dedup collapses). A slab of pad rows only gets
+    one zero list. The indexes are built on `device` (the avg table's by
+    default); `pad_and_shard_state` hands each rank its own."""
+    s = num_shards
+    avg = state.avg_component
+    if isinstance(avg, np.ndarray):
+        avg = torch.from_numpy(avg)
+    dev = avg.device if device is None else torch.device(device)
+    if s == 1:
+        ivf = build_ivf_index(avg.to(dev), torch.as_tensor(_host(state.item_ids)).to(dev),
+                              nlist=nlist, num_iters=num_iters, cap_factor=cap_factor,
+                              num_choices=num_choices, seed=seed, chunk=chunk, mol_state=state)
+        return IVFIndex(*(None if a is None else a[None] for a in ivf))
+    from rails_tpu_torch.index.sharded import shard_unit, slab_span
+
+    x = int(state.item_ids.shape[0])
+    ids_np = _host(state.item_ids)
+    parts = []
+    for si in range(s):
+        lo, hi = slab_span(x, shard_unit(state, s), s, si)
+        ids_l = np.zeros(hi - lo, np.int32)
+        avg_l = torch.zeros(hi - lo, avg.shape[1], dtype=avg.dtype, device=dev)
+        n, n_avg = max(0, min(hi, x) - lo), max(0, min(hi, avg.shape[0]) - lo)
+        ids_l[:n] = ids_np[lo : lo + n]
+        avg_l[:n_avg] = avg[lo : lo + n_avg].to(dev)
+        parts.append(_slab_index(avg_l, torch.as_tensor(ids_l, device=dev), seed + si, nlist,
+                                 num_iters, cap_factor, num_choices, chunk))
+    sizes = (max(p.centroids.shape[0] for p in parts), max(p.buckets.shape[1] for p in parts),
+             max(p.overflow.shape[0] for p in parts))
+    padded = [_pad_index(p, *sizes) for p in parts]
+    return IVFIndex(*(torch.stack([getattr(p, f) for p in padded])
+                      for f in ("centroids", "buckets", "overflow")))
+
+
+def build_rank_ivf(
+    state_l: "tk.MoLTopKState",   # this rank's slab, from sharded.build_shard_state
+    mesh,
+    nlist: int = 1024,
+    num_iters: int = 10,
+    cap_factor: float = 2.0,
+    num_choices: int = 4,
+    seed: int = 0,
+    chunk: int = 65_536,
+) -> IVFIndex:
+    """This rank's index of `build_sharded_ivf`, built from its own slab on
+    its device: the same slab, seed `seed + i` and padding to the largest
+    shard's lists, whose sizes one all-reduce over the item group finds. One
+    shard indexes its state with the MoL-aware probes, as there."""
+    import torch.distributed as dist
+
+    from rails_tpu_torch.core.distributed import collective_device
+    from rails_tpu_torch.core.mesh import ITEM_AXIS, axis_index, axis_size, item_group
+
+    kw = dict(nlist=nlist, num_iters=num_iters, cap_factor=cap_factor, num_choices=num_choices,
+              chunk=chunk)
+    if axis_size(mesh, ITEM_AXIS) == 1:
+        return build_ivf_index(state_l.avg_component, state_l.item_ids, seed=seed,
+                               mol_state=state_l, **kw)
+    p = _slab_index(state_l.avg_component, state_l.item_ids, seed + axis_index(mesh, ITEM_AXIS),
+                    **kw)
+    sizes = torch.tensor([p.centroids.shape[0], p.buckets.shape[1], p.overflow.shape[0]],
+                         dtype=torch.int64, device=collective_device())
+    dist.all_reduce(sizes, op=dist.ReduceOp.MAX, group=item_group(mesh))
+    return _pad_index(p, *(int(v) for v in sizes.tolist()))

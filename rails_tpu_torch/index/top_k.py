@@ -4,7 +4,9 @@ Counterpart of `rails_tpu/index/top_k.py`: `NEG_DUP`, `NEG_PAD`,
 `_CHUNK_MAX_X`, `BUILD_CHUNK` and `_mask_pad_rows` (:39-61), `TopKResult`,
 `MoLTopKState`, `build_mol_topk_state` with `quantize_fused` (:107-208), the
 chunked on-device corpus build `build_fused_state_chunked_on_device`
-(:293-411), the exact select `hierarchical_top_k` and `chunked_top_k`
+(:293-411), which with `span` also builds one rank's slab in place of the
+host-staged `build_fused_state_chunked(keep_on_host=True)` (:211-290), the
+exact select `hierarchical_top_k` and `chunked_top_k`
 (:507-630), the exact methods `mol_brute_force_top_k` (:633-649),
 `mol_brute_force_top_k_fused` (:652-737, K2 with its tile maxima above
 `_CHUNK_MAX_X` items) and `mol_brute_force_top_k_fused_approx` (:740-763),
@@ -167,6 +169,7 @@ def build_fused_state_chunked_on_device(
     chunk_size: int = BUILD_CHUNK,
     table_dtype: torch.dtype = torch.bfloat16,
     quantize: bool = False,
+    span: Optional[Tuple[int, int]] = None,
 ) -> MoLTopKState:
     """A `fused_only` state built chunk by chunk on `item_ids`' device
     (`top_k.py:293-411`): the kernel-layout tables, the avg table and, with
@@ -176,13 +179,24 @@ def build_fused_state_chunked_on_device(
     exist whole. Per-chunk quantization gives the bytes of quantizing the
     assembled tables (`quantize_columns`: the scales are per item); pad
     columns keep codes 0 and the scale 1e-12 / 127. `item_ids` come back
-    zero-padded to X padded, as in JAX."""
+    zero-padded to X padded, as in JAX.
+
+    `span` = (lo, hi) builds columns [lo, hi) only, padded to a multiple of
+    256 (hi may pass X): one rank's slab (`sharded.build_shard_state`). The
+    chunks that meet the span run with the whole build's starts, so an
+    `embed_chunk_fn` keyed on the chunk start gives the same columns, and
+    neither the device nor the host holds the tables of more than the slab
+    and one chunk.
+    It takes the place of JAX's host-staged `build_fused_state_chunked(
+    keep_on_host=True)` (:211-290), which builds the whole corpus on the
+    host for `pad_and_shard_state` to slice."""
     mol = model.cfg.mol
     if not fused_scoring(mol):
         raise ValueError("the fused kernel layout serves only K2's function, the glu_silu "
                          "combination with both gating partials")
     x = int(item_ids.shape[0])
-    xp = -(-x // BLOCK_X) * BLOCK_X
+    lo, hi = (0, x) if span is None else span
+    xp = -(-(hi - lo) // BLOCK_X) * BLOCK_X
     p_x, d_p, l = mol.item_dot_product_groups, mol.dot_product_dimension, mol.num_logits
     dev = item_ids.device
     tbl = torch.int8 if quantize else table_dtype
@@ -194,19 +208,21 @@ def build_fused_state_chunked_on_device(
         pad_scale = torch.full((), 1e-12, dtype=torch.float32, device=dev) / 127.0
         cs_buf = pad_scale.expand(p_x, xp).clone()
         ps_buf = pad_scale.expand(1, xp).clone()
-    for start in range(0, x, chunk_size):
+    for start in range(lo - lo % chunk_size, min(hi, x), chunk_size):
         end = min(start + chunk_size, x)
         t = model.build_item_tables(embed_chunk_fn(start, item_ids[start:end]))
-        comp_t = t.component_embeddings.to(table_dtype).permute(1, 2, 0)     # (P_X, d_P, C)
-        gp_t = t.gating_partial.to(table_dtype).T                            # (L, C)
-        avg_buf[start:end] = t.component_embeddings.mean(dim=1).to(table_dtype)
+        a, b = max(start, lo) - start, min(end, hi) - start   # the chunk's rows in the span
+        comp = t.component_embeddings[a:b]
+        comp_t = comp.to(table_dtype).permute(1, 2, 0)                       # (P_X, d_P, C)
+        gp_t = t.gating_partial[a:b].to(table_dtype).T                       # (L, C)
+        c0, c1 = start + a - lo, start + b - lo
+        avg_buf[c0:c1] = comp.mean(dim=1).to(table_dtype)
         if quantize:
-            comp_t, gp_t, cs_buf[:, start:end], ps_buf[:, start:end] = quantize_columns(
-                comp_t, gp_t)
-        comp_buf[:, :, start:end] = comp_t
-        gp_buf[:, start:end] = gp_t
+            comp_t, gp_t, cs_buf[:, c0:c1], ps_buf[:, c0:c1] = quantize_columns(comp_t, gp_t)
+        comp_buf[:, :, c0:c1] = comp_t
+        gp_buf[:, c0:c1] = gp_t
     ids = torch.zeros(xp, dtype=torch.int32, device=dev)
-    ids[:x] = item_ids
+    ids[: max(0, min(hi, x) - lo)] = item_ids[lo:hi]
     return MoLTopKState(
         item_ids=ids,
         item_tables=MoLItemTables(
@@ -417,7 +433,8 @@ def _gathered_candidate_tables(
     the gather (`_finalize_gathered`, `top_k.py:1218-1235`)."""
     it = state.item_tables
     if it.component_embeddings.shape[0] > 0:
-        return it.component_embeddings[idx], it.gating_partial[idx]
+        gp = it.gating_partial
+        return it.component_embeddings[idx], None if gp is None else gp[idx]
     ft = _fused(state, "the candidate gather of a fused_only state")
     comp = ft.item_comp_t[:, :, idx].permute(2, 3, 0, 1)          # (B, K, P_X, d_P)
     gp = ft.item_partial_t[:, idx].permute(1, 2, 0)               # (B, K, L)

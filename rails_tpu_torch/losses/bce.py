@@ -16,8 +16,13 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from rails_tpu_torch.core.distributed import draw_rows, global_sum
 from rails_tpu_torch.data.features import SequentialFeatures
-from rails_tpu_torch.losses.samplers import InBatchNegativesSampler, maybe_l2_norm
+from rails_tpu_torch.losses.samplers import (
+    InBatchNegativesSampler,
+    in_batch_pool,
+    maybe_l2_norm,
+)
 from rails_tpu_torch.models.preprocessors import length_mask
 
 AuxLosses = Dict[str, torch.Tensor]
@@ -58,12 +63,12 @@ def bce_loss(
     inputs, q, sup_ids, sup_emb, w, uids = _positions(model, features, train, generator, seed0)
     m = q.shape[0]
     if isinstance(sampler, InBatchNegativesSampler):
-        flat_ids = features.ids.reshape(-1)
-        state = sampler.process_batch(flat_ids, flat_ids != 0,
-                                      inputs.reshape(flat_ids.shape[0], -1))
-        sampled_ids, neg_emb = sampler.sample(state, generator, (m, 1))
+        flat_ids, flat_emb = in_batch_pool(model, features.ids, inputs)
+        state = sampler.process_batch(flat_ids, flat_ids != 0, flat_emb)
+        sampled_ids, neg_emb = draw_rows(lambda shape: sampler.sample(state, generator, shape),
+                                         (m, 1))
     else:
-        sampled_ids = sampler.sample(generator, (m, 1))
+        sampled_ids = draw_rows(lambda shape: sampler.sample(generator, shape), (m, 1))
         neg_emb = maybe_l2_norm(model.get_item_embeddings(sampled_ids), sampler.l2_norm,
                                 sampler.l2_norm_eps)
     pos_logits, aux = model.similarity_fn(q, sup_emb, uids, train, w, generator)
@@ -73,8 +78,8 @@ def bce_loss(
     loss_weights = w * (sup_ids != sampled_ids[:, 0]).float()
     per_position = 0.5 * (_bce_with_logits(pos_logits, torch.ones_like(pos_logits))
                           + _bce_with_logits(neg_logits, torch.zeros_like(neg_logits)))
-    loss = torch.sum(per_position * loss_weights) / torch.clamp(torch.sum(loss_weights),
-                                                                min=1e-12)
+    loss = torch.sum(per_position * loss_weights) / torch.clamp(
+        global_sum(torch.sum(loss_weights)), min=1e-12)
     return loss, aux
 
 
@@ -95,5 +100,5 @@ def bce_loss_with_ratings(
     logits = logits[:, 0] / temperature
     targets = features.ratings[:, 1:].reshape(-1).float()
     per_position = _bce_with_logits(logits, targets.to(logits.dtype))
-    loss = torch.sum(per_position * w) / torch.clamp(torch.sum(w), min=1e-12)
+    loss = torch.sum(per_position * w) / torch.clamp(global_sum(torch.sum(w)), min=1e-12)
     return loss, aux

@@ -37,10 +37,20 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from rails_tpu_torch.core.distributed import (
+    RowShard,
+    current_row_shard,
+    draw_rows,
+    global_sum,
+    replicated_rows,
+    row_shard,
+    row_span,
+)
 from rails_tpu_torch.data.features import SequentialFeatures
 from rails_tpu_torch.losses.samplers import (
     InBatchNegativesSampler,
     LocalNegativesSampler,
+    in_batch_pool,
     maybe_l2_norm,
 )
 from rails_tpu_torch.models.preprocessors import length_mask
@@ -78,8 +88,9 @@ def _fused_negative_logits(
     c = model.cfg.mol
     q_comp, _ = sim.query_components_aux(q, user_ids_flat, True, w_flat, generator)
     qp = sim.query_gating_partial(q)                                        # (M, L)
-    i_comp = sim.item_components(sampled_neg_embeddings, True, generator)   # (R, P_X, d_P)
-    ip = sim.item_gating_partial(sampled_neg_embeddings, True, generator)   # (R, L)
+    with replicated_rows():   # the shared negatives: every rank's whole set
+        i_comp = sim.item_components(sampled_neg_embeddings, True, generator)   # (R, P_X, d_P)
+        ip = sim.item_gating_partial(sampled_neg_embeddings, True, generator)   # (R, L)
     w = extract_gating_qi_weights(sim)
     seed = 0
     if c.softmax_dropout_rate > 0.0 or c.gating_qi_dropout_rate > 0.0:
@@ -90,7 +101,7 @@ def _fused_negative_logits(
         q_comp.to(dt), qp.to(dt), i_comp, ip.to(dt), w.w1, w.b1[None], w.w2, w.b2[None], seed,
         p_q=c.query_dot_product_groups, p_x=c.item_dot_product_groups,
         temperature=c.temperature, qi_rate=c.gating_qi_dropout_rate,
-        pi_rate=c.softmax_dropout_rate, eps=c.eps,
+        pi_rate=c.softmax_dropout_rate, eps=c.eps, rows=row_span(q.shape[0]),
     )
 
 
@@ -101,24 +112,36 @@ def _checkpointed_negative_logits(
     """(M, R) negative scores in `chunks` chunks of positions, each under
     `torch.utils.checkpoint` (`sampled_softmax.py:205-235`); (R, D) shared or
     (M, R, D) per-position negatives. The chunks pass no row weights: they
-    would shape only the aux losses, which come from the positives' call."""
+    would shape only the aux losses, which come from the positives' call.
+    A data-parallel rank cuts the global batch's positions into the chunks
+    and draws every chunk's seed, and scores its rows of each chunk as that
+    chunk's row shard."""
     m = q.shape[0]
-    size = -(-m // chunks)
+    off, total = row_span(m)
+    group = None if current_row_shard() is None else current_row_shard().group
+    size = -(-total // chunks)
     parts = []
-    for s in range(0, m, size):
-        e = min(s + size, m)
-        neg = neg_embeddings[None] if neg_embeddings.ndim == 2 else neg_embeddings[s:e]
+    for s in range(0, total, size):
+        e = min(s + size, total)
         seed = None if generator is None else int(torch.randint(
             0, _INT32_MAX, (1,), generator=generator, device=generator.device).item())
-        parts.append(checkpoint(_negative_chunk, model, q[s:e], neg, user_ids_flat[s:e], seed,
+        lo, hi = max(s, off), min(e, off + m)
+        if lo >= hi:
+            continue
+        neg = (neg_embeddings[None] if neg_embeddings.ndim == 2
+               else neg_embeddings[lo - off : hi - off])
+        shard = None if total == m else RowShard(lo - s, hi - lo, e - s, group)
+        parts.append(checkpoint(_negative_chunk, model, q[lo - off : hi - off], neg,
+                                user_ids_flat[lo - off : hi - off], seed, shard,
                                 use_reentrant=False))
     return torch.cat(parts, dim=0)
 
 
 def _negative_chunk(model, q: torch.Tensor, neg: torch.Tensor, user_ids: torch.Tensor,
-                    seed: Optional[int]) -> torch.Tensor:
+                    seed: Optional[int], shard: Optional[RowShard]) -> torch.Tensor:
     generator = None if seed is None else torch.Generator(q.device).manual_seed(seed)
-    return model.similarity_fn(q, neg, user_ids, True, None, generator)[0]
+    with row_shard(shard):
+        return model.similarity_fn(q, neg, user_ids, True, None, generator)[0]
 
 
 def sampled_softmax_loss(
@@ -134,7 +157,10 @@ def sampled_softmax_loss(
     shared_negatives: bool = False,
 ) -> Tuple[torch.Tensor, AuxLosses]:
     """(scalar loss, aux losses). `generator` draws the negatives and every
-    dropout; `seed0` seeds the HSTU blocks' hash dropout."""
+    dropout; `seed0` seeds the HSTU blocks' hash dropout. Under a
+    data-parallel row shard (`core.distributed.row_shard`) the loss and the
+    aux losses are this rank's terms of the global batch's, whose sum over
+    the ranks is the global batch's value."""
     if not isinstance(sampler, (LocalNegativesSampler, InBatchNegativesSampler)):
         raise TypeError(f"Unknown sampler {type(sampler)}")
     ids = features.ids
@@ -153,8 +179,11 @@ def sampled_softmax_loss(
 
     if isinstance(sampler, LocalNegativesSampler):
         # One (R,) set for the batch, or (M, R) per position.
-        sampled_ids = sampler.sample(
-            generator, (num_negatives,) if shared_negatives else (m, num_negatives))
+        if shared_negatives:
+            sampled_ids = sampler.sample(generator, (num_negatives,))
+        else:
+            sampled_ids = draw_rows(lambda shape: sampler.sample(generator, shape),
+                                    (m, num_negatives))
         sampled_neg_embeddings = maybe_l2_norm(
             model.get_item_embeddings(sampled_ids), sampler.l2_norm, sampler.l2_norm_eps)
     else:
@@ -162,11 +191,12 @@ def sampled_softmax_loss(
             logging.getLogger("rails_tpu_torch").warning(
                 "train.shared_negatives=True has no effect with the in-batch sampler; "
                 "sampling per position")
-        # The target-scattered ids and their already-gathered embeddings.
-        flat_ids = ids.reshape(-1)
-        state = sampler.process_batch(flat_ids, flat_ids != 0, input_embeddings.reshape(b * n, d))
-        sampled_ids, sampled_neg_embeddings = sampler.sample(state, generator,
-                                                             (m, num_negatives))
+        # The target-scattered ids and their already-gathered embeddings
+        # (a data-parallel rank: the global batch's, `global_batch_ids`).
+        flat_ids, flat_emb = in_batch_pool(model, ids, input_embeddings)
+        state = sampler.process_batch(flat_ids, flat_ids != 0, flat_emb)
+        sampled_ids, sampled_neg_embeddings = draw_rows(
+            lambda shape: sampler.sample(state, generator, shape), (m, num_negatives))
         shared_negatives = False
     pos_embeddings = maybe_l2_norm(
         input_embeddings[:, 1:, :].reshape(m, d), sampler.l2_norm, sampler.l2_norm_eps)
@@ -193,7 +223,8 @@ def sampled_softmax_loss(
     )                                                                       # (M, R)
     all_logits = torch.cat([positive_logits, negative_logits], dim=1)
     per_position = -torch.log_softmax(all_logits, dim=1)[:, 0]
-    loss = torch.sum(per_position * w_flat) / torch.clamp(torch.sum(w_flat), min=1e-12)
+    loss = torch.sum(per_position * w_flat) / torch.clamp(global_sum(torch.sum(w_flat)),
+                                                          min=1e-12)
     return loss, aux_losses
 
 

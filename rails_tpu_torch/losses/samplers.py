@@ -14,7 +14,9 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import torch
+import torch.distributed as dist
 
+from rails_tpu_torch.core.distributed import current_row_shard
 from rails_tpu_torch.similarity.layers import l2_normalize
 
 
@@ -84,3 +86,27 @@ class InBatchNegativesSampler(NamedTuple):
         pos = torch.searchsorted(state.cum_unique, rank.reshape(-1), side="left")
         pos = pos.clamp(0, state.sorted_ids.shape[0] - 1).reshape(u.shape)
         return state.sorted_ids[pos], state.sorted_embeddings[pos]
+
+
+def global_batch_ids(ids: torch.Tensor) -> torch.Tensor:
+    """(B, N) ids of this rank, or under a row shard the global batch's
+    (B_total, N) ids, all-gathered in rank order."""
+    s = current_row_shard()
+    if s is None or s.total == s.rows:
+        return ids
+    parts = [torch.empty_like(ids) for _ in range(dist.get_world_size(s.group))]
+    dist.all_gather(parts, ids.contiguous(), group=s.group)
+    return torch.cat(parts, dim=0)
+
+
+def in_batch_pool(model, ids: torch.Tensor, input_embeddings: torch.Tensor):
+    """The in-batch sampler's flat ids and embeddings: this batch's, or a
+    data-parallel rank's view of the global batch's, whose embeddings it
+    looks up itself (their gradients reach its own table and sum over the
+    ranks with the rest)."""
+    b, n, d = input_embeddings.shape
+    all_ids = global_batch_ids(ids)
+    if all_ids is ids:
+        return ids.reshape(-1), input_embeddings.reshape(b * n, d)
+    return all_ids.reshape(-1), model.get_item_embeddings(all_ids).reshape(-1, d)
+

@@ -182,6 +182,39 @@ class SequentialRecommender(nn.Module):
         # each original position.
         return y[:, 1::2] if stride == 2 else y
 
+    def encode_prefill(self, features: SequentialFeatures):
+        """The eval encode through the XLA block path, also returning each
+        HSTU block's (k, v) cache (`encoder.py:209-229`): ((B, D) states at
+        the last valid position, cache). HSTU with the positional
+        preprocessor only, as in JAX."""
+        self._check_decode()
+        emb = self.item_emb(features.ids).to(self.compute_dtype)
+        x, _ = self.input_preproc(features.lengths, emb)
+        valid = length_mask(features.lengths, x.shape[1])
+        x = x * valid[..., None].to(x.dtype)
+        y, cache = self.hstu.prefill(x, valid, features.timestamps)
+        seq = self.postprocess(y)
+        rows = torch.arange(seq.shape[0], device=seq.device)
+        return seq[rows, features.lengths.long() - 1], cache
+
+    def decode_step(self, new_ids: torch.Tensor, features: SequentialFeatures, cache):
+        """Append one item per row at position `features.lengths` (its
+        timestamp already at that slot) and return ((B, D) new states, cache)
+        (`encoder.py:231-251`)."""
+        self._check_decode()
+        position = features.lengths
+        x_t = self.input_preproc.at_position(
+            self.item_emb(new_ids).to(self.compute_dtype), position)
+        y_t, cache = self.hstu.decode_step(x_t, cache, position, features.timestamps)
+        return self.postprocess(y_t), cache
+
+    def _check_decode(self) -> None:
+        if self.cfg.model_type != "HSTU":
+            raise NotImplementedError("incremental decode is HSTU-only")
+        if self.cfg.input_preprocessor_type != "positional":
+            raise NotImplementedError("incremental decode supports the positional preprocessor "
+                                      "only")
+
     def similarity_fn(
         self,
         query_embeddings: torch.Tensor,                  # (B', D)

@@ -39,7 +39,8 @@ import torch
 from torch import nn
 
 from rails_tpu_torch.core.config import HSTUConfig
-from rails_tpu_torch.ops.hash_dropout import LAYER_SALT, wrap_i32
+from rails_tpu_torch.core.distributed import row_span
+from rails_tpu_torch.ops.hash_dropout import LAYER_SALT, USER_SALT, wrap_i32
 from rails_tpu_torch.ops.hstu_block import fused_hstu_block
 from rails_tpu_torch.ops.hstu_block_train import BlockMeta, fused_train_block
 from rails_tpu_torch.similarity.layers import (
@@ -110,6 +111,20 @@ class StackedRelativeBias(nn.Module):
             bias = bias + penalty[None].to(bias.dtype)
         return bias.to(dtype)
 
+    def row(self, timestamps: torch.Tensor, position: torch.Tensor,
+            dtype: torch.dtype) -> torch.Tensor:
+        """(L, B, N) bias of one query row per batch row (`hstu.py:152-172`):
+        `position` (B,) the 0-based query index; the time part reads
+        ts[position + 1], the next item's timestamp."""
+        n = timestamps.shape[1]
+        j = torch.arange(n, device=timestamps.device)[None, :]
+        rel_pos = self.pos_w[:, j - position.long()[:, None] + self.max_seq_len - 1]   # (L, B, N)
+        ext = torch.cat([timestamps, timestamps[:, n - 1 : n]], dim=1)
+        ts_next = ext.gather(1, torch.clamp(position.long() + 1, max=n)[:, None])      # (B, 1)
+        buckets = bucketize_time_delta(ts_next - timestamps, self.num_buckets)
+        rel_ts = self.ts_w.T[buckets.long()]                                       # (B, N, L)
+        return (rel_pos + rel_ts.movedim(-1, 0)).to(dtype)
+
 
 class HSTUBlock(nn.Module):
     """Parameters of one block: uvqk (D, 2h*dv + 2h*dqk), o_kernel (h*dv, D),
@@ -126,23 +141,39 @@ class HSTUBlock(nn.Module):
         self.o_kernel = nn.Parameter(xavier_uniform((o_in, d), generator))
         self.o_bias = nn.Parameter(torch.zeros(d))
 
-    def forward(self, x: torch.Tensor, attn_mask: torch.Tensor,
-                rel_bias: Optional[torch.Tensor], train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """The XLA block (`HSTUBlock.__call__`) in x's dtype: x (B, N, D),
-        attn_mask (B, N, N) f32 causal x column-valid, rel_bias (B, N, N) or
-        None. With `train`, the attention weights (after the mask) and
-        o_input drop at their configured rates."""
+    def _uvqk(self, x: torch.Tensor):
+        """u, v, q, k of LN(x) @ uvqk after the linear activation."""
         c = self.cfg
-        b, n, _ = x.shape
         h, dqk, dv = c.num_heads, c.dqk, c.dv
-        dt = x.dtype
-        y = layer_norm_in_dtype(x, c.epsilon) @ self.uvqk.to(dt)
+        y = layer_norm_in_dtype(x, c.epsilon) @ self.uvqk.to(x.dtype)
         if c.linear_activation == "silu":
             y = y * torch.sigmoid(y)
         elif c.linear_activation != "none":
             raise ValueError(f"Unknown linear_activation {c.linear_activation!r}")
-        u, v, q, k = torch.split(y, [h * dv, h * dv, h * dqk, h * dqk], dim=-1)
+        return torch.split(y, [h * dv, h * dv, h * dqk, h * dqk], dim=-1)
+
+    def _out(self, x: torch.Tensor, u: torch.Tensor, attn_out: torch.Tensor, train: bool,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+        c = self.cfg
+        a = layer_norm_in_dtype(attn_out, c.epsilon)
+        o_input = torch.cat([u, a, u * a], dim=-1) if c.concat_ua else u * a
+        if train:
+            o_input = dropout(o_input, c.linear_dropout_rate, generator)
+        return (o_input @ self.o_kernel.to(x.dtype) + self.o_bias.to(x.dtype)) + x
+
+    def forward(self, x: torch.Tensor, attn_mask: torch.Tensor,
+                rel_bias: Optional[torch.Tensor], train: bool = False,
+                generator: Optional[torch.Generator] = None, return_kv: bool = False):
+        """The XLA block (`HSTUBlock.__call__`) in x's dtype: x (B, N, D),
+        attn_mask (B, N, N) f32 causal x column-valid, rel_bias (B, N, N) or
+        None. With `train`, the attention weights (after the mask) and
+        o_input drop at their configured rates. `return_kv` also returns
+        (k (B, N, h*dqk), v (B, N, h*dv)), the decode cache."""
+        c = self.cfg
+        b, n, _ = x.shape
+        h, dqk, dv = c.num_heads, c.dqk, c.dv
+        dt = x.dtype
+        u, v, q, k = self._uvqk(x)
         if c.normalization == "softmax_rel_bias":
             # One map over the full h*dqk contraction shared by every value
             # head, scaled by sqrt(dqk) and masked after normalisation.
@@ -167,11 +198,44 @@ class HSTUBlock(nn.Module):
                                     v.reshape(b, n, h, dv)).reshape(b, n, h * dv)
         else:
             raise ValueError(f"Unknown normalization {c.normalization!r}")
-        a = layer_norm_in_dtype(attn_out, c.epsilon)
-        o_input = torch.cat([u, a, u * a], dim=-1) if c.concat_ua else u * a
-        if train:
-            o_input = dropout(o_input, c.linear_dropout_rate, generator)
-        return (o_input @ self.o_kernel.to(dt) + self.o_bias.to(dt)) + x
+        out = self._out(x, u, attn_out, train, generator)
+        return (out, (k, v)) if return_kv else out
+
+    def decode_step(self, x_t: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                    position: torch.Tensor, bias_row: Optional[torch.Tensor]):
+        """One appended position per row against the cached keys and values
+        (`hstu.py:301-365`): x_t (B, D), caches (B, N, h*d), position (B,),
+        bias_row (B, N) or None. Returns (y_t (B, D), k_cache, v_cache), the
+        caches written at `position`; the 1/N normaliser is the full padded
+        length's, as in the dense forward."""
+        c = self.cfg
+        b, n, _ = k_cache.shape
+        h, dqk, dv = c.num_heads, c.dqk, c.dv
+        dt = x_t.dtype
+        u, v, q, k = self._uvqk(x_t)
+        rows = torch.arange(b, device=x_t.device)
+        pos = position.long()
+        k_cache = k_cache.clone()
+        v_cache = v_cache.clone()
+        k_cache[rows, pos] = k
+        v_cache[rows, pos] = v
+        col_ok = (torch.arange(n, device=x_t.device)[None, :] <= pos[:, None]).to(dt)
+        if c.normalization == "softmax_rel_bias":
+            s = torch.einsum("bd,bmd->bm", q, k_cache)
+            if bias_row is not None:
+                s = s + bias_row
+            attn = torch.softmax(s / torch.tensor(float(dqk) ** 0.5).to(dt), dim=-1) * col_ok
+            attn_out = torch.einsum("bm,bmd->bd", attn, v_cache)
+        elif c.normalization in ("rel_bias", "hstu_rel_bias"):
+            qk = torch.einsum("bhd,bmhd->bhm", q.reshape(b, h, dqk), k_cache.reshape(b, n, h, dqk))
+            if bias_row is not None:
+                qk = qk + bias_row[:, None, :]
+            attn = qk * torch.sigmoid(qk) * (1.0 / self.max_seq_len) * col_ok[:, None, :]
+            attn_out = torch.einsum("bhm,bmhd->bhd", attn,
+                                    v_cache.reshape(b, n, h, dv)).reshape(b, h * dv)
+        else:
+            raise ValueError(f"Unknown normalization {c.normalization!r}")
+        return self._out(x_t, u, attn_out, False, None), k_cache, v_cache
 
 
 class HSTUStack(nn.Module):
@@ -274,8 +338,41 @@ class HSTUStack(nn.Module):
                                             train, generator)
         return x * valid[..., None].to(x.dtype)
 
+    def prefill(self, x: torch.Tensor, valid: torch.Tensor,
+                timestamps: Optional[torch.Tensor]):
+        """The XLA block path's eval forward, also returning each block's
+        (k (B, N, h*dqk), v (B, N, h*dv)) cache (`hstu.py:541-569`)."""
+        n = x.shape[1]
+        bias_all = (None if self.rel_attn_bias is None or timestamps is None
+                    else self.rel_attn_bias(timestamps, x.dtype))
+        causal = torch.tril(torch.ones(n, n, dtype=torch.float32, device=x.device))
+        attn_mask = causal[None] * valid[:, None, :].float()
+        cache = []
+        for i in range(self.cfg.num_blocks):
+            x, kv = getattr(self, f"block_{i}")(
+                x, attn_mask, None if bias_all is None else bias_all[i], return_kv=True)
+            cache.append(kv)
+        return x * valid[..., None].to(x.dtype), tuple(cache)
+
+    def decode_step(self, x_t: torch.Tensor, cache, position: torch.Tensor,
+                    timestamps: Optional[torch.Tensor]):
+        """One appended position through every block with its cache
+        (`hstu.py:571-591`); returns (y_t (B, D), new cache)."""
+        bias_rows = (None if timestamps is None or self.rel_attn_bias is None
+                     else self.rel_attn_bias.row(timestamps, position, x_t.dtype))
+        new_cache = []
+        for i, (k_c, v_c) in enumerate(cache):
+            x_t, k_c, v_c = getattr(self, f"block_{i}").decode_step(
+                x_t, k_c, v_c, position, None if bias_rows is None else bias_rows[i])
+            new_cache.append((k_c, v_c))
+        return x_t, tuple(new_cache)
+
     def _fused_train_forward(self, x, valid, timestamps, seed0: int) -> torch.Tensor:
         meta = train_block_meta(self.cfg, self.max_seq_len)
+        # The streams number a user by its batch row, seed0 + row * USER_SALT:
+        # a data-parallel rank's rows are the global batch's rows from its
+        # offset on, which the seed carries.
+        seed0 = wrap_i32(seed0 + row_span(x.shape[0])[0] * USER_SALT)
         for i, kw in enumerate(self.block_operands(valid, timestamps)):
             # No rel_pos, ext or tsw without the relative-attention bias.
             x = fused_train_block(

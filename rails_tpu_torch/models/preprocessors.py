@@ -56,6 +56,12 @@ class LearnablePositionalEmbeddingInputPreprocessor(nn.Module):
         x = x * valid[..., None].to(x.dtype)
         return x.to(self.compute_dtype), valid
 
+    def at_position(self, embedding_t: torch.Tensor, position: torch.Tensor) -> torch.Tensor:
+        """One position per row, for incremental decode (`preprocessors.py:
+        57-63`): emb * sqrt(D) + pos_emb[position]; (B, D), (B,) -> (B, D)."""
+        x = embedding_t * (self.embedding_dim ** 0.5) + self.pos_emb[position.long()]
+        return x.to(self.compute_dtype)
+
 
 class LearnablePositionalEmbeddingRatedInputPreprocessor(nn.Module):
     """[item_emb, rating_emb] * sqrt(D + R) + pos_emb[:n], dropout in

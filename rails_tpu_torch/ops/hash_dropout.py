@@ -61,6 +61,13 @@ def wrap_i32(v: int) -> int:
     return v - (1 << 32) if v >= (1 << 31) else v
 
 
+def stream_offset(n: int) -> int:
+    """The int32 seed shift that moves a stream's flat index by `n`: the hash
+    starts from idx * 0x9E3779B1 + seed (mod 2^32), so idx + n under seed s
+    is idx under s + stream_offset(n)."""
+    return wrap_i32(n * _M1)
+
+
 def keep_threshold(rate: float) -> int:
     """min(int(rate * 2^31), 2^31 - 1), as `keep_from_idx` computes it."""
     return min(int(rate * 2.0 ** 31), 2 ** 31 - 1)

@@ -59,7 +59,7 @@ backward is the backward kernel. Kernel instances: (P_Q, P_X) in
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -70,6 +70,7 @@ from rails_tpu_torch.ops.hash_dropout import (
     PI_SALT,
     QI_SALT,
     hash_keep_global_reference,
+    stream_offset,
     keep_threshold,
     wrap_i32,
 )
@@ -109,13 +110,24 @@ def loss_mask(seed: int, salt: int, m: int, r: int, p_q: int, p_x: int, rate: fl
     return g[lprime(p_q, p_x).to(g.device), :m, :r].permute(1, 2, 0)
 
 
+def _rows_mask(seed: int, salt: int, m: int, r: int, p_q: int, p_x: int, rate: float,
+               device, rows: Optional[Tuple[int, int]]) -> torch.Tensor:
+    """`loss_mask` of the M rows, or with `rows` = (offset, total) rows
+    [offset, offset + M) of the stream over `total` rows: a data-parallel
+    rank's share of the global batch's."""
+    if rows is None:
+        return loss_mask(seed, salt, m, r, p_q, p_x, rate, device)
+    off, total = rows
+    return loss_mask(seed, salt, total, r, p_q, p_x, rate, device)[off : off + m]
+
+
 def _mlp_dtype(item_comp: torch.Tensor) -> torch.dtype:
     return torch.bfloat16 if item_comp.dtype == torch.bfloat16 else torch.float32
 
 
 def _forward_parts(q_comp, qp, item_comp, ip, w1, b1, w2, b2, seed: int, *, p_q: int,
                    p_x: int, temperature: float, qi_rate: float, pi_rate: float,
-                   eps: float) -> dict:
+                   eps: float, rows: Optional[Tuple[int, int]] = None) -> dict:
     """The forward's intermediates (`_forward_core`), with its rounding points."""
     mlp = _mlp_dtype(item_comp)
 
@@ -127,7 +139,8 @@ def _forward_parts(q_comp, qp, item_comp, ip, w1, b1, w2, b2, seed: int, *, p_q:
     dev = q_comp.device
     t = (torch.einsum("mnd,rxd->mrnx", q_comp.float(), item_comp.float()).reshape(m, r, l)
          * (1.0 / temperature))
-    qi_mask = loss_mask(seed, QI_SALT, m, r, p_q, p_x, qi_rate, dev) if qi_rate > 0.0 else None
+    qi_mask = (_rows_mask(seed, QI_SALT, m, r, p_q, p_x, qi_rate, dev, rows)
+               if qi_rate > 0.0 else None)
     t_in = rnd(t if qi_mask is None else t * qi_mask)
     # The qi MLP's input sums in the JAX kernel's m-major row order: through
     # the sharp softmax, f32 rounding of another order shows at 2e-4.
@@ -137,7 +150,8 @@ def _forward_parts(q_comp, qp, item_comp, ip, w1, b1, w2, b2, seed: int, *, p_q:
     h = rnd(F.silu(z))
     gi = qp.float()[:, None, :] * ip.float()[None, :, :] + (h @ w2r + b2.float())
     p = torch.softmax(F.silu(gi), dim=-1)
-    pi_mask = loss_mask(seed, PI_SALT, m, r, p_q, p_x, pi_rate, dev) if pi_rate > 0.0 else None
+    pi_mask = (_rows_mask(seed, PI_SALT, m, r, p_q, p_x, pi_rate, dev, rows)
+               if pi_rate > 0.0 else None)
     q_w = p if pi_mask is None else p * pi_mask
     s = (torch.ones(m, r, device=dev) if pi_mask is None
          else torch.clamp(q_w.sum(dim=-1), min=eps))
@@ -148,22 +162,26 @@ def _forward_parts(q_comp, qp, item_comp, ip, w1, b1, w2, b2, seed: int, *, p_q:
 def fused_mol_loss_forward_reference(
     q_comp, qp, item_comp, ip, w1, b1, w2, b2, seed: int, *, p_q: int, p_x: int,
     temperature: float, qi_rate: float, pi_rate: float, eps: float,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the forward: (M, R) f32 scores."""
     f = _forward_parts(q_comp, qp, item_comp, ip, w1, b1, w2, b2, seed, p_q=p_q, p_x=p_x,
-                       temperature=temperature, qi_rate=qi_rate, pi_rate=pi_rate, eps=eps)
+                       temperature=temperature, qi_rate=qi_rate, pi_rate=pi_rate, eps=eps,
+                       rows=rows)
     return (f["q_w"] * f["t"]).sum(dim=-1) / f["s"]
 
 
 def fused_mol_loss_backward_reference(
     q_comp, qp, item_comp, ip, w1, b1, w2, b2, seed: int, d_out, *, p_q: int, p_x: int,
     temperature: float, qi_rate: float, pi_rate: float, eps: float,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Plain version of the backward: the gradients of sum(out * d_out) with
     respect to the 8 array inputs, in their dtypes, as `_bwd_kernel`
     (:182-274) computes them."""
     f = _forward_parts(q_comp, qp, item_comp, ip, w1, b1, w2, b2, seed, p_q=p_q, p_x=p_x,
-                       temperature=temperature, qi_rate=qi_rate, pi_rate=pi_rate, eps=eps)
+                       temperature=temperature, qi_rate=qi_rate, pi_rate=pi_rate, eps=eps,
+                       rows=rows)
     rnd, t, p, gi, z = f["rnd"], f["t"], f["p"], f["gi"], f["z"]
     m, r, l = t.shape
     d_out = d_out.float()
@@ -267,13 +285,24 @@ def _kernel_layout(q_comp, qp, item_comp, ip, w1, b1, w2, b2, tc: bool) -> dict:
     return ops
 
 
-def _drop_args(seed: int, qi_rate: float, pi_rate: float) -> list:
+def _stream_extents(m: int, r: int, rows: Optional[Tuple[int, int]]) -> Tuple[int, int, int]:
+    """(M padded, R padded, seed shift) of the streams: a rank's rows
+    [offset, offset + M) of `rows` = (offset, total) index the global batch's
+    stream, whose padded M the kernel takes, and the seed carries the row
+    offset (the hash adds the seed to idx * M1, so idx + offset * R_pad is
+    the seed shifted by `stream_offset`)."""
+    off, total = (0, m) if rows is None else rows
+    mp, rp = padded_extents(total, r)
+    return mp, rp, stream_offset(off * rp)
+
+
+def _drop_args(seed: int, qi_rate: float, pi_rate: float, shift: int = 0) -> list:
     """The dropout arguments of both entry points: use, seed + salt, threshold
     and scale of the qi stream, then of the pi stream."""
     out = []
     for salt, rate in ((QI_SALT, qi_rate), (PI_SALT, pi_rate)):
         use = rate > 0.0
-        out += [int(use), wrap_i32(seed + salt) & 0xFFFFFFFF, keep_threshold(rate) if use else 0,
+        out += [int(use), wrap_i32(seed + salt + shift) & 0xFFFFFFFF, keep_threshold(rate) if use else 0,
                 1.0 / (1.0 - rate) if use else 1.0]
     return out
 
@@ -281,15 +310,16 @@ def _drop_args(seed: int, qi_rate: float, pi_rate: float) -> list:
 def fused_mol_loss_forward(
     q_comp, qp, item_comp, ip, w1, b1, w2, b2, seed: int, *, p_q: int, p_x: int,
     temperature: float, qi_rate: float, pi_rate: float, eps: float,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """The forward; same arguments as `fused_mol_loss_forward_reference`."""
     kw = dict(p_q=p_q, p_x=p_x, temperature=temperature, qi_rate=qi_rate, pi_rate=pi_rate,
-              eps=eps)
+              eps=eps, rows=rows)
     tensors = (q_comp, qp, item_comp, ip, w1, b1, w2, b2)
     if not use_kernel(*tensors):
         return fused_mol_loss_forward_reference(*tensors, seed, **kw)
     m, r, d_p, h, code, tc, lib = _prepare(*tensors, p_q, p_x, False, "fused_mol_loss_forward")
-    mp, rp = padded_extents(m, r)
+    mp, rp, shift = _stream_extents(m, r, rows)
     with torch.cuda.device(q_comp.device):
         ops = _kernel_layout(*tensors, tc)
         out = torch.empty(m, r, dtype=torch.float32, device=q_comp.device)
@@ -298,14 +328,14 @@ def fused_mol_loss_forward(
                 code, p_x, *(ops[k].data_ptr() for k in ("q", "qp", "item", "ip", "w1t", "b1",
                                                        "w2", "b2")),
                 out.data_ptr(), m, r, d_p, h, mp, rp, 1.0 / temperature, eps,
-                *_drop_args(seed, qi_rate, pi_rate), torch.cuda.current_stream().cuda_stream,
+                *_drop_args(seed, qi_rate, pi_rate, shift), torch.cuda.current_stream().cuda_stream,
             )
         else:
             err = lib.rails_mol_loss_fwd(
                 code, p_q, p_x, *(ops[k].data_ptr() for k in ("q", "qp", "item_t", "ip_t", "w1t",
                                                         "b1", "w2", "b2")),
                 out.data_ptr(), m, r, d_p, h, mp, rp, 1.0 / temperature, eps,
-                *_drop_args(seed, qi_rate, pi_rate), torch.cuda.current_stream().cuda_stream,
+                *_drop_args(seed, qi_rate, pi_rate, shift), torch.cuda.current_stream().cuda_stream,
             )
     _build.check(lib, err, "fused_mol_loss_forward")
     fused_mol_loss_forward.launches += 1
@@ -322,12 +352,13 @@ fused_mol_loss_forward.tc_launches = 0
 def fused_mol_loss_backward(
     q_comp, qp, item_comp, ip, w1, b1, w2, b2, seed: int, d_out, *, p_q: int, p_x: int,
     temperature: float, qi_rate: float, pi_rate: float, eps: float,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """The backward: gradients of sum(out * d_out) with respect to q_comp, qp,
     item_comp, ip, w1, b1, w2 and b2; same arguments as
     `fused_mol_loss_backward_reference`."""
     kw = dict(p_q=p_q, p_x=p_x, temperature=temperature, qi_rate=qi_rate, pi_rate=pi_rate,
-              eps=eps)
+              eps=eps, rows=rows)
     tensors = (q_comp, qp, item_comp, ip, w1, b1, w2, b2)
     if not use_kernel(*tensors, d_out):
         return fused_mol_loss_backward_reference(*tensors, seed, d_out, **kw)
@@ -336,7 +367,7 @@ def fused_mol_loss_backward(
         raise ValueError(f"fused_mol_loss_backward: d_out must be f32 {(m, r)}; got "
                          f"{d_out.dtype} {tuple(d_out.shape)}")
     l = p_q * p_x
-    mp, rp = padded_extents(m, r)
+    mp, rp, shift = _stream_extents(m, r, rows)
     dev = q_comp.device
     stride = 2 * h * l + h + l + r * l + r * p_x * d_p
     # One slot per persistent block: one block per SM, fewer when M is small.
@@ -350,7 +381,7 @@ def fused_mol_loss_backward(
         red = torch.empty(stride, dtype=torch.float32, device=dev)
         tail = (d_out.data_ptr(), dq.data_ptr(), dqp.data_ptr(), part.data_ptr(), red.data_ptr(),
                 nb, m, r, d_p, h, mp, rp, 1.0 / temperature, eps,
-                *_drop_args(seed, qi_rate, pi_rate), torch.cuda.current_stream().cuda_stream)
+                *_drop_args(seed, qi_rate, pi_rate, shift), torch.cuda.current_stream().cuda_stream)
         if tc:
             err = lib.rails_mol_loss_tc_bwd(
                 code, p_x, *(ops[k].data_ptr() for k in ("q", "qp", "item", "ip", "w1t", "b1",
@@ -395,9 +426,13 @@ class FusedMolLoss(torch.autograd.Function):
 def fused_mol_loss(
     q_comp, qp, item_comp, ip, w1, b1, w2, b2, seed: int, *, p_q: int, p_x: int,
     temperature: float, qi_rate: float, pi_rate: float, eps: float,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """`make_fused_mol_loss(p_q, p_x, temperature, pi_rate, qi_rate, eps)` applied
-    to (q_comp, qp, item_comp, ip, MoLKernelWeights(w1, b1, w2, b2), seed)."""
+    to (q_comp, qp, item_comp, ip, MoLKernelWeights(w1, b1, w2, b2), seed).
+    `rows` = (offset, total): the M rows are rows [offset, offset + M) of a
+    data-parallel global batch of `total` rows, and draw those rows' masks
+    of its streams."""
     kw = dict(p_q=p_q, p_x=p_x, temperature=temperature, qi_rate=qi_rate, pi_rate=pi_rate,
-              eps=eps)
+              eps=eps, rows=rows)
     return FusedMolLoss.apply(q_comp, qp, item_comp, ip, w1, b1, w2, b2, wrap_i32(seed), kw)

@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rails_tpu_torch.core.distributed import draw_rows
+
 # Standard deviation of the unit normal truncated to [-2, 2]
 # (flax `variance_scaling(..., "truncated_normal")`).
 _TRUNC_STD = 0.87962566103423978
@@ -76,8 +78,9 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) 
     if generator is None:
         raise ValueError("dropout in training needs a torch.Generator")
     keep_prob = 1.0 - rate
-    keep = torch.empty(x.shape, dtype=torch.bool, device=x.device).bernoulli_(
-        keep_prob, generator=generator)
+    # Under a data-parallel row shard: the global batch's mask, this rank's rows.
+    keep = draw_rows(lambda shape: torch.empty(shape, dtype=torch.bool, device=x.device)
+                     .bernoulli_(keep_prob, generator=generator), x.shape)
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -16,12 +16,19 @@ package leaves them to XLA.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
 from rails_tpu_torch.core.config import MoLConfig
+from rails_tpu_torch.core.distributed import (
+    global_sum,
+    global_sum_grad,
+    rank_share,
+    replicated_rows,
+)
 from rails_tpu_torch.similarity.layers import (
     GatingPartialMLP,
     ProjMLP,
@@ -46,13 +53,17 @@ def load_balancing_mi_loss(
         denom = b * x
         util = flat.sum(dim=0) / denom
         per_example_entropy = -torch.sum(flat * torch.log(flat + eps)) / denom
-    else:
-        w = weights.to(gating_prs.dtype)[:, None, None]
-        denom = torch.clamp(torch.sum(weights) * x, min=1e-12)
-        util = torch.sum(gating_prs * w, dim=(0, 1)) / denom
-        per_example_entropy = -torch.sum(gating_prs * torch.log(gating_prs + eps) * w) / denom
+        util_entropy = -torch.sum(util * torch.log(util + eps))
+        return -util_entropy + per_example_entropy
+    # A data-parallel rank's rows: the utilisation is the global batch's
+    # (summed, differentiably, over the ranks) and this rank adds its share
+    # of its entropy, and its rows' part of the per-example entropy.
+    w = weights.to(gating_prs.dtype)[:, None, None]
+    denom = torch.clamp(global_sum(torch.sum(weights)) * x, min=1e-12)
+    util = global_sum_grad(torch.sum(gating_prs * w, dim=(0, 1))) / denom
+    per_example_entropy = -torch.sum(gating_prs * torch.log(gating_prs + eps) * w) / denom
     util_entropy = -torch.sum(util * torch.log(util + eps))
-    return -util_entropy + per_example_entropy
+    return -util_entropy * rank_share() + per_example_entropy
 
 
 def _rows(partial: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -153,7 +164,8 @@ class MoLSimilarity(nn.Module):
                 if train:
                     sq = torch.sum(u * u, dim=-1)
                     l2 = sq.mean() if weights is None else (
-                        torch.sum(sq * weights) / torch.clamp(torch.sum(weights), min=1e-12))
+                        torch.sum(sq * weights)
+                        / torch.clamp(global_sum(torch.sum(weights)), min=1e-12))
                     aux["uid_embedding_l2_norm"] = aux.get("uid_embedding_l2_norm", 0.0) + l2
                 if train and c.uid_dropout_rate > 0.0:
                     if c.uid_embedding_level_dropout:
@@ -259,7 +271,12 @@ class MoLSimilarity(nn.Module):
         b_prime, x = item_embeddings.shape[0], item_embeddings.shape[1]
         q_comp, q_aux = self.query_components_aux(
             query_embeddings, user_ids, train, weights, generator)
-        i_comp = self.item_components(item_embeddings, train, generator)
+        # A shared corpus (1, X, D') is the same on every data-parallel rank.
+        def shared():
+            return replicated_rows() if b_prime == 1 else contextlib.nullcontext()
+
+        with shared():
+            i_comp = self.item_components(item_embeddings, train, generator)
         q_comp, i_comp = q_comp.to(dt), i_comp.to(dt)
         if b_prime == 1:
             logits = torch.einsum("bnd,xmd->bxnm", q_comp, i_comp[0])
@@ -267,7 +284,8 @@ class MoLSimilarity(nn.Module):
             logits = torch.einsum("bnd,bxmd->bxnm", q_comp, i_comp)
         logits = logits.reshape(b, x, c.num_logits) / c.temperature
         query_partial = _rows(self.query_gating_partial(query_embeddings, train, generator))
-        item_partial = self.item_gating_partial(item_embeddings, train, generator)
+        with shared():
+            item_partial = self.item_gating_partial(item_embeddings, train, generator)
         scores, gate_aux = self._combine(
             logits, query_partial, item_partial, train, weights, generator)
         return scores, {**gate_aux, **q_aux}

@@ -6,7 +6,8 @@ item embeddings l2-normalised with `item_l2_norm`, the IVF index of the
 `MoLIVFTopK{n}` spellings),
 `ranks_from_top_k` (:141-152), `metrics_from_ranks` (:155-172),
 `make_eval_step_fn` and `make_eval_step` (:192-262, `max_num_invalid` caps
-the seen ids k' makes room for) and `recall_vs_exact` (:531-574). A
+the seen ids k' makes room for), the item-sharded step
+`make_sharded_eval_step` (:265-339) and `recall_vs_exact` (:531-574). A
 DotProduct model serves through `MIPSBruteForceTopK`. The step is a plain Python
 function under `torch.inference_mode`: no jit and no CUDA graph yet.
 """
@@ -168,6 +169,43 @@ def make_eval_step(
     return step
 
 
+def make_sharded_eval_step(
+    model,
+    eval_state: EvalState,
+    mesh,
+    k: int,
+    seq_len: int,
+    filter_invalid_ids: bool = True,
+    truncate_k_prime_to: Optional[int] = None,
+    k_per_group: int = 50,
+    avg_top_k: int = 200,
+) -> Callable:
+    """The item-sharded eval step (`evaluation.py:265-339`): this rank keeps
+    its slab of the eval state (`pad_and_shard_state`), every rank encodes
+    the same batch, the per-shard top-k' lists merge over the item group
+    (`sharded.make_sharded_top_k_fn`), and the seen-id filter and the ranks
+    apply to the merged list, so fn(features, target_ids) -> (ranks, ids,
+    scores) has `make_eval_step`'s semantics on every rank. `seq_len`, the
+    padded history length, budgets k' once. The slab's tables are those of
+    the eval state as built."""
+    from rails_tpu_torch.index.sharded import make_sharded_top_k_fn, pad_and_shard_state
+
+    n0 = seq_len if filter_invalid_ids else 0
+    k_prime = k_prime_for(k, eval_state.num_objects, n0, truncate_k_prime_to)
+    sh_state = pad_and_shard_state(eval_state.topk_state, mesh)
+    topk = make_sharded_top_k_fn(eval_state.top_k_method, model, sh_state, mesh, k=k_prime,
+                                 k_per_group=k_per_group, avg_top_k=avg_top_k)
+
+    @torch.inference_mode()
+    def step(features: SequentialFeatures, target_ids: torch.Tensor):
+        res = topk(model.encode(features), user_ids=features.user_ids)
+        res = select_top_k_with_invalid_filter(
+            res, features.ids if filter_invalid_ids else None, min(k, res.ids.shape[1]))
+        return ranks_from_top_k(res.ids, target_ids), res.ids, res.scores
+
+    return step
+
+
 def recall_vs_exact(
     model,
     exact_state: EvalState,
@@ -175,14 +213,21 @@ def recall_vs_exact(
     batches,
     k: int = 200,
     filter_invalid_ids: bool = True,
+    exact_step: Optional[Callable] = None,
+    approx_step: Optional[Callable] = None,
 ) -> Dict[str, float]:
     """Recall of an approximate method against the exact top-1: the exact
     method's top-1 id becomes the target, and the approximate method's HR@k
     against it is its recall (`eval_from_checkpoint.py:427-449`). `batches`
-    yields objects with `.features` and `.target_ids`. (The JAX version's
-    step overrides and `num_examples` serve its sharded steps.)"""
-    exact_step = make_eval_step(model, exact_state, 1, filter_invalid_ids=filter_invalid_ids)
-    approx_step = make_eval_step(model, approx_state, k, filter_invalid_ids=filter_invalid_ids)
+    yields objects with `.features` and `.target_ids`. `exact_step` /
+    `approx_step` (fn(features, target_ids)) replace the unsharded steps,
+    e.g. with `make_sharded_eval_step`. (JAX's `num_examples`, which drops
+    the wrap-around tail rows, comes with the eval CLIs that pass it.)"""
+    if exact_step is None:
+        exact_step = make_eval_step(model, exact_state, 1, filter_invalid_ids=filter_invalid_ids)
+    if approx_step is None:
+        approx_step = make_eval_step(model, approx_state, k,
+                                     filter_invalid_ids=filter_invalid_ids)
     hits: Dict[int, List[torch.Tensor]] = {kk: [] for kk in HR_KS if kk <= k}
     for batch in batches:
         _, exact_ids, _ = exact_step(batch.features, batch.target_ids)

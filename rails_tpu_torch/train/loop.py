@@ -10,6 +10,18 @@ draws, per step, the HSTU blocks' dropout seed, the negatives and every
 other dropout. The step is a plain Python function: no jit, no CUDA graph.
 The losses are `SampledSoftmaxLoss`, `BCELoss` and `BCELossWithRatings`; the
 samplers the local and the in-batch one.
+
+Data parallelism (JAX: the same jitted step over a batch sharded on the
+mesh's `data` axis, `loop.py:7-10`): `make_train_step(..., mesh=mesh)` gives
+each rank its rows of the global batch under a `RowShard`, so the rank draws
+the global batch's negatives and dropout masks and keeps its rows, numbers
+the hash dropout streams by global row, and divides its loss terms by the
+global batch's weights; the gradients then sum over the batch group in one
+all-reduce of a flat buffer in parameter order, and K7 updates every rank's
+replica from the same sums, so the replicas stay bit-equal. The step equals
+the single-process step over the global batch up to the order of the sums.
+Every rank seeds its generator alike and starts from the same weights
+(`core.mesh.replicate`).
 """
 
 from __future__ import annotations
@@ -18,8 +30,10 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from rails_tpu_torch.core.config import ExperimentConfig
+from rails_tpu_torch.core.distributed import RowShard, row_shard
 from rails_tpu_torch.core.device import resolve_device
 from rails_tpu_torch.data.features import Batch, SequentialFeatures
 from rails_tpu_torch.losses.bce import bce_loss, bce_loss_with_ratings
@@ -79,13 +93,32 @@ def _make_sampler(cfg: ExperimentConfig, all_item_ids: np.ndarray, device):
     raise ValueError(f"Unknown sampling_strategy {t.sampling_strategy!r}")
 
 
+def _sum_over(tensors, group) -> list:
+    """The tensors (None kept) summed over `group` in one all-reduce of a
+    flat f32 buffer, in the given order."""
+    live = [t for t in tensors if t is not None]
+    flat = torch.cat([t.reshape(-1).float() for t in live])
+    dist.all_reduce(flat, group=group)
+    out, i = [], 0
+    for t in tensors:
+        if t is None:
+            out.append(None)
+            continue
+        out.append(flat[i : i + t.numel()].view(t.shape).to(t.dtype))
+        i += t.numel()
+    return out
+
+
 def make_train_step(
     cfg: ExperimentConfig, model: SequentialRecommender, optimizer: FusedAdamW,
-    sampler,
+    sampler, mesh=None,
 ) -> Callable:
     """fn(state, batch, generator) -> (state, metrics) with metrics
     {"loss", "loss_incl_aux", "aux/<name>"} as detached scalars. The
-    gradients stay in the parameters' `.grad` after the step."""
+    gradients stay in the parameters' `.grad` after the step. With a `mesh`,
+    `batch` is this rank's rows of the global batch (`core.mesh.shard_batch`
+    or its own epoch shard), the step data-parallel over the mesh's batch
+    axes, and the metrics the global batch's on every rank."""
     t = cfg.train
     if t.loss_module == "SampledSoftmaxLoss":
         def apply_loss(features, generator, seed0):
@@ -101,6 +134,11 @@ def make_train_step(
         raise ValueError(f"Unknown loss_module {t.loss_module!r}")
     loss_weights = dict(t.loss_weights)
     params = dict(model.named_parameters())
+    group = None
+    if mesh is not None:
+        from rails_tpu_torch.core.mesh import batch_group, batch_rank, batch_size
+
+        group, rank, ranks = batch_group(mesh), batch_rank(mesh), batch_size(mesh)
 
     def train_step(state: TrainState, batch: Batch, generator: torch.Generator
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -108,12 +146,27 @@ def make_train_step(
         seed0 = int(torch.randint(0, _INT32_MAX, (1,), generator=generator,
                                   device=generator.device).item())
         model.zero_grad(set_to_none=True)
-        main_loss, aux = apply_loss(features, generator, seed0)
-        total = get_weighted_loss(main_loss, aux, loss_weights)
-        total.backward()
-        optimizer.step({k: p.grad for k, p in params.items()})
+        shard = None
+        if group is not None:
+            b, n = (int(v) for v in features.ids.shape)
+            shard = RowShard(rank * b, b, ranks * b, group, (1, n - 1))
+        with row_shard(shard):
+            main_loss, aux = apply_loss(features, generator, seed0)
+            total = get_weighted_loss(main_loss, aux, loss_weights)
+            total.backward()
+        grads = {k: p.grad for k, p in params.items()}
         metrics = {"loss": main_loss.detach(), "loss_incl_aux": total.detach()}
         metrics.update({f"aux/{k}": v.detach() for k, v in aux.items()})
+        if shard is not None:
+            # The ranks' terms sum to the global batch's gradients and losses;
+            # `.grad` holds the sums, as after a single-process step.
+            for g, total_g in zip(grads.values(), _sum_over(list(grads.values()), group)):
+                if g is not None:
+                    g.copy_(total_g)
+            metrics = dict(zip(metrics, _sum_over(
+                [torch.as_tensor(v, device=main_loss.device).float() for v in metrics.values()],
+                group)))
+        optimizer.step(grads)
         return TrainState(state.model, state.optimizer, state.step + 1), metrics
 
     return train_step
@@ -126,11 +179,13 @@ def create_train_state(
     seed: Optional[int] = None,
     device: Optional[Union[str, torch.device]] = None,
     item_id_to_category_id: Optional[np.ndarray] = None,
+    mesh=None,
 ):
     """Returns (model, state, train_step, sampler) on `device`, the card
     unless the caller passes "cpu". Weights are drawn from `seed`
     (`cfg.train.random_seed` by default); `item_id_to_category_id` serves the
-    categorical embedding."""
+    categorical embedding. With a `mesh`, rank 0's weights are broadcast to
+    every rank and the step is data-parallel (`make_train_step`)."""
     device = resolve_device(device)
     seed = cfg.train.random_seed if seed is None else seed
     model = SequentialRecommender(
@@ -138,7 +193,11 @@ def create_train_state(
         generator=torch.Generator().manual_seed(seed),
         item_id_to_category_id=item_id_to_category_id,
     )
+    if mesh is not None:
+        from rails_tpu_torch.core.mesh import replicate
+
+        replicate(model, mesh)
     optimizer = make_optimizer(cfg, model)
     sampler = _make_sampler(cfg, all_item_ids, device)
     state = TrainState(model, optimizer, 0)
-    return model, state, make_train_step(cfg, model, optimizer, sampler), sampler
+    return model, state, make_train_step(cfg, model, optimizer, sampler, mesh), sampler

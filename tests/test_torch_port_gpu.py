@@ -1793,3 +1793,113 @@ def test_ivf_full_probe_equals_exact_fused_on_the_card(cuda):
     isolated[:, 1:] &= gap
     isolated[:, :-1] &= gap
     assert torch.equal(got.ids[isolated], exact.ids[isolated])
+
+
+# ---------------------------------------------------------------------------
+# The scale slice on one card: two gloo ranks share it, each joined with a
+# time limit (`core.distributed.run_ranks`).
+
+RANK_TIMEOUT = 300.0
+
+
+def _rank_model(device, mesh=None):
+    cfg = get_experiment_config("synthetic-small")
+    cfg = cfg.replace(hstu=cfg.hstu.replace(fused_train=True),
+                      train=cfg.train.replace(local_batch_size=16))
+    model, state, step, _ = create_train_state(cfg, 3000, np.arange(1, 3001, dtype=np.int32),
+                                               seed=0, device=device, mesh=mesh)
+    seqs = generate_synthetic_sequences(num_users=64, num_items=3000,
+                                        max_len=cfg.data.max_sequence_length + 2, seed=2)
+    batch = next(SequenceDataset(seqs, cfg.data.max_sequence_length, ignore_last_n=1).batches(
+        16, cfg.train.gr_output_length + 1, shuffle=False, device=device))
+    return cfg, model, state, step, batch
+
+
+def _serve(model, batch, device, mesh=None):
+    from rails_tpu_torch.index import top_k as tk
+    from rails_tpu_torch.index.sharded import make_sharded_top_k_fn, pad_and_shard_state
+
+    with torch.inference_mode():
+        ids = torch.arange(1, 3001, dtype=torch.int32, device=device)
+        state = tk.build_mol_topk_state(model, ids, model.get_item_embeddings(ids),
+                                        torch.bfloat16, build_fused=True, fused_only=True)
+        q = model.encode(batch.features)
+        if mesh is None:
+            return tk.mol_brute_force_top_k_fused(model, state, q, 50, batch.features.user_ids)
+        fn = make_sharded_top_k_fn("MoLBruteForceTopKFused", model,
+                                   pad_and_shard_state(state, mesh), mesh, k=50)
+        return fn(q, batch.features.user_ids)
+
+
+def _train(state, step, batch, device, steps=2):
+    gen = torch.Generator(device=device).manual_seed(0)
+    losses = []
+    for _ in range(steps):
+        state, m = step(state, batch, gen)
+        losses.append(m["loss"].item())
+    params = {k: p.detach().cpu() for k, p in state.model.named_parameters()}
+    return losses, params
+
+
+def gpu_rank(rank: int, world: int, store: str, out_dir: str, mode: str) -> None:
+    """One rank on the card: the sharded brute force or two data-parallel
+    steps of the synthetic-small model."""
+    import os
+
+    from rails_tpu_torch.core import distributed
+    from rails_tpu_torch.core.config import MeshConfig
+    from rails_tpu_torch.core.mesh import make_mesh, shard_batch
+
+    device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.initialize(f"file://{store}", world, rank, backend="gloo", device=device)
+    if mode == "serve":
+        mesh = make_mesh(MeshConfig(item_parallel=world))
+        _, model, _, _, batch = _rank_model(device)
+        res = _serve(model, batch, device, mesh)
+        out = (res.scores.float().cpu(), res.ids.cpu(), mol_scoring.fused_mol_scores_t.launches)
+    else:
+        mesh = make_mesh(MeshConfig(data_parallel=world, item_parallel=1))
+        _, _, state, step, batch = _rank_model(device, mesh)
+        out = _train(state, step, shard_batch(batch, mesh), device) + (
+            hstu_block_train.fused_train_block_forward.launches,)
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    distributed.shutdown()
+
+
+def _run_gpu_ranks(tmp_path, mode):
+    from rails_tpu_torch.core.distributed import run_ranks
+
+    run_ranks(gpu_rank, 2, (2, str(tmp_path / "store"), str(tmp_path), mode),
+              timeout=RANK_TIMEOUT)
+    return [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2)]
+
+
+def test_two_rank_sharded_brute_force_on_one_card(cuda, tmp_path):
+    """Two gloo ranks on the card serve a 3,000-item corpus split in two
+    through K2: both return the single-process path's list (a shard's
+    columns score as in the whole table), and each launched K2."""
+    _, model, _, _, batch = _rank_model(cuda)
+    want = _serve(model, batch, cuda)
+    outs = _run_gpu_ranks(tmp_path, "serve")
+    for scores, ids, launches in outs:
+        assert launches > 0
+        torch.testing.assert_close(scores, want.scores.float().cpu(), rtol=0, atol=0)
+        assert torch.equal(ids, want.ids.cpu())
+
+
+def test_two_rank_dp_step_on_one_card(cuda, tmp_path):
+    """Two data-parallel steps of two gloo ranks on the card (K3/K4 with
+    dropout, K7) == two single-process steps over the global batch of 16:
+    losses within relative 1e-5, parameters within 1e-5; the ranks'
+    parameters bit-equal."""
+    _, _, state, step, batch = _rank_model(cuda)
+    want_losses, want_params = _train(state, step, batch, cuda)
+    outs = _run_gpu_ranks(tmp_path, "train")
+    for losses, params, launches in outs:
+        assert launches > 0
+        np.testing.assert_allclose(losses, want_losses, rtol=1e-5)
+        for k, p in want_params.items():
+            torch.testing.assert_close(params[k], p, rtol=0, atol=1e-5)
+    for k, p in outs[0][1].items():
+        assert torch.equal(p, outs[1][1][k]), k

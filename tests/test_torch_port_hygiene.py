@@ -45,7 +45,8 @@ def test_port_imports_no_jax():
         for m in ("cli.encode_probe", "cli.mol_probe", "ops.encode_probe", "ops.mol_probe",
                   "models.sasrec", "similarity.dot_product", "losses.bce", "index.ivf",
                   "data.native", "data.preprocessor", "data.item_features", "data.tables",
-                  "cli.preprocess"):
+                  "cli.preprocess", "core.distributed", "core.mesh", "index.sharded",
+                  "similarity.lm_embeddings", "cli.shard_bench"):
             assert "rails_tpu_torch." + m in mods, mods
         print(len(mods))
         """
@@ -111,6 +112,79 @@ def test_probe_clis_import_nothing_of_the_jax_package(cli):
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
+
+
+def test_shard_bench_cli_imports_nothing_of_the_jax_package():
+    """The item-sharded serving CLI runs one rank on gloo over the CPU at a
+    tiny size, exact and IVF with the streamed check, with jax, flax and the
+    JAX package blocked."""
+    code = textwrap.dedent(
+        """
+        import sys
+        for name in ("jax", "flax", "rails_tpu"):
+            sys.modules[name] = None
+        from rails_tpu_torch.cli import shard_bench
+        from rails_tpu_torch.core import distributed
+        for method in ("MoLBruteForceTopKFused", "MoLIVFTopK8"):
+            out = shard_bench.main(["--device", "cpu", "--config", "synthetic-small",
+                                    "--num-items", "600", "--runs", "1", "--k", "20",
+                                    "--method", method, "--check-against-chunked"])
+            assert out["item_parallel"] == 1 and out["ms_per_batch"] > 0, out
+            assert out["metric"] == f"sharded_{method}_top20_qps", out
+            distributed.shutdown()
+        leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "jaxlib", "rails_tpu")
+                  and sys.modules[m] is not None]
+        assert not leaked, leaked
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=180,
+    )
+    assert out.returncode == 0, out.stderr
+
+
+RANK_HELPERS = {"chip_smoke.py": ("sharded_rank", "shard_model", "small_state", "dp_rank",
+                                  "dp_steps", "train_batch", "launch_counts", "reset_launches",
+                                  "kernel_counters", "k4_wrappers", "sync"),
+                "tests/torch_port_ranks.py": None}
+
+
+@pytest.mark.parametrize("path", sorted(RANK_HELPERS))
+def test_rank_functions_import_nothing_of_the_jax_package(path):
+    """What a spawned rank runs imports torch, numpy, the standard library
+    and the port only: chip_smoke.py's rank functions and what they call,
+    and the CPU tests' rank module as a whole."""
+    tree = ast.parse(open(os.path.join(REPO, path)).read())
+    wanted = RANK_HELPERS[path]
+    nodes = [tree] if wanted is None else [
+        n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name in wanted]
+    assert wanted is None or {n.name for n in nodes} == set(wanted)
+    roots = set()
+    for fn in nodes:
+        for node in ast.walk(fn):
+            if isinstance(node, ast.Import):
+                roots |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom):
+                roots.add((node.module or "").split(".")[0])
+    assert roots <= {"torch", "numpy", "os", "time", "typing", "__future__",
+                     "rails_tpu_torch"}, roots
+
+
+def test_distributed_entry_points_default_to_the_card(monkeypatch):
+    """A rank's device is cuda:{LOCAL_RANK} unless named, and joining a run
+    without naming a device goes to the card: on a CPU-only build it raises
+    rather than running on the CPU."""
+    from rails_tpu_torch.core import distributed
+
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    assert distributed.rank_device() == torch.device("cuda", 0)
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    assert distributed.rank_device() == torch.device("cuda", 3)
+    assert distributed.rank_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device is required"):
+        distributed.initialize()
+    assert not torch.distributed.is_initialized()
 
 
 @pytest.mark.parametrize("script", SCRIPTS)
