@@ -202,6 +202,15 @@ IVF and the data pipeline (no kernel of their own: plain torch and host code):
      bit-equal, K3-K7 launched; a planted fault (the hash streams number a
      rank's rows from 0) must fall outside the gradient limit. Several
      ranks on one card check correctness only.
+ 37. cli: the training and eval CLIs at ml-20m-hstu-mol's full width over
+     1,024 synthetic users and 26,744 items, every encode through K1:
+     `cli.train` one epoch and a resume from its checkpoint for a second,
+     `cli.eval` (MoLBruteForceTopKFused, latency, recall against the exact
+     method) building and saving the serving state, then loading it (equal
+     lines but for the timing columns), `cli.train_bench` at its defaults
+     and with `-fast`'s flags and `--pallas-scatter` (users/s, ms/step,
+     TFLOP/s, mfu_pct against the card's named peak), `cli.sweep` over the
+     synthetic menu; K1, K2, K4, K5, K6 and K7 must launch.
 The line before the last is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script fails before printing
 any result.
@@ -211,9 +220,11 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import io
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import time
@@ -3927,7 +3938,7 @@ def sharded_rank(rank: int, world: int, store: str, out_dir: str,
     are this rank's over the methods' runs."""
     import torch
 
-    from rails_tpu_torch.cli.frontier import timed_ms
+    from rails_tpu_torch.train.profiling import timed_ms
     from rails_tpu_torch.core import distributed
     from rails_tpu_torch.core.config import MeshConfig
     from rails_tpu_torch.core.mesh import make_mesh
@@ -3998,7 +4009,8 @@ def sharded_phase(device, name: str, smi: str) -> dict:
     their times say nothing of four cards' speed."""
     import torch
 
-    from rails_tpu_torch.cli.frontier import attach_ivf, timed_ms
+    from rails_tpu_torch.cli.frontier import attach_ivf
+    from rails_tpu_torch.train.profiling import timed_ms
     from rails_tpu_torch.core.distributed import run_ranks
     from rails_tpu_torch.index import top_k as tk
     from rails_tpu_torch.index.factory import get_top_k_raw
@@ -4244,6 +4256,111 @@ def dp_train_phase(device, name: str, smi: str) -> dict:
     return launches
 
 
+CLI_USERS = 1_024              # synthetic users of the [cli] phase: 8 steps of 128 an epoch
+CLI_SETS = ("data.dataset_name=synthetic", f"data.synthetic_num_users={CLI_USERS}",
+            f"data.synthetic_num_items={NUM_ITEMS}", "hstu.fused_inference=true")
+CLI_SWEEP_USERS = 512
+
+
+def cli_phase(name: str, smi: str) -> dict:
+    """[cli]: the port's training and eval CLIs on the card at
+    ml-20m-hstu-mol's full width (D=256, 16 blocks, MoL 8x4x128) over
+    CLI_USERS synthetic users and 26,744 items, every encode through K1
+    (`hstu.fused_inference=true`): `cli.train` one epoch (B=128, the
+    checkpoint, the JSONL log, one full eval), then a resume from its
+    checkpoint for a second epoch; `cli.eval` with MoLBruteForceTopKFused,
+    the latency and the recall against the exact method, once building and
+    saving the serving state and once loading it (the two CSV value lines
+    equal but for the two timing columns); `cli.train_bench` at its
+    defaults, then with `--shared-negatives --fused-mol-loss
+    --pallas-scatter` (the ml-20m-hstu-mol-fast step of `[train-fast]`);
+    `cli.sweep` over the synthetic menu and CLI_SWEEP_USERS users. Gates:
+    the resume's checkpoint continues the first (epoch 1, batch_id and step
+    two epochs' steps), finite metrics, equal lines, and K1, K2, K4, K5, K6
+    and K7 launched over the phase. The CLIs' own output goes to
+    build/cli/cli.log."""
+    import torch
+
+    from rails_tpu_torch.cli import eval as eval_cli
+    from rails_tpu_torch.cli import sweep, train, train_bench
+
+    work = Path("build") / "cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    sets = [a for kv in CLI_SETS for a in ("--set", kv)]
+    common = ["--config", "ml-20m-hstu-mol", *sets]
+    log = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    times = {}
+    with contextlib.redirect_stdout(log):
+        t = time.perf_counter()
+        first = train.main(common + ["--workdir", str(work), "--num-epochs", "1"])
+        (run_dir,) = [p for p in work.iterdir() if p.is_dir()]
+        ckpt0 = run_dir / "ckpts" / "ep0"
+        resumed = train.main(common + ["--workdir", str(work), "--num-epochs", "2",
+                                       "--restore-from-ckpt", str(ckpt0)])
+        times["train"] = time.perf_counter() - t
+        ckpt1 = run_dir / "ckpts" / "ep1"
+        t = time.perf_counter()
+        evals = [eval_cli.main(common + ["--ckpt", str(ckpt1), "--top-k-method",
+                                         "MoLBruteForceTopKFused", "--include-eval-time",
+                                         "--eval-against-brute-force", flag,
+                                         str(work / "serving_state")])
+                 for flag in ("--save-serving-state", "--load-serving-state")]
+        times["eval"] = time.perf_counter() - t
+        t = time.perf_counter()
+        bench = train_bench.main([])
+        bench_fast = train_bench.main(["--shared-negatives", "--fused-mol-loss",
+                                       "--pallas-scatter"])
+        times["train_bench"] = time.perf_counter() - t
+        t = time.perf_counter()
+        rows = sweep.main(common + ["--ckpt", str(ckpt1), "--menu", "synthetic",
+                                    "--limit-users", str(CLI_SWEEP_USERS)])
+        times["sweep"] = time.perf_counter() - t
+    phase_s = time.perf_counter() - t0
+    counts = launch_counts()
+    (work / "cli.log").write_text(log.getvalue())
+    payload = torch.load(ckpt1, map_location="cpu", weights_only=True)
+    records = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    print(f"[cli] train: ml-20m-hstu-mol, {CLI_USERS:,} synthetic users, B=128: epoch 0 "
+          f"hr@10 {first.final_metrics['hr@10']:.4f} hr@50 {first.final_metrics['hr@50']:.4f}; "
+          f"resumed from ep0 for epoch 1: hr@10 {resumed.final_metrics['hr@10']:.4f} hr@50 "
+          f"{resumed.final_metrics['hr@50']:.4f}; ep1 epoch {payload['epoch']}, batch_id "
+          f"{payload['batch_id']}, step {payload['step']}; {len(records)} JSONL records; "
+          f"{times['train']:.1f} s")
+    header, saved = evals[0]
+    loaded = evals[1][1]
+    print(f"[cli] eval (built, saved / loaded serving state), {times['eval']:.1f} s:")
+    print(f"[cli]   {header}")
+    print(f"[cli]   {saved}")
+    print(f"[cli]   {loaded}")
+    print(f"[cli] train_bench: {json.dumps(bench)}")
+    print(f"[cli] train_bench --shared-negatives --fused-mol-loss --pallas-scatter: "
+          f"{json.dumps(bench_fast)}")
+    print(f"[cli] sweep ({len(rows)} methods, {CLI_SWEEP_USERS} users, {times['sweep']:.1f} s): "
+          + "; ".join(f"{r['algorithm']} hr@10 {r['hr@10']:.4f} recall@10 "
+                      f"{r.get('recall@10', 1.0):.4f} {r['EvalTimeAvgMs']:.3f} ms"
+                      for r in rows))
+    need = ("K1", "K2", "K4 fwd", "K4 bwd", "K5 fwd", "K5 bwd", "K6", "K7")
+    print(f"[cli] launches over the phase: {({k: counts[k] for k in need + ('K2-tc',)})}; "
+          f"phase {phase_s:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in times.items())}) "
+          f"on {name} ({smi})")
+    steps = 2 * (CLI_USERS // TRAIN_BATCH)
+    if (payload["epoch"], payload["batch_id"], payload["step"]) != (1, steps, steps):
+        raise AssertionError("[cli] the resumed run does not continue the first one")
+    finite = [first.final_metrics["hr@10"], resumed.final_metrics["mrr"], bench["value"],
+              bench_fast["value"]]
+    finite += [float(v) for v in saved.split(",")] + [r["hr@10"] for r in rows]
+    if not all(np.isfinite(finite)):
+        raise AssertionError("[cli] a metric is not finite")
+    if saved.split(",")[:-2] != loaded.split(",")[:-2]:
+        raise AssertionError("[cli] the loaded serving state evaluates otherwise than the built")
+    if any(not counts[k] for k in need):
+        raise AssertionError(f"[cli] kernels not launched on the CLIs' paths: {counts}")
+    return counts
+
+
 def main() -> None:
     import torch
 
@@ -4432,6 +4549,9 @@ def main() -> None:
     shard_bench_phase(name, smi)
     torch.cuda.empty_cache()
     dp_train_phase(device, name, smi)
+    torch.cuda.empty_cache()
+    # The training driver and the CLIs (train, resume, eval, train_bench, sweep).
+    cli_phase(name, smi)
 
     def entry(name_, source, replaces, key, measured, counts=launches):
         # The MUFU term of a bound is an operations term.

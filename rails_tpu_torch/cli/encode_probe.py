@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import time
 from typing import Callable
 
 import numpy as np
@@ -43,31 +42,10 @@ import torch
 from rails_tpu_torch.core.device import resolve_device
 from rails_tpu_torch.ops.encode_probe import MODES, encode_probe_block
 from rails_tpu_torch.ops.hstu_block import fused_hstu_block
+from rails_tpu_torch.train.profiling import timed_ms
 
 # ML-20M HSTU geometry (core/config.py, ml-20m-hstu-mol).
 D, H, DQK, DV = 256, 8, 32, 32
-
-
-def best_ms(fn: Callable[[], object], repeats: int, device: torch.device) -> float:
-    """Best ms of `repeats` calls of fn after one warm-up call: CUDA events on
-    the card, the host clock on the CPU."""
-    fn()
-    best = float("inf")
-    for _ in range(repeats):
-        if device.type == "cuda":
-            start, end = (torch.cuda.Event(enable_timing=True),
-                          torch.cuda.Event(enable_timing=True))
-            torch.cuda.synchronize(device)
-            start.record()
-            fn()
-            end.record()
-            torch.cuda.synchronize(device)
-            best = min(best, start.elapsed_time(end))
-        else:
-            t0 = time.perf_counter()
-            fn()
-            best = min(best, 1e3 * (time.perf_counter() - t0))
-    return best
 
 
 def probe_data(b: int, n: int, blocks: int, rng: np.random.Generator, device) -> dict:
@@ -141,8 +119,8 @@ def main(argv=None) -> dict:
         for mode in args.modes.split(","):
             run_block = block_fn(mode, n)
             calls = iter(range(1, 1 << 30))
-            ms = best_ms(lambda: chain(run_block, data, blocks, args.runs, next(calls)), 3,
-                         device) / args.runs
+            ms = timed_ms(lambda: chain(run_block, data, blocks, args.runs, next(calls)), 1,
+                          device, repeats=3) / args.runs
             row[mode] = round(ms, 3)
             print(f"n={n} mode={mode}: {ms:.3f} ms per {blocks}-block encode (B={b})",
                   flush=True)

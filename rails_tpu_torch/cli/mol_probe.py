@@ -38,10 +38,10 @@ import json
 import numpy as np
 import torch
 
-from rails_tpu_torch.cli.encode_probe import best_ms
 from rails_tpu_torch.core.device import resolve_device
 from rails_tpu_torch.index.top_k import hierarchical_top_k
 from rails_tpu_torch.ops.mol_probe import mol_probe_scores, probe_operands
+from rails_tpu_torch.train.profiling import timed_ms
 
 # ML-20M MoL geometry (core/config.py): 8x4x128, H=128, L=32.
 P_Q, P_X, D_P, HDIM = 8, 4, 128, 128
@@ -85,7 +85,7 @@ def time_modes(ops: tuple, modes, runs: int, device) -> dict:
                 carry = s[:, :1].sum()
             return carry
 
-        ms = best_ms(chain, 3, device) / runs
+        ms = timed_ms(chain, 1, device, repeats=3) / runs
         results[mode] = round(ms, 2)
         print(f"mode={mode}: {ms:.2f} ms/batch ({ms / (x / 1e6):.2f} ms per M items, "
               f"B={b})", flush=True)
@@ -101,7 +101,7 @@ def time_select(scores: torch.Tensor, k: int, runs: int, device) -> float:
             carry = v[:, :1].sum()
         return carry
 
-    return best_ms(select, 3, device) / runs
+    return timed_ms(select, 1, device, repeats=3) / runs
 
 
 def main(argv=None) -> dict:

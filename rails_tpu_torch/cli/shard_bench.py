@@ -58,6 +58,7 @@ from rails_tpu_torch.index.sharded import (
 )
 from rails_tpu_torch.similarity.mol import MoLItemTables
 from rails_tpu_torch.train.loop import create_train_state
+from rails_tpu_torch.train.profiling import timed_ms
 
 log = logging.getLogger("rails_tpu_torch.shard_bench")
 
@@ -198,7 +199,7 @@ def main(argv=None) -> Optional[dict]:
         sync()
         if args.check_against_chunked:
             _check(model, None if is_slab else state, q, user_ids, res, args, device)
-        ms = frontier.timed_ms(lambda: topk(q, user_ids=user_ids), args.runs, device)
+        ms = timed_ms(lambda: topk(q, user_ids=user_ids), args.runs, device)
     summary = {
         "metric": f"sharded_{args.method}_top{args.k}_qps",
         "mode": "replicated" if args.replicated else "sharded",

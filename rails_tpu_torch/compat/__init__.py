@@ -1,1 +1,2 @@
-"""Weight conversion from the JAX package."""
+"""Configs and weights from elsewhere: the JAX package's weights (`from_jax`) and
+the reference's gin bindings (`gin_import`)."""

@@ -235,15 +235,17 @@ class TrainConfig(_Base):
     full_eval_every_n: int = 1
     partial_eval_num_iters: int = 32
     save_ckpt_every_n: int = 1000
-    # One-pass Pallas AdamW for large embedding tables — exact optax.adamw
-    # math (parity-tested), ~3x less optimizer HBM time at Books scale.
-    # Changes the optimizer-state pytree layout (checkpoints are not
-    # interchangeable across this flag).
+    # One fused AdamW pass (K7, one launch a step) over the large leaves,
+    # optax.adamw's math: 0.0963 ms for ML-20M's two fused leaves on an
+    # NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6). The optimizer
+    # state keeps one layout under both settings, so checkpoints restore
+    # across this flag.
     fused_optimizer: bool = True
-    # Binned Pallas scatter-add for the item-table gradient (the backward
-    # of every `table[ids]` gather). Same dense cotangent, fp32-exact;
-    # replaces XLA's serialized per-row scatter (~6 ms/step at Books
-    # scale). Opt-in pending on-chip in-situ measurement.
+    # Binned scatter-add (K6) for the item-table gradient (the backward of
+    # every `table[ids]` gather), the same dense gradient in f32; off, the
+    # gradient goes through torch's indexing backward. Opt-in: at Books
+    # scale K6 takes 0.1637 ms to `index_add_`'s 0.0738 on an NVIDIA H100
+    # 80GB HBM3 at 700 W (PERF.md section 6).
     pallas_scatter_grad: bool = False
     # Precision.
     main_module_bf16: bool = False
@@ -370,8 +372,8 @@ def _ml_20m_hstu_mol() -> ExperimentConfig:
             linear_dropout_rate=0.2,
             # Default-on after the 60-epoch fused-vs-XLA convergence A/B at
             # this exact geometry (dropout 0.2, clustered synthetic) showed
-            # the fused kernels in-band at every full-eval point while
-            # training 1.95x faster (docs/STATUS.md round-3).
+            # the fused kernels in-band at every full-eval point
+            # (docs/STATUS.md round-3).
             fused_train=True,
         ),
         data=DataConfig(dataset_name="ml-20m", max_sequence_length=200),
@@ -502,15 +504,16 @@ def _dot_product_variant(
 
 
 def _fast_variant(base: ExperimentConfig) -> ExperimentConfig:
-    """Measured TPU-throughput stack on top of a published MoL config:
-    shared negatives (ONE R-set per batch instead of per position — quality
-    parity A/B'd in docs/STATUS.md, estimator change flagged in
-    `losses/sampled_softmax.py`) + the fused Pallas MoL-loss kernel
-    (`ops/pallas/mol_loss_train.py`). Measured v5e step speedups vs the same
-    config without the stack: amzn-books 1.9x, ml-20m 1.3x (on top of
-    fused_train where enabled). The plain config keeps the reference's
-    per-position estimator semantics; pick `-fast` for throughput-bound
-    training."""
+    """The throughput stack on top of a published MoL config: shared
+    negatives (ONE R-set per batch instead of per position — quality parity
+    A/B'd in docs/STATUS.md, estimator change flagged in
+    `losses/sampled_softmax.py`) + the fused MoL-loss kernel (K5,
+    `ops/mol_loss_train.py`). On an NVIDIA H100 80GB HBM3 at 700 W,
+    `cli.train_bench` (B=128) steps ml-20m-hstu-mol-fast with
+    `pallas_scatter_grad` in 125.6 ms against ml-20m-hstu-mol's 368.0 in one
+    run, and in 147.2 ms in another: the `-fast` step is host-bound (PERF.md
+    section 5). The plain config keeps the reference's per-position
+    estimator semantics; pick `-fast` for throughput-bound training."""
     return base.replace(
         name=base.name + "-fast",
         train=base.train.replace(shared_negatives=True, fused_mol_loss=True),

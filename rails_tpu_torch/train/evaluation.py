@@ -5,22 +5,27 @@ Counterpart of `rails_tpu/train/evaluation.py`: `EvalState` and
 item embeddings l2-normalised with `item_l2_norm`, the IVF index of the
 `MoLIVFTopK{n}` spellings),
 `ranks_from_top_k` (:141-152), `metrics_from_ranks` (:155-172),
-`make_eval_step_fn` and `make_eval_step` (:192-262, `max_num_invalid` caps
-the seen ids k' makes room for), the item-sharded step
-`make_sharded_eval_step` (:265-339) and `recall_vs_exact` (:531-574). A
-DotProduct model serves through `MIPSBruteForceTopK`. The step is a plain Python
-function under `torch.inference_mode`: no jit and no CUDA graph yet.
+`add_rating_filtered_metrics` (:175-189), `make_eval_step_fn` and
+`make_eval_step` (:192-262, `max_num_invalid` caps the seen ids k' makes
+room for), the item-sharded step `make_sharded_eval_step` (:265-339),
+`LatencyStats` (:343-347), the eval harness `eval_metrics_from_batches`
+(:403-520), `summarize_metrics` (:523-528) and `recall_vs_exact`
+(:531-574). A DotProduct model serves through `MIPSBruteForceTopK`. The step
+is a plain Python function under `torch.inference_mode`: no jit and no CUDA
+graph yet. The JAX step's `params` argument goes everywhere: the weights
+live in the model.
 """
 
 from __future__ import annotations
 
 import re
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from rails_tpu_torch.core.distributed import all_reduce_mean_metrics
 from rails_tpu_torch.core.device import resolve_device
 from rails_tpu_torch.data.features import SequentialFeatures
 from rails_tpu_torch.index.candidate_index import k_prime_for, select_top_k_with_invalid_filter
@@ -29,6 +34,7 @@ from rails_tpu_torch.index.ivf import build_ivf_index
 from rails_tpu_torch.index.top_k import MoLTopKState, build_mol_topk_state
 from rails_tpu_torch.losses.samplers import maybe_l2_norm
 from rails_tpu_torch.similarity.mol import MoLItemTables
+from rails_tpu_torch.train.profiling import Timer
 
 NDCG_KS = (1, 5, 10, 50, 100, 200)
 HR_KS = (1, 5, 10, 50, 100, 200, 500, 1000)
@@ -113,6 +119,22 @@ def metrics_from_ranks(ranks: torch.Tensor) -> Dict[str, torch.Tensor]:
         out[f"hr@{kk}"] = (ranks <= kk).float()
     out["mrr"] = 1.0 / ranks_f
     return out
+
+
+def add_rating_filtered_metrics(
+    out: Dict[str, np.ndarray],
+    ranks: np.ndarray,
+    target_ratings: np.ndarray,
+    min_positive_rating: int = 4,
+) -> None:
+    """The metrics over the examples whose target is rated at least
+    `min_positive_rating`, added to `out` (`data/eval.py:249-264`)."""
+    sel = target_ratings >= min_positive_rating
+    r = ranks[sel].astype(np.float64)
+    out[f"ndcg@10_>={min_positive_rating}"] = np.where(r <= 10, 1.0 / np.log2(r + 1.0), 0.0)
+    out[f"hr@10_>={min_positive_rating}"] = (r <= 10).astype(np.float64)
+    out[f"hr@50_>={min_positive_rating}"] = (r <= 50).astype(np.float64)
+    out[f"mrr_>={min_positive_rating}"] = 1.0 / r
 
 
 def make_eval_step_fn(
@@ -206,6 +228,98 @@ def make_sharded_eval_step(
     return step
 
 
+@dataclass
+class LatencyStats:
+    mean_ms: float
+    std_ms: float
+    num_measurements: int
+
+
+def _valid_rows(b: int, seen: int, num_examples: Optional[int]) -> int:
+    """How many of a batch's b rows are new examples: the wrap-around tail
+    batch of `SequenceDataset.batches(drop_last=False)` repeats earlier
+    rows past `num_examples`."""
+    return b if num_examples is None else max(0, min(b, num_examples - seen))
+
+
+def eval_metrics_from_batches(
+    model,
+    eval_state: EvalState,
+    batches,
+    k: int = 200,
+    filter_invalid_ids: bool = True,
+    include_eval_time: bool = False,
+    truncate_k_prime_to: Optional[int] = None,
+    warmup_runs: int = 3,
+    timed_runs: int = 20,
+    timing_fraction: float = 0.1,
+    seed: int = 0,
+    step_fn: Optional[Callable] = None,
+    num_examples: Optional[int] = None,
+    step: Optional[Callable] = None,
+) -> Tuple[Dict[str, np.ndarray], Optional[LatencyStats]]:
+    """Per-example metrics over every batch (objects with `.features`,
+    `.target_ids` and `.target_ratings`), and with `include_eval_time` the
+    step's latency (`data/eval.py:128-170`): k is capped at 120 and k'
+    truncated to 200, each batch is timed with probability
+    `timing_fraction` (drawn from `np.random.default_rng(seed)`), and a
+    timed batch gets `warmup_runs` calls, then `timed_runs` calls between
+    CUDA events (the host clock on the CPU); the latency is the mean over
+    the timed batches of their time per call.
+
+    `step_fn` (from `make_eval_step_fn`) reuses one step across corpus
+    re-embeddings; `step`, a bound fn(features, target_ids) such as
+    `make_sharded_eval_step`'s, replaces the step altogether.
+    `num_examples` is the number of real examples when the tail batch wraps
+    around; the repeated rows are dropped so that every user counts once."""
+    if include_eval_time:
+        k = min(k, 120)
+        truncate_k_prime_to = 200 if truncate_k_prime_to is None else truncate_k_prime_to
+    k = min(k, eval_state.num_objects)
+    if step is None and step_fn is not None:
+        def step(features, target_ids):
+            return step_fn(eval_state.topk_state, features, target_ids,
+                           eval_state.item_embeddings)
+    elif step is None:
+        step = make_eval_step(model, eval_state, k, filter_invalid_ids=filter_invalid_ids,
+                              truncate_k_prime_to=truncate_k_prime_to)
+    rng = np.random.default_rng(seed)
+    all_metrics: Dict[str, List[np.ndarray]] = {}
+    times: List[float] = []
+    seen = 0
+    for batch in batches:
+        feats, target_ids = batch.features, batch.target_ids
+        if include_eval_time and rng.random() < timing_fraction:
+            for _ in range(warmup_runs):
+                step(feats, target_ids)
+            with Timer(target_ids.device) as timer:
+                for _ in range(timed_runs):
+                    step(feats, target_ids)
+            times.append(timer.ms / timed_runs)
+        ranks = step(feats, target_ids)[0]
+        valid = _valid_rows(int(ranks.shape[0]), seen, num_examples)
+        seen += int(ranks.shape[0])
+        if valid == 0:
+            continue
+        m = {kk: v[:valid].cpu().numpy() for kk, v in metrics_from_ranks(ranks).items()}
+        add_rating_filtered_metrics(m, ranks[:valid].cpu().numpy(),
+                                    batch.target_ratings[:valid].cpu().numpy())
+        for kk, v in m.items():
+            all_metrics.setdefault(kk, []).append(v)
+    out = {kk: np.concatenate(v) for kk, v in all_metrics.items()}
+    lat = None
+    if times:
+        lat = LatencyStats(mean_ms=float(np.mean(times)), std_ms=float(np.std(times)),
+                           num_measurements=len(times))
+    return out, lat
+
+
+def summarize_metrics(metrics: Dict[str, np.ndarray]) -> Dict[str, float]:
+    """Mean over the examples of every process: the [sum, count] pairs
+    all-reduce across the run's processes (`_avg`, `data/eval.py:271-275`)."""
+    return all_reduce_mean_metrics(metrics)
+
+
 def recall_vs_exact(
     model,
     exact_state: EvalState,
@@ -215,23 +329,27 @@ def recall_vs_exact(
     filter_invalid_ids: bool = True,
     exact_step: Optional[Callable] = None,
     approx_step: Optional[Callable] = None,
+    num_examples: Optional[int] = None,
 ) -> Dict[str, float]:
     """Recall of an approximate method against the exact top-1: the exact
     method's top-1 id becomes the target, and the approximate method's HR@k
     against it is its recall (`eval_from_checkpoint.py:427-449`). `batches`
     yields objects with `.features` and `.target_ids`. `exact_step` /
     `approx_step` (fn(features, target_ids)) replace the unsharded steps,
-    e.g. with `make_sharded_eval_step`. (JAX's `num_examples`, which drops
-    the wrap-around tail rows, comes with the eval CLIs that pass it.)"""
+    e.g. with `make_sharded_eval_step`; `num_examples` drops the
+    wrap-around tail rows, as in `eval_metrics_from_batches`."""
     if exact_step is None:
         exact_step = make_eval_step(model, exact_state, 1, filter_invalid_ids=filter_invalid_ids)
     if approx_step is None:
         approx_step = make_eval_step(model, approx_state, k,
                                      filter_invalid_ids=filter_invalid_ids)
     hits: Dict[int, List[torch.Tensor]] = {kk: [] for kk in HR_KS if kk <= k}
+    seen = 0
     for batch in batches:
         _, exact_ids, _ = exact_step(batch.features, batch.target_ids)
         ranks, _, _ = approx_step(batch.features, exact_ids[:, 0])
+        valid = _valid_rows(int(ranks.shape[0]), seen, num_examples)
+        seen += int(ranks.shape[0])
         for kk in hits:
-            hits[kk].append((ranks <= kk).cpu())
+            hits[kk].append((ranks[:valid] <= kk).cpu())
     return {f"recall@{kk}": torch.cat(v).float().mean().item() for kk, v in hits.items()}

@@ -46,7 +46,10 @@ def test_port_imports_no_jax():
                   "models.sasrec", "similarity.dot_product", "losses.bce", "index.ivf",
                   "data.native", "data.preprocessor", "data.item_features", "data.tables",
                   "cli.preprocess", "core.distributed", "core.mesh", "index.sharded",
-                  "similarity.lm_embeddings", "cli.shard_bench"):
+                  "similarity.lm_embeddings", "cli.shard_bench", "cli.train", "cli.eval",
+                  "cli.sweep", "cli.train_bench", "train.driver", "train.checkpoint",
+                  "train.metrics", "train.profiling", "index.serving_state",
+                  "compat.gin_import"):
             assert "rails_tpu_torch." + m in mods, mods
         print(len(mods))
         """
@@ -143,6 +146,67 @@ def test_shard_bench_cli_imports_nothing_of_the_jax_package():
     assert out.returncode == 0, out.stderr
 
 
+CLI_TINY = ["--set", "data.synthetic_num_users=48", "--set", "data.synthetic_num_items=120",
+            "--set", "train.local_batch_size=16", "--set", "train.eval_batch_size=16",
+            "--set", "train.num_negatives=8"]
+
+
+def test_training_and_eval_clis_import_nothing_of_the_jax_package(tmp_path):
+    """The train, eval, sweep and train_bench CLIs run on the CPU at a tiny
+    size, a checkpoint and a serving state between them, with jax, flax,
+    orbax and the JAX package blocked (and TensorBoard, whose import pulls
+    in TensorFlow: the JSONL log is written all the same)."""
+    code = textwrap.dedent(
+        f"""
+        import os, sys
+        for name in ("jax", "flax", "orbax", "rails_tpu", "torch.utils.tensorboard"):
+            sys.modules[name] = None
+        from rails_tpu_torch.cli import eval, sweep, train, train_bench
+        tiny = {CLI_TINY!r} + ["--device", "cpu", "--config", "synthetic-small"]
+        work = {str(tmp_path)!r}
+        train.main(tiny + ["--workdir", work, "--num-epochs", "1"])
+        (run,) = os.listdir(work)
+        ckpt = os.path.join(work, run, "ckpts", "ep0")
+        assert os.path.getsize(os.path.join(work, run, "metrics.jsonl"))
+        ss = os.path.join(work, "ss")
+        first = eval.main(tiny + ["--ckpt", ckpt, "--top-k-method", "MoLBruteForceTopKFused",
+                                  "--eval-against-brute-force", "--save-serving-state", ss])
+        assert first == eval.main(tiny + ["--ckpt", ckpt, "--top-k-method",
+                                          "MoLBruteForceTopKFused", "--eval-against-brute-force",
+                                          "--load-serving-state", ss])
+        rows = sweep.main(tiny + ["--ckpt", ckpt, "--limit-users", "16", "--no-eval-time"])
+        assert len(rows) >= 4
+        rec = train_bench.main(["--config", "synthetic-small", "--batch-size", "8",
+                                "--num-items", "100", "--runs", "1", "--device", "cpu"])
+        assert rec["mfu_pct"] is None
+        leaked = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "flax", "jaxlib", "orbax", "rails_tpu")
+                  and sys.modules[m] is not None]
+        assert not leaked, leaked
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=240,
+    )
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("cli", ["train", "eval", "sweep", "train_bench"])
+def test_training_and_eval_clis_default_to_the_card(cli, monkeypatch, tmp_path):
+    """Without `--device` each CLI goes to the card: on a build without CUDA
+    it raises instead of running on the CPU."""
+    import importlib
+
+    module = importlib.import_module(f"rails_tpu_torch.cli.{cli}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = (["--config", "synthetic-small", "--num-items", "100", "--runs", "1"]
+            if cli == "train_bench" else ["--config", "synthetic-small"] + CLI_TINY)
+    if cli == "train":
+        argv += ["--workdir", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="CUDA device is required"):
+        module.main(argv)
+
+
 RANK_HELPERS = {"chip_smoke.py": ("sharded_rank", "shard_model", "small_state", "dp_rank",
                                   "dp_steps", "train_batch", "launch_counts", "reset_launches",
                                   "kernel_counters", "k4_wrappers", "sync"),
@@ -166,7 +230,7 @@ def test_rank_functions_import_nothing_of_the_jax_package(path):
                 roots |= {a.name.split(".")[0] for a in node.names}
             elif isinstance(node, ast.ImportFrom):
                 roots.add((node.module or "").split(".")[0])
-    assert roots <= {"torch", "numpy", "os", "time", "typing", "__future__",
+    assert roots <= {"torch", "numpy", "os", "sys", "time", "typing", "__future__",
                      "rails_tpu_torch"}, roots
 
 
@@ -431,9 +495,10 @@ def test_unported_training_options_raise(change, monkeypatch):
 def test_no_refusal_names_a_ported_queue_item():
     """No NotImplementedError of the package names a Queue 1 item that is
     ported (`losses`, `SASRec`, `preprocessors, embeddings and
-    similarities`, `IVF`)."""
+    similarities`, `IVF`, `the training CLI`)."""
     ported = ("Queue 1: losses", "Queue 1: SASRec",
-              "Queue 1: preprocessors, embeddings and similarities", "Queue 1: IVF")
+              "Queue 1: preprocessors, embeddings and similarities", "Queue 1: IVF",
+              "Queue 1: the training CLI")
     hits = []
     for path in glob.glob(os.path.join(REPO, "rails_tpu_torch", "**", "*.py"), recursive=True):
         text = open(path).read()

@@ -10,6 +10,7 @@ only (the hygiene test holds it to that): JAX runs in the test process.
 from __future__ import annotations
 
 import os
+import sys
 from typing import Dict
 
 import numpy as np
@@ -177,6 +178,44 @@ def shard_bench_rank(rank: int, world: int, store: str, out_dir: str, argv) -> N
 
     init(rank, world, store)
     save(out_dir, rank, {"summary": shard_bench.main(list(argv))})
+    distributed.shutdown()
+
+
+@torch.inference_mode()
+def eval_cli_rank(rank: int, world: int, store: str, payload_path: str, out_dir: str) -> None:
+    """`cli/eval.py`'s main with `--item-parallel` as this rank of a gloo
+    group (its CSV lines, None off rank 0); then a serving state saved by
+    the test, loaded with `host=True` and sharded by `pad_and_shard_state`:
+    this rank's slab's element count and the merged top-k; then
+    `cli/train.py`'s main with `--distributed`, data-parallel over the
+    group: its final metrics and weights."""
+    from rails_tpu_torch.cli import eval as eval_cli
+    from rails_tpu_torch.index.serving_state import load_serving_state
+    from rails_tpu_torch.index.sharded import make_sharded_top_k_fn, pad_and_shard_state
+    from rails_tpu_torch.train.loop import create_train_state
+
+    init(rank, world, store)
+    p = torch.load(payload_path, weights_only=False)
+    out = {"lines": eval_cli.main(list(p["argv"]))}
+    cfg, n = p["cfg"], p["num_items"]
+    model = create_train_state(cfg, n, np.arange(1, n + 1, dtype=np.int32), device="cpu")[0]
+    es = load_serving_state(p["serving_state"], model, host=True)
+    mesh = make_mesh(MeshConfig(item_parallel=world))
+    sh = pad_and_shard_state(es.topk_state, mesh)
+    feats = features_of(p["feats"])
+    res = make_sharded_top_k_fn(es.top_k_method, model, sh, mesh, k=p["k"])(
+        model.encode(feats), feats.user_ids)
+    out.update(slab_items=int(sh.item_ids.shape[0]), ids=res.ids.numpy(),
+               scores=res.scores.numpy())
+    # TensorBoard's import pulls in TensorFlow; the JSONL log is the record.
+    sys.modules["torch.utils.tensorboard"] = None
+    with torch.inference_mode(False):
+        from rails_tpu_torch.cli import train
+
+        result = train.main(list(p["train_argv"]))
+    out["train"] = dict(final=result.final_metrics,
+                        params={k: v.detach().clone() for k, v in result.model.state_dict().items()})
+    save(out_dir, rank, out)
     distributed.shutdown()
 
 
