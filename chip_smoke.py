@@ -211,6 +211,17 @@ IVF and the data pipeline (no kernel of their own: plain torch and host code):
      and with `-fast`'s flags and `--pallas-scatter` (users/s, ms/step,
      TFLOP/s, mfu_pct against the card's named peak), `cli.sweep` over the
      synthetic menu; K1, K2, K4, K5, K6 and K7 must launch.
+ 38. compat: the original torch repo's checkpoint format at the same width:
+     `cli.export_checkpoint` of cli's ep1; a second payload with the
+     AdamW state of `torch.optim.AdamW` after 3 seeded steps over that
+     payload's parameters; `cli.import_checkpoint` of both. The first
+     imports bit-equal to ep1, the second to torch's weights and moments
+     (count 3); one more step through the port's `FusedAdamW` (K7) matches
+     torch's fourth within rtol 2e-5, atol 1e-7; `cli.eval` of the import
+     prints ep1's line but for the timing columns; `cli.train` resumes from
+     the second for an epoch (finite losses; epoch, batch_id and step
+     continue); export and import of the resumed checkpoint is the
+     identity; K1, K2, K4 and K7 must launch.
 The line before the last is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script fails before printing
 any result.
@@ -4361,6 +4372,202 @@ def cli_phase(name: str, smi: str) -> dict:
     return counts
 
 
+COMPAT_STEPS = 3               # torch AdamW steps before the import
+
+
+def compat_phase(name: str, smi: str) -> dict:
+    """[compat]: checkpoints of the original torch repo at ml-20m-hstu-mol's
+    full width, through the port's CLIs and `[cli]`'s run (its CLI_SETS and
+    its ep1): export ep1 to the reference's payload; make a second payload
+    with an `optimizer_state_dict`, that of `torch.optim.AdamW` (the
+    reference's optimizer: the config's betas and weight decay, eps 1e-8,
+    the port schedule's learning rate) over the first payload's parameters
+    as `nn.Parameter`s in its key order, after COMPAT_STEPS steps of seeded
+    gradients; import both. Gates: the first import's weights bit-equal to
+    ep1's; the second's weights and moments bit-equal to torch's after the
+    mapping, count COMPAT_STEPS; one more step through the port's
+    `FusedAdamW` (K7) on the mapped gradients within rtol 2e-5, atol 1e-7 of
+    torch's next step (JAX's limits, `tests/test_torch_import.py:570-573`);
+    `cli.eval` (MoLBruteForceTopKFused) of the first import prints ep1's
+    CSV line but for the two timing columns; `cli.train` resumes from the
+    second for one epoch with finite losses, epoch, batch_id and step
+    continuing; export and import of the resumed checkpoint give it back;
+    K1, K2, K4 and K7 launched over the phase. The CLIs' output goes to
+    build/compat/compat.log."""
+    import copy
+
+    import torch
+
+    from rails_tpu_torch.cli import eval as eval_cli
+    from rails_tpu_torch.cli import export_checkpoint, import_checkpoint, train
+    from rails_tpu_torch.cli.train import apply_override
+    from rails_tpu_torch.compat.torch_import import fresh_model, state_dict_from_reference
+    from rails_tpu_torch.core.config import get_experiment_config
+    from rails_tpu_torch.train.fused_adamw import FusedAdamWState, adamw_update_leaves
+    from rails_tpu_torch.train.loop import make_optimizer
+
+    device = torch.device("cuda", 0)
+    (cli_run,) = [p for p in (Path("build") / "cli").iterdir() if (p / "ckpts").is_dir()]
+    ep1 = str(cli_run / "ckpts" / "ep1")
+    work = Path("build") / "compat"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    common = ["--config", "ml-20m-hstu-mol", *[a for kv in CLI_SETS for a in ("--set", kv)]]
+    cfg = get_experiment_config("ml-20m-hstu-mol")
+    for kv in CLI_SETS:
+        cfg = apply_override(cfg, *kv.split("=", 1))
+
+    def load(path):
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+    def same(a: dict, b: dict) -> bool:
+        return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+    log = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    times = {}
+    with contextlib.redirect_stdout(log):
+        t = time.perf_counter()
+        ref_ep1 = export_checkpoint.main(common + ["--ckpt", ep1, "--out", str(work / "ref_ep1")])
+        times["export"] = time.perf_counter() - t
+
+        # The reference's optimizer over the exported parameters; the port's
+        # model and FusedAdamW for the step after the import.
+        ref = load(ref_ep1)
+        sd = ref["model_state_dict"]
+        names = [k for k in sd if not k.endswith("_attn_mask")]
+        params = [torch.nn.Parameter(sd[k].to(device)) for k in names]
+        model = fresh_model(cfg, NUM_ITEMS, device)
+        optimizer = make_optimizer(cfg, model)
+
+        def lr_at(count: int) -> float:
+            lr = optimizer.learning_rate
+            return float(np.float32(lr(count) if callable(lr) else lr))
+
+        tr = cfg.train
+        opt = torch.optim.AdamW(params, lr=lr_at(0), betas=(tr.beta1, tr.beta2), eps=1e-8,
+                                weight_decay=tr.weight_decay)
+        gen = torch.Generator(device).manual_seed(22)
+
+        def torch_step(count: int) -> list:
+            grads = [torch.randn(p.shape, generator=gen, device=device) for p in params]
+            for p, g in zip(params, grads):
+                p.grad = g
+            for group in opt.param_groups:
+                group["lr"] = lr_at(count)
+            opt.step()
+            return grads
+
+        for count in range(COMPAT_STEPS):
+            torch_step(count)
+        it = iter(params)
+        payload = dict(ref, optimizer_state_dict=copy.deepcopy(opt.state_dict()))
+        payload["model_state_dict"] = {k: v if k.endswith("_attn_mask") else next(it).detach()
+                                       for k, v in sd.items()}
+        torch.save(payload, work / "ref_adamw")
+        t = time.perf_counter()
+        imported = import_checkpoint.main(common + ["--ckpt", ref_ep1,
+                                                    "--out", str(work / "imported")])
+        times["import"] = time.perf_counter() - t
+        t = time.perf_counter()
+        imported2 = import_checkpoint.main(common + ["--ckpt", str(work / "ref_adamw"),
+                                                     "--out", str(work / "imported_adamw")])
+        times["import with AdamW"] = time.perf_counter() - t
+
+        def mapped(tensors) -> dict:
+            return state_dict_from_reference(dict(zip(names, tensors)), cfg, validate=False)
+
+        got2 = load(imported2)
+        state = [opt.state[p] for p in params]
+        weights_ok = same(got2["model"], mapped(p.detach() for p in params))
+        moments_ok = (same(got2["opt_state"]["mu"], mapped(s["exp_avg"] for s in state))
+                      and same(got2["opt_state"]["nu"], mapped(s["exp_avg_sq"] for s in state)))
+        model.load_state_dict(got2["model"], strict=True)
+        opt_state = got2["opt_state"]
+        optimizer.state = FusedAdamWState(
+            opt_state["count"], *({k: v.to(device) for k, v in opt_state[m].items()}
+                                  for m in ("mu", "nu")))
+        k7 = adamw_update_leaves.launches
+        grads = torch_step(COMPAT_STEPS)
+        optimizer.step({k: v.to(device) for k, v in mapped(grads).items()})
+        k7 = adamw_update_leaves.launches - k7
+        want = mapped(p.detach() for p in params)
+        step_err, step_ok = 0.0, True
+        for k, p in model.named_parameters():
+            diff = (p.detach().cpu() - want[k]).abs()
+            step_err = max(step_err, float(diff.max()))
+            step_ok &= bool((diff <= 1e-7 + 2e-5 * want[k].abs()).all())
+
+        t = time.perf_counter()
+        eval_args = ["--top-k-method", "MoLBruteForceTopKFused", "--include-eval-time",
+                     "--eval-against-brute-force"]
+        evals = [eval_cli.main(common + ["--ckpt", c] + eval_args) for c in (ep1, imported)]
+        times["eval x2"] = time.perf_counter() - t
+        t = time.perf_counter()
+        epoch2 = got2["epoch"]
+        resumed = train.main(common + ["--set", "train.eval_interval=1", "--workdir",
+                                       str(work / "resume"), "--num-epochs", str(epoch2 + 2),
+                                       "--restore-from-ckpt", imported2])
+        times["resume"] = time.perf_counter() - t
+        (run_dir,) = [p for p in (work / "resume").iterdir() if p.is_dir()]
+        resumed_ckpt = str(run_dir / "ckpts" / f"ep{epoch2 + 1}")
+        t = time.perf_counter()
+        again = import_checkpoint.main(common + [
+            "--ckpt", export_checkpoint.main(common + ["--ckpt", resumed_ckpt,
+                                                       "--out", str(work / "ref_resumed")]),
+            "--out", str(work / "again")])
+        times["export + import"] = time.perf_counter() - t
+    phase_s = time.perf_counter() - t0
+    counts = launch_counts()
+    (work / "compat.log").write_text(log.getvalue())
+
+    got1, orig = load(imported), load(ep1)
+    after, back = load(resumed_ckpt), load(again)
+    losses = [r["train/loss"] for r in map(json.loads, (run_dir / "metrics.jsonl").read_text()
+                                            .splitlines()) if "train/loss" in r]
+    steps = CLI_USERS // TRAIN_BATCH
+    print(f"[compat] export of [cli]'s ep1 {times['export']:.2f} s, import "
+          f"{times['import']:.2f} s, with AdamW moments {times['import with AdamW']:.2f} s "
+          f"(ml-20m-hstu-mol, {NUM_ITEMS:,} items, {len(names)} tensors); weights bit-equal to "
+          f"ep1: {same(got1['model'], orig['model'])}; after {COMPAT_STEPS} torch AdamW steps "
+          f"weights {weights_ok}, moments {moments_ok}, count {opt_state['count']}")
+    print(f"[compat] step {COMPAT_STEPS + 1}: FusedAdamW (K7 launches {k7}) vs torch.optim.AdamW: "
+          f"max abs err {step_err:.3e}, within rtol 2e-5 atol 1e-7: {step_ok}")
+    print(f"[compat] eval of ep1 / of its import ({times['eval x2']:.1f} s):")
+    print(f"[compat]   {evals[0][0]}")
+    print(f"[compat]   {evals[0][1]}")
+    print(f"[compat]   {evals[1][1]}")
+    print(f"[compat] resumed from the AdamW import for epoch {epoch2 + 1} "
+          f"({times['resume']:.1f} s): {len(losses)} losses {losses[0]:.5f} .. {losses[-1]:.5f}, "
+          f"hr@10 {resumed.final_metrics['hr@10']:.4f}; epoch {after['epoch']}, batch_id "
+          f"{after['batch_id']}, step {after['step']}; export + import again "
+          f"{times['export + import']:.2f} s, identity "
+          f"{same(back['model'], after['model'])}")
+    need = ("K1", "K2", "K4 fwd", "K4 bwd", "K7")
+    print(f"[compat] launches over the phase: {({k: counts[k] for k in need + ('K2-tc',)})}; "
+          f"phase {phase_s:.1f} s on {name} ({smi})")
+    if not same(got1["model"], orig["model"]):
+        raise AssertionError("[compat] the import of the export is not ep1")
+    if not (weights_ok and moments_ok and opt_state["count"] == COMPAT_STEPS):
+        raise AssertionError("[compat] torch's weights or AdamW state did not import exactly")
+    if not step_ok or not k7:
+        raise AssertionError("[compat] the step after the import does not match torch's")
+    if evals[0][0] != evals[1][0] or evals[0][1].split(",")[:-2] != evals[1][1].split(",")[:-2]:
+        raise AssertionError("[compat] the imported checkpoint evaluates otherwise than ep1")
+    if ((after["epoch"], after["batch_id"], after["step"])
+            != (epoch2 + 1, got2["batch_id"] + steps, COMPAT_STEPS + steps)
+            or len(losses) != steps or not np.isfinite(losses + [
+                resumed.final_metrics["hr@10"]]).all()):
+        raise AssertionError("[compat] the resumed run does not continue the import")
+    if not same(back["model"], after["model"]) or (back["epoch"], back["batch_id"]) != (
+            after["epoch"], after["batch_id"]):
+        raise AssertionError("[compat] export and import of the resumed checkpoint differ")
+    if any(not counts[k] for k in need):
+        raise AssertionError(f"[compat] kernels not launched on the phase's paths: {counts}")
+    return counts
+
+
 def main() -> None:
     import torch
 
@@ -4552,6 +4759,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     # The training driver and the CLIs (train, resume, eval, train_bench, sweep).
     cli_phase(name, smi)
+    torch.cuda.empty_cache()
+    # Checkpoints of the original torch repo: export, import, resume.
+    compat_phase(name, smi)
 
     def entry(name_, source, replaces, key, measured, counts=launches):
         # The MUFU term of a bound is an operations term.

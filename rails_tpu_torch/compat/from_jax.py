@@ -6,8 +6,11 @@ numpy leaves (the caller converts, e.g.
 `SequentialRecommender.load_state_dict(strict=True)` accepts. The port's
 parameter names are the flax tree's paths joined by dots; a flax `Dense`
 `kernel` (in, out) becomes a torch `Linear` `weight` (out, in).
-`adamw_state_from_jax` carries the JAX `FusedAdamWState(count, mu, nu)` the
-same way into the port's `FusedAdamWState`, and `fused_tables_from_jax` a JAX
+`adamw_state_from_jax` carries the JAX optimizer state the same way into the
+port's `FusedAdamWState`: a `FusedAdamWState(count, mu, nu)` or optax's
+`adamw` chain (`fused_optimizer=False`), whose `ScaleByAdamState(count, mu,
+nu)` it finds in the chain. `flax_names` is the inverse of the naming rule:
+a port state dict back to the flax tree. `fused_tables_from_jax` carries a JAX
 `FusedCorpusTables` (int8 codes and scales included) into the port's. This
 module imports no jax.
 """
@@ -60,14 +63,50 @@ def _port_names(tree: Mapping) -> Dict[str, torch.Tensor]:
     return state
 
 
+def flax_names(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of `_port_names`: {port parameter name: tensor} ->
+    {"params": tree}, a torch `Linear` `weight` (out, in) back to a flax
+    `kernel` (in, out) as a transposed view; the leaves stay tensors on
+    their device."""
+    tree: dict = {}
+    for name, value in state_dict.items():
+        if name.endswith(".weight"):
+            name, value = name[: -len("weight")] + "kernel", value.T
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = value
+    return {"params": tree}
+
+
+def _adam_moments(node: Any) -> Any:
+    """The node of an optimizer state that holds (count, mu, nu): the state
+    itself, or its member inside optax's chain tuple."""
+    if all(hasattr(node, f) for f in ("count", "mu", "nu")):
+        return node
+    if isinstance(node, (tuple, list)):
+        for member in node:
+            found = _adam_moments(member)
+            if found is not None:
+                return found
+    return None
+
+
 def adamw_state_from_jax(opt_state: Any) -> FusedAdamWState:
-    """The port's optimizer state from a JAX `FusedAdamWState(count, mu, nu)`
-    (`rails_tpu/train/fused_adamw.py:35-38`) with numpy leaves; assign it to
-    `FusedAdamW.state` after moving the moments to the parameters' device."""
+    """The port's optimizer state from a JAX optimizer state with numpy
+    leaves: `FusedAdamWState(count, mu, nu)` (`rails_tpu/train/fused_adamw.py:
+    35-38`, `fused_optimizer=True`) or the chain state of `optax.adamw`
+    (`fused_optimizer=False`), whose `ScaleByAdamState` holds the same count
+    and moments. Assign it to `FusedAdamW.state` after moving the moments to
+    the parameters' device."""
+    adam = _adam_moments(opt_state)
+    if adam is None:
+        raise ValueError(f"no AdamW moments (count, mu, nu) in {type(opt_state).__name__}")
     return FusedAdamWState(
-        count=int(np.asarray(opt_state.count)),
-        mu=_port_names(opt_state.mu),
-        nu=_port_names(opt_state.nu),
+        count=int(np.asarray(adam.count)),
+        mu=_port_names(adam.mu),
+        nu=_port_names(adam.nu),
     )
 
 
