@@ -662,11 +662,12 @@ def stage_split(fn) -> str:
 K1_TF32_ROUTE = "3xTF32 tensor cores"
 
 
-def k1_route(dtype, d: int, n: int, h: int, dqk: int, dv: int, activation: str) -> str:
+def k1_route(dtype, d: int, n: int, h: int, dqk: int, dv: int, activation: str,
+             softmax: bool = False) -> str:
     """The route `fused_hstu_block` takes for these operands."""
     from rails_tpu_torch.ops import hstu_block as hb
 
-    if hb.tf32_block(dtype, d, n, h, dqk, dv, activation):
+    if hb.tf32_block(dtype, d, n, h, dqk, dv, activation, softmax):
         return K1_TF32_ROUTE
     if hb.tc_block(dtype, d, h, dqk, dv, activation):
         return "bf16 tensor cores"
@@ -712,7 +713,7 @@ def check_k1(b: int, n: int, dtype, device, geom_name: str = "ml-20m",
     d, h, dqk, dv, _ = geom
     args, kw = k1_inputs(b, n, dtype, device, geom=geom)
     kw["normalization"] = normalization
-    route = k1_route(dtype, d, n, h, dqk, dv, "silu")
+    route = k1_route(dtype, d, n, h, dqk, dv, "silu", normalization == "softmax_rel_bias")
     got = tf32_launched(lambda: fused_hstu_block(*args, **kw), route)
     ref = fused_hstu_block_reference(*args, **kw)
     rtol, atol = K1_TOL[str(dtype).split(".")[-1]]
@@ -865,7 +866,7 @@ def digest(*tensors) -> str:
 def untouched_hashes(device) -> dict:
     """`[K1-hash]`: sha256 prefixes of the outputs K1's f32 route leaves
     alone, on operands from fixed seeds: bf16 K1 and each bf16 variant
-    instance; the f32 K1 instances off the route (activation none, n = 257,
+    instance; the f32 K1 instances off the route (activation none, n = 513,
     h = 4 with dqk = dv = 64); K4's forward and attention backward (f32 on
     its 3xTF32 route, its off-route softmax, activation none and h = 4, dqk
     = dv = 64 instances, and bf16); P1's modes in f32 and bf16. Only calls an
@@ -889,7 +890,8 @@ def untouched_hashes(device) -> dict:
         out[f"K1 bf16 {inst}"] = digest(fused_hstu_block(**vargs, **vkw))
     vargs, vkw = k1_variant_inputs(b, n, f32, device, "activation none")
     out["K1 f32 activation none"] = digest(fused_hstu_block(**vargs, **vkw))
-    for label, geom in (("n=257", (D, H, DQK, DV, 257)), ("h=4, dqk=dv=64", (D, 4, 64, 64, n))):
+    # Off the f32 route: past its length, and wider heads.
+    for label, geom in (("n=513", (D, H, DQK, DV, 513)), ("h=4, dqk=dv=64", (D, 4, 64, 64, n))):
         gargs, gkw = k1_inputs(8, geom[4], f32, device, geom=geom)
         out[f"K1 f32 {label}"] = digest(fused_hstu_block(*gargs, **gkw))
     seed = 987_654_321
@@ -919,6 +921,43 @@ def untouched_hashes(device) -> dict:
         pkw = dict(num_heads=H, dqk=DQK, dv=DV, inv_n=1.0 / P1_LENGTH)
         for mode in ep.MODES:
             out[f"P1 {mode} {str(dtype)[6:]}"] = digest(ep.encode_probe_block(mode, *pargs, **pkw))
+    for name, value in out.items():
+        print(f"[K1-hash] {name}: {value}")
+    return out
+
+
+def preprocessor_hashes(device) -> dict:
+    """`[K1-hash]` lines of the instances that moved onto the tensor cores
+    for the rated (D = 264) and combined (n = 422) preprocessors, so that a
+    later tree is held to them bit for bit: K1 in f32 (3xTF32) and bf16 at
+    B = 8, and K4's f32 forward and attention backward at B = 4, the
+    combined one on the 32-row attention blocks."""
+    import torch
+
+    from rails_tpu_torch.ops import hstu_block_train as hbt
+    from rails_tpu_torch.ops.hstu_block import fused_hstu_block, ln
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    out = {}
+    for geom in ("rated", "combined"):
+        g = K1_GEOMS[geom]
+        for dtype in (f32, bf16):
+            args, kw = k1_inputs(8, g[4], dtype, device, geom=g)
+            out[f"K1 {str(dtype)[6:]} {geom}"] = digest(fused_hstu_block(*args, **kw))
+        meta, _ = k4_meta(None, g[4])
+        (x, colmask, uvqk, o_kernel, o_bias, rel_pos, ext, tsw), _ = k1_inputs(
+            4, g[4], f32, device, seed=3, geom=g)
+        x = x * colmask[..., None]
+        seed = 987_654_321
+        fwd, attn = hbt.fused_train_block_forward(x, colmask, uvqk, o_kernel, o_bias, rel_pos,
+                                                  ext, tsw, seed, meta)
+        z = ln(x, meta.eps) @ uvqk
+        y = z * torch.sigmoid(z)
+        g_ = torch.Generator(device=device).manual_seed(13)
+        d_o = torch.randn(4, g[4], meta.o_width, generator=g_, device=device)
+        bwd = hbt.attn_backward(y, d_o, attn, colmask, rel_pos, ext, tsw, meta, seed)
+        out[f"K4 f32 {geom} forward"] = digest(fwd, attn)
+        out[f"K4 f32 {geom} attention backward"] = digest(*bwd)
     for name, value in out.items():
         print(f"[K1-hash] {name}: {value}")
     return out
@@ -3276,9 +3315,17 @@ def serve_phase(device, name: str, smi: str, tag: str, config: str, num_items: i
     d = model.d_model
     n_enc = batches[0][0].ids.shape[1] * (2 if cfg.input_preprocessor_type == "combined" else 1)
     h = cfg.hstu
-    route = (f"K1 at n={n_enc} on the "
-             f"{k1_route(dtype, d, n_enc, h.num_heads, h.dqk, h.dv, h.linear_activation)}"
-             if hstu else "SASRec in plain torch")
+    k1r = k1_route(dtype, d, n_enc, h.num_heads, h.dqk, h.dv, h.linear_activation)
+    route = f"K1 at n={n_enc} on the {k1r}" if hstu else "SASRec in plain torch"
+    # Every K1 block on the route its rules name: each stage of the
+    # tensor-core route once a block, none off it.
+    stages = {"K1 proj": k1r == "bf16 tensor cores", "K1 attn": k1r == "bf16 tensor cores",
+              "K1 out": k1r == "bf16 tensor cores",
+              **{k: k1r == K1_TF32_ROUTE for k in K1_TF32_STAGES}}
+    wrong = {k: counts.get(k, 0) for k, on in stages.items()
+             if counts.get(k, 0) != (want_k1 if on and hstu else 0)}
+    if wrong:
+        raise AssertionError(f"[{tag}] {cfg.name}: K1 on the {k1r} launched its stages {wrong}")
     what = f" {what}" if what else ""
     print(f"[{tag}]{what} {cfg.name} {dt}, {cfg.model_type}/{cfg.similarity_type} D={d}, "
           f"{len(batches)} batch(es) of {batch} (n={[f.ids.shape[1] for f, _ in batches]}), "
@@ -3414,7 +3461,7 @@ def check_k1_variant(b: int, n: int, dtype, device, instance: str) -> dict:
 
     mode, activation, normalization, concat_ua = K1_VAR_INSTANCES[instance]
     args, kw = k1_variant_inputs(b, n, dtype, device, instance)
-    route = k1_route(dtype, D, n, H, DQK, DV, activation)
+    route = k1_route(dtype, D, n, H, DQK, DV, activation, normalization == "softmax_rel_bias")
     got = tf32_launched(lambda: fused_hstu_block(**args, **kw), route)
     ref = fused_hstu_block_reference(**args, **kw)
     dt = str(dtype)[6:]
@@ -4613,6 +4660,7 @@ def main() -> None:
     k1_stages = check_k1_stages(BATCH, MAX_SEQ_LEN, device)
     k1_tf32 = check_k1_tf32_stages(BATCH, MAX_SEQ_LEN, device)
     untouched_hashes(device)
+    preprocessor_hashes(device)
     for dtype in (torch.float32, torch.bfloat16):
         check_k1(BATCH, K1_GEOMS["books"][4], dtype, device, "books")
         check_k1(BATCH, MAX_SEQ_LEN, dtype, device, "ml-1m")

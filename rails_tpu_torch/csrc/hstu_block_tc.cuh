@@ -18,8 +18,10 @@
 // the tensor cores. The design keeps those bytes few:
 //   1. tc_proj_kernel: a block owns 128 rows of x. It takes their LayerNorm
 //      statistics (population variance, two passes, 16-byte row loads),
-//      writes round_bf16(LN(x)) into a shared A tile that holds all D <= 256
-//      columns, and walks the F output columns in 128-wide tiles, the uvqk
+//      writes round_bf16(LN(x)) into a shared A tile that holds all D <= 272
+//      columns (zeros from D to the next multiple of 64, where the uvqk rows
+//      are zeros too: 264 takes a 320-wide tile, 116 KB, one block an SM),
+//      and walks the F output columns in 128-wide tiles, the uvqk
 //      rows streamed in 64-deep stages through a 2-stage cp.async ring.
 //      mma.sync m16n8k16 bf16, ldmatrix-fed, f32 accumulators. The epilogue
 //      applies SiLU (or none) and stores u (the first h*dv columns) in f32,
@@ -65,7 +67,7 @@
 // TFLOP/s), ~28 MB (0.008 ms) and ~51 M ex2 (0.012 ms at 16 MUFU results an
 // SM a clock). The serving instances take `AttnArgs` and compile as before.
 //
-// Widths: D <= 256, dqk <= 32, dv <= 32, and h <= 4 or an even h <= 8 (a head
+// Widths: D <= 272, dqk <= 32, dv <= 32, and h <= 4 or an even h <= 8 (a head
 // warp holds at most 4 heads' (16, dv_p) attn fragments); `tc_route` in
 // ops/hstu_block.py states the same rule. Other bf16 widths stay on the
 // CUDA-core kernels, and so does K1's linear_activation="none" (`tc_block`:
@@ -112,13 +114,18 @@ inline int pad_dv(int dv) { return dv <= 8 ? 8 : dv <= 16 ? 16 : 32; }
 inline int head_warps(int H) { return H % 2 == 0 ? 2 : 1; }
 
 // The widths the kernels take (ops/hstu_block.py:tc_route states the same).
+// D <= 272 takes the rated preprocessor's 256 + 8.
+constexpr int kMaxD = 272;
 inline bool widths_ok(int D, int H, int dqk, int dv) {
-  return D >= 1 && D <= 256 && dqk >= 1 && dqk <= 32 && dv >= 1 && dv <= 32 && H >= 1 &&
+  return D >= 1 && D <= kMaxD && dqk >= 1 && dqk <= 32 && dv >= 1 && dv <= 32 && H >= 1 &&
          H / head_warps(H) <= kHeadsPerWarp;
 }
-// K4's f32 train block on the tensor cores (hstu_train_tf32.cuh) takes the
-// same widths at lengths n <= 256 (its bias block holds every key of a row).
-constexpr int kTf32MaxN = 256;
+// The f32 routes on the tensor cores (hstu_serve_tf32.cuh, hstu_train_tf32.cuh)
+// take the same widths at lengths n <= 512: the combined preprocessor's 2 x
+// 211. K4's f32 attention holds a block's bias rows for every key, so it
+// takes 32-row blocks past n = 256; K1's softmax keeps the (64, n) scores and
+// fits only where ops/hstu_block.py:tf32_block says.
+constexpr int kTf32MaxN = 512;
 inline bool tf32_widths_ok(int D, int H, int dqk, int dv, int n) {
   return widths_ok(D, H, dqk, dv) && n >= 1 && n <= kTf32MaxN;
 }
@@ -329,7 +336,10 @@ __device__ __forceinline__ void ln_rows_vec(const ProjArgs& p, bf16* As, int lda
   }
 }
 
-// As ln_rows_vec for any D <= 256: lanes over single columns.
+// As ln_rows_vec for any D <= 32 Q: lanes over single columns, Q of them a
+// lane (8 up to D = 256; 10 past it, for A tiles KA = 320 wide), zeros from
+// D to KA, which the statistics never read.
+template <int Q>
 __device__ __forceinline__ void ln_rows_scalar(const ProjArgs& p, bf16* As, int lda, int KA,
                                                int64_t m0, int warp, int lane) {
   for (int r = warp; r < GBM; r += kThreads / 32) {
@@ -340,10 +350,10 @@ __device__ __forceinline__ void ln_rows_scalar(const ProjArgs& p, bf16* As, int 
       continue;
     }
     const bf16* xr = p.x + row * p.D;
-    float v[8];
+    float v[Q];
     float s = 0.f;
 #pragma unroll
-    for (int q = 0; q < 8; ++q) {
+    for (int q = 0; q < Q; ++q) {
       const int k = lane + 32 * q;
       v[q] = k < p.D ? __bfloat162float(xr[k]) : 0.f;
       s += v[q];
@@ -351,7 +361,7 @@ __device__ __forceinline__ void ln_rows_scalar(const ProjArgs& p, bf16* As, int 
     const float mean = warp_sum(s) / p.D;
     float var = 0.f;
 #pragma unroll
-    for (int q = 0; q < 8; ++q) {
+    for (int q = 0; q < Q; ++q) {
       const int k = lane + 32 * q;
       if (k < p.D) {
         const float d = v[q] - mean;
@@ -360,7 +370,7 @@ __device__ __forceinline__ void ln_rows_scalar(const ProjArgs& p, bf16* As, int 
     }
     const float rstd = rsqrtf(warp_sum(var) / p.D + p.eps);
 #pragma unroll
-    for (int q = 0; q < 8; ++q) {
+    for (int q = 0; q < Q; ++q) {
       const int k = lane + 32 * q;
       if (k < KA) dst[k] = __float2bfloat16_rn(k < p.D ? (v[q] - mean) * rstd : 0.f);
     }
@@ -467,10 +477,12 @@ __global__ void __launch_bounds__(kThreads, 2) tc_proj_kernel(ProjArgs p) {
   }
 
   // LayerNorm of the block's rows: population variance, two passes.
-  if ((p.D & 7) == 0) {
+  if (p.D > 256) {
+    ln_rows_scalar<10>(p, As, lda, KA, m0, warp, lane);
+  } else if ((p.D & 7) == 0) {
     ln_rows_vec(p, As, lda, KA, m0, warp, lane);
   } else {
-    ln_rows_scalar(p, As, lda, KA, m0, warp, lane);
+    ln_rows_scalar<8>(p, As, lda, KA, m0, warp, lane);
   }
 
   const int wm = warp & 3, wn = warp >> 2;

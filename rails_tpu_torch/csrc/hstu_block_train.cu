@@ -82,7 +82,7 @@
 // forward through hstu_block_tc.cuh (rails_hstu_tc_train_attention between
 // K1's projection and output GEMM), the pointwise backward through
 // hstu_train_tc.cuh (rails_hstu_tc_train_bwd); the entry points below refuse
-// those instances, and the f32 ones at those widths with n <= 256, the SiLU
+// those instances, and the f32 ones at those widths with n <= 512, the SiLU
 // projection and the pointwise attention, which run 3xTF32 on the tensor
 // cores (hstu_train_tf32.cu).
 #include <cstdint>

@@ -2,9 +2,10 @@
 // hstu_serve_tf32.cuh): the projection, the attention (pointwise or
 // softmax) and the output GEMM, one call each, so that the stages run and
 // are timed alone. Each refuses (cudaErrorInvalidValue, nothing launched)
-// the widths outside the route (`tc::tf32_widths_ok`: D <= 256, dqk and dv
-// <= 32, h <= 3 or an even h <= 8, n <= 256), which the CUDA-core block of
-// hstu_block.cu takes.
+// the widths outside the route (`tc::tf32_widths_ok`: D <= 272, dqk and dv
+// <= 32, h <= 3 or an even h <= 8, n <= 512), which the CUDA-core block of
+// hstu_block.cu takes; ops/hstu_block.py `tf32_block` also keeps the softmax
+// attention there where its scores do not fit (`attn_smem_bytes`).
 #include <cstdint>
 
 #include "hstu_serve_tf32.cuh"
@@ -58,14 +59,14 @@ extern "C" int rails_hstu_serve_tf32_out(const float* attn, const float* y, cons
 }
 
 // Dynamic shared memory: kind 0 the pointwise attention, 1 the softmax one at
-// length n; 2 the projection, 3 the output GEMM.
+// length n; 2 the projection at the widest D, 3 the output GEMM.
 extern "C" size_t rails_hstu_serve_tf32_smem_bytes(int kind, int n, int H, int dqk, int dv) {
   switch (kind) {
     case 0:
     case 1:
       return rails::k1tf32::attn_smem_bytes(kind, n, H, dqk, dv);
     case 2:
-      return rails::k1tf32::proj_smem_bytes(256);
+      return rails::k1tf32::proj_smem_bytes(rails::tc::kMaxD);
     default:
       return rails::k1tf32::out_smem_bytes();
   }

@@ -4,11 +4,14 @@
 //
 // Replaces, for f32 operands, the body `_kernel` of
 // rails_tpu/ops/pallas/hstu_block.py (:96-276) at the widths of the bf16
-// tensor-core kernels (hstu_block_tc.cuh `widths_ok`: D <= 256, dqk and dv <=
-// 32, h <= 3 or an even h <= 8) with n <= 256 and the SiLU projection: the
-// bias built in-kernel, read from an f32 (B, n, n) tensor (raw, or carrying
-// mask_in_bias's -30000 penalty) or absent; the pointwise SiLU attention or
-// the softmax one; u * LN(attn) or concat_ua's [u, LN(attn), u * LN(attn)].
+// tensor-core kernels (hstu_block_tc.cuh `widths_ok`: D <= 272, dqk and dv <=
+// 32, h <= 3 or an even h <= 8) with n <= 512 and the SiLU projection (the
+// softmax attention where its (64, n) scores fit a block: ops/hstu_block.py
+// `tf32_block`), which takes the rated (D = 264) and combined (n = 422)
+// preprocessors' blocks: the bias built in-kernel, read from an f32 (B, n, n)
+// tensor (raw, or carrying mask_in_bias's -30000 penalty) or absent; the
+// pointwise SiLU attention or the softmax one; u * LN(attn) or concat_ua's
+// [u, LN(attn), u * LN(attn)].
 // linear_activation="none", wider heads and longer sequences keep the
 // CUDA-core kernels of hstu_block.cuh (ops/hstu_block.py `tf32_block`).
 //
@@ -27,7 +30,8 @@
 //   1. serve_proj_kernel: y = SiLU(LN(x) @ uvqk), (M, F) f32, [u | v | q | k].
 //      A block owns 128 rows: it takes their LayerNorm statistics
 //      (population variance, two passes), keeps LN(x) resident in shared
-//      memory (133 KB at D = 256) and walks the F columns in 128-wide tiles,
+//      memory (133 KB at D = 256, 146 KB at D = 264, zeros from D to the next
+//      multiple of 32) and walks the F columns in 128-wide tiles,
 //      uvqk's 32-deep chunks streaming through a 4-stage cp.async ring (70
 //      KB): x is read once, uvqk once per 128 rows. 16 warps of 32 x 32
 //      outputs, one block an SM. The SiLU by __expf and __fdividef.
@@ -43,15 +47,16 @@
 //      ring, one barrier a chunk, chunks whose keys are all invalid skipped.
 //      s = q k^T + bias, a = SiLU(s) (`silu_fast`), a split from the score
 //      fragments into the A fragments of a (v / max_seq_len). 99-107 KB at
-//      n = 211-256: two blocks an SM. Softmax (one map over the whole h*dqk
+//      n = 211-256: two blocks an SM; 155 KB at n = 422, one. Softmax (one
+//      map over the whole h*dqk
 //      contraction): the block stages its 64 q rows, streams every key's k
 //      in 32-key chunks and keeps the (64, n) scores (q.k + bias) / sqrt(dqk)
 //      in shared memory; each row is normalised over all n columns (expf and
 //      an IEEE division) and masked after normalisation; a v then runs over
 //      the causal key chunks with a valid key and every value column, v
 //      unscaled, a read from the scores in a_from_c's pair order. 16 warps = 4
-//      row tiles x 4 key (value-column) quarters; 192-203 KB at n = 211-256,
-//      one block an SM.
+//      row tiles x 4 key (value-column) quarters; 193-201 KB at n = 211-256,
+//      one block an SM; past n = 352 at h*dqk = 256 the scores no longer fit.
 //   3. serve_out_kernel: out = o_input @ Wo + bo + x. A block owns 64 rows
 //      (8 warps of 32 x 32 outputs) and walks the D columns in 128-wide
 //      tiles; attn's, u's and Wo's chunks stream through a 3-stage ring, and
@@ -139,13 +144,14 @@ __device__ __forceinline__ void load_w(float* W, const GemmArgs& p, int k0, int 
   }
 }
 
-// The population mean and 1/sqrt(var + eps) of a row of width <= 256 by one
+// The population mean and 1/sqrt(var + eps) of a row of width <= 32 Q by one
 // warp, two passes; 0 for a row past M.
+template <int Q>
 __device__ __forceinline__ float2 row_stats(const float* src, bool live, int width, float eps,
-                                            int lane, float (&v)[8]) {
+                                            int lane, float (&v)[Q]) {
   float sum = 0.f;
 #pragma unroll
-  for (int q = 0; q < 8; ++q) {
+  for (int q = 0; q < Q; ++q) {
     const int k = lane + 32 * q;
     v[q] = live && k < width ? src[k] : 0.f;
     sum += v[q];
@@ -154,7 +160,7 @@ __device__ __forceinline__ float2 row_stats(const float* src, bool live, int wid
   const float mean = warp_sum(sum) / width;
   float var = 0.f;
 #pragma unroll
-  for (int q = 0; q < 8; ++q) {
+  for (int q = 0; q < Q; ++q) {
     const int k = lane + 32 * q;
     if (k < width) {
       const float d = v[q] - mean;
@@ -165,7 +171,7 @@ __device__ __forceinline__ float2 row_stats(const float* src, bool live, int wid
 }
 
 // Launch 1, see the note at the top: a block owns 128 rows, normalises them
-// once into shared memory (all K <= 256 columns, 133 KB) and walks the F
+// once into shared memory (all K <= 272 columns, 133-146 KB) and walks the F
 // columns in 128-wide tiles, uvqk's chunks streaming raw through a 4-stage
 // ring (70 KB): x is read once and uvqk once per 128 rows. 16 warps of 32 x
 // 32 outputs, one block an SM.
@@ -177,6 +183,23 @@ __host__ __device__ inline int proj_lda(int K) { return (K + kBK - 1) / kBK * kB
 
 inline size_t proj_smem_bytes(int K) {
   return (static_cast<size_t>(kRM) * proj_lda(K) + kRStages * kBK * kLdW) * sizeof(float);
+}
+
+// LN(x) of the block's rows into As, once; zeros past K (to the chunk edge
+// lda - 4 <= 32 Q) and past M. Q = 8 up to K = 256, 9 up to 288.
+template <int Q>
+__device__ __forceinline__ void proj_ln(const GemmArgs& p, float* As, int lda, int64_t m0,
+                                        int warp, int lane) {
+  for (int r = warp; r < kRM; r += kRThreads / 32) {
+    const bool live = m0 + r < p.M;
+    float v[Q];
+    const float2 st = row_stats(p.a + (m0 + r) * p.K, live, p.K, p.eps, lane, v);
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int k = lane + 32 * q;
+      if (k < lda - 4) As[r * lda + k] = live && k < p.K ? (v[q] - st.x) * st.y : 0.f;
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kRThreads, 1) serve_proj_kernel(GemmArgs p) {
@@ -198,16 +221,10 @@ __global__ void __launch_bounds__(kRThreads, 1) serve_proj_kernel(GemmArgs p) {
   };
 #pragma unroll
   for (int s = 0; s < kRStages - 1; ++s) load(s);
-  // LN(x) of the block's rows, once; zeros past K (to the chunk edge) and M.
-  for (int r = warp; r < kRM; r += kRThreads / 32) {
-    const bool live = m0 + r < p.M;
-    float v[8];
-    const float2 st = row_stats(p.a + (m0 + r) * p.K, live, p.K, p.eps, lane, v);
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int k = lane + 32 * q;
-      if (k < lda - 4) As[r * lda + k] = live && k < p.K ? (v[q] - st.x) * st.y : 0.f;
-    }
+  if (p.K > 256) {
+    proj_ln<9>(p, As, lda, m0, warp, lane);
+  } else {
+    proj_ln<8>(p, As, lda, m0, warp, lane);
   }
 
   float acc[kRMI][4][4];

@@ -90,10 +90,11 @@ extern "C" int rails_hstu_tf32_bwd(int stage, const float* y, const float* d_o, 
 }
 
 // Dynamic shared memory of an attention launch (0 forward, 1 dq, 2 dkv) at
-// length n, and of the GEMMs at D <= 256 (kind 3).
+// length n, and of the GEMMs at the widest D (kind 3).
 extern "C" size_t rails_hstu_tf32_smem_bytes(int kind, int n, int dqk, int dv) {
   if (kind == 3) {
-    const size_t out = rails::tf32::gemm_smem_bytes(), proj = rails::tf32::proj_smem_bytes(256);
+    const size_t out = rails::tf32::gemm_smem_bytes();
+    const size_t proj = rails::tf32::proj_smem_bytes(rails::tc::kMaxD);
     return out > proj ? out : proj;
   }
   return rails::tf32::attn_smem_bytes(kind, n, dqk, dv);

@@ -6,8 +6,9 @@
 // rails_tpu/ops/pallas/hstu_block_train.py (:574, body `_fwd_kernel`
 // :124-232) and the pointwise branch of its attention-core backward (:629,
 // `_attn_bwd_kernel` :248-435), at the widths of the bf16 tensor-core kernels
-// (hstu_block_tc.cuh `widths_ok`: D <= 256, dqk and dv <= 32, h <= 3 or an even
-// h <= 8) with n <= 256, the SiLU projection and the pointwise attention; with
+// (hstu_block_tc.cuh `widths_ok`: D <= 272, dqk and dv <= 32, h <= 3 or an even
+// h <= 8) with n <= 512, the SiLU projection and the pointwise attention
+// (the rated preprocessor's D = 264 and the combined one's n = 422 among them); with
 // or without the relative-attention bias, o_input dropout, attention dropout
 // and concat_ua (runtime switches of these kernels). softmax,
 // linear_activation="none", wider heads and longer sequences stay on the
@@ -44,11 +45,12 @@
 // Forward, three launches:
 //   (a) tc_tf32_proj_kernel: y = SiLU(LN(x) @ uvqk), (B*n, F) f32. A block
 //       owns 64 rows of x: a warp a row takes the LayerNorm statistics once
-//       and writes the row's LN(x) split into a tile that holds all D <= 256
-//       columns; the block then walks the F output columns in 128-wide tiles,
+//       and writes the row's LN(x) split into a tile that holds all D <= 272
+//       columns (zeros from D to the next multiple of 32); the block then
+//       walks the F output columns in 128-wide tiles,
 //       uvqk's rows streaming raw by cp.async through a 3-deep ring, each B
 //       fragment split in registers as it is read. 8 warps of 32 x 32
-//       outputs, one block an SM (185 KB).
+//       outputs, one block an SM (185 KB; 197 KB at D = 264).
 //   (b) tc_tf32_attn_kernel: attn (B, n, h*dv) f32 per (user, 64 query
 //       rows), 16 warps = 4 row warps (16 rows) x 4 key warps (32 keys of a
 //       128-key block), heads in turn. The bias block rel_pos[i, j] +
@@ -86,7 +88,9 @@
 // One (user, 64-row) block holds the bias block, one head's hi/lo row and
 // column tiles and their raw landing rows: 192-230 KB at n <= 256, so one
 // block of 16 warps runs an SM; eight heads' tiles at once (over 300 KB) do
-// not fit.
+// not fit. Past n = 256 a block owns 32 rows (8 warps; the attention's and
+// dq's key blocks, and so their sums, are those of the 64-row blocks; dkv's
+// query blocks start at its 32 keys): 156-200 KB at n = 257-512.
 #pragma once
 
 #include <cstdint>
@@ -98,8 +102,6 @@
 namespace rails {
 namespace {
 namespace tf32 {
-
-constexpr int kMaxN = tc::kTf32MaxN;   // keys (queries) of one bias block
 
 // ---- forward launches (a) and (c): the GEMMs -----------------------------
 
@@ -302,7 +304,7 @@ __global__ void __launch_bounds__(kGemmThreads, 2) tc_tf32_out_kernel(GemmArgs p
 }
 
 // Forward (a): the projection. A block owns 64 rows of x; their LayerNorm'd
-// values sit split in shared memory for every column tile (D <= 256 wide),
+// values sit split in shared memory for every column tile (D <= 272 wide),
 // and uvqk's rows stream raw through a kPStages-deep cp.async ring, each B
 // fragment split in registers as it is read.
 constexpr int kPStages = 3;
@@ -313,6 +315,44 @@ __host__ __device__ inline int proj_lda(int D) { return (D + kGK - 1) / kGK * kG
 inline size_t proj_smem_bytes(int D) {
   return static_cast<size_t>(kGM) * proj_lda(D) * sizeof(float2) +
          static_cast<size_t>(kPStages) * kGK * kLdW * sizeof(float);
+}
+
+// LN(x) of the block's rows, once: statistics over the D columns
+// (population variance, two passes), then every value split; zeros past D
+// (to the chunk edge lda - 4 <= 32 Q) and past M. Q = 8 up to D = 256, 9 up
+// to 288.
+template <int Q>
+__device__ __forceinline__ void proj_ln(const GemmArgs& p, float2* As, int lda, int64_t m0,
+                                        int warp, int lane) {
+  for (int r = warp; r < kGM; r += kGemmThreads / 32) {
+    const int64_t row = m0 + r;
+    float v[Q];
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int k = lane + 32 * q;
+      v[q] = row < p.M && k < p.K ? p.a[row * p.K + k] : 0.f;
+      s += v[q];
+    }
+    const float mean = warp_sum(s) / p.K;
+    float var = 0.f;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int k = lane + 32 * q;
+      if (k < p.K) {
+        const float d = v[q] - mean;
+        var = fmaf(d, d, var);
+      }
+    }
+    const float rstd = rsqrtf(warp_sum(var) / p.K + p.eps);
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int k = lane + 32 * q;
+      if (k < lda - 4) {
+        As[r * lda + k] = split(row < p.M && k < p.K ? (v[q] - mean) * rstd : 0.f);
+      }
+    }
+  }
 }
 
 __device__ __forceinline__ void load_w_ring(float* dst, const GemmArgs& p, int k0, int n0, int tid) {
@@ -346,35 +386,10 @@ __global__ void __launch_bounds__(kGemmThreads, 1) tc_tf32_proj_kernel(GemmArgs 
     if (s < total) load_w_ring(ring + s * kGK * kLdW, p, (s % KT) * kGK, (s / KT) * kGN, tid);
     tc::cp_async_commit();
   }
-  // LN(x) of the block's rows, once: statistics over the D columns
-  // (population variance, two passes), then every value split; zeros past D
-  // and past M.
-  for (int r = warp; r < kGM; r += kGemmThreads / 32) {
-    const int64_t row = m0 + r;
-    float v[8];
-    float s = 0.f;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int k = lane + 32 * q;
-      v[q] = row < p.M && k < p.K ? p.a[row * p.K + k] : 0.f;
-      s += v[q];
-    }
-    const float mean = warp_sum(s) / p.K;
-    float var = 0.f;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int k = lane + 32 * q;
-      if (k < p.K) {
-        const float d = v[q] - mean;
-        var = fmaf(d, d, var);
-      }
-    }
-    const float rstd = rsqrtf(warp_sum(var) / p.K + p.eps);
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int k = lane + 32 * q;
-      if (k < lda - 4) As[r * lda + k] = split(row < p.M && k < p.K ? (v[q] - mean) * rstd : 0.f);
-    }
+  if (p.K > 256) {
+    proj_ln<9>(p, As, lda, m0, warp, lane);
+  } else {
+    proj_ln<8>(p, As, lda, m0, warp, lane);
   }
 
   float acc[2][4][4];
@@ -417,26 +432,37 @@ __global__ void __launch_bounds__(kGemmThreads, 1) tc_tf32_proj_kernel(GemmArgs 
 
 // ---- the attention launches: forward (b), backward (b) and (c) -----------
 
-// A block's layout follows from kTRows and kColWarps: a warp takes 16 rows by
-// kTile columns. At 64 x 4 a block of 16 warps needs 192-230 KB of shared
-// memory at n <= 256 (the bias block alone 59 KB), one block an SM. 32 x 2,
-// 4 warps and two blocks an SM (98-112 KB each at n = 211), ran 15-23%
-// slower on an H100 (`profile_k4_f32.py --variant two-ctas`): half the warps
-// an SM, k and v staged twice as often, dq at 255 registers.
-constexpr int kTRows = 64;                      // rows of a block: queries (dkv: keys)
+// A block's layout follows from its rows TR and kColWarps: a warp takes 16
+// rows by kTile columns. At 64 x 4 a block of 16 warps needs 192-230 KB of
+// shared memory at n <= 256 (the bias block alone 59 KB), one block an SM.
+// 32 x 2, 4 warps and two blocks an SM (98-112 KB each at n = 211), ran
+// 15-23% slower on an H100 (`profile_k4_f32.py --variant two-ctas`): half
+// the warps an SM, k and v staged twice as often, dq at 255 registers. Past
+// n = 256 the bias rows of 64 queries do not fit beside the tiles (281 KB for
+// dq at n = 422), so a block takes 32 rows there: 8 warps, 156-200 KB at n =
+// 257-512, one block an SM.
 constexpr int kTile = 32;                       // a column warp's keys (dkv: queries)
 constexpr int kColWarps = 4;
-constexpr int kAttnBlocksPerSm = 1;             // __launch_bounds__'s, as shared memory allows
-constexpr int kRowWarps = kTRows / 16;
-constexpr int log2i(int x) { return x > 1 ? 1 + log2i(x / 2) : 0; }
-constexpr int kRowShift = log2i(kRowWarps);     // warp w: row w & (kRowWarps - 1), column w >> it
-constexpr int kAttnThreads = 32 * kRowWarps * kColWarps;
 constexpr int kBlockCols = kTile * kColWarps;   // columns staged at a time
-constexpr int kSlots = kMaxN / kBlockCols;      // column blocks of a row block at most
-// The reduction buffer [kColWarps][kTRows][<= DQP + DVP + 8] overlays the
-// column tiles [kBlockCols][ldq + ldv] float2.
-static_assert(kTRows <= 2 * kTile, "R must fit the column tiles");
-static_assert(kRowWarps * 16 == kTRows && (1 << kRowShift) == kRowWarps, "2^k row warps");
+constexpr int log2i(int x) { return x > 1 ? 1 + log2i(x / 2) : 0; }
+
+// The constants of a block of TR rows (queries; dkv: keys).
+template <int TR>
+struct Blk {
+  static constexpr int kRowWarps = TR / 16;
+  // Warp w: row warp w & (kRowWarps - 1), column warp w >> kRowShift.
+  static constexpr int kRowShift = log2i(kRowWarps);
+  static constexpr int kThreads = 32 * kRowWarps * kColWarps;
+  static constexpr int kMaxN = TR == 64 ? 256 : tc::kTf32MaxN;   // keys (queries) of a bias block
+  static constexpr int kSlots = kMaxN / kBlockCols;   // column blocks of a row block at most
+  // The reduction buffer [kColWarps][TR][<= DQP + DVP + 8] overlays the
+  // column tiles [kBlockCols][ldq + ldv] float2.
+  static_assert(TR <= 2 * kTile, "R must fit the column tiles");
+  static_assert(kRowWarps * 16 == TR && (1 << kRowShift) == kRowWarps, "2^k row warps");
+};
+
+// The rows of an attention block at length n.
+__host__ __device__ inline int block_rows(int n) { return n <= 256 ? 64 : 32; }
 
 struct AttnArgs {
   const float* y;        // (B*n, F): [u | v | q | k]
@@ -457,11 +483,11 @@ struct AttnArgs {
 
 enum AttnKind { kFwd = 0, kDq = 1, kDkv = 2 };
 
-// Shared memory: the bias block [kTRows][ldbc] f32, the row operands (kTRows
+// Shared memory: the bias block [TR][ldbc] f32, the row operands (TR
 // rows) and the column operands (kBlockCols rows) as hi/lo tiles, the raw f32
 // rows the next step's operands land in by cp.async, the tables. Offsets in
 // bytes.
-template <int DQP, int DVP>
+template <int DQP, int DVP, int TR>
 struct AttnLayout {
   static constexpr int ldq = DQP + 4, ldv = DVP + 4, ldvp = DVP + 2;   // float2 strides
   static constexpr int cw = DQP + DVP;                                  // raw column-operand width
@@ -471,33 +497,33 @@ struct AttnLayout {
     const int np32 = (n + 31) / 32 * 32;
     ldbc = np32 + 8;   // 8 (mod 32) floats
     rw = kind == kFwd ? DQP : DQP + DVP;
-    rows = static_cast<size_t>(kTRows) * ldbc * sizeof(float);
+    rows = static_cast<size_t>(TR) * ldbc * sizeof(float);
     const size_t row_w = kind == kFwd ? ldq : ldq + ldv;
     const size_t col_w = kind == kFwd ? ldq + ldvp : ldq + ldv;
-    cols = rows + kTRows * row_w * sizeof(float2);
+    cols = rows + TR * row_w * sizeof(float2);
     row_raw = cols + kBlockCols * col_w * sizeof(float2);
-    col_raw = row_raw + static_cast<size_t>(kTRows) * rw * sizeof(float);
+    col_raw = row_raw + static_cast<size_t>(TR) * rw * sizeof(float);
     tables = col_raw + static_cast<size_t>(kBlockCols) * cw * sizeof(float);
-    bytes = tables + (kMaxN + 128) * sizeof(float) + (kMaxN + 1) * sizeof(int);
+    bytes = tables + (Blk<TR>::kMaxN + 128) * sizeof(float) + (Blk<TR>::kMaxN + 1) * sizeof(int);
   }
 };
 
 // cp.async of one user's rows r0 .. r0+R (src, stride ld_src), columns off ..
 // off+w, into raw (stride ldr) as W columns: zeros past w and at or past
-// lim. vec: 16-byte copies (ld_src, off and w multiples of 4).
-template <int W>
+// lim, by NTHR threads. vec: 16-byte copies (ld_src, off and w multiples of 4).
+template <int W, int NTHR>
 __device__ __forceinline__ void copy_rows(float* raw, int ldr, const float* src, int ld_src,
                                           int off, int w, int r0, int R, int lim, bool vec,
                                           int tid) {
   if (vec) {
-    for (int e = tid; e < R * (W / 4); e += kAttnThreads) {
+    for (int e = tid; e < R * (W / 4); e += NTHR) {
       const int r = e / (W / 4), c = e % (W / 4) * 4;
       const bool ok = r0 + r < lim && c < w;
       tc::cp_async16(raw + r * ldr + c,
                      ok ? src + static_cast<int64_t>(r0 + r) * ld_src + off + c : src, ok);
     }
   } else {
-    for (int e = tid; e < R * W; e += kAttnThreads) {
+    for (int e = tid; e < R * W; e += NTHR) {
       const int r = e / W, c = e % W;
       const bool ok = r0 + r < lim && c < w;
       cp_async4(raw + r * ldr + c, ok ? src + static_cast<int64_t>(r0 + r) * ld_src + off + c : src,
@@ -506,26 +532,28 @@ __device__ __forceinline__ void copy_rows(float* raw, int ldr, const float* src,
   }
 }
 
-// R x W raw values (stride ldr) times scale, split into dst (stride ld).
-template <int W>
+// R x W raw values (stride ldr) times scale, split into dst (stride ld), by
+// NTHR threads.
+template <int W, int NTHR>
 __device__ __forceinline__ void split_rows(float2* dst, int ld, const float* raw, int ldr, int R,
                                            float scale, int tid) {
-  for (int e = tid; e < R * W; e += kAttnThreads) {
+  for (int e = tid; e < R * W; e += NTHR) {
     const int r = e / W, c = e % W;
     dst[r * ld + c] = split(raw[r * ldr + c] * scale);
   }
 }
 
-// Column validity (zeros past n), and with the bias the time-bucket weights
-// and the extended timestamps.
+// Column validity [MAXN] (zeros past n), and with the bias the time-bucket
+// weights and the extended timestamps; NTHR threads.
+template <int NTHR, int MAXN>
 __device__ __forceinline__ void stage_attn_tables(const AttnArgs& p, int b, float* cm, float* tw,
                                                   int* ex, int tid) {
-  for (int j = tid; j < kMaxN; j += kAttnThreads)
+  for (int j = tid; j < MAXN; j += NTHR)
     cm[j] = j < p.n ? p.colmask[static_cast<int64_t>(b) * p.n + j] : 0.f;
   if (p.has_bias) {
-    for (int j = tid; j <= p.n; j += kAttnThreads)
+    for (int j = tid; j <= p.n; j += NTHR)
       ex[j] = p.ext[static_cast<int64_t>(b) * (p.n + 1) + j];
-    for (int k = tid; k < 128; k += kAttnThreads) tw[k] = p.tsw[k];
+    for (int k = tid; k < 128; k += NTHR) tw[k] = p.tsw[k];
   }
 }
 
@@ -590,8 +618,8 @@ __device__ __forceinline__ void zero(float (&acc)[W / 8][4]) {
 }
 
 // A warp's (16 x W) fragments into its column warp's slice of the reduction
-// buffer R [kColWarps][kTRows][ldr] at column c0.
-template <int W>
+// buffer R [kColWarps][TR][ldr] at column c0.
+template <int W, int TR>
 __device__ __forceinline__ void to_reduce(float* R, int ldr, int c0, const float (&acc)[W / 8][4],
                                           int wr, int wc, int g, int t) {
 #pragma unroll
@@ -599,25 +627,27 @@ __device__ __forceinline__ void to_reduce(float* R, int ldr, int c0, const float
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int r = wr * 16 + g + half * 8;
-      *reinterpret_cast<float2*>(R + (wc * kTRows + r) * ldr + c0 + dn * 8 + 2 * t) =
+      *reinterpret_cast<float2*>(R + (wc * TR + r) * ldr + c0 + dn * 8 + 2 * t) =
           make_float2(acc[dn][half * 2], acc[dn][half * 2 + 1]);
     }
 }
 
 // sum_w R[w][r][c] over the column warps in warp order.
+template <int TR>
 __device__ __forceinline__ float reduced(const float* R, int ldr, int r, int c) {
   float v = R[r * ldr + c];
 #pragma unroll
-  for (int w = 1; w < kColWarps; ++w) v += R[(w * kTRows + r) * ldr + c];
+  for (int w = 1; w < kColWarps; ++w) v += R[(w * TR + r) * ldr + c];
   return v;
 }
 
-// The bias block of rows i0 .. i0+63 (queries; dkv: keys j0 ..) and ncols
-// columns (keys 0 ..; dkv: queries j0 ..).
+// The bias block of TR rows i0 .. (queries; dkv: keys j0 ..) and ncols
+// columns (keys 0 ..; dkv: queries j0 ..), by NTHR threads.
+template <int TR, int NTHR>
 __device__ __forceinline__ void build_bias(const AttnArgs& p, float* Bc, int ldbc, int r0,
                                            int ncols, bool keys_as_rows, const float* cm,
                                            const float* tw, const int* ex, int tid) {
-  for (int e = tid; e < kTRows * ncols; e += kAttnThreads) {
+  for (int e = tid; e < TR * ncols; e += NTHR) {
     const int r = e / ncols, c = e % ncols;
     if (keys_as_rows) {
       const int j = r0 + r;
@@ -633,44 +663,46 @@ __device__ __forceinline__ void build_bias(const AttnArgs& p, float* Bc, int ldb
 // them into the hi/lo tiles between two barriers. A head's first step also
 // takes its row operands.
 
-// Forward (b): attn per (user, 64 query rows); see the note at the top.
-template <int DQP, int DVP>
-__global__ void __launch_bounds__(kAttnThreads, kAttnBlocksPerSm) tc_tf32_attn_kernel(AttnArgs p) {
+// Forward (b): attn per (user, TR query rows); see the note at the top.
+template <int DQP, int DVP, int TR>
+__global__ void __launch_bounds__(Blk<TR>::kThreads, 1) tc_tf32_attn_kernel(AttnArgs p) {
   extern __shared__ __align__(16) unsigned char tf32_smem[];
-  using L = AttnLayout<DQP, DVP>;
+  using K = Blk<TR>;
+  using L = AttnLayout<DQP, DVP, TR>;
+  constexpr int NT = K::kThreads;
   const L lay(kFwd, p.n);
-  float* Bc = reinterpret_cast<float*>(tf32_smem);                 // [64][ldbc] bias block
-  float2* Qr = reinterpret_cast<float2*>(tf32_smem + lay.rows);    // [kTRows][ldq]
+  float* Bc = reinterpret_cast<float*>(tf32_smem);                 // [TR][ldbc] bias block
+  float2* Qr = reinterpret_cast<float2*>(tf32_smem + lay.rows);    // [TR][ldq]
   float2* Kc = reinterpret_cast<float2*>(tf32_smem + lay.cols);    // [kBlockCols][ldq]
   float2* Vc = Kc + kBlockCols * L::ldq;                           // [kBlockCols][ldvp]
-  float* rraw = reinterpret_cast<float*>(tf32_smem + lay.row_raw); // [kTRows][DQP]
+  float* rraw = reinterpret_cast<float*>(tf32_smem + lay.row_raw); // [TR][DQP]
   float* craw = reinterpret_cast<float*>(tf32_smem + lay.col_raw); // [kBlockCols][DQP + DVP]
-  float* cm = reinterpret_cast<float*>(tf32_smem + lay.tables);    // [kMaxN]
-  float* tw = cm + kMaxN;                                          // [128]
-  int* ex = reinterpret_cast<int*>(tw + 128);                      // [kMaxN + 1]
+  float* cm = reinterpret_cast<float*>(tf32_smem + lay.tables);    // [K::kMaxN]
+  float* tw = cm + K::kMaxN;                                       // [128]
+  int* ex = reinterpret_cast<int*>(tw + 128);                      // [K::kMaxN + 1]
 
-  const int b = blockIdx.x, i0 = (gridDim.y - 1 - blockIdx.y) * kTRows;
+  const int b = blockIdx.x, i0 = (gridDim.y - 1 - blockIdx.y) * TR;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int wr = warp & (kRowWarps - 1), wc = warp >> kRowShift;
+  const int wr = warp & (K::kRowWarps - 1), wc = warp >> K::kRowShift;
   const int hdv = p.H * p.dv, hq = p.H * p.dqk;
   const float* yb = p.y + static_cast<int64_t>(b) * p.n * p.F;
-  const int jmax = min(i0 + kTRows, p.n), ncols = (jmax + 31) / 32 * 32;
+  const int jmax = min(i0 + TR, p.n), ncols = (jmax + 31) / 32 * 32;
   const int nblk = (jmax + kBlockCols - 1) / kBlockCols, steps = p.H * nblk;
   const bool vec = (p.dqk & 3) == 0 && (p.dv & 3) == 0;
   auto issue = [&](int hd, int blk) {
     if (blk == 0)
-      copy_rows<DQP>(rraw, DQP, yb, p.F, 2 * hdv + hd * p.dqk, p.dqk, i0, kTRows, p.n, vec, tid);
-    copy_rows<DQP>(craw, L::cw, yb, p.F, 2 * hdv + hq + hd * p.dqk, p.dqk, blk * kBlockCols,
-                   kBlockCols, jmax, vec, tid);
-    copy_rows<DVP>(craw + DQP, L::cw, yb, p.F, hdv + hd * p.dv, p.dv, blk * kBlockCols,
-                   kBlockCols, jmax, vec, tid);
+      copy_rows<DQP, NT>(rraw, DQP, yb, p.F, 2 * hdv + hd * p.dqk, p.dqk, i0, TR, p.n, vec, tid);
+    copy_rows<DQP, NT>(craw, L::cw, yb, p.F, 2 * hdv + hq + hd * p.dqk, p.dqk, blk * kBlockCols,
+                       kBlockCols, jmax, vec, tid);
+    copy_rows<DVP, NT>(craw + DQP, L::cw, yb, p.F, hdv + hd * p.dv, p.dv, blk * kBlockCols,
+                       kBlockCols, jmax, vec, tid);
     tc::cp_async_commit();
   };
 
   issue(0, 0);
-  stage_attn_tables(p, b, cm, tw, ex, tid);
+  stage_attn_tables<NT, K::kMaxN>(p, b, cm, tw, ex, tid);
   __syncthreads();
-  build_bias(p, Bc, lay.ldbc, i0, ncols, false, cm, tw, ex, tid);
+  build_bias<TR, NT>(p, Bc, lay.ldbc, i0, ncols, false, cm, tw, ex, tid);
   float O[DVP / 8][4];
   for (int st = 0; st < steps; ++st) {
     const int hd = st / nblk, blk = st % nblk, kb = blk * kBlockCols;
@@ -678,11 +710,11 @@ __global__ void __launch_bounds__(kAttnThreads, kAttnBlocksPerSm) tc_tf32_attn_k
     tc::cp_async_wait<0>();
     __syncthreads();  // this step's raw rows landed; the last step's readers are done
     if (blk == 0) {
-      split_rows<DQP>(Qr, L::ldq, rraw, DQP, kTRows, 1.f, tid);
+      split_rows<DQP, NT>(Qr, L::ldq, rraw, DQP, TR, 1.f, tid);
       zero<DVP>(O);
     }
-    split_rows<DQP>(Kc, L::ldq, craw, L::cw, kBlockCols, 1.f, tid);
-    split_rows<DVP>(Vc, L::ldvp, craw + DQP, L::cw, kBlockCols, p.inv_n, tid);
+    split_rows<DQP, NT>(Kc, L::ldq, craw, L::cw, kBlockCols, 1.f, tid);
+    split_rows<DVP, NT>(Vc, L::ldvp, craw + DQP, L::cw, kBlockCols, p.inv_n, tid);
     __syncthreads();
     if (st + 1 < steps) issue((st + 1) / nblk, (st + 1) % nblk);
     const int j0 = kb + wc * kTile;
@@ -704,62 +736,67 @@ __global__ void __launch_bounds__(kAttnThreads, kAttnBlocksPerSm) tc_tf32_attn_k
     }
     if (blk + 1 < nblk) continue;
     __syncthreads();  // every warp is past its products: the column tiles are free
-    float* R = reinterpret_cast<float*>(tf32_smem + lay.cols);   // [kColWarps][kTRows][DVP + 4]
+    float* R = reinterpret_cast<float*>(tf32_smem + lay.cols);   // [kColWarps][TR][DVP + 4]
     constexpr int ldr = DVP + 4;
-    to_reduce<DVP>(R, ldr, 0, O, wr, wc, g, t);
+    to_reduce<DVP, TR>(R, ldr, 0, O, wr, wc, g, t);
     __syncthreads();
-    for (int e = tid; e < kTRows * p.dv; e += kAttnThreads) {
+    for (int e = tid; e < TR * p.dv; e += NT) {
       const int r = e / p.dv, d = e % p.dv, i = i0 + r;
-      if (i < p.n) p.attn[(static_cast<int64_t>(b) * p.n + i) * hdv + hd * p.dv + d] = reduced(R, ldr, r, d);
+      if (i < p.n) {
+        p.attn[(static_cast<int64_t>(b) * p.n + i) * hdv + hd * p.dv + d] =
+            reduced<TR>(R, ldr, r, d);
+      }
     }
   }
 }
 
-// Backward (b): d_q and dbias per (user, 64 query rows); see the note at the top.
-template <int DQP, int DVP>
-__global__ void __launch_bounds__(kAttnThreads, kAttnBlocksPerSm) tc_tf32_dq_kernel(AttnArgs p) {
+// Backward (b): d_q and dbias per (user, TR query rows); see the note at the top.
+template <int DQP, int DVP, int TR>
+__global__ void __launch_bounds__(Blk<TR>::kThreads, 1) tc_tf32_dq_kernel(AttnArgs p) {
   extern __shared__ __align__(16) unsigned char tf32_smem[];
-  using L = AttnLayout<DQP, DVP>;
+  using K = Blk<TR>;
+  using L = AttnLayout<DQP, DVP, TR>;
+  constexpr int NT = K::kThreads;
   const L lay(kDq, p.n);
-  float* Bc = reinterpret_cast<float*>(tf32_smem);                 // [64][ldbc]
-  float2* Qr = reinterpret_cast<float2*>(tf32_smem + lay.rows);    // [kTRows][ldq]
-  float2* Dr = Qr + kTRows * L::ldq;                               // [kTRows][ldv] d_attn
+  float* Bc = reinterpret_cast<float*>(tf32_smem);                 // [TR][ldbc]
+  float2* Qr = reinterpret_cast<float2*>(tf32_smem + lay.rows);    // [TR][ldq]
+  float2* Dr = Qr + TR * L::ldq;                                   // [TR][ldv] d_attn
   float2* Kc = reinterpret_cast<float2*>(tf32_smem + lay.cols);    // [kBlockCols][ldq]
   float2* Vc = Kc + kBlockCols * L::ldq;                           // [kBlockCols][ldv]
-  float* rraw = reinterpret_cast<float*>(tf32_smem + lay.row_raw); // [kTRows][DQP + DVP]
+  float* rraw = reinterpret_cast<float*>(tf32_smem + lay.row_raw); // [TR][DQP + DVP]
   float* craw = reinterpret_cast<float*>(tf32_smem + lay.col_raw); // [kBlockCols][DQP + DVP]
   float* cm = reinterpret_cast<float*>(tf32_smem + lay.tables);
-  float* tw = cm + kMaxN;
+  float* tw = cm + K::kMaxN;
   int* ex = reinterpret_cast<int*>(tw + 128);
 
-  const int b = blockIdx.x, i0 = (gridDim.y - 1 - blockIdx.y) * kTRows;
+  const int b = blockIdx.x, i0 = (gridDim.y - 1 - blockIdx.y) * TR;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int wr = warp & (kRowWarps - 1), wc = warp >> kRowShift;
+  const int wr = warp & (K::kRowWarps - 1), wc = warp >> K::kRowShift;
   const int hdv = p.H * p.dv, hq = p.H * p.dqk;
   const float* yb = p.y + static_cast<int64_t>(b) * p.n * p.F;
   const float* db_attn = p.d_attn + static_cast<int64_t>(b) * p.n * hdv;
-  const int jmax = min(i0 + kTRows, p.n), ncols = (jmax + 31) / 32 * 32;
+  const int jmax = min(i0 + TR, p.n), ncols = (jmax + 31) / 32 * 32;
   const int nblk = (jmax + kBlockCols - 1) / kBlockCols;
   const bool vec = (p.dqk & 3) == 0 && (p.dv & 3) == 0;
   auto issue = [&](int hd, int blk) {
     if (blk == 0) {
-      copy_rows<DQP>(rraw, L::cw, yb, p.F, 2 * hdv + hd * p.dqk, p.dqk, i0, kTRows, p.n, vec, tid);
-      copy_rows<DVP>(rraw + DQP, L::cw, db_attn, hdv, hd * p.dv, p.dv, i0, kTRows, p.n, vec, tid);
+      copy_rows<DQP, NT>(rraw, L::cw, yb, p.F, 2 * hdv + hd * p.dqk, p.dqk, i0, TR, p.n, vec, tid);
+      copy_rows<DVP, NT>(rraw + DQP, L::cw, db_attn, hdv, hd * p.dv, p.dv, i0, TR, p.n, vec, tid);
     }
-    copy_rows<DQP>(craw, L::cw, yb, p.F, 2 * hdv + hq + hd * p.dqk, p.dqk, blk * kBlockCols,
-                   kBlockCols, jmax, vec, tid);
-    copy_rows<DVP>(craw + DQP, L::cw, yb, p.F, hdv + hd * p.dv, p.dv, blk * kBlockCols,
-                   kBlockCols, jmax, vec, tid);
+    copy_rows<DQP, NT>(craw, L::cw, yb, p.F, 2 * hdv + hq + hd * p.dqk, p.dqk, blk * kBlockCols,
+                       kBlockCols, jmax, vec, tid);
+    copy_rows<DVP, NT>(craw + DQP, L::cw, yb, p.F, hdv + hd * p.dv, p.dv, blk * kBlockCols,
+                       kBlockCols, jmax, vec, tid);
     tc::cp_async_commit();
   };
 
   issue(0, 0);
-  stage_attn_tables(p, b, cm, tw, ex, tid);
+  stage_attn_tables<NT, K::kMaxN>(p, b, cm, tw, ex, tid);
   __syncthreads();
-  build_bias(p, Bc, lay.ldbc, i0, ncols, false, cm, tw, ex, tid);
-  float db[kSlots][4][4];   // sum_h d_s over the warp's key tile of each column block
+  build_bias<TR, NT>(p, Bc, lay.ldbc, i0, ncols, false, cm, tw, ex, tid);
+  float db[K::kSlots][4][4];   // sum_h d_s over the warp's key tile of each column block
 #pragma unroll
-  for (int s = 0; s < kSlots; ++s)
+  for (int s = 0; s < K::kSlots; ++s)
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
@@ -769,16 +806,16 @@ __global__ void __launch_bounds__(kAttnThreads, kAttnBlocksPerSm) tc_tf32_dq_ker
     float dQ[DQP / 8][4];
     zero<DQP>(dQ);
 #pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
+    for (int s = 0; s < K::kSlots; ++s) {
       if (s >= nblk) break;
       tc::cp_async_wait<0>();
       __syncthreads();
       if (s == 0) {
-        split_rows<DQP>(Qr, L::ldq, rraw, L::cw, kTRows, 1.f, tid);
-        split_rows<DVP>(Dr, L::ldv, rraw + DQP, L::cw, kTRows, 1.f, tid);
+        split_rows<DQP, NT>(Qr, L::ldq, rraw, L::cw, TR, 1.f, tid);
+        split_rows<DVP, NT>(Dr, L::ldv, rraw + DQP, L::cw, TR, 1.f, tid);
       }
-      split_rows<DQP>(Kc, L::ldq, craw, L::cw, kBlockCols, 1.f, tid);
-      split_rows<DVP>(Vc, L::ldv, craw + DQP, L::cw, kBlockCols, p.inv_n, tid);
+      split_rows<DQP, NT>(Kc, L::ldq, craw, L::cw, kBlockCols, 1.f, tid);
+      split_rows<DVP, NT>(Vc, L::ldv, craw + DQP, L::cw, kBlockCols, p.inv_n, tid);
       __syncthreads();
       if (s + 1 < nblk) {
         issue(hd, s + 1);
@@ -807,15 +844,15 @@ __global__ void __launch_bounds__(kAttnThreads, kAttnBlocksPerSm) tc_tf32_dq_ker
       c_by_rows<DQP>(dQ, S, Kc + wc * kTile * L::ldq, L::ldq, g, t);
     }
     __syncthreads();
-    float* R = reinterpret_cast<float*>(tf32_smem + lay.cols);   // [kColWarps][kTRows][DQP + 4]
+    float* R = reinterpret_cast<float*>(tf32_smem + lay.cols);   // [kColWarps][TR][DQP + 4]
     constexpr int ldr = DQP + 4;
-    to_reduce<DQP>(R, ldr, 0, dQ, wr, wc, g, t);
+    to_reduce<DQP, TR>(R, ldr, 0, dQ, wr, wc, g, t);
     __syncthreads();
-    for (int e = tid; e < kTRows * p.dqk; e += kAttnThreads) {
+    for (int e = tid; e < TR * p.dqk; e += NT) {
       const int r = e / p.dqk, d = e % p.dqk, i = i0 + r;
       if (i < p.n) {
         p.d_y[(static_cast<int64_t>(b) * p.n + i) * p.F + 2 * hdv + hd * p.dqk + d] =
-            reduced(R, ldr, r, d);
+            reduced<TR>(R, ldr, r, d);
       }
     }
   }
@@ -823,7 +860,7 @@ __global__ void __launch_bounds__(kAttnThreads, kAttnBlocksPerSm) tc_tf32_dq_ker
   // dbias through the bias block (dead after the last head), then whole rows.
   __syncthreads();
 #pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
+  for (int s = 0; s < K::kSlots; ++s) {
     const int j0 = s * kBlockCols + wc * kTile;
     if (j0 >= ncols) continue;
 #pragma unroll
@@ -836,34 +873,36 @@ __global__ void __launch_bounds__(kAttnThreads, kAttnBlocksPerSm) tc_tf32_dq_ker
       }
   }
   __syncthreads();
-  const int rows = min(kTRows, p.n - i0);
-  for (int e = tid; e < rows * p.n; e += kAttnThreads) {
+  const int rows = min(TR, p.n - i0);
+  for (int e = tid; e < rows * p.n; e += NT) {
     const int r = e / p.n, j = e % p.n;
     p.dbias[(static_cast<int64_t>(b) * p.n + i0 + r) * p.n + j] =
         j < ncols ? Bc[r * lay.ldbc + j] : 0.f;
   }
 }
 
-// Backward (c): d_k and d_v per (user, 64 key rows); see the note at the top.
-template <int DQP, int DVP>
-__global__ void __launch_bounds__(kAttnThreads, kAttnBlocksPerSm) tc_tf32_dkv_kernel(AttnArgs p) {
+// Backward (c): d_k and d_v per (user, TR key rows); see the note at the top.
+template <int DQP, int DVP, int TR>
+__global__ void __launch_bounds__(Blk<TR>::kThreads, 1) tc_tf32_dkv_kernel(AttnArgs p) {
   extern __shared__ __align__(16) unsigned char tf32_smem[];
-  using L = AttnLayout<DQP, DVP>;
+  using K = Blk<TR>;
+  using L = AttnLayout<DQP, DVP, TR>;
+  constexpr int NT = K::kThreads;
   const L lay(kDkv, p.n);
-  float* Bc = reinterpret_cast<float*>(tf32_smem);                 // [64 keys][ldbc queries]
-  float2* Kr = reinterpret_cast<float2*>(tf32_smem + lay.rows);    // [kTRows][ldq]
-  float2* Vr = Kr + kTRows * L::ldq;                               // [kTRows][ldv]
+  float* Bc = reinterpret_cast<float*>(tf32_smem);                 // [TR keys][ldbc queries]
+  float2* Kr = reinterpret_cast<float2*>(tf32_smem + lay.rows);    // [TR][ldq]
+  float2* Vr = Kr + TR * L::ldq;                                   // [TR][ldv]
   float2* Qc = reinterpret_cast<float2*>(tf32_smem + lay.cols);    // [kBlockCols][ldq]
   float2* Dc = Qc + kBlockCols * L::ldq;                           // [kBlockCols][ldv] d_attn
-  float* rraw = reinterpret_cast<float*>(tf32_smem + lay.row_raw); // [kTRows][DQP + DVP]
+  float* rraw = reinterpret_cast<float*>(tf32_smem + lay.row_raw); // [TR][DQP + DVP]
   float* craw = reinterpret_cast<float*>(tf32_smem + lay.col_raw); // [kBlockCols][DQP + DVP]
   float* cm = reinterpret_cast<float*>(tf32_smem + lay.tables);
-  float* tw = cm + kMaxN;
+  float* tw = cm + K::kMaxN;
   int* ex = reinterpret_cast<int*>(tw + 128);
 
-  const int b = blockIdx.x, j0 = blockIdx.y * kTRows;   // heavy key tiles (most queries) first
+  const int b = blockIdx.x, j0 = blockIdx.y * TR;   // heavy key tiles (most queries) first
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int wr = warp & (kRowWarps - 1), wc = warp >> kRowShift;
+  const int wr = warp & (K::kRowWarps - 1), wc = warp >> K::kRowShift;
   const int hdv = p.H * p.dv, hq = p.H * p.dqk;
   const float* yb = p.y + static_cast<int64_t>(b) * p.n * p.F;
   const float* db_attn = p.d_attn + static_cast<int64_t>(b) * p.n * hdv;
@@ -872,21 +911,22 @@ __global__ void __launch_bounds__(kAttnThreads, kAttnBlocksPerSm) tc_tf32_dkv_ke
   const bool vec = (p.dqk & 3) == 0 && (p.dv & 3) == 0;
   auto issue = [&](int hd, int blk) {
     if (blk == 0) {
-      copy_rows<DQP>(rraw, L::cw, yb, p.F, 2 * hdv + hq + hd * p.dqk, p.dqk, j0, kTRows, p.n, vec,
-                     tid);
-      copy_rows<DVP>(rraw + DQP, L::cw, yb, p.F, hdv + hd * p.dv, p.dv, j0, kTRows, p.n, vec, tid);
+      copy_rows<DQP, NT>(rraw, L::cw, yb, p.F, 2 * hdv + hq + hd * p.dqk, p.dqk, j0, TR, p.n, vec,
+                         tid);
+      copy_rows<DVP, NT>(rraw + DQP, L::cw, yb, p.F, hdv + hd * p.dv, p.dv, j0, TR, p.n, vec, tid);
     }
     const int qb = j0 + blk * kBlockCols;
-    copy_rows<DQP>(craw, L::cw, yb, p.F, 2 * hdv + hd * p.dqk, p.dqk, qb, kBlockCols, p.n, vec,
-                   tid);
-    copy_rows<DVP>(craw + DQP, L::cw, db_attn, hdv, hd * p.dv, p.dv, qb, kBlockCols, p.n, vec, tid);
+    copy_rows<DQP, NT>(craw, L::cw, yb, p.F, 2 * hdv + hd * p.dqk, p.dqk, qb, kBlockCols, p.n, vec,
+                       tid);
+    copy_rows<DVP, NT>(craw + DQP, L::cw, db_attn, hdv, hd * p.dv, p.dv, qb, kBlockCols, p.n, vec,
+                       tid);
     tc::cp_async_commit();
   };
 
   issue(0, 0);
-  stage_attn_tables(p, b, cm, tw, ex, tid);
+  stage_attn_tables<NT, K::kMaxN>(p, b, cm, tw, ex, tid);
   __syncthreads();
-  build_bias(p, Bc, lay.ldbc, j0, ncols, true, cm, tw, ex, tid);
+  build_bias<TR, NT>(p, Bc, lay.ldbc, j0, ncols, true, cm, tw, ex, tid);
   float dK[DQP / 8][4], dV[DVP / 8][4];
   for (int st = 0; st < steps; ++st) {
     const int hd = st / nblk, blk = st % nblk, qb = j0 + blk * kBlockCols;
@@ -894,13 +934,13 @@ __global__ void __launch_bounds__(kAttnThreads, kAttnBlocksPerSm) tc_tf32_dkv_ke
     tc::cp_async_wait<0>();
     __syncthreads();
     if (blk == 0) {
-      split_rows<DQP>(Kr, L::ldq, rraw, L::cw, kTRows, 1.f, tid);
-      split_rows<DVP>(Vr, L::ldv, rraw + DQP, L::cw, kTRows, p.inv_n, tid);
+      split_rows<DQP, NT>(Kr, L::ldq, rraw, L::cw, TR, 1.f, tid);
+      split_rows<DVP, NT>(Vr, L::ldv, rraw + DQP, L::cw, TR, p.inv_n, tid);
       zero<DQP>(dK);
       zero<DVP>(dV);
     }
-    split_rows<DQP>(Qc, L::ldq, craw, L::cw, kBlockCols, 1.f, tid);
-    split_rows<DVP>(Dc, L::ldv, craw + DQP, L::cw, kBlockCols, 1.f, tid);
+    split_rows<DQP, NT>(Qc, L::ldq, craw, L::cw, kBlockCols, 1.f, tid);
+    split_rows<DVP, NT>(Dc, L::ldv, craw + DQP, L::cw, kBlockCols, 1.f, tid);
     __syncthreads();
     if (st + 1 < steps) issue((st + 1) / nblk, (st + 1) % nblk);
     const int q0 = qb + wc * kTile;
@@ -928,21 +968,21 @@ __global__ void __launch_bounds__(kAttnThreads, kAttnBlocksPerSm) tc_tf32_dkv_ke
     }
     if (blk + 1 < nblk) continue;
     __syncthreads();
-    // [kColWarps][kTRows][DQP + DVP + 8]
+    // [kColWarps][TR][DQP + DVP + 8]
     float* R = reinterpret_cast<float*>(tf32_smem + lay.cols);
     constexpr int ldr = DQP + DVP + 8;
-    to_reduce<DQP>(R, ldr, 0, dK, wr, wc, g, t);
-    to_reduce<DVP>(R, ldr, DQP + 4, dV, wr, wc, g, t);
+    to_reduce<DQP, TR>(R, ldr, 0, dK, wr, wc, g, t);
+    to_reduce<DVP, TR>(R, ldr, DQP + 4, dV, wr, wc, g, t);
     __syncthreads();
     const int koff = 2 * hdv + hq + hd * p.dqk, voff = hdv + hd * p.dv;
-    for (int e = tid; e < kTRows * (p.dqk + p.dv); e += kAttnThreads) {
+    for (int e = tid; e < TR * (p.dqk + p.dv); e += NT) {
       const int r = e / (p.dqk + p.dv), c = e % (p.dqk + p.dv), j = j0 + r;
       if (j >= p.n) continue;
       float* dyj = p.d_y + (static_cast<int64_t>(b) * p.n + j) * p.F;
       if (c < p.dqk) {
-        dyj[koff + c] = reduced(R, ldr, r, c);
+        dyj[koff + c] = reduced<TR>(R, ldr, r, c);
       } else {
-        dyj[voff + c - p.dqk] = reduced(R, ldr, r, DQP + 4 + c - p.dqk) * p.inv_n;
+        dyj[voff + c - p.dqk] = reduced<TR>(R, ldr, r, DQP + 4 + c - p.dqk) * p.inv_n;
       }
     }
   }
@@ -950,25 +990,39 @@ __global__ void __launch_bounds__(kAttnThreads, kAttnBlocksPerSm) tc_tf32_dkv_ke
 
 // ---- host launchers ----------------------------------------------------------
 
-template <int DQP, int DVP>
-cudaError_t launch_attn_kind(int kind, const AttnArgs& p, int B, cudaStream_t s) {
-  const size_t smem = AttnLayout<DQP, DVP>(kind, p.n).bytes;
-  const dim3 grid(B, (p.n + kTRows - 1) / kTRows);
+template <int DQP, int DVP, int TR>
+cudaError_t launch_attn_rows(int kind, const AttnArgs& p, int B, cudaStream_t s) {
+  const size_t smem = AttnLayout<DQP, DVP, TR>(kind, p.n).bytes;
+  const dim3 grid(B, (p.n + TR - 1) / TR);
+  constexpr int threads = Blk<TR>::kThreads;
   cudaError_t err;
   switch (kind) {
     case kFwd:
-      if ((err = allow_smem(tc_tf32_attn_kernel<DQP, DVP>, smem)) != cudaSuccess) return err;
-      tc_tf32_attn_kernel<DQP, DVP><<<grid, kAttnThreads, smem, s>>>(p);
+      if ((err = allow_smem(tc_tf32_attn_kernel<DQP, DVP, TR>, smem)) != cudaSuccess) return err;
+      tc_tf32_attn_kernel<DQP, DVP, TR><<<grid, threads, smem, s>>>(p);
       break;
     case kDq:
-      if ((err = allow_smem(tc_tf32_dq_kernel<DQP, DVP>, smem)) != cudaSuccess) return err;
-      tc_tf32_dq_kernel<DQP, DVP><<<grid, kAttnThreads, smem, s>>>(p);
+      if ((err = allow_smem(tc_tf32_dq_kernel<DQP, DVP, TR>, smem)) != cudaSuccess) return err;
+      tc_tf32_dq_kernel<DQP, DVP, TR><<<grid, threads, smem, s>>>(p);
       break;
     default:
-      if ((err = allow_smem(tc_tf32_dkv_kernel<DQP, DVP>, smem)) != cudaSuccess) return err;
-      tc_tf32_dkv_kernel<DQP, DVP><<<grid, kAttnThreads, smem, s>>>(p);
+      if ((err = allow_smem(tc_tf32_dkv_kernel<DQP, DVP, TR>, smem)) != cudaSuccess) return err;
+      tc_tf32_dkv_kernel<DQP, DVP, TR><<<grid, threads, smem, s>>>(p);
   }
   return cudaGetLastError();
+}
+
+// 64-row blocks up to n = 256, 32-row ones past it (`block_rows`).
+template <int DQP, int DVP>
+cudaError_t launch_attn_kind(int kind, const AttnArgs& p, int B, cudaStream_t s) {
+  return block_rows(p.n) == 64 ? launch_attn_rows<DQP, DVP, 64>(kind, p, B, s)
+                               : launch_attn_rows<DQP, DVP, 32>(kind, p, B, s);
+}
+
+template <int DQP, int DVP>
+size_t attn_layout_bytes(int kind, int n) {
+  return block_rows(n) == 64 ? AttnLayout<DQP, DVP, 64>(kind, n).bytes
+                             : AttnLayout<DQP, DVP, 32>(kind, n).bytes;
 }
 
 // One attention launch (forward, dq or dkv) at the instance of its padded widths.
@@ -985,8 +1039,8 @@ cudaError_t launch_attn(int kind, const AttnArgs& p, int B, cudaStream_t s) {
 
 size_t attn_smem_bytes(int kind, int n, int dqk, int dv) {
   const bool q16 = pad_w(dqk) == 16, v16 = pad_w(dv) == 16;
-  if (q16) return v16 ? AttnLayout<16, 16>(kind, n).bytes : AttnLayout<16, 32>(kind, n).bytes;
-  return v16 ? AttnLayout<32, 16>(kind, n).bytes : AttnLayout<32, 32>(kind, n).bytes;
+  if (q16) return v16 ? attn_layout_bytes<16, 16>(kind, n) : attn_layout_bytes<16, 32>(kind, n);
+  return v16 ? attn_layout_bytes<32, 16>(kind, n) : attn_layout_bytes<32, 32>(kind, n);
 }
 
 cudaError_t launch_proj(const GemmArgs& p, cudaStream_t s) {

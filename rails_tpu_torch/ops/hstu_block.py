@@ -23,7 +23,7 @@ of `csrc/hstu_block_tc.cuh` (mma.sync bf16): the projection stores u in f32
 and v, q, k as the bf16 values the JAX kernel rounds them to (`project`), the
 attention builds the bias once for all heads and writes o_input in bf16
 (`attention_oinput`), and `out_gemm` adds bo and x. f32 operands at the
-same widths with n <= 256 and the SiLU projection (`tf32_block`) run the
+same widths with n <= 512 and the SiLU projection (`tf32_block`) run the
 3xTF32 kernels of `csrc/hstu_serve_tf32.cuh` (mma.sync, every product as lo.hi
 + hi.lo + hi.hi of split f32 operands): `tf32_project` writes y = [u | v | q |
 k] in f32, `tf32_attention` attn in f32 (pointwise, or the softmax map), and
@@ -56,10 +56,15 @@ from rails_tpu_torch.ops import _build
 _INV_LOG_BASE = torch.tensor(1.0 / 0.301, dtype=torch.float32)
 # Shared memory one Hopper block may use.
 MAX_SMEM_BYTES = 232_448
-# The longest sequence of K1's f32 route on the tensor cores: a block of 64
-# rows holds the bias (softmax: the scores) of every key (`kTf32MaxN`,
-# csrc/hstu_block_tc.cuh).
-TF32_MAX_N = 256
+# The widest D of the tensor-core routes (`kMaxD`, csrc/hstu_block_tc.cuh): the
+# rated preprocessor's 256 + 8 fits a block's LayerNorm'd x rows.
+TC_MAX_D = 272
+# The longest sequence of K1's f32 route on the tensor cores (`kTf32MaxN`,
+# csrc/hstu_block_tc.cuh), the combined preprocessor's 2 x 211 within it: the
+# pointwise attention holds a block's bias rows of every key, 171 KB at 512.
+# The softmax one holds its (64, n) scores and takes n only where they fit
+# (`tf32_softmax_smem_bytes`).
+TF32_MAX_N = 512
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -83,8 +88,9 @@ _TC_STATIC_SMEM = 2 * 64 * 2 * 4
 
 def tc_route(dtype: torch.dtype, d: int, num_heads: int, dqk: int, dv: int) -> bool:
     """The width rule of K1's tensor-core kernels (`widths_ok` in
-    csrc/hstu_block_tc.cuh): bf16 operands, D <= 256 (a block's LayerNorm'd x
-    rows fit the projection's A tile), dqk <= 32 and dv <= 32 (heads padded
+    csrc/hstu_block_tc.cuh): bf16 operands, D <= TC_MAX_D = 272 (a block's
+    LayerNorm'd x rows fit the projection's A tile; the rated preprocessor's
+    264 among them), dqk <= 32 and dv <= 32 (heads padded
     to 16 or 32 and to 8, 16 or 32 columns), and at most 4 heads a head warp
     (h <= 3, or an even h <= 8). f32, and bf16 at any other width, run the
     CUDA-core kernels of csrc/hstu_block.cuh."""
@@ -92,10 +98,10 @@ def tc_route(dtype: torch.dtype, d: int, num_heads: int, dqk: int, dv: int) -> b
 
 
 def tc_widths(d: int, num_heads: int, dqk: int, dv: int) -> bool:
-    """`tc_route`'s widths whatever the dtype: D <= 256, dqk and dv <= 32, h
+    """`tc_route`'s widths whatever the dtype: D <= 272, dqk and dv <= 32, h
     <= 3 or an even h <= 8 (K4's f32 route takes them too)."""
     warps = 2 if num_heads % 2 == 0 else 1
-    return (1 <= d <= 256 and 1 <= dqk <= 32 and 1 <= dv <= 32
+    return (1 <= d <= TC_MAX_D and 1 <= dqk <= 32 and 1 <= dv <= 32
             and num_heads >= 1 and num_heads // warps <= _TC_HEADS_PER_WARP)
 
 
@@ -109,24 +115,45 @@ def tc_block(dtype: torch.dtype, d: int, num_heads: int, dqk: int, dv: int,
     plain path on 0.945 of the top-120 ids, and a plain path whose GEMMs run
     in f64 on 0.951, below E2E_TOL's 0.96, while the CUDA-core kernels'
     sequential f32 sums agree on 0.973 (`profile_k1_agreement.py`, PERF.md
-    §6). The SiLU variants agree on 0.968-0.985 through the tensor cores."""
+    §6). The SiLU variants agree on 0.968-0.985 through the tensor cores. The
+    rated (D = 264) and combined (n = 422) preprocessors' SiLU blocks take
+    the tensor cores in bf16 and f32 (`tf32_block`); activation none stays
+    here for them too."""
     return activation == "silu" and tc_route(dtype, d, num_heads, dqk, dv)
 
 
+def tf32_softmax_smem_bytes(n: int, num_heads: int, dqk: int, dv: int) -> int:
+    """Dynamic shared memory of K1's f32 softmax attention at length n
+    (`SoftLayout` in csrc/hstu_serve_tf32.cuh): the (64, n) f32 scores, the
+    64 q rows, two 32-key ring stages, and the tables (sized for
+    TF32_MAX_N). 201 KB at n = 256 and 225 KB at n = 352 for h*dqk = h*dv =
+    256; past that it does not fit."""
+    def up(x: int, m: int) -> int:
+        return -(-x // m) * m
+
+    ldq, ldv = up(num_heads * dqk, 8) + 4, up(num_heads * dv, 8) + 4
+    floats = 64 * (up(n, 32) + 8) + 64 * ldq + 2 * 32 * max(ldq, ldv) + TF32_MAX_N + 128
+    return 4 * floats + 4 * (TF32_MAX_N + 1 + TF32_MAX_N // 32 + 1)
+
+
 def tf32_block(dtype: torch.dtype, d: int, n: int, num_heads: int, dqk: int, dv: int,
-               activation: str) -> bool:
+               activation: str, softmax: bool = False) -> bool:
     """Whether `fused_hstu_block` runs K1's f32 serving route on the tensor
     cores, every product as 3xTF32 (csrc/hstu_serve_tf32.cuh: `tf32_project`,
     `tf32_attention`, `tf32_out_gemm`): f32 operands at `tc_widths` (D <=
-    256, dqk and dv <= 32, h <= 3 or an even h <= 8) with 1 <= n <=
-    TF32_MAX_N and the SiLU projection; any bias (in-kernel, precomputed raw
-    or with mask_in_bias, none), concat_ua, pointwise or softmax attention.
+    272, dqk and dv <= 32, h <= 3 or an even h <= 8) with 1 <= n <=
+    TF32_MAX_N = 512 and the SiLU projection; any bias (in-kernel,
+    precomputed raw or with mask_in_bias, none), concat_ua, pointwise or
+    softmax attention, the softmax one where its scores fit a block
+    (`tf32_softmax_smem_bytes`: n <= 352 at ML-20M's widths). The rated (D =
+    264) and combined (n = 422) preprocessors' blocks take it.
     linear_activation="none" stays on the CUDA-core kernels, as `tc_block`
     says for bf16: its unsquashed projection carries the GEMMs' order of f32
-    sums into the served ranking. Wider heads and longer sequences stay there
-    too."""
+    sums into the served ranking. Wider heads, longer sequences and the
+    softmax attention past its fit stay there too."""
     return (dtype == torch.float32 and activation == "silu" and 1 <= n <= TF32_MAX_N
-            and tc_widths(d, num_heads, dqk, dv))
+            and tc_widths(d, num_heads, dqk, dv)
+            and (not softmax or tf32_softmax_smem_bytes(n, num_heads, dqk, dv) <= MAX_SMEM_BYTES))
 
 
 def require_tf32(dtype: torch.dtype, d: int, n: int, num_heads: int, dqk: int, dv: int,
@@ -135,8 +162,8 @@ def require_tf32(dtype: torch.dtype, d: int, n: int, num_heads: int, dqk: int, d
     f32 route's stage kernels have no other instance."""
     if not tf32_block(dtype, d, n, num_heads, dqk, dv, "silu"):
         raise ValueError(f"{what}: no 3xTF32 instance for {dtype}, D={d}, n={n}, h={num_heads}, "
-                         f"dqk={dqk}, dv={dv} (tf32_block: f32, D <= 256, dqk and dv <= 32, "
-                         f"h <= 3 or an even h <= 8, n <= {TF32_MAX_N})")
+                         f"dqk={dqk}, dv={dv} (tf32_block: f32, D <= {TC_MAX_D}, dqk and dv "
+                         f"<= 32, h <= 3 or an even h <= 8, n <= {TF32_MAX_N})")
 
 
 def require_tc(dtype: torch.dtype, d: int, num_heads: int, dqk: int, dv: int, what: str) -> None:
@@ -144,8 +171,8 @@ def require_tc(dtype: torch.dtype, d: int, num_heads: int, dqk: int, dv: int, wh
     kernels have no other instance."""
     if not tc_route(dtype, d, num_heads, dqk, dv):
         raise ValueError(f"{what}: no tensor-core instance for {dtype}, D={d}, h={num_heads}, "
-                         f"dqk={dqk}, dv={dv} (tc_route: bf16, D <= 256, dqk and dv <= 32, "
-                         f"h <= 3 or an even h <= 8)")
+                         f"dqk={dqk}, dv={dv} (tc_route: bf16, D <= {TC_MAX_D}, dqk and dv "
+                         f"<= 32, h <= 3 or an even h <= 8)")
 
 
 def vqk_layout(num_heads: int, dqk: int, dv: int) -> Tuple[int, int, int]:
@@ -736,7 +763,7 @@ def fused_hstu_block(
     _check("fused_hstu_block", expect)
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f"fused_hstu_block: unsupported dtype {x.dtype}")
-    if tf32_block(x.dtype, d, n, h, dqk, dv, activation):
+    if tf32_block(x.dtype, d, n, h, dqk, dv, activation, softmax):
         y = tf32_project(x, uvqk, num_heads=h, dqk=dqk, dv=dv, eps=eps)
         attn = tf32_attention(y, colmask, rel_pos, ext, tsw, num_heads=h, dqk=dqk, dv=dv,
                               inv_n=inv_n, num_buckets=num_buckets, bias=bias,

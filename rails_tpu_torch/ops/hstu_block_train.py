@@ -22,7 +22,7 @@ any head dim, with f32 or bf16 operands (the matmul dtype is the weights',
   (`tc_fwd_route`) runs on the tensor cores: K1's `project` and `out_gemm`
   around `train_attention_oinput`, the TRAIN instance of K1's tensor-core
   attention (`csrc/hstu_block_tc.cuh`: both keep masks before their
-  roundings, attn written in f32). f32 at those widths with n <= 256, the
+  roundings, attn written in f32). f32 at those widths with n <= 512, the
   SiLU projection and the pointwise attention (`tf32_fwd_route`) runs on
   the tensor cores too, every product as 3xTF32 (`csrc/hstu_train_tf32.cuh`):
   `tf32_project`, `tf32_attention` and `tf32_out_gemm`, with plain versions
@@ -105,9 +105,12 @@ PENALTY = 30000.0
 # Head dims the backward kernel holds in registers at a time; wider heads
 # run its WIDE instances in chunks of this many.
 HEAD_DIM_CHUNK = 32
-# The longest sequence of K4's f32 route on the tensor cores: a block of 64
-# rows holds the bias of every key (`kTf32MaxN`, csrc/hstu_block_tc.cuh).
-TF32_MAX_N = 256
+# The longest sequence of K4's f32 route on the tensor cores (`kTf32MaxN`,
+# csrc/hstu_block_tc.cuh), the combined preprocessor's 2 x 211 within it: a
+# block holds its rows' bias for every key, so past n = 256 the attention
+# kernels take 32-row blocks instead of 64 (`block_rows`,
+# csrc/hstu_train_tf32.cuh), 200 KB at 512.
+TF32_MAX_N = 512
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -185,7 +188,7 @@ def _check_variant(meta: BlockMeta, rel_pos, ext, tsw) -> bool:
 
 def tc_fwd_route(dtype: torch.dtype, d: int, meta: BlockMeta) -> bool:
     """Whether `fused_train_block_forward` runs on the tensor cores: K1's
-    `tc_block` (bf16, D <= 256, dqk and dv <= 32, h <= 3 or an even h <= 8,
+    `tc_block` (bf16, D <= 272, dqk and dv <= 32, h <= 3 or an even h <= 8,
     the SiLU projection), pointwise or softmax attention, with or without the
     bias and either dropout. f32, linear_activation="none" and wider heads
     run the CUDA-core kernels of csrc/hstu_block_train.cu."""
@@ -204,8 +207,8 @@ def tc_bwd_route(dtype: torch.dtype, meta: BlockMeta) -> bool:
 def tf32_fwd_route(dtype: torch.dtype, d: int, n: int, meta: BlockMeta) -> bool:
     """Whether `fused_train_block_forward` runs K4's f32 forward on the tensor
     cores, every product as 3xTF32 on mma.sync (csrc/hstu_train_tf32.cuh):
-    f32 operands at `tc_route`'s widths (D <= 256, dqk and dv <= 32, h <= 3
-    or an even h <= 8) with n <= TF32_MAX_N, the SiLU projection and the
+    f32 operands at `tc_route`'s widths (D <= 272, dqk and dv <= 32, h <= 3
+    or an even h <= 8) with n <= TF32_MAX_N = 512, the SiLU projection and the
     pointwise attention, with or without the bias. o_input dropout,
     attention dropout and concat_ua take the same kernels (runtime
     switches). The softmax attention, linear_activation="none", wider heads

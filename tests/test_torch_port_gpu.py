@@ -208,10 +208,12 @@ def test_k1_tensor_core_route_and_counters(cuda):
 # chip_smoke.py's K1_TF32_STAGE_TOL; 1xTF32 misses it ~100x).
 K1_TF32_STAGE_TOL = 2e-5
 K1_TF32_VARIANTS = [v for v in K1_VARIANTS if v[1] == "silu"]
-# K1's shapes and the route's edges: one query row, and n = 256 (every key
-# of a row block in its bias block or scores).
-K1_TF32_SHAPES = K1_SHAPES + [(3, 1, 32, 2, 16, 16, 8), (2, 256, 64, 2, 16, 16, 256)]
-K1_TF32_SHAPE_IDS = K1_SHAPE_IDS + ["n1", "n256"]
+# K1's shapes and the route's edges: one query row, n = 256, n = 512 (every
+# key of a row block in its bias block or scores; the softmax scores fit at
+# these narrow heads) and D = 272 (the widest LayerNorm'd x rows).
+K1_TF32_SHAPES = K1_SHAPES + [(3, 1, 32, 2, 16, 16, 8), (2, 256, 64, 2, 16, 16, 256),
+                              (1, 512, 64, 2, 16, 16, 512), (2, 40, 272, 2, 16, 16, 40)]
+K1_TF32_SHAPE_IDS = K1_SHAPE_IDS + ["n1", "n256", "n512", "d272"]
 
 
 def _k1_tf32_stages(args, kw, plain: bool):
@@ -270,28 +272,43 @@ def test_k1_f32_route_repeats_bit_for_bit(cuda, shape, normalization):
 
 def test_k1_f32_route_rule_and_refusals(cuda):
     """f32 at the route's widths runs the three 3xTF32 stages (one launch
-    each); linear_activation="none", dqk = dv = 64 and n = 257 run the
-    CUDA-core block (no stage launch). The entry points refuse every instance
-    outside the route: cudaErrorInvalidValue (1), nothing launched; the
-    stage wrappers raise there."""
+    each); linear_activation="none", dqk = dv = 64, n = 513, D = 273 and the
+    softmax attention at n = 353, h*dqk = 256 (its scores do not fit) run
+    the CUDA-core block (no stage launch). The entry points refuse every
+    instance outside the route: cudaErrorInvalidValue (1), nothing launched;
+    the stage wrappers raise there."""
     from rails_tpu_torch.ops import _build
 
     counters = (hstu_block.tf32_project, hstu_block.tf32_attention, hstu_block.tf32_out_gemm)
     for shape, activation, stages in (((2, 40, 64, 4, 16, 16, 40), "silu", 1),
                                       ((2, 40, 64, 4, 16, 16, 40), "none", 0),
                                       ((2, 40, 64, 4, 64, 64, 40), "silu", 0),
-                                      ((1, 257, 64, 4, 16, 16, 257), "silu", 0)):
+                                      ((1, 513, 64, 4, 16, 16, 513), "silu", 0),
+                                      ((2, 40, 273, 4, 16, 16, 40), "silu", 0)):
         args, kw = _k1_args(*shape, torch.float32, cuda)
         before = [f.launches for f in counters]
         got = hstu_block.fused_hstu_block(**args, **kw, activation=activation)
         want = hstu_block.fused_hstu_block_reference(**args, **kw, activation=activation)
         torch.testing.assert_close(got, want, **TOL[torch.float32])
         assert [f.launches for f in counters] == [c + stages for c in before], (shape, activation)
+    args, kw = _k1_args(1, 353, 256, 8, 32, 32, 353, torch.float32, cuda)
+    kw["normalization"] = "softmax_rel_bias"
+    assert not hstu_block.tf32_block(torch.float32, 256, 353, 8, 32, 32, "silu", softmax=True)
+    assert hstu_block.tf32_block(torch.float32, 256, 352, 8, 32, 32, "silu", softmax=True)
+    before = [f.launches for f in counters]
+    got = hstu_block.fused_hstu_block(**args, **kw)
+    torch.testing.assert_close(got, hstu_block.fused_hstu_block_reference(**args, **kw),
+                               **TOL[torch.float32])
+    assert [f.launches for f in counters] == before
     lib = _build.load_library()
+    # The route rule's softmax bytes are the kernel's own layout.
+    for n, h, dqk in ((211, 8, 32), (352, 8, 32), (353, 8, 32), (512, 2, 16)):
+        assert (hstu_block.tf32_softmax_smem_bytes(n, h, dqk, dqk)
+                == lib.rails_hstu_serve_tf32_smem_bytes(1, n, h, dqk, dqk)), n
     buf = torch.zeros(1 << 20, device=cuda)
     p = buf.data_ptr()
     stream = torch.cuda.current_stream().cuda_stream
-    for h, dqk, n in ((2, 64, 8), (5, 16, 8), (2, 16, 257)):
+    for h, dqk, n in ((2, 64, 8), (5, 16, 8), (2, 16, 513)):
         assert lib.rails_hstu_serve_tf32_project(p, p, p, 1, n, 64, h, dqk, dqk, 1e-6, stream) == 1
         for softmax in (0, 1):
             assert lib.rails_hstu_serve_tf32_attention(p, p, None, None, None, None, p, 1, n, h,
@@ -299,10 +316,14 @@ def test_k1_f32_route_rule_and_refusals(cuda):
                                                        stream) == 1
         assert lib.rails_hstu_serve_tf32_out(p, p, p, p, p, p, 1, n, 64, h, dqk, dqk, 1e-6, 0,
                                              stream) == 1
+    assert lib.rails_hstu_serve_tf32_project(p, p, p, 1, 8, 273, 2, 16, 16, 1e-6, stream) == 1
+    assert lib.rails_hstu_serve_tf32_out(p, p, p, p, p, p, 1, 8, 273, 2, 16, 16, 1e-6, 0,
+                                         stream) == 1
     torch.cuda.synchronize()
-    args, kw = _k1_args(1, 257, 64, 4, 16, 16, 257, torch.float32, cuda)
-    with pytest.raises(ValueError, match="no 3xTF32 instance"):
-        hstu_block.tf32_project(args["x"], args["uvqk"], num_heads=4, dqk=16, dv=16)
+    for shape in ((1, 513, 64, 4, 16, 16, 513), (1, 8, 273, 4, 16, 16, 8)):
+        args, kw = _k1_args(*shape, torch.float32, cuda)
+        with pytest.raises(ValueError, match="no 3xTF32 instance"):
+            hstu_block.tf32_project(args["x"], args["uvqk"], num_heads=4, dqk=16, dv=16)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -1124,7 +1145,8 @@ def test_k4_f32_route_repeats_bit_for_bit(cuda, shape):
 
 def test_k4_f32_entry_points_refuse_against_the_route(cuda):
     """The 3xTF32 entry points refuse every instance outside the route (dqk =
-    64, h = 5, n = 257) and the CUDA-core ones the f32 instances on it:
+    64, h = 5, n = 513; D = 273 for the GEMMs) and the CUDA-core ones the f32
+    instances on it (n = 8, and the combined preprocessor's n = 422):
     cudaErrorInvalidValue (1), nothing launched; the wrappers raise off the
     route."""
     from rails_tpu_torch.ops import _build
@@ -1133,7 +1155,10 @@ def test_k4_f32_entry_points_refuse_against_the_route(cuda):
     buf = torch.zeros(1 << 20, device=cuda)
     p = buf.data_ptr()
     stream = torch.cuda.current_stream().cuda_stream
-    for h, dqk, n in ((2, 64, 8), (5, 16, 8), (2, 16, 257)):
+    assert lib.rails_hstu_tf32_project(p, p, p, 1, 8, 273, 2, 16, 16, 1e-6, stream) == 1
+    assert lib.rails_hstu_tf32_out(p, p, p, p, p, p, 1, 8, 273, 2, 16, 16, 1e-6, 0, 0, 0, 0, 1.0,
+                                   stream) == 1
+    for h, dqk, n in ((2, 64, 8), (5, 16, 8), (2, 16, 513)):
         assert lib.rails_hstu_tf32_project(p, p, p, 1, n, 64, h, dqk, dqk, 1e-6, stream) == 1
         assert lib.rails_hstu_tf32_attention(p, p, None, None, None, p, 1, n, h, dqk, dqk, 0.1, 127,
                                              0, 0, 0, 0, 1.0, stream) == 1
@@ -1144,10 +1169,12 @@ def test_k4_f32_entry_points_refuse_against_the_route(cuda):
                                            h, dqk, dqk, 0.1, 1e-6, 127, 0, 0, 0, 0, 0, 1.0,
                                            stream) == 1
     drop = (0, 0, 0, 1.0, 0, 0, 1.0)
-    assert lib.rails_hstu_train_fwd(0, p, p, p, p, p, None, None, None, p, p, p, 1, 8, 64, 2, 16,
-                                    16, 0.125, 0.25, 1e-6, 127, 0, 0, 0, 0, *drop, stream) == 1
-    assert lib.rails_hstu_train_bwd(0, p, p, p, p, p, p, p, p, p, p, 1, 8, 2, 16, 16, 0.125, 1e-6,
-                                    127, 0, 0, 1, 0, 0, 0, 1.0, stream) == 1
+    for n in (8, 422):
+        assert lib.rails_hstu_train_fwd(0, p, p, p, p, p, None, None, None, p, p, p, 1, n, 64, 2,
+                                        16, 16, 0.125, 0.25, 1e-6, 127, 0, 0, 0, 0, *drop,
+                                        stream) == 1
+        assert lib.rails_hstu_train_bwd(0, p, p, p, p, p, p, p, p, p, p, 1, n, 2, 16, 16, 0.125,
+                                        1e-6, 127, 0, 0, 1, 0, 0, 0, 1.0, stream) == 1
     torch.cuda.synchronize()
     args, meta = _k4_variant_block("softmax", "n1", torch.float32, cuda)
     with pytest.raises(ValueError, match="no 3xTF32 instance"):
@@ -1627,10 +1654,13 @@ def test_fast_train_step_on_cuda_matches_cpu(cuda, monkeypatch):
 
 # The K1/K4 instances of the rated and combined preprocessors at ML-20M
 # widths (b, n, D, h, dqk, dv, max_seq_len): the rated one widens D to
-# 256 + 8 = 264, past the tensor-core kernels' D <= 256; the combined one
-# doubles n to 2 x 211 = 422, past f32's TF32_MAX_N = 256.
+# 256 + 8 = 264, the combined one doubles n to 2 x 211 = 422; and the edges
+# of the tensor-core routes that take them, D = 272 and n = 512 (K1's f32
+# pointwise attention and K4's 32-row attention blocks at their longest).
 PREPROC_SHAPES = {"rated": (2, 211, 264, 8, 32, 32, 211),
-                  "combined": (2, 422, 256, 8, 32, 32, 422)}
+                  "combined": (2, 422, 256, 8, 32, 32, 422),
+                  "d272": (2, 40, 272, 8, 32, 32, 40),
+                  "n512": (1, 512, 256, 8, 32, 32, 512)}
 
 
 def _k1_route_counts():
@@ -1641,19 +1671,19 @@ def _k1_route_counts():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("instance", list(PREPROC_SHAPES))
 def test_k1_preprocessor_instances_match_plain(cuda, instance, dtype):
-    """K1 at the rated width and the combined length, against its plain
-    version, on the route its width rules name: the CUDA-core kernels for the
-    rated D = 264 and for f32 at n = 422; bf16 at n = 422 on the tensor cores,
-    whose attention fits a block's shared memory there (`check_tc_smem`)."""
+    """K1 at the rated width, the combined length and the routes' edges (D =
+    272, n = 512), against its plain version, on the tensor cores: bf16
+    through `project` and its two other stages, f32 through the 3xTF32
+    stages (`tf32_project`)."""
     b, n, d, h, dqk, dv, max_seq_len = PREPROC_SHAPES[instance]
     args, kw = _k1_args(b, n, d, h, dqk, dv, max_seq_len, dtype, cuda, seed=n)
     tc = hstu_block.tc_block(dtype, d, h, dqk, dv, "silu")
     tf32 = hstu_block.tf32_block(dtype, d, n, h, dqk, dv, "silu")
-    assert not tf32 and tc == (instance == "combined" and dtype == torch.bfloat16)
+    assert (tc, tf32) == ((True, False) if dtype == torch.bfloat16 else (False, True))
     before = _k1_route_counts()
     got = hstu_block.fused_hstu_block(**args, **kw)
     launched = tuple(a - c for a, c in zip(_k1_route_counts(), before))
-    assert launched == (int(tc), 0, 1)
+    assert launched == (int(tc), int(tf32), 1)
     want = hstu_block.fused_hstu_block_reference(**args, **kw)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
@@ -1661,12 +1691,13 @@ def test_k1_preprocessor_instances_match_plain(cuda, instance, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("instance", list(PREPROC_SHAPES))
 def test_k4_preprocessor_instances_match_plain(cuda, instance, dtype, monkeypatch):
-    """K4 (forward and attention backward) at the rated width and the
-    combined length against its plain version, at the default instance's
-    tolerances (f32: autograd of the plain forward; bf16: the glue over the
-    plain forward and backward), on the routes of `tc_fwd_route`,
-    `tc_bwd_route`, `tf32_fwd_route` and `tf32_bwd_route`, which the
-    `.tc_launches` counters show."""
+    """K4 (forward and attention backward) at the rated width, the combined
+    length and the routes' edges (D = 272, n = 512) against its plain
+    version, at the default instance's tolerances (f32: autograd of the plain
+    forward; bf16: the glue over the plain forward and backward), on the
+    tensor-core routes of `tc_fwd_route`, `tc_bwd_route`, `tf32_fwd_route`
+    and `tf32_bwd_route` in both directions, which the `.tc_launches`
+    counters show."""
     b, n, d, h, dqk, dv, max_seq_len = PREPROC_SHAPES[instance]
     args, kw = _k1_args(b, n, d, h, dqk, dv, max_seq_len, dtype, cuda, seed=n + 1)
     args["x"] = args["x"] * args["colmask"][..., None].to(dtype)
@@ -1677,8 +1708,7 @@ def test_k4_preprocessor_instances_match_plain(cuda, instance, dtype, monkeypatc
                    or hstu_block_train.tf32_fwd_route(dtype, d, n, meta)),
                int(hstu_block_train.tc_bwd_route(dtype, meta)
                    or hstu_block_train.tf32_bwd_route(dtype, n, meta)))
-    # The backward's routes do not read D: the rated one takes them at n = 211.
-    assert want_tc == ((0, 1) if instance == "rated" else (1, 1) if bf16 else (0, 0))
+    assert want_tc == (1, 1)
     w = torch.cos(torch.arange(args["x"].numel(), device=cuda, dtype=torch.float32)).reshape(
         args["x"].shape)
     res = []

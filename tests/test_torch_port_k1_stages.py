@@ -131,7 +131,10 @@ WIDTH_RULE = [
     ((torch.bfloat16, 64, 1, 16, 16), True),
     ((torch.float32, 256, 8, 32, 32), False),     # f32 stays on the CUDA cores
     ((torch.bfloat16, 256, 4, 64, 64), False),    # head dims above 32
-    ((torch.bfloat16, 512, 8, 32, 32), False),    # D past the projection's A tile
+    ((torch.bfloat16, 264, 8, 32, 32), True),     # the rated preprocessor's 256 + 8
+    ((torch.bfloat16, 272, 8, 32, 32), True),     # the widest A tile
+    ((torch.bfloat16, 273, 8, 32, 32), False),    # D past the projection's A tile
+    ((torch.bfloat16, 512, 8, 32, 32), False),
     ((torch.bfloat16, 256, 8, 32, 33), False),
     ((torch.bfloat16, 256, 5, 16, 16), False),    # odd h above 3
     ((torch.bfloat16, 256, 10, 16, 16), False),   # more than 4 heads a head warp

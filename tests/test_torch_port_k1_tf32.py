@@ -15,7 +15,9 @@ h*dqk contraction, normalised over all n columns, masked, then a v over the
 causal chunks. It is held to the port's plain block and to rails_tpu's
 `fused_hstu_block` in Pallas interpret mode, and seeded faults in it (two k
 rows swapped, one mask bit flipped, the lo terms dropped, that is 1xTF32)
-must leave the tolerance. The CUDA kernels themselves run only on a card
+must leave the tolerance; also at the widths the route took on for the
+rated and combined preprocessors (`WIDE`: a D that is no multiple of 16, an
+n past 256). The CUDA kernels themselves run only on a card
 (`tests/test_torch_port_gpu.py`).
 """
 
@@ -33,6 +35,9 @@ from rails_tpu_torch.ops import hstu_block as hb
 ROWS, KEYS, STEP = 64, 32, 8           # the kernels' query rows, key chunk and k slice
 MASK = -1e30                           # the bias of a masked pair
 B, D, H, DQK, DV, NB = 3, 32, 2, 16, 16, 128
+# (B, D, h, dqk, dv) and n past the old edges of the route: D = 40 pads to the
+# projection's 32-deep chunks, n = 300 > 256 with narrow heads.
+WIDE, WIDE_N = (1, 40, 2, 8, 8), 300
 # name -> (bias mode, softmax, concat_ua); "penalty" is a precomputed bias
 # with mask_in_bias's -30000 folded in, "raw" the same bias without it.
 INSTANCES = {
@@ -94,7 +99,7 @@ def _bias_block(args: dict, n: int, fault):
     elif args.get("bias") is not None:
         bias = args["bias"]
     else:
-        bias = torch.zeros(B, n, n)
+        bias = torch.zeros(colmask.shape[0], n, n)
     valid = torch.tril(torch.ones(n, n))[None] * colmask[:, None, :] > 0
     out = torch.where(valid, bias, torch.full_like(bias, MASK))
     if fault == "mask_bit_flipped":
@@ -113,37 +118,41 @@ def _k_rows(k: torch.Tensor, first: bool, fault) -> torch.Tensor:
     return k
 
 
-def tile_pointwise(y, args, n, inv_n, fault=None):
+def tile_pointwise(y, args, kw, fault=None):
     """attn as `serve_attn_kernel` tiles it: per (user, 64 rows), each head
     over the valid 32-key chunks up to the block's last row."""
-    hdv, hq = H * DV, H * DQK
+    b, n, _ = y.shape
+    h, dqk, dv = kw["num_heads"], kw["dqk"], kw["dv"]
+    hdv, hq = h * dv, h * dqk
     bc, _, _ = _bias_block(args, n, fault)
-    attn = torch.zeros(B, n, hdv)
-    for bb in range(B):
+    attn = torch.zeros(b, n, hdv)
+    for bb in range(b):
         for i0 in range(0, n, ROWS):
             rows, jmax = slice(i0, min(i0 + ROWS, n)), min(i0 + ROWS, n)
-            for hd in range(H):
-                q = y[bb, rows, 2 * hdv + hd * DQK:2 * hdv + (hd + 1) * DQK]
-                o = torch.zeros(rows.stop - i0, DV)
+            for hd in range(h):
+                q = y[bb, rows, 2 * hdv + hd * dqk:2 * hdv + (hd + 1) * dqk]
+                o = torch.zeros(rows.stop - i0, dv)
                 for c in _chunks(args["colmask"][bb], jmax):
                     keys = slice(c * KEYS, min((c + 1) * KEYS, jmax))
-                    k = y[bb, keys, 2 * hdv + hq + hd * DQK:2 * hdv + hq + (hd + 1) * DQK]
+                    k = y[bb, keys, 2 * hdv + hq + hd * dqk:2 * hdv + hq + (hd + 1) * dqk]
                     k = _k_rows(k, (bb, i0, hd, c) == (0, 0, 0, 0), fault)
                     s = gemm3(q, k.T, fault) + bc[bb, rows, keys]
                     a = s * (1.0 / (1.0 + torch.exp(-s)))
-                    o = o + gemm3(a, y[bb, keys, hdv + hd * DV:hdv + (hd + 1) * DV] * inv_n, fault)
-                attn[bb, rows, hd * DV:(hd + 1) * DV] = o
+                    v = y[bb, keys, hdv + hd * dv:hdv + (hd + 1) * dv] * kw["inv_n"]
+                    o = o + gemm3(a, v, fault)
+                attn[bb, rows, hd * dv:(hd + 1) * dv] = o
     return attn
 
 
-def tile_softmax(y, args, n, fault=None):
+def tile_softmax(y, args, kw, fault=None):
     """attn as `serve_softmax_kernel` tiles it: per (user, 64 rows), the
     scores over every 32-key chunk of the h*dqk contraction, normalised over
     all n columns and masked, then a v over the valid causal chunks."""
-    hdv, hq = H * DV, H * DQK
+    b, n, _ = y.shape
+    hdv, hq = kw["num_heads"] * kw["dv"], kw["num_heads"] * kw["dqk"]
     bc, bias, valid = _bias_block(args, n, fault)
-    attn = torch.zeros(B, n, hdv)
-    for bb in range(B):
+    attn = torch.zeros(b, n, hdv)
+    for bb in range(b):
         for i0 in range(0, n, ROWS):
             rows, jmax = slice(i0, min(i0 + ROWS, n)), min(i0 + ROWS, n)
             q = y[bb, rows, 2 * hdv:2 * hdv + hq]
@@ -151,7 +160,8 @@ def tile_softmax(y, args, n, fault=None):
             for c in range(-(-n // KEYS)):
                 keys = slice(c * KEYS, min((c + 1) * KEYS, n))
                 k = _k_rows(y[bb, keys, 2 * hdv + hq:], (bb, i0, c) == (0, 0, 0), fault)
-                s[:, keys] = (gemm3(q, k.T, fault) + bias[bb, rows, keys]) * (1.0 / math.sqrt(DQK))
+                s[:, keys] = ((gemm3(q, k.T, fault) + bias[bb, rows, keys])
+                              * (1.0 / math.sqrt(kw["dqk"])))
             e = torch.exp(s - s.amax(-1, keepdim=True))
             mask = valid[bb, rows] & (bc[bb, rows] > 0.5 * MASK)
             a = e / e.sum(-1, keepdim=True) * mask
@@ -165,40 +175,43 @@ def tile_softmax(y, args, n, fault=None):
 
 def tile_block(args: dict, kw: dict, fault=None):
     """(out, y, attn) of the f32 route's three launches."""
-    x, n = args["x"], args["x"].shape[1]
+    x = args["x"]
+    hdv = kw["num_heads"] * kw["dv"]
     mu, rs = _stats(x, kw["eps"])
     z = gemm3((x - mu) * rs, args["uvqk"], fault)
     y = z / (1.0 + torch.exp(-z))
     if kw["normalization"] == "softmax_rel_bias":
-        attn = tile_softmax(y, args, n, fault)
+        attn = tile_softmax(y, args, kw, fault)
     else:
-        attn = tile_pointwise(y, args, n, kw["inv_n"], fault)
+        attn = tile_pointwise(y, args, kw, fault)
     mu, rs = _stats(attn, kw["eps"])
-    u, an = y[..., :H * DV], (attn - mu) * rs
-    o_in = torch.cat([u, an, u * an], -1) if args["o_kernel"].shape[0] == 3 * H * DV else u * an
+    u, an = y[..., :hdv], (attn - mu) * rs
+    o_in = torch.cat([u, an, u * an], -1) if args["o_kernel"].shape[0] == 3 * hdv else u * an
     return gemm3(o_in, args["o_kernel"], fault) + args["o_bias"] + x, y, attn
 
 
-def _inputs(name: str, n: int, seed: int = 0):
-    """K1's f32 operands for an instance, ragged lengths, from numpy; and the
-    block's keyword arguments."""
+def _inputs(name: str, n: int, seed: int = 0, geom: tuple = (B, D, H, DQK, DV)):
+    """K1's f32 operands for an instance at geometry (B, D, h, dqk, dv),
+    ragged lengths (the first user's whole), from numpy; and the block's
+    keyword arguments."""
+    b, d, h, dqk, dv = geom
     mode, softmax, concat_ua = INSTANCES[name]
     rng = np.random.default_rng(seed)
-    f = 2 * H * DV + 2 * H * DQK
-    lengths = np.array([n, 1, max(1, n // 2)])
+    f = 2 * h * dv + 2 * h * dqk
+    lengths = np.array([n, 1, max(1, n // 2)])[:b]
     colmask = (np.arange(n)[None, :] < lengths[:, None]).astype(np.float32)
-    ts = np.sort(rng.integers(0, 1 << 30, (B, n)), axis=1).astype(np.int32)
+    ts = np.sort(rng.integers(0, 1 << 30, (b, n)), axis=1).astype(np.int32)
     ext = np.concatenate([ts, ts[:, n - 1:]], axis=1)
     pos_w = (0.3 * rng.standard_normal(2 * n - 1)).astype(np.float32)
     i, j = np.arange(n)[:, None], np.arange(n)[None, :]
     rel_pos = pos_w[j - i + n - 1]
     tsw = (0.3 * rng.standard_normal(128)).astype(np.float32)
     ops = dict(
-        x=rng.standard_normal((B, n, D)).astype(np.float32), colmask=colmask,
-        uvqk=(rng.standard_normal((D, f)) / math.sqrt(D)).astype(np.float32),
-        o_kernel=(rng.standard_normal(((3 if concat_ua else 1) * H * DV, D))
-                  / math.sqrt(H * DV)).astype(np.float32),
-        o_bias=(0.02 * rng.standard_normal(D)).astype(np.float32))
+        x=rng.standard_normal((b, n, d)).astype(np.float32), colmask=colmask,
+        uvqk=(rng.standard_normal((d, f)) / math.sqrt(d)).astype(np.float32),
+        o_kernel=(rng.standard_normal(((3 if concat_ua else 1) * h * dv, d))
+                  / math.sqrt(h * dv)).astype(np.float32),
+        o_bias=(0.02 * rng.standard_normal(d)).astype(np.float32))
     if mode == "internal":
         ops.update(rel_pos=rel_pos, ext=ext, tsw=tsw)
     elif mode in ("penalty", "raw"):
@@ -212,7 +225,7 @@ def _inputs(name: str, n: int, seed: int = 0):
     args = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in ops.items()}
     if mode == "penalty":
         args["mask_in_bias"] = True
-    kw = dict(num_heads=H, dqk=DQK, dv=DV, inv_n=1.0 / max(n, 2), eps=1e-6, num_buckets=NB,
+    kw = dict(num_heads=h, dqk=dqk, dv=dv, inv_n=1.0 / max(n, 2), eps=1e-6, num_buckets=NB,
               normalization="softmax_rel_bias" if softmax else "rel_bias")
     return args, kw
 
@@ -226,14 +239,15 @@ def _plain(args: dict, kw: dict):
     y = hb.tf32_project_reference(args["x"], args["uvqk"], eps=kw["eps"])
     attn = hb.tf32_attention_reference(
         y, args["colmask"], args.get("rel_pos"), args.get("ext"), args.get("tsw"),
-        num_heads=H, dqk=DQK, dv=DV, inv_n=kw["inv_n"], num_buckets=NB, bias=args.get("bias"),
+        num_heads=kw["num_heads"], dqk=kw["dqk"], dv=kw["dv"], inv_n=kw["inv_n"],
+        num_buckets=NB, bias=args.get("bias"),
         mask_in_bias=args.get("mask_in_bias", False),
         softmax=kw["normalization"] == "softmax_rel_bias")
     return hb.fused_hstu_block_reference(**args, **kw), y, attn
 
 
-def _shares(name: str, n: int, fault=None) -> dict:
-    args, kw = _inputs(name, n)
+def _shares(name: str, n: int, fault=None, geom: tuple = (B, D, H, DQK, DV)) -> dict:
+    args, kw = _inputs(name, n, geom=geom)
     got, want = tile_block(args, kw, fault), _plain(args, kw)
     return {k: _share(g, w) for k, g, w in zip(("out", "y", "attn"), got, want)}
 
@@ -247,12 +261,9 @@ def test_tile_decomposition_matches_the_plain_block(name, n):
     assert max(shares.values()) <= TOL, shares
 
 
-@pytest.mark.parametrize("name", list(INSTANCES))
-def test_tile_decomposition_matches_pallas(name):
-    """The decomposition's output within TOL of rails_tpu's
-    `fused_hstu_block` in interpret mode, f32, at n = 35 (two key chunks,
-    ragged lengths)."""
-    args, kw = _inputs(name, 35)
+def _pallas_share(args: dict, kw: dict) -> float:
+    """The decomposition's output against rails_tpu's `fused_hstu_block` in
+    interpret mode, f32."""
     got = tile_block(args, kw)[0]
     np_args = {k: (v.numpy() if torch.is_tensor(v) else v) for k, v in args.items()}
     bias = np_args.get("bias")
@@ -265,7 +276,34 @@ def test_tile_decomposition_matches_pallas(name):
                    if "rel_pos" in np_args else None),
         interpret=True, activation="silu", **kw)
     want = torch.from_numpy(np.array(want, dtype=np.float32))
-    assert _share(got, want) <= TOL
+    return _share(got, want)
+
+
+@pytest.mark.parametrize("name", list(INSTANCES))
+def test_tile_decomposition_matches_pallas(name):
+    """The decomposition's output within TOL of rails_tpu's
+    `fused_hstu_block` in interpret mode, f32, at n = 35 (two key chunks,
+    ragged lengths)."""
+    assert _pallas_share(*_inputs(name, 35)) <= TOL
+
+
+@pytest.mark.parametrize("name", ["base", "softmax", "no_bias"])
+def test_tile_decomposition_at_the_new_widths(name):
+    """At WIDE (D = 40, no multiple of 16, so the projection's last 32-deep
+    chunk holds zero columns; n = 300 > 256, ten 32-key chunks a 64-row block
+    at most), the decomposition's output, y and attn within TOL of the plain
+    block and stages, and its output within TOL of `fused_hstu_block` in
+    interpret mode."""
+    shares = _shares(name, WIDE_N, geom=WIDE)
+    assert max(shares.values()) <= TOL, shares
+    assert _pallas_share(*_inputs(name, WIDE_N, geom=WIDE)) <= TOL
+
+
+def test_tile_decomposition_fault_leaves_the_tolerance_at_the_new_length():
+    """Two k rows of the first chunk swapped move some output beyond TOL at
+    WIDE's n = 300 too."""
+    shares = _shares("base", WIDE_N, "k_rows_swapped", geom=WIDE)
+    assert max(shares.values()) > TOL, shares
 
 
 @pytest.mark.parametrize("name", ["base", "softmax"])
@@ -302,16 +340,18 @@ def test_stage_plain_versions_compose_to_the_block_bit_for_bit(name, n):
 
 def test_route_rule():
     """`tf32_block` at every registry config's serving block and around its
-    widths: f32, the SiLU projection, `tc_widths` (D <= 256, dqk and dv <=
-    32, h <= 3 or an even h <= 8) and 1 <= n <= 256; bias, concat_ua and
-    softmax do not matter. linear_activation="none", n = 257 and dqk = 64
+    widths: f32, the SiLU projection, `tc_widths` (D <= 272, dqk and dv <=
+    32, h <= 3 or an even h <= 8) and 1 <= n <= 512; bias and concat_ua do
+    not matter, and softmax only where its scores fit a block (n <= 352 at
+    h*dqk = 256). The rated (D = 264) and combined (n = 422) preprocessors'
+    blocks take it. linear_activation="none", D = 273, n = 513 and dqk = 64
     stay on the CUDA cores, and bf16 never takes the route."""
     for name in list_experiment_configs():
         c = get_experiment_config(name).hstu
         n = get_experiment_config(name).max_seq_len_padded
-        fits = (c.linear_activation == "silu" and c.embedding_dim <= 256 and c.dqk <= 32
+        fits = (c.linear_activation == "silu" and c.embedding_dim <= 272 and c.dqk <= 32
                 and c.dv <= 32 and (c.num_heads <= 3 or (c.num_heads % 2 == 0 and c.num_heads <= 8))
-                and n <= 256)
+                and n <= 512)
         got = hb.tf32_block(torch.float32, c.embedding_dim, n, c.num_heads, c.dqk, c.dv,
                             c.linear_activation)
         assert got == fits, name
@@ -322,7 +362,15 @@ def test_route_rule():
     for d, n, h, dqk, dv, act, want in ((256, 211, 8, 32, 32, "silu", True),
                                         (256, 256, 8, 32, 32, "silu", True),
                                         (256, 1, 8, 32, 32, "silu", True),
-                                        (256, 257, 8, 32, 32, "silu", False),
+                                        (256, 257, 8, 32, 32, "silu", True),
+                                        (256, 422, 8, 32, 32, "silu", True),
+                                        (256, 512, 8, 32, 32, "silu", True),
+                                        (256, 513, 8, 32, 32, "silu", False),
+                                        (264, 211, 8, 32, 32, "silu", True),
+                                        (272, 211, 8, 32, 32, "silu", True),
+                                        (273, 211, 8, 32, 32, "silu", False),
+                                        (264, 211, 8, 32, 32, "none", False),
+                                        (256, 422, 8, 32, 32, "none", False),
                                         (256, 211, 8, 32, 32, "none", False),
                                         (256, 211, 4, 64, 64, "silu", False),
                                         (256, 211, 5, 32, 32, "silu", False),
@@ -330,5 +378,12 @@ def test_route_rule():
                                         (50, 211, 2, 25, 25, "silu", True),
                                         (64, 61, 8, 8, 8, "silu", True)):
         assert hb.tf32_block(torch.float32, d, n, h, dqk, dv, act) == want, (d, n, h, dqk, act)
-    with pytest.raises(ValueError, match="no 3xTF32 instance"):
-        hb.require_tf32(torch.float32, 256, 257, 8, 32, 32, "tf32_project")
+    # Softmax: the (64, n) scores fit up to n = 352 at h*dqk = 256, to 512 at
+    # narrow heads; 256 and below at every width of the route.
+    for d, n, h, dqk, want in ((256, 256, 8, 32, True), (256, 352, 8, 32, True),
+                               (256, 353, 8, 32, False), (256, 422, 8, 32, False),
+                               (64, 512, 2, 16, True), (64, 513, 2, 16, False)):
+        assert hb.tf32_block(torch.float32, d, n, h, dqk, dqk, "silu", softmax=True) == want, n
+    for d, n in ((256, 513), (273, 211)):
+        with pytest.raises(ValueError, match="no 3xTF32 instance"):
+            hb.require_tf32(torch.float32, d, n, 8, 32, 32, "tf32_project")
