@@ -447,7 +447,9 @@ def ptxas_summary(log: str) -> str:
                              r"tc_tf32_dq_kernel|tc_tf32_dkv_kernel|"
                              r"tc_proj_kernel|tc_attn_kernel|tc_softmax_kernel|tc_out_kernel|"
                              r"tc_bwd_rows_kernel|tc_bwd_dq_kernel|tc_bwd_dkv_kernel|"
-                             r"ln_gemm_kernel|hstu_attn_bwd_kernel|hstu_attn_kernel|"
+                             r"ln_gemm_kernel|ln_stats_kernel|hstu_attn_bwd_kernel|"
+                             r"hstu_attn_chunked_kernel|"
+                             r"hstu_attn_kernel|"
                              r"softmax_bwd_rows_kernel|softmax_bwd_cols_kernel|"
                              r"hstu_softmax_attn_kernel|mol_probe_kernel|mol_loss_tc_kernel|"
                              r"attn_row_bwd_kernel|mol_scores_kernel|mol_tc_kernel|hash_keep_mask_kernel|"
@@ -641,21 +643,29 @@ def k1_inputs(b: int, n: int, dtype, device, seed: int = 0, geom: tuple = K1_GEO
     return tuple(a.to(device) for a in args), kw
 
 
-def stage_split(fn) -> str:
+def stage_split(fn, fma_flops: tuple = ()) -> str:
     """One call of fn under torch.profiler: each device operation's us and
-    the instruction its products run on."""
+    the instruction its products run on. `fma_flops`, for a run of K1's
+    CUDA-core kernels, gives the FLOPs of its GEMM and attention launches in
+    launch order (`ln_stats_kernel` has none of note); each of those stages
+    then also shows its bound at the CUDA cores' FMA rate and the share of
+    that rate it reaches."""
     timeline = device_timeline(fn)
     if not timeline:
         return "not recorded by torch.profiler"
-    parts = []
+    parts, left = [], list(fma_flops)
     for _, name, us, _ in timeline:
         short = re.search(r"(tc_\w+?_kernel|serve_\w+?_kernel(?:<\d+(?:, \d+)?>)?|ln_gemm_kernel|"
-                          r"hstu_\w*attn\w*_kernel|attn_row_bwd_kernel|softmax_bwd_\w+?_kernel)",
-                          name)
+                          r"ln_stats_kernel|hstu_\w*attn\w*_kernel|attn_row_bwd_kernel|"
+                          r"softmax_bwd_\w+?_kernel)", name)
         label = short.group(1) if short else name[:40]
         unit = (TF32_INSTRUCTION if label.startswith(("tc_tf32", "serve_")) else
                 TC_INSTRUCTION if label.startswith("tc_") else "FFMA (CUDA cores)")
-        parts.append(f"{label} {us:.2f} us [{unit}]")
+        share = ""
+        if left and label != "ln_stats_kernel":
+            fma_us = left.pop(0) / PEAK_FLOPS["float32"] * 1e6
+            share = f", FMA-rate bound {fma_us:.2f} us, {fma_us / us:.3f} of the rate"
+        parts.append(f"{label} {us:.2f} us [{unit}{share}]")
     return " + ".join(parts) + f" = {sum(t[2] for t in timeline):.2f} us device"
 
 
@@ -866,10 +876,12 @@ def digest(*tensors) -> str:
 def untouched_hashes(device) -> dict:
     """`[K1-hash]`: sha256 prefixes of the outputs K1's f32 route leaves
     alone, on operands from fixed seeds: bf16 K1 and each bf16 variant
-    instance; the f32 K1 instances off the route (activation none, n = 513,
-    h = 4 with dqk = dv = 64); K4's forward and attention backward (f32 on
-    its 3xTF32 route, its off-route softmax, activation none and h = 4, dqk
-    = dv = 64 instances, and bf16); P1's modes in f32 and bf16. Only calls an
+    instance; the K1 instances off both routes (activation none, also at B*n
+    = 111 rows, f32 n = 513, h = 4 with dqk = dv = 64, D = 273, and the
+    chunked attention's n = 285 at dqk = dv = 64 and dqk = dv = 96); K4's forward
+    and attention backward (f32 on its 3xTF32 route, its off-route softmax,
+    activation none and h = 4, dqk = dv = 64 instances, and bf16, also at h =
+    4, dqk = dv = 64); P1's modes in f32 and bf16. Only calls an
     older tree has: the lines of a tree unpacked by `git archive` (with this
     file copied in) compare bit for bit. Returns them by name."""
     import numpy as np
@@ -890,13 +902,27 @@ def untouched_hashes(device) -> dict:
         out[f"K1 bf16 {inst}"] = digest(fused_hstu_block(**vargs, **vkw))
     vargs, vkw = k1_variant_inputs(b, n, f32, device, "activation none")
     out["K1 f32 activation none"] = digest(fused_hstu_block(**vargs, **vkw))
-    # Off the f32 route: past its length, and wider heads.
-    for label, geom in (("n=513", (D, H, DQK, DV, 513)), ("h=4, dqk=dv=64", (D, 4, 64, 64, n))):
-        gargs, gkw = k1_inputs(8, geom[4], f32, device, geom=geom)
-        out[f"K1 f32 {label}"] = digest(fused_hstu_block(*gargs, **gkw))
+    # Activation none at a batch whose B*n rows end inside a GEMM row tile.
+    for dtype in (f32, bf16):
+        vargs, vkw = k1_variant_inputs(3, 37, dtype, device, "activation none")
+        out[f"K1 {'f32' if dtype == f32 else 'bf16'} activation none, B*n=111"] = digest(
+            fused_hstu_block(**vargs, **vkw))
+    # Off the f32 route: past its length, and wider heads; off both routes: D
+    # past 272 (ragged K of the projection, ragged N of the output GEMM), and
+    # the heads whose attention runs hstu_attn_chunked_kernel: staging past a
+    # block's shared memory at n = 285, and dv past 64.
+    for label, geom, dtypes in (("n=513", (D, H, DQK, DV, 513), (f32,)),
+                                ("h=4, dqk=dv=64", (D, 4, 64, 64, n), (f32, bf16)),
+                                ("D=273", (273, H, DQK, DV, n), (f32, bf16)),
+                                ("n=285, h=4, dqk=dv=64", (D, 4, 64, 64, 285), (f32, bf16)),
+                                ("h=2, dqk=dv=96", (D, 2, 96, 96, 128), (f32, bf16))):
+        for dtype in dtypes:
+            gargs, gkw = k1_inputs(8, geom[4], dtype, device, geom=geom)
+            out[f"K1 {'f32' if dtype == f32 else 'bf16'} {label}"] = digest(
+                fused_hstu_block(*gargs, **gkw))
     seed = 987_654_321
     for inst, dtype in ((None, f32), ("softmax", f32), ("activation none", f32),
-                        ("h=4, dqk=dv=64", f32), (None, bf16)):
+                        ("h=4, dqk=dv=64", f32), (None, bf16), ("h=4, dqk=dv=64", bf16)):
         meta, has_bias = k4_meta(inst)
         geom = (D, meta.num_heads, meta.dqk, meta.dv, n)
         (x, colmask, uvqk, o_kernel, o_bias, rel_pos, ext, tsw), _ = k1_inputs(
@@ -921,6 +947,24 @@ def untouched_hashes(device) -> dict:
         pkw = dict(num_heads=H, dqk=DQK, dv=DV, inv_n=1.0 / P1_LENGTH)
         for mode in ep.MODES:
             out[f"P1 {mode} {str(dtype)[6:]}"] = digest(ep.encode_probe_block(mode, *pargs, **pkw))
+    for name, value in out.items():
+        print(f"[K1-hash] {name}: {value}")
+    return out
+
+
+def chunked_hashes(device) -> dict:
+    """`[K1-hash]` lines of K1 at n = 1,024 (ML-20M's heads, activation none,
+    f32 and bf16), a length only `hstu_attn_chunked_kernel` admits, so that
+    a later tree is held to them bit for bit (an older tree refuses them)."""
+    import torch
+
+    from rails_tpu_torch.ops.hstu_block import fused_hstu_block
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        args, kw = k1_inputs(4, 1_024, dtype, device, geom=(D, H, DQK, DV, 1_024))
+        out[f"K1 {str(dtype)[6:]} activation none, n=1024"] = digest(
+            fused_hstu_block(*args, **kw, activation="none"))
     for name, value in out.items():
         print(f"[K1-hash] {name}: {value}")
     return out
@@ -4660,6 +4704,7 @@ def main() -> None:
     k1_stages = check_k1_stages(BATCH, MAX_SEQ_LEN, device)
     k1_tf32 = check_k1_tf32_stages(BATCH, MAX_SEQ_LEN, device)
     untouched_hashes(device)
+    chunked_hashes(device)
     preprocessor_hashes(device)
     for dtype in (torch.float32, torch.bfloat16):
         check_k1(BATCH, K1_GEOMS["books"][4], dtype, device, "books")

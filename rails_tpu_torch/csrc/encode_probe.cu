@@ -41,16 +41,19 @@ cudaError_t probe(int mode, const void* x, const float* colmask, const void* uvq
   const int F = 2 * H * dv + 2 * H * dqk;
   const int M = B * n;
   const int hv = H * dv;
+  float* scratch = stats_scratch(attn, hv);
   if (mode == kIdent) {
     // The whole (D, F) projection, as the JAX probe's one matmul; columns
     // past D are computed and dropped.
+    const float2* stats = launch_ln_stats<T>(x, M, D, eps, scratch, s);
     ln_gemm_kernel<T, kProj, kProbeIdent><<<gemm_grid(F, M), kThreads, 0, s>>>(
         x, D, D, nullptr, 0, static_cast<const T*>(uvqk), F, nullptr, static_cast<const T*>(x),
-        out, M, F, D, eps, 1.f, Dropout{});
+        out, M, F, D, eps, 1.f, Dropout{}, stats);
     return cudaGetLastError();
   }
-  cudaError_t err = mode == kNoAct ? launch_proj<T, kActNone>(x, uvqk, y, M, F, D, eps, s)
-                                   : launch_proj<T, kGemmPlain>(x, uvqk, y, M, F, D, eps, s);
+  cudaError_t err = mode == kNoAct
+                        ? launch_proj<T, kActNone>(x, uvqk, y, M, F, D, eps, scratch, s)
+                        : launch_proj<T, kGemmPlain>(x, uvqk, y, M, F, D, eps, scratch, s);
   if (err != cudaSuccess) return err;
   switch (mode) {
     case kFull:

@@ -26,8 +26,9 @@ cudaError_t launch_variant(const void* x, const float* colmask, const void* uvqk
                            cudaStream_t s) {
   const int F = 2 * H * dv + 2 * H * dqk;
   const int M = B * n;
-  cudaError_t err = act_none ? launch_proj<T, kActNone>(x, uvqk, y, M, F, D, eps, s)
-                             : launch_proj<T, kGemmPlain>(x, uvqk, y, M, F, D, eps, s);
+  float* scratch = stats_scratch(attn, H * dv);
+  cudaError_t err = act_none ? launch_proj<T, kActNone>(x, uvqk, y, M, F, D, eps, scratch, s)
+                             : launch_proj<T, kGemmPlain>(x, uvqk, y, M, F, D, eps, scratch, s);
   if (err != cudaSuccess) return err;
   if (softmax) {
     switch (bias_mode) {

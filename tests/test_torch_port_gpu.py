@@ -203,6 +203,138 @@ def test_k1_tensor_core_route_and_counters(cuda):
         hstu_block.fused_hstu_block(**long_args, **long_kw, normalization="softmax_rel_bias")
 
 
+# The CUDA-core route's tile edges (csrc/hstu_block.cuh: 128 x 128 GEMM tiles,
+# 64-row attention tiles over 64-key chunks and 64 value columns a pass):
+# (b, n, D, h, dqk, dv, max_seq_len) and K1's variant (bias mode, activation,
+# normalization, concat_ua). B*n = 111 ends inside the first GEMM row tile;
+# n = 1, 33, 213 and 513 cut the row groups, key steps and tiles; dqk = dv =
+# 64 is the wide-head case; dv = 96 and n = 1,024 (whole heads past a block's
+# shared memory) take the chunked attention, 96 in two value passes; h = 5
+# and D = 273 make ragged GEMM columns and k (D past the tensor-core routes'
+# 272).
+CC_NONE = ("internal", "none", "rel_bias", False)
+K1_CC_EDGES = {
+    "bn111": ((3, 37, 64, 4, 16, 16, 37), CC_NONE),
+    "n1": ((4, 1, 64, 2, 16, 16, 8), CC_NONE),
+    "n33": ((3, 33, 64, 2, 16, 16, 33), CC_NONE),
+    "n213": ((2, 213, 256, 8, 32, 32, 213), CC_NONE),
+    "n513": ((1, 513, 64, 2, 32, 32, 513), CC_NONE),
+    "wide64": ((2, 211, 256, 4, 64, 64, 211), CC_NONE),
+    "wide96": ((2, 70, 64, 1, 96, 96, 70), CC_NONE),
+    "h5": ((2, 97, 80, 5, 16, 16, 97), CC_NONE),
+    "d273": ((2, 61, 273, 8, 32, 32, 61), CC_NONE),
+    "d273_silu": ((2, 61, 273, 8, 32, 32, 61), ("internal", "silu", "rel_bias", False)),
+    "concat_ua": ((3, 97, 64, 4, 16, 16, 211), ("internal", "none", "rel_bias", True)),
+    "tensor_bias": ((3, 97, 64, 4, 16, 16, 211), ("raw", "none", "rel_bias", False)),
+    "penalty_bias": ((2, 213, 64, 4, 32, 32, 213), ("penalty", "none", "rel_bias", True)),
+    "no_bias": ((2, 65, 64, 4, 32, 32, 65), ("none", "none", "rel_bias", False)),
+    "n1024_chunked": ((1, 1_024, 64, 2, 32, 32, 1_024), CC_NONE),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("edge", list(K1_CC_EDGES))
+def test_k1_cuda_core_route_edges_match_plain(cuda, edge, dtype):
+    """K1 on the CUDA-core kernels at the edges of their tiles, against its
+    plain version at the K1 tests' tolerance; no stage of a tensor-core
+    route launches."""
+    shape, variant = K1_CC_EDGES[edge]
+    args, kw = _k1_variant_args(shape, variant, dtype, cuda)
+    stages = (hstu_block.project, hstu_block.tf32_project, hstu_block.tf32_attention)
+    before = [hstu_block.fused_hstu_block.launches] + [f.launches for f in stages]
+    got = hstu_block.fused_hstu_block(**args, **kw)
+    assert [hstu_block.fused_hstu_block.launches] + [f.launches for f in stages] == (
+        [before[0] + 1] + before[1:])
+    want = hstu_block.fused_hstu_block_reference(**args, **kw)
+    assert bool(torch.isfinite(got.float()).all())
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+# K4's CUDA-core instances at the tile edges: (variant of K4_VARIANTS, (b, n,
+# D, h, dqk, dv)), n <= 211 (the blocks' max_seq_len); "wide" variants take h
+# = 4, dqk = dv = 64 whatever the shape says. The bf16 attention backward recomputes attn through the
+# CUDA-core attention over the bf16 y.
+K4_CC_EDGES = {
+    "act_none_n211_d273": ("act_none", (2, 211, 273, 8, 32, 32)),
+    "act_none_n65_h5": ("act_none", (3, 65, 80, 5, 16, 16)),
+    "wide_attn_dropout_n200": ("wide+attn_dropout+no_bias", (2, 200, 64, 4, 64, 64)),
+    "wide_n1": ("wide", (2, 1, 64, 4, 64, 64)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("edge", list(K4_CC_EDGES))
+def test_k4_cuda_core_route_edges_match_plain(cuda, edge, dtype, monkeypatch):
+    """K4's forward and attention backward on the CUDA-core kernels at the
+    tiles' edges, against the plain versions at the K4 variant tests'
+    tolerances; neither direction counts a tensor-core launch."""
+    variant, shape = K4_CC_EDGES[edge]
+    monkeypatch.setitem(K4_SHAPES, "edge", shape)
+    args, meta = _k4_variant_block(variant, "edge", dtype, cuda)
+    fwd, bwd = hstu_block_train.fused_train_block_forward, hstu_block_train.attn_backward
+    before = (fwd.tc_launches, bwd.tc_launches)
+    fargs = (args["x"], args["colmask"], args["uvqk"], args["o_kernel"], args["o_bias"],
+             args["rel_pos"], args["ext"], args["tsw"], 11, meta)
+    out_k, attn_k = fwd(*fargs)
+    out_p, attn_p = hstu_block_train.fused_train_block_forward_reference(*fargs)
+    bf16 = dtype == torch.bfloat16
+    tol = 2e-2 if bf16 else 1e-3
+    for got, want in ((out_k, out_p), (attn_k, attn_p)):
+        assert bool(torch.isfinite(got.float()).all())
+        if bf16:
+            assert _share(got, want) <= 1e-2
+        else:
+            torch.testing.assert_close(got.float(), want.float(), rtol=1e-3, atol=1e-4)
+    b, n = args["colmask"].shape
+    g = torch.Generator(device=cuda).manual_seed(n)
+    y = torch.randn(b, n, args["uvqk"].shape[1], generator=g, device=cuda).to(dtype)
+    d_o = torch.randn(b, n, meta.o_width, generator=g, device=cuda).to(dtype)
+    bargs = (y, d_o, None if bf16 else attn_k, args["colmask"], args["rel_pos"], args["ext"],
+             args["tsw"], meta, 11)
+    for got, want in zip(bwd(*bargs), hstu_block_train.attn_backward_reference(*bargs)):
+        if want is not None:
+            assert _share(got, want) <= tol
+    assert (fwd.tc_launches, bwd.tc_launches) == before
+
+
+def test_cuda_core_attention_refuses_past_its_shared_memory(cuda):
+    """The library's `rails_hstu_attn_smem_bytes`, which the wrappers ask
+    before a launch, equals its mirror in
+    tests/test_torch_port_k1_cuda_core.py over widths and lengths; a head
+    whose q and key chunk pass a block's shared memory raises ValueError in
+    K1, K4 and P1 before any launch."""
+    from test_torch_port_k1_cuda_core import attn_smem_bytes
+
+    from rails_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    for n in (1, 2, 7, 33, 63, 64, 65, 211, 513, 4_096):
+        for dqk, dv in ((1, 1), (8, 8), (16, 16), (25, 25), (32, 32), (61, 3), (64, 64),
+                        (96, 96), (300, 20), (1_358, 35)):
+            assert lib.rails_hstu_attn_smem_bytes(n, dqk, dv) == attn_smem_bytes(
+                n, dqk, dv), (n, dqk, dv)
+    shape = (1, 64, 64, 1, 1_000, 8, 64)
+    assert lib.rails_hstu_attn_smem_bytes(64, 1_000, 8) > hstu_block.MAX_SMEM_BYTES
+    args, kw = _k1_variant_args(shape, CC_NONE, torch.float32, cuda)
+    launches = hstu_block.fused_hstu_block.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        hstu_block.fused_hstu_block(**args, **kw)
+    assert hstu_block.fused_hstu_block.launches == launches
+    meta = hstu_block_train.BlockMeta(1, 1_000, 8, kw["inv_n"], kw["eps"], 128, 0.2,
+                                      activation="none")
+    with pytest.raises(ValueError, match="shared memory"):
+        hstu_block_train.fused_train_block_forward(
+            args["x"], args["colmask"], args["uvqk"], args["o_kernel"], args["o_bias"],
+            args["rel_pos"], args["ext"], args["tsw"], 11, meta)
+    g = torch.Generator().manual_seed(5)
+    o3 = (torch.randn(3 * 8, 64, generator=g) / 8 ** 0.5).to(cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        encode_probe.encode_probe_block("full", args["x"], args["colmask"], args["uvqk"], o3,
+                                        args["o_bias"], args["rel_pos"], args["ext"],
+                                        args["tsw"], num_heads=1, dqk=1_000, dv=8,
+                                        inv_n=kw["inv_n"])
+
+
 # K1's f32 route (3xTF32, csrc/hstu_serve_tf32.cuh): each stage against its
 # plain version within this share of its largest value (the CPU test's and
 # chip_smoke.py's K1_TF32_STAGE_TOL; 1xTF32 misses it ~100x).
@@ -328,8 +460,10 @@ def test_k1_f32_route_rule_and_refusals(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("mode", encode_probe.MODES)
-@pytest.mark.parametrize("shape", [(3, 97, 64, 4, 16, 16, 97), (2, 192, 256, 8, 32, 32, 192)],
-                         ids=["ragged", "ml20m"])
+@pytest.mark.parametrize("shape", [(3, 97, 64, 4, 16, 16, 97), (2, 192, 256, 8, 32, 32, 192),
+                                   (1, 33, 273, 5, 16, 16, 33), (4, 1, 64, 2, 32, 32, 8),
+                                   (1, 213, 64, 2, 64, 64, 213)],
+                         ids=["ragged", "ml20m", "n33_d273_h5", "n1", "wide_n213"])
 def test_encode_probe_matches_plain(cuda, shape, mode, dtype):
     args, kw = _k1_args(*shape, dtype, cuda)
     b, n, d, h, dqk, dv, _ = shape
