@@ -396,6 +396,14 @@ K4_VAR_INSTANCES = {
         concat_ua=True, normalization="softmax_rel_bias", attn_dropout_rate=0.2),
     "h=4, dqk=dv=64": dict(num_heads=4, dqk=64, dv=64),
 }
+# Instances of K4's CUDA-core attention backward (`hstu_attn_bwd_kernel`) that
+# K4_VAR_INSTANCES does not name: `untouched_hashes` holds their bits and
+# profile_k4_bwd.py times them. No phase trains with them.
+K4_BWD_INSTANCES = {
+    "activation none+attention dropout": dict(linear_activation="none", attn_dropout_rate=0.2),
+    "h=4, dqk=dv=64+attention dropout": dict(num_heads=4, dqk=64, dv=64, attn_dropout_rate=0.2),
+    "h=5, dqk=dv=16, activation none": dict(num_heads=5, dqk=16, dv=16, linear_activation="none"),
+}
 # The registry configs this slice ports beyond `[sasrec-*]` and `[dot-*]`'s
 # ml-20m-sasrec-mol and ml-20m-hstu-dot: one eval batch each in `[models]`.
 MODEL_CONFIGS = ("ml-1m-sasrec-mol", "amzn-books-sasrec-mol", "ml-1m-hstu-dot",
@@ -447,7 +455,8 @@ def ptxas_summary(log: str) -> str:
                              r"tc_tf32_dq_kernel|tc_tf32_dkv_kernel|"
                              r"tc_proj_kernel|tc_attn_kernel|tc_softmax_kernel|tc_out_kernel|"
                              r"tc_bwd_rows_kernel|tc_bwd_dq_kernel|tc_bwd_dkv_kernel|"
-                             r"ln_gemm_kernel|ln_stats_kernel|hstu_attn_bwd_kernel|"
+                             r"ln_gemm_kernel|ln_stats_kernel|hstu_attn_bwd_rows_kernel|"
+                             r"hstu_attn_bwd_cols_kernel|"
                              r"hstu_attn_chunked_kernel|"
                              r"hstu_attn_kernel|"
                              r"softmax_bwd_rows_kernel|softmax_bwd_cols_kernel|"
@@ -881,7 +890,9 @@ def untouched_hashes(device) -> dict:
     chunked attention's n = 285 at dqk = dv = 64 and dqk = dv = 96); K4's forward
     and attention backward (f32 on its 3xTF32 route, its off-route softmax,
     activation none and h = 4, dqk = dv = 64 instances, and bf16, also at h =
-    4, dqk = dv = 64); P1's modes in f32 and bf16. Only calls an
+    4, dqk = dv = 64 and activation none; each of K4_BWD_INSTANCES in both
+    dtypes; the default block in f32 at n = 513); P1's modes in f32 and bf16.
+    Only calls an
     older tree has: the lines of a tree unpacked by `git archive` (with this
     file copied in) compare bit for bit. Returns them by name."""
     import numpy as np
@@ -921,12 +932,19 @@ def untouched_hashes(device) -> dict:
             out[f"K1 {'f32' if dtype == f32 else 'bf16'} {label}"] = digest(
                 fused_hstu_block(*gargs, **gkw))
     seed = 987_654_321
-    for inst, dtype in ((None, f32), ("softmax", f32), ("activation none", f32),
-                        ("h=4, dqk=dv=64", f32), (None, bf16), ("h=4, dqk=dv=64", bf16)):
-        meta, has_bias = k4_meta(inst)
-        geom = (D, meta.num_heads, meta.dqk, meta.dv, n)
+    # K4's CUDA-core attention backward also at bf16 activation none, each of
+    # K4_BWD_INSTANCES, and f32 n = 513 (narrow heads past the f32 route; the
+    # line's name ends in its n).
+    k4_cases = [(None, f32, n), ("softmax", f32, n), ("activation none", f32, n),
+                ("h=4, dqk=dv=64", f32, n), (None, bf16, n), ("h=4, dqk=dv=64", bf16, n),
+                ("activation none", bf16, n)]
+    k4_cases += [(inst, dtype, n) for inst in K4_BWD_INSTANCES for dtype in (f32, bf16)]
+    k4_cases.append((None, f32, 513))
+    for inst, dtype, kn in k4_cases:
+        meta, has_bias = k4_meta(inst, kn)
+        geom = (D, meta.num_heads, meta.dqk, meta.dv, kn)
         (x, colmask, uvqk, o_kernel, o_bias, rel_pos, ext, tsw), _ = k1_inputs(
-            32, n, dtype, device, seed=3, geom=geom)
+            32, kn, dtype, device, seed=3, geom=geom)
         x = x * colmask[..., None].to(dtype)
         if not has_bias:
             rel_pos = ext = tsw = None
@@ -935,10 +953,10 @@ def untouched_hashes(device) -> dict:
         z = ln(x.float(), meta.eps).to(dtype).float() @ uvqk.float()
         y = (z * torch.sigmoid(z) if meta.activation == "silu" else z).to(dtype)
         g = torch.Generator(device=device).manual_seed(13)
-        d_o = torch.randn(32, n, meta.o_width, generator=g, device=device).to(dtype)
+        d_o = torch.randn(32, kn, meta.o_width, generator=g, device=device).to(dtype)
         bwd = hbt.attn_backward(y, d_o, None if dtype == bf16 else attn, colmask, rel_pos, ext,
                                 tsw, meta, seed)
-        name = f"K4 {inst or 'default'} {str(dtype)[6:]}"
+        name = f"K4 {inst or 'default'} {str(dtype)[6:]}" + (f" n={kn}" if kn != n else "")
         out[f"{name} forward"], out[f"{name} attention backward"] = digest(fwd, attn), digest(*bwd)
     for dtype in (f32, bf16):
         d = p1cli.probe_data(16, P1_LENGTH, 1, np.random.default_rng(2), device)
@@ -1420,13 +1438,13 @@ def rel_err(got, ref) -> float:
 
 def k4_meta(instance: Optional[str], max_seq_len: int = MAX_SEQ_LEN) -> tuple:
     """The BlockMeta of ml-20m-hstu-mol's train block with the fields of one
-    of K4_VAR_INSTANCES (None: the default block) at `max_seq_len`, and
-    whether it has the bias."""
+    of K4_VAR_INSTANCES or K4_BWD_INSTANCES (None: the default block) at
+    `max_seq_len`, and whether it has the bias."""
     from rails_tpu_torch.core.config import get_experiment_config
     from rails_tpu_torch.models.hstu import train_block_meta
 
     hstu = get_experiment_config("ml-20m-hstu-mol").hstu.replace(
-        **K4_VAR_INSTANCES.get(instance, {}))
+        **{**K4_VAR_INSTANCES, **K4_BWD_INSTANCES}.get(instance, {}))
     return train_block_meta(hstu, max_seq_len), hstu.enable_relative_attention_bias
 
 

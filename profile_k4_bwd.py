@@ -1,14 +1,18 @@
 """Where the time of K4's attention backward goes, per kernel, on one CUDA card.
 
 Run from the root of a checkout: `python3 profile_k4_bwd.py [INSTANCE ...]`,
-where an instance is a key of `chip_smoke.K4_VAR_INSTANCES` or "default"
-(the default: "default", "no bias", "softmax"). For each instance, in f32
-and bf16, it builds the attention backward's inputs at ml-20m-hstu-mol's
-train block (B = 128, n = 211, o_input dropout 0.2; `chip_smoke.check_k4`'s
+where an instance is a key of `chip_smoke.K4_VAR_INSTANCES` or
+`chip_smoke.K4_BWD_INSTANCES` (h*dqk = h*dv = 256) or "default" (the
+default: "default", "no bias", "softmax"). For each instance, in f32 and
+bf16, it builds the attention backward's inputs at ml-20m-hstu-mol's train
+block (B = 128, n = 211, o_input dropout 0.2; `chip_smoke.check_k4`'s
 inputs), then prints
   - the mean ms of one `attn_backward` call between CUDA events;
   - the device ms per call of each kernel it launches, over PROFILED calls
-    under `torch.profiler`;
+    under `torch.profiler`, and for the pointwise backward's two CUDA-core
+    kernels (its rows and columns passes) their summed time and share of the
+    FMA rate: the 5 products the function needs (`chip_smoke.k4_bwd_flops`,
+    f32) at 67 TFLOP/s over that time;
   - for each kernel of the backward in the `-Xptxas -v` build log, its
     registers and spills, its shared memory at these shapes, and the blocks
     per SM those two allow (computed from the H100's 65,536 registers and
@@ -27,10 +31,10 @@ import chip_smoke
 PROFILED = 5
 DEFAULT_INSTANCES = ("default", "no bias", "softmax")
 REGS_PER_SM, SMEM_PER_SM, SMEM_PER_BLOCK_RESERVED, MAX_WARPS_PER_SM = 65_536, 232_448, 1024, 64
-BWD_KERNELS = ("attn_row_bwd_kernel", "hstu_attn_bwd_kernel", "softmax_bwd_rows_kernel",
-               "softmax_bwd_cols_kernel", "hstu_attn_kernel", "hstu_softmax_attn_kernel",
+BWD_KERNELS = ("attn_row_bwd_kernel", "hstu_attn_bwd_rows_kernel", "hstu_attn_bwd_cols_kernel",
+               "softmax_bwd_rows_kernel", "softmax_bwd_cols_kernel", "hstu_attn_kernel", "hstu_softmax_attn_kernel",
                "tc_bwd_rows_kernel", "tc_bwd_dq_kernel", "tc_bwd_dkv_kernel")
-THREADS = {"hstu_attn_bwd_kernel": 512}   # the others run 256 threads a block (the CUDA-core ones)
+THREADS = 256   # a block of each CUDA-core backward kernel
 
 
 def blocks_per_sm(regs: int, smem: int, threads: int) -> int:
@@ -109,8 +113,15 @@ def main() -> None:
             print(f"[profile] {instance} {dt} B={b} n={n} h={meta.num_heads} dqk={meta.dqk} "
                   f"({hbt.variant_name(meta, has_bias)}): attn_backward {ms:.4f} ms per call "
                   f"(CUDA events) on {smi}")
+            fma_ms = (chip_smoke.k4_bwd_flops(b, n, meta, False)
+                      / chip_smoke.PEAK_FLOPS["float32"] * 1e3)
             for name, us in sorted(per_name.items(), key=lambda kv: -kv[1]):
                 print(f"[profile]   {us / 1e3 / PROFILED:8.4f} ms  {name}")
+            pointwise_ms = sum(us for name, us in per_name.items()
+                               if "hstu_attn_bwd" in name) / 1e3 / PROFILED
+            if pointwise_ms and not meta.softmax:
+                print(f"[profile]   {pointwise_ms:8.4f} ms  hstu_attn_bwd (both passes)  "
+                      f"({fma_ms / pointwise_ms:.3f} of the FMA rate's {fma_ms:.4f} ms)")
             if meta.softmax:
                 smem = lib.rails_hstu_softmax_train_bwd_smem_bytes(n, meta.num_heads, meta.dqk,
                                                                    meta.dv)
@@ -118,15 +129,14 @@ def main() -> None:
                 smem = lib.rails_hstu_train_bwd_smem_bytes(n, meta.dqk, meta.dv)
             for label, item in regs.items():
                 kernel = label.split("<")[0]
-                if kernel not in ("hstu_attn_bwd_kernel", "softmax_bwd_rows_kernel",
-                                  "softmax_bwd_cols_kernel"):
+                if kernel not in BWD_KERNELS[1:5]:
                     continue
-                if (kernel == "hstu_attn_bwd_kernel") == meta.softmax or not label.startswith(
+                if kernel.startswith("hstu_attn_bwd") == meta.softmax or not label.startswith(
                         f"{kernel}<{dt}"):
                     continue
                 count = int(item.rsplit(" ", 2)[1])
                 print(f"[occupancy]   {item}: at most {smem} B shared memory a block -> "
-                      f"{blocks_per_sm(count, smem, THREADS.get(kernel, 256))} blocks per SM "
+                      f"{blocks_per_sm(count, smem, THREADS)} blocks per SM "
                       f"(computed)")
 
 

@@ -34,7 +34,8 @@ OWN_KERNELS = ("hash_keep_mask_kernel", "ln_gemm_kernel", "hstu_attn_kernel", "t
                "tc_tf32_proj_kernel", "tc_tf32_attn_kernel", "tc_tf32_out_kernel",
                "tc_tf32_dq_kernel", "tc_tf32_dkv_kernel",
                "tc_bwd_dq_kernel", "tc_bwd_dkv_kernel", "mol_loss_tc_kernel",
-               "attn_row_bwd_kernel", "hstu_attn_bwd_kernel", "adamw_leaves_kernel",
+               "attn_row_bwd_kernel", "hstu_attn_bwd_rows_kernel", "hstu_attn_bwd_cols_kernel",
+               "adamw_leaves_kernel",
                "mol_loss_fwd_kernel", "mol_loss_bwd_kernel", "reduce_slots_kernel",
                "count_kernel", "scan_kernel", "rank_kernel", "place_kernel", "sum_kernel")
 

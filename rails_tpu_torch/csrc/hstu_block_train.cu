@@ -36,56 +36,67 @@
 //       gln = LN(attn), d_u and d_gln from d_o (of h*dv or, with concat_ua,
 //       3*h*dv columns), d_attn = LN-backward(attn, d_gln) (`_ln_bwd`); d_u
 //       goes into d_y, d_attn to a (B*n, h*dv) scratch.
-//   (b) hstu_attn_bwd: one block per user, heads in turn. A head's q, k,
-//       v/max_seq_len and d_attn (n x 32 each) are staged transposed, with an
-//       odd row stride, in shared memory (4 x 32 x 211 x 4 B = 108 KB at
-//       n = 211): lanes over positions read consecutive words and lanes over
-//       the 32 head dims read words an odd stride apart, so both access
-//       patterns are free of bank conflicts. Pass 1 walks query rows, a warp
-//       per row, lanes over key columns j <= i: it recomputes s = q_i k_j +
-//       bias (rel-pos + time bucket + the -30000 column penalty, built as K1
-//       builds it), d_a = d_attn_i . v_j [* keep] and d_s = d_a * silu'(s),
-//       adds d_s into the user's dbias row (head 0 writes it, zeroing j > i),
-//       then
-//       lanes over dims form d_q_i = sum_j d_s_ij k_j. Pass 2 walks key
-//       columns, a warp per column, lanes over rows i >= j, recomputes s and
-//       d_s and forms d_k_j = sum_i d_s_ij q_i and d_v_j = sum_i a_ij
-//       d_attn_i. Attention dropout regenerates the head's keep mask
-//       (`attn_seed`) at each (i, j) in both passes. Recomputing s and d_a in
-//       pass 2 costs 2 of the kernel's 7 products; in exchange no atomics are
-//       needed: every output element has one writer, and dbias sums the heads
-//       in the JAX kernel's order, so the result is the same on every run.
-//       Without the relative-attention bias the caller passes zero tables
-//       and drops dbias: s = q_i k_j + (0 + 0) + penalty in pass 1 and
-//       q_i k_j + 0 in pass 2, bit for bit the no-bias s, so one instance
-//       serves both.
-//       Head dims above 32 (the WIDE instances): the two passes stage only
-//       what each reads (k and v, then q and d_attn; 216 KB at dqk = dv = 64,
-//       n = 211, would not fit with the row buffers), the row's q and d_attn
-//       (pass 1) or the column's k and v (pass 2) come from device memory 32
-//       dims at a time into the same registers, and each chunk's partial s and
-//       d_a wait in the warp's row buffers. Narrow heads take the WIDE
-//       instances too where their four staged arrays would not fit a block
-//       (n > 357 at dqk = dv = 32: the combined preprocessor's n = 422 needs
-//       274,484 B that way, 166,196 B this way); the products are the same
-//       values in the same order, so the result is the same bits.
+//   (b) hstu_attn_bwd_rows_kernel, then hstu_attn_bwd_cols_kernel: 256-thread
+//       blocks over (user, 64-row tile) and (user, 64-column tile), two a
+//       SM (ceil(n / 64) tiles a user: 512 blocks a launch at B = 128, n =
+//       211; the rows with the most chunks start first). Every output
+//       element has one writer and one fmaf chain in the order of the first
+//       design (one block per user, a warp per row), so the bits are that
+//       design's: only the schedule changed. Pass 1 (rows) walks the column
+//       chunks of 64 up to the diagonal, pass 2 (columns) the row chunks from
+//       the diagonal to n. In each chunk the block computes the
+//       head-independent bias of its 64 x 64 pairs once (pass 1: (rel-pos +
+//       time bucket) + the -30000 column penalty; pass 2: rel-pos + time
+//       bucket, with no + 0 that would turn a -0 into +0), then takes the
+//       heads in order. A head's operands arrive in rounds of 32 dims: q and
+//       d_attn of the chunk's rows, k and v of its columns, copied
+//       asynchronously (cp.async) one round ahead into a landing area, then
+//       converted (v / max_seq_len and d_attn rounded to T) into row-major
+//       tiles whose rows lie an odd number of quads apart. Each thread forms
+//       s = q_i . k_j and d_a = d_attn_i . v_j for 4 rows x 4 columns from
+//       float4 loads (8 FMAs a load), recomputes silu'(s) [and the keep mask
+//       of `attn_seed`] and writes d_s (and, in pass 2, a) rounded into a 64
+//       x 64 tile. Pass 1 sums d_s over the heads in registers (head 0's
+//       value, then + d_s per head, the first design's adds), writes dbias
+//       once a chunk (zeros right of the diagonal) and continues d_q_i =
+//       sum_{j <= i} d_s_ij k_j (a thread 2 rows x 4 dims); pass 2 continues
+//       d_k_j = sum_{i >= j} d_s_ij q_i on four warps and d_v_j = sum_i a_ij
+//       d_attn_i on the other four (a thread 4 columns x 4 dims) and scales
+//       d_v by 1 / max_seq_len after the last chunk. A partial sum waits in
+//       d_y between chunks (the same thread reads it back), and a head wider
+//       than a round continues its chains from round to round: both give the
+//       bits of one uninterrupted chain. Causal and length predicates skip
+//       terms; no zero operand is ever fed to a chain. Padded key columns
+//       (silu'(s - 30000) = 0, a = 0) get zeros in pass 2 but enter pass 1's
+//       d_q and dbias as the first design entered them. Shared memory does
+//       not grow with n (at most 109 KB, from 32 dims), so every length the
+//       first design took still fits. Recomputing s and d_a in pass 2 costs 2
+//       of the kernels' 7 products; in exchange no atomics are needed and the
+//       result is the same on every run. Without the relative-attention bias
+//       the caller passes zero tables and drops dbias: s = q_i k_j + (0 + 0)
+//       + penalty in pass 1 and q_i k_j + 0 in pass 2, bit for bit the
+//       no-bias s, so one instance serves both.
 // Bound: the function needs 5 products of 2 * 32 FLOPs over the causal
 // (user, head, i, j) pairs, 7.3 GFLOP per layer at B = 128, n = 211 (0.11 ms
-// at the 67 TFLOP/s f32 rate; this kernel does 7, s and d_a twice), against
+// at the 67 TFLOP/s f32 rate; these kernels do 7, s and d_a twice), against
 // ~0.3 GB of traffic (y, d_o, attn, d_y, dbias), 0.09 ms at 3.35 TB/s: the
-// FP32 FMA rate of the CUDA cores bounds it. One block per user is 128 blocks
-// at B = 128, one wave on 132 SMs. The bf16 instances here run the same FMAs
-// on the CUDA cores (products of bf16-rounded values, f32 sums) and read half
-// the bytes of y and d_o: those outside K1's tensor-core widths (dqk or dv >
-// 32, other head counts) and linear_activation="none". At those widths with
-// the SiLU projection the bf16 block runs on the tensor cores instead: the
-// forward through hstu_block_tc.cuh (rails_hstu_tc_train_attention between
-// K1's projection and output GEMM), the pointwise backward through
-// hstu_train_tc.cuh (rails_hstu_tc_train_bwd); the entry points below refuse
-// those instances, and the f32 ones at those widths with n <= 512, the SiLU
-// projection and the pointwise attention, which run 3xTF32 on the tensor
-// cores (hstu_train_tf32.cu).
+// FP32 FMA rate of the CUDA cores bounds it, and the bits keep it there
+// (the tensor cores would sum in another order). Beside the FMAs each pair
+// and head spends an exp and an IEEE divide in each pass, which the design
+// cannot share. The bf16 instances here run the same FMAs on the CUDA cores
+// (products of bf16-rounded values, f32 sums) and read half the bytes of y
+// and d_o. Which instances reach it: linear_activation="none" in both
+// dtypes, head widths off K1's tensor-core widths (dqk or dv > 32, other
+// head counts), f32 past n = 512, each with or without attention dropout.
+// At K1's widths with the SiLU projection the bf16 block runs on the tensor
+// cores instead: the forward through hstu_block_tc.cuh
+// (rails_hstu_tc_train_attention between K1's projection and output GEMM),
+// the pointwise backward through hstu_train_tc.cuh (rails_hstu_tc_train_bwd);
+// the entry points below refuse those instances, and the f32 ones at those
+// widths with n <= 512, the SiLU projection and the pointwise attention,
+// which run 3xTF32 on the tensor cores (hstu_train_tf32.cu).
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 #include "hash_dropout.cuh"
@@ -97,216 +108,659 @@
 namespace rails {
 namespace {
 
-constexpr int kBwdThreads = 512;
-constexpr int kBwdWarps = kBwdThreads / 32;
-constexpr int kChunk = 32;   // head dims held in registers at a time: one per lane
+constexpr int kBwdThreads = 256;
+constexpr int kBT = 64;          // a block's rows (pass 1) or columns (pass 2); the chunk of the other
+constexpr int kDC = 32;          // head dims staged at a time (a round)
+constexpr int kLdP = kBT + 4;    // row stride of the d_s and a tiles: 17 quads
 
-// Narrow heads (dqk, dv <= 32) stage q, k, v and d_attn once per head; wide
-// ones stage the two operands each pass reads in two arrays.
-size_t attn_bwd_bytes(int n, int dqk, int dv, bool wide) {
-  const size_t ldk = static_cast<size_t>(n | 1);
-  const size_t floats = (wide ? 1 : 2) * (static_cast<size_t>(dqk) + dv) * ldk +
-                        static_cast<size_t>(kBwdWarps) * 2 * n + n + 128;
-  return floats * sizeof(float) + static_cast<size_t>(n + 1) * sizeof(int);
+// Row stride of a staged operand of `dims` head dims (kDC at most a round):
+// whole quads, an odd count of them, so that eight consecutive rows read as
+// float4 fall on distinct banks.
+__host__ __device__ inline int bwd_ld(int dims) {
+  return 4 * (((min(dims, kDC) + 3) / 4) | 1);
 }
 
-// The WIDE instance: head dims above 32, or narrow heads whose four staged
-// arrays would not fit a block at this length.
-bool attn_bwd_wide(int n, int dqk, int dv) {
-  return dqk > kChunk || dv > kChunk || attn_bwd_bytes(n, dqk, dv, false) > max_block_smem();
+// q and k of the pair tile's rows and columns and d_attn and v of them, each
+// twice (as it arrives and converted), the d_s and a tiles, and the
+// time-bucket weights: independent of n.
+size_t attn_bwd_smem_bytes(int /*n*/, int dqk, int dv) {
+  const size_t floats =
+      static_cast<size_t>(kBT) * (4 * bwd_ld(dqk) + 4 * bwd_ld(dv) + 2 * kLdP) + 128;
+  return floats * sizeof(float);
 }
 
-size_t attn_bwd_smem_bytes(int n, int dqk, int dv) {
-  return attn_bwd_bytes(n, dqk, dv, attn_bwd_wide(n, dqk, dv));
+__device__ __forceinline__ float comp(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
 }
 
-// (b) One block per user; heads in turn. y is stored as T; v, d_attn, the
-// attention weights and d_s round to T before each product. ADROP regenerates
-// the head's attention keep mask; WIDE takes head dims above 32 in register
-// chunks of 32.
-template <typename T, bool ADROP, bool WIDE>
-__global__ void __launch_bounds__(kBwdThreads)
-hstu_attn_bwd_kernel(const T* __restrict__ y, const float* __restrict__ d_attn,
-                     const float* __restrict__ colmask, const float* __restrict__ rel_pos,
-                     const int* __restrict__ ext, const float* __restrict__ tsw,
-                     float* __restrict__ d_y, float* __restrict__ dbias, int n, int H, int dqk,
-                     int dv, float inv_n, int max_bucket, Dropout adp) {
-  extern __shared__ float smem[];
-  const int ldk = n | 1;
-  // WIDE: kT/vT hold k and v/max_seq_len in pass 1, then qT/dT (the same
-  // arrays) q and d_attn in pass 2.
-  float* qT = smem;                                  // [dqk][ldk]
-  float* kT = WIDE ? qT : qT + dqk * ldk;            // [dqk][ldk]
-  float* vT = kT + dqk * ldk;                        // [dv][ldk]   v / max_seq_len
-  float* dT = WIDE ? vT : vT + dv * ldk;             // [dv][ldk]   d_attn of the head
-  float* wb = dT + dv * ldk;                         // [kBwdWarps][2n] per-warp row buffers
-  float* cm = wb + kBwdWarps * 2 * n;                // [n]
-  float* tw = cm + n;                                // [128]
-  int* ex = reinterpret_cast<int*>(tw + 128);        // [n + 1]
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
 
-  const int b = blockIdx.x, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int hdv = H * dv;
-  const int F = 2 * hdv + 2 * H * dqk;
-  const int64_t row0 = static_cast<int64_t>(b) * n;
-  // One register chunk for narrow heads; partial sums of a wide head's
-  // chunks wait in the row buffers (same FMA order as one long loop).
-  const int dmax = WIDE ? max(dqk, dv) : kChunk;
-  for (int j = tid; j < n; j += kBwdThreads) cm[j] = colmask[row0 + j];
-  for (int j = tid; j <= n; j += kBwdThreads) ex[j] = ext[static_cast<int64_t>(b) * (n + 1) + j];
-  for (int t = tid; t < 128; t += kBwdThreads) tw[t] = tsw[t];
-  float* buf0 = wb + warp * 2 * n;
-  float* buf1 = buf0 + n;
+// An asynchronous copy of `bytes` (16 or 8) from device to shared memory, of
+// which the first `valid` are read and the rest filled with zeros.
+__device__ __forceinline__ void bwd_cp_async(void* dst, const void* src, int bytes, int valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if (bytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(valid)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src), "r"(valid)
+                 : "memory");
+  }
+}
 
-  for (int hd = 0; hd < H; ++hd) {
-    const int voff = hdv + hd * dv;
-    const int qoff = 2 * hdv + hd * dqk;
-    const int koff = 2 * hdv + H * dqk + hd * dqk;
-    const uint32_t aseed = ADROP ? attn_seed(adp.seed0, b, hd) : 0u;
-    __syncthreads();   // the previous head's readers are done
-    for (int e = tid; e < n * dqk; e += kBwdThreads) {
-      const int i = e / dqk, d = e % dqk;
-      const T* yr = y + (row0 + i) * F;
-      if constexpr (!WIDE) qT[d * ldk + i] = to_f<T>(yr[qoff + d]);
-      kT[d * ldk + i] = to_f<T>(yr[koff + d]);
-    }
-    for (int e = tid; e < n * dv; e += kBwdThreads) {
-      const int i = e / dv, d = e % dv;
-      vT[d * ldk + i] = round_to<T>(to_f<T>(y[(row0 + i) * F + voff + d]) * inv_n);
-      if constexpr (!WIDE) dT[d * ldk + i] = round_to<T>(d_attn[(row0 + i) * hdv + hd * dv + d]);
-    }
-    __syncthreads();
+__device__ __forceinline__ void bwd_cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 
-    // Pass 1: query rows -> d_q and dbias.
-    for (int i = warp; i < n; i += kBwdWarps) {
-      const float* rp = rel_pos + static_cast<int64_t>(i) * n;
-      float* db = dbias + (row0 + i) * n;
-      const int nxt = ex[i + 1];
-      for (int c0 = 0; c0 < dmax; c0 += kChunk) {
-        const bool last = c0 + kChunk >= dmax;
-        float qi[kChunk], di[kChunk];
+__device__ __forceinline__ void bwd_cp_wait() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+// Whether a staged operand's rows are copied four elements at a time: its
+// start and row stride fall on whole quads.
+template <typename E>
+__device__ __forceinline__ bool quad_aligned(const E* src, int64_t lds) {
+  return ((reinterpret_cast<uintptr_t>(src) | static_cast<uintptr_t>(lds * sizeof(E))) &
+          (4 * sizeof(E) - 1)) == 0;
+}
+
+// Starts copying rows [0, rows) x elements [0, cnt) of src (row stride lds)
+// into `raw` (row stride ld): as they are stored, four at a time where
+// quad_aligned, else converted to float by plain loads. A thread takes the
+// quads u = tid + m * kBwdThreads of the kBT x 8 (row, quad) grid, the ones it
+// converts later (convert_rows).
+template <typename E>
+__device__ __forceinline__ void issue_rows(float* raw, int ld, const E* src, int64_t lds, int rows,
+                                           int cnt) {
+  const bool vec = quad_aligned(src, lds);
 #pragma unroll
-        for (int d = 0; d < kChunk; ++d) {
-          const int cd = c0 + d;
-          if constexpr (WIDE) {
-            qi[d] = cd < dqk ? to_f<T>(y[(row0 + i) * F + qoff + cd]) : 0.f;
-            di[d] = cd < dv ? round_to<T>(d_attn[(row0 + i) * hdv + hd * dv + cd]) : 0.f;
-          } else {
-            qi[d] = cd < dqk ? qT[cd * ldk + i] : 0.f;
-            di[d] = cd < dv ? dT[cd * ldk + i] : 0.f;
-          }
-        }
-        for (int j = lane; j <= i; j += 32) {
-          float s = c0 == 0 ? 0.f : buf0[j], da = c0 == 0 ? 0.f : buf1[j];
+  for (int m = 0; m < kBT * (kDC / 4) / kBwdThreads; ++m) {
+    const int u = threadIdx.x + m * kBwdThreads, r = u >> 3, c = 4 * (u & 7);
+    if (r >= rows || c >= cnt) continue;
+    const E* s = src + r * lds + c;
+    if (vec) {
+      bwd_cp_async(reinterpret_cast<E*>(raw) + r * ld + c, s, 4 * sizeof(E),
+                   min(cnt - c, 4) * static_cast<int>(sizeof(E)));
+    } else {
+      float v[4];
 #pragma unroll
-          for (int d = 0; d < kChunk; ++d) {
-            if (c0 + d < dqk) s = fmaf(qi[d], kT[(c0 + d) * ldk + j], s);
-            if (c0 + d < dv) da = fmaf(di[d], vT[(c0 + d) * ldk + j], da);
-          }
-          if (!last) {
-            buf0[j] = s;
-            buf1[j] = da;
-            continue;
-          }
-          s += (rp[j] + tw[time_bucket(nxt, ex[j], max_bucket)]) + (cm[j] > 0.f ? 0.f : kPenalty);
-          if constexpr (ADROP) {
-            da *= keep_scale(static_cast<uint32_t>(i * n + j), aseed, adp.thresh, adp.scale);
-          }
-          float sig, deriv;
-          silu_grad(s, sig, deriv);
-          const float ds = da * deriv;
-          buf0[j] = round_to<T>(ds);
-          db[j] = hd == 0 ? ds : db[j] + ds;
-        }
-      }
-      if (hd == 0) {
-        for (int j = i + 1 + lane; j < n; j += 32) db[j] = 0.f;
-      }
-      __syncwarp();
-      for (int d = lane; d < dqk; d += 32) {
-        float acc = 0.f;
-        for (int j = 0; j <= i; ++j) acc = fmaf(buf0[j], kT[d * ldk + j], acc);
-        d_y[(row0 + i) * F + qoff + d] = acc;
-      }
-      __syncwarp();
-    }
-
-    if constexpr (WIDE) {
-      __syncthreads();   // pass 1's readers of k and v are done
-      for (int e = tid; e < n * dqk; e += kBwdThreads) {
-        const int i = e / dqk, d = e % dqk;
-        qT[d * ldk + i] = to_f<T>(y[(row0 + i) * F + qoff + d]);
-      }
-      for (int e = tid; e < n * dv; e += kBwdThreads) {
-        const int i = e / dv, d = e % dv;
-        dT[d * ldk + i] = round_to<T>(d_attn[(row0 + i) * hdv + hd * dv + d]);
-      }
-      __syncthreads();
-    }
-
-    // Pass 2: key columns -> d_k and d_v.
-    for (int j = warp; j < n; j += kBwdWarps) {
-      float* dyj = d_y + (row0 + j) * F;
-      if (!(cm[j] > 0.f)) {   // a padded column: silu'(s - 30000) = 0 and a = 0
-        for (int d = lane; d < dqk; d += 32) dyj[koff + d] = 0.f;
-        for (int d = lane; d < dv; d += 32) dyj[voff + d] = 0.f;
-        continue;
-      }
-      const int tsj = ex[j];
-      for (int c0 = 0; c0 < dmax; c0 += kChunk) {
-        const bool last = c0 + kChunk >= dmax;
-        float kj[kChunk], vj[kChunk];
-#pragma unroll
-        for (int d = 0; d < kChunk; ++d) {
-          const int cd = c0 + d;
-          if constexpr (WIDE) {
-            const T* yr = y + (row0 + j) * F;
-            kj[d] = cd < dqk ? to_f<T>(yr[koff + cd]) : 0.f;
-            vj[d] = cd < dv ? round_to<T>(to_f<T>(yr[voff + cd]) * inv_n) : 0.f;
-          } else {
-            kj[d] = cd < dqk ? kT[cd * ldk + j] : 0.f;
-            vj[d] = cd < dv ? vT[cd * ldk + j] : 0.f;
-          }
-        }
-        for (int i = j + lane; i < n; i += 32) {
-          float s = c0 == 0 ? 0.f : buf0[i], da = c0 == 0 ? 0.f : buf1[i];
-#pragma unroll
-          for (int d = 0; d < kChunk; ++d) {
-            if (c0 + d < dqk) s = fmaf(qT[(c0 + d) * ldk + i], kj[d], s);
-            if (c0 + d < dv) da = fmaf(dT[(c0 + d) * ldk + i], vj[d], da);
-          }
-          if (!last) {
-            buf0[i] = s;
-            buf1[i] = da;
-            continue;
-          }
-          s += rel_pos[static_cast<int64_t>(i) * n + j] + tw[time_bucket(ex[i + 1], tsj, max_bucket)];
-          float sig, deriv;
-          silu_grad(s, sig, deriv);
-          float a = s * sig;
-          if constexpr (ADROP) {
-            const float keep =
-                keep_scale(static_cast<uint32_t>(i * n + j), aseed, adp.thresh, adp.scale);
-            da *= keep;
-            a *= keep;
-          }
-          buf0[i] = round_to<T>(da * deriv);
-          buf1[i] = round_to<T>(a);
-        }
-      }
-      __syncwarp();
-      for (int d = lane; d < dqk; d += 32) {
-        float acc = 0.f;
-        for (int i = j; i < n; ++i) acc = fmaf(buf0[i], qT[d * ldk + i], acc);
-        dyj[koff + d] = acc;
-      }
-      for (int d = lane; d < dv; d += 32) {
-        float acc = 0.f;
-        for (int i = j; i < n; ++i) acc = fmaf(buf1[i], dT[d * ldk + i], acc);
-        dyj[voff + d] = acc * inv_n;
-      }
-      __syncwarp();
+      for (int e = 0; e < 4; ++e) v[e] = c + e < cnt ? to_f<E>(s[e]) : 0.f;
+      *reinterpret_cast<float4*>(raw + r * ld + c) = make_float4(v[0], v[1], v[2], v[3]);
     }
   }
+}
+
+// dst[r][0, cnt) = conv(the copied element) for the kBT rows r, zeros at rows
+// >= rows and in the quad past cnt: the quads this thread copied.
+template <typename E, typename Conv>
+__device__ __forceinline__ void convert_rows(float* dst, const float* raw, int ld, const E* src,
+                                             int64_t lds, int rows, int cnt, Conv conv) {
+  const bool vec = quad_aligned(src, lds);
+#pragma unroll
+  for (int m = 0; m < kBT * (kDC / 4) / kBwdThreads; ++m) {
+    const int u = threadIdx.x + m * kBwdThreads, r = u >> 3, c = 4 * (u & 7);
+    if (c >= cnt) continue;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    if (r < rows) {
+      if (!vec || sizeof(E) == 4) {
+        const float4 x = ld4(raw + r * ld + c);
+        v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+      } else {   // bf16: a value's bits are the high half of its float's
+        const uint2 x = *reinterpret_cast<const uint2*>(reinterpret_cast<const E*>(raw) + r * ld + c);
+        v[0] = __uint_as_float(x.x << 16), v[1] = __uint_as_float(x.x & 0xffff0000u);
+        v[2] = __uint_as_float(x.y << 16), v[3] = __uint_as_float(x.y & 0xffff0000u);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = c + e < cnt ? v[e] : 0.f;
+    }
+    *reinterpret_cast<float4*>(dst + r * ld + c) =
+        make_float4(conv(v[0]), conv(v[1]), conv(v[2]), conv(v[3]));
+  }
+}
+
+// acc[r][c] = sum over d < cnt of a[ar[r] + d] * b[(bc + c) * ld + d], each a
+// fmaf chain in d order continuing from acc.
+__device__ __forceinline__ void tile_dot(float (&acc)[4][4], const float* a, const int (&ar)[4],
+                                         const float* b, int ld, int cnt) {
+  const int full = cnt & ~3;
+  for (int d = 0; d < full; d += 4) {
+    float4 x[4], w[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) x[r] = ld4(a + ar[r] + d);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) w[c] = ld4(b + c * ld + d);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(comp(x[r], k), comp(w[c], k), acc[r][c]);
+      }
+    }
+  }
+  for (int d = full; d < cnt; ++d) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[ar[r] + d], b[c * ld + d], acc[r][c]);
+    }
+  }
+}
+
+// The arguments of one launch.
+template <typename T>
+struct BwdParams {
+  const T* y;
+  const float* d_attn;
+  const float* colmask;
+  const float* rel_pos;
+  const int* ext;
+  const float* tsw;
+  float* d_y;
+  float* dbias;
+  int n, H, dqk, dv;
+  float inv_n;
+  int max_bucket;
+  Dropout adp;
+};
+
+// One block's shared memory.
+struct BwdSmem {
+  float* qs;   // [kBT][ldq] q of the pair tile's rows (query positions)
+  float* ks;   // [kBT][ldq] k of its columns (key positions)
+  float* as;   // [kBT][ldv] d_attn of its rows, rounded to T
+  float* vs;   // [kBT][ldv] v / max_seq_len of its columns, rounded to T
+  float* raw;  // the next round of the four as they arrive, in the same places
+  float* dsm;  // [kBT][kLdP] d_s of its pairs, rounded to T
+  float* am;   // [kBT][kLdP] pass 2: the attention weights of its pairs, rounded to T;
+               // pass 1: the bias of its pairs
+  float* tw;   // [128] the time-bucket weights
+  int ldq, ldv;
+};
+
+enum : int { kQ = 1, kK = 2, kA = 4, kV = 8 };
+
+// A round of staged operands: dims [d0, d0 + kDC) of head hd's q and d_attn
+// for the rows [i0, i0 + kBT) and of its k and v for the columns [j0, j0 +
+// kBT), of the arrays in `mask`.
+struct Item {
+  int hd, i0, j0, d0, mask;
+};
+
+// Calls fn(dst, raw, ld, src, row stride, rows, cnt, conversion) for each
+// array of the item, in the order q, k, d_attn, v.
+template <typename T, typename Fn>
+__device__ __forceinline__ void for_arrays(const BwdParams<T>& p, const BwdSmem& sm, int b,
+                                           const Item& it, Fn fn) {
+  const int n = p.n, hdv = p.H * p.dv, F = 2 * hdv + 2 * p.H * p.dqk;
+  const int64_t row0 = static_cast<int64_t>(b) * n;
+  const int rows_i = min(kBT, n - it.i0), rows_j = min(kBT, n - it.j0);
+  const int cq = min(kDC, p.dqk - it.d0), cv = min(kDC, p.dv - it.d0);
+  const int64_t off_q = kBT * sm.ldq, off_v = kBT * sm.ldv;
+  const float inv_n = p.inv_n;
+  auto same = [](float v) { return v; };
+  auto round_a = [](float v) { return round_to<T>(v); };
+  auto round_v = [inv_n](float v) { return round_to<T>(v * inv_n); };
+  if (it.mask & kQ) {
+    fn(sm.qs, sm.raw, sm.ldq, p.y + (row0 + it.i0) * F + 2 * hdv + it.hd * p.dqk + it.d0,
+       static_cast<int64_t>(F), rows_i, cq, same);
+  }
+  if (it.mask & kK) {
+    fn(sm.ks, sm.raw + off_q, sm.ldq,
+       p.y + (row0 + it.j0) * F + 2 * hdv + p.H * p.dqk + it.hd * p.dqk + it.d0,
+       static_cast<int64_t>(F), rows_j, cq, same);
+  }
+  if (it.mask & kA) {
+    fn(sm.as, sm.raw + 2 * off_q, sm.ldv, p.d_attn + (row0 + it.i0) * hdv + it.hd * p.dv + it.d0,
+       static_cast<int64_t>(hdv), rows_i, cv, round_a);
+  }
+  if (it.mask & kV) {
+    fn(sm.vs, sm.raw + 2 * off_q + off_v, sm.ldv,
+       p.y + (row0 + it.j0) * F + hdv + it.hd * p.dv + it.d0, static_cast<int64_t>(F), rows_j,
+       cv, round_v);
+  }
+}
+
+// The ring of one pass: a step (a head of a chunk) stages its operands in
+// rounds, the products' rounds k < R over the operands they read, then the
+// second product's rounds R .. K - 1 over dims [0, (K - R) * kDC) (its dims
+// [(R - 1) * kDC, ..) are what the products' last round left): pass 1's k,
+// pass 2's q and d_attn. The round in flight converts into the staged
+// operands once their readers are done, and the next round's copies start at
+// once, to land while the block computes.
+template <bool PASS1, typename T>
+struct Ring {
+  const BwdParams<T>& p;
+  const BwdSmem& sm;
+  int b, tile, last_chunk, R, K;
+
+  __device__ Ring(const BwdParams<T>& p_, const BwdSmem& sm_, int b_, int tile_, int last)
+      : p(p_), sm(sm_), b(b_), tile(tile_), last_chunk(last) {
+    R = (max(p.dqk, p.dv) + kDC - 1) / kDC;
+    K = R + (PASS1 ? min(R - 1, (p.dqk + kDC - 1) / kDC) : R - 1);
+  }
+
+  __device__ Item item(int c, int hd, int k) const {
+    Item it;
+    it.hd = hd;
+    it.i0 = (PASS1 ? tile : c) * kBT;
+    it.j0 = (PASS1 ? c : tile) * kBT;
+    it.d0 = (k < R ? k : k - R) * kDC;
+    if (k < R) {
+      it.mask = (it.d0 < p.dqk ? kQ | kK : 0) | (it.d0 < p.dv ? kA | kV : 0);
+    } else {
+      it.mask = PASS1 ? kK : (it.d0 < p.dqk ? kQ : 0) | (it.d0 < p.dv ? kA : 0);
+    }
+    return it;
+  }
+
+  __device__ void issue(int c, int hd, int k) const {
+    for_arrays<T>(p, sm, b, item(c, hd, k),
+                  [](float*, float* raw, int ld, const auto* src, int64_t lds, int rows, int cnt,
+                     auto) { issue_rows(raw, ld, src, lds, rows, cnt); });
+    bwd_cp_commit();
+  }
+
+  // Round k of step (c, hd): wait for it, convert it once the staged
+  // operands' readers are done, start the next round.
+  __device__ void stage(int c, int hd, int k) const {
+    __syncthreads();
+    bwd_cp_wait();
+    for_arrays<T>(p, sm, b, item(c, hd, k),
+                  [](float* dst, float* raw, int ld, const auto* src, int64_t lds, int rows,
+                     int cnt, auto conv) { convert_rows(dst, raw, ld, src, lds, rows, cnt, conv); });
+    __syncthreads();   // a thread's next copies may land on quads another one converted
+    if (++k == K) {
+      k = 0;
+      if (++hd == p.H) {
+        hd = 0;
+        ++c;
+      }
+    }
+    if (c <= last_chunk) issue(c, hd, k);
+  }
+};
+
+// The bias of the thread's pairs (rows i0 + pr, columns j0 + pc0 + c),
+// shared by every head: pass 1's (rel_pos + tsw[bucket]) + the column's
+// penalty, pass 2's rel_pos + tsw[bucket] (no penalty term, whose + 0 would
+// turn a -0 into +0), each as the per-pair code of the first design adds it.
+template <bool PASS1, typename T>
+__device__ __forceinline__ void pair_bias(const BwdParams<T>& p, const BwdSmem& sm, int b, int i0,
+                                          int j0, const int (&pr)[4], int pc0,
+                                          float (&bias)[4][4]) {
+  const int n = p.n;
+  const int* ex = p.ext + static_cast<int64_t>(b) * (n + 1);
+  const float* cm = p.colmask + static_cast<int64_t>(b) * n;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = i0 + pr[r];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = j0 + pc0 + c;
+      bias[r][c] = 0.f;
+      if (i < n && j < n) {
+        const float rt = p.rel_pos[static_cast<int64_t>(i) * n + j] +
+                         sm.tw[time_bucket(ex[i + 1], ex[j], p.max_bucket)];
+        bias[r][c] = PASS1 ? rt + (cm[j] > 0.f ? 0.f : kPenalty) : rt;
+      }
+    }
+  }
+}
+
+// s = q_i . k_j and da = d_attn_i . v_j over the head's dims for the
+// thread's 4 x 4 pairs (rows pr, columns pc0 + c of the tile), round by
+// round; `active` warps compute, every thread stages.
+template <bool PASS1, typename T>
+__device__ __forceinline__ void pair_products(const Ring<PASS1, T>& ring, int c, int hd,
+                                              bool active, const int (&pr)[4], int pc0,
+                                              float (&s)[4][4], float (&da)[4][4]) {
+  const BwdParams<T>& p = ring.p;
+  const BwdSmem& sm = ring.sm;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) s[r][cc] = da[r][cc] = 0.f;
+  }
+  for (int k = 0; k < ring.R; ++k) {
+    ring.stage(c, hd, k);
+    if (!active) continue;
+    const int d0 = k * kDC;
+    if (d0 < p.dqk) {
+      const int aq[4] = {pr[0] * sm.ldq, pr[1] * sm.ldq, pr[2] * sm.ldq, pr[3] * sm.ldq};
+      tile_dot(s, sm.qs, aq, sm.ks + pc0 * sm.ldq, sm.ldq, min(kDC, p.dqk - d0));
+    }
+    if (d0 < p.dv) {
+      const int av[4] = {pr[0] * sm.ldv, pr[1] * sm.ldv, pr[2] * sm.ldv, pr[3] * sm.ldv};
+      tile_dot(da, sm.as, av, sm.vs + pc0 * sm.ldv, sm.ldv, min(kDC, p.dv - d0));
+    }
+  }
+}
+
+// Pass 1: the rows [i0, i0 + kBT) of user b -> d_q and dbias. Column chunks
+// in order up to the diagonal; in each, the bias once, then every head in
+// order: s and d_a, d_s (rounded into the tile), dbias summed in registers
+// in head order, and d_q's partial sums over the chunk continued in d_y.
+template <typename T, bool ADROP>
+__device__ __forceinline__ void bwd_rows(const BwdParams<T>& p, const BwdSmem& sm, int b,
+                                         int tile) {
+  const int n = p.n, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int hdv = p.H * p.dv, F = 2 * hdv + 2 * p.H * p.dqk;
+  const int64_t row0 = static_cast<int64_t>(b) * n;
+  const int i0 = tile * kBT;
+  // The pair tile: warps 2 (rows) x 4 (columns) of 32 x 16 pairs; a lane 4
+  // rows eight apart by 4 adjacent columns.
+  const int wr = warp & 1, wc = warp >> 1;
+  const int pr[4] = {32 * wr + (lane & 7), 32 * wr + (lane & 7) + 8, 32 * wr + (lane & 7) + 16,
+                     32 * wr + (lane & 7) + 24};
+  const int pc0 = 16 * wc + 4 * (lane >> 3);
+  const bool rows_live = i0 + 32 * wr < n;
+  // d_q: a thread 2 rows 32 apart by 4 dims of the round.
+  const int qr[2] = {tid >> 3, (tid >> 3) + 32}, qe0 = 4 * (tid & 7);
+  const Ring<true, T> ring(p, sm, b, tile, tile);
+  ring.issue(0, 0, 0);
+  float dbacc[4][4];
+  for (int c = 0; c <= tile; ++c) {
+    const int j0 = c * kBT;
+    const bool diag = c == tile;
+    // A warp whose pairs all lie right of the diagonal or below the last row.
+    const bool active = rows_live && !(diag && 16 * wc > 32 * wr + 31);
+    {   // the chunk's bias waits in the tile: the thread reads back its own pairs
+      float bias[4][4];
+      pair_bias<true>(p, sm, b, i0, j0, pr, pc0, bias);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        *reinterpret_cast<float4*>(sm.am + pr[r] * kLdP + pc0) =
+            make_float4(bias[r][0], bias[r][1], bias[r][2], bias[r][3]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) dbacc[r][cc] = 0.f;
+    }
+    for (int hd = 0; hd < p.H; ++hd) {
+      const uint32_t aseed = ADROP ? attn_seed(p.adp.seed0, b, hd) : 0u;
+      float s[4][4], da[4][4];
+      pair_products<true, T>(ring, c, hd, active, pr, pc0, s, da);
+      if (active) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = i0 + pr[r];
+          const float4 bv = ld4(sm.am + pr[r] * kLdP + pc0);
+          float o[4];
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) {
+            const int j = j0 + pc0 + cc;
+            const float sv = s[r][cc] + comp(bv, cc);
+            float dav = da[r][cc];
+            if constexpr (ADROP) {
+              dav *= keep_scale(static_cast<uint32_t>(i * n + j), aseed, p.adp.thresh,
+                                p.adp.scale);
+            }
+            float sig, deriv;
+            silu_grad(sv, sig, deriv);
+            const float ds = dav * deriv;
+            o[cc] = round_to<T>(ds);
+            // The first design's db[j] + ds, which the compiler did not fuse
+            // with ds's product: the [K1-hash] lines tell the two apart.
+            dbacc[r][cc] = hd == 0 ? ds : __fadd_rn(dbacc[r][cc], ds);
+          }
+          *reinterpret_cast<float4*>(sm.dsm + pr[r] * kLdP + pc0) = make_float4(o[0], o[1], o[2], o[3]);
+        }
+      }
+      // d_q_i += sum over the chunk's j <= i of d_s_ij k_j, in j order: first
+      // the round the products left staged, then the others.
+      const int qoff = 2 * hdv + hd * p.dqk;
+      for (int q = 0; q <= ring.K - ring.R; ++q) {
+        const int e0 = (q == 0 ? ring.R - 1 : q - 1) * kDC;
+        if (e0 >= p.dqk) continue;
+        const int cnt = min(kDC, p.dqk - e0);
+        const bool live = i0 + qr[0] < n && qe0 < cnt;
+        // The partial sums of the chunk before, read back by the thread that wrote them.
+        float acc[2][4];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = i0 + qr[r];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[r][e] = 0.f;
+            if (live && c > 0 && i < n && qe0 + e < cnt)
+              acc[r][e] = p.d_y[(row0 + i) * F + qoff + e0 + qe0 + e];
+          }
+        }
+        if (q == 0) {
+          __syncthreads();   // d_s is in the tile
+        } else {
+          ring.stage(c, hd, ring.R + q - 1);   // k's dims [e0, e0 + kDC)
+        }
+        if (!live) continue;
+        // Off the diagonal every j of the chunk, without predicates; on it
+        // j <= i, up to the thread's second row.
+        auto sum = [&](auto on_diag) {
+          constexpr bool kDiag = decltype(on_diag)::value;
+          for (int jq = 0; jq < (kDiag ? (qr[1] & ~3) + 4 : kBT); jq += 4) {
+            float4 x[2], w[4];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) x[r] = ld4(sm.dsm + qr[r] * kLdP + jq);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) w[k] = ld4(sm.ks + (jq + k) * sm.ldq + qe0);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {
+                if (kDiag && jq + k > qr[r]) continue;
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[r][e] = fmaf(comp(x[r], k), comp(w[k], e), acc[r][e]);
+              }
+            }
+          }
+        };
+        if (diag) {
+          sum(std::true_type{});
+        } else {
+          sum(std::false_type{});
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = i0 + qr[r];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (i < n && qe0 + e < cnt) p.d_y[(row0 + i) * F + qoff + e0 + qe0 + e] = acc[r][e];
+          }
+        }
+      }
+    }
+    // dbias of the chunk, once: the head sum at j <= i, zeros right of the diagonal.
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = i0 + pr[r];
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const int j = j0 + pc0 + cc;
+        if (i < n && j < n) p.dbias[(row0 + i) * n + j] = j <= i ? dbacc[r][cc] : 0.f;
+      }
+    }
+  }
+  // The columns past the diagonal chunk.
+  const int rows = min(kBT, n - i0), c_lo = i0 + kBT, width = n - c_lo;
+  for (int e = tid; width > 0 && e < rows * width; e += kBwdThreads) {
+    const int r = e / width;
+    p.dbias[(row0 + i0 + r) * n + c_lo + (e - r * width)] = 0.f;
+  }
+}
+
+// Pass 2: the key columns [j0, j0 + kBT) of user b -> d_k and d_v. Row
+// chunks in order from the diagonal; in each, the bias once, then every head
+// in order: s and d_a, d_s and a (rounded into the tiles), and the partial
+// sums of d_k_j = sum_i d_s_ij q_i and d_v_j = sum_i a_ij d_attn_i continued
+// in d_y; d_v is scaled by 1 / max_seq_len after the last chunk. Padded
+// columns (silu'(s - 30000) = 0 and a = 0) write zeros.
+template <typename T, bool ADROP>
+__device__ __forceinline__ void bwd_cols(const BwdParams<T>& p, const BwdSmem& sm, int b,
+                                         int tile) {
+  const int n = p.n, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int hdv = p.H * p.dv, F = 2 * hdv + 2 * p.H * p.dqk;
+  const int64_t row0 = static_cast<int64_t>(b) * n;
+  const float* cm = p.colmask + row0;
+  const int j0 = tile * kBT, chunks = (n + kBT - 1) / kBT;
+  const int wr = warp & 1, wc = warp >> 1;
+  const int pr[4] = {32 * wr + (lane & 7), 32 * wr + (lane & 7) + 8, 32 * wr + (lane & 7) + 16,
+                     32 * wr + (lane & 7) + 24};
+  const int pc0 = 16 * wc + 4 * (lane >> 3);
+  bool live = false;   // a column of the lane's pairs that is < n and not padded
+#pragma unroll
+  for (int cc = 0; cc < 4; ++cc) live |= j0 + pc0 + cc < n && cm[j0 + pc0 + cc] > 0.f;
+  const bool cols_live = __any_sync(0xffffffffu, live);
+  // d_k on warps 0-3, d_v on warps 4-7: a thread 4 adjacent columns by 4 dims
+  // of the round.
+  const bool g_v = warp >= 4;
+  const int oc0 = 4 * ((tid & 127) >> 3), pe0 = 4 * (tid & 7);
+  bool ok[4];
+#pragma unroll
+  for (int cc = 0; cc < 4; ++cc) ok[cc] = j0 + oc0 + cc < n && cm[j0 + oc0 + cc] > 0.f;
+  const bool out_live = __any_sync(0xffffffffu, ok[0] || ok[1] || ok[2] || ok[3]);
+  const float* xs = g_v ? sm.am : sm.dsm;   // the weights of the sum: a or d_s
+  const float* ws = g_v ? sm.as : sm.qs;    // its vectors: d_attn or q
+  const int ldw = g_v ? sm.ldv : sm.ldq, dims = g_v ? p.dv : p.dqk;
+  const Ring<false, T> ring(p, sm, b, tile, chunks - 1);
+  ring.issue(tile, 0, 0);
+  for (int c = tile; c < chunks; ++c) {
+    const int i0 = c * kBT;
+    const bool diag = c == tile, last = c == chunks - 1;
+    const bool active = cols_live && i0 + 32 * wr < n && !(diag && 32 * wr + 31 < 16 * wc);
+    float bias[4][4];
+    pair_bias<false>(p, sm, b, i0, j0, pr, pc0, bias);
+    for (int hd = 0; hd < p.H; ++hd) {
+      const uint32_t aseed = ADROP ? attn_seed(p.adp.seed0, b, hd) : 0u;
+      float s[4][4], da[4][4];
+      pair_products<false, T>(ring, c, hd, active, pr, pc0, s, da);
+      if (active) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = i0 + pr[r];
+          float o[4], oa[4];
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) {
+            const int j = j0 + pc0 + cc;
+            const float sv = s[r][cc] + bias[r][cc];
+            float dav = da[r][cc];
+            float sig, deriv;
+            silu_grad(sv, sig, deriv);
+            float a = sv * sig;
+            if constexpr (ADROP) {
+              const float keep =
+                  keep_scale(static_cast<uint32_t>(i * n + j), aseed, p.adp.thresh, p.adp.scale);
+              dav *= keep;
+              a *= keep;
+            }
+            o[cc] = round_to<T>(dav * deriv);
+            oa[cc] = round_to<T>(a);
+          }
+          *reinterpret_cast<float4*>(sm.dsm + pr[r] * kLdP + pc0) = make_float4(o[0], o[1], o[2], o[3]);
+          *reinterpret_cast<float4*>(sm.am + pr[r] * kLdP + pc0) =
+              make_float4(oa[0], oa[1], oa[2], oa[3]);
+        }
+      }
+      const int off = g_v ? hdv + hd * p.dv : 2 * hdv + p.H * p.dqk + hd * p.dqk;
+      for (int q = 0; q <= ring.K - ring.R; ++q) {
+        const int e0 = (q == 0 ? ring.R - 1 : q - 1) * kDC;
+        const int cnt = min(kDC, dims - e0);
+        // A warp whose columns are all padded writes its zeros after the last chunk.
+        const bool work = pe0 < cnt && (out_live || last);
+        // The partial sums of the chunk before, read back by the thread that wrote them.
+        float acc[4][4];
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          const float* dyj = p.d_y + (row0 + j0 + oc0 + cc) * F + off + e0 + pe0;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[cc][e] = 0.f;
+            if (work && !diag && out_live && j0 + oc0 + cc < n && pe0 + e < cnt) acc[cc][e] = dyj[e];
+          }
+        }
+        if (q == 0) {
+          __syncthreads();   // d_s and a are in the tiles
+        } else {
+          ring.stage(c, hd, ring.R + q - 1);   // q's and d_attn's dims [e0, e0 + kDC)
+        }
+        if (!work) continue;
+        // Rows of the chunk below n; on the diagonal, i >= j from this warp's first column.
+        const int ibeg = diag ? 16 * (warp & 3) : 0, iend = out_live ? min(kBT, n - i0) : 0;
+        // Whole chunks of live columns without predicates.
+        auto sum = [&](auto edge) {
+          constexpr bool kEdge = decltype(edge)::value;
+          for (int iq = kEdge ? ibeg : 0; iq < (kEdge ? iend : kBT); iq += 4) {
+            float4 x[4], w[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              x[k] = ld4(xs + (iq + k) * kLdP + oc0);
+              w[k] = ld4(ws + (iq + k) * ldw + pe0);
+            }
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+#pragma unroll
+              for (int cc = 0; cc < 4; ++cc) {
+                if (kEdge && (!ok[cc] || iq + k >= iend || (diag && iq + k < oc0 + cc))) continue;
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[cc][e] = fmaf(comp(x[k], cc), comp(w[k], e), acc[cc][e]);
+              }
+            }
+          }
+        };
+        if (!diag && iend == kBT && ok[0] && ok[1] && ok[2] && ok[3]) {
+          sum(std::false_type{});
+        } else {
+          sum(std::true_type{});
+        }
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          if (j0 + oc0 + cc >= n) continue;
+          float* dyj = p.d_y + (row0 + j0 + oc0 + cc) * F + off + e0 + pe0;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (pe0 + e < cnt) dyj[e] = g_v && last ? acc[cc][e] * p.inv_n : acc[cc][e];
+          }
+        }
+      }
+    }
+  }
+}
+
+// One block's shared memory (attn_bwd_smem_bytes), with the time-bucket
+// weights staged.
+template <typename T>
+__device__ __forceinline__ BwdSmem bwd_smem(const BwdParams<T>& p, float4* smem4) {
+  BwdSmem sm;
+  sm.ldq = bwd_ld(p.dqk);
+  sm.ldv = bwd_ld(p.dv);
+  sm.qs = reinterpret_cast<float*>(smem4);
+  sm.ks = sm.qs + kBT * sm.ldq;
+  sm.as = sm.ks + kBT * sm.ldq;
+  sm.vs = sm.as + kBT * sm.ldv;
+  sm.raw = sm.vs + kBT * sm.ldv;
+  sm.dsm = sm.raw + 2 * kBT * (sm.ldq + sm.ldv);
+  sm.am = sm.dsm + kBT * kLdP;
+  sm.tw = sm.am + kBT * kLdP;
+  for (int t = threadIdx.x; t < 128; t += kBwdThreads) sm.tw[t] = p.tsw[t];
+  __syncthreads();
+  return sm;
+}
+
+// (b) Two launches of (user, tile) blocks, the tiles with the most chunks
+// first: pass 1 over 64 query rows, pass 2 over 64 key columns. y is stored
+// as T; v, d_attn, the attention weights and d_s round to T before each
+// product. ADROP regenerates each head's attention keep mask.
+template <typename T, bool ADROP>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+hstu_attn_bwd_rows_kernel(BwdParams<T> p) {
+  extern __shared__ float4 smem4[];
+  bwd_rows<T, ADROP>(p, bwd_smem(p, smem4), blockIdx.x, gridDim.y - 1 - blockIdx.y);
+}
+
+template <typename T, bool ADROP>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+hstu_attn_bwd_cols_kernel(BwdParams<T> p) {
+  extern __shared__ float4 smem4[];
+  bwd_cols<T, ADROP>(p, bwd_smem(p, smem4), blockIdx.x, blockIdx.y);
 }
 
 namespace tc {
@@ -342,16 +796,18 @@ cudaError_t launch_tc_train_attn(const bf16* vqk, const float* u, const float* c
 
 }  // namespace tc
 
-template <typename T, bool ADROP, bool WIDE>
-cudaError_t launch_attn_bwd(const T* y, const float* d_attn, const float* colmask,
-                            const float* rel_pos, const int* ext, const float* tsw, float* d_y,
-                            float* dbias, int B, int n, int H, int dqk, int dv, float inv_n,
-                            int max_bucket, Dropout adp, cudaStream_t s) {
-  const size_t smem = attn_bwd_smem_bytes(n, dqk, dv);
-  cudaError_t err = allow_smem(hstu_attn_bwd_kernel<T, ADROP, WIDE>, smem);
-  if (err != cudaSuccess) return err;
-  hstu_attn_bwd_kernel<T, ADROP, WIDE><<<B, kBwdThreads, smem, s>>>(
-      y, d_attn, colmask, rel_pos, ext, tsw, d_y, dbias, n, H, dqk, dv, inv_n, max_bucket, adp);
+template <typename T, bool ADROP>
+cudaError_t launch_attn_bwd(const BwdParams<T>& p, int B, cudaStream_t s) {
+  const size_t smem = attn_bwd_smem_bytes(p.n, p.dqk, p.dv);
+  cudaError_t err;
+  if ((err = allow_smem(hstu_attn_bwd_rows_kernel<T, ADROP>, smem)) != cudaSuccess ||
+      (err = allow_smem(hstu_attn_bwd_cols_kernel<T, ADROP>, smem)) != cudaSuccess) {
+    return err;
+  }
+  const dim3 grid(B, (p.n + kBT - 1) / kBT);
+  hstu_attn_bwd_rows_kernel<T, ADROP><<<grid, kBwdThreads, smem, s>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  hstu_attn_bwd_cols_kernel<T, ADROP><<<grid, kBwdThreads, smem, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -375,21 +831,9 @@ cudaError_t train_bwd(const T* y, const T* d_o, float* attn, bool recompute,
                                v.concat_ua != 0, s)) != cudaSuccess) {
     return err;
   }
-  const bool wide = attn_bwd_wide(n, dqk, dv);
-  if (adp.drop) {
-    return wide ? launch_attn_bwd<T, true, true>(y, d_attn_scratch, colmask, rel_pos, ext, tsw,
-                                                 d_y, dbias, B, n, H, dqk, dv, inv_n, max_bucket,
-                                                 adp, s)
-                : launch_attn_bwd<T, true, false>(y, d_attn_scratch, colmask, rel_pos, ext, tsw,
-                                                  d_y, dbias, B, n, H, dqk, dv, inv_n, max_bucket,
-                                                  adp, s);
-  }
-  return wide ? launch_attn_bwd<T, false, true>(y, d_attn_scratch, colmask, rel_pos, ext, tsw,
-                                                d_y, dbias, B, n, H, dqk, dv, inv_n, max_bucket,
-                                                adp, s)
-              : launch_attn_bwd<T, false, false>(y, d_attn_scratch, colmask, rel_pos, ext, tsw,
-                                                 d_y, dbias, B, n, H, dqk, dv, inv_n, max_bucket,
-                                                 adp, s);
+  const BwdParams<T> p{y,  d_attn_scratch, colmask, rel_pos, ext,        tsw, d_y,
+                       dbias, n, H, dqk, dv, inv_n, max_bucket, adp};
+  return adp.drop ? launch_attn_bwd<T, true>(p, B, s) : launch_attn_bwd<T, false>(p, B, s);
 }
 
 }  // namespace

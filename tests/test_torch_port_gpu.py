@@ -251,15 +251,25 @@ def test_k1_cuda_core_route_edges_match_plain(cuda, edge, dtype):
 
 
 # K4's CUDA-core instances at the tile edges: (variant of K4_VARIANTS, (b, n,
-# D, h, dqk, dv)), n <= 211 (the blocks' max_seq_len); "wide" variants take h
-# = 4, dqk = dv = 64 whatever the shape says. The bf16 attention backward recomputes attn through the
-# CUDA-core attention over the bf16 y.
+# D, h, dqk, dv)), max_seq_len max(211, n); "wide" variants take h = 4, dqk
+# = dv = 64 whatever the shape says. The bf16 attention backward recomputes
+# attn through the CUDA-core attention over the bf16 y. The attention
+# backward's 64-row and 64-column tiles end inside a tile at n = 1, 65, 200
+# and 211; n = 357 and 358 are the last length at which the first design
+# (51f0934) staged narrow heads whole and the first at which it took its wide
+# instance.
 K4_CC_EDGES = {
     "act_none_n211_d273": ("act_none", (2, 211, 273, 8, 32, 32)),
     "act_none_n65_h5": ("act_none", (3, 65, 80, 5, 16, 16)),
     "wide_attn_dropout_n200": ("wide+attn_dropout+no_bias", (2, 200, 64, 4, 64, 64)),
     "wide_n1": ("wide", (2, 1, 64, 4, 64, 64)),
+    "act_none_n1": ("act_none", (3, 1, 64, 4, 32, 32)),
+    "act_none_n357": ("act_none", (1, 357, 64, 2, 32, 32)),
+    "act_none_n358": ("act_none", (1, 358, 64, 2, 32, 32)),
 }
+# Instances only f32 takes off the tensor cores: the default SiLU block past
+# the 3xTF32 route's n = 512 (bf16 runs it on K1's tensor-core kernels).
+K4_CC_F32_EDGES = {"default_n513": ("default", (1, 513, 256, 8, 32, 32))}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -268,7 +278,16 @@ def test_k4_cuda_core_route_edges_match_plain(cuda, edge, dtype, monkeypatch):
     """K4's forward and attention backward on the CUDA-core kernels at the
     tiles' edges, against the plain versions at the K4 variant tests'
     tolerances; neither direction counts a tensor-core launch."""
-    variant, shape = K4_CC_EDGES[edge]
+    _check_k4_cuda_core_edge(*K4_CC_EDGES[edge], dtype, cuda, monkeypatch)
+
+
+@pytest.mark.parametrize("edge", list(K4_CC_F32_EDGES))
+def test_k4_f32_cuda_core_edges_match_plain(cuda, edge, monkeypatch):
+    """As test_k4_cuda_core_route_edges_match_plain, in f32 only."""
+    _check_k4_cuda_core_edge(*K4_CC_F32_EDGES[edge], torch.float32, cuda, monkeypatch)
+
+
+def _check_k4_cuda_core_edge(variant, shape, dtype, cuda, monkeypatch):
     monkeypatch.setitem(K4_SHAPES, "edge", shape)
     args, meta = _k4_variant_block(variant, "edge", dtype, cuda)
     fwd, bwd = hstu_block_train.fused_train_block_forward, hstu_block_train.attn_backward
@@ -295,6 +314,56 @@ def test_k4_cuda_core_route_edges_match_plain(cuda, edge, dtype, monkeypatch):
         if want is not None:
             assert _share(got, want) <= tol
     assert (fwd.tc_launches, bwd.tc_launches) == before
+
+
+def _parent_attn_bwd_bytes(n, dqk, dv):
+    """`rails_hstu_train_bwd_smem_bytes` of the first design of
+    `hstu_attn_bwd_kernel`, frozen as commit 51f0934 had it
+    (csrc/hstu_block_train.cu:104-121): 512 threads, four head arrays staged
+    transposed with stride n | 1 (two past 32 head dims, or where four would
+    not fit a block), two row buffers of n a warp, colmask, the time-bucket
+    weights and the n + 1 timestamps."""
+    def staged(wide):
+        floats = (1 if wide else 2) * (dqk + dv) * (n | 1) + 16 * 2 * n + n + 128
+        return floats * 4 + (n + 1) * 4
+    return staged(dqk > 32 or dv > 32 or staged(False) > hstu_block.MAX_SMEM_BYTES)
+
+
+def test_k4_attn_backward_admits_what_the_first_design_admitted(cuda):
+    """Every (n, dqk, dv) with n in 1..1,024 and head dims in {8, 16, 32, 64,
+    96, 128} whose shared memory the first design's rule kept within a block
+    is within a block under the library's rule, which `attn_backward` asks
+    before a launch; the two extremes, dqk = dv = 8 at n = 1,024 and the
+    longest n at dqk = dv = 128, run against the plain version."""
+    from rails_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    widths = (8, 16, 32, 64, 96, 128)
+    longest = 0
+    for dqk in widths:
+        for dv in widths:
+            for n in range(1, 1_025):
+                if _parent_attn_bwd_bytes(n, dqk, dv) > hstu_block.MAX_SMEM_BYTES:
+                    continue
+                assert lib.rails_hstu_train_bwd_smem_bytes(n, dqk, dv) <= (
+                    hstu_block.MAX_SMEM_BYTES), (n, dqk, dv)
+                if dqk == dv == 128:
+                    longest = n
+    assert longest > 100
+    for n, width in ((1_024, 8), (longest, 128)):
+        meta = hstu_block_train.BlockMeta(1, width, width, 1.0 / n, 1e-6, 128, 0.2,
+                                          activation="none")
+        args, _ = _k1_args(1, n, 64, 1, width, width, n, torch.float32, cuda, seed=n)
+        g = torch.Generator(device=cuda).manual_seed(n)
+        y = torch.randn(1, n, 4 * width, generator=g, device=cuda)
+        d_o = torch.randn(1, n, width, generator=g, device=cuda)
+        _, attn = hstu_block_train.fused_train_block_forward_reference(
+            args["x"], args["colmask"], args["uvqk"], args["o_kernel"], args["o_bias"],
+            args["rel_pos"], args["ext"], args["tsw"], 11, meta)
+        bargs = (y, d_o, attn, args["colmask"], args["rel_pos"], args["ext"], args["tsw"], meta, 11)
+        for got, want in zip(hstu_block_train.attn_backward(*bargs),
+                             hstu_block_train.attn_backward_reference(*bargs)):
+            assert _share(got, want) <= 1e-3, (n, width)
 
 
 def test_cuda_core_attention_refuses_past_its_shared_memory(cuda):
@@ -1024,11 +1093,11 @@ K4_SHAPES = {"n1": (1, 1, 64, 2, 16, 16), "n33_padded": (3, 33, 64, 2, 16, 16),
 
 
 def _k4_variant_block(variant, shape, dtype, device):
-    fields, has_bias = K4_VARIANTS[variant]
+    fields, has_bias = K4_VARIANTS.get(variant, ({}, True))   # "default": the SiLU block
     b, n, d, h, dqk, dv = K4_SHAPES[shape]
     if variant.startswith("wide"):
         h, dqk, dv = 4, 64, 64
-    args, kw = _k1_args(b, n, d, h, dqk, dv, 211, dtype, device, seed=n + 7)
+    args, kw = _k1_args(b, n, d, h, dqk, dv, max(211, n), dtype, device, seed=n + 7)
     if shape == "n33_padded":
         args["colmask"][1] = 0.0
     args["x"] = args["x"] * args["colmask"][..., None].to(dtype)
